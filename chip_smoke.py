@@ -3,27 +3,41 @@
 
     python3 chip_smoke.py [--seed N] [--iters N]
 
-Run from the root of a checkout. Phases, each printing its own lines;
-any failure raises and exits non-zero:
+Run from the root of a checkout. Three paths are driven: the 2048x2048x3
+single-frame restore, a batch of 64 256^2 frames (batch64, PSF(25, 30))
+and a batch of 8 2048^2 frames (batch8, PSF(50, 30)). Phases, each
+printing its own lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds);
-  2. kernels each of the four kernels against its plain PyTorch version
-             on the card, at the shapes of a 2048x2048x3 restore, with
-             the tolerances below, and each one timed against its plain
-             version with CUDA events;
-  3. slice   WienerDeblurPipeline(device="cuda") on blurred frames made
-             from --seed: the 2048^2 main path once with the launch
-             counters reset (every kernel must have run), 640x330 and
-             1920x782 against the serial oracle at the inf tier, 2048^2
-             against the port's plain path on the card (the same restore
-             with every kernel's plain version);
-  4. timing  ms/frame and MP/s of the 2048^2 restore (CUDA events) for
-             wb_stats_stride 1 and 4.
+  2. kernels every kernel against its plain PyTorch version on the card,
+             at the shapes the three paths give it, with the tolerances
+             below; each timed against its plain version with CUDA
+             events, beside its bound (the larger of the bytes it must
+             move over 3.35 TB/s and its float32 operations over 67
+             TFLOP/s) and, for each fft_rows mode, torch.fft.fft over the
+             same complex planes (the library yardstick, not on the path);
+  3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
+             blurred frames made from --seed: each path once with the
+             launch counters reset (each of its kernels must have run;
+             batch64 must take the B7 middle, batch8 the B2 middle),
+             then against the port's plain path on the card (the same
+             restore with every kernel's plain version); 640x330 and
+             1920x782 frames, a stack of three 640x330 frames and one
+             point of a psf_grid_sweep against the serial oracle at the
+             inf tier; batch8 image by image against the single-frame
+             pipeline; the CLI on a directory of five PNGs;
+  4. timing  ms/frame and MP/s of the 2048^2 restore, ms/batch, ms/frame,
+             MP/s and host enqueue of batch64 and batch8 (serving graph,
+             CUDA events, the median of five loops) for wb_stats_stride 1
+             and 4, and the middle A/B: B2 against B7 + the inverse-T
+             pass on the same input at hp = 256 (batch64) and hp = 2048
+             (batch8).
 
-The last three lines are the kernel table (JSON), the card's name and
-power limit (nvidia-smi), and {"ok": true, "device": {...}}. Imports
-nothing of JAX and nothing of the JAX package: the oracle, the frames and
-the verify tiers come from fft_restoration_tpu_torch.host.
+The last three lines are the results (JSON: the kernel table and the
+timings), the card's name and power limit (nvidia-smi), and {"ok": true,
+"device": {...}}. Imports nothing of JAX and nothing of the JAX package:
+the oracle, the frames and the verify tiers come from
+fft_restoration_tpu_torch.host.
 """
 
 from __future__ import annotations
@@ -41,6 +55,13 @@ TOL_PARTIALS_REL = 1e-4  # block sums; hardware ex2/lg2 (~2 ulp) and sum order
 TOL_U8 = 1               # uint8 counts: rounding at the truncation edge
 TOL_SLICE_PLANES = 1e-4  # kernel path vs plain path, restored planes
 SIZE = 2048
+# published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# the batched paths: (name, frames, side, PSF length), PSF angle 30, K 0.01
+BATCHES = (("batch64_256sq", 64, 256, 25), ("batch8_2048sq", 8, 2048, 50))
+SRC = "fft_restoration_tpu_torch/"
+TPU = "fft_restoration_tpu/ops/pallas/"
 
 
 def log(msg: str) -> None:
@@ -77,6 +98,14 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_median(torch, fn, iters: int, reps: int = 5):
+    """Median and all of `reps` cuda_ms loops: a loop near the host's
+    enqueue limit reads high when the shared host has a slow spell, so
+    the spread between loops is kept beside the median."""
+    runs = [cuda_ms(torch, fn, iters, warmup=3 if i == 0 else 0) for i in range(reps)]
+    return sorted(runs)[reps // 2], runs
+
+
 def blurred_frame(np, h: int, w: int, seed: int, length: int = 50, angle: float = 30.0):
     """A motion-blurred uint8 BGR frame: smooth random scene + detail."""
     from fft_restoration_tpu_torch.host.blurgen import blur_image
@@ -89,168 +118,299 @@ def blurred_frame(np, h: int, w: int, seed: int, length: int = 50, angle: float 
 
 
 def rel_err(torch, a, b) -> float:
+    a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def plain_restore(torch, frame, stride=1, emit_planes=True):
-    """The 2048^2 restore on the card through every kernel's plain version:
-    the reference of the kernel path. Returns a function of no arguments
-    that runs it (PSF spectrum made once, as the pipeline caches it)."""
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(nbytes), flops=int(flops))
+
+
+def fft_flops(rows: int, n: int) -> float:
+    """Radix-2 FFT of `rows` complex rows of n points: n/2 * log2(n)
+    butterflies of 10 float32 operations each."""
+    return 5.0 * n * (n.bit_length() - 1) * rows
+
+
+# float32 operations per pixel of the post-processing kernels, counted
+# from ops/color.py (each pow = exp2 + log2 + a multiply): Lab L of one
+# BGR pixel ~50 (B4/B8a computes it for the restored and the original
+# pixel), the white-balanced Lab round trip and encode ~160 (B5/B8b)
+LAB_L_FLOPS = 50
+WB_ENCODE_FLOPS = 160
+
+
+def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True):
+    """A (B, h, w, 3) stack's restore on the card through every kernel's
+    plain version: the reference of the kernel path. Returns a function
+    of no arguments that runs it (PSF spectrum made once, as the
+    pipelines cache it)."""
     from fft_restoration_tpu_torch.models.pipeline import (
-        PLAIN_OPS, _restore_core, pad_extents, psf_spectrum_planes,
+        PLAIN_OPS, pad_extents, psf_spectrum_planes, restore_stack,
     )
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
     dev = torch.device("cuda", 0)
-    img = torch.as_tensor(frame, device=dev)
-    hp, wp = pad_extents(*frame.shape[:2])
-    H = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), hp, wp, PLAIN_OPS)
-    return lambda: _restore_core(img, H, 0.01, white_balance=True, emit_planes=emit_planes,
+    x = torch.as_tensor(stack, device=dev)
+    hp, wp = pad_extents(*stack.shape[1:3])
+    H = psf_spectrum_planes(make_psf("motion", psf_length, 30.0, dev), hp, wp, PLAIN_OPS)
+    return lambda: restore_stack(x, H, 0.01, white_balance=True, emit_planes=emit_planes,
                                  wb_stats_stride=stride, ops=PLAIN_OPS)
 
 
-def check_kernels(torch, np, frame, seed, iters):
-    """Phase 2: every kernel against its plain version at the 2048^2
-    main-path shapes. Returns the per-kernel table rows."""
-    from fft_restoration_tpu_torch.models.pipeline import (
-        PLAIN_OPS, minmax_norm, pad_extents, psf_spectrum_planes,
+def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None):
+    """Kernel vs plain version: errors over the (kernel, plain) output
+    pairs, CUDA-event times of both (and of the library call), bound."""
+    m = dict(
+        max_rel_err=max(rel_err(torch, k, p) for k, p in outs),
+        max_abs_err=max(float((k.float() - p.float()).abs().max()) for k, p in outs),
+        ms=cuda_ms(torch, kern, iters), plain_ms=cuda_ms(torch, plain, 3, 1),
+        library_ms=None if lib is None else cuda_ms(torch, lib, iters),
     )
+    m.update(bound(nbytes, flops))
+    return m
+
+
+def check_fft_rows(torch, np, frame, stack64, iters):
+    """fft_rows in each of its main-path modes against its plain version,
+    with torch.fft.fft over the last axis of the same (P, M, N) complex64
+    planes as the library yardstick. Returns (modes, B1 planes of the
+    2048^2 frame and of batch64 as the plain version gives them)."""
+    from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS, psf_spectrum_planes
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
-    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
     dev = torch.device("cuda", 0)
-    img = torch.as_tensor(frame, device=dev)
-    h, w = img.shape[:2]
-    hp, wp = pad_extents(h, w)
-    chans = img.permute(2, 0, 1)
-    re, im = chans[0::2], chans[1::2]
+    img = torch.as_tensor(frame, device=dev)[None]
+    s64 = torch.as_tensor(stack64, device=dev)
+    h, w = frame.shape[:2]
+    hp, wp = h, w  # pow2 already
     psf = make_psf("motion", 50, 30.0, dev)
-    rows = []
-
-    # fft_rows, in each of its three main-path modes: B1 (u8 frame, pad,
-    # transposed store), B6 (PSF second pass, natural store), B3 (packed
-    # inverse + min/max)
-    fwd_k = fk.fft_rows(re, im, transposed=True, extent=(hp, wp))
-    fwd_p = fk.fft_rows_plain(re, im, transposed=True, extent=(hp, wp))
+    fwd_k = fk.fft_rows_stack(img, extent=(hp, wp))
+    fwd_p = fk.fft_rows_stack_plain(img, extent=(hp, wp))
     psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp))
     Hk = psf_spectrum_planes(psf, hp, wp)
     Hp = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS)
     mid = ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01)
     out_k, mm_k = fk.fft_rows_packed_out(*mid, inverse=True)
     out_p, mm_p = fk.fft_rows_packed_out_plain(*mid, inverse=True)
-    pairs = {
+    n64, side = stack64.shape[0], stack64.shape[1]
+    st_k = fk.fft_rows_stack(s64, extent=(side, side))
+    st_p = fk.fft_rows_stack_plain(s64, extent=(side, side))
+    H64 = psf_spectrum_planes(make_psf("motion", 25, 30.0, dev), side, side, PLAIN_OPS)
+    f64 = ws.fwd_wiener_rows_plain(*st_p, *H64, 0.01)
+    inv_k = fk.fft_rows(*f64, inverse=True, transposed=True)
+    inv_p = fk.fft_rows_plain(*f64, inverse=True, transposed=True)
+    p64 = st_p[0].shape[0]
+
+    def lib(re, im):
+        x = torch.complex(re, im)
+        return lambda: torch.fft.fft(x, dim=-1)
+
+    f2 = 2 * hp * wp * 4  # one float32 plane pair at 2048^2
+    specs = {
+        # mode: (output pairs, kernel, plain, bytes, flops, library call)
         "B1_frame_T": (list(zip(fwd_k, fwd_p)),
-                       lambda: fk.fft_rows(re, im, transposed=True, extent=(hp, wp)),
-                       lambda: fk.fft_rows_plain(re, im, transposed=True, extent=(hp, wp))),
+                       lambda: fk.fft_rows_stack(img, extent=(hp, wp)),
+                       lambda: fk.fft_rows_stack_plain(img, extent=(hp, wp)),
+                       h * w * 3 + 2 * f2, fft_flops(2 * h, wp), lib(*fwd_p)),
         "B6_psf_natural": (list(zip(Hk, Hp)),  # B1 real-input pass + B6 pass
-                           lambda: fk.fft_rows(*psf1), lambda: fk.fft_rows_plain(*psf1)),
+                           lambda: fk.fft_rows(*psf1), lambda: fk.fft_rows_plain(*psf1),
+                           2 * f2, fft_flops(wp, hp), lib(*psf1)),
         "B3_packed_inv": ([(out_k, out_p), (mm_k, mm_p)],
                           lambda: fk.fft_rows_packed_out(*mid, inverse=True),
-                          lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True)),
+                          lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True),
+                          4 * f2, fft_flops(2 * hp, wp), lib(*mid)),
+        "B1_stack_T": (list(zip(st_k, st_p)),
+                       lambda: fk.fft_rows_stack(s64, extent=(side, side)),
+                       lambda: fk.fft_rows_stack_plain(s64, extent=(side, side)),
+                       s64.numel() + 2 * p64 * side * side * 4, fft_flops(p64 * side, side),
+                       lib(*st_p)),
+        "B1_inverse_T": (list(zip(inv_k, inv_p)),
+                         lambda: fk.fft_rows(*f64, inverse=True, transposed=True),
+                         lambda: fk.fft_rows_plain(*f64, inverse=True, transposed=True),
+                         4 * p64 * side * side * 4, fft_flops(p64 * side, side), lib(*f64)),
     }
     modes = {}
-    for mode, (outs, kern, plain) in pairs.items():
-        modes[mode] = dict(
-            max_rel_err=max(rel_err(torch, k, p) for k, p in outs),
-            max_abs_err=float(max((k - p).abs().max() for k, p in outs)),
-            ms=cuda_ms(torch, kern, iters), plain_ms=cuda_ms(torch, plain, 3, 1),
-        )
-        m = modes[mode]
+    for mode, (outs, kern, plain, nbytes, flops, lib_fn) in specs.items():
+        m = modes[mode] = measure(torch, outs, kern, plain, iters, nbytes, flops, lib_fn)
         log(f"fft_rows {mode}: max rel err {m['max_rel_err']:.3e} (tol {TOL_FFT_REL}); "
-            f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms")
+            f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f}, torch.fft {m['library_ms']:.4f}, "
+            f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
         if not m["max_rel_err"] <= TOL_FFT_REL:
             fail(f"fft_rows {mode} disagrees with its plain version")
+    return modes, dict(frame=(fwd_p, Hp, mid, out_p, mm_p, img), batch64=(st_p, H64, s64))
+
+
+def check_kernels(torch, np, frame, stack64, stack8, iters):
+    """Phase 2: every kernel against its plain version at the shapes of
+    the three paths. Returns the per-kernel table rows."""
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, minmax_norm, restore_raw,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.kernels.postprocess import sampled_live_pixels
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    modes, keep = check_fft_rows(torch, np, frame, stack64, iters)
+    fwd_p, Hp, mid, out_p, mm_p, img = keep["frame"]
+    st_p, H64, s64 = keep["batch64"]
+    per_frame = ("B1_frame_T", "B3_packed_inv")  # the two passes of a 2048^2 restore
     rows.append(dict(
-        name="fft_rows", route="cuda", source="fft_restoration_tpu_torch/csrc/fft_rows.cu",
-        replaces="fft_restoration_tpu/ops/pallas/fft_kernel.py:699",
-        also_replaces=["fft_restoration_tpu/ops/pallas/fft_kernel.py:820",
-                       "fft_restoration_tpu/ops/pallas/fft_kernel.py:1107"],
+        name="fft_rows", route="cuda", source=SRC + "csrc/fft_rows.cu",
+        replaces=TPU + "fft_kernel.py:699",
+        also_replaces=[TPU + "fft_kernel.py:820", TPU + "fft_kernel.py:1107"],
         max_abs_err=max(m["max_abs_err"] for m in modes.values()),
         max_rel_err=max(m["max_rel_err"] for m in modes.values()),
-        # per frame the path runs B1 once and B3 once (B6 only per new PSF)
-        ms=modes["B1_frame_T"]["ms"] + modes["B3_packed_inv"]["ms"],
-        plain_ms=modes["B1_frame_T"]["plain_ms"] + modes["B3_packed_inv"]["plain_ms"],
+        ms=sum(modes[k]["ms"] for k in per_frame),
+        plain_ms=sum(modes[k]["plain_ms"] for k in per_frame),
+        library_ms=sum(modes[k]["library_ms"] for k in per_frame),
+        bound_ms=sum(modes[k]["bound_ms"] for k in per_frame),
+        bound_by=("operations", "bytes")[all(modes[k]["bound_by"] == "bytes" for k in per_frame)],
         modes=modes,
     ))
 
-    # wiener_spectral_t
+    # wiener_spectral_t (B2), 2048^2
+    h, w = frame.shape[:2]
     mid_k = ws.wiener_spectral_t(*fwd_p, *Hp, 0.01)
-    err = max(rel_err(torch, k, p) for k, p in zip(mid_k, mid))
-    ms = cuda_ms(torch, lambda: ws.wiener_spectral_t(*fwd_p, *Hp, 0.01), iters)
-    plain_ms = cuda_ms(torch, lambda: ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01), 3, 1)
-    log(f"wiener_spectral_t: max rel err {err:.3e} (tol {TOL_WIENER_REL}); "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    if not err <= TOL_WIENER_REL:
+    m = measure(torch, list(zip(mid_k, mid)), lambda: ws.wiener_spectral_t(*fwd_p, *Hp, 0.01),
+                lambda: ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01), iters,
+                (4 + 4 + 2) * h * w * 4, 2 * fft_flops(2 * w, h) + 2 * h * w * 12)
+    log(f"wiener_spectral_t: max rel err {m['max_rel_err']:.3e} (tol {TOL_WIENER_REL}); "
+        f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms")
+    if not m["max_rel_err"] <= TOL_WIENER_REL:
         fail("wiener_spectral_t disagrees with its plain version")
-    rows.append(dict(
-        name="wiener_spectral_t", route="cuda",
-        source="fft_restoration_tpu_torch/csrc/wiener_spectral.cu",
-        replaces="fft_restoration_tpu/ops/pallas/wiener_spectral.py:402",
-        max_abs_err=float(max((k - p).abs().max() for k, p in zip(mid_k, mid))),
-        max_rel_err=err, ms=ms, plain_ms=plain_ms,
-    ))
+    rows.append(dict(name="wiener_spectral_t", route="cuda",
+                     source=SRC + "csrc/wiener_spectral.cu",
+                     replaces=TPU + "wiener_spectral.py:402", **m))
 
-    # post-processing, on the plain path's raw planes
+    # fwd_wiener_rows (B7): batch64's middle, and the 2048^2 frame's planes
+    b7 = {}
+    for mode, (a, H) in (("batch64_96x256x256", (st_p, H64)), ("frame_2x2048x2048", (fwd_p, Hp))):
+        pl, m_, n_ = a[0].shape
+        fk_ = ws.fwd_wiener_rows(*a, *H, 0.01)
+        fp_ = ws.fwd_wiener_rows_plain(*a, *H, 0.01)
+        b7[mode] = measure(
+            torch, list(zip(fk_, fp_)), lambda: ws.fwd_wiener_rows(*a, *H, 0.01),
+            lambda: ws.fwd_wiener_rows_plain(*a, *H, 0.01), iters,
+            (4 * pl + 2) * m_ * n_ * 4, fft_flops(pl * m_, n_) + pl * m_ * n_ * 12)
+        log(f"fwd_wiener_rows {mode}: max rel err {b7[mode]['max_rel_err']:.3e} "
+            f"(tol {TOL_WIENER_REL}); {b7[mode]['ms']:.4f} ms vs plain "
+            f"{b7[mode]['plain_ms']:.4f} ms, bound {b7[mode]['bound_ms']:.4f} ms")
+        if not b7[mode]["max_rel_err"] <= TOL_WIENER_REL:
+            fail(f"fwd_wiener_rows {mode} disagrees with its plain version")
+    rows.append(dict(name="fwd_wiener_rows", route="cuda",
+                     source=SRC + "csrc/wiener_spectral.cu",
+                     replaces=TPU + "wiener_spectral.py:189",
+                     **b7["batch64_96x256x256"], modes=b7))
+
+    # post-processing (B4/B8a, B5/B8b) on the plain path's raw planes: the
+    # 2048^2 frame, batch64 and batch8
     lo, scale = minmax_norm(mm_p, 2, 3)
-    for stride, block in ((1, 64), (4, 8)):
-        pk = pp.lab_l_sum_partials(out_p, chans, lo, scale, (h, w), stride, block)
-        pl = pp.lab_l_sum_partials_plain(out_p, chans, lo, scale, (h, w), stride, block)
-        err = rel_err(torch, pk, pl)
-        log(f"lab_l_sum_partials stride {stride}: max rel err {err:.3e} (tol {TOL_PARTIALS_REL})")
-        if not err <= TOL_PARTIALS_REL:
-            fail("lab_l_sum_partials disagrees with its plain version")
-        if stride == 1:
-            row = dict(
-                name="lab_l_sum_partials", route="triton",
-                source="fft_restoration_tpu_torch/ops/kernels/postprocess_triton.py",
-                replaces="fft_restoration_tpu/ops/pallas/postprocess.py:352",
-                max_abs_err=float((pk - pl).abs().max()), max_rel_err=err,
-            )
-    row["ms"] = cuda_ms(torch, lambda: pp.lab_l_sum_partials(out_p, chans, lo, scale, (h, w)), iters)
-    row["plain_ms"] = cuda_ms(
-        torch, lambda: pp.lab_l_sum_partials_plain(out_p, chans, lo, scale, (h, w)), 3, 1)
-    log(f"lab_l_sum_partials: {row['ms']:.4f} ms vs plain {row['plain_ms']:.4f} ms")
-    rows.append(row)
-
-    gain = torch.tensor([1.07], dtype=torch.float32, device=dev)
-    ek = pp.wb_encode_u8(out_p, gain, lo, scale, (h, w))
-    ep = pp.wb_encode_u8_plain(out_p, gain, lo, scale, (h, w))
-    diff = int((ek.int() - ep.int()).abs().max())
-    ms = cuda_ms(torch, lambda: pp.wb_encode_u8(out_p, gain, lo, scale, (h, w)), iters)
-    plain_ms = cuda_ms(torch, lambda: pp.wb_encode_u8_plain(out_p, gain, lo, scale, (h, w)), 3, 1)
-    n_off = int((ek != ep).sum())
-    log(f"wb_encode_u8: max diff {diff} count(s) on {n_off} values (tol {TOL_U8}); "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    if not diff <= TOL_U8:
-        fail("wb_encode_u8 disagrees with its plain version")
+    s8 = torch.as_tensor(stack8, device=dev)
+    H8 = Hp  # batch8 shares the 2048^2 frame's PSF (50, 30)
+    raw64 = restore_raw(s64, H64, 0.01, PLAIN_OPS)
+    raw8 = restore_raw(s8, H8, 0.01, PLAIN_OPS)
+    cases = {
+        # name: (raw, lo, scale, orig (B, 3, h, w), strides)
+        "frame_2048sq": (out_p, lo, scale, img.permute(0, 3, 1, 2), (1, 4)),
+        "batch64_256sq": (*raw64, s64.permute(0, 3, 1, 2), (1, 4)),
+        "batch8_2048sq": (*raw8, s8.permute(0, 3, 1, 2), (1, 4)),
+    }
+    lab_modes, wb_modes = {}, {}
+    for case, (raw, lo_, sc_, orig, strides) in cases.items():
+        b, _, hh, ww = orig.shape
+        h0, w0 = raw.shape[1:]
+        for stride in strides:
+            block = 8 if stride > 1 else 64
+            px = b * sampled_live_pixels(h0, w0, (hh, ww), block, stride)
+            args = (raw, orig, lo_, sc_, (hh, ww), stride, block)
+            pk = pp.lab_l_sum_partials_batched(*args)
+            plp = pp.lab_l_sum_partials_batched_plain(*args)
+            mm = lab_modes[f"{case}_stride{stride}"] = measure(
+                torch, [(pk, plp)], lambda: pp.lab_l_sum_partials_batched(*args),
+                lambda: pp.lab_l_sum_partials_batched_plain(*args), iters,
+                px * (3 * 4 + 3), px * 2 * LAB_L_FLOPS)
+            log(f"lab_l_sum_partials {case} stride {stride}: max rel err "
+                f"{mm['max_rel_err']:.3e} (tol {TOL_PARTIALS_REL}); {mm['ms']:.4f} ms vs plain "
+                f"{mm['plain_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms")
+            if not mm["max_rel_err"] <= TOL_PARTIALS_REL:
+                fail(f"lab_l_sum_partials {case} stride {stride} disagrees with its plain version")
+        gains = torch.linspace(0.95, 1.1, b, device=dev)
+        eargs = (raw, gains, lo_, sc_, (hh, ww))
+        ek = pp.wb_encode_u8_batched(*eargs)
+        ep = pp.wb_encode_u8_batched_plain(*eargs)
+        mm = wb_modes[case] = measure(
+            torch, [(ek, ep)], lambda: pp.wb_encode_u8_batched(*eargs),
+            lambda: pp.wb_encode_u8_batched_plain(*eargs), iters,
+            b * hh * ww * (3 * 4 + 3), b * hh * ww * WB_ENCODE_FLOPS)
+        mm["values_off"] = int((ek != ep).sum())
+        log(f"wb_encode_u8 {case}: max diff {mm['max_abs_err']:.0f} count(s) on "
+            f"{mm['values_off']} values (tol {TOL_U8}); {mm['ms']:.4f} ms vs plain "
+            f"{mm['plain_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms")
+        if not mm["max_abs_err"] <= TOL_U8:
+            fail(f"wb_encode_u8 {case} disagrees with its plain version")
+    post = TPU + "postprocess.py:"
+    rows.append(dict(
+        name="lab_l_sum_partials", route="triton",
+        source=SRC + "ops/kernels/postprocess_triton.py", replaces=post + "352",
+        also_replaces=[post + "547"],
+        **{k: v for k, v in lab_modes["frame_2048sq_stride1"].items()},
+        max_rel_err_all=max(m["max_rel_err"] for m in lab_modes.values()), modes=lab_modes,
+    ))
     rows.append(dict(
         name="wb_encode_u8", route="triton",
-        source="fft_restoration_tpu_torch/ops/kernels/postprocess_triton.py",
-        replaces="fft_restoration_tpu/ops/pallas/postprocess.py:439",
-        max_abs_err=float(diff), ms=ms, plain_ms=plain_ms,
+        source=SRC + "ops/kernels/postprocess_triton.py", replaces=post + "439",
+        also_replaces=[post + "630"], **wb_modes["frame_2048sq"],
+        max_abs_err_all=max(m["max_abs_err"] for m in wb_modes.values()), modes=wb_modes,
     ))
     return rows
 
 
+def drive(torch, name, fn, expect, forbid=()):
+    """Run one path with the launch counters set to 0 just before and read
+    just after; fail unless every kernel in `expect` launched and none in
+    `forbid` did. Returns (fn's result, counts)."""
+    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    counts = {k: launch_counts[k] for k in KERNELS}
+    log(f"{name} launches: {counts}")
+    missing = [k for k in expect if counts[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the {name} path: {missing}")
+    extra = [k for k in forbid if counts[k]]
+    if extra:
+        fail(f"kernels launched off the {name} path's middle: {extra}")
+    return res, counts
+
+
+def u8_max(np, a, b) -> int:
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+
+
 def check_slice(torch, np, frame, seed):
-    """Phase 3: the main path once with counters reset, then oracle and
-    plain-path agreement. Returns the launch counts of the main path."""
+    """Phase 3, single frame: the 2048^2 path once with counters reset,
+    then oracle and plain-path agreement. Returns the launch counts."""
     from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
     from fft_restoration_tpu_torch.host.verify import channels_equal
-    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
 
     pipe = WienerDeblurPipeline(device="cuda")
-    reset_launch_counts()
-    out, planes = pipe.restore_with_planes(frame, 50, 30.0, 0.01)
-    torch.cuda.synchronize()
-    counts = {k: launch_counts[k] for k in KERNELS}
-    log(f"main path 2048x2048x3 launches: {counts}")
-    missing = [k for k, n in counts.items() if n == 0]
-    if missing:
-        fail(f"kernels not launched on the main path: {missing}")
+    (out, planes), counts = drive(
+        torch, "main path 2048x2048x3", lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
+        expect=("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8"),
+        forbid=("fwd_wiener_rows",))
     if out.shape != frame.shape or out.dtype != np.uint8 or not np.isfinite(planes).all():
         fail(f"bad output: {out.shape} {out.dtype}, finite planes {np.isfinite(planes).all()}")
 
@@ -264,9 +424,9 @@ def check_slice(torch, np, frame, seed):
         if not rep.passed:
             fail(f"{w}x{h} fails the inf tier against the oracle")
 
-    out_p, planes_p = (t.cpu().numpy() for t in plain_restore(torch, frame)())
+    out_p, planes_p = (t[0].cpu().numpy() for t in plain_restore(torch, frame[None], 50)())
     dp = float(np.abs(planes - planes_p).max())
-    du = int(np.abs(out.astype(np.int32) - out_p.astype(np.int32)).max())
+    du = u8_max(np, out, out_p)
     log(f"2048x2048 kernel vs plain path: planes max abs {dp:.3e} (tol {TOL_SLICE_PLANES}), "
         f"uint8 max {du} (tol {TOL_U8})")
     if not (dp <= TOL_SLICE_PLANES and du <= TOL_U8):
@@ -274,14 +434,123 @@ def check_slice(torch, np, frame, seed):
     for stride in (1, 4):
         kw = dict(device="cuda", emit_planes=False, wb_stats_stride=stride)
         o = WienerDeblurPipeline(**kw).restore(frame, 50, 30.0, 0.01)
-        o_p = plain_restore(torch, frame, stride, emit_planes=False)()[0].cpu().numpy()
-        d = int(np.abs(o.astype(np.int32) - o_p.astype(np.int32)).max())
-        d1 = int(np.abs(o.astype(np.int32) - out_p.astype(np.int32)).max())
+        o_p = plain_restore(torch, frame[None], 50, stride, emit_planes=False)()[0][0]
+        d = u8_max(np, o, o_p.cpu().numpy())
+        d1 = u8_max(np, o, out_p)
         log(f"serving graph, wb_stats_stride {stride}: uint8 max {d} vs plain path at "
             f"the same stride (tol {TOL_U8}), {d1} vs plain path at stride 1")
         if not d <= TOL_U8:
             fail(f"serving graph at stride {stride} disagrees with the plain path")
     return counts
+
+
+def check_batched(torch, np, stacks, seed):
+    """Phase 3, batched: batch64 and batch8 once each with counters reset
+    (B7 middle at hp = 256, B2 at hp = 2048), against the plain path;
+    batch8 against the single-frame pipeline; a 640x330 stack and a PSF
+    sweep point against the oracle; the CLI on a directory. Returns
+    {path: {launches, peak_mib}}."""
+    from fft_restoration_tpu_torch import (
+        BatchedWienerPipeline, WienerDeblurPipeline, psf_grid_sweep,
+    )
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+
+    res = {}
+    common = ("fft_rows", "lab_l_sum_partials", "wb_encode_u8")
+    for name, _, side, psf in BATCHES:
+        stack = stacks[name]
+        pipe = BatchedWienerPipeline("cuda")
+        x = pipe.to_device(stack)
+        middle = ("wiener_spectral_t", "fwd_wiener_rows")[side < 512]
+        other = ("fwd_wiener_rows", "wiener_spectral_t")[side < 512]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (out, planes), counts = drive(torch, name, lambda: pipe.run(x, psf, 30.0, 0.01),
+                                      expect=common + (middle,), forbid=(other,))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out, planes = out.cpu().numpy(), planes.cpu().numpy()
+        if out.shape != stack.shape or not np.isfinite(planes).all():
+            fail(f"{name}: bad output {out.shape}, finite planes {np.isfinite(planes).all()}")
+        out_p, planes_p = (t.cpu().numpy() for t in plain_restore(torch, stack, psf)())
+        dp = float(np.abs(planes - planes_p).max())
+        du = u8_max(np, out, out_p)
+        log(f"{name} kernel vs plain path: planes max abs {dp:.3e} (tol {TOL_SLICE_PLANES}), "
+            f"uint8 max {du} (tol {TOL_U8}); peak allocation {peak:.1f} MiB above the stack")
+        if not (dp <= TOL_SLICE_PLANES and du <= TOL_U8):
+            fail(f"{name} kernel path disagrees with the plain path")
+        res[name] = dict(launches=counts, peak_mib_emit_planes=peak,
+                         vs_plain=dict(planes_max_abs=dp, u8_max=du))
+        if name == "batch8_2048sq":
+            single = WienerDeblurPipeline("cuda")
+            d = max(u8_max(np, out[i], single.restore(stack[i], psf, 30.0, 0.01))
+                    for i in range(len(stack)))
+            log(f"{name} image by image vs WienerDeblurPipeline: uint8 max {d} (tol {TOL_U8})")
+            if not d <= TOL_U8:
+                fail(f"{name} disagrees with the single-frame pipeline")
+            res[name]["vs_single_u8_max"] = d
+
+    # a stack of three 640x330 frames and a 2 x 3 PSF sweep vs the oracle
+    car = np.stack([blurred_frame(np, 330, 640, seed + 300 + i) for i in range(3)])
+    planes = BatchedWienerPipeline("cuda").restore_planes(car, 50, 30.0, 0.01)
+    oracle0 = None
+    for i in range(3):
+        oracle = restore_frame_channels(car[i], 50, 30.0, 0.01)
+        oracle0 = oracle if i == 0 else oracle0
+        rep = channels_equal(planes[i], oracle, "inf")
+        log(f"640x330 stack image {i} vs serial oracle: {rep}")
+        if not rep.passed:
+            fail(f"640x330 stack image {i} fails the inf tier against the oracle")
+    sweep = psf_grid_sweep(car[0], [40, 50], [15.0, 30.0, 45.0], 0.01, device="cuda")
+    rep = channels_equal(sweep[1, 1], oracle0, "inf")
+    log(f"psf_grid_sweep {sweep.shape}, point (50, 30) vs serial oracle: {rep}")
+    if sweep.shape != (2, 3, 3, 330, 640) or not rep.passed:
+        fail("psf_grid_sweep fails the inf tier against the oracle")
+
+    # the CLI on a directory: four same-size frames (batched) and one
+    # of another size (single)
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import cli
+    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
+
+    four = stacks["batch64_256sq"][:4]
+    with tempfile.TemporaryDirectory() as d:
+        src, dst = os.path.join(d, "in"), os.path.join(d, "out")
+        os.mkdir(src)
+        for i, f in enumerate(four):
+            imwrite(os.path.join(src, f"f{i}.png"), f)
+        imwrite(os.path.join(src, "car.png"), car[0])
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([src, "25", "30", "-o", dst])
+        summary = [ln for ln in text.getvalue().splitlines() if ln.startswith("Restored")]
+        log(f"CLI on a directory: exit {rc}; {summary}")
+        ref = BatchedWienerPipeline("cuda").restore(four, 25, 30.0, 0.01)
+        d4 = max(u8_max(np, imread(os.path.join(dst, f"f{i}_restored.png")), ref[i])
+                 for i in range(4))
+        d1 = u8_max(np, imread(os.path.join(dst, "car_restored.png")),
+                    WienerDeblurPipeline("cuda").restore(car[0], 25, 30.0, 0.01))
+        log(f"CLI outputs vs the pipelines: uint8 max {d4} (batched), {d1} (single)")
+        if rc != 0 or not summary or not summary[0].startswith("Restored 5 frames") \
+                or max(d4, d1) > TOL_U8:
+            fail("the CLI's directory run failed or disagrees with the pipelines")
+    return res
+
+
+def host_enqueue_ms(torch, fn, n: int) -> float:
+    """Host time to queue one call, the device left to run behind."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
 
 
 def time_slice(torch, np, frame, iters):
@@ -293,13 +562,80 @@ def time_slice(torch, np, frame, iters):
     for stride in (1, 4):
         pipe = WienerDeblurPipeline(device="cuda", emit_planes=False, wb_stats_stride=stride)
         img = pipe.to_device(frame)
-        ms = cuda_ms(torch, lambda: pipe.run(img, 50, 30.0, 0.01), iters, warmup=3)
-        res[f"stride{stride}"] = dict(ms_per_frame=ms, mp_per_s=mp / (ms / 1e3))
-        log(f"2048x2048x3 restore, wb_stats_stride {stride}: {ms:.4f} ms/frame, "
-            f"{mp / (ms / 1e3):.1f} MP/s")
-    ms = cuda_ms(torch, plain_restore(torch, frame, emit_planes=False), 3, warmup=1)
+        ms, runs = cuda_ms_median(torch, lambda: pipe.run(img, 50, 30.0, 0.01), iters)
+        enq = host_enqueue_ms(torch, lambda: pipe.run(img, 50, 30.0, 0.01), iters)
+        res[f"stride{stride}"] = dict(ms_per_frame=ms, mp_per_s=mp / (ms / 1e3),
+                                      host_enqueue_ms_per_frame=enq, ms_per_frame_loops=runs)
+        log(f"2048x2048x3 restore, wb_stats_stride {stride}: {ms:.4f} ms/frame (median of "
+            f"{' '.join(f'{r:.4f}' for r in runs)}), {mp / (ms / 1e3):.1f} MP/s, host "
+            f"enqueue {enq:.4f} ms/frame")
+    ms = cuda_ms(torch, plain_restore(torch, frame[None], 50, emit_planes=False), 3, warmup=1)
     res["plain_stride1"] = dict(ms_per_frame=ms, mp_per_s=mp / (ms / 1e3))
     log(f"2048x2048x3 restore, plain path: {ms:.4f} ms/frame")
+    return res
+
+
+def time_batches(torch, np, stacks, single, iters):
+    """Phase 4, batched: ms/batch, ms/frame, MP/s and host enqueue of the
+    serving graph, and the peak allocation of one run above the stack."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+
+    res = {}
+    for name, b, side, psf in BATCHES:
+        res[name] = {}
+        mp = b * side * side / 1e6
+        for stride in (1, 4):
+            pipe = BatchedWienerPipeline("cuda", emit_planes=False, wb_stats_stride=stride)
+            x = pipe.to_device(stacks[name])
+            fn = lambda: pipe.run(x, psf, 30.0, 0.01)  # noqa: E731
+            ms, runs = cuda_ms_median(torch, fn, iters)
+            enq = host_enqueue_ms(torch, fn, iters)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            r = res[name][f"stride{stride}"] = dict(
+                ms_per_batch=ms, ms_per_batch_loops=runs, ms_per_frame=ms / b,
+                mp_per_s=mp / (ms / 1e3),
+                host_enqueue_ms_per_batch=enq, peak_mib=peak,
+                vs_single_frame_2048sq=(ms / b) / single[f"stride{stride}"]["ms_per_frame"],
+            )
+            log(f"{name} serving graph, wb_stats_stride {stride}: {ms:.4f} ms/batch (median "
+                f"of {' '.join(f'{r:.4f}' for r in runs)}), "
+                f"{r['ms_per_frame']:.4f} ms/frame, {r['mp_per_s']:.1f} MP/s, host enqueue "
+                f"{enq:.4f} ms/batch, peak {peak:.1f} MiB; ms/frame / single 2048^2 ms/frame "
+                f"= {r['vs_single_frame_2048sq']:.4f}")
+    return res
+
+
+def middle_ab(torch, np, stacks, iters):
+    """Phase 4, the middle A/B: B2 against B7 + the inverse-T pass on the
+    same row-FFT'd planes, in turns (B2, pair, pair, B2)."""
+    from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    for name, _, side, psf in BATCHES:
+        a = fk.fft_rows_stack(torch.as_tensor(stacks[name], device=dev), extent=(side, side))
+        H = psf_spectrum_planes(make_psf("motion", psf, 30.0, dev), side, side)
+        b2 = lambda: ws.wiener_spectral_t(*a, *H, 0.01)  # noqa: E731
+        pair = lambda: fk.fft_rows(*ws.fwd_wiener_rows(*a, *H, 0.01),  # noqa: E731
+                                   inverse=True, transposed=True)
+        err = max(rel_err(torch, x, y) for x, y in zip(pair(), b2()))
+        t = [cuda_ms(torch, fn, iters) for fn in (b2, pair, pair, b2)]
+        r = res[f"hp{side}_{name}"] = dict(
+            planes=a[0].shape[0], b2_ms=[t[0], t[3]], b7_inverse_t_ms=[t[1], t[2]],
+            b2_over_pair=(t[0] + t[3]) / (t[1] + t[2]), max_rel_diff=err,
+        )
+        log(f"middle A/B at hp={side} ({r['planes']} pairs): B2 {t[0]:.4f} / {t[3]:.4f} ms, "
+            f"B7 + inverse-T {t[1]:.4f} / {t[2]:.4f} ms, B2 / pair {r['b2_over_pair']:.3f}; "
+            f"rel diff {err:.2e}")
+        if not err <= TOL_WIENER_REL:
+            fail(f"the two middles disagree at hp={side}")
     return res
 
 
@@ -329,22 +665,40 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
-    frame = blurred_frame(np, SIZE, SIZE, args.seed)
     t0 = time.perf_counter()
-    rows = check_kernels(torch, np, frame, args.seed, args.iters)
+    frame = blurred_frame(np, SIZE, SIZE, args.seed)
+    stacks = {
+        name: np.stack([blurred_frame(np, side, side, args.seed + 100 * k + i, psf)
+                        for i in range(b)])
+        for k, (name, b, side, psf) in enumerate(BATCHES, start=1)
+    }
+    log(f"frames made: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows = check_kernels(torch, np, frame, stacks["batch64_256sq"], stacks["batch8_2048sq"],
+                         args.iters)
     log(f"phase 2 kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    counts = check_slice(torch, np, frame, args.seed)
+    counts = {"single_2048sq": check_slice(torch, np, frame, args.seed)}
+    batched = check_batched(torch, np, stacks, args.seed)
+    counts.update({name: batched[name]["launches"] for name in batched})
     log(f"phase 3 slice: {time.perf_counter() - t0:.1f} s")
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        by_path = {path: c[row["name"]] for path, c in counts.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
 
     t0 = time.perf_counter()
     timing = time_slice(torch, np, frame, args.iters)
+    batch_timing = time_batches(torch, np, stacks, timing, args.iters)
+    ab = middle_ab(torch, np, stacks, args.iters)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
 
-    print(json.dumps({"kernels": rows, "slice_2048sq": timing}))
+    result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab}
+    for name in batch_timing:
+        result[name] = dict(batched[name], **batch_timing[name])
+    print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ reference; every intermediate keeps its data contract (SoA float32
 planes, channel-pair packing, revorder DIF/DIT, transposed
 intermediates, unscaled inverse) so the two can be diffed.
 
-Slice ported so far: WienerDeblurPipeline.restore on uint8 BGR frames,
-motion/gaussian/disk PSF, Wiener filter, pow2 pad, Lab white balance.
+Slices ported so far: WienerDeblurPipeline.restore on uint8 BGR frames,
+motion/gaussian/disk PSF, Wiener filter, pow2 pad, Lab white balance;
+BatchedWienerPipeline on (B, H, W, 3) stacks and psf_grid_sweep; the
+CLI on one image or a directory.
 The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
 blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
@@ -20,7 +22,10 @@ kernels are built at first launch (ops/kernels/_build.py).
 
 __version__ = "0.1.0"
 
-__all__ = ["WienerDeblurPipeline", "make_psf", "motion_blur_kernel", "__version__"]
+__all__ = [
+    "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep",
+    "make_psf", "motion_blur_kernel", "__version__",
+]
 
 
 def __getattr__(name):
@@ -28,6 +33,10 @@ def __getattr__(name):
         from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
 
         return WienerDeblurPipeline
+    if name in ("BatchedWienerPipeline", "psf_grid_sweep"):
+        from fft_restoration_tpu_torch.models import batched
+
+        return getattr(batched, name)
     if name in ("make_psf", "motion_blur_kernel"):
         from fft_restoration_tpu_torch.ops import psf
 

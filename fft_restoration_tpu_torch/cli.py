@@ -1,12 +1,21 @@
-"""Command-line entry point of the port: restore one image on the GPU.
+"""Command-line entry point of the port: restore an image, or a
+directory of images, on the GPU.
 
-Counterpart of fft_restoration_tpu/cli.py in its single-image
-`--mode jit` form. Contract kept: `<img-path> <psf-length> <psf-angle>`
-positionals, verification of the restored planes against the serial
-oracle at a reference tier with the `[Speedup]` line, and the exit codes
-1 (read error), 2 (bad arguments), 3 (verification failure).
+Counterpart of fft_restoration_tpu/cli.py in its `--mode jit` form.
+Contract kept: `<img-path> <psf-length> <psf-angle>` positionals,
+verification of the restored planes against the serial oracle at a
+reference tier with the `[Speedup]` line, and the exit codes 1 (read
+error), 2 (bad arguments), 3 (verification failure).
 
     python -m fft_restoration_tpu_torch img.png 50 30 -o out.png
+    python -m fft_restoration_tpu_torch frames/ 50 30 -o out_dir/
+
+A directory is restored frame by frame into `<stem>_restored.png`:
+frames are grouped by size, groups of two or more go through
+BatchedWienerPipeline in chunks that bound the device working set, and
+single frames through WienerDeblurPipeline. Unreadable files are
+skipped with an `[Error] skipping ...` line; directory mode does not
+verify against the oracle.
 
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
@@ -18,8 +27,21 @@ import argparse
 import os
 import sys
 import time
+from collections import Counter, defaultdict
 
 from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
+
+# file names directory mode picks up (the JAX CLI's list; the port reads
+# the 8-bit PNG subset and reports the rest as unreadable)
+IMAGE_EXTENSIONS = (
+    ".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".pbm", ".tif",
+    ".tiff", ".webp", ".pfm", ".hdr", ".pic", ".sr", ".ras",
+)
+# device bytes a directory chunk may hold in flight: ~12 float32 padded
+# planes per frame (the JAX CLI's figure, made for a 16 GB TPU; to
+# re-decide for an 80 GB card, ROADMAP.md A7)
+BATCH_CHUNK_BYTES = 8 << 30
+BATCH_FRAME_PLANES = 12
 
 # flags of the JAX CLI that wait for a later slice -> ROADMAP.md item
 NOT_PORTED = {
@@ -107,9 +129,6 @@ def main(argv=None) -> int:
     if args.wb_stride < 1:
         print(f"[Error] --wb-stride must be >= 1 (got {args.wb_stride})")
         return 2
-    if os.path.isdir(args.img_path):
-        print("[Error] directory input is not ported yet: ROADMAP.md A7")
-        return 2
 
     from fft_restoration_tpu_torch.host.imageio import imread, imwrite
     from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
@@ -124,6 +143,8 @@ def main(argv=None) -> int:
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
         return 2
+    if os.path.isdir(args.img_path):
+        return _run_batch(args, pipe)
 
     try:
         img = imread(args.img_path)
@@ -163,6 +184,103 @@ def main(argv=None) -> int:
     print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
     print(f"[INFO] wrote {out_path}")
     return 0
+
+
+def _output_names(paths, out_dir) -> dict:
+    """<stem>_restored.png per input; inputs that share a stem across
+    formats (car.webp, car.hdr) keep their extension (car_webp_restored.png)
+    and a clash with a literal name takes a _2, _3 ... suffix, so outputs
+    never overwrite each other (the JAX CLI's names)."""
+    stems = Counter(os.path.basename(p).rsplit(".", 1)[0] for p in paths)
+    names, taken = {}, set()
+    for p in paths:  # sorted, so the names are deterministic
+        base = os.path.basename(p)
+        stem = base.rsplit(".", 1)[0]
+        name = stem if stems[stem] == 1 else base.replace(".", "_")
+        root, k = name, 2
+        while name in taken:
+            name, k = f"{root}_{k}", k + 1
+        taken.add(name)
+        names[p] = os.path.join(out_dir, name + "_restored.png")
+    return names
+
+
+def _run_batch(args, single) -> int:
+    """Directory mode: restore every image of args.img_path with the shared
+    PSF; returns the exit code (1 when no image could be read)."""
+    from fft_restoration_tpu_torch.host.imageio import probe_size
+    from fft_restoration_tpu_torch.models.pipeline import pad_extents
+
+    print("[INFO] directory input runs the batched pipeline; frames are not "
+          "verified against the serial oracle")
+    paths = sorted(
+        os.path.join(args.img_path, f) for f in os.listdir(args.img_path)
+        if f.lower().endswith(IMAGE_EXTENSIONS) and "_restored" not in f
+    )
+    if not paths:
+        print(f"[Error] no image files in {args.img_path!r}")
+        return 1
+    out_dir = args.output or args.img_path
+    os.makedirs(out_dir, exist_ok=True)
+    dst = _output_names(paths, out_dir)
+
+    groups = defaultdict(list)
+    skipped = 0
+    for p in paths:
+        try:
+            groups[probe_size(p)].append(p)
+        except (OSError, ValueError) as e:
+            print(f"[Error] skipping {p!r}: {e}")
+            skipped += 1
+
+    t0 = time.perf_counter()
+    n_done = 0
+    batched = None
+    for (h, w), group in groups.items():
+        if len(group) > 1 and batched is None:
+            from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
+
+            batched = BatchedWienerPipeline(
+                single.device, filter_name=args.filter, pad_mode=args.pad,
+                white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
+            )
+        hp, wp = pad_extents(h, w, args.pad)
+        chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))
+        for i in range(0, len(group), chunk):
+            done, bad = _restore_group(args, group[i:i + chunk], dst, single, batched)
+            n_done += done
+            skipped += bad
+    ms = (time.perf_counter() - t0) * 1e3
+    print(
+        f"Restored {n_done} frames in {ms:.1f} ms ({ms / max(n_done, 1):.1f} ms/frame) "
+        f"-> {out_dir}" + (f" [{skipped} skipped]" if skipped else "")
+    )
+    return 0 if n_done else 1
+
+
+def _restore_group(args, group, dst, single, batched) -> tuple:
+    """Restore one chunk of same-size frames: two or more through the
+    batched pipeline, one through the single-frame pipeline. Returns
+    (frames written, frames skipped)."""
+    from fft_restoration_tpu_torch.host.imageio import imread_batch, imwrite
+
+    stack, read, failed = imread_batch(group)
+    for p, e in failed:
+        print(f"[Error] skipping {p!r}: {e}")
+    if not read:
+        return 0, len(failed)
+    try:
+        if len(read) > 1:
+            outs = batched.restore(stack, args.psf_length, args.psf_angle, args.K)
+        else:
+            outs = single.restore(stack[0], args.psf_length, args.psf_angle, args.K)[None]
+    except ValueError as e:
+        h, w = stack.shape[1:3]
+        print(f"[Error] skipping {len(read)} frame(s) of size {w}x{h}: {e}")
+        return 0, len(group)
+    for p, o in zip(read, outs):
+        imwrite(dst[p], o)
+    return len(read), len(failed)
 
 
 if __name__ == "__main__":

@@ -21,12 +21,21 @@
 // the load and store, and sizes rows-per-block (a power of two chosen by
 // the wrapper) to 64 KB of shared memory so several blocks share an SM.
 //
-// Load: element (p, m, c) of the re (im) source is src[p*ps + m*rs + c*cs]
-// when p < re_live (im_live), m < live_rows and c < live_cols, else 0.
-// Strides make one loader serve contiguous (P, M, N) planes, even/odd
-// channel planes of one array (channel-pair packing) and an interleaved
-// (H, W, 3) uint8 frame with its zero pad. uint8 converts as x / 255.0f,
-// a true division, as the TPU kernel's _load_f32 does.
+// Load: pair p reads logical plane q = p*qstep as re and q + qim as im,
+// each from its own base pointer, element (q, m, c) at
+//   (q / channels) * is + (q % channels) * chs + m * rs + c * cs
+// when the pair is live (p < re_live, p < im_live), m < live_rows and
+// c < live_cols, else 0. The (image, channel) map makes one loader serve
+// contiguous (P, M, N) planes (channels = 1, qstep = 1), the even/odd
+// channel planes of one (H, W, 3) frame, and a (B, H, W, 3) image stack
+// whose channel pairs straddle images (channels = 3, qstep = 2, qim = 1:
+// plane q is image q / 3, channel q % 3), all with their zero pad and no
+// copy. uint8 converts as x / 255.0f, a true division, as the TPU
+// kernel's _load_f32 does.
+//
+// Grid: one dimension, block b takes row block b % nblk of pair b / nblk,
+// so the pair count is not held to gridDim.y's 65535 (a CLI chunk of
+// small frames packs hundreds of thousands of pairs).
 #include "fft_common.cuh"
 
 enum { STORE_NATURAL = 0, STORE_T = 1, STORE_PACKED = 2 };
@@ -37,28 +46,35 @@ __device__ __forceinline__ float to_f32(uint8_t v) { return (float)v / 255.0f; }
 template <typename T>
 __global__ void __launch_bounds__(FFT_THREADS)
 fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
-                long long ps, long long rs, long long cs, int re_live,
-                int im_live, int live_rows, int live_cols, int M, int N,
-                int log2n, int rows, float* __restrict__ out_re,
+                long long is, long long chs, int channels, int qstep, int qim,
+                long long rs, long long cs, int re_live, int im_live,
+                int live_rows, int live_cols, int M, int N, int log2n,
+                int rows, int nblk, float* __restrict__ out_re,
                 float* __restrict__ out_im, float* __restrict__ minmax,
                 int store, int inverse, const float* __restrict__ cosv,
                 const float* __restrict__ sinv) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
-  const int p = blockIdx.y;
-  const int m0 = blockIdx.x * rows;
+  const int p = blockIdx.x / nblk;
+  const int blk = blockIdx.x - p * nblk;
+  const int m0 = blk * rows;
   const int total = rows * N;
   const bool re_ok = p < re_live;
   const bool im_ok = src_im != nullptr && p < im_live;
+  const int q_re = p * qstep, q_im = p * qstep + qim;
+  const long long base_re =
+      (long long)(q_re / channels) * is + (long long)(q_re % channels) * chs;
+  const long long base_im =
+      (long long)(q_im / channels) * is + (long long)(q_im % channels) * chs;
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const int m = m0 + (t >> log2n);
     const int c = t & (N - 1);
     const bool live = m < live_rows && c < live_cols;
-    const long long off = p * ps + m * rs + c * cs;
-    sre[t] = (live && re_ok) ? to_f32(src_re[off]) : 0.0f;
-    sim[t] = (live && im_ok) ? to_f32(src_im[off]) : 0.0f;
+    const long long off = m * rs + c * cs;
+    sre[t] = (live && re_ok) ? to_f32(src_re[base_re + off]) : 0.0f;
+    sim[t] = (live && im_ok) ? to_f32(src_im[base_im + off]) : 0.0f;
   }
   __syncthreads();
 
@@ -107,12 +123,13 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       v[2] = fminf(v[2], xi);
       v[3] = fmaxf(v[3], xi);
     }
-    block_minmax4(v, minmax + ((size_t)p * gridDim.x + blockIdx.x) * 4);
+    block_minmax4(v, minmax + ((size_t)p * nblk + blk) * 4);
   }
 }
 
 template <typename T>
-static int launch(const void* src_re, const void* src_im, long long ps,
+static int launch(const void* src_re, const void* src_im, long long is,
+                  long long chs, int channels, int qstep, int qim,
                   long long rs, long long cs, int re_live, int im_live,
                   int live_rows, int live_cols, int P, int M, int N, int log2n,
                   int rows, void* out_re, void* out_im, void* minmax, int store,
@@ -122,16 +139,19 @@ static int launch(const void* src_re, const void* src_im, long long ps,
   cudaError_t err = allow_smem(fft_rows_kernel<T>, smem);
   if (err != cudaSuccess) return (int)err;
   const int covered = live_rows < M ? live_rows : M;
-  dim3 grid((covered + rows - 1) / rows, P);
-  fft_rows_kernel<T><<<grid, FFT_THREADS, smem, stream>>>(
-      (const T*)src_re, (const T*)src_im, ps, rs, cs, re_live, im_live,
-      live_rows, live_cols, M, N, log2n, rows, (float*)out_re, (float*)out_im,
-      (float*)minmax, store, inverse, (const float*)cosv, (const float*)sinv);
+  const int nblk = (covered + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  fft_rows_kernel<T><<<nblk * P, FFT_THREADS, smem, stream>>>(
+      (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
+      cs, re_live, im_live, live_rows, live_cols, M, N, log2n, rows, nblk,
+      (float*)out_re, (float*)out_im, (float*)minmax, store, inverse,
+      (const float*)cosv, (const float*)sinv);
   return (int)cudaGetLastError();
 }
 
 extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
-                               int in_u8, long long ps, long long rs,
+                               int in_u8, long long is, long long chs,
+                               int channels, int qstep, int qim, long long rs,
                                long long cs, int re_live, int im_live,
                                int live_rows, int live_cols, int P, int M,
                                int N, int log2n, int rows, void* out_re,
@@ -139,12 +159,13 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
                                int inverse, const void* cosv, const void* sinv,
                                void* stream) {
   if (in_u8) {
-    return launch<uint8_t>(src_re, src_im, ps, rs, cs, re_live, im_live,
-                           live_rows, live_cols, P, M, N, log2n, rows, out_re,
-                           out_im, minmax, store, inverse, cosv, sinv,
-                           (cudaStream_t)stream);
+    return launch<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim, rs,
+                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
+                           log2n, rows, out_re, out_im, minmax, store, inverse,
+                           cosv, sinv, (cudaStream_t)stream);
   }
-  return launch<float>(src_re, src_im, ps, rs, cs, re_live, im_live, live_rows,
-                       live_cols, P, M, N, log2n, rows, out_re, out_im, minmax,
-                       store, inverse, cosv, sinv, (cudaStream_t)stream);
+  return launch<float>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                       re_live, im_live, live_rows, live_cols, P, M, N, log2n,
+                       rows, out_re, out_im, minmax, store, inverse, cosv,
+                       sinv, (cudaStream_t)stream);
 }

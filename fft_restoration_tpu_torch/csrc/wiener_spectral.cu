@@ -1,5 +1,6 @@
-// wiener_spectral_t: column FFT -> Wiener -> column IFFT -> transposed write.
+// The two Wiener middles of the 2D restore, in the transposed orientation.
 //
+// wiener_spectral_t: column FFT -> Wiener -> column IFFT -> transposed write.
 // Replaces fft_restoration_tpu/ops/pallas/wiener_spectral.py:
 // wiener_spectral_rows_t ("fftr_spectral_mid_T_wiener", B2). In the
 // transposed orientation the middle of the 2D restore works on each row
@@ -16,6 +17,21 @@
 // between stages. The design keeps each row block in shared memory from
 // the first stage to the store, so the fusion saves two full device
 // round trips of the spectrum (what the TPU kernel saves in VMEM).
+//
+// fwd_wiener_rows: column FFT -> Wiener -> natural write. Replaces
+// wiener_spectral.py:fwd_wiener_rows_pallas ("fftr_fwd_wiener", B7), the
+// middle the pipeline takes for short columns (hp < 512, e.g. a 256^2
+// stack): B2's body without the DIT stages, so the filtered spectrum
+// goes to device memory once and fft_rows' inverse pass with transposed
+// store (csrc/fft_rows.cu) finishes the middle. Bound on the H100: it
+// reads A and H and writes F, 101 MB for a batch of 64 256^2 frames (96
+// pairs), about 30 us at 3.35 TB/s; its log2(n) shared-memory stages
+// (8 at n=256) and their barriers are the likelier limit, as for
+// fft_rows. The filter is applied as each element is stored, so the
+// epilogue costs no extra pass over shared memory.
+//
+// Grid of both: one dimension, block b takes row block b % nblk of
+// plane b / nblk (the plane count is not held to gridDim.y's 65535).
 #include "fft_common.cuh"
 
 __global__ void __launch_bounds__(FFT_THREADS)
@@ -24,7 +40,7 @@ wiener_spectral_t_kernel(const float* __restrict__ a_re,
                          const float* __restrict__ h_re,
                          const float* __restrict__ h_im, float K,
                          float* __restrict__ out_re, float* __restrict__ out_im,
-                         int M, int N, int log2n, int rows,
+                         int M, int N, int log2n, int rows, int nblk,
                          const float* __restrict__ cos_f,
                          const float* __restrict__ sin_f,
                          const float* __restrict__ cos_i,
@@ -32,8 +48,8 @@ wiener_spectral_t_kernel(const float* __restrict__ a_re,
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
-  const int p = blockIdx.y;
-  const int m0 = blockIdx.x * rows;
+  const int p = blockIdx.x / nblk;
+  const int m0 = (blockIdx.x - p * nblk) * rows;
   const int total = rows * N;
   const size_t base = ((size_t)p * M + m0) * N;
   const size_t hbase = (size_t)m0 * N;
@@ -66,6 +82,49 @@ wiener_spectral_t_kernel(const float* __restrict__ a_re,
   }
 }
 
+__global__ void __launch_bounds__(FFT_THREADS)
+fwd_wiener_rows_kernel(const float* __restrict__ a_re,
+                       const float* __restrict__ a_im,
+                       const float* __restrict__ h_re,
+                       const float* __restrict__ h_im, float K,
+                       float* __restrict__ out_re, float* __restrict__ out_im,
+                       int M, int N, int log2n, int rows, int nblk,
+                       const float* __restrict__ cos_f,
+                       const float* __restrict__ sin_f) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + rows * N;
+  const int p = blockIdx.x / nblk;
+  const int m0 = (blockIdx.x - p * nblk) * rows;
+  const int total = rows * N;
+  const size_t base = ((size_t)p * M + m0) * N;
+  const size_t hbase = (size_t)m0 * N;
+
+  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+    sre[t] = a_re[base + t];
+    sim[t] = a_im[base + t];
+  }
+  __syncthreads();
+  dif_stages(sre, sim, rows, N, log2n, cos_f, sin_f);
+
+  // F = G * conj(H) / (|H|^2 + K), stored in natural (P, M, N) order
+  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+    const float hr = h_re[hbase + t], hi = h_im[hbase + t];
+    const float xr = sre[t], xi = sim[t];
+    const float inv = 1.0f / (hr * hr + hi * hi + K);
+    out_re[base + t] = (xr * hr + xi * hi) * inv;
+    out_im[base + t] = (xi * hr - xr * hi) * inv;
+  }
+}
+
+// grid of P planes x M / rows row blocks; 0 or a cudaError_t
+static int grid_of(int P, int M, int rows, int* nblk, int* blocks) {
+  *nblk = M / rows;
+  if ((long long)*nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  *blocks = *nblk * P;
+  return 0;
+}
+
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* h_re, const void* h_im,
                                         float K, void* out_re, void* out_im,
@@ -76,11 +135,30 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
   const size_t smem = 2 * (size_t)rows * N * sizeof(float);
   cudaError_t err = allow_smem(wiener_spectral_t_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(M / rows, P);
-  wiener_spectral_t_kernel<<<grid, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+  int nblk, blocks;
+  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
+  wiener_spectral_t_kernel<<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)a_re, (const float*)a_im, (const float*)h_re,
       (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
-      (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
+      nblk, (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
       (const float*)sin_i);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,
+                                      const void* h_re, const void* h_im,
+                                      float K, void* out_re, void* out_im,
+                                      int P, int M, int N, int log2n, int rows,
+                                      const void* cos_f, const void* sin_f,
+                                      void* stream) {
+  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
+  cudaError_t err = allow_smem(fwd_wiener_rows_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  int nblk, blocks;
+  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
+  fwd_wiener_rows_kernel<<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)a_re, (const float*)a_im, (const float*)h_re,
+      (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
+      nblk, (const float*)cos_f, (const float*)sin_f);
   return (int)cudaGetLastError();
 }

@@ -5,19 +5,22 @@ Reads 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA PNGs (gray
 replicated to 3 channels, alpha dropped) with all five scanline filters;
 anything else raises ValueError. The Average and Paeth filters are a
 per-byte Python loop, slow on large frames; `imwrite` writes Up-filtered
-RGB, which reads back fast.
+RGB, which reads back fast. `probe_size` reads the IHDR alone, for
+grouping a directory's frames by size; `imread_batch` decodes a group.
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_DECODE_THREADS = 8
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
@@ -56,6 +59,28 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _check_ihdr(ihdr) -> None:
+    _, _, depth, color, _, _, interlace = ihdr
+    if depth != 8 or color not in _CHANNELS or interlace != 0:
+        raise ValueError(f"PNG with bit depth {depth}, color type {color}, interlace "
+                         f"{interlace} is not supported (8-bit, non-interlaced, no palette)")
+
+
+def probe_size(path: str) -> tuple:
+    """(height, width) of a PNG from its IHDR alone. Raises ValueError for
+    anything `imread` would refuse on its header: not a PNG, a truncated
+    or bad IHDR, or a format outside the supported subset."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != _SIG:
+        raise ValueError("not a PNG file")
+    if len(head) < 33 or head[12:16] != b"IHDR" or struct.unpack(">I", head[8:12])[0] != 13:
+        raise ValueError("corrupt PNG: bad IHDR")
+    ihdr = struct.unpack(">IIBBBBB", head[16:29])
+    _check_ihdr(ihdr)
+    return ihdr[1], ihdr[0]
+
+
 def decode_png_bgr(data: bytes) -> np.ndarray:
     """PNG bytes -> BGR uint8 (H, W, 3)."""
     if data[:8] != _SIG:
@@ -75,10 +100,8 @@ def decode_png_bgr(data: bytes) -> np.ndarray:
             break
     if ihdr is None:
         raise ValueError("corrupt PNG: no IHDR")
-    width, height, depth, color, _, _, interlace = ihdr
-    if depth != 8 or color not in _CHANNELS or interlace != 0:
-        raise ValueError(f"PNG with bit depth {depth}, color type {color}, interlace "
-                         f"{interlace} is not supported (8-bit, non-interlaced, no palette)")
+    _check_ihdr(ihdr)
+    width, height, _, color = ihdr[:4]
     ch = _CHANNELS[color]
     try:
         raw = zlib.decompress(bytes(idat))
@@ -119,3 +142,27 @@ def imread(path: str) -> np.ndarray:
 def imwrite(path: str, img_bgr: np.ndarray) -> None:
     """Write a BGR uint8 (H, W, 3) frame as a PNG file."""
     Path(path).write_bytes(encode_png_bgr(img_bgr))
+
+
+def imread_batch(paths):
+    """Decode PNGs of one size (as `probe_size` grouped them) into an
+    (N, H, W, 3) BGR uint8 stack, on a thread pool (zlib releases the GIL).
+
+    Returns (stack, read, failed): `read` lists the paths in the stack, in
+    order; `failed` lists (path, error) for each file that could not be
+    read (OSError or ValueError). stack is None when nothing was read.
+    """
+    paths = list(paths)
+
+    def one(p):
+        try:
+            return imread(p)
+        except (OSError, ValueError) as e:
+            return e
+
+    with ThreadPoolExecutor(max_workers=max(1, min(_DECODE_THREADS, len(paths)))) as ex:
+        results = list(ex.map(one, paths))
+    read = [p for p, r in zip(paths, results) if not isinstance(r, Exception)]
+    failed = [(p, r) for p, r in zip(paths, results) if isinstance(r, Exception)]
+    frames = [r for r in results if not isinstance(r, Exception)]
+    return (np.stack(frames) if frames else None), read, failed

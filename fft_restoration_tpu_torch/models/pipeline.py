@@ -1,22 +1,36 @@
-"""Single-GPU Wiener-deblur pipeline.
+"""Single-GPU Wiener-deblur pipeline, and the restore core it shares with
+the batched pipeline (models/batched.py).
 
 Counterpart of fft_restoration_tpu/models/pipeline.py on its pallas
-fast path (`_restore_planes_pallas_fused` + `_restore_core`): the
-restore of a uint8 BGR frame runs five kernel launches plus a few small
-tensor ops, the PSF spectrum is computed once per PSF and cached:
+fast path (`_restore_planes_pallas_fused` + `_restore_core`) and of
+models/batched.py's `_batched_images_core`: `restore_stack` restores a
+(B, h, w, 3) uint8 BGR stack — a single frame is its B = 1 case — in
+five or six kernel launches plus a few small tensor ops, the PSF
+spectrum computed once per PSF and cached:
 
-  fft_rows (B1)        u8 (h, w, 3) frame -> channel pairs, zero pad to
-                       pow2, row FFT, transposed write       (2, Wp, Hp)
-  wiener_spectral_t    column FFT -> Wiener -> column IFFT,
-  (B2)                 transposed write                      (2, Hp, Wp)
-  fft_rows_packed_out  row IFFT -> channel planes + min/max  (4, Hp, Wp)
+  fft_rows_stack (B1)  u8 (B, h, w, 3) stack -> channel pairs packed
+                       across images, zero pad to pow2, row FFT,
+                       transposed write                  (P, Wp, Hp)
+  middle, hp >= 512:
+    wiener_spectral_t  column FFT -> Wiener -> column IFFT,
+    (B2)               transposed write                  (P, Hp, Wp)
+  middle, hp < 512:
+    fwd_wiener_rows    column FFT -> Wiener, natural write
+    (B7) + fft_rows    column IFFT, transposed write     (P, Hp, Wp)
+  fft_rows_packed_out  row IFFT -> channel planes + min/max  (2P, Hp, Wp)
   (B3)
-  lab_l_sum_partials   normalize + Lab-L sums of the restored
-  (B4)                 and the original frame -> gain
-  wb_encode_u8 (B5)    normalize -> white balance -> uint8   (h, w, 3)
+  lab_l_sum_partials   per-image normalize + Lab-L sums of the restored
+  (B8a)                and the original frames -> gains
+  wb_encode_u8 (B8b)   normalize -> white balance -> uint8 (B, h, w, 3)
+
+P = ceil(3B/2): plane q of the channel-major list is image q // 3,
+channel q % 3, and pair p is planes 2p and 2p + 1, so pairs straddle
+images. That is right because one Hermitian spectrum filters every
+plane.
 
 PSF spectrum: fft_rows (B1, real input, live rows only) then fft_rows
-(B6), in the layout B2 consumes: transposed (Wp, Hp), bit-reversed.
+(B6), in the layout the middles consume: transposed (Wp, Hp),
+bit-reversed.
 
 Semantics of the serial oracle (and of the JAX package): channels are
 pow2-padded before restoration, the inverse stays unscaled and the
@@ -36,28 +50,38 @@ from fft_restoration_tpu_torch.ops.kernels.postprocess import (
     effective_wb_stride,
     sampled_live_pixels,
 )
-from fft_restoration_tpu_torch.ops.psf import make_psf
+from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
 
 PAD_MODES = ("pow2",)
 PSF_CACHE_SIZE = 8
+# Column length (hp, the transposed row length) from which the Wiener
+# middle is the fused B2 kernel; below it the middle is B7 then fft_rows'
+# inverse pass with transposed store. Kept as the JAX package's gate
+# (_spectral_megakernel_profitable, n >= 512), measured on the H100 by
+# chip_smoke.py's middle A/B (PERF.md).
+FUSED_MIDDLE_MIN_N = 512
 
 
-# The five operations of the restore: the kernel wrappers (the pipeline's
-# path on every device), and their plain versions, with which a reference
-# run on the card is made (_restore_core(..., ops=PLAIN_OPS)).
+# The operations of the restore: the kernel wrappers (the pipeline's path
+# on every device), and their plain versions, with which a reference run
+# on the card is made (restore_stack(..., ops=PLAIN_OPS)).
 KERNEL_OPS = SimpleNamespace(
     fft_rows=fft_kernel.fft_rows,
+    fft_rows_stack=fft_kernel.fft_rows_stack,
     fft_rows_packed_out=fft_kernel.fft_rows_packed_out,
     wiener_spectral_t=wiener_spectral.wiener_spectral_t,
-    lab_l_sum_partials=postprocess.lab_l_sum_partials,
-    wb_encode_u8=postprocess.wb_encode_u8,
+    fwd_wiener_rows=wiener_spectral.fwd_wiener_rows,
+    lab_l_sum_partials=postprocess.lab_l_sum_partials_batched,
+    wb_encode_u8=postprocess.wb_encode_u8_batched,
 )
 PLAIN_OPS = SimpleNamespace(
     fft_rows=fft_kernel.fft_rows_plain,
+    fft_rows_stack=fft_kernel.fft_rows_stack_plain,
     fft_rows_packed_out=fft_kernel.fft_rows_packed_out_plain,
     wiener_spectral_t=wiener_spectral.wiener_spectral_t_plain,
-    lab_l_sum_partials=postprocess.lab_l_sum_partials_plain,
-    wb_encode_u8=postprocess.wb_encode_u8_plain,
+    fwd_wiener_rows=wiener_spectral.fwd_wiener_rows_plain,
+    lab_l_sum_partials=postprocess.lab_l_sum_partials_batched_plain,
+    wb_encode_u8=postprocess.wb_encode_u8_batched_plain,
 )
 
 
@@ -87,16 +111,6 @@ def pad_extents(h: int, w: int, pad_mode: str = "pow2"):
     if pad_mode != "pow2":
         raise ValueError(f"unknown pad mode {pad_mode!r}; one of {PAD_MODES}")
     return next_power_of_two(h), next_power_of_two(w)
-
-
-def _pack_channel_pairs(chans):
-    """(C, H, W) planes -> (re, im) views: channels 0, 2, ... are the real
-    parts, 1, 3, ... the imaginary parts (an odd count leaves the last
-    imaginary plane missing, which the kernels read as zero). The filter
-    multiplies by one Hermitian spectrum, so the restored channels come
-    back out of the real and imaginary parts: 3 channels ride 2 complex
-    transforms."""
-    return chans[0::2], chans[1::2]
 
 
 def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS):
@@ -132,70 +146,111 @@ def minmax_norm(mm, n_pairs, c):
     return lo, torch.where(hi > lo, 1.0 / (hi - lo), torch.zeros_like(hi))
 
 
-def _restore_core(img, H, K, *, white_balance, emit_planes, wb_stats_stride,
-                  ops=KERNEL_OPS):
-    """(h, w, 3) uint8 (or float32 in [0, 1]) BGR frame on the device ->
-    ((h, w, 3) uint8 restored frame, (3, h, w) float32 planes or None)."""
-    h, w = img.shape[:2]
-    hp, wp = pad_extents(h, w)
-    chans0 = img.permute(2, 0, 1)  # (3, h, w) view of the BGR frame
-    c = chans0.shape[0]
-    re, im = _pack_channel_pairs(chans0)
-    a_re, a_im = ops.fft_rows(re, im, transposed=True, extent=(hp, wp))
-    r_re, r_im = ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K)
-    raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True)
+def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS):
+    """(P, Wp, Hp) row-FFT'd transposed planes -> (P, Hp, Wp) filtered,
+    column-inverted planes: B2 when Hp >= FUSED_MIDDLE_MIN_N, else B7
+    then the inverse row pass with transposed store."""
+    if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
+        return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K)
+    f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K)
+    return ops.fft_rows(f_re, f_im, inverse=True, transposed=True)
 
-    lo, scale = minmax_norm(mm, re.shape[0], c)
+
+def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None):
+    """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
+    raw unscaled restored planes (2P, Hp, Wp), image i's channels at
+    planes 3i..3i+2, and their per-plane normalize (lo, scale), (3B,).
+    rows: the stack's forward row pass when the caller already has it
+    (a PSF sweep restores one image under many PSFs)."""
+    b, h, w, c = stack.shape
+    if rows is None:
+        rows = ops.fft_rows_stack(stack, extent=pad_extents(h, w))
+    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops)
+    raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True)
+    lo, scale = minmax_norm(mm, rows[0].shape[0], b * c)
+    return raw, lo, scale
+
+
+def normalized_planes(raw, lo, scale, b, h, w):
+    """(B, 3, h, w) float32 restored planes in [0, 1]."""
+    n = lo.shape[0]
+    return ((raw[:n, :h, :w] - lo[:, None, None]) * scale[:, None, None]).reshape(b, -1, h, w)
+
+
+def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
+                  ops=KERNEL_OPS):
+    """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
+    ((B, h, w, 3) uint8 restored stack, (B, 3, h, w) float32 planes or
+    None). Per-image white balance: the gains' means are over the same
+    sampled pixels of every image (stride from effective_wb_stride)."""
+    b, h, w, _ = stack.shape
+    hp, wp = pad_extents(h, w)
+    raw, lo, scale = restore_raw(stack, H, K, ops)
     planes = None
     if emit_planes or not white_balance:
-        planes = (raw[:c, :h, :w] - lo[:, None, None]) * scale[:, None, None]
+        planes = normalized_planes(raw, lo, scale, b, h, w)
 
     if white_balance:
         stride = effective_wb_stride(h, wb_stats_stride)
         block = 8 if stride > 1 else 64  # 8-row stripes when sampling
-        parts = ops.lab_l_sum_partials(raw, chans0, lo, scale, (h, w), stride, block)
+        orig = stack.permute(0, 3, 1, 2)  # (B, 3, h, w) view of the stack
+        parts = ops.lab_l_sum_partials(raw, orig, lo, scale, (h, w), stride, block)
         npix = sampled_live_pixels(hp, wp, (h, w), block, stride)
-        gain = (parts[:, 1].sum() / npix) / (parts[:, 0].sum() / npix + 1e-6)
-        out = ops.wb_encode_u8(raw, gain.reshape(1), lo, scale, (h, w))
+        gains = (parts[..., 1].sum(-1) / npix) / (parts[..., 0].sum(-1) / npix + 1e-6)
+        out = ops.wb_encode_u8(raw, gains, lo, scale, (h, w))
     else:
         out = torch.clamp(planes * 255.0, 0.0, 255.0).to(torch.uint8)
-        out = out.permute(1, 2, 0).contiguous()
+        out = out.permute(0, 2, 3, 1).contiguous()
     return out, (planes if emit_planes else None)
 
 
-class WienerDeblurPipeline:
-    """Restoration pipeline on one device.
+def _restore_core(img, H, K, *, white_balance, emit_planes, wb_stats_stride,
+                  ops=KERNEL_OPS):
+    """(h, w, 3) frame on the device -> ((h, w, 3) uint8, (3, h, w)
+    float32 planes or None): `restore_stack` with B = 1."""
+    out, planes = restore_stack(
+        img[None], H, K, white_balance=white_balance, emit_planes=emit_planes,
+        wb_stats_stride=wb_stats_stride, ops=ops,
+    )
+    return out[0], (None if planes is None else planes[0])
 
-    device: 'cuda' (the kernels; raises when no GPU is present) or 'cpu'
-    (the wrappers take their plain versions for CPU tensors).
-    emit_planes=False is the serving graph: restore() skips the float
-    planes, restore_with_planes()/restore_channels() then raise.
-    wb_stats_stride > 1 samples every stride-th 8-row stripe for the
-    white-balance means (the CLI uses 1, serving 4).
-    """
 
-    def __init__(
-        self,
-        device,
-        *,
-        filter_name: str = "wiener",
-        white_balance: bool = True,
-        emit_planes: bool = True,
-        pad_mode: str = "pow2",
-        wb_stats_stride: int = 1,
-    ):
+def check_filter(filter_name: str) -> None:
+    """Raise for the filters the port does not run yet."""
+    if filter_name in ("inverse", "cls"):
+        raise NotImplementedError(f"filter {filter_name!r} is not ported yet: ROADMAP.md A8")
+    if filter_name == "rl":
+        raise NotImplementedError("filter 'rl' is not ported yet: ROADMAP.md A10")
+    if filter_name != "wiener":
+        raise ValueError(f"unknown filter {filter_name!r}")
+
+
+def frames_to_device(arr, device) -> torch.Tensor:
+    """uint8 frames stay uint8 (the kernels convert); other dtypes are
+    0..255-scaled values divided by 255."""
+    t = torch.as_tensor(np.asarray(arr))
+    if t.dtype != torch.uint8:
+        t = t.to(torch.float32) / 255.0
+    return t.to(device)
+
+
+class _CachedPsfPipeline:
+    """Options and the PSF-spectrum cache the single and batched
+    pipelines share."""
+
+    def __init__(self, device, *, filter_name, white_balance, emit_planes, pad_mode,
+                 wb_stats_stride, psf_type="motion"):
         self.device = resolve_device(device)
-        if filter_name != "wiener":
-            raise NotImplementedError(
-                f"filter {filter_name!r} is not ported yet: ROADMAP.md A8 "
-                "(inverse, cls) and A10 (rl)"
-            )
+        check_filter(filter_name)
         pad_extents(1, 1, pad_mode)  # raises for modes not ported
         if wb_stats_stride < 1:
             raise ValueError(f"wb_stats_stride must be >= 1, got {wb_stats_stride}")
+        if psf_type not in PSF_TYPES:
+            raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")
         self.white_balance = white_balance
         self.emit_planes = emit_planes
         self.wb_stats_stride = wb_stats_stride
+        self.psf_type = psf_type
         # PSF spectra keyed on (hp, wp, length, angle), oldest evicted first:
         # each is 2 * hp * wp float32 (33.5 MB at 2048^2)
         self._psf_cache = {}
@@ -218,7 +273,7 @@ class WienerDeblurPipeline:
         hp, wp = pad_extents(h, w)
         key = (hp, wp, int(psf_length), float(angle))
         if key not in self._psf_cache:
-            psf = make_psf("motion", int(psf_length), float(angle), self.device)
+            psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
             self._remember(key, psf_spectrum_planes(psf, hp, wp))
         return self._psf_cache[key]
 
@@ -232,27 +287,55 @@ class WienerDeblurPipeline:
             raise ValueError(f"spectrum planes must be ({wp}, {hp}), got {tuple(H[0].shape)}")
         self._remember((hp, wp, int(psf_length), float(angle)), H)
 
+    def _restore(self, stack, psf_length, psf_angle, K):
+        h, w = stack.shape[1:3]
+        self._check_psf_fits(h, w, int(psf_length))
+        H = self._psf_spectrum(h, w, psf_length, psf_angle)
+        return restore_stack(
+            stack, H, float(K), white_balance=self.white_balance,
+            emit_planes=self.emit_planes, wb_stats_stride=self.wb_stats_stride,
+        )
+
+
+class WienerDeblurPipeline(_CachedPsfPipeline):
+    """Restoration pipeline on one device.
+
+    device: 'cuda' (the kernels; raises when no GPU is present) or 'cpu'
+    (the wrappers take their plain versions for CPU tensors).
+    emit_planes=False is the serving graph: restore() skips the float
+    planes, restore_with_planes()/restore_channels() then raise.
+    wb_stats_stride > 1 samples every stride-th 8-row stripe for the
+    white-balance means (the CLI uses 1, serving 4).
+    """
+
+    def __init__(
+        self,
+        device,
+        *,
+        filter_name: str = "wiener",
+        white_balance: bool = True,
+        emit_planes: bool = True,
+        pad_mode: str = "pow2",
+        wb_stats_stride: int = 1,
+    ):
+        super().__init__(
+            device, filter_name=filter_name, white_balance=white_balance,
+            emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
+        )
+
     def to_device(self, img_bgr) -> torch.Tensor:
         """(H, W, 3) frame -> device tensor: uint8 stays uint8 (the kernel
         converts), other dtypes are 0..255-scaled values divided by 255."""
-        t = torch.as_tensor(np.asarray(img_bgr))
-        if t.ndim != 3 or t.shape[-1] != 3:
-            raise ValueError(f"need an (H, W, 3) BGR frame, got shape {tuple(t.shape)}")
-        if t.dtype != torch.uint8:
-            t = t.to(torch.float32) / 255.0
-        return t.to(self.device)
+        if np.ndim(img_bgr) != 3 or np.shape(img_bgr)[-1] != 3:
+            raise ValueError(f"need an (H, W, 3) BGR frame, got shape {np.shape(img_bgr)}")
+        return frames_to_device(img_bgr, self.device)
 
     def run(self, img: torch.Tensor, psf_length: int, psf_angle: float, K: float = 0.01):
         """Restore an (H, W, 3) frame already on the device; returns device
         tensors ((H, W, 3) uint8, (3, H, W) float32 planes or None). The
         work is queued on the current stream and not synchronized."""
-        h, w = img.shape[:2]
-        self._check_psf_fits(h, w, int(psf_length))
-        H = self._psf_spectrum(h, w, psf_length, psf_angle)
-        return _restore_core(
-            img, H, float(K), white_balance=self.white_balance,
-            emit_planes=self.emit_planes, wb_stats_stride=self.wb_stats_stride,
-        )
+        out, planes = self._restore(img[None], psf_length, psf_angle, K)
+        return out[0], (None if planes is None else planes[0])
 
     def restore(self, img_bgr, psf_length: int, psf_angle: float, K: float = 0.01):
         """uint8 BGR (H, W, 3) -> restored uint8 BGR (H, W, 3) numpy."""

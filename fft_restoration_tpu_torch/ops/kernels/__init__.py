@@ -15,7 +15,9 @@ from collections import Counter
 
 import torch
 
-KERNELS = ("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8")
+KERNELS = (
+    "fft_rows", "wiener_spectral_t", "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8",
+)
 
 launch_counts: Counter = Counter()
 

@@ -36,15 +36,19 @@ F = ctypes.c_float
 # argtypes of each C entry point (csrc/*.cu); every entry returns the
 # cudaError_t of its launch
 SIGNATURES = {
-    # src_re, src_im, in_u8, plane/row/col strides, re_live, im_live,
-    # live_rows, live_cols, P, M, N, log2n, rows_per_block,
-    # out_re, out_im, minmax, store, inverse, cos, sin, stream
-    "fft_rows_launch": [P, P, I, LL, LL, LL, I, I, I, I, I, I, I, I, I,
-                        P, P, P, I, I, P, P, P],
+    # src_re, src_im, in_u8, image stride, channel stride, channels,
+    # qstep, qim, row/col strides, re_live, im_live, live_rows,
+    # live_cols, P, M, N, log2n, rows_per_block, out_re, out_im, minmax,
+    # store, inverse, cos, sin, stream
+    "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
+                        I, I, I, P, P, P, I, I, P, P, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, log2n,
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
                                  P, P, P, P, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, log2n,
+    # rows_per_block, cos_f, sin_f, stream
+    "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P],
 }
 
 # nvcc's output of the last build in this process (ptxas register report)

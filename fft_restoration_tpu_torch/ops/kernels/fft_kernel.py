@@ -13,6 +13,11 @@ transform is DIF (natural in, bit-reversed out), the inverse DIT
 the JAX package's engine="roll" semantics, so spectra are in plain
 bit-reversed order — not the TPU MXU engine's "hybrid" order.
 
+`fft_rows_stack` is B1 over a (B, h, w, C) image stack: the kernel's
+loader maps logical plane q to image q // C, channel q % C, so channel
+pairs straddle images (the JAX batched graph's (B*3, hp, wp) packing)
+and the stack streams in with no permute copy.
+
 Each wrapper takes its plain version (`*_plain`, the same DIF/DIT stage
 loop on tensors with the same float64-built tables) only for CPU
 tensors; for CUDA tensors it launches the kernel or raises.
@@ -22,6 +27,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -208,9 +214,76 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None):
     alloc = torch.empty if -(-live_rows // rows) * rows >= big_m else torch.zeros
     out_re = alloc(shape, dtype=torch.float32, device=re.device)
     out_im = alloc(shape, dtype=torch.float32, device=re.device)
+    ps, rs, cs = re.stride()
+    if im is not None and (
+        im.stride()[1:] != (rs, cs) or (im.shape[0] > 1 and im.stride(0) != ps)
+    ):
+        raise ValueError("the kernel reads re and im planes with one set of strides")
     _launch(
-        re, im, live_rows, min(n, big_n), big_m, big_n, rows, out_re, out_im,
-        None, STORE_T if transposed else STORE_NATURAL, inverse,
+        re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
+        0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n,
+        rows, out_re, out_im, None, STORE_T if transposed else STORE_NATURAL, inverse,
+    )
+    return out_re, out_im
+
+
+def _check_stack(stack, extent):
+    if stack.ndim != 4:
+        raise ValueError(f"need a (B, h, w, C) stack, got shape {tuple(stack.shape)}")
+    if stack.dtype not in (torch.uint8, torch.float32):
+        raise ValueError(f"stack must be uint8 or float32, got {stack.dtype}")
+    b, h, w, c = stack.shape
+    big_m, big_n = extent
+    if not (1 <= h <= big_m and 1 <= w <= big_n) or b < 1 or c < 1:
+        raise ValueError(f"stack {tuple(stack.shape)} does not fit the extent {extent}")
+    _check_pow2(big_n)
+    return int(big_m), int(big_n)
+
+
+def stack_pairs_plain(stack):
+    """(B, h, w, C) stack -> (re, im) channel-pair planes, the loader's
+    (image, channel) map applied with index tensors: logical plane q is
+    image q // C, channel q % C; re takes the even planes, im the odd ones
+    (ceil(B*C/2) and floor(B*C/2) planes)."""
+    b, _, _, c = stack.shape
+    q = torch.arange(b * c, device=stack.device)
+    planes = stack.permute(0, 3, 1, 2)[q // c, q % c]
+    return planes[0::2], planes[1::2]
+
+
+def fft_rows_stack_plain(stack, *, extent):
+    """Plain version of `fft_rows_stack` (same signature and layout)."""
+    big_m, big_n = _check_stack(stack, extent)
+    re, im = stack_pairs_plain(stack)
+    return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n))
+
+
+def fft_rows_stack(stack, *, extent):
+    """Forward row FFT of a (B, h, w, C) uint8/float32 image stack of any
+    strides, channel pairs packed across images (B1, stack loader).
+
+    Logical plane q of the channel-major list (B*C, h, w) is image q // C,
+    channel q % C; pair p reads planes 2p (re) and 2p+1 (im), the last im
+    plane reading as zero when B*C is odd. extent=(M, N) is the zero-padded
+    transform size (rows >= h and columns >= w are zero; only live rows
+    are transformed). Returns float32 (re, im) of shape (ceil(B*C/2), N,
+    M), transposed, bit-reversed along N, as `fft_rows(...,
+    transposed=True)` gives for the same planes.
+    """
+    if not on_cuda(stack):
+        return fft_rows_stack_plain(stack, extent=extent)
+    big_m, big_n = _check_stack(stack, extent)
+    b, h, w, c = stack.shape
+    n_planes = b * c
+    pairs = -(-n_planes // 2)
+    rows = rows_per_block(big_n, big_m)
+    alloc = torch.empty if -(-h // rows) * rows >= big_m else torch.zeros
+    out_re = alloc((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
+    out_im = alloc((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
+    bs, rs, cs, chs = stack.stride()
+    _launch(
+        stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
+        h, w, big_m, big_n, rows, out_re, out_im, None, STORE_T, False,
     )
     return out_re, out_im
 
@@ -257,28 +330,41 @@ def fft_rows_packed_out(re, im, *, inverse=True):
     rows = rows_per_block(big_n, big_m)
     out = torch.empty((2 * planes, big_m, big_n), dtype=torch.float32, device=re.device)
     mm = torch.empty((planes * (big_m // rows), 4), dtype=torch.float32, device=re.device)
-    _launch(re, im, big_m, big_n, big_m, big_n, rows, out, out, mm, STORE_PACKED, inverse)
+    ps, rs, cs = re.stride()
+    _launch(re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes, planes, big_m, big_n,
+            big_m, big_n, rows, out, out, mm, STORE_PACKED, inverse)
     return out, mm
 
 
-def _launch(re, im, live_rows, live_cols, big_m, big_n, rows, out_re, out_im, mm,
-            store, inverse):
+class PlaneMap(NamedTuple):
+    """Where the loader finds element (m, c) of logical plane q:
+    (q // channels) * image + (q % channels) * channel + m * row + c * col,
+    pair p reading plane p * qstep as re and p * qstep + qim as im."""
+
+    image: int
+    channel: int
+    channels: int
+    qstep: int
+    qim: int
+    row: int
+    col: int
+
+
+def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, rows,
+            out_re, out_im, mm, store, inverse):
+    """One fft_rows launch over re_live pairs (every re plane is live; the
+    first im_live im planes are)."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     check_kernel_length(big_n)
-    ps, rs, cs = re.stride()
-    if im is not None and (
-        im.stride()[1:] != (rs, cs) or (im.shape[0] > 1 and im.stride(0) != ps)
-    ):
-        raise ValueError("the kernel reads re and im planes with one set of strides")
     lib = _build.load()
     cos, sin, _ = tables(big_n, bool(inverse), re.device)
     stream = torch.cuda.current_stream(re.device).cuda_stream
     err = lib.fft_rows_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
-        int(re.dtype == torch.uint8), ps, rs, cs,
-        re.shape[0], 0 if im is None else im.shape[0],
-        live_rows, live_cols, re.shape[0], big_m, big_n, big_n.bit_length() - 1,
+        int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
+        pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
+        live_rows, live_cols, re_live, big_m, big_n, big_n.bit_length() - 1,
         rows, out_re.data_ptr(), out_im.data_ptr(),
         None if mm is None else mm.data_ptr(), store, int(bool(inverse)),
         cos.data_ptr(), sin.data_ptr(), stream,

@@ -1,20 +1,27 @@
-"""Triton kernels of the white-balance post-processing (B4, B5).
+"""Triton kernels of the white-balance post-processing (B4/B8a, B5/B8b).
 
-Replace fft_restoration_tpu/ops/pallas/postprocess.py:lab_l_sum_partials
-("ppk_lab_l_partials") and wb_encode_u8 ("ppk_wb_encode"). Imported only
-by the wrappers in postprocess.py when a kernel launches: this module
-imports triton at its top, and machines without triton never load it.
+Replace fft_restoration_tpu/ops/pallas/postprocess.py:
+lab_l_sum_partials_batched ("ppk_lab_l_partials_b") and
+wb_encode_u8_batched ("ppk_wb_encode_b"), and with a batch of one their
+single-frame twins lab_l_sum_partials ("ppk_lab_l_partials") and
+wb_encode_u8 ("ppk_wb_encode"). Imported only by the wrappers in
+postprocess.py when a kernel launches: this module imports triton at its
+top, and machines without triton never load it.
 
 What bounds them on the H100: each is one pass over three float32 planes
-(B4 also reads the uint8 frame; B5 writes it), 50 MB at 2048^2 — about
-15 us at 3.35 TB/s — against ~60 transcendental and ~100 other flops per
-pixel, 0.4 GFLOP a pass, well under a millisecond of the card's float32
-rate. Both are memory-bound passes with no data exchange between threads
-other than B4's block sum, which is why Triton serves them: masked 2D
-block loads cover the ragged edge and the live (h, w) extent, `tl.sum`
-gives the partial, and B5 stores straight into the interleaved
-(h, w, 3) frame. Every expression follows ops/color.py, powers as
-exp2(log2(max(x, 1e-30)) * p), the encode truncated through int32.
+per image (B8a also reads the uint8 frame; B8b writes it), 63 MB per
+2048^2 image in and out — about 19 us at 3.35 TB/s — against ~60
+transcendental and ~100 other flops per pixel, 0.4 GFLOP a pass, well
+under a millisecond of the card's float32 rate. Both are memory-bound
+passes with no data exchange between threads other than B8a's block
+sum, which is why Triton serves them as well as CUDA would, with the
+same Lab helpers for the single frame and the stack: masked 2D block
+loads cover the ragged edge and each image's live (h, w) extent, `tl.sum`
+gives the partial, and B8b stores straight into the interleaved
+(B, h, w, 3) stack. The image index is grid axis 0 (axes 1 and 2 stop at
+65535) and its plane offsets are 64-bit. Every expression follows
+ops/color.py, powers as exp2(log2(max(x, 1e-30)) * p), the encode
+truncated through int32.
 """
 
 import triton
@@ -96,41 +103,46 @@ def _to_u8(p):
 @triton.jit
 def lab_l_partials_kernel(
     raw_ptr, orig_ptr, lo_ptr, sc_ptr, out_ptr,
-    plane, row_stride, o_cs, o_rs, o_ws, h, w, rows, stride,
+    plane, row_stride, o_bs, o_cs, o_rs, o_ws, h, w, rows, stride,
     ORIG_U8: tl.constexpr, BLOCK_R: tl.constexpr, BLOCK_W: tl.constexpr,
 ):
-    """Program (i, j): sampled row block i (rows [i*stride*rows, +rows)),
-    column chunk j; writes [sum L_restored, sum L_orig] to out[i, j]."""
-    i = tl.program_id(0)
-    j = tl.program_id(1)
+    """Program (b, i, j): image b (raw planes 3b..3b+2), its sampled row
+    block i (rows [i*stride*rows, +rows)), column chunk j; writes
+    [sum L_restored, sum L_orig] to out[b, i, j]."""
+    b = tl.program_id(0).to(tl.int64)
+    i = tl.program_id(1)
+    j = tl.program_id(2)
+    raw_b = raw_ptr + b * 3 * plane
+    orig_b = orig_ptr + b * o_bs
     cols = j * BLOCK_W + tl.arange(0, BLOCK_W)
-    lo0 = tl.load(lo_ptr)
-    lo1 = tl.load(lo_ptr + 1)
-    lo2 = tl.load(lo_ptr + 2)
-    sc0 = tl.load(sc_ptr)
-    sc1 = tl.load(sc_ptr + 1)
-    sc2 = tl.load(sc_ptr + 2)
+    lo0 = tl.load(lo_ptr + 3 * b)
+    lo1 = tl.load(lo_ptr + 3 * b + 1)
+    lo2 = tl.load(lo_ptr + 3 * b + 2)
+    sc0 = tl.load(sc_ptr + 3 * b)
+    sc1 = tl.load(sc_ptr + 3 * b + 1)
+    sc2 = tl.load(sc_ptr + 3 * b + 2)
     acc_d = tl.zeros((BLOCK_R, BLOCK_W), tl.float32)
     acc_o = tl.zeros((BLOCK_R, BLOCK_W), tl.float32)
     row0 = i * stride * rows
     for rr in range(0, rows, BLOCK_R):
         rws = row0 + rr + tl.arange(0, BLOCK_R)
+        # rows of this image only: the live mask is per image
         live = (rws[:, None] < h) & (cols[None, :] < w)
         off = rws[:, None] * row_stride + cols[None, :]
-        b = (tl.load(raw_ptr + off, mask=live, other=0.0) - lo0) * sc0
-        g = (tl.load(raw_ptr + plane + off, mask=live, other=0.0) - lo1) * sc1
-        r = (tl.load(raw_ptr + 2 * plane + off, mask=live, other=0.0) - lo2) * sc2
-        acc_d += tl.where(live, _l_from_bgr(b, g, r), 0.0)
+        bb = (tl.load(raw_b + off, mask=live, other=0.0) - lo0) * sc0
+        g = (tl.load(raw_b + plane + off, mask=live, other=0.0) - lo1) * sc1
+        r = (tl.load(raw_b + 2 * plane + off, mask=live, other=0.0) - lo2) * sc2
+        acc_d += tl.where(live, _l_from_bgr(bb, g, r), 0.0)
         ooff = rws[:, None] * o_rs + cols[None, :] * o_ws
-        ob = tl.load(orig_ptr + ooff, mask=live, other=0).to(tl.float32)
-        og = tl.load(orig_ptr + o_cs + ooff, mask=live, other=0).to(tl.float32)
-        orr = tl.load(orig_ptr + 2 * o_cs + ooff, mask=live, other=0).to(tl.float32)
+        ob = tl.load(orig_b + ooff, mask=live, other=0).to(tl.float32)
+        og = tl.load(orig_b + o_cs + ooff, mask=live, other=0).to(tl.float32)
+        orr = tl.load(orig_b + 2 * o_cs + ooff, mask=live, other=0).to(tl.float32)
         if ORIG_U8:
             ob = ob / 255.0
             og = og / 255.0
             orr = orr / 255.0
         acc_o += tl.where(live, _l_from_bgr(ob, og, orr), 0.0)
-    base = (i * tl.num_programs(1) + j) * 2
+    base = ((b * tl.num_programs(1) + i) * tl.num_programs(2) + j) * 2
     tl.store(out_ptr + base, tl.sum(tl.sum(acc_d, axis=1), axis=0))
     tl.store(out_ptr + base + 1, tl.sum(tl.sum(acc_o, axis=1), axis=0))
 
@@ -140,17 +152,21 @@ def wb_encode_kernel(
     raw_ptr, gain_ptr, lo_ptr, sc_ptr, out_ptr, plane, row_stride, h, w,
     BLOCK_R: tl.constexpr, BLOCK_W: tl.constexpr,
 ):
-    """Program (i, j): rows [i*BLOCK_R, +BLOCK_R) x columns
-    [j*BLOCK_W, +BLOCK_W) of the live frame."""
-    rws = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-    cols = tl.program_id(1) * BLOCK_W + tl.arange(0, BLOCK_W)
+    """Program (b, i, j): image b, rows [i*BLOCK_R, +BLOCK_R) x columns
+    [j*BLOCK_W, +BLOCK_W) of its live frame."""
+    b = tl.program_id(0).to(tl.int64)
+    raw_b = raw_ptr + b * 3 * plane
+    rws = tl.program_id(1) * BLOCK_R + tl.arange(0, BLOCK_R)
+    cols = tl.program_id(2) * BLOCK_W + tl.arange(0, BLOCK_W)
     live = (rws[:, None] < h) & (cols[None, :] < w)
     off = rws[:, None] * row_stride + cols[None, :]
-    b = (tl.load(raw_ptr + off, mask=live, other=0.0) - tl.load(lo_ptr)) * tl.load(sc_ptr)
-    g = (tl.load(raw_ptr + plane + off, mask=live, other=0.0) - tl.load(lo_ptr + 1)) * tl.load(sc_ptr + 1)
-    r = (tl.load(raw_ptr + 2 * plane + off, mask=live, other=0.0) - tl.load(lo_ptr + 2)) * tl.load(sc_ptr + 2)
+    lo = lo_ptr + 3 * b
+    sc = sc_ptr + 3 * b
+    bb = (tl.load(raw_b + off, mask=live, other=0.0) - tl.load(lo)) * tl.load(sc)
+    g = (tl.load(raw_b + plane + off, mask=live, other=0.0) - tl.load(lo + 1)) * tl.load(sc + 1)
+    r = (tl.load(raw_b + 2 * plane + off, mask=live, other=0.0) - tl.load(lo + 2)) * tl.load(sc + 2)
     # BGR -> Lab
-    lb = _srgb_to_linear(b)
+    lb = _srgb_to_linear(bb)
     lg = _srgb_to_linear(g)
     lr = _srgb_to_linear(r)
     tx = XB * lb + XG * lg + XR * lr
@@ -162,8 +178,8 @@ def wb_encode_kernel(
     L = tl.where(ty > T0, 116.0 * fy - 16.0, 903.3 * ty)
     a_ = 500.0 * (fx - fy)
     b_ = 200.0 * (fy - fz)
-    # white balance
-    L = tl.minimum(tl.maximum(L * tl.load(gain_ptr), 0.0), 100.0)
+    # white balance, this image's gain
+    L = tl.minimum(tl.maximum(L * tl.load(gain_ptr + b), 0.0), 100.0)
     # Lab -> BGR
     fy = (L + 16.0) / 116.0
     fx = fy + a_ / 500.0
@@ -171,7 +187,8 @@ def wb_encode_kernel(
     x = _inv_f(fx) * WX
     y = _inv_f(fy) * WY
     z = _inv_f(fz) * WZ
+    out_b = out_ptr + b * h * w * 3
     o = (rws[:, None] * w + cols[None, :]) * 3
-    tl.store(out_ptr + o, _to_u8(_linear_to_srgb(BX * x + BY * y + BZ * z)), mask=live)
-    tl.store(out_ptr + o + 1, _to_u8(_linear_to_srgb(GX * x + GY * y + GZ * z)), mask=live)
-    tl.store(out_ptr + o + 2, _to_u8(_linear_to_srgb(RX * x + RY * y + RZ * z)), mask=live)
+    tl.store(out_b + o, _to_u8(_linear_to_srgb(BX * x + BY * y + BZ * z)), mask=live)
+    tl.store(out_b + o + 1, _to_u8(_linear_to_srgb(GX * x + GY * y + GZ * z)), mask=live)
+    tl.store(out_b + o + 2, _to_u8(_linear_to_srgb(RX * x + RY * y + RZ * z)), mask=live)

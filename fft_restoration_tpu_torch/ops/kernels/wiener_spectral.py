@@ -1,11 +1,16 @@
-"""Fused spectral middle (B2) — wrapper and plain version.
+"""The Wiener middles of the restore (B2, B7) — wrappers and plain versions.
 
-Counterpart of fft_restoration_tpu/ops/pallas/wiener_spectral.py:
-wiener_spectral_rows_t in its 'wiener' mode: per row block of the
-transposed, row-FFT'd planes, the column FFT (DIF), the Wiener filter
-against the matching rows of the PSF spectrum, the column IFFT (DIT) and
-a transposed write (csrc/wiener_spectral.cu). The 'conv' mode waits for
-the convolve / Richardson-Lucy slices.
+Counterparts of fft_restoration_tpu/ops/pallas/wiener_spectral.py, both
+in csrc/wiener_spectral.cu:
+  B2 `wiener_spectral_t` (wiener_spectral_rows_t, 'wiener' mode): per row
+     block of the transposed, row-FFT'd planes, the column FFT (DIF), the
+     Wiener filter against the matching rows of the PSF spectrum, the
+     column IFFT (DIT) and a transposed write. The 'conv' mode waits for
+     the convolve / Richardson-Lucy slices.
+  B7 `fwd_wiener_rows` (fwd_wiener_rows_pallas): the column FFT and the
+     filter only, natural store; `fft_rows(..., inverse=True,
+     transposed=True)` then finishes the middle. The pipeline takes it
+     when the column length is below 512 (models/pipeline.py).
 """
 
 from __future__ import annotations
@@ -37,6 +42,43 @@ def _check(a_re, a_im, h_re, h_im):
         raise ValueError(f"power-of-two length required, got {n}")
     if m % rows_per_block(n, m):
         raise ValueError(f"plane height {m} must be a multiple of the row block")
+
+
+def fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K):
+    """Plain version of `fwd_wiener_rows` (same signature and layout)."""
+    _check(a_re, a_im, h_re, h_im)
+    return wiener_filter(run_stages(a_re, a_im, inverse=False), (h_re, h_im), K)
+
+
+def fwd_wiener_rows(a_re, a_im, h_re, h_im, K):
+    """wiener(rowFFT(A), H): the forward DIF pass over the last axis fused
+    with F = G * conj(H) / (|H|^2 + K), stored in natural order.
+
+    a_re, a_im: (P, M, N) contiguous float32 row-FFT'd planes in the
+    transposed orientation; h_re, h_im: (M, N) PSF spectrum in the same
+    layout. Returns the filtered (P, M, N) float32 spectrum, bit-reversed
+    along N (the input order of the DIT inverse).
+    """
+    if not on_cuda(a_re, a_im, h_re, h_im):
+        return fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K)
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    _check(a_re, a_im, h_re, h_im)
+    planes, m, n = a_re.shape
+    check_kernel_length(n)
+    out_re = torch.empty_like(a_re)
+    out_im = torch.empty_like(a_im)
+    lib = _build.load()
+    cf, sf, _ = tables(n, False, a_re.device)
+    err = lib.fwd_wiener_rows_launch(
+        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
+        float(K), out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
+        n.bit_length() - 1, rows_per_block(n, m), cf.data_ptr(), sf.data_ptr(),
+        torch.cuda.current_stream(a_re.device).cuda_stream,
+    )
+    _build.check(err, "fwd_wiener_rows")
+    launch_counts["fwd_wiener_rows"] += 1
+    return out_re, out_im
 
 
 def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K):

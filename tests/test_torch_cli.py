@@ -83,3 +83,58 @@ def test_verify_failure_exits_3(blurred_png, tmp_path, capsys, monkeypatch):
     rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "-o", str(tmp_path / "o.png")])
     assert rc == 3
     assert "[Error] tier=gpu" in capsys.readouterr().out
+
+
+def test_directory_input(tmp_path, capsys):
+    """Same-size frames go through the batched pipeline, a lone size
+    through the single pipeline, unreadable files are skipped and
+    counted, and stems shared across formats keep their extension."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+
+    rng = np.random.default_rng(5)
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    group = [blur_image(rng.integers(0, 256, (64, 96, 3), dtype=np.uint8), 9, 30)
+             for _ in range(3)]
+    for name, frame in zip(("a.png", "b.png", "c.png"), group):
+        imwrite(str(src / name), frame)
+    lone = blur_image(rng.integers(0, 256, (40, 50, 3), dtype=np.uint8), 9, 30)
+    imwrite(str(src / "a.PNG"), lone)                  # shares the stem "a"
+    (src / "broken.png").write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(40))  # corrupt
+    (src / "notes.txt").write_text("not an image")     # not picked up
+    (src / "old_restored.png").write_bytes(b"")        # earlier output, skipped
+
+    rc = cli.main([str(src), "9", "30", "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert "[INFO] directory input" in text and "not verified" in text
+    assert "[Error] skipping" in text and "broken.png" in text
+    assert "Restored 4 frames" in text and "[1 skipped]" in text
+    assert sorted(p.name for p in out.iterdir()) == [
+        "a_PNG_restored.png", "a_png_restored.png", "b_restored.png", "c_restored.png",
+    ]
+    batched = BatchedWienerPipeline("cpu").restore(np.stack(group), 9, 30.0, 0.01)
+    for name, ref in zip(("a_png", "b", "c"), batched):
+        assert np.array_equal(imread(str(out / f"{name}_restored.png")), ref)
+    single = WienerDeblurPipeline("cpu").restore(lone, 9, 30.0, 0.01)
+    assert np.array_equal(imread(str(out / "a_PNG_restored.png")), single)
+
+
+def test_directory_without_readable_images_exits_1(tmp_path, capsys):
+    (tmp_path / "x.png").write_bytes(b"not a png")
+    assert cli.main([str(tmp_path), "9", "30", "--device", "cpu"]) == 1
+    text = capsys.readouterr().out
+    assert "[Error] skipping" in text and "Restored 0 frames" in text
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    assert cli.main([str(empty), "9", "30", "--device", "cpu"]) == 1
+    assert "no image files" in capsys.readouterr().out
+
+
+def test_directory_psf_too_long_skips_group(tmp_path, capsys):
+    rng = np.random.default_rng(6)
+    for name in ("a.png", "b.png"):
+        imwrite(str(tmp_path / name), rng.integers(0, 256, (20, 20, 3), dtype=np.uint8))
+    assert cli.main([str(tmp_path), "40", "30", "--device", "cpu", "-o",
+                     str(tmp_path / "o")]) == 1
+    assert "skipping 2 frame(s) of size 20x20" in capsys.readouterr().out

@@ -115,9 +115,126 @@ def test_pipeline_kernels_vs_plain_and_launches(dev, gen):
     img = blur_image(gen.integers(0, 256, (300, 520, 3), dtype=np.uint8), 21, 60.0)
     reset_launch_counts()
     out, planes = WienerDeblurPipeline("cuda").restore_with_planes(img, 21, 60.0, 0.01)
-    assert all(launch_counts[k] > 0 for k in KERNELS), dict(launch_counts)
+    # hp = 512 takes the fused middle (B2), not B7
+    assert all(launch_counts[k] > 0 for k in KERNELS if k != "fwd_wiener_rows"), dict(launch_counts)
+    assert launch_counts["fwd_wiener_rows"] == 0
     H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), *pad_extents(300, 520), PLAIN_OPS)
     out_p, planes_p = _restore_core(torch.as_tensor(img, device=dev), H, 0.01, white_balance=True,
                                     emit_planes=True, wb_stats_stride=1, ops=PLAIN_OPS)
     assert np.abs(planes - planes_p.cpu().numpy()).max() <= 1e-4
     assert np.abs(out.astype(np.int32) - out_p.cpu().numpy().astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("b,h,w", [(64, 256, 256), (3, 150, 200), (1, 330, 640), (2, 2048, 2048)])
+def test_fft_rows_stack_loader(dev, gen, b, h, w):
+    from fft_restoration_tpu_torch.host.padding import next_power_of_two
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    stack = torch.as_tensor(gen.integers(0, 256, (b, h, w, 3), dtype=np.uint8), device=dev)
+    ext = (next_power_of_two(h), next_power_of_two(w))
+    ours = fk.fft_rows_stack(stack, extent=ext)
+    ref = fk.fft_rows_stack_plain(stack, extent=ext)
+    for o, r in zip(ours, ref):
+        assert o.shape == r.shape == (-(-3 * b // 2), ext[1], ext[0])
+        assert _rel(o, r) <= 1e-5
+    if b == 1:  # the single-frame views launch the same loads: bitwise
+        c = stack[0].permute(2, 0, 1)
+        for o, r in zip(ours, fk.fft_rows(c[0::2], c[1::2], transposed=True, extent=ext)):
+            assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("p,m,n", [(96, 256, 256), (2, 2048, 2048), (3, 128, 64)])
+def test_fwd_wiener_rows_and_inverse_t(dev, gen, p, m, n):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    a_re, a_im = (torch.as_tensor(gen.standard_normal((p, m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    h_re, h_im = (torch.as_tensor(gen.standard_normal((m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    f = ws.fwd_wiener_rows(a_re, a_im, h_re, h_im, 0.01)
+    f_p = ws.fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, 0.01)
+    for o, r in zip(f, f_p):
+        assert _rel(o, r) <= 1e-5
+    inv = fk.fft_rows(*f_p, inverse=True, transposed=True)
+    inv_p = fk.fft_rows_plain(*f_p, inverse=True, transposed=True)
+    for o, r in zip(inv, inv_p):
+        assert o.shape == (p, n, m) and _rel(o, r) <= 1e-5
+
+
+@pytest.mark.parametrize("b,live,stride,block", [(64, (256, 256), 1, 64), (64, (256, 256), 4, 8),
+                                                 (3, (150, 200), 1, 64), (8, (2048, 2048), 4, 8)])
+def test_batched_postprocess_kernels(dev, gen, b, live, stride, block):
+    from fft_restoration_tpu_torch.host.padding import next_power_of_two
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+
+    h, w = live
+    n = 3 * b + (3 * b) % 2  # a packed odd stack's phantom plane
+    raw = torch.as_tensor(
+        gen.standard_normal((n, next_power_of_two(h), next_power_of_two(w)), dtype=np.float32),
+        device=dev,
+    )
+    lo = raw[: 3 * b].amin((1, 2))
+    scale = 1.0 / (raw[: 3 * b].amax((1, 2)) - lo)
+    orig = torch.as_tensor(gen.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
+                           device=dev).permute(0, 3, 1, 2)
+    parts = pp.lab_l_sum_partials_batched(raw, orig, lo, scale, live, stride, block)
+    parts_p = pp.lab_l_sum_partials_batched_plain(raw, orig, lo, scale, live, stride, block)
+    assert parts.shape == parts_p.shape and _rel(parts, parts_p) <= 1e-4
+    gains = torch.linspace(0.9, 1.2, b, device=dev)
+    enc = pp.wb_encode_u8_batched(raw, gains, lo, scale, live)
+    enc_p = pp.wb_encode_u8_batched_plain(raw, gains, lo, scale, live)
+    assert enc.shape == (b, h, w, 3)
+    assert int((enc.int() - enc_p.int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("b,h,w,psf,stride", [(64, 256, 256, 25, 1), (3, 150, 200, 15, 1),
+                                              (2, 300, 128, 15, 4)])
+def test_batched_pipeline_kernels_vs_plain_and_launches(dev, gen, b, h, w, psf, stride):
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, pad_extents, psf_spectrum_planes, restore_stack,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    stack = np.stack([blur_image(gen.integers(0, 256, (h, w, 3), dtype=np.uint8), psf, 30.0)
+                      for _ in range(b)])
+    pipe = BatchedWienerPipeline("cuda", wb_stats_stride=stride)
+    reset_launch_counts()
+    out, planes = (t.cpu().numpy() for t in pipe.run(pipe.to_device(stack), psf, 30.0, 0.01))
+    hp, wp = pad_extents(h, w)
+    middle = "wiener_spectral_t" if hp >= 512 else "fwd_wiener_rows"
+    other = "fwd_wiener_rows" if hp >= 512 else "wiener_spectral_t"
+    assert launch_counts[middle] == 1 and launch_counts[other] == 0, dict(launch_counts)
+    assert launch_counts["lab_l_sum_partials"] == 1 and launch_counts["wb_encode_u8"] == 1
+    H = psf_spectrum_planes(make_psf("motion", psf, 30.0, dev), hp, wp, PLAIN_OPS)
+    out_p, planes_p = restore_stack(torch.as_tensor(stack, device=dev), H, 0.01,
+                                    white_balance=True, emit_planes=True,
+                                    wb_stats_stride=stride, ops=PLAIN_OPS)
+    assert np.abs(planes - planes_p.cpu().numpy()).max() <= 1e-4
+    assert np.abs(out.astype(np.int32) - out_p.cpu().numpy().astype(np.int32)).max() <= 1
+
+
+def test_plane_counts_past_65535(dev, gen):
+    """A directory chunk of small frames packs more pairs than gridDim.y
+    could hold: the one-dimensional grids cover them."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    stack = torch.as_tensor(gen.integers(0, 256, (44_001, 3, 7, 3), dtype=np.uint8), device=dev)
+    a = fk.fft_rows_stack(stack, extent=(4, 8))
+    a_p = fk.fft_rows_stack_plain(stack, extent=(4, 8))
+    assert a[0].shape == (66_002, 8, 4)
+    for o, r in zip(a, a_p):
+        assert _rel(o, r) <= 1e-5
+    h_re, h_im = (torch.as_tensor(gen.standard_normal((8, 4), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    for fn, plain in ((ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain),
+                      (ws.wiener_spectral_t, ws.wiener_spectral_t_plain)):
+        for o, r in zip(fn(*a_p, h_re, h_im, 0.01), plain(*a_p, h_re, h_im, 0.01)):
+            assert _rel(o, r) <= 1e-5
+    out, mm = fk.fft_rows_packed_out(*a_p, inverse=True)
+    out_p, mm_p = fk.fft_rows_packed_out_plain(*a_p, inverse=True)
+    assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5

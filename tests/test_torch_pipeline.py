@@ -138,17 +138,27 @@ def test_cuda_device_without_gpu_raises():
         tpl.WienerDeblurPipeline("cuda")
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     code = (
         "import sys\n"
+        "import numpy as np\n"
         "import fft_restoration_tpu_torch, fft_restoration_tpu_torch.cli\n"
         "import fft_restoration_tpu_torch.models.pipeline\n"
+        "import fft_restoration_tpu_torch.models.batched\n"
+        "import fft_restoration_tpu_torch.tools.profile_paths\n"
+        "from fft_restoration_tpu_torch import BatchedWienerPipeline, psf_grid_sweep\n"
         "import fft_restoration_tpu_torch.ops.kernels._build\n"
         "import fft_restoration_tpu_torch.ops.kernels.postprocess\n"
         "import fft_restoration_tpu_torch.ops.kernels.wiener_spectral\n"
         "import fft_restoration_tpu_torch.host.blurgen, fft_restoration_tpu_torch.host.imageio\n"
         "import fft_restoration_tpu_torch.host.oracle, fft_restoration_tpu_torch.host.verify\n"
         "from fft_restoration_tpu_torch import WienerDeblurPipeline\n"
+        "from fft_restoration_tpu_torch.host.imageio import imwrite\n"
+        # the CLI's directory path end to end: two frames, one size
+        f"d = {str(tmp_path)!r}\n"
+        "for n in ('a', 'b'):\n"
+        "    imwrite(f'{d}/{n}.png', np.full((16, 16, 3), 90, np.uint8))\n"
+        "assert fft_restoration_tpu_torch.cli.main([d, '3', '0', '--device', 'cpu']) == 0\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'fft_restoration_tpu')]\n"
         "assert not bad, bad\n"
