@@ -3,14 +3,18 @@
 
     python3 chip_smoke.py [--seed N] [--iters N]
 
-Run from the root of a checkout. Three paths are driven: the 2048x2048x3
-single-frame restore, a batch of 64 256^2 frames (batch64, PSF(25, 30))
-and a batch of 8 2048^2 frames (batch8, PSF(50, 30)). Phases, each
-printing its own lines; any failure exits non-zero:
+Run from the root of a checkout. The paths driven: the 2048x2048x3
+single-frame Wiener restore, a batch of 64 256^2 frames (batch64, PSF(25,
+30)), a batch of 8 2048^2 frames (batch8, PSF(50, 30)), and the filter
+family at 2048x2048x3, PSF(50, 30): Richardson-Lucy (10 iterations),
+Wiener with the edge taper, inverse and CLS, then RL and the taper on 8
+256^2 frames (the unfused conv middle). Phases, each printing its own
+lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds);
   2. kernels every kernel against its plain PyTorch version on the card,
-             at the shapes the three paths give it, with the tolerances
+             at the shapes the paths give it (B2 in its 'wiener', 'conv'
+             and 'conv' + conj modes), with the tolerances
              below; each timed against its plain version with CUDA
              events, beside its bound (the larger of the bytes it must
              move over 3.35 TB/s and its float32 operations over 67
@@ -25,13 +29,22 @@ printing its own lines; any failure exits non-zero:
              1920x782 frames, a stack of three 640x330 frames and one
              point of a psf_grid_sweep against the serial oracle at the
              inf tier; batch8 image by image against the single-frame
-             pipeline; the CLI on a directory of five PNGs;
+             pipeline; the CLI on a directory of five PNGs; each filter
+             family path once with the counters reset (RL must take B2
+             'conv' 20 times, the taper once) and against its plain
+             path; at 640x330 Wiener + edgetaper against the oracle with
+             the taper (inf tier); RL against a float64 numpy RL of the
+             same input planes on a 1024x512 frame (no zero pad) and on
+             zero-padded 640x330 and 200x230 frames at two seeds, with
+             and without the taper (check_rl_f64 gives the limits); the
+             CLI with --filter rl --iters 3 and with --edgetaper;
   4. timing  ms/frame and MP/s of the 2048^2 restore, ms/batch, ms/frame,
              MP/s and host enqueue of batch64 and batch8 (serving graph,
              CUDA events, the median of five loops) for wb_stats_stride 1
              and 4, and the middle A/B: B2 against B7 + the inverse-T
              pass on the same input at hp = 256 (batch64) and hp = 2048
-             (batch8).
+             (batch8); ms/frame and host enqueue of the four filter
+             family paths at 2048^2.
 
 The last three lines are the results (JSON: the kernel table and the
 timings), the card's name and power limit (nvidia-smi), and {"ok": true,
@@ -54,12 +67,44 @@ TOL_WIENER_REL = 1e-5   # same, through two transforms and the filter
 TOL_PARTIALS_REL = 1e-4  # block sums; hardware ex2/lg2 (~2 ulp) and sum order
 TOL_U8 = 1               # uint8 counts: rounding at the truncation edge
 TOL_SLICE_PLANES = 1e-4  # kernel path vs plain path, restored planes
+TOL_INVERSE_PLANES = 2e-4  # the inverse filter's 1/|H|^2 (up to 1e8) amplifies rounding
+# Richardson-Lucy on a zero-padded frame against the float64 RL: its
+# divisions amplify float32 rounding at the frame's rim, the JAX
+# package's RL contracts (check_rl_f64)
+TOL_RL_PLANES = 5e-2     # plane INF
+TOL_RL_U8 = 8            # uint8 counts of the white-balanced output ...
+TOL_RL_U8_MEAN = 0.2     # ... and their mean
+RL_ITERS = 10
 SIZE = 2048
 # published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 # the batched paths: (name, frames, side, PSF length), PSF angle 30, K 0.01
 BATCHES = (("batch64_256sq", 64, 256, 25), ("batch8_2048sq", 8, 2048, 50))
+# the filter family at 2048^2 (PSF(50, 30)): path -> pipeline options,
+# kernels that must launch, kernels that must not
+_NO_WIENER = ("wiener_spectral_t", "fwd_wiener_rows")
+_POST = ("lab_l_sum_partials", "wb_encode_u8")
+FAMILY = (
+    ("rl_2048sq", dict(filter_name="rl", rl_iters=RL_ITERS),
+     ("fft_rows", "spectral_conv_t"), _NO_WIENER + _POST),
+    ("wiener_edgetaper_2048sq", dict(edgetaper=True),
+     ("fft_rows", "spectral_conv_t", "wiener_spectral_t") + _POST, ("fwd_wiener_rows",)),
+    ("inverse_2048sq", dict(filter_name="inverse"), ("fft_rows",) + _POST,
+     _NO_WIENER + ("spectral_conv_t",)),
+    ("cls_2048sq", dict(filter_name="cls"), ("fft_rows",) + _POST,
+     _NO_WIENER + ("spectral_conv_t",)),
+)
+# RL and the taper on eight 256^2 frames (PSF(25, 30)): the unfused conv
+# middle; the same fields as FAMILY
+SMALL_FAMILY = (
+    ("batch8_256sq_rl", dict(filter_name="rl", rl_iters=RL_ITERS), ("fft_rows",),
+     ("spectral_conv_t",) + _NO_WIENER + _POST),
+    ("batch8_256sq_edgetaper", dict(edgetaper=True), ("fft_rows", "fwd_wiener_rows") + _POST,
+     ("spectral_conv_t", "wiener_spectral_t")),
+)
+# B2 'conv' launches a run of each family path takes
+CONV_LAUNCHES = {"rl_2048sq": 2 * RL_ITERS, "wiener_edgetaper_2048sq": 1}
 SRC = "fft_restoration_tpu_torch/"
 TPU = "fft_restoration_tpu/ops/pallas/"
 
@@ -145,22 +190,27 @@ LAB_L_FLOPS = 50
 WB_ENCODE_FLOPS = 160
 
 
-def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True):
+def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, **filter_kw):
     """A (B, h, w, 3) stack's restore on the card through every kernel's
-    plain version: the reference of the kernel path. Returns a function
-    of no arguments that runs it (PSF spectrum made once, as the
-    pipelines cache it)."""
+    plain version: the reference of the kernel path. filter_kw: the
+    pipeline's filter_name / rl_iters / edgetaper. Returns a function of
+    no arguments that runs it (PSF and Laplacian spectra made once, as
+    the pipelines cache them)."""
     from fft_restoration_tpu_torch.models.pipeline import (
-        PLAIN_OPS, pad_extents, psf_spectrum_planes, restore_stack,
+        PLAIN_OPS, laplacian_spectrum, pad_extents, psf_spectrum_planes, restore_stack,
     )
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
     dev = torch.device("cuda", 0)
     x = torch.as_tensor(stack, device=dev)
     hp, wp = pad_extents(*stack.shape[1:3])
-    H = psf_spectrum_planes(make_psf("motion", psf_length, 30.0, dev), hp, wp, PLAIN_OPS)
+    psf = make_psf("motion", psf_length, 30.0, dev)
+    H = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS)
+    lap = (laplacian_spectrum(hp, wp, dev, PLAIN_OPS)
+           if filter_kw.get("filter_name") == "cls" else None)
     return lambda: restore_stack(x, H, 0.01, white_balance=True, emit_planes=emit_planes,
-                                 wb_stats_stride=stride, ops=PLAIN_OPS)
+                                 wb_stats_stride=stride, psf=psf, lap=lap, ops=PLAIN_OPS,
+                                 **filter_kw)
 
 
 def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None):
@@ -291,6 +341,27 @@ def check_kernels(torch, np, frame, stack64, stack8, iters):
     rows.append(dict(name="wiener_spectral_t", route="cuda",
                      source=SRC + "csrc/wiener_spectral.cu",
                      replaces=TPU + "wiener_spectral.py:402", **m))
+
+    # spectral_conv_t (B2 'conv', and with conj the mirrored PSF), 2048^2:
+    # the same bytes as B2 'wiener', a complex product in place of the filter
+    conv = {}
+    for mode, conj in (("conv", False), ("conv_conj", True)):
+        ck = ws.spectral_conv_t(*fwd_p, *Hp, conj)
+        cp = ws.spectral_conv_t_plain(*fwd_p, *Hp, conj)
+        m = conv[mode] = measure(
+            torch, list(zip(ck, cp)), lambda: ws.spectral_conv_t(*fwd_p, *Hp, conj),
+            lambda: ws.spectral_conv_t_plain(*fwd_p, *Hp, conj), iters,
+            (4 + 4 + 2) * h * w * 4, 2 * fft_flops(2 * w, h) + 2 * h * w * 6)
+        log(f"spectral_conv_t {mode}: max rel err {m['max_rel_err']:.3e} (tol "
+            f"{TOL_WIENER_REL}); {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms")
+        if not m["max_rel_err"] <= TOL_WIENER_REL:
+            fail(f"spectral_conv_t {mode} disagrees with its plain version")
+    rows.append(dict(name="spectral_conv_t", route="cuda",
+                     source=SRC + "csrc/wiener_spectral.cu",
+                     replaces=TPU + "wiener_spectral.py:402", **conv["conv"],
+                     max_rel_err_all=max(x["max_rel_err"] for x in conv.values()),
+                     max_abs_err_all=max(x["max_abs_err"] for x in conv.values()), modes=conv))
 
     # fwd_wiener_rows (B7): batch64's middle, and the 2048^2 frame's planes
     b7 = {}
@@ -542,6 +613,190 @@ def check_batched(torch, np, stacks, seed):
     return res
 
 
+def compare_paths(np, name, planes, planes_p, out, out_p):
+    """Kernel path against plain path: planes INF and uint8 counts. RL is
+    held to the one-shot filters' limits here: these frames fill their
+    pow2 extent, where RL's divisions have nothing to amplify (the padded
+    frames are held in check_rl_f64). Returns the numbers."""
+    dp = float(np.abs(planes - planes_p).max())
+    d8 = np.abs(out.astype(np.int32) - out_p.astype(np.int32))
+    du, dmean = int(d8.max()), float(d8.mean())
+    tol_p = TOL_INVERSE_PLANES if "inverse" in name else TOL_SLICE_PLANES
+    log(f"{name} kernel vs plain path: planes max abs {dp:.3e} (tol {tol_p}), uint8 max {du} "
+        f"(tol {TOL_U8}), mean {dmean:.4f}")
+    if not (dp <= tol_p and du <= TOL_U8):
+        fail(f"{name} kernel path disagrees with the plain path")
+    return dict(planes_max_abs=dp, u8_max=du, u8_mean=dmean)
+
+
+def check_family(torch, np, frame):
+    """Phase 3, the filter family at 2048^2: each path once with the
+    counters reset, then against its plain path. Returns {path: {...}}."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    res = {}
+    for name, kw, expect, forbid in FAMILY:
+        pipe = WienerDeblurPipeline("cuda", **kw)
+        (out, planes), counts = drive(
+            torch, name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01), expect, forbid)
+        if counts["spectral_conv_t"] != CONV_LAUNCHES.get(name, 0):
+            fail(f"{name}: {counts['spectral_conv_t']} B2 'conv' launches, expected "
+                 f"{CONV_LAUNCHES.get(name, 0)}")
+        if out.shape != frame.shape or not np.isfinite(planes).all():
+            fail(f"{name}: bad output {out.shape}, finite planes {np.isfinite(planes).all()}")
+        out_p, planes_p = (t[0].cpu().numpy() for t in plain_restore(torch, frame[None], 50,
+                                                                   **kw)())
+        res[name] = dict(launches=counts,
+                         vs_plain=compare_paths(np, name, planes, planes_p, out, out_p))
+    return res
+
+
+def check_family_small(torch, np, stack8):
+    """Phase 3, the conv's unfused middle (hp = 256 < 512): RL and the
+    edge taper on a batch of eight 256^2 frames, counters reset, against
+    the plain path."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+
+    res = {}
+    for name, kw, expect, forbid in SMALL_FAMILY:
+        pipe = BatchedWienerPipeline("cuda", **kw)
+        x = pipe.to_device(stack8)
+        (out, planes), counts = drive(torch, name, lambda: pipe.run(x, 25, 30.0, 0.01),
+                                      expect, forbid)
+        out_p, planes_p = plain_restore(torch, stack8, 25, **kw)()
+        res[name] = dict(launches=counts, vs_plain=compare_paths(
+            np, name, planes.cpu().numpy(), planes_p.cpu().numpy(), out.cpu().numpy(),
+            out_p.cpu().numpy()))
+    return res
+
+
+# RL against the float64 RL: (name, h, w, PSF length, edge taper); the
+# padded frames at two seeds each
+RL_F64_CASES = (("1024x512", 512, 1024, 50, False),
+                ("640x330", 330, 640, 50, False), ("640x330_edgetaper", 330, 640, 50, True),
+                ("200x230", 230, 200, 25, False), ("200x230_edgetaper", 230, 200, 25, True))
+RL_WITNESS_FACTOR = 2.0  # untapered padded frames: at most this times the witness's distance
+
+
+def check_rl_f64(torch, np, seed):
+    """RL (10 iterations) through WienerDeblurPipeline against the float64
+    RL of the same float32 input planes (the pipeline's padded planes,
+    tapered by the same device taper when the case has it).
+
+    The pipeline's own padded planes must equal the reference's bit for
+    bit: with the edge taper, RL on a zero-padded frame carries the
+    taper's float32 rounding in the pad rows into the frame's
+    top-left rim, which the PSF's empty top rows read only from the pad,
+    so one ulp of input moves the float64 RL itself there by 0.1-0.4.
+    Held: the full frame to TOL_SLICE_PLANES; the tapered padded frames to
+    the RL contract (TOL_RL_PLANES, TOL_RL_U8 counts and TOL_RL_U8_MEAN
+    on the white-balanced uint8 output); the untapered padded frames,
+    where the zero pad makes the rim's blur exactly 0 in float64 and
+    float32 rounding over eps in float32, so every float32 RL sits
+    ~0.1-0.2 from the float64 one, to the distance of an independent
+    float32 RL (torch.fft), planes max and uint8 mean, within
+    RL_WITNESS_FACTOR."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.oracle import motion_psf
+    from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
+    from fft_restoration_tpu_torch.models.pipeline import encode_planar, padded_planes
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.tools.rl_rim import (
+        padded_frame_planes,
+        rl_f32_torch_fft,
+        rl_f64,
+    )
+
+    dev = torch.device("cuda", 0)
+    res = {}
+    for name, h, w, length, taper in RL_F64_CASES:
+        for s in (seed + 1,) if name == "1024x512" else (seed + 1, seed + 2):
+            img = blurred_frame(np, h, w, s, length)
+            y = padded_frame_planes(img)
+            ours = padded_planes(torch.as_tensor(img, device=dev)[None], *y.shape[1:])
+            if not torch.equal(ours.cpu(), torch.from_numpy(y)):
+                fail(f"{name}: the pipeline's padded planes are not x / 255 on the card")
+            if taper:
+                y = edge_taper_planes(torch.as_tensor(y, device=dev),
+                                      make_psf("motion", length, 30.0, dev), (h, w)).cpu().numpy()
+            out, planes = WienerDeblurPipeline(
+                "cuda", filter_name="rl", rl_iters=RL_ITERS, edgetaper=taper
+            ).restore_with_planes(img, length, 30.0)
+            psf = motion_psf(length, 30.0)
+            ref = rl_f64(y, psf, RL_ITERS)[:, :h, :w]
+            orig = torch.as_tensor(img, device=dev).permute(2, 0, 1)[None]
+            ref8 = encode_planar(torch.as_tensor(ref, dtype=torch.float32, device=dev)[None],
+                                 orig, True)[0].cpu().numpy().astype(np.int32)
+            d = np.abs(planes - ref)
+            d8 = np.abs(out.astype(np.int32) - ref8)
+            r = dict(planes_max_abs=float(d.max()), share_past_tol=float((d > TOL_RL_PLANES).mean()),
+                     u8_max=int(d8.max()), u8_mean=float(d8.mean()))
+            line = (f"{name} seed {s} rl ({RL_ITERS} iterations) vs float64 RL: planes max abs "
+                    f"{r['planes_max_abs']:.3e} ({r['share_past_tol']:.2e} of the values past "
+                    f"{TOL_RL_PLANES}), uint8 max {r['u8_max']}, mean {r['u8_mean']:.4f}")
+            if name == "1024x512":
+                ok = r["planes_max_abs"] <= TOL_SLICE_PLANES
+                line += f" (tol {TOL_SLICE_PLANES} planes)"
+            elif taper:
+                ok = (r["planes_max_abs"] <= TOL_RL_PLANES and r["u8_max"] <= TOL_RL_U8
+                      and r["u8_mean"] <= TOL_RL_U8_MEAN)
+                line += f" (tol {TOL_RL_PLANES}, {TOL_RL_U8}, {TOL_RL_U8_MEAN})"
+            else:
+                wit = rl_f32_torch_fft(y, psf, RL_ITERS, device=dev)[:, :h, :w]
+                wit8 = encode_planar(torch.as_tensor(wit, device=dev)[None], orig, True)
+                dw = np.abs(wit - ref)
+                r.update(witness_planes_max_abs=float(dw.max()),
+                         witness_share_past_tol=float((dw > TOL_RL_PLANES).mean()),
+                         witness_u8_mean=float(np.abs(
+                             wit8[0].cpu().numpy().astype(np.int32) - ref8).mean()))
+                ok = (r["planes_max_abs"] <= RL_WITNESS_FACTOR * r["witness_planes_max_abs"]
+                      and r["u8_mean"] <= RL_WITNESS_FACTOR * r["witness_u8_mean"])
+                line += (f"; float32 torch.fft RL (the witness): planes max abs "
+                         f"{r['witness_planes_max_abs']:.3e} ({r['witness_share_past_tol']:.2e} "
+                         f"past), uint8 mean {r['witness_u8_mean']:.4f} (tol x{RL_WITNESS_FACTOR})")
+            log(line)
+            if not ok:
+                fail(f"{name} seed {s}: rl disagrees with the float64 RL")
+            res[f"rl_{name}_seed{s}_vs_f64"] = r
+    return res
+
+
+def check_family_oracle(torch, np, seed):
+    """Phase 3 at 640x330: Wiener + edgetaper against the oracle with the
+    taper (inf tier), RL against the float64 RL (check_rl_f64); the CLI
+    with --filter rl --iters 3 and with --edgetaper on one PNG."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline, cli
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+
+    car = blurred_frame(np, 330, 640, seed + 1)
+    ours = WienerDeblurPipeline("cuda", edgetaper=True).restore_channels(car, 50, 30.0, 0.01)
+    rep = channels_equal(ours, restore_frame_channels(car, 50, 30.0, 0.01, edgetaper=True), "inf")
+    log(f"640x330 wiener + edgetaper vs serial oracle with the taper: {rep}")
+    if not rep.passed:
+        fail("640x330 wiener + edgetaper fails the inf tier against the oracle")
+    res = dict(check_rl_f64(torch, np, seed), edgetaper_vs_oracle_inf=rep.inf)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "car.png")
+        imwrite(png, car)
+        for extra, want in ((["--filter", "rl", "--iters", "3"], "[INFO] --filter rl"),
+                            (["--edgetaper", "--tier", "inf"], "[Success] tier=inf")):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main([png, "50", "30", "-o", os.path.join(tmp, "out.png"), *extra])
+            log(f"CLI {' '.join(extra)}: exit {rc}; "
+                f"{[ln for ln in text.getvalue().splitlines() if ln.startswith('[')]}")
+            if rc != 0 or want not in text.getvalue():
+                fail(f"the CLI with {' '.join(extra)} failed")
+    return res
+
+
 def host_enqueue_ms(torch, fn, n: int) -> float:
     """Host time to queue one call, the device left to run behind."""
     torch.cuda.synchronize()
@@ -639,6 +894,27 @@ def middle_ab(torch, np, stacks, iters):
     return res
 
 
+def time_family(torch, np, frame, stack8, iters):
+    """Phase 4, the filter family: device ms per run (serving graph, median
+    of five loops) and host enqueue of each 2048^2 path, and of RL and the
+    taper on the batch of eight 256^2 frames."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+
+    paths = [(name, kw, WienerDeblurPipeline, frame, 50) for name, kw, _, _ in FAMILY]
+    paths += [(name, kw, BatchedWienerPipeline, stack8, 25) for name, kw, _, _ in SMALL_FAMILY]
+    res = {}
+    for name, kw, cls, x, psf in paths:
+        pipe = cls("cuda", emit_planes=False, **kw)
+        xd = pipe.to_device(x)
+        fn = lambda: pipe.run(xd, psf, 30.0, 0.01)  # noqa: E731
+        ms, runs = cuda_ms_median(torch, fn, iters)
+        enq = host_enqueue_ms(torch, fn, iters)
+        res[name] = dict(ms_per_run=ms, ms_per_run_loops=runs, host_enqueue_ms_per_run=enq)
+        log(f"{name} serving graph: {ms:.4f} ms/run (median of "
+            f"{' '.join(f'{r:.4f}' for r in runs)}), host enqueue {enq:.4f} ms/run")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -682,7 +958,11 @@ def main() -> int:
     t0 = time.perf_counter()
     counts = {"single_2048sq": check_slice(torch, np, frame, args.seed)}
     batched = check_batched(torch, np, stacks, args.seed)
-    counts.update({name: batched[name]["launches"] for name in batched})
+    family = check_family(torch, np, frame)
+    family.update(check_family_small(torch, np, stacks["batch64_256sq"][:8]))
+    for paths in (batched, family):
+        counts.update({name: paths[name]["launches"] for name in paths})
+    family_oracle = check_family_oracle(torch, np, args.seed)
     log(f"phase 3 slice: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
@@ -693,11 +973,15 @@ def main() -> int:
     timing = time_slice(torch, np, frame, args.iters)
     batch_timing = time_batches(torch, np, stacks, timing, args.iters)
     ab = middle_ab(torch, np, stacks, args.iters)
+    family_timing = time_family(torch, np, frame, stacks["batch64_256sq"][:8], args.iters)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
 
-    result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab}
+    result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab,
+              "family_640x330": family_oracle}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
+    for name in family:
+        result[name] = dict(family[name], **family_timing.get(name, {}))
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,12 @@ single frames through WienerDeblurPipeline. Unreadable files are
 skipped with an `[Error] skipping ...` line; directory mode does not
 verify against the oracle.
 
+--filter picks wiener (default), inverse, cls or rl (Richardson-Lucy,
+--iters steps); --edgetaper blends the frame toward its circular blur at
+the borders before deconvolving. As in the JAX CLI, only wiener is
+verified against the serial oracle (with the taper on both sides); the
+other filters print an [INFO] line and skip the verify.
+
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
 """
@@ -50,12 +56,10 @@ NOT_PORTED = {
     "--fft-engine": "A3",
     "--psf-type": "A2",
     "--psf-file": "A2",
-    "--iters": "A10",
     "--tile": "A12",
     "--tile-overlap": "A12",
     "--auto-K": "A11",
     "--estimate-psf": "A11",
-    "--edgetaper": "A10",
     "--devices": "A14",
     "--mxu-precision": "A5",
     "--stage-dtype": "A5",
@@ -75,7 +79,8 @@ class _NotPorted(argparse.Action):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="fft_restoration_tpu_torch",
-        description="Frequency-domain motion deblur (Wiener) with hand-written "
+        description="Frequency-domain motion deblur (Wiener, inverse, CLS, "
+        "Richardson-Lucy) with hand-written "
         "CUDA/Triton kernels on an NVIDIA GPU.",
     )
     p.add_argument("img_path", help="input image (PNG)")
@@ -89,7 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--filter", choices=("wiener", "inverse", "cls", "rl"), default="wiener",
-        help="restoration filter; only wiener is ported (ROADMAP.md A8, A10)",
+        help="restoration filter: one-shot spectral (wiener/inverse/cls) or "
+        "iterative Richardson-Lucy ('rl', --iters steps)",
+    )
+    p.add_argument(
+        "--iters", type=int, default=10,
+        help="Richardson-Lucy iteration count (--filter rl)",
+    )
+    p.add_argument(
+        "--edgetaper", action="store_true",
+        help="blend the frame toward its circular blur at the borders before "
+        "deconvolving (applied on the oracle side too, so the verify still runs)",
     )
     p.add_argument(
         "--pad", choices=("pow2", "smooth"), default="pow2",
@@ -126,6 +141,11 @@ def main(argv=None) -> int:
     if args.psf_length < 1:
         print(f"[Error] psf-length must be >= 1, got {args.psf_length}")
         return 2
+    if args.filter == "rl" and args.iters < 1:
+        print("[Error] --iters must be >= 1 (got "
+              f"{args.iters}: a 0-iteration RL loop would silently "
+              "return the blurred input)")
+        return 2
     if args.wb_stride < 1:
         print(f"[Error] --wb-stride must be >= 1 (got {args.wb_stride})")
         return 2
@@ -139,6 +159,7 @@ def main(argv=None) -> int:
         pipe = WienerDeblurPipeline(
             args.device, filter_name=args.filter, pad_mode=args.pad,
             white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
+            rl_iters=args.iters, edgetaper=args.edgetaper,
         )
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
@@ -168,9 +189,13 @@ def main(argv=None) -> int:
     mode_ms = (t1 - t0) * 1e3
     print(f"Deblurring 3 channels took(torch-{pipe.device.type}): {mode_ms:.2f} ms")
 
-    if not args.no_verify:
+    if not args.no_verify and args.filter != "wiener":
+        print(f"[INFO] --filter {args.filter} is not verified: the serial oracle "
+              "implements wiener only")
+    elif not args.no_verify:
         t0 = time.perf_counter()
-        oracle = restore_frame_channels(img, args.psf_length, args.psf_angle, args.K)
+        oracle = restore_frame_channels(img, args.psf_length, args.psf_angle, args.K,
+                                        args.edgetaper)
         serial_ms = (time.perf_counter() - t0) * 1e3
         print(f"Deblurring 3 channels took(serial): {serial_ms:.2f} ms")
         report = channels_equal(ours, oracle, args.tier)
@@ -243,6 +268,7 @@ def _run_batch(args, single) -> int:
             batched = BatchedWienerPipeline(
                 single.device, filter_name=args.filter, pad_mode=args.pad,
                 white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
+                rl_iters=args.iters, edgetaper=args.edgetaper,
             )
         hp, wp = pad_extents(h, w, args.pad)
         chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))

@@ -1,14 +1,28 @@
-// The two Wiener middles of the 2D restore, in the transposed orientation.
+// The spectral middles of the 2D restore, in the transposed orientation.
 //
-// wiener_spectral_t: column FFT -> Wiener -> column IFFT -> transposed write.
-// Replaces fft_restoration_tpu/ops/pallas/wiener_spectral.py:
-// wiener_spectral_rows_t ("fftr_spectral_mid_T_wiener", B2). In the
-// transposed orientation the middle of the 2D restore works on each row
-// on its own: per block of rows it runs the DIF stages (the second
-// forward pass), F = G * conj(H) / (|H|^2 + K) against the matching rows
-// of the PSF spectrum, then the DIT stages (the first inverse pass), and
-// writes the block transposed, ready for the final row IFFT. The
-// filtered 2D spectrum never goes to device memory.
+// spectral_t_kernel<MODE>: column FFT -> filter -> column IFFT ->
+// transposed write. Replaces fft_restoration_tpu/ops/pallas/
+// wiener_spectral.py:wiener_spectral_rows_t (B2) in both its modes:
+//   MODE_WIENER     F = G * conj(H) / (|H|^2 + K)
+//                   ("fftr_spectral_mid_T_wiener": the restore's middle)
+//   MODE_CONV       F = G * H, K ignored ("fftr_spectral_mid_T_conv": the
+//                   circular convolution of models/convolve.py, run by
+//                   the edge taper and twice per Richardson-Lucy step)
+//   MODE_CONV_CONJ  F = G * conj(H): the convolution with the mirrored
+//                   PSF (H of a real PSF), RL's second conv. The JAX
+//                   package passes -H_im instead; the flag saves a negated
+//                   copy of the spectrum (17 MB at 2048^2) per RL step.
+// The filter is the only difference between the modes: one template body
+// compiles each, so the Wiener instance keeps the single-mode code. The
+// conv modes move the same bytes as Wiener (A and H in, the result out)
+// and so share its bound.
+//
+// In the transposed orientation the middle of the 2D restore works on
+// each row on its own: per block of rows it runs the DIF stages (the
+// second forward pass), the filter against the matching rows of the PSF
+// spectrum, then the DIT stages (the first inverse pass), and writes the
+// block transposed, ready for the final row IFFT. The filtered 2D
+// spectrum never goes to device memory.
 //
 // What bounds it on the H100: it reads A (67 MB at 2048^2 x 2 planes)
 // and H (34 MB) and writes the result (67 MB), about 50 us at 3.35 TB/s;
@@ -34,17 +48,20 @@
 // plane b / nblk (the plane count is not held to gridDim.y's 65535).
 #include "fft_common.cuh"
 
+enum SpectralMode { MODE_WIENER = 0, MODE_CONV = 1, MODE_CONV_CONJ = 2 };
+
+template <int MODE>
 __global__ void __launch_bounds__(FFT_THREADS)
-wiener_spectral_t_kernel(const float* __restrict__ a_re,
-                         const float* __restrict__ a_im,
-                         const float* __restrict__ h_re,
-                         const float* __restrict__ h_im, float K,
-                         float* __restrict__ out_re, float* __restrict__ out_im,
-                         int M, int N, int log2n, int rows, int nblk,
-                         const float* __restrict__ cos_f,
-                         const float* __restrict__ sin_f,
-                         const float* __restrict__ cos_i,
-                         const float* __restrict__ sin_i) {
+spectral_t_kernel(const float* __restrict__ a_re,
+                  const float* __restrict__ a_im,
+                  const float* __restrict__ h_re,
+                  const float* __restrict__ h_im, float K,
+                  float* __restrict__ out_re, float* __restrict__ out_im,
+                  int M, int N, int log2n, int rows, int nblk,
+                  const float* __restrict__ cos_f,
+                  const float* __restrict__ sin_f,
+                  const float* __restrict__ cos_i,
+                  const float* __restrict__ sin_i) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
@@ -64,9 +81,17 @@ wiener_spectral_t_kernel(const float* __restrict__ a_re,
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const float hr = h_re[hbase + t], hi = h_im[hbase + t];
     const float xr = sre[t], xi = sim[t];
-    const float inv = 1.0f / (hr * hr + hi * hi + K);
-    sre[t] = (xr * hr + xi * hi) * inv;
-    sim[t] = (xi * hr - xr * hi) * inv;
+    if (MODE == MODE_WIENER) {
+      const float inv = 1.0f / (hr * hr + hi * hi + K);
+      sre[t] = (xr * hr + xi * hi) * inv;
+      sim[t] = (xi * hr - xr * hi) * inv;
+    } else if (MODE == MODE_CONV) {
+      sre[t] = xr * hr - xi * hi;
+      sim[t] = xr * hi + xi * hr;
+    } else {  // MODE_CONV_CONJ
+      sre[t] = xr * hr + xi * hi;
+      sim[t] = xi * hr - xr * hi;
+    }
   }
   __syncthreads();
   dit_stages(sre, sim, rows, N, log2n, cos_i, sin_i);
@@ -125,6 +150,26 @@ static int grid_of(int P, int M, int rows, int* nblk, int* blocks) {
   return 0;
 }
 
+template <int MODE>
+static int launch_spectral_t(const void* a_re, const void* a_im,
+                             const void* h_re, const void* h_im, float K,
+                             void* out_re, void* out_im, int P, int M, int N,
+                             int log2n, int rows, const void* cos_f,
+                             const void* sin_f, const void* cos_i,
+                             const void* sin_i, void* stream) {
+  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
+  cudaError_t err = allow_smem(spectral_t_kernel<MODE>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int nblk, blocks;
+  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
+  spectral_t_kernel<MODE><<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)a_re, (const float*)a_im, (const float*)h_re,
+      (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
+      nblk, (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
+      (const float*)sin_i);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* h_re, const void* h_im,
                                         float K, void* out_re, void* out_im,
@@ -132,17 +177,27 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         int rows, const void* cos_f,
                                         const void* sin_f, const void* cos_i,
                                         const void* sin_i, void* stream) {
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(wiener_spectral_t_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int nblk, blocks;
-  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
-  wiener_spectral_t_kernel<<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)a_re, (const float*)a_im, (const float*)h_re,
-      (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
-      nblk, (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
-      (const float*)sin_i);
-  return (int)cudaGetLastError();
+  return launch_spectral_t<MODE_WIENER>(a_re, a_im, h_re, h_im, K, out_re,
+                                        out_im, P, M, N, log2n, rows, cos_f,
+                                        sin_f, cos_i, sin_i, stream);
+}
+
+// conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
+extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im,
+                                      const void* h_re, const void* h_im,
+                                      int conj, void* out_re, void* out_im,
+                                      int P, int M, int N, int log2n, int rows,
+                                      const void* cos_f, const void* sin_f,
+                                      const void* cos_i, const void* sin_i,
+                                      void* stream) {
+  if (conj)
+    return launch_spectral_t<MODE_CONV_CONJ>(a_re, a_im, h_re, h_im, 0.0f,
+                                             out_re, out_im, P, M, N, log2n,
+                                             rows, cos_f, sin_f, cos_i, sin_i,
+                                             stream);
+  return launch_spectral_t<MODE_CONV>(a_re, a_im, h_re, h_im, 0.0f, out_re,
+                                      out_im, P, M, N, log2n, rows, cos_f,
+                                      sin_f, cos_i, sin_i, stream);
 }
 
 extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,

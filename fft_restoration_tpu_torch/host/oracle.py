@@ -95,12 +95,23 @@ def _pad_to(a: np.ndarray, rows: int, cols: int) -> np.ndarray:
     return np.pad(a, [(0, rows - a.shape[-2]), (0, cols - a.shape[-1])])
 
 
-def restore_channels(channels: np.ndarray, psf: np.ndarray, K: float = 0.01) -> np.ndarray:
+def restore_channels(channels: np.ndarray, psf: np.ndarray, K: float = 0.01,
+                     edgetaper: bool = False) -> np.ndarray:
     """(C, H, W) float32 planes in [0, 1] -> restored (C, H, W) float32
-    planes, each min-max normalized over its pow2-padded extent."""
+    planes, each min-max normalized over its pow2-padded extent.
+    edgetaper: pad, blend the padded frame toward its circular blur at
+    the borders (host/edgetaper.py, float64), then restore the tapered
+    padded planes and crop — the --edgetaper twin of the device path."""
     channels = np.asarray(channels, np.float32)
     h, w = channels.shape[-2:]
     hp, wp = next_power_of_two(h), next_power_of_two(w)
+    if edgetaper:
+        from fft_restoration_tpu_torch.host.edgetaper import edge_taper_channels
+
+        padded = np.zeros(channels.shape[:-2] + (hp, wp), np.float32)
+        padded[..., :h, :w] = channels
+        tapered = edge_taper_channels(padded, np.asarray(psf, np.float32), (h, w))
+        return restore_channels(tapered, psf, K)[..., :h, :w]
     H = _dft2d(_pad_to(np.asarray(psf, np.float32), hp, wp).astype(np.complex64), False)
     mag = np.sqrt(H.real * H.real + H.imag * H.imag, dtype=np.float32)
     denom = (mag * mag + np.float32(K)).astype(np.float32)
@@ -118,7 +129,8 @@ def restore_channels(channels: np.ndarray, psf: np.ndarray, K: float = 0.01) -> 
 
 
 def restore_frame_channels(img_bgr: np.ndarray, psf_length: int, psf_angle: float,
-                           K: float = 0.01) -> np.ndarray:
+                           K: float = 0.01, edgetaper: bool = False) -> np.ndarray:
     """uint8 BGR (H, W, 3) frame -> the oracle's restored (3, H, W) planes."""
     imgf = np.asarray(img_bgr, np.float32) / np.float32(255.0)
-    return restore_channels(np.moveaxis(imgf, -1, 0), motion_psf(psf_length, psf_angle), K)
+    return restore_channels(np.moveaxis(imgf, -1, 0), motion_psf(psf_length, psf_angle), K,
+                            edgetaper=edgetaper)

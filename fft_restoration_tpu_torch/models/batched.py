@@ -40,8 +40,10 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     (the wrappers take their plain versions for CPU tensors).
     emit_planes=False is the serving graph: run() returns no planes.
     psf_type: 'motion', 'gaussian' or 'disk' (the angle argument is the
-    family's parameter). edgetaper and stage_dtype exist for the JAX
-    signature and are not ported yet.
+    family's parameter). filter_name, rl_iters and edgetaper as in
+    WienerDeblurPipeline; the taper runs over the flat (3B, hp, wp)
+    planes, its channel pairs straddling images as the restore's do.
+    stage_dtype exists for the JAX signature and is not ported yet.
     """
 
     def __init__(
@@ -54,11 +56,10 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         pad_mode: str = "pow2",
         wb_stats_stride: int = 1,
         psf_type: str = "motion",
+        rl_iters: int = 10,
         edgetaper: bool = False,
         stage_dtype: str | None = None,
     ):
-        if edgetaper:
-            raise NotImplementedError("edgetaper is not ported yet: ROADMAP.md A10")
         if stage_dtype not in (None, "f32", "float32"):
             raise NotImplementedError(
                 f"stage_dtype {stage_dtype!r} is not ported yet (the port stages "
@@ -67,7 +68,8 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode,
-            wb_stats_stride=wb_stats_stride, psf_type=psf_type,
+            wb_stats_stride=wb_stats_stride, psf_type=psf_type, rl_iters=rl_iters,
+            edgetaper=edgetaper,
         )
 
     def to_device(self, imgs_bgr) -> torch.Tensor:
@@ -94,12 +96,9 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     def restore_planes(self, imgs_bgr, psf_length: int, psf_angle: float, K: float = 0.01):
         """(B, H, W, 3) uint8 -> (B, 3, H, W) float32 restored planes
         (before white balance), whatever emit_planes is."""
-        stack = self.to_device(imgs_bgr)
-        b, h, w = stack.shape[:3]
-        self._check_psf_fits(h, w, int(psf_length))
-        H = self._psf_spectrum(h, w, psf_length, psf_angle)
-        raw, lo, scale = restore_raw(stack, H, float(K))
-        return normalized_planes(raw, lo, scale, b, h, w).cpu().numpy()
+        _, planes = self._restore(self.to_device(imgs_bgr), psf_length, psf_angle, K,
+                                  white_balance=False, emit_planes=True, encode=False)
+        return planes.cpu().numpy()
 
 
 def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cuda"):

@@ -1,12 +1,12 @@
-"""Single-GPU Wiener-deblur pipeline, and the restore core it shares with
-the batched pipeline (models/batched.py).
+"""Single-GPU deblur pipeline, and the restore core it shares with the
+batched pipeline (models/batched.py).
 
 Counterpart of fft_restoration_tpu/models/pipeline.py on its pallas
 fast path (`_restore_planes_pallas_fused` + `_restore_core`) and of
 models/batched.py's `_batched_images_core`: `restore_stack` restores a
-(B, h, w, 3) uint8 BGR stack — a single frame is its B = 1 case — in
-five or six kernel launches plus a few small tensor ops, the PSF
-spectrum computed once per PSF and cached:
+(B, h, w, 3) uint8 BGR stack — a single frame is its B = 1 case. With
+the Wiener filter that is five or six kernel launches plus a few small
+tensor ops, the PSF spectrum computed once per PSF and cached:
 
   fft_rows_stack (B1)  u8 (B, h, w, 3) stack -> channel pairs packed
                        across images, zero pad to pow2, row FFT,
@@ -32,6 +32,21 @@ PSF spectrum: fft_rows (B1, real input, live rows only) then fft_rows
 (B6), in the layout the middles consume: transposed (Wp, Hp),
 bit-reversed.
 
+The other filters (JAX `_restore_core`, `restore_planes`):
+  inverse, cls  the middle is fft_rows forward (B6), the elementwise
+                filter in torch (ops/wiener.py), then fft_rows' inverse
+                pass with transposed store; CLS's Laplacian spectrum is
+                made by the PSF's forward path, once per (hp, wp).
+  rl            Richardson-Lucy (models/richardson_lucy.py) on the
+                float32 padded planes: 2 circular convolutions per
+                iteration, then clip to [0, 1] (no min-max normalize) and
+                the planar Lab white balance in torch (ops/color.py): the
+                JAX package takes its non-kernel post-processing for RL.
+  edgetaper     (any filter) the padded float32 planes are tapered
+                (models/edgetaper.py) before the forward pass, which then
+                runs over every row: the taper fills the pad rows. The
+                white-balance gains still read the untapered frame.
+
 Semantics of the serial oracle (and of the JAX package): channels are
 pow2-padded before restoration, the inverse stays unscaled and the
 min-max normalize over the padded extent absorbs 1/(MN), then crop.
@@ -45,14 +60,26 @@ import numpy as np
 import torch
 
 from fft_restoration_tpu_torch.host.padding import next_power_of_two
-from fft_restoration_tpu_torch.ops.kernels import fft_kernel, postprocess, wiener_spectral
+from fft_restoration_tpu_torch.ops.kernels import (
+    fft_kernel,
+    postprocess,
+    u8_to_unit,
+    wiener_spectral,
+)
+from fft_restoration_tpu_torch.ops.color import (
+    bgr_to_lab_planar,
+    lab_to_bgr_planar,
+    luminance_l_planar,
+)
 from fft_restoration_tpu_torch.ops.kernels.postprocess import (
     effective_wb_stride,
     sampled_live_pixels,
 )
 from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
+from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
 
 PAD_MODES = ("pow2",)
+FILTERS = ("wiener", "inverse", "cls", "rl")
 PSF_CACHE_SIZE = 8
 # Column length (hp, the transposed row length) from which the Wiener
 # middle is the fused B2 kernel; below it the middle is B7 then fft_rows'
@@ -70,6 +97,7 @@ KERNEL_OPS = SimpleNamespace(
     fft_rows_stack=fft_kernel.fft_rows_stack,
     fft_rows_packed_out=fft_kernel.fft_rows_packed_out,
     wiener_spectral_t=wiener_spectral.wiener_spectral_t,
+    spectral_conv_t=wiener_spectral.spectral_conv_t,
     fwd_wiener_rows=wiener_spectral.fwd_wiener_rows,
     lab_l_sum_partials=postprocess.lab_l_sum_partials_batched,
     wb_encode_u8=postprocess.wb_encode_u8_batched,
@@ -79,6 +107,7 @@ PLAIN_OPS = SimpleNamespace(
     fft_rows_stack=fft_kernel.fft_rows_stack_plain,
     fft_rows_packed_out=fft_kernel.fft_rows_packed_out_plain,
     wiener_spectral_t=wiener_spectral.wiener_spectral_t_plain,
+    spectral_conv_t=wiener_spectral.spectral_conv_t_plain,
     fwd_wiener_rows=wiener_spectral.fwd_wiener_rows_plain,
     lab_l_sum_partials=postprocess.lab_l_sum_partials_batched_plain,
     wb_encode_u8=postprocess.wb_encode_u8_batched_plain,
@@ -123,6 +152,16 @@ def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS):
     return h_re[0], h_im[0]
 
 
+def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS):
+    """The CLS regularizer's spectrum: the 5-point Laplacian, corner
+    anchored and wrapped, through the PSF's forward path (same layout)."""
+    lap = torch.zeros((hp, wp), dtype=torch.float32, device=device)
+    lap[0, 0] = 4.0
+    for r, c in ((0, 1), (1, 0), (0, -1), (-1, 0)):
+        lap[r, c] = -1.0
+    return psf_spectrum_planes(lap, hp, wp, ops)
+
+
 def psf_spectrum_from_numpy(h_re, h_im, device):
     """Carry a spectrum computed by the JAX package into the port:
     `fft_restoration_tpu.models.pipeline.psf_spectrum_planes(...,
@@ -146,26 +185,38 @@ def minmax_norm(mm, n_pairs, c):
     return lo, torch.where(hi > lo, 1.0 / (hi - lo), torch.zeros_like(hi))
 
 
-def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS):
+def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=None):
     """(P, Wp, Hp) row-FFT'd transposed planes -> (P, Hp, Wp) filtered,
-    column-inverted planes: B2 when Hp >= FUSED_MIDDLE_MIN_N, else B7
-    then the inverse row pass with transposed store."""
-    if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
-        return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K)
-    f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K)
+    column-inverted planes. Wiener: B2 when Hp >= FUSED_MIDDLE_MIN_N, else
+    B7 then the inverse row pass with transposed store. inverse / cls:
+    the forward column pass (B6), the elementwise filter (cls with the
+    Laplacian spectrum `lap`), the inverse pass with transposed store."""
+    if filter_name == "wiener":
+        if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
+            return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K)
+        f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K)
+    else:
+        g = ops.fft_rows(a_re, a_im)
+        if filter_name == "inverse":
+            f_re, f_im = inverse_filter(g, H)
+        elif filter_name == "cls":
+            f_re, f_im = cls_filter(g, H, lap, K)
+        else:
+            raise ValueError(f"no spectral middle for filter {filter_name!r}")
     return ops.fft_rows(f_re, f_im, inverse=True, transposed=True)
 
 
-def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None):
+def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", lap=None):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     raw unscaled restored planes (2P, Hp, Wp), image i's channels at
     planes 3i..3i+2, and their per-plane normalize (lo, scale), (3B,).
     rows: the stack's forward row pass when the caller already has it
-    (a PSF sweep restores one image under many PSFs)."""
+    (a PSF sweep restores one image under many PSFs; the edge taper
+    transforms its tapered planes)."""
     b, h, w, c = stack.shape
     if rows is None:
         rows = ops.fft_rows_stack(stack, extent=pad_extents(h, w))
-    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops)
+    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap)
     raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True)
     lo, scale = minmax_norm(mm, rows[0].shape[0], b * c)
     return raw, lo, scale
@@ -177,15 +228,64 @@ def normalized_planes(raw, lo, scale, b, h, w):
     return ((raw[:n, :h, :w] - lo[:, None, None]) * scale[:, None, None]).reshape(b, -1, h, w)
 
 
+def padded_planes(stack, hp, wp):
+    """(B, h, w, 3) stack -> (3B, hp, wp) float32 channel planes, image
+    i's channels at planes 3i..3i+2, zero padded (uint8 as x / 255)."""
+    b, h, w, c = stack.shape
+    out = torch.zeros((b, c, hp, wp), dtype=torch.float32, device=stack.device)
+    src = stack.permute(0, 3, 1, 2)
+    out[:, :, :h, :w] = u8_to_unit(src) if src.dtype == torch.uint8 else src
+    return out.reshape(b * c, hp, wp)
+
+
+def encode_planar(planes, orig, white_balance):
+    """(B, 3, h, w) float32 restored planes -> (B, h, w, 3) uint8, in plain
+    torch (the JAX package's non-kernel post-processing, which it takes
+    for RL): per-image Lab white balance against the original (B, 3, h,
+    w) frames' mean L, then clip(x * 255) truncated to uint8."""
+    if white_balance:
+        L, a, bb = bgr_to_lab_planar(planes[:, 0], planes[:, 1], planes[:, 2])
+        c32 = u8_to_unit(orig) if orig.dtype == torch.uint8 else orig
+        l_orig = luminance_l_planar(c32[:, 0], c32[:, 1], c32[:, 2]).mean(dim=(-2, -1),
+                                                                          keepdim=True)
+        gain = l_orig / (L.mean(dim=(-2, -1), keepdim=True) + 1e-6)
+        bgr = lab_to_bgr_planar(torch.clamp(L * gain, 0.0, 100.0), a, bb)
+    else:
+        bgr = planes.unbind(1)
+    return torch.stack([torch.clamp(p * 255.0, 0.0, 255.0).to(torch.uint8) for p in bgr], -1)
+
+
 def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
-                  ops=KERNEL_OPS):
+                  filter_name="wiener", psf=None, lap=None, rl_iters=10, edgetaper=False,
+                  encode=True, ops=KERNEL_OPS):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     ((B, h, w, 3) uint8 restored stack, (B, 3, h, w) float32 planes or
     None). Per-image white balance: the gains' means are over the same
-    sampled pixels of every image (stride from effective_wb_stride)."""
+    sampled pixels of every image (stride from effective_wb_stride).
+    psf: the (S, S) PSF whose spectrum H is (for 'rl' and edgetaper);
+    lap: the Laplacian spectrum (for 'cls', laplacian_spectrum).
+    encode=False (with emit_planes and no white balance): only the
+    planes, the uint8 stack is None."""
     b, h, w, _ = stack.shape
     hp, wp = pad_extents(h, w)
-    raw, lo, scale = restore_raw(stack, H, K, ops)
+    rows = None
+    if edgetaper or filter_name == "rl":
+        # imported here: both modules import this one
+        from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
+        from fft_restoration_tpu_torch.models.richardson_lucy import richardson_lucy_planes
+
+        flat = padded_planes(stack, hp, wp)
+        if edgetaper:
+            flat = edge_taper_planes(flat, psf, (h, w), psf_spectrum=H, ops=ops)
+        if filter_name == "rl":
+            x = richardson_lucy_planes(flat, psf, rl_iters, psf_spectrum=H, ops=ops)
+            planes = x.reshape(b, -1, hp, wp)[..., :h, :w]
+            out = (encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance)
+                   if encode else None)
+            return out, (planes if emit_planes else None)
+        # every row: the taper fills the pad rows with the blur's wrap tail
+        rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True)
+    raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap)
     planes = None
     if emit_planes or not white_balance:
         planes = normalized_planes(raw, lo, scale, b, h, w)
@@ -199,30 +299,19 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
         gains = (parts[..., 1].sum(-1) / npix) / (parts[..., 0].sum(-1) / npix + 1e-6)
         out = ops.wb_encode_u8(raw, gains, lo, scale, (h, w))
     else:
-        out = torch.clamp(planes * 255.0, 0.0, 255.0).to(torch.uint8)
-        out = out.permute(0, 2, 3, 1).contiguous()
+        out = encode_planar(planes, None, False) if encode else None
     return out, (planes if emit_planes else None)
 
 
 def _restore_core(img, H, K, *, white_balance, emit_planes, wb_stats_stride,
-                  ops=KERNEL_OPS):
+                  ops=KERNEL_OPS, **filter_kw):
     """(h, w, 3) frame on the device -> ((h, w, 3) uint8, (3, h, w)
     float32 planes or None): `restore_stack` with B = 1."""
     out, planes = restore_stack(
         img[None], H, K, white_balance=white_balance, emit_planes=emit_planes,
-        wb_stats_stride=wb_stats_stride, ops=ops,
+        wb_stats_stride=wb_stats_stride, ops=ops, **filter_kw,
     )
     return out[0], (None if planes is None else planes[0])
-
-
-def check_filter(filter_name: str) -> None:
-    """Raise for the filters the port does not run yet."""
-    if filter_name in ("inverse", "cls"):
-        raise NotImplementedError(f"filter {filter_name!r} is not ported yet: ROADMAP.md A8")
-    if filter_name == "rl":
-        raise NotImplementedError("filter 'rl' is not ported yet: ROADMAP.md A10")
-    if filter_name != "wiener":
-        raise ValueError(f"unknown filter {filter_name!r}")
 
 
 def frames_to_device(arr, device) -> torch.Tensor:
@@ -239,21 +328,27 @@ class _CachedPsfPipeline:
     pipelines share."""
 
     def __init__(self, device, *, filter_name, white_balance, emit_planes, pad_mode,
-                 wb_stats_stride, psf_type="motion"):
+                 wb_stats_stride, psf_type="motion", rl_iters=10, edgetaper=False):
         self.device = resolve_device(device)
-        check_filter(filter_name)
+        if filter_name not in FILTERS:
+            raise ValueError(f"unknown filter {filter_name!r}; one of {FILTERS}")
         pad_extents(1, 1, pad_mode)  # raises for modes not ported
         if wb_stats_stride < 1:
             raise ValueError(f"wb_stats_stride must be >= 1, got {wb_stats_stride}")
         if psf_type not in PSF_TYPES:
             raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")
+        self.filter_name = filter_name
         self.white_balance = white_balance
         self.emit_planes = emit_planes
         self.wb_stats_stride = wb_stats_stride
         self.psf_type = psf_type
-        # PSF spectra keyed on (hp, wp, length, angle), oldest evicted first:
-        # each is 2 * hp * wp float32 (33.5 MB at 2048^2)
+        self.rl_iters = int(rl_iters)
+        self.edgetaper = bool(edgetaper)
+        # (psf, spectrum) keyed on (hp, wp, length, angle), oldest evicted
+        # first: a spectrum is 2 * hp * wp float32 (33.5 MB at 2048^2)
         self._psf_cache = {}
+        # CLS's Laplacian spectrum for the last (hp, wp), in a slot of its own
+        self._lap = (None, None)
 
     def _check_psf_fits(self, h: int, w: int, psf_length: int) -> None:
         hp, wp = pad_extents(h, w)
@@ -269,13 +364,19 @@ class _CachedPsfPipeline:
         self._psf_cache[key] = H
 
     def _psf_spectrum(self, h: int, w: int, psf_length: int, angle: float):
-        """Cached (H_re, H_im) spectrum for an (h, w) frame."""
+        """Cached (psf, (H_re, H_im)) for an (h, w) frame."""
         hp, wp = pad_extents(h, w)
         key = (hp, wp, int(psf_length), float(angle))
         if key not in self._psf_cache:
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-            self._remember(key, psf_spectrum_planes(psf, hp, wp))
+            self._remember(key, (psf, psf_spectrum_planes(psf, hp, wp)))
         return self._psf_cache[key]
+
+    def _laplacian_spectrum(self, h: int, w: int):
+        hw = pad_extents(h, w)
+        if self._lap[0] != hw:
+            self._lap = (hw, laplacian_spectrum(*hw, self.device))
+        return self._lap[1]
 
     def load_psf_spectrum(self, h, w, psf_length, angle, planes):
         """Put a spectrum computed elsewhere — e.g. the JAX package's
@@ -285,15 +386,22 @@ class _CachedPsfPipeline:
         H = psf_spectrum_from_numpy(planes[0], planes[1], self.device)
         if H[0].shape != (wp, hp) or H[1].shape != (wp, hp):
             raise ValueError(f"spectrum planes must be ({wp}, {hp}), got {tuple(H[0].shape)}")
-        self._remember((hp, wp, int(psf_length), float(angle)), H)
+        psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
+        self._remember((hp, wp, int(psf_length), float(angle)), (psf, H))
 
-    def _restore(self, stack, psf_length, psf_angle, K):
+    def _restore(self, stack, psf_length, psf_angle, K, **over):
+        """restore_stack on a device stack with this pipeline's options
+        (`over` overrides white_balance / emit_planes)."""
         h, w = stack.shape[1:3]
         self._check_psf_fits(h, w, int(psf_length))
-        H = self._psf_spectrum(h, w, psf_length, psf_angle)
+        psf, H = self._psf_spectrum(h, w, psf_length, psf_angle)
+        opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes,
+                    wb_stats_stride=self.wb_stats_stride)
+        opts.update(over)
         return restore_stack(
-            stack, H, float(K), white_balance=self.white_balance,
-            emit_planes=self.emit_planes, wb_stats_stride=self.wb_stats_stride,
+            stack, H, float(K), filter_name=self.filter_name, psf=psf,
+            lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
+            rl_iters=self.rl_iters, edgetaper=self.edgetaper, **opts,
         )
 
 
@@ -302,10 +410,14 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
 
     device: 'cuda' (the kernels; raises when no GPU is present) or 'cpu'
     (the wrappers take their plain versions for CPU tensors).
+    filter_name: 'wiener', 'inverse', 'cls' (K is CLS's gamma) or 'rl'
+    (Richardson-Lucy, rl_iters iterations, K unused; clipped, not
+    min-max normalized). edgetaper: blend the frame toward its circular
+    blur at the borders before deconvolving (any filter).
     emit_planes=False is the serving graph: restore() skips the float
     planes, restore_with_planes()/restore_channels() then raise.
     wb_stats_stride > 1 samples every stride-th 8-row stripe for the
-    white-balance means (the CLI uses 1, serving 4).
+    white-balance means (the CLI uses 1, serving 4; not used by 'rl').
     """
 
     def __init__(
@@ -317,10 +429,13 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         emit_planes: bool = True,
         pad_mode: str = "pow2",
         wb_stats_stride: int = 1,
+        rl_iters: int = 10,
+        edgetaper: bool = False,
     ):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
+            rl_iters=rl_iters, edgetaper=edgetaper,
         )
 
     def to_device(self, img_bgr) -> torch.Tensor:

@@ -16,7 +16,8 @@ from collections import Counter
 import torch
 
 KERNELS = (
-    "fft_rows", "wiener_spectral_t", "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8",
+    "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
+    "lab_l_sum_partials", "wb_encode_u8",
 )
 
 launch_counts: Counter = Counter()
@@ -24,6 +25,15 @@ launch_counts: Counter = Counter()
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+
+
+def u8_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """uint8 -> float32 x / 255 by true division on every device, as the
+    kernels' loads and the JAX package convert. A CUDA tensor divided by
+    a Python scalar is multiplied by the scalar's rounded reciprocal
+    instead, one ulp off for some values, and Richardson-Lucy on a
+    zero-padded frame turns that ulp into O(0.1) at the frame's rim."""
+    return x.to(torch.float32) / torch.full((), 255.0, device=x.device)
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use: nvcc -> build dir -> ctypes.
 
 The sources in csrc/ have a plain C interface (no PyTorch headers), so
-nvcc builds them in seconds. The shared library lands in
+nvcc builds them in seconds: one nvcc per source, all started together,
+then one link. The shared library lands in
 `build/kernels/<hash of the sources and flags>/` beside the package, so
 an edited source builds anew and an unchanged one is built once. Call
 `load()` from a function that launches a kernel, never at import: the
@@ -25,7 +26,7 @@ HEADERS = ("fft_common.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -46,6 +47,10 @@ SIGNATURES = {
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
                                  P, P, P, P, P],
+    # a_re, a_im, h_re, h_im, conj, out_re, out_im, P, M, N, log2n,
+    # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
+    "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I,
+                               P, P, P, P, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, log2n,
     # rows_per_block, cos_f, sin_f, stream
     "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P],
@@ -82,14 +87,29 @@ def load() -> ctypes.CDLL:
     lib_path = out_dir / "libfft_restoration_kernels.so"
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f".tmp-{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *[str(CSRC / s) for s in SOURCES]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+        nvcc, tag = _nvcc(), f".tmp-{os.getpid()}"
+        objs = [out_dir / f"{Path(src).stem}{tag}.o" for src in SOURCES]
+        tmp = out_dir / f"{tag}.so"
+        try:
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+                                  str(CSRC / src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for src, obj in zip(SOURCES, objs)
+            ]
+            build_log = "".join(p.communicate()[0] for p in procs)
+            failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+            res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                 capture_output=True, text=True)
+            build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+            os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+        finally:
+            for f in (*objs, tmp):
+                f.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

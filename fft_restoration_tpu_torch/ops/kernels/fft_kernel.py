@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
+from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
 STORE_NATURAL, STORE_T, STORE_PACKED = 0, 1, 2
 
@@ -153,7 +153,7 @@ def _logical(x, planes, extent):
     p, m, n = x.shape
     p, m, n = min(p, planes), min(m, big_m), min(n, big_n)
     v = x[:p, :m, :n]
-    out[:p, :m, :n] = v.to(torch.float32) / 255.0 if v.dtype == torch.uint8 else v
+    out[:p, :m, :n] = u8_to_unit(v) if v.dtype == torch.uint8 else v
     return out
 
 

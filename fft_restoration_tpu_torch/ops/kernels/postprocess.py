@@ -28,7 +28,7 @@ from fft_restoration_tpu_torch.ops.color import (
     lab_to_bgr_planar,
     luminance_l_planar,
 )
-from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
+from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
 # Triton tile of both kernels: rows x columns per step
 BLOCK_R = 8
@@ -93,7 +93,7 @@ def lab_l_sum_partials_batched_plain(raw, orig, lo, scale, live_hw, stride=1, bl
     h0, w0 = raw.shape[1:]
     h, w = live_hw
     rows, hp, wp = _block_geometry(h0, w0, block_rows)
-    orig = orig.to(torch.float32) / 255.0 if orig.dtype == torch.uint8 else orig
+    orig = u8_to_unit(orig) if orig.dtype == torch.uint8 else orig
     nb = _normalized(raw, lo, scale)[:, :h, :w].reshape(b, 3, h, w)
     sums = []
     for src in (nb, orig):

@@ -1,12 +1,15 @@
-"""The Wiener middles of the restore (B2, B7) — wrappers and plain versions.
+"""The spectral middles of the restore (B2, B7) — wrappers and plain versions.
 
-Counterparts of fft_restoration_tpu/ops/pallas/wiener_spectral.py, both
+Counterparts of fft_restoration_tpu/ops/pallas/wiener_spectral.py, all
 in csrc/wiener_spectral.cu:
   B2 `wiener_spectral_t` (wiener_spectral_rows_t, 'wiener' mode): per row
      block of the transposed, row-FFT'd planes, the column FFT (DIF), the
      Wiener filter against the matching rows of the PSF spectrum, the
-     column IFFT (DIT) and a transposed write. The 'conv' mode waits for
-     the convolve / Richardson-Lucy slices.
+     column IFFT (DIT) and a transposed write.
+  B2 `spectral_conv_t` (the same kernel, 'conv' mode): the filter is the
+     product G * H, or G * conj(H) with conj=True (the mirrored PSF) —
+     the middle of every circular convolution (models/convolve.py) at
+     column lengths >= 512. Its own launch counter, `spectral_conv_t`.
   B7 `fwd_wiener_rows` (fwd_wiener_rows_pallas): the column FFT and the
      filter only, natural store; `fft_rows(..., inverse=True,
      transposed=True)` then finishes the middle. The pipeline takes it
@@ -24,7 +27,7 @@ from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
     run_stages,
     tables,
 )
-from fft_restoration_tpu_torch.ops.wiener import wiener_filter
+from fft_restoration_tpu_torch.ops.wiener import spectral_product, wiener_filter
 
 
 def _check(a_re, a_im, h_re, h_im):
@@ -90,17 +93,9 @@ def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K):
     return r_re.transpose(1, 2).contiguous(), r_im.transpose(1, 2).contiguous()
 
 
-def wiener_spectral_t(a_re, a_im, h_re, h_im, K):
-    """colIFFT(wiener(colFFT(A), H)) with transposed writes.
-
-    a_re, a_im: (P, M, N) contiguous float32 row-FFT'd planes in the
-    transposed orientation, bit-reversed spectrum pending along N.
-    h_re, h_im: (M, N) PSF spectrum in the same layout (psf_spectrum).
-    Returns spatial-domain (P, N, M) float32 planes, unscaled, ready for
-    the final row IFFT.
-    """
-    if not on_cuda(a_re, a_im, h_re, h_im):
-        return wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K)
+def _launch_spectral_t(entry, a_re, a_im, h_re, h_im, arg):
+    """One launch of B2 through its C entry `entry` (the filter's scalar
+    argument `arg`: K, or the conj flag); returns the (P, N, M) planes."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     _check(a_re, a_im, h_re, h_im)
@@ -112,12 +107,52 @@ def wiener_spectral_t(a_re, a_im, h_re, h_im, K):
     lib = _build.load()
     cf, sf, _ = tables(n, False, a_re.device)
     ci, si, _ = tables(n, True, a_re.device)
-    err = lib.wiener_spectral_t_launch(
+    err = getattr(lib, entry)(
         a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
-        float(K), out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
+        arg, out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
         n.bit_length() - 1, rows, cf.data_ptr(), sf.data_ptr(), ci.data_ptr(),
         si.data_ptr(), torch.cuda.current_stream(a_re.device).cuda_stream,
     )
-    _build.check(err, "wiener_spectral_t")
-    launch_counts["wiener_spectral_t"] += 1
+    _build.check(err, entry)
     return out_re, out_im
+
+
+def wiener_spectral_t(a_re, a_im, h_re, h_im, K):
+    """colIFFT(wiener(colFFT(A), H)) with transposed writes.
+
+    a_re, a_im: (P, M, N) contiguous float32 row-FFT'd planes in the
+    transposed orientation, bit-reversed spectrum pending along N.
+    h_re, h_im: (M, N) PSF spectrum in the same layout (psf_spectrum).
+    Returns spatial-domain (P, N, M) float32 planes, unscaled, ready for
+    the final row IFFT.
+    """
+    if not on_cuda(a_re, a_im, h_re, h_im):
+        return wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K)
+    out = _launch_spectral_t("wiener_spectral_t_launch", a_re, a_im, h_re, h_im, float(K))
+    launch_counts["wiener_spectral_t"] += 1
+    return out
+
+
+def spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj=False):
+    """Plain version of `spectral_conv_t` (same signature and layout)."""
+    _check(a_re, a_im, h_re, h_im)
+    g = run_stages(a_re, a_im, inverse=False)
+    f = spectral_product(g, (h_re, h_im), conj)
+    r_re, r_im = run_stages(f[0], f[1], inverse=True)
+    return r_re.transpose(1, 2).contiguous(), r_im.transpose(1, 2).contiguous()
+
+
+def spectral_conv_t(a_re, a_im, h_re, h_im, conj=False):
+    """colIFFT(colFFT(A) * H) with transposed writes — B2 in 'conv' mode;
+    conj=True multiplies by conj(H) instead (the mirrored real PSF).
+
+    Layout as `wiener_spectral_t`: a_re, a_im (P, M, N) contiguous float32
+    row-FFT'd transposed planes; h_re, h_im the (M, N) spectrum in the same
+    layout. Returns (P, N, M) float32 planes, unscaled, ready for the
+    final row IFFT.
+    """
+    if not on_cuda(a_re, a_im, h_re, h_im):
+        return spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj)
+    out = _launch_spectral_t("spectral_conv_t_launch", a_re, a_im, h_re, h_im, int(bool(conj)))
+    launch_counts["spectral_conv_t"] += 1
+    return out

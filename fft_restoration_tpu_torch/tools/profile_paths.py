@@ -1,10 +1,12 @@
 """Device-time breakdown of the restore paths on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.profile_paths [--iters N] [--seed N]
-        [--paths single_2048sq,batch64_256sq,batch8_2048sq]
+        [--paths single_2048sq,batch64_256sq,batch8_2048sq,rl_2048sq,edgetaper_2048sq]
 
 For each path (the 2048x2048x3 single frame, batch64 256^2, batch8
-2048^2; serving graph, wb_stats_stride 1 and 4) it runs the restore
+2048^2, serving graph, wb_stats_stride 1 and 4; and the 2048x2048x3
+frame with Richardson-Lucy at 10 iterations and with Wiener + the edge
+taper, wb_stats_stride 1) it runs the restore
 `--iters` times back to back: once timed with CUDA events (ms per run),
 once under torch.profiler. From the profile: device busy per run (the
 sum of the device-side activities' time: kernels, copies, fills),
@@ -24,9 +26,13 @@ import json
 import sys
 import time
 
-# (name, frames or None for the single-frame pipeline, side, PSF length)
-PATHS = (("single_2048sq", None, 2048, 50), ("batch64_256sq", 64, 256, 25),
-         ("batch8_2048sq", 8, 2048, 50))
+# (name, frames or None for the single-frame pipeline, side, PSF length,
+# pipeline options, white-balance strides)
+PATHS = (("single_2048sq", None, 2048, 50, {}, (1, 4)),
+         ("batch64_256sq", 64, 256, 25, {}, (1, 4)),
+         ("batch8_2048sq", 8, 2048, 50, {}, (1, 4)),
+         ("rl_2048sq", None, 2048, 50, dict(filter_name="rl", rl_iters=10), (1,)),
+         ("edgetaper_2048sq", None, 2048, 50, dict(edgetaper=True), (1,)))
 
 
 def _frames(np, b, side, seed, psf):
@@ -95,16 +101,17 @@ def main() -> int:
 
     print(f"[profile] package {port.__file__}", flush=True)
     out = {}
-    for name, b, side, psf in PATHS:
+    for name, b, side, psf, opts, strides in PATHS:
         if name not in chosen:
             continue
         stack = _frames(np, b or 1, side, args.seed, psf)
-        for stride in (1, 4):
+        for stride in strides:
+            kw = dict(emit_planes=False, wb_stats_stride=stride, **opts)
             if b is None:
-                pipe = port.WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=stride)
+                pipe = port.WienerDeblurPipeline("cuda", **kw)
                 x = pipe.to_device(stack[0])
             else:
-                pipe = port.BatchedWienerPipeline("cuda", emit_planes=False, wb_stats_stride=stride)
+                pipe = port.BatchedWienerPipeline("cuda", **kw)
                 x = pipe.to_device(stack)
             ms, enq, busy_us, per = profile_path(
                 torch, lambda: pipe.run(x, psf, 30.0, 0.01), args.iters)
@@ -117,7 +124,7 @@ def main() -> int:
             idle = "not measured" if busy_us == 0 else f"{1 - busy_us / (ms * 1e3):.3f}"
             print(f"[profile] {key}: {ms:.4f} ms/run (events), host enqueue {enq:.4f} ms/run, "
                   f"device busy {busy_us:.1f} us/run, idle share {idle}", flush=True)
-            for k, v in top[:8]:
+            for k, v in top[:12]:
                 print(f"[profile]     {v:9.2f} us  {k[:90]}", flush=True)
     print(json.dumps(out))
     return 0

@@ -14,6 +14,8 @@ from fft_restoration_tpu.utils.imageio import imread, imwrite
 from fft_restoration_tpu_torch import cli
 from fft_restoration_tpu_torch.host import oracle
 
+torch.set_num_threads(1)  # small planes; parallel test workers would oversubscribe the cores
+
 
 @pytest.fixture(scope="module")
 def blurred_png(tmp_path_factory):
@@ -52,7 +54,7 @@ def test_read_error_exits_1(tmp_path, capsys):
         ["0", "30"],                              # psf length < 1
         ["400", "30"],                            # larger than the padded frame
         ["9", "30", "--wb-stride", "0"],
-        ["9", "30", "--filter", "rl"],            # not ported: ROADMAP.md A10
+        ["9", "30", "--filter", "rl", "--iters", "0"],  # the JAX CLI's --iters check
         ["9", "30", "--pad", "smooth"],           # not ported: ROADMAP.md A9
     ],
 )
@@ -66,6 +68,35 @@ def test_unported_flag_is_an_argparse_error(blurred_png, capsys):
         cli.main([str(blurred_png), "9", "30", "--tile", "256"])
     assert e.value.code == 2
     assert "ROADMAP.md A12" in capsys.readouterr().err
+
+
+def test_iters_and_edgetaper_are_ported():
+    assert "--iters" not in cli.NOT_PORTED and "--edgetaper" not in cli.NOT_PORTED
+    args = cli.build_parser().parse_args(["x.png", "9", "30"])
+    assert args.iters == 10 and not args.edgetaper and args.filter == "wiener"
+
+
+@pytest.mark.parametrize("extra", [["--filter", "rl", "--iters", "2"], ["--filter", "cls"],
+                                   ["--filter", "inverse", "--edgetaper"]])
+def test_other_filters_skip_the_verify(blurred_png, tmp_path, capsys, extra):
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "-o", str(out), *extra])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert f"[INFO] --filter {extra[1]} is not verified" in text and "[Speedup]" not in text
+    assert imread(str(out)).shape == (90, 140, 3)
+
+
+def test_edgetaper_verifies_against_the_tapered_oracle(blurred_png, tmp_path, capsys):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--edgetaper", "--tier", "inf",
+                   "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=inf" in text, text
+    ref = WienerDeblurPipeline("cpu", edgetaper=True).restore(imread(str(blurred_png)), 9, 30.0)
+    assert np.array_equal(imread(str(out)), ref)
 
 
 def test_cuda_default_without_gpu_exits_2(blurred_png, capsys):
@@ -118,6 +149,25 @@ def test_directory_input(tmp_path, capsys):
         assert np.array_equal(imread(str(out / f"{name}_restored.png")), ref)
     single = WienerDeblurPipeline("cpu").restore(lone, 9, 30.0, 0.01)
     assert np.array_equal(imread(str(out / "a_PNG_restored.png")), single)
+
+
+def test_directory_passes_the_filter_options(tmp_path, capsys):
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+
+    rng = np.random.default_rng(8)
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    group = [blur_image(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8), 7, 30)
+             for _ in range(2)]
+    for name, frame in zip(("a.png", "b.png"), group):
+        imwrite(str(src / name), frame)
+    rc = cli.main([str(src), "7", "30", "--device", "cpu", "--filter", "rl", "--iters", "2",
+                   "--edgetaper", "-o", str(out)])
+    assert rc == 0, capsys.readouterr().out
+    ref = BatchedWienerPipeline("cpu", filter_name="rl", rl_iters=2, edgetaper=True).restore(
+        np.stack(group), 7, 30.0)
+    for name, r in zip(("a", "b"), ref):
+        assert np.array_equal(imread(str(out / f"{name}_restored.png")), r)
 
 
 def test_directory_without_readable_images_exits_1(tmp_path, capsys):

@@ -15,6 +15,8 @@ import torch
 from fft_restoration_tpu.ops.pallas import fft_kernel as jfk
 from fft_restoration_tpu_torch.ops.kernels import fft_kernel as tfk
 
+torch.set_num_threads(1)  # small planes; parallel test workers would oversubscribe the cores
+
 REL = 1e-5
 
 

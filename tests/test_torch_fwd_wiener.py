@@ -19,6 +19,8 @@ from fft_restoration_tpu_torch.models import pipeline as tpl
 from fft_restoration_tpu_torch.ops.kernels import fft_kernel as tfk
 from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as tws
 
+torch.set_num_threads(1)  # small planes; parallel test workers would oversubscribe the cores
+
 REL = 1e-5
 
 

@@ -5,9 +5,15 @@ JAX) run:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: FFT family and spectral middle 1e-5 of the output's max
-magnitude (float32, FMA contraction, same tables); Lab-L partials rel
-1e-4 (hardware ex2/lg2 and summation order); uint8 <= 1 count.
+Tolerances: FFT family and spectral middles (Wiener and conv) 1e-5 of
+the output's max magnitude (float32, FMA contraction, same tables);
+Lab-L partials rel 1e-4 (hardware ex2/lg2 and summation order); uint8
+<= 1 count; Richardson-Lucy's kernel path against its plain path 1e-4
+planes and 1 count on frames that fill their pow2 extent; RL on
+zero-padded frames against the float64 RL of the same input planes:
+5e-2 plane INF with the edge taper (the JAX package's RL contract), and
+without it at most twice an independent float32 RL's (torch.fft)
+distance, since there every float32 RL sits ~0.1 from the float64 one.
 """
 
 import numpy as np
@@ -78,6 +84,130 @@ def test_wiener_spectral_t(dev, gen, m, n):
         assert _rel(o, r) <= 1e-5
 
 
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 2048), (512, 128), (8, 4)])
+def test_spectral_conv_t(dev, gen, m, n, conj):
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    a_re, a_im = (torch.as_tensor(gen.standard_normal((2, m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    h_re, h_im = (torch.as_tensor(gen.standard_normal((m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    ours = ws.spectral_conv_t(a_re, a_im, h_re, h_im, conj)
+    ref = ws.spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj)
+    for o, r in zip(ours, ref):
+        assert o.shape == (2, n, m) and _rel(o, r) <= 1e-5
+    if conj:  # the JAX package's form: a negated H_im, no flag
+        for o, r in zip(ours, ws.spectral_conv_t(a_re, a_im, h_re, -h_im)):
+            assert _rel(o, r) <= 1e-5
+
+
+# RL's frames here fill their pow2 extent, so the kernel path is held to
+# its plain path as tightly as the one-shot filters are;
+# test_rl_padded_frame_vs_f64 takes the zero-padded frames
+@pytest.mark.parametrize("filter_name,edgetaper,h,w", [("rl", False, 512, 256),
+                                                       ("rl", True, 256, 256),
+                                                       ("wiener", True, 300, 520),
+                                                       ("inverse", False, 300, 520),
+                                                       ("cls", True, 300, 520)])
+def test_filter_family_kernels_vs_plain_and_launches(dev, gen, filter_name, edgetaper, h, w):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, _restore_core, laplacian_spectrum, pad_extents, psf_spectrum_planes,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    # block scenes on a grey floor: RL on white noise sits at its spikes'
+    # clip edges, where any rounding flips whole counts
+    scene = np.full((h, w, 3), 40, np.uint8)
+    scene[h // 7: h * 2 // 3, w // 5: w // 2] = 200
+    scene[h * 2 // 5: h // 2 + 2, w // 9: w * 5 // 6] = gen.integers(100, 160, (3,))
+    img = blur_image(scene, 21, 60.0)
+    kw = dict(filter_name=filter_name, edgetaper=edgetaper, rl_iters=3)
+    reset_launch_counts()
+    out, planes = WienerDeblurPipeline("cuda", **kw).restore_with_planes(img, 21, 60.0, 0.01)
+    hp, wp = pad_extents(h, w)
+    convs = (2 * 3 if filter_name == "rl" else 0) + edgetaper
+    # hp >= 512: each conv's middle is B2 'conv'; below, the unfused middle
+    assert launch_counts["spectral_conv_t"] == (convs if hp >= 512 else 0), dict(launch_counts)
+    assert launch_counts["wiener_spectral_t"] == (filter_name == "wiener" and hp >= 512)
+    H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), hp, wp, PLAIN_OPS)
+    lap = laplacian_spectrum(hp, wp, dev, PLAIN_OPS) if filter_name == "cls" else None
+    out_p, planes_p = _restore_core(torch.as_tensor(img, device=dev), H, 0.01, white_balance=True,
+                                    emit_planes=True, wb_stats_stride=1, ops=PLAIN_OPS,
+                                    psf=make_psf("motion", 21, 60.0, dev), lap=lap, **kw)
+    planes_tol = 1e-4 if filter_name == "rl" else 2e-4
+    assert np.abs(planes - planes_p.cpu().numpy()).max() <= planes_tol
+    assert np.abs(out.astype(np.int32) - out_p.cpu().numpy().astype(np.int32)).max() <= 1
+
+
+def test_u8_to_unit_is_true_division(dev):
+    from fft_restoration_tpu_torch.models.pipeline import padded_planes
+    from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
+
+    v = np.arange(256, dtype=np.uint8)
+    exact = torch.from_numpy(v.astype(np.float32) / np.float32(255.0))
+    assert torch.equal(u8_to_unit(torch.as_tensor(v, device=dev)).cpu(), exact)
+    frame = torch.as_tensor(np.resize(v, (5, 86, 3)), device=dev)[None]
+    assert torch.equal(padded_planes(frame, 8, 128)[:, :5, :86].cpu(),
+                       exact[frame.cpu().long()].permute(0, 3, 1, 2).reshape(3, 5, 86))
+
+
+def _rl_f64(y, psf, iters, eps=1e-6):
+    """float64 np.fft RL of (C, hp, wp) planes (tests/test_richardson_lucy.py)."""
+    pp = np.zeros(y.shape[-2:])
+    pp[: psf.shape[0], : psf.shape[1]] = psf
+    H = np.fft.fft2(pp)
+    x = y.astype(np.float64)
+    for _ in range(iters):
+        ratio = y / (np.real(np.fft.ifft2(np.fft.fft2(x) * H)) + eps)
+        x = np.maximum(x * np.real(np.fft.ifft2(np.fft.fft2(ratio) * np.conj(H))), 0.0)
+    return np.clip(x, 0.0, 1.0)
+
+
+def _rl_f32_torch_fft(y, psf, iters, eps=1e-6):
+    """The same loop in float32 through torch.fft: the independent witness."""
+    pp = torch.zeros(y.shape[-2:], device=y.device)
+    pp[: psf.shape[0], : psf.shape[1]] = psf
+    H = torch.fft.fft2(pp)
+    x = y.clone()
+    for _ in range(iters):
+        d = torch.fft.ifft2(torch.fft.fft2(x) * H).real
+        x = torch.clamp_min(x * torch.fft.ifft2(torch.fft.fft2(y / (d + eps)) * H.conj()).real, 0)
+    return torch.clamp(x, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("edgetaper", [False, True])
+def test_rl_padded_frame_vs_f64(dev, seed, edgetaper):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
+    from fft_restoration_tpu_torch.models.pipeline import padded_planes
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    h, w, length = 230, 200, 25  # padded to 256^2
+    rng = np.random.default_rng(seed)
+    scene = np.kron(rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)), np.ones((16, 16, 1)))
+    img = blur_image(np.clip(scene[:h, :w] * 0.8 + rng.integers(0, 52, (h, w, 3)), 0, 255
+                             ).astype(np.uint8), length, 30.0)
+    psf = make_psf("motion", length, 30.0, dev)
+    y = padded_planes(torch.as_tensor(img, device=dev)[None], 256, 256)
+    if edgetaper:
+        y = edge_taper_planes(y, psf, (h, w))
+    planes = WienerDeblurPipeline("cuda", filter_name="rl", edgetaper=edgetaper
+                                  ).restore_channels(img, length, 30.0)
+    ref = _rl_f64(y.cpu().numpy(), psf.cpu().numpy(), 10)[:, :h, :w]
+    d = np.abs(planes - ref).max()
+    if edgetaper:
+        assert d <= 5e-2
+    else:
+        witness = _rl_f32_torch_fft(y, psf, 10).cpu().numpy()[:, :h, :w]
+        assert d <= 2.0 * np.abs(witness - ref).max()
+
+
 @pytest.mark.parametrize("live,stride,block", [((782, 1920), 1, 64), ((782, 1920), 4, 8),
                                                ((2048, 2048), 4, 8), ((100, 130), 1, 64)])
 def test_postprocess_kernels(dev, gen, live, stride, block):
@@ -116,8 +246,9 @@ def test_pipeline_kernels_vs_plain_and_launches(dev, gen):
     reset_launch_counts()
     out, planes = WienerDeblurPipeline("cuda").restore_with_planes(img, 21, 60.0, 0.01)
     # hp = 512 takes the fused middle (B2), not B7
-    assert all(launch_counts[k] > 0 for k in KERNELS if k != "fwd_wiener_rows"), dict(launch_counts)
-    assert launch_counts["fwd_wiener_rows"] == 0
+    wiener = [k for k in KERNELS if k not in ("fwd_wiener_rows", "spectral_conv_t")]
+    assert all(launch_counts[k] > 0 for k in wiener), dict(launch_counts)
+    assert launch_counts["fwd_wiener_rows"] == 0 and launch_counts["spectral_conv_t"] == 0
     H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), *pad_extents(300, 520), PLAIN_OPS)
     out_p, planes_p = _restore_core(torch.as_tensor(img, device=dev), H, 0.01, white_balance=True,
                                     emit_planes=True, wb_stats_stride=1, ops=PLAIN_OPS)

@@ -17,6 +17,8 @@ from fft_restoration_tpu.ops.pallas import postprocess as jpp
 from fft_restoration_tpu_torch.ops import color as tcolor
 from fft_restoration_tpu_torch.ops.kernels import postprocess as tpp
 
+torch.set_num_threads(1)  # small planes; parallel test workers would oversubscribe the cores
+
 
 def _raw_and_norm(rng, c, hp, wp):
     """Raw planes with a per-channel offset/scale, like unscaled IFFT
