@@ -8,8 +8,12 @@ single-frame Wiener restore, a batch of 64 256^2 frames (batch64, PSF(25,
 30)), a batch of 8 2048^2 frames (batch8, PSF(50, 30)), and the filter
 family at 2048x2048x3, PSF(50, 30): Richardson-Lucy (10 iterations),
 Wiener with the edge taper, inverse and CLS, then RL and the taper on 8
-256^2 frames (the unfused conv middle). Phases, each printing its own
-lines; any failure exits non-zero:
+256^2 frames (the unfused conv middle); and --pad smooth (the mixed-radix
+cross levels inside every FFT kernel): the UHD 3840x2160x3 frame at
+2304x3840 (radices (3, 3) and (3, 5); B1 -> B2 -> B3 -> B4 -> B5) and
+640x330 frames at 384x640 (radices (3,) and (5,); a stack of them takes
+the B7 middle at hp = 384). Phases, each printing its own lines; any
+failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds);
   2. kernels every kernel against its plain PyTorch version on the card,
@@ -20,6 +24,11 @@ lines; any failure exits non-zero:
              move over 3.35 TB/s and its float32 operations over 67
              TFLOP/s) and, for each fft_rows mode, torch.fft.fft over the
              same complex planes (the library yardstick, not on the path);
+             then each kernel mode at its smooth shape (B1 u8 at
+             2160x3840 -> 3840 wide, B6 and B2 'wiener' / 'conv' / conj
+             at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
+             hp = 384, B4/B5 at the UHD extents), the mixed-radix row
+             adding up the UHD frame's three launches with cross levels;
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
@@ -37,14 +46,24 @@ lines; any failure exits non-zero:
              same input planes on a 1024x512 frame (no zero pad) and on
              zero-padded 640x330 and 200x230 frames at two seeds, with
              and without the taper (check_rl_f64 gives the limits); the
-             CLI with --filter rl --iters 3 and with --edgetaper;
+             CLI with --filter rl --iters 3 and with --edgetaper; with
+             --pad smooth: UHD once with the counters reset (every FFT
+             launch with cross levels, no B7), against its plain path
+             and a float64 np.fft restore at 2304x3840; 640x330 against
+             the oracle's naive DFT at 384x640 (on the oracle's
+             normalization, the gpu tier with the JAX test's INF and PSNR
+             bounds); a stack of four 640x330 frames (B7 middle); RL and
+             Wiener + edgetaper at 640x330 (check_rl_f64's contracts, the
+             tapered oracle); the CLI with --pad smooth;
   4. timing  ms/frame and MP/s of the 2048^2 restore, ms/batch, ms/frame,
              MP/s and host enqueue of batch64 and batch8 (serving graph,
              CUDA events, the median of five loops) for wb_stats_stride 1
              and 4, and the middle A/B: B2 against B7 + the inverse-T
              pass on the same input at hp = 256 (batch64) and hp = 2048
              (batch8); ms/frame and host enqueue of the four filter
-             family paths at 2048^2.
+             family paths at 2048^2; ms/frame, MP/s of the live frame,
+             host enqueue and device busy of UHD 3840x2160 at smooth
+             (2304x3840) and pow2 (4096x4096) extents in the same run.
 
 The last three lines are the results (JSON: the kernel table and the
 timings), the card's name and power limit (nvidia-smi), and {"ok": true,
@@ -107,6 +126,14 @@ SMALL_FAMILY = (
 CONV_LAUNCHES = {"rl_2048sq": 2 * RL_ITERS, "wiener_edgetaper_2048sq": 1}
 SRC = "fft_restoration_tpu_torch/"
 TPU = "fft_restoration_tpu/ops/pallas/"
+# --pad smooth: the UHD frame of bench_extended.py:203-210 and 640x330
+# frames, PSF(50, 30); SMOOTH_STACK of the latter in the B7 stack
+UHD_HW = (2160, 3840)
+SMALL_HW = (330, 640)
+SMOOTH_STACK = 4
+TOL_F64_PLANES = 2e-4        # smooth restore vs the float64 np.fft restore at its extents
+TOL_ORACLE_SMOOTH_INF = 2e-2  # vs the oracle's naive DFT: the JAX test's bounds
+ORACLE_SMOOTH_PSNR_DB = 40.0
 
 
 def log(msg: str) -> None:
@@ -176,10 +203,15 @@ def bound(nbytes: float, flops: float) -> dict:
                 bytes=int(nbytes), flops=int(flops))
 
 
-def fft_flops(rows: int, n: int) -> float:
-    """Radix-2 FFT of `rows` complex rows of n points: n/2 * log2(n)
-    butterflies of 10 float32 operations each."""
-    return 5.0 * n * (n.bit_length() - 1) * rows
+def fft_flops(rows: int, n: int, radices=()) -> float:
+    """FFT of `rows` complex rows of n points: n/2 * log2(q) radix-2
+    butterflies of 10 float32 operations each over the pow2 tail q (q = n
+    without radices), and per cross level of radix r, per point, r - 1
+    complex multiply-adds (8) and a twiddle (6)."""
+    q = n
+    for r in radices:
+        q //= r
+    return rows * (5.0 * n * (q.bit_length() - 1) + sum(n * (8 * (r - 1) + 6) for r in radices))
 
 
 # float32 operations per pixel of the post-processing kernels, counted
@@ -190,7 +222,8 @@ LAB_L_FLOPS = 50
 WB_ENCODE_FLOPS = 160
 
 
-def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, **filter_kw):
+def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, pad_mode="pow2",
+                  **filter_kw):
     """A (B, h, w, 3) stack's restore on the card through every kernel's
     plain version: the reference of the kernel path. filter_kw: the
     pipeline's filter_name / rl_iters / edgetaper. Returns a function of
@@ -203,14 +236,14 @@ def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, **filter
 
     dev = torch.device("cuda", 0)
     x = torch.as_tensor(stack, device=dev)
-    hp, wp = pad_extents(*stack.shape[1:3])
+    hp, wp, rad_h, rad_w = pad_extents(*stack.shape[1:3], pad_mode)
     psf = make_psf("motion", psf_length, 30.0, dev)
-    H = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS)
-    lap = (laplacian_spectrum(hp, wp, dev, PLAIN_OPS)
+    H = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rad_h, rad_w))
+    lap = (laplacian_spectrum(hp, wp, dev, PLAIN_OPS, (rad_h, rad_w))
            if filter_kw.get("filter_name") == "cls" else None)
     return lambda: restore_stack(x, H, 0.01, white_balance=True, emit_planes=emit_planes,
                                  wb_stats_stride=stride, psf=psf, lap=lap, ops=PLAIN_OPS,
-                                 **filter_kw)
+                                 pad_mode=pad_mode, **filter_kw)
 
 
 def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None):
@@ -481,7 +514,7 @@ def check_slice(torch, np, frame, seed):
     (out, planes), counts = drive(
         torch, "main path 2048x2048x3", lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
         expect=("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8"),
-        forbid=("fwd_wiener_rows",))
+        forbid=("fwd_wiener_rows", "mixed_radix"))
     if out.shape != frame.shape or out.dtype != np.uint8 or not np.isfinite(planes).all():
         fail(f"bad output: {out.shape} {out.dtype}, finite planes {np.isfinite(planes).all()}")
 
@@ -678,10 +711,11 @@ RL_F64_CASES = (("1024x512", 512, 1024, 50, False),
 RL_WITNESS_FACTOR = 2.0  # untapered padded frames: at most this times the witness's distance
 
 
-def check_rl_f64(torch, np, seed):
+def check_rl_f64(torch, np, seed, cases=RL_F64_CASES, pad_mode="pow2"):
     """RL (10 iterations) through WienerDeblurPipeline against the float64
-    RL of the same float32 input planes (the pipeline's padded planes,
-    tapered by the same device taper when the case has it).
+    RL of the same float32 input planes (the pipeline's padded planes at
+    the extents of `pad_mode`, tapered by the same device taper when the
+    case has it).
 
     The pipeline's own padded planes must equal the reference's bit for
     bit: with the edge taper, RL on a zero-padded frame carries the
@@ -699,7 +733,9 @@ def check_rl_f64(torch, np, seed):
     from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host.oracle import motion_psf
     from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
-    from fft_restoration_tpu_torch.models.pipeline import encode_planar, padded_planes
+    from fft_restoration_tpu_torch.models.pipeline import (
+        encode_planar, pad_extents, padded_planes,
+    )
     from fft_restoration_tpu_torch.ops.psf import make_psf
     from fft_restoration_tpu_torch.tools.rl_rim import (
         padded_frame_planes,
@@ -709,18 +745,22 @@ def check_rl_f64(torch, np, seed):
 
     dev = torch.device("cuda", 0)
     res = {}
-    for name, h, w, length, taper in RL_F64_CASES:
+    for name, h, w, length, taper in cases:
+        hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
+        if pad_mode != "pow2":
+            name = f"{name}_{pad_mode}"
         for s in (seed + 1,) if name == "1024x512" else (seed + 1, seed + 2):
             img = blurred_frame(np, h, w, s, length)
-            y = padded_frame_planes(img)
+            y = padded_frame_planes(img, extent=(hp, wp))
             ours = padded_planes(torch.as_tensor(img, device=dev)[None], *y.shape[1:])
             if not torch.equal(ours.cpu(), torch.from_numpy(y)):
                 fail(f"{name}: the pipeline's padded planes are not x / 255 on the card")
             if taper:
                 y = edge_taper_planes(torch.as_tensor(y, device=dev),
-                                      make_psf("motion", length, 30.0, dev), (h, w)).cpu().numpy()
+                                      make_psf("motion", length, 30.0, dev), (h, w),
+                                      radices_hw=(rad_h, rad_w)).cpu().numpy()
             out, planes = WienerDeblurPipeline(
-                "cuda", filter_name="rl", rl_iters=RL_ITERS, edgetaper=taper
+                "cuda", filter_name="rl", rl_iters=RL_ITERS, edgetaper=taper, pad_mode=pad_mode
             ).restore_with_planes(img, length, 30.0)
             psf = motion_psf(length, 30.0)
             ref = rl_f64(y, psf, RL_ITERS)[:, :h, :w]
@@ -795,6 +835,277 @@ def check_family_oracle(torch, np, seed):
             if rc != 0 or want not in text.getvalue():
                 fail(f"the CLI with {' '.join(extra)} failed")
     return res
+
+
+def check_kernels_smooth(torch, np, uhd, small, iters):
+    """Phase 2 at --pad smooth extents: each kernel mode with cross levels
+    against its plain version, at the shapes of the UHD frame (2304x3840,
+    radices (3, 3) down the columns, (3, 5) along the rows) and of the
+    640x330 stack (384x640, B7 at hp = 384). torch.fft.fft over the same
+    complex planes is timed beside each (`torch_fft_ms`; for the fft_rows
+    modes it is also library_ms, the one call computing the function).
+    Returns ({kernel name: {mode: measurement}}, the mixed-radix row)."""
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, minmax_norm, pad_extents, psf_spectrum_planes,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.kernels.postprocess import sampled_live_pixels
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    h, w = uhd.shape[:2]
+    hp, wp, rad_h, rad_w = pad_extents(h, w, "smooth")
+    img = torch.as_tensor(uhd, device=dev)[None]
+    psf = make_psf("motion", 50, 30.0, dev)
+    fwd_p = fk.fft_rows_stack_plain(img, extent=(hp, wp), radices=rad_w)
+    psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
+    Hp = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rad_h, rad_w))
+    mid = ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01, rad_h)
+    out_p, mm_p = fk.fft_rows_packed_out_plain(*mid, inverse=True, radices=rad_w)
+    sh, sw = small.shape[1:3]
+    shp, swp, srad_h, srad_w = pad_extents(sh, sw, "smooth")
+    s = torch.as_tensor(small, device=dev)
+    st_p = fk.fft_rows_stack_plain(s, extent=(shp, swp), radices=srad_w)
+    Hs = psf_spectrum_planes(psf, shp, swp, PLAIN_OPS, (srad_h, srad_w))
+    f_s = ws.fwd_wiener_rows_plain(*st_p, *Hs, 0.01, srad_h)
+    ps = st_p[0].shape[0]
+    f2 = 2 * hp * wp * 4  # one float32 plane pair at 2304x3840
+
+    def lib(re, im):
+        x = torch.complex(re, im)
+        return lambda: torch.fft.fft(x, dim=-1)
+
+    # kernel: {mode: (kernel, plain, bytes, flops, torch.fft call, is the library call)}
+    specs = {
+        "fft_rows": {
+            "B1_uhd_smooth_T": (
+                lambda: fk.fft_rows_stack(img, extent=(hp, wp), radices=rad_w),
+                lambda: fk.fft_rows_stack_plain(img, extent=(hp, wp), radices=rad_w),
+                h * w * 3 + 2 * f2, fft_flops(2 * h, wp, rad_w), lib(*fwd_p), True),
+            "B6_psf_uhd_smooth": (
+                lambda: fk.fft_rows(*psf1, radices=rad_h),
+                lambda: fk.fft_rows_plain(*psf1, radices=rad_h),
+                2 * f2, fft_flops(wp, hp, rad_h), lib(*psf1), True),
+            "B3_uhd_smooth": (
+                lambda: fk.fft_rows_packed_out(*mid, inverse=True, radices=rad_w),
+                lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True, radices=rad_w),
+                4 * f2, fft_flops(2 * hp, wp, rad_w), lib(*mid), True),
+            "B1_stack330_smooth_T": (
+                lambda: fk.fft_rows_stack(s, extent=(shp, swp), radices=srad_w),
+                lambda: fk.fft_rows_stack_plain(s, extent=(shp, swp), radices=srad_w),
+                s.numel() + 2 * ps * shp * swp * 4, fft_flops(ps * sh, swp, srad_w),
+                lib(*st_p), True),
+            "B1_inverse_T_smooth": (
+                lambda: fk.fft_rows(*f_s, inverse=True, transposed=True, radices=srad_h),
+                lambda: fk.fft_rows_plain(*f_s, inverse=True, transposed=True, radices=srad_h),
+                4 * ps * shp * swp * 4, fft_flops(ps * swp, shp, srad_h), lib(*f_s), True),
+        },
+        "wiener_spectral_t": {
+            "uhd_smooth_2x3840x2304": (
+                lambda: ws.wiener_spectral_t(*fwd_p, *Hp, 0.01, rad_h),
+                lambda: ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01, rad_h),
+                (4 + 4 + 2) * hp * wp * 4, 2 * fft_flops(2 * wp, hp, rad_h) + 2 * hp * wp * 12,
+                lib(*fwd_p), False),
+        },
+        "spectral_conv_t": {
+            f"{name}_uhd_smooth": (
+                lambda c=conj: ws.spectral_conv_t(*fwd_p, *Hp, c, rad_h),
+                lambda c=conj: ws.spectral_conv_t_plain(*fwd_p, *Hp, c, rad_h),
+                (4 + 4 + 2) * hp * wp * 4, 2 * fft_flops(2 * wp, hp, rad_h) + 2 * hp * wp * 6,
+                lib(*fwd_p), False)
+            for name, conj in (("conv", False), ("conv_conj", True))
+        },
+        "fwd_wiener_rows": {
+            f"stack330_smooth_{ps}x{swp}x{shp}": (
+                lambda: ws.fwd_wiener_rows(*st_p, *Hs, 0.01, srad_h),
+                lambda: ws.fwd_wiener_rows_plain(*st_p, *Hs, 0.01, srad_h),
+                (4 * ps + 2) * swp * shp * 4,
+                fft_flops(ps * swp, shp, srad_h) + ps * swp * shp * 12,
+                lib(*st_p), False),
+        },
+    }
+    # the post-processing at the UHD smooth extents (length-agnostic kernels)
+    lo, scale = minmax_norm(mm_p, 2, 3)
+    orig = img.permute(0, 3, 1, 2)
+    px = h * w
+    for stride in (1, 4):
+        block = 8 if stride > 1 else 64
+        args = (out_p, orig, lo, scale, (h, w), stride, block)
+        spx = sampled_live_pixels(hp, wp, (h, w), block, stride)
+        specs.setdefault("lab_l_sum_partials", {})[f"uhd_smooth_stride{stride}"] = (
+            lambda a=args: pp.lab_l_sum_partials_batched(*a),
+            lambda a=args: pp.lab_l_sum_partials_batched_plain(*a),
+            spx * (3 * 4 + 3), spx * 2 * LAB_L_FLOPS, None, False)
+    eargs = (out_p, torch.ones(1, device=dev) * 1.05, lo, scale, (h, w))
+    specs["wb_encode_u8"] = {"uhd_smooth": (
+        lambda: pp.wb_encode_u8_batched(*eargs), lambda: pp.wb_encode_u8_batched_plain(*eargs),
+        px * (3 * 4 + 3), px * WB_ENCODE_FLOPS, None, False)}
+
+    tol = dict(fft_rows=TOL_FFT_REL, lab_l_sum_partials=TOL_PARTIALS_REL)
+    res = {}
+    for kernel, modes in specs.items():
+        res[kernel] = {}
+        for mode, (kern, plain, nbytes, flops, fft_call, is_lib) in modes.items():
+            outs = list(zip(*(x if isinstance(x, tuple) else (x,) for x in (kern(), plain()))))
+            m = measure(torch, outs, kern, plain, iters, nbytes, flops,
+                        fft_call if is_lib else None)
+            m["torch_fft_ms"] = None if fft_call is None else (
+                m["library_ms"] if is_lib else cuda_ms(torch, fft_call, iters))
+            res[kernel][mode] = m
+            if kernel == "wb_encode_u8":
+                ok = m["max_abs_err"] <= TOL_U8
+                what = f"max diff {m['max_abs_err']:.0f} count(s) (tol {TOL_U8})"
+            else:
+                ok = m["max_rel_err"] <= tol.get(kernel, TOL_WIENER_REL)
+                what = (f"max rel err {m['max_rel_err']:.3e} "
+                        f"(tol {tol.get(kernel, TOL_WIENER_REL)})")
+            fft_ms = "" if fft_call is None else f", torch.fft {m['torch_fft_ms']:.4f}"
+            log(f"{kernel} {mode}: {what}; {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f}"
+                f"{fft_ms}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
+            if not ok:
+                fail(f"{kernel} {mode} disagrees with its plain version")
+
+    # the UHD frame's three launches with cross levels (B1, B2, B3); the
+    # levels' own share of a launch is not separable
+    frame = [res["fft_rows"]["B1_uhd_smooth_T"], res["wiener_spectral_t"]["uhd_smooth_2x3840x2304"],
+             res["fft_rows"]["B3_uhd_smooth"]]
+    ffts = [m for k in ("fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows")
+            for m in res[k].values()]
+    mixed = dict(
+        name="mixed_radix", route="cuda", source=SRC + "csrc/fft_common.cuh",
+        replaces=TPU + "fft_kernel.py:139",
+        also_replaces=[TPU + "fft_kernel.py:179", TPU + "fft_kernel.py:198"],
+        max_abs_err=max(m["max_abs_err"] for m in ffts),
+        max_rel_err=max(m["max_rel_err"] for m in ffts),
+        ms=sum(m["ms"] for m in frame), plain_ms=sum(m["plain_ms"] for m in frame),
+        library_ms=None, torch_fft_ms=sum(m["torch_fft_ms"] for m in frame),
+        bound_ms=sum(m["bound_ms"] for m in frame),
+        bound_by=("operations", "bytes")[all(m["bound_by"] == "bytes" for m in frame)],
+        per_frame=["fft_rows B1_uhd_smooth_T", "wiener_spectral_t uhd_smooth_2x3840x2304",
+                   "fft_rows B3_uhd_smooth"],
+    )
+    return res, mixed
+
+
+def f64_restore(np, img, psf_length, hp, wp, K=0.01):
+    """float64 np.fft Wiener restore of a uint8 frame at (hp, wp),
+    normalized over the padded plane, cropped: the tight reference of a
+    smooth restore (the JAX package's prototype check)."""
+    from fft_restoration_tpu_torch.host.oracle import motion_psf
+
+    h, w = img.shape[:2]
+    psf = motion_psf(psf_length, 30.0).astype(np.float64)
+    pp = np.zeros((hp, wp))
+    pp[: psf.shape[0], : psf.shape[1]] = psf
+    H = np.fft.fft2(pp)
+    filt = np.conj(H) / (np.abs(H) ** 2 + K)
+    out = []
+    for c in np.moveaxis(img.astype(np.float64) / 255.0, -1, 0):
+        cp = np.zeros((hp, wp))
+        cp[:h, :w] = c
+        r = np.fft.ifft2(np.fft.fft2(cp) * filt).real
+        out.append(((r - r.min()) / (r.max() - r.min()))[:h, :w])
+    return np.stack(out)
+
+
+def check_smooth(torch, np, uhd, small, seed):
+    """Phase 3 with --pad smooth: the UHD path once with the counters
+    reset, against its plain path and the float64 restore; 640x330
+    against the oracle's naive DFT; the 640x330 stack (B7); RL and
+    Wiener + edgetaper at 640x330; the CLI. Returns (results, {path:
+    launch counts})."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline, cli
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import normalize_over_frame, restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+
+    res, counts = {}, {}
+    pipe = WienerDeblurPipeline("cuda", pad_mode="smooth")
+    hp, wp, rad_h, rad_w = pipe.pad(*uhd.shape[:2])
+    (out, planes), c = drive(
+        torch, f"UHD 3840x2160x3 --pad smooth ({hp}x{wp}, radices {rad_h} {rad_w})",
+        lambda: pipe.restore_with_planes(uhd, 50, 30.0, 0.01),
+        expect=("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8",
+                "mixed_radix"),
+        forbid=("fwd_wiener_rows", "spectral_conv_t"))
+    counts["uhd_smooth"] = c
+    if c["mixed_radix"] != c["fft_rows"] + c["wiener_spectral_t"]:
+        fail(f"UHD smooth: {c['mixed_radix']} launches with cross levels, expected every FFT "
+             f"launch ({c['fft_rows'] + c['wiener_spectral_t']})")
+    if out.shape != uhd.shape or not np.isfinite(planes).all():
+        fail(f"UHD smooth: bad output {out.shape}, finite planes {np.isfinite(planes).all()}")
+    out_p, planes_p = (t[0].cpu().numpy() for t in plain_restore(torch, uhd[None], 50,
+                                                               pad_mode="smooth")())
+    dp, du = float(np.abs(planes - planes_p).max()), u8_max(np, out, out_p)
+    d64 = float(np.abs(planes - f64_restore(np, uhd, 50, hp, wp)).max())
+    log(f"UHD smooth kernel vs plain path: planes max abs {dp:.3e} (tol {TOL_SLICE_PLANES}), "
+        f"uint8 max {du} (tol {TOL_U8}); vs float64 np.fft restore at {hp}x{wp}: {d64:.3e} "
+        f"(tol {TOL_F64_PLANES})")
+    if not (dp <= TOL_SLICE_PLANES and du <= TOL_U8 and d64 <= TOL_F64_PLANES):
+        fail("UHD smooth disagrees with its plain path or the float64 restore")
+    res["uhd_smooth"] = dict(launches=c, vs_plain=dict(planes_max_abs=dp, u8_max=du),
+                             vs_f64_planes_max_abs=d64)
+
+    car = small[0]
+    ours = WienerDeblurPipeline("cuda", pad_mode="smooth").restore_channels(car, 50, 30.0, 0.01)
+    shp, swp = pipe.pad(*car.shape[:2])[:2]
+    t0 = time.perf_counter()
+    oracle = restore_frame_channels(car, 50, 30.0, 0.01, pad_to=(shp, swp))
+    rep = channels_equal(normalize_over_frame(ours), oracle, "gpu")
+    direct = channels_equal(ours, oracle, "gpu")
+    log(f"640x330 smooth vs the oracle's naive DFT at {shp}x{swp} "
+        f"({time.perf_counter() - t0:.1f} s), on the oracle's normalization: {rep}; "
+        f"compared across the two normalizations (the JAX CLI's way): {direct}")
+    if not (rep.passed and rep.inf <= TOL_ORACLE_SMOOTH_INF
+            and rep.psnr_db >= ORACLE_SMOOTH_PSNR_DB):
+        fail("640x330 smooth fails the oracle at its extents")
+    res["small_smooth_vs_oracle"] = dict(inf=rep.inf, psnr_db=rep.psnr_db, direct_inf=direct.inf,
+                                         direct_psnr_db=direct.psnr_db)
+
+    bp = BatchedWienerPipeline("cuda", pad_mode="smooth")
+    x = bp.to_device(small)
+    (o, p), c = drive(torch, f"{len(small)} x 640x330 --pad smooth",
+                      lambda: bp.run(x, 50, 30.0, 0.01),
+                      expect=("fft_rows", "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8",
+                              "mixed_radix"),
+                      forbid=("wiener_spectral_t", "spectral_conv_t"))
+    counts["stack330_smooth"] = c
+    o_p, p_p = plain_restore(torch, small, 50, pad_mode="smooth")()
+    res["stack330_smooth"] = dict(launches=c, vs_plain=compare_paths(
+        np, "stack330_smooth", p.cpu().numpy(), p_p.cpu().numpy(), o.cpu().numpy(),
+        o_p.cpu().numpy()))
+
+    tapered = WienerDeblurPipeline("cuda", pad_mode="smooth", edgetaper=True)
+    rep = channels_equal(tapered.restore_channels(car, 50, 30.0, 0.01),
+                         restore_frame_channels(car, 50, 30.0, 0.01, edgetaper=True,
+                                                pad_to=(shp, swp)), "inf")
+    log(f"640x330 smooth wiener + edgetaper vs the oracle with the taper at {shp}x{swp}: {rep}")
+    if not rep.passed:
+        fail("640x330 smooth wiener + edgetaper fails the inf tier against the oracle")
+    res["small_smooth_edgetaper_vs_oracle_inf"] = rep.inf
+    res.update(check_rl_f64(torch, np, seed, RL_F64_CASES[1:3], "smooth"))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "car.png")
+        imwrite(png, car)
+        for extra, want in ((["--pad", "smooth"], "[Success] tier=gpu"),
+                            (["--pad", "smooth", "--filter", "rl", "--iters", "3"],
+                             "[INFO] --filter rl")):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main([png, "50", "30", "-o", os.path.join(tmp, "out.png"), *extra])
+            log(f"CLI {' '.join(extra)}: exit {rc}; "
+                f"{[ln for ln in text.getvalue().splitlines() if ln.startswith('[')]}")
+            if rc != 0 or want not in text.getvalue():
+                fail(f"the CLI with {' '.join(extra)} failed")
+    return res, counts
 
 
 def host_enqueue_ms(torch, fn, n: int) -> float:
@@ -915,6 +1226,41 @@ def time_family(torch, np, frame, stack8, iters):
     return res
 
 
+def time_uhd(torch, np, uhd, iters):
+    """Phase 4, UHD 3840x2160x3 at smooth (2304x3840) and pow2 (4096x4096)
+    extents in turns (smooth, pow2, pow2, smooth), serving graph, wb stride
+    1: device ms/frame (median of five loops), MP/s of the live frame,
+    host enqueue, and device busy and kernel time from torch.profiler."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.tools.profile_paths import profile_path
+
+    mp = uhd.shape[0] * uhd.shape[1] / 1e6
+    res = {}
+    for pad in ("smooth", "pow2", "pow2", "smooth"):
+        pipe = WienerDeblurPipeline("cuda", emit_planes=False, pad_mode=pad)
+        img = pipe.to_device(uhd)
+        fn = lambda: pipe.run(img, 50, 30.0, 0.01)  # noqa: E731
+        ms, runs = cuda_ms_median(torch, fn, iters)
+        enq = host_enqueue_ms(torch, fn, iters)
+        _, _, busy, per = profile_path(torch, fn, iters)
+        r = res.setdefault(f"uhd_{pad}", dict(extent=pipe.pad(*uhd.shape[:2])[:2], runs=[]))
+        r["runs"].append(dict(ms_per_frame=ms, ms_per_frame_loops=runs, mp_per_s=mp / (ms / 1e3),
+                              host_enqueue_ms_per_frame=enq, device_busy_us_per_frame=busy,
+                              kernels_us_per_frame=per))
+        log(f"UHD 3840x2160x3 --pad {pad} {r['extent']}: {ms:.4f} ms/frame (median of "
+            f"{' '.join(f'{x:.4f}' for x in runs)}), {mp / (ms / 1e3):.1f} MP/s, host enqueue "
+            f"{enq:.4f} ms/frame, device busy {busy:.1f} us/frame")
+    for r in res.values():
+        r["ms_per_frame"] = min(x["ms_per_frame"] for x in r["runs"])
+        r["device_busy_us_per_frame"] = min(x["device_busy_us_per_frame"] for x in r["runs"])
+    res["smooth_over_pow2_ms"] = res["uhd_smooth"]["ms_per_frame"] / res["uhd_pow2"]["ms_per_frame"]
+    res["smooth_over_pow2_busy"] = (res["uhd_smooth"]["device_busy_us_per_frame"]
+                                    / res["uhd_pow2"]["device_busy_us_per_frame"])
+    log(f"UHD smooth / pow2: {res['smooth_over_pow2_ms']:.4f} ms/frame, "
+        f"{res['smooth_over_pow2_busy']:.4f} device busy")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -948,11 +1294,23 @@ def main() -> int:
                         for i in range(b)])
         for k, (name, b, side, psf) in enumerate(BATCHES, start=1)
     }
+    uhd = blurred_frame(np, *UHD_HW, args.seed + 500)
+    small = np.stack([blurred_frame(np, *SMALL_HW, args.seed + 600 + i)
+                      for i in range(SMOOTH_STACK)])
     log(f"frames made: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     rows = check_kernels(torch, np, frame, stacks["batch64_256sq"], stacks["batch8_2048sq"],
                          args.iters)
+    smooth_modes, mixed_row = check_kernels_smooth(torch, np, uhd, small, args.iters)
+    for row in rows:  # every kernel mode in the kernel table, the smooth ones too
+        modes = row.setdefault("modes", {})
+        modes.update(smooth_modes.get(row["name"], {}))
+        row["max_rel_err_all"] = max([row["max_rel_err"]]
+                                     + [m["max_rel_err"] for m in modes.values()])
+        row["max_abs_err_all"] = max([row["max_abs_err"]]
+                                     + [m["max_abs_err"] for m in modes.values()])
+    rows.append(mixed_row)
     log(f"phase 2 kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -963,6 +1321,8 @@ def main() -> int:
     for paths in (batched, family):
         counts.update({name: paths[name]["launches"] for name in paths})
     family_oracle = check_family_oracle(torch, np, args.seed)
+    smooth, smooth_counts = check_smooth(torch, np, uhd, small, args.seed)
+    counts.update(smooth_counts)
     log(f"phase 3 slice: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
@@ -974,10 +1334,11 @@ def main() -> int:
     batch_timing = time_batches(torch, np, stacks, timing, args.iters)
     ab = middle_ab(torch, np, stacks, args.iters)
     family_timing = time_family(torch, np, frame, stacks["batch64_256sq"][:8], args.iters)
+    smooth["timing"] = time_uhd(torch, np, uhd, args.iters)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
 
     result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab,
-              "family_640x330": family_oracle}
+              "family_640x330": family_oracle, "smooth": smooth}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

@@ -21,7 +21,13 @@ verify against the oracle.
 --iters steps); --edgetaper blends the frame toward its circular blur at
 the borders before deconvolving. As in the JAX CLI, only wiener is
 verified against the serial oracle (with the taper on both sides); the
-other filters print an [INFO] line and skip the verify.
+other filters print an [INFO] line and skip the verify. --pad smooth
+restores at the mixed-radix extents (e.g. 3840x2160 at 2304x3840) and
+verifies against the oracle at the same extents (its O(n^2) naive DFT
+with float32 angles, slow on large frames). An untapered pad_to restore
+is normalized over the frame by the oracle (the reference's crop, then
+normalize), over the padded plane by the pipeline: the verify puts the
+pipeline's planes on the frame's normalization first.
 
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
@@ -108,7 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--pad", choices=("pow2", "smooth"), default="pow2",
-        help="DFT pad extents; only pow2 is ported (ROADMAP.md A9)",
+        help="DFT pad extents: 'pow2' (the reference's) or 'smooth' (the smallest "
+        "odd*2^k extents, odd in 3/5/9/15; the oracle verifies at the same "
+        "extents, at the gpu tier)",
     )
     p.add_argument(
         "--wb-stride", type=int, default=1,
@@ -151,8 +159,8 @@ def main(argv=None) -> int:
         return 2
 
     from fft_restoration_tpu_torch.host.imageio import imread, imwrite
-    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
-    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline, pad_extents
+    from fft_restoration_tpu_torch.host.oracle import normalize_over_frame, restore_frame_channels
+    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
 
     total_start = time.perf_counter()
     try:
@@ -175,7 +183,7 @@ def main(argv=None) -> int:
     if img.ndim != 3 or img.shape[-1] != 3:
         print(f"[Error] need a 3-channel BGR image, got shape {img.shape}")
         return 1
-    hp, wp = pad_extents(img.shape[0], img.shape[1])
+    hp, wp, _, _ = pipe.pad(img.shape[0], img.shape[1])
     if args.psf_length > min(hp, wp):
         print(f"[Error] psf-length {args.psf_length} exceeds the padded image ({hp}x{wp})")
         return 2
@@ -194,10 +202,17 @@ def main(argv=None) -> int:
               "implements wiener only")
     elif not args.no_verify:
         t0 = time.perf_counter()
+        # the oracle at the restore's extents: pad_to for smooth ones
         oracle = restore_frame_channels(img, args.psf_length, args.psf_angle, args.K,
-                                        args.edgetaper)
+                                        args.edgetaper,
+                                        (hp, wp) if args.pad == "smooth" else None)
         serial_ms = (time.perf_counter() - t0) * 1e3
         print(f"Deblurring 3 channels took(serial): {serial_ms:.2f} ms")
+        if args.pad == "smooth" and not args.edgetaper:
+            # the oracle normalizes an untapered pad_to restore over the
+            # frame, the pipeline over the padded plane: compare on one
+            # normalization (the JAX CLI compares across the two)
+            ours = normalize_over_frame(ours)
         report = channels_equal(ours, oracle, args.tier)
         print(report)
         print(f"[Speedup] {serial_ms / mode_ms:.2f}x")
@@ -234,7 +249,6 @@ def _run_batch(args, single) -> int:
     """Directory mode: restore every image of args.img_path with the shared
     PSF; returns the exit code (1 when no image could be read)."""
     from fft_restoration_tpu_torch.host.imageio import probe_size
-    from fft_restoration_tpu_torch.models.pipeline import pad_extents
 
     print("[INFO] directory input runs the batched pipeline; frames are not "
           "verified against the serial oracle")
@@ -270,7 +284,7 @@ def _run_batch(args, single) -> int:
                 white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
                 rl_iters=args.iters, edgetaper=args.edgetaper,
             )
-        hp, wp = pad_extents(h, w, args.pad)
+        hp, wp, _, _ = single.pad(h, w)
         chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))
         for i in range(0, len(group), chunk):
             done, bad = _restore_group(args, group[i:i + chunk], dst, single, batched)

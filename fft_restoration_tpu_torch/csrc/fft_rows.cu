@@ -36,6 +36,16 @@
 // Grid: one dimension, block b takes row block b % nblk of pair b / nblk,
 // so the pair count is not held to gridDim.y's 65535 (a CLI chunk of
 // small frames packs hundreds of thousands of pairs).
+//
+// Mixed radix (--pad smooth; B-mixed, fft_kernel.py:139-217): a row
+// length N = prod(radices) * 2^k runs the cross levels of fft_common.cuh
+// before the DIF stages (forward) or after the DIT stages (inverse), in
+// the instance compiled with MIXED; the load and the natural store then
+// split t by division by N instead of a shift. The levels add one
+// shared-memory pass each (r reads and writes per element, 8r - 2 flops
+// per output) to the 2*log2(q) of the stages, so the kernel stays bound
+// by shared memory and barriers; a pow2 N takes the MIXED = false
+// instance, the code it had before.
 #include "fft_common.cuh"
 
 enum { STORE_NATURAL = 0, STORE_T = 1, STORE_PACKED = 2 };
@@ -43,16 +53,29 @@ enum { STORE_NATURAL = 0, STORE_T = 1, STORE_PACKED = 2 };
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(uint8_t v) { return (float)v / 255.0f; }
 
-template <typename T>
+// row of element t of a block's rows * N (log2n: log2(N) when !MIXED)
+template <bool MIXED>
+__device__ __forceinline__ int row_of(int t, int N, int log2n) {
+  return MIXED ? t / N : t >> log2n;
+}
+
+template <bool MIXED>
+__device__ __forceinline__ int col_of(int t, int r, int N) {
+  return MIXED ? t - r * N : t & (N - 1);
+}
+
+// stages: log2(N), or log2 of the pow2 tail when MIXED
+template <typename T, bool MIXED>
 __global__ void __launch_bounds__(FFT_THREADS)
 fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                 long long is, long long chs, int channels, int qstep, int qim,
                 long long rs, long long cs, int re_live, int im_live,
-                int live_rows, int live_cols, int M, int N, int log2n,
+                int live_rows, int live_cols, int M, int N, int stages,
                 int rows, int nblk, float* __restrict__ out_re,
                 float* __restrict__ out_im, float* __restrict__ minmax,
                 int store, int inverse, const float* __restrict__ cosv,
-                const float* __restrict__ sinv) {
+                const float* __restrict__ sinv,
+                const __grid_constant__ CrossPlan plan) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
@@ -69,8 +92,9 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       (long long)(q_im / channels) * is + (long long)(q_im % channels) * chs;
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int m = m0 + (t >> log2n);
-    const int c = t & (N - 1);
+    const int r = row_of<MIXED>(t, N, stages);
+    const int m = m0 + r;
+    const int c = col_of<MIXED>(t, r, N);
     const bool live = m < live_rows && c < live_cols;
     const long long off = m * rs + c * cs;
     sre[t] = (live && re_ok) ? to_f32(src_re[base_re + off]) : 0.0f;
@@ -79,9 +103,11 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   __syncthreads();
 
   if (inverse) {
-    dit_stages(sre, sim, rows, N, log2n, cosv, sinv);
+    dit_stages<MIXED>(sre, sim, rows, N, stages, cosv, sinv);
+    if (MIXED) cross_inv(sre, sim, rows, N, plan);
   } else {
-    dif_stages(sre, sim, rows, N, log2n, cosv, sinv);
+    if (MIXED) cross_fwd(sre, sim, rows, N, plan);
+    dif_stages<MIXED>(sre, sim, rows, N, stages, cosv, sinv);
   }
 
   if (store == STORE_T) {
@@ -100,9 +126,10 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
     }
   } else if (store == STORE_NATURAL) {
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int m = m0 + (t >> log2n);
+      const int r = row_of<MIXED>(t, N, stages);
+      const int m = m0 + r;
       if (m < M) {
-        const size_t o = ((size_t)p * M + m) * N + (t & (N - 1));
+        const size_t o = ((size_t)p * M + m) * N + col_of<MIXED>(t, r, N);
         out_re[o] = sre[t];
         out_im[o] = sim[t];
       }
@@ -127,45 +154,72 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   }
 }
 
-template <typename T>
+template <typename T, bool MIXED>
 static int launch(const void* src_re, const void* src_im, long long is,
                   long long chs, int channels, int qstep, int qim,
                   long long rs, long long cs, int re_live, int im_live,
-                  int live_rows, int live_cols, int P, int M, int N, int log2n,
+                  int live_rows, int live_cols, int P, int M, int N, int stages,
                   int rows, void* out_re, void* out_im, void* minmax, int store,
                   int inverse, const void* cosv, const void* sinv,
-                  cudaStream_t stream) {
+                  const CrossPlan& plan, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(fft_rows_kernel<T>, smem);
+  cudaError_t err = allow_smem(fft_rows_kernel<T, MIXED>, smem);
   if (err != cudaSuccess) return (int)err;
   const int covered = live_rows < M ? live_rows : M;
   const int nblk = (covered + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fft_rows_kernel<T><<<nblk * P, FFT_THREADS, smem, stream>>>(
+  fft_rows_kernel<T, MIXED><<<nblk * P, FFT_THREADS, smem, stream>>>(
       (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
-      cs, re_live, im_live, live_rows, live_cols, M, N, log2n, rows, nblk,
+      cs, re_live, im_live, live_rows, live_cols, M, N, stages, rows, nblk,
       (float*)out_re, (float*)out_im, (float*)minmax, store, inverse,
-      (const float*)cosv, (const float*)sinv);
+      (const float*)cosv, (const float*)sinv, plan);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+static int launch_any(const void* src_re, const void* src_im, long long is,
+                      long long chs, int channels, int qstep, int qim,
+                      long long rs, long long cs, int re_live, int im_live,
+                      int live_rows, int live_cols, int P, int M, int N,
+                      int stages, int rows, void* out_re, void* out_im,
+                      void* minmax, int store, int inverse, const void* cosv,
+                      const void* sinv, const CrossPlan& plan,
+                      cudaStream_t stream) {
+  if (plan.levels > 0)
+    return launch<T, true>(src_re, src_im, is, chs, channels, qstep, qim, rs,
+                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
+                           stages, rows, out_re, out_im, minmax, store, inverse,
+                           cosv, sinv, plan, stream);
+  return launch<T, false>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                          re_live, im_live, live_rows, live_cols, P, M, N,
+                          stages, rows, out_re, out_im, minmax, store, inverse,
+                          cosv, sinv, plan, stream);
+}
+
+// levels, radix, coef, xcos, xsin: the cross levels of this direction
+// (levels 0 for a pow2 N; see make_cross_plan)
 extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
                                int in_u8, long long is, long long chs,
                                int channels, int qstep, int qim, long long rs,
                                long long cs, int re_live, int im_live,
                                int live_rows, int live_cols, int P, int M,
-                               int N, int log2n, int rows, void* out_re,
+                               int N, int stages, int rows, void* out_re,
                                void* out_im, void* minmax, int store,
                                int inverse, const void* cosv, const void* sinv,
+                               int levels, const int* radix, const float* coef,
+                               const void* xcos, const void* xsin,
                                void* stream) {
+  if (levels < 0 || levels > MAX_CROSS_LEVELS) return (int)cudaErrorInvalidValue;
+  const CrossPlan plan = make_cross_plan(levels, radix, coef, xcos, xsin);
   if (in_u8) {
-    return launch<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim, rs,
-                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
-                           log2n, rows, out_re, out_im, minmax, store, inverse,
-                           cosv, sinv, (cudaStream_t)stream);
+    return launch_any<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim,
+                               rs, cs, re_live, im_live, live_rows, live_cols,
+                               P, M, N, stages, rows, out_re, out_im, minmax,
+                               store, inverse, cosv, sinv, plan,
+                               (cudaStream_t)stream);
   }
-  return launch<float>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
-                       re_live, im_live, live_rows, live_cols, P, M, N, log2n,
-                       rows, out_re, out_im, minmax, store, inverse, cosv,
-                       sinv, (cudaStream_t)stream);
+  return launch_any<float>(src_re, src_im, is, chs, channels, qstep, qim, rs,
+                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
+                           stages, rows, out_re, out_im, minmax, store,
+                           inverse, cosv, sinv, plan, (cudaStream_t)stream);
 }

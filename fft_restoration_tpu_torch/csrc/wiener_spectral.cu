@@ -46,22 +46,31 @@
 //
 // Grid of both: one dimension, block b takes row block b % nblk of
 // plane b / nblk (the plane count is not held to gridDim.y's 65535).
+//
+// Mixed radix (--pad smooth, B-mixed): at a smooth column length the
+// MIXED instances run the forward cross levels before the DIF stages and
+// (B2) the inverse ones after the DIT stages (fft_common.cuh), from two
+// CrossPlans passed by value beside the stage tables; the filters and the
+// stores are unchanged. grid_of's M / rows and the wrappers' row-block
+// check hold at smooth M as at pow2 M.
 #include "fft_common.cuh"
 
 enum SpectralMode { MODE_WIENER = 0, MODE_CONV = 1, MODE_CONV_CONJ = 2 };
 
-template <int MODE>
+template <int MODE, bool MIXED>
 __global__ void __launch_bounds__(FFT_THREADS)
 spectral_t_kernel(const float* __restrict__ a_re,
                   const float* __restrict__ a_im,
                   const float* __restrict__ h_re,
                   const float* __restrict__ h_im, float K,
                   float* __restrict__ out_re, float* __restrict__ out_im,
-                  int M, int N, int log2n, int rows, int nblk,
+                  int M, int N, int stages, int rows, int nblk,
                   const float* __restrict__ cos_f,
                   const float* __restrict__ sin_f,
                   const float* __restrict__ cos_i,
-                  const float* __restrict__ sin_i) {
+                  const float* __restrict__ sin_i,
+                  const __grid_constant__ CrossPlan plan_f,
+                  const __grid_constant__ CrossPlan plan_i) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
@@ -76,7 +85,8 @@ spectral_t_kernel(const float* __restrict__ a_re,
     sim[t] = a_im[base + t];
   }
   __syncthreads();
-  dif_stages(sre, sim, rows, N, log2n, cos_f, sin_f);
+  if (MIXED) cross_fwd(sre, sim, rows, N, plan_f);
+  dif_stages<MIXED>(sre, sim, rows, N, stages, cos_f, sin_f);
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
     const float hr = h_re[hbase + t], hi = h_im[hbase + t];
@@ -94,7 +104,8 @@ spectral_t_kernel(const float* __restrict__ a_re,
     }
   }
   __syncthreads();
-  dit_stages(sre, sim, rows, N, log2n, cos_i, sin_i);
+  dit_stages<MIXED>(sre, sim, rows, N, stages, cos_i, sin_i);
+  if (MIXED) cross_inv(sre, sim, rows, N, plan_i);
 
   // (P, M, N) -> (P, N, M)
   const int log2rows = __ffs(rows) - 1;
@@ -107,15 +118,17 @@ spectral_t_kernel(const float* __restrict__ a_re,
   }
 }
 
+template <bool MIXED>
 __global__ void __launch_bounds__(FFT_THREADS)
 fwd_wiener_rows_kernel(const float* __restrict__ a_re,
                        const float* __restrict__ a_im,
                        const float* __restrict__ h_re,
                        const float* __restrict__ h_im, float K,
                        float* __restrict__ out_re, float* __restrict__ out_im,
-                       int M, int N, int log2n, int rows, int nblk,
+                       int M, int N, int stages, int rows, int nblk,
                        const float* __restrict__ cos_f,
-                       const float* __restrict__ sin_f) {
+                       const float* __restrict__ sin_f,
+                       const __grid_constant__ CrossPlan plan_f) {
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
@@ -130,7 +143,8 @@ fwd_wiener_rows_kernel(const float* __restrict__ a_re,
     sim[t] = a_im[base + t];
   }
   __syncthreads();
-  dif_stages(sre, sim, rows, N, log2n, cos_f, sin_f);
+  if (MIXED) cross_fwd(sre, sim, rows, N, plan_f);
+  dif_stages<MIXED>(sre, sim, rows, N, stages, cos_f, sin_f);
 
   // F = G * conj(H) / (|H|^2 + K), stored in natural (P, M, N) order
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
@@ -150,70 +164,127 @@ static int grid_of(int P, int M, int rows, int* nblk, int* blocks) {
   return 0;
 }
 
-template <int MODE>
+template <int MODE, bool MIXED>
 static int launch_spectral_t(const void* a_re, const void* a_im,
                              const void* h_re, const void* h_im, float K,
                              void* out_re, void* out_im, int P, int M, int N,
-                             int log2n, int rows, const void* cos_f,
+                             int stages, int rows, const void* cos_f,
                              const void* sin_f, const void* cos_i,
-                             const void* sin_i, void* stream) {
+                             const void* sin_i, const CrossPlan& plan_f,
+                             const CrossPlan& plan_i, void* stream) {
   const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(spectral_t_kernel<MODE>, smem);
+  cudaError_t err = allow_smem(spectral_t_kernel<MODE, MIXED>, smem);
   if (err != cudaSuccess) return (int)err;
   int nblk, blocks;
   if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
-  spectral_t_kernel<MODE><<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)a_re, (const float*)a_im, (const float*)h_re,
-      (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
-      nblk, (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
-      (const float*)sin_i);
+  spectral_t_kernel<MODE, MIXED>
+      <<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)a_re, (const float*)a_im, (const float*)h_re,
+          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
+          rows, nblk, (const float*)cos_f, (const float*)sin_f,
+          (const float*)cos_i, (const float*)sin_i, plan_f, plan_i);
   return (int)cudaGetLastError();
+}
+
+// the two directions' cross levels (levels 0 for a pow2 N; see
+// make_cross_plan), as the C entries receive them
+#define CROSS_ARGS(d)                                                    \
+  int levels_##d, const int *radix_##d, const float *coef_##d,           \
+      const void *xcos_##d, const void *xsin_##d
+#define CROSS_PLAN(d) \
+  make_cross_plan(levels_##d, radix_##d, coef_##d, xcos_##d, xsin_##d)
+
+template <int MODE>
+static int launch_mode(const void* a_re, const void* a_im, const void* h_re,
+                       const void* h_im, float K, void* out_re, void* out_im,
+                       int P, int M, int N, int stages, int rows,
+                       const void* cos_f, const void* sin_f, const void* cos_i,
+                       const void* sin_i, const CrossPlan& plan_f,
+                       const CrossPlan& plan_i, void* stream) {
+  if (plan_f.levels != plan_i.levels) return (int)cudaErrorInvalidValue;
+  if (plan_f.levels > 0)
+    return launch_spectral_t<MODE, true>(a_re, a_im, h_re, h_im, K, out_re,
+                                         out_im, P, M, N, stages, rows, cos_f,
+                                         sin_f, cos_i, sin_i, plan_f, plan_i,
+                                         stream);
+  return launch_spectral_t<MODE, false>(a_re, a_im, h_re, h_im, K, out_re,
+                                        out_im, P, M, N, stages, rows, cos_f,
+                                        sin_f, cos_i, sin_i, plan_f, plan_i,
+                                        stream);
+}
+
+static bool bad_levels(int levels) {
+  return levels < 0 || levels > MAX_CROSS_LEVELS;
 }
 
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* h_re, const void* h_im,
                                         float K, void* out_re, void* out_im,
-                                        int P, int M, int N, int log2n,
+                                        int P, int M, int N, int stages,
                                         int rows, const void* cos_f,
                                         const void* sin_f, const void* cos_i,
-                                        const void* sin_i, void* stream) {
-  return launch_spectral_t<MODE_WIENER>(a_re, a_im, h_re, h_im, K, out_re,
-                                        out_im, P, M, N, log2n, rows, cos_f,
-                                        sin_f, cos_i, sin_i, stream);
+                                        const void* sin_i, CROSS_ARGS(f),
+                                        CROSS_ARGS(i), void* stream) {
+  if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
+  return launch_mode<MODE_WIENER>(a_re, a_im, h_re, h_im, K, out_re, out_im, P,
+                                  M, N, stages, rows, cos_f, sin_f, cos_i,
+                                  sin_i, CROSS_PLAN(f), CROSS_PLAN(i), stream);
 }
 
 // conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
 extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im,
                                       const void* h_re, const void* h_im,
                                       int conj, void* out_re, void* out_im,
-                                      int P, int M, int N, int log2n, int rows,
-                                      const void* cos_f, const void* sin_f,
-                                      const void* cos_i, const void* sin_i,
-                                      void* stream) {
+                                      int P, int M, int N, int stages,
+                                      int rows, const void* cos_f,
+                                      const void* sin_f, const void* cos_i,
+                                      const void* sin_i, CROSS_ARGS(f),
+                                      CROSS_ARGS(i), void* stream) {
+  if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
+  const CrossPlan plan_f = CROSS_PLAN(f), plan_i = CROSS_PLAN(i);
   if (conj)
-    return launch_spectral_t<MODE_CONV_CONJ>(a_re, a_im, h_re, h_im, 0.0f,
-                                             out_re, out_im, P, M, N, log2n,
-                                             rows, cos_f, sin_f, cos_i, sin_i,
-                                             stream);
-  return launch_spectral_t<MODE_CONV>(a_re, a_im, h_re, h_im, 0.0f, out_re,
-                                      out_im, P, M, N, log2n, rows, cos_f,
-                                      sin_f, cos_i, sin_i, stream);
+    return launch_mode<MODE_CONV_CONJ>(a_re, a_im, h_re, h_im, 0.0f, out_re,
+                                       out_im, P, M, N, stages, rows, cos_f,
+                                       sin_f, cos_i, sin_i, plan_f, plan_i,
+                                       stream);
+  return launch_mode<MODE_CONV>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im,
+                                P, M, N, stages, rows, cos_f, sin_f, cos_i,
+                                sin_i, plan_f, plan_i, stream);
+}
+
+template <bool MIXED>
+static int launch_fwd_wiener(const void* a_re, const void* a_im,
+                             const void* h_re, const void* h_im, float K,
+                             void* out_re, void* out_im, int P, int M, int N,
+                             int stages, int rows, const void* cos_f,
+                             const void* sin_f, const CrossPlan& plan_f,
+                             void* stream) {
+  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
+  cudaError_t err = allow_smem(fwd_wiener_rows_kernel<MIXED>, smem);
+  if (err != cudaSuccess) return (int)err;
+  int nblk, blocks;
+  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
+  fwd_wiener_rows_kernel<MIXED>
+      <<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)a_re, (const float*)a_im, (const float*)h_re,
+          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
+          rows, nblk, (const float*)cos_f, (const float*)sin_f, plan_f);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,
                                       const void* h_re, const void* h_im,
                                       float K, void* out_re, void* out_im,
-                                      int P, int M, int N, int log2n, int rows,
+                                      int P, int M, int N, int stages, int rows,
                                       const void* cos_f, const void* sin_f,
-                                      void* stream) {
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(fwd_wiener_rows_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  int nblk, blocks;
-  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
-  fwd_wiener_rows_kernel<<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)a_re, (const float*)a_im, (const float*)h_re,
-      (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, log2n, rows,
-      nblk, (const float*)cos_f, (const float*)sin_f);
-  return (int)cudaGetLastError();
+                                      CROSS_ARGS(f), void* stream) {
+  if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
+  const CrossPlan plan_f = CROSS_PLAN(f);
+  if (plan_f.levels > 0)
+    return launch_fwd_wiener<true>(a_re, a_im, h_re, h_im, K, out_re, out_im,
+                                   P, M, N, stages, rows, cos_f, sin_f, plan_f,
+                                   stream);
+  return launch_fwd_wiener<false>(a_re, a_im, h_re, h_im, K, out_re, out_im, P,
+                                  M, N, stages, rows, cos_f, sin_f, plan_f,
+                                  stream);
 }

@@ -8,7 +8,12 @@ serial.py is for the JAX package (same arithmetic, op for op):
     w *= wlen (not an exact table), so they drift as the reference's do;
   * unscaled inverse: the min-max normalize over the padded plane
     absorbs 1/(MN), then the plane is cropped;
-  * |H|^2 as sqrt(re^2 + im^2)^2.
+  * |H|^2 as sqrt(re^2 + im^2)^2;
+  * a non-pow2 axis (the `pad_to` extents of --pad smooth) takes the
+    O(n^2) naive DFT with float32 angles and complex64 accumulation, as
+    the reference's dft_naive_inplace does: its angle rounding puts up to
+    ~1e-2 INF into the restored planes, so the port is held to it at the
+    gpu tier there (and tightly to a float64 restore at the same extents).
 
 The motion PSF is a horizontal line of 1/size through (size//2, size//2)
 rotated with OpenCV getRotationMatrix2D + warpAffine (exact inverse-map
@@ -86,9 +91,29 @@ def _fft_radix2(a: np.ndarray, inverse: bool) -> np.ndarray:
     return a
 
 
+def dft_naive(a: np.ndarray, inverse: bool) -> np.ndarray:
+    """O(n^2) direct DFT over the last axis for any n: float32 angles,
+    complex64 accumulation, unscaled inverse."""
+    a = np.asarray(a, dtype=np.complex64)
+    n = a.shape[-1]
+    if n <= 1:
+        return a
+    sign = np.float32(1.0 if inverse else -1.0)
+    k = np.arange(n, dtype=np.float32)[:, None]
+    t = np.arange(n, dtype=np.float32)[None, :]
+    ang = (np.float32(2.0 * math.pi) * k * t / np.float32(n) * sign).astype(np.float32)
+    w = (np.cos(ang) + 1j * np.sin(ang)).astype(np.complex64)
+    return np.einsum("...t,kt->...k", a, w).astype(np.complex64)
+
+
+def _transform_rows(a: np.ndarray, inverse: bool) -> np.ndarray:
+    n = a.shape[-1]
+    return _fft_radix2(a, inverse) if n & (n - 1) == 0 else dft_naive(a, inverse)
+
+
 def _dft2d(a: np.ndarray, inverse: bool) -> np.ndarray:
-    a = np.swapaxes(_fft_radix2(a, inverse), -1, -2)
-    return np.swapaxes(_fft_radix2(a, inverse), -1, -2)
+    a = np.swapaxes(_transform_rows(a, inverse), -1, -2)
+    return np.swapaxes(_transform_rows(a, inverse), -1, -2)
 
 
 def _pad_to(a: np.ndarray, rows: int, cols: int) -> np.ndarray:
@@ -96,22 +121,32 @@ def _pad_to(a: np.ndarray, rows: int, cols: int) -> np.ndarray:
 
 
 def restore_channels(channels: np.ndarray, psf: np.ndarray, K: float = 0.01,
-                     edgetaper: bool = False) -> np.ndarray:
+                     edgetaper: bool = False, pad_to=None) -> np.ndarray:
     """(C, H, W) float32 planes in [0, 1] -> restored (C, H, W) float32
     planes, each min-max normalized over its pow2-padded extent.
     edgetaper: pad, blend the padded frame toward its circular blur at
     the borders (host/edgetaper.py, float64), then restore the tapered
-    padded planes and crop — the --edgetaper twin of the device path."""
+    padded planes and crop — the --edgetaper twin of the device path.
+    pad_to: explicit (rows, cols) DFT extents in place of the pow2 pad
+    (the --pad smooth parity target). As in the JAX oracle, a frame
+    restored at pad_to extents without the taper is cropped before its
+    min-max normalize, so its range is the frame's, not the padded
+    plane's as on the device."""
     channels = np.asarray(channels, np.float32)
     h, w = channels.shape[-2:]
-    hp, wp = next_power_of_two(h), next_power_of_two(w)
+    if pad_to is not None:
+        hp, wp = int(pad_to[0]), int(pad_to[1])
+        if hp < h or wp < w:
+            raise ValueError(f"pad_to {tuple(pad_to)} smaller than the image {(h, w)}")
+    else:
+        hp, wp = next_power_of_two(h), next_power_of_two(w)
     if edgetaper:
         from fft_restoration_tpu_torch.host.edgetaper import edge_taper_channels
 
         padded = np.zeros(channels.shape[:-2] + (hp, wp), np.float32)
         padded[..., :h, :w] = channels
         tapered = edge_taper_channels(padded, np.asarray(psf, np.float32), (h, w))
-        return restore_channels(tapered, psf, K)[..., :h, :w]
+        return restore_channels(tapered, psf, K, pad_to=(hp, wp))[..., :h, :w]
     H = _dft2d(_pad_to(np.asarray(psf, np.float32), hp, wp).astype(np.complex64), False)
     mag = np.sqrt(H.real * H.real + H.imag * H.imag, dtype=np.float32)
     denom = (mag * mag + np.float32(K)).astype(np.float32)
@@ -122,15 +157,30 @@ def restore_channels(channels: np.ndarray, psf: np.ndarray, K: float = 0.01,
         num_im = (G.real * (-H.imag) + G.imag * H.real).astype(np.float32)
         res = ((num_re / denom) + 1j * (num_im / denom)).astype(np.complex64)
         restored = _dft2d(res, True).real.astype(np.float32)
+        if pad_to is not None:
+            restored = restored[:h, :w]
         lo, hi = restored.min(), restored.max()
         scale = np.float32(1.0) / np.float32(hi - lo) if hi > lo else np.float32(0.0)
         out.append(((restored - lo) * scale).astype(np.float32)[:h, :w])
     return np.stack(out, axis=0)
 
 
+def normalize_over_frame(planes: np.ndarray) -> np.ndarray:
+    """Min-max normalize (C, H, W) planes per channel over the frame: the
+    device path's planes (normalized over the padded plane, then cropped)
+    put on the normalization of an untapered pad_to restore, which is the
+    frame's. The map is affine, so this compares the restores themselves."""
+    p = np.asarray(planes, np.float64)
+    lo = p.min(axis=(-2, -1), keepdims=True)
+    hi = p.max(axis=(-2, -1), keepdims=True)
+    return np.where(hi > lo, (p - lo) / np.where(hi > lo, hi - lo, 1.0), 0.0).astype(np.float32)
+
+
 def restore_frame_channels(img_bgr: np.ndarray, psf_length: int, psf_angle: float,
-                           K: float = 0.01, edgetaper: bool = False) -> np.ndarray:
-    """uint8 BGR (H, W, 3) frame -> the oracle's restored (3, H, W) planes."""
+                           K: float = 0.01, edgetaper: bool = False,
+                           pad_to=None) -> np.ndarray:
+    """uint8 BGR (H, W, 3) frame -> the oracle's restored (3, H, W) planes
+    (at the pad_to extents when given)."""
     imgf = np.asarray(img_bgr, np.float32) / np.float32(255.0)
     return restore_channels(np.moveaxis(imgf, -1, 0), motion_psf(psf_length, psf_angle), K,
-                            edgetaper=edgetaper)
+                            edgetaper=edgetaper, pad_to=pad_to)

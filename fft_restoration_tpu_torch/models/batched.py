@@ -43,6 +43,8 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     family's parameter). filter_name, rl_iters and edgetaper as in
     WienerDeblurPipeline; the taper runs over the flat (3B, hp, wp)
     planes, its channel pairs straddling images as the restore's do.
+    pad_mode: 'pow2' or 'smooth' (models.pipeline.pad_extents); a stack
+    of 640x330 frames restores at 384x640, its middle B7 at hp = 384.
     stage_dtype exists for the JAX signature and is not ported yet.
     """
 
@@ -105,14 +107,15 @@ def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cu
     """(length, angle) motion-PSF grid sweep on one (H, W, 3) image.
 
     Returns (n_lengths, n_angles, 3, H, W) float32 restored planes (numpy),
-    each point as `BatchedWienerPipeline.restore_planes` gives it.
+    each point as `BatchedWienerPipeline.restore_planes` gives it. The
+    pad is pow2, as in the JAX sweep.
     """
     dev = resolve_device(device)
     if np.ndim(img_bgr) != 3 or np.shape(img_bgr)[-1] != 3:
         raise ValueError(f"need an (H, W, 3) BGR frame, got shape {np.shape(img_bgr)}")
     stack = frames_to_device(img_bgr, dev)[None]
     h, w = stack.shape[1:3]
-    hp, wp = pad_extents(h, w)
+    hp, wp, _, _ = pad_extents(h, w)
     lengths = [int(n) for n in psf_lengths]
     bad = [n for n in lengths if not 1 <= n <= min(hp, wp)]
     if bad:

@@ -22,7 +22,8 @@ transposed, bit-reversed layout: the multiply is elementwise, so the
 order cancels between the forward and the inverse transforms, and every
 spatial result comes back in natural order. conv(..., conj=True)
 multiplies by conj(H), the convolution with the mirrored PSF (the PSF
-is real).
+is real). At smooth extents (radices_hw) the row passes take rad_w and
+the middle rad_h, as the restore's do.
 
 The JAX package's natural-order backends (`_conv_planes_generic`) wait
 for the port's fft2d backends (ROADMAP.md A3).
@@ -41,7 +42,8 @@ from fft_restoration_tpu_torch.models.pipeline import (
 from fft_restoration_tpu_torch.ops.wiener import spectral_product
 
 
-def circular_conv_builder(psf, hp: int, wp: int, *, psf_spectrum=None, ops=KERNEL_OPS):
+def circular_conv_builder(psf, hp: int, wp: int, *, psf_spectrum=None, ops=KERNEL_OPS,
+                          radices_hw=((), ())):
     """Build conv(re, im, conj=False) circularly convolving (P, hp, wp)
     planes (re float32, im float32 with at most P planes, the missing ones
     zero, or None; any strides fft_rows takes) with the corner-anchored PSF.
@@ -50,21 +52,23 @@ def circular_conv_builder(psf, hp: int, wp: int, *, psf_spectrum=None, ops=KERNE
     psf_spectrum: the (wp, hp) spectrum planes of `psf_spectrum_planes`
     (the pipelines' cached one); computed here once when None.
     ops: KERNEL_OPS (the kernel wrappers) or PLAIN_OPS (their plain
-    versions, the reference run on the card)."""
+    versions, the reference run on the card). radices_hw: (rad_h, rad_w)
+    of smooth extents (models.pipeline.pad_extents)."""
+    rad_h, rad_w = radices_hw
     h_re, h_im = (psf_spectrum if psf_spectrum is not None
-                  else psf_spectrum_planes(psf, hp, wp, ops))
+                  else psf_spectrum_planes(psf, hp, wp, ops, radices_hw))
     scale = float(np.float32(1.0 / (hp * wp)))
     fused = hp >= FUSED_MIDDLE_MIN_N
 
     def conv(re, im, conj=False):
-        a_re, a_im = ops.fft_rows(re, im, transposed=True)
+        a_re, a_im = ops.fft_rows(re, im, transposed=True, radices=rad_w)
         if fused:
-            b_re, b_im = ops.spectral_conv_t(a_re, a_im, h_re, h_im, conj)
+            b_re, b_im = ops.spectral_conv_t(a_re, a_im, h_re, h_im, conj, rad_h)
         else:
-            g = ops.fft_rows(a_re, a_im)
+            g = ops.fft_rows(a_re, a_im, radices=rad_h)
             c_re, c_im = spectral_product(g, (h_re, h_im), conj)
-            b_re, b_im = ops.fft_rows(c_re, c_im, inverse=True, transposed=True)
-        r_re, r_im = ops.fft_rows(b_re, b_im, inverse=True)
+            b_re, b_im = ops.fft_rows(c_re, c_im, inverse=True, transposed=True, radices=rad_h)
+        r_re, r_im = ops.fft_rows(b_re, b_im, inverse=True, radices=rad_w)
         return r_re * scale, r_im * scale
 
     return conv

@@ -25,12 +25,14 @@ from fft_restoration_tpu_torch.models.pipeline import KERNEL_OPS
 from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
 
 
-def edge_taper_planes(channels, psf, live_hw, *, psf_spectrum=None, ops=KERNEL_OPS):
+def edge_taper_planes(channels, psf, live_hw, *, psf_spectrum=None, ops=KERNEL_OPS,
+                      radices_hw=((), ())):
     """Taper (C, Hp, Wp) zero-padded float32 (or uint8, converted x / 255)
     planes whose live image is the top-left live_hw = (h, w) extent.
     Returns float32 planes of the same shape, ready for the restore's
     forward FFT. psf_spectrum: the cached spectrum of `psf`
-    (models.pipeline.psf_spectrum_planes), computed here when None."""
+    (models.pipeline.psf_spectrum_planes), computed here when None.
+    radices_hw: (rad_h, rad_w) of smooth (Hp, Wp) extents."""
     if channels.ndim != 3:
         raise ValueError(f"need (C, Hp, Wp) planes, got shape {tuple(channels.shape)}")
     if channels.dtype == torch.uint8:
@@ -40,7 +42,8 @@ def edge_taper_planes(channels, psf, live_hw, *, psf_spectrum=None, ops=KERNEL_O
     wy, wx = (torch.from_numpy(v).to(channels.device)
               for v in taper_windows(h, w, hp, wp, psf.shape[-1]))
     alpha = wy[:, None] * wx[None, :]
-    conv = circular_conv_builder(psf, hp, wp, psf_spectrum=psf_spectrum, ops=ops)
+    conv = circular_conv_builder(psf, hp, wp, psf_spectrum=psf_spectrum, ops=ops,
+                                 radices_hw=radices_hw)
     if c >= 2:
         b_re, b_im = conv(channels[0::2], channels[1::2])
         blurred = unpack_pairs(b_re, b_im, c)

@@ -32,6 +32,14 @@ PSF spectrum: fft_rows (B1, real input, live rows only) then fft_rows
 (B6), in the layout the middles consume: transposed (Wp, Hp),
 bit-reversed.
 
+Pad modes (`pad_extents`): 'pow2', the reference's; 'smooth', the
+smallest odd * 2^k extents (odd in 3, 5, 9, 15), e.g. 3840x2160 at
+2304x3840 instead of 4096x4096. Every FFT launch then takes the axis'
+radices: rad_w for the row passes over Wp (B1, B3), rad_h for the
+transposed passes and the middles over Hp (B6, B2, B7). The restored
+planes depend on the pad (the blur is circular), so a smooth restore is
+verified against the oracle at the same extents (host/oracle.py pad_to).
+
 The other filters (JAX `_restore_core`, `restore_planes`):
   inverse, cls  the middle is fft_rows forward (B6), the elementwise
                 filter in torch (ops/wiener.py), then fft_rows' inverse
@@ -59,7 +67,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from fft_restoration_tpu_torch.host.padding import next_power_of_two
+from fft_restoration_tpu_torch.host.padding import next_power_of_two, next_smooth_size
 from fft_restoration_tpu_torch.ops.kernels import (
     fft_kernel,
     postprocess,
@@ -78,7 +86,7 @@ from fft_restoration_tpu_torch.ops.kernels.postprocess import (
 from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
 from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
 
-PAD_MODES = ("pow2",)
+PAD_MODES = ("pow2", "smooth")
 FILTERS = ("wiener", "inverse", "cls", "rl")
 PSF_CACHE_SIZE = 8
 # Column length (hp, the transposed row length) from which the Wiener
@@ -131,35 +139,38 @@ def resolve_device(device) -> torch.device:
 
 
 def pad_extents(h: int, w: int, pad_mode: str = "pow2"):
-    """DFT extents (hp, wp) of an (h, w) frame: the reference's pow2 pad."""
+    """DFT extents and mixed-radix levels of an (h, w) frame, as
+    (hp, wp, rad_h, rad_w): 'pow2' the reference's pad, radices ();
+    'smooth' next_smooth_size on each axis (the JAX pad_extents)."""
     if pad_mode == "smooth":
-        raise NotImplementedError(
-            "pad mode 'smooth' (mixed-radix extents) is not ported yet: "
-            "ROADMAP.md A9"
-        )
+        hp, rad_h = next_smooth_size(h)
+        wp, rad_w = next_smooth_size(w)
+        return hp, wp, rad_h, rad_w
     if pad_mode != "pow2":
         raise ValueError(f"unknown pad mode {pad_mode!r}; one of {PAD_MODES}")
-    return next_power_of_two(h), next_power_of_two(w)
+    return next_power_of_two(h), next_power_of_two(w), (), ()
 
 
-def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS):
+def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ())):
     """2D forward transform of the corner-anchored, zero-padded (hp, wp)
     PSF in the layout wiener_spectral_t consumes: (wp, hp) planes,
-    transposed, bit-reversed along both axes. Only the PSF's own rows are
-    transformed in the first pass (a row FFT of zeros is zero)."""
-    re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp))
-    h_re, h_im = ops.fft_rows(re, im)
+    transposed, bit-reversed along both axes (in residue-block order at
+    smooth extents, radices_hw = (rad_h, rad_w)). Only the PSF's own rows
+    are transformed in the first pass (a row FFT of zeros is zero)."""
+    rad_h, rad_w = radices_hw
+    re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
+    h_re, h_im = ops.fft_rows(re, im, radices=rad_h)
     return h_re[0], h_im[0]
 
 
-def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS):
+def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS, radices_hw=((), ())):
     """The CLS regularizer's spectrum: the 5-point Laplacian, corner
     anchored and wrapped, through the PSF's forward path (same layout)."""
     lap = torch.zeros((hp, wp), dtype=torch.float32, device=device)
     lap[0, 0] = 4.0
     for r, c in ((0, 1), (1, 0), (0, -1), (-1, 0)):
         lap[r, c] = -1.0
-    return psf_spectrum_planes(lap, hp, wp, ops)
+    return psf_spectrum_planes(lap, hp, wp, ops, radices_hw)
 
 
 def psf_spectrum_from_numpy(h_re, h_im, device):
@@ -185,28 +196,31 @@ def minmax_norm(mm, n_pairs, c):
     return lo, torch.where(hi > lo, 1.0 / (hi - lo), torch.zeros_like(hi))
 
 
-def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=None):
+def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=None,
+                    radices=()):
     """(P, Wp, Hp) row-FFT'd transposed planes -> (P, Hp, Wp) filtered,
     column-inverted planes. Wiener: B2 when Hp >= FUSED_MIDDLE_MIN_N, else
     B7 then the inverse row pass with transposed store. inverse / cls:
     the forward column pass (B6), the elementwise filter (cls with the
-    Laplacian spectrum `lap`), the inverse pass with transposed store."""
+    Laplacian spectrum `lap`), the inverse pass with transposed store.
+    radices: those of Hp."""
     if filter_name == "wiener":
         if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
-            return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K)
-        f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K)
+            return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K, radices)
+        f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K, radices)
     else:
-        g = ops.fft_rows(a_re, a_im)
+        g = ops.fft_rows(a_re, a_im, radices=radices)
         if filter_name == "inverse":
             f_re, f_im = inverse_filter(g, H)
         elif filter_name == "cls":
             f_re, f_im = cls_filter(g, H, lap, K)
         else:
             raise ValueError(f"no spectral middle for filter {filter_name!r}")
-    return ops.fft_rows(f_re, f_im, inverse=True, transposed=True)
+    return ops.fft_rows(f_re, f_im, inverse=True, transposed=True, radices=radices)
 
 
-def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", lap=None):
+def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", lap=None,
+                pad_mode="pow2"):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     raw unscaled restored planes (2P, Hp, Wp), image i's channels at
     planes 3i..3i+2, and their per-plane normalize (lo, scale), (3B,).
@@ -214,10 +228,11 @@ def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", la
     (a PSF sweep restores one image under many PSFs; the edge taper
     transforms its tapered planes)."""
     b, h, w, c = stack.shape
+    hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     if rows is None:
-        rows = ops.fft_rows_stack(stack, extent=pad_extents(h, w))
-    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap)
-    raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True)
+        rows = ops.fft_rows_stack(stack, extent=(hp, wp), radices=rad_w)
+    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap, rad_h)
+    raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
     lo, scale = minmax_norm(mm, rows[0].shape[0], b * c)
     return raw, lo, scale
 
@@ -257,7 +272,7 @@ def encode_planar(planes, orig, white_balance):
 
 def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
                   filter_name="wiener", psf=None, lap=None, rl_iters=10, edgetaper=False,
-                  encode=True, ops=KERNEL_OPS):
+                  encode=True, pad_mode="pow2", ops=KERNEL_OPS):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     ((B, h, w, 3) uint8 restored stack, (B, 3, h, w) float32 planes or
     None). Per-image white balance: the gains' means are over the same
@@ -265,9 +280,10 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     psf: the (S, S) PSF whose spectrum H is (for 'rl' and edgetaper);
     lap: the Laplacian spectrum (for 'cls', laplacian_spectrum).
     encode=False (with emit_planes and no white balance): only the
-    planes, the uint8 stack is None."""
+    planes, the uint8 stack is None. pad_mode: 'pow2' or 'smooth', the
+    extents of H too."""
     b, h, w, _ = stack.shape
-    hp, wp = pad_extents(h, w)
+    hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     rows = None
     if edgetaper or filter_name == "rl":
         # imported here: both modules import this one
@@ -276,16 +292,18 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
 
         flat = padded_planes(stack, hp, wp)
         if edgetaper:
-            flat = edge_taper_planes(flat, psf, (h, w), psf_spectrum=H, ops=ops)
+            flat = edge_taper_planes(flat, psf, (h, w), psf_spectrum=H, ops=ops,
+                                     radices_hw=(rad_h, rad_w))
         if filter_name == "rl":
-            x = richardson_lucy_planes(flat, psf, rl_iters, psf_spectrum=H, ops=ops)
+            x = richardson_lucy_planes(flat, psf, rl_iters, psf_spectrum=H, ops=ops,
+                                       radices_hw=(rad_h, rad_w))
             planes = x.reshape(b, -1, hp, wp)[..., :h, :w]
             out = (encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance)
                    if encode else None)
             return out, (planes if emit_planes else None)
         # every row: the taper fills the pad rows with the blur's wrap tail
-        rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True)
-    raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap)
+        rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True, radices=rad_w)
+    raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap, pad_mode)
     planes = None
     if emit_planes or not white_balance:
         planes = normalized_planes(raw, lo, scale, b, h, w)
@@ -332,26 +350,34 @@ class _CachedPsfPipeline:
         self.device = resolve_device(device)
         if filter_name not in FILTERS:
             raise ValueError(f"unknown filter {filter_name!r}; one of {FILTERS}")
-        pad_extents(1, 1, pad_mode)  # raises for modes not ported
+        pad_extents(1, 1, pad_mode)  # raises for an unknown mode
         if wb_stats_stride < 1:
             raise ValueError(f"wb_stats_stride must be >= 1, got {wb_stats_stride}")
         if psf_type not in PSF_TYPES:
             raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")
         self.filter_name = filter_name
+        self.pad_mode = pad_mode
         self.white_balance = white_balance
         self.emit_planes = emit_planes
         self.wb_stats_stride = wb_stats_stride
         self.psf_type = psf_type
         self.rl_iters = int(rl_iters)
         self.edgetaper = bool(edgetaper)
-        # (psf, spectrum) keyed on (hp, wp, length, angle), oldest evicted
-        # first: a spectrum is 2 * hp * wp float32 (33.5 MB at 2048^2)
+        # (psf, spectrum) keyed on (hp, wp, rad_h, rad_w, length, angle),
+        # oldest evicted first: a spectrum is 2 * hp * wp float32 (33.5 MB
+        # at 2048^2)
         self._psf_cache = {}
-        # CLS's Laplacian spectrum for the last (hp, wp), in a slot of its own
+        # CLS's Laplacian spectrum for the last pad, in a slot of its own
         self._lap = (None, None)
 
+    def pad(self, h: int, w: int):
+        """(hp, wp, rad_h, rad_w) of an (h, w) frame in this pipeline's
+        pad mode: the one source of the extents its restores, spectra
+        and caches use."""
+        return pad_extents(h, w, self.pad_mode)
+
     def _check_psf_fits(self, h: int, w: int, psf_length: int) -> None:
-        hp, wp = pad_extents(h, w)
+        hp, wp, _, _ = self.pad(h, w)
         if not 1 <= psf_length <= min(hp, wp):
             raise ValueError(
                 f"PSF length {psf_length} outside [1, {min(hp, wp)}] for the "
@@ -365,29 +391,31 @@ class _CachedPsfPipeline:
 
     def _psf_spectrum(self, h: int, w: int, psf_length: int, angle: float):
         """Cached (psf, (H_re, H_im)) for an (h, w) frame."""
-        hp, wp = pad_extents(h, w)
-        key = (hp, wp, int(psf_length), float(angle))
+        pad = self.pad(h, w)
+        key = (*pad, int(psf_length), float(angle))
         if key not in self._psf_cache:
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-            self._remember(key, (psf, psf_spectrum_planes(psf, hp, wp)))
+            self._remember(key, (psf, psf_spectrum_planes(psf, *pad[:2], radices_hw=pad[2:])))
         return self._psf_cache[key]
 
     def _laplacian_spectrum(self, h: int, w: int):
-        hw = pad_extents(h, w)
-        if self._lap[0] != hw:
-            self._lap = (hw, laplacian_spectrum(*hw, self.device))
+        pad = self.pad(h, w)
+        if self._lap[0] != pad:
+            self._lap = (pad, laplacian_spectrum(*pad[:2], self.device, radices_hw=pad[2:]))
         return self._lap[1]
 
     def load_psf_spectrum(self, h, w, psf_length, angle, planes):
         """Put a spectrum computed elsewhere — e.g. the JAX package's
         psf_spectrum_planes(..., engine="roll") — into the cache for
-        frames of size (h, w); see psf_spectrum_from_numpy."""
-        hp, wp = pad_extents(h, w)
+        frames of size (h, w) in this pipeline's pad mode (at smooth extents
+        a JAX spectrum with the same radices); see psf_spectrum_from_numpy."""
+        pad = self.pad(h, w)
+        hp, wp = pad[:2]
         H = psf_spectrum_from_numpy(planes[0], planes[1], self.device)
         if H[0].shape != (wp, hp) or H[1].shape != (wp, hp):
             raise ValueError(f"spectrum planes must be ({wp}, {hp}), got {tuple(H[0].shape)}")
         psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-        self._remember((hp, wp, int(psf_length), float(angle)), (psf, H))
+        self._remember((*pad, int(psf_length), float(angle)), (psf, H))
 
     def _restore(self, stack, psf_length, psf_angle, K, **over):
         """restore_stack on a device stack with this pipeline's options
@@ -401,7 +429,7 @@ class _CachedPsfPipeline:
         return restore_stack(
             stack, H, float(K), filter_name=self.filter_name, psf=psf,
             lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
-            rl_iters=self.rl_iters, edgetaper=self.edgetaper, **opts,
+            rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode, **opts,
         )
 
 
@@ -418,6 +446,8 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     planes, restore_with_planes()/restore_channels() then raise.
     wb_stats_stride > 1 samples every stride-th 8-row stripe for the
     white-balance means (the CLI uses 1, serving 4; not used by 'rl').
+    pad_mode: 'pow2' (the reference's extents) or 'smooth' (the mixed-radix
+    extents, e.g. 2304x3840 for 3840x2160; see pad_extents).
     """
 
     def __init__(

@@ -37,18 +37,20 @@ from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
 
 
 def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-6,
-                           psf_spectrum=None, ops=KERNEL_OPS):
+                           psf_spectrum=None, ops=KERNEL_OPS, radices_hw=((), ())):
     """RL-deconvolve (C, Hp, Wp) padded planes (float32 in [0, 1], or
     uint8 converted by exact division x / 255) with the (S, S) PSF.
     Returns float32 planes clipped to [0, 1] (not min-max normalized: RL
     preserves flux, and a stretch would let the boundary-ringing spikes
-    darken the whole frame)."""
+    darken the whole frame). radices_hw: (rad_h, rad_w) of smooth (Hp, Wp)
+    extents."""
     if channels.ndim != 3:
         raise ValueError(f"need (C, Hp, Wp) planes, got shape {tuple(channels.shape)}")
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
     c, hp, wp = channels.shape
-    conv = circular_conv_builder(psf, hp, wp, psf_spectrum=psf_spectrum, ops=ops)
+    conv = circular_conv_builder(psf, hp, wp, psf_spectrum=psf_spectrum, ops=ops,
+                                 radices_hw=radices_hw)
     if c >= 2:
         y_re, y_im = pack_pairs(channels)
     else:

@@ -6,7 +6,9 @@ CUDA tensor it launches the kernel or raises — there is no fallback.
 
 `launch_counts` counts launches per kernel: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the
-main path went through the kernels.
+main path went through the kernels. "mixed_radix" counts the launches of
+the CUDA kernels' instances with cross-DFT levels (B-mixed, a smooth
+length), on top of the count of the kernel launched.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 KERNELS = (
     "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
-    "lab_l_sum_partials", "wb_encode_u8",
+    "lab_l_sum_partials", "wb_encode_u8", "mixed_radix",
 )
 
 launch_counts: Counter = Counter()

@@ -35,25 +35,29 @@ LL = ctypes.c_longlong
 F = ctypes.c_float
 
 # argtypes of each C entry point (csrc/*.cu); every entry returns the
-# cudaError_t of its launch
+# cudaError_t of its launch. CROSS: one direction's cross levels (levels,
+# host int32 radices, host float32 coefficients, device cos and sin
+# planes; levels 0 and null pointers for a pow2 length), from
+# fft_kernel.cross_args
+CROSS = [I, P, P, P, P]
 SIGNATURES = {
     # src_re, src_im, in_u8, image stride, channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows,
-    # live_cols, P, M, N, log2n, rows_per_block, out_re, out_im, minmax,
-    # store, inverse, cos, sin, stream
+    # live_cols, P, M, N, stages, rows_per_block, out_re, out_im, minmax,
+    # store, inverse, cos, sin, CROSS, stream
     "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                        I, I, I, P, P, P, I, I, P, P, P],
-    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, log2n,
-    # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
+                        I, I, I, P, P, P, I, I, P, P, *CROSS, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
+    # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
-                                 P, P, P, P, P],
-    # a_re, a_im, h_re, h_im, conj, out_re, out_im, P, M, N, log2n,
-    # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
+                                 P, P, P, P, *CROSS, *CROSS, P],
+    # a_re, a_im, h_re, h_im, conj, out_re, out_im, P, M, N, stages,
+    # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
     "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I,
-                               P, P, P, P, P],
-    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, log2n,
-    # rows_per_block, cos_f, sin_f, stream
-    "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P],
+                               P, P, P, P, *CROSS, *CROSS, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
+    # rows_per_block, cos_f, sin_f, CROSS fwd, stream
+    "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, *CROSS, P],
 }
 
 # nvcc's output of the last build in this process (ptxas register report)

@@ -13,6 +13,15 @@ transform is DIF (natural in, bit-reversed out), the inverse DIT
 the JAX package's engine="roll" semantics, so spectra are in plain
 bit-reversed order — not the TPU MXU engine's "hybrid" order.
 
+Mixed radix (`radices`, the --pad smooth extents): a row of n =
+prod(radices) * 2^k points first runs one cross-DFT level per odd radix
+(3 or 5), each an r-point DFT across the row's q-wide sub-blocks and a
+four-step twiddle plane (the JAX _mixed_cross_fwd), then the DIF stages
+over the pow2 tail; the inverse runs the DIT stages, then the levels
+innermost first (_mixed_cross_inv). The spectrum is then in residue-block
+order, bit-reversed inside each block: diff it only against the JAX
+engine="roll" with the same radices.
+
 `fft_rows_stack` is B1 over a (B, h, w, C) image stack: the kernel's
 loader maps logical plane q to image q // C, channel q % C, so channel
 pairs straddle images (the JAX batched graph's (B*3, hp, wp) packing)
@@ -46,10 +55,13 @@ MAX_KERNEL_N = 16384
 
 
 @functools.lru_cache(maxsize=None)
-def _twiddle_planes_np(n: int, inverse: bool) -> tuple:
+def _twiddle_planes_np(n: int, inverse: bool, q: int | None = None) -> tuple:
     """(S, N) cos/sin planes; lane j of stage s = w_{L}^{j mod L/2},
-    L = 2^{s+1}, computed in float64 (copied from the JAX package)."""
-    stages = n.bit_length() - 1
+    L = 2^{s+1}, computed in float64 (copied from the JAX package).
+    q: only the log2(q) stages of the pow2 tail of an n = prod(radices)
+    * q transform; L divides q divides n, so the width-n planes serve
+    the q-local butterflies of every q-block."""
+    stages = (q or n).bit_length() - 1
     sign = 1.0 if inverse else -1.0
     cos = np.empty((stages, n), np.float32)
     sin = np.empty((stages, n), np.float32)
@@ -64,10 +76,11 @@ def _twiddle_planes_np(n: int, inverse: bool) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _half_masks_np(n: int) -> np.ndarray:
+def _half_masks_np(n: int, q: int | None = None) -> np.ndarray:
     """(S, N) float32 mask: 1.0 where lane j is in the first half of its
-    stage-s butterfly block, else 0.0 (copied from the JAX package)."""
-    stages = n.bit_length() - 1
+    stage-s butterfly block, else 0.0 (copied from the JAX package).
+    q: the pow2 tail of a mixed-radix n (see _twiddle_planes_np)."""
+    stages = (q or n).bit_length() - 1
     j = np.arange(n)
     out = np.empty((stages, n), np.float32)
     for s in range(stages):
@@ -77,13 +90,122 @@ def _half_masks_np(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def tables(n: int, inverse: bool, device: torch.device) -> tuple:
-    """(cos, sin, mask) stage tables as float32 tensors on `device`,
-    uploaded once per (n, inverse, device)."""
-    cos, sin = _twiddle_planes_np(n, inverse)
-    return tuple(
-        torch.from_numpy(a).to(device) for a in (cos, sin, _half_masks_np(n))
-    )
+def _cross_planes_np(n: int, radices: tuple, inverse: bool) -> tuple:
+    """(L, N) cos/sin twiddle planes of the mixed-radix cross-DFT levels
+    (copied from the JAX package). Level l splits each w-wide block
+    (w = n / prod(radices[:l])) into r = radices[l] sub-blocks of width
+    q = w / r; the four-step twiddle of output sub-block k1, lane offset
+    j2 is W_w^{k1*j2}: as a width-n plane tw[j] = W_w^{((j mod w) // q) *
+    (j mod q)}."""
+    sign = 1.0 if inverse else -1.0
+    cos = np.empty((len(radices), n), np.float32)
+    sin = np.empty((len(radices), n), np.float32)
+    j = np.arange(n, dtype=np.int64)
+    w = n
+    for lvl, r in enumerate(radices):
+        q = w // r
+        k1 = (j % w) // q
+        j2 = j % q
+        ang = sign * 2.0 * math.pi * (k1 * j2).astype(np.float64) / w
+        cos[lvl] = np.cos(ang).astype(np.float32)
+        sin[lvl] = np.sin(ang).astype(np.float32)
+        w = q
+    return cos, sin
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_coefs_np(r: int, inverse: bool) -> tuple:
+    """The r-point DFT's coefficients W_r^{sign*m}, m < r, as float32 of
+    float64 angles (the JAX _cross_dft_level's np.float32(math.cos(ang)))."""
+    sign = 1.0 if inverse else -1.0
+    angs = [sign * 2.0 * math.pi * m / r for m in range(r)]
+    return (np.array([math.cos(a) for a in angs], np.float32),
+            np.array([math.sin(a) for a in angs], np.float32))
+
+
+def _mixed_q(n: int, radices: tuple) -> int:
+    """Validate an n = prod(radices) * q mixed-radix split; return the
+    pow2 tail q (the JAX package's errors)."""
+    q = n
+    for r in radices:
+        if r < 2 or q % r:
+            raise ValueError(
+                f"radices {radices} do not divide the transform length {n}"
+            )
+        q //= r
+    if q < 2 or q & (q - 1):
+        raise ValueError(
+            f"mixed-radix length {n} / radices {radices} leaves a "
+            f"non-power-of-two tail {q}"
+        )
+    return q
+
+
+def check_length(n: int, radices: tuple = ()) -> int:
+    """The radix-2 stage count of a length-n transform: log2(n) for a
+    power of two (radices ()), log2(q) for n = prod(radices) * q."""
+    if radices:
+        return _mixed_q(n, tuple(radices)).bit_length() - 1
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"power-of-two transform length >= 2 required, got {n}")
+    return n.bit_length() - 1
+
+
+class Tables(NamedTuple):
+    """Stage tables (S, N) and, for radices, cross planes (L, N)."""
+
+    cos: torch.Tensor
+    sin: torch.Tensor
+    mask: torch.Tensor
+    xcos: torch.Tensor | None
+    xsin: torch.Tensor | None
+
+
+@functools.lru_cache(maxsize=None)
+def tables(n: int, inverse: bool, device: torch.device, radices: tuple = ()) -> Tables:
+    """Float32 tables on `device`, uploaded once per (n, inverse, device,
+    radices): the stage planes over the pow2 tail and the cross planes."""
+    q = _mixed_q(n, radices) if radices else None
+    cos, sin = _twiddle_planes_np(n, inverse, q)
+    xcos, xsin = _cross_planes_np(n, radices, inverse) if radices else (None, None)
+    return Tables(*(None if a is None else torch.from_numpy(a).to(device)
+                    for a in (cos, sin, _half_masks_np(n, q), xcos, xsin)))
+
+
+# the CUDA kernels' cross levels: radices 3 and 5, at most two levels
+# (csrc/fft_common.cuh MAX_CROSS_LEVELS): the smooth pads' odd factors 3,
+# 5, 9 and 15. The plain versions take any radices, as the JAX package.
+KERNEL_RADICES = (3, 5)
+MAX_CROSS_LEVELS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _cross_plan_host(radices: tuple, inverse: bool) -> tuple:
+    """(levels, int32 radix array, float32 coefficient array) for the C
+    entries: per level 5 cos then 5 sin values of _cross_coefs_np."""
+    if len(radices) > MAX_CROSS_LEVELS or any(r not in KERNEL_RADICES for r in radices):
+        raise ValueError(
+            f"the CUDA kernels take up to {MAX_CROSS_LEVELS} cross levels of radix "
+            f"{KERNEL_RADICES}, got radices {radices}"
+        )
+    rad = np.zeros(MAX_CROSS_LEVELS, np.int32)
+    coef = np.zeros((MAX_CROSS_LEVELS, 2, 5), np.float32)
+    for lvl, r in enumerate(radices):
+        rad[lvl] = r
+        coef[lvl, 0, :r], coef[lvl, 1, :r] = _cross_coefs_np(r, inverse)
+    return len(radices), rad, coef
+
+
+def cross_args(n: int, radices: tuple, inverse: bool, device) -> tuple:
+    """The five C arguments of one direction's cross levels: levels, host
+    pointers to the radices and coefficients (kept alive by the cache),
+    device pointers to the (L, n) twiddle planes (0 without radices)."""
+    levels, rad, coef = _cross_plan_host(tuple(radices), bool(inverse))
+    if not levels:
+        return 0, None, None, None, None
+    t = tables(n, bool(inverse), device, tuple(radices))
+    return (levels, rad.ctypes.data, coef.ctypes.data, t.xcos.data_ptr(),
+            t.xsin.data_ptr())
 
 
 def rows_per_block(n: int, m: int) -> int:
@@ -99,12 +221,6 @@ def check_kernel_length(n: int) -> None:
             f"transform length {n} exceeds the kernels' shared-memory row "
             f"limit of {MAX_KERNEL_N} points"
         )
-
-
-def _check_pow2(n: int) -> int:
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"power-of-two transform length >= 2 required, got {n}")
-    return n.bit_length() - 1
 
 
 # ---------------------------------------------------------------------------
@@ -133,16 +249,84 @@ def _dit_stage(x_re, x_im, wc, ws, m, half):
     )
 
 
-def run_stages(x_re, x_im, inverse: bool):
-    """All radix-2 stages over the last axis: DIF (forward) or DIT
-    (inverse), with the tables of the tensors' device."""
+def _cross_dft_level(x_re, x_im, r, w, inverse):
+    """r-point DFT across the q-wide sub-blocks (q = w / r) of every
+    w-wide block of the last axis:
+        out[.., base + k1*q + j2] = sum_j1 x[.., base + j1*q + j2] * W_r^{sign*k1*j1},
+    in the JAX package's order (j1 ascending, an exact-1 coefficient
+    skipped)."""
+    shape = x_re.shape
+    q = w // r
+    blocks = shape[:-1] + (shape[-1] // w, r, q)
+    x_re, x_im = x_re.reshape(blocks), x_im.reshape(blocks)
+    c, s = _cross_coefs_np(r, inverse)
+    outs_re, outs_im = [], []
+    for k1 in range(r):
+        acc_re = acc_im = None
+        for j1 in range(r):
+            sr, si = x_re[..., j1, :], x_im[..., j1, :]
+            m = (k1 * j1) % r
+            if m == 0:  # coefficient is exactly 1
+                t_re, t_im = sr, si
+            else:
+                cm, sm = float(c[m]), float(s[m])
+                t_re = cm * sr - sm * si
+                t_im = cm * si + sm * sr
+            acc_re = t_re if acc_re is None else acc_re + t_re
+            acc_im = t_im if acc_im is None else acc_im + t_im
+        outs_re.append(acc_re)
+        outs_im.append(acc_im)
+    return torch.stack(outs_re, -2).reshape(shape), torch.stack(outs_im, -2).reshape(shape)
+
+
+def _twiddle(x_re, x_im, tc, ts):
+    return x_re * tc - x_im * ts, x_re * ts + x_im * tc
+
+
+def _mixed_cross_fwd(x_re, x_im, radices, xc, xs):
+    """Forward mixed-radix prefix: per level, outermost first, the cross
+    r-DFT then the level's twiddle plane. Each q-wide block is then an
+    independent q-point problem for the DIF stages; the spectrum comes out
+    in residue-block order, bit-reversed inside each block (cancelled by
+    the symmetric inverse, like revorder's bit reversal)."""
+    w = x_re.shape[-1]
+    for lvl, r in enumerate(radices):
+        x_re, x_im = _cross_dft_level(x_re, x_im, r, w, inverse=False)
+        x_re, x_im = _twiddle(x_re, x_im, xc[lvl], xs[lvl])
+        w //= r
+    return x_re, x_im
+
+
+def _mixed_cross_inv(x_re, x_im, radices, xc, xs):
+    """Inverse mixed-radix suffix: levels innermost first, each the
+    (conjugate) twiddle plane then the conj-coefficient cross r-DFT.
+    Unscaled: fwd then inv gains r per level (times q) = n."""
+    widths = [x_re.shape[-1]]
+    for r in radices[:-1]:
+        widths.append(widths[-1] // r)
+    for lvl in range(len(radices) - 1, -1, -1):
+        x_re, x_im = _twiddle(x_re, x_im, xc[lvl], xs[lvl])
+        x_re, x_im = _cross_dft_level(x_re, x_im, radices[lvl], widths[lvl], inverse=True)
+    return x_re, x_im
+
+
+def run_stages(x_re, x_im, inverse: bool, radices: tuple = ()):
+    """The transform over the last axis: forward = the cross levels (for
+    radices) then the DIF stages over the pow2 tail; inverse = the DIT
+    stages then the inverse cross levels (the JAX _run_stages), with the
+    tables of the tensors' device."""
     n = x_re.shape[-1]
-    stages = _check_pow2(n)
-    cos, sin, mask = tables(n, inverse, x_re.device)
+    radices = tuple(radices)
+    stages = check_length(n, radices)
+    t = tables(n, bool(inverse), x_re.device, radices)
+    if radices and not inverse:
+        x_re, x_im = _mixed_cross_fwd(x_re, x_im, radices, t.xcos, t.xsin)
     order = range(stages) if inverse else range(stages - 1, -1, -1)
     stage = _dit_stage if inverse else _dif_stage
     for s in order:
-        x_re, x_im = stage(x_re, x_im, cos[s], sin[s], mask[s], 1 << s)
+        x_re, x_im = stage(x_re, x_im, t.cos[s], t.sin[s], t.mask[s], 1 << s)
+    if radices and inverse:
+        x_re, x_im = _mixed_cross_inv(x_re, x_im, radices, t.xcos, t.xsin)
     return x_re, x_im
 
 
@@ -157,7 +341,7 @@ def _logical(x, planes, extent):
     return out
 
 
-def _check_planes(re, im, extent):
+def _check_planes(re, im, extent, radices):
     if re.ndim != 3:
         raise ValueError(f"need (P, M, N) planes, got shape {tuple(re.shape)}")
     if re.dtype not in (torch.uint8, torch.float32):
@@ -171,25 +355,25 @@ def _check_planes(re, im, extent):
     big_m, big_n = extent if extent is not None else re.shape[1:]
     if big_m < 1:
         raise ValueError(f"plane height must be >= 1, got {big_m}")
-    _check_pow2(big_n)
+    check_length(big_n, radices)
     return int(big_m), int(big_n)
 
 
-def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None):
+def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=()):
     """Plain version of `fft_rows` (same signature and layout)."""
-    big_m, big_n = _check_planes(re, im, extent)
+    big_m, big_n = _check_planes(re, im, extent, radices)
     planes = re.shape[0]
     x_re = _logical(re, planes, (big_m, big_n))
     x_im = (
         torch.zeros_like(x_re) if im is None else _logical(im, planes, (big_m, big_n))
     )
-    x_re, x_im = run_stages(x_re, x_im, inverse)
+    x_re, x_im = run_stages(x_re, x_im, inverse, radices)
     if transposed:
         return x_re.transpose(1, 2).contiguous(), x_im.transpose(1, 2).contiguous()
     return x_re, x_im
 
 
-def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None):
+def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radices=()):
     """Row FFT over the last axis of (P, m, n) planes (B1/B6).
 
     re, im: uint8 or float32 planes of any strides (im with re's strides);
@@ -201,11 +385,13 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None):
     are zero (the pow2 pad), and only the live rows are transformed.
     Returns float32 (re, im) of shape (P, N, M) if transposed else
     (P, M, N). Forward = DIF (bit-reversed out), inverse = DIT
-    (bit-reversed in), unscaled.
+    (bit-reversed in), unscaled. radices: the odd cross-DFT radices of a
+    smooth N = prod(radices) * 2^k (module docstring), () for a pow2 N.
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
-        return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent)
-    big_m, big_n = _check_planes(re, im, extent)
+        return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
+                              radices=radices)
+    big_m, big_n = _check_planes(re, im, extent, radices)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
     rows = rows_per_block(big_n, big_m)
@@ -223,11 +409,12 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None):
         re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
         0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n,
         rows, out_re, out_im, None, STORE_T if transposed else STORE_NATURAL, inverse,
+        radices,
     )
     return out_re, out_im
 
 
-def _check_stack(stack, extent):
+def _check_stack(stack, extent, radices):
     if stack.ndim != 4:
         raise ValueError(f"need a (B, h, w, C) stack, got shape {tuple(stack.shape)}")
     if stack.dtype not in (torch.uint8, torch.float32):
@@ -236,7 +423,7 @@ def _check_stack(stack, extent):
     big_m, big_n = extent
     if not (1 <= h <= big_m and 1 <= w <= big_n) or b < 1 or c < 1:
         raise ValueError(f"stack {tuple(stack.shape)} does not fit the extent {extent}")
-    _check_pow2(big_n)
+    check_length(big_n, radices)
     return int(big_m), int(big_n)
 
 
@@ -251,14 +438,14 @@ def stack_pairs_plain(stack):
     return planes[0::2], planes[1::2]
 
 
-def fft_rows_stack_plain(stack, *, extent):
+def fft_rows_stack_plain(stack, *, extent, radices=()):
     """Plain version of `fft_rows_stack` (same signature and layout)."""
-    big_m, big_n = _check_stack(stack, extent)
+    big_m, big_n = _check_stack(stack, extent, radices)
     re, im = stack_pairs_plain(stack)
-    return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n))
+    return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n), radices=radices)
 
 
-def fft_rows_stack(stack, *, extent):
+def fft_rows_stack(stack, *, extent, radices=()):
     """Forward row FFT of a (B, h, w, C) uint8/float32 image stack of any
     strides, channel pairs packed across images (B1, stack loader).
 
@@ -268,11 +455,11 @@ def fft_rows_stack(stack, *, extent):
     transform size (rows >= h and columns >= w are zero; only live rows
     are transformed). Returns float32 (re, im) of shape (ceil(B*C/2), N,
     M), transposed, bit-reversed along N, as `fft_rows(...,
-    transposed=True)` gives for the same planes.
+    transposed=True)` gives for the same planes (radices as there).
     """
     if not on_cuda(stack):
-        return fft_rows_stack_plain(stack, extent=extent)
-    big_m, big_n = _check_stack(stack, extent)
+        return fft_rows_stack_plain(stack, extent=extent, radices=radices)
+    big_m, big_n = _check_stack(stack, extent, radices)
     b, h, w, c = stack.shape
     n_planes = b * c
     pairs = -(-n_planes // 2)
@@ -283,17 +470,17 @@ def fft_rows_stack(stack, *, extent):
     bs, rs, cs, chs = stack.stride()
     _launch(
         stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
-        h, w, big_m, big_n, rows, out_re, out_im, None, STORE_T, False,
+        h, w, big_m, big_n, rows, out_re, out_im, None, STORE_T, False, radices,
     )
     return out_re, out_im
 
 
-def fft_rows_packed_out_plain(re, im, *, inverse=True):
+def fft_rows_packed_out_plain(re, im, *, inverse=True, radices=()):
     """Plain version of `fft_rows_packed_out`."""
-    _check_contiguous_pair(re, im)
+    _check_contiguous_pair(re, im, radices)
     planes, big_m, big_n = re.shape
     rows = rows_per_block(big_n, big_m)
-    x_re, x_im = run_stages(re, im, inverse)
+    x_re, x_im = run_stages(re, im, inverse, radices)
     out = torch.stack([x_re, x_im], dim=1).reshape(2 * planes, big_m, big_n)
     blk_re = x_re.reshape(planes, big_m // rows, rows * big_n)
     blk_im = x_im.reshape(planes, big_m // rows, rows * big_n)
@@ -303,36 +490,37 @@ def fft_rows_packed_out_plain(re, im, *, inverse=True):
     return out, mm.reshape(-1, 4)
 
 
-def _check_contiguous_pair(re, im):
+def _check_contiguous_pair(re, im, radices):
     if re.ndim != 3 or re.shape != im.shape:
         raise ValueError(f"need matching (P, M, N) planes, got {tuple(re.shape)}")
     if re.dtype != torch.float32 or im.dtype != torch.float32:
         raise ValueError("planes must be float32")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("planes must be contiguous")
-    _check_pow2(re.shape[-1])
+    check_length(re.shape[-1], radices)
     m = re.shape[-2]
     if m % rows_per_block(re.shape[-1], m):
         raise ValueError(f"plane height {m} must be a multiple of the row block")
 
 
-def fft_rows_packed_out(re, im, *, inverse=True):
+def fft_rows_packed_out(re, im, *, inverse=True, radices=()):
     """Row FFT of contiguous float32 (P, M, N) planes that writes ONE
     (2P, M, N) output, re at plane 2p and im at plane 2p+1 (the channel
     unpack of a packed-pair restore), plus per-block
     [min_re, max_re, min_im, max_im] partials of shape
     (P * M / rows_per_block(N, M), 4), block-major within each plane (B3).
+    radices as in `fft_rows`.
     """
     if not on_cuda(re, im):
-        return fft_rows_packed_out_plain(re, im, inverse=inverse)
-    _check_contiguous_pair(re, im)
+        return fft_rows_packed_out_plain(re, im, inverse=inverse, radices=radices)
+    _check_contiguous_pair(re, im, radices)
     planes, big_m, big_n = re.shape
     rows = rows_per_block(big_n, big_m)
     out = torch.empty((2 * planes, big_m, big_n), dtype=torch.float32, device=re.device)
     mm = torch.empty((planes * (big_m // rows), 4), dtype=torch.float32, device=re.device)
     ps, rs, cs = re.stride()
     _launch(re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes, planes, big_m, big_n,
-            big_m, big_n, rows, out, out, mm, STORE_PACKED, inverse)
+            big_m, big_n, rows, out, out, mm, STORE_PACKED, inverse, radices)
     return out, mm
 
 
@@ -351,23 +539,28 @@ class PlaneMap(NamedTuple):
 
 
 def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, rows,
-            out_re, out_im, mm, store, inverse):
+            out_re, out_im, mm, store, inverse, radices):
     """One fft_rows launch over re_live pairs (every re plane is live; the
     first im_live im planes are)."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     check_kernel_length(big_n)
+    radices = tuple(radices)
+    stages = check_length(big_n, radices)
+    cross = cross_args(big_n, radices, bool(inverse), re.device)
     lib = _build.load()
-    cos, sin, _ = tables(big_n, bool(inverse), re.device)
+    t = tables(big_n, bool(inverse), re.device, radices)
     stream = torch.cuda.current_stream(re.device).cuda_stream
     err = lib.fft_rows_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
         int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
         pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
-        live_rows, live_cols, re_live, big_m, big_n, big_n.bit_length() - 1,
+        live_rows, live_cols, re_live, big_m, big_n, stages,
         rows, out_re.data_ptr(), out_im.data_ptr(),
         None if mm is None else mm.data_ptr(), store, int(bool(inverse)),
-        cos.data_ptr(), sin.data_ptr(), stream,
+        t.cos.data_ptr(), t.sin.data_ptr(), *cross, stream,
     )
     _build.check(err, "fft_rows")
     launch_counts["fft_rows"] += 1
+    if radices:
+        launch_counts["mixed_radix"] += 1

@@ -14,6 +14,8 @@ in csrc/wiener_spectral.cu:
      filter only, natural store; `fft_rows(..., inverse=True,
      transposed=True)` then finishes the middle. The pipeline takes it
      when the column length is below 512 (models/pipeline.py).
+Every function takes `radices` (a smooth column length, the cross levels
+of ops/kernels/fft_kernel.py around its DIF and DIT stages).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import torch
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
 from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
     check_kernel_length,
+    check_length,
+    cross_args,
     rows_per_block,
     run_stages,
     tables,
@@ -30,7 +34,8 @@ from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
 from fft_restoration_tpu_torch.ops.wiener import spectral_product, wiener_filter
 
 
-def _check(a_re, a_im, h_re, h_im):
+def _check(a_re, a_im, h_re, h_im, radices):
+    """Validate the operands; returns the radix-2 stage count of N."""
     if a_re.ndim != 3 or a_im.shape != a_re.shape:
         raise ValueError(f"need matching (P, M, N) planes, got {tuple(a_re.shape)}")
     if h_re.shape != a_re.shape[1:] or h_im.shape != h_re.shape:
@@ -41,19 +46,19 @@ def _check(a_re, a_im, h_re, h_im):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("planes and spectrum must be contiguous float32")
     m, n = h_re.shape
-    if n < 2 or n & (n - 1):
-        raise ValueError(f"power-of-two length required, got {n}")
+    stages = check_length(n, radices)
     if m % rows_per_block(n, m):
         raise ValueError(f"plane height {m} must be a multiple of the row block")
+    return stages
 
 
-def fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K):
+def fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K, radices=()):
     """Plain version of `fwd_wiener_rows` (same signature and layout)."""
-    _check(a_re, a_im, h_re, h_im)
-    return wiener_filter(run_stages(a_re, a_im, inverse=False), (h_re, h_im), K)
+    _check(a_re, a_im, h_re, h_im, radices)
+    return wiener_filter(run_stages(a_re, a_im, False, radices), (h_re, h_im), K)
 
 
-def fwd_wiener_rows(a_re, a_im, h_re, h_im, K):
+def fwd_wiener_rows(a_re, a_im, h_re, h_im, K, radices=()):
     """wiener(rowFFT(A), H): the forward DIF pass over the last axis fused
     with F = G * conj(H) / (|H|^2 + K), stored in natural order.
 
@@ -63,86 +68,99 @@ def fwd_wiener_rows(a_re, a_im, h_re, h_im, K):
     along N (the input order of the DIT inverse).
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
-        return fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K)
+        return fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K, radices)
     from fft_restoration_tpu_torch.ops.kernels import _build
 
-    _check(a_re, a_im, h_re, h_im)
+    radices = tuple(radices)
+    stages = _check(a_re, a_im, h_re, h_im, radices)
     planes, m, n = a_re.shape
     check_kernel_length(n)
+    cross = cross_args(n, radices, False, a_re.device)
     out_re = torch.empty_like(a_re)
     out_im = torch.empty_like(a_im)
     lib = _build.load()
-    cf, sf, _ = tables(n, False, a_re.device)
+    tf = tables(n, False, a_re.device, radices)
     err = lib.fwd_wiener_rows_launch(
         a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
         float(K), out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
-        n.bit_length() - 1, rows_per_block(n, m), cf.data_ptr(), sf.data_ptr(),
-        torch.cuda.current_stream(a_re.device).cuda_stream,
+        stages, rows_per_block(n, m), tf.cos.data_ptr(), tf.sin.data_ptr(),
+        *cross, torch.cuda.current_stream(a_re.device).cuda_stream,
     )
     _build.check(err, "fwd_wiener_rows")
     launch_counts["fwd_wiener_rows"] += 1
+    if radices:
+        launch_counts["mixed_radix"] += 1
     return out_re, out_im
 
 
-def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K):
+def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K, radices=()):
     """Plain version of `wiener_spectral_t` (same signature and layout)."""
-    _check(a_re, a_im, h_re, h_im)
-    g = run_stages(a_re, a_im, inverse=False)
+    _check(a_re, a_im, h_re, h_im, radices)
+    g = run_stages(a_re, a_im, False, radices)
     f = wiener_filter(g, (h_re, h_im), K)
-    r_re, r_im = run_stages(f[0], f[1], inverse=True)
+    r_re, r_im = run_stages(f[0], f[1], True, radices)
     return r_re.transpose(1, 2).contiguous(), r_im.transpose(1, 2).contiguous()
 
 
-def _launch_spectral_t(entry, a_re, a_im, h_re, h_im, arg):
+def _launch_spectral_t(entry, a_re, a_im, h_re, h_im, arg, radices):
     """One launch of B2 through its C entry `entry` (the filter's scalar
-    argument `arg`: K, or the conj flag); returns the (P, N, M) planes."""
+    argument `arg`: K, or the conj flag); returns the (P, N, M) planes.
+    The forward and inverse cross levels ride as two argument sets, their
+    planes uploaded once per (n, radices) as the stage tables are."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
-    _check(a_re, a_im, h_re, h_im)
+    radices = tuple(radices)
+    stages = _check(a_re, a_im, h_re, h_im, radices)
     planes, m, n = a_re.shape
     check_kernel_length(n)
+    cross_f = cross_args(n, radices, False, a_re.device)
+    cross_i = cross_args(n, radices, True, a_re.device)
     rows = rows_per_block(n, m)
     out_re = torch.empty((planes, n, m), dtype=torch.float32, device=a_re.device)
     out_im = torch.empty_like(out_re)
     lib = _build.load()
-    cf, sf, _ = tables(n, False, a_re.device)
-    ci, si, _ = tables(n, True, a_re.device)
+    tf = tables(n, False, a_re.device, radices)
+    ti = tables(n, True, a_re.device, radices)
     err = getattr(lib, entry)(
         a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
         arg, out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
-        n.bit_length() - 1, rows, cf.data_ptr(), sf.data_ptr(), ci.data_ptr(),
-        si.data_ptr(), torch.cuda.current_stream(a_re.device).cuda_stream,
+        stages, rows, tf.cos.data_ptr(), tf.sin.data_ptr(),
+        ti.cos.data_ptr(), ti.sin.data_ptr(), *cross_f, *cross_i,
+        torch.cuda.current_stream(a_re.device).cuda_stream,
     )
     _build.check(err, entry)
+    if radices:
+        launch_counts["mixed_radix"] += 1
     return out_re, out_im
 
 
-def wiener_spectral_t(a_re, a_im, h_re, h_im, K):
+def wiener_spectral_t(a_re, a_im, h_re, h_im, K, radices=()):
     """colIFFT(wiener(colFFT(A), H)) with transposed writes.
 
     a_re, a_im: (P, M, N) contiguous float32 row-FFT'd planes in the
     transposed orientation, bit-reversed spectrum pending along N.
     h_re, h_im: (M, N) PSF spectrum in the same layout (psf_spectrum).
     Returns spatial-domain (P, N, M) float32 planes, unscaled, ready for
-    the final row IFFT.
+    the final row IFFT. radices: the odd radices of a smooth N (module docstring).
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
-        return wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K)
-    out = _launch_spectral_t("wiener_spectral_t_launch", a_re, a_im, h_re, h_im, float(K))
+        return wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K, radices)
+    out = _launch_spectral_t("wiener_spectral_t_launch", a_re, a_im, h_re, h_im, float(K),
+                             radices)
     launch_counts["wiener_spectral_t"] += 1
     return out
 
 
-def spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj=False):
+def spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj=False, radices=()):
     """Plain version of `spectral_conv_t` (same signature and layout)."""
-    _check(a_re, a_im, h_re, h_im)
-    g = run_stages(a_re, a_im, inverse=False)
+    _check(a_re, a_im, h_re, h_im, radices)
+    g = run_stages(a_re, a_im, False, radices)
     f = spectral_product(g, (h_re, h_im), conj)
-    r_re, r_im = run_stages(f[0], f[1], inverse=True)
+    r_re, r_im = run_stages(f[0], f[1], True, radices)
     return r_re.transpose(1, 2).contiguous(), r_im.transpose(1, 2).contiguous()
 
 
-def spectral_conv_t(a_re, a_im, h_re, h_im, conj=False):
+def spectral_conv_t(a_re, a_im, h_re, h_im, conj=False, radices=()):
     """colIFFT(colFFT(A) * H) with transposed writes — B2 in 'conv' mode;
     conj=True multiplies by conj(H) instead (the mirrored real PSF).
 
@@ -152,7 +170,8 @@ def spectral_conv_t(a_re, a_im, h_re, h_im, conj=False):
     final row IFFT.
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
-        return spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj)
-    out = _launch_spectral_t("spectral_conv_t_launch", a_re, a_im, h_re, h_im, int(bool(conj)))
+        return spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj, radices)
+    out = _launch_spectral_t("spectral_conv_t_launch", a_re, a_im, h_re, h_im, int(bool(conj)),
+                             radices)
     launch_counts["spectral_conv_t"] += 1
     return out

@@ -1,12 +1,15 @@
 """Device-time breakdown of the restore paths on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.profile_paths [--iters N] [--seed N]
-        [--paths single_2048sq,batch64_256sq,batch8_2048sq,rl_2048sq,edgetaper_2048sq]
+        [--paths single_2048sq,batch64_256sq,batch8_2048sq,rl_2048sq,edgetaper_2048sq,
+                 uhd_smooth,uhd_pow2]
 
 For each path (the 2048x2048x3 single frame, batch64 256^2, batch8
-2048^2, serving graph, wb_stats_stride 1 and 4; and the 2048x2048x3
-frame with Richardson-Lucy at 10 iterations and with Wiener + the edge
-taper, wb_stats_stride 1) it runs the restore
+2048^2, serving graph, wb_stats_stride 1 and 4; the 2048x2048x3 frame
+with Richardson-Lucy at 10 iterations and with Wiener + the edge taper,
+and the UHD 3840x2160x3 frame with --pad smooth (2304x3840, the cross
+levels in every FFT launch) and pow2 (4096x4096), wb_stats_stride 1) it
+runs the restore
 `--iters` times back to back: once timed with CUDA events (ms per run),
 once under torch.profiler. From the profile: device busy per run (the
 sum of the device-side activities' time: kernels, copies, fills),
@@ -26,24 +29,27 @@ import json
 import sys
 import time
 
-# (name, frames or None for the single-frame pipeline, side, PSF length,
-# pipeline options, white-balance strides)
-PATHS = (("single_2048sq", None, 2048, 50, {}, (1, 4)),
-         ("batch64_256sq", 64, 256, 25, {}, (1, 4)),
-         ("batch8_2048sq", 8, 2048, 50, {}, (1, 4)),
-         ("rl_2048sq", None, 2048, 50, dict(filter_name="rl", rl_iters=10), (1,)),
-         ("edgetaper_2048sq", None, 2048, 50, dict(edgetaper=True), (1,)))
+# (name, frames or None for the single-frame pipeline, (h, w), PSF
+# length, pipeline options, white-balance strides)
+PATHS = (("single_2048sq", None, (2048, 2048), 50, {}, (1, 4)),
+         ("batch64_256sq", 64, (256, 256), 25, {}, (1, 4)),
+         ("batch8_2048sq", 8, (2048, 2048), 50, {}, (1, 4)),
+         ("rl_2048sq", None, (2048, 2048), 50, dict(filter_name="rl", rl_iters=10), (1,)),
+         ("edgetaper_2048sq", None, (2048, 2048), 50, dict(edgetaper=True), (1,)),
+         ("uhd_smooth", None, (2160, 3840), 50, dict(pad_mode="smooth"), (1,)),
+         ("uhd_pow2", None, (2160, 3840), 50, {}, (1,)))
 
 
-def _frames(np, b, side, seed, psf):
+def _frames(np, b, hw, seed, psf):
     from fft_restoration_tpu_torch.host.blurgen import blur_image
 
+    h, w = hw
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(b):
-        coarse = rng.integers(0, 256, (side // 16 + 2, side // 16 + 2, 3)).astype(np.float64)
-        scene = np.kron(coarse, np.ones((16, 16, 1)))[:side, :side]
-        scene = np.clip(scene * 0.8 + rng.integers(0, 52, (side, side, 3)), 0, 255)
+        coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float64)
+        scene = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w]
+        scene = np.clip(scene * 0.8 + rng.integers(0, 52, (h, w, 3)), 0, 255)
         out.append(blur_image(scene.astype(np.uint8), psf, 30.0))
     return np.stack(out)
 
@@ -101,10 +107,10 @@ def main() -> int:
 
     print(f"[profile] package {port.__file__}", flush=True)
     out = {}
-    for name, b, side, psf, opts, strides in PATHS:
+    for name, b, hw, psf, opts, strides in PATHS:
         if name not in chosen:
             continue
-        stack = _frames(np, b or 1, side, args.seed, psf)
+        stack = _frames(np, b or 1, hw, args.seed, psf)
         for stride in strides:
             kw = dict(emit_planes=False, wb_stats_stride=stride, **opts)
             if b is None:

@@ -44,15 +44,17 @@ def blurred_frame(h: int, w: int, seed: int, length: int = 50, angle: float = 30
     return blur_image(scene.astype(np.uint8), length, angle)
 
 
-def padded_frame_planes(img, reciprocal: bool = False):
+def padded_frame_planes(img, reciprocal: bool = False, extent=None):
     """uint8 (h, w, 3) frame -> (3, hp, wp) float32 planes x / 255 (true
     division, or x * float32(1/255) with `reciprocal`), zero padded to
-    the next powers of two: the RL input the pipeline builds."""
+    extent=(hp, wp), by default the next powers of two: the RL input the
+    pipeline builds."""
     from fft_restoration_tpu_torch.host.padding import next_power_of_two
 
     h, w = img.shape[:2]
     x = np.moveaxis(img, -1, 0).astype(np.float32)
-    y = np.zeros((3, next_power_of_two(h), next_power_of_two(w)), np.float32)
+    hp, wp = extent or (next_power_of_two(h), next_power_of_two(w))
+    y = np.zeros((3, hp, wp), np.float32)
     y[:, :h, :w] = x * np.float32(1.0 / 255.0) if reciprocal else x / np.float32(255.0)
     return y
 

@@ -200,8 +200,9 @@ def test_psf_grid_sweep_matches_jax():
 def test_batched_options_not_ported_raise():
     for name in ("inverse", "cls", "rl"):  # the filter family is ported
         assert BatchedWienerPipeline("cpu", filter_name=name, edgetaper=True).edgetaper
-    with pytest.raises(NotImplementedError, match="A9"):
-        BatchedWienerPipeline("cpu", pad_mode="smooth")
+    smooth = BatchedWienerPipeline("cpu", pad_mode="smooth")  # ported: 64x300 at 64x384
+    out = smooth.restore(_stack(2, 64, 300, 2), L, ANGLE, K)
+    assert out.shape == (2, 64, 300, 3) and out.dtype == np.uint8
     with pytest.raises(NotImplementedError, match="A5"):
         BatchedWienerPipeline("cpu", stage_dtype="bf16")
     with pytest.raises(ValueError):

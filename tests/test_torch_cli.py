@@ -55,7 +55,7 @@ def test_read_error_exits_1(tmp_path, capsys):
         ["400", "30"],                            # larger than the padded frame
         ["9", "30", "--wb-stride", "0"],
         ["9", "30", "--filter", "rl", "--iters", "0"],  # the JAX CLI's --iters check
-        ["9", "30", "--pad", "smooth"],           # not ported: ROADMAP.md A9
+        ["400", "30", "--pad", "smooth"],         # larger than the smooth extent
     ],
 )
 def test_bad_arguments_exit_2(blurred_png, capsys, args):

@@ -13,10 +13,12 @@ import pytest
 
 from fft_restoration_tpu.oracle import color as jcolor
 from fft_restoration_tpu.oracle.psf import make_psf_oracle
+from fft_restoration_tpu.oracle.serial import dft_naive as j_dft_naive
 from fft_restoration_tpu.oracle.serial import restore_channels as j_restore_channels
 from fft_restoration_tpu.utils import imageio as jio
 from fft_restoration_tpu.utils.blurgen import blur_image as j_blur_image
 from fft_restoration_tpu.utils.padding import next_power_of_two as j_next_pow2
+from fft_restoration_tpu.utils.padding import next_smooth_size as j_next_smooth
 from fft_restoration_tpu.utils.verify import channels_equal as j_channels_equal
 from fft_restoration_tpu_torch.host import imageio, oracle, padding, verify
 from fft_restoration_tpu_torch.host.blurgen import blur_image
@@ -28,6 +30,19 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_padding_matches():
     for n in range(0, 4200):
         assert padding.next_power_of_two(n) == j_next_pow2(n)
+
+
+def test_next_smooth_size_matches():
+    # the JAX package's table (tests/test_mixed_radix.py)
+    assert padding.next_smooth_size(2160) == (2304, (3, 3))
+    assert padding.next_smooth_size(3840) == (3840, (3, 5))
+    assert padding.next_smooth_size(330) == (384, (3,))
+    assert padding.next_smooth_size(640) == (640, (5,))
+    assert padding.next_smooth_size(782) == (1024, ())  # pow2 still wins here
+    assert padding.next_smooth_size(100) == (128, ())  # below min_q: pow2
+    for n in range(1, 5000, 7):
+        assert padding.next_smooth_size(n) == j_next_smooth(n)
+        assert padding.next_smooth_size(n, 64) == j_next_smooth(n, 64)
 
 
 @pytest.mark.parametrize("size,angle", [(1, 0.0), (9, 30.0), (15, 45.0), (21, 60.0),
@@ -52,6 +67,29 @@ def test_serial_oracle_matches(h, w, length, angle):
     chans = np.moveaxis(img.astype(np.float32) / np.float32(255.0), -1, 0)
     ref = j_restore_channels(chans, make_psf_oracle("motion", length, angle), 0.01)
     np.testing.assert_array_equal(oracle.restore_frame_channels(img, length, angle, 0.01), ref)
+
+
+@pytest.mark.parametrize("n", [1, 3, 12, 40])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_dft_naive_matches(n, inverse):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, n)) + 1j * rng.standard_normal((2, n))
+    np.testing.assert_array_equal(oracle.dft_naive(x, inverse), j_dft_naive(x, inverse))
+
+
+@pytest.mark.parametrize("h,w,pad_to,edgetaper", [
+    (20, 30, (24, 40), False), (24, 40, (24, 40), False), (20, 30, (24, 40), True),
+    (17, 33, (48, 64), False),
+])
+def test_serial_oracle_pad_to_matches(h, w, pad_to, edgetaper):
+    img = np.random.default_rng(h * w).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    chans = np.moveaxis(img.astype(np.float32) / np.float32(255.0), -1, 0)
+    psf = make_psf_oracle("motion", 5, 30.0)
+    ref = j_restore_channels(chans, psf, 0.01, pad_to=pad_to, edgetaper=edgetaper)
+    ours = oracle.restore_frame_channels(img, 5, 30.0, 0.01, edgetaper=edgetaper, pad_to=pad_to)
+    np.testing.assert_array_equal(ours, ref)
+    with pytest.raises(ValueError, match="smaller than the image"):
+        oracle.restore_channels(chans, psf, 0.01, pad_to=(h - 1, w))
 
 
 @pytest.mark.parametrize("tier", ["l2", "inf", "gpu"])

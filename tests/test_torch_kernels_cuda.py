@@ -14,6 +14,8 @@ zero-padded frames against the float64 RL of the same input planes:
 5e-2 plane INF with the edge taper (the JAX package's RL contract), and
 without it at most twice an independent float32 RL's (torch.fft)
 distance, since there every float32 RL sits ~0.1 from the float64 one.
+Mixed radix (--pad smooth): the same 1e-5 for every kernel with cross
+levels, 1e-4 planes and 1 count for the smooth restore paths.
 """
 
 import numpy as np
@@ -128,7 +130,7 @@ def test_filter_family_kernels_vs_plain_and_launches(dev, gen, filter_name, edge
     kw = dict(filter_name=filter_name, edgetaper=edgetaper, rl_iters=3)
     reset_launch_counts()
     out, planes = WienerDeblurPipeline("cuda", **kw).restore_with_planes(img, 21, 60.0, 0.01)
-    hp, wp = pad_extents(h, w)
+    hp, wp, _, _ = pad_extents(h, w)
     convs = (2 * 3 if filter_name == "rl" else 0) + edgetaper
     # hp >= 512: each conv's middle is B2 'conv'; below, the unfused middle
     assert launch_counts["spectral_conv_t"] == (convs if hp >= 512 else 0), dict(launch_counts)
@@ -246,10 +248,12 @@ def test_pipeline_kernels_vs_plain_and_launches(dev, gen):
     reset_launch_counts()
     out, planes = WienerDeblurPipeline("cuda").restore_with_planes(img, 21, 60.0, 0.01)
     # hp = 512 takes the fused middle (B2), not B7
-    wiener = [k for k in KERNELS if k not in ("fwd_wiener_rows", "spectral_conv_t")]
+    wiener = [k for k in KERNELS if k not in ("fwd_wiener_rows", "spectral_conv_t", "mixed_radix")]
     assert all(launch_counts[k] > 0 for k in wiener), dict(launch_counts)
     assert launch_counts["fwd_wiener_rows"] == 0 and launch_counts["spectral_conv_t"] == 0
-    H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), *pad_extents(300, 520), PLAIN_OPS)
+    assert launch_counts["mixed_radix"] == 0  # pow2 extents take the pow2 instances
+    H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), *pad_extents(300, 520)[:2],
+                            PLAIN_OPS)
     out_p, planes_p = _restore_core(torch.as_tensor(img, device=dev), H, 0.01, white_balance=True,
                                     emit_planes=True, wb_stats_stride=1, ops=PLAIN_OPS)
     assert np.abs(planes - planes_p.cpu().numpy()).max() <= 1e-4
@@ -335,7 +339,7 @@ def test_batched_pipeline_kernels_vs_plain_and_launches(dev, gen, b, h, w, psf, 
     pipe = BatchedWienerPipeline("cuda", wb_stats_stride=stride)
     reset_launch_counts()
     out, planes = (t.cpu().numpy() for t in pipe.run(pipe.to_device(stack), psf, 30.0, 0.01))
-    hp, wp = pad_extents(h, w)
+    hp, wp, _, _ = pad_extents(h, w)
     middle = "wiener_spectral_t" if hp >= 512 else "fwd_wiener_rows"
     other = "fwd_wiener_rows" if hp >= 512 else "wiener_spectral_t"
     assert launch_counts[middle] == 1 and launch_counts[other] == 0, dict(launch_counts)
@@ -369,3 +373,75 @@ def test_plane_counts_past_65535(dev, gen):
     out, mm = fk.fft_rows_packed_out(*a_p, inverse=True)
     out_p, mm_p = fk.fft_rows_packed_out_plain(*a_p, inverse=True)
     assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
+
+
+SMOOTH = [(384, (3,)), (640, (5,)), (1152, (3, 3)), (1920, (3, 5)), (2304, (3, 3)),
+          (3840, (3, 5))]
+
+
+@pytest.mark.parametrize("n,rad", SMOOTH)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_rows_mixed_radix(dev, gen, n, rad, inverse):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    re, im = (torch.as_tensor(gen.standard_normal((2, 32, n), dtype=np.float32), device=dev)
+              for _ in range(2))
+    for transposed in (False, True):
+        kw = dict(inverse=inverse, transposed=transposed, radices=rad)
+        for o, r in zip(fk.fft_rows(re, im, **kw), fk.fft_rows_plain(re, im, **kw)):
+            assert _rel(o, r) <= 1e-5
+    out, mm = fk.fft_rows_packed_out(re, im, inverse=inverse, radices=rad)
+    out_p, mm_p = fk.fft_rows_packed_out_plain(re, im, inverse=inverse, radices=rad)
+    assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
+    stack = torch.as_tensor(gen.integers(0, 256, (2, 21, n - 7, 3), dtype=np.uint8), device=dev)
+    for o, r in zip(fk.fft_rows_stack(stack, extent=(32, n), radices=rad),
+                    fk.fft_rows_stack_plain(stack, extent=(32, n), radices=rad)):
+        assert o.shape == (3, n, 32) and _rel(o, r) <= 1e-5
+
+
+@pytest.mark.parametrize("n,rad", [(384, (3,)), (2304, (3, 3)), (3840, (3, 5))])
+def test_spectral_middles_mixed_radix(dev, gen, n, rad):
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    a_re, a_im = (torch.as_tensor(gen.standard_normal((2, 48, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    h_re, h_im = (torch.as_tensor(gen.standard_normal((48, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    a = (a_re, a_im, h_re, h_im)
+    pairs = [(ws.wiener_spectral_t(*a, 0.01, rad), ws.wiener_spectral_t_plain(*a, 0.01, rad)),
+             (ws.fwd_wiener_rows(*a, 0.01, rad), ws.fwd_wiener_rows_plain(*a, 0.01, rad))]
+    for conj in (False, True):
+        pairs.append((ws.spectral_conv_t(*a, conj, rad), ws.spectral_conv_t_plain(*a, conj, rad)))
+    for ours, ref in pairs:
+        for o, r in zip(ours, ref):
+            assert _rel(o, r) <= 1e-5
+
+
+@pytest.mark.parametrize("b,h,w,middle", [(1, 330, 640, "fwd_wiener_rows"),
+                                          (2, 520, 300, "wiener_spectral_t")])
+def test_smooth_pipeline_kernels_vs_plain_and_launches(dev, gen, b, h, w, middle):
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, pad_extents, psf_spectrum_planes, restore_stack,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    stack = np.stack([blur_image(gen.integers(0, 256, (h, w, 3), dtype=np.uint8), 21, 60.0)
+                      for _ in range(b)])
+    pipe = BatchedWienerPipeline("cuda", pad_mode="smooth")
+    reset_launch_counts()
+    out, planes = (t.cpu().numpy() for t in pipe.run(pipe.to_device(stack), 21, 60.0, 0.01))
+    assert launch_counts[middle] == 1, dict(launch_counts)
+    # every FFT launch of the smooth path has cross levels: B1, the middle
+    # (+ the inverse-T pass after B7), B3 and the PSF spectrum's two passes
+    assert launch_counts["mixed_radix"] == launch_counts["fft_rows"] + 1, dict(launch_counts)
+    hp, wp, rad_h, rad_w = pad_extents(h, w, "smooth")
+    assert rad_h and rad_w
+    H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), hp, wp, PLAIN_OPS, (rad_h, rad_w))
+    out_p, planes_p = restore_stack(torch.as_tensor(stack, device=dev), H, 0.01,
+                                    white_balance=True, emit_planes=True, wb_stats_stride=1,
+                                    pad_mode="smooth", ops=PLAIN_OPS)
+    assert np.abs(planes - planes_p.cpu().numpy()).max() <= 1e-4
+    assert np.abs(out.astype(np.int32) - out_p.cpu().numpy().astype(np.int32)).max() <= 1

@@ -82,7 +82,7 @@ def test_psf_spectrum_matches_jax_roll_and_carries_over():
     to rel 1e-5, and loaded into the port's cache it restores a frame
     like the port's own spectrum."""
     h, w = 200, 230
-    hp, wp = tpl.pad_extents(h, w)
+    hp, wp, _, _ = tpl.pad_extents(h, w)
     hj = psf_spectrum_planes(jax_make_psf("motion", L, ANGLE), hp, wp, engine="roll", psf_rows=L)
     ht = tpl.psf_spectrum_planes(make_psf("motion", L, ANGLE, "cpu"), hp, wp)
     for o, r in zip(ht, hj):
@@ -107,7 +107,8 @@ def test_psf_cache_is_bounded():
     for k in range(tpl.PSF_CACHE_SIZE + 3):
         pipe._psf_spectrum(64, 64, 5, float(k))
     assert len(pipe._psf_cache) == tpl.PSF_CACHE_SIZE
-    assert (64, 64, 5, 0.0) not in pipe._psf_cache  # oldest evicted first
+    assert (64, 64, (), (), 5, 0.0) not in pipe._psf_cache  # oldest evicted first
+    assert (64, 64, (), (), 5, float(tpl.PSF_CACHE_SIZE + 2)) in pipe._psf_cache
 
 
 @pytest.mark.parametrize("size,angle", [(1, 0.0), (9, 30.0), (15, 45.0), (50, 30.0), (40, 117.5)])
@@ -127,10 +128,16 @@ def test_psf_family_matches_jax(kind, param):
 def test_slices_not_ported_raise():
     with pytest.raises(ValueError, match="unknown filter"):
         tpl.WienerDeblurPipeline("cpu", filter_name="wienerr")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tpl.WienerDeblurPipeline("cpu", pad_mode="smooth")
+    with pytest.raises(ValueError, match="unknown pad mode"):
+        tpl.WienerDeblurPipeline("cpu", pad_mode="pow3")
     with pytest.raises(ValueError):
         tpl.WienerDeblurPipeline("cpu").restore(_frame(64, 64, 1), 100, 0.0)
+    # the smooth pad is ported: a 64x300 frame restores at 64x384, (3,) on W
+    smooth = tpl.WienerDeblurPipeline("cpu", pad_mode="smooth")
+    assert smooth.pad(64, 300) == (64, 384, (), (3,))
+    out, planes = smooth.restore_with_planes(_frame(64, 300, 2), L, ANGLE, K)
+    assert out.shape == (64, 300, 3) and out.dtype == np.uint8
+    assert planes.shape == (3, 64, 300) and np.isfinite(planes).all()
 
 
 def test_cuda_device_without_gpu_raises():
