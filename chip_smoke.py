@@ -12,8 +12,13 @@ Wiener with the edge taper, inverse and CLS, then RL and the taper on 8
 cross levels inside every FFT kernel): the UHD 3840x2160x3 frame at
 2304x3840 (radices (3, 3) and (3, 5); B1 -> B2 -> B3 -> B4 -> B5) and
 640x330 frames at 384x640 (radices (3,) and (5,); a stack of them takes
-the B7 middle at hp = 384). Phases, each printing its own lines; any
-failure exits non-zero:
+the B7 middle at hp = 384); and the ops layer: the generic restore route
+(WienerDeblurPipeline(fft_backend=...): fft2d, the filter, planar white
+balance in torch) at 2048x2048x3 with 'matmul' and at 640x330 with each
+of the five backends, a restore composed from the public ops.kernels API
+(B6 natural rows, B11 columns, B9), and the JAX A/B harness's radix4
+(B12) and megakernel (B10) experiments. Phases, each printing its own
+lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds);
   2. kernels every kernel against its plain PyTorch version on the card,
@@ -29,6 +34,10 @@ failure exits non-zero:
              at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
              hp = 384, B4/B5 at the UHD extents), the mixed-radix row
              adding up the UHD frame's three launches with cross levels;
+             then the ops layer's kernels on (3, 2048, 2048) planes and
+             (6144, 2048) rows: B6 natural, B11 in both orderings and
+             directions (and at H = 4096), B9, B10, B12 on real and complex
+             rows (its output order also against torch.fft);
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
@@ -54,7 +63,14 @@ failure exits non-zero:
              normalization, the gpu tier with the JAX test's INF and PSNR
              bounds); a stack of four 640x330 frames (B7 middle); RL and
              Wiener + edgetaper at 640x330 (check_rl_f64's contracts, the
-             tapered oracle); the CLI with --pad smooth;
+             tapered oracle); the CLI with --pad smooth; the generic
+             route with 'matmul' at 2048^2 (counters reset: no kernel
+             launches) against its CPU run and the kernel route, the ops
+             layer restore (B6 natural, B11, B9; counters reset) against
+             it, fft2d's launches on 'pallas' (fft_rows' natural instance)
+             and 'matmul' (none), each backend at 640x330 against the
+             oracle at the l2, inf and gpu tiers, the CLI with
+             --fft-backend matmul;
   4. timing  ms/frame and MP/s of the 2048^2 restore, ms/batch, ms/frame,
              MP/s and host enqueue of batch64 and batch8 (serving graph,
              CUDA events, the median of five loops) for wb_stats_stride 1
@@ -63,7 +79,9 @@ failure exits non-zero:
              (batch8); ms/frame and host enqueue of the four filter
              family paths at 2048^2; ms/frame, MP/s of the live frame,
              host enqueue and device busy of UHD 3840x2160 at smooth
-             (2304x3840) and pow2 (4096x4096) extents in the same run.
+             (2304x3840) and pow2 (4096x4096) extents in the same run;
+             ms/frame of the generic matmul route at 2048^2; the perf_ab
+             radix4 and megakernel experiments (counters reset).
 
 The last three lines are the results (JSON: the kernel table and the
 timings), the card's name and power limit (nvidia-smi), and {"ok": true,
@@ -132,6 +150,14 @@ UHD_HW = (2160, 3840)
 SMALL_HW = (330, 640)
 SMOOTH_STACK = 4
 TOL_F64_PLANES = 2e-4        # smooth restore vs the float64 np.fft restore at its extents
+# the ops layer (B6 natural, B9-B12) at the shapes of the JAX A/B
+# harness: (3, 2048, 2048) planes and (6144, 2048) rows; the generic route
+OPS_PLANES = 3
+OPS_ROWS = (3 * SIZE, SIZE)
+TALL = (1, 4096, SIZE)        # B11 at H = 4096: 4-column strips
+TOL_LIBRARY_REL = 1e-4        # a kernel's FFT vs torch.fft (cuFFT): two float32 algorithms
+TOL_GENERIC_PLANES = 1e-4     # generic route on the card vs the CPU / the kernel route:
+                              # the matrix products sum in another order (cuBLAS)
 TOL_ORACLE_SMOOTH_INF = 2e-2  # vs the oracle's naive DFT: the JAX test's bounds
 ORACLE_SMOOTH_PSNR_DB = 40.0
 
@@ -989,6 +1015,122 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
     return res, mixed
 
 
+def check_ops_kernels(torch, np, seed, iters):
+    """Phase 2, the ops layer's kernels at the JAX A/B harness's shapes:
+    B6 natural (fft_rows ordering='natural', forward and inverse) and B11
+    (fft_cols, natural and revorder, forward and inverse; and the tall
+    H = 4096 case) on (3, 2048, 2048) complex planes, B9 (wiener_elem) and
+    B10 (wiener_spectral_rows) on them with a (2048, 2048) spectrum, B12
+    (fft_rows_radix4_fwd) on (6144, 2048) real and complex rows; each
+    against its plain version, timed beside its bound and torch.fft along
+    the same axis (B12 up to its permutation, which is checked against
+    torch.fft too). Returns the kernel table rows."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
+    from fft_restoration_tpu_torch.ops.kernels import wiener as wk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed + 700)
+
+    def planes(shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+
+    p, n = OPS_PLANES, SIZE
+    a_re, a_im = planes((p, n, n)), planes((p, n, n))
+    h_re, h_im = planes((n, n)), planes((n, n))
+    t_re, t_im = planes(TALL), planes(TALL)
+    x_re, x_im = planes(OPS_ROWS), planes(OPS_ROWS)
+    az, tz, xz = torch.complex(a_re, a_im), torch.complex(t_re, t_im), torch.complex(x_re, x_im)
+    pair = 2 * p * n * n * 4  # one (re, im) set of the planes, bytes
+    rows, n4, tail = x_re.shape[0], *r4._stage_counts(n)
+    r4_flops = rows * n * (10.0 * n4 + 5.0 * tail)
+
+    def fft_lib(z, dim, inverse):
+        return lambda: (torch.fft.ifft if inverse else torch.fft.fft)(z, dim=dim)
+
+    # kernel: {mode: (kernel, plain, bytes, flops, library call or None)}
+    specs = {
+        "fft_rows_natural": {
+            f"{'inv' if inv else 'fwd'}_3x2048x2048": (
+                lambda inv=inv: fk.fft_rows(a_re, a_im, inverse=inv, ordering="natural"),
+                lambda inv=inv: fk.fft_rows_plain(a_re, a_im, inverse=inv, ordering="natural"),
+                2 * pair, fft_flops(p * n, n), fft_lib(az, -1, inv))
+            for inv in (False, True)
+        },
+        "fft_cols": {
+            f"{order}_{'inv' if inv else 'fwd'}_3x2048x2048": (
+                lambda o=order, inv=inv: fk.fft_cols(a_re, a_im, inverse=inv, ordering=o),
+                lambda o=order, inv=inv: fk.fft_cols_plain(a_re, a_im, inverse=inv, ordering=o),
+                2 * pair, fft_flops(p * n, n), fft_lib(az, -2, inv))
+            for order in ("natural", "revorder") for inv in (False, True)
+        },
+        "wiener_elem": {"3x2048x2048": (
+            lambda: wk.wiener_elem(a_re, a_im, h_re, h_im, 0.01),
+            lambda: wk.wiener_elem_plain(a_re, a_im, h_re, h_im, 0.01),
+            2 * pair + 2 * n * n * 4, p * n * n * 12, None)},
+        "wiener_spectral_rows": {"3x2048x2048": (
+            lambda: ws.wiener_spectral_rows(a_re, a_im, h_re, h_im, 0.01),
+            lambda: ws.wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, 0.01),
+            2 * pair + 2 * n * n * 4, 2 * fft_flops(p * n, n) + p * n * n * 12, None)},
+        "fft_rows_radix4": {
+            "real_6144x2048": (lambda: r4.fft_rows_radix4_fwd(x_re),
+                               lambda: r4.fft_rows_radix4_fwd_plain(x_re),
+                               3 * x_re.numel() * 4, r4_flops,
+                               lambda: torch.fft.fft(x_re, dim=-1)),
+            "complex_6144x2048": (lambda: r4.fft_rows_radix4_fwd(x_re, x_im),
+                                  lambda: r4.fft_rows_radix4_fwd_plain(x_re, x_im),
+                                  4 * x_re.numel() * 4, r4_flops, fft_lib(xz, -1, False)),
+        },
+    }
+    specs["fft_cols"]["natural_fwd_1x4096x2048"] = (
+        lambda: fk.fft_cols(t_re, t_im, ordering="natural"),
+        lambda: fk.fft_cols_plain(t_re, t_im, ordering="natural"),
+        4 * t_re.numel() * 4, fft_flops(n, TALL[1]), fft_lib(tz, -2, False))
+    meta = {
+        # kernel: (source, the TPU kernel's pallas_call, tolerance)
+        "fft_rows_natural": ("csrc/fft_rows.cu", "fft_kernel.py:1107", TOL_FFT_REL),
+        "fft_cols": ("csrc/fft_cols.cu", "fft_kernel.py:897", TOL_FFT_REL),
+        "wiener_elem": ("csrc/wiener_elem.cu", "wiener.py:88", TOL_WIENER_REL),
+        "wiener_spectral_rows": ("csrc/wiener_spectral.cu", "wiener_spectral.py:257",
+                                 TOL_WIENER_REL),
+        "fft_rows_radix4": ("csrc/fft_radix4.cu", "fft_radix4.py:203", TOL_FFT_REL),
+    }
+    out_rows = []
+    for kernel, modes in specs.items():
+        src, tpu, tol = meta[kernel]
+        res = {}
+        for mode, (kern, plain, nbytes, flops, lib_fn) in modes.items():
+            m = res[mode] = measure(torch, list(zip(kern(), plain())), kern, plain, iters,
+                                    nbytes, flops, lib_fn)
+            lib = "" if lib_fn is None else f", torch.fft {m['library_ms']:.4f}"
+            log(f"{kernel} {mode}: max rel err {m['max_rel_err']:.3e} (tol {tol}); "
+                f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f}{lib}, bound "
+                f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+            if not m["max_rel_err"] <= tol:
+                fail(f"{kernel} {mode} disagrees with its plain version")
+        first = next(iter(res.values()))
+        out_rows.append(dict(
+            name=kernel, route="cuda", source=SRC + src, replaces=TPU + tpu,
+            **{k: first[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                     "bytes", "flops")},
+            max_abs_err=max(m["max_abs_err"] for m in res.values()),
+            max_rel_err=max(m["max_rel_err"] for m in res.values()), modes=res))
+
+    # B12's digit-reversed order against torch.fft through the permutation
+    perm = torch.as_tensor(r4.radix4_output_permutation(n), device=dev)
+    for mode, args in (("real", (x_re,)), ("complex", (x_re, x_im))):
+        ref = torch.fft.fft(x_re if mode == "real" else xz, dim=-1)[:, perm]
+        o = r4.fft_rows_radix4_fwd(*args)
+        err = max(rel_err(torch, o[0], ref.real), rel_err(torch, o[1], ref.imag))
+        log(f"fft_rows_radix4 {mode} vs torch.fft through radix4_output_permutation: rel err "
+            f"{err:.3e} (tol {TOL_LIBRARY_REL})")
+        if not err <= TOL_LIBRARY_REL:
+            fail(f"fft_rows_radix4 {mode} is not the FFT in the JAX kernel's order")
+        out_rows[-1]["modes"][f"{mode}_6144x2048"]["rel_err_vs_torch_fft"] = err
+    return out_rows
+
+
 def f64_restore(np, img, psf_length, hp, wp, K=0.01):
     """float64 np.fft Wiener restore of a uint8 frame at (hp, wp),
     normalized over the padded plane, cropped: the tight reference of a
@@ -1105,6 +1247,139 @@ def check_smooth(torch, np, uhd, small, seed):
                 f"{[ln for ln in text.getvalue().splitlines() if ln.startswith('[')]}")
             if rc != 0 or want not in text.getvalue():
                 fail(f"the CLI with {' '.join(extra)} failed")
+    return res, counts
+
+
+def ops_layer_restore(torch, chans, psf, K):
+    """A restore composed from the public ops.kernels API, as a user of
+    the JAX package's ops.pallas would write it: (3, hp, wp) float32
+    planes -> channel pairs -> the transpose-free 2D FFT (B6 natural rows,
+    then B11 natural columns) of the pairs and of the zero-padded PSF ->
+    B9's Wiener filter -> the inverse 2D FFT (B11, then B6 natural) ->
+    unpack -> min-max over the padded plane (natural-order spectra; the
+    generic route's result)."""
+    from fft_restoration_tpu_torch.models.pipeline import (
+        minmax_normalize, pack_channel_pairs, unpack_channel_pairs,
+    )
+    from fft_restoration_tpu_torch.ops import kernels
+
+    hp, wp = chans.shape[-2:]
+    psf_pad = torch.zeros((1, hp, wp), dtype=torch.float32, device=chans.device)
+    psf_pad[0, : psf.shape[0], : psf.shape[1]] = psf
+    p_re, p_im = (t.contiguous() for t in pack_channel_pairs(chans))
+    g = kernels.fft_cols(*kernels.fft_rows(p_re, p_im, ordering="natural"), ordering="natural")
+    h = kernels.fft_cols(*kernels.fft_rows(psf_pad, None, ordering="natural"),
+                         ordering="natural")
+    f = kernels.wiener_elem(*g, h[0][0], h[1][0], K)
+    r = kernels.fft_rows(*kernels.fft_cols(*f, inverse=True, ordering="natural"),
+                         inverse=True, ordering="natural")
+    return minmax_normalize(unpack_channel_pairs(*r, chans.shape[0]))
+
+
+def check_generic(torch, np, frame, seed):
+    """Phase 3, the ops layer and the generic route: the 2048^2 frame
+    through WienerDeblurPipeline(fft_backend='matmul') with the counters
+    reset (no kernel may launch) against the same route on the CPU and
+    the kernel route; the frame through ops_layer_restore (B6 natural,
+    B11, B9) against the generic route's planes; fft2d's launches on the
+    pallas backend (fft_rows' natural instance, rows then columns) and
+    on matmul (none); each of the five backends on a 640x330 frame against
+    the serial oracle at the l2, inf and gpu tiers; the CLI with
+    --fft-backend matmul. Returns (results, {path: launch counts})."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline, cli
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+    from fft_restoration_tpu_torch.models.pipeline import padded_planes, restore_planes_generic
+    from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS, fft2d
+    from fft_restoration_tpu_torch.ops.kernels import KERNELS
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    res, counts = {}, {}
+    pipe = WienerDeblurPipeline("cuda", fft_backend="matmul")
+    (out, planes), c = drive(torch, "generic route (fft_backend matmul) 2048x2048x3",
+                             lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
+                             expect=(), forbid=KERNELS)
+    counts["generic_matmul_2048sq"] = c
+    if out.shape != frame.shape or not np.isfinite(planes).all():
+        fail(f"generic matmul: bad output {out.shape}, finite planes {np.isfinite(planes).all()}")
+    t0 = time.perf_counter()
+    out_c, planes_c = WienerDeblurPipeline("cpu", fft_backend="matmul").restore_with_planes(
+        frame, 50, 30.0, 0.01)
+    cpu_s = time.perf_counter() - t0
+    out_k, planes_k = WienerDeblurPipeline("cuda").restore_with_planes(frame, 50, 30.0, 0.01)
+    r = dict(vs_cpu=dict(planes_max_abs=float(np.abs(planes - planes_c).max()),
+                         u8_max=u8_max(np, out, out_c)),
+             vs_kernel_route=dict(planes_max_abs=float(np.abs(planes - planes_k).max()),
+                                  u8_max=u8_max(np, out, out_k)), cpu_run_s=cpu_s)
+    log(f"generic matmul 2048x2048x3 vs its CPU run ({cpu_s:.1f} s): planes max abs "
+        f"{r['vs_cpu']['planes_max_abs']:.3e}, uint8 max {r['vs_cpu']['u8_max']}; vs the kernel "
+        f"route: {r['vs_kernel_route']['planes_max_abs']:.3e}, {r['vs_kernel_route']['u8_max']} "
+        f"(tol {TOL_GENERIC_PLANES}, {TOL_U8})")
+    if not all(v["planes_max_abs"] <= TOL_GENERIC_PLANES and v["u8_max"] <= TOL_U8
+               for v in (r["vs_cpu"], r["vs_kernel_route"])):
+        fail("the generic matmul route disagrees with its CPU run or the kernel route")
+    res["generic_matmul_2048sq"] = dict(r, launches=c)
+
+    chans = padded_planes(torch.as_tensor(frame, device=dev)[None], SIZE, SIZE)
+    psf = make_psf("motion", 50, 30.0, dev)
+    ops_planes, c = drive(
+        torch, "ops layer restore 2048x2048x3 (B6 natural, B11, B9)",
+        lambda: ops_layer_restore(torch, chans, psf, 0.01),
+        expect=("fft_rows_natural", "fft_cols", "wiener_elem"),
+        forbid=("wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows", "wiener_spectral_rows",
+                "fft_rows_radix4", "mixed_radix"))
+    counts["ops_restore_2048sq"] = c
+    ref = restore_planes_generic(chans, psf, 0.01, fft_backend="matmul")
+    d = float((ops_planes - ref).abs().max())
+    log(f"ops layer restore vs the generic matmul route: planes max abs {d:.3e} "
+        f"(tol {TOL_GENERIC_PLANES})")
+    if not d <= TOL_GENERIC_PLANES:
+        fail("the ops layer restore disagrees with the generic route")
+    res["ops_restore_2048sq"] = dict(launches=c, vs_generic_matmul_planes_max_abs=d)
+
+    x, y = chans[0], chans[1]
+    for backend, expect in (("pallas", ("fft_rows_natural",)), ("matmul", ())):
+        _, c = drive(torch, f"fft2d, {backend} backend, 2048x2048",
+                     lambda b=backend: fft2d(x, y, backend=b), expect=expect,
+                     forbid=tuple(k for k in KERNELS if k not in expect + ("fft_rows",)))
+        if backend == "pallas" and not c["fft_rows_natural"] == c["fft_rows"] == 2:
+            fail(f"fft2d pallas: expected 2 natural fft_rows launches, got {c}")
+        if backend == "matmul" and any(c.values()):
+            fail(f"fft2d matmul launched kernels: {c}")
+        counts[f"fft2d_{backend}"] = c
+
+    car = blurred_frame(np, 330, 640, seed + 1)
+    oracle = restore_frame_channels(car, 50, 30.0, 0.01)
+    res["backends_640x330_vs_oracle"] = {}
+    for backend in FFT_BACKENDS:
+        ours = WienerDeblurPipeline("cuda", fft_backend=backend).restore_channels(
+            car, 50, 30.0, 0.01)
+        reps = {tier: channels_equal(ours, oracle, tier) for tier in ("l2", "inf", "gpu")}
+        log(f"640x330 fft_backend {backend} vs serial oracle: "
+            + "; ".join(str(v) for v in reps.values()))
+        if not all(v.passed for v in reps.values()):
+            fail(f"fft_backend {backend} fails the oracle at 640x330")
+        res["backends_640x330_vs_oracle"][backend] = dict(
+            l2=reps["l2"].l2, inf=reps["inf"].inf, psnr_db=reps["gpu"].psnr_db)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "car.png")
+        imwrite(png, car)
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([png, "50", "30", "-o", os.path.join(tmp, "out.png"),
+                           "--fft-backend", "matmul", "--tier", "inf"])
+        log(f"CLI --fft-backend matmul --tier inf: exit {rc}; "
+            f"{[ln for ln in text.getvalue().splitlines() if ln.startswith('[')]}")
+        if rc != 0 or "[Success] tier=inf" not in text.getvalue():
+            fail("the CLI with --fft-backend matmul failed")
     return res, counts
 
 
@@ -1261,6 +1536,50 @@ def time_uhd(torch, np, uhd, iters):
     return res
 
 
+def time_generic(torch, np, frame, single, iters):
+    """Phase 4, the generic route: device ms/frame (median of five CUDA-event
+    loops) and host enqueue of WienerDeblurPipeline(fft_backend='matmul')
+    on the 2048^2 frame, serving graph, and its ratio to the kernel route's
+    ms/frame (time_slice, stride 1)."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    pipe = WienerDeblurPipeline("cuda", fft_backend="matmul", emit_planes=False)
+    img = pipe.to_device(frame)
+    fn = lambda: pipe.run(img, 50, 30.0, 0.01)  # noqa: E731
+    ms, runs = cuda_ms_median(torch, fn, iters)
+    enq = host_enqueue_ms(torch, fn, iters)
+    mp = frame.shape[0] * frame.shape[1] / 1e6
+    r = dict(ms_per_frame=ms, ms_per_frame_loops=runs, mp_per_s=mp / (ms / 1e3),
+             host_enqueue_ms_per_frame=enq,
+             vs_kernel_route=ms / single["stride1"]["ms_per_frame"])
+    log(f"generic route (matmul) 2048x2048x3: {ms:.4f} ms/frame (median of "
+        f"{' '.join(f'{x:.4f}' for x in runs)}), {r['mp_per_s']:.1f} MP/s, host enqueue "
+        f"{enq:.4f} ms/frame; {r['vs_kernel_route']:.2f}x the kernel route")
+    return r
+
+
+def run_perf_ab(torch, np, seed, iters):
+    """Phase 4, the JAX A/B harness's two experiments of the ops layer
+    (fft_restoration_tpu_torch/tools/perf_ab.py), each one path with the
+    counters reset. Returns ({experiment: result}, {path: launch counts})."""
+    from fft_restoration_tpu_torch.tools import perf_ab
+
+    res, counts = {}, {}
+    for name, expect in (("radix4", ("fft_rows_radix4", "fft_rows")),
+                         ("megakernel", ("wiener_spectral_rows", "fwd_wiener_rows", "fft_rows"))):
+        res[name], counts[f"perf_ab_{name}"] = drive(
+            torch, f"perf_ab {name}", lambda f=getattr(perf_ab, name): f(torch, np, iters, seed),
+            expect)
+    r4 = res["radix4"]
+    if not max(r4["radix2_rel_err_vs_torch_fft"], r4["radix4_rel_err_vs_torch_fft"]) \
+            <= TOL_LIBRARY_REL:
+        fail("perf_ab radix4: a pass is not the FFT")
+    if not max(res["megakernel"][f"b10_rows{r}"]["rel_diff_vs_b7_b6"]
+               for r in perf_ab.MEGA_ROWS) <= TOL_WIENER_REL:
+        fail("perf_ab megakernel: B10 disagrees with B7 + B6")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1311,6 +1630,7 @@ def main() -> int:
         row["max_abs_err_all"] = max([row["max_abs_err"]]
                                      + [m["max_abs_err"] for m in modes.values()])
     rows.append(mixed_row)
+    rows += check_ops_kernels(torch, np, args.seed, args.iters)
     log(f"phase 2 kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1323,11 +1643,9 @@ def main() -> int:
     family_oracle = check_family_oracle(torch, np, args.seed)
     smooth, smooth_counts = check_smooth(torch, np, uhd, small, args.seed)
     counts.update(smooth_counts)
+    generic, generic_counts = check_generic(torch, np, frame, args.seed)
+    counts.update(generic_counts)
     log(f"phase 3 slice: {time.perf_counter() - t0:.1f} s")
-    for row in rows:
-        by_path = {path: c[row["name"]] for path, c in counts.items()}
-        row["launches"] = sum(by_path.values())
-        row["launches_by_path"] = by_path
 
     t0 = time.perf_counter()
     timing = time_slice(torch, np, frame, args.iters)
@@ -1335,10 +1653,18 @@ def main() -> int:
     ab = middle_ab(torch, np, stacks, args.iters)
     family_timing = time_family(torch, np, frame, stacks["batch64_256sq"][:8], args.iters)
     smooth["timing"] = time_uhd(torch, np, uhd, args.iters)
+    generic["timing_matmul_2048sq"] = time_generic(torch, np, frame, timing, args.iters)
+    perf_ab, ab_counts = run_perf_ab(torch, np, args.seed, args.iters)
+    counts.update(ab_counts)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
+    for row in rows:
+        by_path = {path: c[row["name"]] for path, c in counts.items()}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
 
     result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab,
-              "family_640x330": family_oracle, "smooth": smooth}
+              "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
+              "perf_ab": perf_ab}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

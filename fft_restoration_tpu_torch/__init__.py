@@ -11,7 +11,10 @@ intermediates, unscaled inverse) so the two can be diffed.
 Slices ported so far: WienerDeblurPipeline.restore on uint8 BGR frames,
 motion/gaussian/disk PSF, Wiener filter, pow2 pad, Lab white balance;
 BatchedWienerPipeline on (B, H, W, 3) stacks and psf_grid_sweep; the
-CLI on one image or a directory.
+filter family and --pad smooth; the CLI on one image or a directory; the
+ops layer: ops.fft (fft1d/fft2d and its five backends, whose non-kernel
+ones give WienerDeblurPipeline(fft_backend=...) its generic route),
+ops.kernels (every kernel's wrapper) and deblur_image.
 The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
 blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
@@ -23,16 +26,16 @@ kernels are built at first launch (ops/kernels/_build.py).
 __version__ = "0.1.0"
 
 __all__ = [
-    "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep",
+    "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep", "deblur_image",
     "make_psf", "motion_blur_kernel", "__version__",
 ]
 
 
 def __getattr__(name):
-    if name == "WienerDeblurPipeline":
-        from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
+    if name in ("WienerDeblurPipeline", "deblur_image"):
+        from fft_restoration_tpu_torch.models import pipeline
 
-        return WienerDeblurPipeline
+        return getattr(pipeline, name)
     if name in ("BatchedWienerPipeline", "psf_grid_sweep"):
         from fft_restoration_tpu_torch.models import batched
 

@@ -29,6 +29,16 @@ is normalized over the frame by the oracle (the reference's crop, then
 normalize), over the padded plane by the pipeline: the verify puts the
 pipeline's planes on the frame's normalization first.
 
+--fft-backend picks the FFT: 'pallas' (default) is the port's kernel
+route; 'radix2', 'matmul', 'naive' and 'xla' take the generic route of
+WienerDeblurPipeline (ops/fft.py's fft2d, the filter, planar white
+balance in torch), verified against the oracle like the default. The
+JAX CLI defaults to 'matmul' because on the TPU that compiles fastest;
+here nothing is compiled per shape and the kernels are the fast path.
+The generic route takes one image and wiener, inverse or cls: --filter
+rl, --edgetaper and directory input with another backend than 'pallas'
+exit 2 naming their ROADMAP.md item.
+
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
 """
@@ -42,6 +52,7 @@ import time
 from collections import Counter, defaultdict
 
 from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
+from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
 # file names directory mode picks up (the JAX CLI's list; the port reads
 # the 8-bit PNG subset and reports the rest as unreadable)
@@ -58,7 +69,6 @@ BATCH_FRAME_PLANES = 12
 # flags of the JAX CLI that wait for a later slice -> ROADMAP.md item
 NOT_PORTED = {
     "--mode": "A6 (oracle) and A14 (sharded)",
-    "--fft-backend": "A3",
     "--fft-engine": "A3",
     "--psf-type": "A2",
     "--psf-file": "A2",
@@ -97,6 +107,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", default="cuda",
         help="'cuda' (the kernels, default) or 'cpu' (the plain PyTorch versions)",
+    )
+    p.add_argument(
+        "--fft-backend", choices=FFT_BACKENDS, default="pallas",
+        help="FFT compute strategy: 'pallas' (default) = the hand-written CUDA "
+        "kernels; radix2/matmul/naive/xla = the generic route (plain torch "
+        "radix-2, four-step float32 matmul, DFT matmul, torch.fft), one image, "
+        "wiener/inverse/cls",
     )
     p.add_argument(
         "--filter", choices=("wiener", "inverse", "cls", "rl"), default="wiener",
@@ -167,12 +184,17 @@ def main(argv=None) -> int:
         pipe = WienerDeblurPipeline(
             args.device, filter_name=args.filter, pad_mode=args.pad,
             white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
-            rl_iters=args.iters, edgetaper=args.edgetaper,
+            rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
         )
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
         return 2
     if os.path.isdir(args.img_path):
+        if args.fft_backend != "pallas":
+            print(f"[Error] directory input runs the batched pipeline, which takes the "
+                  f"'pallas' backend only; --fft-backend {args.fft_backend} is not ported "
+                  "there yet: ROADMAP.md A7")
+            return 2
         return _run_batch(args, pipe)
 
     try:
@@ -195,7 +217,8 @@ def main(argv=None) -> int:
     out, ours = pipe.restore_with_planes(img, args.psf_length, args.psf_angle, args.K)
     t1 = time.perf_counter()
     mode_ms = (t1 - t0) * 1e3
-    print(f"Deblurring 3 channels took(torch-{pipe.device.type}): {mode_ms:.2f} ms")
+    print(f"Deblurring 3 channels took(torch-{pipe.device.type}, {args.fft_backend}): "
+          f"{mode_ms:.2f} ms")
 
     if not args.no_verify and args.filter != "wiener":
         print(f"[INFO] --filter {args.filter} is not verified: the serial oracle "

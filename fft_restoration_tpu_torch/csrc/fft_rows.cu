@@ -6,8 +6,13 @@
 //   B1 _fft_rows_transposed ("fftr_rows_T_fwd")  -> load u8/f32, STORE_T
 //   B6 fft_rows_pallas plain path ("fftr_rows_*") -> STORE_NATURAL
 //   B3 fft_rows_packed_out ("fftr_rows_packed_inv") -> STORE_PACKED + min/max
-// Ordering is always revorder: forward = DIF (natural in, bit-reversed
-// out), inverse = DIT (bit-reversed in, natural out), unscaled.
+// Ordering revorder: forward = DIF (natural in, bit-reversed out),
+// inverse = DIT (bit-reversed in, natural out), unscaled. Natural
+// ordering (the NATURAL instances, pow2 N; B6's ordering="natural", the
+// generic API's `pallas` backend): the loader writes element c of a row to
+// shared slot bit-reverse(c), so the bit reversal costs no pass of its
+// own, and the DIT stages then run with the direction's tables (the JAX
+// kernel's XLA bit-reversal pass, then DIT; fft_kernel.py:1042-1049).
 //
 // What bounds it on the H100: each row is read and written once, so a
 // pass over two complex 2048^2 planes moves 80 MB (uint8 in) to 134 MB
@@ -64,8 +69,9 @@ __device__ __forceinline__ int col_of(int t, int r, int N) {
   return MIXED ? t - r * N : t & (N - 1);
 }
 
-// stages: log2(N), or log2 of the pow2 tail when MIXED
-template <typename T, bool MIXED>
+// stages: log2(N), or log2 of the pow2 tail when MIXED; NATURAL only
+// without MIXED
+template <typename T, bool MIXED, bool NATURAL>
 __global__ void __launch_bounds__(FFT_THREADS)
 fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                 long long is, long long chs, int channels, int qstep, int qim,
@@ -97,12 +103,14 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
     const int c = col_of<MIXED>(t, r, N);
     const bool live = m < live_rows && c < live_cols;
     const long long off = m * rs + c * cs;
-    sre[t] = (live && re_ok) ? to_f32(src_re[base_re + off]) : 0.0f;
-    sim[t] = (live && im_ok) ? to_f32(src_im[base_im + off]) : 0.0f;
+    const int slot =
+        NATURAL ? r * N + (int)(__brev((unsigned)c) >> (32 - stages)) : t;
+    sre[slot] = (live && re_ok) ? to_f32(src_re[base_re + off]) : 0.0f;
+    sim[slot] = (live && im_ok) ? to_f32(src_im[base_im + off]) : 0.0f;
   }
   __syncthreads();
 
-  if (inverse) {
+  if (NATURAL || inverse) {
     dit_stages<MIXED>(sre, sim, rows, N, stages, cosv, sinv);
     if (MIXED) cross_inv(sre, sim, rows, N, plan);
   } else {
@@ -154,7 +162,7 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   }
 }
 
-template <typename T, bool MIXED>
+template <typename T, bool MIXED, bool NATURAL>
 static int launch(const void* src_re, const void* src_im, long long is,
                   long long chs, int channels, int qstep, int qim,
                   long long rs, long long cs, int re_live, int im_live,
@@ -163,12 +171,12 @@ static int launch(const void* src_re, const void* src_im, long long is,
                   int inverse, const void* cosv, const void* sinv,
                   const CrossPlan& plan, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(fft_rows_kernel<T, MIXED>, smem);
+  cudaError_t err = allow_smem(fft_rows_kernel<T, MIXED, NATURAL>, smem);
   if (err != cudaSuccess) return (int)err;
   const int covered = live_rows < M ? live_rows : M;
   const int nblk = (covered + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fft_rows_kernel<T, MIXED><<<nblk * P, FFT_THREADS, smem, stream>>>(
+  fft_rows_kernel<T, MIXED, NATURAL><<<nblk * P, FFT_THREADS, smem, stream>>>(
       (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
       cs, re_live, im_live, live_rows, live_cols, M, N, stages, rows, nblk,
       (float*)out_re, (float*)out_im, (float*)minmax, store, inverse,
@@ -182,22 +190,30 @@ static int launch_any(const void* src_re, const void* src_im, long long is,
                       long long rs, long long cs, int re_live, int im_live,
                       int live_rows, int live_cols, int P, int M, int N,
                       int stages, int rows, void* out_re, void* out_im,
-                      void* minmax, int store, int inverse, const void* cosv,
-                      const void* sinv, const CrossPlan& plan,
+                      void* minmax, int store, int inverse, int natural,
+                      const void* cosv, const void* sinv, const CrossPlan& plan,
                       cudaStream_t stream) {
+  if (natural) {
+    if (plan.levels > 0) return (int)cudaErrorInvalidValue;  // pow2 only
+    return launch<T, false, true>(src_re, src_im, is, chs, channels, qstep, qim,
+                                  rs, cs, re_live, im_live, live_rows, live_cols,
+                                  P, M, N, stages, rows, out_re, out_im, minmax,
+                                  store, inverse, cosv, sinv, plan, stream);
+  }
   if (plan.levels > 0)
-    return launch<T, true>(src_re, src_im, is, chs, channels, qstep, qim, rs,
-                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
-                           stages, rows, out_re, out_im, minmax, store, inverse,
-                           cosv, sinv, plan, stream);
-  return launch<T, false>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
-                          re_live, im_live, live_rows, live_cols, P, M, N,
-                          stages, rows, out_re, out_im, minmax, store, inverse,
-                          cosv, sinv, plan, stream);
+    return launch<T, true, false>(src_re, src_im, is, chs, channels, qstep, qim,
+                                  rs, cs, re_live, im_live, live_rows, live_cols,
+                                  P, M, N, stages, rows, out_re, out_im, minmax,
+                                  store, inverse, cosv, sinv, plan, stream);
+  return launch<T, false, false>(src_re, src_im, is, chs, channels, qstep, qim,
+                                 rs, cs, re_live, im_live, live_rows, live_cols,
+                                 P, M, N, stages, rows, out_re, out_im, minmax,
+                                 store, inverse, cosv, sinv, plan, stream);
 }
 
 // levels, radix, coef, xcos, xsin: the cross levels of this direction
-// (levels 0 for a pow2 N; see make_cross_plan)
+// (levels 0 for a pow2 N; see make_cross_plan); natural: natural ordering
+// (pow2 N, levels 0)
 extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
                                int in_u8, long long is, long long chs,
                                int channels, int qstep, int qim, long long rs,
@@ -205,21 +221,22 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
                                int live_rows, int live_cols, int P, int M,
                                int N, int stages, int rows, void* out_re,
                                void* out_im, void* minmax, int store,
-                               int inverse, const void* cosv, const void* sinv,
-                               int levels, const int* radix, const float* coef,
-                               const void* xcos, const void* xsin,
-                               void* stream) {
+                               int inverse, int natural, const void* cosv,
+                               const void* sinv, int levels, const int* radix,
+                               const float* coef, const void* xcos,
+                               const void* xsin, void* stream) {
   if (levels < 0 || levels > MAX_CROSS_LEVELS) return (int)cudaErrorInvalidValue;
   const CrossPlan plan = make_cross_plan(levels, radix, coef, xcos, xsin);
   if (in_u8) {
     return launch_any<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim,
                                rs, cs, re_live, im_live, live_rows, live_cols,
                                P, M, N, stages, rows, out_re, out_im, minmax,
-                               store, inverse, cosv, sinv, plan,
+                               store, inverse, natural, cosv, sinv, plan,
                                (cudaStream_t)stream);
   }
   return launch_any<float>(src_re, src_im, is, chs, channels, qstep, qim, rs,
                            cs, re_live, im_live, live_rows, live_cols, P, M, N,
                            stages, rows, out_re, out_im, minmax, store,
-                           inverse, cosv, sinv, plan, (cudaStream_t)stream);
+                           inverse, natural, cosv, sinv, plan,
+                           (cudaStream_t)stream);
 }

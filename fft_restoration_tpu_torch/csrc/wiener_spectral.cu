@@ -44,7 +44,18 @@
 // fft_rows. The filter is applied as each element is stored, so the
 // epilogue costs no extra pass over shared memory.
 //
-// Grid of both: one dimension, block b takes row block b % nblk of
+// wiener_spectral_rows: row DIF -> Wiener -> row DIT, natural store.
+// Replaces wiener_spectral.py:wiener_spectral_rows_pallas (B10,
+// "fftr_spectral_mid"), the untransposed fused middle the JAX A/B harness
+// runs (tools/perf_ab.py megakernel): spectral_t_kernel<MODE_WIENER,
+// false, true>, B2's body with each row block stored where it was read.
+// H row m serves every plane's row m (the JAX wrapper materializes the
+// broadcast H per plane; here it is indexed, never copied), and a ragged
+// last row block is bounds-checked (JAX pads). Same bound as B2: A and H
+// in, the result out, 168 MB at (2, 2048, 2048); shared-memory stages and
+// barriers are the likelier limit.
+//
+// Grid of all three: one dimension, block b takes row block b % nblk of
 // plane b / nblk (the plane count is not held to gridDim.y's 65535).
 //
 // Mixed radix (--pad smooth, B-mixed): at a smooth column length the
@@ -57,7 +68,10 @@
 
 enum SpectralMode { MODE_WIENER = 0, MODE_CONV = 1, MODE_CONV_CONJ = 2 };
 
-template <int MODE, bool MIXED>
+// NATURAL (B10, pow2 N, MODE_WIENER only): the block's rows are stored
+// in place of the transposed write, and rows past M (a ragged last block)
+// read as zero and are not stored; without it the code is B2's as it was.
+template <int MODE, bool MIXED, bool NATURAL = false>
 __global__ void __launch_bounds__(FFT_THREADS)
 spectral_t_kernel(const float* __restrict__ a_re,
                   const float* __restrict__ a_im,
@@ -71,6 +85,7 @@ spectral_t_kernel(const float* __restrict__ a_re,
                   const float* __restrict__ sin_i,
                   const __grid_constant__ CrossPlan plan_f,
                   const __grid_constant__ CrossPlan plan_i) {
+  static_assert(!(NATURAL && MIXED), "the natural store takes pow2 rows only");
   extern __shared__ float smem[];
   float* sre = smem;
   float* sim = smem + rows * N;
@@ -79,16 +94,23 @@ spectral_t_kernel(const float* __restrict__ a_re,
   const int total = rows * N;
   const size_t base = ((size_t)p * M + m0) * N;
   const size_t hbase = (size_t)m0 * N;
+  // the live elements of the block (all of them unless NATURAL's last block)
+  const int live = NATURAL ? (M - m0 < rows ? M - m0 : rows) * N : total;
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    sre[t] = a_re[base + t];
-    sim[t] = a_im[base + t];
+    if (NATURAL && t >= live) {
+      sre[t] = 0.0f;
+      sim[t] = 0.0f;
+    } else {
+      sre[t] = a_re[base + t];
+      sim[t] = a_im[base + t];
+    }
   }
   __syncthreads();
   if (MIXED) cross_fwd(sre, sim, rows, N, plan_f);
   dif_stages<MIXED>(sre, sim, rows, N, stages, cos_f, sin_f);
 
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+  for (int t = threadIdx.x; t < live; t += blockDim.x) {
     const float hr = h_re[hbase + t], hi = h_im[hbase + t];
     const float xr = sre[t], xi = sim[t];
     if (MODE == MODE_WIENER) {
@@ -107,14 +129,21 @@ spectral_t_kernel(const float* __restrict__ a_re,
   dit_stages<MIXED>(sre, sim, rows, N, stages, cos_i, sin_i);
   if (MIXED) cross_inv(sre, sim, rows, N, plan_i);
 
-  // (P, M, N) -> (P, N, M)
-  const int log2rows = __ffs(rows) - 1;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int r = t & (rows - 1);
-    const int k = t >> log2rows;
-    const size_t o = ((size_t)p * N + k) * M + m0 + r;
-    out_re[o] = sre[r * N + k];
-    out_im[o] = sim[r * N + k];
+  if (NATURAL) {
+    for (int t = threadIdx.x; t < live; t += blockDim.x) {
+      out_re[base + t] = sre[t];
+      out_im[base + t] = sim[t];
+    }
+  } else {
+    // (P, M, N) -> (P, N, M)
+    const int log2rows = __ffs(rows) - 1;
+    for (int t = threadIdx.x; t < total; t += blockDim.x) {
+      const int r = t & (rows - 1);
+      const int k = t >> log2rows;
+      const size_t o = ((size_t)p * N + k) * M + m0 + r;
+      out_re[o] = sre[r * N + k];
+      out_im[o] = sim[r * N + k];
+    }
   }
 }
 
@@ -287,4 +316,31 @@ extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,
   return launch_fwd_wiener<false>(a_re, a_im, h_re, h_im, K, out_re, out_im, P,
                                   M, N, stages, rows, cos_f, sin_f, plan_f,
                                   stream);
+}
+
+// wiener_spectral_rows (B10): B2's Wiener body with the natural store,
+// over P planes of M rows (M any, the last row block ragged), N = 2^stages,
+// `rows` rows a block (a power of two up to 16; the wrapper checks the
+// shared memory); H is (M, N), row m serving every plane's row m
+extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
+                                           const void* h_re, const void* h_im,
+                                           float K, void* out_re, void* out_im,
+                                           int P, int M, int N, int stages,
+                                           int rows, const void* cos_f,
+                                           const void* sin_f, const void* cos_i,
+                                           const void* sin_i, void* stream) {
+  if (rows < 1 || N != (1 << stages)) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
+  cudaError_t err = allow_smem(spectral_t_kernel<MODE_WIENER, false, true>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const CrossPlan none = {};
+  spectral_t_kernel<MODE_WIENER, false, true>
+      <<<nblk * P, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+          (const float*)a_re, (const float*)a_im, (const float*)h_re,
+          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
+          rows, nblk, (const float*)cos_f, (const float*)sin_f,
+          (const float*)cos_i, (const float*)sin_i, none, none);
+  return (int)cudaGetLastError();
 }

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from fft_restoration_tpu_torch.models.pipeline import (
+    KERNEL_BACKEND,
     KERNEL_OPS,
     _CachedPsfPipeline,
     frames_to_device,
@@ -30,6 +31,7 @@ from fft_restoration_tpu_torch.models.pipeline import (
     resolve_device,
     restore_raw,
 )
+from fft_restoration_tpu_torch.ops.fft import check_backend
 from fft_restoration_tpu_torch.ops.psf import make_psf
 
 
@@ -45,7 +47,9 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     planes, its channel pairs straddling images as the restore's do.
     pad_mode: 'pow2' or 'smooth' (models.pipeline.pad_extents); a stack
     of 640x330 frames restores at 384x640, its middle B7 at hp = 384.
-    stage_dtype exists for the JAX signature and is not ported yet.
+    stage_dtype exists for the JAX signature and is not ported yet;
+    fft_backend takes 'pallas' (the kernels) only: the generic route of a
+    stack (the JAX batched default 'matmul') is not ported yet.
     """
 
     def __init__(
@@ -61,7 +65,14 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         rl_iters: int = 10,
         edgetaper: bool = False,
         stage_dtype: str | None = None,
+        fft_backend: str = KERNEL_BACKEND,
     ):
+        check_backend(fft_backend)
+        if fft_backend != KERNEL_BACKEND:
+            raise NotImplementedError(
+                f"BatchedWienerPipeline on fft backend {fft_backend!r} is not ported yet "
+                f"(the batched path runs the {KERNEL_BACKEND!r} kernels): ROADMAP.md A7"
+            )
         if stage_dtype not in (None, "f32", "float32"):
             raise NotImplementedError(
                 f"stage_dtype {stage_dtype!r} is not ported yet (the port stages "

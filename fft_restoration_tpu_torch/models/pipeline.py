@@ -83,6 +83,7 @@ from fft_restoration_tpu_torch.ops.kernels.postprocess import (
     effective_wb_stride,
     sampled_live_pixels,
 )
+from fft_restoration_tpu_torch.ops.fft import check_backend, fft2d
 from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
 from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
 
@@ -321,6 +322,87 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     return out, (planes if emit_planes else None)
 
 
+# ---------------------------------------------------------------------------
+# the generic route: fft_backend other than 'pallas' (the JAX
+# restore_planes' non-pallas branch, pipeline.py:212-233)
+
+# the kernel route; every other backend of ops/fft.py takes the generic one
+KERNEL_BACKEND = "pallas"
+
+
+def pack_channel_pairs(channels):
+    """(..., C, H, W) real planes -> SoA (re, im) of ceil(C/2) planes:
+    channels 2p and 2p+1 as one complex plane, a zero im plane for an odd
+    C (one Hermitian spectrum filters both, so they unpack from the real
+    and imaginary parts of the inverse)."""
+    c = channels.shape[-3]
+    re = channels[..., 0::2, :, :]
+    im = channels[..., 1::2, :, :]
+    if c % 2:
+        im = torch.cat([im, torch.zeros_like(channels[..., :1, :, :])], dim=-3)
+    return re, im
+
+
+def unpack_channel_pairs(re, im, c: int):
+    """Inverse of pack_channel_pairs: (..., C, H, W) channel order."""
+    stacked = torch.stack([re, im], dim=-3)  # (..., P, 2, H, W)
+    shape = tuple(stacked.shape[:-4]) + (2 * re.shape[-3],) + tuple(stacked.shape[-2:])
+    return stacked.reshape(shape)[..., :c, :, :]
+
+
+def minmax_normalize(x):
+    """Per-plane min-max to [0, 1] over the last two axes; scale 0 for a
+    constant plane (the reference's degenerate-range convention)."""
+    lo = x.amin(dim=(-2, -1), keepdim=True)
+    hi = x.amax(dim=(-2, -1), keepdim=True)
+    scale = torch.where(hi > lo, 1.0 / (hi - lo), torch.zeros_like(hi))
+    return (x - lo) * scale
+
+
+def restore_planes_generic(channels, psf, K, *, fft_backend, filter_name="wiener"):
+    """(..., C, Hp, Wp) float32 planes (or (Hp, Wp)) restored with an (S,
+    S) PSF through `fft2d` of `fft_backend`: channel pairs packed, the
+    planes' and the zero-padded PSF's spectra (computed per call, as in
+    JAX: its PSF cache needs the pallas backend), `apply_filter`, the
+    inverse, the unpack and the min-max normalize over the padded plane.
+    Natural-order spectra; the inverse stays unscaled."""
+    from fft_restoration_tpu_torch.models.filters import apply_filter
+
+    hp, wp = channels.shape[-2:]
+    psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=channels.device)
+    psf_pad[: psf.shape[0], : psf.shape[1]] = psf
+    if channels.ndim >= 3 and channels.shape[-3] >= 2:
+        c = channels.shape[-3]
+        p_re, p_im = pack_channel_pairs(channels)
+    else:
+        c = None
+        p_re, p_im = channels, torch.zeros_like(channels)
+    G = fft2d(p_re, p_im, inverse=False, backend=fft_backend)
+    H = fft2d(psf_pad, torch.zeros_like(psf_pad), inverse=False, backend=fft_backend)
+    F = apply_filter(filter_name, G, H, K, backend=fft_backend)
+    r_re, r_im = fft2d(F[0], F[1], inverse=True, backend=fft_backend)
+    restored = r_re if c is None else unpack_channel_pairs(r_re, r_im, c)
+    return minmax_normalize(restored)
+
+
+def restore_stack_generic(stack, psf, K, *, fft_backend, filter_name="wiener",
+                          white_balance=True, emit_planes=True, encode=True, pad_mode="pow2"):
+    """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
+    ((B, h, w, 3) uint8 or None, (B, 3, h, w) float32 planes or None) by the
+    generic route: uint8 to float by true division, zero pad to the
+    extents of `pad_mode` (smooth extents too: 'matmul' factors them,
+    'radix2' and 'pallas' fall back to the naive DFT there, as in JAX),
+    `restore_planes_generic`, crop, then the planar Lab white balance and
+    the uint8 encode in torch (`encode_planar`)."""
+    b, h, w, c = stack.shape
+    hp, wp, _, _ = pad_extents(h, w, pad_mode)
+    chans = padded_planes(stack, hp, wp).reshape(b, c, hp, wp)
+    planes = restore_planes_generic(chans, psf, K, fft_backend=fft_backend,
+                                    filter_name=filter_name)[..., :h, :w]
+    out = encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance) if encode else None
+    return out, (planes if emit_planes else None)
+
+
 def _restore_core(img, H, K, *, white_balance, emit_planes, wb_stats_stride,
                   ops=KERNEL_OPS, **filter_kw):
     """(h, w, 3) frame on the device -> ((h, w, 3) uint8, (3, h, w)
@@ -346,10 +428,19 @@ class _CachedPsfPipeline:
     pipelines share."""
 
     def __init__(self, device, *, filter_name, white_balance, emit_planes, pad_mode,
-                 wb_stats_stride, psf_type="motion", rl_iters=10, edgetaper=False):
+                 wb_stats_stride, psf_type="motion", rl_iters=10, edgetaper=False,
+                 fft_backend=KERNEL_BACKEND):
         self.device = resolve_device(device)
         if filter_name not in FILTERS:
             raise ValueError(f"unknown filter {filter_name!r}; one of {FILTERS}")
+        check_backend(fft_backend)
+        if fft_backend != KERNEL_BACKEND and (filter_name == "rl" or edgetaper):
+            what = "filter 'rl'" if filter_name == "rl" else "the edge taper"
+            raise NotImplementedError(
+                f"{what} runs on the {KERNEL_BACKEND!r} backend only; on fft backend "
+                f"{fft_backend!r} it is not ported yet: ROADMAP.md A3"
+            )
+        self.fft_backend = fft_backend
         pad_extents(1, 1, pad_mode)  # raises for an unknown mode
         if wb_stats_stride < 1:
             raise ValueError(f"wb_stats_stride must be >= 1, got {wb_stats_stride}")
@@ -422,6 +513,13 @@ class _CachedPsfPipeline:
         (`over` overrides white_balance / emit_planes)."""
         h, w = stack.shape[1:3]
         self._check_psf_fits(h, w, int(psf_length))
+        if self.fft_backend != KERNEL_BACKEND:
+            opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes)
+            opts.update(over)
+            psf = make_psf(self.psf_type, int(psf_length), float(psf_angle), self.device)
+            return restore_stack_generic(stack, psf, float(K), fft_backend=self.fft_backend,
+                                         filter_name=self.filter_name, pad_mode=self.pad_mode,
+                                         **opts)
         psf, H = self._psf_spectrum(h, w, psf_length, psf_angle)
         opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes,
                     wb_stats_stride=self.wb_stats_stride)
@@ -448,6 +546,14 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     white-balance means (the CLI uses 1, serving 4; not used by 'rl').
     pad_mode: 'pow2' (the reference's extents) or 'smooth' (the mixed-radix
     extents, e.g. 2304x3840 for 3840x2160; see pad_extents).
+    fft_backend: 'pallas' (default: the kernel route above, the name kept
+    from the JAX package) or 'radix2', 'matmul', 'naive', 'xla' — the
+    generic route (`restore_stack_generic`: fft2d of ops/fft.py, the
+    filter, the inverse, min-max, planar Lab white balance in torch; the
+    PSF spectrum made per call, wb_stats_stride unused). The JAX
+    package's default is 'radix2' here and 'matmul' in its CLI; the
+    port's is its kernels. The generic route takes wiener, inverse and
+    cls; 'rl' and the edge taper raise NotImplementedError there.
     """
 
     def __init__(
@@ -461,11 +567,12 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         wb_stats_stride: int = 1,
         rl_iters: int = 10,
         edgetaper: bool = False,
+        fft_backend: str = KERNEL_BACKEND,
     ):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
-            rl_iters=rl_iters, edgetaper=edgetaper,
+            rl_iters=rl_iters, edgetaper=edgetaper, fft_backend=fft_backend,
         )
 
     def to_device(self, img_bgr) -> torch.Tensor:
@@ -502,3 +609,11 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         """Restored float32 planes (3, H, W) before color post-processing —
         the quantity the reference programs verify against serial."""
         return self.restore_with_planes(img_bgr, psf_length, psf_angle, K)[1]
+
+
+def deblur_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0.01,
+                 device="cuda", **kwargs):
+    """One-shot convenience wrapper around WienerDeblurPipeline: uint8 BGR
+    (H, W, 3) -> restored uint8 BGR (H, W, 3) numpy. kwargs: the
+    pipeline's options (fft_backend, filter_name, pad_mode, ...)."""
+    return WienerDeblurPipeline(device, **kwargs).restore(img_bgr, psf_length, psf_angle, K)

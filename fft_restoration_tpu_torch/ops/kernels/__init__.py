@@ -8,7 +8,14 @@ CUDA tensor it launches the kernel or raises — there is no fallback.
 it launches its kernel and nowhere else, so a run can show that the
 main path went through the kernels. "mixed_radix" counts the launches of
 the CUDA kernels' instances with cross-DFT levels (B-mixed, a smooth
-length), on top of the count of the kernel launched.
+length), and "fft_rows_natural" those of fft_rows' natural-order
+instance (B6 natural), each on top of the count of the kernel launched.
+
+The public names of the JAX package's `ops.pallas` are here under the
+port's names, imported on first use: `fft_rows` (fft_rows_pallas),
+`fft_cols` (fft_cols_pallas), `fft_rows_radix4_fwd`, `wiener_elem`
+(wiener_pallas), `wiener_spectral_rows` (wiener_spectral_rows_pallas),
+`lab_l_sum_partials` and `wb_encode_u8`.
 """
 
 from __future__ import annotations
@@ -19,8 +26,16 @@ import torch
 
 KERNELS = (
     "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
-    "lab_l_sum_partials", "wb_encode_u8", "mixed_radix",
+    "lab_l_sum_partials", "wb_encode_u8", "mixed_radix", "fft_rows_natural",
+    "fft_cols", "wiener_elem", "wiener_spectral_rows", "fft_rows_radix4",
 )
+
+# public name -> module of ops/kernels that defines it
+PUBLIC = {
+    "fft_rows": "fft_kernel", "fft_cols": "fft_kernel", "fft_rows_radix4_fwd": "fft_radix4",
+    "wiener_elem": "wiener", "wiener_spectral_rows": "wiener_spectral",
+    "lab_l_sum_partials": "postprocess", "wb_encode_u8": "postprocess",
+}
 
 launch_counts: Counter = Counter()
 
@@ -50,3 +65,11 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
             raise ValueError("kernel operands lie on different CUDA devices")
         return True
     raise ValueError(f"kernel operands on unsupported devices {sorted(kinds)}")
+
+
+def __getattr__(name):
+    if name in PUBLIC:
+        import importlib
+
+        return getattr(importlib.import_module(f"{__name__}.{PUBLIC[name]}"), name)
+    raise AttributeError(name)

@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fft_rows.cu", "wiener_spectral.cu")
+SOURCES = ("fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu", "fft_radix4.cu")
 HEADERS = ("fft_common.cuh",)
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -44,9 +44,9 @@ SIGNATURES = {
     # src_re, src_im, in_u8, image stride, channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows,
     # live_cols, P, M, N, stages, rows_per_block, out_re, out_im, minmax,
-    # store, inverse, cos, sin, CROSS, stream
+    # store, inverse, natural, cos, sin, CROSS, stream
     "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                        I, I, I, P, P, P, I, I, P, P, *CROSS, P],
+                        I, I, I, P, P, P, I, I, I, P, P, *CROSS, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
@@ -58,6 +58,16 @@ SIGNATURES = {
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
     # rows_per_block, cos_f, sin_f, CROSS fwd, stream
     "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, *CROSS, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
+    # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
+    "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P, P, P],
+    # re, im, out_re, out_im, planes, H, W, stages, cols, mode, cos, sin, stream
+    "fft_cols_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P],
+    # g_re, g_im, h_re, h_im, K, f_re, f_im, planes, plane elements, vec4, stream
+    "wiener_elem_launch": [P, P, P, P, F, P, P, LL, LL, I, P],
+    # re, im, out_re, out_im, rows, N, log2 N, radix-4 stages, radix-2
+    # stages, rows_per_block, cos4, sin4, cos2, sin2, stream
+    "fft_radix4_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
 }
 
 # nvcc's output of the last build in this process (ptxas register report)

@@ -1,15 +1,18 @@
-"""Row-FFT kernel family (B1/B3/B6) — wrappers and plain versions.
+"""FFT kernel family (B1/B3/B6, B11) — wrappers and plain versions.
 
 Counterpart of fft_restoration_tpu/ops/pallas/fft_kernel.py. One CUDA
 kernel (csrc/fft_rows.cu) serves the three TPU kernels that share the
 `_run_stages` body: the transposed-write forward pass (B1,
 `_fft_rows_transposed`), the plain row pass (B6, `fft_rows_pallas`) and
 the final packed-output inverse with min/max partials (B3,
-`fft_rows_packed_out`).
+`fft_rows_packed_out`). `fft_cols` (csrc/fft_cols.cu) is B11,
+`fft_cols_pallas`: the same stages down the columns.
 
-Ordering is always revorder, the pipeline's contract: the forward
-transform is DIF (natural in, bit-reversed out), the inverse DIT
-(bit-reversed in, natural out), unscaled. The stages are pure radix-2,
+The pipeline's ordering is revorder: the forward transform is DIF
+(natural in, bit-reversed out), the inverse DIT (bit-reversed in,
+natural out), unscaled. `ordering="natural"` (B6's and B11's natural
+mode, pow2 lengths) bit-reverses the input and runs the DIT stages with
+the direction's tables: natural in and out. The stages are pure radix-2,
 the JAX package's engine="roll" semantics, so spectra are in plain
 bit-reversed order — not the TPU MXU engine's "hybrid" order.
 
@@ -52,6 +55,7 @@ ROWS_SMEM_BUDGET = 64 << 10
 # one complex float32 row must fit a block's shared memory (227 KB on
 # Hopper): the kernels take rows of at most 16384 points
 MAX_KERNEL_N = 16384
+MAX_BLOCK_SMEM = 232448
 
 
 @functools.lru_cache(maxsize=None)
@@ -310,19 +314,50 @@ def _mixed_cross_inv(x_re, x_im, radices, xc, xs):
     return x_re, x_im
 
 
-def run_stages(x_re, x_im, inverse: bool, radices: tuple = ()):
+ORDERINGS = ("revorder", "natural")
+
+
+def check_ordering(ordering: str, radices: tuple = ()) -> bool:
+    """True for 'natural', False for 'revorder'; natural ordering takes a
+    pow2 length only (the JAX fft_rows_pallas refuses radices with it)."""
+    if ordering not in ORDERINGS:
+        raise ValueError(f"unknown ordering {ordering!r}; one of {ORDERINGS}")
+    if ordering == "natural" and radices:
+        raise ValueError("mixed-radix (radices) requires revorder ordering")
+    return ordering == "natural"
+
+
+def bit_reverse_last_axis(x: torch.Tensor) -> torch.Tensor:
+    """Bit-reversal permutation of a pow2 last axis, as a reshape to
+    log2(n) axes of 2 and a permute reversing them (the JAX
+    ops/fft.py:_bit_reverse_last_axis)."""
+    n = x.shape[-1]
+    m = n.bit_length() - 1
+    lead = tuple(x.shape[:-1])
+    y = x.reshape(lead + (2,) * m)
+    axes = tuple(range(len(lead))) + tuple(len(lead) + m - 1 - i for i in range(m))
+    return y.permute(axes).reshape(lead + (n,))
+
+
+def run_stages(x_re, x_im, inverse: bool, radices: tuple = (), natural: bool = False):
     """The transform over the last axis: forward = the cross levels (for
     radices) then the DIF stages over the pow2 tail; inverse = the DIT
     stages then the inverse cross levels (the JAX _run_stages), with the
-    tables of the tensors' device."""
+    tables of the tensors' device. natural: natural order in and out —
+    bit-reverse the input, then the DIT stages with this direction's
+    tables (the JAX 'natural' ordering; pow2 only)."""
     n = x_re.shape[-1]
     radices = tuple(radices)
     stages = check_length(n, radices)
     t = tables(n, bool(inverse), x_re.device, radices)
+    if natural:
+        check_ordering("natural", radices)
+        x_re, x_im = bit_reverse_last_axis(x_re), bit_reverse_last_axis(x_im)
     if radices and not inverse:
         x_re, x_im = _mixed_cross_fwd(x_re, x_im, radices, t.xcos, t.xsin)
-    order = range(stages) if inverse else range(stages - 1, -1, -1)
-    stage = _dit_stage if inverse else _dif_stage
+    dit = inverse or natural
+    order = range(stages) if dit else range(stages - 1, -1, -1)
+    stage = _dit_stage if dit else _dif_stage
     for s in order:
         x_re, x_im = stage(x_re, x_im, t.cos[s], t.sin[s], t.mask[s], 1 << s)
     if radices and inverse:
@@ -359,21 +394,24 @@ def _check_planes(re, im, extent, radices):
     return int(big_m), int(big_n)
 
 
-def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=()):
+def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
+                   ordering="revorder"):
     """Plain version of `fft_rows` (same signature and layout)."""
+    natural = check_ordering(ordering, radices)
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes = re.shape[0]
     x_re = _logical(re, planes, (big_m, big_n))
     x_im = (
         torch.zeros_like(x_re) if im is None else _logical(im, planes, (big_m, big_n))
     )
-    x_re, x_im = run_stages(x_re, x_im, inverse, radices)
+    x_re, x_im = run_stages(x_re, x_im, inverse, radices, natural)
     if transposed:
         return x_re.transpose(1, 2).contiguous(), x_im.transpose(1, 2).contiguous()
     return x_re, x_im
 
 
-def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radices=()):
+def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
+             ordering="revorder"):
     """Row FFT over the last axis of (P, m, n) planes (B1/B6).
 
     re, im: uint8 or float32 planes of any strides (im with re's strides);
@@ -387,10 +425,15 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     (P, M, N). Forward = DIF (bit-reversed out), inverse = DIT
     (bit-reversed in), unscaled. radices: the odd cross-DFT radices of a
     smooth N = prod(radices) * 2^k (module docstring), () for a pow2 N.
+    ordering='natural' (pow2 N): natural order in and out, the loader
+    writing each row bit-reversed and the DIT stages running with this
+    direction's tables (B6's natural mode, the `pallas` backend of ops/fft.py;
+    counted under "fft_rows_natural" too).
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
-                              radices=radices)
+                              radices=radices, ordering=ordering)
+    natural = check_ordering(ordering, radices)
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
@@ -409,7 +452,7 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
         re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
         0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n,
         rows, out_re, out_im, None, STORE_T if transposed else STORE_NATURAL, inverse,
-        radices,
+        radices, natural,
     )
     return out_re, out_im
 
@@ -539,9 +582,9 @@ class PlaneMap(NamedTuple):
 
 
 def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, rows,
-            out_re, out_im, mm, store, inverse, radices):
+            out_re, out_im, mm, store, inverse, radices, natural=False):
     """One fft_rows launch over re_live pairs (every re plane is live; the
-    first im_live im planes are)."""
+    first im_live im planes are); natural: the natural-order instance."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     check_kernel_length(big_n)
@@ -557,10 +600,88 @@ def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, 
         pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
         live_rows, live_cols, re_live, big_m, big_n, stages,
         rows, out_re.data_ptr(), out_im.data_ptr(),
-        None if mm is None else mm.data_ptr(), store, int(bool(inverse)),
+        None if mm is None else mm.data_ptr(), store, int(bool(inverse)), int(bool(natural)),
         t.cos.data_ptr(), t.sin.data_ptr(), *cross, stream,
     )
     _build.check(err, "fft_rows")
     launch_counts["fft_rows"] += 1
     if radices:
         launch_counts["mixed_radix"] += 1
+    if natural:
+        launch_counts["fft_rows_natural"] += 1
+
+
+# ---------------------------------------------------------------------------
+# B11: the column FFT (csrc/fft_cols.cu)
+
+# shared memory of one fft_cols block (a strip of `cols` columns x H rows,
+# two float planes): 8 columns at H = 2048, 4 at H = 4096; at most 32
+# columns (128 B of each row)
+COLS_SMEM_BUDGET = 128 << 10
+MAX_STRIP_COLS = 32
+
+
+def cols_per_block(h: int, w: int) -> int:
+    """Columns an fft_cols block holds: the largest power of two <= 32 that
+    fits COLS_SMEM_BUDGET and is not past the next power of two >= w."""
+    c = max(1, min(MAX_STRIP_COLS, COLS_SMEM_BUDGET // (8 * h), 1 << max(0, (w - 1).bit_length())))
+    return 1 << (c.bit_length() - 1)
+
+
+def _check_cols(re, im):
+    if re.ndim < 2 or im.shape != re.shape:
+        raise ValueError(f"need matching (..., H, W) planes, got {tuple(re.shape)}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise ValueError("planes must be float32")
+    h = re.shape[-2]
+    if h < 1 or h & (h - 1):
+        raise ValueError(f"fft_cols needs a power-of-two height, got {h}")
+    return h
+
+
+def fft_cols_plain(re, im, *, inverse=False, ordering="natural"):
+    """Plain version of `fft_cols`: the row stages over the transposed
+    planes (the same tables and arithmetic as the kernel's column stages)."""
+    h = _check_cols(re, im)
+    natural = check_ordering(ordering)
+    if h < 2:
+        return re, im
+    x_re, x_im = run_stages(re.transpose(-1, -2), im.transpose(-1, -2), inverse, (), natural)
+    return x_re.transpose(-1, -2).contiguous(), x_im.transpose(-1, -2).contiguous()
+
+
+def fft_cols(re, im, *, inverse=False, ordering="natural"):
+    """1D DFT along axis -2 (the columns) of (..., H, W) float32 planes, H
+    a power of two, any W; unscaled (B11, the JAX fft_cols_pallas).
+
+    ordering: 'natural' (natural in and out: a bit-reversed load, then the
+    DIT stages with this direction's tables) or 'revorder' (forward DIF,
+    bit-reversed out; inverse DIT, bit-reversed in). With `fft_rows(...,
+    ordering='natural')` it makes the transpose-free 2D FFT. Operands
+    contiguous; a ragged last strip of columns is bounds-checked in the
+    kernel (the JAX kernel pads W with a copy)."""
+    if not on_cuda(re, im):
+        return fft_cols_plain(re, im, inverse=inverse, ordering=ordering)
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    h = _check_cols(re, im)
+    natural = check_ordering(ordering)
+    if h < 2:
+        return re, im
+    check_kernel_length(h)
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError("planes must be contiguous")
+    w = re.shape[-1]
+    lead = re.numel() // (h * w)
+    cols = cols_per_block(h, w)
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    t = tables(h, bool(inverse), re.device)
+    mode = 2 if natural else int(bool(inverse))  # natural, else revorder DIF / DIT
+    err = _build.load().fft_cols_launch(
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), lead, h, w,
+        h.bit_length() - 1, cols, mode, t.cos.data_ptr(), t.sin.data_ptr(),
+        torch.cuda.current_stream(re.device).cuda_stream,
+    )
+    _build.check(err, "fft_cols")
+    launch_counts["fft_cols"] += 1
+    return out_re, out_im

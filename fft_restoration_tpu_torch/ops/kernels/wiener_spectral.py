@@ -14,7 +14,11 @@ in csrc/wiener_spectral.cu:
      filter only, natural store; `fft_rows(..., inverse=True,
      transposed=True)` then finishes the middle. The pipeline takes it
      when the column length is below 512 (models/pipeline.py).
-Every function takes `radices` (a smooth column length, the cross levels
+  B10 `wiener_spectral_rows` (wiener_spectral_rows_pallas): B2's Wiener
+     body with the natural store, over (..., M, N) planes with a ragged
+     last row block; on no restore path (the JAX package runs it in its
+     A/B harness only), timed by tools/perf_ab.py megakernel.
+B2 and B7 take `radices` (a smooth column length, the cross levels
 of ops/kernels/fft_kernel.py around its DIF and DIT stages).
 """
 
@@ -24,6 +28,7 @@ import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
 from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
+    MAX_BLOCK_SMEM,
     check_kernel_length,
     check_length,
     cross_args,
@@ -149,6 +154,66 @@ def wiener_spectral_t(a_re, a_im, h_re, h_im, K, radices=()):
                              radices)
     launch_counts["wiener_spectral_t"] += 1
     return out
+
+
+def _check_rows(a_re, a_im, h_re, h_im, rows):
+    """Validate B10's operands; returns (planes, M, N, stages, rows)."""
+    if a_re.ndim < 2 or a_im.shape != a_re.shape:
+        raise ValueError(f"need matching (..., M, N) planes, got {tuple(a_re.shape)}")
+    m, n = a_re.shape[-2:]
+    if h_re.shape != (m, n) or h_im.shape != (m, n):
+        raise ValueError(f"PSF spectrum {tuple(h_re.shape)} does not match planes "
+                         f"{tuple(a_re.shape)}")
+    for t in (a_re, a_im, h_re, h_im):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("planes and spectrum must be contiguous float32")
+    stages = check_length(n)
+    if rows is None:
+        rows = rows_per_block(n, m)
+    if rows < 1 or rows & (rows - 1) or rows > 16 or 8 * rows * n > MAX_BLOCK_SMEM:
+        raise ValueError(f"rows per block {rows}: a power of two <= 16 whose {rows} rows "
+                         f"of {n} points fit {MAX_BLOCK_SMEM} bytes of shared memory")
+    return a_re.numel() // (m * n), m, n, stages, rows
+
+
+def wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, K, rows=None):
+    """Plain version of `wiener_spectral_rows` (same signature and layout)."""
+    _check_rows(a_re, a_im, h_re, h_im, rows)
+    g = run_stages(a_re, a_im, False)
+    f = wiener_filter(g, (h_re, h_im), K)
+    return run_stages(f[0], f[1], True)
+
+
+def wiener_spectral_rows(a_re, a_im, h_re, h_im, K, rows=None):
+    """rowIFFT(wiener(rowFFT(A), H)) over the last axis, unscaled, stored
+    in place order (B10, the JAX wiener_spectral_rows_pallas).
+
+    a_re, a_im: (..., M, N) contiguous float32 planes, N a power of two,
+    the revorder spectrum pending along N (DIF forward, DIT inverse, so
+    the output is in natural order); h_re, h_im: the (M, N) spectrum in
+    the same layout, row m serving row m of every plane. rows: rows a
+    kernel block holds (a power of two <= 16; default rows_per_block),
+    the knob of the A/B harness (tools/perf_ab.py megakernel). Returns
+    (..., M, N) float32 planes.
+    """
+    if not on_cuda(a_re, a_im, h_re, h_im):
+        return wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, K, rows)
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    planes, m, n, stages, rows = _check_rows(a_re, a_im, h_re, h_im, rows)
+    check_kernel_length(n)
+    out_re, out_im = torch.empty_like(a_re), torch.empty_like(a_im)
+    tf = tables(n, False, a_re.device)
+    ti = tables(n, True, a_re.device)
+    err = _build.load().wiener_spectral_rows_launch(
+        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), float(K),
+        out_re.data_ptr(), out_im.data_ptr(), planes, m, n, stages, rows,
+        tf.cos.data_ptr(), tf.sin.data_ptr(), ti.cos.data_ptr(), ti.sin.data_ptr(),
+        torch.cuda.current_stream(a_re.device).cuda_stream,
+    )
+    _build.check(err, "wiener_spectral_rows")
+    launch_counts["wiener_spectral_rows"] += 1
+    return out_re, out_im
 
 
 def spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj=False, radices=()):

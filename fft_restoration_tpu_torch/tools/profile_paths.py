@@ -2,13 +2,14 @@
 
     python -m fft_restoration_tpu_torch.tools.profile_paths [--iters N] [--seed N]
         [--paths single_2048sq,batch64_256sq,batch8_2048sq,rl_2048sq,edgetaper_2048sq,
-                 uhd_smooth,uhd_pow2]
+                 uhd_smooth,uhd_pow2,generic_matmul_2048sq]
 
 For each path (the 2048x2048x3 single frame, batch64 256^2, batch8
 2048^2, serving graph, wb_stats_stride 1 and 4; the 2048x2048x3 frame
 with Richardson-Lucy at 10 iterations and with Wiener + the edge taper,
-and the UHD 3840x2160x3 frame with --pad smooth (2304x3840, the cross
-levels in every FFT launch) and pow2 (4096x4096), wb_stats_stride 1) it
+the UHD 3840x2160x3 frame with --pad smooth (2304x3840, the cross
+levels in every FFT launch) and pow2 (4096x4096), and the 2048x2048x3
+frame on the generic route with fft_backend='matmul', wb_stats_stride 1) it
 runs the restore
 `--iters` times back to back: once timed with CUDA events (ms per run),
 once under torch.profiler. From the profile: device busy per run (the
@@ -37,7 +38,8 @@ PATHS = (("single_2048sq", None, (2048, 2048), 50, {}, (1, 4)),
          ("rl_2048sq", None, (2048, 2048), 50, dict(filter_name="rl", rl_iters=10), (1,)),
          ("edgetaper_2048sq", None, (2048, 2048), 50, dict(edgetaper=True), (1,)),
          ("uhd_smooth", None, (2160, 3840), 50, dict(pad_mode="smooth"), (1,)),
-         ("uhd_pow2", None, (2160, 3840), 50, {}, (1,)))
+         ("uhd_pow2", None, (2160, 3840), 50, {}, (1,)),
+         ("generic_matmul_2048sq", None, (2048, 2048), 50, dict(fft_backend="matmul"), (1,)))
 
 
 def _frames(np, b, hw, seed, psf):

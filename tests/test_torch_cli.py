@@ -188,3 +188,36 @@ def test_directory_psf_too_long_skips_group(tmp_path, capsys):
     assert cli.main([str(tmp_path), "40", "30", "--device", "cpu", "-o",
                      str(tmp_path / "o")]) == 1
     assert "skipping 2 frame(s) of size 20x20" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("backend", ["matmul", "radix2"])
+def test_fft_backend_restores_and_verifies(blurred_png, tmp_path, capsys, backend):
+    """--fft-backend takes the generic route, verified against the oracle
+    like the kernel route; its output is WienerDeblurPipeline's."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-backend", backend,
+                   "--tier", "l2", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=l2" in text and backend in text, text
+    ref = WienerDeblurPipeline("cpu", fft_backend=backend).restore(imread(str(blurred_png)), 9, 30.0)
+    assert np.array_equal(imread(str(out)), ref)
+
+
+def test_fft_backend_is_ported_and_defaults_to_the_kernels():
+    assert "--fft-backend" not in cli.NOT_PORTED and "--fft-engine" in cli.NOT_PORTED
+    assert cli.build_parser().parse_args(["x.png", "9", "30"]).fft_backend == "pallas"
+
+
+@pytest.mark.parametrize("extra,item", [(["--filter", "rl"], "A3"), (["--edgetaper"], "A3")])
+def test_generic_route_refuses_rl_and_taper(blurred_png, capsys, extra, item):
+    assert cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-backend", "matmul",
+                     *extra]) == 2
+    assert f"ROADMAP.md {item}" in capsys.readouterr().out
+
+
+def test_generic_route_refuses_directories(tmp_path, capsys):
+    imwrite(str(tmp_path / "a.png"), np.zeros((20, 20, 3), np.uint8))
+    assert cli.main([str(tmp_path), "9", "30", "--device", "cpu", "--fft-backend", "naive"]) == 2
+    assert "ROADMAP.md A7" in capsys.readouterr().out

@@ -11,6 +11,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from fft_restoration_tpu.ops.pallas import fft_radix4 as jr4
 from fft_restoration_tpu.oracle import color as jcolor
 from fft_restoration_tpu.oracle.psf import make_psf_oracle
 from fft_restoration_tpu.oracle.serial import dft_naive as j_dft_naive
@@ -23,6 +24,7 @@ from fft_restoration_tpu.utils.verify import channels_equal as j_channels_equal
 from fft_restoration_tpu_torch.host import imageio, oracle, padding, verify
 from fft_restoration_tpu_torch.host.blurgen import blur_image
 from fft_restoration_tpu_torch.ops import color
+from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as tr4
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -173,9 +175,40 @@ def test_port_and_smoke_import_nothing_of_jax():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert {f"fft_restoration_tpu_torch/{m}.py" for m in (
         "models/convolve", "models/richardson_lucy", "models/edgetaper", "host/taper",
-        "host/edgetaper", "ops/wiener", "tools/profile_paths", "tools/rl_rim",
+        "host/edgetaper", "ops/wiener", "tools/profile_paths", "tools/rl_rim", "ops/fft",
+        "models/filters", "ops/kernels/wiener", "ops/kernels/fft_radix4", "tools/perf_ab",
     )} <= names
     for f in files:
         bad = {m for m in _imported_modules(f)
                if m.split(".")[0] in ("jax", "jaxlib", "fft_restoration_tpu")}
         assert not bad, (f.name, bad)
+
+
+def test_port_sources_name_no_jax_module():
+    """A text search on top of the import check: no line of the port's
+    sources (Python and CUDA) or of chip_smoke.py imports JAX or the JAX
+    package, however spelled (importlib, __import__ included)."""
+    import re
+
+    files = [ROOT / "chip_smoke.py", *sorted((ROOT / "fft_restoration_tpu_torch").rglob("*.py")),
+             *sorted((ROOT / "fft_restoration_tpu_torch" / "csrc").iterdir())]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fft_restoration_tpu)\b"
+                     r"|import_module\(\s*[\"'](jax|fft_restoration_tpu)\b"
+                     r"|__import__\(\s*[\"'](jax|fft_restoration_tpu)\b")
+    hits = [(f.name, i + 1, line) for f in files
+            for i, line in enumerate(f.read_text().splitlines()) if pat.search(line)]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 128, 2048])
+def test_radix4_helpers_match(n):
+    assert tr4.radix4_stage_lengths(n) == jr4.radix4_stage_lengths(n)
+    for ours, ref in zip(tr4._r4_tables_np(n), jr4._r4_tables_np(n)):
+        np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(tr4.radix4_output_permutation(n),
+                                  jr4.radix4_output_permutation(n))
+    rng = np.random.default_rng(n)
+    re, im = rng.standard_normal((2, 3, n)).astype(np.float32)
+    for args in ((re, None), (re, im)):
+        for ours, ref in zip(tr4._numpy_sim(*args), jr4._numpy_sim(*args)):
+            np.testing.assert_array_equal(ours, ref)

@@ -15,7 +15,11 @@ zero-padded frames against the float64 RL of the same input planes:
 without it at most twice an independent float32 RL's (torch.fft)
 distance, since there every float32 RL sits ~0.1 from the float64 one.
 Mixed radix (--pad smooth): the same 1e-5 for every kernel with cross
-levels, 1e-4 planes and 1 count for the smooth restore paths.
+levels, 1e-4 planes and 1 count for the smooth restore paths. The ops
+layer (B6 natural, B9 wiener_elem, B10 wiener_spectral_rows, B11
+fft_cols, B12 radix-4): 1e-5 of the output's max magnitude against the
+plain version; the generic route on the card against its CPU run 1e-5
+planes, 1 count.
 """
 
 import numpy as np
@@ -445,3 +449,147 @@ def test_smooth_pipeline_kernels_vs_plain_and_launches(dev, gen, b, h, w, middle
                                     pad_mode="smooth", ops=PLAIN_OPS)
     assert np.abs(planes - planes_p.cpu().numpy()).max() <= 1e-4
     assert np.abs(out.astype(np.int32) - out_p.cpu().numpy().astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("p,m,n", [(3, 2048, 2048), (2, 8, 4096), (1, 6, 2)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_rows_natural(dev, gen, p, m, n, inverse):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    re, im = (torch.as_tensor(gen.standard_normal((p, m, n), dtype=np.float32), device=dev)
+              for _ in range(2))
+    reset_launch_counts()
+    ours = fk.fft_rows(re, im, inverse=inverse, ordering="natural")
+    assert launch_counts["fft_rows"] == 1 and launch_counts["fft_rows_natural"] == 1
+    for o, r in zip(ours, fk.fft_rows_plain(re, im, inverse=inverse, ordering="natural")):
+        assert _rel(o, r) <= 1e-5
+    z = torch.fft.ifft(torch.complex(re, im)) * n if inverse else torch.fft.fft(torch.complex(re, im))
+    assert _rel(ours[0], z.real) <= 1e-5 and _rel(ours[1], z.imag) <= 1e-5
+
+
+@pytest.mark.parametrize("ordering", ["natural", "revorder"])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("l,h,w", [(3, 2048, 2048), (1, 4096, 64), (2, 128, 37), (2, 2, 5)])
+def test_fft_cols(dev, gen, l, h, w, inverse, ordering):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    re, im = (torch.as_tensor(gen.standard_normal((l, h, w), dtype=np.float32), device=dev)
+              for _ in range(2))
+    reset_launch_counts()
+    ours = fk.fft_cols(re, im, inverse=inverse, ordering=ordering)
+    assert launch_counts["fft_cols"] == 1
+    for o, r in zip(ours, fk.fft_cols_plain(re, im, inverse=inverse, ordering=ordering)):
+        assert o.shape == (l, h, w) and _rel(o, r) <= 1e-5
+
+
+def test_transpose_free_fft2(dev, gen):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    re, im = (torch.as_tensor(gen.standard_normal((3, 2048, 2048), dtype=np.float32), device=dev)
+              for _ in range(2))
+    ours = fk.fft_cols(*fk.fft_rows(re, im, ordering="natural"), ordering="natural")
+    z = torch.fft.fft2(torch.complex(re, im))
+    assert _rel(ours[0], z.real) <= 1e-5 and _rel(ours[1], z.imag) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,offset", [((3, 2048, 2048), 0), ((3, 63, 130), 0),
+                                          ((2, 64, 128), 1)])
+def test_wiener_elem(dev, gen, shape, offset):
+    """The float4 instance (aligned operands, plane % 4 == 0) and the
+    scalar one (a 63 x 130 plane, not a multiple of 4; an operand one
+    float past 16-byte alignment)."""
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels.wiener import wiener_elem, wiener_elem_plain
+
+    size = int(np.prod(shape))
+    buf = torch.as_tensor(gen.standard_normal(size + offset, dtype=np.float32), device=dev)
+    g_re = buf[offset:].view(shape)
+    g_im = torch.as_tensor(gen.standard_normal(shape, dtype=np.float32), device=dev)
+    h_re, h_im = (torch.as_tensor(gen.standard_normal(shape[-2:], dtype=np.float32), device=dev)
+                  for _ in range(2))
+    reset_launch_counts()
+    ours = wiener_elem(g_re, g_im, h_re, h_im, 0.01)
+    assert launch_counts["wiener_elem"] == 1
+    for o, r in zip(ours, wiener_elem_plain(g_re, g_im, h_re, h_im, 0.01)):
+        assert _rel(o, r) <= 1e-5
+
+
+@pytest.mark.parametrize("p,m,n,rows", [(3, 2048, 2048, None), (3, 2048, 2048, 1),
+                                        (3, 2048, 2048, 8), (2, 100, 256, 4), (1, 3, 16, 16)])
+def test_wiener_spectral_rows(dev, gen, p, m, n, rows):
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    a_re, a_im = (torch.as_tensor(gen.standard_normal((p, m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    h_re, h_im = (torch.as_tensor(gen.standard_normal((m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    reset_launch_counts()
+    ours = ws.wiener_spectral_rows(a_re, a_im, h_re, h_im, 0.01, rows=rows)
+    assert launch_counts["wiener_spectral_rows"] == 1
+    for o, r in zip(ours, ws.wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, 0.01, rows)):
+        assert o.shape == (p, m, n) and _rel(o, r) <= 1e-5
+
+
+@pytest.mark.parametrize("b,n", [(6144, 2048), (7, 1024), (5, 16), (3, 8)])
+@pytest.mark.parametrize("real", [True, False])
+def test_fft_rows_radix4(dev, gen, b, n, real):
+    from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    re = torch.as_tensor(gen.standard_normal((b, n), dtype=np.float32), device=dev)
+    im = None if real else torch.as_tensor(gen.standard_normal((b, n), dtype=np.float32),
+                                           device=dev)
+    reset_launch_counts()
+    ours = r4.fft_rows_radix4_fwd(re, im)
+    assert launch_counts["fft_rows_radix4"] == 1
+    for o, r in zip(ours, r4.fft_rows_radix4_fwd_plain(re, im)):
+        assert _rel(o, r) <= 1e-5
+    # the JAX kernel's digit-reversed order: the numpy simulation
+    sim = r4._numpy_sim(re.cpu().numpy(), None if real else im.cpu().numpy())
+    for o, r in zip(ours, sim):
+        assert _rel(o.cpu().double(), torch.from_numpy(r)) <= 1e-5
+
+
+def test_fft_backends_launches_and_full_float32(dev, gen):
+    """fft2d's pallas backend runs fft_rows' natural instance (twice, rows
+    then columns); matmul runs none of the FFT kernels and stays true
+    float32 even with TF32 switched on around it."""
+    from fft_restoration_tpu_torch.ops import fft as tfft
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    re, im = (gen.standard_normal((3, 512, 256), dtype=np.float32) for _ in range(2))
+    cpu = tfft.fft2d(torch.from_numpy(re), torch.from_numpy(im), backend="matmul")
+    x = [torch.as_tensor(a, device=dev) for a in (re, im)]
+    reset_launch_counts()
+    ours = tfft.fft2d(*x, backend="pallas")
+    assert launch_counts["fft_rows_natural"] == 2 and launch_counts["fft_rows"] == 2
+    for o, r in zip(ours, cpu):
+        assert _rel(o.cpu(), r) <= 1e-4
+    reset_launch_counts()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ours = tfft.fft2d(*x, backend="matmul")
+        assert torch.backends.cuda.matmul.allow_tf32  # restored on exit
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert not any(launch_counts.values()), dict(launch_counts)
+    for o, r in zip(ours, cpu):
+        assert _rel(o.cpu(), r) <= 1e-5
+
+
+@pytest.mark.parametrize("backend", ["matmul", "radix2", "naive", "xla", "pallas"])
+def test_generic_route_on_the_card_matches_cpu(gen, backend):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+
+    img = blur_image(gen.integers(0, 256, (330, 640, 3), dtype=np.uint8), 21, 30.0)
+    out, planes = WienerDeblurPipeline("cuda", fft_backend=backend).restore_with_planes(
+        img, 21, 30.0)
+    out_c, planes_c = WienerDeblurPipeline("cpu", fft_backend=backend).restore_with_planes(
+        img, 21, 30.0)
+    assert np.abs(planes - planes_c).max() <= 1e-5
+    assert np.abs(out.astype(np.int32) - out_c.astype(np.int32)).max() <= 1

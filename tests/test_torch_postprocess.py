@@ -86,7 +86,10 @@ def test_geometry_helpers_match_jax():
                     ) == jpp.sampled_live_pixels(h0, w0, live, block, stride)
 
 
-def test_color_planar_matches_jax(rng):
+def test_color_planar_matches_jax():
+    # its own generator: drawn from the shared `rng` fixture, the planes
+    # depended on the tests run before it, and some draws sat at the bound
+    rng = np.random.default_rng(2024)
     b, g, r = (rng.random((64, 96)).astype(np.float32) for _ in range(3))
     jb, jg, jr = (jnp.asarray(x) for x in (b, g, r))
     tb, tg, tr = (torch.from_numpy(x) for x in (b, g, r))
