@@ -27,8 +27,10 @@ lines; any failure exits non-zero:
              below; each timed against its plain version with CUDA
              events, beside its bound (the larger of the bytes it must
              move over 3.35 TB/s and its float32 operations over 67
-             TFLOP/s) and, for each fft_rows mode, torch.fft.fft over the
+             TFLOP/s) and, for each row-FFT mode, torch.fft.fft over the
              same complex planes (the library yardstick, not on the path);
+             B1's transposed passes are the fft_rows_t row (csrc/
+             fft_rows_t.cu), B3 and B6 the fft_rows row (csrc/fft_rows.cu);
              then each kernel mode at its smooth shape (B1 u8 at
              2160x3840 -> 3840 wide, B6 and B2 'wiener' / 'conv' / conj
              at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
@@ -41,6 +43,7 @@ lines; any failure exits non-zero:
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
+             every restore path's transposed passes B1's fft_rows_t;
              batch64 must take the B7 middle, batch8 the B2 middle),
              then against the port's plain path on the card (the same
              restore with every kernel's plain version); 640x330 and
@@ -124,20 +127,22 @@ _NO_WIENER = ("wiener_spectral_t", "fwd_wiener_rows")
 _POST = ("lab_l_sum_partials", "wb_encode_u8")
 FAMILY = (
     ("rl_2048sq", dict(filter_name="rl", rl_iters=RL_ITERS),
-     ("fft_rows", "spectral_conv_t"), _NO_WIENER + _POST),
+     ("fft_rows", "fft_rows_t", "spectral_conv_t"), _NO_WIENER + _POST),
     ("wiener_edgetaper_2048sq", dict(edgetaper=True),
-     ("fft_rows", "spectral_conv_t", "wiener_spectral_t") + _POST, ("fwd_wiener_rows",)),
-    ("inverse_2048sq", dict(filter_name="inverse"), ("fft_rows",) + _POST,
+     ("fft_rows", "fft_rows_t", "spectral_conv_t", "wiener_spectral_t") + _POST,
+     ("fwd_wiener_rows",)),
+    ("inverse_2048sq", dict(filter_name="inverse"), ("fft_rows", "fft_rows_t") + _POST,
      _NO_WIENER + ("spectral_conv_t",)),
-    ("cls_2048sq", dict(filter_name="cls"), ("fft_rows",) + _POST,
+    ("cls_2048sq", dict(filter_name="cls"), ("fft_rows", "fft_rows_t") + _POST,
      _NO_WIENER + ("spectral_conv_t",)),
 )
 # RL and the taper on eight 256^2 frames (PSF(25, 30)): the unfused conv
 # middle; the same fields as FAMILY
 SMALL_FAMILY = (
-    ("batch8_256sq_rl", dict(filter_name="rl", rl_iters=RL_ITERS), ("fft_rows",),
+    ("batch8_256sq_rl", dict(filter_name="rl", rl_iters=RL_ITERS), ("fft_rows", "fft_rows_t"),
      ("spectral_conv_t",) + _NO_WIENER + _POST),
-    ("batch8_256sq_edgetaper", dict(edgetaper=True), ("fft_rows", "fwd_wiener_rows") + _POST,
+    ("batch8_256sq_edgetaper", dict(edgetaper=True),
+     ("fft_rows", "fft_rows_t", "fwd_wiener_rows") + _POST,
      ("spectral_conv_t", "wiener_spectral_t")),
 )
 # B2 'conv' launches a run of each family path takes
@@ -179,6 +184,31 @@ def nvidia_smi() -> str:
     if res.returncode != 0:
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build_log: str) -> list:
+    """One line per compiled kernel instance from nvcc's -Xptxas -v output:
+    its (demangled) name, registers, stack frame and spills."""
+    import re
+    import shutil
+
+    entries, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries.append((name, m.group(1), spill))
+            name = None
+    names = [e[0] for e in entries]
+    if names and shutil.which("c++filt"):
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True)
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            names = [n.split("(")[0] for n in res.stdout.splitlines()]
+    return [f"{n}: {regs} registers; {spill}" for n, (_, regs, spill) in zip(names, entries)]
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -349,11 +379,12 @@ def check_fft_rows(torch, np, frame, stack64, iters):
     modes = {}
     for mode, (outs, kern, plain, nbytes, flops, lib_fn) in specs.items():
         m = modes[mode] = measure(torch, outs, kern, plain, iters, nbytes, flops, lib_fn)
-        log(f"fft_rows {mode}: max rel err {m['max_rel_err']:.3e} (tol {TOL_FFT_REL}); "
+        kernel = "fft_rows_t" if mode.startswith("B1_") else "fft_rows"
+        log(f"{kernel} {mode}: max rel err {m['max_rel_err']:.3e} (tol {TOL_FFT_REL}); "
             f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f}, torch.fft {m['library_ms']:.4f}, "
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
         if not m["max_rel_err"] <= TOL_FFT_REL:
-            fail(f"fft_rows {mode} disagrees with its plain version")
+            fail(f"{kernel} {mode} disagrees with its plain version")
     return modes, dict(frame=(fwd_p, Hp, mid, out_p, mm_p, img), batch64=(st_p, H64, s64))
 
 
@@ -372,20 +403,22 @@ def check_kernels(torch, np, frame, stack64, stack8, iters):
     modes, keep = check_fft_rows(torch, np, frame, stack64, iters)
     fwd_p, Hp, mid, out_p, mm_p, img = keep["frame"]
     st_p, H64, s64 = keep["batch64"]
-    per_frame = ("B1_frame_T", "B3_packed_inv")  # the two passes of a 2048^2 restore
-    rows.append(dict(
-        name="fft_rows", route="cuda", source=SRC + "csrc/fft_rows.cu",
-        replaces=TPU + "fft_kernel.py:699",
-        also_replaces=[TPU + "fft_kernel.py:820", TPU + "fft_kernel.py:1107"],
-        max_abs_err=max(m["max_abs_err"] for m in modes.values()),
-        max_rel_err=max(m["max_rel_err"] for m in modes.values()),
-        ms=sum(modes[k]["ms"] for k in per_frame),
-        plain_ms=sum(modes[k]["plain_ms"] for k in per_frame),
-        library_ms=sum(modes[k]["library_ms"] for k in per_frame),
-        bound_ms=sum(modes[k]["bound_ms"] for k in per_frame),
-        bound_by=("operations", "bytes")[all(modes[k]["bound_by"] == "bytes" for k in per_frame)],
-        modes=modes,
-    ))
+    # B1 (csrc/fft_rows_t.cu), its row at the 2048^2 frame's pass; B3 and
+    # B6 (csrc/fft_rows.cu), its row at the frame's B3 pass (the
+    # "fft_rows" count holds the launches of all three)
+    for name, src, tpu, also, main_mode in (
+            ("fft_rows_t", "csrc/fft_rows_t.cu", "fft_kernel.py:699", [], "B1_frame_T"),
+            ("fft_rows", "csrc/fft_rows.cu", "fft_kernel.py:820", [TPU + "fft_kernel.py:1107"],
+             "B3_packed_inv")):
+        mine = {k: v for k, v in modes.items() if k.startswith("B1_") == (name == "fft_rows_t")}
+        rows.append(dict(
+            name=name, route="cuda", source=SRC + src, replaces=TPU + tpu, also_replaces=also,
+            max_abs_err=max(m["max_abs_err"] for m in mine.values()),
+            max_rel_err=max(m["max_rel_err"] for m in mine.values()),
+            **{k: modes[main_mode][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                "bound_by", "bytes", "flops")},
+            main_mode=main_mode, modes=mine,
+        ))
 
     # wiener_spectral_t (B2), 2048^2
     h, w = frame.shape[:2]
@@ -539,7 +572,8 @@ def check_slice(torch, np, frame, seed):
     pipe = WienerDeblurPipeline(device="cuda")
     (out, planes), counts = drive(
         torch, "main path 2048x2048x3", lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
-        expect=("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8"),
+        expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                "wb_encode_u8"),
         forbid=("fwd_wiener_rows", "mixed_radix"))
     if out.shape != frame.shape or out.dtype != np.uint8 or not np.isfinite(planes).all():
         fail(f"bad output: {out.shape} {out.dtype}, finite planes {np.isfinite(planes).all()}")
@@ -587,7 +621,7 @@ def check_batched(torch, np, stacks, seed):
     from fft_restoration_tpu_torch.host.verify import channels_equal
 
     res = {}
-    common = ("fft_rows", "lab_l_sum_partials", "wb_encode_u8")
+    common = ("fft_rows", "fft_rows_t", "lab_l_sum_partials", "wb_encode_u8")
     for name, _, side, psf in BATCHES:
         stack = stacks[name]
         pipe = BatchedWienerPipeline("cuda")
@@ -905,19 +939,11 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
 
     # kernel: {mode: (kernel, plain, bytes, flops, torch.fft call, is the library call)}
     specs = {
-        "fft_rows": {
+        "fft_rows_t": {
             "B1_uhd_smooth_T": (
                 lambda: fk.fft_rows_stack(img, extent=(hp, wp), radices=rad_w),
                 lambda: fk.fft_rows_stack_plain(img, extent=(hp, wp), radices=rad_w),
                 h * w * 3 + 2 * f2, fft_flops(2 * h, wp, rad_w), lib(*fwd_p), True),
-            "B6_psf_uhd_smooth": (
-                lambda: fk.fft_rows(*psf1, radices=rad_h),
-                lambda: fk.fft_rows_plain(*psf1, radices=rad_h),
-                2 * f2, fft_flops(wp, hp, rad_h), lib(*psf1), True),
-            "B3_uhd_smooth": (
-                lambda: fk.fft_rows_packed_out(*mid, inverse=True, radices=rad_w),
-                lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True, radices=rad_w),
-                4 * f2, fft_flops(2 * hp, wp, rad_w), lib(*mid), True),
             "B1_stack330_smooth_T": (
                 lambda: fk.fft_rows_stack(s, extent=(shp, swp), radices=srad_w),
                 lambda: fk.fft_rows_stack_plain(s, extent=(shp, swp), radices=srad_w),
@@ -927,6 +953,16 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
                 lambda: fk.fft_rows(*f_s, inverse=True, transposed=True, radices=srad_h),
                 lambda: fk.fft_rows_plain(*f_s, inverse=True, transposed=True, radices=srad_h),
                 4 * ps * shp * swp * 4, fft_flops(ps * swp, shp, srad_h), lib(*f_s), True),
+        },
+        "fft_rows": {
+            "B6_psf_uhd_smooth": (
+                lambda: fk.fft_rows(*psf1, radices=rad_h),
+                lambda: fk.fft_rows_plain(*psf1, radices=rad_h),
+                2 * f2, fft_flops(wp, hp, rad_h), lib(*psf1), True),
+            "B3_uhd_smooth": (
+                lambda: fk.fft_rows_packed_out(*mid, inverse=True, radices=rad_w),
+                lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True, radices=rad_w),
+                4 * f2, fft_flops(2 * hp, wp, rad_w), lib(*mid), True),
         },
         "wiener_spectral_t": {
             "uhd_smooth_2x3840x2304": (
@@ -969,7 +1005,7 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
         lambda: pp.wb_encode_u8_batched(*eargs), lambda: pp.wb_encode_u8_batched_plain(*eargs),
         px * (3 * 4 + 3), px * WB_ENCODE_FLOPS, None, False)}
 
-    tol = dict(fft_rows=TOL_FFT_REL, lab_l_sum_partials=TOL_PARTIALS_REL)
+    tol = dict(fft_rows=TOL_FFT_REL, fft_rows_t=TOL_FFT_REL, lab_l_sum_partials=TOL_PARTIALS_REL)
     res = {}
     for kernel, modes in specs.items():
         res[kernel] = {}
@@ -995,10 +1031,10 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
 
     # the UHD frame's three launches with cross levels (B1, B2, B3); the
     # levels' own share of a launch is not separable
-    frame = [res["fft_rows"]["B1_uhd_smooth_T"], res["wiener_spectral_t"]["uhd_smooth_2x3840x2304"],
-             res["fft_rows"]["B3_uhd_smooth"]]
-    ffts = [m for k in ("fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows")
-            for m in res[k].values()]
+    frame = [res["fft_rows_t"]["B1_uhd_smooth_T"],
+             res["wiener_spectral_t"]["uhd_smooth_2x3840x2304"], res["fft_rows"]["B3_uhd_smooth"]]
+    ffts = [m for k in ("fft_rows_t", "fft_rows", "wiener_spectral_t", "spectral_conv_t",
+                        "fwd_wiener_rows") for m in res[k].values()]
     mixed = dict(
         name="mixed_radix", route="cuda", source=SRC + "csrc/fft_common.cuh",
         replaces=TPU + "fft_kernel.py:139",
@@ -1009,7 +1045,7 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
         library_ms=None, torch_fft_ms=sum(m["torch_fft_ms"] for m in frame),
         bound_ms=sum(m["bound_ms"] for m in frame),
         bound_by=("operations", "bytes")[all(m["bound_by"] == "bytes" for m in frame)],
-        per_frame=["fft_rows B1_uhd_smooth_T", "wiener_spectral_t uhd_smooth_2x3840x2304",
+        per_frame=["fft_rows_t B1_uhd_smooth_T", "wiener_spectral_t uhd_smooth_2x3840x2304",
                    "fft_rows B3_uhd_smooth"],
     )
     return res, mixed
@@ -1174,8 +1210,8 @@ def check_smooth(torch, np, uhd, small, seed):
     (out, planes), c = drive(
         torch, f"UHD 3840x2160x3 --pad smooth ({hp}x{wp}, radices {rad_h} {rad_w})",
         lambda: pipe.restore_with_planes(uhd, 50, 30.0, 0.01),
-        expect=("fft_rows", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8",
-                "mixed_radix"),
+        expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                "wb_encode_u8", "mixed_radix"),
         forbid=("fwd_wiener_rows", "spectral_conv_t"))
     counts["uhd_smooth"] = c
     if c["mixed_radix"] != c["fft_rows"] + c["wiener_spectral_t"]:
@@ -1215,8 +1251,8 @@ def check_smooth(torch, np, uhd, small, seed):
     x = bp.to_device(small)
     (o, p), c = drive(torch, f"{len(small)} x 640x330 --pad smooth",
                       lambda: bp.run(x, 50, 30.0, 0.01),
-                      expect=("fft_rows", "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8",
-                              "mixed_radix"),
+                      expect=("fft_rows", "fft_rows_t", "fwd_wiener_rows", "lab_l_sum_partials",
+                              "wb_encode_u8", "mixed_radix"),
                       forbid=("wiener_spectral_t", "spectral_conv_t"))
     counts["stack330_smooth"] = c
     o_p, p_p = plain_restore(torch, small, 50, pad_mode="smooth")()
@@ -1334,7 +1370,7 @@ def check_generic(torch, np, frame, seed):
         lambda: ops_layer_restore(torch, chans, psf, 0.01),
         expect=("fft_rows_natural", "fft_cols", "wiener_elem"),
         forbid=("wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows", "wiener_spectral_rows",
-                "fft_rows_radix4", "mixed_radix"))
+                "fft_rows_radix4", "mixed_radix", "fft_rows_t"))
     counts["ops_restore_2048sq"] = c
     ref = restore_planes_generic(chans, psf, 0.01, fft_backend="matmul")
     d = float((ops_planes - ref).abs().max())
@@ -1602,9 +1638,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in ptxas_report(_build.build_log):
+        log(f"  ptxas: {line}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)

@@ -1,36 +1,50 @@
 // Shared pieces of the row-FFT kernels: radix-2 stage loops and the
-// odd-radix cross-DFT levels over rows held in shared memory, and a
+// odd-radix cross-DFT levels, in shared memory and in registers, and a
 // block-wide min/max reduction.
 //
 // Counterpart of the stage bodies of fft_restoration_tpu/ops/pallas/
 // fft_kernel.py (_dif_stage, _dit_stage, _fft_stages; engine="roll") and
 // of its mixed-radix levels (_cross_dft_level, _mixed_cross_fwd,
-// _mixed_cross_inv). The TPU version pairs lanes with two lane rotations
-// and a half mask; here one thread takes one butterfly (i0, i1 = i0 +
-// half) of one row, so the mask becomes index arithmetic. The arithmetic
-// is the same, expression for expression:
+// _mixed_cross_inv). The arithmetic is the JAX package's, expression for
+// expression:
 //   DIF  (forward, stages long to short): a' = a + b, b' = (a - b) * w
 //   DIT  (inverse, stages short to long): a' = a + w*b, b' = a - w*b
 // with w = w_L^(j mod L/2) read from the float64-built tables (no
 // in-kernel sincosf, so the twiddles match the JAX package bit for bit).
 //
-// Mixed radix (a smooth row length n = prod(radices) * q, q a power of
-// two; the MIXED template flag): the forward pass runs one cross level
-// per radix, outermost first, then the DIF stages over log2(q); the
+// Mixed radix (a smooth row length n = R * q, R = R0 * R1 the product of
+// the odd radices, q a power of two): the forward pass runs one cross
+// level per radix, outermost first, then the DIF stages over log2(q); the
 // inverse runs the DIT stages, then the inverse levels innermost first.
-// A butterfly of length L <= q never crosses a q-block, so the stage
-// formula holds; only the row index needs a division by n / 2 instead of
-// a shift. With MIXED false the pow2 code is the shift/mask code it was.
+// After the levels each q-wide block of a row is an independent q-point
+// problem, so the radix-2 stages see rows * R "q-rows" of q points and
+// index them with shifts alone: no division per element.
 //
-// Layout: a block holds `rows` complex rows of length n as two planes,
-// re[rows][n] then im[rows][n], in dynamic shared memory. Every stage and
-// every cross level ends with __syncthreads(), so callers may touch the
-// planes right after.
+// The cross levels run in ONE pass (cross_item): a thread item (row, b),
+// b < q, holds the R elements b + j1*q + j0*q0 (q0 = n / R0) in registers
+// and runs level 0's R0-point DFTs and twiddle plane, then level 1's, the
+// same sums in the same order as _cross_dft_level. The radices are
+// template arguments (the pads give (3,), (5,), (3, 3) and (3, 5)), so
+// the element map costs no division at all.
+//
+// What bounds the stage loops here on the H100: one thread takes one
+// butterfly, so each of the log2(q) stages is a full read and write of
+// the rows through shared memory and a barrier. They serve the kernels
+// whose radix-2 stages are not yet redesigned (B2, B3, B6, B7, B11's
+// column twin, B12's tail); B1 (fft_rows.cu, fft_rows_t_kernel) runs its
+// stages in registers instead.
+//
+// Layout of the shared-memory stage loops: a block holds `rows` complex
+// rows of length n as two planes, re[rows][n] then im[rows][n], in dynamic
+// shared memory. Every stage and every cross pass ends with
+// __syncthreads(), so callers may touch the planes right after.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #define FFT_THREADS 512
 // cross levels a kernel takes (the smooth pads' odd factors 3, 5, 9 = 3*3
@@ -70,36 +84,30 @@ __host__ inline CrossPlan make_cross_plan(int levels, const int* radix,
   return p;
 }
 
-// Split butterfly index t of rows * n/2 into (row, index in the row).
-template <bool MIXED>
-__device__ __forceinline__ void split_half(int t, int half_n, int log2n,
-                                           int* r, int* b) {
-  if (MIXED) {
-    *r = t / half_n;
-    *b = t - *r * half_n;
-  } else {
-    *r = t >> (log2n - 1);
-    *b = t & (half_n - 1);
-  }
+// The radix tuples the kernels take, as one code: 0 none, 1 (3,), 2 (5,),
+// 3 (3, 3), 4 (3, 5); -1 for any other tuple (the C entries refuse it)
+__host__ inline int radix_code(const CrossPlan& p) {
+  if (p.levels == 0) return 0;
+  if (p.levels == 1) return p.radix[0] == 3 ? 1 : p.radix[0] == 5 ? 2 : -1;
+  if (p.radix[0] != 3) return -1;
+  return p.radix[1] == 3 ? 3 : p.radix[1] == 5 ? 4 : -1;
 }
 
-// stages: log2(n) for a pow2 n, log2(q) for a mixed one
-template <bool MIXED>
-__device__ __forceinline__ void dif_stages(float* re, float* im, int rows,
-                                           int n, int stages,
+// DIF stages s = stages-1 .. 0 over `qrows` rows of q = 2^stages points
+// (a mixed row is R q-rows); tstride: the width of the stage tables
+__device__ __forceinline__ void dif_stages(float* re, float* im, int qrows,
+                                           int stages, int tstride,
                                            const float* __restrict__ cosv,
                                            const float* __restrict__ sinv) {
-  const int half_n = n >> 1;
-  const int total = rows * half_n;
+  if (stages == 0) return;
+  const int total = qrows << (stages - 1);
   for (int s = stages - 1; s >= 0; --s) {
     const int half = 1 << s;
-    const float* wc = cosv + (size_t)s * n;
-    const float* ws = sinv + (size_t)s * n;
+    const float* wc = cosv + (size_t)s * tstride;
+    const float* ws = sinv + (size_t)s * tstride;
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      int r, b;
-      split_half<MIXED>(t, half_n, stages, &r, &b);
-      const int pos = b & (half - 1);
-      const int i0 = r * n + ((b >> s) << (s + 1)) + pos;
+      const int pos = t & (half - 1);
+      const int i0 = ((t >> s) << (s + 1)) + pos;  // q-rows are contiguous
       const int i1 = i0 + half;
       const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
       const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
@@ -113,22 +121,19 @@ __device__ __forceinline__ void dif_stages(float* re, float* im, int rows,
   }
 }
 
-template <bool MIXED>
-__device__ __forceinline__ void dit_stages(float* re, float* im, int rows,
-                                           int n, int stages,
+__device__ __forceinline__ void dit_stages(float* re, float* im, int qrows,
+                                           int stages, int tstride,
                                            const float* __restrict__ cosv,
                                            const float* __restrict__ sinv) {
-  const int half_n = n >> 1;
-  const int total = rows * half_n;
+  if (stages == 0) return;
+  const int total = qrows << (stages - 1);
   for (int s = 0; s < stages; ++s) {
     const int half = 1 << s;
-    const float* wc = cosv + (size_t)s * n;
-    const float* ws = sinv + (size_t)s * n;
+    const float* wc = cosv + (size_t)s * tstride;
+    const float* ws = sinv + (size_t)s * tstride;
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      int r, b;
-      split_half<MIXED>(t, half_n, stages, &r, &b);
-      const int pos = b & (half - 1);
-      const int i0 = r * n + ((b >> s) << (s + 1)) + pos;
+      const int pos = t & (half - 1);
+      const int i0 = ((t >> s) << (s + 1)) + pos;
       const int i1 = i0 + half;
       const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
       const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
@@ -142,112 +147,187 @@ __device__ __forceinline__ void dit_stages(float* re, float* im, int rows,
   }
 }
 
-// One cross level over `rows` rows of length n: the R-point DFT across
-// the q-wide sub-blocks (q = w / R) of every w-wide block of a row,
-//   out[base + k1*q + j2] = sum_j1 x[base + j1*q + j2] * W_R^(sign*k1*j1),
-// j1 ascending with the exact-1 coefficients skipped (the JAX order).
-// One thread takes one (row, block, j2): it reads the R values into
-// registers and writes the R outputs back to the same slots, so the
-// level runs in place. Forward: the DFT, then the level's twiddle plane;
-// inverse: the (conjugate) twiddle plane, then the DFT with the inverse
-// coefficients.
-template <int R, bool INV>
-__device__ __forceinline__ void cross_level(float* re, float* im, int rows,
-                                            int n, int w, const float* c,
-                                            const float* s,
-                                            const float* __restrict__ tc,
-                                            const float* __restrict__ ts) {
-  const int q = w / R;
-  const int per_row = n / R;
-  const int total = rows * per_row;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int row = t / per_row;
-    const int rem = t - row * per_row;
-    const int blk = rem / q;
-    const int pos = blk * w + (rem - blk * q);  // slot of j1 = 0 in the row
-    float* xre = re + row * n;
-    float* xim = im + row * n;
-    float xr[R], xi[R];
+// R-point DFT of x (registers), in place:
+//   out[k] = sum_j x[j] * W_R^(sign*k*j),
+// j ascending with the exact-1 coefficients skipped (the JAX order)
+template <int R>
+__device__ __forceinline__ void small_dft(float* xr, float* xi, const float* c,
+                                          const float* s) {
+  float yr[R], yi[R];
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int i = pos + j * q;
-      const float a = xre[i], b = xim[i];
-      if (INV) {
-        const float wc = __ldg(tc + i), ws = __ldg(ts + i);
-        xr[j] = a * wc - b * ws;
-        xi[j] = a * ws + b * wc;
+  for (int k = 0; k < R; ++k) {
+    float ar = xr[0], ai = xi[0];
+#pragma unroll
+    for (int j = 1; j < R; ++j) {
+      const int m = (k * j) % R;
+      if (m == 0) {
+        ar += xr[j];
+        ai += xi[j];
       } else {
-        xr[j] = a;
-        xi[j] = b;
+        ar += c[m] * xr[j] - s[m] * xi[j];
+        ai += c[m] * xi[j] + s[m] * xr[j];
+      }
+    }
+    yr[k] = ar;
+    yi[k] = ai;
+  }
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    xr[k] = yr[k];
+    xi[k] = yi[k];
+  }
+}
+
+__device__ __forceinline__ void twiddle(float* xr, float* xi,
+                                        const float* __restrict__ tc,
+                                        const float* __restrict__ ts, int i) {
+  const float wc = __ldg(tc + i), ws = __ldg(ts + i);
+  const float a = *xr, b = *xi;
+  *xr = a * wc - b * ws;
+  *xi = a * ws + b * wc;
+}
+
+// Both cross levels of one thread item in registers: x[j0 * R1 + j1] is
+// element b + j1*q + j0*q0 of a row of n = R0 * R1 * q points (R1 = 1:
+// one level, q0 = q). Forward: level 0's DFT over j0 then its twiddle
+// plane, then level 1's (blocks of width q0, sub-blocks q). Inverse:
+// level 1's conjugate twiddle then DFT, then level 0's. The same sums in
+// the same order as the JAX levels, run one level after the other over
+// the whole row.
+template <int R0, int R1, bool INV>
+__device__ __forceinline__ void cross_item(float* xr, float* xi, int b, int q,
+                                           int n, const CrossPlan& p) {
+  const int q0 = q * R1;
+  const float* tc0 = p.xcos;
+  const float* ts0 = p.xsin;
+  const float* tc1 = p.xcos + n;
+  const float* ts1 = p.xsin + n;
+  float tr[R0 > R1 ? R0 : R1], ti[R0 > R1 ? R0 : R1];
+  if (!INV) {
+#pragma unroll
+    for (int j1 = 0; j1 < R1; ++j1) {
+#pragma unroll
+      for (int j0 = 0; j0 < R0; ++j0) {
+        tr[j0] = xr[j0 * R1 + j1];
+        ti[j0] = xi[j0 * R1 + j1];
+      }
+      small_dft<R0>(tr, ti, p.c[0], p.s[0]);
+#pragma unroll
+      for (int k0 = 0; k0 < R0; ++k0) {
+        twiddle(&tr[k0], &ti[k0], tc0, ts0, b + j1 * q + k0 * q0);
+        xr[k0 * R1 + j1] = tr[k0];
+        xi[k0 * R1 + j1] = ti[k0];
+      }
+    }
+    if (R1 > 1) {
+#pragma unroll
+      for (int k0 = 0; k0 < R0; ++k0) {
+        small_dft<R1>(xr + k0 * R1, xi + k0 * R1, p.c[1], p.s[1]);
+#pragma unroll
+        for (int k1 = 0; k1 < R1; ++k1)
+          twiddle(&xr[k0 * R1 + k1], &xi[k0 * R1 + k1], tc1, ts1,
+                  b + k1 * q + k0 * q0);
+      }
+    }
+  } else {
+    if (R1 > 1) {
+#pragma unroll
+      for (int k0 = 0; k0 < R0; ++k0) {
+#pragma unroll
+        for (int j1 = 0; j1 < R1; ++j1)
+          twiddle(&xr[k0 * R1 + j1], &xi[k0 * R1 + j1], tc1, ts1,
+                  b + j1 * q + k0 * q0);
+        small_dft<R1>(xr + k0 * R1, xi + k0 * R1, p.c[1], p.s[1]);
       }
     }
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
-      float ar = xr[0], ai = xi[0];
+    for (int j1 = 0; j1 < R1; ++j1) {
 #pragma unroll
-      for (int j = 1; j < R; ++j) {
-        const int m = (k * j) % R;
-        if (m == 0) {
-          ar += xr[j];
-          ai += xi[j];
-        } else {
-          ar += c[m] * xr[j] - s[m] * xi[j];
-          ai += c[m] * xi[j] + s[m] * xr[j];
+      for (int j0 = 0; j0 < R0; ++j0) {
+        tr[j0] = xr[j0 * R1 + j1];
+        ti[j0] = xi[j0 * R1 + j1];
+        twiddle(&tr[j0], &ti[j0], tc0, ts0, b + j1 * q + j0 * q0);
+      }
+      small_dft<R0>(tr, ti, p.c[0], p.s[0]);
+#pragma unroll
+      for (int k0 = 0; k0 < R0; ++k0) {
+        xr[k0 * R1 + j1] = tr[k0];
+        xi[k0 * R1 + j1] = ti[k0];
+      }
+    }
+  }
+}
+
+// One shared-memory pass of both cross levels over `rows` rows of n =
+// R0 * R1 * 2^logq points, for the kernels whose radix-2 stages stay in
+// shared memory: item t is (row t >> logq, b = t & (q - 1)), and its
+// thread runs level 0 and then level 1 on the item's R0 * R1 slots, the
+// same sums in the same order as cross_item, one level after the other
+// through those slots. No other thread touches them, so the pass needs
+// one barrier, and a thread holds at most 5 complex values: the R-value
+// item of cross_item would take these kernels to 128 registers (one
+// block an SM) or spill at two blocks an SM.
+template <int R0, int R1, bool INV>
+__device__ __forceinline__ void cross_pass(float* re, float* im, int rows,
+                                           int logq, const CrossPlan& p) {
+  const int q = 1 << logq;
+  const int q0 = q * R1;
+  const int n = R0 * q0;
+  const float* tc[2] = {p.xcos, p.xcos + n};
+  const float* ts[2] = {p.xsin, p.xsin + n};
+  for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+    const int b = t & (q - 1);
+    float* xre = re + (t >> logq) * n + b;
+    float* xim = im + (t >> logq) * n + b;
+    // one level: `count` DFTs of `r` points; DFT u's point v sits at
+    // u * ustep + v * vstep of the item, its twiddle plane index b + that
+    auto level = [&](auto rc, int lvl, int count, int ustep, int vstep) {
+      constexpr int r = decltype(rc)::value;
+      for (int u = 0; u < count; ++u) {
+        float xr[r], xi[r];
+#pragma unroll
+        for (int v = 0; v < r; ++v) {
+          const int o = u * ustep + v * vstep;
+          xr[v] = xre[o];
+          xi[v] = xim[o];
+          if (INV) twiddle(&xr[v], &xi[v], tc[lvl], ts[lvl], b + o);
+        }
+        small_dft<r>(xr, xi, p.c[lvl], p.s[lvl]);
+#pragma unroll
+        for (int v = 0; v < r; ++v) {
+          const int o = u * ustep + v * vstep;
+          if (!INV) twiddle(&xr[v], &xi[v], tc[lvl], ts[lvl], b + o);
+          xre[o] = xr[v];
+          xim[o] = xi[v];
         }
       }
-      const int i = pos + k * q;
-      if (INV) {
-        xre[i] = ar;
-        xim[i] = ai;
-      } else {
-        const float wc = __ldg(tc + i), ws = __ldg(ts + i);
-        xre[i] = ar * wc - ai * ws;
-        xim[i] = ar * ws + ai * wc;
-      }
+    };
+    using C0 = std::integral_constant<int, R0>;
+    using C1 = std::integral_constant<int, R1>;
+    if (!INV) {
+      level(C0{}, 0, R1, q, q0);   // over j0 for each j1
+      if (R1 > 1) level(C1{}, 1, R0, q0, q);  // over j1 for each k0
+    } else {
+      if (R1 > 1) level(C1{}, 1, R0, q0, q);
+      level(C0{}, 0, R1, q, q0);
     }
   }
   __syncthreads();
 }
 
+// The cross pass of a plan's radix tuple (radix_code 1..4)
 template <bool INV>
-__device__ __forceinline__ void cross_level_l(float* re, float* im, int rows,
-                                              int n, int w, const CrossPlan& p,
-                                              int l) {
-  const float* tc = p.xcos + (size_t)l * n;
-  const float* ts = p.xsin + (size_t)l * n;
-  if (p.radix[l] == 3) {
-    cross_level<3, INV>(re, im, rows, n, w, p.c[l], p.s[l], tc, ts);
+__device__ __forceinline__ void cross_pass_any(float* re, float* im, int rows,
+                                               int logq, const CrossPlan& p) {
+  if (p.levels == 1) {
+    if (p.radix[0] == 3)
+      cross_pass<3, 1, INV>(re, im, rows, logq, p);
+    else
+      cross_pass<5, 1, INV>(re, im, rows, logq, p);
+  } else if (p.radix[1] == 3) {
+    cross_pass<3, 3, INV>(re, im, rows, logq, p);
   } else {
-    cross_level<5, INV>(re, im, rows, n, w, p.c[l], p.s[l], tc, ts);
-  }
-}
-
-// Forward: levels outermost first (level l splits blocks of width
-// w_l = n / prod(radix[:l])). Run before the DIF stages.
-__device__ __forceinline__ void cross_fwd(float* re, float* im, int rows,
-                                          int n, const CrossPlan& p) {
-  int w = n;
-#pragma unroll
-  for (int l = 0; l < MAX_CROSS_LEVELS; ++l) {
-    if (l < p.levels) {
-      cross_level_l<false>(re, im, rows, n, w, p, l);
-      w /= p.radix[l];
-    }
-  }
-}
-
-// Inverse: levels innermost first, after the DIT stages.
-__device__ __forceinline__ void cross_inv(float* re, float* im, int rows,
-                                          int n, const CrossPlan& p) {
-  int w[MAX_CROSS_LEVELS];
-  w[0] = n;
-#pragma unroll
-  for (int l = 1; l < MAX_CROSS_LEVELS; ++l) {
-    w[l] = l < p.levels ? w[l - 1] / p.radix[l - 1] : 0;
-  }
-#pragma unroll
-  for (int l = MAX_CROSS_LEVELS - 1; l >= 0; --l) {
-    if (l < p.levels) cross_level_l<true>(re, im, rows, n, w[l], p, l);
+    cross_pass<3, 5, INV>(re, im, rows, logq, p);
   }
 }
 

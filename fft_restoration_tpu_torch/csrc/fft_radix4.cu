@@ -82,7 +82,7 @@ fft_radix4_kernel(const float* __restrict__ src_re,
     }
     __syncthreads();
   }
-  dif_stages<true>(sre, sim, rows, N, tail_stages, c2, s2);
+  dif_stages(sre, sim, rows * (N >> tail_stages), tail_stages, N, c2, s2);
 
   for (int t = threadIdx.x; t < live; t += blockDim.x) {
     out_re[base + t] = sre[t];

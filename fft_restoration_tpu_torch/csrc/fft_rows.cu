@@ -1,11 +1,13 @@
-// fft_rows: radix-2 row FFT over the last axis, all stages in shared memory.
+// fft_rows: radix-2 row FFT over the last axis, all stages in shared
+// memory, for the natural and packed stores.
 //
-// Replaces three Pallas kernels of fft_restoration_tpu/ops/pallas/
+// Replaces two Pallas kernels of fft_restoration_tpu/ops/pallas/
 // fft_kernel.py that share one stage body (_run_stages) and differ only
-// in how they load and store:
-//   B1 _fft_rows_transposed ("fftr_rows_T_fwd")  -> load u8/f32, STORE_T
+// in how they store:
 //   B6 fft_rows_pallas plain path ("fftr_rows_*") -> STORE_NATURAL
 //   B3 fft_rows_packed_out ("fftr_rows_packed_inv") -> STORE_PACKED + min/max
+// The third, B1 _fft_rows_transposed ("fftr_rows_T_fwd"), the transposed
+// store, is fft_rows_t.cu's register-resident kernel.
 // Ordering revorder: forward = DIF (natural in, bit-reversed out),
 // inverse = DIT (bit-reversed in, natural out), unscaled. Natural
 // ordering (the NATURAL instances, pow2 N; B6's ordering="natural", the
@@ -15,58 +17,43 @@
 // kernel's XLA bit-reversal pass, then DIT; fft_kernel.py:1042-1049).
 //
 // What bounds it on the H100: each row is read and written once, so a
-// pass over two complex 2048^2 planes moves 80 MB (uint8 in) to 134 MB
-// (float32 in), 24 to 40 us at 3.35 TB/s; the log2(n) stages of shared-memory butterflies
-// (11 at n=2048, 10 flops and 8 shared accesses per butterfly) cost more
-// than that, so the kernel is bound by shared-memory traffic and the
-// __syncthreads() between stages, not by device memory. The design keeps
-// the whole row resident in shared memory for all stages (one device
-// round trip per pass, as the TPU kernel keeps it in VMEM), fuses the
-// uint8 ingest, channel-pair packing, zero padding and the transpose into
-// the load and store, and sizes rows-per-block (a power of two chosen by
-// the wrapper) to 64 KB of shared memory so several blocks share an SM.
+// pass over two complex 2048^2 planes moves 134 MB, 40 us at 3.35 TB/s;
+// the log2(n) stages of shared-memory butterflies (11 at n=2048, 10 flops
+// and 8 shared accesses per butterfly) cost more than that, so the kernel
+// is bound by shared-memory traffic and the __syncthreads() between
+// stages, not by device memory. The design keeps the whole row resident
+// in shared memory for all stages (one device round trip per pass, as the
+// TPU kernel keeps it in VMEM) and sizes rows-per-block (a power of two
+// chosen by the wrapper) to 64 KB of shared memory so several blocks share
+// an SM. Its stages are the next redesign (ROADMAP.md B).
 //
 // Load: pair p reads logical plane q = p*qstep as re and q + qim as im,
 // each from its own base pointer, element (q, m, c) at
 //   (q / channels) * is + (q % channels) * chs + m * rs + c * cs
 // when the pair is live (p < re_live, p < im_live), m < live_rows and
-// c < live_cols, else 0. The (image, channel) map makes one loader serve
-// contiguous (P, M, N) planes (channels = 1, qstep = 1), the even/odd
-// channel planes of one (H, W, 3) frame, and a (B, H, W, 3) image stack
-// whose channel pairs straddle images (channels = 3, qstep = 2, qim = 1:
-// plane q is image q / 3, channel q % 3), all with their zero pad and no
-// copy. uint8 converts as x / 255.0f, a true division, as the TPU
-// kernel's _load_f32 does.
+// c < live_cols, else 0 (the loader shared with fft_rows_t.cu, in
+// fft_rows_load.cuh). uint8 converts as x / 255.0f, a true division, as
+// the TPU kernel's _load_f32 does.
 //
 // Grid: one dimension, block b takes row block b % nblk of pair b / nblk,
 // so the pair count is not held to gridDim.y's 65535 (a CLI chunk of
 // small frames packs hundreds of thousands of pairs).
 //
 // Mixed radix (--pad smooth; B-mixed, fft_kernel.py:139-217): a row
-// length N = prod(radices) * 2^k runs the cross levels of fft_common.cuh
-// before the DIF stages (forward) or after the DIT stages (inverse), in
-// the instance compiled with MIXED; the load and the natural store then
-// split t by division by N instead of a shift. The levels add one
-// shared-memory pass each (r reads and writes per element, 8r - 2 flops
-// per output) to the 2*log2(q) of the stages, so the kernel stays bound
-// by shared memory and barriers; a pow2 N takes the MIXED = false
-// instance, the code it had before.
+// length N = R * 2^k runs both cross levels in one shared-memory pass
+// (fft_common.cuh cross_pass) before the DIF stages (forward) or after the
+// DIT stages (inverse), in the instance compiled with MIXED; the load, the
+// stages and the stores index the rows' R q-blocks with shifts alone.
 #include "fft_common.cuh"
+#include "fft_rows_load.cuh"
 
-enum { STORE_NATURAL = 0, STORE_T = 1, STORE_PACKED = 2 };
+enum { STORE_NATURAL = 0, STORE_PACKED = 2 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(uint8_t v) { return (float)v / 255.0f; }
-
-// row of element t of a block's rows * N (log2n: log2(N) when !MIXED)
-template <bool MIXED>
-__device__ __forceinline__ int row_of(int t, int N, int log2n) {
-  return MIXED ? t / N : t >> log2n;
-}
-
-template <bool MIXED>
-__device__ __forceinline__ int col_of(int t, int r, int N) {
-  return MIXED ? t - r * N : t & (N - 1);
+// element t of a block's rows * N as (row, column): column b + j*q with
+// b = t mod q fastest (coalesced), then the row, then the q-block j
+__device__ __forceinline__ void row_col(int t, int logq, int lr, int* r, int* c) {
+  *r = (t >> logq) & ((1 << lr) - 1);
+  *c = (t & ((1 << logq) - 1)) + ((t >> (logq + lr)) << logq);
 }
 
 // stages: log2(N), or log2 of the pow2 tail when MIXED; NATURAL only
@@ -89,57 +76,39 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   const int blk = blockIdx.x - p * nblk;
   const int m0 = blk * rows;
   const int total = rows * N;
-  const bool re_ok = p < re_live;
-  const bool im_ok = src_im != nullptr && p < im_live;
-  const int q_re = p * qstep, q_im = p * qstep + qim;
-  const long long base_re =
-      (long long)(q_re / channels) * is + (long long)(q_re % channels) * chs;
-  const long long base_im =
-      (long long)(q_im / channels) * is + (long long)(q_im % channels) * chs;
+  const int lr = __ffs(rows) - 1;
+  const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                       re_live, im_live, live_rows, live_cols, p, m0);
 
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int r = row_of<MIXED>(t, N, stages);
-    const int m = m0 + r;
-    const int c = col_of<MIXED>(t, r, N);
-    const bool live = m < live_rows && c < live_cols;
-    const long long off = m * rs + c * cs;
+    int r, c;
+    row_col(t, stages, lr, &r, &c);
     const int slot =
-        NATURAL ? r * N + (int)(__brev((unsigned)c) >> (32 - stages)) : t;
-    sre[slot] = (live && re_ok) ? to_f32(src_re[base_re + off]) : 0.0f;
-    sim[slot] = (live && im_ok) ? to_f32(src_im[base_im + off]) : 0.0f;
+        r * N + (NATURAL ? (int)(__brev((unsigned)c) >> (32 - stages)) : c);
+    const float2 v = ld.get(r, c);
+    sre[slot] = v.x;
+    sim[slot] = v.y;
   }
   __syncthreads();
 
+  const int qrows = rows * (N >> stages);  // R q-rows a row when MIXED
   if (NATURAL || inverse) {
-    dit_stages<MIXED>(sre, sim, rows, N, stages, cosv, sinv);
-    if (MIXED) cross_inv(sre, sim, rows, N, plan);
+    dit_stages(sre, sim, qrows, stages, N, cosv, sinv);
+    if (MIXED) cross_pass_any<true>(sre, sim, rows, stages, plan);
   } else {
-    if (MIXED) cross_fwd(sre, sim, rows, N, plan);
-    dif_stages<MIXED>(sre, sim, rows, N, stages, cosv, sinv);
+    if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan);
+    dif_stages(sre, sim, qrows, stages, N, cosv, sinv);
   }
 
-  if (store == STORE_T) {
-    // (P, M, N) -> (P, N, M): neighbouring threads take neighbouring rows
-    // of one column, so each column writes `rows` consecutive floats
-    const int log2rows = __ffs(rows) - 1;
+  if (store == STORE_NATURAL) {
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int r = t & (rows - 1);
-      const int k = t >> log2rows;
+      int r, c;
+      row_col(t, stages, lr, &r, &c);
       const int m = m0 + r;
       if (m < M) {
-        const size_t o = ((size_t)p * N + k) * M + m;
-        out_re[o] = sre[r * N + k];
-        out_im[o] = sim[r * N + k];
-      }
-    }
-  } else if (store == STORE_NATURAL) {
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int r = row_of<MIXED>(t, N, stages);
-      const int m = m0 + r;
-      if (m < M) {
-        const size_t o = ((size_t)p * M + m) * N + col_of<MIXED>(t, r, N);
-        out_re[o] = sre[t];
-        out_im[o] = sim[t];
+        const size_t o = ((size_t)p * M + m) * N + c;
+        out_re[o] = sre[r * N + c];
+        out_im[o] = sim[r * N + c];
       }
     }
   } else {
@@ -227,6 +196,8 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
                                const void* xsin, void* stream) {
   if (levels < 0 || levels > MAX_CROSS_LEVELS) return (int)cudaErrorInvalidValue;
   const CrossPlan plan = make_cross_plan(levels, radix, coef, xcos, xsin);
+  if (radix_code(plan) < 0 || (store != STORE_NATURAL && store != STORE_PACKED))
+    return (int)cudaErrorInvalidValue;
   if (in_u8) {
     return launch_any<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim,
                                rs, cs, re_live, im_live, live_rows, live_cols,

@@ -60,9 +60,10 @@
 //
 // Mixed radix (--pad smooth, B-mixed): at a smooth column length the
 // MIXED instances run the forward cross levels before the DIF stages and
-// (B2) the inverse ones after the DIT stages (fft_common.cuh), from two
-// CrossPlans passed by value beside the stage tables; the filters and the
-// stores are unchanged. grid_of's M / rows and the wrappers' row-block
+// (B2) the inverse ones after the DIT stages, each direction's levels in
+// one shared-memory pass (fft_common.cuh cross_pass), from two CrossPlans
+// passed by value beside the stage tables; the stages index the rows' R
+// q-blocks with shifts; the filters and the stores are unchanged. grid_of's M / rows and the wrappers' row-block
 // check hold at smooth M as at pow2 M.
 #include "fft_common.cuh"
 
@@ -107,8 +108,8 @@ spectral_t_kernel(const float* __restrict__ a_re,
     }
   }
   __syncthreads();
-  if (MIXED) cross_fwd(sre, sim, rows, N, plan_f);
-  dif_stages<MIXED>(sre, sim, rows, N, stages, cos_f, sin_f);
+  if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan_f);
+  dif_stages(sre, sim, rows * (N >> stages), stages, N, cos_f, sin_f);
 
   for (int t = threadIdx.x; t < live; t += blockDim.x) {
     const float hr = h_re[hbase + t], hi = h_im[hbase + t];
@@ -126,8 +127,8 @@ spectral_t_kernel(const float* __restrict__ a_re,
     }
   }
   __syncthreads();
-  dit_stages<MIXED>(sre, sim, rows, N, stages, cos_i, sin_i);
-  if (MIXED) cross_inv(sre, sim, rows, N, plan_i);
+  dit_stages(sre, sim, rows * (N >> stages), stages, N, cos_i, sin_i);
+  if (MIXED) cross_pass_any<true>(sre, sim, rows, stages, plan_i);
 
   if (NATURAL) {
     for (int t = threadIdx.x; t < live; t += blockDim.x) {
@@ -172,8 +173,8 @@ fwd_wiener_rows_kernel(const float* __restrict__ a_re,
     sim[t] = a_im[base + t];
   }
   __syncthreads();
-  if (MIXED) cross_fwd(sre, sim, rows, N, plan_f);
-  dif_stages<MIXED>(sre, sim, rows, N, stages, cos_f, sin_f);
+  if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan_f);
+  dif_stages(sre, sim, rows * (N >> stages), stages, N, cos_f, sin_f);
 
   // F = G * conj(H) / (|H|^2 + K), stored in natural (P, M, N) order
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
@@ -230,7 +231,8 @@ static int launch_mode(const void* a_re, const void* a_im, const void* h_re,
                        const void* cos_f, const void* sin_f, const void* cos_i,
                        const void* sin_i, const CrossPlan& plan_f,
                        const CrossPlan& plan_i, void* stream) {
-  if (plan_f.levels != plan_i.levels) return (int)cudaErrorInvalidValue;
+  if (plan_f.levels != plan_i.levels || radix_code(plan_f) < 0 || radix_code(plan_i) < 0)
+    return (int)cudaErrorInvalidValue;
   if (plan_f.levels > 0)
     return launch_spectral_t<MODE, true>(a_re, a_im, h_re, h_im, K, out_re,
                                          out_im, P, M, N, stages, rows, cos_f,
@@ -309,6 +311,7 @@ extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,
                                       CROSS_ARGS(f), void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
   const CrossPlan plan_f = CROSS_PLAN(f);
+  if (radix_code(plan_f) < 0) return (int)cudaErrorInvalidValue;
   if (plan_f.levels > 0)
     return launch_fwd_wiener<true>(a_re, a_im, h_re, h_im, K, out_re, out_im,
                                    P, M, N, stages, rows, cos_f, sin_f, plan_f,

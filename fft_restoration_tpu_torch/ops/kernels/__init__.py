@@ -8,8 +8,10 @@ CUDA tensor it launches the kernel or raises — there is no fallback.
 it launches its kernel and nowhere else, so a run can show that the
 main path went through the kernels. "mixed_radix" counts the launches of
 the CUDA kernels' instances with cross-DFT levels (B-mixed, a smooth
-length), and "fft_rows_natural" those of fft_rows' natural-order
-instance (B6 natural), each on top of the count of the kernel launched.
+length), "fft_rows_natural" those of fft_rows' natural-order instance
+(B6 natural), and "fft_rows_t" those of the register-resident row FFT
+with the transposed store (B1, csrc/fft_rows_t.cu), each on top of the
+count of the kernel launched ("fft_rows" for B1, B3 and B6).
 
 The public names of the JAX package's `ops.pallas` are here under the
 port's names, imported on first use: `fft_rows` (fft_rows_pallas),
@@ -27,7 +29,7 @@ import torch
 KERNELS = (
     "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
     "lab_l_sum_partials", "wb_encode_u8", "mixed_radix", "fft_rows_natural",
-    "fft_cols", "wiener_elem", "wiener_spectral_rows", "fft_rows_radix4",
+    "fft_cols", "wiener_elem", "wiener_spectral_rows", "fft_rows_radix4", "fft_rows_t",
 )
 
 # public name -> module of ops/kernels that defines it

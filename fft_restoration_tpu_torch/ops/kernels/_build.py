@@ -21,8 +21,9 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
-SOURCES = ("fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu", "fft_radix4.cu")
-HEADERS = ("fft_common.cuh",)
+SOURCES = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu",
+           "fft_radix4.cu")
+HEADERS = ("fft_common.cuh", "fft_rows_load.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +48,13 @@ SIGNATURES = {
     # store, inverse, natural, cos, sin, CROSS, stream
     "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
                         I, I, I, P, P, P, I, I, I, P, P, *CROSS, P],
+    # src_re, src_im, in_u8, image stride, channel stride, channels,
+    # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
+    # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
+    # inverse, cos, sin, host int32 plan (fft_kernel.TPlan.c_plan), CROSS,
+    # stream
+    "fft_rows_t_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
+                          I, I, I, I, P, P, I, P, P, P, *CROSS, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
@@ -70,7 +78,8 @@ SIGNATURES = {
     "fft_radix4_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
 }
 
-# nvcc's output of the last build in this process (ptxas register report)
+# nvcc's output of the build of the loaded library (ptxas register and
+# spill report), kept beside it in build.log
 build_log: str = ""
 
 
@@ -120,10 +129,12 @@ def load() -> ctypes.CDLL:
             build_log += res.stdout + res.stderr
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{build_log}")
+            (out_dir / "build.log").write_text(build_log)
             os.replace(tmp, lib_path)  # atomic: concurrent builds agree
         finally:
             for f in (*objs, tmp):
                 f.unlink(missing_ok=True)
+    build_log = (out_dir / "build.log").read_text()
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

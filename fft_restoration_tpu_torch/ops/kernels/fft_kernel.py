@@ -1,12 +1,16 @@
 """FFT kernel family (B1/B3/B6, B11) — wrappers and plain versions.
 
-Counterpart of fft_restoration_tpu/ops/pallas/fft_kernel.py. One CUDA
-kernel (csrc/fft_rows.cu) serves the three TPU kernels that share the
-`_run_stages` body: the transposed-write forward pass (B1,
-`_fft_rows_transposed`), the plain row pass (B6, `fft_rows_pallas`) and
-the final packed-output inverse with min/max partials (B3,
-`fft_rows_packed_out`). `fft_cols` (csrc/fft_cols.cu) is B11,
-`fft_cols_pallas`: the same stages down the columns.
+Counterpart of fft_restoration_tpu/ops/pallas/fft_kernel.py. The three
+TPU kernels that share the `_run_stages` body run in two CUDA kernels:
+every pass with the transposed store (B1, `_fft_rows_transposed`) in
+csrc/fft_rows_t.cu, its radix-2 stages in registers after the plan that
+`t_plan` computes here (stage groups, elements per thread, the thread to
+element map, the padded shared rows; `t_slot_index` and `t_cross_columns`
+give its element map, which the CPU tests emulate); the plain row pass
+(B6, `fft_rows_pallas`) and the final packed-output inverse with min/max
+partials (B3, `fft_rows_packed_out`) in csrc/fft_rows.cu, its stages in
+shared memory. `fft_cols` (csrc/fft_cols.cu) is B11, `fft_cols_pallas`:
+the same stages down the columns.
 
 The pipeline's ordering is revorder: the forward transform is DIF
 (natural in, bit-reversed out), the inverse DIT (bit-reversed in,
@@ -46,7 +50,7 @@ import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
-STORE_NATURAL, STORE_T, STORE_PACKED = 0, 1, 2
+STORE_NATURAL, STORE_PACKED = 0, 2  # csrc/fft_rows.cu
 
 # shared memory per block for the rows it holds (2 float planes); 64 KB
 # lets three blocks share an SM at n=2048 (measured on an H100 at 2048^2:
@@ -176,10 +180,11 @@ def tables(n: int, inverse: bool, device: torch.device, radices: tuple = ()) -> 
                     for a in (cos, sin, _half_masks_np(n, q), xcos, xsin)))
 
 
-# the CUDA kernels' cross levels: radices 3 and 5, at most two levels
-# (csrc/fft_common.cuh MAX_CROSS_LEVELS): the smooth pads' odd factors 3,
-# 5, 9 and 15. The plain versions take any radices, as the JAX package.
-KERNEL_RADICES = (3, 5)
+# the CUDA kernels' cross levels (csrc/fft_common.cuh radix_code): the
+# smooth pads' odd factors 3, 5, 9 = (3, 3) and 15 = (3, 5), each tuple a
+# compiled instance. The plain versions take any radices, as the JAX
+# package.
+KERNEL_RADIX_TUPLES = ((3,), (5,), (3, 3), (3, 5))
 MAX_CROSS_LEVELS = 2
 
 
@@ -187,10 +192,10 @@ MAX_CROSS_LEVELS = 2
 def _cross_plan_host(radices: tuple, inverse: bool) -> tuple:
     """(levels, int32 radix array, float32 coefficient array) for the C
     entries: per level 5 cos then 5 sin values of _cross_coefs_np."""
-    if len(radices) > MAX_CROSS_LEVELS or any(r not in KERNEL_RADICES for r in radices):
+    if radices and radices not in KERNEL_RADIX_TUPLES:
         raise ValueError(
-            f"the CUDA kernels take up to {MAX_CROSS_LEVELS} cross levels of radix "
-            f"{KERNEL_RADICES}, got radices {radices}"
+            f"the CUDA kernels take the radix tuples {KERNEL_RADIX_TUPLES}, got radices "
+            f"{radices}"
         )
     rad = np.zeros(MAX_CROSS_LEVELS, np.int32)
     coef = np.zeros((MAX_CROSS_LEVELS, 2, 5), np.float32)
@@ -225,6 +230,201 @@ def check_kernel_length(n: int) -> None:
             f"transform length {n} exceeds the kernels' shared-memory row "
             f"limit of {MAX_KERNEL_N} points"
         )
+
+
+# ---------------------------------------------------------------------------
+# B1's plan (csrc/fft_rows_t.cu): the radix-2 stages in groups held in
+# registers. The kernel mirrors the index math below; the CPU tests run
+# it group by group against run_stages.
+
+T_SLOTS = 16            # complex values a thread holds
+T_MAX_K = 4             # stages a group runs in registers (T_SLOTS = 2^T_MAX_K)
+T_MAX_GROUPS = 6        # csrc/fft_rows_t.cu GroupPlan
+T_THREADS = 512         # the kernel's __launch_bounds__
+T_SMEM_BUDGET = 160 << 10  # one block an SM: 8 rows at n = 2048 and 2304, 4 at 3840/4096
+T_MAX_ROWS = 256
+T_MIN_ROWS_STORE = 8    # 32-byte column segments of the transposed store (n <= 2304)
+# blocks a launch should have, per SM of the card: fewer rows a block (at
+# least T_MIN_ROWS_STORE) when the rows of all pairs would give fewer
+T_MIN_WAVES = 2
+
+
+def t_stage_groups(stages: int) -> tuple:
+    """The S radix-2 stages cut into ceil(S / 4) groups of consecutive
+    stages, as even as possible (11 -> 4 + 4 + 3): ((s_lo, k), ...) in
+    DIF order, top stages first; group (s_lo, k) runs stages s_lo ..
+    s_lo + k - 1."""
+    n_groups = -(-stages // T_MAX_K)
+    base, extra = divmod(stages, n_groups)
+    groups, hi = [], stages
+    for g in range(n_groups):
+        k = base + (g < extra)
+        groups.append((hi - k, k))
+        hi -= k
+    return tuple(groups)
+
+
+def t_pad(i):
+    """Padded shared-memory column: one word in every 32 left empty."""
+    return i + (i >> 5)
+
+
+def t_row_stride(n: int, rows: int) -> int:
+    """Padded row stride (floats) with stride % 32 == 32 / min(rows, 32)
+    (mod 32): the transposed read, neighbouring threads on neighbouring
+    rows of one column, then hits distinct banks."""
+    stride, want = t_pad(n), (32 // min(rows, 32)) % 32
+    while stride % 32 != want:
+        stride += 1
+    return stride
+
+
+class TPlan(NamedTuple):
+    """One fft_rows_t launch's block geometry and stage groups: rows = 2^lr
+    rows of n = R * 2^logq points a block, padded row stride rs (floats),
+    `threads` threads, per group (s_lo, k, ub_shift, row_shift), and
+    whether the last of two groups or more stores its registers straight
+    to the transposed output (direct_store) or through shared memory."""
+
+    n: int
+    logq: int
+    lr: int
+    rs: int
+    threads: int
+    groups: tuple
+    direct_store: bool = False
+
+    @property
+    def rows(self) -> int:
+        return 1 << self.lr
+
+    @property
+    def slot_sets(self) -> int:
+        return self.rows * self.n // T_SLOTS
+
+    @property
+    def smem_bytes(self) -> int:
+        return 8 * self.rows * self.rs
+
+    def c_plan(self) -> np.ndarray:
+        """The int32 plan array of the C entry."""
+        return np.array([len(self.groups), int(self.direct_store)]
+                        + [v for g in self.groups for v in g], np.int32)
+
+
+def t_slot_index(plan: TPlan, group: tuple) -> tuple:
+    """(row, column) in the block of every (slot set, slot) of a stage
+    group (s_lo, k, ub_shift, row_shift): two (slot_sets, 16) int arrays.
+    Slot j of slot set u holds element j mod 2^k of item u + (j >> k) *
+    slot_sets; an item's bit fields are (q-block field ub, row, cross
+    block c), ub the column bits outside the group's stages: column =
+    c * q + lo | hb << (s_lo + k) | jl << s_lo."""
+    s_lo, k, ub_shift, row_shift = group
+    lq = plan.logq - k
+    ns = plan.slot_sets
+    u = np.arange(ns, dtype=np.int64)[:, None]
+    j = np.arange(T_SLOTS, dtype=np.int64)[None, :]
+    it = u + (j >> k) * ns
+    ub = (it >> ub_shift) & ((1 << lq) - 1)
+    row = (it >> row_shift) & (plan.rows - 1)
+    c = it >> (lq + plan.lr)
+    col = ((c << plan.logq) | (ub & ((1 << s_lo) - 1)) | ((ub >> s_lo) << (s_lo + k))
+           | ((j & ((1 << k) - 1)) << s_lo))
+    return row, col
+
+
+def t_cross_columns(plan: TPlan, radices: tuple) -> np.ndarray:
+    """The cross pass's element map: item b < q of a row holds columns b +
+    j * q, j = j0 * R1 + j1 < R (element b + j1*q + j0*q0): a (q, R)
+    array."""
+    r = math.prod(radices)
+    q = 1 << plan.logq
+    return np.arange(q)[:, None] + np.arange(r)[None, :] * q
+
+
+def t_bank_conflicts(plan: TPlan, group: tuple) -> int:
+    """The most threads of one warp that hit one bank with one shared
+    access of a stage group (1: conflict-free); warps are 32 consecutive
+    slot sets."""
+    row, col = t_slot_index(plan, group)
+    addr = row * plan.rs + t_pad(col)
+    warp = np.arange(addr.shape[0])[:, None] // 32
+    key = (warp * T_SLOTS + np.arange(T_SLOTS)[None, :]) * 32 + addr % 32
+    return int(np.bincount(key.ravel()).max())
+
+
+def _t_store_conflicts(plan: TPlan) -> int:
+    """Bank conflicts of the shared-memory transposed read (and of the
+    inverse cross pass's store): neighbouring threads on neighbouring rows
+    of one column."""
+    t = np.arange(min(32, plan.rows * plan.n))
+    addr = (t & (plan.rows - 1)) * plan.rs + t_pad(t >> plan.lr)
+    return int(np.bincount(addr % 32).max())
+
+
+@functools.lru_cache(maxsize=None)
+def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
+           blocks_wanted: int = 0) -> TPlan:
+    """The fft_rows_t plan of a length-n row pass over planes of m rows.
+
+    Rows a block: the largest power of two up to the plane height (and
+    T_MAX_ROWS) whose padded rows fit T_SMEM_BUDGET, at least 16 / q so
+    every thread's 16 slots are full; halved while the launch (m rows a
+    pair, blocks_wanted / plane count) would have fewer than blocks_wanted
+    blocks, down to T_MIN_ROWS_STORE (a small launch of large blocks
+    leaves SMs idle). The forward pass with 4 rows or more and two groups
+    or more stores the last group's registers straight to the transposed
+    output (its map row first: neighbouring threads on neighbouring rows);
+    other passes read the output columns from shared memory. Per stage group the
+    thread-to-item map puts neighbouring threads along the row (ub first:
+    coalesced, and conflict-free where the group's low bits span a warp)
+    or across rows (row first), whichever t_bank_conflicts finds cheaper;
+    the forward pow2 pass's first group reads device memory and keeps the
+    row map. The row stride is the first past the padded row that keeps
+    the shared-memory transposed read conflict-free and the groups'
+    accesses cheapest."""
+    radices = tuple(radices)
+    stages = check_length(n, radices)
+    check_kernel_length(n)
+    q = 1 << stages
+    rows = max(1, T_SLOTS // q)
+    cap = max(rows, min(T_MAX_ROWS, 1 << max(0, m - 1).bit_length()))
+    while rows * 2 <= cap and 16 * rows * (t_pad(n) + 32) <= T_SMEM_BUDGET:
+        rows *= 2
+    floor = max(T_MIN_ROWS_STORE, T_SLOTS // q)
+    while rows > floor and -(-m // rows) < blocks_wanted:
+        rows //= 2
+    lr = rows.bit_length() - 1
+    ns = rows * n // T_SLOTS
+    threads = min(T_THREADS, -(-ns // 32) * 32)
+    direct = not inverse and rows >= 4 and len(t_stage_groups(stages)) > 1
+    best = None
+    for extra in range(32):
+        plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, (), direct)
+        if not direct and _t_store_conflicts(plan) > 1:
+            continue
+        groups, costs = [], []
+        spec = t_stage_groups(stages)
+        for g, (s_lo, k) in enumerate(spec):
+            along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
+            if direct and g == len(spec) - 1:
+                choice = [across]
+            elif (g == 0 and not inverse and not radices) or lr == 0:
+                choice = [along]
+            else:
+                choice = [along, across]
+            cost = [t_bank_conflicts(plan, c) for c in choice]
+            groups.append(choice[int(np.argmin(cost))])
+            costs.append(min(cost))
+        key = (max(costs), sum(costs))
+        if best is None or key < best[0]:
+            best = key, plan._replace(groups=tuple(groups))
+        if key == (1, len(spec)):
+            break
+    plan = best[1]
+    if plan.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError(f"a row of {n} points does not fit a block's shared memory")
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -394,10 +594,17 @@ def _check_planes(re, im, extent, radices):
     return int(big_m), int(big_n)
 
 
+def _check_store(ordering, radices, transposed) -> bool:
+    natural = check_ordering(ordering, radices)
+    if natural and transposed:
+        raise ValueError("the transposed store takes revorder ordering (B1's order)")
+    return natural
+
+
 def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
                    ordering="revorder"):
     """Plain version of `fft_rows` (same signature and layout)."""
-    natural = check_ordering(ordering, radices)
+    natural = _check_store(ordering, radices, transposed)
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes = re.shape[0]
     x_re = _logical(re, planes, (big_m, big_n))
@@ -425,22 +632,28 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     (P, M, N). Forward = DIF (bit-reversed out), inverse = DIT
     (bit-reversed in), unscaled. radices: the odd cross-DFT radices of a
     smooth N = prod(radices) * 2^k (module docstring), () for a pow2 N.
-    ordering='natural' (pow2 N): natural order in and out, the loader
-    writing each row bit-reversed and the DIT stages running with this
-    direction's tables (B6's natural mode, the `pallas` backend of ops/fft.py;
-    counted under "fft_rows_natural" too).
+    ordering='natural' (pow2 N, natural store only): natural order in and
+    out, the loader writing each row bit-reversed and the DIT stages
+    running with this direction's tables (B6's natural mode, the `pallas`
+    backend of ops/fft.py; counted under "fft_rows_natural" too).
+    transposed=True launches B1's register-resident kernel
+    (csrc/fft_rows_t.cu, counted under "fft_rows_t" too), which writes
+    the rows past the live ones as zeros itself; the natural store
+    launches csrc/fft_rows.cu.
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
                               radices=radices, ordering=ordering)
-    natural = check_ordering(ordering, radices)
+    natural = _check_store(ordering, radices, transposed)
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
-    rows = rows_per_block(big_n, big_m)
     live_rows = min(m, big_m)
-    # rows past the live ones are never launched: their output stays zero
-    alloc = torch.empty if -(-live_rows // rows) * rows >= big_m else torch.zeros
+    rows = rows_per_block(big_n, big_m)
+    # the natural store's kernel launches the live row blocks only: the
+    # rest of its output stays zero; the transposed kernel writes them
+    alloc = (torch.empty if transposed or -(-live_rows // rows) * rows >= big_m
+             else torch.zeros)
     out_re = alloc(shape, dtype=torch.float32, device=re.device)
     out_im = alloc(shape, dtype=torch.float32, device=re.device)
     ps, rs, cs = re.stride()
@@ -448,12 +661,12 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
         im.stride()[1:] != (rs, cs) or (im.shape[0] > 1 and im.stride(0) != ps)
     ):
         raise ValueError("the kernel reads re and im planes with one set of strides")
-    _launch(
-        re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
-        0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n,
-        rows, out_re, out_im, None, STORE_T if transposed else STORE_NATURAL, inverse,
-        radices, natural,
-    )
+    args = (re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
+            0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n)
+    if transposed:
+        _launch_t(*args, out_re, out_im, inverse, radices)
+    else:
+        _launch(*args, rows, out_re, out_im, None, STORE_NATURAL, inverse, radices, natural)
     return out_re, out_im
 
 
@@ -506,15 +719,11 @@ def fft_rows_stack(stack, *, extent, radices=()):
     b, h, w, c = stack.shape
     n_planes = b * c
     pairs = -(-n_planes // 2)
-    rows = rows_per_block(big_n, big_m)
-    alloc = torch.empty if -(-h // rows) * rows >= big_m else torch.zeros
-    out_re = alloc((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
-    out_im = alloc((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
+    out_re = torch.empty((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
+    out_im = torch.empty((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
     bs, rs, cs, chs = stack.stride()
-    _launch(
-        stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
-        h, w, big_m, big_n, rows, out_re, out_im, None, STORE_T, False, radices,
-    )
+    _launch_t(stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
+              h, w, big_m, big_n, out_re, out_im, False, radices)
     return out_re, out_im
 
 
@@ -609,6 +818,49 @@ def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, 
         launch_counts["mixed_radix"] += 1
     if natural:
         launch_counts["fft_rows_natural"] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _t_launch_args(big_n, radices, big_m, inverse, device, pairs) -> tuple:
+    """The arguments of one fft_rows_t launch that depend on its shape
+    only (the plan, the table and cross-level pointers), worked out once
+    per shape: a restore enqueues a handful of launches a frame and is
+    near host-bound. The plan array stays alive in the cache."""
+    plan = t_plan(big_n, radices, big_m, inverse, -(-_sm_count(device) * T_MIN_WAVES // pairs))
+    t = tables(big_n, inverse, device, radices)
+    c_plan = plan.c_plan()
+    return ((plan.logq, plan.lr, plan.rs, plan.threads), int(inverse), t.cos.data_ptr(),
+            t.sin.data_ptr(), c_plan.ctypes.data, *cross_args(big_n, radices, inverse, device),
+            c_plan)
+
+
+def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, out_re,
+              out_im, inverse, radices):
+    """One fft_rows_t launch (B1, the transposed store) over re_live
+    pairs, with t_plan's stage groups."""
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    radices = tuple(radices)
+    geometry, *consts, _ = _t_launch_args(big_n, radices, big_m, bool(inverse), re.device,
+                                          re_live)
+    err = _build.load().fft_rows_t_launch(
+        re.data_ptr(), None if im is None else im.data_ptr(),
+        int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
+        pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
+        live_rows, live_cols, re_live, big_m, *geometry,
+        out_re.data_ptr(), out_im.data_ptr(), *consts,
+        torch.cuda.current_stream(re.device).cuda_stream,
+    )
+    _build.check(err, "fft_rows_t")
+    launch_counts["fft_rows"] += 1
+    launch_counts["fft_rows_t"] += 1
+    if radices:
+        launch_counts["mixed_radix"] += 1
 
 
 # ---------------------------------------------------------------------------

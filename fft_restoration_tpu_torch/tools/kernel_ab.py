@@ -1,0 +1,174 @@
+"""Two checkouts' FFT kernels and restore paths in turns on one NVIDIA GPU.
+
+    python -m fft_restoration_tpu_torch.tools.kernel_ab --other <checkout>
+        [--iters N] [--seed N] [--paths a,b,...] [--no-paths]
+
+Times the row-FFT and spectral kernels of this checkout ("change") and of
+another one ("other", e.g. the parent commit unpacked with `git archive`)
+in turns, other, change, change, other, each turn in its own process with
+the package imported from that checkout (its kernels built there), at
+the shapes `chip_smoke.py` phase 2 gives them: B1's transposed passes
+(the 2048^2 frame, batch64's stack and inverse-T, UHD 3840x2160 at
+--pad smooth, the 640x330 stack at 384x640 and its inverse-T), B3, B6's
+PSF pass, B2 'wiener' / 'conv' / conj and B7 at pow2 and smooth shapes.
+Each mode is the median of three CUDA-event loops of `--iters` launches.
+Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
+the restore paths' device busy. Uses only functions both checkouts have.
+Prints one line per mode and path and a JSON object last; exits non-zero
+without a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+PATHS = "single_2048sq,batch64_256sq,batch8_2048sq,rl_2048sq,edgetaper_2048sq,uhd_smooth,uhd_pow2"
+
+
+def _median_ms(torch, fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[1]
+
+
+def child(iters: int, seed: int) -> dict:
+    """One turn: every mode's ms, with the package of PYTHONPATH."""
+    import numpy as np
+    import torch
+
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, pad_extents, psf_spectrum_planes,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+
+    def u8(*shape):
+        return torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=dev)
+
+    psf = make_psf("motion", 50, 30.0, dev)
+    frame, s64 = u8(1, 2048, 2048, 3), u8(64, 256, 256, 3)
+    uhd, small = u8(1, 2160, 3840, 3), u8(4, 330, 640, 3)
+    a = fk.fft_rows_stack_plain(frame, extent=(2048, 2048))
+    H = psf_spectrum_planes(psf, 2048, 2048, PLAIN_OPS)
+    mid = ws.wiener_spectral_t_plain(*a, *H, 0.01)
+    st = fk.fft_rows_stack_plain(s64, extent=(256, 256))
+    H64 = psf_spectrum_planes(make_psf("motion", 25, 30.0, dev), 256, 256, PLAIN_OPS)
+    f64 = ws.fwd_wiener_rows_plain(*st, *H64, 0.01)
+    psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(2048, 2048))
+    hp, wp, rh, rw = pad_extents(2160, 3840, "smooth")
+    ua = fk.fft_rows_stack_plain(uhd, extent=(hp, wp), radices=rw)
+    uH = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rh, rw))
+    umid = ws.wiener_spectral_t_plain(*ua, *uH, 0.01, rh)
+    upsf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), radices=rw)
+    shp, swp, srh, srw = pad_extents(330, 640, "smooth")
+    sa = fk.fft_rows_stack_plain(small, extent=(shp, swp), radices=srw)
+    sH = psf_spectrum_planes(psf, shp, swp, PLAIN_OPS, (srh, srw))
+    sf = ws.fwd_wiener_rows_plain(*sa, *sH, 0.01, srh)
+    modes = {
+        "B1_frame_T": lambda: fk.fft_rows_stack(frame, extent=(2048, 2048)),
+        "B1_stack_T": lambda: fk.fft_rows_stack(s64, extent=(256, 256)),
+        "B1_inverse_T": lambda: fk.fft_rows(*f64, inverse=True, transposed=True),
+        "B1_psf_T": lambda: fk.fft_rows(psf[None], None, transposed=True, extent=(2048, 2048)),
+        "B1_uhd_smooth_T": lambda: fk.fft_rows_stack(uhd, extent=(hp, wp), radices=rw),
+        "B1_uhd_pow2_T": lambda: fk.fft_rows_stack(uhd, extent=(4096, 4096)),
+        "B1_stack330_smooth_T": lambda: fk.fft_rows_stack(small, extent=(shp, swp), radices=srw),
+        "B1_inverse_T_smooth": lambda: fk.fft_rows(*sf, inverse=True, transposed=True,
+                                                   radices=srh),
+        "B3_packed_inv": lambda: fk.fft_rows_packed_out(*mid, inverse=True),
+        "B6_psf_natural": lambda: fk.fft_rows(*psf1),
+        "B2_wiener": lambda: ws.wiener_spectral_t(*a, *H, 0.01),
+        "B7_batch64": lambda: ws.fwd_wiener_rows(*st, *H64, 0.01),
+        "B3_uhd_smooth": lambda: fk.fft_rows_packed_out(*umid, inverse=True, radices=rw),
+        "B6_psf_uhd_smooth": lambda: fk.fft_rows(*upsf1, radices=rh),
+        "B2_wiener_uhd_smooth": lambda: ws.wiener_spectral_t(*ua, *uH, 0.01, rh),
+        "B2_conv_uhd_smooth": lambda: ws.spectral_conv_t(*ua, *uH, False, rh),
+        "B2_conv_conj_uhd_smooth": lambda: ws.spectral_conv_t(*ua, *uH, True, rh),
+        "B7_stack330_smooth": lambda: ws.fwd_wiener_rows(*sa, *sH, 0.01, srh),
+    }
+    return {name: _median_ms(torch, fn, iters) for name, fn in modes.items()}
+
+
+def _turn(root: Path, args, *cmd) -> str:
+    env = dict(os.environ, PYTHONPATH=str(root))
+    res = subprocess.run([sys.executable, *cmd], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=1800)
+    if res.returncode != 0:
+        raise SystemExit(f"turn in {root} failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    return res.stdout
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", help="the other checkout's root")
+    ap.add_argument("--iters", type=int, default=30)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", default=PATHS)
+    ap.add_argument("--no-paths", action="store_true")
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    if args.child:
+        print(json.dumps(child(args.iters, args.seed)))
+        return 0
+    if not args.other:
+        ap.error("--other is required")
+    roots = {"other": Path(args.other).resolve(), "change": ROOT}
+    order = ("other", "change", "change", "other")
+    me = str(Path(__file__).resolve())
+    kernels = {k: [] for k in roots}
+    for who in order:
+        out = _turn(roots[who], args, me, "--child", "--iters", str(args.iters),
+                    "--seed", str(args.seed))
+        kernels[who].append(json.loads(out.strip().splitlines()[-1]))
+    result = {"card": torch.cuda.get_device_name(0), "order": order, "kernels_ms": {}}
+    for mode in kernels["change"][0]:
+        o = [t[mode] for t in kernels["other"]]
+        c = [t[mode] for t in kernels["change"]]
+        result["kernels_ms"][mode] = dict(other=o, change=c, change_over_other=sum(c) / sum(o))
+        print(f"{mode}: other {o[0]:.4f} / {o[1]:.4f} ms, change {c[0]:.4f} / {c[1]:.4f} ms, "
+              f"change / other {sum(c) / sum(o):.3f}", flush=True)
+    if not args.no_paths:
+        prof = str(ROOT / "fft_restoration_tpu_torch" / "tools" / "profile_paths.py")
+        paths = {k: [] for k in roots}
+        for who in order:
+            out = _turn(roots[who], args, prof, "--paths", args.paths, "--iters",
+                        str(args.iters), "--seed", str(args.seed))
+            paths[who].append(json.loads(out.strip().splitlines()[-1]))
+        result["paths"] = paths
+        for key in paths["change"][0]:  # <path>_stride<s>
+            busy = {who: [round(p[key]["device_busy_us_per_run"], 1) for p in paths[who]]
+                    for who in roots}
+            ms = {who: [round(p[key]["ms_per_run"], 4) for p in paths[who]] for who in roots}
+            print(f"{key}: device busy us/run other {busy['other']}, change {busy['change']}; "
+                  f"events ms/run other {ms['other']}, change {ms['change']}", flush=True)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -252,8 +252,11 @@ def test_pipeline_kernels_vs_plain_and_launches(dev, gen):
     reset_launch_counts()
     out, planes = WienerDeblurPipeline("cuda").restore_with_planes(img, 21, 60.0, 0.01)
     # hp = 512 takes the fused middle (B2), not B7
-    wiener = [k for k in KERNELS if k not in ("fwd_wiener_rows", "spectral_conv_t", "mixed_radix")]
+    wiener = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials", "wb_encode_u8")
     assert all(launch_counts[k] > 0 for k in wiener), dict(launch_counts)
+    # every transposed pass (the frame's, the PSF's) runs B1's kernel
+    assert launch_counts["fft_rows_t"] == 2, dict(launch_counts)
+    assert not any(launch_counts[k] for k in KERNELS if k not in wiener), dict(launch_counts)
     assert launch_counts["fwd_wiener_rows"] == 0 and launch_counts["spectral_conv_t"] == 0
     assert launch_counts["mixed_radix"] == 0  # pow2 extents take the pow2 instances
     H = psf_spectrum_planes(make_psf("motion", 21, 60.0, dev), *pad_extents(300, 520)[:2],
@@ -362,8 +365,12 @@ def test_plane_counts_past_65535(dev, gen):
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
     stack = torch.as_tensor(gen.integers(0, 256, (44_001, 3, 7, 3), dtype=np.uint8), device=dev)
+    reset_launch_counts()
     a = fk.fft_rows_stack(stack, extent=(4, 8))
+    assert launch_counts["fft_rows_t"] == 1
     a_p = fk.fft_rows_stack_plain(stack, extent=(4, 8))
     assert a[0].shape == (66_002, 8, 4)
     for o, r in zip(a, a_p):
@@ -593,3 +600,74 @@ def test_generic_route_on_the_card_matches_cpu(gen, backend):
         img, 21, 30.0)
     assert np.abs(planes - planes_c).max() <= 1e-5
     assert np.abs(out.astype(np.int32) - out_c.astype(np.int32)).max() <= 1
+
+
+# B1's register-resident kernel (csrc/fft_rows_t.cu): every length the
+# kernels admit, both directions, ragged live rows and columns, the rows
+# past the live ones written as zeros by the kernel itself (its output is
+# torch.empty)
+T_LENGTHS = [(1 << s, ()) for s in range(1, 15)] + SMOOTH + [(1152, (3, 3)), (640, (5,))]
+
+
+@pytest.mark.parametrize("n,rad", T_LENGTHS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_rows_t_every_length(dev, gen, n, rad, inverse):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    big_m = 37 if n <= 4096 else 5
+    for m, w in ((big_m, n), (big_m - 3, max(1, n - 5)), (1, n)):
+        re, im = (torch.as_tensor(gen.standard_normal((3, m, w), dtype=np.float32), device=dev)
+                  for _ in range(2))
+        kw = dict(inverse=inverse, transposed=True, extent=(big_m, n), radices=rad)
+        reset_launch_counts()
+        ours = fk.fft_rows(re, im[:2], **kw)  # the third pair's im reads as zero
+        assert launch_counts["fft_rows_t"] == 1 == launch_counts["fft_rows"], dict(launch_counts)
+        assert launch_counts["mixed_radix"] == bool(rad)
+        for o, r in zip(ours, fk.fft_rows_plain(re, im[:2], **kw)):
+            assert o.shape == (3, n, big_m) and _rel(o, r) <= 1e-5
+            assert torch.all(o[..., m:] == 0)
+
+
+@pytest.mark.parametrize("n,rad", [(256, ()), (2048, ()), (4096, ()), (384, (3,)), (2304, (3, 3)),
+                                   (3840, (3, 5))])
+@pytest.mark.parametrize("c", [1, 3, 5])
+def test_fft_rows_t_stack_odd_channels(dev, gen, n, rad, c):
+    """Stacks whose channel count is odd (the last pair's im a phantom
+    plane for an odd B*C), ragged rows and columns, u8 and float32."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    b, h = 3, 19
+    for dtype in (np.uint8, np.float32):
+        x = (gen.integers(0, 256, (b, h, n - 3, c)).astype(dtype) if dtype == np.uint8
+             else gen.standard_normal((b, h, n - 3, c), dtype=np.float32))
+        stack = torch.as_tensor(x, device=dev)
+        ours = fk.fft_rows_stack(stack, extent=(24, n), radices=rad)
+        for o, r in zip(ours, fk.fft_rows_stack_plain(stack, extent=(24, n), radices=rad)):
+            assert o.shape == (-(-b * c // 2), n, 24) and _rel(o, r) <= 1e-5
+
+
+def test_fft_rows_t_u8_frame_pair_views(dev, gen):
+    """The frame's channel-pair views (strided uint8 planes, an odd channel
+    count) and a real-input PSF with 20 live rows of 2048."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    frame = torch.as_tensor(gen.integers(0, 256, (2000, 1999, 3), dtype=np.uint8), device=dev)
+    c = frame.permute(2, 0, 1)
+    for o, r in zip(fk.fft_rows(c[0::2], c[1::2], transposed=True, extent=(2048, 2048)),
+                    fk.fft_rows_plain(c[0::2], c[1::2], transposed=True, extent=(2048, 2048))):
+        assert _rel(o, r) <= 1e-5
+    psf = torch.as_tensor(gen.random((20, 20), dtype=np.float32), device=dev)[None]
+    ours = fk.fft_rows(psf, None, transposed=True, extent=(2048, 2048))
+    for o, r in zip(ours, fk.fft_rows_plain(psf, None, transposed=True, extent=(2048, 2048))):
+        assert _rel(o, r) <= 1e-5 and torch.all(o[..., 20:] == 0)
+
+
+def test_kernels_do_not_spill():
+    """-Xptxas -v of the build: no kernel instance spills registers."""
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    _build.load()
+    lines = [ln for ln in _build.build_log.splitlines() if "spill" in ln]
+    assert lines and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in lines), \
+        [ln for ln in lines if "0 bytes spill stores, 0 bytes spill loads" not in ln]
