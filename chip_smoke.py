@@ -30,7 +30,9 @@ lines; any failure exits non-zero:
              TFLOP/s) and, for each row-FFT mode, torch.fft.fft over the
              same complex planes (the library yardstick, not on the path);
              B1's transposed passes are the fft_rows_t row (csrc/
-             fft_rows_t.cu), B3 and B6 the fft_rows row (csrc/fft_rows.cu);
+             fft_rows_t.cu), B3 and B6 the fft_rows row (csrc/fft_rows.cu:
+             B3's packed inverse, B6's PSF pass, revorder with the
+             natural store, and a conv's inverse pass at 2x2048^2);
              then each kernel mode at its smooth shape (B1 u8 at
              2160x3840 -> 3840 wide, B6 and B2 'wiener' / 'conv' / conj
              at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
@@ -339,6 +341,8 @@ def check_fft_rows(torch, np, frame, stack64, iters):
     mid = ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01)
     out_k, mm_k = fk.fft_rows_packed_out(*mid, inverse=True)
     out_p, mm_p = fk.fft_rows_packed_out_plain(*mid, inverse=True)
+    cv_k = fk.fft_rows(*mid, inverse=True)
+    cv_p = fk.fft_rows_plain(*mid, inverse=True)
     n64, side = stack64.shape[0], stack64.shape[1]
     st_k = fk.fft_rows_stack(s64, extent=(side, side))
     st_p = fk.fft_rows_stack_plain(s64, extent=(side, side))
@@ -362,6 +366,10 @@ def check_fft_rows(torch, np, frame, stack64, iters):
         "B6_psf_natural": (list(zip(Hk, Hp)),  # B1 real-input pass + B6 pass
                            lambda: fk.fft_rows(*psf1), lambda: fk.fft_rows_plain(*psf1),
                            2 * f2, fft_flops(wp, hp), lib(*psf1)),
+        "B6_conv_inv": (list(zip(cv_k, cv_p)),  # a conv's last pass (models/convolve.py)
+                        lambda: fk.fft_rows(*mid, inverse=True),
+                        lambda: fk.fft_rows_plain(*mid, inverse=True),
+                        4 * f2, fft_flops(2 * hp, wp), lib(*mid)),
         "B3_packed_inv": ([(out_k, out_p), (mm_k, mm_p)],
                           lambda: fk.fft_rows_packed_out(*mid, inverse=True),
                           lambda: fk.fft_rows_packed_out_plain(*mid, inverse=True),

@@ -30,9 +30,9 @@
 // What bounds the stage loops here on the H100: one thread takes one
 // butterfly, so each of the log2(q) stages is a full read and write of
 // the rows through shared memory and a barrier. They serve the kernels
-// whose radix-2 stages are not yet redesigned (B2, B3, B6, B7, B11's
-// column twin, B12's tail); B1 (fft_rows.cu, fft_rows_t_kernel) runs its
-// stages in registers instead.
+// whose radix-2 stages are not yet redesigned (B2, B7, B10, B11's column
+// twin, B12's tail); the row kernels B1 (fft_rows_t.cu) and B3/B6
+// (fft_rows.cu) run their stages in registers instead (fft_groups.cuh).
 //
 // Layout of the shared-memory stage loops: a block holds `rows` complex
 // rows of length n as two planes, re[rows][n] then im[rows][n], in dynamic

@@ -1,213 +1,341 @@
-// fft_rows: radix-2 row FFT over the last axis, all stages in shared
-// memory, for the natural and packed stores.
+// fft_rows: the row FFT with the row-major stores (B6's natural store,
+// B3's packed store and min/max partials), its radix-2 stages held in
+// registers.
 //
 // Replaces two Pallas kernels of fft_restoration_tpu/ops/pallas/
 // fft_kernel.py that share one stage body (_run_stages) and differ only
 // in how they store:
-//   B6 fft_rows_pallas plain path ("fftr_rows_*") -> STORE_NATURAL
-//   B3 fft_rows_packed_out ("fftr_rows_packed_inv") -> STORE_PACKED + min/max
-// The third, B1 _fft_rows_transposed ("fftr_rows_T_fwd"), the transposed
-// store, is fft_rows_t.cu's register-resident kernel.
+//   B6 fft_rows_pallas plain path ("fftr_rows_*"): (P, M, N) -> (P, M, N)
+//   B3 fft_rows_packed_out ("fftr_rows_packed_inv"): re -> plane 2p, im ->
+//      plane 2p+1 of one (2P, M, N) output, plus [min_re, max_re, min_im,
+//      max_im] partials
+// The third, B1 _fft_rows_transposed, the transposed store, is
+// fft_rows_t.cu; both run their stages on fft_groups.cuh's engine.
 // Ordering revorder: forward = DIF (natural in, bit-reversed out),
-// inverse = DIT (bit-reversed in, natural out), unscaled. Natural
-// ordering (the NATURAL instances, pow2 N; B6's ordering="natural", the
-// generic API's `pallas` backend): the loader writes element c of a row to
-// shared slot bit-reverse(c), so the bit reversal costs no pass of its
-// own, and the DIT stages then run with the direction's tables (the JAX
-// kernel's XLA bit-reversal pass, then DIT; fft_kernel.py:1042-1049).
+// inverse = DIT (bit-reversed in, natural out), unscaled, at a pow2 N or
+// a smooth N = R * q (R = R0 * R1 of the odd radices, q = 2^S). Natural
+// ordering (pow2 N; B6's ordering="natural", the generic API's `pallas`
+// backend): the JAX kernel bit-reverses the input (an XLA pass) and runs
+// the DIT stages with the direction's tables (fft_kernel.py:1042-1049);
+// here the first DIT group loads the bit-reversed row straight from
+// device memory (fft_groups.cuh LD_BREV), so the reversal costs no pass.
 //
 // What bounds it on the H100: each row is read and written once, so a
-// pass over two complex 2048^2 planes moves 134 MB, 40 us at 3.35 TB/s;
-// the log2(n) stages of shared-memory butterflies (11 at n=2048, 10 flops
-// and 8 shared accesses per butterfly) cost more than that, so the kernel
-// is bound by shared-memory traffic and the __syncthreads() between
-// stages, not by device memory. The design keeps the whole row resident
-// in shared memory for all stages (one device round trip per pass, as the
-// TPU kernel keeps it in VMEM) and sizes rows-per-block (a power of two
-// chosen by the wrapper) to 64 KB of shared memory so several blocks share
-// an SM. Its stages are the next redesign (ROADMAP.md B).
+// pass over two complex 2048^2 planes moves 134 MB, 40 us at 3.35 TB/s.
+// The shared-memory design before this one ran each of the log2(q)
+// stages as a full shared-memory pass with a barrier (11 at n = 2048, 8
+// shared accesses a butterfly) and wrote the natural ordering's rows to
+// bit-reversed shared slots with bank conflicts: 2.4-3.3x torch.fft.
 //
-// Load: pair p reads logical plane q = p*qstep as re and q + qim as im,
-// each from its own base pointer, element (q, m, c) at
-//   (q / channels) * is + (q % channels) * chs + m * rs + c * cs
-// when the pair is live (p < re_live, p < im_live), m < live_rows and
-// c < live_cols, else 0 (the loader shared with fft_rows_t.cu, in
-// fft_rows_load.cuh). uint8 converts as x / 255.0f, a true division, as
-// the TPU kernel's _load_f32 does.
+// The design (the stage groups of fft_groups.cuh, as B1's):
+// - A thread holds 16 complex values; the wrapper's plan
+//   (ops/kernels/fft_kernel.py r_plan) cuts the stages into groups of <=
+//   4 (11 = 4 + 4 + 3), each run in registers: S stages cost ceil(S / 4)
+//   - 1 shared-memory exchanges, 2 at n = 2048.
+// - Every direction loads and stores from registers, with no transpose:
+//   forward (DIF) pow2, the top group loads with the row map
+//   (neighbouring threads on neighbouring columns) and the bottom group
+//   (s_lo = 0), which holds 2^k consecutive columns of one row, stores
+//   them as 16-byte vectors; inverse (DIT), the mirror: the bottom group
+//   loads vectors, the top group stores with the row map; natural, the
+//   bottom group loads the bit-reversed map, the top group stores with
+//   the row map. The mixed forward pass runs both cross levels in
+//   registers as the rows load (cross_item) and the mixed inverse as
+//   they store, as B1 does.
+// - B3's min/max: each thread folds the values it stores, then the warp
+//   (shuffles) and the block (block_minmax4) reduce them, one partial a
+//   block; a block of more rows than a partial's (tiny planes only, where
+//   a thread's 16 slots need more rows) reduces each partial's rows from
+//   the output it just wrote.
+// - Geometry for occupancy, by measurement (tools/rows_geometry.py): no
+//   transposed store, so a block needs no minimum of rows; the plan
+//   gives a natural-store block the rows that fit 32 KB (2 at n = 2048),
+//   a packed-store block those of one min/max partial (4), and 128
+//   threads that loop over the slot sets: 3-4 blocks an SM.
+//   __launch_bounds__(256, 2) holds a thread to 128 registers, with no
+//   spill. Blocks past the live rows write the zero rows and transform
+//   nothing, so the wrapper allocates with torch.empty.
 //
+// Load: pair p reads logical plane q = p*qstep as re and q + qim as im
+// (fft_rows_load.cuh's strided loader, shared with fft_rows_t.cu: zero
+// outside the live pairs, rows and columns; uint8 as x / 255.0f).
 // Grid: one dimension, block b takes row block b % nblk of pair b / nblk,
-// so the pair count is not held to gridDim.y's 65535 (a CLI chunk of
-// small frames packs hundreds of thousands of pairs).
-//
-// Mixed radix (--pad smooth; B-mixed, fft_kernel.py:139-217): a row
-// length N = R * 2^k runs both cross levels in one shared-memory pass
-// (fft_common.cuh cross_pass) before the DIF stages (forward) or after the
-// DIT stages (inverse), in the instance compiled with MIXED; the load, the
-// stages and the stores index the rows' R q-blocks with shifts alone.
-#include "fft_common.cuh"
-#include "fft_rows_load.cuh"
+// so the pair count is not held to gridDim.y's 65535.
+#include "fft_groups.cuh"
 
-enum { STORE_NATURAL = 0, STORE_PACKED = 2 };
+#define R_THREADS 256
+#define R_MIN_BLOCKS 2
 
-// element t of a block's rows * N as (row, column): column b + j*q with
-// b = t mod q fastest (coalesced), then the row, then the q-block j
-__device__ __forceinline__ void row_col(int t, int logq, int lr, int* r, int* c) {
-  *r = (t >> logq) & ((1 << lr) - 1);
-  *c = (t & ((1 << logq) - 1)) + ((t >> (logq + lr)) << logq);
+enum { MODE_DIF = 0, MODE_DIT = 1, MODE_NATURAL = 2 };
+
+// a forward group: LD_ROW for the pow2 pass's first, ST_VEC for the last
+// (a pow2 pass of one group, q <= 16, stores through shared memory: its
+// group loading and storing device memory at once spilled the uint8
+// instance)
+template <int R, typename T>
+__device__ __forceinline__ void dif_group(const TBlock& tb, const GroupPlan& gp, int g,
+                                          const PairLoad<T>& ld, bool mm_on, float (&mm)[4]) {
+  const bool last = g == gp.groups - 1;
+  if constexpr (R == 1) {
+    if (g == 0) {
+      run_group<false, LD_ROW, ST_SMEM>(tb, gp, g, ld, mm_on, mm);
+      return;
+    }
+  }
+  if (last)
+    run_group<false, LD_SMEM, ST_VEC>(tb, gp, g, ld, mm_on, mm);
+  else
+    run_group<false, LD_SMEM, ST_SMEM>(tb, gp, g, ld, mm_on, mm);
 }
 
-// stages: log2(N), or log2 of the pow2 tail when MIXED; NATURAL only
-// without MIXED
-template <typename T, bool MIXED, bool NATURAL>
-__global__ void __launch_bounds__(FFT_THREADS)
+// an inverse or natural group: LD0 (LD_VEC or LD_BREV) for the bottom
+// group, ST_ROW for the top group of a pow2 pass (the mixed pass stores
+// after its cross levels)
+template <int R, int LD0, typename T>
+__device__ __forceinline__ void dit_group(const TBlock& tb, const GroupPlan& gp, int g,
+                                          const PairLoad<T>& ld, bool mm_on, float (&mm)[4]) {
+  const bool bottom = g == gp.groups - 1;
+  if constexpr (R == 1) {
+    if (g == 0) {
+      if (bottom)
+        run_group<true, LD0, ST_ROW>(tb, gp, g, ld, mm_on, mm);
+      else
+        run_group<true, LD_SMEM, ST_ROW>(tb, gp, g, ld, mm_on, mm);
+      return;
+    }
+  }
+  if (bottom)
+    run_group<true, LD0, ST_SMEM>(tb, gp, g, ld, mm_on, mm);
+  else
+    run_group<true, LD_SMEM, ST_SMEM>(tb, gp, g, ld, mm_on, mm);
+}
+
+// N = R0 * R1 * 2^logq; rows = 2^lr rows a block; rs_smem the padded row
+// stride; block b takes rows m0 = (b % nblk) * rows of pair b / nblk.
+// Output: pair p's re plane at out_re + p * out_pair, its im plane at
+// out_im + p * out_pair, (M, N) row-major each. minmax (B3): non-null for
+// the partials of 2^lpg rows each (lpg <= lr), partial u of pair p at
+// minmax[(p * (M >> lpg) + u) * 4].
+template <typename T, int MODE, int R0, int R1>
+__global__ void __launch_bounds__(R_THREADS, R_MIN_BLOCKS)
 fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                 long long is, long long chs, int channels, int qstep, int qim,
                 long long rs, long long cs, int re_live, int im_live,
-                int live_rows, int live_cols, int M, int N, int stages,
-                int rows, int nblk, float* __restrict__ out_re,
-                float* __restrict__ out_im, float* __restrict__ minmax,
-                int store, int inverse, const float* __restrict__ cosv,
-                const float* __restrict__ sinv,
-                const __grid_constant__ CrossPlan plan) {
+                int live_rows, int live_cols, int M, int logq, int lr, int rs_smem,
+                int nblk, float* __restrict__ out_re, float* __restrict__ out_im,
+                long long out_pair, float* __restrict__ minmax, int lpg,
+                const float* __restrict__ cosv, const float* __restrict__ sinv,
+                const __grid_constant__ GroupPlan gp,
+                const __grid_constant__ CrossPlan cp) {
+  constexpr int R = R0 * R1;
   extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + rows * N;
+  const int rows = 1 << lr;
+  const int q = 1 << logq;
+  const int N = R * q;
   const int p = blockIdx.x / nblk;
   const int blk = blockIdx.x - p * nblk;
   const int m0 = blk * rows;
-  const int total = rows * N;
-  const int lr = __ffs(rows) - 1;
+  float* ore = out_re + p * out_pair + (size_t)m0 * N;
+  float* oim = out_im + p * out_pair + (size_t)m0 * N;
+
+  if (m0 >= live_rows) {  // rows past the live ones: zeros, no transform
+    const int n = min(rows, M - m0) * N;  // contiguous, even
+    for (int t = 2 * threadIdx.x; t < n; t += 2 * blockDim.x) {
+      *reinterpret_cast<float2*>(ore + t) = make_float2(0.0f, 0.0f);
+      *reinterpret_cast<float2*>(oim + t) = make_float2(0.0f, 0.0f);
+    }
+    return;
+  }
+
+  const TBlock tb = {smem, smem + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4,
+                     N, cosv, sinv, ore, oim, M, m0};
   const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
                        re_live, im_live, live_rows, live_cols, p, m0);
+  // B3's partials: float32 revorder passes only (the C entry refuses the rest)
+  const bool mm_on = std::is_same<T, float>::value && MODE != MODE_NATURAL && minmax != nullptr;
+  float mm[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
 
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    int r, c;
-    row_col(t, stages, lr, &r, &c);
-    const int slot =
-        r * N + (NATURAL ? (int)(__brev((unsigned)c) >> (32 - stages)) : c);
-    const float2 v = ld.get(r, c);
-    sre[slot] = v.x;
-    sim[slot] = v.y;
-  }
-  __syncthreads();
-
-  const int qrows = rows * (N >> stages);  // R q-rows a row when MIXED
-  if (NATURAL || inverse) {
-    dit_stages(sre, sim, qrows, stages, N, cosv, sinv);
-    if (MIXED) cross_pass_any<true>(sre, sim, rows, stages, plan);
-  } else {
-    if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan);
-    dif_stages(sre, sim, qrows, stages, N, cosv, sinv);
-  }
-
-  if (store == STORE_NATURAL) {
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      int r, c;
-      row_col(t, stages, lr, &r, &c);
-      const int m = m0 + r;
-      if (m < M) {
-        const size_t o = ((size_t)p * M + m) * N + c;
-        out_re[o] = sre[r * N + c];
-        out_im[o] = sim[r * N + c];
+  if constexpr (MODE == MODE_DIF) {
+    if constexpr (R > 1) {  // load + both cross levels, item (row, b): b fastest
+      for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+        const int b = t & (q - 1), r = t >> logq;
+        const auto row = ld.row(r);
+        float xr[R], xi[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float2 v = ld.at(row, b + j * q);
+          xr[j] = v.x;
+          xi[j] = v.y;
+        }
+        cross_item<R0, R1, false>(xr, xi, b, q, N, cp);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int a = r * rs_smem + pad_idx(b + j * q);
+          tb.sre[a] = xr[j];
+          tb.sim[a] = xi[j];
+        }
+      }
+      __syncthreads();
+    }
+    for (int g = 0; g < gp.groups; ++g) {
+      if (g) __syncthreads();
+      dif_group<R>(tb, gp, g, ld, mm_on, mm);
+    }
+    if (R == 1 && gp.groups == 1) {  // the one-group pass's store
+      __syncthreads();
+      for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+        const int r = t >> logq;
+        if (m0 + r >= M) continue;
+        const int a = r * rs_smem + pad_idx(t & (q - 1));
+        ore[t] = tb.sre[a];
+        oim[t] = tb.sim[a];
+        if (mm_on) fold_minmax(mm, tb.sre[a], tb.sim[a]);
       }
     }
   } else {
-    // STORE_PACKED: re -> plane 2p, im -> plane 2p+1 of one (2P, M, N)
-    // output, plus this block's [min_re, max_re, min_im, max_im]
-    // (the wrapper guarantees M % rows == 0, so every row is live)
-    float v[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
-    const size_t plane = (size_t)M * N;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const size_t o = 2 * p * plane + (size_t)m0 * N + t;
-      const float xr = sre[t], xi = sim[t];
-      out_re[o] = xr;
-      out_re[o + plane] = xi;
-      v[0] = fminf(v[0], xr);
-      v[1] = fmaxf(v[1], xr);
-      v[2] = fminf(v[2], xi);
-      v[3] = fmaxf(v[3], xi);
+    for (int g = gp.groups - 1; g >= 0; --g) {
+      if (g < gp.groups - 1) __syncthreads();
+      dit_group<R, MODE == MODE_NATURAL ? LD_BREV : LD_VEC>(tb, gp, g, ld, mm_on, mm);
     }
-    block_minmax4(v, minmax + ((size_t)p * nblk + blk) * 4);
+    if constexpr (R > 1) {  // both inverse cross levels, then the row store
+      __syncthreads();
+      for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+        const int b = t & (q - 1), r = t >> logq;
+        if (m0 + r >= M) continue;
+        float xr[R], xi[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int a = r * rs_smem + pad_idx(b + j * q);
+          xr[j] = tb.sre[a];
+          xi[j] = tb.sim[a];
+        }
+        cross_item<R0, R1, true>(xr, xi, b, q, N, cp);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          ore[r * N + b + j * q] = xr[j];
+          oim[r * N + b + j * q] = xi[j];
+          if (mm_on) fold_minmax(mm, xr[j], xi[j]);
+        }
+      }
+    }
+  }
+
+  if (!mm_on) return;
+  if (lpg == lr) {  // one partial a block
+    block_minmax4(mm, minmax + ((size_t)p * nblk + blk) * 4);
+    return;
+  }
+  // several partials a block: each from the rows this block just stored
+  __syncthreads();
+  const size_t part = (size_t)p * (M >> lpg) + (m0 >> lpg);
+  const int n = N << lpg;
+  for (int u = 0; u < rows >> lpg && m0 + (u << lpg) < M; ++u) {
+    float v[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+    for (int t = threadIdx.x; t < n; t += blockDim.x) fold_minmax(v, ore[u * n + t], oim[u * n + t]);
+    block_minmax4(v, minmax + (part + u) * 4);
+    __syncthreads();
   }
 }
 
-template <typename T, bool MIXED, bool NATURAL>
-static int launch(const void* src_re, const void* src_im, long long is,
-                  long long chs, int channels, int qstep, int qim,
-                  long long rs, long long cs, int re_live, int im_live,
-                  int live_rows, int live_cols, int P, int M, int N, int stages,
-                  int rows, void* out_re, void* out_im, void* minmax, int store,
-                  int inverse, const void* cosv, const void* sinv,
-                  const CrossPlan& plan, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(fft_rows_kernel<T, MIXED, NATURAL>, smem);
+template <typename T, int MODE, int R0, int R1>
+static int launch_r(const void* src_re, const void* src_im, long long is, long long chs,
+                    int channels, int qstep, int qim, long long rs, long long cs, int re_live,
+                    int im_live, int live_rows, int live_cols, int P, int M, int logq, int lr,
+                    int rs_smem, int threads, void* out_re, void* out_im, long long out_pair,
+                    void* minmax, int lpg, const void* cosv, const void* sinv,
+                    const GroupPlan& gp, const CrossPlan& cp, cudaStream_t stream) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  cudaError_t err = allow_smem(fft_rows_kernel<T, MODE, R0, R1>, smem);
   if (err != cudaSuccess) return (int)err;
-  const int covered = live_rows < M ? live_rows : M;
-  const int nblk = (covered + rows - 1) / rows;
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fft_rows_kernel<T, MIXED, NATURAL><<<nblk * P, FFT_THREADS, smem, stream>>>(
-      (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
-      cs, re_live, im_live, live_rows, live_cols, M, N, stages, rows, nblk,
-      (float*)out_re, (float*)out_im, (float*)minmax, store, inverse,
-      (const float*)cosv, (const float*)sinv, plan);
+  fft_rows_kernel<T, MODE, R0, R1><<<nblk * P, threads, smem, stream>>>(
+      (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs, cs, re_live,
+      im_live, live_rows, live_cols, M, logq, lr, rs_smem, nblk, (float*)out_re,
+      (float*)out_im, out_pair, (float*)minmax, lpg, (const float*)cosv, (const float*)sinv,
+      gp, cp);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_any(const void* src_re, const void* src_im, long long is,
-                      long long chs, int channels, int qstep, int qim,
-                      long long rs, long long cs, int re_live, int im_live,
-                      int live_rows, int live_cols, int P, int M, int N,
-                      int stages, int rows, void* out_re, void* out_im,
-                      void* minmax, int store, int inverse, int natural,
-                      const void* cosv, const void* sinv, const CrossPlan& plan,
-                      cudaStream_t stream) {
-  if (natural) {
-    if (plan.levels > 0) return (int)cudaErrorInvalidValue;  // pow2 only
-    return launch<T, false, true>(src_re, src_im, is, chs, channels, qstep, qim,
-                                  rs, cs, re_live, im_live, live_rows, live_cols,
-                                  P, M, N, stages, rows, out_re, out_im, minmax,
-                                  store, inverse, cosv, sinv, plan, stream);
+template <typename T, int MODE>
+static int launch_radices(int code, const void* src_re, const void* src_im, long long is,
+                          long long chs, int channels, int qstep, int qim, long long rs,
+                          long long cs, int re_live, int im_live, int live_rows, int live_cols,
+                          int P, int M, int logq, int lr, int rs_smem, int threads,
+                          void* out_re, void* out_im, long long out_pair, void* minmax,
+                          int lpg, const void* cosv, const void* sinv, const GroupPlan& gp,
+                          const CrossPlan& cp, cudaStream_t stream) {
+#define FFT_ROWS_LAUNCH(R0, R1)                                                              \
+  launch_r<T, MODE, R0, R1>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, \
+                            im_live, live_rows, live_cols, P, M, logq, lr, rs_smem, threads, \
+                            out_re, out_im, out_pair, minmax, lpg, cosv, sinv, gp, cp, stream)
+  if constexpr (MODE == MODE_NATURAL) {  // pow2 only
+    return code == 0 ? FFT_ROWS_LAUNCH(1, 1) : (int)cudaErrorInvalidValue;
+  } else {
+    switch (code) {
+      case 0: return FFT_ROWS_LAUNCH(1, 1);
+      case 1: return FFT_ROWS_LAUNCH(3, 1);
+      case 2: return FFT_ROWS_LAUNCH(5, 1);
+      case 3: return FFT_ROWS_LAUNCH(3, 3);
+      case 4: return FFT_ROWS_LAUNCH(3, 5);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  if (plan.levels > 0)
-    return launch<T, true, false>(src_re, src_im, is, chs, channels, qstep, qim,
-                                  rs, cs, re_live, im_live, live_rows, live_cols,
-                                  P, M, N, stages, rows, out_re, out_im, minmax,
-                                  store, inverse, cosv, sinv, plan, stream);
-  return launch<T, false, false>(src_re, src_im, is, chs, channels, qstep, qim,
-                                 rs, cs, re_live, im_live, live_rows, live_cols,
-                                 P, M, N, stages, rows, out_re, out_im, minmax,
-                                 store, inverse, cosv, sinv, plan, stream);
+#undef FFT_ROWS_LAUNCH
 }
 
-// levels, radix, coef, xcos, xsin: the cross levels of this direction
-// (levels 0 for a pow2 N; see make_cross_plan); natural: natural ordering
-// (pow2 N, levels 0)
-extern "C" int fft_rows_launch(const void* src_re, const void* src_im,
-                               int in_u8, long long is, long long chs,
-                               int channels, int qstep, int qim, long long rs,
-                               long long cs, int re_live, int im_live,
-                               int live_rows, int live_cols, int P, int M,
-                               int N, int stages, int rows, void* out_re,
-                               void* out_im, void* minmax, int store,
-                               int inverse, int natural, const void* cosv,
-                               const void* sinv, int levels, const int* radix,
-                               const float* coef, const void* xcos,
-                               const void* xsin, void* stream) {
-  if (levels < 0 || levels > MAX_CROSS_LEVELS) return (int)cudaErrorInvalidValue;
-  const CrossPlan plan = make_cross_plan(levels, radix, coef, xcos, xsin);
-  if (radix_code(plan) < 0 || (store != STORE_NATURAL && store != STORE_PACKED))
-    return (int)cudaErrorInvalidValue;
-  if (in_u8) {
-    return launch_any<uint8_t>(src_re, src_im, is, chs, channels, qstep, qim,
-                               rs, cs, re_live, im_live, live_rows, live_cols,
-                               P, M, N, stages, rows, out_re, out_im, minmax,
-                               store, inverse, natural, cosv, sinv, plan,
-                               (cudaStream_t)stream);
+template <typename T>
+static int launch_modes(int mode, int code, const void* src_re, const void* src_im,
+                        long long is, long long chs, int channels, int qstep, int qim,
+                        long long rs, long long cs, int re_live, int im_live, int live_rows,
+                        int live_cols, int P, int M, int logq, int lr, int rs_smem, int threads,
+                        void* out_re, void* out_im, long long out_pair, void* minmax, int lpg,
+                        const void* cosv, const void* sinv, const GroupPlan& gp,
+                        const CrossPlan& cp, cudaStream_t stream) {
+#define FFT_ROWS_ARGS                                                                       \
+  code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows, \
+      live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,   \
+      cosv, sinv, gp, cp, stream
+  switch (mode) {
+    case MODE_DIF: return launch_radices<T, MODE_DIF>(FFT_ROWS_ARGS);
+    case MODE_DIT: return launch_radices<T, MODE_DIT>(FFT_ROWS_ARGS);
+    default: return launch_radices<T, MODE_NATURAL>(FFT_ROWS_ARGS);
   }
-  return launch_any<float>(src_re, src_im, is, chs, channels, qstep, qim, rs,
-                           cs, re_live, im_live, live_rows, live_cols, P, M, N,
-                           stages, rows, out_re, out_im, minmax, store,
-                           inverse, natural, cosv, sinv, plan,
-                           (cudaStream_t)stream);
+#undef FFT_ROWS_ARGS
+}
+
+// logq = S; lr = log2(rows); rs_smem the padded row stride; threads a
+// multiple of 32 up to 256; plan: the wrapper's r_plan (fft_groups.cuh
+// read_group_plan); out_pair: floats between two pairs' output planes;
+// minmax: null, or the partials of 2^lpg rows each (lpg <= lr; float32
+// revorder only); natural:
+// natural ordering (pow2 N, levels 0); levels .. xsin: the cross levels
+// of this direction (levels 0 for a pow2 N; see make_cross_plan)
+extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_u8,
+                               long long is, long long chs, int channels, int qstep, int qim,
+                               long long rs, long long cs, int re_live, int im_live,
+                               int live_rows, int live_cols, int P, int M, int logq, int lr,
+                               int rs_smem, int threads, void* out_re, void* out_im,
+                               long long out_pair, void* minmax, int lpg, int inverse,
+                               int natural, const void* cosv, const void* sinv, const int* plan,
+                               int levels, const int* radix, const float* coef,
+                               const void* xcos, const void* xsin, void* stream) {
+  GroupPlan gp;
+  if (levels < 0 || levels > MAX_CROSS_LEVELS || !read_group_plan(plan, logq, &gp) ||
+      threads < 32 || threads > R_THREADS || threads % 32 || logq + lr < 4 ||
+      (minmax != nullptr && (lpg < 0 || lpg > lr || in_u8 || natural)))
+    return (int)cudaErrorInvalidValue;
+  const CrossPlan cp = make_cross_plan(levels, radix, coef, xcos, xsin);
+  const int code = radix_code(cp);
+  if (code < 0) return (int)cudaErrorInvalidValue;
+  const int mode = natural ? MODE_NATURAL : inverse ? MODE_DIT : MODE_DIF;
+  cudaStream_t st = (cudaStream_t)stream;
+#define FFT_ROWS_ARGS                                                                   \
+  mode, code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, \
+      live_rows, live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, \
+      minmax, lpg, cosv, sinv, gp, cp, st
+  if (in_u8) return launch_modes<uint8_t>(FFT_ROWS_ARGS);
+  return launch_modes<float>(FFT_ROWS_ARGS);
+#undef FFT_ROWS_ARGS
 }

@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(uint8_t v) {
   const float a = (float)v, r = 1.0f / 255.0f;
@@ -69,4 +71,53 @@ struct PairLoad {
 
   // element (row r of the block, column c) of the pair, zero outside
   __device__ __forceinline__ float2 get(int r, int c) const { return at(row(r), c); }
+
+  // elements c .. c + W - 1 of a row, zero outside: float32 rows read as
+  // 16-byte vectors (8-byte for W = 2) where they are contiguous, aligned
+  // and live over the W columns, else element by element
+  template <int W>
+  __device__ __forceinline__ void vec(const Row& w, int c, float* xr, float* xi) const {
+    if constexpr (std::is_same<T, float>::value) {
+      constexpr int V = W < 4 ? W : 4;
+      const float* pr = w.re + c;
+      const float* pi = w.im_ok ? w.im + c : nullptr;
+      if (cs == 1 && c + W <= live_cols &&
+          ((reinterpret_cast<uintptr_t>(pr) | reinterpret_cast<uintptr_t>(pi)) & (4 * V - 1)) == 0) {
+#pragma unroll
+        for (int v = 0; v < W; v += V) {
+          load_vec<V>(w.re_ok ? pr + v : nullptr, xr + v);
+          load_vec<V>(w.im_ok ? pi + v : nullptr, xi + v);
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const float2 v = at(w, c + e);
+      xr[e] = v.x;
+      xi[e] = v.y;
+    }
+  }
+
+ private:
+  // V floats from p (16- or 8-byte aligned), zeros for a null p
+  template <int V>
+  __device__ __forceinline__ static void load_vec(const float* p, float* x) {
+    if (p == nullptr) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = 0.0f;
+    } else if constexpr (V == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else if constexpr (V == 2) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+      x[0] = v.x;
+      x[1] = v.y;
+    } else {
+      x[0] = __ldg(p);
+    }
+  }
 };

@@ -19,16 +19,14 @@
 // columns with a rows-way bank conflict: 4-8x its memory floor.
 //
 // The design:
-// - Stage groups in registers. The wrapper (ops/kernels/fft_kernel.py
-//   t_plan) cuts the S stages into groups of k <= 4 consecutive stages
-//   (11 = 4 + 4 + 3). A thread holds 16 complex values: 2^(4-k) items of
-//   a group, each the 2^k elements b = lo | hb << (s_lo + k) | j << s_lo,
-//   j < 2^k, whose k stages' butterflies never leave the item. It runs
-//   them in registers, DIF from the top group down, DIT from the bottom
-//   group up, with the stage tables' twiddles (the same butterflies, in
-//   the same order, as the JAX _run_stages), and writes the values back
-//   to shared memory once: S stages cost ceil(S / 4) exchanges and
-//   barriers, not S.
+// - Stage groups in registers, from the engine shared with B3/B6
+//   (fft_groups.cuh: GroupPlan, TBlock, stage_group, run_group). The
+//   wrapper (ops/kernels/fft_kernel.py t_plan) cuts the S stages into
+//   groups of k <= 4 consecutive stages (11 = 4 + 4 + 3); a thread holds
+//   16 complex values, 2^(4-k) items of 2^k elements a group, runs the
+//   group's butterflies in registers (the JAX _run_stages' butterflies in
+//   their order) and writes the values back to shared memory once: S
+//   stages cost ceil(S / 4) exchanges and barriers, not S.
 // - The forward pow2 pass loads its first group straight from device
 //   memory (neighbouring threads on neighbouring columns), and a forward
 //   pass of 4 rows a block or more stores its last group's registers
@@ -38,8 +36,6 @@
 //   cross levels in registers as it loads (cross_item), the inverse
 //   mixed pass as it stores. uint8 converts without the division's slow
 //   path (fft_rows_load.cuh).
-// - The bottom group (stages 0 .. k-1) is compiled apart: its twiddle
-//   offsets are constants, shared by a thread's items.
 // - Bank conflicts: each row is padded one word in 32, and per group the
 //   wrapper picks the thread-to-item map (items along the row first, or
 //   across rows first) and the row stride whose accesses it finds
@@ -61,177 +57,27 @@
 // design), the UHD frame's 3840-wide smooth rows in 0.32 ms: not bound
 // by its bytes; with one block an SM, most likely by instruction
 // throughput and latency.
-#include "fft_common.cuh"
-#include "fft_rows_load.cuh"
+#include "fft_groups.cuh"
 
-#define T_SLOTS 16
-#define T_MAX_GROUPS 6
 #define T_THREADS 512
 
-// The radix-2 stage groups of one launch, DIF order (top bits first):
-// group g covers stages s_lo[g] .. s_lo[g] + k[g] - 1; item `it` of the
-// group lies at q-block bit field (it >> ub_shift) & (2^(S-k) - 1), row
-// (it >> row_shift) & (rows - 1) and cross block it >> (S - k + log2 rows)
-struct GroupPlan {
-  int groups;
-  int direct_store;  // forward: the last group stores its registers (row map)
-  int s_lo[T_MAX_GROUPS];
-  int k[T_MAX_GROUPS];
-  int ub_shift[T_MAX_GROUPS];
-  int row_shift[T_MAX_GROUPS];
-};
-
-// padded shared-memory column: one word in every 32 left empty
-__device__ __forceinline__ int pad_idx(int i) { return i + (i >> 5); }
-
-// Shared pieces of a launch for the stage groups
-struct TBlock {
-  float* sre;
-  float* sim;
-  int rs_smem;  // padded row stride, floats
-  int logq;     // S
-  int lr;       // log2(rows)
-  int ns;       // slot sets: rows * N / 16
-  int tstride;  // width of the stage tables (N)
-  const float* __restrict__ cosv;
-  const float* __restrict__ sinv;
-  float* __restrict__ out_re;  // the transposed output of this pair
-  float* __restrict__ out_im;
-  int M, m0;
-};
-
-// One stage group of width K: slot set g holds items g + jh * ns, jh <
-// 2^(4-K), 2^K elements each. LOAD: the values come from device memory
-// (the forward pow2 pass's first group), else from shared memory. STORE:
-// they go to the transposed output (the forward pass's last group, its
-// map row first: neighbouring threads write neighbouring rows of one
-// output column), else back to shared memory. BOTTOM: the group of the
-// shortest stages (s_lo = 0), whose twiddle offsets are then constants
-// shared by a thread's items.
-template <int K, bool DIT, bool LOAD, bool STORE, bool BOTTOM, typename T>
-__device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int ub_shift,
-                                            int row_shift, const PairLoad<T>& ld) {
-  const int s_lo = BOTTOM ? 0 : s_lo_arg;
-  constexpr int J = T_SLOTS >> K;
-  constexpr int E = 1 << K;
-  const int lq = tb.logq - K;
-  const int ub_mask = (1 << lq) - 1, row_mask = (1 << tb.lr) - 1;
-  const int lo_mask = (1 << s_lo) - 1;
-  for (int g = threadIdx.x; g < tb.ns; g += blockDim.x) {
-    float xr[T_SLOTS], xi[T_SLOTS];
-    int a[T_SLOTS];
-    int lo[J];
-#pragma unroll
-    for (int jh = 0; jh < J; ++jh) {
-      const int it = g + jh * tb.ns;
-      const int ub = (it >> ub_shift) & ub_mask;
-      const int r = (it >> row_shift) & row_mask;
-      const int c = it >> (lq + tb.lr);
-      lo[jh] = ub & lo_mask;
-      const int base = (c << tb.logq) | lo[jh] | ((ub >> s_lo) << (s_lo + K));
-      const auto row = ld.row(r);
-#pragma unroll
-      for (int jl = 0; jl < E; ++jl) {
-        const int j = jh * E + jl;
-        const int i = base | (jl << s_lo);
-        const int sa = r * tb.rs_smem + pad_idx(i);
-        // STORE: a[j] is the output offset of (row, column i), -1 past
-        // the plane; else the shared-memory slot
-        a[j] = !STORE ? sa : tb.m0 + r < tb.M ? i * tb.M + r : -1;
-        if (LOAD) {
-          const float2 v = ld.at(row, i);
-          xr[j] = v.x;
-          xi[j] = v.y;
-        } else {
-          xr[j] = tb.sre[sa];
-          xi[j] = tb.sim[sa];
-        }
-      }
-    }
-#pragma unroll
-    for (int bb = 0; bb < K; ++bb) {
-      const int b = DIT ? bb : K - 1 - bb;  // stage s_lo + b, half 2^(s_lo+b)
-      const float* wc = tb.cosv + (size_t)(s_lo + b) * tb.tstride;
-      const float* ws = tb.sinv + (size_t)(s_lo + b) * tb.tstride;
-#pragma unroll
-      for (int jh = 0; jh < J; ++jh) {
-#pragma unroll
-        for (int jl = 0; jl < E; ++jl) {
-          if (jl & (1 << b)) continue;
-          const int j0 = jh * E + jl, j1 = j0 + (1 << b);
-          // the butterfly's offset in its block: the item's low bits and
-          // the element bits below b
-          const int pos = lo[jh] + ((jl & ((1 << b) - 1)) << s_lo);
-          const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
-          const float ar = xr[j0], ai = xi[j0], br = xr[j1], bi = xi[j1];
-          if (DIT) {
-            const float wr = c * br - sn * bi, wi = c * bi + sn * br;
-            xr[j0] = ar + wr;
-            xi[j0] = ai + wi;
-            xr[j1] = ar - wr;
-            xi[j1] = ai - wi;
-          } else {
-            const float dr = ar - br, di = ai - bi;
-            xr[j0] = ar + br;
-            xi[j0] = ai + bi;
-            xr[j1] = c * dr - sn * di;
-            xi[j1] = c * di + sn * dr;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < T_SLOTS; ++j) {
-      if (STORE) {
-        if (a[j] >= 0) {
-          tb.out_re[a[j]] = xr[j];
-          tb.out_im[a[j]] = xi[j];
-        }
-      } else {
-        tb.sre[a[j]] = xr[j];
-        tb.sim[a[j]] = xi[j];
-      }
-    }
-  }
-}
-
-template <bool DIT, bool LOAD, bool STORE, typename T>
-__device__ __forceinline__ void run_group(const TBlock& tb, const GroupPlan& gp, int g,
-                                          const PairLoad<T>& ld) {
-  const int s_lo = gp.s_lo[g], us = gp.ub_shift[g], rsh = gp.row_shift[g];
-  if (s_lo == 0) {
-    switch (gp.k[g]) {
-      case 1: stage_group<1, DIT, LOAD, STORE, true, T>(tb, s_lo, us, rsh, ld); break;
-      case 2: stage_group<2, DIT, LOAD, STORE, true, T>(tb, s_lo, us, rsh, ld); break;
-      case 3: stage_group<3, DIT, LOAD, STORE, true, T>(tb, s_lo, us, rsh, ld); break;
-      default: stage_group<4, DIT, LOAD, STORE, true, T>(tb, s_lo, us, rsh, ld); break;
-    }
-    return;
-  }
-  switch (gp.k[g]) {
-    case 1: stage_group<1, DIT, LOAD, STORE, false, T>(tb, s_lo, us, rsh, ld); break;
-    case 2: stage_group<2, DIT, LOAD, STORE, false, T>(tb, s_lo, us, rsh, ld); break;
-    case 3: stage_group<3, DIT, LOAD, STORE, false, T>(tb, s_lo, us, rsh, ld); break;
-    default: stage_group<4, DIT, LOAD, STORE, false, T>(tb, s_lo, us, rsh, ld); break;
-  }
-}
-
-// a forward group: LOAD for the pow2 pass's first, STORE for the last
+// a forward group: LD_ROW for the pow2 pass's first, ST_T for the last
 // when the plan stores from registers (a plan of two groups or more)
 template <int R, typename T>
 __device__ __forceinline__ void forward_group(const TBlock& tb, const GroupPlan& gp, int g,
                                               const PairLoad<T>& ld) {
+  float mm[4] = {};  // no min/max in this kernel
   const bool store = gp.direct_store && g == gp.groups - 1;  // never g = 0
   if constexpr (R == 1) {
     if (g == 0) {
-      run_group<false, true, false>(tb, gp, g, ld);
+      run_group<false, LD_ROW, ST_SMEM>(tb, gp, g, ld, false, mm);
       return;
     }
   }
   if (store)
-    run_group<false, false, true>(tb, gp, g, ld);
+    run_group<false, LD_SMEM, ST_T>(tb, gp, g, ld, false, mm);
   else
-    run_group<false, false, false>(tb, gp, g, ld);
+    run_group<false, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
 }
 
 // N = R0 * R1 * 2^logq; rows = 2^lr rows a block; rs_smem the padded row
@@ -311,8 +157,9 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       tb.sim[a] = v.y;
     }
     __syncthreads();
+    float mm[4] = {};  // no min/max in this kernel
     for (int g = gp.groups - 1; g >= 0; --g) {
-      run_group<true, false, false>(tb, gp, g, ld);
+      run_group<true, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
       __syncthreads();
     }
     if (R > 1) {  // both inverse cross levels, then the transposed store
@@ -411,23 +258,13 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                                  const void* cosv, const void* sinv, const int* plan,
                                  int levels, const int* radix, const float* coef,
                                  const void* xcos, const void* xsin, void* stream) {
-  if (levels < 0 || levels > MAX_CROSS_LEVELS || plan[0] < 1 || plan[0] > T_MAX_GROUPS ||
+  GroupPlan gp;
+  if (levels < 0 || levels > MAX_CROSS_LEVELS || !read_group_plan(plan, logq, &gp) ||
       threads < 32 || threads > T_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
-  GroupPlan gp = {};
-  gp.groups = plan[0];
-  gp.direct_store = plan[1] && !inverse && gp.groups > 1;
-  int stages = 0;
-  for (int g = 0; g < gp.groups; ++g) {
-    gp.s_lo[g] = plan[2 + 4 * g];
-    gp.k[g] = plan[3 + 4 * g];
-    gp.ub_shift[g] = plan[4 + 4 * g];
-    gp.row_shift[g] = plan[5 + 4 * g];
-    if (gp.k[g] < 1 || gp.k[g] > 4) return (int)cudaErrorInvalidValue;
-    stages += gp.k[g];
-  }
+  gp.direct_store = gp.direct_store && !inverse && gp.groups > 1;
   // 16 slots a thread: every slot set full (rows * q >= 16)
-  if (stages != logq || logq + lr < 4) return (int)cudaErrorInvalidValue;
+  if (logq + lr < 4) return (int)cudaErrorInvalidValue;
   const CrossPlan cp = make_cross_plan(levels, radix, coef, xcos, xsin);
   const int code = radix_code(cp);
   cudaStream_t st = (cudaStream_t)stream;

@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu",
            "fft_radix4.cu")
-HEADERS = ("fft_common.cuh", "fft_rows_load.cuh")
+HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,11 +43,13 @@ F = ctypes.c_float
 CROSS = [I, P, P, P, P]
 SIGNATURES = {
     # src_re, src_im, in_u8, image stride, channel stride, channels,
-    # qstep, qim, row/col strides, re_live, im_live, live_rows,
-    # live_cols, P, M, N, stages, rows_per_block, out_re, out_im, minmax,
-    # store, inverse, natural, cos, sin, CROSS, stream
+    # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
+    # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
+    # floats between pairs' outputs, minmax, log2 rows a partial, inverse,
+    # natural, cos, sin, host int32 plan (fft_kernel.TPlan.c_plan), CROSS,
+    # stream
     "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                        I, I, I, P, P, P, I, I, I, P, P, *CROSS, P],
+                        I, I, I, I, P, P, LL, P, I, I, I, P, P, P, *CROSS, P],
     # src_re, src_im, in_u8, image stride, channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
     # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,

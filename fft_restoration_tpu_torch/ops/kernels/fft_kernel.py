@@ -1,16 +1,18 @@
 """FFT kernel family (B1/B3/B6, B11) — wrappers and plain versions.
 
 Counterpart of fft_restoration_tpu/ops/pallas/fft_kernel.py. The three
-TPU kernels that share the `_run_stages` body run in two CUDA kernels:
-every pass with the transposed store (B1, `_fft_rows_transposed`) in
-csrc/fft_rows_t.cu, its radix-2 stages in registers after the plan that
-`t_plan` computes here (stage groups, elements per thread, the thread to
-element map, the padded shared rows; `t_slot_index` and `t_cross_columns`
-give its element map, which the CPU tests emulate); the plain row pass
-(B6, `fft_rows_pallas`) and the final packed-output inverse with min/max
-partials (B3, `fft_rows_packed_out`) in csrc/fft_rows.cu, its stages in
-shared memory. `fft_cols` (csrc/fft_cols.cu) is B11, `fft_cols_pallas`:
-the same stages down the columns.
+TPU kernels that share the `_run_stages` body run in two CUDA kernels on
+one stage-group engine (csrc/fft_groups.cuh: the radix-2 stages in
+register groups of <= 4, 16 complex values a thread): every pass with
+the transposed store (B1, `_fft_rows_transposed`) in csrc/fft_rows_t.cu
+after the plan `t_plan` computes here; the row-major passes, the plain
+row pass (B6, `fft_rows_pallas`, both orderings) and the final
+packed-output inverse with min/max partials (B3, `fft_rows_packed_out`),
+in csrc/fft_rows.cu after `r_plan`. A plan holds the stage groups, the
+thread-to-element map and the padded shared rows; `t_slot_index` and
+`t_cross_columns` give its element map, which the CPU tests emulate.
+`fft_cols` (csrc/fft_cols.cu) is B11, `fft_cols_pallas`: the same stages
+down the columns, in shared memory.
 
 The pipeline's ordering is revorder: the forward transform is DIF
 (natural in, bit-reversed out), the inverse DIT (bit-reversed in,
@@ -50,11 +52,12 @@ import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
-STORE_NATURAL, STORE_PACKED = 0, 2  # csrc/fft_rows.cu
-
-# shared memory per block for the rows it holds (2 float planes); 64 KB
-# lets three blocks share an SM at n=2048 (measured on an H100 at 2048^2:
-# faster than 32 KB for the transposed passes, and than 128 KB for all)
+# shared memory per block for the rows it holds (2 float planes) in the
+# kernels whose stages run in shared memory (B2, B7, B10, B12); it also
+# sets the rows of one of B3's min/max partials (rows_per_block), which a
+# packed-store block of B3 holds (r_plan). 64 KB let three blocks share an
+# SM at n=2048 (measured on an H100 at 2048^2 for the shared-memory stage
+# loops: faster than 32 KB, and than 128 KB)
 ROWS_SMEM_BUDGET = 64 << 10
 # one complex float32 row must fit a block's shared memory (227 KB on
 # Hopper): the kernels take rows of at most 16384 points
@@ -280,11 +283,12 @@ def t_row_stride(n: int, rows: int) -> int:
 
 
 class TPlan(NamedTuple):
-    """One fft_rows_t launch's block geometry and stage groups: rows = 2^lr
-    rows of n = R * 2^logq points a block, padded row stride rs (floats),
-    `threads` threads, per group (s_lo, k, ub_shift, row_shift), and
-    whether the last of two groups or more stores its registers straight
-    to the transposed output (direct_store) or through shared memory."""
+    """One launch's block geometry and stage groups (B1's t_plan, B3/B6's
+    r_plan): rows = 2^lr rows of n = R * 2^logq points a block, padded
+    row stride rs (floats), `threads` threads, per group (s_lo, k,
+    ub_shift, row_shift), and whether B1's last group of two or more
+    stores its registers straight to the transposed output (direct_store)
+    or through shared memory."""
 
     n: int
     logq: int
@@ -312,13 +316,16 @@ class TPlan(NamedTuple):
                         + [v for g in self.groups for v in g], np.int32)
 
 
-def t_slot_index(plan: TPlan, group: tuple) -> tuple:
+def t_slot_index(plan: TPlan, group: tuple, brev: bool = False) -> tuple:
     """(row, column) in the block of every (slot set, slot) of a stage
     group (s_lo, k, ub_shift, row_shift): two (slot_sets, 16) int arrays.
     Slot j of slot set u holds element j mod 2^k of item u + (j >> k) *
     slot_sets; an item's bit fields are (q-block field ub, row, cross
     block c), ub the column bits outside the group's stages: column =
-    c * q + lo | hb << (s_lo + k) | jl << s_lo."""
+    c * q + lo | hb << (s_lo + k) | jl << s_lo. brev: the natural
+    ordering's first DIT group (csrc/fft_groups.cuh LD_BREV), whose ub is
+    the bit reverse of the map's field; its slot at column b was loaded
+    from device column bit_reverse(b) (`brev_columns`)."""
     s_lo, k, ub_shift, row_shift = group
     lq = plan.logq - k
     ns = plan.slot_sets
@@ -326,11 +333,22 @@ def t_slot_index(plan: TPlan, group: tuple) -> tuple:
     j = np.arange(T_SLOTS, dtype=np.int64)[None, :]
     it = u + (j >> k) * ns
     ub = (it >> ub_shift) & ((1 << lq) - 1)
+    if brev:
+        ub = brev_columns(ub, lq)
     row = (it >> row_shift) & (plan.rows - 1)
     c = it >> (lq + plan.lr)
     col = ((c << plan.logq) | (ub & ((1 << s_lo) - 1)) | ((ub >> s_lo) << (s_lo + k))
            | ((j & ((1 << k) - 1)) << s_lo))
     return row, col
+
+
+def brev_columns(x, bits: int):
+    """The bit reverse of each entry of x over its low `bits` bits."""
+    x = np.asarray(x, dtype=np.int64)
+    out = np.zeros_like(x)
+    for b in range(bits):
+        out |= ((x >> b) & 1) << (bits - 1 - b)
+    return out
 
 
 def t_cross_columns(plan: TPlan, radices: tuple) -> np.ndarray:
@@ -342,11 +360,11 @@ def t_cross_columns(plan: TPlan, radices: tuple) -> np.ndarray:
     return np.arange(q)[:, None] + np.arange(r)[None, :] * q
 
 
-def t_bank_conflicts(plan: TPlan, group: tuple) -> int:
+def t_bank_conflicts(plan: TPlan, group: tuple, brev: bool = False) -> int:
     """The most threads of one warp that hit one bank with one shared
     access of a stage group (1: conflict-free); warps are 32 consecutive
     slot sets."""
-    row, col = t_slot_index(plan, group)
+    row, col = t_slot_index(plan, group, brev)
     addr = row * plan.rs + t_pad(col)
     warp = np.arange(addr.shape[0])[:, None] // 32
     key = (warp * T_SLOTS + np.arange(T_SLOTS)[None, :]) * 32 + addr % 32
@@ -414,6 +432,91 @@ def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
             else:
                 choice = [along, across]
             cost = [t_bank_conflicts(plan, c) for c in choice]
+            groups.append(choice[int(np.argmin(cost))])
+            costs.append(min(cost))
+        key = (max(costs), sum(costs))
+        if best is None or key < best[0]:
+            best = key, plan._replace(groups=tuple(groups))
+        if key == (1, len(spec)):
+            break
+    plan = best[1]
+    if plan.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError(f"a row of {n} points does not fit a block's shared memory")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# B3/B6's plan (csrc/fft_rows.cu): the same stage groups, the row-major
+# stores. The CPU tests run it group by group against run_stages too.
+
+R_THREADS = 256  # the kernel's __launch_bounds__(256, 2): 128 registers a thread
+# the plan's geometry, measured on an H100 (tools/rows_geometry.py): 128
+# threads a block; natural-store blocks of rows in 32 KB of shared memory
+# (2 rows at n = 2048, 1 at 2304-4096), packed-store blocks of one min/max
+# partial's rows (rows_per_block: 4 at 2048)
+R_PLAN_THREADS = 128
+R_SMEM_BUDGET = 32 << 10
+
+
+def r_pinned(groups: int, g: int, mixed: bool) -> bool:
+    """Whether group g of a fft_rows plan of `groups` groups reads or
+    writes device memory (and so keeps the along map: neighbouring
+    threads on neighbouring columns): the bottom group always (the
+    forward vector store, the inverse vector load, the natural ordering's
+    bit-reversed load); the top group of a pow2 pass (the forward row
+    load, the inverse and natural row store; a mixed pass's cross levels
+    take those)."""
+    return g == groups - 1 or (g == 0 and not mixed)
+
+
+@functools.lru_cache(maxsize=None)
+def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
+           natural: bool = False, rows: int = 0, threads: int = 0,
+           packed: bool = False) -> TPlan:
+    """The fft_rows plan (B3, B6) of a length-n row pass over planes of m
+    rows.
+
+    Rows a block: the largest power of two up to 16 and the plane height
+    whose rows fit R_SMEM_BUDGET (the natural store), or those of one
+    min/max partial, rows_per_block(n, m) (the packed store: 4 at n =
+    2048, 2 at 3840 and 4096); raised to 16 / q where a block of them
+    would leave a thread's 16 slots unfilled. Threads: R_PLAN_THREADS (up
+    to R_THREADS), fewer for a block of fewer slot sets, each thread
+    looping over the slot sets. `rows` and `threads` override the two (a
+    power of two and a multiple of 32: tools/rows_geometry.py). The top
+    and bottom groups keep the along map where they touch device memory
+    (r_pinned); a middle group takes the map, along or across, that
+    t_bank_conflicts finds cheaper. The row stride is the first past the
+    padded row that keeps the groups' accesses cheapest (the bit-reversed
+    load's shared stores counted as the kernel makes them)."""
+    radices = tuple(radices)
+    stages = check_length(n, radices)
+    check_kernel_length(n)
+    if natural:
+        check_ordering("natural", radices)
+    q = 1 << stages
+    if not rows:
+        fit = rows_per_block(n, m) if packed else max(1, min(16, R_SMEM_BUDGET // (8 * n), m))
+        rows = max(1 << (fit.bit_length() - 1), T_SLOTS // q)
+    if rows & (rows - 1) or rows * q < T_SLOTS:
+        raise ValueError(f"rows a block must be a power of two >= {T_SLOTS // q}, got {rows}")
+    lr = rows.bit_length() - 1
+    ns = rows * n // T_SLOTS
+    threads = threads or min(R_PLAN_THREADS, -(-ns // 32) * 32)
+    if threads % 32 or not 32 <= threads <= R_THREADS:
+        raise ValueError(f"threads a block must be a multiple of 32 up to {R_THREADS}")
+    spec = t_stage_groups(stages)
+    best = None
+    for extra in range(32):
+        plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, tuple(
+            (s_lo, k, 0, stages - k) for s_lo, k in spec))
+        groups, costs = [], []
+        for g, (s_lo, k) in enumerate(spec):
+            along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
+            pinned = r_pinned(len(spec), g, bool(radices))
+            choice = [along] if pinned or lr == 0 else [along, across]
+            brev = natural and g == len(spec) - 1
+            cost = [t_bank_conflicts(plan, c, brev) for c in choice]
             groups.append(choice[int(np.argmin(cost))])
             costs.append(min(cost))
         key = (max(costs), sum(costs))
@@ -633,13 +736,14 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     (bit-reversed in), unscaled. radices: the odd cross-DFT radices of a
     smooth N = prod(radices) * 2^k (module docstring), () for a pow2 N.
     ordering='natural' (pow2 N, natural store only): natural order in and
-    out, the loader writing each row bit-reversed and the DIT stages
-    running with this direction's tables (B6's natural mode, the `pallas`
-    backend of ops/fft.py; counted under "fft_rows_natural" too).
-    transposed=True launches B1's register-resident kernel
-    (csrc/fft_rows_t.cu, counted under "fft_rows_t" too), which writes
-    the rows past the live ones as zeros itself; the natural store
-    launches csrc/fft_rows.cu.
+    out, the DIT stages running with this direction's tables on the
+    bit-reversed row, which the first stage group loads straight from
+    the natural input (B6's natural mode, the `pallas` backend of
+    ops/fft.py; counted under "fft_rows_natural" too).
+    transposed=True launches B1's kernel (csrc/fft_rows_t.cu, counted
+    under "fft_rows_t" too); the natural store launches csrc/fft_rows.cu
+    (B6). Both run the stages in register groups and write the rows past
+    the live ones as zeros themselves.
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
@@ -648,25 +752,21 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
-    live_rows = min(m, big_m)
-    rows = rows_per_block(big_n, big_m)
-    # the natural store's kernel launches the live row blocks only: the
-    # rest of its output stays zero; the transposed kernel writes them
-    alloc = (torch.empty if transposed or -(-live_rows // rows) * rows >= big_m
-             else torch.zeros)
-    out_re = alloc(shape, dtype=torch.float32, device=re.device)
-    out_im = alloc(shape, dtype=torch.float32, device=re.device)
+    # both kernels write the rows past the live ones (zeros) themselves
+    out_re = torch.empty(shape, dtype=torch.float32, device=re.device)
+    out_im = torch.empty(shape, dtype=torch.float32, device=re.device)
     ps, rs, cs = re.stride()
     if im is not None and (
         im.stride()[1:] != (rs, cs) or (im.shape[0] > 1 and im.stride(0) != ps)
     ):
         raise ValueError("the kernel reads re and im planes with one set of strides")
     args = (re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
-            0 if im is None else im.shape[0], live_rows, min(n, big_n), big_m, big_n)
+            0 if im is None else im.shape[0], min(m, big_m), min(n, big_n), big_m, big_n)
     if transposed:
         _launch_t(*args, out_re, out_im, inverse, radices)
     else:
-        _launch(*args, rows, out_re, out_im, None, STORE_NATURAL, inverse, radices, natural)
+        _launch(*args, out_re.data_ptr(), out_im.data_ptr(), big_m * big_n, None, inverse,
+                radices, natural)
     return out_re, out_im
 
 
@@ -758,10 +858,11 @@ def _check_contiguous_pair(re, im, radices):
 def fft_rows_packed_out(re, im, *, inverse=True, radices=()):
     """Row FFT of contiguous float32 (P, M, N) planes that writes ONE
     (2P, M, N) output, re at plane 2p and im at plane 2p+1 (the channel
-    unpack of a packed-pair restore), plus per-block
-    [min_re, max_re, min_im, max_im] partials of shape
-    (P * M / rows_per_block(N, M), 4), block-major within each plane (B3).
-    radices as in `fft_rows`.
+    unpack of a packed-pair restore), plus [min_re, max_re, min_im,
+    max_im] partials, one per rows_per_block(N, M) rows, of shape
+    (P * M / rows_per_block(N, M), 4), row-block-major within each plane
+    (B3, csrc/fft_rows.cu: the last stage group stores both planes and
+    folds the min/max from registers). radices as in `fft_rows`.
     """
     if not on_cuda(re, im):
         return fft_rows_packed_out_plain(re, im, inverse=inverse, radices=radices)
@@ -771,8 +872,10 @@ def fft_rows_packed_out(re, im, *, inverse=True, radices=()):
     out = torch.empty((2 * planes, big_m, big_n), dtype=torch.float32, device=re.device)
     mm = torch.empty((planes * (big_m // rows), 4), dtype=torch.float32, device=re.device)
     ps, rs, cs = re.stride()
+    plane = big_m * big_n
     _launch(re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes, planes, big_m, big_n,
-            big_m, big_n, rows, out, out, mm, STORE_PACKED, inverse, radices)
+            big_m, big_n, out.data_ptr(), out.data_ptr() + 4 * plane, 2 * plane, mm, inverse,
+            radices)
     return out, mm
 
 
@@ -790,27 +893,39 @@ class PlaneMap(NamedTuple):
     col: int
 
 
-def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, rows,
-            out_re, out_im, mm, store, inverse, radices, natural=False):
-    """One fft_rows launch over re_live pairs (every re plane is live; the
-    first im_live im planes are); natural: the natural-order instance."""
+@functools.lru_cache(maxsize=256)
+def _r_launch_args(big_n, radices, big_m, inverse, natural, packed, device) -> tuple:
+    """The arguments of one fft_rows launch that depend on its shape only
+    (the plan, the table and cross-level pointers), worked out once per
+    shape, as _t_launch_args. The plan array stays alive in the cache."""
+    plan = r_plan(big_n, radices, big_m, inverse, natural, packed=packed)
+    t = tables(big_n, inverse, device, radices)
+    c_plan = plan.c_plan()
+    lpg = rows_per_block(big_n, big_m).bit_length() - 1  # rows of a min/max partial
+    return ((plan.logq, plan.lr, plan.rs, plan.threads), lpg,
+            (int(inverse), int(natural), t.cos.data_ptr(), t.sin.data_ptr(), c_plan.ctypes.data,
+             *cross_args(big_n, radices, inverse, device)), c_plan)
+
+
+def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, out_re,
+            out_im, out_pair, mm, inverse, radices, natural=False):
+    """One fft_rows launch (B3, B6: the row-major stores) over re_live
+    pairs (every re plane is live; the first im_live im planes are), with
+    r_plan's stage groups: pair p's output planes at the device pointers
+    out_re and out_im plus p * out_pair floats; mm: B3's min/max partials
+    (a tensor) or None; natural: the natural-order instance."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
-    check_kernel_length(big_n)
     radices = tuple(radices)
-    stages = check_length(big_n, radices)
-    cross = cross_args(big_n, radices, bool(inverse), re.device)
-    lib = _build.load()
-    t = tables(big_n, bool(inverse), re.device, radices)
-    stream = torch.cuda.current_stream(re.device).cuda_stream
-    err = lib.fft_rows_launch(
+    geometry, lpg, consts, _ = _r_launch_args(big_n, radices, big_m, bool(inverse),
+                                              bool(natural), mm is not None, re.device)
+    err = _build.load().fft_rows_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
         int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
         pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
-        live_rows, live_cols, re_live, big_m, big_n, stages,
-        rows, out_re.data_ptr(), out_im.data_ptr(),
-        None if mm is None else mm.data_ptr(), store, int(bool(inverse)), int(bool(natural)),
-        t.cos.data_ptr(), t.sin.data_ptr(), *cross, stream,
+        live_rows, live_cols, re_live, big_m, *geometry, out_re, out_im, out_pair,
+        None if mm is None else mm.data_ptr(), lpg, *consts,
+        torch.cuda.current_stream(re.device).cuda_stream,
     )
     _build.check(err, "fft_rows")
     launch_counts["fft_rows"] += 1

@@ -8,9 +8,13 @@ another one ("other", e.g. the parent commit unpacked with `git archive`)
 in turns, other, change, change, other, each turn in its own process with
 the package imported from that checkout (its kernels built there), at
 the shapes `chip_smoke.py` phase 2 gives them: B1's transposed passes
-(the 2048^2 frame, batch64's stack and inverse-T, UHD 3840x2160 at
---pad smooth, the 640x330 stack at 384x640 and its inverse-T), B3, B6's
-PSF pass, B2 'wiener' / 'conv' / conj and B7 at pow2 and smooth shapes.
+(the 2048^2 frame, batch64's stack and inverse-T, a conv's forward
+pass on 2 float pairs at 2048^2, UHD 3840x2160 at --pad smooth, the
+640x330 stack at 384x640 and its inverse-T), B3, B6's
+PSF pass (`B6_psf_natural`: B6 revorder, natural store), the conv's B6
+inverse pass (2 pairs at 2048^2, models/convolve.py), B6 natural (the
+ordering, forward and inverse, at (3, 2048, 2048)), B2 'wiener' /
+'conv' / conj and B7 at pow2 and smooth shapes.
 Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy. Uses only functions both checkouts have.
@@ -84,18 +88,24 @@ def child(iters: int, seed: int) -> dict:
     sa = fk.fft_rows_stack_plain(small, extent=(shp, swp), radices=srw)
     sH = psf_spectrum_planes(psf, shp, swp, PLAIN_OPS, (srh, srw))
     sf = ws.fwd_wiener_rows_plain(*sa, *sH, 0.01, srh)
+    c_re, c_im = (torch.as_tensor(rng.standard_normal((3, 2048, 2048), dtype=np.float32),
+                                  device=dev) for _ in range(2))
     modes = {
         "B1_frame_T": lambda: fk.fft_rows_stack(frame, extent=(2048, 2048)),
         "B1_stack_T": lambda: fk.fft_rows_stack(s64, extent=(256, 256)),
         "B1_inverse_T": lambda: fk.fft_rows(*f64, inverse=True, transposed=True),
         "B1_psf_T": lambda: fk.fft_rows(psf[None], None, transposed=True, extent=(2048, 2048)),
+        "B1_conv_fwd_T": lambda: fk.fft_rows(c_re[:2], c_im[:2], transposed=True),
         "B1_uhd_smooth_T": lambda: fk.fft_rows_stack(uhd, extent=(hp, wp), radices=rw),
         "B1_uhd_pow2_T": lambda: fk.fft_rows_stack(uhd, extent=(4096, 4096)),
         "B1_stack330_smooth_T": lambda: fk.fft_rows_stack(small, extent=(shp, swp), radices=srw),
         "B1_inverse_T_smooth": lambda: fk.fft_rows(*sf, inverse=True, transposed=True,
                                                    radices=srh),
         "B3_packed_inv": lambda: fk.fft_rows_packed_out(*mid, inverse=True),
-        "B6_psf_natural": lambda: fk.fft_rows(*psf1),
+        "B6_psf_natural": lambda: fk.fft_rows(*psf1),  # B6 revorder, natural store
+        "B6_conv_inv": lambda: fk.fft_rows(c_re[:2], c_im[:2], inverse=True),
+        "B6_natural_fwd": lambda: fk.fft_rows(c_re, c_im, ordering="natural"),
+        "B6_natural_inv": lambda: fk.fft_rows(c_re, c_im, inverse=True, ordering="natural"),
         "B2_wiener": lambda: ws.wiener_spectral_t(*a, *H, 0.01),
         "B7_batch64": lambda: ws.fwd_wiener_rows(*st, *H64, 0.01),
         "B3_uhd_smooth": lambda: fk.fft_rows_packed_out(*umid, inverse=True, radices=rw),

@@ -1,19 +1,26 @@
-"""B1's stage plan (csrc/fft_rows_t.cu) emulated group by group on the CPU.
+"""The row kernels' stage plans emulated group by group on the CPU.
 
-The kernel runs the radix-2 stages of a row in groups held in registers
-and the cross levels in one pass, after the plan that
-`fft_kernel.t_plan` computes (stage groups, 16 slots a thread, the
-thread-to-element map, the padded shared rows). Only the card runs that
-index math, so these tests run it here in plain torch: the emulation
-below gathers each group's slots from a block's padded shared-memory
-image at the plan's addresses, runs the group's butterflies slot pair by
-slot pair with the stage tables, and scatters them back, as the kernel
-does; the cross levels run per item (row, b) on the R elements
-b + j * q. It must be BITWISE equal to the plain version's run_stages
-(the same float32 operations in the same order), forward and inverse,
-at every pow2 n from 2 to 16384 and at the smooth lengths the pads give;
-and it must match the JAX package's _fft_rows_transposed (interpret mode,
-engine="roll") at the tolerance of tests/test_torch_mixed_radix.py.
+B1 (csrc/fft_rows_t.cu, `fft_kernel.t_plan`) and B3/B6 (csrc/fft_rows.cu,
+`fft_kernel.r_plan`) run the radix-2 stages of a row in groups held in
+registers (csrc/fft_groups.cuh) and the cross levels in one pass, after
+a plan: stage groups, 16 slots a thread, the thread-to-element map, the
+padded shared rows. Only the card runs that index math, so these tests
+run it here in plain torch: the emulation below gathers each group's
+slots from a block's rows (a device load: B1's and B6's forward row
+load, B3/B6's inverse vector load, the natural ordering's bit-reversed
+load) or from its padded shared-memory image at the plan's addresses,
+runs the group's butterflies slot pair by slot pair with the stage
+tables, and scatters them to the output (B1's transposed store, B3/B6's
+row and vector stores) or back to the image, as the kernels do; the
+cross levels run per item (row, b) on the R elements b + j * q. Each
+emulation must be BITWISE equal to the plain version's run_stages (the
+same float32 operations in the same order), forward and inverse, at
+every pow2 n from 2 to 16384 and at the smooth lengths the pads give,
+B3's min/max partials too; and it must match the JAX package's kernels
+(interpret mode, engine="roll": _fft_rows_transposed, fft_rows_pallas in
+both orderings, fft_rows_packed_out) at the tolerance of
+tests/test_torch_mixed_radix.py. The plans' bank conflicts and their
+device accesses (whole 32-byte segments a warp) are checked here too.
 """
 
 from fractions import Fraction
@@ -100,17 +107,19 @@ def _cross(xr, xi, radices, tab, b, q, inverse):
     return torch.stack(xr, -1), torch.stack(xi, -1)
 
 
-def _group(sre, sim, src, plan, group, tab, dit, dst=None):
+def _group(sre, sim, src, plan, group, tab, dit, dst=None, brev=False):
     """One stage group over every block: gather the slots (from src =
-    (re, im) blocks of rows, the forward pow2 pass's device-memory load,
-    else from the shared image), the group's butterflies, scatter (to dst
-    = (re, im) blocks of rows, the forward pass's direct store, else to
-    the shared image)."""
+    (re, im) blocks of rows, a device-memory load, else from the shared
+    image), the group's butterflies, scatter (to dst = (re, im) blocks of
+    rows, a direct store, else to the shared image). brev: the natural
+    ordering's first DIT group, whose slot at column b loads device
+    column bit_reverse(b)."""
     s_lo, k, _, _ = group
-    row, col = tfk.t_slot_index(plan, group)
+    row, col = tfk.t_slot_index(plan, group, brev)
     addr = torch.from_numpy(row * plan.rs + tfk.t_pad(col))
     if src is not None:
-        xr, xi = (x[:, torch.from_numpy(row), torch.from_numpy(col)] for x in src)
+        dev = tfk.brev_columns(col, plan.logq) if brev else col
+        xr, xi = (x[:, torch.from_numpy(row), torch.from_numpy(dev)] for x in src)
     else:
         xr, xi = sre[:, addr], sim[:, addr]
     xr, xi = list(xr.unbind(-1)), list(xi.unbind(-1))
@@ -183,6 +192,63 @@ def emulate_rows_t(x_re, x_im, inverse, radices=()):
             return tuple(o.reshape(-1, n)[:m].T.contiguous() for o in out)
     addr = torch.from_numpy(np.arange(rows)[:, None] * plan.rs + tfk.t_pad(np.arange(n)))
     return tuple(s[:, addr].reshape(-1, n)[:m].T.contiguous() for s in (sre, sim))
+
+
+def emulate_rows(x_re, x_im, inverse, radices=(), natural=False, packed=False):
+    """fft_rows' plan (csrc/fft_rows.cu, B3/B6) on (M, n) float32 rows:
+    (M, n) row-major output. Forward: the top group loads (pow2; a mixed
+    pass loads through its cross levels into the shared image), the
+    bottom group stores its consecutive columns; inverse: the bottom group
+    loads, the top group stores (a mixed pass stores after its cross
+    levels); natural: the bottom group loads the bit-reversed map;
+    packed: the packed store's plan (blocks of one min/max partial)."""
+    m, n = x_re.shape
+    plan = tfk.r_plan(n, radices, m, inverse, natural, packed=packed)
+    tab = tfk.tables(n, inverse, torch.device("cpu"), radices)
+    rows, q = plan.rows, 1 << plan.logq
+    nblk = -(-m // rows)
+    blocks = [torch.zeros(nblk * rows, n).index_copy(0, torch.arange(m), x)
+              .reshape(nblk, rows, n) for x in (x_re, x_im)]
+    sre, sim = (torch.full((nblk, rows * plan.rs), float("nan")) for _ in range(2))
+    out = [torch.full((nblk, rows, n), float("nan")) for _ in range(2)]
+    cols = tfk.t_cross_columns(plan, radices)
+    rr = np.arange(rows)[:, None, None]
+    addr = torch.from_numpy((rr * plan.rs + tfk.t_pad(cols[None])).reshape(rows, -1))
+    last = len(plan.groups) - 1
+    if not inverse and not natural:
+        src = blocks
+        if radices:  # load + both cross levels, item (row, b)
+            xr, xi = (x[:, torch.from_numpy(rr), torch.from_numpy(cols)] for x in blocks)
+            xr, xi = _cross(xr, xi, radices, tab, torch.arange(q), q, False)
+            sre[:, addr], sim[:, addr] = xr.reshape(nblk, rows, -1), xi.reshape(nblk, rows, -1)
+            src = None
+        for g, group in enumerate(plan.groups):
+            _group(sre, sim, src if g == 0 else None, plan, group, tab, False,
+                   out if g == last else None)
+    else:
+        for g in range(last, -1, -1):
+            _group(sre, sim, blocks if g == last else None, plan, plan.groups[g], tab, True,
+                   out if g == 0 and not radices else None, natural and g == last)
+        if radices:
+            xr, xi = _cross(sre[:, addr].reshape(nblk, rows, q, -1),
+                            sim[:, addr].reshape(nblk, rows, q, -1), radices, tab,
+                            torch.arange(q), q, True)
+            idx = torch.from_numpy(cols.reshape(-1))
+            for o, v in zip(out, (xr, xi)):
+                o[:, :, idx] = v.reshape(nblk, rows, -1)
+    return tuple(o.reshape(-1, n)[:m] for o in out)
+
+
+def emulate_packed(x_re, x_im, inverse, radices=()):
+    """fft_rows_packed_out's launch (B3): the row-major plan into one
+    (2, M, n) output, and the min/max partials that each block folds from
+    the values it stores, one per rows_per_block(n, M) rows."""
+    m, n = x_re.shape
+    o_re, o_im = emulate_rows(x_re, x_im, inverse, radices, packed=True)
+    pg = tfk.rows_per_block(n, m)
+    b_re, b_im = o_re.reshape(m // pg, -1), o_im.reshape(m // pg, -1)
+    mm = torch.stack([b_re.amin(-1), b_re.amax(-1), b_im.amin(-1), b_im.amax(-1)], -1)
+    return torch.stack([o_re, o_im]), mm
 
 
 def _planes(m, n, seed):
@@ -277,3 +343,173 @@ def test_u8_load_is_the_true_division():
         e = _round_f32(Fraction(float(a)) - 255 * Fraction(float(q)))
         q2 = _round_f32(Fraction(float(e)) * Fraction(float(r)) + Fraction(float(q)))
         assert q2 == a / np.float32(255.0), v
+
+
+# B3/B6's plan (csrc/fft_rows.cu, fft_kernel.r_plan): the row-major stores
+
+ROW_MODES = ([(n, (), mode) for n in POW2
+              for mode in ("forward", "inverse", "natural_forward", "natural_inverse",
+                           "packed_forward", "packed_inverse")]
+             + [(n, rad, mode) for n, rad in SMOOTH
+                for mode in ("forward", "inverse", "packed_forward", "packed_inverse")])
+
+
+@pytest.mark.parametrize("n,radices,mode", ROW_MODES)
+def test_row_plan_emulation_bitwise_equals_run_stages(n, radices, mode):
+    """Every store and ordering of fft_rows' plan, group by group, is the
+    plain version's run_stages bit for bit; the packed store's partials
+    too (a ragged last row block for the natural store)."""
+    inverse = mode.endswith("inverse")
+    if mode.startswith("packed"):
+        m = 3 if n >= 8192 else 2 * tfk.rows_per_block(n, 16)
+        x_re, x_im = _planes(m, n, 3 * n + inverse)
+        out, mm = emulate_packed(x_re, x_im, inverse, radices)
+        ref_out, ref_mm = tfk.fft_rows_packed_out_plain(x_re[None], x_im[None], inverse=inverse,
+                                                         radices=radices)
+        assert torch.equal(out, ref_out) and torch.equal(mm, ref_mm)
+        return
+    natural = mode.startswith("natural")
+    m = 3 if n >= 8192 else 9 if n >= 1024 else 20
+    x_re, x_im = _planes(m, n, 5 * n + inverse + 2 * natural)
+    ours = emulate_rows(x_re, x_im, inverse, radices, natural)
+    ref = tfk.run_stages(x_re, x_im, inverse, radices, natural)
+    for o, r in zip(ours, ref):
+        assert torch.equal(o, r), float((o - r).abs().max())
+
+
+@pytest.mark.parametrize("n,radices", [(2, ()), (4, ()), (8, ())])
+def test_packed_partials_of_tiny_planes(n, radices):
+    """Planes too small for a thread's 16 slots in one partial's rows: the
+    block holds more rows than a partial (the kernel reduces each
+    partial's rows from its output), and its partials are still one per
+    rows_per_block rows."""
+    for m in (1, 2, 4):
+        plan = tfk.r_plan(n, radices, m, True, packed=True)
+        pg = tfk.rows_per_block(n, m)
+        assert plan.rows > pg or plan.rows * n >= tfk.T_SLOTS
+        x_re, x_im = _planes(m, n, 11 * m + n)
+        out, mm = emulate_packed(x_re, x_im, True, radices)
+        ref_out, ref_mm = tfk.fft_rows_packed_out_plain(x_re[None], x_im[None])
+        assert mm.shape == (m // pg, 4)
+        assert torch.equal(out, ref_out) and torch.equal(mm, ref_mm)
+
+
+def _whole_segments(words) -> bool:
+    """Whether a warp's float offsets cover each 32-byte segment they touch
+    whole (8 floats)."""
+    words = np.unique(np.asarray(words).ravel())
+    seg, count = np.unique(words // 8, return_counts=True)
+    return bool((count == 8).all())
+
+
+@pytest.mark.parametrize("n,radices", [(n, ()) for n in POW2] + SMOOTH)
+def test_row_plan_maps_every_element_once_within_bank_limits(n, radices):
+    """Each group's slots cover the block's rows x n elements once, inside
+    the padded rows; the groups that touch device memory keep the along
+    map; the exchanges stay within 2 threads a bank (4 in one group of the
+    one-row blocks at n >= 8192), the natural ordering's bit-reversed
+    stores within 2^(log2 n - 10) (2 at n = 2048; on no restore path)."""
+    orders = [(False, False), (True, False)] + ([] if radices else [(False, True), (True, True)])
+    for inverse, natural in orders:
+        plan = tfk.r_plan(n, radices, 1 << 20, inverse, natural)
+        assert sum(k for _, k, _, _ in plan.groups) == plan.logq
+        assert plan.rows == max(1, 16 >> plan.logq) or 8 * n * plan.rows <= tfk.R_SMEM_BUDGET
+        assert plan.smem_bytes <= tfk.MAX_BLOCK_SMEM and plan.threads <= tfk.R_THREADS
+        last = len(plan.groups) - 1
+        for g, group in enumerate(plan.groups):
+            brev = natural and g == last
+            row, col = tfk.t_slot_index(plan, group, brev)
+            flat = np.sort((row * n + col).ravel())
+            assert np.array_equal(flat, np.arange(plan.rows * n))
+            assert (tfk.t_pad(col) < plan.rs).all()
+            if tfk.r_pinned(len(plan.groups), g, bool(radices)):
+                assert group[2] == 0  # along: ub first
+            worst = tfk.t_bank_conflicts(plan, group, brev)
+            limit = (1 << max(1, plan.logq - 10) if brev
+                     else 4 if n >= 8192 else 2)
+            assert worst <= limit, (inverse, natural, group, worst)
+
+
+def test_row_plan_geometry():
+    """128 threads a block; natural-store blocks of 2 rows at n = 2048 and
+    1 at 2304-4096 (32 KB), packed-store blocks of one min/max partial's
+    rows (4 at 2048, 2 at 3840), at least 16 / q rows."""
+    assert tfk.r_plan(2048).rows == 2 and tfk.r_plan(2048).threads == 128
+    assert tfk.r_plan(2304, (3, 3)).rows == 1 and tfk.r_plan(4096).rows == 1
+    assert tfk.r_plan(2048, packed=True).rows == 4 == tfk.rows_per_block(2048, 1 << 20)
+    assert tfk.r_plan(3840, (3, 5), 2304, True, packed=True).rows == 2
+    assert tfk.r_plan(256, (), 256, True, packed=True).rows == 16
+    assert tfk.r_plan(2, (), 4, True, packed=True).rows == 8  # 16 slots a thread
+    assert tfk.r_plan(8, (), 4).threads == 32
+
+
+@pytest.mark.parametrize("n,radices", [(n, ()) for n in POW2 if n >= 64] + SMOOTH)
+def test_row_plan_device_access_whole_segments(n, radices):
+    """A warp's direct loads and stores cover whole 32-byte segments: per
+    slot for the row maps (the forward load, the inverse and natural
+    store, the bit-reversed load), per item for the vector maps (its 2^k
+    consecutive columns), per element for the cross passes' items."""
+    orders = [(False, False), (True, False)] + ([] if radices else [(False, True), (True, True)])
+    for inverse, natural in orders:
+        plan = tfk.r_plan(n, radices, 1 << 20, inverse, natural)
+        last = len(plan.groups) - 1
+        for g, group in enumerate(plan.groups):
+            if not tfk.r_pinned(len(plan.groups), g, bool(radices)):
+                continue
+            brev = natural and g == last
+            row, col = tfk.t_slot_index(plan, group, brev)
+            if brev:
+                col = tfk.brev_columns(col, plan.logq)
+            words = row * n + col
+            e = 1 << group[1]
+            for w in range(0, plan.slot_sets, 32):
+                lanes = words[w:w + 32]
+                accesses = []
+                if g == last and not natural:  # the bottom group's vectors
+                    accesses += [lanes[:, a:a + e] for a in range(0, tfk.T_SLOTS, e)]
+                if g == 0 and not radices or brev:  # the row maps, slot by slot
+                    accesses += [lanes[:, j] for j in range(tfk.T_SLOTS)]
+                for acc in accesses:
+                    assert _whole_segments(acc), (inverse, natural, group, w)
+        if radices:  # the cross passes: item (row, b), b fastest
+            q = 1 << plan.logq
+            items = np.arange(plan.rows * q)
+            words = ((items >> plan.logq)[:, None] * n
+                     + tfk.t_cross_columns(plan, radices)[items & (q - 1)])
+            for w in range(0, len(items), 32):
+                for j in range(words.shape[1]):
+                    assert _whole_segments(words[w:w + 32, j])
+
+
+@pytest.mark.parametrize("n,radices,inverse,ordering", [
+    (n, rad, inv, order) for n, rad in [(256, ()), (2048, ()), (3840, (3, 5))]
+    for inv in (False, True) for order in (("revorder",) if rad else ("revorder", "natural"))])
+def test_row_plan_emulation_matches_jax_fft_rows(n, radices, inverse, ordering):
+    x_re, x_im = _planes(8, n, 13 * n + inverse)
+    ref = jfk.fft_rows_pallas(jnp.asarray(x_re.numpy()[None]), jnp.asarray(x_im.numpy()[None]),
+                              inverse, ordering=ordering, engine="roll", radices=radices)
+    ours = emulate_rows(x_re, x_im, inverse, radices, ordering == "natural")
+    for o, r in zip(ours, ref):
+        r = np.asarray(r)[0]
+        assert o.shape == r.shape
+        assert np.abs(o.numpy() - r).max() <= REL * max(float(np.abs(r).max()), 1e-30)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,radices", [(256, ()), (2048, ()), (3840, (3, 5))])
+def test_packed_emulation_matches_jax_packed_out(n, radices, inverse):
+    """The packed store and its partials against the JAX
+    fft_rows_packed_out: the planes at the file's tolerance; the partials
+    (the JAX kernel's blocks are its own) through the per-plane min/max
+    that the pipeline takes from them."""
+    x_re, x_im = _planes(8, n, 17 * n + inverse)
+    ref, ref_mm = jfk.fft_rows_packed_out(
+        jnp.asarray(x_re.numpy()[None]), jnp.asarray(x_im.numpy()[None]), inverse,
+        ordering="revorder", emit_minmax=True, engine="roll", radices=radices)
+    out, mm = emulate_packed(x_re, x_im, inverse, radices)
+    ref = np.asarray(ref)
+    assert out.shape == ref.shape
+    assert np.abs(out.numpy() - ref).max() <= REL * float(np.abs(ref).max())
+    ref_mm = np.asarray(ref_mm).reshape(-1, 4)
+    for col, red in ((0, np.min), (1, np.max), (2, np.min), (3, np.max)):
+        assert abs(red(mm.numpy()[:, col]) - red(ref_mm[:, col])) <= REL * float(np.abs(ref).max())

@@ -384,6 +384,10 @@ def test_plane_counts_past_65535(dev, gen):
     out, mm = fk.fft_rows_packed_out(*a_p, inverse=True)
     out_p, mm_p = fk.fft_rows_packed_out_plain(*a_p, inverse=True)
     assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
+    # the row-major passes (csrc/fft_rows.cu) over the same pairs
+    for kw in (dict(inverse=True), dict(ordering="natural")):
+        for o, r in zip(fk.fft_rows(*a_p, **kw), fk.fft_rows_plain(*a_p, **kw)):
+            assert _rel(o, r) <= 1e-5
 
 
 SMOOTH = [(384, (3,)), (640, (5,)), (1152, (3, 3)), (1920, (3, 5)), (2304, (3, 3)),
@@ -671,3 +675,71 @@ def test_kernels_do_not_spill():
     lines = [ln for ln in _build.build_log.splitlines() if "spill" in ln]
     assert lines and all("0 bytes spill stores, 0 bytes spill loads" in ln for ln in lines), \
         [ln for ln in lines if "0 bytes spill stores, 0 bytes spill loads" not in ln]
+
+
+# B3/B6's register-resident kernel (csrc/fft_rows.cu): every length the
+# kernels admit, both directions, both orderings (natural: pow2), ragged
+# live rows and columns, the rows past the live ones written as zeros by
+# the kernel itself (its output is torch.empty); the packed store with
+# its partials
+@pytest.mark.parametrize("n,rad", T_LENGTHS)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fft_rows_row_major_every_length(dev, gen, n, rad, inverse):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    big_m = 37 if n <= 4096 else 5
+    for ordering in ("revorder",) if rad else ("revorder", "natural"):
+        for m, w in ((big_m, n), (big_m - 3, max(1, n - 5)), (1, n)):
+            re, im = (torch.as_tensor(gen.standard_normal((3, m, w), dtype=np.float32),
+                                      device=dev) for _ in range(2))
+            kw = dict(inverse=inverse, extent=(big_m, n), radices=rad, ordering=ordering)
+            reset_launch_counts()
+            ours = fk.fft_rows(re, im[:2], **kw)  # the third pair's im reads as zero
+            assert launch_counts["fft_rows"] == 1 and launch_counts["fft_rows_t"] == 0
+            assert launch_counts["fft_rows_natural"] == (ordering == "natural")
+            assert launch_counts["mixed_radix"] == bool(rad)
+            for o, r in zip(ours, fk.fft_rows_plain(re, im[:2], **kw)):
+                assert o.shape == (3, big_m, n) and _rel(o, r) <= 1e-5
+                assert torch.all(o[:, m:] == 0)
+    pg = fk.rows_per_block(n, 64)
+    for m in (pg, 4 * pg):
+        re, im = (torch.as_tensor(gen.standard_normal((2, m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+        out, mm = fk.fft_rows_packed_out(re, im, inverse=inverse, radices=rad)
+        out_p, mm_p = fk.fft_rows_packed_out_plain(re, im, inverse=inverse, radices=rad)
+        assert mm.shape == mm_p.shape == (2 * m // fk.rows_per_block(n, m), 4)
+        assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 4])
+def test_fft_rows_packed_tiny_planes(dev, gen, n, m):
+    """A block holds more rows than one partial (a thread's 16 slots need
+    them): each partial is reduced from the rows the block stored."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    re, im = (torch.as_tensor(gen.standard_normal((3, m, n), dtype=np.float32), device=dev)
+              for _ in range(2))
+    out, mm = fk.fft_rows_packed_out(re, im)
+    out_p, mm_p = fk.fft_rows_packed_out_plain(re, im)
+    assert mm.shape == mm_p.shape and _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
+
+
+def test_fft_rows_strided_u8_views(dev, gen):
+    """The row-major passes over a frame's strided uint8 channel views and
+    over a transposed (column-strided) float view: the element-wise
+    fallback of the vector load."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    frame = torch.as_tensor(gen.integers(0, 256, (300, 500, 3), dtype=np.uint8), device=dev)
+    c = frame.permute(2, 0, 1)
+    f = torch.as_tensor(gen.standard_normal((2, 512, 256), dtype=np.float32), device=dev)
+    for args, kw in (((c[0::2], c[1::2]), dict(extent=(512, 512))),
+                     ((c[0::2], c[1::2]), dict(extent=(512, 512), inverse=True)),
+                     ((c[0::2], c[1::2]), dict(extent=(512, 512), ordering="natural")),
+                     ((f.transpose(1, 2), None), dict(inverse=True)),
+                     ((f.transpose(1, 2)[:, :, 1:], None), dict(extent=(256, 512),
+                                                                inverse=True))):
+        for o, r in zip(fk.fft_rows(*args, **kw), fk.fft_rows_plain(*args, **kw)):
+            assert _rel(o, r) <= 1e-5
