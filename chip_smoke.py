@@ -20,10 +20,13 @@ of the five backends, a restore composed from the public ops.kernels API
 (B12) and megakernel (B10) experiments. Phases, each printing its own
 lines; any failure exits non-zero:
 
-  1. build   the CUDA kernels with nvcc (and report the seconds);
+  1. build   the CUDA kernels with nvcc (and report the seconds), each
+             instance's registers and spills (ptxas), and how many of
+             B2's and B7's stage-group instances spill;
   2. kernels every kernel against its plain PyTorch version on the card,
              at the shapes the paths give it (B2 in its 'wiener', 'conv'
-             and 'conv' + conj modes), with the tolerances
+             and 'conv' + conj modes; 'wiener' at the UHD frame's pow2
+             extents, 4096^2, too), with the tolerances
              below; each timed against its plain version with CUDA
              events, beside its bound (the larger of the bytes it must
              move over 3.35 TB/s and its float32 operations over 67
@@ -80,8 +83,9 @@ lines; any failure exits non-zero:
              MP/s and host enqueue of batch64 and batch8 (serving graph,
              CUDA events, the median of five loops) for wb_stats_stride 1
              and 4, and the middle A/B: B2 against B7 + the inverse-T
-             pass on the same input at hp = 256 (batch64) and hp = 2048
-             (batch8); ms/frame and host enqueue of the four filter
+             pass on the same input at hp = 256 (batch64), 512 (16
+             frames of 512^2) and 2048 (batch8); ms/frame and host
+             enqueue of the four filter
              family paths at 2048^2; ms/frame, MP/s of the live frame,
              host enqueue and device busy of UHD 3840x2160 at smooth
              (2304x3840) and pow2 (4096x4096) extents in the same run;
@@ -396,9 +400,10 @@ def check_fft_rows(torch, np, frame, stack64, iters):
     return modes, dict(frame=(fwd_p, Hp, mid, out_p, mm_p, img), batch64=(st_p, H64, s64))
 
 
-def check_kernels(torch, np, frame, stack64, stack8, iters):
+def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
     """Phase 2: every kernel against its plain version at the shapes of
-    the three paths. Returns the per-kernel table rows."""
+    the three paths (and B2 at the UHD frame's pow2 extents). Returns the
+    per-kernel table rows."""
     from fft_restoration_tpu_torch.models.pipeline import (
         PLAIN_OPS, minmax_norm, restore_raw,
     )
@@ -428,19 +433,33 @@ def check_kernels(torch, np, frame, stack64, stack8, iters):
             main_mode=main_mode, modes=mine,
         ))
 
-    # wiener_spectral_t (B2), 2048^2
+    # wiener_spectral_t (B2): the 2048^2 frame, and the UHD frame's pow2
+    # extents (4096^2: 4 rows a block, 16-byte column segments)
+    from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
     h, w = frame.shape[:2]
-    mid_k = ws.wiener_spectral_t(*fwd_p, *Hp, 0.01)
-    m = measure(torch, list(zip(mid_k, mid)), lambda: ws.wiener_spectral_t(*fwd_p, *Hp, 0.01),
-                lambda: ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01), iters,
-                (4 + 4 + 2) * h * w * 4, 2 * fft_flops(2 * w, h) + 2 * h * w * 12)
-    log(f"wiener_spectral_t: max rel err {m['max_rel_err']:.3e} (tol {TOL_WIENER_REL}); "
-        f"{m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms")
-    if not m["max_rel_err"] <= TOL_WIENER_REL:
-        fail("wiener_spectral_t disagrees with its plain version")
+    up = fk.fft_rows_stack_plain(torch.as_tensor(uhd, device=dev)[None], extent=(4096, 4096))
+    uH = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), 4096, 4096, PLAIN_OPS)
+    b2 = {}
+    for mode, (a, H, mid_p, side) in (("frame_2x2048x2048", (fwd_p, Hp, mid, h)),
+                                      ("uhd_pow2_2x4096x4096", (up, uH, None, 4096))):
+        mid_p = mid_p or ws.wiener_spectral_t_plain(*a, *H, 0.01)
+        m = b2[mode] = measure(
+            torch, list(zip(ws.wiener_spectral_t(*a, *H, 0.01), mid_p)),
+            lambda: ws.wiener_spectral_t(*a, *H, 0.01),
+            lambda: ws.wiener_spectral_t_plain(*a, *H, 0.01), iters,
+            (4 + 4 + 2) * side * side * 4, 2 * fft_flops(2 * side, side) + 2 * side * side * 12)
+        log(f"wiener_spectral_t {mode}: max rel err {m['max_rel_err']:.3e} (tol "
+            f"{TOL_WIENER_REL}); {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms")
+        if not m["max_rel_err"] <= TOL_WIENER_REL:
+            fail(f"wiener_spectral_t {mode} disagrees with its plain version")
     rows.append(dict(name="wiener_spectral_t", route="cuda",
                      source=SRC + "csrc/wiener_spectral.cu",
-                     replaces=TPU + "wiener_spectral.py:402", **m))
+                     replaces=TPU + "wiener_spectral.py:402", **b2["frame_2x2048x2048"],
+                     modes=b2))
 
     # spectral_conv_t (B2 'conv', and with conj the mirrored PSF), 2048^2:
     # the same bytes as B2 'wiener', a complex product in place of the filter
@@ -1494,17 +1513,22 @@ def time_batches(torch, np, stacks, single, iters):
     return res
 
 
-def middle_ab(torch, np, stacks, iters):
+def middle_ab(torch, np, stacks, iters, seed):
     """Phase 4, the middle A/B: B2 against B7 + the inverse-T pass on the
-    same row-FFT'd planes, in turns (B2, pair, pair, B2)."""
+    same row-FFT'd planes, in turns (B2, pair, pair, B2), at hp = 256
+    (batch64), 512 (16 frames of 512^2, the pipeline's gate) and 2048
+    (batch8)."""
     from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
     dev = torch.device("cuda", 0)
+    stacks = dict(stacks, stack16_512sq=np.random.default_rng(seed).integers(
+        0, 256, (16, 512, 512, 3), dtype=np.uint8))
     res = {}
-    for name, _, side, psf in BATCHES:
+    for name, _, side, psf in sorted(BATCHES + (("stack16_512sq", 16, 512, 25),),
+                                     key=lambda c: c[2]):
         a = fk.fft_rows_stack(torch.as_tensor(stacks[name], device=dev), extent=(side, side))
         H = psf_spectrum_planes(make_psf("motion", psf, 30.0, dev), side, side)
         b2 = lambda: ws.wiener_spectral_t(*a, *H, 0.01)  # noqa: E731
@@ -1646,8 +1670,14 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    for line in ptxas_report(_build.build_log):
+    ptxas = ptxas_report(_build.build_log)
+    for line in ptxas:
         log(f"  ptxas: {line}")
+    # B2 and B7 on the stage-group engine (csrc/wiener_spectral.cu)
+    spectral = [ln for ln in ptxas if ln.split("<")[0].endswith("spectral_s_kernel")]
+    spilled = [ln for ln in spectral if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"phase 1: {len(spectral)} spectral_s_kernel instances (B2 'wiener' / 'conv' / conj, "
+        f"B7), {len(spilled)} with a spill{': ' + '; '.join(spilled) if spilled else ''}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)
@@ -1663,7 +1693,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = check_kernels(torch, np, frame, stacks["batch64_256sq"], stacks["batch8_2048sq"],
-                         args.iters)
+                         uhd, args.iters)
     smooth_modes, mixed_row = check_kernels_smooth(torch, np, uhd, small, args.iters)
     for row in rows:  # every kernel mode in the kernel table, the smooth ones too
         modes = row.setdefault("modes", {})
@@ -1693,7 +1723,7 @@ def main() -> int:
     t0 = time.perf_counter()
     timing = time_slice(torch, np, frame, args.iters)
     batch_timing = time_batches(torch, np, stacks, timing, args.iters)
-    ab = middle_ab(torch, np, stacks, args.iters)
+    ab = middle_ab(torch, np, stacks, args.iters, args.seed)
     family_timing = time_family(torch, np, frame, stacks["batch64_256sq"][:8], args.iters)
     smooth["timing"] = time_uhd(torch, np, uhd, args.iters)
     generic["timing_matmul_2048sq"] = time_generic(torch, np, frame, timing, args.iters)
@@ -1705,7 +1735,7 @@ def main() -> int:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
-    result = {"kernels": rows, "slice_2048sq": timing, "middle_ab": ab,
+    result = {"kernels": rows, "ptxas_spectral": spectral, "slice_2048sq": timing, "middle_ab": ab,
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
               "perf_ab": perf_ab}
     for name in batch_timing:

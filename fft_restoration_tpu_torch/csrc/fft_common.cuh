@@ -25,26 +25,26 @@
 // and runs level 0's R0-point DFTs and twiddle plane, then level 1's, the
 // same sums in the same order as _cross_dft_level. The radices are
 // template arguments (the pads give (3,), (5,), (3, 3) and (3, 5)), so
-// the element map costs no division at all.
+// the element map costs no division at all. Every FFT kernel with cross
+// levels (B1, B3/B6, B2/B7) runs them so, in its load and its store.
 //
 // What bounds the stage loops here on the H100: one thread takes one
 // butterfly, so each of the log2(q) stages is a full read and write of
 // the rows through shared memory and a barrier. They serve the kernels
-// whose radix-2 stages are not yet redesigned (B2, B7, B10, B11's column
-// twin, B12's tail); the row kernels B1 (fft_rows_t.cu) and B3/B6
-// (fft_rows.cu) run their stages in registers instead (fft_groups.cuh).
+// on no restore path whose radix-2 stages are not yet redesigned (B10,
+// B12's tail; B11 has its column twin); the restore's FFT kernels, B1
+// (fft_rows_t.cu), B3/B6 (fft_rows.cu) and B2/B7 (wiener_spectral.cu),
+// run their stages in registers instead (fft_groups.cuh).
 //
 // Layout of the shared-memory stage loops: a block holds `rows` complex
 // rows of length n as two planes, re[rows][n] then im[rows][n], in dynamic
-// shared memory. Every stage and every cross pass ends with
-// __syncthreads(), so callers may touch the planes right after.
+// shared memory. Every stage ends with __syncthreads(), so callers may
+// touch the planes right after.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #define FFT_THREADS 512
 // cross levels a kernel takes (the smooth pads' odd factors 3, 5, 9 = 3*3
@@ -255,79 +255,6 @@ __device__ __forceinline__ void cross_item(float* xr, float* xi, int b, int q,
         xi[k0 * R1 + j1] = ti[k0];
       }
     }
-  }
-}
-
-// One shared-memory pass of both cross levels over `rows` rows of n =
-// R0 * R1 * 2^logq points, for the kernels whose radix-2 stages stay in
-// shared memory: item t is (row t >> logq, b = t & (q - 1)), and its
-// thread runs level 0 and then level 1 on the item's R0 * R1 slots, the
-// same sums in the same order as cross_item, one level after the other
-// through those slots. No other thread touches them, so the pass needs
-// one barrier, and a thread holds at most 5 complex values: the R-value
-// item of cross_item would take these kernels to 128 registers (one
-// block an SM) or spill at two blocks an SM.
-template <int R0, int R1, bool INV>
-__device__ __forceinline__ void cross_pass(float* re, float* im, int rows,
-                                           int logq, const CrossPlan& p) {
-  const int q = 1 << logq;
-  const int q0 = q * R1;
-  const int n = R0 * q0;
-  const float* tc[2] = {p.xcos, p.xcos + n};
-  const float* ts[2] = {p.xsin, p.xsin + n};
-  for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
-    const int b = t & (q - 1);
-    float* xre = re + (t >> logq) * n + b;
-    float* xim = im + (t >> logq) * n + b;
-    // one level: `count` DFTs of `r` points; DFT u's point v sits at
-    // u * ustep + v * vstep of the item, its twiddle plane index b + that
-    auto level = [&](auto rc, int lvl, int count, int ustep, int vstep) {
-      constexpr int r = decltype(rc)::value;
-      for (int u = 0; u < count; ++u) {
-        float xr[r], xi[r];
-#pragma unroll
-        for (int v = 0; v < r; ++v) {
-          const int o = u * ustep + v * vstep;
-          xr[v] = xre[o];
-          xi[v] = xim[o];
-          if (INV) twiddle(&xr[v], &xi[v], tc[lvl], ts[lvl], b + o);
-        }
-        small_dft<r>(xr, xi, p.c[lvl], p.s[lvl]);
-#pragma unroll
-        for (int v = 0; v < r; ++v) {
-          const int o = u * ustep + v * vstep;
-          if (!INV) twiddle(&xr[v], &xi[v], tc[lvl], ts[lvl], b + o);
-          xre[o] = xr[v];
-          xim[o] = xi[v];
-        }
-      }
-    };
-    using C0 = std::integral_constant<int, R0>;
-    using C1 = std::integral_constant<int, R1>;
-    if (!INV) {
-      level(C0{}, 0, R1, q, q0);   // over j0 for each j1
-      if (R1 > 1) level(C1{}, 1, R0, q0, q);  // over j1 for each k0
-    } else {
-      if (R1 > 1) level(C1{}, 1, R0, q0, q);
-      level(C0{}, 0, R1, q, q0);
-    }
-  }
-  __syncthreads();
-}
-
-// The cross pass of a plan's radix tuple (radix_code 1..4)
-template <bool INV>
-__device__ __forceinline__ void cross_pass_any(float* re, float* im, int rows,
-                                               int logq, const CrossPlan& p) {
-  if (p.levels == 1) {
-    if (p.radix[0] == 3)
-      cross_pass<3, 1, INV>(re, im, rows, logq, p);
-    else
-      cross_pass<5, 1, INV>(re, im, rows, logq, p);
-  } else if (p.radix[1] == 3) {
-    cross_pass<3, 3, INV>(re, im, rows, logq, p);
-  } else {
-    cross_pass<3, 5, INV>(re, im, rows, logq, p);
   }
 }
 

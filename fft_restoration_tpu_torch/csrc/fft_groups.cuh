@@ -136,7 +136,10 @@ __device__ __forceinline__ void store_vec(float* dst, const float* x) {
 // BOTTOM: the group of the shortest stages (s_lo = 0), whose twiddle
 // offsets are then constants shared by a thread's items; LD_VEC, LD_BREV
 // and ST_VEC take it only. mm_on: fold the ST_ROW / ST_VEC values into mm.
-template <int K, bool DIT, int LD, int ST, bool BOTTOM, typename T>
+// ADDR_AGAIN (ST_SMEM after LD_SMEM or LD_ROW): work each slot's shared
+// address out again for the store instead of holding 16 of them through
+// the butterflies (the spectral kernels, whose kernels keep more live).
+template <int K, bool DIT, int LD, int ST, bool BOTTOM, typename T, bool ADDR_AGAIN = false>
 __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int ub_shift,
                                             int row_shift, const PairLoad<T>& ld,
                                             bool mm_on, float (&mm)[4]) {
@@ -179,7 +182,7 @@ __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int 
         const int sa = r * tb.rs_smem + pad_idx(i);
         // ST_T: a[j] is the output offset of (row, column i), -1 past the
         // plane; ST_SMEM the shared-memory slot
-        if constexpr (ST == ST_SMEM && LD != LD_VEC && LD != LD_BREV) a[j] = sa;
+        if constexpr (ST == ST_SMEM && LD != LD_VEC && LD != LD_BREV && !ADDR_AGAIN) a[j] = sa;
         if constexpr (ST == ST_T) a[j] = tb.m0 + r < tb.M ? i * tb.M + r : -1;
         if constexpr (LD == LD_ROW) {
           const float2 v = ld.at(row, i);
@@ -259,7 +262,16 @@ __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int 
     } else {
 #pragma unroll
       for (int j = 0; j < T_SLOTS; ++j) {
-        if constexpr (ST == ST_SMEM) {
+        if constexpr (ST == ST_SMEM && ADDR_AGAIN) {  // the load's address math
+          const int it = g + (j / E) * tb.ns;
+          const int ub = (it >> ub_shift) & ub_mask;
+          const int r = (it >> row_shift) & row_mask;
+          const int i = ((it >> (lq + tb.lr)) << tb.logq) | (ub & lo_mask) |
+                        ((ub >> s_lo) << (s_lo + K)) | ((j % E) << s_lo);
+          const int sa = r * tb.rs_smem + pad_idx(i);
+          tb.sre[sa] = xr[j];
+          tb.sim[sa] = xi[j];
+        } else if constexpr (ST == ST_SMEM) {
           tb.sre[a[j]] = xr[j];
           tb.sim[a[j]] = xi[j];
         } else if (a[j] >= 0) {

@@ -1,7 +1,7 @@
 // The spectral middles of the 2D restore, in the transposed orientation.
 //
-// spectral_t_kernel<MODE>: column FFT -> filter -> column IFFT ->
-// transposed write. Replaces fft_restoration_tpu/ops/pallas/
+// spectral_s_kernel<MODE, false, ..>: column FFT -> filter -> column IFFT
+// -> transposed write. Replaces fft_restoration_tpu/ops/pallas/
 // wiener_spectral.py:wiener_spectral_rows_t (B2) in both its modes:
 //   MODE_WIENER     F = G * conj(H) / (|H|^2 + K)
 //                   ("fftr_spectral_mid_T_wiener": the restore's middle)
@@ -12,208 +12,434 @@
 //                   PSF (H of a real PSF), RL's second conv. The JAX
 //                   package passes -H_im instead; the flag saves a negated
 //                   copy of the spectrum (17 MB at 2048^2) per RL step.
-// The filter is the only difference between the modes: one template body
-// compiles each, so the Wiener instance keeps the single-mode code. The
-// conv modes move the same bytes as Wiener (A and H in, the result out)
-// and so share its bound.
+// spectral_s_kernel<MODE_WIENER, true, ..>: column FFT -> Wiener ->
+// natural write. Replaces wiener_spectral.py:fwd_wiener_rows_pallas
+// ("fftr_fwd_wiener", B7), the middle the pipeline takes for short
+// columns (hp < 512, e.g. a 256^2 stack): B2 without the DIT stages, so
+// the filtered spectrum goes to device memory once and B1's inverse pass
+// with transposed store (csrc/fft_rows_t.cu) finishes the middle.
 //
 // In the transposed orientation the middle of the 2D restore works on
-// each row on its own: per block of rows it runs the DIF stages (the
-// second forward pass), the filter against the matching rows of the PSF
-// spectrum, then the DIT stages (the first inverse pass), and writes the
-// block transposed, ready for the final row IFFT. The filtered 2D
-// spectrum never goes to device memory.
+// each row on its own: per block of rows the DIF stages (the second
+// forward pass), the filter against the matching rows of the PSF
+// spectrum (H is (M, N), row m serving every plane's row m), then the
+// DIT stages (the first inverse pass) and the transposed store, ready
+// for the final row IFFT. The filtered 2D spectrum never goes to device
+// memory (what the TPU kernel keeps in VMEM).
 //
-// What bounds it on the H100: it reads A (67 MB at 2048^2 x 2 planes)
-// and H (34 MB) and writes the result (67 MB), about 50 us at 3.35 TB/s;
-// its 2*log2(n) shared-memory butterfly stages cost more,
-// so like fft_rows it is bound by shared-memory traffic and the barriers
-// between stages. The design keeps each row block in shared memory from
-// the first stage to the store, so the fusion saves two full device
-// round trips of the spectrum (what the TPU kernel saves in VMEM).
+// What bounds it on the H100: B2 reads A (67 MB at 2048^2 x 2 planes) and
+// H (34 MB) and writes the result (67 MB), 50 us at 3.35 TB/s; B7 at a
+// batch of 64 256^2 frames (96 pairs) 101 MB, 30 us. The shared-memory
+// design before this one ran each of the 2 log2(n) radix-2 stages as a
+// full pass through shared memory with a barrier, one thread per
+// butterfly (22 passes at n = 2048), plus a filter pass, and read the
+// transposed columns from blocks of 4 rows (16-byte segments): 5.8x its
+// memory floor, B7 2.6x.
 //
-// fwd_wiener_rows: column FFT -> Wiener -> natural write. Replaces
-// wiener_spectral.py:fwd_wiener_rows_pallas ("fftr_fwd_wiener", B7), the
-// middle the pipeline takes for short columns (hp < 512, e.g. a 256^2
-// stack): B2's body without the DIT stages, so the filtered spectrum
-// goes to device memory once and fft_rows' inverse pass with transposed
-// store (csrc/fft_rows.cu) finishes the middle. Bound on the H100: it
-// reads A and H and writes F, 101 MB for a batch of 64 256^2 frames (96
-// pairs), about 30 us at 3.35 TB/s; its log2(n) shared-memory stages
-// (8 at n=256) and their barriers are the likelier limit, as for
-// fft_rows. The filter is applied as each element is stored, so the
-// epilogue costs no extra pass over shared memory.
+// The design (the stage groups of fft_groups.cuh, as B1's and B3/B6's):
+// - The wrapper's plan (ops/kernels/fft_kernel.py s_plan) cuts the S
+//   stages into groups of k <= 4 (11 = 4 + 4 + 3); a thread holds 16
+//   complex values and runs a group's butterflies in registers, one
+//   shared-memory exchange a group.
+// - The DIF groups run top down; the top group of a pow2 row loads its
+//   items straight from device memory (LD_ROW), a smooth row loads
+//   through both forward cross levels in registers (cross_item).
+// - The bottom group (s_lo = 0) holds 2^k consecutive spectrum slots of
+//   one row per item, so its DIF stages, the filter and (B2) its DIT
+//   stages run in ONE register pass (fused_bottom): the item's H slots
+//   come as 16-byte vectors of row m0 + r, one vector at a time (H never
+//   doubles the register load). B7 stores the filtered items as 16-byte
+//   vectors (natural (P, M, N) order).
+// - B2's DIT groups run bottom up; at a pow2 length the top one stores
+//   its registers straight to the transposed output (ST_T, the across
+//   map: neighbouring threads on neighbouring rows of one column); a
+//   smooth row goes through both inverse cross levels in registers
+//   (cross_item) as it is read for the transposed store.
+//   At n = 2048: load + 2 exchanges + the fused bottom + 2 exchanges +
+//   store (4 barriers).
+// - Geometry: B2 blocks of 8 rows or more at n <= 2304 (32-byte column
+//   segments of the transposed store), 4 at 3840-4096 (16-byte: 4 rows
+//   fill 160 KB), 512 threads; B7 blocks of the rows in 32 KB, 128
+//   threads; per group the map (along or across) and the row stride whose
+//   accesses the wrapper finds cheapest in Python
+//   (tests/test_torch_spectral_passes.py holds the limits). A ragged last
+//   block reads zero rows and stores only the live ones.
+// - __launch_bounds__(512, 1): 128 registers a thread. The upper groups
+//   work their shared addresses out again at the store (stage_group's
+//   ADDR_AGAIN) instead of holding 16 through the butterflies: holding
+//   them spilled 4-8 bytes in some instances.
 //
-// wiener_spectral_rows: row DIF -> Wiener -> row DIT, natural store.
+// Grid: one dimension, block b takes row block b / P of plane b % P: the
+// planes' blocks of one row block run together, so H's rows come from L2
+// after the first plane's read (the plane count is not held to
+// gridDim.y's 65535).
+//
+// spectral_rows_kernel: row DIF -> Wiener -> row DIT, natural store.
 // Replaces wiener_spectral.py:wiener_spectral_rows_pallas (B10,
 // "fftr_spectral_mid"), the untransposed fused middle the JAX A/B harness
-// runs (tools/perf_ab.py megakernel): spectral_t_kernel<MODE_WIENER,
-// false, true>, B2's body with each row block stored where it was read.
-// H row m serves every plane's row m (the JAX wrapper materializes the
-// broadcast H per plane; here it is indexed, never copied), and a ragged
-// last row block is bounds-checked (JAX pads). Same bound as B2: A and H
-// in, the result out, 168 MB at (2, 2048, 2048); shared-memory stages and
-// barriers are the likelier limit.
-//
-// Grid of all three: one dimension, block b takes row block b % nblk of
-// plane b / nblk (the plane count is not held to gridDim.y's 65535).
-//
-// Mixed radix (--pad smooth, B-mixed): at a smooth column length the
-// MIXED instances run the forward cross levels before the DIF stages and
-// (B2) the inverse ones after the DIT stages, each direction's levels in
-// one shared-memory pass (fft_common.cuh cross_pass), from two CrossPlans
-// passed by value beside the stage tables; the stages index the rows' R
-// q-blocks with shifts; the filters and the stores are unchanged. grid_of's M / rows and the wrappers' row-block
-// check hold at smooth M as at pow2 M.
-#include "fft_common.cuh"
+// runs (tools/perf_ab.py megakernel); on no restore path, so it keeps the
+// shared-memory stage loops of fft_common.cuh (dif_stages, dit_stages),
+// one thread per butterfly. H row m serves every plane's row m (the JAX
+// wrapper materializes the broadcast H per plane; here it is indexed,
+// never copied), and a ragged last row block is bounds-checked (JAX
+// pads). Bound: A and H in, the result out, 235 MB at (3, 2048, 2048).
+#include "fft_groups.cuh"
+
+#define S_THREADS 512
 
 enum SpectralMode { MODE_WIENER = 0, MODE_CONV = 1, MODE_CONV_CONJ = 2 };
 
-// NATURAL (B10, pow2 N, MODE_WIENER only): the block's rows are stored
-// in place of the transposed write, and rows past M (a ragged last block)
-// read as zero and are not stored; without it the code is B2's as it was.
-template <int MODE, bool MIXED, bool NATURAL = false>
-__global__ void __launch_bounds__(FFT_THREADS)
-spectral_t_kernel(const float* __restrict__ a_re,
-                  const float* __restrict__ a_im,
-                  const float* __restrict__ h_re,
-                  const float* __restrict__ h_im, float K,
-                  float* __restrict__ out_re, float* __restrict__ out_im,
-                  int M, int N, int stages, int rows, int nblk,
-                  const float* __restrict__ cos_f,
-                  const float* __restrict__ sin_f,
-                  const float* __restrict__ cos_i,
-                  const float* __restrict__ sin_i,
-                  const __grid_constant__ CrossPlan plan_f,
-                  const __grid_constant__ CrossPlan plan_i) {
-  static_assert(!(NATURAL && MIXED), "the natural store takes pow2 rows only");
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + rows * N;
-  const int p = blockIdx.x / nblk;
-  const int m0 = (blockIdx.x - p * nblk) * rows;
-  const int total = rows * N;
-  const size_t base = ((size_t)p * M + m0) * N;
-  const size_t hbase = (size_t)m0 * N;
-  // the live elements of the block (all of them unless NATURAL's last block)
-  const int live = NATURAL ? (M - m0 < rows ? M - m0 : rows) * N : total;
-
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    if (NATURAL && t >= live) {
-      sre[t] = 0.0f;
-      sim[t] = 0.0f;
-    } else {
-      sre[t] = a_re[base + t];
-      sim[t] = a_im[base + t];
-    }
-  }
-  __syncthreads();
-  if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan_f);
-  dif_stages(sre, sim, rows * (N >> stages), stages, N, cos_f, sin_f);
-
-  for (int t = threadIdx.x; t < live; t += blockDim.x) {
-    const float hr = h_re[hbase + t], hi = h_im[hbase + t];
-    const float xr = sre[t], xi = sim[t];
-    if (MODE == MODE_WIENER) {
-      const float inv = 1.0f / (hr * hr + hi * hi + K);
-      sre[t] = (xr * hr + xi * hi) * inv;
-      sim[t] = (xi * hr - xr * hi) * inv;
-    } else if (MODE == MODE_CONV) {
-      sre[t] = xr * hr - xi * hi;
-      sim[t] = xr * hi + xi * hr;
-    } else {  // MODE_CONV_CONJ
-      sre[t] = xr * hr + xi * hi;
-      sim[t] = xi * hr - xr * hi;
-    }
-  }
-  __syncthreads();
-  dit_stages(sre, sim, rows * (N >> stages), stages, N, cos_i, sin_i);
-  if (MIXED) cross_pass_any<true>(sre, sim, rows, stages, plan_i);
-
-  if (NATURAL) {
-    for (int t = threadIdx.x; t < live; t += blockDim.x) {
-      out_re[base + t] = sre[t];
-      out_im[base + t] = sim[t];
-    }
-  } else {
-    // (P, M, N) -> (P, N, M)
-    const int log2rows = __ffs(rows) - 1;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int r = t & (rows - 1);
-      const int k = t >> log2rows;
-      const size_t o = ((size_t)p * N + k) * M + m0 + r;
-      out_re[o] = sre[r * N + k];
-      out_im[o] = sim[r * N + k];
-    }
-  }
-}
-
-template <bool MIXED>
-__global__ void __launch_bounds__(FFT_THREADS)
-fwd_wiener_rows_kernel(const float* __restrict__ a_re,
-                       const float* __restrict__ a_im,
-                       const float* __restrict__ h_re,
-                       const float* __restrict__ h_im, float K,
-                       float* __restrict__ out_re, float* __restrict__ out_im,
-                       int M, int N, int stages, int rows, int nblk,
-                       const float* __restrict__ cos_f,
-                       const float* __restrict__ sin_f,
-                       const __grid_constant__ CrossPlan plan_f) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + rows * N;
-  const int p = blockIdx.x / nblk;
-  const int m0 = (blockIdx.x - p * nblk) * rows;
-  const int total = rows * N;
-  const size_t base = ((size_t)p * M + m0) * N;
-  const size_t hbase = (size_t)m0 * N;
-
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    sre[t] = a_re[base + t];
-    sim[t] = a_im[base + t];
-  }
-  __syncthreads();
-  if (MIXED) cross_pass_any<false>(sre, sim, rows, stages, plan_f);
-  dif_stages(sre, sim, rows * (N >> stages), stages, N, cos_f, sin_f);
-
-  // F = G * conj(H) / (|H|^2 + K), stored in natural (P, M, N) order
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const float hr = h_re[hbase + t], hi = h_im[hbase + t];
-    const float xr = sre[t], xi = sim[t];
+// x = filter(x, h): the plain version's expressions (ops/wiener.py
+// wiener_filter, spectral_product)
+template <int MODE>
+__device__ __forceinline__ void spectral_filter(float& xr, float& xi, float hr, float hi,
+                                                float K) {
+  float yr, yi;
+  if constexpr (MODE == MODE_WIENER) {
     const float inv = 1.0f / (hr * hr + hi * hi + K);
-    out_re[base + t] = (xr * hr + xi * hi) * inv;
-    out_im[base + t] = (xi * hr - xr * hi) * inv;
+    yr = (xr * hr + xi * hi) * inv;
+    yi = (xi * hr - xr * hi) * inv;
+  } else if constexpr (MODE == MODE_CONV) {
+    yr = xr * hr - xi * hi;
+    yi = xr * hi + xi * hr;
+  } else {  // MODE_CONV_CONJ
+    yr = xr * hr + xi * hi;
+    yi = xi * hr - xr * hi;
+  }
+  xr = yr;
+  xi = yi;
+}
+
+// W consecutive floats of the spectrum's two planes from offset o (16-byte
+// aligned for W = 4, 8-byte for W = 2: the wrapper's H is aligned, and
+// an item's slots start at a multiple of its width), zeros where !live
+template <int W>
+__device__ __forceinline__ void load_h(const float* __restrict__ h_re,
+                                       const float* __restrict__ h_im, size_t o, bool live,
+                                       float* hr, float* hi) {
+  if (!live) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) hr[e] = hi[e] = 0.0f;
+  } else if constexpr (W == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(h_re + o));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(h_im + o));
+    hr[0] = a.x, hr[1] = a.y, hr[2] = a.z, hr[3] = a.w;
+    hi[0] = b.x, hi[1] = b.y, hi[2] = b.z, hi[3] = b.w;
+  } else if constexpr (W == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(h_re + o));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(h_im + o));
+    hr[0] = a.x, hr[1] = a.y;
+    hi[0] = b.x, hi[1] = b.y;
+  } else {
+    hr[0] = __ldg(h_re + o);
+    hi[0] = __ldg(h_im + o);
   }
 }
 
-// grid of P planes x M / rows row blocks; 0 or a cudaError_t
-static int grid_of(int P, int M, int rows, int* nblk, int* blocks) {
-  *nblk = M / rows;
-  if ((long long)*nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  *blocks = *nblk * P;
-  return 0;
+// Stage b (half 2^b) of the bottom group over a thread's 16 slots, items
+// of 2^K consecutive slots: stage_group's butterflies at s_lo = 0, whose
+// twiddle offsets are the element bits below b
+template <int K, bool DIT>
+__device__ __forceinline__ void bottom_stage(float* xr, float* xi, int b,
+                                             const float* __restrict__ wc,
+                                             const float* __restrict__ ws) {
+#pragma unroll
+  for (int j0 = 0; j0 < T_SLOTS; ++j0) {
+    const int jl = j0 & ((1 << K) - 1);
+    if (jl & (1 << b)) continue;
+    const int j1 = j0 + (1 << b);
+    const int pos = jl & ((1 << b) - 1);
+    const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
+    const float ar = xr[j0], ai = xi[j0], br = xr[j1], bi = xi[j1];
+    if (DIT) {
+      const float wr = c * br - sn * bi, wi = c * bi + sn * br;
+      xr[j0] = ar + wr;
+      xi[j0] = ai + wi;
+      xr[j1] = ar - wr;
+      xi[j1] = ai - wi;
+    } else {
+      const float dr = ar - br, di = ai - bi;
+      xr[j0] = ar + br;
+      xi[j0] = ai + bi;
+      xr[j1] = c * dr - sn * di;
+      xi[j1] = c * di + sn * dr;
+    }
+  }
 }
 
-template <int MODE, bool MIXED>
-static int launch_spectral_t(const void* a_re, const void* a_im,
-                             const void* h_re, const void* h_im, float K,
-                             void* out_re, void* out_im, int P, int M, int N,
-                             int stages, int rows, const void* cos_f,
-                             const void* sin_f, const void* cos_i,
-                             const void* sin_i, const CrossPlan& plan_f,
-                             const CrossPlan& plan_i, void* stream) {
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(spectral_t_kernel<MODE, MIXED>, smem);
+// The bottom stage group (s_lo = 0, width K) in one register pass over a
+// thread's items: its DIF stages, the filter against H's matching slots
+// of each item's row (a vector at a time, so H never doubles the register
+// load), then for B2 its DIT stages with the inverse tables (the
+// butterflies and their order are stage_group's). Loads from the shared
+// rows; stores to them (B2) or, B7, to the natural output as 16-byte
+// vectors. H is the (M, N) spectrum, row m0 + r serving the block's row r.
+template <int K, int MODE, bool B7>
+__device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int row_shift,
+                                             const float* __restrict__ cos_i,
+                                             const float* __restrict__ sin_i,
+                                             const float* __restrict__ h_re,
+                                             const float* __restrict__ h_im, float k_reg) {
+  constexpr int J = T_SLOTS >> K;
+  constexpr int E = 1 << K;
+  constexpr int W = E < 4 ? E : 4;  // floats a vector
+  const int lq = tb.logq - K;
+  const int ub_mask = (1 << lq) - 1, row_mask = (1 << tb.lr) - 1;
+  // item jh of slot set g: its row r and its first slot's column
+  auto row_of = [&](int g, int jh) { return ((g + jh * tb.ns) >> row_shift) & row_mask; };
+  auto base_of = [&](int g, int jh) {
+    const int it = g + jh * tb.ns;
+    return ((it >> (lq + tb.lr)) << tb.logq) | (((it >> ub_shift) & ub_mask) << K);
+  };
+  for (int g = threadIdx.x; g < tb.ns; g += blockDim.x) {
+    float xr[T_SLOTS], xi[T_SLOTS];
+#pragma unroll
+    for (int jh = 0; jh < J; ++jh) {
+      // an item's 2^K <= 16 slots never straddle a pad word
+      const int so = row_of(g, jh) * tb.rs_smem + pad_idx(base_of(g, jh));
+#pragma unroll
+      for (int jl = 0; jl < E; ++jl) {
+        xr[jh * E + jl] = tb.sre[so + jl];
+        xi[jh * E + jl] = tb.sim[so + jl];
+      }
+    }
+#pragma unroll
+    for (int b = K - 1; b >= 0; --b)
+      bottom_stage<K, false>(xr, xi, b, tb.cosv + (size_t)b * tb.tstride,
+                             tb.sinv + (size_t)b * tb.tstride);
+#pragma unroll
+    for (int jh = 0; jh < J; ++jh) {
+      const int m = tb.m0 + row_of(g, jh);
+      const size_t o = (size_t)m * tb.tstride + base_of(g, jh);
+#pragma unroll
+      for (int v = 0; v < E; v += W) {
+        float hr[W], hi[W];
+        load_h<W>(h_re, h_im, o + v, m < tb.M, hr, hi);
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          spectral_filter<MODE>(xr[jh * E + v + e], xi[jh * E + v + e], hr[e], hi[e], k_reg);
+      }
+    }
+    if constexpr (!B7) {
+#pragma unroll
+      for (int b = 0; b < K; ++b)
+        bottom_stage<K, true>(xr, xi, b, cos_i + (size_t)b * tb.tstride,
+                              sin_i + (size_t)b * tb.tstride);
+    }
+#pragma unroll
+    for (int jh = 0; jh < J; ++jh) {
+      const int r = row_of(g, jh), base = base_of(g, jh);
+      if constexpr (B7) {
+        if (tb.m0 + r >= tb.M) continue;
+        const int o = r * tb.tstride + base;
+#pragma unroll
+        for (int v = 0; v < E; v += W) {
+          store_vec<W>(tb.out_re + o + v, xr + jh * E + v);
+          store_vec<W>(tb.out_im + o + v, xi + jh * E + v);
+        }
+      } else {
+        const int so = r * tb.rs_smem + pad_idx(base);
+#pragma unroll
+        for (int jl = 0; jl < E; ++jl) {
+          tb.sre[so + jl] = xr[jh * E + jl];
+          tb.sim[so + jl] = xi[jh * E + jl];
+        }
+      }
+    }
+  }
+}
+
+template <int MODE, bool B7>
+__device__ __forceinline__ void run_bottom(const TBlock& tb, const GroupPlan& gp,
+                                           const float* __restrict__ cos_i,
+                                           const float* __restrict__ sin_i,
+                                           const float* __restrict__ h_re,
+                                           const float* __restrict__ h_im, float k_reg) {
+  const int g = gp.groups - 1, us = gp.ub_shift[g], rsh = gp.row_shift[g];
+#define FUSED_BOTTOM(K) fused_bottom<K, MODE, B7>(tb, us, rsh, cos_i, sin_i, h_re, h_im, k_reg)
+  switch (gp.k[g]) {
+    case 1: FUSED_BOTTOM(1); break;
+    case 2: FUSED_BOTTOM(2); break;
+    case 3: FUSED_BOTTOM(3); break;
+    default: FUSED_BOTTOM(4); break;
+  }
+#undef FUSED_BOTTOM
+}
+
+// Group g above the bottom one (s_lo > 0), dispatched on its width: the
+// bottom group runs fused (fused_bottom), so no bottom instance of the
+// stage groups is compiled here
+template <bool DIT, int LD, int ST>
+__device__ __forceinline__ void run_upper(const TBlock& tb, const GroupPlan& gp, int g,
+                                          const PairLoad<float>& ld) {
+  const int s_lo = gp.s_lo[g], us = gp.ub_shift[g], rsh = gp.row_shift[g];
+  float mm[4] = {};  // no min/max in this kernel
+#define UPPER_GROUP(K) \
+  stage_group<K, DIT, LD, ST, false, float, ST == ST_SMEM>(tb, s_lo, us, rsh, ld, false, mm)
+  switch (gp.k[g]) {
+    case 1: UPPER_GROUP(1); break;
+    case 2: UPPER_GROUP(2); break;
+    case 3: UPPER_GROUP(3); break;
+    default: UPPER_GROUP(4); break;
+  }
+#undef UPPER_GROUP
+}
+
+// P planes of M rows of N = R0 * R1 * 2^logq points, (P, M, N) contiguous;
+// rows = 2^lr rows a block, rs_smem the padded row stride; block b takes
+// rows m0 = (b / P) * rows of plane b % P. gf: the DIF groups' maps, the
+// bottom one fused; gi (B2): the DIT groups' maps (its bottom
+// entry unread). gf.direct_store (pow2, two groups or more): the top DIF
+// group loads device memory and B2's top DIT group stores the transposed
+// output from registers; otherwise both go through the shared rows, with
+// the cross levels cf / ci of a smooth row.
+template <int MODE, bool B7, int R0, int R1>
+__global__ void __launch_bounds__(S_THREADS, 1)
+spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                  const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
+                  float* __restrict__ out_re, float* __restrict__ out_im, int P, int M,
+                  int logq, int lr, int rs_smem, const float* __restrict__ cos_f,
+                  const float* __restrict__ sin_f, const float* __restrict__ cos_i,
+                  const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
+                  const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
+                  const __grid_constant__ CrossPlan ci) {
+  constexpr int R = R0 * R1;
+  extern __shared__ float smem[];
+  const int rows = 1 << lr;
+  const int q = 1 << logq;
+  const int N = R * q;
+  const int blk = blockIdx.x / P;
+  const int p = blockIdx.x - blk * P;
+  const int m0 = blk * rows;
+  // the output pointers are set where they are needed (fewer live registers)
+  TBlock tf = {smem, smem + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4, N,
+               cos_f, sin_f, nullptr, nullptr, M, m0};
+  const PairLoad<float> ld(a_re, a_im, (long long)M * N, 0, 1, 1, 0, N, 1, 0x7fffffff,
+                           0x7fffffff, M, N, p, m0);
+  const bool direct = R == 1 && gf.direct_store;  // the C entry refuses it for R > 1
+
+  if (!direct) {  // load (+ both forward cross levels), item (row, b): b fastest
+    for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+      const int b = t & (q - 1), r = t >> logq;
+      const auto row = ld.row(r);
+      float xr[R], xi[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const float2 v = ld.at(row, b + j * q);
+        xr[j] = v.x;
+        xi[j] = v.y;
+      }
+      if constexpr (R > 1) cross_item<R0, R1, false>(xr, xi, b, q, N, cf);
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int a = r * rs_smem + pad_idx(b + j * q);
+        tf.sre[a] = xr[j];
+        tf.sim[a] = xi[j];
+      }
+    }
+    __syncthreads();
+  }
+  for (int g = 0; g < gf.groups - 1; ++g) {
+    if constexpr (R == 1) {
+      if (g == 0 && direct) {
+        run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
+        __syncthreads();
+        continue;
+      }
+    }
+    run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
+    __syncthreads();
+  }
+  // B7: the natural (P, M, N) output from row m0; B2: the transposed
+  // (P, N, M) output from column m0
+  const size_t obase = B7 ? ((size_t)p * M + m0) * N : (size_t)p * N * M + m0;
+  if constexpr (B7) {
+    tf.out_re = out_re + obase;
+    tf.out_im = out_im + obase;
+  }
+  run_bottom<MODE, B7>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
+  if constexpr (B7) return;
+
+  // B2: the DIT groups above the bottom one, bottom up
+  tf.out_re = out_re + obase;
+  tf.out_im = out_im + obase;
+  __syncthreads();
+  TBlock ti = tf;
+  ti.cosv = cos_i;
+  ti.sinv = sin_i;
+  for (int g = gi.groups - 2; g >= 0; --g) {
+    if constexpr (R == 1) {
+      if (g == 0 && direct) {
+        run_upper<true, LD_SMEM, ST_T>(ti, gi, g, ld);
+        return;
+      }
+    }
+    run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
+    __syncthreads();
+  }
+  // (both inverse cross levels, then) the transposed store: neighbouring
+  // threads take neighbouring rows of one column
+  for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+    const int r = t & (rows - 1), b = t >> lr;
+    float xr[R], xi[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int a = r * rs_smem + pad_idx(b + j * q);
+      xr[j] = tf.sre[a];
+      xi[j] = tf.sim[a];
+    }
+    if constexpr (R > 1) cross_item<R0, R1, true>(xr, xi, b, q, N, ci);
+    if (m0 + r < M) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const size_t o = (size_t)(b + j * q) * M + r;
+        tf.out_re[o] = xr[j];
+        tf.out_im[o] = xi[j];
+      }
+    }
+  }
+}
+
+template <int MODE, bool B7, int R0, int R1>
+static int launch_s(const void* a_re, const void* a_im, const void* h_re, const void* h_im,
+                    float k_reg, void* out_re, void* out_im, int P, int M, int logq, int lr,
+                    int rs_smem, int threads, const void* cos_f, const void* sin_f,
+                    const void* cos_i, const void* sin_i, const GroupPlan& gf,
+                    const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
+                    cudaStream_t stream) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  cudaError_t err = allow_smem(spectral_s_kernel<MODE, B7, R0, R1>, smem);
   if (err != cudaSuccess) return (int)err;
-  int nblk, blocks;
-  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
-  spectral_t_kernel<MODE, MIXED>
-      <<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-          (const float*)a_re, (const float*)a_im, (const float*)h_re,
-          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
-          rows, nblk, (const float*)cos_f, (const float*)sin_f,
-          (const float*)cos_i, (const float*)sin_i, plan_f, plan_i);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  spectral_s_kernel<MODE, B7, R0, R1><<<nblk * P, threads, smem, stream>>>(
+      (const float*)a_re, (const float*)a_im, (const float*)h_re, (const float*)h_im, k_reg,
+      (float*)out_re, (float*)out_im, P, M, logq, lr, rs_smem, (const float*)cos_f,
+      (const float*)sin_f, (const float*)cos_i, (const float*)sin_i, gf, gi, cf, ci);
   return (int)cudaGetLastError();
+}
+
+template <int MODE, bool B7>
+static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
+                          const void* h_im, float k_reg, void* out_re, void* out_im, int P,
+                          int M, int logq, int lr, int rs_smem, int threads, const void* cos_f,
+                          const void* sin_f, const void* cos_i, const void* sin_i,
+                          const GroupPlan& gf, const GroupPlan& gi, const CrossPlan& cf,
+                          const CrossPlan& ci, cudaStream_t stream) {
+#define SPECTRAL_LAUNCH(R0, R1)                                                             \
+  launch_s<MODE, B7, R0, R1>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, \
+                             rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf, ci,  \
+                             stream)
+  switch (radix_code(cf)) {
+    case 0: return SPECTRAL_LAUNCH(1, 1);
+    case 1: return SPECTRAL_LAUNCH(3, 1);
+    case 2: return SPECTRAL_LAUNCH(5, 1);
+    case 3: return SPECTRAL_LAUNCH(3, 3);
+    case 4: return SPECTRAL_LAUNCH(3, 5);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_LAUNCH
 }
 
 // the two directions' cross levels (levels 0 for a pow2 N; see
@@ -224,107 +450,139 @@ static int launch_spectral_t(const void* a_re, const void* a_im,
 #define CROSS_PLAN(d) \
   make_cross_plan(levels_##d, radix_##d, coef_##d, xcos_##d, xsin_##d)
 
-template <int MODE>
-static int launch_mode(const void* a_re, const void* a_im, const void* h_re,
-                       const void* h_im, float K, void* out_re, void* out_im,
-                       int P, int M, int N, int stages, int rows,
-                       const void* cos_f, const void* sin_f, const void* cos_i,
-                       const void* sin_i, const CrossPlan& plan_f,
-                       const CrossPlan& plan_i, void* stream) {
-  if (plan_f.levels != plan_i.levels || radix_code(plan_f) < 0 || radix_code(plan_i) < 0)
-    return (int)cudaErrorInvalidValue;
-  if (plan_f.levels > 0)
-    return launch_spectral_t<MODE, true>(a_re, a_im, h_re, h_im, K, out_re,
-                                         out_im, P, M, N, stages, rows, cos_f,
-                                         sin_f, cos_i, sin_i, plan_f, plan_i,
-                                         stream);
-  return launch_spectral_t<MODE, false>(a_re, a_im, h_re, h_im, K, out_re,
-                                        out_im, P, M, N, stages, rows, cos_f,
-                                        sin_f, cos_i, sin_i, plan_f, plan_i,
-                                        stream);
-}
-
 static bool bad_levels(int levels) {
   return levels < 0 || levels > MAX_CROSS_LEVELS;
 }
 
+// The plan arrays of one launch (fft_kernel.TPlan.c_plan; B2's DIT maps
+// in plan_i, B7 none) and its geometry, checked: false when they do not
+// describe logq stages, the two plans' groups differ, a thread's 16 slots
+// are not all live (rows * q >= 16), or the direct maps meet a smooth row
+// or a single group
+static bool read_plans(const int* plan_f, const int* plan_i, int logq, int lr, int threads,
+                       int levels, GroupPlan* gf, GroupPlan* gi) {
+  if (!read_group_plan(plan_f, logq, gf) || logq + lr < 4 || threads < 32 ||
+      threads > S_THREADS || threads % 32)
+    return false;
+  if (gf->direct_store && (levels > 0 || gf->groups < 2)) return false;
+  if (plan_i == nullptr) {
+    *gi = *gf;
+    return true;
+  }
+  if (!read_group_plan(plan_i, logq, gi) || gi->groups != gf->groups) return false;
+  for (int g = 0; g < gf->groups; ++g)
+    if (gi->s_lo[g] != gf->s_lo[g] || gi->k[g] != gf->k[g]) return false;
+  return true;
+}
+
+template <int MODE, bool B7>
+static int launch_entry(const void* a_re, const void* a_im, const void* h_re, const void* h_im,
+                        float k_reg, void* out_re, void* out_im, int P, int M, int logq, int lr,
+                        int rs_smem, int threads, const void* cos_f, const void* sin_f,
+                        const void* cos_i, const void* sin_i, const int* plan_f,
+                        const int* plan_i, const CrossPlan& cf, const CrossPlan& ci,
+                        void* stream) {
+  GroupPlan gf, gi;
+  if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi) ||
+      radix_code(cf) < 0 || radix_code(ci) != radix_code(cf))
+    return (int)cudaErrorInvalidValue;
+  return launch_radices<MODE, B7>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
+                                  lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf,
+                                  ci, (cudaStream_t)stream);
+}
+
+// B2 'wiener'. logq = S; lr = log2(rows); rs_smem the padded row stride;
+// threads a multiple of 32 up to 512; plan_f / plan_i: the wrapper's
+// s_plan (its DIF and DIT maps); the two directions' cross levels
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
-                                        const void* h_re, const void* h_im,
-                                        float K, void* out_re, void* out_im,
-                                        int P, int M, int N, int stages,
-                                        int rows, const void* cos_f,
+                                        const void* h_re, const void* h_im, float K,
+                                        void* out_re, void* out_im, int P, int M, int logq,
+                                        int lr, int rs_smem, int threads, const void* cos_f,
                                         const void* sin_f, const void* cos_i,
-                                        const void* sin_i, CROSS_ARGS(f),
-                                        CROSS_ARGS(i), void* stream) {
+                                        const void* sin_i, const int* plan_f,
+                                        const int* plan_i, CROSS_ARGS(f), CROSS_ARGS(i),
+                                        void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
-  return launch_mode<MODE_WIENER>(a_re, a_im, h_re, h_im, K, out_re, out_im, P,
-                                  M, N, stages, rows, cos_f, sin_f, cos_i,
-                                  sin_i, CROSS_PLAN(f), CROSS_PLAN(i), stream);
+  return launch_entry<MODE_WIENER, false>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
+                                          logq, lr, rs_smem, threads, cos_f, sin_f, cos_i,
+                                          sin_i, plan_f, plan_i, CROSS_PLAN(f), CROSS_PLAN(i),
+                                          stream);
 }
 
-// conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
-extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im,
-                                      const void* h_re, const void* h_im,
-                                      int conj, void* out_re, void* out_im,
-                                      int P, int M, int N, int stages,
-                                      int rows, const void* cos_f,
-                                      const void* sin_f, const void* cos_i,
-                                      const void* sin_i, CROSS_ARGS(f),
-                                      CROSS_ARGS(i), void* stream) {
+// B2 'conv'; conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
+extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im, const void* h_re,
+                                      const void* h_im, int conj, void* out_re, void* out_im,
+                                      int P, int M, int logq, int lr, int rs_smem, int threads,
+                                      const void* cos_f, const void* sin_f, const void* cos_i,
+                                      const void* sin_i, const int* plan_f, const int* plan_i,
+                                      CROSS_ARGS(f), CROSS_ARGS(i), void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
-  const CrossPlan plan_f = CROSS_PLAN(f), plan_i = CROSS_PLAN(i);
+  const CrossPlan cf = CROSS_PLAN(f), ci = CROSS_PLAN(i);
   if (conj)
-    return launch_mode<MODE_CONV_CONJ>(a_re, a_im, h_re, h_im, 0.0f, out_re,
-                                       out_im, P, M, N, stages, rows, cos_f,
-                                       sin_f, cos_i, sin_i, plan_f, plan_i,
-                                       stream);
-  return launch_mode<MODE_CONV>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im,
-                                P, M, N, stages, rows, cos_f, sin_f, cos_i,
-                                sin_i, plan_f, plan_i, stream);
+    return launch_entry<MODE_CONV_CONJ, false>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
+                                               M, logq, lr, rs_smem, threads, cos_f, sin_f,
+                                               cos_i, sin_i, plan_f, plan_i, cf, ci, stream);
+  return launch_entry<MODE_CONV, false>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
+                                        logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
+                                        plan_f, plan_i, cf, ci, stream);
 }
 
-template <bool MIXED>
-static int launch_fwd_wiener(const void* a_re, const void* a_im,
-                             const void* h_re, const void* h_im, float K,
-                             void* out_re, void* out_im, int P, int M, int N,
-                             int stages, int rows, const void* cos_f,
-                             const void* sin_f, const CrossPlan& plan_f,
-                             void* stream) {
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(fwd_wiener_rows_kernel<MIXED>, smem);
-  if (err != cudaSuccess) return (int)err;
-  int nblk, blocks;
-  if (int e = grid_of(P, M, rows, &nblk, &blocks)) return e;
-  fwd_wiener_rows_kernel<MIXED>
-      <<<blocks, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-          (const float*)a_re, (const float*)a_im, (const float*)h_re,
-          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
-          rows, nblk, (const float*)cos_f, (const float*)sin_f, plan_f);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im,
-                                      const void* h_re, const void* h_im,
-                                      float K, void* out_re, void* out_im,
-                                      int P, int M, int N, int stages, int rows,
-                                      const void* cos_f, const void* sin_f,
+// B7: the forward cross levels and tables only (the inverse ones unread)
+extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im, const void* h_re,
+                                      const void* h_im, float K, void* out_re, void* out_im,
+                                      int P, int M, int logq, int lr, int rs_smem, int threads,
+                                      const void* cos_f, const void* sin_f, const int* plan_f,
                                       CROSS_ARGS(f), void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
-  const CrossPlan plan_f = CROSS_PLAN(f);
-  if (radix_code(plan_f) < 0) return (int)cudaErrorInvalidValue;
-  if (plan_f.levels > 0)
-    return launch_fwd_wiener<true>(a_re, a_im, h_re, h_im, K, out_re, out_im,
-                                   P, M, N, stages, rows, cos_f, sin_f, plan_f,
-                                   stream);
-  return launch_fwd_wiener<false>(a_re, a_im, h_re, h_im, K, out_re, out_im, P,
-                                  M, N, stages, rows, cos_f, sin_f, plan_f,
-                                  stream);
+  const CrossPlan cf = CROSS_PLAN(f);
+  return launch_entry<MODE_WIENER, true>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
+                                         lr, rs_smem, threads, cos_f, sin_f, nullptr, nullptr,
+                                         plan_f, nullptr, cf, cf, stream);
 }
 
-// wiener_spectral_rows (B10): B2's Wiener body with the natural store,
-// over P planes of M rows (M any, the last row block ragged), N = 2^stages,
-// `rows` rows a block (a power of two up to 16; the wrapper checks the
-// shared memory); H is (M, N), row m serving every plane's row m
+// B10: the rows' DIF stages, Wiener, DIT stages, each stage a pass
+// through shared memory; rows past M (a ragged last block) read as zero
+// and are not stored
+__global__ void __launch_bounds__(FFT_THREADS)
+spectral_rows_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                     const float* __restrict__ h_re, const float* __restrict__ h_im, float K,
+                     float* __restrict__ out_re, float* __restrict__ out_im, int M, int N,
+                     int stages, int rows, int nblk, const float* __restrict__ cos_f,
+                     const float* __restrict__ sin_f, const float* __restrict__ cos_i,
+                     const float* __restrict__ sin_i) {
+  extern __shared__ float smem[];
+  float* sre = smem;
+  float* sim = smem + rows * N;
+  const int p = blockIdx.x / nblk;
+  const int m0 = (blockIdx.x - p * nblk) * rows;
+  const size_t base = ((size_t)p * M + m0) * N;
+  const size_t hbase = (size_t)m0 * N;
+  const int live = (M - m0 < rows ? M - m0 : rows) * N;
+
+  for (int t = threadIdx.x; t < rows * N; t += blockDim.x) {
+    sre[t] = t < live ? a_re[base + t] : 0.0f;
+    sim[t] = t < live ? a_im[base + t] : 0.0f;
+  }
+  __syncthreads();
+  dif_stages(sre, sim, rows, stages, N, cos_f, sin_f);
+  for (int t = threadIdx.x; t < live; t += blockDim.x) {
+    float xr = sre[t], xi = sim[t];
+    spectral_filter<MODE_WIENER>(xr, xi, h_re[hbase + t], h_im[hbase + t], K);
+    sre[t] = xr;
+    sim[t] = xi;
+  }
+  __syncthreads();
+  dit_stages(sre, sim, rows, stages, N, cos_i, sin_i);
+  for (int t = threadIdx.x; t < live; t += blockDim.x) {
+    out_re[base + t] = sre[t];
+    out_im[base + t] = sim[t];
+  }
+}
+
+// wiener_spectral_rows (B10): over P planes of M rows (M any, the last row
+// block ragged), N = 2^stages, `rows` rows a block (a power of two up to
+// 16; the wrapper checks the shared memory); H is (M, N), row m serving
+// every plane's row m
 extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
                                            const void* h_re, const void* h_im,
                                            float K, void* out_re, void* out_im,
@@ -334,16 +592,13 @@ extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
                                            const void* sin_i, void* stream) {
   if (rows < 1 || N != (1 << stages)) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(spectral_t_kernel<MODE_WIENER, false, true>, smem);
+  cudaError_t err = allow_smem(spectral_rows_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const CrossPlan none = {};
-  spectral_t_kernel<MODE_WIENER, false, true>
-      <<<nblk * P, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-          (const float*)a_re, (const float*)a_im, (const float*)h_re,
-          (const float*)h_im, K, (float*)out_re, (float*)out_im, M, N, stages,
-          rows, nblk, (const float*)cos_f, (const float*)sin_f,
-          (const float*)cos_i, (const float*)sin_i, none, none);
+  spectral_rows_kernel<<<nblk * P, FFT_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)a_re, (const float*)a_im, (const float*)h_re, (const float*)h_im, K,
+      (float*)out_re, (float*)out_im, M, N, stages, rows, nblk, (const float*)cos_f,
+      (const float*)sin_f, (const float*)cos_i, (const float*)sin_i);
   return (int)cudaGetLastError();
 }

@@ -57,17 +57,18 @@ SIGNATURES = {
     # stream
     "fft_rows_t_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
                           I, I, I, I, P, P, I, P, P, P, *CROSS, P],
-    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
-    # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
-    "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I,
-                                 P, P, P, P, *CROSS, *CROSS, P],
-    # a_re, a_im, h_re, h_im, conj, out_re, out_im, P, M, N, stages,
-    # rows_per_block, cos_f, sin_f, cos_i, sin_i, CROSS fwd, CROSS inv, stream
-    "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I,
-                               P, P, P, P, *CROSS, *CROSS, P],
-    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
-    # rows_per_block, cos_f, sin_f, CROSS fwd, stream
-    "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, *CROSS, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
+    # padded row stride, threads, cos_f, sin_f, cos_i, sin_i, host int32
+    # DIF and DIT plans (fft_kernel.s_plan), CROSS fwd, CROSS inv, stream
+    "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I,
+                                 P, P, P, P, P, P, *CROSS, *CROSS, P],
+    # the same with the conj flag in place of K
+    "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I, I,
+                               P, P, P, P, P, P, *CROSS, *CROSS, P],
+    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
+    # padded row stride, threads, cos_f, sin_f, host int32 plan, CROSS fwd,
+    # stream
+    "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I, P, P, P, *CROSS, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
     "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P, P, P],

@@ -8,9 +8,11 @@ the transposed store (B1, `_fft_rows_transposed`) in csrc/fft_rows_t.cu
 after the plan `t_plan` computes here; the row-major passes, the plain
 row pass (B6, `fft_rows_pallas`, both orderings) and the final
 packed-output inverse with min/max partials (B3, `fft_rows_packed_out`),
-in csrc/fft_rows.cu after `r_plan`. A plan holds the stage groups, the
-thread-to-element map and the padded shared rows; `t_slot_index` and
-`t_cross_columns` give its element map, which the CPU tests emulate.
+in csrc/fft_rows.cu after `r_plan`; the spectral middles B2 and B7
+(ops/kernels/wiener_spectral.py) run on the same engine after `s_plan`.
+A plan holds the stage groups, the thread-to-element map and the padded
+shared rows; `t_slot_index` and `t_cross_columns` give its element map,
+which the CPU tests emulate.
 `fft_cols` (csrc/fft_cols.cu) is B11, `fft_cols_pallas`: the same stages
 down the columns, in shared memory.
 
@@ -53,7 +55,7 @@ import torch
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
 # shared memory per block for the rows it holds (2 float planes) in the
-# kernels whose stages run in shared memory (B2, B7, B10, B12); it also
+# kernels whose stages run in shared memory (B10, B12); it also
 # sets the rows of one of B3's min/max partials (rows_per_block), which a
 # packed-store block of B3 holds (r_plan). 64 KB let three blocks share an
 # SM at n=2048 (measured on an H100 at 2048^2 for the shared-memory stage
@@ -284,11 +286,13 @@ def t_row_stride(n: int, rows: int) -> int:
 
 class TPlan(NamedTuple):
     """One launch's block geometry and stage groups (B1's t_plan, B3/B6's
-    r_plan): rows = 2^lr rows of n = R * 2^logq points a block, padded
-    row stride rs (floats), `threads` threads, per group (s_lo, k,
-    ub_shift, row_shift), and whether B1's last group of two or more
-    stores its registers straight to the transposed output (direct_store)
-    or through shared memory."""
+    r_plan, B2/B7's s_plan): rows = 2^lr rows of n = R * 2^logq points a
+    block, padded row stride rs (floats), `threads` threads, per group
+    (s_lo, k, ub_shift, row_shift), and whether B1's last group of two or
+    more stores its registers straight to the transposed output
+    (direct_store) or through shared memory (s_plan: whether the top DIF
+    group loads, and B2's top DIT group stores, device memory).
+    dit_groups: B2's maps of its DIT groups (s_plan), () elsewhere."""
 
     n: int
     logq: int
@@ -297,6 +301,7 @@ class TPlan(NamedTuple):
     threads: int
     groups: tuple
     direct_store: bool = False
+    dit_groups: tuple = ()
 
     @property
     def rows(self) -> int:
@@ -310,10 +315,11 @@ class TPlan(NamedTuple):
     def smem_bytes(self) -> int:
         return 8 * self.rows * self.rs
 
-    def c_plan(self) -> np.ndarray:
-        """The int32 plan array of the C entry."""
-        return np.array([len(self.groups), int(self.direct_store)]
-                        + [v for g in self.groups for v in g], np.int32)
+    def c_plan(self, dit: bool = False) -> np.ndarray:
+        """The int32 plan array of the C entry (dit: of B2's DIT maps)."""
+        groups = self.dit_groups if dit else self.groups
+        return np.array([len(groups), int(self.direct_store)]
+                        + [v for g in groups for v in g], np.int32)
 
 
 def t_slot_index(plan: TPlan, group: tuple, brev: bool = False) -> tuple:
@@ -523,6 +529,111 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
         if best is None or key < best[0]:
             best = key, plan._replace(groups=tuple(groups))
         if key == (1, len(spec)):
+            break
+    plan = best[1]
+    if plan.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError(f"a row of {n} points does not fit a block's shared memory")
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# B2/B7's plan (csrc/wiener_spectral.cu): the spectral middles on the same
+# stage groups. The DIF groups run top down, the bottom group runs its DIF
+# stages, the filter and (B2) its DIT stages in one register pass, B2's
+# DIT groups run bottom up. The CPU tests emulate it group by group.
+
+S_STORES = ("transposed", "natural")  # B2's store, B7's
+
+
+def s_pinned(groups: int, g: int, k: int, direct: bool) -> bool:
+    """Whether group g (k stages) of an s_plan of `groups` groups keeps the
+    along map in its DIF pass: the top group when it loads device memory
+    (direct), and a bottom group of items narrower than a 32-byte segment
+    (k < 3), whose vectors of H (and B7's stores) need their neighbours'
+    to fill one."""
+    return (g == 0 and direct) or (g == groups - 1 and k < 3)
+
+
+@functools.lru_cache(maxsize=None)
+def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transposed",
+           blocks_wanted: int = 0, rows: int = 0, threads: int = 0) -> TPlan:
+    """The plan of a spectral middle over planes of m rows of length n:
+    B2 (store="transposed", wiener_spectral_t and spectral_conv_t) or B7
+    (store="natural", fwd_wiener_rows).
+
+    Rows a block: B2 as t_plan (the largest power of two up to the next
+    one >= m, T_MAX_ROWS and the T_SMEM_BUDGET of padded rows; halved while
+    the launch has fewer than blocks_wanted blocks, down to
+    T_MIN_ROWS_STORE, whose 32-byte column segments the transposed store
+    then writes: 8 rows at n = 2048 and 2304, 4 at 3840 and 4096); B7 as
+    r_plan's natural store (the rows in R_SMEM_BUDGET, up to 16); at
+    least 16 / q either way, so every thread's 16 slots are full. A ragged
+    last block reads zero rows. Threads: T_THREADS (B2) or R_PLAN_THREADS
+    (B7), fewer for a block of fewer slot sets. `rows` and `threads`
+    override the two (tools/rows_geometry.py).
+
+    direct_store: a pow2 row of two groups or more; its top DIF group
+    loads device memory (the along map) and B2's top DIT group stores the
+    transposed output from registers (the across map: neighbouring threads
+    on neighbouring rows of one output column); a smooth row or a single
+    group goes through the shared rows (the cross levels of a smooth row
+    in registers as it loads and stores). The groups s_pinned names keep
+    the along map; another takes the map, along or across, that
+    t_bank_conflicts finds cheaper, in B2's DIT pass as in its DIF pass.
+    The row stride is the first past the padded row that keeps the groups'
+    accesses cheapest (and, without direct_store, B2's transposed read of
+    the shared rows conflict-free)."""
+    radices = tuple(radices)
+    stages = check_length(n, radices)
+    check_kernel_length(n)
+    if store not in S_STORES:
+        raise ValueError(f"unknown store {store!r}; one of {S_STORES}")
+    transposed = store == "transposed"
+    q = 1 << stages
+    floor = T_SLOTS // q if q < T_SLOTS else 1
+    if not rows:
+        cap = max(floor, min(T_MAX_ROWS if transposed else 16, 1 << max(0, m - 1).bit_length()))
+        # bytes of one row: B2's padded row and its stride's slack, B7's row
+        # (as r_plan counts them)
+        row_bytes, budget = ((8 * (t_pad(n) + 32), T_SMEM_BUDGET) if transposed
+                             else (8 * n, R_SMEM_BUDGET))
+        rows = 1
+        while rows * 2 <= cap and 2 * rows * row_bytes <= budget:
+            rows *= 2
+        rows = max(rows, floor)
+        if transposed:
+            while rows > max(T_MIN_ROWS_STORE, floor) and -(-m // rows) < blocks_wanted:
+                rows //= 2
+    if rows & (rows - 1) or rows < floor:
+        raise ValueError(f"rows a block must be a power of two >= {floor}, got {rows}")
+    lr = rows.bit_length() - 1
+    ns = rows * n // T_SLOTS
+    threads = threads or min(T_THREADS if transposed else R_PLAN_THREADS, -(-ns // 32) * 32)
+    if threads % 32 or not 32 <= threads <= T_THREADS:
+        raise ValueError(f"threads a block must be a multiple of 32 up to {T_THREADS}")
+    spec = t_stage_groups(stages)
+    direct = not radices and len(spec) > 1
+    best = None
+    for extra in range(32):
+        plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, (), direct)
+        if transposed and not direct and _t_store_conflicts(plan) > 1:
+            continue
+        dif, dit, costs = [], [], []
+        for g, (s_lo, k) in enumerate(spec):
+            along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
+            choice = [along] if s_pinned(len(spec), g, k, direct) or lr == 0 else [along, across]
+            cost = [t_bank_conflicts(plan, c) for c in choice]
+            dif.append(choice[int(np.argmin(cost))])
+            costs.append(min(cost))
+            if transposed and g == 0 and direct:  # the top DIT group's direct store
+                dit.append(across)
+                costs.append(t_bank_conflicts(plan, across))
+            elif transposed:
+                dit.append(dif[-1])
+        key = (max(costs), sum(costs))
+        if best is None or key < best[0]:
+            best = key, plan._replace(groups=tuple(dif), dit_groups=tuple(dit))
+        if key == (1, len(costs)):
             break
     plan = best[1]
     if plan.smem_bytes > MAX_BLOCK_SMEM:

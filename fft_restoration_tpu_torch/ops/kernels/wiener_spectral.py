@@ -14,33 +14,44 @@ in csrc/wiener_spectral.cu:
      filter only, natural store; `fft_rows(..., inverse=True,
      transposed=True)` then finishes the middle. The pipeline takes it
      when the column length is below 512 (models/pipeline.py).
-  B10 `wiener_spectral_rows` (wiener_spectral_rows_pallas): B2's Wiener
-     body with the natural store, over (..., M, N) planes with a ragged
-     last row block; on no restore path (the JAX package runs it in its
-     A/B harness only), timed by tools/perf_ab.py megakernel.
-B2 and B7 take `radices` (a smooth column length, the cross levels
-of ops/kernels/fft_kernel.py around its DIF and DIT stages).
+  B10 `wiener_spectral_rows` (wiener_spectral_rows_pallas): the same
+     function as B2's Wiener mode with the natural store, over (..., M, N)
+     planes with a ragged last row block; on no restore path (the JAX
+     package runs it in its A/B harness only), timed by tools/perf_ab.py
+     megakernel.
+B2 and B7 run their stages on the stage-group engine of B1 and B3/B6
+(csrc/fft_groups.cuh) after the plan `fft_kernel.s_plan` (the bottom
+group's DIF stages, the filter and B2's DIT stages in one register
+pass), take any plane height (a ragged last row block is masked), and
+take `radices` (a smooth column length, the cross levels of
+ops/kernels/fft_kernel.py around the DIF and DIT stages).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
 from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
     MAX_BLOCK_SMEM,
+    T_MIN_WAVES,
+    _sm_count,
     check_kernel_length,
     check_length,
     cross_args,
     rows_per_block,
     run_stages,
+    s_plan,
     tables,
 )
 from fft_restoration_tpu_torch.ops.wiener import spectral_product, wiener_filter
 
 
 def _check(a_re, a_im, h_re, h_im, radices):
-    """Validate the operands; returns the radix-2 stage count of N."""
+    """Validate the operands (any plane height: the kernels mask a ragged
+    last row block of their plan, s_plan)."""
     if a_re.ndim != 3 or a_im.shape != a_re.shape:
         raise ValueError(f"need matching (P, M, N) planes, got {tuple(a_re.shape)}")
     if h_re.shape != a_re.shape[1:] or h_im.shape != h_re.shape:
@@ -50,11 +61,61 @@ def _check(a_re, a_im, h_re, h_im, radices):
     for t in (a_re, a_im, h_re, h_im):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("planes and spectrum must be contiguous float32")
-    m, n = h_re.shape
-    stages = check_length(n, radices)
-    if m % rows_per_block(n, m):
-        raise ValueError(f"plane height {m} must be a multiple of the row block")
-    return stages
+    check_length(h_re.shape[1], radices)
+
+
+@functools.lru_cache(maxsize=256)
+def _s_launch_args(n, radices, m, store, device, pairs, rows=0, threads=0) -> tuple:
+    """The arguments of one B2 or B7 launch that depend on its shape only
+    (the plan, the table and cross-level pointers), worked out once per
+    shape as fft_kernel._t_launch_args; the plan arrays stay alive in the
+    cache. B2: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i,
+    *cross_f, *cross_i); B7: (geometry, cos_f, sin_f, plan_f, *cross_f).
+    rows, threads: s_plan's overrides (tools/rows_geometry.py)."""
+    check_kernel_length(n)
+    b2 = store == "transposed"
+    wanted = -(-_sm_count(device) * T_MIN_WAVES // pairs) if b2 else 0
+    plan = s_plan(n, radices, m, store, wanted, rows, threads)
+    arrays = (plan.c_plan(), plan.c_plan(dit=True)) if b2 else (plan.c_plan(),)
+    tf = tables(n, False, device, radices)
+    consts = [tf.cos.data_ptr(), tf.sin.data_ptr()]
+    if b2:
+        ti = tables(n, True, device, radices)
+        consts += [ti.cos.data_ptr(), ti.sin.data_ptr()]
+    consts += [a.ctypes.data for a in arrays]
+    consts += cross_args(n, radices, False, device)
+    if b2:
+        consts += cross_args(n, radices, True, device)
+    return (plan.logq, plan.lr, plan.rs, plan.threads), tuple(consts), arrays
+
+
+def _launch_s(entry, a_re, a_im, h_re, h_im, arg, radices, store, rows=0, threads=0):
+    """One launch of B2 or B7 through its C entry `entry` (the filter's
+    scalar argument `arg`: K, or B2's conj flag) into a new output: B2's
+    transposed (P, N, M) planes, B7's natural (P, M, N) ones. rows,
+    threads: s_plan's overrides."""
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    radices = tuple(radices)
+    _check(a_re, a_im, h_re, h_im, radices)
+    planes, m, n = a_re.shape
+    # the kernels read H as 16-byte vectors: a view that starts off the
+    # alignment of an allocation is copied
+    h_re, h_im = (h if h.data_ptr() % 16 == 0 else h.clone() for h in (h_re, h_im))
+    geometry, consts, _ = _s_launch_args(n, radices, m, store, a_re.device, planes, rows,
+                                         threads)
+    shape = (planes, n, m) if store == "transposed" else (planes, m, n)
+    out_re = torch.empty(shape, dtype=torch.float32, device=a_re.device)
+    out_im = torch.empty_like(out_re)
+    err = getattr(_build.load(), entry)(
+        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
+        arg, out_re.data_ptr(), out_im.data_ptr(), planes, m, *geometry, *consts,
+        torch.cuda.current_stream(a_re.device).cuda_stream,
+    )
+    _build.check(err, entry)
+    if radices:
+        launch_counts["mixed_radix"] += 1
+    return out_re, out_im
 
 
 def fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K, radices=()):
@@ -74,28 +135,10 @@ def fwd_wiener_rows(a_re, a_im, h_re, h_im, K, radices=()):
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
         return fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, K, radices)
-    from fft_restoration_tpu_torch.ops.kernels import _build
-
-    radices = tuple(radices)
-    stages = _check(a_re, a_im, h_re, h_im, radices)
-    planes, m, n = a_re.shape
-    check_kernel_length(n)
-    cross = cross_args(n, radices, False, a_re.device)
-    out_re = torch.empty_like(a_re)
-    out_im = torch.empty_like(a_im)
-    lib = _build.load()
-    tf = tables(n, False, a_re.device, radices)
-    err = lib.fwd_wiener_rows_launch(
-        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
-        float(K), out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
-        stages, rows_per_block(n, m), tf.cos.data_ptr(), tf.sin.data_ptr(),
-        *cross, torch.cuda.current_stream(a_re.device).cuda_stream,
-    )
-    _build.check(err, "fwd_wiener_rows")
+    out = _launch_s("fwd_wiener_rows_launch", a_re, a_im, h_re, h_im, float(K), radices,
+                    "natural")
     launch_counts["fwd_wiener_rows"] += 1
-    if radices:
-        launch_counts["mixed_radix"] += 1
-    return out_re, out_im
+    return out
 
 
 def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K, radices=()):
@@ -105,38 +148,6 @@ def wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K, radices=()):
     f = wiener_filter(g, (h_re, h_im), K)
     r_re, r_im = run_stages(f[0], f[1], True, radices)
     return r_re.transpose(1, 2).contiguous(), r_im.transpose(1, 2).contiguous()
-
-
-def _launch_spectral_t(entry, a_re, a_im, h_re, h_im, arg, radices):
-    """One launch of B2 through its C entry `entry` (the filter's scalar
-    argument `arg`: K, or the conj flag); returns the (P, N, M) planes.
-    The forward and inverse cross levels ride as two argument sets, their
-    planes uploaded once per (n, radices) as the stage tables are."""
-    from fft_restoration_tpu_torch.ops.kernels import _build
-
-    radices = tuple(radices)
-    stages = _check(a_re, a_im, h_re, h_im, radices)
-    planes, m, n = a_re.shape
-    check_kernel_length(n)
-    cross_f = cross_args(n, radices, False, a_re.device)
-    cross_i = cross_args(n, radices, True, a_re.device)
-    rows = rows_per_block(n, m)
-    out_re = torch.empty((planes, n, m), dtype=torch.float32, device=a_re.device)
-    out_im = torch.empty_like(out_re)
-    lib = _build.load()
-    tf = tables(n, False, a_re.device, radices)
-    ti = tables(n, True, a_re.device, radices)
-    err = getattr(lib, entry)(
-        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(),
-        arg, out_re.data_ptr(), out_im.data_ptr(), planes, m, n,
-        stages, rows, tf.cos.data_ptr(), tf.sin.data_ptr(),
-        ti.cos.data_ptr(), ti.sin.data_ptr(), *cross_f, *cross_i,
-        torch.cuda.current_stream(a_re.device).cuda_stream,
-    )
-    _build.check(err, entry)
-    if radices:
-        launch_counts["mixed_radix"] += 1
-    return out_re, out_im
 
 
 def wiener_spectral_t(a_re, a_im, h_re, h_im, K, radices=()):
@@ -150,8 +161,8 @@ def wiener_spectral_t(a_re, a_im, h_re, h_im, K, radices=()):
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
         return wiener_spectral_t_plain(a_re, a_im, h_re, h_im, K, radices)
-    out = _launch_spectral_t("wiener_spectral_t_launch", a_re, a_im, h_re, h_im, float(K),
-                             radices)
+    out = _launch_s("wiener_spectral_t_launch", a_re, a_im, h_re, h_im, float(K), radices,
+                    "transposed")
     launch_counts["wiener_spectral_t"] += 1
     return out
 
@@ -236,7 +247,7 @@ def spectral_conv_t(a_re, a_im, h_re, h_im, conj=False, radices=()):
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
         return spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj, radices)
-    out = _launch_spectral_t("spectral_conv_t_launch", a_re, a_im, h_re, h_im, int(bool(conj)),
-                             radices)
+    out = _launch_s("spectral_conv_t_launch", a_re, a_im, h_re, h_im, int(bool(conj)), radices,
+                    "transposed")
     launch_counts["spectral_conv_t"] += 1
     return out

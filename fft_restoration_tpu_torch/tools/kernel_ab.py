@@ -1,7 +1,7 @@
 """Two checkouts' FFT kernels and restore paths in turns on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.kernel_ab --other <checkout>
-        [--iters N] [--seed N] [--paths a,b,...] [--no-paths]
+        [--iters N] [--seed N] [--paths a,b,...] [--no-paths] [--sass]
 
 Times the row-FFT and spectral kernels of this checkout ("change") and of
 another one ("other", e.g. the parent commit unpacked with `git archive`)
@@ -14,10 +14,14 @@ pass on 2 float pairs at 2048^2, UHD 3840x2160 at --pad smooth, the
 PSF pass (`B6_psf_natural`: B6 revorder, natural store), the conv's B6
 inverse pass (2 pairs at 2048^2, models/convolve.py), B6 natural (the
 ordering, forward and inverse, at (3, 2048, 2048)), B2 'wiener' /
-'conv' / conj and B7 at pow2 and smooth shapes.
+'conv' / conj at 2048^2 and at the UHD frame's smooth extents, B2
+'wiener' at its pow2 extents (4096^2), B7 on batch64 and on the 640x330
+stack at --pad smooth.
 Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
-the restore paths' device busy. Uses only functions both checkouts have.
+the restore paths' device busy. --sass: also compares the two builds'
+machine code (cuobjdump -sass) function by function and names the kernel
+instances whose code differs. Uses only functions both checkouts have.
 Prints one line per mode and path and a JSON object last; exits non-zero
 without a GPU.
 """
@@ -81,6 +85,8 @@ def child(iters: int, seed: int) -> dict:
     psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(2048, 2048))
     hp, wp, rh, rw = pad_extents(2160, 3840, "smooth")
     ua = fk.fft_rows_stack_plain(uhd, extent=(hp, wp), radices=rw)
+    pa = fk.fft_rows_stack_plain(uhd, extent=(4096, 4096))
+    pH = psf_spectrum_planes(psf, 4096, 4096, PLAIN_OPS)
     uH = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rh, rw))
     umid = ws.wiener_spectral_t_plain(*ua, *uH, 0.01, rh)
     upsf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), radices=rw)
@@ -107,6 +113,9 @@ def child(iters: int, seed: int) -> dict:
         "B6_natural_fwd": lambda: fk.fft_rows(c_re, c_im, ordering="natural"),
         "B6_natural_inv": lambda: fk.fft_rows(c_re, c_im, inverse=True, ordering="natural"),
         "B2_wiener": lambda: ws.wiener_spectral_t(*a, *H, 0.01),
+        "B2_conv": lambda: ws.spectral_conv_t(*a, *H, False),
+        "B2_conv_conj": lambda: ws.spectral_conv_t(*a, *H, True),
+        "B2_wiener_uhd_pow2": lambda: ws.wiener_spectral_t(*pa, *pH, 0.01),
         "B7_batch64": lambda: ws.fwd_wiener_rows(*st, *H64, 0.01),
         "B3_uhd_smooth": lambda: fk.fft_rows_packed_out(*umid, inverse=True, radices=rw),
         "B6_psf_uhd_smooth": lambda: fk.fft_rows(*upsf1, radices=rh),
@@ -116,6 +125,33 @@ def child(iters: int, seed: int) -> dict:
         "B7_stack330_smooth": lambda: ws.fwd_wiener_rows(*sa, *sH, 0.01, srh),
     }
     return {name: _median_ms(torch, fn, iters) for name, fn in modes.items()}
+
+
+def _sass(root: Path) -> dict:
+    """{function name: its SASS} of the kernel library `root` builds."""
+    import re
+    import shutil
+
+    lib = _turn(root, None, "-c", "from fft_restoration_tpu_torch.ops.kernels import _build; "
+                "print(_build.load()._name)").strip().splitlines()[-1]
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                         check=True).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name, _, body = part.partition("\n")
+        funcs[name.strip()] = body.split("\n\t\t.....")[0]
+    return funcs
+
+
+def sass_diff(roots: dict) -> dict:
+    """The kernel instances of the two builds: those with the same machine
+    code, those that differ, those in one build only."""
+    other, change = _sass(roots["other"]), _sass(roots["change"])
+    same = sorted(n for n in other if change.get(n) == other[n])
+    differ = sorted(n for n in other if n in change and change[n] != other[n])
+    return dict(same=same, differ=differ, only_other=sorted(set(other) - set(change)),
+                only_change=sorted(set(change) - set(other)))
 
 
 def _turn(root: Path, args, *cmd) -> str:
@@ -134,6 +170,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", default=PATHS)
     ap.add_argument("--no-paths", action="store_true")
+    ap.add_argument("--sass", action="store_true", help="compare the builds' machine code")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -162,6 +199,11 @@ def main() -> int:
         result["kernels_ms"][mode] = dict(other=o, change=c, change_over_other=sum(c) / sum(o))
         print(f"{mode}: other {o[0]:.4f} / {o[1]:.4f} ms, change {c[0]:.4f} / {c[1]:.4f} ms, "
               f"change / other {sum(c) / sum(o):.3f}", flush=True)
+    if args.sass:
+        diff = result["sass"] = sass_diff(roots)
+        print(f"SASS: {len(diff['same'])} kernel instances identical, {len(diff['differ'])} "
+              f"differ, {len(diff['only_other'])} only in other, {len(diff['only_change'])} "
+              f"only in change; differing: {diff['differ']}", flush=True)
     if not args.no_paths:
         prof = str(ROOT / "fft_restoration_tpu_torch" / "tools" / "profile_paths.py")
         paths = {k: [] for k in roots}

@@ -1,19 +1,24 @@
-"""B3/B6's block geometry on one NVIDIA GPU: rows and threads a block.
+"""The stage-group kernels' block geometry on one NVIDIA GPU: rows and
+threads a block.
 
     python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N]
 
-Launches csrc/fft_rows.cu (`fft_kernel.r_plan` with its `rows` and
-`threads` overrides) at the shapes the restore paths give it, for each
-geometry that fits them, checks each launch against the plain version
-(1e-5 of the output's max magnitude) and times it with CUDA events
-(median of three loops of `--iters` launches): B3's packed inverse (2
-pairs at 2048^2, 96 at 256^2, 2 at the UHD frame's 2304x3840 smooth
-rows; its blocks hold whole min/max partials), a conv's inverse pass (2
-pairs at 2048^2), B6's PSF pass (1 pair at 2048^2 and at the UHD
-frame's 3840x2304 smooth columns) and B6 natural forward (3 pairs at
-2048^2). The default geometry (r_plan with no override) is marked. Prints
-one line per geometry and a JSON object last; exits non-zero without a
-GPU or when a launch disagrees with the plain version.
+Launches csrc/fft_rows.cu (B3/B6, `fft_kernel.r_plan` with its `rows`
+and `threads` overrides) and csrc/wiener_spectral.cu (B2/B7,
+`fft_kernel.s_plan` with the same overrides) at the shapes the restore
+paths give them, for each geometry that fits them, checks each launch
+against the plain version (1e-5 of the output's max magnitude) and times
+it with CUDA events (median of three loops of `--iters` launches): B3's
+packed inverse (2 pairs at 2048^2, 96 at 256^2, 2 at the UHD frame's
+2304x3840 smooth rows; its blocks hold whole min/max partials), a conv's
+inverse pass (2 pairs at 2048^2), B6's PSF pass (1 pair at 2048^2 and at
+the UHD frame's 3840x2304 smooth columns), B6 natural forward (3 pairs
+at 2048^2); B2 'wiener' (2 pairs at 2048^2, at the UHD frame's
+3840x2304 smooth and 4096^2 pow2 planes) and B7 (96 pairs at 256^2, the
+batch64 middle). The default geometry (the plan with no override) is
+marked. Prints one line per geometry and a JSON object last; exits
+non-zero without a GPU or when a launch disagrees with the plain
+version.
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ CASES = {
     "B6_natural_fwd_3x2048x2048": (3, 2048, 2048, False, True, (), False, (1, 2, 4, 8)),
 }
 THREADS = (128, 256)
+# B2 / B7: name: (pairs, M, N, radices, store, rows to try, threads to try)
+S_CASES = {
+    "B2_2x2048x2048": (2, 2048, 2048, (), "transposed", (2, 4, 8), (256, 512)),
+    "B2_uhd_2x3840x2304": (2, 3840, 2304, (3, 3), "transposed", (2, 4, 8), (256, 512)),
+    "B2_uhd_pow2_2x4096x4096": (2, 4096, 4096, (), "transposed", (1, 2, 4), (256, 512)),
+    "B7_96x256x256": (96, 256, 256, (), "natural", (4, 8, 16, 32), (128, 256)),
+}
 TOL_REL = 1e-5
 
 
@@ -96,6 +108,28 @@ def run_case(torch, np, rng, case, rows, threads, iters):
     return _ms(torch, launch, iters), err
 
 
+def run_s_case(torch, np, rng, case, rows, threads, iters):
+    """(ms, max rel err) of one geometry of one B2 / B7 case."""
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    pairs, m, n, radices, store = case[:5]
+    dev = torch.device("cuda", 0)
+    a_re, a_im = (torch.as_tensor(rng.standard_normal((pairs, m, n), dtype=np.float32),
+                                  device=dev) for _ in range(2))
+    h_re, h_im = (torch.as_tensor(rng.standard_normal((m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    args = (a_re, a_im, h_re, h_im, 0.01, radices, store, rows, threads)
+    if store == "transposed":
+        launch = lambda: ws._launch_s("wiener_spectral_t_launch", *args)  # noqa: E731
+        ref = ws.wiener_spectral_t_plain(a_re, a_im, h_re, h_im, 0.01, radices)
+    else:
+        launch = lambda: ws._launch_s("fwd_wiener_rows_launch", *args)  # noqa: E731
+        ref = ws.fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, 0.01, radices)
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(launch(), ref))
+    return _ms(torch, launch, iters), err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=50)
@@ -119,6 +153,19 @@ def main() -> int:
         for rows in case[7]:
             for threads in THREADS:
                 ms, err = run_case(torch, np, rng, case, rows, threads, args.iters)
+                mark = " (default)" if (rows, threads) == (default.rows, default.threads) else ""
+                print(f"{name} rows {rows} threads {threads}{mark}: {ms:.4f} ms, max rel err "
+                      f"{err:.2e}", flush=True)
+                result["ms"][f"{name}_rows{rows}_threads{threads}"] = ms
+                ok = ok and err <= TOL_REL
+    dev = torch.device("cuda", 0)
+    for name, case in S_CASES.items():
+        pairs, m, n, radices, store = case[:5]
+        wanted = -(-fk._sm_count(dev) * fk.T_MIN_WAVES // pairs) if store == "transposed" else 0
+        default = fk.s_plan(n, radices, m, store, wanted)
+        for rows in case[5]:
+            for threads in case[6]:
+                ms, err = run_s_case(torch, np, rng, case, rows, threads, args.iters)
                 mark = " (default)" if (rows, threads) == (default.rows, default.threads) else ""
                 print(f"{name} rows {rows} threads {threads}{mark}: {ms:.4f} ms, max rel err "
                       f"{err:.2e}", flush=True)

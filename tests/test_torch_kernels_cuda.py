@@ -76,7 +76,7 @@ def test_fft_rows_complex_and_packed(dev, gen, m, n, inverse):
     assert _rel(out, out_p) <= 1e-5 and _rel(mm, mm_p) <= 1e-5
 
 
-@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 2048), (512, 128)])
+@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 2048), (512, 128), (37, 2048), (6, 4096)])
 def test_wiener_spectral_t(dev, gen, m, n):
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
@@ -91,7 +91,8 @@ def test_wiener_spectral_t(dev, gen, m, n):
 
 
 @pytest.mark.parametrize("conj", [False, True])
-@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 2048), (512, 128), (8, 4)])
+@pytest.mark.parametrize("m,n", [(2048, 2048), (1024, 2048), (512, 128), (8, 4), (37, 2048),
+                                 (6, 16384)])
 def test_spectral_conv_t(dev, gen, m, n, conj):
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
@@ -285,7 +286,8 @@ def test_fft_rows_stack_loader(dev, gen, b, h, w):
             assert torch.equal(o, r)
 
 
-@pytest.mark.parametrize("p,m,n", [(96, 256, 256), (2, 2048, 2048), (3, 128, 64)])
+@pytest.mark.parametrize("p,m,n", [(96, 256, 256), (2, 2048, 2048), (3, 128, 64), (5, 37, 256),
+                                   (2, 6, 2048)])
 def test_fwd_wiener_rows_and_inverse_t(dev, gen, p, m, n):
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
@@ -414,7 +416,7 @@ def test_fft_rows_mixed_radix(dev, gen, n, rad, inverse):
         assert o.shape == (3, n, 32) and _rel(o, r) <= 1e-5
 
 
-@pytest.mark.parametrize("n,rad", [(384, (3,)), (2304, (3, 3)), (3840, (3, 5))])
+@pytest.mark.parametrize("n,rad", SMOOTH)
 def test_spectral_middles_mixed_radix(dev, gen, n, rad):
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
@@ -430,6 +432,51 @@ def test_spectral_middles_mixed_radix(dev, gen, n, rad):
     for ours, ref in pairs:
         for o, r in zip(ours, ref):
             assert _rel(o, r) <= 1e-5
+
+
+# B2 and B7 on the stage-group engine (csrc/wiener_spectral.cu, s_plan):
+# every length the kernels admit, every mode, plane heights that leave a
+# ragged last row block (the kernels mask it), planes past one block
+@pytest.mark.parametrize("n,rad", [(1 << s, ()) for s in range(1, 15)] + SMOOTH)
+def test_spectral_middles_every_length(dev, gen, n, rad):
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    for m in ((37, 6, 1) if n <= 4096 else (5, 1)):
+        a_re, a_im = (torch.as_tensor(gen.standard_normal((3, m, n), dtype=np.float32),
+                                      device=dev) for _ in range(2))
+        h_re, h_im = (torch.as_tensor(gen.standard_normal((m, n), dtype=np.float32),
+                                      device=dev) for _ in range(2))
+        a = (a_re, a_im, h_re, h_im)
+        reset_launch_counts()
+        pairs = [(ws.wiener_spectral_t(*a, 0.01, rad), ws.wiener_spectral_t_plain(*a, 0.01, rad)),
+                 (ws.fwd_wiener_rows(*a, 0.01, rad), ws.fwd_wiener_rows_plain(*a, 0.01, rad))]
+        for conj in (False, True):
+            pairs.append((ws.spectral_conv_t(*a, conj, rad),
+                          ws.spectral_conv_t_plain(*a, conj, rad)))
+        assert (launch_counts["wiener_spectral_t"], launch_counts["fwd_wiener_rows"],
+                launch_counts["spectral_conv_t"]) == (1, 1, 2), dict(launch_counts)
+        assert launch_counts["mixed_radix"] == 4 * bool(rad)
+        for ours, ref in pairs:
+            for o, r in zip(ours, ref):
+                assert o.shape == r.shape and _rel(o, r) <= 1e-5, (m, _rel(o, r))
+
+
+def test_spectral_middles_unaligned_spectrum(dev, gen):
+    """A spectrum view that starts off a 16-byte boundary (the kernels read
+    H as vectors: the wrapper copies it) gives the aligned result."""
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    m, n = 24, 512
+    a_re, a_im = (torch.as_tensor(gen.standard_normal((2, m, n), dtype=np.float32), device=dev)
+                  for _ in range(2))
+    buf = torch.as_tensor(gen.standard_normal(2 * m * n + 2, dtype=np.float32), device=dev)
+    h_re, h_im = buf[1:m * n + 1].view(m, n), buf[m * n + 1:-1].view(m, n)
+    assert h_re.data_ptr() % 16 and h_re.is_contiguous()
+    for fn in (ws.wiener_spectral_t, ws.fwd_wiener_rows):
+        for o, r in zip(fn(a_re, a_im, h_re, h_im, 0.01),
+                        fn(a_re, a_im, h_re.clone(), h_im.clone(), 0.01)):
+            assert torch.equal(o, r)
 
 
 @pytest.mark.parametrize("b,h,w,middle", [(1, 330, 640, "fwd_wiener_rows"),
