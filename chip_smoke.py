@@ -22,16 +22,24 @@ lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
              instance's registers and spills (ptxas), and how many of
-             B2's and B7's stage-group instances spill;
+             B2's and B7's stage-group instances and of the white-balance
+             kernels' (csrc/postprocess.cu) spill;
   2. kernels every kernel against its plain PyTorch version on the card,
              at the shapes the paths give it (B2 in its 'wiener', 'conv'
              and 'conv' + conj modes; 'wiener' at the UHD frame's pow2
              extents, 4096^2, too), with the tolerances
              below; each timed against its plain version with CUDA
              events, beside its bound (the larger of the bytes it must
-             move over 3.35 TB/s and its float32 operations over 67
-             TFLOP/s) and, for each row-FFT mode, torch.fft.fft over the
-             same complex planes (the library yardstick, not on the path);
+             move over 3.35 TB/s and its operations: float32 over 67
+             TFLOP/s, and for the white-balance kernels the powers their
+             inputs need over the SFU's rate) and, for each row-FFT mode,
+             torch.fft.fft over the same complex planes (the library
+             yardstick, not on the path); the white-balance kernels B4/B5
+             (csrc/postprocess.cu) at the 2048^2 frame, batch64, batch8
+             and the UHD frame at --pad smooth (3840x2160 live in
+             2304x3840 planes), strides 1 and 4, launched twice for
+             bitwise equality, and timed in a CUDA graph too (`graph_ms`:
+             a launch shorter than its wrapper's host time);
              B1's transposed passes are the fft_rows_t row (csrc/
              fft_rows_t.cu), B3 and B6 the fft_rows row (csrc/fft_rows.cu:
              B3's packed inverse, B6's PSF pass, revorder with the
@@ -39,7 +47,7 @@ lines; any failure exits non-zero:
              then each kernel mode at its smooth shape (B1 u8 at
              2160x3840 -> 3840 wide, B6 and B2 'wiener' / 'conv' / conj
              at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
-             hp = 384, B4/B5 at the UHD extents), the mixed-radix row
+             hp = 384), the mixed-radix row
              adding up the UHD frame's three launches with cross levels;
              then the ops layer's kernels on (3, 2048, 2048) planes and
              (6144, 2048) rows: B6 natural, B11 in both orderings and
@@ -51,7 +59,8 @@ lines; any failure exits non-zero:
              every restore path's transposed passes B1's fft_rows_t;
              batch64 must take the B7 middle, batch8 the B2 middle),
              then against the port's plain path on the card (the same
-             restore with every kernel's plain version); 640x330 and
+             restore with every kernel's plain version); the CLI on the
+             2048^2 frame against the oracle at the inf tier; 640x330 and
              1920x782 frames, a stack of three 640x330 frames and one
              point of a psf_grid_sweep against the serial oracle at the
              inf tier; batch8 image by image against the single-frame
@@ -125,6 +134,10 @@ SIZE = 2048
 # published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# the special-function unit (lg2, ex2: a power is one of each): 16 results
+# a clock an SM at compute capability 9.0 (CUDA C++ Programming Guide,
+# arithmetic instruction throughput), 132 SMs, the 1.98 GHz boost clock
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 # the batched paths: (name, frames, side, PSF length), PSF angle 30, K 0.01
 BATCHES = (("batch64_256sq", 64, 256, 25), ("batch8_2048sq", 8, 2048, 50))
 # the filter family at 2048^2 (PSF(50, 30)): path -> pipeline options,
@@ -256,13 +269,17 @@ def rel_err(torch, a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, sfu_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the float32 peak."""
+    memory rate and the operations over their peak rate (float32
+    operations over the float32 peak, special-function operations over
+    the SFU's; the larger of the two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_sfu = sfu_ops / SFU_OPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S * 1e3, t_sfu)
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=int(nbytes), flops=int(flops))
+                bytes=int(nbytes), flops=int(flops), bytes_ms=t_bytes, ops_ms=t_ops,
+                sfu_ops=int(sfu_ops), sfu_ms=t_sfu)
 
 
 def fft_flops(rows: int, n: int, radices=()) -> float:
@@ -282,6 +299,53 @@ def fft_flops(rows: int, n: int, radices=()) -> float:
 # pixel), the white-balanced Lab round trip and encode ~160 (B5/B8b)
 LAB_L_FLOPS = 50
 WB_ENCODE_FLOPS = 160
+
+
+def post_sfu_ops(torch, raw, lo, scale, orig, live_hw, stride=1, block=64, gains=None):
+    """The special-function operations (2 a power) the white-balance passes
+    need on these inputs, each power counted where its branch takes it:
+    B4/B8a (gains None) over the sampled pixels, the restored pixel's three
+    sRGB -> linear powers and both pixels' cube roots (the original's sRGB
+    powers come from the kernel's uint8 table); B5/B8b (gains given) over
+    the live frame, the three sRGB powers, three cube roots and three
+    linear -> sRGB powers."""
+    from fft_restoration_tpu_torch.ops.color import M_SRGB2XYZ, M_XYZ2SRGB, D65, _srgb_to_linear
+    from fft_restoration_tpu_torch.ops.kernels.postprocess import _block_geometry, _normalized
+
+    b = lo.numel() // 3
+    h, w = live_hw
+    nb = _normalized(raw, lo, scale)[:, :h, :w].reshape(b, 3, h, w).clamp(0.0, 1.0)
+    m = M_SRGB2XYZ
+    t0 = 0.008856
+
+    def xyz(lin, row):
+        return m[row][2] * lin[:, 0] + m[row][1] * lin[:, 1] + m[row][0] * lin[:, 2]
+
+    pows = (nb > 0.04045).sum()
+    lin = _srgb_to_linear(nb)
+    if gains is None:
+        rows, hp, _ = _block_geometry(*raw.shape[1:], block)
+        keep = torch.zeros(h, dtype=torch.bool, device=raw.device)
+        for j in range(0, hp // rows, stride):
+            keep[j * rows: j * rows + rows] = True
+        o = orig[:, :, keep].float() / 255.0 if orig.dtype == torch.uint8 else orig[:, :, keep]
+        pows = (nb[:, :, keep] > 0.04045).sum()
+        pows += (xyz(lin[:, :, keep], 1) > t0).sum() + (xyz(_srgb_to_linear(o), 1) > t0).sum()
+        return 2 * int(pows)
+    t = [xyz(lin, row) for row in range(3)]
+    pows += sum((x > t0).sum() for x in t)
+    f = [torch.where(x > t0, torch.exp2(torch.log2(x.clamp(min=1e-30)) / 3.0),
+                     7.787 * x + 16.0 / 116.0) for x in t]
+    L = torch.where(t[1] > t0, 116.0 * f[1] - 16.0, 903.3 * t[1])
+    L = torch.clamp(L * gains.reshape(b, 1, 1), 0.0, 100.0)
+    gy = (L + 16.0) / 116.0
+    g = (gy + (f[0] - f[1]), gy, gy - (f[1] - f[2]))
+    x = [torch.where(v ** 3 > t0, v ** 3, (v - 16.0 / 116.0) / 7.787) * D65[i]
+         for i, v in enumerate(g)]
+    inv = M_XYZ2SRGB
+    for row in range(3):
+        pows += ((inv[row][0] * x[0] + inv[row][1] * x[1] + inv[row][2] * x[2]) > 0.0031308).sum()
+    return 2 * int(pows)
 
 
 def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, pad_mode="pow2",
@@ -308,7 +372,7 @@ def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, pad_mode
                                  pad_mode=pad_mode, **filter_kw)
 
 
-def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None):
+def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None, sfu_ops=0.0):
     """Kernel vs plain version: errors over the (kernel, plain) output
     pairs, CUDA-event times of both (and of the library call), bound."""
     m = dict(
@@ -317,7 +381,7 @@ def measure(torch, outs, kern, plain, iters, nbytes, flops, lib=None):
         ms=cuda_ms(torch, kern, iters), plain_ms=cuda_ms(torch, plain, 3, 1),
         library_ms=None if lib is None else cuda_ms(torch, lib, iters),
     )
-    m.update(bound(nbytes, flops))
+    m.update(bound(nbytes, flops, sfu_ops))
     return m
 
 
@@ -405,11 +469,12 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
     the three paths (and B2 at the UHD frame's pow2 extents). Returns the
     per-kernel table rows."""
     from fft_restoration_tpu_torch.models.pipeline import (
-        PLAIN_OPS, minmax_norm, restore_raw,
+        PLAIN_OPS, minmax_norm, pad_extents, restore_raw,
     )
     from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.ops.kernels.postprocess import sampled_live_pixels
+    from fft_restoration_tpu_torch.tools.kernel_ab import graph_ms
 
     dev = torch.device("cuda", 0)
     rows = []
@@ -502,18 +567,24 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
                      replaces=TPU + "wiener_spectral.py:189",
                      **b7["batch64_96x256x256"], modes=b7))
 
-    # post-processing (B4/B8a, B5/B8b) on the plain path's raw planes: the
-    # 2048^2 frame, batch64 and batch8
+    # post-processing (B4/B8a, B5/B8b, csrc/postprocess.cu) on the plain
+    # path's raw planes: the 2048^2 frame, batch64, batch8 and the UHD
+    # frame at --pad smooth (3840x2160 live in 2304x3840 planes)
     lo, scale = minmax_norm(mm_p, 2, 3)
     s8 = torch.as_tensor(stack8, device=dev)
     H8 = Hp  # batch8 shares the 2048^2 frame's PSF (50, 30)
     raw64 = restore_raw(s64, H64, 0.01, PLAIN_OPS)
     raw8 = restore_raw(s8, H8, 0.01, PLAIN_OPS)
+    su = torch.as_tensor(uhd, device=dev)[None]
+    uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
+    uHs = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), uhp, uwp, PLAIN_OPS, (urh, urw))
+    rawu = restore_raw(su, uHs, 0.01, PLAIN_OPS, pad_mode="smooth")
     cases = {
         # name: (raw, lo, scale, orig (B, 3, h, w), strides)
         "frame_2048sq": (out_p, lo, scale, img.permute(0, 3, 1, 2), (1, 4)),
         "batch64_256sq": (*raw64, s64.permute(0, 3, 1, 2), (1, 4)),
         "batch8_2048sq": (*raw8, s8.permute(0, 3, 1, 2), (1, 4)),
+        "uhd_smooth": (*rawu, su.permute(0, 3, 1, 2), (1, 4)),
     }
     lab_modes, wb_modes = {}, {}
     for case, (raw, lo_, sc_, orig, strides) in cases.items():
@@ -528,12 +599,19 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
             mm = lab_modes[f"{case}_stride{stride}"] = measure(
                 torch, [(pk, plp)], lambda: pp.lab_l_sum_partials_batched(*args),
                 lambda: pp.lab_l_sum_partials_batched_plain(*args), iters,
-                px * (3 * 4 + 3), px * 2 * LAB_L_FLOPS)
+                px * (3 * 4 + 3), px * 2 * LAB_L_FLOPS,
+                sfu_ops=post_sfu_ops(torch, raw, lo_, sc_, orig, (hh, ww), stride, block))
+            mm["bitwise_repeat"] = torch.equal(pp.lab_l_sum_partials_batched(*args), pk)
+            mm["graph_ms"] = graph_ms(torch, lambda: pp.lab_l_sum_partials_batched(*args), iters)
             log(f"lab_l_sum_partials {case} stride {stride}: max rel err "
-                f"{mm['max_rel_err']:.3e} (tol {TOL_PARTIALS_REL}); {mm['ms']:.4f} ms vs plain "
-                f"{mm['plain_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms")
+                f"{mm['max_rel_err']:.3e} (tol {TOL_PARTIALS_REL}); {mm['ms']:.4f} ms (CUDA "
+                f"graph {mm['graph_ms']:.4f}) vs plain {mm['plain_ms']:.4f} ms; bound "
+                f"{mm['bound_ms']:.4f} ms ({mm['bound_by']}: bytes {mm['bytes_ms']:.4f}, SFU "
+                f"floor {mm['sfu_ms']:.4f})")
             if not mm["max_rel_err"] <= TOL_PARTIALS_REL:
                 fail(f"lab_l_sum_partials {case} stride {stride} disagrees with its plain version")
+            if not mm["bitwise_repeat"]:
+                fail(f"lab_l_sum_partials {case} stride {stride}: two launches differ")
         gains = torch.linspace(0.95, 1.1, b, device=dev)
         eargs = (raw, gains, lo_, sc_, (hh, ww))
         ek = pp.wb_encode_u8_batched(*eargs)
@@ -541,24 +619,31 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
         mm = wb_modes[case] = measure(
             torch, [(ek, ep)], lambda: pp.wb_encode_u8_batched(*eargs),
             lambda: pp.wb_encode_u8_batched_plain(*eargs), iters,
-            b * hh * ww * (3 * 4 + 3), b * hh * ww * WB_ENCODE_FLOPS)
+            b * hh * ww * (3 * 4 + 3), b * hh * ww * WB_ENCODE_FLOPS,
+            sfu_ops=post_sfu_ops(torch, raw, lo_, sc_, None, (hh, ww), gains=gains))
         mm["values_off"] = int((ek != ep).sum())
+        mm["bitwise_repeat"] = torch.equal(pp.wb_encode_u8_batched(*eargs), ek)
+        mm["graph_ms"] = graph_ms(torch, lambda: pp.wb_encode_u8_batched(*eargs), iters)
         log(f"wb_encode_u8 {case}: max diff {mm['max_abs_err']:.0f} count(s) on "
-            f"{mm['values_off']} values (tol {TOL_U8}); {mm['ms']:.4f} ms vs plain "
-            f"{mm['plain_ms']:.4f} ms, bound {mm['bound_ms']:.4f} ms")
+            f"{mm['values_off']} of {ek.numel()} values (tol {TOL_U8}); {mm['ms']:.4f} ms (CUDA "
+            f"graph {mm['graph_ms']:.4f}) vs plain {mm['plain_ms']:.4f} ms; bound "
+            f"{mm['bound_ms']:.4f} ms ({mm['bound_by']}: bytes {mm['bytes_ms']:.4f}, SFU floor "
+            f"{mm['sfu_ms']:.4f})")
         if not mm["max_abs_err"] <= TOL_U8:
             fail(f"wb_encode_u8 {case} disagrees with its plain version")
+        if not mm["bitwise_repeat"]:
+            fail(f"wb_encode_u8 {case}: two launches differ")
     post = TPU + "postprocess.py:"
     rows.append(dict(
-        name="lab_l_sum_partials", route="triton",
-        source=SRC + "ops/kernels/postprocess_triton.py", replaces=post + "352",
+        name="lab_l_sum_partials", route="cuda",
+        source=SRC + "csrc/postprocess.cu", replaces=post + "352",
         also_replaces=[post + "547"],
         **{k: v for k, v in lab_modes["frame_2048sq_stride1"].items()},
         max_rel_err_all=max(m["max_rel_err"] for m in lab_modes.values()), modes=lab_modes,
     ))
     rows.append(dict(
-        name="wb_encode_u8", route="triton",
-        source=SRC + "ops/kernels/postprocess_triton.py", replaces=post + "439",
+        name="wb_encode_u8", route="cuda",
+        source=SRC + "csrc/postprocess.cu", replaces=post + "439",
         also_replaces=[post + "630"], **wb_modes["frame_2048sq"],
         max_abs_err_all=max(m["max_abs_err"] for m in wb_modes.values()), modes=wb_modes,
     ))
@@ -632,6 +717,27 @@ def check_slice(torch, np, frame, seed):
             f"the same stride (tol {TOL_U8}), {d1} vs plain path at stride 1")
         if not d <= TOL_U8:
             fail(f"serving graph at stride {stride} disagrees with the plain path")
+
+    # the Wiener CLI on the 2048^2 frame, verified against the oracle
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import cli
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        imwrite(png, frame)
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([png, "50", "30", "-o", os.path.join(tmp, "out.png"), "--tier", "inf"])
+        log(f"CLI 2048x2048x3 --tier inf ({time.perf_counter() - t0:.1f} s): exit {rc}; "
+            f"{[ln for ln in text.getvalue().splitlines() if ln.startswith('[')]}")
+        if rc != 0 or "[Success] tier=inf" not in text.getvalue():
+            fail("the CLI on the 2048x2048 frame fails the inf tier against the oracle")
     return counts
 
 
@@ -933,12 +1039,10 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
     modes it is also library_ms, the one call computing the function).
     Returns ({kernel name: {mode: measurement}}, the mixed-radix row)."""
     from fft_restoration_tpu_torch.models.pipeline import (
-        PLAIN_OPS, minmax_norm, pad_extents, psf_spectrum_planes,
+        PLAIN_OPS, pad_extents, psf_spectrum_planes,
     )
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
-    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.kernels.postprocess import sampled_live_pixels
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
     dev = torch.device("cuda", 0)
@@ -950,7 +1054,6 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
     psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
     Hp = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rad_h, rad_w))
     mid = ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01, rad_h)
-    out_p, mm_p = fk.fft_rows_packed_out_plain(*mid, inverse=True, radices=rad_w)
     sh, sw = small.shape[1:3]
     shp, swp, srad_h, srad_w = pad_extents(sh, sw, "smooth")
     s = torch.as_tensor(small, device=dev)
@@ -1015,24 +1118,7 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
                 lib(*st_p), False),
         },
     }
-    # the post-processing at the UHD smooth extents (length-agnostic kernels)
-    lo, scale = minmax_norm(mm_p, 2, 3)
-    orig = img.permute(0, 3, 1, 2)
-    px = h * w
-    for stride in (1, 4):
-        block = 8 if stride > 1 else 64
-        args = (out_p, orig, lo, scale, (h, w), stride, block)
-        spx = sampled_live_pixels(hp, wp, (h, w), block, stride)
-        specs.setdefault("lab_l_sum_partials", {})[f"uhd_smooth_stride{stride}"] = (
-            lambda a=args: pp.lab_l_sum_partials_batched(*a),
-            lambda a=args: pp.lab_l_sum_partials_batched_plain(*a),
-            spx * (3 * 4 + 3), spx * 2 * LAB_L_FLOPS, None, False)
-    eargs = (out_p, torch.ones(1, device=dev) * 1.05, lo, scale, (h, w))
-    specs["wb_encode_u8"] = {"uhd_smooth": (
-        lambda: pp.wb_encode_u8_batched(*eargs), lambda: pp.wb_encode_u8_batched_plain(*eargs),
-        px * (3 * 4 + 3), px * WB_ENCODE_FLOPS, None, False)}
-
-    tol = dict(fft_rows=TOL_FFT_REL, fft_rows_t=TOL_FFT_REL, lab_l_sum_partials=TOL_PARTIALS_REL)
+    tol = dict(fft_rows=TOL_FFT_REL, fft_rows_t=TOL_FFT_REL)
     res = {}
     for kernel, modes in specs.items():
         res[kernel] = {}
@@ -1043,13 +1129,8 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
             m["torch_fft_ms"] = None if fft_call is None else (
                 m["library_ms"] if is_lib else cuda_ms(torch, fft_call, iters))
             res[kernel][mode] = m
-            if kernel == "wb_encode_u8":
-                ok = m["max_abs_err"] <= TOL_U8
-                what = f"max diff {m['max_abs_err']:.0f} count(s) (tol {TOL_U8})"
-            else:
-                ok = m["max_rel_err"] <= tol.get(kernel, TOL_WIENER_REL)
-                what = (f"max rel err {m['max_rel_err']:.3e} "
-                        f"(tol {tol.get(kernel, TOL_WIENER_REL)})")
+            ok = m["max_rel_err"] <= tol.get(kernel, TOL_WIENER_REL)
+            what = f"max rel err {m['max_rel_err']:.3e} (tol {tol.get(kernel, TOL_WIENER_REL)})"
             fft_ms = "" if fft_call is None else f", torch.fft {m['torch_fft_ms']:.4f}"
             log(f"{kernel} {mode}: {what}; {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f}"
                 f"{fft_ms}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})")
@@ -1678,6 +1759,12 @@ def main() -> int:
     spilled = [ln for ln in spectral if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"phase 1: {len(spectral)} spectral_s_kernel instances (B2 'wiener' / 'conv' / conj, "
         f"B7), {len(spilled)} with a spill{': ' + '; '.join(spilled) if spilled else ''}")
+    # B4/B8a and B5/B8b (csrc/postprocess.cu)
+    post = [ln for ln in ptxas
+            if ln.split("<")[0].endswith(("lab_l_partials_kernel", "wb_encode_kernel"))]
+    post_spilled = [ln for ln in post if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"phase 1: {len(post)} postprocess.cu instances, {len(post_spilled)} with a spill"
+        f"{': ' + '; '.join(post_spilled) if post_spilled else ''}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)
@@ -1735,7 +1822,8 @@ def main() -> int:
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
 
-    result = {"kernels": rows, "ptxas_spectral": spectral, "slice_2048sq": timing, "middle_ab": ab,
+    result = {"kernels": rows, "ptxas_spectral": spectral, "ptxas_postprocess": post,
+              "slice_2048sq": timing, "middle_ab": ab,
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
               "perf_ab": perf_ab}
     for name in batch_timing:

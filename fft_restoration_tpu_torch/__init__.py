@@ -2,8 +2,8 @@
 
 A port of `fft_restoration_tpu` (JAX, Pallas kernels for the TPU) to
 PyTorch with kernels written by hand for NVIDIA Hopper (sm_90a): the
-row-FFT family and the fused spectral middle in CUDA C++ (csrc/), the
-white-balance post-processing in Triton. The JAX package stays the
+row-FFT family, the fused spectral middle and the white-balance
+post-processing in CUDA C++ (csrc/). The JAX package stays the
 reference; every intermediate keeps its data contract (SoA float32
 planes, channel-pair packing, revorder DIF/DIT, transposed
 intermediates, unscaled inverse) so the two can be diffed.
@@ -19,7 +19,7 @@ The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
 blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
 
-Importing this package pulls in no JAX, no triton and no CUDA build:
+Importing this package pulls in no JAX and no CUDA build:
 kernels are built at first launch (ops/kernels/_build.py).
 """
 

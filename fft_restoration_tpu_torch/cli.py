@@ -97,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="fft_restoration_tpu_torch",
         description="Frequency-domain motion deblur (Wiener, inverse, CLS, "
         "Richardson-Lucy) with hand-written "
-        "CUDA/Triton kernels on an NVIDIA GPU.",
+        "CUDA kernels on an NVIDIA GPU.",
     )
     p.add_argument("img_path", help="input image (PNG)")
     p.add_argument("psf_length", type=int, help="motion blur length in px (>=1)")

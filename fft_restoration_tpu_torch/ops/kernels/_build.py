@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu",
-           "fft_radix4.cu")
+           "fft_radix4.cu", "postprocess.cu")
 HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -79,6 +79,15 @@ SIGNATURES = {
     # re, im, out_re, out_im, rows, N, log2 N, radix-4 stages, radix-2
     # stages, rows_per_block, cos4, sin4, cos2, sin2, stream
     "fft_radix4_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+    # raw, orig, orig is uint8, lo, scale, parts, plane elements, W0, orig
+    # strides (4), orig as 32-bit words, h, w, rows, stride, n_blocks,
+    # slab, n_slabs, n_chunks, log2 TX, blocks, vec4, host float32
+    # colors (postprocess._COLOR), stream
+    "lab_l_partials_launch": [P, P, I, P, P, P, LL, I, LL, LL, LL, LL, I, I, I, I, I, I, I,
+                              I, I, I, LL, I, P, P],
+    # raw, gains, lo, scale, out, plane elements, W0, h, w, slab, n_slabs,
+    # n_chunks, log2 TX, blocks, vec4, host colors, stream
+    "wb_encode_launch": [P, P, P, P, P, LL, I, I, I, I, I, I, I, LL, I, P, P],
 }
 
 # nvcc's output of the build of the loaded library (ptxas register and

@@ -16,11 +16,15 @@ inverse pass (2 pairs at 2048^2, models/convolve.py), B6 natural (the
 ordering, forward and inverse, at (3, 2048, 2048)), B2 'wiener' /
 'conv' / conj at 2048^2 and at the UHD frame's smooth extents, B2
 'wiener' at its pow2 extents (4096^2), B7 on batch64 and on the 640x330
-stack at --pad smooth.
+stack at --pad smooth; the white-balance pair B4/B8a and B5/B8b on the
+plain restore's raw planes of the 2048^2 frame (strides 1 and 4),
+batch8 2048^2, batch64 256^2 and the UHD frame at --pad smooth.
 Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
-the restore paths' device busy. --sass: also compares the two builds'
-machine code (cuobjdump -sass) function by function and names the kernel
+the restore paths' device busy, event time and host enqueue. The
+white-balance pair is also timed in a CUDA graph (`<mode>_graph`) and
+on the host clock (`<mode>_host_us`, one wrapper call). --sass: also
+compares the two builds' machine code (cuobjdump -sass) function by function and names the kernel
 instances whose code differs. Uses only functions both checkouts have.
 Prints one line per mode and path and a JSON object last; exits non-zero
 without a GPU.
@@ -55,6 +59,51 @@ def _median_ms(torch, fn, iters):
     return sorted(runs)[1]
 
 
+def graph_ms(torch, fn, iters):
+    """Device time of one fn() call: `iters` calls captured in a CUDA graph,
+    the median of three timed replays over `iters`. No host enqueue
+    between the launches, so a kernel shorter than its wrapper's host
+    time (a ctypes or Triton launch, ~20 us) reads its own time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(runs)[1]
+
+
+def host_us(torch, fn, n=300):
+    """Host time of one fn() call in us: the median over n calls of the
+    host clock around each, the stream drained every 30 calls (outside
+    the clock) so that no launch waits for a full queue."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+        if i % 30 == 29:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return sorted(times)[n // 2] * 1e6
+
+
 def child(iters: int, seed: int) -> dict:
     """One turn: every mode's ms, with the package of PYTHONPATH."""
     import numpy as np
@@ -63,7 +112,9 @@ def child(iters: int, seed: int) -> dict:
     from fft_restoration_tpu_torch.models.pipeline import (
         PLAIN_OPS, pad_extents, psf_spectrum_planes,
     )
+    from fft_restoration_tpu_torch.models.pipeline import restore_raw
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.ops.psf import make_psf
 
@@ -124,7 +175,28 @@ def child(iters: int, seed: int) -> dict:
         "B2_conv_conj_uhd_smooth": lambda: ws.spectral_conv_t(*ua, *uH, True, rh),
         "B7_stack330_smooth": lambda: ws.fwd_wiener_rows(*sa, *sH, 0.01, srh),
     }
-    return {name: _median_ms(torch, fn, iters) for name, fn in modes.items()}
+    # the white-balance pair on the plain restore's raw planes, also timed
+    # in a CUDA graph (`<mode>_graph`): their single-frame launches are
+    # shorter than the wrappers' host time
+    s8 = u8(8, 2048, 2048, 3)
+    posts = {"frame": (frame, H, (2048, 2048), "pow2"), "batch8": (s8, H, (2048, 2048), "pow2"),
+             "batch64": (s64, H64, (256, 256), "pow2"), "uhd_smooth": (uhd, uH, (2160, 3840),
+                                                                      "smooth")}
+    for name, (stack, HH, live, pad) in posts.items():
+        raw, lo, sc = restore_raw(stack, HH, 0.01, PLAIN_OPS, pad_mode=pad)
+        orig = stack.permute(0, 3, 1, 2)
+        gains = torch.linspace(0.95, 1.1, stack.shape[0], device=dev)
+        for stride in (1, 4) if name == "frame" else (1,):
+            modes[f"B4_{name}_s{stride}"] = (
+                lambda a=(raw, orig, lo, sc, live, stride, 8 if stride > 1 else 64):
+                pp.lab_l_sum_partials_batched(*a))
+        modes[f"B5_{name}"] = lambda a=(raw, gains, lo, sc, live): pp.wb_encode_u8_batched(*a)
+    res = {name: _median_ms(torch, fn, iters) for name, fn in modes.items()}
+    for name, fn in modes.items():
+        if name.startswith(("B4_", "B5_")):
+            res[f"{name}_graph"] = graph_ms(torch, fn, iters)
+            res[f"{name}_host_us"] = host_us(torch, fn)
+    return res
 
 
 def _sass(root: Path) -> dict:
@@ -197,7 +269,8 @@ def main() -> int:
         o = [t[mode] for t in kernels["other"]]
         c = [t[mode] for t in kernels["change"]]
         result["kernels_ms"][mode] = dict(other=o, change=c, change_over_other=sum(c) / sum(o))
-        print(f"{mode}: other {o[0]:.4f} / {o[1]:.4f} ms, change {c[0]:.4f} / {c[1]:.4f} ms, "
+        u = "us" if mode.endswith("_us") else "ms"
+        print(f"{mode}: other {o[0]:.4f} / {o[1]:.4f} {u}, change {c[0]:.4f} / {c[1]:.4f} {u}, "
               f"change / other {sum(c) / sum(o):.3f}", flush=True)
     if args.sass:
         diff = result["sass"] = sass_diff(roots)
@@ -216,8 +289,11 @@ def main() -> int:
             busy = {who: [round(p[key]["device_busy_us_per_run"], 1) for p in paths[who]]
                     for who in roots}
             ms = {who: [round(p[key]["ms_per_run"], 4) for p in paths[who]] for who in roots}
+            enq = {who: [round(p[key]["host_enqueue_ms_per_run"], 4) for p in paths[who]]
+                   for who in roots}
             print(f"{key}: device busy us/run other {busy['other']}, change {busy['change']}; "
-                  f"events ms/run other {ms['other']}, change {ms['change']}", flush=True)
+                  f"events ms/run other {ms['other']}, change {ms['change']}; host enqueue "
+                  f"ms/run other {enq['other']}, change {enq['change']}", flush=True)
     print(json.dumps(result))
     return 0
 

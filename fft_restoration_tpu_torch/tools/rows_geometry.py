@@ -1,7 +1,8 @@
-"""The stage-group kernels' block geometry on one NVIDIA GPU: rows and
-threads a block.
+"""The kernels' block geometry on one NVIDIA GPU: the stage-group
+kernels' rows and threads a block, the white-balance kernels' rows a
+thread.
 
-    python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N]
+    python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N] [--post-only]
 
 Launches csrc/fft_rows.cu (B3/B6, `fft_kernel.r_plan` with its `rows`
 and `threads` overrides) and csrc/wiener_spectral.cu (B2/B7,
@@ -15,8 +16,15 @@ inverse pass (2 pairs at 2048^2), B6's PSF pass (1 pair at 2048^2 and at
 the UHD frame's 3840x2304 smooth columns), B6 natural forward (3 pairs
 at 2048^2); B2 'wiener' (2 pairs at 2048^2, at the UHD frame's
 3840x2304 smooth and 4096^2 pow2 planes) and B7 (96 pairs at 256^2, the
-batch64 middle). The default geometry (the plan with no override) is
-marked. Prints one line per geometry and a JSON object last; exits
+batch64 middle); B4/B8a and B5/B8b (csrc/postprocess.cu,
+`postprocess.lab_l_plan` and `wb_encode_plan` with their rows-a-thread
+override; CUDA events and, as the
+wrappers' host time exceeds the short launches', a CUDA graph of the
+launches: kernel_ab.graph_ms) on the 2048^2 frame at
+strides 1 and 4, batch64 256^2, batch8 2048^2 and the UHD frame's
+2160x3840 live in 2304x3840 planes, against the plain versions (1e-4
+of the partials, 1 uint8 count). The default geometry (the plan with no
+override) is marked. Prints one line per geometry and a JSON object last; exits
 non-zero without a GPU or when a launch disagrees with the plain
 version.
 """
@@ -46,6 +54,16 @@ S_CASES = {
     "B7_96x256x256": (96, 256, 256, (), "natural", (4, 8, 16, 32), (128, 256)),
 }
 TOL_REL = 1e-5
+# B4/B5: name: (images, plane extent, live extent, wb stride)
+P_CASES = {
+    "post_frame_2048sq_s1": (1, (2048, 2048), (2048, 2048), 1),
+    "post_frame_2048sq_s4": (1, (2048, 2048), (2048, 2048), 4),
+    "post_batch64_256sq": (64, (256, 256), (256, 256), 1),
+    "post_batch8_2048sq": (8, (2048, 2048), (2048, 2048), 1),
+    "post_uhd_smooth": (1, (2304, 3840), (2160, 3840), 1),
+}
+P_ROWS = (1, 2, 4, 8)
+TOL_PARTIALS_REL = 1e-4
 
 
 def _ms(torch, fn, iters):
@@ -130,10 +148,41 @@ def run_s_case(torch, np, rng, case, rows, threads, iters):
     return _ms(torch, launch, iters), err
 
 
+def run_p_case(torch, case, rows_a_thread, iters, seed):
+    """(B4 ms, B5 ms, the two in a CUDA graph, B4 max rel err, B5 max
+    count diff) of one geometry of one post-process case."""
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+
+    b, ext, live, stride = case
+    block = 8 if stride > 1 else 64
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randn((3 * b, *ext), generator=g, device=dev)
+    lo = raw.amin((1, 2))
+    scale = 1.0 / (raw.amax((1, 2)) - lo)
+    orig = torch.randint(0, 256, (b, *live, 3), generator=g, device=dev,
+                         dtype=torch.uint8).permute(0, 3, 1, 2)
+    gains = torch.linspace(0.95, 1.1, b, device=dev)
+    lab = pp.lab_l_plan(b, *ext, live, stride, block, rows_a_thread)
+    enc = pp.wb_encode_plan(b, live, rows_a_thread)
+    f_lab = lambda: pp._launch_lab(raw, orig, lo, scale, lab)  # noqa: E731
+    f_enc = lambda: pp._launch_encode(raw, gains, lo, scale, enc)  # noqa: E731
+    ref = pp.lab_l_sum_partials_batched_plain(raw, orig, lo, scale, live, stride, block)
+    parts = f_lab().sum(dim=2)
+    err = float((parts - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    diff = int((f_enc().int() - pp.wb_encode_u8_batched_plain(raw, gains, lo, scale, live).int())
+               .abs().max())
+    from fft_restoration_tpu_torch.tools.kernel_ab import graph_ms
+
+    return (_ms(torch, f_lab, iters), _ms(torch, f_enc, iters), graph_ms(torch, f_lab, iters),
+            graph_ms(torch, f_enc, iters), err, diff)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--post-only", action="store_true", help="the white-balance kernels only")
     args = ap.parse_args()
 
     import numpy as np
@@ -147,7 +196,7 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     result = {"card": torch.cuda.get_device_name(0), "ms": {}}
     ok = True
-    for name, case in CASES.items():
+    for name, case in ({} if args.post_only else CASES).items():
         pairs, m, n, inverse, natural, radices, packed = case[:7]
         default = fk.r_plan(n, radices, m, inverse, natural, packed=packed)
         for rows in case[7]:
@@ -159,7 +208,7 @@ def main() -> int:
                 result["ms"][f"{name}_rows{rows}_threads{threads}"] = ms
                 ok = ok and err <= TOL_REL
     dev = torch.device("cuda", 0)
-    for name, case in S_CASES.items():
+    for name, case in ({} if args.post_only else S_CASES).items():
         pairs, m, n, radices, store = case[:5]
         wanted = -(-fk._sm_count(dev) * fk.T_MIN_WAVES // pairs) if store == "transposed" else 0
         default = fk.s_plan(n, radices, m, store, wanted)
@@ -171,6 +220,26 @@ def main() -> int:
                       f"{err:.2e}", flush=True)
                 result["ms"][f"{name}_rows{rows}_threads{threads}"] = ms
                 ok = ok and err <= TOL_REL
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+
+    for name, case in P_CASES.items():
+        b, ext, live, stride = case
+        block = 8 if stride > 1 else 64
+        d_lab = pp.lab_l_plan(b, *ext, live, stride, block)
+        d_enc = pp.wb_encode_plan(b, live)
+        for m in P_ROWS:
+            ms_l, ms_e, g_l, g_e, err, diff = run_p_case(torch, case, m, args.iters, args.seed)
+            lab = pp.lab_l_plan(b, *ext, live, stride, block, m)
+            enc = pp.wb_encode_plan(b, live, m)
+            mark = lambda d, p: " (default)" if d == p else ""  # noqa: E731
+            print(f"{name} rows a thread {m}: B4 {ms_l:.4f} ms, graph {g_l:.4f}"
+                  f"{mark(d_lab, lab)} ({lab.n_ctas} blocks), B5 {ms_e:.4f} ms, graph "
+                  f"{g_e:.4f}{mark(d_enc, enc)} ({enc.n_ctas} blocks); B4 max rel err "
+                  f"{err:.2e}, B5 max diff {diff}", flush=True)
+            for kern, ev, gr in (("B4", ms_l, g_l), ("B5", ms_e, g_e)):
+                result["ms"][f"{name}_{kern}_rows{m}"] = ev
+                result["ms"][f"{name}_{kern}_rows{m}_graph"] = gr
+            ok = ok and err <= TOL_PARTIALS_REL and diff <= 1
     print(json.dumps(result))
     return 0 if ok else 1
 

@@ -8,7 +8,8 @@ JAX) run:
 Tolerances: FFT family and spectral middles (Wiener and conv) 1e-5 of
 the output's max magnitude (float32, FMA contraction, same tables);
 Lab-L partials rel 1e-4 (hardware ex2/lg2 and summation order); uint8
-<= 1 count; Richardson-Lucy's kernel path against its plain path 1e-4
+<= 1 count (the white-balance kernels, csrc/postprocess.cu, launch
+twice bitwise equal); Richardson-Lucy's kernel path against its plain path 1e-4
 planes and 1 count on frames that fill their pow2 extent; RL on
 zero-padded frames against the float64 RL of the same input planes:
 5e-2 plane INF with the edge taper (the JAX package's RL contract), and
@@ -215,29 +216,56 @@ def test_rl_padded_frame_vs_f64(dev, seed, edgetaper):
         assert d <= 2.0 * np.abs(witness - ref).max()
 
 
-@pytest.mark.parametrize("live,stride,block", [((782, 1920), 1, 64), ((782, 1920), 4, 8),
-                                               ((2048, 2048), 4, 8), ((100, 130), 1, 64)])
-def test_postprocess_kernels(dev, gen, live, stride, block):
-    from fft_restoration_tpu_torch.host.padding import next_power_of_two
+# the original frame as the pipelines pass it (the permuted view of the
+# (h, w, 3) stack, read as 32-bit words), as contiguous uint8 planes, as
+# float32, and as a window of a wider stack (words on some rows only)
+ORIG_FORMS = ("stack", "planes", "float32", "window")
+
+
+def _orig(frame, form):
+    h, w, _ = frame.shape
+    if form == "planes":
+        return frame.permute(2, 0, 1).contiguous()
+    if form == "float32":
+        return frame.permute(2, 0, 1).float() / 255.0
+    if form == "window":
+        big = torch.zeros((h, w + 5, 3), dtype=torch.uint8, device=frame.device)
+        big[:, 4:w + 4] = frame
+        return big[:, 4:w + 4].permute(2, 0, 1)
+    return frame.permute(2, 0, 1)
+
+
+@pytest.mark.parametrize("ext,live,stride,block", [
+    ((1024, 2048), (782, 1920), 1, 64), ((1024, 2048), (782, 1920), 4, 8),
+    ((2048, 2048), (2048, 2048), 4, 8), ((128, 256), (100, 130), 1, 64),
+    ((256, 256), (150, 202), 1, 64), ((1024, 2048), (782, 1918), 1, 64),
+    ((1024, 2048), (782, 1917), 4, 8), ((2304, 3840), (2160, 3840), 1, 64),
+    ((2304, 3840), (2160, 3840), 4, 8), ((8, 2), (5, 1), 1, 64)])
+@pytest.mark.parametrize("form", ORIG_FORMS)
+def test_postprocess_kernels(dev, gen, ext, live, stride, block, form):
+    """csrc/postprocess.cu against the plain versions: live widths with w %
+    4 != 0, the UHD frame's smooth extents, a plane narrower than a float4,
+    each form of the original frame; two launches bitwise equal."""
     from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
 
     h, w = live
-    raw = torch.as_tensor(
-        gen.standard_normal((4, next_power_of_two(h), next_power_of_two(w)), dtype=np.float32),
-        device=dev,
-    )
+    raw = torch.as_tensor(gen.standard_normal((4, *ext), dtype=np.float32), device=dev)
     lo = raw[:3].amin((1, 2))
     scale = 1.0 / (raw[:3].amax((1, 2)) - lo)
     frame = torch.as_tensor(gen.integers(0, 256, (h, w, 3), dtype=np.uint8), device=dev)
-    orig = frame.permute(2, 0, 1)
+    orig = _orig(frame, form)
     parts = pp.lab_l_sum_partials(raw, orig, lo, scale, live, stride, block)
     parts_p = pp.lab_l_sum_partials_plain(raw, orig, lo, scale, live, stride, block)
     assert parts.shape == parts_p.shape and _rel(parts, parts_p) <= 1e-4
+    assert torch.equal(pp.lab_l_sum_partials(raw, orig, lo, scale, live, stride, block), parts)
+    if form != "stack":
+        return
     gain = torch.tensor([1.1], device=dev)
     enc = pp.wb_encode_u8(raw, gain, lo, scale, live)
     enc_p = pp.wb_encode_u8_plain(raw, gain, lo, scale, live)
     assert enc.shape == (h, w, 3)
     assert int((enc.int() - enc_p.int()).abs().max()) <= 1
+    assert torch.equal(pp.wb_encode_u8(raw, gain, lo, scale, live), enc)
 
 
 def test_pipeline_kernels_vs_plain_and_launches(dev, gen):
@@ -307,17 +335,16 @@ def test_fwd_wiener_rows_and_inverse_t(dev, gen, p, m, n):
 
 
 @pytest.mark.parametrize("b,live,stride,block", [(64, (256, 256), 1, 64), (64, (256, 256), 4, 8),
-                                                 (3, (150, 200), 1, 64), (8, (2048, 2048), 4, 8)])
+                                                 (3, (150, 200), 1, 64), (8, (2048, 2048), 4, 8),
+                                                 (5, (150, 202), 1, 64), (16, (2048, 2048), 1, 64)])
 def test_batched_postprocess_kernels(dev, gen, b, live, stride, block):
     from fft_restoration_tpu_torch.host.padding import next_power_of_two
     from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
 
     h, w = live
     n = 3 * b + (3 * b) % 2  # a packed odd stack's phantom plane
-    raw = torch.as_tensor(
-        gen.standard_normal((n, next_power_of_two(h), next_power_of_two(w)), dtype=np.float32),
-        device=dev,
-    )
+    g = torch.Generator(device=dev).manual_seed(int(gen.integers(1 << 30)))
+    raw = torch.randn((n, next_power_of_two(h), next_power_of_two(w)), generator=g, device=dev)
     lo = raw[: 3 * b].amin((1, 2))
     scale = 1.0 / (raw[: 3 * b].amax((1, 2)) - lo)
     orig = torch.as_tensor(gen.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
@@ -325,11 +352,40 @@ def test_batched_postprocess_kernels(dev, gen, b, live, stride, block):
     parts = pp.lab_l_sum_partials_batched(raw, orig, lo, scale, live, stride, block)
     parts_p = pp.lab_l_sum_partials_batched_plain(raw, orig, lo, scale, live, stride, block)
     assert parts.shape == parts_p.shape and _rel(parts, parts_p) <= 1e-4
+    assert torch.equal(pp.lab_l_sum_partials_batched(raw, orig, lo, scale, live, stride, block),
+                       parts)
     gains = torch.linspace(0.9, 1.2, b, device=dev)
     enc = pp.wb_encode_u8_batched(raw, gains, lo, scale, live)
     enc_p = pp.wb_encode_u8_batched_plain(raw, gains, lo, scale, live)
     assert enc.shape == (b, h, w, 3)
     assert int((enc.int() - enc_p.int()).abs().max()) <= 1
+    assert torch.equal(pp.wb_encode_u8_batched(raw, gains, lo, scale, live), enc)
+
+
+@pytest.mark.parametrize("rows_a_thread", [1, 2, 4, 8])
+def test_postprocess_geometries_past_65535_blocks(dev, gen, rows_a_thread):
+    """Every rows-a-thread geometry of the plans at B = 16 at 2048^2, where
+    one row a thread launches 65536 blocks."""
+    from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
+
+    b, h, w = 16, 2048, 2048
+    g = torch.Generator(device=dev).manual_seed(int(gen.integers(1 << 30)))
+    raw = torch.randn((3 * b, h, w), generator=g, device=dev)
+    lo = raw.amin((1, 2))
+    scale = 1.0 / (raw.amax((1, 2)) - lo)
+    orig = torch.randint(0, 256, (b, h, w, 3), generator=g, device=dev,
+                         dtype=torch.uint8).permute(0, 3, 1, 2)
+    lab = pp.lab_l_plan(b, h, w, (h, w), 1, 64, rows_a_thread)
+    enc = pp.wb_encode_plan(b, (h, w), rows_a_thread)
+    if rows_a_thread == 1:
+        assert lab.n_ctas > 65535 and enc.n_ctas > 65535
+    parts = pp._launch_lab(raw, orig, lo, scale, lab).sum(dim=2)
+    parts_p = pp.lab_l_sum_partials_batched_plain(raw, orig, lo, scale, (h, w))
+    assert _rel(parts, parts_p) <= 1e-4
+    gains = torch.linspace(0.9, 1.2, b, device=dev)
+    out = pp._launch_encode(raw, gains, lo, scale, enc)
+    out_p = pp.wb_encode_u8_batched_plain(raw, gains, lo, scale, (h, w))
+    assert int((out.int() - out_p.int()).abs().max()) <= 1
 
 
 @pytest.mark.parametrize("b,h,w,psf,stride", [(64, 256, 256, 25, 1), (3, 150, 200, 15, 1),
