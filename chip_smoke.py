@@ -22,8 +22,9 @@ lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
              instance's registers and spills (ptxas), and how many of
-             B2's and B7's stage-group instances and of the white-balance
-             kernels' (csrc/postprocess.cu) spill;
+             B2's and B7's stage-group instances, of the white-balance
+             kernels' (csrc/postprocess.cu) and of B11's and B12's
+             (csrc/fft_cols.cu, csrc/fft_radix4.cu) spill;
   2. kernels every kernel against its plain PyTorch version on the card,
              at the shapes the paths give it (B2 in its 'wiener', 'conv'
              and 'conv' + conj modes; 'wiener' at the UHD frame's pow2
@@ -51,8 +52,9 @@ lines; any failure exits non-zero:
              adding up the UHD frame's three launches with cross levels;
              then the ops layer's kernels on (3, 2048, 2048) planes and
              (6144, 2048) rows: B6 natural, B11 in both orderings and
-             directions (and at H = 4096), B9, B10, B12 on real and complex
-             rows (its output order also against torch.fft);
+             directions (and natural forward at H = 4096 and on (96,
+             256, 256)), B9, B10, B12 on real and complex rows (its
+             output order also against torch.fft);
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
@@ -179,6 +181,7 @@ TOL_F64_PLANES = 2e-4        # smooth restore vs the float64 np.fft restore at i
 OPS_PLANES = 3
 OPS_ROWS = (3 * SIZE, SIZE)
 TALL = (1, 4096, SIZE)        # B11 at H = 4096: 4-column strips
+SHORT = (96, 256, 256)        # B11 on short columns: stage groups of k < 4 (4 + 4)
 TOL_LIBRARY_REL = 1e-4        # a kernel's FFT vs torch.fft (cuFFT): two float32 algorithms
 TOL_GENERIC_PLANES = 1e-4     # generic route on the card vs the CPU / the kernel route:
                               # the matrix products sum in another order (cuBLAS)
@@ -1163,7 +1166,8 @@ def check_ops_kernels(torch, np, seed, iters):
     """Phase 2, the ops layer's kernels at the JAX A/B harness's shapes:
     B6 natural (fft_rows ordering='natural', forward and inverse) and B11
     (fft_cols, natural and revorder, forward and inverse; and the tall
-    H = 4096 case) on (3, 2048, 2048) complex planes, B9 (wiener_elem) and
+    H = 4096 case and the short (96, 256, 256) one, whose stage groups are
+    4 + 4) on (3, 2048, 2048) complex planes, B9 (wiener_elem) and
     B10 (wiener_spectral_rows) on them with a (2048, 2048) spectrum, B12
     (fft_rows_radix4_fwd) on (6144, 2048) real and complex rows; each
     against its plain version, timed beside its bound and torch.fft along
@@ -1184,6 +1188,7 @@ def check_ops_kernels(torch, np, seed, iters):
     a_re, a_im = planes((p, n, n)), planes((p, n, n))
     h_re, h_im = planes((n, n)), planes((n, n))
     t_re, t_im = planes(TALL), planes(TALL)
+    u_re, u_im = planes(SHORT), planes(SHORT)
     x_re, x_im = planes(OPS_ROWS), planes(OPS_ROWS)
     az, tz, xz = torch.complex(a_re, a_im), torch.complex(t_re, t_im), torch.complex(x_re, x_im)
     pair = 2 * p * n * n * 4  # one (re, im) set of the planes, bytes
@@ -1231,6 +1236,11 @@ def check_ops_kernels(torch, np, seed, iters):
         lambda: fk.fft_cols(t_re, t_im, ordering="natural"),
         lambda: fk.fft_cols_plain(t_re, t_im, ordering="natural"),
         4 * t_re.numel() * 4, fft_flops(n, TALL[1]), fft_lib(tz, -2, False))
+    specs["fft_cols"]["natural_fwd_96x256x256"] = (
+        lambda: fk.fft_cols(u_re, u_im, ordering="natural"),
+        lambda: fk.fft_cols_plain(u_re, u_im, ordering="natural"),
+        4 * u_re.numel() * 4, fft_flops(SHORT[0] * SHORT[2], SHORT[1]),
+        fft_lib(torch.complex(u_re, u_im), -2, False))
     meta = {
         # kernel: (source, the TPU kernel's pallas_call, tolerance)
         "fft_rows_natural": ("csrc/fft_rows.cu", "fft_kernel.py:1107", TOL_FFT_REL),
@@ -1765,6 +1775,12 @@ def main() -> int:
     post_spilled = [ln for ln in post if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"phase 1: {len(post)} postprocess.cu instances, {len(post_spilled)} with a spill"
         f"{': ' + '; '.join(post_spilled) if post_spilled else ''}")
+    # B11 and B12 in their register groups (csrc/fft_cols.cu, csrc/fft_radix4.cu)
+    ops = [ln for ln in ptxas
+           if ln.split("<")[0].endswith(("fft_cols_kernel", "fft_radix4_kernel"))]
+    ops_spilled = [ln for ln in ops if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"phase 1: {len(ops)} fft_cols / fft_radix4 instances, {len(ops_spilled)} with a spill"
+        f"{': ' + '; '.join(ops_spilled) if ops_spilled else ''}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)
@@ -1823,6 +1839,7 @@ def main() -> int:
         row["launches_by_path"] = by_path
 
     result = {"kernels": rows, "ptxas_spectral": spectral, "ptxas_postprocess": post,
+              "ptxas_cols_radix4": ops,
               "slice_2048sq": timing, "middle_ab": ab,
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
               "perf_ab": perf_ab}

@@ -30,11 +30,12 @@
 //
 // What bounds the stage loops here on the H100: one thread takes one
 // butterfly, so each of the log2(q) stages is a full read and write of
-// the rows through shared memory and a barrier. They serve the kernels
-// on no restore path whose radix-2 stages are not yet redesigned (B10,
-// B12's tail; B11 has its column twin); the restore's FFT kernels, B1
-// (fft_rows_t.cu), B3/B6 (fft_rows.cu) and B2/B7 (wiener_spectral.cu),
-// run their stages in registers instead (fft_groups.cuh).
+// the rows through shared memory and a barrier. They serve the one
+// kernel whose radix-2 stages are not yet redesigned (B10, on no restore
+// path); the restore's FFT kernels, B1 (fft_rows_t.cu), B3/B6
+// (fft_rows.cu) and B2/B7 (wiener_spectral.cu), run their stages in
+// registers instead (fft_groups.cuh), B11 (fft_cols.cu) and B12
+// (fft_radix4.cu) in their own register groups.
 //
 // Layout of the shared-memory stage loops: a block holds `rows` complex
 // rows of length n as two planes, re[rows][n] then im[rows][n], in dynamic

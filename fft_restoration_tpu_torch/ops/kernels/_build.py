@@ -72,13 +72,15 @@ SIGNATURES = {
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
     # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
     "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P, P, P],
-    # re, im, out_re, out_im, planes, H, W, stages, cols, mode, cos, sin, stream
-    "fft_cols_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P],
+    # re, im, out_re, out_im, planes, H, W, log2 H, log2 cols, threads, mode,
+    # cos, sin, host int32 plan (fft_kernel.ColPlan.c_plan), stream
+    "fft_cols_launch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],
     # g_re, g_im, h_re, h_im, K, f_re, f_im, planes, plane elements, vec4, stream
     "wiener_elem_launch": [P, P, P, P, F, P, P, LL, LL, I, P],
-    # re, im, out_re, out_im, rows, N, log2 N, radix-4 stages, radix-2
-    # stages, rows_per_block, cos4, sin4, cos2, sin2, stream
-    "fft_radix4_launch": [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P],
+    # re, im, out_re, out_im, rows, log2 N, log2 rows a block, padded row
+    # stride, threads, cos4, sin4, cos2, sin2, host int32 plan
+    # (fft_radix4.R4Plan.c_plan), stream
+    "fft_radix4_launch": [P, P, P, P, I, I, I, I, I, P, P, P, P, P, P],
     # raw, orig, orig is uint8, lo, scale, parts, plane elements, W0, orig
     # strides (4), orig as 32-bit words, h, w, rows, stride, n_blocks,
     # slab, n_slabs, n_chunks, log2 TX, blocks, vec4, host float32

@@ -14,7 +14,8 @@ A plan holds the stage groups, the thread-to-element map and the padded
 shared rows; `t_slot_index` and `t_cross_columns` give its element map,
 which the CPU tests emulate.
 `fft_cols` (csrc/fft_cols.cu) is B11, `fft_cols_pallas`: the same stages
-down the columns, in shared memory.
+down the columns in register groups, after the plan `col_plan`
+computes here (strips of columns, the swizzled shared rows).
 
 The pipeline's ordering is revorder: the forward transform is DIF
 (natural in, bit-reversed out), the inverse DIT (bit-reversed in,
@@ -1090,20 +1091,126 @@ def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n
 
 
 # ---------------------------------------------------------------------------
-# B11: the column FFT (csrc/fft_cols.cu)
+# B11: the column FFT (csrc/fft_cols.cu) on column stage groups. The
+# kernel mirrors the index math below; the CPU tests run it group by group
+# against the plain version.
 
 # shared memory of one fft_cols block (a strip of `cols` columns x H rows,
 # two float planes): 8 columns at H = 2048, 4 at H = 4096; at most 32
 # columns (128 B of each row)
 COLS_SMEM_BUDGET = 128 << 10
 MAX_STRIP_COLS = 32
+# the kernel's __launch_bounds__(512, 1): 128 registers a thread. Measured
+# on an H100 (tools/rows_geometry.py --cols): two slot sets a thread, up
+# to 512 threads, beat one (1024 threads of 64 registers spilled) and four
+C_THREADS = 512
 
 
 def cols_per_block(h: int, w: int) -> int:
     """Columns an fft_cols block holds: the largest power of two <= 32 that
-    fits COLS_SMEM_BUDGET and is not past the next power of two >= w."""
+    fits COLS_SMEM_BUDGET and is not past the next power of two >= w, at
+    least 16 / h (a thread's 16 slots need h * cols >= 16)."""
     c = max(1, min(MAX_STRIP_COLS, COLS_SMEM_BUDGET // (8 * h), 1 << max(0, (w - 1).bit_length())))
-    return 1 << (c.bit_length() - 1)
+    return max(1 << (c.bit_length() - 1), T_SLOTS // h if h < T_SLOTS else 1)
+
+
+class ColPlan(NamedTuple):
+    """One fft_cols launch's geometry: a block takes a strip of 2^lc
+    columns and all h = 2^logh rows, `threads` threads looping over its
+    slot sets, the column stages cut into `groups` ((s_lo, k), DIF order,
+    t_stage_groups). Item it of group (s_lo, k) is column it mod cols and
+    row field ub = it >> lc (neighbouring threads on neighbouring columns
+    of one row): the 2^k rows lo | jl << s_lo | hb << (s_lo + k), lo = ub
+    mod 2^s_lo, hb = ub >> s_lo. The strip lives in shared memory as
+    re[h][cols] then im[h][cols], row r at the swizzled row `col_row`."""
+
+    h: int
+    logh: int
+    lc: int
+    threads: int
+    groups: tuple
+
+    @property
+    def cols(self) -> int:
+        return 1 << self.lc
+
+    @property
+    def slot_sets(self) -> int:
+        return self.h * self.cols // T_SLOTS
+
+    @property
+    def swizzle(self) -> int:
+        """The mask of the row bits the swizzle flips: the rows one warp's
+        32 threads span in a group (32 / cols), at most h."""
+        return max(1, min(32 >> self.lc, self.h)) - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        """A one-group launch exchanges nothing: no shared memory."""
+        return 8 * self.h * self.cols if len(self.groups) > 1 else 0
+
+    def c_plan(self) -> np.ndarray:
+        """The int32 plan array of the C entry: groups, then per group
+        s_lo and k."""
+        return np.array([len(self.groups)] + [v for g in self.groups for v in g], np.int32)
+
+
+def col_row(plan: ColPlan, r):
+    """The shared-memory row of strip row r: r with its low bits flipped by
+    r >> k_bottom (the bottom group's width), so that the 32 / cols rows a
+    warp spans in any group fall on distinct banks: consecutive rows (the
+    upper groups) and rows 2^k_bottom apart (the bottom group) alike."""
+    return r ^ ((r >> plan.groups[-1][1]) & plan.swizzle)
+
+
+@functools.lru_cache(maxsize=None)
+def col_plan(h: int, w: int, cols: int = 0, threads: int = 0) -> ColPlan:
+    """The fft_cols plan of (.., h, w) planes: strips of cols_per_block(h,
+    w) columns (or `cols`, a power of two >= 16 / h whose strip fits a
+    block), threads for two slot sets each up to C_THREADS (or `threads`,
+    a multiple of 32 up to C_THREADS); the stage groups of
+    t_stage_groups(log2 h)."""
+    stages = check_length(h)
+    check_kernel_length(h)
+    cols = cols or cols_per_block(h, w)
+    if cols & (cols - 1) or h * cols < T_SLOTS or cols > MAX_STRIP_COLS:
+        raise ValueError(f"strip columns must be a power of two from {max(1, T_SLOTS // h)} "
+                         f"to {MAX_STRIP_COLS}, got {cols}")
+    lc = cols.bit_length() - 1
+    ns = h * cols // T_SLOTS
+    threads = threads or min(C_THREADS, -(-ns // 64) * 32)
+    if threads % 32 or not 32 <= threads <= C_THREADS:
+        raise ValueError(f"threads a block must be a multiple of 32 up to {C_THREADS}")
+    plan = ColPlan(h, stages, lc, threads, t_stage_groups(stages))
+    if plan.smem_bytes > MAX_BLOCK_SMEM:
+        raise ValueError(f"a strip of {cols} columns of {h} rows does not fit a block")
+    return plan
+
+
+def col_slot_index(plan: ColPlan, group: tuple) -> tuple:
+    """(row, column) in the strip of every (slot set, slot) of a stage
+    group (s_lo, k): two (slot_sets, 16) int arrays. Slot j of slot set u
+    holds element j mod 2^k of item u + (j >> k) * slot_sets."""
+    s_lo, k = group
+    ns = plan.slot_sets
+    u = np.arange(ns, dtype=np.int64)[:, None]
+    j = np.arange(T_SLOTS, dtype=np.int64)[None, :]
+    it = u + (j >> k) * ns
+    c = it & (plan.cols - 1)
+    ub = it >> plan.lc
+    row = (ub & ((1 << s_lo) - 1)) | ((j & ((1 << k) - 1)) << s_lo) | ((ub >> s_lo) << (s_lo + k))
+    return row, np.broadcast_to(c, row.shape)
+
+
+def col_bank_conflicts(plan: ColPlan, group: tuple) -> int:
+    """The most threads of one warp that hit one bank with one shared
+    access of a stage group (1: conflict-free); warps are 32 consecutive
+    slot sets."""
+    row, c = col_slot_index(plan, group)
+    addr = col_row(plan, row) * plan.cols + c
+    warp = np.arange(addr.shape[0])[:, None] // 32
+    key = (warp * T_SLOTS + np.arange(T_SLOTS)[None, :]) * 32 + addr % 32
+    return int(np.bincount(key.ravel()).max())
 
 
 def _check_cols(re, im):
@@ -1132,16 +1239,15 @@ def fft_cols(re, im, *, inverse=False, ordering="natural"):
     """1D DFT along axis -2 (the columns) of (..., H, W) float32 planes, H
     a power of two, any W; unscaled (B11, the JAX fft_cols_pallas).
 
-    ordering: 'natural' (natural in and out: a bit-reversed load, then the
-    DIT stages with this direction's tables) or 'revorder' (forward DIF,
-    bit-reversed out; inverse DIT, bit-reversed in). With `fft_rows(...,
-    ordering='natural')` it makes the transpose-free 2D FFT. Operands
-    contiguous; a ragged last strip of columns is bounds-checked in the
-    kernel (the JAX kernel pads W with a copy)."""
+    ordering: 'natural' (natural in and out: the first DIT group loads the
+    bit-reversed rows, then the DIT stages with this direction's tables)
+    or 'revorder' (forward DIF, bit-reversed out; inverse DIT,
+    bit-reversed in). With `fft_rows(..., ordering='natural')` it makes
+    the transpose-free 2D FFT. Operands contiguous; a ragged last strip of
+    columns is bounds-checked in the kernel (the JAX kernel pads W with a
+    copy). The kernel (csrc/fft_cols.cu) runs col_plan's stage groups."""
     if not on_cuda(re, im):
         return fft_cols_plain(re, im, inverse=inverse, ordering=ordering)
-    from fft_restoration_tpu_torch.ops.kernels import _build
-
     h = _check_cols(re, im)
     natural = check_ordering(ordering)
     if h < 2:
@@ -1149,15 +1255,32 @@ def fft_cols(re, im, *, inverse=False, ordering="natural"):
     check_kernel_length(h)
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("planes must be contiguous")
-    w = re.shape[-1]
-    lead = re.numel() // (h * w)
-    cols = cols_per_block(h, w)
+    if h * re.shape[-1] >= 1 << 31:
+        raise ValueError("the kernel takes planes of fewer than 2^31 elements")
+    return launch_cols(re, im, inverse, natural, col_plan(h, re.shape[-1]))
+
+
+@functools.lru_cache(maxsize=256)
+def _col_launch_args(plan: ColPlan, inverse: bool, device) -> tuple:
+    """The table and plan pointers of one fft_cols launch, worked out once
+    per plan, as _r_launch_args. The plan array stays alive in the cache."""
+    t = tables(plan.h, inverse, device)
+    c_plan = plan.c_plan()
+    return (t.cos.data_ptr(), t.sin.data_ptr(), c_plan.ctypes.data), c_plan
+
+
+def launch_cols(re, im, inverse, natural, plan: ColPlan):
+    """One fft_cols launch of contiguous (..., H, W) planes with `plan`
+    (col_plan; tools/rows_geometry.py passes its overrides)."""
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    h, w = re.shape[-2:]
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
-    t = tables(h, bool(inverse), re.device)
+    ptrs, _ = _col_launch_args(plan, bool(inverse), re.device)
     mode = 2 if natural else int(bool(inverse))  # natural, else revorder DIF / DIT
     err = _build.load().fft_cols_launch(
-        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(), lead, h, w,
-        h.bit_length() - 1, cols, mode, t.cos.data_ptr(), t.sin.data_ptr(),
+        re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+        re.numel() // (h * w), h, w, plan.logh, plan.lc, plan.threads, mode, *ptrs,
         torch.cuda.current_stream(re.device).cuda_stream,
     )
     _build.check(err, "fft_cols")

@@ -13,24 +13,27 @@ nothing of it): `radix4_stage_lengths`, `_r4_tables_np`, `_numpy_sim`
 (the kernel's stage math in float64) and `radix4_output_permutation`.
 The radix-2 tail reads the forward tables of ops/kernels/fft_kernel.py,
 the JAX module's `_twiddle_planes_np(n, False)` and `_half_masks_np(n)`.
-The kernel is csrc/fft_radix4.cu.
+The kernel is csrc/fft_radix4.cu: its stages run in register groups of
+two radix-4 stages after the plan `r4_plan` computes here.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda
 from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
+    T_SLOTS,
     _dif_stage,
     _half_masks_np,
     _twiddle_planes_np,
     check_kernel_length,
-    rows_per_block,
+    t_pad,
     tables,
 )
 
@@ -137,12 +140,16 @@ def radix4_output_permutation(n: int) -> np.ndarray:
     return np.round((-ang) * n / (2 * np.pi)).astype(np.int64) % n
 
 
-def _check(re, im):
-    n = re.shape[-1] if re.ndim else 0
+def _check_n(n: int) -> None:
     if n & (n - 1) or n == 0:
         raise ValueError(f"power-of-two length required, got {n}")
     if n < 4:
         raise ValueError("radix-4 kernel needs n >= 4")
+
+
+def _check(re, im):
+    n = re.shape[-1] if re.ndim else 0
+    _check_n(n)
     if re.dtype != torch.float32 or (im is not None and (im.dtype != torch.float32
                                                          or im.shape != re.shape)):
         raise ValueError("need float32 re (and im of re's shape)")
@@ -193,31 +200,183 @@ def _r4_tables(n: int, device: torch.device) -> tuple:
     return torch.from_numpy(c4).to(device), torch.from_numpy(s4).to(device)
 
 
+# ---------------------------------------------------------------------------
+# The kernel's plan (csrc/fft_radix4.cu): the stages in register groups of
+# two radix-4 stages (16 values a thread), the radix-2 tail folded into the
+# last group. The kernel mirrors the index math below; the CPU tests run
+# it group by group against the plain version.
+
+R4_THREADS = 256         # the kernel's __launch_bounds__(256, 2): 128 registers a thread
+R4_PLAN_THREADS = 128    # threads a block by default (tools/rows_geometry.py)
+R4_SMEM_BUDGET = 32 << 10  # rows a block: those of 32 KB (2 at n = 2048), as B6's
+
+
+def r4_stage_groups(n: int) -> tuple:
+    """The DIF stages of radix4_stage_lengths(n) cut into register groups,
+    long to short: ((log2 L, log2 E), ...), a group's items being E
+    elements of a block of L. Two radix-4 stages a group (E = 16); an odd
+    last radix-4 stage alone (E = 4) or with the radix-2 tail (E = 8), a
+    lone tail E = 2. n = 2048: ((11, 4), (7, 4), (3, 3))."""
+    lengths = radix4_stage_lengths(n)
+    r4 = sum(r == 4 for _, r in lengths)
+    tail = len(lengths) - r4
+    groups, ll = [], n.bit_length() - 1
+    for _ in range(r4 // 2):
+        groups.append((ll, 4))
+        ll -= 4
+    if r4 % 2:
+        groups.append((ll, 2 + tail))
+    elif tail:
+        groups.append((ll, 1))
+    return tuple(groups)
+
+
+class R4Plan(NamedTuple):
+    """One fft_radix4 launch's geometry: rows = 2^lr rows of n points a
+    block, padded row stride rs (floats), `threads` threads looping over
+    the slot sets, per group (log2 L, log2 E, rot). Item (row, blk, j), j
+    < d = L / E, of a group holds the E elements blk * L + e * d + j, e <
+    E; its index's fields are j, blk, row, j fastest (neighbouring threads
+    on neighbouring elements), the blk field rotated left one bit when
+    rot is 1 (a warp's blocks two apart). Slot s of slot set u holds
+    element s mod E of item u + (s // E) * slot_sets."""
+
+    n: int
+    log2n: int
+    lr: int
+    rs: int
+    threads: int
+    groups: tuple
+
+    @property
+    def rows(self) -> int:
+        return 1 << self.lr
+
+    @property
+    def slot_sets(self) -> int:
+        return self.rows * self.n // T_SLOTS
+
+    @property
+    def smem_bytes(self) -> int:
+        """A one-group launch exchanges nothing: no shared memory."""
+        return 8 * self.rows * self.rs if len(self.groups) > 1 else 0
+
+    def c_plan(self) -> np.ndarray:
+        """The int32 plan array of the C entry: groups, then per group
+        log2 L, log2 E and rot."""
+        return np.array([len(self.groups)] + [v for g in self.groups for v in g], np.int32)
+
+
+def r4_slot_index(plan: R4Plan, group: tuple) -> tuple:
+    """(row, column) in the block of every (slot set, slot) of a group
+    (log2 L, log2 E, rot): two (slot_sets, 16) int arrays."""
+    ll, le, rot = group
+    ld, lb = ll - le, plan.log2n - ll
+    u = np.arange(plan.slot_sets, dtype=np.int64)[:, None]
+    s = np.arange(T_SLOTS, dtype=np.int64)[None, :]
+    it = u + (s >> le) * plan.slot_sets
+    j, f, row = it & ((1 << ld) - 1), (it >> ld) & ((1 << lb) - 1), it >> (ld + lb)
+    blk = (((f << 1) | (f >> (lb - 1))) & ((1 << lb) - 1)) if rot and lb > 0 else f
+    col = (blk << ll) | ((s & ((1 << le) - 1)) << ld) | j
+    return row, col
+
+
+def r4_bank_conflicts(plan: R4Plan, group: tuple) -> int:
+    """The most threads of one warp that hit one bank with one shared
+    access of a group (1: conflict-free) in the padded rows (t_pad)."""
+    row, col = r4_slot_index(plan, group)
+    addr = row * plan.rs + t_pad(col)
+    warp = np.arange(addr.shape[0])[:, None] // 32
+    key = (warp * T_SLOTS + np.arange(T_SLOTS)[None, :]) * 32 + addr % 32
+    return int(np.bincount(key.ravel()).max())
+
+
+@functools.lru_cache(maxsize=None)
+def r4_plan(n: int, m: int = 1 << 30, rows: int = 0, threads: int = 0) -> R4Plan:
+    """The fft_radix4 plan of m rows of n points.
+
+    Rows a block: the largest power of two up to 16 and m whose rows fit
+    R4_SMEM_BUDGET, at least 16 / n (a thread's 16 slots); threads:
+    R4_PLAN_THREADS, fewer for a block of fewer slot sets. `rows` and
+    `threads` override the two (tools/rows_geometry.py). The top group
+    loads device memory and the bottom group (d = 1: an item is E
+    consecutive elements) stores them as vectors, both unrotated; a
+    middle group rotates its blk field where r4_bank_conflicts finds that
+    cheaper. The row stride is the first past the padded row that keeps
+    the groups' accesses cheapest."""
+    _check_n(n)
+    check_kernel_length(n)
+    if not rows:
+        fit = max(1, min(16, R4_SMEM_BUDGET // (8 * n), m))
+        rows = max(1 << (fit.bit_length() - 1), T_SLOTS // n)
+    if rows & (rows - 1) or rows * n < T_SLOTS:
+        raise ValueError(f"rows a block must be a power of two >= {max(1, T_SLOTS // n)}, "
+                         f"got {rows}")
+    lr = rows.bit_length() - 1
+    ns = rows * n // T_SLOTS
+    threads = threads or min(R4_PLAN_THREADS, -(-ns // 32) * 32)
+    if threads % 32 or not 32 <= threads <= R4_THREADS:
+        raise ValueError(f"threads a block must be a multiple of 32 up to {R4_THREADS}")
+    spec = r4_stage_groups(n)
+    best = None
+    for extra in range(32):
+        plan = R4Plan(n, n.bit_length() - 1, lr, t_pad(n) + extra, threads, ())
+        groups, costs = [], []
+        for g, (ll, le) in enumerate(spec):
+            pinned = g in (0, len(spec) - 1)
+            choice = [(ll, le, 0)] if pinned else [(ll, le, 0), (ll, le, 1)]
+            cost = [r4_bank_conflicts(plan, c) for c in choice]
+            groups.append(choice[int(np.argmin(cost))])
+            costs.append(min(cost))
+        key = (max(costs), sum(costs))
+        if best is None or key < best[0]:
+            best = key, plan._replace(groups=tuple(groups))
+        if key == (1, len(spec)):
+            break
+    return best[1]
+
+
 def fft_rows_radix4_fwd(re, im=None):
     """Forward DIF over the last axis of (..., N) float32 rows, N a power of
     two >= 4: radix-4 stages, then a radix-2 tail (B12, the JAX
     fft_rows_radix4_fwd). im=None is a real input (zeros made in the
     kernel). Natural input, digit-reversed output in the JAX kernel's
     order (`radix4_output_permutation`), unscaled. Operands contiguous.
-    Returns (re, im) shaped as the input."""
+    Returns (re, im) shaped as the input. The kernel (csrc/fft_radix4.cu)
+    runs r4_plan's register groups."""
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_radix4_fwd_plain(re, im)
-    from fft_restoration_tpu_torch.ops.kernels import _build
-
     n = _check(re, im)
     check_kernel_length(n)
     if not re.is_contiguous() or (im is not None and not im.is_contiguous()):
         raise ValueError("rows must be contiguous")
     rows_total = re.numel() // n
-    n4, tail = _stage_counts(n)
-    c4, s4 = _r4_tables(n, re.device)
-    t2 = tables(n, False, re.device)
+    return launch_radix4(re, im, r4_plan(n, rows_total))
+
+
+@functools.lru_cache(maxsize=256)
+def _r4_launch_args(plan: R4Plan, device) -> tuple:
+    """The table and plan pointers of one fft_radix4 launch, worked out once
+    per plan. The plan array stays alive in the cache."""
+    c4, s4 = _r4_tables(plan.n, device)
+    t2 = tables(plan.n, False, device)
+    c_plan = plan.c_plan()
+    return (c4.data_ptr(), s4.data_ptr(), t2.cos.data_ptr(), t2.sin.data_ptr(),
+            c_plan.ctypes.data), c_plan
+
+
+def launch_radix4(re, im, plan: R4Plan):
+    """One fft_radix4 launch of contiguous (..., N) rows with `plan`
+    (r4_plan; tools/rows_geometry.py passes its overrides)."""
+    from fft_restoration_tpu_torch.ops.kernels import _build
+
+    n = plan.n
     out_re, out_im = torch.empty_like(re), torch.empty_like(re)
+    ptrs, _ = _r4_launch_args(plan, re.device)
     err = _build.load().fft_radix4_launch(
         re.data_ptr(), None if im is None else im.data_ptr(), out_re.data_ptr(),
-        out_im.data_ptr(), rows_total, n, n.bit_length() - 1, n4, tail,
-        rows_per_block(n, rows_total), c4.data_ptr(), s4.data_ptr(), t2.cos.data_ptr(),
-        t2.sin.data_ptr(), torch.cuda.current_stream(re.device).cuda_stream,
+        out_im.data_ptr(), re.numel() // n, plan.log2n, plan.lr, plan.rs, plan.threads, *ptrs,
+        torch.cuda.current_stream(re.device).cuda_stream,
     )
     _build.check(err, "fft_rows_radix4")
     launch_counts["fft_rows_radix4"] += 1

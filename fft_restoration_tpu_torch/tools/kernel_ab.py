@@ -1,7 +1,7 @@
 """Two checkouts' FFT kernels and restore paths in turns on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.kernel_ab --other <checkout>
-        [--iters N] [--seed N] [--paths a,b,...] [--no-paths] [--sass]
+        [--iters N] [--seed N] [--paths a,b,...] [--no-paths] [--sass] [--modes B11,B12]
 
 Times the row-FFT and spectral kernels of this checkout ("change") and of
 another one ("other", e.g. the parent commit unpacked with `git archive`)
@@ -18,12 +18,18 @@ ordering, forward and inverse, at (3, 2048, 2048)), B2 'wiener' /
 'wiener' at its pow2 extents (4096^2), B7 on batch64 and on the 640x330
 stack at --pad smooth; the white-balance pair B4/B8a and B5/B8b on the
 plain restore's raw planes of the 2048^2 frame (strides 1 and 4),
-batch8 2048^2, batch64 256^2 and the UHD frame at --pad smooth.
-Each mode is the median of three CUDA-event loops of `--iters` launches.
+batch8 2048^2, batch64 256^2 and the UHD frame at --pad smooth; the ops
+layer's B11 (`fft_cols`: both orderings and directions at (3, 2048,
+2048), natural forward on the tall (1, 4096, 2048) and on (96, 256,
+256)) and B12 (`fft_rows_radix4_fwd` on (6144, 2048) real and complex
+rows). `--modes` times only the modes whose names start with one of its
+prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy, event time and host enqueue. The
-white-balance pair is also timed in a CUDA graph (`<mode>_graph`) and
-on the host clock (`<mode>_host_us`, one wrapper call). --sass: also
+white-balance pair and B11 on (96, 256, 256), launches about as short
+as their wrappers' host time, are also timed in a CUDA graph
+(`<mode>_graph`) and on the host clock (`<mode>_host_us`, one wrapper
+call). --sass: also
 compares the two builds' machine code (cuobjdump -sass) function by function and names the kernel
 instances whose code differs. Uses only functions both checkouts have.
 Prints one line per mode and path and a JSON object last; exits non-zero
@@ -104,8 +110,9 @@ def host_us(torch, fn, n=300):
     return sorted(times)[n // 2] * 1e6
 
 
-def child(iters: int, seed: int) -> dict:
-    """One turn: every mode's ms, with the package of PYTHONPATH."""
+def child(iters: int, seed: int, only: tuple = ()) -> dict:
+    """One turn: every mode's ms (those whose names start with one of
+    `only`, when given), with the package of PYTHONPATH."""
     import numpy as np
     import torch
 
@@ -114,6 +121,7 @@ def child(iters: int, seed: int) -> dict:
     )
     from fft_restoration_tpu_torch.models.pipeline import restore_raw
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
     from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.ops.psf import make_psf
@@ -175,6 +183,21 @@ def child(iters: int, seed: int) -> dict:
         "B2_conv_conj_uhd_smooth": lambda: ws.spectral_conv_t(*ua, *uH, True, rh),
         "B7_stack330_smooth": lambda: ws.fwd_wiener_rows(*sa, *sH, 0.01, srh),
     }
+    # the ops layer's B11 and B12 at chip_smoke.py phase 2's shapes
+    t_re, t_im = (torch.as_tensor(rng.standard_normal((1, 4096, 2048), dtype=np.float32),
+                                  device=dev) for _ in range(2))
+    s_re, s_im = (torch.as_tensor(rng.standard_normal((96, 256, 256), dtype=np.float32),
+                                  device=dev) for _ in range(2))
+    x_re, x_im = (torch.as_tensor(rng.standard_normal((6144, 2048), dtype=np.float32),
+                                  device=dev) for _ in range(2))
+    for order in ("natural", "revorder"):
+        for inv in (False, True):
+            modes[f"B11_{order}_{'inv' if inv else 'fwd'}_3x2048x2048"] = (
+                lambda o=order, i=inv: fk.fft_cols(c_re, c_im, inverse=i, ordering=o))
+    modes["B11_natural_fwd_1x4096x2048"] = lambda: fk.fft_cols(t_re, t_im)
+    modes["B11_natural_fwd_96x256x256"] = lambda: fk.fft_cols(s_re, s_im)
+    modes["B12_real_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re)
+    modes["B12_complex_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re, x_im)
     # the white-balance pair on the plain restore's raw planes, also timed
     # in a CUDA graph (`<mode>_graph`): their single-frame launches are
     # shorter than the wrappers' host time
@@ -182,6 +205,8 @@ def child(iters: int, seed: int) -> dict:
     posts = {"frame": (frame, H, (2048, 2048), "pow2"), "batch8": (s8, H, (2048, 2048), "pow2"),
              "batch64": (s64, H64, (256, 256), "pow2"), "uhd_smooth": (uhd, uH, (2160, 3840),
                                                                       "smooth")}
+    if only and not any(o.startswith(("B4", "B5")) for o in only):
+        posts = {}  # their raw planes take a plain restore each
     for name, (stack, HH, live, pad) in posts.items():
         raw, lo, sc = restore_raw(stack, HH, 0.01, PLAIN_OPS, pad_mode=pad)
         orig = stack.permute(0, 3, 1, 2)
@@ -191,9 +216,10 @@ def child(iters: int, seed: int) -> dict:
                 lambda a=(raw, orig, lo, sc, live, stride, 8 if stride > 1 else 64):
                 pp.lab_l_sum_partials_batched(*a))
         modes[f"B5_{name}"] = lambda a=(raw, gains, lo, sc, live): pp.wb_encode_u8_batched(*a)
+    modes = {k: v for k, v in modes.items() if not only or k.startswith(only)}
     res = {name: _median_ms(torch, fn, iters) for name, fn in modes.items()}
     for name, fn in modes.items():
-        if name.startswith(("B4_", "B5_")):
+        if name.startswith(("B4_", "B5_", "B11_natural_fwd_96")):
             res[f"{name}_graph"] = graph_ms(torch, fn, iters)
             res[f"{name}_host_us"] = host_us(torch, fn)
     return res
@@ -243,6 +269,8 @@ def main() -> int:
     ap.add_argument("--paths", default=PATHS)
     ap.add_argument("--no-paths", action="store_true")
     ap.add_argument("--sass", action="store_true", help="compare the builds' machine code")
+    ap.add_argument("--modes", default="",
+                    help="comma-separated prefixes of the kernel modes to time (all)")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
@@ -252,7 +280,7 @@ def main() -> int:
         print("kernel_ab: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     if args.child:
-        print(json.dumps(child(args.iters, args.seed)))
+        print(json.dumps(child(args.iters, args.seed, tuple(filter(None, args.modes.split(","))))))
         return 0
     if not args.other:
         ap.error("--other is required")
@@ -262,7 +290,7 @@ def main() -> int:
     kernels = {k: [] for k in roots}
     for who in order:
         out = _turn(roots[who], args, me, "--child", "--iters", str(args.iters),
-                    "--seed", str(args.seed))
+                    "--seed", str(args.seed), "--modes", args.modes)
         kernels[who].append(json.loads(out.strip().splitlines()[-1]))
     result = {"card": torch.cuda.get_device_name(0), "order": order, "kernels_ms": {}}
     for mode in kernels["change"][0]:

@@ -1,8 +1,9 @@
 """The kernels' block geometry on one NVIDIA GPU: the stage-group
 kernels' rows and threads a block, the white-balance kernels' rows a
-thread.
+thread, the column FFT's strip width and threads a block.
 
-    python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N] [--post-only]
+    python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N]
+        [--post-only | --cols | --radix4]
 
 Launches csrc/fft_rows.cu (B3/B6, `fft_kernel.r_plan` with its `rows`
 and `threads` overrides) and csrc/wiener_spectral.cu (B2/B7,
@@ -23,10 +24,16 @@ wrappers' host time exceeds the short launches', a CUDA graph of the
 launches: kernel_ab.graph_ms) on the 2048^2 frame at
 strides 1 and 4, batch64 256^2, batch8 2048^2 and the UHD frame's
 2160x3840 live in 2304x3840 planes, against the plain versions (1e-4
-of the partials, 1 uint8 count). The default geometry (the plan with no
-override) is marked. Prints one line per geometry and a JSON object last; exits
-non-zero without a GPU or when a launch disagrees with the plain
-version.
+of the partials, 1 uint8 count); B11 (csrc/fft_cols.cu,
+`fft_kernel.col_plan` with its `cols` and `threads` overrides: `--cols`
+runs these alone) at the shapes of `chip_smoke.py` phase 2, (3, 2048,
+2048) natural forward and revorder forward and inverse, the tall (1,
+4096, 2048) and (96, 256, 256); B12 (csrc/fft_radix4.cu,
+`fft_radix4.r4_plan` with its `rows` and `threads` overrides: `--radix4`
+runs these alone) on (6144, 2048) real and complex rows. The default
+geometry (the plan with no override) is marked. Prints one line per
+geometry and a JSON object last; exits non-zero without a GPU or when a
+launch disagrees with the plain version.
 """
 
 from __future__ import annotations
@@ -64,6 +71,21 @@ P_CASES = {
 }
 P_ROWS = (1, 2, 4, 8)
 TOL_PARTIALS_REL = 1e-4
+# B11: name: ((L, H, W), inverse, natural, strip columns to try)
+C_CASES = {
+    "B11_natural_fwd_3x2048x2048": ((3, 2048, 2048), False, True, (4, 8)),
+    "B11_revorder_fwd_3x2048x2048": ((3, 2048, 2048), False, False, (4, 8)),
+    "B11_revorder_inv_3x2048x2048": ((3, 2048, 2048), True, False, (4, 8)),
+    "B11_natural_fwd_1x4096x2048": ((1, 4096, 2048), False, True, (2, 4)),
+    "B11_natural_fwd_96x256x256": ((96, 256, 256), False, True, (8, 16, 32)),
+}
+C_THREADS = (128, 256, 512)
+# B12: name: ((rows, n), real, rows a block to try)
+R4_CASES = {
+    "B12_real_6144x2048": ((6144, 2048), True, (1, 2, 4)),
+    "B12_complex_6144x2048": ((6144, 2048), False, (1, 2, 4)),
+}
+R4_THREADS = (64, 128, 256)
 
 
 def _ms(torch, fn, iters):
@@ -178,12 +200,80 @@ def run_p_case(torch, case, rows_a_thread, iters, seed):
             graph_ms(torch, f_enc, iters), err, diff)
 
 
+def run_c_case(torch, np, rng, case, cols, threads, iters):
+    """(ms, max rel err) of one B11 strip geometry."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    shape, inverse, natural = case[:3]
+    dev = torch.device("cuda", 0)
+    re, im = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+              for _ in range(2))
+    plan = fk.col_plan(shape[1], shape[2], cols, threads)
+    launch = lambda: fk.launch_cols(re, im, inverse, natural, plan)  # noqa: E731
+    ref = fk.fft_cols_plain(re, im, inverse=inverse, ordering="natural" if natural else "revorder")
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(launch(), ref))
+    return _ms(torch, launch, iters), err
+
+
+def run_r4_case(torch, np, rng, case, rows, threads, iters):
+    """(ms, max rel err) of one B12 geometry."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
+
+    shape, real = case[:2]
+    dev = torch.device("cuda", 0)
+    re, im = (torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+              for _ in range(2))
+    im = None if real else im
+    plan = r4.r4_plan(shape[1], shape[0], rows, threads)
+    launch = lambda: r4.launch_radix4(re, im, plan)  # noqa: E731
+    ref = r4.fft_rows_radix4_fwd_plain(re, im)
+    err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(launch(), ref))
+    return _ms(torch, launch, iters), err
+
+
+def sweep_cols_radix4(torch, np, rng, iters, result, which) -> bool:
+    """B11's strips and B12's rows a block, each geometry against its plain
+    version and timed; True when every launch agrees."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
+
+    ok = True
+    for name, case in (C_CASES if "cols" in which else {}).items():
+        (_, h, w), default = case[0], fk.col_plan(case[0][1], case[0][2])
+        for cols in case[3]:
+            for threads in C_THREADS:
+                if threads > h * cols // fk.T_SLOTS:
+                    continue  # more threads than slot sets
+                ms, err = run_c_case(torch, np, rng, case, cols, threads, iters)
+                mark = " (default)" if (cols, threads) == (default.cols, default.threads) else ""
+                print(f"{name} cols {cols} threads {threads}{mark}: {ms:.4f} ms, max rel err "
+                      f"{err:.2e}", flush=True)
+                result["ms"][f"{name}_cols{cols}_threads{threads}"] = ms
+                ok = ok and err <= TOL_REL
+    for name, case in (R4_CASES if "radix4" in which else {}).items():
+        (m, n), default = case[0], r4.r4_plan(case[0][1], case[0][0])
+        for rows in case[2]:
+            for threads in R4_THREADS:
+                ms, err = run_r4_case(torch, np, rng, case, rows, threads, iters)
+                mark = " (default)" if (rows, threads) == (default.rows, default.threads) else ""
+                print(f"{name} rows {rows} threads {threads}{mark}: {ms:.4f} ms, max rel err "
+                      f"{err:.2e}", flush=True)
+                result["ms"][f"{name}_rows{rows}_threads{threads}"] = ms
+                ok = ok and err <= TOL_REL
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--post-only", action="store_true", help="the white-balance kernels only")
+    ap.add_argument("--cols", action="store_true", help="B11's strips only")
+    ap.add_argument("--radix4", action="store_true", help="B12's rows a block only")
     args = ap.parse_args()
+    only = {k for k in ("cols", "radix4") if getattr(args, k)}
 
     import numpy as np
     import torch
@@ -195,6 +285,10 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     result = {"card": torch.cuda.get_device_name(0), "ms": {}}
+    if only:
+        ok = sweep_cols_radix4(torch, np, rng, args.iters, result, only)
+        print(json.dumps(result))
+        return 0 if ok else 1
     ok = True
     for name, case in ({} if args.post_only else CASES).items():
         pairs, m, n, inverse, natural, radices, packed = case[:7]
@@ -240,6 +334,8 @@ def main() -> int:
                 result["ms"][f"{name}_{kern}_rows{m}"] = ev
                 result["ms"][f"{name}_{kern}_rows{m}_graph"] = gr
             ok = ok and err <= TOL_PARTIALS_REL and diff <= 1
+    if not args.post_only:
+        ok = sweep_cols_radix4(torch, np, rng, args.iters, result, ("cols", "radix4")) and ok
     print(json.dumps(result))
     return 0 if ok else 1
 

@@ -582,10 +582,16 @@ def test_fft_rows_natural(dev, gen, p, m, n, inverse):
     assert _rel(ours[0], z.real) <= 1e-5 and _rel(ours[1], z.imag) <= 1e-5
 
 
+# every height the kernel takes (2 .. 16384), a ragged last strip and L > 1
+COL_SHAPES = ([(3, 2048, 2048), (1, 4096, 64), (2, 128, 37), (2, 2, 5), (96, 256, 256)]
+              + [(2, 1 << s, 37) for s in range(1, 15)])
+
+
 @pytest.mark.parametrize("ordering", ["natural", "revorder"])
 @pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("l,h,w", [(3, 2048, 2048), (1, 4096, 64), (2, 128, 37), (2, 2, 5)])
+@pytest.mark.parametrize("l,h,w", COL_SHAPES)
 def test_fft_cols(dev, gen, l, h, w, inverse, ordering):
+    """B11 against its plain version; two launches bitwise equal."""
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
@@ -596,6 +602,8 @@ def test_fft_cols(dev, gen, l, h, w, inverse, ordering):
     assert launch_counts["fft_cols"] == 1
     for o, r in zip(ours, fk.fft_cols_plain(re, im, inverse=inverse, ordering=ordering)):
         assert o.shape == (l, h, w) and _rel(o, r) <= 1e-5
+    again = fk.fft_cols(re, im, inverse=inverse, ordering=ordering)
+    assert all(torch.equal(a, o) for a, o in zip(again, ours))
 
 
 def test_transpose_free_fft2(dev, gen):
@@ -647,9 +655,16 @@ def test_wiener_spectral_rows(dev, gen, p, m, n, rows):
         assert o.shape == (p, m, n) and _rel(o, r) <= 1e-5
 
 
-@pytest.mark.parametrize("b,n", [(6144, 2048), (7, 1024), (5, 16), (3, 8)])
+# every length the kernel takes (4 .. 16384); 7 rows: a ragged last row
+# block wherever a block holds more than one row
+R4_SHAPES = [(6144, 2048), (5, 16), (3, 8)] + [(7, 1 << s) for s in range(2, 15)]
+
+
+@pytest.mark.parametrize("b,n", R4_SHAPES)
 @pytest.mark.parametrize("real", [True, False])
 def test_fft_rows_radix4(dev, gen, b, n, real):
+    """B12 against its plain version and the numpy simulation of the JAX
+    kernel's order; two launches bitwise equal."""
     from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as r4
     from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
@@ -665,6 +680,8 @@ def test_fft_rows_radix4(dev, gen, b, n, real):
     sim = r4._numpy_sim(re.cpu().numpy(), None if real else im.cpu().numpy())
     for o, r in zip(ours, sim):
         assert _rel(o.cpu().double(), torch.from_numpy(r)) <= 1e-5
+    again = r4.fft_rows_radix4_fwd(re, im)
+    assert all(torch.equal(a, o) for a, o in zip(again, ours))
 
 
 def test_fft_backends_launches_and_full_float32(dev, gen):
