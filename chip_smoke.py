@@ -22,7 +22,7 @@ lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
              instance's registers and spills (ptxas), and how many of
-             B2's and B7's stage-group instances, of the white-balance
+             B2's, B7's and B10's stage-group instances, of the white-balance
              kernels' (csrc/postprocess.cu) and of B11's and B12's
              (csrc/fft_cols.cu, csrc/fft_radix4.cu) spill;
   2. kernels every kernel against its plain PyTorch version on the card,
@@ -53,7 +53,8 @@ lines; any failure exits non-zero:
              then the ops layer's kernels on (3, 2048, 2048) planes and
              (6144, 2048) rows: B6 natural, B11 in both orderings and
              directions (and natural forward at H = 4096 and on (96,
-             256, 256)), B9, B10, B12 on real and complex rows (its
+             256, 256)), B9, B10 (beside B7 + B6's inverse pass, the
+             function it fuses), B12 on real and complex rows (its
              output order also against torch.fft);
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
@@ -1168,7 +1169,8 @@ def check_ops_kernels(torch, np, seed, iters):
     (fft_cols, natural and revorder, forward and inverse; and the tall
     H = 4096 case and the short (96, 256, 256) one, whose stage groups are
     4 + 4) on (3, 2048, 2048) complex planes, B9 (wiener_elem) and
-    B10 (wiener_spectral_rows) on them with a (2048, 2048) spectrum, B12
+    B10 (wiener_spectral_rows; beside it B7 + B6's inverse pass, the
+    function it fuses) on them with a (2048, 2048) spectrum, B12
     (fft_rows_radix4_fwd) on (6144, 2048) real and complex rows; each
     against its plain version, timed beside its bound and torch.fft along
     the same axis (B12 up to its permutation, which is checked against
@@ -1270,6 +1272,15 @@ def check_ops_kernels(torch, np, seed, iters):
                                      "bytes", "flops")},
             max_abs_err=max(m["max_abs_err"] for m in res.values()),
             max_rel_err=max(m["max_rel_err"] for m in res.values()), modes=res))
+
+    # B10 beside what it fuses: B7 (column DIF + Wiener, natural store) and
+    # B6's inverse revorder pass on the same operands (perf_ab megakernel)
+    b10 = next(r for r in out_rows if r["name"] == "wiener_spectral_rows")
+    unfused = lambda: fk.fft_rows(*ws.fwd_wiener_rows(a_re, a_im, h_re, h_im, 0.01),  # noqa: E731
+                                  inverse=True)
+    b10["b7_b6_ms"] = cuda_ms(torch, unfused, iters)
+    log(f"wiener_spectral_rows 3x2048x2048: {b10['ms']:.4f} ms, B7 + B6 inverse "
+        f"{b10['b7_b6_ms']:.4f} ms, bound {b10['bound_ms']:.4f} ms")
 
     # B12's digit-reversed order against torch.fft through the permutation
     perm = torch.as_tensor(r4.radix4_output_permutation(n), device=dev)
@@ -1764,11 +1775,11 @@ def main() -> int:
     ptxas = ptxas_report(_build.build_log)
     for line in ptxas:
         log(f"  ptxas: {line}")
-    # B2 and B7 on the stage-group engine (csrc/wiener_spectral.cu)
+    # B2, B7 and B10 on the stage-group engine (csrc/wiener_spectral.cu)
     spectral = [ln for ln in ptxas if ln.split("<")[0].endswith("spectral_s_kernel")]
     spilled = [ln for ln in spectral if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"phase 1: {len(spectral)} spectral_s_kernel instances (B2 'wiener' / 'conv' / conj, "
-        f"B7), {len(spilled)} with a spill{': ' + '; '.join(spilled) if spilled else ''}")
+        f"B7, B10), {len(spilled)} with a spill{': ' + '; '.join(spilled) if spilled else ''}")
     # B4/B8a and B5/B8b (csrc/postprocess.cu)
     post = [ln for ln in ptxas
             if ln.split("<")[0].endswith(("lab_l_partials_kernel", "wb_encode_kernel"))]

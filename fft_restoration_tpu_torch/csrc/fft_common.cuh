@@ -1,11 +1,11 @@
-// Shared pieces of the row-FFT kernels: radix-2 stage loops and the
-// odd-radix cross-DFT levels, in shared memory and in registers, and a
-// block-wide min/max reduction.
+// Shared pieces of the FFT kernels: the odd-radix cross-DFT levels in
+// registers, and a block-wide min/max reduction.
 //
-// Counterpart of the stage bodies of fft_restoration_tpu/ops/pallas/
-// fft_kernel.py (_dif_stage, _dit_stage, _fft_stages; engine="roll") and
-// of its mixed-radix levels (_cross_dft_level, _mixed_cross_fwd,
-// _mixed_cross_inv). The arithmetic is the JAX package's, expression for
+// Counterpart of the mixed-radix levels of fft_restoration_tpu/ops/
+// pallas/fft_kernel.py (_cross_dft_level, _mixed_cross_fwd,
+// _mixed_cross_inv; engine="roll"). The radix-2 stages themselves run in
+// register groups (fft_groups.cuh: B1, B3/B6, B2/B7/B10; fft_cols.cu:
+// B11; fft_radix4.cu: B12), the JAX package's arithmetic expression for
 // expression:
 //   DIF  (forward, stages long to short): a' = a + b, b' = (a - b) * w
 //   DIT  (inverse, stages short to long): a' = a + w*b, b' = a - w*b
@@ -27,20 +27,6 @@
 // template arguments (the pads give (3,), (5,), (3, 3) and (3, 5)), so
 // the element map costs no division at all. Every FFT kernel with cross
 // levels (B1, B3/B6, B2/B7) runs them so, in its load and its store.
-//
-// What bounds the stage loops here on the H100: one thread takes one
-// butterfly, so each of the log2(q) stages is a full read and write of
-// the rows through shared memory and a barrier. They serve the one
-// kernel whose radix-2 stages are not yet redesigned (B10, on no restore
-// path); the restore's FFT kernels, B1 (fft_rows_t.cu), B3/B6
-// (fft_rows.cu) and B2/B7 (wiener_spectral.cu), run their stages in
-// registers instead (fft_groups.cuh), B11 (fft_cols.cu) and B12
-// (fft_radix4.cu) in their own register groups.
-//
-// Layout of the shared-memory stage loops: a block holds `rows` complex
-// rows of length n as two planes, re[rows][n] then im[rows][n], in dynamic
-// shared memory. Every stage ends with __syncthreads(), so callers may
-// touch the planes right after.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,60 +78,6 @@ __host__ inline int radix_code(const CrossPlan& p) {
   if (p.levels == 1) return p.radix[0] == 3 ? 1 : p.radix[0] == 5 ? 2 : -1;
   if (p.radix[0] != 3) return -1;
   return p.radix[1] == 3 ? 3 : p.radix[1] == 5 ? 4 : -1;
-}
-
-// DIF stages s = stages-1 .. 0 over `qrows` rows of q = 2^stages points
-// (a mixed row is R q-rows); tstride: the width of the stage tables
-__device__ __forceinline__ void dif_stages(float* re, float* im, int qrows,
-                                           int stages, int tstride,
-                                           const float* __restrict__ cosv,
-                                           const float* __restrict__ sinv) {
-  if (stages == 0) return;
-  const int total = qrows << (stages - 1);
-  for (int s = stages - 1; s >= 0; --s) {
-    const int half = 1 << s;
-    const float* wc = cosv + (size_t)s * tstride;
-    const float* ws = sinv + (size_t)s * tstride;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int pos = t & (half - 1);
-      const int i0 = ((t >> s) << (s + 1)) + pos;  // q-rows are contiguous
-      const int i1 = i0 + half;
-      const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
-      const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
-      const float dr = ar - br, di = ai - bi;
-      re[i0] = ar + br;
-      im[i0] = ai + bi;
-      re[i1] = c * dr - sn * di;
-      im[i1] = c * di + sn * dr;
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void dit_stages(float* re, float* im, int qrows,
-                                           int stages, int tstride,
-                                           const float* __restrict__ cosv,
-                                           const float* __restrict__ sinv) {
-  if (stages == 0) return;
-  const int total = qrows << (stages - 1);
-  for (int s = 0; s < stages; ++s) {
-    const int half = 1 << s;
-    const float* wc = cosv + (size_t)s * tstride;
-    const float* ws = sinv + (size_t)s * tstride;
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      const int pos = t & (half - 1);
-      const int i0 = ((t >> s) << (s + 1)) + pos;
-      const int i1 = i0 + half;
-      const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
-      const float c = __ldg(wc + pos), sn = __ldg(ws + pos);
-      const float wr = c * br - sn * bi, wi = c * bi + sn * br;
-      re[i0] = ar + wr;
-      im[i0] = ai + wi;
-      re[i1] = ar - wr;
-      im[i1] = ai - wi;
-    }
-    __syncthreads();
-  }
 }
 
 // R-point DFT of x (registers), in place:

@@ -1,6 +1,7 @@
 // The register-resident stage-group engine of the row FFT kernels: B1's
-// transposed pass (fft_rows_t.cu) and B3/B6's row-major passes
-// (fft_rows.cu) both run their radix-2 stages here.
+// transposed pass (fft_rows_t.cu), B3/B6's row-major passes (fft_rows.cu)
+// and the spectral middles B2/B7/B10 (wiener_spectral.cu) run their
+// radix-2 stages here.
 //
 // The wrapper (ops/kernels/fft_kernel.py t_plan, r_plan) cuts the S
 // stages of a length q = 2^S (the pow2 tail of a row of N = R * q points)
@@ -37,7 +38,8 @@
 //   ST_T     B1's transposed output (the across map: neighbouring threads
 //            on neighbouring rows of one output column);
 //   ST_ROW   the row-major output, element (row, b) per slot (the top
-//            group, along map: B3/B6 inverse and natural);
+//            group, along map: B3/B6 inverse and natural, B10's last DIT
+//            group);
 //   ST_VEC   the row-major output, the bottom group: an item's 2^k
 //            consecutive columns as 16-byte vectors (B3/B6 forward).
 // ST_ROW and ST_VEC also fold the values they store into a thread's

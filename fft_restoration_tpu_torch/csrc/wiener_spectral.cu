@@ -1,7 +1,7 @@
 // The spectral middles of the 2D restore, in the transposed orientation.
 //
-// spectral_s_kernel<MODE, false, ..>: column FFT -> filter -> column IFFT
-// -> transposed write. Replaces fft_restoration_tpu/ops/pallas/
+// spectral_s_kernel<MODE, S_STORE_T, ..>: column FFT -> filter -> column
+// IFFT -> transposed write. Replaces fft_restoration_tpu/ops/pallas/
 // wiener_spectral.py:wiener_spectral_rows_t (B2) in both its modes:
 //   MODE_WIENER     F = G * conj(H) / (|H|^2 + K)
 //                   ("fftr_spectral_mid_T_wiener": the restore's middle)
@@ -12,12 +12,18 @@
 //                   PSF (H of a real PSF), RL's second conv. The JAX
 //                   package passes -H_im instead; the flag saves a negated
 //                   copy of the spectrum (17 MB at 2048^2) per RL step.
-// spectral_s_kernel<MODE_WIENER, true, ..>: column FFT -> Wiener ->
-// natural write. Replaces wiener_spectral.py:fwd_wiener_rows_pallas
+// spectral_s_kernel<MODE_WIENER, S_STORE_NATURAL, ..>: column FFT ->
+// Wiener -> natural write. Replaces wiener_spectral.py:fwd_wiener_rows_pallas
 // ("fftr_fwd_wiener", B7), the middle the pipeline takes for short
 // columns (hp < 512, e.g. a 256^2 stack): B2 without the DIT stages, so
 // the filtered spectrum goes to device memory once and B1's inverse pass
 // with transposed store (csrc/fft_rows_t.cu) finishes the middle.
+// spectral_s_kernel<MODE_WIENER, S_STORE_ROWS, 1, 1>: row FFT -> Wiener ->
+// row IFFT -> row-major write. Replaces wiener_spectral.py:
+// wiener_spectral_rows_pallas ("fftr_spectral_mid", B10): B2's function
+// with the natural store, the untransposed fused middle the JAX A/B
+// harness runs (tools/perf_ab.py megakernel); on no restore path. Pow2
+// rows only, as in JAX.
 //
 // In the transposed orientation the middle of the 2D restore works on
 // each row on its own: per block of rows the DIF stages (the second
@@ -29,7 +35,8 @@
 //
 // What bounds it on the H100: B2 reads A (67 MB at 2048^2 x 2 planes) and
 // H (34 MB) and writes the result (67 MB), 50 us at 3.35 TB/s; B7 at a
-// batch of 64 256^2 frames (96 pairs) 101 MB, 30 us. The shared-memory
+// batch of 64 256^2 frames (96 pairs) 101 MB, 30 us; B10 at (3, 2048,
+// 2048) 235 MB, 70 us. The shared-memory
 // design before this one ran each of the 2 log2(n) radix-2 stages as a
 // full pass through shared memory with a barrier, one thread per
 // butterfly (22 passes at n = 2048), plus a filter pass, and read the
@@ -50,17 +57,21 @@
 //   come as 16-byte vectors of row m0 + r, one vector at a time (H never
 //   doubles the register load). B7 stores the filtered items as 16-byte
 //   vectors (natural (P, M, N) order).
-// - B2's DIT groups run bottom up; at a pow2 length the top one stores
-//   its registers straight to the transposed output (ST_T, the across
-//   map: neighbouring threads on neighbouring rows of one column); a
-//   smooth row goes through both inverse cross levels in registers
-//   (cross_item) as it is read for the transposed store.
+// - B2's and B10's DIT groups run bottom up; at a pow2 length the top one
+//   stores its registers straight to the output: B2's transposed one
+//   (ST_T, the across map: neighbouring threads on neighbouring rows of
+//   one column), B10's row-major one (ST_ROW, the along map of its top
+//   DIF group: neighbouring threads on neighbouring columns). A smooth
+//   row goes through both inverse cross levels in registers (cross_item)
+//   as it is read for B2's transposed store; a single group (n <= 16)
+//   goes through the shared rows.
 //   At n = 2048: load + 2 exchanges + the fused bottom + 2 exchanges +
 //   store (4 barriers).
 // - Geometry: B2 blocks of 8 rows or more at n <= 2304 (32-byte column
 //   segments of the transposed store), 4 at 3840-4096 (16-byte: 4 rows
-//   fill 160 KB), 512 threads; B7 blocks of the rows in 32 KB, 128
-//   threads; per group the map (along or across) and the row stride whose
+//   fill 160 KB), 512 threads; B7 and B10 blocks of the rows in 32 KB (2
+//   at n = 2048: no column segments to fill, so several blocks share an
+//   SM), 128 threads; per group the map (along or across) and the row stride whose
 //   accesses the wrapper finds cheapest in Python
 //   (tests/test_torch_spectral_passes.py holds the limits). A ragged last
 //   block reads zero rows and stores only the live ones.
@@ -74,20 +85,14 @@
 // after the first plane's read (the plane count is not held to
 // gridDim.y's 65535).
 //
-// spectral_rows_kernel: row DIF -> Wiener -> row DIT, natural store.
-// Replaces wiener_spectral.py:wiener_spectral_rows_pallas (B10,
-// "fftr_spectral_mid"), the untransposed fused middle the JAX A/B harness
-// runs (tools/perf_ab.py megakernel); on no restore path, so it keeps the
-// shared-memory stage loops of fft_common.cuh (dif_stages, dit_stages),
-// one thread per butterfly. H row m serves every plane's row m (the JAX
-// wrapper materializes the broadcast H per plane; here it is indexed,
-// never copied), and a ragged last row block is bounds-checked (JAX
-// pads). Bound: A and H in, the result out, 235 MB at (3, 2048, 2048).
 #include "fft_groups.cuh"
 
 #define S_THREADS 512
 
 enum SpectralMode { MODE_WIENER = 0, MODE_CONV = 1, MODE_CONV_CONJ = 2 };
+// the output: B2's transposed (P, N, M) planes; B7's filtered spectrum in
+// natural (P, M, N) order (no DIT stages); B10's row-major (P, M, N) ones
+enum SpectralStore { S_STORE_T = 0, S_STORE_NATURAL = 1, S_STORE_ROWS = 2 };
 
 // x = filter(x, h): the plain version's expressions (ops/wiener.py
 // wiener_filter, spectral_product)
@@ -170,11 +175,11 @@ __device__ __forceinline__ void bottom_stage(float* xr, float* xi, int b,
 // The bottom stage group (s_lo = 0, width K) in one register pass over a
 // thread's items: its DIF stages, the filter against H's matching slots
 // of each item's row (a vector at a time, so H never doubles the register
-// load), then for B2 its DIT stages with the inverse tables (the
+// load), then for B2 and B10 its DIT stages with the inverse tables (the
 // butterflies and their order are stage_group's). Loads from the shared
-// rows; stores to them (B2) or, B7, to the natural output as 16-byte
+// rows; stores to them (B2, B10) or, B7, to the natural output as 16-byte
 // vectors. H is the (M, N) spectrum, row m0 + r serving the block's row r.
-template <int K, int MODE, bool B7>
+template <int K, int MODE, int STORE>
 __device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int row_shift,
                                              const float* __restrict__ cos_i,
                                              const float* __restrict__ sin_i,
@@ -183,6 +188,7 @@ __device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int
   constexpr int J = T_SLOTS >> K;
   constexpr int E = 1 << K;
   constexpr int W = E < 4 ? E : 4;  // floats a vector
+  constexpr bool B7 = STORE == S_STORE_NATURAL;
   const int lq = tb.logq - K;
   const int ub_mask = (1 << lq) - 1, row_mask = (1 << tb.lr) - 1;
   // item jh of slot set g: its row r and its first slot's column
@@ -249,14 +255,14 @@ __device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int
   }
 }
 
-template <int MODE, bool B7>
+template <int MODE, int STORE>
 __device__ __forceinline__ void run_bottom(const TBlock& tb, const GroupPlan& gp,
                                            const float* __restrict__ cos_i,
                                            const float* __restrict__ sin_i,
                                            const float* __restrict__ h_re,
                                            const float* __restrict__ h_im, float k_reg) {
   const int g = gp.groups - 1, us = gp.ub_shift[g], rsh = gp.row_shift[g];
-#define FUSED_BOTTOM(K) fused_bottom<K, MODE, B7>(tb, us, rsh, cos_i, sin_i, h_re, h_im, k_reg)
+#define FUSED_BOTTOM(K) fused_bottom<K, MODE, STORE>(tb, us, rsh, cos_i, sin_i, h_re, h_im, k_reg)
   switch (gp.k[g]) {
     case 1: FUSED_BOTTOM(1); break;
     case 2: FUSED_BOTTOM(2); break;
@@ -288,12 +294,12 @@ __device__ __forceinline__ void run_upper(const TBlock& tb, const GroupPlan& gp,
 // P planes of M rows of N = R0 * R1 * 2^logq points, (P, M, N) contiguous;
 // rows = 2^lr rows a block, rs_smem the padded row stride; block b takes
 // rows m0 = (b / P) * rows of plane b % P. gf: the DIF groups' maps, the
-// bottom one fused; gi (B2): the DIT groups' maps (its bottom
+// bottom one fused; gi (B2, B10): the DIT groups' maps (its bottom
 // entry unread). gf.direct_store (pow2, two groups or more): the top DIF
-// group loads device memory and B2's top DIT group stores the transposed
-// output from registers; otherwise both go through the shared rows, with
-// the cross levels cf / ci of a smooth row.
-template <int MODE, bool B7, int R0, int R1>
+// group loads device memory and the top DIT group stores the output from
+// registers (B2 transposed, B10 row-major); otherwise both go through the
+// shared rows, with the cross levels cf / ci of a smooth row.
+template <int MODE, int STORE, int R0, int R1>
 __global__ void __launch_bounds__(S_THREADS, 1)
 spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
                   const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
@@ -304,6 +310,7 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
                   const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
                   const __grid_constant__ CrossPlan ci) {
   constexpr int R = R0 * R1;
+  constexpr bool B7 = STORE == S_STORE_NATURAL, ROWS = STORE == S_STORE_ROWS;
   extern __shared__ float smem[];
   const int rows = 1 << lr;
   const int q = 1 << logq;
@@ -350,17 +357,17 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
     run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
     __syncthreads();
   }
-  // B7: the natural (P, M, N) output from row m0; B2: the transposed
+  // B7, B10: the natural (P, M, N) output from row m0; B2: the transposed
   // (P, N, M) output from column m0
-  const size_t obase = B7 ? ((size_t)p * M + m0) * N : (size_t)p * N * M + m0;
+  const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N : (size_t)p * N * M + m0;
   if constexpr (B7) {
     tf.out_re = out_re + obase;
     tf.out_im = out_im + obase;
   }
-  run_bottom<MODE, B7>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
+  run_bottom<MODE, STORE>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
   if constexpr (B7) return;
 
-  // B2: the DIT groups above the bottom one, bottom up
+  // B2, B10: the DIT groups above the bottom one, bottom up
   tf.out_re = out_re + obase;
   tf.out_im = out_im + obase;
   __syncthreads();
@@ -370,17 +377,18 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
   for (int g = gi.groups - 2; g >= 0; --g) {
     if constexpr (R == 1) {
       if (g == 0 && direct) {
-        run_upper<true, LD_SMEM, ST_T>(ti, gi, g, ld);
+        run_upper<true, LD_SMEM, ROWS ? ST_ROW : ST_T>(ti, gi, g, ld);
         return;
       }
     }
     run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
     __syncthreads();
   }
-  // (both inverse cross levels, then) the transposed store: neighbouring
-  // threads take neighbouring rows of one column
+  // (both inverse cross levels, then) the store: B2's transposed one,
+  // neighbouring threads on neighbouring rows of one column; B10's
+  // row-major one, neighbouring threads along a row
   for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
-    const int r = t & (rows - 1), b = t >> lr;
+    const int r = ROWS ? t >> logq : t & (rows - 1), b = ROWS ? t & (q - 1) : t >> lr;
     float xr[R], xi[R];
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -392,7 +400,7 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
     if (m0 + r < M) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
-        const size_t o = (size_t)(b + j * q) * M + r;
+        const size_t o = ROWS ? (size_t)r * N + b + j * q : (size_t)(b + j * q) * M + r;
         tf.out_re[o] = xr[j];
         tf.out_im[o] = xi[j];
       }
@@ -400,7 +408,7 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
   }
 }
 
-template <int MODE, bool B7, int R0, int R1>
+template <int MODE, int STORE, int R0, int R1>
 static int launch_s(const void* a_re, const void* a_im, const void* h_re, const void* h_im,
                     float k_reg, void* out_re, void* out_im, int P, int M, int logq, int lr,
                     int rs_smem, int threads, const void* cos_f, const void* sin_f,
@@ -408,19 +416,19 @@ static int launch_s(const void* a_re, const void* a_im, const void* h_re, const 
                     const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
                     cudaStream_t stream) {
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  cudaError_t err = allow_smem(spectral_s_kernel<MODE, B7, R0, R1>, smem);
+  cudaError_t err = allow_smem(spectral_s_kernel<MODE, STORE, R0, R1>, smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = 1 << lr;
   const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  spectral_s_kernel<MODE, B7, R0, R1><<<nblk * P, threads, smem, stream>>>(
+  spectral_s_kernel<MODE, STORE, R0, R1><<<nblk * P, threads, smem, stream>>>(
       (const float*)a_re, (const float*)a_im, (const float*)h_re, (const float*)h_im, k_reg,
       (float*)out_re, (float*)out_im, P, M, logq, lr, rs_smem, (const float*)cos_f,
       (const float*)sin_f, (const float*)cos_i, (const float*)sin_i, gf, gi, cf, ci);
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool B7>
+template <int MODE, int STORE>
 static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
                           const void* h_im, float k_reg, void* out_re, void* out_im, int P,
                           int M, int logq, int lr, int rs_smem, int threads, const void* cos_f,
@@ -428,7 +436,7 @@ static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
                           const GroupPlan& gf, const GroupPlan& gi, const CrossPlan& cf,
                           const CrossPlan& ci, cudaStream_t stream) {
 #define SPECTRAL_LAUNCH(R0, R1)                                                             \
-  launch_s<MODE, B7, R0, R1>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, \
+  launch_s<MODE, STORE, R0, R1>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, \
                              rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf, ci,  \
                              stream)
   switch (radix_code(cf)) {
@@ -454,8 +462,8 @@ static bool bad_levels(int levels) {
   return levels < 0 || levels > MAX_CROSS_LEVELS;
 }
 
-// The plan arrays of one launch (fft_kernel.TPlan.c_plan; B2's DIT maps
-// in plan_i, B7 none) and its geometry, checked: false when they do not
+// The plan arrays of one launch (fft_kernel.TPlan.c_plan; B2's and B10's
+// DIT maps in plan_i, B7 none) and its geometry, checked: false when they do not
 // describe logq stages, the two plans' groups differ, a thread's 16 slots
 // are not all live (rows * q >= 16), or the direct maps meet a smooth row
 // or a single group
@@ -475,7 +483,7 @@ static bool read_plans(const int* plan_f, const int* plan_i, int logq, int lr, i
   return true;
 }
 
-template <int MODE, bool B7>
+template <int MODE, int STORE>
 static int launch_entry(const void* a_re, const void* a_im, const void* h_re, const void* h_im,
                         float k_reg, void* out_re, void* out_im, int P, int M, int logq, int lr,
                         int rs_smem, int threads, const void* cos_f, const void* sin_f,
@@ -486,7 +494,7 @@ static int launch_entry(const void* a_re, const void* a_im, const void* h_re, co
   if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi) ||
       radix_code(cf) < 0 || radix_code(ci) != radix_code(cf))
     return (int)cudaErrorInvalidValue;
-  return launch_radices<MODE, B7>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
+  return launch_radices<MODE, STORE>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
                                   lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf,
                                   ci, (cudaStream_t)stream);
 }
@@ -503,7 +511,7 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const int* plan_i, CROSS_ARGS(f), CROSS_ARGS(i),
                                         void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
-  return launch_entry<MODE_WIENER, false>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
+  return launch_entry<MODE_WIENER, S_STORE_T>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
                                           logq, lr, rs_smem, threads, cos_f, sin_f, cos_i,
                                           sin_i, plan_f, plan_i, CROSS_PLAN(f), CROSS_PLAN(i),
                                           stream);
@@ -519,10 +527,10 @@ extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im, const 
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f), ci = CROSS_PLAN(i);
   if (conj)
-    return launch_entry<MODE_CONV_CONJ, false>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
+    return launch_entry<MODE_CONV_CONJ, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
                                                M, logq, lr, rs_smem, threads, cos_f, sin_f,
                                                cos_i, sin_i, plan_f, plan_i, cf, ci, stream);
-  return launch_entry<MODE_CONV, false>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
+  return launch_entry<MODE_CONV, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
                                         logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
                                         plan_f, plan_i, cf, ci, stream);
 }
@@ -535,70 +543,25 @@ extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im, const 
                                       CROSS_ARGS(f), void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f);
-  return launch_entry<MODE_WIENER, true>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
+  return launch_entry<MODE_WIENER, S_STORE_NATURAL>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
                                          lr, rs_smem, threads, cos_f, sin_f, nullptr, nullptr,
                                          plan_f, nullptr, cf, cf, stream);
 }
 
-// B10: the rows' DIF stages, Wiener, DIT stages, each stage a pass
-// through shared memory; rows past M (a ragged last block) read as zero
-// and are not stored
-__global__ void __launch_bounds__(FFT_THREADS)
-spectral_rows_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
-                     const float* __restrict__ h_re, const float* __restrict__ h_im, float K,
-                     float* __restrict__ out_re, float* __restrict__ out_im, int M, int N,
-                     int stages, int rows, int nblk, const float* __restrict__ cos_f,
-                     const float* __restrict__ sin_f, const float* __restrict__ cos_i,
-                     const float* __restrict__ sin_i) {
-  extern __shared__ float smem[];
-  float* sre = smem;
-  float* sim = smem + rows * N;
-  const int p = blockIdx.x / nblk;
-  const int m0 = (blockIdx.x - p * nblk) * rows;
-  const size_t base = ((size_t)p * M + m0) * N;
-  const size_t hbase = (size_t)m0 * N;
-  const int live = (M - m0 < rows ? M - m0 : rows) * N;
-
-  for (int t = threadIdx.x; t < rows * N; t += blockDim.x) {
-    sre[t] = t < live ? a_re[base + t] : 0.0f;
-    sim[t] = t < live ? a_im[base + t] : 0.0f;
-  }
-  __syncthreads();
-  dif_stages(sre, sim, rows, stages, N, cos_f, sin_f);
-  for (int t = threadIdx.x; t < live; t += blockDim.x) {
-    float xr = sre[t], xi = sim[t];
-    spectral_filter<MODE_WIENER>(xr, xi, h_re[hbase + t], h_im[hbase + t], K);
-    sre[t] = xr;
-    sim[t] = xi;
-  }
-  __syncthreads();
-  dit_stages(sre, sim, rows, stages, N, cos_i, sin_i);
-  for (int t = threadIdx.x; t < live; t += blockDim.x) {
-    out_re[base + t] = sre[t];
-    out_im[base + t] = sim[t];
-  }
-}
-
-// wiener_spectral_rows (B10): over P planes of M rows (M any, the last row
-// block ragged), N = 2^stages, `rows` rows a block (a power of two up to
-// 16; the wrapper checks the shared memory); H is (M, N), row m serving
-// every plane's row m
+// B10 (wiener_spectral_rows): the row-major store, pow2 rows only (no
+// cross levels), 'wiener' mode; arguments as B2's, plan_i the DIT maps
 extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
-                                           const void* h_re, const void* h_im,
-                                           float K, void* out_re, void* out_im,
-                                           int P, int M, int N, int stages,
-                                           int rows, const void* cos_f,
+                                           const void* h_re, const void* h_im, float K,
+                                           void* out_re, void* out_im, int P, int M, int logq,
+                                           int lr, int rs_smem, int threads, const void* cos_f,
                                            const void* sin_f, const void* cos_i,
-                                           const void* sin_i, void* stream) {
-  if (rows < 1 || N != (1 << stages)) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)rows * N * sizeof(float);
-  cudaError_t err = allow_smem(spectral_rows_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  spectral_rows_kernel<<<nblk * P, FFT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)a_re, (const float*)a_im, (const float*)h_re, (const float*)h_im, K,
-      (float*)out_re, (float*)out_im, M, N, stages, rows, nblk, (const float*)cos_f,
-      (const float*)sin_f, (const float*)cos_i, (const float*)sin_i);
-  return (int)cudaGetLastError();
+                                           const void* sin_i, const int* plan_f,
+                                           const int* plan_i, void* stream) {
+  GroupPlan gf, gi;
+  if (!read_plans(plan_f, plan_i, logq, lr, threads, 0, &gf, &gi))
+    return (int)cudaErrorInvalidValue;
+  const CrossPlan none = make_cross_plan(0, nullptr, nullptr, nullptr, nullptr);
+  return launch_s<MODE_WIENER, S_STORE_ROWS, 1, 1>(
+      a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, sin_f,
+      cos_i, sin_i, gf, gi, none, none, (cudaStream_t)stream);
 }

@@ -69,9 +69,9 @@ SIGNATURES = {
     # padded row stride, threads, cos_f, sin_f, host int32 plan, CROSS fwd,
     # stream
     "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I, P, P, P, *CROSS, P],
-    # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, N, stages,
-    # rows_per_block, cos_f, sin_f, cos_i, sin_i, stream
-    "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, P, P, P, P, P],
+    # B10: as wiener_spectral_t_launch without the cross levels (pow2 rows)
+    "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I,
+                                    P, P, P, P, P, P, P],
     # re, im, out_re, out_im, planes, H, W, log2 H, log2 cols, threads, mode,
     # cos, sin, host int32 plan (fft_kernel.ColPlan.c_plan), stream
     "fft_cols_launch": [P, P, P, P, I, I, I, I, I, I, I, P, P, P, P],

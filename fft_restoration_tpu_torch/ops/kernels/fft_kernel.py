@@ -8,7 +8,7 @@ the transposed store (B1, `_fft_rows_transposed`) in csrc/fft_rows_t.cu
 after the plan `t_plan` computes here; the row-major passes, the plain
 row pass (B6, `fft_rows_pallas`, both orderings) and the final
 packed-output inverse with min/max partials (B3, `fft_rows_packed_out`),
-in csrc/fft_rows.cu after `r_plan`; the spectral middles B2 and B7
+in csrc/fft_rows.cu after `r_plan`; the spectral middles B2, B7 and B10
 (ops/kernels/wiener_spectral.py) run on the same engine after `s_plan`.
 A plan holds the stage groups, the thread-to-element map and the padded
 shared rows; `t_slot_index` and `t_cross_columns` give its element map,
@@ -55,12 +55,9 @@ import torch
 
 from fft_restoration_tpu_torch.ops.kernels import launch_counts, on_cuda, u8_to_unit
 
-# shared memory per block for the rows it holds (2 float planes) in the
-# kernels whose stages run in shared memory (B10, B12); it also
-# sets the rows of one of B3's min/max partials (rows_per_block), which a
-# packed-store block of B3 holds (r_plan). 64 KB let three blocks share an
-# SM at n=2048 (measured on an H100 at 2048^2 for the shared-memory stage
-# loops: faster than 32 KB, and than 128 KB)
+# shared memory for the rows of one of B3's min/max partials
+# (rows_per_block: 4 at n = 2048), which a packed-store block of B3 holds
+# (r_plan); the kernels' other blocks take their rows from their plans
 ROWS_SMEM_BUDGET = 64 << 10
 # one complex float32 row must fit a block's shared memory (227 KB on
 # Hopper): the kernels take rows of at most 16384 points
@@ -293,7 +290,8 @@ class TPlan(NamedTuple):
     more stores its registers straight to the transposed output
     (direct_store) or through shared memory (s_plan: whether the top DIF
     group loads, and B2's top DIT group stores, device memory).
-    dit_groups: B2's maps of its DIT groups (s_plan), () elsewhere."""
+    dit_groups: B2's and B10's maps of their DIT groups (s_plan), ()
+    elsewhere."""
 
     n: int
     logq: int
@@ -538,18 +536,20 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
 
 
 # ---------------------------------------------------------------------------
-# B2/B7's plan (csrc/wiener_spectral.cu): the spectral middles on the same
-# stage groups. The DIF groups run top down, the bottom group runs its DIF
-# stages, the filter and (B2) its DIT stages in one register pass, B2's
-# DIT groups run bottom up. The CPU tests emulate it group by group.
+# B2/B7/B10's plan (csrc/wiener_spectral.cu): the spectral middles on the
+# same stage groups. The DIF groups run top down, the bottom group runs its
+# DIF stages, the filter and (B2, B10) its DIT stages in one register pass,
+# B2's and B10's DIT groups run bottom up. The CPU tests emulate it group
+# by group.
 
-S_STORES = ("transposed", "natural")  # B2's store, B7's
+S_STORES = ("transposed", "natural", "rows")  # B2's store, B7's, B10's
 
 
 def s_pinned(groups: int, g: int, k: int, direct: bool) -> bool:
     """Whether group g (k stages) of an s_plan of `groups` groups keeps the
     along map in its DIF pass: the top group when it loads device memory
-    (direct), and a bottom group of items narrower than a 32-byte segment
+    (direct; B10's top DIT group stores the row-major output through the
+    same map), and a bottom group of items narrower than a 32-byte segment
     (k < 3), whose vectors of H (and B7's stores) need their neighbours'
     to fill one."""
     return (g == 0 and direct) or (g == groups - 1 and k < 3)
@@ -559,43 +559,50 @@ def s_pinned(groups: int, g: int, k: int, direct: bool) -> bool:
 def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transposed",
            blocks_wanted: int = 0, rows: int = 0, threads: int = 0) -> TPlan:
     """The plan of a spectral middle over planes of m rows of length n:
-    B2 (store="transposed", wiener_spectral_t and spectral_conv_t) or B7
-    (store="natural", fwd_wiener_rows).
+    B2 (store="transposed", wiener_spectral_t and spectral_conv_t), B7
+    (store="natural", fwd_wiener_rows) or B10 (store="rows",
+    wiener_spectral_rows: pow2 rows only).
 
     Rows a block: B2 as t_plan (the largest power of two up to the next
     one >= m, T_MAX_ROWS and the T_SMEM_BUDGET of padded rows; halved while
     the launch has fewer than blocks_wanted blocks, down to
     T_MIN_ROWS_STORE, whose 32-byte column segments the transposed store
-    then writes: 8 rows at n = 2048 and 2304, 4 at 3840 and 4096); B7 as
-    r_plan's natural store (the rows in R_SMEM_BUDGET, up to 16); at
-    least 16 / q either way, so every thread's 16 slots are full. A ragged
-    last block reads zero rows. Threads: T_THREADS (B2) or R_PLAN_THREADS
-    (B7), fewer for a block of fewer slot sets. `rows` and `threads`
-    override the two (tools/rows_geometry.py).
+    then writes: 8 rows at n = 2048 and 2304, 4 at 3840 and 4096); B7 and
+    B10 as r_plan's natural store (the rows in R_SMEM_BUDGET, up to 16: 2
+    at n = 2048); at least 16 / q either way, so every thread's 16 slots
+    are full. A ragged last block reads zero rows. Threads: T_THREADS (B2)
+    or R_PLAN_THREADS (B7, B10), fewer for a block of fewer slot sets.
+    `rows` and `threads` override the two (tools/rows_geometry.py; rows
+    below 16 / q take 16 / q).
 
     direct_store: a pow2 row of two groups or more; its top DIF group
-    loads device memory (the along map) and B2's top DIT group stores the
-    transposed output from registers (the across map: neighbouring threads
-    on neighbouring rows of one output column); a smooth row or a single
-    group goes through the shared rows (the cross levels of a smooth row
-    in registers as it loads and stores). The groups s_pinned names keep
-    the along map; another takes the map, along or across, that
-    t_bank_conflicts finds cheaper, in B2's DIT pass as in its DIF pass.
-    The row stride is the first past the padded row that keeps the groups'
-    accesses cheapest (and, without direct_store, B2's transposed read of
-    the shared rows conflict-free)."""
+    loads device memory (the along map) and the top DIT group stores the
+    output from registers: B2's transposed one through the across map
+    (neighbouring threads on neighbouring rows of one output column),
+    B10's row-major one through the along map of its top DIF group. A
+    smooth row or a single group goes through the shared rows (the cross
+    levels of a smooth row in registers as it loads and stores). The groups
+    s_pinned names keep the along map; another takes the map, along or
+    across, that t_bank_conflicts finds cheaper, in the DIT pass as in the
+    DIF pass. The row stride is the first past the padded row that keeps
+    the groups' accesses cheapest (and, without direct_store, B2's
+    transposed read of the shared rows conflict-free)."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
     if store not in S_STORES:
         raise ValueError(f"unknown store {store!r}; one of {S_STORES}")
+    if store == "rows" and radices:
+        raise ValueError("B10's row store takes power-of-two rows only")
     transposed = store == "transposed"
     q = 1 << stages
     floor = T_SLOTS // q if q < T_SLOTS else 1
-    if not rows:
+    if rows:
+        rows = max(rows, floor)
+    else:
         cap = max(floor, min(T_MAX_ROWS if transposed else 16, 1 << max(0, m - 1).bit_length()))
-        # bytes of one row: B2's padded row and its stride's slack, B7's row
-        # (as r_plan counts them)
+        # bytes of one row: B2's padded row and its stride's slack, B7's and
+        # B10's row (as r_plan counts them)
         row_bytes, budget = ((8 * (t_pad(n) + 32), T_SMEM_BUDGET) if transposed
                              else (8 * n, R_SMEM_BUDGET))
         rows = 1
@@ -629,7 +636,7 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
             if transposed and g == 0 and direct:  # the top DIT group's direct store
                 dit.append(across)
                 costs.append(t_bank_conflicts(plan, across))
-            elif transposed:
+            elif store != "natural":  # B2's other DIT groups, all of B10's
                 dit.append(dif[-1])
         key = (max(costs), sum(costs))
         if best is None or key < best[0]:

@@ -1,4 +1,4 @@
-"""The spectral middles of the restore (B2, B7) — wrappers and plain versions.
+"""The spectral middles (B2, B7, B10) — wrappers and plain versions.
 
 Counterparts of fft_restoration_tpu/ops/pallas/wiener_spectral.py, all
 in csrc/wiener_spectral.cu:
@@ -15,16 +15,18 @@ in csrc/wiener_spectral.cu:
      transposed=True)` then finishes the middle. The pipeline takes it
      when the column length is below 512 (models/pipeline.py).
   B10 `wiener_spectral_rows` (wiener_spectral_rows_pallas): the same
-     function as B2's Wiener mode with the natural store, over (..., M, N)
-     planes with a ragged last row block; on no restore path (the JAX
-     package runs it in its A/B harness only), timed by tools/perf_ab.py
-     megakernel.
-B2 and B7 run their stages on the stage-group engine of B1 and B3/B6
-(csrc/fft_groups.cuh) after the plan `fft_kernel.s_plan` (the bottom
-group's DIF stages, the filter and B2's DIT stages in one register
-pass), take any plane height (a ragged last row block is masked), and
-take `radices` (a smooth column length, the cross levels of
-ops/kernels/fft_kernel.py around the DIF and DIT stages).
+     function as B2's Wiener mode with the row-major store, over (..., M,
+     N) planes of pow2 rows; on no restore path (the JAX package runs it
+     in its A/B harness only), timed by tools/perf_ab.py megakernel.
+All three run one kernel, `spectral_s_kernel`, on the stage-group engine
+of B1 and B3/B6 (csrc/fft_groups.cuh) after the plan `fft_kernel.s_plan`
+with one of its three stores (`S_STORES`): the DIF groups top down, the
+bottom group's DIF stages, the filter and (B2, B10) its DIT stages in one
+register pass, the DIT groups bottom up, the top one storing B2's
+transposed or B10's row-major output from registers. They take any plane
+height (a ragged last row block is masked); B2 and B7 take `radices` (a
+smooth column length, the cross levels of ops/kernels/fft_kernel.py
+around the DIF and DIT stages).
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
     check_kernel_length,
     check_length,
     cross_args,
-    rows_per_block,
     run_stages,
     s_plan,
     tables,
@@ -66,34 +67,36 @@ def _check(a_re, a_im, h_re, h_im, radices):
 
 @functools.lru_cache(maxsize=256)
 def _s_launch_args(n, radices, m, store, device, pairs, rows=0, threads=0) -> tuple:
-    """The arguments of one B2 or B7 launch that depend on its shape only
-    (the plan, the table and cross-level pointers), worked out once per
-    shape as fft_kernel._t_launch_args; the plan arrays stay alive in the
-    cache. B2: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i,
-    *cross_f, *cross_i); B7: (geometry, cos_f, sin_f, plan_f, *cross_f).
+    """The arguments of one B2, B7 or B10 launch that depend on its shape
+    only (the plan, the table and cross-level pointers), worked out once
+    per shape as fft_kernel._t_launch_args; the plan arrays stay alive in
+    the cache. B2: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i,
+    *cross_f, *cross_i); B7: (geometry, cos_f, sin_f, plan_f, *cross_f);
+    B10: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i).
     rows, threads: s_plan's overrides (tools/rows_geometry.py)."""
     check_kernel_length(n)
-    b2 = store == "transposed"
+    b2, dit = store == "transposed", store != "natural"
     wanted = -(-_sm_count(device) * T_MIN_WAVES // pairs) if b2 else 0
     plan = s_plan(n, radices, m, store, wanted, rows, threads)
-    arrays = (plan.c_plan(), plan.c_plan(dit=True)) if b2 else (plan.c_plan(),)
+    arrays = (plan.c_plan(), plan.c_plan(dit=True)) if dit else (plan.c_plan(),)
     tf = tables(n, False, device, radices)
     consts = [tf.cos.data_ptr(), tf.sin.data_ptr()]
-    if b2:
+    if dit:
         ti = tables(n, True, device, radices)
         consts += [ti.cos.data_ptr(), ti.sin.data_ptr()]
     consts += [a.ctypes.data for a in arrays]
-    consts += cross_args(n, radices, False, device)
+    if store != "rows":
+        consts += cross_args(n, radices, False, device)
     if b2:
         consts += cross_args(n, radices, True, device)
     return (plan.logq, plan.lr, plan.rs, plan.threads), tuple(consts), arrays
 
 
 def _launch_s(entry, a_re, a_im, h_re, h_im, arg, radices, store, rows=0, threads=0):
-    """One launch of B2 or B7 through its C entry `entry` (the filter's
-    scalar argument `arg`: K, or B2's conj flag) into a new output: B2's
-    transposed (P, N, M) planes, B7's natural (P, M, N) ones. rows,
-    threads: s_plan's overrides."""
+    """One launch of B2, B7 or B10 through its C entry `entry` (the
+    filter's scalar argument `arg`: K, or B2's conj flag) into a new
+    output: B2's transposed (P, N, M) planes, B7's and B10's natural (P,
+    M, N) ones. rows, threads: s_plan's overrides."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     radices = tuple(radices)
@@ -168,7 +171,8 @@ def wiener_spectral_t(a_re, a_im, h_re, h_im, K, radices=()):
 
 
 def _check_rows(a_re, a_im, h_re, h_im, rows):
-    """Validate B10's operands; returns (planes, M, N, stages, rows)."""
+    """Validate B10's operands (any plane height: the kernel masks a ragged
+    last row block); returns (planes, M, N)."""
     if a_re.ndim < 2 or a_im.shape != a_re.shape:
         raise ValueError(f"need matching (..., M, N) planes, got {tuple(a_re.shape)}")
     m, n = a_re.shape[-2:]
@@ -178,13 +182,12 @@ def _check_rows(a_re, a_im, h_re, h_im, rows):
     for t in (a_re, a_im, h_re, h_im):
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("planes and spectrum must be contiguous float32")
-    stages = check_length(n)
-    if rows is None:
-        rows = rows_per_block(n, m)
-    if rows < 1 or rows & (rows - 1) or rows > 16 or 8 * rows * n > MAX_BLOCK_SMEM:
+    check_length(n)
+    if rows is not None and (rows < 1 or rows & (rows - 1) or rows > 16
+                             or 8 * rows * n > MAX_BLOCK_SMEM):
         raise ValueError(f"rows per block {rows}: a power of two <= 16 whose {rows} rows "
                          f"of {n} points fit {MAX_BLOCK_SMEM} bytes of shared memory")
-    return a_re.numel() // (m * n), m, n, stages, rows
+    return a_re.numel() // (m * n), m, n
 
 
 def wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, K, rows=None):
@@ -203,28 +206,19 @@ def wiener_spectral_rows(a_re, a_im, h_re, h_im, K, rows=None):
     the revorder spectrum pending along N (DIF forward, DIT inverse, so
     the output is in natural order); h_re, h_im: the (M, N) spectrum in
     the same layout, row m serving row m of every plane. rows: rows a
-    kernel block holds (a power of two <= 16; default rows_per_block),
-    the knob of the A/B harness (tools/perf_ab.py megakernel). Returns
-    (..., M, N) float32 planes.
+    kernel block holds (a power of two <= 16 whose rows fit a block's
+    shared memory; default s_plan's, 2 at N = 2048; a value below 16 / N
+    takes 16 / N), the knob of the A/B harness (tools/perf_ab.py
+    megakernel). Returns (..., M, N) float32 planes.
     """
     if not on_cuda(a_re, a_im, h_re, h_im):
         return wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, K, rows)
-    from fft_restoration_tpu_torch.ops.kernels import _build
-
-    planes, m, n, stages, rows = _check_rows(a_re, a_im, h_re, h_im, rows)
-    check_kernel_length(n)
-    out_re, out_im = torch.empty_like(a_re), torch.empty_like(a_im)
-    tf = tables(n, False, a_re.device)
-    ti = tables(n, True, a_re.device)
-    err = _build.load().wiener_spectral_rows_launch(
-        a_re.data_ptr(), a_im.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), float(K),
-        out_re.data_ptr(), out_im.data_ptr(), planes, m, n, stages, rows,
-        tf.cos.data_ptr(), tf.sin.data_ptr(), ti.cos.data_ptr(), ti.sin.data_ptr(),
-        torch.cuda.current_stream(a_re.device).cuda_stream,
-    )
-    _build.check(err, "wiener_spectral_rows")
+    planes, m, n = _check_rows(a_re, a_im, h_re, h_im, rows)
+    flat = [a.view(planes, m, n) for a in (a_re, a_im)]
+    out = _launch_s("wiener_spectral_rows_launch", *flat, h_re, h_im, float(K), (), "rows",
+                    rows or 0)
     launch_counts["wiener_spectral_rows"] += 1
-    return out_re, out_im
+    return tuple(o.view(a_re.shape) for o in out)
 
 
 def spectral_conv_t_plain(a_re, a_im, h_re, h_im, conj=False, radices=()):

@@ -21,8 +21,9 @@ plain restore's raw planes of the 2048^2 frame (strides 1 and 4),
 batch8 2048^2, batch64 256^2 and the UHD frame at --pad smooth; the ops
 layer's B11 (`fft_cols`: both orderings and directions at (3, 2048,
 2048), natural forward on the tall (1, 4096, 2048) and on (96, 256,
-256)) and B12 (`fft_rows_radix4_fwd` on (6144, 2048) real and complex
-rows). `--modes` times only the modes whose names start with one of its
+256)), B12 (`fft_rows_radix4_fwd` on (6144, 2048) real and complex
+rows) and B10 (`B10_rows`: `wiener_spectral_rows` on (3, 2048, 2048)
+planes with a (2048, 2048) spectrum). `--modes` times only the modes whose names start with one of its
 prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy, event time and host enqueue. The
@@ -31,7 +32,8 @@ as their wrappers' host time, are also timed in a CUDA graph
 (`<mode>_graph`) and on the host clock (`<mode>_host_us`, one wrapper
 call). --sass: also
 compares the two builds' machine code (cuobjdump -sass) function by function and names the kernel
-instances whose code differs. Uses only functions both checkouts have.
+instances whose code differs; an instance in one build only whose code is that of an instance
+in the other build only (a template argument renamed) is reported as renamed, not as differing. Uses only functions both checkouts have.
 Prints one line per mode and path and a JSON object last; exits non-zero
 without a GPU.
 """
@@ -198,6 +200,7 @@ def child(iters: int, seed: int, only: tuple = ()) -> dict:
     modes["B11_natural_fwd_96x256x256"] = lambda: fk.fft_cols(s_re, s_im)
     modes["B12_real_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re)
     modes["B12_complex_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re, x_im)
+    modes["B10_rows"] = lambda: ws.wiener_spectral_rows(c_re, c_im, *H, 0.01)
     # the white-balance pair on the plain restore's raw planes, also timed
     # in a CUDA graph (`<mode>_graph`): their single-frame launches are
     # shorter than the wrappers' host time
@@ -244,12 +247,20 @@ def _sass(root: Path) -> dict:
 
 def sass_diff(roots: dict) -> dict:
     """The kernel instances of the two builds: those with the same machine
-    code, those that differ, those in one build only."""
+    code, those that differ, those renamed (in one build only, with the
+    machine code of an instance in the other build only: {other name:
+    change name}), and the rest of those in one build only."""
     other, change = _sass(roots["other"]), _sass(roots["change"])
     same = sorted(n for n in other if change.get(n) == other[n])
     differ = sorted(n for n in other if n in change and change[n] != other[n])
-    return dict(same=same, differ=differ, only_other=sorted(set(other) - set(change)),
-                only_change=sorted(set(change) - set(other)))
+    only_other = sorted(set(other) - set(change))
+    by_code = {}
+    for n in sorted(set(change) - set(other)):
+        by_code.setdefault(change[n], []).append(n)
+    renamed = {n: by_code[other[n]].pop(0) for n in only_other if by_code.get(other[n])}
+    return dict(same=same, differ=differ, renamed=renamed,
+                only_other=[n for n in only_other if n not in renamed],
+                only_change=sorted(n for names in by_code.values() for n in names))
 
 
 def _turn(root: Path, args, *cmd) -> str:
@@ -303,8 +314,10 @@ def main() -> int:
     if args.sass:
         diff = result["sass"] = sass_diff(roots)
         print(f"SASS: {len(diff['same'])} kernel instances identical, {len(diff['differ'])} "
-              f"differ, {len(diff['only_other'])} only in other, {len(diff['only_change'])} "
-              f"only in change; differing: {diff['differ']}", flush=True)
+              f"differ, {len(diff['renamed'])} renamed with identical code, "
+              f"{len(diff['only_other'])} only in other, {len(diff['only_change'])} only in "
+              f"change; differing: {diff['differ']}; only in change: {diff['only_change']}",
+              flush=True)
     if not args.no_paths:
         prof = str(ROOT / "fft_restoration_tpu_torch" / "tools" / "profile_paths.py")
         paths = {k: [] for k in roots}

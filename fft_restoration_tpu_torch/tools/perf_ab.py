@@ -10,7 +10,8 @@ experiments that launch kernels of the port (no argument runs both):
               radix-2 stages) on the same (6144, 2048) real float32 rows:
               2048^2 x 3 channels as rows (perf_ab.py:451-466).
   megakernel  B10 (`wiener_spectral_rows`, row DIF -> Wiener -> row DIT
-              in one kernel) at 1, 2, 4 and 8 rows per block against B7
+              in one kernel, the row store of the stage-group spectral
+              kernel) at 1, 2, 4 and 8 rows per block against B7
               (`fwd_wiener_rows`) followed by B6's inverse revorder pass,
               on (3, 2048, 2048) planes and a (2048, 2048) spectrum
               (perf_ab.py:468-505).
@@ -40,7 +41,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 N = 2048
 ROWS = 3 * N                 # radix4: the three channels of a 2048^2 frame as rows
 PLANES = 3                   # megakernel: (3, 2048, 2048)
-MEGA_ROWS = (1, 2, 4, 8)     # rows per B10 block (8 rows of 2048 points: 128 KB)
+MEGA_ROWS = (1, 2, 4, 8)     # rows per B10 block (8 padded rows of 2048 points: 135 KB)
 
 
 def time_ms(torch, fn, iters: int, loops: int = 3) -> float:

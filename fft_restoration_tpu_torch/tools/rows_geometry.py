@@ -3,7 +3,7 @@ kernels' rows and threads a block, the white-balance kernels' rows a
 thread, the column FFT's strip width and threads a block.
 
     python -m fft_restoration_tpu_torch.tools.rows_geometry [--iters N] [--seed N]
-        [--post-only | --cols | --radix4]
+        [--post-only | --cols | --radix4 | --spectral]
 
 Launches csrc/fft_rows.cu (B3/B6, `fft_kernel.r_plan` with its `rows`
 and `threads` overrides) and csrc/wiener_spectral.cu (B2/B7,
@@ -16,8 +16,10 @@ packed inverse (2 pairs at 2048^2, 96 at 256^2, 2 at the UHD frame's
 inverse pass (2 pairs at 2048^2), B6's PSF pass (1 pair at 2048^2 and at
 the UHD frame's 3840x2304 smooth columns), B6 natural forward (3 pairs
 at 2048^2); B2 'wiener' (2 pairs at 2048^2, at the UHD frame's
-3840x2304 smooth and 4096^2 pow2 planes) and B7 (96 pairs at 256^2, the
-batch64 middle); B4/B8a and B5/B8b (csrc/postprocess.cu,
+3840x2304 smooth and 4096^2 pow2 planes), B7 (96 pairs at 256^2, the
+batch64 middle) and B10 (the row store: 3 planes at 2048^2, the JAX A/B
+harness's megakernel shape, and 2 at 8192^2; `--spectral` runs these
+alone); B4/B8a and B5/B8b (csrc/postprocess.cu,
 `postprocess.lab_l_plan` and `wb_encode_plan` with their rows-a-thread
 override; CUDA events and, as the
 wrappers' host time exceeds the short launches', a CUDA graph of the
@@ -53,12 +55,14 @@ CASES = {
     "B6_natural_fwd_3x2048x2048": (3, 2048, 2048, False, True, (), False, (1, 2, 4, 8)),
 }
 THREADS = (128, 256)
-# B2 / B7: name: (pairs, M, N, radices, store, rows to try, threads to try)
+# B2 / B7 / B10: name: (pairs, M, N, radices, store, rows to try, threads to try)
 S_CASES = {
     "B2_2x2048x2048": (2, 2048, 2048, (), "transposed", (2, 4, 8), (256, 512)),
     "B2_uhd_2x3840x2304": (2, 3840, 2304, (3, 3), "transposed", (2, 4, 8), (256, 512)),
     "B2_uhd_pow2_2x4096x4096": (2, 4096, 4096, (), "transposed", (1, 2, 4), (256, 512)),
     "B7_96x256x256": (96, 256, 256, (), "natural", (4, 8, 16, 32), (128, 256)),
+    "B10_3x2048x2048": (3, 2048, 2048, (), "rows", (1, 2, 4, 8), (128, 256, 512)),
+    "B10_2x8192x8192": (2, 8192, 8192, (), "rows", (1, 2), (128, 256, 512)),
 }
 TOL_REL = 1e-5
 # B4/B5: name: (images, plane extent, live extent, wb stride)
@@ -149,7 +153,7 @@ def run_case(torch, np, rng, case, rows, threads, iters):
 
 
 def run_s_case(torch, np, rng, case, rows, threads, iters):
-    """(ms, max rel err) of one geometry of one B2 / B7 case."""
+    """(ms, max rel err) of one geometry of one B2 / B7 / B10 case."""
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
     pairs, m, n, radices, store = case[:5]
@@ -162,6 +166,9 @@ def run_s_case(torch, np, rng, case, rows, threads, iters):
     if store == "transposed":
         launch = lambda: ws._launch_s("wiener_spectral_t_launch", *args)  # noqa: E731
         ref = ws.wiener_spectral_t_plain(a_re, a_im, h_re, h_im, 0.01, radices)
+    elif store == "rows":
+        launch = lambda: ws._launch_s("wiener_spectral_rows_launch", *args)  # noqa: E731
+        ref = ws.wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, 0.01)
     else:
         launch = lambda: ws._launch_s("fwd_wiener_rows_launch", *args)  # noqa: E731
         ref = ws.fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, 0.01, radices)
@@ -272,6 +279,7 @@ def main() -> int:
     ap.add_argument("--post-only", action="store_true", help="the white-balance kernels only")
     ap.add_argument("--cols", action="store_true", help="B11's strips only")
     ap.add_argument("--radix4", action="store_true", help="B12's rows a block only")
+    ap.add_argument("--spectral", action="store_true", help="B2's, B7's and B10's geometry only")
     args = ap.parse_args()
     only = {k for k in ("cols", "radix4") if getattr(args, k)}
 
@@ -290,7 +298,7 @@ def main() -> int:
         print(json.dumps(result))
         return 0 if ok else 1
     ok = True
-    for name, case in ({} if args.post_only else CASES).items():
+    for name, case in ({} if args.post_only or args.spectral else CASES).items():
         pairs, m, n, inverse, natural, radices, packed = case[:7]
         default = fk.r_plan(n, radices, m, inverse, natural, packed=packed)
         for rows in case[7]:
@@ -316,7 +324,7 @@ def main() -> int:
                 ok = ok and err <= TOL_REL
     from fft_restoration_tpu_torch.ops.kernels import postprocess as pp
 
-    for name, case in P_CASES.items():
+    for name, case in ({} if args.spectral else P_CASES).items():
         b, ext, live, stride = case
         block = 8 if stride > 1 else 64
         d_lab = pp.lab_l_plan(b, *ext, live, stride, block)
@@ -334,7 +342,7 @@ def main() -> int:
                 result["ms"][f"{name}_{kern}_rows{m}"] = ev
                 result["ms"][f"{name}_{kern}_rows{m}_graph"] = gr
             ok = ok and err <= TOL_PARTIALS_REL and diff <= 1
-    if not args.post_only:
+    if not (args.post_only or args.spectral):
         ok = sweep_cols_radix4(torch, np, rng, args.iters, result, ("cols", "radix4")) and ok
     print(json.dumps(result))
     return 0 if ok else 1

@@ -638,9 +638,19 @@ def test_wiener_elem(dev, gen, shape, offset):
         assert _rel(o, r) <= 1e-5
 
 
-@pytest.mark.parametrize("p,m,n,rows", [(3, 2048, 2048, None), (3, 2048, 2048, 1),
-                                        (3, 2048, 2048, 8), (2, 100, 256, 4), (1, 3, 16, 16)])
+# B10 at every pow2 length 4 .. 16384 on 7 rows (a ragged last row block
+# wherever a block holds more than one row), 1 and 3 planes, each `rows`
+# knob whose rows fit a block's shared memory (None: the plan's)
+B10_SHAPES = [(3, 2048, 2048, None), (3, 2048, 2048, 1), (3, 2048, 2048, 8), (2, 100, 256, 4),
+              (1, 3, 16, 16)] + [
+    (p, 7, 1 << s, rows) for s in range(2, 15) for p in (1, 3)
+    for rows in (None, 1, 2, 4, 8, 16) if rows is None or 8 * rows * (1 << s) <= 232448]
+
+
+@pytest.mark.parametrize("p,m,n,rows", B10_SHAPES)
 def test_wiener_spectral_rows(dev, gen, p, m, n, rows):
+    """B10 on the row store of spectral_s_kernel against its plain version;
+    two launches bitwise equal."""
     from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
 
@@ -653,6 +663,8 @@ def test_wiener_spectral_rows(dev, gen, p, m, n, rows):
     assert launch_counts["wiener_spectral_rows"] == 1
     for o, r in zip(ours, ws.wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, 0.01, rows)):
         assert o.shape == (p, m, n) and _rel(o, r) <= 1e-5
+    again = ws.wiener_spectral_rows(a_re, a_im, h_re, h_im, 0.01, rows=rows)
+    assert all(torch.equal(a, o) for a, o in zip(again, ours))
 
 
 # every length the kernel takes (4 .. 16384); 7 rows: a ragged last row
