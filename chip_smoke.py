@@ -102,9 +102,22 @@ lines; any failure exits non-zero:
              host enqueue and device busy of UHD 3840x2160 at smooth
              (2304x3840) and pow2 (4096x4096) extents in the same run;
              ms/frame of the generic matmul route at 2048^2; the perf_ab
-             radix4 and megakernel experiments (counters reset).
+             radix4 and megakernel experiments (counters reset);
+  5. twin    the measurement layer (check_twin): the bench twin
+             tools/bench.py, each path with the counters reset: bench.py's
+             headline and batch64_256sq_shared_psf on the kernels (the
+             headline's four fphase_ phases must add up to device busy,
+             each non-zero, under 1% unattributed), one config on
+             'matmul' (no kernel launch), their JSON lines printed;
+             profile_phases at 2048^2 on 'matmul' against the generic
+             pipeline; RL (10 iterations) and Wiener + edgetaper on
+             'matmul' against the kernel route at 2048^2, and RL with
+             TF32 let back into the matrix products, which must miss
+             that tolerance; a 'matmul' batch against its frames one by
+             one.
 
-The last three lines are the results (JSON: the kernel table and the
+The bench twin's JSON lines (phase 5) come just before the last three
+lines, which are the results (JSON: the kernel table and the
 timings), the card's name and power limit (nvidia-smi), and {"ok": true,
 "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
@@ -114,6 +127,7 @@ fft_restoration_tpu_torch.host.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -188,6 +202,10 @@ TOL_GENERIC_PLANES = 1e-4     # generic route on the card vs the CPU / the kerne
                               # the matrix products sum in another order (cuBLAS)
 TOL_ORACLE_SMOOTH_INF = 2e-2  # vs the oracle's naive DFT: the JAX test's bounds
 ORACLE_SMOOTH_PSNR_DB = 40.0
+# phase 5, the bench twin's device trace on the kernel route
+TOL_PHASES_SUM_REL = 0.02     # sum of the TWIN_PHASES against device busy
+MAX_UNATTRIBUTED_SHARE = 0.01  # device time in no fphase_ range, of busy
+TWIN_PHASES = ("fft_image", "spectral_fused", "ifft", "post_process")
 
 
 def log(msg: str) -> None:
@@ -1750,6 +1768,142 @@ def run_perf_ab(torch, np, seed, iters):
     return res, counts
 
 
+@contextlib.contextmanager
+def allow_tf32():
+    """The generic route's matrix products with TF32 allowed: ops/fft.py's
+    _full_float32, which switches TF32 off around them, made a no-op."""
+    import torch
+
+    from fft_restoration_tpu_torch.ops import fft
+
+    keep, prev = fft._full_float32, torch.backends.cuda.matmul.allow_tf32
+    fft._full_float32 = lambda x: contextlib.nullcontext()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        fft._full_float32, torch.backends.cuda.matmul.allow_tf32 = keep, prev
+
+
+def check_twin(torch, np, frame, stack8, seed):
+    """Phase 5, the measurement layer and the generic route it times: the
+    bench twin (fft_restoration_tpu_torch/tools/bench.py) with the
+    counters reset: bench.py's headline and batch64_256sq_shared_psf on
+    'pallas' (its kernels must launch; the headline's TWIN_PHASES must add
+    up to device busy within TOL_PHASES_SUM_REL, each be non-zero, and
+    'unattributed' stay under MAX_UNATTRIBUTED_SHARE of busy),
+    car_640x330_psf40_45 on 'matmul' (no kernel may launch); the serial
+    oracle is skipped (vs_baseline "not measured"). Then profile_phases at
+    2048^2 on 'matmul' against WienerDeblurPipeline(fft_backend='matmul')
+    (TOL_U8); Richardson-Lucy (RL_ITERS) and Wiener + edgetaper on
+    'matmul' against the kernel route on the 2048^2 frame, which fills its
+    pow2 extent, so RL's rim contract does not apply (both:
+    TOL_GENERIC_PLANES, TOL_U8); as a control, RL on 'matmul' with TF32
+    allowed in its products must miss TOL_GENERIC_PLANES; a 'matmul'
+    batch of eight 256^2 frames against the same frames one by one
+    (TOL_U8: pairs straddle images).
+    Returns (results, the twin's JSON lines, {path: launch counts})."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+    from fft_restoration_tpu_torch.models.pipeline import profile_phases
+    from fft_restoration_tpu_torch.ops.kernels import KERNELS
+    from fft_restoration_tpu_torch.tools import bench
+    from fft_restoration_tpu_torch.utils.timing import PHASES
+
+    device = bench.card()
+    res, lines, counts = {}, [], {}
+    head, counts["bench_headline"] = drive(
+        torch, "bench twin headline (pallas)",
+        lambda: bench.run_headline(torch, np, seed=seed, oracle=False, device=device),
+        expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                "wb_encode_u8"),
+        forbid=("fwd_wiener_rows", "mixed_radix"))
+    lines.append(head)
+    busy, phases = head["device_ms_per_frame"], head["phases_device_ms"]
+    if not isinstance(busy, float) or not isinstance(phases, dict):
+        fail(f"bench twin headline: no device time in the trace ({busy}, {phases})")
+    total = sum(phases.get(p, 0.0) for p in TWIN_PHASES)
+    unattributed = phases.get("unattributed", 0.0)
+    log(f"bench twin headline: {head['event_ms_per_frame']:.4f} ms/frame (events), host "
+        f"enqueue {head['host_enqueue_ms_per_frame']:.4f}, device busy {busy:.4f} ms/frame, "
+        f"idle share {head['idle_share']:.3f}; phases {phases} ({'+'.join(TWIN_PHASES)} "
+        f"{total:.4f}, "
+        f"unattributed {unattributed / busy:.3f} of busy)")
+    if abs(total - busy) > TOL_PHASES_SUM_REL * busy:
+        fail(f"bench twin headline: {TWIN_PHASES} do not add up to device busy")
+    if not all(phases.get(p, 0.0) > 0.0 for p in TWIN_PHASES):
+        fail(f"bench twin headline: a phase of {TWIN_PHASES} reads zero")
+    if not unattributed <= MAX_UNATTRIBUTED_SHARE * busy:
+        fail("bench twin headline: too much device time in no fphase_ range")
+    for name, backend, expect, forbid in (
+            ("batch64_256sq_shared_psf", "pallas",
+             ("fft_rows_t", "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8"),
+             ("wiener_spectral_t",)),
+            ("car_640x330_psf40_45", "matmul", (), KERNELS)):
+        rec, counts[f"bench_{name}_{backend}"] = drive(
+            torch, f"bench twin {name} ({backend})",
+            lambda n=name, b=backend: bench.run_config(torch, np, n, backend=b, seed=seed,
+                                                       device=device), expect, forbid)
+        log(f"bench twin {name} ({backend}): {rec['value']:.4f} {rec['unit']} (events), "
+            f"device busy {rec['device_ms']}, idle share {rec['idle_share']}")
+        if not isinstance(rec["device_ms"], float):
+            fail(f"bench twin {name}: no device time in the trace")
+        lines.append(rec)
+
+    t0 = time.perf_counter()
+    out, prof = profile_phases(frame, 50, 30.0, 0.01, fft_backend="matmul", device="cuda")
+    ref = WienerDeblurPipeline("cuda", fft_backend="matmul").restore(frame, 50, 30.0, 0.01)
+    d = u8_max(np, out, ref)
+    log(f"profile_phases 2048x2048x3 (matmul, {time.perf_counter() - t0:.1f} s): uint8 max {d} "
+        f"vs WienerDeblurPipeline(fft_backend='matmul') (tol {TOL_U8});\n{prof.report()}")
+    if list(prof.accum_ms) != [f"{prof.mode}: {p}" for p in PHASES] or not d <= TOL_U8:
+        fail("profile_phases disagrees with the generic pipeline or lacks a phase")
+    res["profile_phases_2048sq"] = dict(uint8_max=d, phases_ms=dict(prof.accum_ms))
+
+    for name, kw in (("rl", dict(filter_name="rl", rl_iters=RL_ITERS)),
+                     ("wiener_edgetaper", dict(edgetaper=True))):
+        kern = WienerDeblurPipeline("cuda", **kw).restore_with_planes(frame, 50, 30.0, 0.01)
+        gen, counts[f"generic_{name}_2048sq"] = drive(
+            torch, f"generic {name} (matmul) 2048x2048x3",
+            lambda k=kw: WienerDeblurPipeline("cuda", fft_backend="matmul", **k
+                                              ).restore_with_planes(frame, 50, 30.0, 0.01),
+            (), KERNELS)
+        dp = float(np.abs(gen[1] - kern[1]).max())
+        diff = np.abs(gen[0].astype(np.int32) - kern[0].astype(np.int32))
+        du, dm = int(diff.max()), float(diff.mean())
+        log(f"generic {name} (matmul) vs kernel route 2048x2048x3: planes max abs {dp:.3e} "
+            f"(tol {TOL_GENERIC_PLANES}), uint8 max {du} (tol {TOL_U8}), mean {dm:.4f}")
+        if not (dp <= TOL_GENERIC_PLANES and du <= TOL_U8):
+            fail(f"generic {name} disagrees with the kernel route")
+        res[f"generic_{name}_vs_kernel_2048sq"] = dict(planes_max_abs=dp, uint8_max=du,
+                                                       uint8_mean=dm)
+        if name == "rl":
+            kern_rl = kern
+
+    with allow_tf32():
+        tf32 = WienerDeblurPipeline("cuda", fft_backend="matmul", filter_name="rl",
+                                    rl_iters=RL_ITERS).restore_with_planes(frame, 50, 30.0, 0.01)
+    dp = float(np.abs(tf32[1] - kern_rl[1]).max())
+    du = u8_max(np, tf32[0], kern_rl[0])
+    log(f"control: generic rl (matmul, TF32 allowed) vs kernel route 2048x2048x3: planes max "
+        f"abs {dp:.3e} (must exceed {TOL_GENERIC_PLANES}), uint8 max {du}")
+    if not dp > TOL_GENERIC_PLANES:
+        fail("the generic RL check cannot tell TF32 products from float32 ones")
+    res["generic_rl_tf32_vs_kernel_2048sq"] = dict(planes_max_abs=dp, uint8_max=du)
+
+    batch, counts["generic_batch8_256sq"] = drive(
+        torch, "generic batch (matmul) 8x256x256",
+        lambda: BatchedWienerPipeline("cuda", fft_backend="matmul").restore(stack8, 25, 30.0,
+                                                                            0.01), (), KERNELS)
+    single = WienerDeblurPipeline("cuda", fft_backend="matmul")
+    d = max(u8_max(np, batch[i], single.restore(stack8[i], 25, 30.0, 0.01))
+            for i in range(len(stack8)))
+    log(f"generic batch (matmul) 8x256x256 vs one by one: uint8 max {d} (tol {TOL_U8})")
+    if not d <= TOL_U8:
+        fail("the generic batch disagrees with its frames restored one by one")
+    res["generic_batch8_256sq_vs_single"] = dict(uint8_max=d)
+    return res, lines, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1844,6 +1998,12 @@ def main() -> int:
     perf_ab, ab_counts = run_perf_ab(torch, np, args.seed, args.iters)
     counts.update(ab_counts)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    twin, twin_lines, twin_counts = check_twin(torch, np, frame, stacks["batch64_256sq"][:8],
+                                               args.seed)
+    counts.update(twin_counts)
+    log(f"phase 5 measurement layer: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -1853,11 +2013,13 @@ def main() -> int:
               "ptxas_cols_radix4": ops,
               "slice_2048sq": timing, "middle_ab": ab,
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
-              "perf_ab": perf_ab}
+              "perf_ab": perf_ab, "measurement_layer": twin}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:
         result[name] = dict(family[name], **family_timing.get(name, {}))
+    for line in twin_lines:  # the bench twin's own lines, as it prints them
+        print(json.dumps(line))
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {

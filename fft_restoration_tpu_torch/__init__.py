@@ -13,8 +13,11 @@ motion/gaussian/disk PSF, Wiener filter, pow2 pad, Lab white balance;
 BatchedWienerPipeline on (B, H, W, 3) stacks and psf_grid_sweep; the
 filter family and --pad smooth; the CLI on one image or a directory; the
 ops layer: ops.fft (fft1d/fft2d and its five backends, whose non-kernel
-ones give WienerDeblurPipeline(fft_backend=...) its generic route),
-ops.kernels (every kernel's wrapper) and deblur_image.
+ones give both pipelines, RL and the edge taper their generic route,
+fft_backend=...), ops.kernels (every kernel's wrapper) and deblur_image;
+the measurement layer: utils.timing, utils.trace_profile,
+models.pipeline.profile_phases, the CLI's --profile and the bench twin
+tools/bench.py.
 The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
 blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
@@ -27,7 +30,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep", "deblur_image",
-    "make_psf", "motion_blur_kernel", "__version__",
+    "make_psf", "motion_blur_kernel", "richardson_lucy_planes", "edge_taper_planes",
+    "__version__",
 ]
 
 
@@ -44,4 +48,12 @@ def __getattr__(name):
         from fft_restoration_tpu_torch.ops import psf
 
         return getattr(psf, name)
+    if name == "richardson_lucy_planes":
+        from fft_restoration_tpu_torch.models.richardson_lucy import richardson_lucy_planes
+
+        return richardson_lucy_planes
+    if name == "edge_taper_planes":
+        from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
+
+        return edge_taper_planes
     raise AttributeError(name)

@@ -31,13 +31,20 @@ pipeline's planes on the frame's normalization first.
 
 --fft-backend picks the FFT: 'pallas' (default) is the port's kernel
 route; 'radix2', 'matmul', 'naive' and 'xla' take the generic route of
-WienerDeblurPipeline (ops/fft.py's fft2d, the filter, planar white
-balance in torch), verified against the oracle like the default. The
+the pipelines (ops/fft.py's fft2d, the filter, planar white balance in
+torch), verified against the oracle like the default. The
 JAX CLI defaults to 'matmul' because on the TPU that compiles fastest;
 here nothing is compiled per shape and the kernels are the fast path.
-The generic route takes one image and wiener, inverse or cls: --filter
-rl, --edgetaper and directory input with another backend than 'pallas'
-exit 2 naming their ROADMAP.md item.
+The generic route takes every filter, --edgetaper and directories too.
+
+--profile prints a phase breakdown after the timed run, as the JAX CLI
+does: 'phases' (the default when the flag is bare; --filter wiener) runs
+models.pipeline.profile_phases, six phases each synchronized and timed
+on the host clock; 'trace' runs the restore at the options given under
+torch.profiler (utils/trace_profile.device_trace) and prints device busy,
+span, the fphase_* breakdown and the top kernels from the device's own
+timeline. On --device cpu the trace has no device rows, and the report
+says "not measured".
 
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
@@ -79,7 +86,6 @@ NOT_PORTED = {
     "--devices": "A14",
     "--mxu-precision": "A5",
     "--stage-dtype": "A5",
-    "--profile": "A15",
     "--reference": "A6",
     "--show": "A6",
 }
@@ -112,8 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--fft-backend", choices=FFT_BACKENDS, default="pallas",
         help="FFT compute strategy: 'pallas' (default) = the hand-written CUDA "
         "kernels; radix2/matmul/naive/xla = the generic route (plain torch "
-        "radix-2, four-step float32 matmul, DFT matmul, torch.fft), one image, "
-        "wiener/inverse/cls",
+        "radix-2, four-step float32 matmul, DFT matmul, torch.fft)",
     )
     p.add_argument(
         "--filter", choices=("wiener", "inverse", "cls", "rl"), default="wiener",
@@ -144,6 +149,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--no-verify", action="store_true",
         help="skip the serial-oracle differential verification",
+    )
+    p.add_argument(
+        "--profile", nargs="?", const="phases", default=None, choices=("phases", "trace"),
+        help="'phases': host-timed per-phase breakdown (reference phase taxonomy; each "
+        "phase pays a device synchronize). 'trace': device-timeline profile via "
+        "torch.profiler: per-kernel times from the device's own clock, no host time",
     )
     p.add_argument(
         "--tier", choices=TIERS, default="gpu",
@@ -190,11 +201,6 @@ def main(argv=None) -> int:
         print(f"[Error] {e}")
         return 2
     if os.path.isdir(args.img_path):
-        if args.fft_backend != "pallas":
-            print(f"[Error] directory input runs the batched pipeline, which takes the "
-                  f"'pallas' backend only; --fft-backend {args.fft_backend} is not ported "
-                  "there yet: ROADMAP.md A7")
-            return 2
         return _run_batch(args, pipe)
 
     try:
@@ -219,6 +225,8 @@ def main(argv=None) -> int:
     mode_ms = (t1 - t0) * 1e3
     print(f"Deblurring 3 channels took(torch-{pipe.device.type}, {args.fft_backend}): "
           f"{mode_ms:.2f} ms")
+    if args.profile:
+        _profile(args, pipe, img)
 
     if not args.no_verify and args.filter != "wiener":
         print(f"[INFO] --filter {args.filter} is not verified: the serial oracle "
@@ -247,6 +255,28 @@ def main(argv=None) -> int:
     print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
     print(f"[INFO] wrote {out_path}")
     return 0
+
+
+def _profile(args, pipe, img) -> None:
+    """--profile: the device timeline of the restore at the options given
+    ('trace'), or profile_phases' six host-timed phases ('phases', the
+    wiener filter only, as in the JAX CLI)."""
+    if args.profile == "trace":
+        from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+        x = pipe.to_device(img)
+        rep = device_trace(pipe.run, (x, args.psf_length, args.psf_angle, args.K))
+        print(rep.report())
+    elif args.filter == "wiener":
+        from fft_restoration_tpu_torch.models.pipeline import profile_phases
+
+        _, prof = profile_phases(img, args.psf_length, args.psf_angle, args.K,
+                                 fft_backend=args.fft_backend,
+                                 white_balance=not args.no_white_balance, device=pipe.device)
+        print(prof.report())
+    else:
+        print(f"[INFO] --profile phases times the wiener filter; --filter {args.filter} "
+              "takes --profile trace")
 
 
 def _output_names(paths, out_dir) -> dict:
@@ -305,7 +335,7 @@ def _run_batch(args, single) -> int:
             batched = BatchedWienerPipeline(
                 single.device, filter_name=args.filter, pad_mode=args.pad,
                 white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
-                rl_iters=args.iters, edgetaper=args.edgetaper,
+                rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
             )
         hp, wp, _, _ = single.pad(h, w)
         chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))

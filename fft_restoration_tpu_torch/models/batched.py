@@ -31,7 +31,6 @@ from fft_restoration_tpu_torch.models.pipeline import (
     resolve_device,
     restore_raw,
 )
-from fft_restoration_tpu_torch.ops.fft import check_backend
 from fft_restoration_tpu_torch.ops.psf import make_psf
 
 
@@ -47,9 +46,11 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     planes, its channel pairs straddling images as the restore's do.
     pad_mode: 'pow2' or 'smooth' (models.pipeline.pad_extents); a stack
     of 640x330 frames restores at 384x640, its middle B7 at hp = 384.
-    stage_dtype exists for the JAX signature and is not ported yet;
-    fft_backend takes 'pallas' (the kernels) only: the generic route of a
-    stack (the JAX batched default 'matmul') is not ported yet.
+    stage_dtype exists for the JAX signature and is not ported yet.
+    fft_backend: 'pallas' (default, the kernels) or another backend of
+    ops/fft.py, the generic route (`restore_stack_generic`: the stack's
+    3B planes paired across images, as the JAX batched route's, every
+    filter and the taper; the JAX batched default is 'matmul').
     """
 
     def __init__(
@@ -67,12 +68,6 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         stage_dtype: str | None = None,
         fft_backend: str = KERNEL_BACKEND,
     ):
-        check_backend(fft_backend)
-        if fft_backend != KERNEL_BACKEND:
-            raise NotImplementedError(
-                f"BatchedWienerPipeline on fft backend {fft_backend!r} is not ported yet "
-                f"(the batched path runs the {KERNEL_BACKEND!r} kernels): ROADMAP.md A7"
-            )
         if stage_dtype not in (None, "f32", "float32"):
             raise NotImplementedError(
                 f"stage_dtype {stage_dtype!r} is not ported yet (the port stages "
@@ -82,7 +77,7 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode,
             wb_stats_stride=wb_stats_stride, psf_type=psf_type, rl_iters=rl_iters,
-            edgetaper=edgetaper,
+            edgetaper=edgetaper, fft_backend=fft_backend,
         )
 
     def to_device(self, imgs_bgr) -> torch.Tensor:

@@ -25,8 +25,11 @@ multiplies by conj(H), the convolution with the mirrored PSF (the PSF
 is real). At smooth extents (radices_hw) the row passes take rad_w and
 the middle rad_h, as the restore's do.
 
-The JAX package's natural-order backends (`_conv_planes_generic`) wait
-for the port's fft2d backends (ROADMAP.md A3).
+On any other fft_backend (the generic route, JAX `_conv_planes_generic`)
+the spectra are natural order: `fft2d` of the planes, the product with
+the zero-padded PSF's `fft2d` spectrum (conjugated for the correlation),
+the unscaled inverse `fft2d`, then * 1/(hp*wp). The matmul backend
+factors smooth extents itself, so radices_hw is not needed there.
 """
 
 from __future__ import annotations
@@ -36,24 +39,61 @@ import torch
 
 from fft_restoration_tpu_torch.models.pipeline import (
     FUSED_MIDDLE_MIN_N,
+    KERNEL_BACKEND,
     KERNEL_OPS,
     psf_spectrum_planes,
 )
+from fft_restoration_tpu_torch.ops.fft import check_backend, fft2d
 from fft_restoration_tpu_torch.ops.wiener import spectral_product
 
 
-def circular_conv_builder(psf, hp: int, wp: int, *, psf_spectrum=None, ops=KERNEL_OPS,
-                          radices_hw=((), ())):
-    """Build conv(re, im, conj=False) circularly convolving (P, hp, wp)
-    planes (re float32, im float32 with at most P planes, the missing ones
-    zero, or None; any strides fft_rows takes) with the corner-anchored PSF.
-    Returns float32 (P, hp, wp) (re, im), scaled.
+def _conv_planes_generic(re, im, s_re, s_im, backend):
+    """(P, hp, wp) planes convolved through the natural-order fft2d of
+    `backend` with the spectrum (s_re, s_im); scaled by 1/(hp*wp). im
+    has at most P planes (the missing ones zero) or is None, as on the
+    kernel route."""
+    hp, wp = re.shape[-2:]
+    if im is None or im.shape[0] < re.shape[0]:
+        full = re.new_zeros(re.shape)
+        if im is not None:
+            full[: im.shape[0]] = im
+        im = full
+    a_re, a_im = fft2d(re, im, False, backend)
+    c_re = a_re * s_re - a_im * s_im
+    c_im = a_re * s_im + a_im * s_re
+    b_re, b_im = fft2d(c_re, c_im, True, backend)
+    scale = float(np.float32(1.0 / (hp * wp)))
+    return b_re * scale, b_im * scale
 
-    psf_spectrum: the (wp, hp) spectrum planes of `psf_spectrum_planes`
-    (the pipelines' cached one); computed here once when None.
-    ops: KERNEL_OPS (the kernel wrappers) or PLAIN_OPS (their plain
-    versions, the reference run on the card). radices_hw: (rad_h, rad_w)
-    of smooth extents (models.pipeline.pad_extents)."""
+
+def circular_conv_builder(psf, hp: int, wp: int, *, fft_backend=KERNEL_BACKEND,
+                          psf_spectrum=None, ops=KERNEL_OPS, radices_hw=((), ())):
+    """Build conv(re, im, conj=False) circularly convolving planes with the
+    corner-anchored PSF. Returns float32 (re, im) of re's shape, scaled.
+
+    fft_backend 'pallas' (the kernel route): (P, hp, wp) planes, re
+    float32 and im float32 with at most P planes (the missing ones zero)
+    or None, any strides fft_rows takes; psf_spectrum is the (wp, hp)
+    spectrum of `psf_spectrum_planes` (the pipelines' cached one), made
+    here once when None; ops: KERNEL_OPS (the kernel wrappers) or
+    PLAIN_OPS (their plain versions, the reference run on the card);
+    radices_hw: (rad_h, rad_w) of smooth extents
+    (models.pipeline.pad_extents).
+    Any other backend (the generic route): the same planes; psf_spectrum
+    is the natural-order (hp, wp) fft2d spectrum of the zero-padded PSF,
+    made here once when None."""
+    check_backend(fft_backend)
+    if fft_backend != KERNEL_BACKEND:
+        if psf_spectrum is None:
+            psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=psf.device)
+            psf_pad[: psf.shape[0], : psf.shape[1]] = psf
+            psf_spectrum = fft2d(psf_pad, torch.zeros_like(psf_pad), False, fft_backend)
+        s_re, s_im = psf_spectrum
+
+        def conv_generic(re, im, conj=False):
+            return _conv_planes_generic(re, im, s_re, -s_im if conj else s_im, fft_backend)
+
+        return conv_generic
     rad_h, rad_w = radices_hw
     h_re, h_im = (psf_spectrum if psf_spectrum is not None
                   else psf_spectrum_planes(psf, hp, wp, ops, radices_hw))

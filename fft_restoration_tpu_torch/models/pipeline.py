@@ -86,6 +86,7 @@ from fft_restoration_tpu_torch.ops.kernels.postprocess import (
 from fft_restoration_tpu_torch.ops.fft import check_backend, fft2d
 from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
 from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
+from fft_restoration_tpu_torch.utils.trace_profile import fphase
 
 PAD_MODES = ("pow2", "smooth")
 FILTERS = ("wiener", "inverse", "cls", "rl")
@@ -159,8 +160,9 @@ def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ())):
     smooth extents, radices_hw = (rad_h, rad_w)). Only the PSF's own rows
     are transformed in the first pass (a row FFT of zeros is zero)."""
     rad_h, rad_w = radices_hw
-    re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
-    h_re, h_im = ops.fft_rows(re, im, radices=rad_h)
+    with fphase("fft_psf"):
+        re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
+        h_re, h_im = ops.fft_rows(re, im, radices=rad_h)
     return h_re[0], h_im[0]
 
 
@@ -204,20 +206,25 @@ def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=
     B7 then the inverse row pass with transposed store. inverse / cls:
     the forward column pass (B6), the elementwise filter (cls with the
     Laplacian spectrum `lap`), the inverse pass with transposed store.
-    radices: those of Hp."""
+    radices: those of Hp. Phase ranges (fphase): B2, and B7, under
+    spectral_fused as in JAX; the inverse pass under ifft; inverse and
+    cls, which JAX leaves in no range, take the forward pass under
+    fft_image and the filter under spectral_fused."""
     if filter_name == "wiener":
-        if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
-            return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K, radices)
-        f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K, radices)
+        with fphase("spectral_fused"):
+            if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
+                return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K, radices)
+            f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K, radices)
+    elif filter_name in ("inverse", "cls"):
+        with fphase("fft_image"):
+            g = ops.fft_rows(a_re, a_im, radices=radices)
+        with fphase("spectral_fused"):
+            f_re, f_im = inverse_filter(g, H) if filter_name == "inverse" else cls_filter(
+                g, H, lap, K)
     else:
-        g = ops.fft_rows(a_re, a_im, radices=radices)
-        if filter_name == "inverse":
-            f_re, f_im = inverse_filter(g, H)
-        elif filter_name == "cls":
-            f_re, f_im = cls_filter(g, H, lap, K)
-        else:
-            raise ValueError(f"no spectral middle for filter {filter_name!r}")
-    return ops.fft_rows(f_re, f_im, inverse=True, transposed=True, radices=radices)
+        raise ValueError(f"no spectral middle for filter {filter_name!r}")
+    with fphase("ifft"):
+        return ops.fft_rows(f_re, f_im, inverse=True, transposed=True, radices=radices)
 
 
 def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", lap=None,
@@ -231,10 +238,13 @@ def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", la
     b, h, w, c = stack.shape
     hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     if rows is None:
-        rows = ops.fft_rows_stack(stack, extent=(hp, wp), radices=rad_w)
+        with fphase("fft_image"):
+            rows = ops.fft_rows_stack(stack, extent=(hp, wp), radices=rad_w)
     r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap, rad_h)
-    raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
-    lo, scale = minmax_norm(mm, rows[0].shape[0], b * c)
+    with fphase("ifft"):
+        raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
+    with fphase("post_process"):
+        lo, scale = minmax_norm(mm, rows[0].shape[0], b * c)
     return raw, lo, scale
 
 
@@ -282,7 +292,9 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     lap: the Laplacian spectrum (for 'cls', laplacian_spectrum).
     encode=False (with emit_planes and no white balance): only the
     planes, the uint8 stack is None. pad_mode: 'pow2' or 'smooth', the
-    extents of H too."""
+    extents of H too. Phase ranges (fphase) as JAX's _restore_core:
+    pre_process (padding, taper), the sections of restore_raw, and
+    post_process; RL's loop is in no range, as in JAX."""
     b, h, w, _ = stack.shape
     hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     rows = None
@@ -291,34 +303,38 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
         from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
         from fft_restoration_tpu_torch.models.richardson_lucy import richardson_lucy_planes
 
-        flat = padded_planes(stack, hp, wp)
-        if edgetaper:
-            flat = edge_taper_planes(flat, psf, (h, w), psf_spectrum=H, ops=ops,
-                                     radices_hw=(rad_h, rad_w))
+        with fphase("pre_process"):
+            flat = padded_planes(stack, hp, wp)
+            if edgetaper:
+                flat = edge_taper_planes(flat, psf, (h, w), psf_spectrum=H, ops=ops,
+                                         radices_hw=(rad_h, rad_w))
         if filter_name == "rl":
             x = richardson_lucy_planes(flat, psf, rl_iters, psf_spectrum=H, ops=ops,
                                        radices_hw=(rad_h, rad_w))
             planes = x.reshape(b, -1, hp, wp)[..., :h, :w]
-            out = (encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance)
-                   if encode else None)
+            with fphase("post_process"):
+                out = (encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance)
+                       if encode else None)
             return out, (planes if emit_planes else None)
         # every row: the taper fills the pad rows with the blur's wrap tail
-        rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True, radices=rad_w)
+        with fphase("fft_image"):
+            rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True, radices=rad_w)
     raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap, pad_mode)
-    planes = None
-    if emit_planes or not white_balance:
-        planes = normalized_planes(raw, lo, scale, b, h, w)
+    with fphase("post_process"):
+        planes = None
+        if emit_planes or not white_balance:
+            planes = normalized_planes(raw, lo, scale, b, h, w)
 
-    if white_balance:
-        stride = effective_wb_stride(h, wb_stats_stride)
-        block = 8 if stride > 1 else 64  # 8-row stripes when sampling
-        orig = stack.permute(0, 3, 1, 2)  # (B, 3, h, w) view of the stack
-        parts = ops.lab_l_sum_partials(raw, orig, lo, scale, (h, w), stride, block)
-        npix = sampled_live_pixels(hp, wp, (h, w), block, stride)
-        gains = (parts[..., 1].sum(-1) / npix) / (parts[..., 0].sum(-1) / npix + 1e-6)
-        out = ops.wb_encode_u8(raw, gains, lo, scale, (h, w))
-    else:
-        out = encode_planar(planes, None, False) if encode else None
+        if white_balance:
+            stride = effective_wb_stride(h, wb_stats_stride)
+            block = 8 if stride > 1 else 64  # 8-row stripes when sampling
+            orig = stack.permute(0, 3, 1, 2)  # (B, 3, h, w) view of the stack
+            parts = ops.lab_l_sum_partials(raw, orig, lo, scale, (h, w), stride, block)
+            npix = sampled_live_pixels(hp, wp, (h, w), block, stride)
+            gains = (parts[..., 1].sum(-1) / npix) / (parts[..., 0].sum(-1) / npix + 1e-6)
+            out = ops.wb_encode_u8(raw, gains, lo, scale, (h, w))
+        else:
+            out = encode_planar(planes, None, False) if encode else None
     return out, (planes if emit_planes else None)
 
 
@@ -365,41 +381,65 @@ def restore_planes_generic(channels, psf, K, *, fft_backend, filter_name="wiener
     planes' and the zero-padded PSF's spectra (computed per call, as in
     JAX: its PSF cache needs the pallas backend), `apply_filter`, the
     inverse, the unpack and the min-max normalize over the padded plane.
-    Natural-order spectra; the inverse stays unscaled."""
+    Natural-order spectra; the inverse stays unscaled. Phase ranges
+    (fphase; JAX's generic branch has none): fft_image, fft_psf,
+    spectral_fused (the filter), ifft, post_process (unpack, normalize)."""
     from fft_restoration_tpu_torch.models.filters import apply_filter
 
     hp, wp = channels.shape[-2:]
-    psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=channels.device)
-    psf_pad[: psf.shape[0], : psf.shape[1]] = psf
-    if channels.ndim >= 3 and channels.shape[-3] >= 2:
-        c = channels.shape[-3]
-        p_re, p_im = pack_channel_pairs(channels)
-    else:
-        c = None
-        p_re, p_im = channels, torch.zeros_like(channels)
-    G = fft2d(p_re, p_im, inverse=False, backend=fft_backend)
-    H = fft2d(psf_pad, torch.zeros_like(psf_pad), inverse=False, backend=fft_backend)
-    F = apply_filter(filter_name, G, H, K, backend=fft_backend)
-    r_re, r_im = fft2d(F[0], F[1], inverse=True, backend=fft_backend)
-    restored = r_re if c is None else unpack_channel_pairs(r_re, r_im, c)
-    return minmax_normalize(restored)
+    with fphase("fft_image"):
+        if channels.ndim >= 3 and channels.shape[-3] >= 2:
+            c = channels.shape[-3]
+            p_re, p_im = pack_channel_pairs(channels)
+        else:
+            c = None
+            p_re, p_im = channels, torch.zeros_like(channels)
+        G = fft2d(p_re, p_im, inverse=False, backend=fft_backend)
+    with fphase("fft_psf"):
+        psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=channels.device)
+        psf_pad[: psf.shape[0], : psf.shape[1]] = psf
+        H = fft2d(psf_pad, torch.zeros_like(psf_pad), inverse=False, backend=fft_backend)
+    with fphase("spectral_fused"):
+        F = apply_filter(filter_name, G, H, K, backend=fft_backend)
+    with fphase("ifft"):
+        r_re, r_im = fft2d(F[0], F[1], inverse=True, backend=fft_backend)
+    with fphase("post_process"):
+        restored = r_re if c is None else unpack_channel_pairs(r_re, r_im, c)
+        return minmax_normalize(restored)
 
 
-def restore_stack_generic(stack, psf, K, *, fft_backend, filter_name="wiener",
-                          white_balance=True, emit_planes=True, encode=True, pad_mode="pow2"):
+def restore_stack_generic(stack, psf, K, *, fft_backend, filter_name="wiener", rl_iters=10,
+                          edgetaper=False, white_balance=True, emit_planes=True, encode=True,
+                          pad_mode="pow2"):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     ((B, h, w, 3) uint8 or None, (B, 3, h, w) float32 planes or None) by the
     generic route: uint8 to float by true division, zero pad to the
     extents of `pad_mode` (smooth extents too: 'matmul' factors them,
     'radix2' and 'pallas' fall back to the naive DFT there, as in JAX),
-    `restore_planes_generic`, crop, then the planar Lab white balance and
-    the uint8 encode in torch (`encode_planar`)."""
+    the (3B, hp, wp) planes tapered when `edgetaper`, then
+    `restore_planes_generic` or, for 'rl', `richardson_lucy_planes` on
+    `fft_backend` (clipped, not normalized), crop, then the planar Lab
+    white balance and the uint8 encode in torch (`encode_planar`). The 3B
+    planes pair across images, as the JAX batched route's do."""
     b, h, w, c = stack.shape
     hp, wp, _, _ = pad_extents(h, w, pad_mode)
-    chans = padded_planes(stack, hp, wp).reshape(b, c, hp, wp)
-    planes = restore_planes_generic(chans, psf, K, fft_backend=fft_backend,
-                                    filter_name=filter_name)[..., :h, :w]
-    out = encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance) if encode else None
+    with fphase("pre_process"):
+        flat = padded_planes(stack, hp, wp)
+        if edgetaper:
+            # imported here: both modules import this one
+            from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
+
+            flat = edge_taper_planes(flat, psf, (h, w), fft_backend=fft_backend)
+    if filter_name == "rl":
+        from fft_restoration_tpu_torch.models.richardson_lucy import richardson_lucy_planes
+
+        restored = richardson_lucy_planes(flat, psf, rl_iters, fft_backend=fft_backend)
+    else:
+        restored = restore_planes_generic(flat, psf, K, fft_backend=fft_backend,
+                                          filter_name=filter_name)
+    planes = restored.reshape(b, c, hp, wp)[..., :h, :w]
+    with fphase("post_process"):
+        out = encode_planar(planes, stack.permute(0, 3, 1, 2), white_balance) if encode else None
     return out, (planes if emit_planes else None)
 
 
@@ -434,12 +474,6 @@ class _CachedPsfPipeline:
         if filter_name not in FILTERS:
             raise ValueError(f"unknown filter {filter_name!r}; one of {FILTERS}")
         check_backend(fft_backend)
-        if fft_backend != KERNEL_BACKEND and (filter_name == "rl" or edgetaper):
-            what = "filter 'rl'" if filter_name == "rl" else "the edge taper"
-            raise NotImplementedError(
-                f"{what} runs on the {KERNEL_BACKEND!r} backend only; on fft backend "
-                f"{fft_backend!r} it is not ported yet: ROADMAP.md A3"
-            )
         self.fft_backend = fft_backend
         pad_extents(1, 1, pad_mode)  # raises for an unknown mode
         if wb_stats_stride < 1:
@@ -516,9 +550,11 @@ class _CachedPsfPipeline:
         if self.fft_backend != KERNEL_BACKEND:
             opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes)
             opts.update(over)
-            psf = make_psf(self.psf_type, int(psf_length), float(psf_angle), self.device)
+            with fphase("pre_process"):  # as JAX's _restore_core makes its PSF
+                psf = make_psf(self.psf_type, int(psf_length), float(psf_angle), self.device)
             return restore_stack_generic(stack, psf, float(K), fft_backend=self.fft_backend,
-                                         filter_name=self.filter_name, pad_mode=self.pad_mode,
+                                         filter_name=self.filter_name, rl_iters=self.rl_iters,
+                                         edgetaper=self.edgetaper, pad_mode=self.pad_mode,
                                          **opts)
         psf, H = self._psf_spectrum(h, w, psf_length, psf_angle)
         opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes,
@@ -550,10 +586,10 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     from the JAX package) or 'radix2', 'matmul', 'naive', 'xla' — the
     generic route (`restore_stack_generic`: fft2d of ops/fft.py, the
     filter, the inverse, min-max, planar Lab white balance in torch; the
-    PSF spectrum made per call, wb_stats_stride unused). The JAX
+    PSF spectrum made per call, wb_stats_stride unused; 'rl' and the
+    edge taper through the generic conv of models/convolve.py). The JAX
     package's default is 'radix2' here and 'matmul' in its CLI; the
-    port's is its kernels. The generic route takes wiener, inverse and
-    cls; 'rl' and the edge taper raise NotImplementedError there.
+    port's is its kernels.
     """
 
     def __init__(
@@ -617,3 +653,53 @@ def deblur_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0.01,
     (H, W, 3) -> restored uint8 BGR (H, W, 3) numpy. kwargs: the
     pipeline's options (fft_backend, filter_name, pad_mode, ...)."""
     return WienerDeblurPipeline(device, **kwargs).restore(img_bgr, psf_length, psf_angle, K)
+
+
+def profile_phases(img_bgr, psf_length: int, psf_angle: float, K: float = 0.01,
+                   fft_backend: str = "matmul", white_balance: bool = True, profiler=None,
+                   psf_type: str = "motion", device="cuda"):
+    """Run the restore as six separately synchronized phases and
+    accumulate each phase's host wall time, in the reference's phase
+    taxonomy (utils/timing.PHASES: Pre-process / FFT Image / FFT PSF /
+    Wiener Filter / IFFT / Post-process). Counterpart of the JAX
+    package's profile_phases, built like its: `fft2d` of `fft_backend`
+    on the three zero-padded channel planes (no pair packing), the PSF's
+    own `fft2d`, `apply_filter('wiener')`, the inverse, then the min-max
+    normalize, crop and the planar Lab white balance (`encode_planar`).
+    The pipelines queue their phases back to back; this instrumented
+    mode synchronizes the device after each one, so each phase's time
+    holds its host enqueue and its device time. Pow2 pad. Returns (uint8
+    (H, W, 3) restored image, PhaseProfiler)."""
+    from fft_restoration_tpu_torch.models.filters import apply_filter
+    from fft_restoration_tpu_torch.utils.timing import PhaseProfiler, _block
+
+    dev = resolve_device(device)
+    check_backend(fft_backend)
+    prof = profiler or PhaseProfiler(mode=f"torch-{dev.type}")
+    img = frames_to_device(img_bgr, dev)
+    h, w = img.shape[:2]
+    hp, wp, _, _ = pad_extents(h, w)
+
+    with prof.phase("Pre-process"):
+        psf = make_psf(psf_type, int(psf_length), float(psf_angle), dev)
+        chans = padded_planes(img[None], hp, wp)
+        psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=dev)
+        psf_pad[: psf.shape[0], : psf.shape[1]] = psf
+        _block((chans, psf_pad))
+    with prof.phase("FFT Image"):
+        G = fft2d(chans, torch.zeros_like(chans), False, fft_backend)
+        _block(G)
+    with prof.phase("FFT PSF"):
+        H = fft2d(psf_pad, torch.zeros_like(psf_pad), False, fft_backend)
+        _block(H)
+    with prof.phase("Wiener Filter"):
+        F = apply_filter("wiener", G, H, float(K), backend=fft_backend)
+        _block(F)
+    with prof.phase("IFFT"):
+        r_re, _ = fft2d(F[0], F[1], True, fft_backend)
+        _block(r_re)
+    with prof.phase("Post-process"):
+        planes = minmax_normalize(r_re)[None, :, :h, :w]
+        out = encode_planar(planes, img.permute(2, 0, 1)[None], white_balance)[0]
+        out = out.cpu().numpy()
+    return out, prof

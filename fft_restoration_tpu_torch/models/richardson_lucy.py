@@ -1,12 +1,14 @@
 """Richardson-Lucy iterative deconvolution on the device.
 
-Counterpart of fft_restoration_tpu/models/richardson_lucy.py:
+Counterpart of fft_restoration_tpu/models/richardson_lucy.py, on the
+kernel route and (fft_backend=, the JAX default 'matmul') the generic one:
 
     x_{k+1} = max(x_k * C(psf_mirrored, y / (C(psf, x_k) + eps)), 0)
 
-with C the circular convolution of models/convolve.py: three kernel
-launches per conv at column lengths >= 512 (B1, B2 'conv', B6), two
-convs per iteration, the mirrored one through conj(H). The JAX
+with C the circular convolution of models/convolve.py: on the kernel
+route three kernel launches per conv at column lengths >= 512 (B1, B2
+'conv', B6), two convs per iteration, the mirrored one through conj(H);
+on the generic route two fft2d calls and a spectral product per conv. The JAX
 fori_loop is a host loop here: PyTorch runs eagerly, so each iteration
 enqueues its ~6 launches and ~8 small tensor ops (a CUDA graph is a
 later step). The PSF spectrum is computed once, or comes from the
@@ -32,29 +34,36 @@ from fft_restoration_tpu_torch.models.convolve import (
     pack_pairs,
     unpack_pairs,
 )
-from fft_restoration_tpu_torch.models.pipeline import KERNEL_OPS
+from fft_restoration_tpu_torch.models.pipeline import KERNEL_BACKEND, KERNEL_OPS
 from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
 
 
 def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-6,
-                           psf_spectrum=None, ops=KERNEL_OPS, radices_hw=((), ())):
-    """RL-deconvolve (C, Hp, Wp) padded planes (float32 in [0, 1], or
+                           fft_backend: str = KERNEL_BACKEND, radices_hw=((), ()),
+                           psf_spectrum=None, ops=KERNEL_OPS):
+    """RL-deconvolve (..., Hp, Wp) padded planes (float32 in [0, 1], or
     uint8 converted by exact division x / 255) with the (S, S) PSF.
-    Returns float32 planes clipped to [0, 1] (not min-max normalized: RL
-    preserves flux, and a stretch would let the boundary-ringing spikes
-    darken the whole frame). radices_hw: (rad_h, rad_w) of smooth (Hp, Wp)
-    extents."""
-    if channels.ndim != 3:
-        raise ValueError(f"need (C, Hp, Wp) planes, got shape {tuple(channels.shape)}")
+    Returns float32 planes of the same shape clipped to [0, 1] (not
+    min-max normalized: RL preserves flux, and a stretch would let the
+    boundary-ringing spikes darken the whole frame).
+
+    The planes are flattened to (N, Hp, Wp) and paired in that order
+    (pack_pairs; JAX pairs along axis -3, which is the same order for
+    one frame's (C, Hp, Wp) and differs only in rounding otherwise).
+    fft_backend: 'pallas' (default, the kernels; the JAX package's default
+    is 'matmul') or another backend of ops/fft.py (the generic route,
+    models/convolve.py). radices_hw: (rad_h, rad_w) of smooth (Hp, Wp)
+    extents (kernel route). psf_spectrum: the spectrum in the route's
+    layout (circular_conv_builder), made here when None. ops: KERNEL_OPS
+    or PLAIN_OPS (kernel route). JAX's psf_rows is not taken: the port's
+    spectrum transforms the PSF's own S rows already."""
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
-    c, hp, wp = channels.shape
-    conv = circular_conv_builder(psf, hp, wp, psf_spectrum=psf_spectrum, ops=ops,
-                                 radices_hw=radices_hw)
-    if c >= 2:
-        y_re, y_im = pack_pairs(channels)
-    else:
-        y_re, y_im = channels, torch.zeros_like(channels)
+    hp, wp = channels.shape[-2:]
+    conv = circular_conv_builder(psf, hp, wp, fft_backend=fft_backend,
+                                 psf_spectrum=psf_spectrum, ops=ops, radices_hw=radices_hw)
+    flat = channels.reshape(-1, hp, wp)
+    y_re, y_im = pack_pairs(flat)
 
     x_re, x_im = y_re, y_im
     for _ in range(n_iters):
@@ -64,5 +73,5 @@ def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-
         g_re, g_im = conv(r_re, r_im, conj=True)
         x_re = torch.clamp_min(x_re * g_re, 0.0)
         x_im = torch.clamp_min(x_im * g_im, 0.0)
-    restored = x_re if c < 2 else unpack_pairs(x_re, x_im, c)
-    return torch.clamp(restored, 0.0, 1.0)
+    restored = unpack_pairs(x_re, x_im, flat.shape[0])
+    return torch.clamp(restored.reshape(channels.shape), 0.0, 1.0)

@@ -26,7 +26,9 @@ rows) and B10 (`B10_rows`: `wiener_spectral_rows` on (3, 2048, 2048)
 planes with a (2048, 2048) spectrum). `--modes` times only the modes whose names start with one of its
 prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
-the restore paths' device busy, event time and host enqueue. The
+the restore paths' device busy, event time and host enqueue (both
+checkouts need `utils/trace_profile.py`; pass --no-paths for an older
+one). The
 white-balance pair and B11 on (96, 256, 256), launches about as short
 as their wrappers' host time, are also timed in a CUDA graph
 (`<mode>_graph`) and on the host clock (`<mode>_host_us`, one wrapper

@@ -12,14 +12,14 @@ levels in every FFT launch) and pow2 (4096x4096), and the 2048x2048x3
 frame on the generic route with fft_backend='matmul', wb_stats_stride 1) it
 runs the restore
 `--iters` times back to back: once timed with CUDA events (ms per run),
-once under torch.profiler. From the profile: device busy per run (the
-sum of the device-side activities' time: kernels, copies, fills),
-device time per kernel name, and the idle share of the unprofiled run,
-1 - busy / event time. Host enqueue per run is the host clock around
+once under torch.profiler (utils/trace_profile.device_trace). From the
+trace: device busy per run (the sum of the device rows' time: kernels,
+copies, fills), device time per kernel name, and the idle share of the
+unprofiled run, 1 - busy / event time. Host enqueue per run is the host clock around
 the queued loop. The single frame runs through WienerDeblurPipeline.run
-and uses nothing else of the package, so the script also times an older
-checkout of it (`PYTHONPATH=<checkout> python <this file> --paths
-single_2048sq`). Prints one line per path and a JSON object last. Exits
+and the package's utils/trace_profile.py, so the script also times an
+older checkout that has both (`PYTHONPATH=<checkout> python <this file>
+--paths single_2048sq`). Prints one line per path and a JSON object last. Exits
 non-zero without a GPU.
 """
 
@@ -29,6 +29,8 @@ import argparse
 import json
 import sys
 import time
+
+from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
 # (name, frames or None for the single-frame pipeline, (h, w), PSF
 # length, pipeline options, white-balance strides)
@@ -58,10 +60,8 @@ def _frames(np, b, hw, seed, psf):
 
 def profile_path(torch, run, iters):
     """(event ms per run, host enqueue ms per run, busy us per run,
-    {kernel name: us per run}) of `run`."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    {kernel name: us per run}) of `run`; busy and the kernels from
+    utils/trace_profile.device_trace over `iters` runs."""
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -75,16 +75,9 @@ def profile_path(torch, run, iters):
     end.synchronize()
     ms = start.elapsed_time(end) / iters
     enqueue = (t1 - t0) * 1e3 / iters
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-    per = {}
-    for ev in prof.key_averages():
-        # device-side rows only: an operator's row repeats its kernels' time
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0:
-            per[ev.key] = ev.self_device_time_total / iters
-    return ms, enqueue, sum(per.values()), per
+    rep = device_trace(run, (), n_iters=iters)
+    per = {name: total_ms * 1e3 / iters for name, total_ms in rep.ops_ms.items()}
+    return ms, enqueue, rep.device_total_ms * 1e3, per
 
 
 def main() -> int:

@@ -211,13 +211,104 @@ def test_fft_backend_is_ported_and_defaults_to_the_kernels():
 
 
 @pytest.mark.parametrize("extra,item", [(["--filter", "rl"], "A3"), (["--edgetaper"], "A3")])
-def test_generic_route_refuses_rl_and_taper(blurred_png, capsys, extra, item):
-    assert cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-backend", "matmul",
-                     *extra]) == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().out
+def test_generic_route_refuses_rl_and_taper(blurred_png, tmp_path, capsys, extra, item):
+    """Named for the refusal it replaced: --filter rl and --edgetaper on
+    --fft-backend matmul, once refused (ROADMAP.md `item`, named in the
+    failure message), now run and write the port pipeline's output.
+    The taper is verified against the tapered oracle, and is the JAX
+    pipeline's on 'matmul' within 1 uint8 count. RL on this zero-padded
+    frame, untapered, is held as tests/test_torch_richardson_lucy.py
+    holds such frames: its planes at most twice as far from a float64 RL
+    of the same planes as the JAX pipeline's on 'matmul' (at the rim any
+    two float32 RLs part by ~0.1, ROADMAP.md C)."""
+    from fft_restoration_tpu.models.pipeline import WienerDeblurPipeline as JaxPipeline
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-backend", "matmul",
+                   "--iters", "2", "-o", str(out), *extra])
+    text = capsys.readouterr().out
+    assert rc == 0, f"the ROADMAP {item} route failed: {text}"
+    rl = extra[-1] == "rl"
+    kw = dict(filter_name="rl", rl_iters=2) if rl else dict(edgetaper=True)
+    img = imread(str(blurred_png))
+    pipe = WienerDeblurPipeline("cpu", fft_backend="matmul", **kw)
+    assert np.array_equal(imread(str(out)), pipe.restore(img, 9, 30.0))
+    jax_pipe = JaxPipeline(fft_backend="matmul", **kw)
+    if not rl:
+        assert "[Success]" in text
+        d = np.abs(imread(str(out)).astype(np.int32)
+                   - jax_pipe.restore(img, 9, 30.0).astype(np.int32))
+        assert d.max() <= 1
+        return
+    assert "[INFO] --filter rl is not verified" in text
+    ref = _rl_f64(img, oracle.motion_psf(9, 30.0), 2)
+    d_port = np.abs(pipe.restore_channels(img, 9, 30.0) - ref).max()
+    d_jax = np.abs(jax_pipe.restore_channels(img, 9, 30.0) - ref).max()
+    assert d_port <= 2.0 * d_jax, (d_port, d_jax)
+
+
+def _rl_f64(img, psf, iters, eps=1e-6):
+    """float64 np.fft Richardson-Lucy of the frame's zero-padded float32
+    planes x / 255 (pow2 pad, corner-anchored PSF), clipped and cropped."""
+    h, w = img.shape[:2]
+    hp, wp = 1 << (h - 1).bit_length(), 1 << (w - 1).bit_length()
+    y = np.zeros((3, hp, wp))
+    y[:, :h, :w] = np.moveaxis(img.astype(np.float32) / np.float32(255.0), -1, 0)
+    pp = np.zeros((hp, wp))
+    pp[: psf.shape[0], : psf.shape[1]] = psf
+    H = np.fft.fft2(pp)
+    x = y.copy()
+    for _ in range(iters):
+        conv = np.real(np.fft.ifft2(np.fft.fft2(x) * H))
+        x = np.maximum(x * np.real(np.fft.ifft2(np.fft.fft2(y / (conv + eps)) * np.conj(H))), 0)
+    return np.clip(x, 0.0, 1.0)[:, :h, :w]
 
 
 def test_generic_route_refuses_directories(tmp_path, capsys):
-    imwrite(str(tmp_path / "a.png"), np.zeros((20, 20, 3), np.uint8))
-    assert cli.main([str(tmp_path), "9", "30", "--device", "cpu", "--fft-backend", "naive"]) == 2
-    assert "ROADMAP.md A7" in capsys.readouterr().out
+    """Named for the refusal it replaced: a directory on a non-kernel
+    backend, once refused (ROADMAP.md A7), now runs the batched pipeline on that backend: each output is the JAX
+    batched pipeline's on 'matmul' within 1 uint8 count."""
+    from fft_restoration_tpu.models.batched import BatchedWienerPipeline as JaxBatched
+
+    rng = np.random.default_rng(12)
+    frames = [blur_image(rng.integers(0, 256, (40, 56, 3), dtype=np.uint8), 9, 30)
+              for _ in range(3)]
+    for i, f in enumerate(frames):
+        imwrite(str(tmp_path / f"f{i}.png"), f)
+    out_dir = tmp_path / "out"
+    rc = cli.main([str(tmp_path), "9", "30", "--device", "cpu", "--fft-backend", "matmul",
+                   "-o", str(out_dir)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "Restored 3 frames" in text, text
+    ref = JaxBatched(fft_backend="matmul").restore(np.stack(frames), 9, 30.0)
+    for i in range(3):
+        got = imread(str(out_dir / f"f{i}_restored.png"))
+        assert np.abs(got.astype(np.int32) - ref[i].astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("mode", ["phases", "trace"])
+def test_profile_on_cpu(blurred_png, tmp_path, capsys, mode):
+    """--profile phases prints profile_phases' six-phase table; --profile
+    trace on --device cpu prints "not measured" and no device figure."""
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-backend", "matmul",
+                   "--no-verify", "-o", str(tmp_path / "o.png"), "--profile", mode])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    if mode == "phases":
+        assert "=== Accumulated Time ===" in text and "this round total:" in text
+        for phase in ("Pre-process", "FFT Image", "FFT PSF", "Wiener Filter", "IFFT",
+                      "Post-process"):
+            assert f"torch-cpu: {phase} total:" in text
+    else:
+        assert "not measured" in text and "ms/iter" not in text
+
+
+def test_profile_is_ported_and_bare_flag_means_phases(blurred_png, tmp_path, capsys):
+    assert "--profile" not in cli.NOT_PORTED
+    args = cli.build_parser().parse_args(["x.png", "9", "30", "--profile"])
+    assert args.profile == "phases"
+    assert cli.build_parser().parse_args(["x.png", "9", "30"]).profile is None
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--filter", "rl",
+                   "--iters", "1", "--no-verify", "-o", str(tmp_path / "o.png"), "--profile"])
+    assert rc == 0 and "--profile trace" in capsys.readouterr().out

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from fft_restoration_tpu.models import filters as jfilters
+from fft_restoration_tpu.models.batched import BatchedWienerPipeline as JaxBatched
 from fft_restoration_tpu.models.pipeline import WienerDeblurPipeline as JaxPipeline
 from fft_restoration_tpu.models.pipeline import _pack_channel_pairs, _unpack_channel_pairs
 from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline, deblur_image
@@ -126,10 +127,23 @@ def test_deblur_image_is_the_pipeline():
 
 @pytest.mark.parametrize("kw,item", [(dict(filter_name="rl"), "A3"), (dict(edgetaper=True), "A3")])
 def test_unported_combinations_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        WienerDeblurPipeline("cpu", fft_backend="matmul", **kw)
-    WienerDeblurPipeline("cpu", fft_backend="pallas", **kw)  # the kernel route takes them
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        BatchedWienerPipeline("cpu", fft_backend="matmul")
+    """Named for the refusal it replaced: what the generic route once
+    refused (ROADMAP.md `item`, named in the failure messages: RL, the
+    taper, and a batch on a non-kernel backend) now runs and is held to
+    the JAX pipelines on 'matmul' (RL 5e-2 planes and 8 / 0.2 uint8
+    counts, as tests/test_torch_filters.py holds the kernel route; the
+    taper and the batch 1e-5 planes and 1 count); an unknown backend
+    still raises."""
+    img = _frame(9, 64, 64)
+    opts = dict(fft_backend="matmul", rl_iters=2, **kw)
+    out_j, planes_j = JaxPipeline(**opts).restore_with_planes(img, 9, 30.0)
+    out_t, planes_t = WienerDeblurPipeline("cpu", **opts).restore_with_planes(img, 9, 30.0)
+    rl = kw.get("filter_name") == "rl"
+    msg = f"the ROADMAP {item} route disagrees with JAX's"
+    assert np.abs(planes_t - planes_j).max() <= (5e-2 if rl else 1e-5), msg
+    assert _u8_max(out_t, out_j) <= (8 if rl else 1), msg
+    stack = np.stack([_frame(10 + i, 40, 56) for i in range(3)])
+    out_b = BatchedWienerPipeline("cpu", fft_backend="matmul").restore(stack, 9, 30.0)
+    assert _u8_max(out_b, JaxBatched(fft_backend="matmul").restore(stack, 9, 30.0)) <= 1, msg
     with pytest.raises(ValueError, match="unknown fft backend"):
         WienerDeblurPipeline("cpu", fft_backend="cufft")

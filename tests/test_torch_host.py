@@ -177,6 +177,7 @@ def test_port_and_smoke_import_nothing_of_jax():
         "models/convolve", "models/richardson_lucy", "models/edgetaper", "host/taper",
         "host/edgetaper", "ops/wiener", "tools/profile_paths", "tools/rl_rim", "ops/fft",
         "models/filters", "ops/kernels/wiener", "ops/kernels/fft_radix4", "tools/perf_ab",
+        "utils/timing", "utils/trace_profile", "tools/bench",
     )} <= names
     for f in files:
         bad = {m for m in _imported_modules(f)

@@ -155,6 +155,8 @@ def test_port_imports_no_jax(tmp_path):
         "import fft_restoration_tpu_torch.models.pipeline\n"
         "import fft_restoration_tpu_torch.models.batched\n"
         "import fft_restoration_tpu_torch.tools.profile_paths\n"
+        "import fft_restoration_tpu_torch.tools.bench\n"
+        "import fft_restoration_tpu_torch.utils.timing, fft_restoration_tpu_torch.utils.trace_profile\n"
         "from fft_restoration_tpu_torch import BatchedWienerPipeline, psf_grid_sweep\n"
         "import fft_restoration_tpu_torch.ops.kernels._build\n"
         "import fft_restoration_tpu_torch.ops.kernels.postprocess\n"

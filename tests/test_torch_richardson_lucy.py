@@ -128,5 +128,6 @@ def test_rl_reuses_a_given_spectrum(rng):
     H = psf_spectrum_planes(psf, 64, 128)
     assert torch.equal(richardson_lucy_planes(y, psf, 2),
                        richardson_lucy_planes(y, psf, 2, psf_spectrum=H))
-    with pytest.raises(ValueError):
-        richardson_lucy_planes(y[0], psf, 2)
+    # one (Hp, Wp) plane, as JAX takes it, restores as a 1-plane stack
+    assert torch.equal(richardson_lucy_planes(y[0], psf, 2),
+                       richardson_lucy_planes(y[:1], psf, 2)[0])
