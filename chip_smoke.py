@@ -17,7 +17,13 @@ the B7 middle at hp = 384); and the ops layer: the generic restore route
 balance in torch) at 2048x2048x3 with 'matmul' and at 640x330 with each
 of the five backends, a restore composed from the public ops.kernels API
 (B6 natural rows, B11 columns, B9), and the JAX A/B harness's radix4
-(B12) and megakernel (B10) experiments. Phases, each printing its own
+(B12) and megakernel (B10) experiments; the tiled restore of
+bench_extended.py's 4096x6144x3 noise frame (models/tiled.py: tile 1024,
+B1, B2 'conv' and B6 for each chunk's taper, B1, B2 'wiener' and B3 for
+its restore), the blind estimators (models/estimate.py on B6 natural:
+motion at UHD and at 4096x6144, whose cepstrum is 4096x8192, disk and
+gaussian at 2048^2, the noise K) and the PSF family on the CLI
+(--psf-type gaussian / disk, --psf-file). Phases, each printing its own
 lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
@@ -55,7 +61,11 @@ lines; any failure exits non-zero:
              directions (and natural forward at H = 4096 and on (96,
              256, 256)), B9, B10 (beside B7 + B6's inverse pass, the
              function it fuses), B12 on real and complex rows (its
-             output order also against torch.fft);
+             output order also against torch.fft); then the tiled
+             frame's kernels on its first chunk of 16 1024^2 tiles (B1
+             over 24 float pairs, B2 'conv' and 'wiener', B6's conv
+             inverse, B3) and B6 natural at the 4096x8192 cepstrum's
+             rows and its transposed copy's (check_kernels_tiled_estimate);
   3. slice   WienerDeblurPipeline and BatchedWienerPipeline on the card on
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
@@ -90,7 +100,17 @@ lines; any failure exits non-zero:
              it, fft2d's launches on 'pallas' (fft_rows' natural instance)
              and 'matmul' (none), each backend at 640x330 against the
              oracle at the l2, inf and gpu tiers, the CLI with
-             --fft-backend matmul;
+             --fft-backend matmul; the tiled 4096x6144x3 frame once with
+             the counters reset after a warm run (per chunk B1 twice, B2
+             'conv', B2 'wiener', and fft_rows 4 times: B1 twice, B6, B3;
+             no generic-route FFT), against its plain run on the card (1
+             count) and the host stitch (TOL_STITCH_U8 outside the bands
+             where the two grids pick different tiles), the CLI with
+             --tile 1024 on the 2048^2 frame (the per-tile oracle anchor
+             at the gpu tier); each estimator once with the counters reset
+             (B6 natural must launch), with the JAX tests' bounds and
+             against its plain run (check_estimate); the PSF family on the
+             CLI at 640x330 against the oracle at the inf tier;
   4. timing  ms/frame and MP/s of the 2048^2 restore, ms/batch, ms/frame,
              MP/s and host enqueue of batch64 and batch8 (serving graph,
              CUDA events, the median of five loops) for wb_stats_stride 1
@@ -102,7 +122,11 @@ lines; any failure exits non-zero:
              host enqueue and device busy of UHD 3840x2160 at smooth
              (2304x3840) and pow2 (4096x4096) extents in the same run;
              ms/frame of the generic matmul route at 2048^2; the perf_ab
-             radix4 and megakernel experiments (counters reset);
+             radix4 and megakernel experiments (counters reset); the
+             tiled frame end to end (host clock, MP/s of its 25.17 MP)
+             and its device stitch on the card (events, host enqueue,
+             device busy, idle share), each estimator's ms end to end
+             beside its device busy;
   5. twin    the measurement layer (check_twin): the bench twin
              tools/bench.py, each path with the counters reset: bench.py's
              headline and batch64_256sq_shared_psf on the kernels (the
@@ -206,6 +230,28 @@ ORACLE_SMOOTH_PSNR_DB = 40.0
 TOL_PHASES_SUM_REL = 0.02     # sum of the TWIN_PHASES against device busy
 MAX_UNATTRIBUTED_SHARE = 0.01  # device time in no fphase_ range, of busy
 TWIN_PHASES = ("fft_image", "spectral_fused", "ifft", "post_process")
+# the tiled restore: bench_extended.py's 4096x6144x3 noise frame, PSF(50,
+# 30), tile 1024 (overlap 100, core 824), chunks of TILE_CHUNK tiles
+TILED_HW = (4096, 6144)
+TILED_PSF = 50
+TILED_TILE = 1024
+TILE_CHUNK = 16               # tiled_restore_image's default chunk
+# device stitch vs host stitch outside the bands where their grids pick
+# different tiles (band_mask): the same tiles' values, but the min-max
+# (a reciprocal multiply against a division, over planes whose bands
+# differ) and the white balance (float32 torch against float64 numpy)
+# each may move a truncated count by one. Inside the bands two tiles
+# restore the pixel, which the JAX package's two stitches do too (they
+# differ by more than 1 count on tests/test_torch_tiled.py's frame)
+TOL_STITCH_U8 = 2
+# the estimators: the 4096x6144 frame's cepstrum (4096x8192) and the
+# disk and gaussian blurs of the 2048^2 scene; the noise level of
+# estimate_noise_K's frame
+EST_CEPSTRUM = (1, 4096, 8192)
+EST_DISK = 11
+EST_SIGMA = 2.5
+EST_NOISE = 0.02
+TOL_EST_CONF_REL = 1e-3       # an estimator's confidence vs its plain run
 
 
 def log(msg: str) -> None:
@@ -1904,6 +1950,452 @@ def check_twin(torch, np, frame, stack8, seed):
     return res, lines, counts
 
 
+# ---------------------------------------------------------------------------
+# the tiled restore and the blind estimators (models/tiled.py,
+# models/estimate.py), and the PSF family on the CLI
+
+
+def noise_frame(np, shape, seed: int):
+    """bench_extended.py's frame: uniform noise scaled to [0, 255), uint8."""
+    return (np.random.default_rng(seed).random(shape) * 255).astype(np.uint8)
+
+
+def scene(np, h: int, w: int, seed: int):
+    """blurred_frame's scene before its blur: blocks of 16 px plus detail."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float64)
+    out = np.kron(coarse, np.ones((16, 16, 1)))[:h, :w]
+    return np.clip(out * 0.8 + rng.integers(0, 52, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def tile_batch(torch, np, big):
+    """The first chunk of the tiled frame's tiles as its kernels see them:
+    (TILE_CHUNK * 3, tile, tile) float32 planes (u8_to_unit), then B1's
+    transposed planes, the PSF spectrum and each middle's output, all from
+    the plain versions."""
+    from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS, psf_spectrum_planes
+    from fft_restoration_tpu_torch.models.tiled import clamped_grid, validate_tile_params
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    t = TILED_TILE
+    overlap, core = validate_tile_params(t, None, TILED_PSF)
+    ys, _ = clamped_grid(big.shape[0], t, core, overlap)
+    xs, _ = clamped_grid(big.shape[1], t, core, overlap)
+    starts = [(y, x) for y in ys for x in xs][:TILE_CHUNK]
+    frame = torch.as_tensor(big, device=dev)
+    flat = u8_to_unit(torch.stack([frame[y:y + t, x:x + t] for y, x in starts])
+                      .permute(0, 3, 1, 2).reshape(-1, t, t)).contiguous()
+    a_p = fk.fft_rows_plain(flat[0::2], flat[1::2], transposed=True)
+    H = psf_spectrum_planes(make_psf("motion", TILED_PSF, 30.0, dev), t, t, PLAIN_OPS)
+    conv_p = ws.spectral_conv_t_plain(*a_p, *H, False, ())
+    mid_p = ws.wiener_spectral_t_plain(*a_p, *H, 0.01, ())
+    return flat, a_p, H, conv_p, mid_p
+
+
+def check_kernels_tiled_estimate(torch, np, big, iters):
+    """Phase 2 at this slice's shapes: the tiled frame's kernels on its
+    first chunk of TILE_CHUNK 1024^2 tiles (B1's transposed pass over 24
+    float pairs, B2 'conv' (the taper) and 'wiener', B6's conv inverse, B3)
+    and B6 natural at the 4096x6144 frame's cepstrum rows (the 8192-point
+    row pass, then the 4096-point pass of fft2d's transposed copy), each
+    against its plain version, timed beside its bound and torch.fft.fft
+    of the same complex planes. Returns {kernel name: {mode: measurement}}."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    dev = torch.device("cuda", 0)
+    flat, a_p, H, conv_p, mid_p = tile_batch(torch, np, big)
+    n_pl, t = flat.shape[0], flat.shape[-1]
+    pairs = n_pl // 2
+    plane = t * t * 4
+    rng = np.random.default_rng(TILED_PSF)
+    e_re, e_im = (torch.as_tensor(rng.standard_normal(EST_CEPSTRUM, dtype=np.float32),
+                                  device=dev) for _ in range(2))
+    c_re, c_im = e_re.transpose(-1, -2).contiguous(), e_im.transpose(-1, -2).contiguous()
+    _, m, n = e_re.shape
+
+    def lib(re, im):
+        x = torch.complex(re, im)
+        return lambda: torch.fft.fft(x, dim=-1)
+
+    # kernel: {mode: (kernel, plain, bytes, flops, library call, is the library call)}
+    specs = {
+        "fft_rows_t": {
+            f"B1_tiles_{pairs}x{t}sq_T": (
+                lambda: fk.fft_rows(flat[0::2], flat[1::2], transposed=True),
+                lambda: fk.fft_rows_plain(flat[0::2], flat[1::2], transposed=True),
+                2 * n_pl * plane, fft_flops(pairs * t, t), lib(*a_p), True),
+        },
+        "spectral_conv_t": {
+            f"conv_tiles_{pairs}x{t}sq": (
+                lambda: ws.spectral_conv_t(*a_p, *H, False, ()),
+                lambda: ws.spectral_conv_t_plain(*a_p, *H, False, ()),
+                (4 * pairs + 2) * plane, 2 * fft_flops(pairs * t, t) + pairs * t * t * 6,
+                lib(*a_p), False),
+        },
+        "wiener_spectral_t": {
+            f"tiles_{pairs}x{t}sq": (
+                lambda: ws.wiener_spectral_t(*a_p, *H, 0.01, ()),
+                lambda: ws.wiener_spectral_t_plain(*a_p, *H, 0.01, ()),
+                (4 * pairs + 2) * plane, 2 * fft_flops(pairs * t, t) + pairs * t * t * 12,
+                lib(*a_p), False),
+        },
+        "fft_rows": {
+            f"B6_conv_inverse_tiles_{pairs}x{t}sq": (
+                lambda: fk.fft_rows(*conv_p, inverse=True),
+                lambda: fk.fft_rows_plain(*conv_p, inverse=True),
+                4 * pairs * plane, fft_flops(pairs * t, t), lib(*conv_p), True),
+            f"B3_tiles_{pairs}x{t}sq": (
+                lambda: fk.fft_rows_packed_out(*mid_p, inverse=True),
+                lambda: fk.fft_rows_packed_out_plain(*mid_p, inverse=True),
+                4 * pairs * plane, fft_flops(pairs * t, t), lib(*mid_p), True),
+        },
+        "fft_rows_natural": {
+            f"estimate_rows_{m}x{n}": (
+                lambda: fk.fft_rows(e_re, e_im, ordering="natural"),
+                lambda: fk.fft_rows_plain(e_re, e_im, ordering="natural"),
+                4 * m * n * 4, fft_flops(m, n), lib(e_re, e_im), True),
+            f"estimate_cols_{n}x{m}": (
+                lambda: fk.fft_rows(c_re, c_im, ordering="natural"),
+                lambda: fk.fft_rows_plain(c_re, c_im, ordering="natural"),
+                4 * m * n * 4, fft_flops(n, m), lib(c_re, c_im), True),
+        },
+    }
+    res = {}
+    for kernel, modes in specs.items():
+        res[kernel] = {}
+        for mode, (kern, plain, nbytes, flops, fft_call, is_lib) in modes.items():
+            outs = list(zip(*(x if isinstance(x, tuple) else (x,) for x in (kern(), plain()))))
+            m_ = measure(torch, outs, kern, plain, iters, nbytes, flops,
+                         fft_call if is_lib else None)
+            m_["torch_fft_ms"] = m_["library_ms"] if is_lib else cuda_ms(torch, fft_call, iters)
+            res[kernel][mode] = m_
+            tol = TOL_FFT_REL if kernel.startswith("fft_rows") else TOL_WIENER_REL
+            log(f"{kernel} {mode}: max rel err {m_['max_rel_err']:.3e} (tol {tol}); "
+                f"{m_['ms']:.4f} ms vs plain {m_['plain_ms']:.4f}, torch.fft "
+                f"{m_['torch_fft_ms']:.4f}, bound {m_['bound_ms']:.4f} ms ({m_['bound_by']})")
+            if not m_["max_rel_err"] <= tol:
+                fail(f"{kernel} {mode} disagrees with its plain version")
+    return res
+
+
+@contextlib.contextmanager
+def kernel_route_only():
+    """Refuse every generic-route FFT (ops/fft.py's matmul, radix2, naive
+    and xla backends) while the block runs: the tiled restore on
+    'pallas' must not reach one."""
+    from fft_restoration_tpu_torch.ops import fft as fft_ops
+
+    saved = dict(fft_ops._BACKEND_FNS)
+
+    def refuse(*_args, **_kw):
+        raise AssertionError("a generic-route FFT ran on the kernel route")
+
+    fft_ops._BACKEND_FNS.update({k: refuse for k in saved if k != "pallas"})
+    saved_naive, fft_ops._fft_naive = fft_ops._fft_naive, refuse
+    try:
+        yield
+    finally:
+        fft_ops._BACKEND_FNS.update(saved)
+        fft_ops._fft_naive = saved_naive
+
+
+def band_mask(np, h: int, w: int, tile: int, core: int, overlap: int):
+    """(h, w) True where the device stitch's clamped grid and the host
+    stitch's partition hand the pixel to different tiles: there the two
+    stitches hold two tiles' restores of the same pixel."""
+    from fft_restoration_tpu_torch.models.tiled import clamped_grid, tile_grid
+
+    def differ(extent):
+        dev, host = np.zeros(extent, int), np.zeros(extent, int)
+        for i, c0 in enumerate(clamped_grid(extent, tile, core, overlap)[1]):
+            dev[c0:c0 + min(core, extent)] = i
+        for i, (c0, c1) in enumerate(tile_grid(extent, tile, core, overlap)[1]):
+            host[c0:c1] = i
+        return dev != host
+
+    return differ(h)[:, None] | differ(w)[None, :]
+
+
+def cli_run(args):
+    """The port's CLI in this process: (exit code, its stdout)."""
+    import io
+
+    from fft_restoration_tpu_torch import cli
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(args)
+    return rc, text.getvalue()
+
+
+def check_tiled(torch, np, big, frame, seed):
+    """Phase 3, the tiled restore of bench_extended.py's 4096x6144x3 noise
+    frame (PSF(50, 30), K 0.01, tile 1024, overlap 100, core 824): once
+    with the counters reset after a warm run (every chunk launches B1
+    twice, B2 'conv' (the taper), B6's conv inverse, B2 'wiener' and B3;
+    no generic-route FFT), against the same tiled restore through the
+    plain versions on the card (1 count), the host stitch against the
+    device stitch, and the CLI with --tile 1024 on the 2048^2 frame (the
+    per-tile anchor at the gpu tier). Returns (results, counts)."""
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS
+    from fft_restoration_tpu_torch.models.tiled import (
+        clamped_grid, tiled_restore_image, validate_tile_params,
+    )
+
+    h, w = big.shape[:2]
+    overlap, core = validate_tile_params(TILED_TILE, None, TILED_PSF)
+    n_tiles = len(clamped_grid(h, TILED_TILE, core, overlap)[0]) * len(
+        clamped_grid(w, TILED_TILE, core, overlap)[0])
+    chunks = -(-n_tiles // TILE_CHUNK)
+
+    def run(**kw):
+        return tiled_restore_image(big, TILED_PSF, 30.0, 0.01, tile=TILED_TILE, **kw)
+
+    run()  # warm: the PSF spectrum is made once and kept
+    with kernel_route_only():
+        out, counts = drive(torch, "tiled 4096x6144x3 tile 1024", run,
+                            expect=("fft_rows", "fft_rows_t", "spectral_conv_t",
+                                    "wiener_spectral_t"),
+                            forbid=("fwd_wiener_rows", "mixed_radix", "fft_rows_natural",
+                                    "lab_l_sum_partials", "wb_encode_u8"))
+    want = dict(fft_rows_t=2 * chunks, spectral_conv_t=chunks, wiener_spectral_t=chunks,
+                fft_rows=4 * chunks)
+    got = {k: counts[k] for k in want}
+    log(f"tiled: {n_tiles} tiles in {chunks} chunks of {TILE_CHUNK}; launches {got}, expected "
+        f"{want} (per chunk: B1 x2, B2 'conv', B6 inverse, B2 'wiener', B3)")
+    if got != want:
+        fail("the tiled restore's launches are not its kernel route's")
+    if out.shape != big.shape or out.dtype != np.uint8:
+        fail(f"tiled output {out.shape} {out.dtype}")
+    t0 = time.perf_counter()
+    out_p = run(ops=PLAIN_OPS)
+    d_plain = u8_max(np, out, out_p)
+    log(f"tiled vs its plain run on the card ({time.perf_counter() - t0:.1f} s): uint8 max "
+        f"{d_plain} (tol {TOL_U8})")
+    if not d_plain <= TOL_U8:
+        fail("the tiled restore disagrees with its plain run")
+    t0 = time.perf_counter()
+    out_h = run(device_stitch=False)
+    band = band_mask(np, h, w, TILED_TILE, core, overlap)
+    diff = np.abs(out.astype(np.int32) - out_h.astype(np.int32)).max(-1)
+    d_out, d_band = int(diff[~band].max()), int(diff[band].max()) if band.any() else 0
+    log(f"tiled device vs host stitch ({time.perf_counter() - t0:.1f} s): uint8 max {d_out} "
+        f"outside the bands where the grids pick different tiles (tol {TOL_STITCH_U8}), "
+        f"{d_band} inside them ({band.mean():.4f} of the frame; two tiles' restores)")
+    if not d_out <= TOL_STITCH_U8:
+        fail("the device stitch disagrees with the host stitch")
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        imwrite(png, frame)
+        t0 = time.perf_counter()
+        rc, text = cli_run([png, "50", "30", "--tile", str(TILED_TILE), "-o",
+                            os.path.join(tmp, "out.png")])
+        lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+        log(f"CLI 2048x2048x3 --tile {TILED_TILE} ({time.perf_counter() - t0:.1f} s): exit "
+            f"{rc}; {lines}")
+        if rc != 0 or "[Success] tier=gpu" not in text or "per-tile oracle anchor" not in text:
+            fail("the CLI's tiled run fails its per-tile oracle anchor")
+    res = dict(tiles=n_tiles, chunks=chunks, vs_plain_uint8_max=d_plain,
+               device_vs_host_stitch=dict(uint8_max_outside_bands=d_out,
+                                          uint8_max_in_bands=d_band,
+                                          band_share=float(band.mean())),
+               cli_anchor=[ln for ln in lines if "tier=gpu" in ln])
+    return res, {"tiled_4096x6144_tile1024": counts}
+
+
+def _angle_diff(a: float, b: float) -> float:
+    d = abs((a - b) % 180.0)
+    return min(d, 180.0 - d)
+
+
+def check_estimate(torch, np, uhd, seed):
+    """Phase 3, the blind estimators on the kernel route ('pallas': B6
+    natural), each once with the counters reset: estimate_motion_psf on the
+    UHD frame (blurred with PSF(50, 30)) and on a 4096x6144 frame blurred
+    with it (a 4096x8192 cepstrum), with the JAX tests' bounds (length +-2,
+    angle +-3 deg, confidence > 12) and against its plain run on the card
+    (the same length and angle, the cepstrum's mirrored peak aside, the
+    confidence to 1e-3 relative); estimate_disk_psf (size 11) and
+    estimate_gaussian_psf (sigma 2.5) at 2048^2 with the JAX tests'
+    bounds and against their plain runs; estimate_noise_K on a 2048^2
+    frame with gaussian noise of sigma 0.02 (within 15%). Returns
+    (results, counts, {name: (function, frame)} for the timing)."""
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models import estimate as est
+    from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS
+
+    t0 = time.perf_counter()
+    big = blur_image(scene(np, *TILED_HW, seed + 900), TILED_PSF, 30.0)
+    sc = scene(np, SIZE, SIZE, seed + 901)
+    disk = blur_image(sc, EST_DISK, 0.0, "disk")
+    gauss = blur_image(sc, est.gaussian_ksize(EST_SIGMA), EST_SIGMA, "gaussian")
+    log(f"estimator frames made: {time.perf_counter() - t0:.1f} s")
+    res, counts, timed = {}, {}, {}
+    natural = dict(expect=("fft_rows", "fft_rows_natural"),
+                   forbid=("fft_rows_t", "wiener_spectral_t", "spectral_conv_t",
+                           "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8"))
+    for name, img in (("estimate_motion_uhd", uhd), ("estimate_motion_4096x6144", big)):
+        (length, angle, conf), c = drive(torch, name, lambda: est.estimate_motion_psf(img),
+                                         **natural)
+        pl, pa, pc = est.estimate_motion_psf(img, ops=PLAIN_OPS)
+        log(f"{name} {img.shape[:2]}: length {length}, angle {angle:.3f}, confidence {conf:.3f};"
+            f" plain run {pl}, {pa:.3f}, {pc:.3f}")
+        if not (abs(length - TILED_PSF) <= 2 and _angle_diff(angle, 30.0) <= 3.0 and conf > 12):
+            fail(f"{name} misses the blur PSF({TILED_PSF}, 30)")
+        if not (pl == length and _angle_diff(pa, angle) < 1e-9
+                and abs(pc - conf) <= TOL_EST_CONF_REL * abs(pc)):
+            fail(f"{name} disagrees with its plain run")
+        res[name] = dict(length=length, angle=angle, confidence=conf, plain_confidence=pc)
+        counts[name] = c
+        timed[name] = (est.estimate_motion_psf, img)
+    (size, conf), c = drive(torch, "estimate_disk_2048sq", lambda: est.estimate_disk_psf(disk),
+                            **natural)
+    ps, pc = est.estimate_disk_psf(disk, ops=PLAIN_OPS)
+    log(f"estimate_disk_psf 2048^2, disk {EST_DISK}: size {size}, confidence {conf:.3f}; "
+        f"plain run {ps}, {pc:.3f}")
+    if not (abs(size - EST_DISK) <= 1 and conf > est.DISK_CONF_WARN):
+        fail("estimate_disk_psf misses the disk blur")
+    if not (ps == size and abs(pc - conf) <= TOL_EST_CONF_REL * abs(pc)):
+        fail("estimate_disk_psf disagrees with its plain run")
+    res["estimate_disk_2048sq"] = dict(size=size, confidence=conf, plain_confidence=pc)
+    counts["estimate_disk_2048sq"] = c
+    timed["estimate_disk_2048sq"] = (est.estimate_disk_psf, disk)
+    (sigma, conf), c = drive(torch, "estimate_gaussian_2048sq",
+                             lambda: est.estimate_gaussian_psf(gauss), **natural)
+    psg, pc = est.estimate_gaussian_psf(gauss, ops=PLAIN_OPS)
+    log(f"estimate_gaussian_psf 2048^2, sigma {EST_SIGMA}: sigma {sigma:.4f}, confidence "
+        f"{conf:.3f}; plain run {psg:.4f}, {pc:.3f}")
+    if not (abs(sigma - EST_SIGMA) / EST_SIGMA < 0.2 and conf > 2.0):
+        fail("estimate_gaussian_psf misses the gaussian blur")
+    if not (abs(psg - sigma) <= 1e-4 * psg and abs(pc - conf) <= TOL_EST_CONF_REL * abs(pc)):
+        fail("estimate_gaussian_psf disagrees with its plain run")
+    res["estimate_gaussian_2048sq"] = dict(sigma=sigma, confidence=conf, plain_sigma=psg,
+                                           plain_confidence=pc)
+    counts["estimate_gaussian_2048sq"] = c
+    timed["estimate_gaussian_2048sq"] = (est.estimate_gaussian_psf, gauss)
+    base = np.linspace(0.2, 0.8, SIZE, dtype=np.float32)[None, :].repeat(SIZE, 0)
+    noisy = np.clip(base + np.random.default_rng(seed + 902).normal(0, EST_NOISE, base.shape),
+                    0, 1)
+    noisy = (noisy[..., None].repeat(3, -1) * 255).astype(np.uint8)
+    n_sigma, k = est.estimate_noise_K(noisy)
+    log(f"estimate_noise_K 2048^2, noise sigma {EST_NOISE}: sigma {n_sigma:.5f}, K {k:g}")
+    if not abs(n_sigma - EST_NOISE) / EST_NOISE < 0.15:
+        fail("estimate_noise_K misses the noise level")
+    res["estimate_noise_K_2048sq"] = dict(sigma=n_sigma, K=k)
+    timed["estimate_noise_K_2048sq"] = (est.estimate_noise_K, noisy)
+    return res, counts, timed
+
+
+def check_psf_family_cli(torch, np, seed):
+    """Phase 3, the PSF family on the CLI at 640x330: --psf-type gaussian
+    (sigma 2.5) and disk (11), and --psf-file with a .npy of the motion
+    kernel PSF(50, 30), each on a frame blurred with its PSF and verified
+    against the oracle with the same kernel at the inf tier."""
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import motion_psf
+    from fft_restoration_tpu_torch.models.estimate import gaussian_ksize
+
+    sc = scene(np, *SMALL_HW, seed + 903)
+    ks = gaussian_ksize(EST_SIGMA)
+    cases = (("gaussian", blur_image(sc, ks, EST_SIGMA, "gaussian"),
+              [str(ks), str(EST_SIGMA), "--psf-type", "gaussian"]),
+             ("disk", blur_image(sc, EST_DISK, 0.0, "disk"),
+              [str(EST_DISK), "0", "--psf-type", "disk"]),
+             ("psf_file", blur_image(sc, 50, 30.0), ["1", "0", "--psf-file"]))
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npy = os.path.join(tmp, "motion50_30.npy")
+        np.save(npy, motion_psf(50, 30.0))
+        for name, img, args in cases:
+            png = os.path.join(tmp, f"{name}.png")
+            imwrite(png, img)
+            args = args + [npy] if name == "psf_file" else args
+            rc, text = cli_run([png, *args, "--tier", "inf", "-o", os.path.join(tmp, "o.png")])
+            verdict = [ln for ln in text.splitlines() if "tier=inf" in ln]
+            log(f"CLI 640x330 {' '.join(args[2:]) if name != 'psf_file' else '--psf-file'}: "
+                f"exit {rc}; {verdict}")
+            if rc != 0 or "[Success] tier=inf" not in text:
+                fail(f"the CLI's {name} restore fails the inf tier against the oracle")
+            res[name] = verdict
+    return res
+
+
+def time_tiled_estimate(torch, np, big, timed, iters):
+    """Phase 4: the tiled frame end to end (numpy in and out, the host
+    clock, best of three after a warm run) and its device stitch on the
+    card (tiled_run on the resident frame: CUDA events, the median of
+    three loops of `iters` runs, host enqueue, and device busy, its
+    fphase_ phases and its time by kind of kernel from torch.profiler);
+    each estimator end to end on the host clock (best of three) beside its
+    device busy by kind (one traced run)."""
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image, tiled_run
+    from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+    mp = TILED_HW[0] * TILED_HW[1] / 1e6
+
+    def wall_ms(fn):
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return best
+
+    def kinds(rep, n_iters):
+        """Device ms a run by kind of row: the port's kernels, torch's
+        elementwise and copy kernels, reductions and sorts, memcpy."""
+        out = {}
+        for name, ms in rep.ops_ms.items():
+            kind = next((k for k in ("fft_rows_t_kernel", "fft_rows_kernel", "spectral_s_kernel",
+                                     "Memcpy", "Memset", "sort", "reduce", "Cat", "elementwise")
+                         if k in name), "other")
+            out[kind] = out.get(kind, 0.0) + ms / n_iters
+        return out
+
+    e2e = wall_ms(lambda: tiled_restore_image(big, TILED_PSF, 30.0, 0.01, tile=TILED_TILE))
+    frame = torch.as_tensor(big, device="cuda")
+    run = lambda: tiled_run(frame, TILED_PSF, 30.0, 0.01, tile=TILED_TILE)  # noqa: E731
+    ev, runs = cuda_ms_median(torch, run, iters, reps=3)
+    enq = host_enqueue_ms(torch, run, iters)
+    rep = device_trace(run, (), n_iters=iters)
+    busy = rep.device_total_ms
+    res = {"tiled_4096x6144_tile1024": dict(
+        end_to_end_ms_per_frame=e2e, end_to_end_mp_per_s=mp / (e2e / 1e3),
+        device_stitch_event_ms_per_frame=ev, event_ms_loops=runs,
+        device_mp_per_s=mp / (ev / 1e3), host_enqueue_ms_per_frame=enq,
+        device_busy_ms_per_frame=busy, idle_share=1.0 - busy / ev,
+        phases_device_ms=dict(rep.phases_ms), kinds_device_ms=kinds(rep, iters))}
+    log(f"tiled 4096x6144x3: {e2e:.2f} ms/frame end to end ({mp / (e2e / 1e3):.1f} MP/s of "
+        f"{mp:.2f} MP); device stitch {ev:.3f} ms/frame by events ({mp / (ev / 1e3):.1f} MP/s), "
+        f"host enqueue {enq:.3f}, device busy {busy:.3f}, idle share {1.0 - busy / ev:.3f}; "
+        f"phases {res['tiled_4096x6144_tile1024']['phases_device_ms']}; by kind "
+        f"{res['tiled_4096x6144_tile1024']['kinds_device_ms']}")
+    for name, (fn, img) in timed.items():
+        ms = wall_ms(lambda: fn(img))
+        rep = device_trace(lambda: fn(img), (), n_iters=1)
+        res[name] = dict(end_to_end_ms=ms, device_busy_ms=rep.device_total_ms,
+                         kinds_device_ms=kinds(rep, 1), shape=list(img.shape))
+        log(f"{name} {img.shape}: {ms:.2f} ms end to end, device busy "
+            f"{rep.device_total_ms:.3f} ms; by kind {res[name]['kinds_device_ms']}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1972,6 +2464,14 @@ def main() -> int:
                                      + [m["max_abs_err"] for m in modes.values()])
     rows.append(mixed_row)
     rows += check_ops_kernels(torch, np, args.seed, args.iters)
+    big = noise_frame(np, (*TILED_HW, 3), args.seed + 800)
+    slice_modes = check_kernels_tiled_estimate(torch, np, big, args.iters)
+    for row in rows:  # the tiled frame's and the estimators' shapes
+        if row["name"] in slice_modes:
+            modes = row.setdefault("modes", {})
+            modes.update(slice_modes[row["name"]])
+            for key in ("max_rel_err", "max_abs_err"):
+                row[f"{key}_all"] = max([row[key]] + [m[key] for m in modes.values()])
     log(f"phase 2 kernels: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1986,6 +2486,11 @@ def main() -> int:
     counts.update(smooth_counts)
     generic, generic_counts = check_generic(torch, np, frame, args.seed)
     counts.update(generic_counts)
+    tiled, tiled_counts = check_tiled(torch, np, big, frame, args.seed)
+    counts.update(tiled_counts)
+    estimates, est_counts, est_timed = check_estimate(torch, np, uhd, args.seed)
+    counts.update(est_counts)
+    psf_family = check_psf_family_cli(torch, np, args.seed)
     log(f"phase 3 slice: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1997,6 +2502,7 @@ def main() -> int:
     generic["timing_matmul_2048sq"] = time_generic(torch, np, frame, timing, args.iters)
     perf_ab, ab_counts = run_perf_ab(torch, np, args.seed, args.iters)
     counts.update(ab_counts)
+    tiled_estimate_timing = time_tiled_estimate(torch, np, big, est_timed, 3)
     log(f"phase 4 timing: {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2013,7 +2519,9 @@ def main() -> int:
               "ptxas_cols_radix4": ops,
               "slice_2048sq": timing, "middle_ab": ab,
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
-              "perf_ab": perf_ab, "measurement_layer": twin}
+              "perf_ab": perf_ab, "measurement_layer": twin, "tiled": tiled,
+              "estimate": estimates, "psf_family_cli_640x330": psf_family,
+              "tiled_estimate_timing": tiled_estimate_timing}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

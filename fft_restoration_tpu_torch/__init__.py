@@ -17,7 +17,13 @@ ones give both pipelines, RL and the edge taper their generic route,
 fft_backend=...), ops.kernels (every kernel's wrapper) and deblur_image;
 the measurement layer: utils.timing, utils.trace_profile,
 models.pipeline.profile_phases, the CLI's --profile and the bench twin
-tools/bench.py.
+tools/bench.py; the PSF family on the single pipeline (psf_type, a
+concrete kernel, load_psf_file), the kernel-route restore_planes, blind
+PSF and noise estimation (models.estimate: estimate_motion_psf,
+estimate_disk_psf, estimate_gaussian_psf, estimate_noise_K) and the
+tiled restore of frames of any size (models.tiled.tiled_restore_image),
+with the CLI's --psf-type, --psf-file, --estimate-psf, --auto-K, --tile
+and --tile-overlap.
 The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
 blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
@@ -31,6 +37,7 @@ __version__ = "0.1.0"
 __all__ = [
     "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep", "deblur_image",
     "make_psf", "motion_blur_kernel", "richardson_lucy_planes", "edge_taper_planes",
+    "estimate_motion_psf", "estimate_noise_K", "tiled_restore_image", "load_psf_file",
     "__version__",
 ]
 
@@ -56,4 +63,16 @@ def __getattr__(name):
         from fft_restoration_tpu_torch.models.edgetaper import edge_taper_planes
 
         return edge_taper_planes
+    if name in ("estimate_motion_psf", "estimate_noise_K"):
+        from fft_restoration_tpu_torch.models import estimate
+
+        return getattr(estimate, name)
+    if name == "tiled_restore_image":
+        from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+
+        return tiled_restore_image
+    if name == "load_psf_file":
+        from fft_restoration_tpu_torch.host.psf_file import load_psf_file
+
+        return load_psf_file
     raise AttributeError(name)

@@ -37,6 +37,19 @@ JAX CLI defaults to 'matmul' because on the TPU that compiles fastest;
 here nothing is compiled per shape and the kernels are the fast path.
 The generic route takes every filter, --edgetaper and directories too.
 
+--psf-type picks the PSF family (motion; gaussian, the angle positional
+then being the sigma; disk), verified against the oracle with the same
+kernel; --psf-file loads a kernel (.npy/.txt/.csv, or an 8-bit PNG) in
+its place and sets the psf-length to its side. --estimate-psf estimates
+the family's parameters from the frame (models/estimate.py; a directory
+from its first frame) on the --fft-backend given, where the JAX CLI
+takes 'matmul' for 'pallas'; --auto-K sets K from the frame's noise (a
+directory once per size group, per frame with --tile). --tile N restores
+in overlapping N x N tiles (models/tiled.py: an approximation of the
+global restore); with --filter wiener the grid's center tile, restored
+alone with the edge taper, is verified against the tapered oracle at the
+gpu tier.
+
 --profile prints a phase breakdown after the timed run, as the JAX CLI
 does: 'phases' (the default when the flag is bare; --filter wiener) runs
 models.pipeline.profile_phases, six phases each synchronized and timed
@@ -77,12 +90,6 @@ BATCH_FRAME_PLANES = 12
 NOT_PORTED = {
     "--mode": "A6 (oracle) and A14 (sharded)",
     "--fft-engine": "A3",
-    "--psf-type": "A2",
-    "--psf-file": "A2",
-    "--tile": "A12",
-    "--tile-overlap": "A12",
-    "--auto-K": "A11",
-    "--estimate-psf": "A11",
     "--devices": "A14",
     "--mxu-precision": "A5",
     "--stage-dtype": "A5",
@@ -130,6 +137,41 @@ def build_parser() -> argparse.ArgumentParser:
         help="Richardson-Lucy iteration count (--filter rl)",
     )
     p.add_argument(
+        "--psf-type", choices=("motion", "gaussian", "disk"), default="motion",
+        help="PSF family: 'motion' (the reference's rotated line), 'gaussian' "
+        "(psf_angle is the sigma in px), 'disk' (defocus of diameter psf_length); "
+        "the oracle verifies with the same kernel",
+    )
+    p.add_argument(
+        "--psf-file", default=None, metavar="PATH",
+        help="load the PSF kernel from a .npy/.txt/.csv array or an 8-bit PNG "
+        "instead of synthesizing one (sum-normalized, zero-padded square); "
+        "psf-length becomes its side, psf-angle and --psf-type are ignored",
+    )
+    p.add_argument(
+        "--estimate-psf", action="store_true",
+        help="estimate the --psf-type family's parameters from the blurred frame "
+        "(cepstral peak for motion, cepstral ring for disk, log-MTF scan for "
+        "gaussian) in place of the positionals; a directory from its first frame",
+    )
+    p.add_argument(
+        "--auto-K", dest="auto_K", action="store_true",
+        help="set K to the frame's measured noise-to-signal power ratio "
+        "(Immerkaer noise sigma); a directory once per size group (per frame "
+        "with --tile)",
+    )
+    p.add_argument(
+        "--tile", type=int, default=0, metavar="N",
+        help="tiled restoration: overlapping pow2 N x N tiles, each edge-tapered "
+        "and deconvolved, cores stitched, one normalize and white balance over "
+        "the frame (an approximation of the global restore); 0 = off",
+    )
+    p.add_argument(
+        "--tile-overlap", type=int, default=None, metavar="M",
+        help="discarded margin between a tile's read extent and its stitched core "
+        "(default max(2*psf_length, 32))",
+    )
+    p.add_argument(
         "--edgetaper", action="store_true",
         help="blend the frame toward its circular blur at the borders before "
         "deconvolving (applied on the oracle side too, so the verify still runs)",
@@ -174,6 +216,17 @@ def _sync(device) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.psf_file is not None:
+        # the loaded kernel replaces the family and sets the PSF's side
+        from fft_restoration_tpu_torch.host.psf_file import load_psf_file
+
+        try:
+            kernel = load_psf_file(args.psf_file)
+        except (OSError, ValueError) as e:
+            print(f"[Error] Cannot load PSF {args.psf_file!r}: {e}")
+            return 2
+        args.psf_type = kernel
+        args.psf_length = kernel.shape[0]
     if args.psf_length < 1:
         print(f"[Error] psf-length must be >= 1, got {args.psf_length}")
         return 2
@@ -196,6 +249,7 @@ def main(argv=None) -> int:
             args.device, filter_name=args.filter, pad_mode=args.pad,
             white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
             rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
+            psf_type=args.psf_type,
         )
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
@@ -211,10 +265,23 @@ def main(argv=None) -> int:
     if img.ndim != 3 or img.shape[-1] != 3:
         print(f"[Error] need a 3-channel BGR image, got shape {img.shape}")
         return 1
+    if args.estimate_psf:
+        rc = _apply_psf_estimate(args, img, pipe.device)
+        if rc:
+            return rc
+    if args.auto_K:
+        from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
+
+        sigma, k = estimate_noise_K(img, device=pipe.device)
+        print(f"[INFO] auto-K: noise sigma {sigma:.4f} -> K {k:g} (was {args.K:g}); "
+              "verification runs at the estimated K")
+        args.K = k
     hp, wp, _, _ = pipe.pad(img.shape[0], img.shape[1])
     if args.psf_length > min(hp, wp):
         print(f"[Error] psf-length {args.psf_length} exceeds the padded image ({hp}x{wp})")
         return 2
+    if args.tile:
+        return _run_tiled(args, pipe, img, total_start)
 
     # warm-up run (kernel build, PSF spectrum), then the timed run
     pipe.restore(img, args.psf_length, args.psf_angle, args.K)
@@ -236,7 +303,8 @@ def main(argv=None) -> int:
         # the oracle at the restore's extents: pad_to for smooth ones
         oracle = restore_frame_channels(img, args.psf_length, args.psf_angle, args.K,
                                         args.edgetaper,
-                                        (hp, wp) if args.pad == "smooth" else None)
+                                        (hp, wp) if args.pad == "smooth" else None,
+                                        args.psf_type)
         serial_ms = (time.perf_counter() - t0) * 1e3
         print(f"Deblurring 3 channels took(serial): {serial_ms:.2f} ms")
         if args.pad == "smooth" and not args.edgetaper:
@@ -250,6 +318,117 @@ def main(argv=None) -> int:
         if not report.passed:
             return 3
 
+    out_path = args.output or args.img_path.rsplit(".", 1)[0] + "_restored_torch.png"
+    imwrite(out_path, out)
+    print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
+    print(f"[INFO] wrote {out_path}")
+    return 0
+
+
+def _apply_psf_estimate(args, img, device) -> int:
+    """--estimate-psf: replace the positional PSF parameters with the blind
+    estimate of the --psf-type family (models/estimate.py) on the
+    --fft-backend given. Returns 0, or the exit code of a refusal."""
+    from fft_restoration_tpu_torch.models import estimate as est
+
+    if not isinstance(args.psf_type, str):
+        print("[Error] --estimate-psf estimates a parametric family (motion/gaussian/disk); "
+              "--psf-file kernels are already concrete")
+        return 2
+    opts = dict(fft_backend=args.fft_backend, device=device)
+    if args.psf_type == "motion":
+        length, angle, conf = est.estimate_motion_psf(img, **opts)
+        print(f"[INFO] estimated PSF: length={length} angle={angle:.1f} (confidence "
+              f"z={conf:.1f}); positionals {args.psf_length}/{args.psf_angle} ignored")
+        if conf < est.CONF_WARN:
+            print("[INFO] low cepstral confidence - the frame may not carry a linear "
+                  "motion blur")
+        args.psf_length, args.psf_angle = length, angle
+    elif args.psf_type == "disk":
+        size, conf = est.estimate_disk_psf(img, **opts)
+        print(f"[INFO] estimated PSF: disk size={size} (ring isotropy z={conf:.1f}); "
+              f"positional {args.psf_length} ignored")
+        if conf < est.DISK_CONF_WARN:
+            print("[INFO] low ring-isotropy confidence - the frame may not carry a "
+                  "defocus (disk) blur")
+        args.psf_length = size
+    else:
+        try:
+            sigma, conf = est.estimate_gaussian_psf(img, **opts)
+        except ValueError as e:
+            print(f"[Error] cannot estimate a gaussian blur: {e}")
+            return 2
+        size = est.gaussian_ksize(sigma)
+        print(f"[INFO] estimated PSF: gaussian sigma={sigma:.2f} size={size} "
+              f"(residual-ratio confidence {conf:.2f}); positionals "
+              f"{args.psf_length}/{args.psf_angle} ignored")
+        if conf < est.GAUSS_CONF_WARN:
+            print("[INFO] low spectral-fit confidence - the frame's spectrum barely "
+                  "prefers this sigma over no blur (smooth scenes are intrinsically "
+                  "ambiguous)")
+        args.psf_length, args.psf_angle = size, sigma
+    return 0
+
+
+def _tile_kwargs(args, pipe) -> dict:
+    return dict(tile=args.tile, overlap=args.tile_overlap, fft_backend=args.fft_backend,
+                filter_name=args.filter, rl_iters=args.iters, psf_type=args.psf_type,
+                white_balance=not args.no_white_balance, device=pipe.device)
+
+
+def _run_tiled(args, pipe, img, total_start) -> int:
+    """--tile on one image: the tiled restore, then (--filter wiener) the
+    per-tile oracle anchor: the grid's center tile restored alone with
+    the edge taper, held to the tapered oracle at the gpu tier (the
+    tiled frame itself has no oracle). Returns the exit code."""
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.models.tiled import (
+        clamped_grid,
+        tiled_restore_image,
+        validate_tile_params,
+    )
+
+    if args.edgetaper:
+        print("[INFO] --tile tapers every tile by construction; --edgetaper is implied")
+    for flag, active in (("--pad smooth", args.pad == "smooth"),
+                         ("--wb-stride", args.wb_stride != 1),
+                         ("--profile", bool(args.profile))):
+        if active:
+            print(f"[INFO] {flag} is not supported in tiled mode; ignored")
+    t0 = time.perf_counter()
+    try:
+        overlap, core = validate_tile_params(args.tile, args.tile_overlap, args.psf_length)
+        out = tiled_restore_image(img, args.psf_length, args.psf_angle, args.K,
+                                  **_tile_kwargs(args, pipe))
+    except ValueError as e:
+        print(f"[Error] {e}")
+        return 2
+    print(f"Deblurring 3 channels took(tiled, torch-{pipe.device.type}, {args.fft_backend}): "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    print("[INFO] tiled mode is an overlap-discard approximation of the global restore "
+          "(models/tiled.py); whole-frame oracle verification not applicable")
+    if not args.no_verify and args.filter == "wiener":
+        h, w = img.shape[:2]
+        th, tw = min(args.tile, h), min(args.tile, w)
+        ys, _ = clamped_grid(h, args.tile, core, overlap)
+        xs, _ = clamped_grid(w, args.tile, core, overlap)
+        y0, x0 = ys[len(ys) // 2], xs[len(xs) // 2]
+        tile_u8 = img[y0:y0 + th, x0:x0 + tw]
+        anchor = WienerDeblurPipeline(pipe.device, fft_backend=args.fft_backend,
+                                      white_balance=not args.no_white_balance, edgetaper=True,
+                                      psf_type=args.psf_type)
+        _, ours = anchor.restore_with_planes(tile_u8, args.psf_length, args.psf_angle, args.K)
+        t0 = time.perf_counter()
+        oracle = restore_frame_channels(tile_u8, args.psf_length, args.psf_angle, args.K, True,
+                                        None, args.psf_type)
+        print(f"[INFO] per-tile oracle anchor: center tile {th}x{tw} at ({y0},{x0}), serial "
+              f"took {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        report = channels_equal(ours, oracle, "gpu")
+        print(report)
+        if not report.passed:
+            return 3
     out_path = args.output or args.img_path.rsplit(".", 1)[0] + "_restored_torch.png"
     imwrite(out_path, out)
     print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
@@ -312,9 +491,21 @@ def _run_batch(args, single) -> int:
     if not paths:
         print(f"[Error] no image files in {args.img_path!r}")
         return 1
+    if args.estimate_psf:
+        from fft_restoration_tpu_torch.host.imageio import imread
+
+        try:
+            rc = _apply_psf_estimate(args, imread(paths[0]), single.device)
+        except (OSError, ValueError) as e:
+            print(f"[Error] cannot estimate PSF from {paths[0]!r}: {e}")
+            return 1
+        if rc:
+            return rc
     out_dir = args.output or args.img_path
     os.makedirs(out_dir, exist_ok=True)
     dst = _output_names(paths, out_dir)
+    if args.tile:
+        return _run_tiled_batch(args, single, paths, dst, out_dir)
 
     groups = defaultdict(list)
     skipped = 0
@@ -336,7 +527,20 @@ def _run_batch(args, single) -> int:
                 single.device, filter_name=args.filter, pad_mode=args.pad,
                 white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
                 rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
+                psf_type=args.psf_type,
             )
+        if args.auto_K:
+            # one estimate per size group, from its first readable frame
+            from fft_restoration_tpu_torch.host.imageio import imread
+            from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
+
+            try:
+                sigma, args.K = estimate_noise_K(imread(group[0]), device=single.device)
+            except (OSError, ValueError) as e:
+                print(f"[Error] skipping {len(group)} frame(s) of size {w}x{h}: {e}")
+                skipped += len(group)
+                continue
+            print(f"[INFO] auto-K[{w}x{h}]: noise sigma {sigma:.4f} -> K {args.K:g}")
         hp, wp, _, _ = single.pad(h, w)
         chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))
         for i in range(0, len(group), chunk):
@@ -348,6 +552,39 @@ def _run_batch(args, single) -> int:
         f"Restored {n_done} frames in {ms:.1f} ms ({ms / max(n_done, 1):.1f} ms/frame) "
         f"-> {out_dir}" + (f" [{skipped} skipped]" if skipped else "")
     )
+    return 0 if n_done else 1
+
+
+def _run_tiled_batch(args, single, paths, dst, out_dir) -> int:
+    """Directory mode with --tile: every frame restored on its own in
+    tiles (sizes need not match); the tile options are checked once
+    before the frame loop. Returns the exit code."""
+    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
+    from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image, validate_tile_params
+
+    try:
+        validate_tile_params(args.tile, args.tile_overlap, args.psf_length)
+    except ValueError as e:
+        print(f"[Error] {e}")
+        return 2
+    t0 = time.perf_counter()
+    n_done = skipped = 0
+    for p in paths:
+        try:
+            frame = imread(p)
+            if args.auto_K:
+                _, args.K = estimate_noise_K(frame, device=single.device)
+            out = tiled_restore_image(frame, args.psf_length, args.psf_angle, args.K,
+                                      **_tile_kwargs(args, single))
+            imwrite(dst[p], out)
+            n_done += 1
+        except (OSError, ValueError) as e:
+            print(f"[Error] skipping {p!r}: {e}")
+            skipped += 1
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"Restored {n_done} frames in {ms:.1f} ms ({ms / max(n_done, 1):.1f} ms/frame, "
+          f"tiled) -> {out_dir}" + (f" [{skipped} skipped]" if skipped else ""))
     return 0 if n_done else 1
 
 

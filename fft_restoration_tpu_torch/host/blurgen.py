@@ -1,6 +1,7 @@
-"""Motion-blurred test frames: the forward problem the restore inverts.
+"""Blurred test frames: the forward problem the restore inverts.
 
-Per channel, in float64: the sum-normalized motion PSF centered in an
+Per channel, in float64: the sum-normalized PSF (motion, gaussian or
+disk, host/oracle.make_psf_oracle) centered in an
 (H, W) plane and rolled to the corner (a shift-free circular
 convolution), spectra multiplied, inverse transform, clip to uint8.
 """
@@ -9,14 +10,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from fft_restoration_tpu_torch.host.oracle import motion_psf
+from fft_restoration_tpu_torch.host.oracle import make_psf_oracle
 
 
-def blur_image(img_bgr: np.ndarray, psf_length: int, psf_angle: float) -> np.ndarray:
-    """uint8 BGR (H, W, 3) -> motion-blurred uint8 BGR (H, W, 3)."""
+def blur_image(img_bgr: np.ndarray, psf_length: int, psf_angle: float,
+               psf_type: str = "motion") -> np.ndarray:
+    """uint8 BGR (H, W, 3) -> blurred uint8 BGR (H, W, 3); psf_type
+    'motion', 'gaussian' (psf_angle is the sigma) or 'disk'."""
     img = np.asarray(img_bgr, np.float64)
     h, w = img.shape[:2]
-    psf = motion_psf(psf_length, psf_angle).astype(np.float64)
+    psf = make_psf_oracle(psf_type, psf_length, psf_angle).astype(np.float64)
     s = psf.sum()
     if s != 0:
         psf = psf / s

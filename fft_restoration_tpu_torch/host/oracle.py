@@ -1,4 +1,4 @@
-"""Serial numpy oracle of the Wiener restore, and its motion PSF.
+"""Serial numpy oracle of the Wiener restore, and its PSF family.
 
 The semantic ground truth of the port, as fft_restoration_tpu/oracle/
 serial.py is for the JAX package (same arithmetic, op for op):
@@ -17,7 +17,9 @@ serial.py is for the JAX package (same arithmetic, op for op):
 
 The motion PSF is a horizontal line of 1/size through (size//2, size//2)
 rotated with OpenCV getRotationMatrix2D + warpAffine (exact inverse-map
-bilinear, constant-0 border), neither re-normalized nor fftshifted.
+bilinear, constant-0 border), neither re-normalized nor fftshifted; the
+gaussian and disk kernels are sum-normalized (JAX oracle/psf.py's
+make_psf_oracle family, bit for bit).
 """
 
 from __future__ import annotations
@@ -64,6 +66,45 @@ def motion_psf(size: int, angle_deg: float) -> np.ndarray:
     return (sample(yi, xi) * (wy0 * wx0) + sample(yi, xi + 1) * (wy0 * fx)
             + sample(yi + 1, xi) * (fy * wx0) + sample(yi + 1, xi + 1) * (fy * fx)
             ).astype(np.float32)
+
+
+def gaussian_kernel_oracle(size: int, sigma: float) -> np.ndarray:
+    """(size, size) isotropic Gaussian PSF, sum-normalized, float32."""
+    sigma = max(float(sigma), 1e-3)
+    c = float(size // 2)
+    x = np.arange(size, dtype=np.float32)[None, :] - c
+    y = np.arange(size, dtype=np.float32)[:, None] - c
+    g = np.exp(-(x * x + y * y) / np.float32(2.0 * sigma * sigma))
+    return (g / g.sum()).astype(np.float32)
+
+
+def disk_kernel_oracle(size: int) -> np.ndarray:
+    """(size, size) defocus disk of diameter `size`, sum-normalized, with
+    a linear antialiased rim, float32."""
+    c = float(size // 2)
+    r = size / 2.0
+    x = np.arange(size, dtype=np.float32)[None, :] - c
+    y = np.arange(size, dtype=np.float32)[:, None] - c
+    w = np.clip(r + 0.5 - np.sqrt(x * x + y * y), 0.0, 1.0)
+    return (w / w.sum()).astype(np.float32)
+
+
+def make_psf_oracle(psf_type, size: int, param: float) -> np.ndarray:
+    """PSF family on the host: 'motion' (param = angle in degrees),
+    'gaussian' (param = sigma in px), 'disk' (param ignored), or a
+    concrete (size, size) kernel array, passed through (--psf-file)."""
+    if not isinstance(psf_type, str):
+        kernel = np.asarray(psf_type, np.float32)
+        if kernel.shape != (size, size):
+            raise ValueError(f"custom PSF kernel shape {kernel.shape} != ({size}, {size})")
+        return kernel
+    if psf_type == "motion":
+        return motion_psf(size, param)
+    if psf_type == "gaussian":
+        return gaussian_kernel_oracle(size, param)
+    if psf_type == "disk":
+        return disk_kernel_oracle(size)
+    raise ValueError(f"unknown psf type {psf_type!r}")
 
 
 def _fft_radix2(a: np.ndarray, inverse: bool) -> np.ndarray:
@@ -178,9 +219,11 @@ def normalize_over_frame(planes: np.ndarray) -> np.ndarray:
 
 def restore_frame_channels(img_bgr: np.ndarray, psf_length: int, psf_angle: float,
                            K: float = 0.01, edgetaper: bool = False,
-                           pad_to=None) -> np.ndarray:
+                           pad_to=None, psf_type="motion") -> np.ndarray:
     """uint8 BGR (H, W, 3) frame -> the oracle's restored (3, H, W) planes
-    (at the pad_to extents when given)."""
+    (at the pad_to extents when given) with the PSF of `psf_type` (a
+    family name or a (psf_length, psf_length) kernel array)."""
     imgf = np.asarray(img_bgr, np.float32) / np.float32(255.0)
-    return restore_channels(np.moveaxis(imgf, -1, 0), motion_psf(psf_length, psf_angle), K,
-                            edgetaper=edgetaper, pad_to=pad_to)
+    psf = make_psf_oracle(psf_type, psf_length, psf_angle)
+    return restore_channels(np.moveaxis(imgf, -1, 0), psf, K, edgetaper=edgetaper,
+                            pad_to=pad_to)

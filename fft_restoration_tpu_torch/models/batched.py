@@ -41,7 +41,7 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     (the wrappers take their plain versions for CPU tensors).
     emit_planes=False is the serving graph: run() returns no planes.
     psf_type: 'motion', 'gaussian' or 'disk' (the angle argument is the
-    family's parameter). filter_name, rl_iters and edgetaper as in
+    family's parameter), or a concrete (S, S) kernel array. filter_name, rl_iters and edgetaper as in
     WienerDeblurPipeline; the taper runs over the flat (3B, hp, wp)
     planes, its channel pairs straddling images as the restore's do.
     pad_mode: 'pow2' or 'smooth' (models.pipeline.pad_extents); a stack
@@ -62,7 +62,7 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         emit_planes: bool = True,
         pad_mode: str = "pow2",
         wb_stats_stride: int = 1,
-        psf_type: str = "motion",
+        psf_type="motion",
         rl_iters: int = 10,
         edgetaper: bool = False,
         stage_dtype: str | None = None,

@@ -55,6 +55,11 @@ The other filters (JAX `_restore_core`, `restore_planes`):
                 runs over every row: the taper fills the pad rows. The
                 white-balance gains still read the untapered frame.
 
+`restore_planes` is the same kernel route on float (C, Hp, Wp) or (B,
+C, Hp, Wp) planes already padded (the JAX restore_planes): B1, the
+middle, B3, with normalize=False giving the raw unscaled planes the
+tiled restore (models/tiled.py) stitches.
+
 Semantics of the serial oracle (and of the JAX package): channels are
 pow2-padded before restoration, the inverse stays unscaled and the
 min-max normalize over the padded extent absorbs 1/(MN), then crop.
@@ -122,6 +127,9 @@ PLAIN_OPS = SimpleNamespace(
     lab_l_sum_partials=postprocess.lab_l_sum_partials_batched_plain,
     wb_encode_u8=postprocess.wb_encode_u8_batched_plain,
 )
+
+# the kernel route; every other backend of ops/fft.py takes the generic one
+KERNEL_BACKEND = "pallas"
 
 
 def resolve_device(device) -> torch.device:
@@ -248,6 +256,65 @@ def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", la
     return raw, lo, scale
 
 
+def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name="wiener",
+                   rl_iters=10, psf_spectrum=None, normalize=True, radices_hw=((), ()),
+                   ops=KERNEL_OPS):
+    """Restore (C, Hp, Wp) or (B, C, Hp, Wp) float32 planes (uint8 planes
+    are converted x / 255), or one (Hp, Wp) plane, with the (S, S) PSF at
+    the planes' own extents: pow2, or smooth with radices_hw = (rad_h,
+    rad_w). Counterpart of the JAX restore_planes. Returns float32 planes
+    of the input's shape: min-max normalized per plane over the padded
+    extent, or with normalize=False the raw planes of the unscaled
+    inverse (the tiled restore stitches raw tiles, then normalizes once
+    over the frame).
+
+    Kernel route ('pallas'): the planes are flattened to (N, Hp, Wp) and
+    paired in that order (a stack's pairs straddle images, as in
+    restore_stack); B1's forward row pass with transposed store,
+    `spectral_middle` (Wiener: B2, or B7 + the inverse-T pass below
+    FUSED_MIDDLE_MIN_N; inverse and CLS: B6, the filter, the inverse-T
+    pass) and B3's packed last pass, whose min/max partials give the
+    normalize. psf_spectrum: the (Wp, Hp) spectrum of `psf_spectrum_planes`
+    (made here when None); ops: KERNEL_OPS or PLAIN_OPS.
+    'rl': `richardson_lucy_planes` (clipped to [0, 1]; normalize does not
+    apply, as in JAX). Any other backend: `restore_planes_generic`
+    (psf_spectrum unused: its layout is the kernel route's, as in JAX)."""
+    if channels.dtype == torch.uint8:
+        channels = u8_to_unit(channels)
+    hp, wp = channels.shape[-2:]
+    check_backend(fft_backend)
+    if filter_name == "rl":
+        # imported here: it imports this module
+        from fft_restoration_tpu_torch.models.richardson_lucy import richardson_lucy_planes
+
+        if fft_backend != KERNEL_BACKEND:
+            return richardson_lucy_planes(channels, psf, rl_iters, fft_backend=fft_backend)
+        return richardson_lucy_planes(channels, psf, rl_iters, psf_spectrum=psf_spectrum,
+                                      ops=ops, radices_hw=radices_hw)
+    if fft_backend != KERNEL_BACKEND:
+        return restore_planes_generic(channels, psf, K, fft_backend=fft_backend,
+                                      filter_name=filter_name, normalize=normalize)
+    rad_h, rad_w = radices_hw
+    H = psf_spectrum if psf_spectrum is not None else psf_spectrum_planes(psf, hp, wp, ops,
+                                                                           radices_hw)
+    lap = laplacian_spectrum(hp, wp, channels.device, ops, radices_hw) if (
+        filter_name == "cls") else None
+    flat = channels.reshape(-1, hp, wp)
+    n = flat.shape[0]
+    with fphase("fft_image"):
+        a_re, a_im = ops.fft_rows(flat[0::2], flat[1::2] if n > 1 else None, transposed=True,
+                                  radices=rad_w)
+    r_re, r_im = spectral_middle(a_re, a_im, H, float(K), ops, filter_name, lap, rad_h)
+    with fphase("ifft"):
+        raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
+    with fphase("post_process"):
+        out = raw[:n]
+        if normalize:
+            lo, scale = minmax_norm(mm, a_re.shape[0], n)
+            out = (out - lo[:, None, None]) * scale[:, None, None]
+        return out.reshape(channels.shape)
+
+
 def normalized_planes(raw, lo, scale, b, h, w):
     """(B, 3, h, w) float32 restored planes in [0, 1]."""
     n = lo.shape[0]
@@ -342,9 +409,6 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
 # the generic route: fft_backend other than 'pallas' (the JAX
 # restore_planes' non-pallas branch, pipeline.py:212-233)
 
-# the kernel route; every other backend of ops/fft.py takes the generic one
-KERNEL_BACKEND = "pallas"
-
 
 def pack_channel_pairs(channels):
     """(..., C, H, W) real planes -> SoA (re, im) of ceil(C/2) planes:
@@ -375,13 +439,15 @@ def minmax_normalize(x):
     return (x - lo) * scale
 
 
-def restore_planes_generic(channels, psf, K, *, fft_backend, filter_name="wiener"):
+def restore_planes_generic(channels, psf, K, *, fft_backend, filter_name="wiener",
+                           normalize=True):
     """(..., C, Hp, Wp) float32 planes (or (Hp, Wp)) restored with an (S,
     S) PSF through `fft2d` of `fft_backend`: channel pairs packed, the
     planes' and the zero-padded PSF's spectra (computed per call, as in
     JAX: its PSF cache needs the pallas backend), `apply_filter`, the
-    inverse, the unpack and the min-max normalize over the padded plane.
-    Natural-order spectra; the inverse stays unscaled. Phase ranges
+    inverse, the unpack and the min-max normalize over the padded plane
+    (normalize=False: the raw planes). Natural-order spectra; the inverse
+    stays unscaled. Phase ranges
     (fphase; JAX's generic branch has none): fft_image, fft_psf,
     spectral_fused (the filter), ifft, post_process (unpack, normalize)."""
     from fft_restoration_tpu_torch.models.filters import apply_filter
@@ -405,7 +471,7 @@ def restore_planes_generic(channels, psf, K, *, fft_backend, filter_name="wiener
         r_re, r_im = fft2d(F[0], F[1], inverse=True, backend=fft_backend)
     with fphase("post_process"):
         restored = r_re if c is None else unpack_channel_pairs(r_re, r_im, c)
-        return minmax_normalize(restored)
+        return minmax_normalize(restored) if normalize else restored
 
 
 def restore_stack_generic(stack, psf, K, *, fft_backend, filter_name="wiener", rl_iters=10,
@@ -454,6 +520,15 @@ def _restore_core(img, H, K, *, white_balance, emit_planes, wb_stats_stride,
     return out[0], (None if planes is None else planes[0])
 
 
+def psf_key(psf_type):
+    """Hashable key of a PSF family name, or of a concrete kernel by its
+    bytes and shape: two kernels of one size never share a cache entry."""
+    if isinstance(psf_type, str):
+        return psf_type
+    kernel = np.asarray(psf_type, np.float32)
+    return kernel.tobytes(), kernel.shape
+
+
 def frames_to_device(arr, device) -> torch.Tensor:
     """uint8 frames stay uint8 (the kernels convert); other dtypes are
     0..255-scaled values divided by 255."""
@@ -478,7 +553,9 @@ class _CachedPsfPipeline:
         pad_extents(1, 1, pad_mode)  # raises for an unknown mode
         if wb_stats_stride < 1:
             raise ValueError(f"wb_stats_stride must be >= 1, got {wb_stats_stride}")
-        if psf_type not in PSF_TYPES:
+        if not isinstance(psf_type, str):
+            psf_type = np.asarray(psf_type, np.float32)
+        elif psf_type not in PSF_TYPES:
             raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")
         self.filter_name = filter_name
         self.pad_mode = pad_mode
@@ -489,8 +566,8 @@ class _CachedPsfPipeline:
         self.rl_iters = int(rl_iters)
         self.edgetaper = bool(edgetaper)
         # (psf, spectrum) keyed on (hp, wp, rad_h, rad_w, length, angle),
-        # oldest evicted first: a spectrum is 2 * hp * wp float32 (33.5 MB
-        # at 2048^2)
+        # a concrete kernel's bytes and shape after them, oldest evicted
+        # first: a spectrum is 2 * hp * wp float32 (33.5 MB at 2048^2)
         self._psf_cache = {}
         # CLS's Laplacian spectrum for the last pad, in a slot of its own
         self._lap = (None, None)
@@ -514,10 +591,14 @@ class _CachedPsfPipeline:
             self._psf_cache.pop(next(iter(self._psf_cache)))
         self._psf_cache[key] = H
 
+    def _cache_key(self, pad, psf_length, angle):
+        key = (*pad, int(psf_length), float(angle))
+        return key if isinstance(self.psf_type, str) else key + psf_key(self.psf_type)
+
     def _psf_spectrum(self, h: int, w: int, psf_length: int, angle: float):
         """Cached (psf, (H_re, H_im)) for an (h, w) frame."""
         pad = self.pad(h, w)
-        key = (*pad, int(psf_length), float(angle))
+        key = self._cache_key(pad, psf_length, angle)
         if key not in self._psf_cache:
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
             self._remember(key, (psf, psf_spectrum_planes(psf, *pad[:2], radices_hw=pad[2:])))
@@ -540,7 +621,7 @@ class _CachedPsfPipeline:
         if H[0].shape != (wp, hp) or H[1].shape != (wp, hp):
             raise ValueError(f"spectrum planes must be ({wp}, {hp}), got {tuple(H[0].shape)}")
         psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-        self._remember((*pad, int(psf_length), float(angle)), (psf, H))
+        self._remember(self._cache_key(pad, psf_length, angle), (psf, H))
 
     def _restore(self, stack, psf_length, psf_angle, K, **over):
         """restore_stack on a device stack with this pipeline's options
@@ -582,6 +663,9 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     white-balance means (the CLI uses 1, serving 4; not used by 'rl').
     pad_mode: 'pow2' (the reference's extents) or 'smooth' (the mixed-radix
     extents, e.g. 2304x3840 for 3840x2160; see pad_extents).
+    psf_type: 'motion', 'gaussian' (the angle argument is the sigma) or
+    'disk' (angle unused), or a concrete (S, S) kernel array (--psf-file;
+    psf_length must then be S, the angle is unused).
     fft_backend: 'pallas' (default: the kernel route above, the name kept
     from the JAX package) or 'radix2', 'matmul', 'naive', 'xla' — the
     generic route (`restore_stack_generic`: fft2d of ops/fft.py, the
@@ -604,11 +688,12 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         rl_iters: int = 10,
         edgetaper: bool = False,
         fft_backend: str = KERNEL_BACKEND,
+        psf_type="motion",
     ):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
-            rl_iters=rl_iters, edgetaper=edgetaper, fft_backend=fft_backend,
+            psf_type=psf_type, rl_iters=rl_iters, edgetaper=edgetaper, fft_backend=fft_backend,
         )
 
     def to_device(self, img_bgr) -> torch.Tensor:
@@ -651,7 +736,7 @@ def deblur_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0.01,
                  device="cuda", **kwargs):
     """One-shot convenience wrapper around WienerDeblurPipeline: uint8 BGR
     (H, W, 3) -> restored uint8 BGR (H, W, 3) numpy. kwargs: the
-    pipeline's options (fft_backend, filter_name, pad_mode, ...)."""
+    pipeline's options (fft_backend, filter_name, pad_mode, psf_type, ...)."""
     return WienerDeblurPipeline(device, **kwargs).restore(img_bgr, psf_length, psf_angle, K)
 
 

@@ -203,11 +203,11 @@ def _fft_xla(re, im, inverse):
     return y.real.contiguous(), y.imag.contiguous()
 
 
-def _fft_pallas(re, im, inverse):
+def _fft_pallas(re, im, inverse, ops=None):
     n = re.shape[-1]
     shape = re.shape
-    out = fft_rows(re.reshape(1, -1, n), im.reshape(1, -1, n), inverse=inverse,
-                   ordering="natural")
+    rows = fft_rows if ops is None else ops.fft_rows
+    out = rows(re.reshape(1, -1, n), im.reshape(1, -1, n), inverse=inverse, ordering="natural")
     return out[0].reshape(shape), out[1].reshape(shape)
 
 
@@ -226,9 +226,11 @@ def check_backend(backend: str) -> str:
     return backend
 
 
-def fft1d(re, im, inverse: bool = False, backend: str = "radix2"):
+def fft1d(re, im, inverse: bool = False, backend: str = "radix2", ops=None):
     """1D DFT over the last axis of float32 (re, im) tensors, unscaled
-    inverse, natural order.
+    inverse, natural order. ops: where 'pallas' takes its row FFT from
+    (an object with `fft_rows`, e.g. models.pipeline.PLAIN_OPS for the
+    plain run on the card); None is the kernel wrapper.
 
     Non-power-of-two lengths: 'matmul' runs its four-step on any
     composite n (the naive DFT matmul only for primes); 'radix2' and
@@ -245,14 +247,14 @@ def fft1d(re, im, inverse: bool = False, backend: str = "radix2"):
     n = re.shape[-1]
     if backend in ("radix2", "pallas") and not _is_pow2(n):
         return _fft_naive(re, im, inverse)
-    if backend == "pallas" and n < 2:
-        return re, im
+    if backend == "pallas":
+        return (re, im) if n < 2 else _fft_pallas(re, im, inverse, ops)
     return _BACKEND_FNS[backend](re, im, inverse)
 
 
-def fft2d(re, im, inverse: bool = False, backend: str = "radix2"):
+def fft2d(re, im, inverse: bool = False, backend: str = "radix2", ops=None):
     """2D separable DFT over the last two axes, unscaled inverse: row pass,
-    transpose, row pass, transpose back (the JAX fft2d)."""
-    re, im = fft1d(re, im, inverse, backend)
-    re, im = fft1d(re.transpose(-1, -2), im.transpose(-1, -2), inverse, backend)
+    transpose, row pass, transpose back (the JAX fft2d). ops as in fft1d."""
+    re, im = fft1d(re, im, inverse, backend, ops)
+    re, im = fft1d(re.transpose(-1, -2), im.transpose(-1, -2), inverse, backend, ops)
     return re.transpose(-1, -2), im.transpose(-1, -2)

@@ -5,8 +5,9 @@ Counterpart of fft_restoration_tpu/ops/psf.py: the motion-blur kernel
 (size//2, size//2), rotated by a getRotationMatrix2D affine with exact
 inverse-map bilinear sampling (constant-0 border), not re-normalized —
 matching the oracle (fft_restoration_tpu/oracle/psf.py) to float
-rounding; and the gaussian and disk members of the family. Loading a
-PSF from a file waits for its slice (ROADMAP.md A2).
+rounding; and the gaussian and disk members of the family. A concrete
+(size, size) kernel passes through `make_psf` (--psf-file; the file is
+read on the host by host/psf_file.py).
 """
 
 from __future__ import annotations
@@ -91,9 +92,18 @@ def disk_kernel(size: int, device) -> torch.Tensor:
     return w / w.sum()
 
 
-def make_psf(psf_type: str, size: int, param: float, device) -> torch.Tensor:
+def make_psf(psf_type, size: int, param: float, device) -> torch.Tensor:
     """PSF family dispatcher: 'motion' (param = angle in degrees),
-    'gaussian' (param = sigma in px), 'disk' (param ignored)."""
+    'gaussian' (param = sigma in px), 'disk' (param ignored) — or a
+    concrete (size, size) kernel (an array or tensor; param ignored),
+    returned as float32 on `device`."""
+    if not isinstance(psf_type, str):
+        kernel = torch.as_tensor(psf_type, dtype=torch.float32, device=device)
+        if tuple(kernel.shape) != (size, size):
+            raise ValueError(
+                f"custom PSF kernel shape {tuple(kernel.shape)} != ({size}, {size})"
+            )
+        return kernel
     if psf_type == "motion":
         return motion_blur_kernel(size, param, device)
     if psf_type == "gaussian":

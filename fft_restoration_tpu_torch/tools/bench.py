@@ -41,8 +41,14 @@ batch, best of three CUDA-event rounds), mp_per_s, device_ms,
 device_mp_per_s and the keys beside the headline's. The cat and car
 fixtures are not in the repository: those configs restore frames
 blurred from --seed at the fixtures' sizes. tiled_4096x6144_tile1024
-waits for models/tiled.py (ROADMAP.md A12) and says so. --config all
-runs every config in bench_extended.py's order.
+is bench_extended.py's tiled call: a uint8 noise frame of 4096x6144x3
+from --seed, PSF(50, 30 deg), tile 1024, through
+models.tiled.tiled_restore_image end to end (the frame from the host and
+back); value is its host-clock ms per frame, warm then the best of
+TILED_ROUNDS runs, mp_per_s counts 4096 * 6144 / 1e6 pixels (25.17 MP,
+as bench_extended.py does), and device_ms / device_mp_per_s come from a
+one-run device trace. --config all runs every config, in
+bench_extended.py's order.
 
 --backend takes any of ops/fft.py's backends ('pallas', the kernels, by
 default). Exits non-zero without a GPU: there is no CPU fallback.
@@ -95,8 +101,10 @@ CONFIGS = {
     "uhd_3840x2160_psf50_30_smoothpad": Config(None, (2160, 3840), 50, 30.0, "smooth", 10, 5,
                                                "noise"),
 }
-NOT_PORTED = {"tiled_4096x6144_tile1024": "models/tiled.py is not ported yet: ROADMAP.md A12"}
-ORDER = tuple(CONFIGS) + tuple(NOT_PORTED)  # bench_extended.py's order
+# bench_extended.py's tiled call: (h, w), PSF length and angle, tile
+TILED = {"tiled_4096x6144_tile1024": ((4096, 6144), 50, 30.0, 1024)}
+TILED_ROUNDS = 3
+ORDER = tuple(CONFIGS) + tuple(TILED)  # bench_extended.py's order
 
 
 def card() -> dict:
@@ -206,6 +214,41 @@ def config_record(name: str, cfg: Config, *, backend: str, rounds: list, trace,
         **_device_keys(trace, ms[best], mp), device=device)
 
 
+def tiled_record(name: str, *, backend: str, rounds_ms: list, trace, device: dict) -> dict:
+    """bench_extended.py's JSON line of the tiled config: end-to-end host
+    ms per frame (the best round) and MP/s of the frame's pixels, with
+    the device keys beside them."""
+    (h, w), _, _, _ = TILED[name]
+    best = min(rounds_ms)
+    mp = h * w / 1e6
+    return dict({"metric": name, "value": best, "unit": "ms/frame (end-to-end)",
+                 "mp_per_s": mp / (best / 1e3), "backend": backend, "rounds_ms": rounds_ms},
+                **_device_keys(trace, best, mp), device=device)
+
+
+def run_tiled(torch, np, name: str, *, backend: str = "pallas", seed: int = 0,
+              device: dict | None = None) -> dict:
+    """The tiled config on the card; returns tiled_record's line."""
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+    from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+    (h, w), length, angle, tile = TILED[name]
+    img = noise_frames(np, (h, w, 3), seed)
+
+    def fn():
+        return tiled_restore_image(img, length, angle, K, tile=tile, fft_backend=backend)
+
+    fn()  # warm: the kernels' build, the PSF spectrum
+    rounds = []
+    for _ in range(TILED_ROUNDS):
+        t0 = time.perf_counter()
+        fn()  # returns a host array: synchronized
+        rounds.append((time.perf_counter() - t0) * 1e3)
+    trace = device_trace(fn, (), n_iters=1)
+    return tiled_record(name, backend=backend, rounds_ms=rounds, trace=trace,
+                        device=device or card())
+
+
 def oracle_ms(np, img) -> float:
     """The serial oracle's time (host/oracle.py) on the frame, best of two."""
     from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
@@ -294,15 +337,11 @@ def main(argv=None) -> int:
               f"{rec['device_ms_per_frame']} ms/frame", file=sys.stderr)
         print(json.dumps(rec))
         return 0
-    rc = 0
     for name in ORDER if args.config == "all" else (args.config,):
-        if name in NOT_PORTED:
-            print(json.dumps({"metric": name, "value": None, "error": NOT_PORTED[name]}))
-            rc = rc if args.config == "all" else 2
-            continue
-        print(json.dumps(run_config(torch, np, name, backend=args.backend, seed=args.seed,
-                                    device=device)), flush=True)
-    return rc
+        run = run_tiled if name in TILED else run_config
+        print(json.dumps(run(torch, np, name, backend=args.backend, seed=args.seed,
+                             device=device)), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

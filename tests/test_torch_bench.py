@@ -154,3 +154,27 @@ def test_exits_non_zero_without_a_gpu(capsys):
     assert out.out == "" and "NVIDIA GPU" in out.err
     with pytest.raises(SystemExit):
         bench.main(["--config", "no_such_config"])
+
+
+def test_tiled_config_takes_bench_extended_s_call():
+    assert tuple(bench.TILED) == ("tiled_4096x6144_tile1024",)
+    shape = tuple(map(int, re.search(r"big = \(rng\.random\(\((\d+), (\d+), 3\)\)", EXT).groups()))
+    call = re.search(r"tiled_restore_image\(big, (\d+), ([\d.]+), tile=(\d+)", EXT).groups()
+    hw, length, angle, tile = bench.TILED["tiled_4096x6144_tile1024"]
+    assert hw == shape and (length, angle, tile) == (int(call[0]), float(call[1]), int(call[2]))
+    assert "25.17" in EXT and hw[0] * hw[1] / 1e6 == pytest.approx(25.17, abs=5e-3)
+    assert not hasattr(bench, "NOT_PORTED")
+
+
+def test_tiled_record_keys():
+    rec = bench.tiled_record("tiled_4096x6144_tile1024", backend="pallas",
+                             rounds_ms=[31.0, 30.0, 33.0], trace=_trace(20.0),
+                             device={"name": "x", "power_limit": "y"})
+    mp = 4096 * 6144 / 1e6
+    assert {"metric", "value", "unit", "mp_per_s", "device_ms", "device_mp_per_s"} <= set(rec)
+    assert rec["value"] == 30.0 and rec["unit"] == "ms/frame (end-to-end)"
+    assert rec["mp_per_s"] == pytest.approx(mp / 30e-3)
+    assert rec["device_mp_per_s"] == pytest.approx(mp / 20e-3)
+    assert rec["idle_share"] == pytest.approx(1 - 20.0 / 30.0)
+    assert bench.tiled_record("tiled_4096x6144_tile1024", backend="pallas", rounds_ms=[1.0],
+                              trace=None, device={})["device_ms"] == "not measured"

@@ -65,9 +65,9 @@ def test_bad_arguments_exit_2(blurred_png, capsys, args):
 
 def test_unported_flag_is_an_argparse_error(blurred_png, capsys):
     with pytest.raises(SystemExit) as e:
-        cli.main([str(blurred_png), "9", "30", "--tile", "256"])
+        cli.main([str(blurred_png), "9", "30", "--devices", "4"])
     assert e.value.code == 2
-    assert "ROADMAP.md A12" in capsys.readouterr().err
+    assert "ROADMAP.md A14" in capsys.readouterr().err
 
 
 def test_iters_and_edgetaper_are_ported():
@@ -312,3 +312,222 @@ def test_profile_is_ported_and_bare_flag_means_phases(blurred_png, tmp_path, cap
     rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--filter", "rl",
                    "--iters", "1", "--no-verify", "-o", str(tmp_path / "o.png"), "--profile"])
     assert rc == 0 and "--profile trace" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the PSF family, blind estimation, auto-K and tiles
+
+
+def _family_png(tmp_path, name, psf_type, length, param, hw=(90, 140), seed=12):
+    from fft_restoration_tpu_torch.host.blurgen import blur_image as port_blur
+
+    rng = np.random.default_rng(seed)
+    scene = np.kron(rng.integers(30, 256, (hw[0] // 8 + 1, hw[1] // 8 + 1, 3)),
+                    np.ones((8, 8, 1)))[:hw[0], :hw[1]].astype(np.uint8)
+    path = tmp_path / name
+    imwrite(str(path), port_blur(scene, length, param, psf_type))
+    return path
+
+
+def test_new_flags_are_ported():
+    for flag in ("--psf-type", "--psf-file", "--estimate-psf", "--auto-K", "--tile",
+                 "--tile-overlap"):
+        assert flag not in cli.NOT_PORTED
+    args = cli.build_parser().parse_args(["x.png", "9", "30"])
+    assert (args.psf_type, args.psf_file, args.estimate_psf, args.auto_K, args.tile,
+            args.tile_overlap) == ("motion", None, False, False, 0, None)
+
+
+@pytest.mark.parametrize("psf_type,length,param", [("gaussian", 9, 1.8), ("disk", 7, 0.0)])
+def test_psf_type_verifies_against_the_oracle(tmp_path, capsys, psf_type, length, param):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    src = _family_png(tmp_path, "in.png", psf_type, length, param)
+    out = tmp_path / "out.png"
+    rc = cli.main([str(src), str(length), str(param), "--psf-type", psf_type, "--device", "cpu",
+                   "--tier", "inf", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=inf" in text, text
+    ref = WienerDeblurPipeline("cpu", psf_type=psf_type).restore(imread(str(src)), length, param)
+    assert np.array_equal(imread(str(out)), ref)
+
+
+def test_psf_file_replaces_the_family(tmp_path, capsys):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    src = _family_png(tmp_path, "in.png", "motion", 9, 30.0)
+    kernel = oracle.motion_psf(9, 30.0)
+    np.save(tmp_path / "k.npy", kernel)
+    out = tmp_path / "out.png"
+    rc = cli.main([str(src), "1", "0", "--psf-file", str(tmp_path / "k.npy"), "--device", "cpu",
+                   "--tier", "inf", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=inf" in text, text
+    ref = WienerDeblurPipeline("cpu", psf_type=kernel / kernel.sum()).restore(
+        imread(str(src)), 9, 0.0)
+    assert np.array_equal(imread(str(out)), ref)
+
+
+@pytest.mark.parametrize("content,name", [(b"", "missing.npy"), (b"not a png", "k.png"),
+                                          (b"GIF89a", "k.gif")])
+def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, name):
+    path = tmp_path / name
+    if content:
+        path.write_bytes(content)
+    assert cli.main([str(blurred_png), "1", "0", "--psf-file", str(path), "--device", "cpu"]) == 2
+    text = capsys.readouterr().out
+    assert "[Error] Cannot load PSF" in text
+    if name.endswith(".gif"):
+        assert "ROADMAP.md A6" in text
+
+
+def test_estimate_psf_motion_one_image(tmp_path, capsys):
+    from fft_restoration_tpu_torch.models.estimate import estimate_motion_psf
+
+    src = _family_png(tmp_path, "in.png", "motion", 15, 30.0, hw=(128, 160))
+    rc = cli.main([str(src), "3", "0", "--estimate-psf", "--device", "cpu",
+                   "-o", str(tmp_path / "o.png")])
+    text = capsys.readouterr().out
+    length, angle, _ = estimate_motion_psf(imread(str(src)), device="cpu")
+    assert rc == 0 and "[Success]" in text, text
+    assert f"[INFO] estimated PSF: length={length} angle={angle:.1f}" in text
+    assert "positionals 3/0.0 ignored" in text
+
+
+@pytest.mark.parametrize("psf_type,length,param,expect", [
+    ("disk", 9, 0.0, "estimated PSF: disk size="),
+    ("gaussian", 11, 1.8, "estimated PSF: gaussian sigma="),
+])
+def test_estimate_psf_disk_and_gaussian(tmp_path, capsys, psf_type, length, param, expect):
+    src = _family_png(tmp_path, "in.png", psf_type, length, param, hw=(160, 192))
+    rc = cli.main([str(src), "3", "0", "--psf-type", psf_type, "--estimate-psf", "--device",
+                   "cpu", "-o", str(tmp_path / "o.png")])
+    text = capsys.readouterr().out
+    assert rc == 0 and expect in text and "[Success]" in text, text
+
+
+def test_estimate_psf_refusals_exit_2(blurred_png, tmp_path, capsys):
+    np.save(tmp_path / "k.npy", oracle.motion_psf(9, 30.0))
+    assert cli.main([str(blurred_png), "1", "0", "--psf-file", str(tmp_path / "k.npy"),
+                     "--estimate-psf", "--device", "cpu"]) == 2
+    assert "--psf-file kernels are already concrete" in capsys.readouterr().out
+    flat = tmp_path / "flat.png"
+    imwrite(str(flat), np.full((64, 64, 3), 128, np.uint8))
+    assert cli.main([str(flat), "9", "1.5", "--psf-type", "gaussian", "--estimate-psf",
+                     "--device", "cpu"]) == 2
+    assert "[Error] cannot estimate a gaussian blur" in capsys.readouterr().out
+
+
+def test_auto_K_one_image(tmp_path, capsys):
+    from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
+
+    src = _family_png(tmp_path, "in.png", "motion", 9, 30.0)
+    rc = cli.main([str(src), "9", "30", "--auto-K", "--device", "cpu",
+                   "-o", str(tmp_path / "o.png")])
+    text = capsys.readouterr().out
+    sigma, k = estimate_noise_K(imread(str(src)), device="cpu")
+    assert rc == 0 and "[Success]" in text, text
+    assert f"[INFO] auto-K: noise sigma {sigma:.4f} -> K {k:g} (was 0.01)" in text
+
+
+def test_directory_estimate_auto_K_and_family(tmp_path, capsys):
+    """A directory: --estimate-psf from its first frame, --auto-K once per
+    size group, --psf-type through the batched pipeline."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+    from fft_restoration_tpu_torch.models.estimate import estimate_disk_psf, estimate_noise_K
+
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    paths = [_family_png(src, f"f{i}.png", "disk", 9, 0.0, hw=(96, 128), seed=i)
+             for i in range(2)]
+    rc = cli.main([str(src), "3", "0", "--psf-type", "disk", "--estimate-psf", "--auto-K",
+                   "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    frames = np.stack([imread(str(p)) for p in paths])
+    size, _ = estimate_disk_psf(frames[0], device="cpu")
+    sigma, k = estimate_noise_K(frames[0], device="cpu")
+    assert f"estimated PSF: disk size={size}" in text
+    assert f"[INFO] auto-K[128x96]: noise sigma {sigma:.4f} -> K {k:g}" in text
+    ref = BatchedWienerPipeline("cpu", psf_type="disk").restore(frames, size, 0.0, k)
+    for i, r in enumerate(ref):
+        assert np.array_equal(imread(str(out / f"f{i}_restored.png")), r)
+
+
+def test_directory_psf_file(tmp_path, capsys):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    path = _family_png(src, "a.png", "motion", 7, 30.0, hw=(64, 80))
+    kernel = oracle.motion_psf(7, 30.0)
+    np.savetxt(tmp_path / "k.csv", kernel, delimiter=",")
+    rc = cli.main([str(src), "1", "0", "--psf-file", str(tmp_path / "k.csv"), "--device", "cpu",
+                   "-o", str(out)])
+    assert rc == 0, capsys.readouterr().out
+    from fft_restoration_tpu_torch.host.psf_file import load_psf_file
+
+    ref = WienerDeblurPipeline("cpu", psf_type=load_psf_file(str(tmp_path / "k.csv"))).restore(
+        imread(str(path)), 7, 0.0)
+    assert np.array_equal(imread(str(out / "a_restored.png")), ref)
+
+
+def test_tile_one_image_verifies_the_center_tile(blurred_png, tmp_path, capsys):
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--tile", "128", "--tile-overlap", "32",
+                   "--edgetaper", "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert "took(tiled" in text and "overlap-discard approximation" in text
+    assert "--edgetaper is implied" in text
+    assert "per-tile oracle anchor: center tile 90x128" in text and "[Success] tier=gpu" in text
+    ref = tiled_restore_image(imread(str(blurred_png)), 9, 30.0, tile=128, overlap=32,
+                              device="cpu")
+    assert np.array_equal(imread(str(out)), ref)
+
+
+def test_tile_anchor_failure_exits_3(blurred_png, tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(
+        oracle, "restore_frame_channels",
+        lambda img, *a: np.zeros((3,) + img.shape[:2], np.float32),
+    )
+    rc = cli.main([str(blurred_png), "9", "30", "--tile", "128", "--device", "cpu",
+                   "-o", str(tmp_path / "o.png")])
+    assert rc == 3
+    assert "[Error] tier=gpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra", [["--tile", "100"], ["--tile", "64", "--tile-overlap", "30"],
+                                   ["--tile", "128", "--tile-overlap", "-1"]])
+def test_bad_tile_options_exit_2(blurred_png, tmp_path, capsys, extra):
+    assert cli.main([str(blurred_png), "9", "30", "--device", "cpu", *extra]) == 2
+    assert "[Error]" in capsys.readouterr().out
+    src = tmp_path / "d"
+    src.mkdir()
+    imwrite(str(src / "a.png"), imread(str(blurred_png)))
+    assert cli.main([str(src), "9", "30", "--device", "cpu", *extra]) == 2
+    assert "Restored" not in capsys.readouterr().out
+
+
+def test_tile_directory_with_auto_K(tmp_path, capsys):
+    """--tile on a directory: each frame on its own (sizes may differ),
+    K estimated per frame, an unreadable frame skipped."""
+    from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+
+    src, out = tmp_path / "in", tmp_path / "out"
+    src.mkdir()
+    a = _family_png(src, "a.png", "motion", 7, 30.0, hw=(80, 150), seed=1)
+    b = _family_png(src, "b.png", "motion", 7, 30.0, hw=(100, 90), seed=2)
+    (src / "c.png").write_bytes(b"broken")
+    rc = cli.main([str(src), "7", "30", "--tile", "64", "--tile-overlap", "16", "--auto-K",
+                   "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "Restored 2 frames" in text and "tiled" in text and "[1 skipped]" in text
+    for path in (a, b):
+        frame = imread(str(path))
+        _, k = estimate_noise_K(frame, device="cpu")
+        ref = tiled_restore_image(frame, 7, 30.0, k, tile=64, overlap=16, device="cpu")
+        assert np.array_equal(imread(str(out / (path.stem + "_restored.png"))), ref)

@@ -13,6 +13,7 @@ import pytest
 
 from fft_restoration_tpu.ops.pallas import fft_radix4 as jr4
 from fft_restoration_tpu.oracle import color as jcolor
+from fft_restoration_tpu.ops.psf import load_psf_file as j_load_psf_file
 from fft_restoration_tpu.oracle.psf import make_psf_oracle
 from fft_restoration_tpu.oracle.serial import dft_naive as j_dft_naive
 from fft_restoration_tpu.oracle.serial import restore_channels as j_restore_channels
@@ -21,7 +22,9 @@ from fft_restoration_tpu.utils.blurgen import blur_image as j_blur_image
 from fft_restoration_tpu.utils.padding import next_power_of_two as j_next_pow2
 from fft_restoration_tpu.utils.padding import next_smooth_size as j_next_smooth
 from fft_restoration_tpu.utils.verify import channels_equal as j_channels_equal
+from fft_restoration_tpu_torch.host import color as hcolor
 from fft_restoration_tpu_torch.host import imageio, oracle, padding, verify
+from fft_restoration_tpu_torch.host.psf_file import load_psf_file
 from fft_restoration_tpu_torch.host.blurgen import blur_image
 from fft_restoration_tpu_torch.ops import color
 from fft_restoration_tpu_torch.ops.kernels import fft_radix4 as tr4
@@ -69,6 +72,107 @@ def test_serial_oracle_matches(h, w, length, angle):
     chans = np.moveaxis(img.astype(np.float32) / np.float32(255.0), -1, 0)
     ref = j_restore_channels(chans, make_psf_oracle("motion", length, angle), 0.01)
     np.testing.assert_array_equal(oracle.restore_frame_channels(img, length, angle, 0.01), ref)
+
+
+@pytest.mark.parametrize("psf_type,size,param", [
+    ("gaussian", 9, 2.5), ("gaussian", 1, 0.0), ("gaussian", 25, 4.0), ("gaussian", 7, -1.0),
+    ("disk", 1, 0.0), ("disk", 9, 0.0), ("disk", 24, 0.0), ("motion", 15, 45.0),
+])
+def test_psf_family_oracles_match(psf_type, size, param):
+    np.testing.assert_array_equal(oracle.make_psf_oracle(psf_type, size, param),
+                                  make_psf_oracle(psf_type, size, param))
+
+
+def test_psf_oracle_passes_a_kernel_through():
+    k = np.random.default_rng(2).random((5, 5))
+    np.testing.assert_array_equal(oracle.make_psf_oracle(k, 5, 0.0),
+                                  make_psf_oracle(k, 5, 0.0))
+    for fn in (oracle.make_psf_oracle, make_psf_oracle):
+        with pytest.raises(ValueError, match=r"custom PSF kernel shape \(5, 5\) != \(7, 7\)"):
+            fn(k, 7, 0.0)
+        with pytest.raises(ValueError, match="unknown psf type"):
+            fn("box", 7, 0.0)
+
+
+@pytest.mark.parametrize("psf_type,length,param", [("gaussian", 9, 1.8), ("disk", 7, 0.0)])
+def test_blur_image_family_matches(psf_type, length, param):
+    img = np.random.default_rng(length).integers(0, 256, (40, 52, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(blur_image(img, length, param, psf_type),
+                                  j_blur_image(img, length, param, psf_type))
+
+
+@pytest.mark.parametrize("psf_type,length,param,edgetaper", [
+    ("gaussian", 7, 1.5, False), ("disk", 5, 0.0, False), ("disk", 5, 0.0, True),
+])
+def test_serial_oracle_family_matches(psf_type, length, param, edgetaper):
+    img = np.random.default_rng(length).integers(0, 256, (30, 36, 3), dtype=np.uint8)
+    chans = np.moveaxis(img.astype(np.float32) / np.float32(255.0), -1, 0)
+    psf = make_psf_oracle(psf_type, length, param)
+    ref = j_restore_channels(chans, psf, 0.01, edgetaper=edgetaper)
+    ours = oracle.restore_frame_channels(img, length, param, 0.01, edgetaper, None, psf_type)
+    np.testing.assert_array_equal(ours, ref)
+    kernel = np.random.default_rng(1).random((length, length)).astype(np.float32)
+    np.testing.assert_array_equal(
+        oracle.restore_frame_channels(img, length, 0.0, 0.01, False, None, kernel),
+        j_restore_channels(chans, kernel, 0.01))
+
+
+def test_host_color_matches():
+    rng = np.random.default_rng(4)
+    bgr = rng.random((17, 23, 3)).astype(np.float32)
+    orig = rng.random((17, 23, 3)).astype(np.float32)
+    lab = hcolor.bgr_to_lab(bgr)
+    np.testing.assert_array_equal(lab, jcolor.bgr_to_lab(bgr))
+    np.testing.assert_array_equal(hcolor.lab_to_bgr(lab), jcolor.lab_to_bgr(lab))
+    np.testing.assert_array_equal(
+        hcolor.apply_white_balance(lab, hcolor.bgr_to_lab(orig)),
+        jcolor.apply_white_balance(lab, jcolor.bgr_to_lab(orig)))
+
+
+def _write_kernels(tmp_path):
+    """The same kernels in every format the port reads: a 5x3 motion-like
+    array (padded square by the loader), with float noise below zero."""
+    k = np.zeros((5, 3))
+    k[2] = [0.2, 1.0, 0.3]
+    k[0, 0] = -1e-9
+    np.save(tmp_path / "k.npy", k)
+    np.savetxt(tmp_path / "k.txt", k)
+    np.savetxt(tmp_path / "k.csv", k, delimiter=",")
+    img = np.zeros((6, 4, 3), np.uint8)
+    img[1:5, 1:3] = [[[10, 60, 200]]]
+    imageio.imwrite(str(tmp_path / "k.png"), img)
+    return [tmp_path / f"k.{e}" for e in ("npy", "txt", "csv", "png")]
+
+
+def test_load_psf_file_matches(tmp_path):
+    for path in _write_kernels(tmp_path):
+        ours = load_psf_file(str(path))
+        np.testing.assert_array_equal(ours, j_load_psf_file(str(path)))
+        assert ours.dtype == np.float32 and ours.shape[0] == ours.shape[1]
+
+
+@pytest.mark.parametrize("kernel,match", [
+    (np.array([[0.5, np.nan], [0.2, 0.1]]), "non-finite"),
+    (np.array([[0.5, -0.4], [0.2, 0.1]]), "negative entries"),
+    (np.zeros((3, 3)), "sum must be > 0"),
+    (np.zeros((0,)), "need a 2D kernel"),
+    (np.ones((2, 2, 2)), "need a 2D kernel"),
+])
+def test_load_psf_file_refuses_what_jax_refuses(tmp_path, kernel, match):
+    path = str(tmp_path / "bad.npy")
+    np.save(path, kernel)
+    for fn in (load_psf_file, j_load_psf_file):
+        with pytest.raises(ValueError, match=match):
+            fn(path)
+
+
+def test_load_psf_file_refuses_unported_images(tmp_path):
+    path = tmp_path / "k.jpg"
+    path.write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+        load_psf_file(str(path))
+    with pytest.raises(OSError):
+        load_psf_file(str(tmp_path / "missing.npy"))
 
 
 @pytest.mark.parametrize("n", [1, 3, 12, 40])
@@ -177,7 +281,8 @@ def test_port_and_smoke_import_nothing_of_jax():
         "models/convolve", "models/richardson_lucy", "models/edgetaper", "host/taper",
         "host/edgetaper", "ops/wiener", "tools/profile_paths", "tools/rl_rim", "ops/fft",
         "models/filters", "ops/kernels/wiener", "ops/kernels/fft_radix4", "tools/perf_ab",
-        "utils/timing", "utils/trace_profile", "tools/bench",
+        "utils/timing", "utils/trace_profile", "tools/bench", "models/estimate",
+        "models/tiled", "host/color", "host/psf_file",
     )} <= names
     for f in files:
         bad = {m for m in _imported_modules(f)
