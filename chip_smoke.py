@@ -23,7 +23,8 @@ B1, B2 'conv' and B6 for each chunk's taper, B1, B2 'wiener' and B3 for
 its restore), the blind estimators (models/estimate.py on B6 natural:
 motion at UHD and at 4096x6144, whose cepstrum is 4096x8192, disk and
 gaussian at 2048^2, the noise K) and the PSF family on the CLI
-(--psf-type gaussian / disk, --psf-file). Phases, each printing its own
+(--psf-type gaussian / disk, --psf-file); the HTTP server with its
+dynamic batcher under tools/serve_slo.py's load. Phases, each printing its own
 lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
@@ -138,12 +139,29 @@ lines; any failure exits non-zero:
              'matmul' against the kernel route at 2048^2, and RL with
              TF32 let back into the matrix products, which must miss
              that tolerance; a 'matmul' batch against its frames one by
-             one.
+             one;
+  6. serve   the HTTP server (serve.py: RestorationService, --max-body-mb
+             160, the kernels, PSF(50, 30), wb stride 4) warmed at
+             330x640, 782x1920 and 4096x6144@tile1024, served on
+             127.0.0.1:0 in a thread; with the counters reset: a 640x330
+             PNG request twice (bitwise the pipeline's), a burst of 8
+             (each within 1 count of the single, co-batched: occupancy >
+             1), filter=rl&iters=3, edgetaper=1, auto_k=1, estimate=1
+             and tile=1024 on the 4096x6144 BMP (each bitwise its
+             library call), 400 for a JPEG body, tile=192 and iters=999,
+             404, 413; tools/serve_slo.py's three phases (batch, mixed,
+             giant: p50/p95/p99, occupancy a phase) and a burst of 8
+             under torch.profiler (device busy a served frame, idle
+             share); B1, B2 'wiener' and 'conv', B3/B6, B4/B8a, B5/B8b
+             and B6 natural must have launched ("serve" in each kernel's
+             launches_by_path). Beside them: the pow2 bucket's cost (a
+             stack of 5 against 8) and the host's decode of each body and
+             PNG encode of each response, without the server.
 
-The bench twin's JSON lines (phase 5) come just before the last three
-lines, which are the results (JSON: the kernel table and the
-timings), the card's name and power limit (nvidia-smi), and {"ok": true,
-"device": {...}}. Imports nothing of JAX and nothing of the JAX package:
+The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
+come just before the last three lines, which are the results (JSON: the
+kernel table and the timings), the card's name and power limit
+(nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
 fft_restoration_tpu_torch.host.
 """
@@ -252,6 +270,13 @@ EST_DISK = 11
 EST_SIGMA = 2.5
 EST_NOISE = 0.02
 TOL_EST_CONF_REL = 1e-3       # an estimator's confidence vs its plain run
+# phase 6, serving: the shapes the service warms (serve_slo's small and
+# big bodies, its giant tiled one) and the kernels its requests must
+# launch: B1 (fft_rows_t), B2 'wiener' and 'conv', B3/B6 (fft_rows), B4/B8a,
+# B5/B8b, B6 natural (the motion estimate)
+SERVE_WARM = ("330x640", "782x1920", "4096x6144@tile1024")
+SERVE_KERNELS = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "spectral_conv_t",
+                 "lab_l_sum_partials", "wb_encode_u8", "fft_rows_natural")
 
 
 def log(msg: str) -> None:
@@ -2396,6 +2421,268 @@ def time_tiled_estimate(torch, np, big, timed, iters):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: serving (serve.py, its dynamic batcher, tools/serve_slo.py's load)
+
+
+def _http(addr, method, path, body=None, headers=None, timeout=600):
+    """(status, body bytes, client ms) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        if headers is None:
+            conn.request(method, path, body=body)
+        else:  # a Content-Length the body does not fill: the 413 is sent unread
+            conn.putrequest(method, path)
+            for k, v in headers.items():
+                conn.putheader(k, v)
+            conn.endheaders()
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, data, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _burst(addr, path, body, n):
+    """n concurrent requests; (statuses, bodies, client ms each, wall ms)."""
+    import threading
+
+    out = [None] * n
+
+    def worker(i):
+        out[i] = _http(addr, "POST", path, body)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = (time.perf_counter() - t0) * 1e3
+    if any(t.is_alive() for t in threads) or any(o is None for o in out):
+        fail("serve: a request of the burst never returned")
+    return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out], wall
+
+
+def bucket_cost(torch, np, small):
+    """The pow2 bucket's cost: BatchedWienerPipeline.run on a stack of 5
+    and of 8 of the small frame (the serving graph, wb stride 4), CUDA
+    events, the median of five loops."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline
+
+    pipe = BatchedWienerPipeline("cuda", emit_planes=False, wb_stats_stride=4)
+    res = {}
+    for b in (5, 8):
+        x = pipe.to_device(np.stack([small] * b))
+        res[f"ms_{b}"], res[f"ms_{b}_loops"] = cuda_ms_median(
+            torch, lambda: pipe.run(x, 50, 30.0, 0.01), 20)
+    res["ratio_8_over_5"] = res["ms_8"] / res["ms_5"]
+    return res
+
+
+def trace_burst(torch, addr, body, n):
+    """A burst of n identical requests under torch.profiler: device busy
+    from every thread's device rows (kernels, copies, fills; the
+    dispatcher thread launches them), per served frame, and the idle share
+    of the burst's wall time."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from fft_restoration_tpu_torch.utils.trace_profile import device_rows, load_trace
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        statuses, _, lat, wall = _burst(addr, "/restore", body, n)
+        torch.cuda.synchronize()
+    if any(s != 200 for s in statuses):
+        fail(f"serve: traced burst statuses {statuses}")
+    with tempfile.TemporaryDirectory(prefix="serve_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        rows = device_rows(load_trace(path))
+    busy = sum(e["dur"] for e in rows) / 1e3
+    by_name = {}
+    for e in rows:
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"] / 1e3
+    lat = sorted(lat)
+    return dict(frames=n, device_busy_ms=busy if rows else "not measured",
+                device_ms_per_frame=busy / n if rows else "not measured",
+                wall_ms=wall, idle_share=1.0 - busy / wall if rows else "not measured",
+                client_p50_ms=lat[n // 2], client_ms=lat, device_rows=len(rows),
+                top_rows_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8]))
+
+
+def check_serve(torch, np, seed):
+    """Phase 6: the server on the card. Its service (`--max-body-mb 160`,
+    the default kernel backend, PSF(50, 30), wb stride 4) warmed at
+    SERVE_WARM and served on 127.0.0.1:0 in a thread; the library
+    references of every checked request made first, then the counters
+    reset, the checked requests, tools/serve_slo's three phases and a
+    traced burst of 8 served, and the counters read (SERVE_KERNELS must
+    have launched). Returns (result, launch counts)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch.host.imageio import decode_image_bgr, decode_png_bgr
+    from fft_restoration_tpu_torch.models import estimate as est
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.tools import serve_slo
+
+    t_phase = time.perf_counter()
+    service = serve.RestorationService(serve.build_parser().parse_args(["--max-body-mb", "160"]))
+    warm_s = {}
+    for spec in SERVE_WARM:
+        t0 = time.perf_counter()
+        service.warm([spec])
+        warm_s[spec] = time.perf_counter() - t0
+    log(f"serve: service on {service.device_str}, warmed {warm_s} s")
+
+    t0 = time.perf_counter()
+    bodies = serve_slo.make_bodies(seed)
+    small, giant = decode_image_bgr(bodies["small"]), decode_image_bgr(bodies["giant"])
+    # the library call of each checked request, on the decoded frames
+    pipes = {}
+
+    def pipe(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in pipes:
+            pipes[key] = WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=4, **kw)
+        return pipes[key]
+
+    length, angle, _ = est.estimate_motion_psf(small, max_length=128, device="cuda")
+    _, k_auto = est.estimate_noise_K(small, device="cuda")
+    refs = {
+        "/restore": pipe().restore(small, 50, 30.0, 0.01),
+        "/restore?filter=rl&iters=3": pipe(filter_name="rl", rl_iters=3).restore(
+            small, 50, 30.0, 0.01),
+        "/restore?edgetaper=1": pipe(edgetaper=True).restore(small, 50, 30.0, 0.01),
+        "/restore?auto_k=1": pipe().restore(small, 50, 30.0, k_auto),
+        "/restore?estimate=1": pipe().restore(small, length, angle, 0.01),
+    }
+    giant_ref = tiled_restore_image(giant, 50, 30.0, 0.01, tile=TILED_TILE, device="cuda")
+    bucket = bucket_cost(torch, np, small)
+    log(f"serve: bodies and references ({time.perf_counter() - t0:.1f} s): estimate "
+        f"({length}, {angle:.2f}), auto K {k_auto}; the pow2 bucket, a stack of 5 against 8 "
+        f"(events): {bucket['ms_5']:.4f} / {bucket['ms_8']:.4f} ms, x{bucket['ratio_8_over_5']:.3f}")
+
+    class Quiet(serve.make_handler(service)):
+        def log_message(self, fmt, *a):  # no access log; 5xx text still goes to stderr
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    addr = srv.server_address
+    checks = {}
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        # the single request, twice: the first of a warmed shape against the second
+        ms = []
+        for _ in range(2):
+            status, data, dt = _http(addr, "POST", "/restore", bodies["small"])
+            if status != 200:
+                fail(f"serve: single request status {status}: {data[:200]}")
+            ms.append(dt)
+            single = decode_png_bgr(data)
+            if not np.array_equal(single, refs["/restore"]):
+                fail("serve: the single 640x330 response differs from the pipeline's")
+        checks["single_bitwise"] = True
+        checks["first_second_request_ms"] = ms
+        before = service.health()
+        statuses, datas, lat, wall = _burst(addr, "/restore", bodies["small"], 8)
+        after = service.health()
+        if any(s != 200 for s in statuses):
+            fail(f"serve: burst statuses {statuses}")
+        d = max(u8_max(np, decode_png_bgr(x), single) for x in datas)
+        batches = after["batches_dispatched"] - before["batches_dispatched"]
+        frames = after["frames_batched"] - before["frames_batched"]
+        occ = frames / max(batches, 1)
+        checks["burst"] = dict(u8_max=d, batches=batches, frames=frames, occupancy=occ,
+                               client_ms=sorted(lat), wall_ms=wall)
+        log(f"serve: burst of 8: uint8 max {d} vs the single (tol {TOL_U8}), {batches} "
+            f"dispatches of {frames} frames (occupancy {occ:.2f}), wall {wall:.1f} ms")
+        if d > TOL_U8 or not occ > 1.0 or after["batch_occupancy"] <= 1.0:
+            fail("serve: the burst was not co-batched or disagrees with the single response")
+        for path, ref in refs.items():
+            if path == "/restore":
+                continue
+            status, data, dt = _http(addr, "POST", path, bodies["small"])
+            if status != 200:
+                fail(f"serve: {path} status {status}: {data[:200]}")
+            d = u8_max(np, decode_png_bgr(data), ref)
+            checks[path] = dict(u8_max=d, client_ms=dt)
+            if d:
+                fail(f"serve: {path} differs from the library call by {d} counts")
+        opt_paths = [p for p in refs if p != "/restore"] + [f"tile={TILED_TILE}"]
+        status, data, dt = _http(addr, "POST", f"/restore?tile={TILED_TILE}", bodies["giant"])
+        if status != 200:
+            fail(f"serve: tile={TILED_TILE} status {status}: {data[:200]}")
+        d = u8_max(np, decode_png_bgr(data), giant_ref)
+        checks[f"tile={TILED_TILE}"] = dict(u8_max=d, client_ms=dt)
+        if d:
+            fail(f"serve: the tiled 4096x6144 response differs from tiled_restore_image by {d}")
+        log(f"serve: single bitwise (first {ms[0]:.2f} ms, second {ms[1]:.2f} ms); "
+            f"rl, edgetaper, auto_k, estimate and tile={TILED_TILE} bitwise "
+            f"(client ms { {p: round(checks[p]['client_ms'], 2) for p in opt_paths} })")
+        refusals = (
+            ("JPEG body", "POST", "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF" + bytes(64), None,
+             400),
+            ("tile=192", "POST", "/restore?tile=192", bodies["small"], None, 400),
+            ("iters=999", "POST", "/restore?filter=rl&iters=999", bodies["small"], None, 400),
+            ("unknown path", "POST", "/nope", bodies["small"], None, 404),
+            ("body limit", "POST", "/restore", None,
+             {"Content-Length": str(service.max_body + 1)}, 413),
+        )
+        for name, method, path, body, headers, want in refusals:
+            status, data, _ = _http(addr, method, path, body, headers)
+            if status != want:
+                fail(f"serve: {name} gave {status}, expected {want}: {data[:200]}")
+        checks["refusals"] = "400 JPEG, 400 tile=192, 400 iters=999, 404, 413"
+        t0 = time.perf_counter()
+        load = serve_slo.run(f"http://{addr[0]}:{addr[1]}", seed, bodies)
+        log(f"serve: load twin ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(load['phases'])}")
+        if load["errors"]:
+            fail(f"serve: load twin errors {load['errors'][:5]}")
+        if not load["phases"]["batch"]["dispatch"]["occupancy"] > 1.0:
+            fail("serve: the load twin's batch phase was not co-batched")
+        trace = trace_burst(torch, addr, bodies["small"], 8)
+        torch.cuda.synchronize()
+        counts = {k: launch_counts[k] for k in KERNELS}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.batcher.shutdown()
+        thread.join(timeout=60)
+    log(f"serve launches: {counts}")
+    missing = [k for k in SERVE_KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"kernels not launched on the serve path: {missing}")
+    log(f"serve: traced burst of 8: device busy {trace['device_busy_ms']} ms "
+        f"({trace['device_ms_per_frame']} a frame) against the client p50 "
+        f"{trace['client_p50_ms']:.2f} ms; idle share {trace['idle_share']}; rows "
+        f"{trace['top_rows_ms']}")
+    codec = load["host_codec_ms"]
+    log(f"serve: host codec ms (no server; each body's decode, its response's encode): {codec}")
+    health = service.health()
+    res = dict(warm_s=warm_s, checks=checks, pow2_bucket_5_as_8=bucket, load=load,
+               batches_dispatched=health["batches_dispatched"],
+               frames_batched=health["frames_batched"],
+               batch_occupancy=health["batch_occupancy"],
+               giant_ms=load["phases"]["giant"]["giant_ms"], host_codec_ms=codec,
+               burst_trace=trace, launches=counts, device=service.device_str)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 6 serving: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2510,6 +2797,8 @@ def main() -> int:
                                                args.seed)
     counts.update(twin_counts)
     log(f"phase 5 measurement layer: {time.perf_counter() - t0:.1f} s")
+
+    serving, counts["serve"] = check_serve(torch, np, args.seed)
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -2528,6 +2817,7 @@ def main() -> int:
         result[name] = dict(family[name], **family_timing.get(name, {}))
     for line in twin_lines:  # the bench twin's own lines, as it prints them
         print(json.dumps(line))
+    print(json.dumps({"serve": serving}))
     print(json.dumps(result))
     print(card)
     print(json.dumps({"ok": True, "device": {

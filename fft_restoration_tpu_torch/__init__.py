@@ -23,9 +23,11 @@ PSF and noise estimation (models.estimate: estimate_motion_psf,
 estimate_disk_psf, estimate_gaussian_psf, estimate_noise_K) and the
 tiled restore of frames of any size (models.tiled.tiled_restore_image),
 with the CLI's --psf-type, --psf-file, --estimate-psf, --auto-K, --tile
-and --tile-overlap.
-The host layer (host/: serial oracle, PNG I/O, verify tiers, padding,
-blurred test frames) is the port's own numpy, so the package needs
+and --tile-overlap; serving: the HTTP server with its dynamic batcher
+(serve.py), the warm-up tool (warmup.py) and the load tool
+tools/serve_slo.py.
+The host layer (host/: serial oracle, PNG, BMP, PNM and PAM I/O, verify
+tiers, padding, blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
 
 Importing this package pulls in no JAX and no CUDA build:

@@ -75,7 +75,8 @@ from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
 # file names directory mode picks up (the JAX CLI's list; the port reads
-# the 8-bit PNG subset and reports the rest as unreadable)
+# 8-bit PNG, BMP, PNM and PAM, host/imageio.decode_image_bgr, and reports
+# the rest as unreadable)
 IMAGE_EXTENSIONS = (
     ".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".pbm", ".tif",
     ".tiff", ".webp", ".pfm", ".hdr", ".pic", ".sr", ".ras",
@@ -112,7 +113,7 @@ def build_parser() -> argparse.ArgumentParser:
         "Richardson-Lucy) with hand-written "
         "CUDA kernels on an NVIDIA GPU.",
     )
-    p.add_argument("img_path", help="input image (PNG)")
+    p.add_argument("img_path", help="input image (PNG, BMP, PNM, PAM) or a directory")
     p.add_argument("psf_length", type=int, help="motion blur length in px (>=1)")
     p.add_argument("psf_angle", type=float, help="motion blur angle in degrees")
     p.add_argument("-o", "--output", default=None, help="output PNG path")

@@ -12,9 +12,10 @@
   edgetaper the oracle's edge taper (float64 np.fft circular blur)
   blurgen   blurred test frames (the forward problem the restore inverts)
   verify    the reference's three tolerance tiers (l2, inf, gpu)
-  imageio   PNG read/write as BGR uint8
+  imageio   image decode (PNG, BMP, PNM, PAM) as BGR uint8, PNG write
+  formats   the BMP, PNM and PAM codecs
 
-Counterparts of fft_restoration_tpu/utils/{padding,blurgen,verify,imageio,taper}.py,
+Counterparts of fft_restoration_tpu/utils/{padding,blurgen,verify,imageio,taper,formats}.py,
 fft_restoration_tpu/oracle/{psf,serial,edgetaper,color}.py and ops/psf.py's
 load_psf_file, kept to what the ported
 slice uses, so that the port and its smoke run need nothing of the JAX

@@ -1,12 +1,16 @@
-"""PNG read/write on stdlib zlib, as BGR uint8 frames (cv::imread /
-cv::imwrite color semantics).
+"""Image decode and PNG write on stdlib zlib, as BGR uint8 frames
+(cv::imread / cv::imwrite color semantics).
 
-Reads 8-bit, non-interlaced gray, gray+alpha, RGB and RGBA PNGs (gray
-replicated to 3 channels, alpha dropped) with all five scanline filters;
-anything else raises ValueError. The Average and Paeth filters are a
-per-byte Python loop, slow on large frames; `imwrite` writes Up-filtered
-RGB, which reads back fast. `probe_size` reads the IHDR alone, for
-grouping a directory's frames by size; `imread_batch` decodes a group.
+`decode_image_bgr` is the decoder of the CLI and the server: PNG here,
+BMP, PNM (P1-P6) and PAM through host/formats.py, dispatched on the
+magic bytes as the JAX package's decode_image_bgr; any other format
+raises ValueError naming ROADMAP.md A6. The PNG reader takes 8-bit,
+non-interlaced gray, gray+alpha, RGB and RGBA with all five scanline
+filters; the Average and Paeth filters are a per-byte Python loop, slow
+on large frames. `imwrite` writes Up-filtered RGB PNGs, which read back
+fast. `probe_size` reads a PNG's IHDR alone (other formats are decoded),
+for grouping a directory's frames by size; `imread_batch` decodes a
+group.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
+
+from fft_restoration_tpu_torch.host import formats
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
@@ -67,13 +73,14 @@ def _check_ihdr(ihdr) -> None:
 
 
 def probe_size(path: str) -> tuple:
-    """(height, width) of a PNG from its IHDR alone. Raises ValueError for
-    anything `imread` would refuse on its header: not a PNG, a truncated
-    or bad IHDR, or a format outside the supported subset."""
+    """(height, width) of an image file: a PNG's from its IHDR alone,
+    another format's by decoding it. Raises ValueError for anything
+    `imread` would refuse on its header: an unknown format, a truncated
+    or bad IHDR, or a PNG outside the supported subset."""
     with open(path, "rb") as f:
         head = f.read(33)
     if head[:8] != _SIG:
-        raise ValueError("not a PNG file")
+        return imread(path).shape[:2]
     if len(head) < 33 or head[12:16] != b"IHDR" or struct.unpack(">I", head[8:12])[0] != 13:
         raise ValueError("corrupt PNG: bad IHDR")
     ihdr = struct.unpack(">IIBBBBB", head[16:29])
@@ -134,9 +141,34 @@ def encode_png_bgr(img_bgr: np.ndarray, compress_level: int = 6) -> bytes:
             + chunk(b"IEND", b""))
 
 
+def decode_image_bgr(data: bytes) -> np.ndarray:
+    """Image bytes -> BGR uint8 (H, W, 3), like cv::imread(IMREAD_COLOR):
+    PNG, BMP, PNM or PAM by the magic bytes. Gray and gray+alpha repeat
+    to 3 channels, RGBA drops its alpha. A decoder's internal failure on
+    a truncated or garbage stream (struct.error, IndexError, KeyError,
+    OverflowError) becomes ValueError, as any other refusal is."""
+    kind = "png" if data[:8] == _SIG else formats.sniff(data)
+    if kind is None:
+        raise ValueError("unrecognised or unported image format (the port reads PNG, BMP, "
+                         "PNM and PAM; the others: ROADMAP.md A6)")
+    try:
+        if kind == "png":
+            return decode_png_bgr(data)
+        img = formats.DECODERS[kind](data)
+    except (struct.error, IndexError, KeyError, OverflowError) as e:
+        raise ValueError(f"corrupt image data: {e}") from e
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    elif img.shape[-1] == 2:  # gray + alpha
+        img = np.repeat(img[..., :1], 3, axis=-1)
+    elif img.shape[-1] == 4:
+        img = img[..., :3]
+    return img[..., ::-1].copy()  # RGB -> BGR
+
+
 def imread(path: str) -> np.ndarray:
-    """Read a PNG file as BGR uint8 (H, W, 3)."""
-    return decode_png_bgr(Path(path).read_bytes())
+    """Read an image file as BGR uint8 (H, W, 3) (see decode_image_bgr)."""
+    return decode_image_bgr(Path(path).read_bytes())
 
 
 def imwrite(path: str, img_bgr: np.ndarray) -> None:
@@ -145,7 +177,7 @@ def imwrite(path: str, img_bgr: np.ndarray) -> None:
 
 
 def imread_batch(paths):
-    """Decode PNGs of one size (as `probe_size` grouped them) into an
+    """Decode images of one size (as `probe_size` grouped them) into an
     (N, H, W, 3) BGR uint8 stack, on a thread pool (zlib releases the GIL).
 
     Returns (stack, read, failed): `read` lists the paths in the stack, in

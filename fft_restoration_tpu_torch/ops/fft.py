@@ -34,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
+import threading
 
 import numpy as np
 import torch
@@ -100,19 +101,28 @@ def _split_factors(n: int) -> tuple:
     return best
 
 
+# held for the whole body of _full_float32: the TF32 flag is process-wide,
+# so two threads flipping it must not interleave (reentrant: fft2d nests)
+_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def _full_float32(x: torch.Tensor):
     """Matrix products in true float32 on the card (TF32 off), the JAX
-    backends' HIGHEST precision; the flag is restored on exit."""
+    backends' HIGHEST precision; the flag is restored on exit. The flag
+    is process-wide, so the flip, the products and the restore run under
+    one lock: a thread that leaves cannot switch TF32 back on while
+    another is still inside. CPU tensors take no lock."""
     if x.device.type != "cuda":
         yield
         return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    with _TF32_LOCK:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 # ---------------------------------------------------------------------------

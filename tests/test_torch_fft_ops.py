@@ -7,8 +7,14 @@ Tolerances, of the output's max magnitude: 1e-5 for radix2, xla and
 pallas (the same stage arithmetic and tables, or two library FFTs);
 1e-4 for matmul and naive, whose float32 matrix products sum in another
 order than XLA's einsums. The host tables (DFT matrices, twiddles,
-factor splits) are equal bit for bit.
+factor splits) are equal bit for bit. `_full_float32`'s TF32 flip is
+checked under threads (the flag is a plain process-wide attribute in a
+CPU build too).
 """
+
+import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -110,3 +116,82 @@ def test_bit_reversal_matches_jax():
     x = np.arange(2 * 64, dtype=np.float32).reshape(2, 64)
     np.testing.assert_array_equal(tfft.bit_reverse_last_axis(torch.from_numpy(x)).numpy(),
                                   np.asarray(jfft._bit_reverse_last_axis(x)))
+
+
+class _OnCard:
+    """Stands for a CUDA tensor: _full_float32 reads only `.device.type`."""
+
+    device = torch.device("cuda")
+
+
+def test_full_float32_two_threads_never_interleave():
+    """Thread A is inside _full_float32 and waits; thread B tries to
+    enter. B gets in only after A leaves, TF32 reads False whenever
+    either is inside, and the flag is back to its first value after both
+    have left (without the lock, A's exit would switch TF32 on under B)."""
+    flag = torch.backends.cuda.matmul
+    first = flag.allow_tf32
+    flag.allow_tf32 = True
+    a_inside, a_release, b_inside = threading.Event(), threading.Event(), threading.Event()
+    seen = []
+
+    def a():
+        with tfft._full_float32(_OnCard()):
+            seen.append(("a", flag.allow_tf32))
+            a_inside.set()
+            a_release.wait(timeout=30)
+            seen.append(("a", flag.allow_tf32))
+
+    def b():
+        a_inside.wait(timeout=30)
+        with tfft._full_float32(_OnCard()):
+            b_inside.set()
+            seen.append(("b", flag.allow_tf32))
+
+    threads = [threading.Thread(target=a), threading.Thread(target=b)]
+    try:
+        for t in threads:
+            t.start()
+        assert a_inside.wait(timeout=30)
+        assert not b_inside.wait(timeout=0.3), "B entered while A was inside"
+        a_release.set()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert b_inside.is_set()
+        assert seen == [("a", False), ("a", False), ("b", False)]
+        assert flag.allow_tf32 is True
+    finally:
+        a_release.set()
+        flag.allow_tf32 = first
+
+
+def test_full_float32_stress_many_threads():
+    """More threads than cores enter and leave _full_float32 with a short
+    switch interval: none ever reads TF32 on inside, and the flag ends as
+    it started. CPU tensors take the early return, without the lock."""
+    flag = torch.backends.cuda.matmul
+    first = flag.allow_tf32
+    flag.allow_tf32 = True
+    bad, switch = [], sys.getswitchinterval()
+
+    def worker():
+        for _ in range(200):
+            with tfft._full_float32(_OnCard()):
+                if flag.allow_tf32:
+                    bad.append(1)
+
+    threads = [threading.Thread(target=worker) for _ in range(2 * (os.cpu_count() or 4))]
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert not bad and flag.allow_tf32 is True
+        with tfft._full_float32(torch.zeros(1)):
+            assert flag.allow_tf32 is True  # no flip for a CPU tensor
+    finally:
+        sys.setswitchinterval(switch)
+        flag.allow_tf32 = first

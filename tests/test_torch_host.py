@@ -6,6 +6,7 @@ the JAX package or JAX.
 """
 
 import ast
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -17,13 +18,14 @@ from fft_restoration_tpu.ops.psf import load_psf_file as j_load_psf_file
 from fft_restoration_tpu.oracle.psf import make_psf_oracle
 from fft_restoration_tpu.oracle.serial import dft_naive as j_dft_naive
 from fft_restoration_tpu.oracle.serial import restore_channels as j_restore_channels
+from fft_restoration_tpu.utils import formats as jformats
 from fft_restoration_tpu.utils import imageio as jio
 from fft_restoration_tpu.utils.blurgen import blur_image as j_blur_image
 from fft_restoration_tpu.utils.padding import next_power_of_two as j_next_pow2
 from fft_restoration_tpu.utils.padding import next_smooth_size as j_next_smooth
 from fft_restoration_tpu.utils.verify import channels_equal as j_channels_equal
 from fft_restoration_tpu_torch.host import color as hcolor
-from fft_restoration_tpu_torch.host import imageio, oracle, padding, verify
+from fft_restoration_tpu_torch.host import formats, imageio, oracle, padding, verify
 from fft_restoration_tpu_torch.host.psf_file import load_psf_file
 from fft_restoration_tpu_torch.host.blurgen import blur_image
 from fft_restoration_tpu_torch.ops import color
@@ -282,7 +284,8 @@ def test_port_and_smoke_import_nothing_of_jax():
         "host/edgetaper", "ops/wiener", "tools/profile_paths", "tools/rl_rim", "ops/fft",
         "models/filters", "ops/kernels/wiener", "ops/kernels/fft_radix4", "tools/perf_ab",
         "utils/timing", "utils/trace_profile", "tools/bench", "models/estimate",
-        "models/tiled", "host/color", "host/psf_file",
+        "models/tiled", "host/color", "host/psf_file", "host/formats", "serve", "warmup",
+        "tools/serve_slo",
     )} <= names
     for f in files:
         bad = {m for m in _imported_modules(f)
@@ -318,3 +321,136 @@ def test_radix4_helpers_match(n):
     for args in ((re, None), (re, im)):
         for ours, ref in zip(tr4._numpy_sim(*args), jr4._numpy_sim(*args)):
             np.testing.assert_array_equal(ours, ref)
+
+
+# --- BMP / PNM / PAM (host/formats.py) and decode_image_bgr -------------------
+
+
+def _frames(seed, h, w):
+    """Seeded 8-bit frames of every channel count the JAX encoders take."""
+    rng = np.random.default_rng(seed)
+    return {"gray": rng.integers(0, 256, (h, w), dtype=np.uint8),
+            "rgb": rng.integers(0, 256, (h, w, 3), dtype=np.uint8),
+            "rgba": rng.integers(0, 256, (h, w, 4), dtype=np.uint8)}
+
+
+@pytest.mark.parametrize("h,w", [(5, 7), (6, 9), (8, 13), (17, 32)])  # odd widths: BMP row pad
+@pytest.mark.parametrize("kind", ["bmp", "pnm", "pam"])
+def test_formats_encode_decode_match_jax(kind, h, w):
+    for layout, img in _frames(h * w, h, w).items():
+        blob = getattr(formats, f"encode_{kind}")(img)
+        assert blob == getattr(jformats, f"encode_{kind}")(img), (kind, layout)
+        ours, ref = getattr(formats, f"decode_{kind}")(blob), getattr(jformats, f"decode_{kind}")(blob)
+        assert ours.dtype == ref.dtype == np.uint8
+        np.testing.assert_array_equal(ours, ref)
+        np.testing.assert_array_equal(imageio.decode_image_bgr(blob), jio.decode_image_bgr(blob))
+        assert formats.sniff(blob) == jformats.sniff(blob) == kind
+
+
+def _bmp(img_bgrx, bpp, top_down=False, palette=None):
+    """A BMP the JAX encoder does not write: 8-bit paletted, 32-bit
+    (BI_RGB), rows top-down."""
+    h, w = img_bgrx.shape[:2]
+    row = w * (bpp // 8)
+    stride = (row + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :row] = img_bgrx.reshape(h, row)
+    if not top_down:
+        rows = rows[::-1]
+    pal = b"" if palette is None else palette.tobytes()
+    off = 14 + 40 + len(pal)
+    info = struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp, 0, rows.size,
+                       2835, 2835, 0, 0)
+    return struct.pack("<2sIHHI", b"BM", off + rows.size, 0, 0, off) + info + pal + rows.tobytes()
+
+
+def _pam(img, maxval=255):
+    h, w = img.shape[:2]
+    depth = 1 if img.ndim == 2 else img.shape[2]
+    body = img.astype(">u2").tobytes() if maxval > 255 else img.tobytes()
+    return b"P7\nWIDTH %d\nHEIGHT %d\nDEPTH %d\nMAXVAL %d\n# c\nENDHDR\n" % (
+        w, h, depth, maxval) + body
+
+
+def _pnm_variants(rng, h, w):
+    g = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    c = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    bits = rng.integers(0, 2, (h, w), dtype=np.uint8)
+    g16 = rng.integers(0, 65536, (h, w)).astype(">u2")
+    ascii_rows = lambda a: b"\n".join(b" ".join(b"%d" % v for v in r) for r in a.reshape(h, -1))
+    return {
+        "P1": b"P1\n# bitmap\n%d %d\n" % (w, h) + b"\n".join(b"".join(b"%d" % v for v in r)
+                                                           for r in bits),
+        "P2": b"P2\n%d %d\n255\n" % (w, h) + ascii_rows(g),
+        "P3": b"P3\n%d %d # size\n200\n" % (w, h) + ascii_rows(np.minimum(c, 200)),
+        "P4": b"P4\n%d %d\n" % (w, h) + np.packbits(bits, axis=1).tobytes(),
+        "P5_16bit": b"P5\n%d %d\n65535\n" % (w, h) + g16.tobytes(),
+        "P6_maxval_100": b"P6\n%d %d\n100\n" % (w, h) + np.minimum(c, 100).tobytes(),
+    }
+
+
+def test_formats_decoders_match_jax_beyond_the_encoders():
+    """Every layout the decoders read: ASCII and binary PNM (bitmaps,
+    16-bit and low maxval samples), PAM of depth 1-4 and 16 bits, BMP
+    8-bit paletted, 32-bit and top-down."""
+    rng = np.random.default_rng(3)
+    h, w = 6, 11
+    blobs = dict(_pnm_variants(rng, h, w))
+    for depth in (1, 2, 3, 4):
+        shape = (h, w) if depth == 1 else (h, w, depth)
+        blobs[f"pam{depth}"] = _pam(rng.integers(0, 256, shape, dtype=np.uint8))
+    blobs["pam16"] = _pam(rng.integers(0, 65536, (h, w, 3)), maxval=65535)
+    pal = np.concatenate([rng.integers(0, 256, (16, 3), dtype=np.uint8),
+                          np.zeros((16, 1), np.uint8)], axis=1)
+    blobs["bmp8"] = _bmp(rng.integers(0, 16, (h, w), dtype=np.uint8), 8, palette=pal)
+    blobs["bmp32"] = _bmp(rng.integers(0, 256, (h, w, 4), dtype=np.uint8), 32)
+    blobs["bmp24_top_down"] = _bmp(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), 24,
+                                   top_down=True)
+    for name, blob in blobs.items():
+        kind = formats.sniff(blob)
+        assert kind == jformats.sniff(blob), name
+        np.testing.assert_array_equal(formats.DECODERS[kind](blob), jformats.decode(blob),
+                                      err_msg=name)
+        ours = imageio.decode_image_bgr(blob)
+        assert ours.shape == (h, w, 3) and ours.dtype == np.uint8, name
+        np.testing.assert_array_equal(ours, jio.decode_image_bgr(blob), err_msg=name)
+
+
+@pytest.mark.parametrize("layout", ["rgb", "gray", "rgba", "gray_alpha"])
+def test_decode_image_bgr_png_matches_jax(layout):
+    rng = np.random.default_rng(12)
+    img = rng.integers(0, 256, {"rgb": (9, 14, 3), "gray": (9, 14), "rgba": (9, 14, 4),
+                                "gray_alpha": (9, 14, 2)}[layout], dtype=np.uint8)
+    blob = jio.encode_png(img)
+    np.testing.assert_array_equal(imageio.decode_image_bgr(blob), jio.decode_image_bgr(blob))
+
+
+def test_decode_image_bgr_refusals(tmp_path):
+    """Formats not ported (JPEG, GIF, TIFF) name ROADMAP.md A6; a
+    truncated or corrupt stream is a ValueError, as in JAX."""
+    for blob in (b"\xff\xd8\xff\xe0\x00\x10JFIF", b"GIF89a\x01\x00", b"II*\x00\x08\x00",
+                 b"not an image"):
+        with pytest.raises(ValueError, match="ROADMAP.md A6"):
+            imageio.decode_image_bgr(blob)
+    img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), dtype=np.uint8)
+    for blob in (formats.encode_bmp(img)[:60], formats.encode_bmp(img)[:40],
+                 formats.encode_pnm(img)[:30], formats.encode_pam(img)[:70], b"P7\nWIDTH 4\n",
+                 b"P5\n4 4\n255\n\x00"):
+        for dec in (imageio.decode_image_bgr, jio.decode_image_bgr):
+            with pytest.raises(ValueError):
+                dec(blob)
+    path = tmp_path / "x.jpg"
+    path.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF")
+    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+        imageio.imread(str(path))
+
+
+def test_imread_and_probe_size_read_the_ported_formats(tmp_path):
+    img = np.random.default_rng(4).integers(0, 256, (12, 19, 3), dtype=np.uint8)  # BGR
+    rgb = img[..., ::-1]
+    for name, blob in (("a.bmp", formats.encode_bmp(rgb)), ("a.ppm", formats.encode_pnm(rgb)),
+                       ("a.pam", formats.encode_pam(rgb)), ("a.png", imageio.encode_png_bgr(img))):
+        path = tmp_path / name
+        path.write_bytes(blob)
+        np.testing.assert_array_equal(imageio.imread(str(path)), img)
+        assert imageio.probe_size(str(path)) == (12, 19)
