@@ -24,7 +24,8 @@ its restore), the blind estimators (models/estimate.py on B6 natural:
 motion at UHD and at 4096x6144, whose cepstrum is 4096x8192, disk and
 gaussian at 2048^2, the noise K) and the PSF family on the CLI
 (--psf-type gaussian / disk, --psf-file); the HTTP server with its
-dynamic batcher under tools/serve_slo.py's load. Phases, each printing its own
+dynamic batcher under tools/serve_slo.py's load; the sharded restore on rows
+and (batch, rows) meshes laid on the one card. Phases, each printing its own
 lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds), each
@@ -156,7 +157,25 @@ lines; any failure exits non-zero:
              and B6 natural must have launched ("serve" in each kernel's
              launches_by_path). Beside them: the pow2 bucket's cost (a
              stack of 5 against 8) and the host's decode of each body and
-             PNG encode of each response, without the server.
+             PNG encode of each response, without the server;
+  7. sharded the multi-device path (parallel/) on the one card, every
+             shard of a mesh on it (check_sharded): the 2048^2 frame
+             through ShardedWienerPipeline on rows meshes of 1, 2, 3, 4
+             and 8 shards (3: a layout-padded 2049-wide mesh), each once
+             with the counters reset (fft_rows, B6 in revorder, 6 a
+             shard; none of B1, B2, B7, B4/B5, B10, and the exact count
+             rules out B3), against the single-card kernel route and its
+             own plain run on the card (1e-4 planes, 1 count) and the
+             oracle at the inf tier, then its device busy
+             (torch.profiler), events, host enqueue and the exchanges'
+             share of busy on the resident frame; profile_phases_sharded
+             on 4 shards (B6 natural, 6 a shard); batch8 on a (2, 4) mesh
+             (images and planes against BatchedWienerPipeline), RL x10
+             with the taper and UHD --pad smooth (every launch with cross
+             levels) on 4 shards against the single route, and the tiled
+             4096x6144 frame on (2, 2) against phase 3's host stitch;
+             the CLI with --mode sharded --devices 4 at 640x330 (the
+             oracle at the inf tier).
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
@@ -277,6 +296,16 @@ TOL_EST_CONF_REL = 1e-3       # an estimator's confidence vs its plain run
 SERVE_WARM = ("330x640", "782x1920", "4096x6144@tile1024")
 SERVE_KERNELS = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "spectral_conv_t",
                  "lab_l_sum_partials", "wb_encode_u8", "fft_rows_natural")
+# phase 7, sharded (parallel/): the headline frame on rows meshes of these
+# sizes, every shard on the one card; the restore's B6 launches a shard
+# (H, the image, the inverse: 2 each); the kernels the path must not
+# launch: B1, B2 (both modes), B7, B4/B5, B10. B3 shares "fft_rows" with
+# B6, so the exact count of fft_rows rules it out.
+SHARD_COUNTS = (1, 2, 3, 4, 8)
+SHARD_B6_WIENER = 6
+SHARD_FORBID = ("fft_rows_t", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
+                "lab_l_sum_partials", "wb_encode_u8", "wiener_spectral_rows")
+SHARD_TRACE_ITERS = 5
 
 
 def log(msg: str) -> None:
@@ -2234,7 +2263,7 @@ def check_tiled(torch, np, big, frame, seed):
                                           uint8_max_in_bands=d_band,
                                           band_share=float(band.mean())),
                cli_anchor=[ln for ln in lines if "tier=gpu" in ln])
-    return res, {"tiled_4096x6144_tile1024": counts}
+    return res, {"tiled_4096x6144_tile1024": counts}, out_h
 
 
 def _angle_diff(a: float, b: float) -> float:
@@ -2683,6 +2712,183 @@ def check_serve(torch, np, seed):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the sharded restore (parallel/: make_mesh, ShardedWienerPipeline,
+# the (batch, rows) mesh, tiled x mesh) on the one card
+
+
+def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
+    """Phase 7: the sharded path on the one H100, every mesh's shards on
+    its card. The headline frame (PSF(50, 30), K 0.01, Wiener, white
+    balance) through ShardedWienerPipeline on rows meshes of SHARD_COUNTS
+    shards: once with the counters reset (fft_rows 6 a shard, none of
+    SHARD_FORBID), against the single-card kernel route and its own
+    plain run on the card (TOL_SLICE_PLANES, TOL_U8) and the oracle at
+    the inf tier; device busy (torch.profiler), events, host enqueue and
+    the exchanges' share of busy on the resident frame. Then batch8 on a
+    (2, 4) mesh (images and planes against BatchedWienerPipeline), RL x10
+    with the taper and UHD --pad smooth on 4 shards (against the single
+    route), and the tiled 4096x6144 frame on (2, 2) against the
+    single-card host stitch (TOL_U8). Returns (results, counts)."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+    from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS
+    from fft_restoration_tpu_torch.models.tiled import (
+        tile_grid, tiled_restore_image, validate_tile_params,
+    )
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh, make_mesh2d
+    from fft_restoration_tpu_torch.parallel.sharded_pipeline import (
+        profile_phases_sharded, sharded_batched_restore_images, sharded_batched_restore_planes,
+    )
+    from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+    t_phase = time.perf_counter()
+    res, counts = {}, {}
+
+    def drive_sharded(name, fn, want):
+        out, c = drive(torch, name, fn, expect=("fft_rows",), forbid=SHARD_FORBID)
+        got = {k: c[k] for k in want}
+        if got != want:
+            fail(f"{name}: launches {got}, expected {want}")
+        counts[name] = c
+        return out
+
+    def compare(name, planes, out, planes_ref, out_ref, what):
+        """planes and/or (None skips one) the uint8 output against a reference."""
+        dp = float(np.abs(planes - planes_ref).max()) if planes is not None else None
+        du = u8_max(np, out, out_ref) if out is not None else None
+        held = [f"planes max abs {dp:.3e} (tol {TOL_SLICE_PLANES})"] if dp is not None else []
+        held += [f"uint8 max {du} (tol {TOL_U8})"] if du is not None else []
+        log(f"{name} vs {what}: {', '.join(held)}")
+        if not ((dp is None or dp <= TOL_SLICE_PLANES) and (du is None or du <= TOL_U8)):
+            fail(f"{name} disagrees with {what}")
+        return dict(planes_max_abs=dp, uint8_max=du)
+
+    def timed(run):
+        ev = cuda_ms(torch, run, iters)
+        enq = host_enqueue_ms(torch, run, iters)
+        tr = device_trace(run, (), n_iters=SHARD_TRACE_ITERS)
+        busy = tr.device_total_ms
+        if not busy > 0.0:
+            fail("sharded: no device time in the trace")
+        exch = tr.phases_ms.get("exchange", 0.0)
+        return dict(event_ms_per_frame=ev, host_enqueue_ms_per_frame=enq,
+                    device_busy_ms_per_frame=busy, idle_share=1.0 - busy / ev,
+                    exchange_ms_per_frame=exch, exchange_share_of_busy=exch / busy,
+                    phases_device_ms=dict(tr.phases_ms))
+
+    single = WienerDeblurPipeline(device="cuda")
+    out_1, planes_1 = single.restore_with_planes(frame, 50, 30.0, 0.01)
+    x1 = single.to_device(frame)
+    res["single_2048sq"] = timed(lambda: single.run(x1, 50, 30.0, 0.01))
+    t0 = time.perf_counter()
+    oracle = restore_frame_channels(frame, 50, 30.0, 0.01)
+    log(f"sharded: the 2048x2048 oracle ({time.perf_counter() - t0:.1f} s); single-card route "
+        f"busy {res['single_2048sq']['device_busy_ms_per_frame']:.4f} ms/frame, events "
+        f"{res['single_2048sq']['event_ms_per_frame']:.4f}")
+    for d in SHARD_COUNTS:
+        name = f"sharded_rows{d}_2048sq"
+        pipe = ShardedWienerPipeline(mesh=make_mesh(d))
+        pipe.restore(frame, 50, 30.0, 0.01)  # warm: the allocator's blocks
+        out, planes = drive_sharded(
+            name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
+            dict(fft_rows=SHARD_B6_WIENER * d, fft_rows_natural=0, mixed_radix=0))
+        row = dict(mesh=pipe.mesh.describe(),
+                   vs_single=compare(name, planes, out, planes_1, out_1, "the single-card route"))
+        out_p, planes_p = ShardedWienerPipeline(mesh=make_mesh(d), ops=PLAIN_OPS
+                                                ).restore_with_planes(frame, 50, 30.0, 0.01)
+        row["vs_plain"] = compare(name, planes, out, planes_p, out_p, "its plain run on the card")
+        rep = channels_equal(planes, oracle, "inf")
+        log(f"{name} vs the oracle: {rep}")
+        if not rep.passed:
+            fail(f"{name} fails the inf tier against the oracle")
+        row["oracle_inf"] = str(rep)
+        x = pipe.to_device(frame)
+        row.update(timed(lambda: pipe.run(x, 50, 30.0, 0.01)))
+        log(f"sharded {row['mesh']}: device busy {row['device_busy_ms_per_frame']:.4f} ms/frame, "
+            f"events {row['event_ms_per_frame']:.4f}, host enqueue "
+            f"{row['host_enqueue_ms_per_frame']:.4f}, exchanges "
+            f"{row['exchange_ms_per_frame']:.4f} ms = {row['exchange_share_of_busy']:.3f} of "
+            f"busy; phases "
+            f"{json.dumps({k: round(v, 4) for k, v in row['phases_device_ms'].items()})}")
+        res[name] = row
+
+    # profile_phases_sharded (the CLI's --profile on the sharded path): the
+    # natural-order sharded_fft2d, B6 natural, 2 a shard a transform (the
+    # image's 3 planes, the PSF, the inverse)
+    planes_ph, prof = drive_sharded(
+        "sharded_phases_rows4", lambda: profile_phases_sharded(frame, 50, 30.0, 0.01,
+                                                               mesh=make_mesh(4)),
+        dict(fft_rows=3 * 2 * 4, fft_rows_natural=3 * 2 * 4))
+    res["sharded_phases_rows4"] = dict(
+        phases_ms=dict(prof.accum_ms),
+        vs_single=compare("profile_phases_sharded on 4 shards", planes_ph, None, planes_1, None,
+                          "the single-card route"))
+
+    # batch8 2048^2 on a (2, 4) mesh: 2 rows groups of 4 frames
+    mesh = make_mesh2d(2, 4)
+    psf = make_psf("motion", 50, 30.0, "cuda")
+    out_b = drive_sharded("sharded_batch8_2x4", lambda: sharded_batched_restore_images(
+        stack8, psf, 0.01, mesh), dict(fft_rows=SHARD_B6_WIENER * mesh.size))
+    batched = BatchedWienerPipeline(device="cuda")
+    planes_b = sharded_batched_restore_planes(np.ascontiguousarray(stack8.transpose(0, 3, 1, 2)),
+                                              psf, 0.01, mesh)
+    res["sharded_batch8_2x4"] = dict(mesh=mesh.describe(), vs_single=compare(
+        "batch8 on (2, 4)", planes_b, out_b, batched.restore_planes(stack8, 50, 30.0, 0.01),
+        batched.restore(stack8, 50, 30.0, 0.01), "BatchedWienerPipeline"))
+
+    # RL x10 with the taper, and UHD --pad smooth, on 4 shards
+    for name, opts, frm, want in (
+            ("sharded_rows4_rl_taper_2048sq", dict(filter_name="rl", rl_iters=RL_ITERS,
+                                                   edgetaper=True), frame,
+             dict(fft_rows=4 * (2 + 4 + 8 * RL_ITERS), mixed_radix=0)),
+            ("sharded_rows4_uhd_smooth", dict(pad_mode="smooth"), uhd,
+             dict(fft_rows=4 * SHARD_B6_WIENER, mixed_radix=4 * SHARD_B6_WIENER))):
+        pipe = ShardedWienerPipeline(mesh=make_mesh(4), **opts)
+        out, planes = drive_sharded(name, lambda: pipe.restore_with_planes(frm, 50, 30.0, 0.01),
+                                    want)
+        out_s, planes_s = WienerDeblurPipeline(device="cuda", **opts).restore_with_planes(
+            frm, 50, 30.0, 0.01)
+        res[name] = dict(vs_single=compare(name, planes, out, planes_s, out_s,
+                                           "the single-card route"))
+
+    # the tiled frame on a (2, 2) mesh: per chunk, each rows group's tiles
+    # tapered (4 B6 a shard) and restored (6), against the host stitch
+    mesh = make_mesh2d(2, 2)
+    overlap, core = validate_tile_params(TILED_TILE, None, TILED_PSF)
+    chunks = -(-len(tile_grid(big.shape[0], TILED_TILE, core, overlap)[0])
+               * len(tile_grid(big.shape[1], TILED_TILE, core, overlap)[0]) // TILE_CHUNK)
+    t0 = time.perf_counter()
+    out_t = drive_sharded("sharded_tiled_2x2", lambda: tiled_restore_image(
+        big, TILED_PSF, 30.0, 0.01, tile=TILED_TILE, mesh=mesh),
+        dict(fft_rows=chunks * mesh.size * (4 + SHARD_B6_WIENER)))
+    res["sharded_tiled_2x2"] = dict(mesh=mesh.describe(), seconds=time.perf_counter() - t0,
+                                    vs_host_stitch=compare("tiled 4096x6144 on (2, 2)", None,
+                                                           out_t, None, tiled_host,
+                                                           "the single-card host stitch"))
+
+    # the CLI's --mode sharded on a 640x330 frame, verified against the oracle
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        imwrite(png, blurred_frame(np, *SMALL_HW, 7))
+        rc, text = cli_run([png, "50", "30", "--mode", "sharded", "--devices", "4", "--tier",
+                            "inf", "-o", os.path.join(tmp, "out.png")])
+    lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+    log(f"CLI 640x330 --mode sharded --devices 4 --tier inf: exit {rc}; {lines}")
+    if rc != 0 or "[Success] tier=inf" not in text or "rows=4 over 1 card" not in text:
+        fail("the CLI's sharded mode fails the inf tier against the oracle")
+    res["cli_640x330_rows4"] = lines
+    res["seconds"] = time.perf_counter() - t_phase
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2773,7 +2979,7 @@ def main() -> int:
     counts.update(smooth_counts)
     generic, generic_counts = check_generic(torch, np, frame, args.seed)
     counts.update(generic_counts)
-    tiled, tiled_counts = check_tiled(torch, np, big, frame, args.seed)
+    tiled, tiled_counts, tiled_host = check_tiled(torch, np, big, frame, args.seed)
     counts.update(tiled_counts)
     estimates, est_counts, est_timed = check_estimate(torch, np, uhd, args.seed)
     counts.update(est_counts)
@@ -2799,6 +3005,12 @@ def main() -> int:
     log(f"phase 5 measurement layer: {time.perf_counter() - t0:.1f} s")
 
     serving, counts["serve"] = check_serve(torch, np, args.seed)
+
+    t0 = time.perf_counter()
+    sharded, sharded_counts = check_sharded(torch, np, frame, stacks["batch8_2048sq"], uhd, big,
+                                            tiled_host, args.iters)
+    counts.update(sharded_counts)
+    log(f"phase 7 sharded: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -2810,7 +3022,7 @@ def main() -> int:
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
               "perf_ab": perf_ab, "measurement_layer": twin, "tiled": tiled,
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
-              "tiled_estimate_timing": tiled_estimate_timing}
+              "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

@@ -25,7 +25,9 @@ tiled restore of frames of any size (models.tiled.tiled_restore_image),
 with the CLI's --psf-type, --psf-file, --estimate-psf, --auto-K, --tile
 and --tile-overlap; serving: the HTTP server with its dynamic batcher
 (serve.py), the warm-up tool (warmup.py) and the load tool
-tools/serve_slo.py.
+tools/serve_slo.py; the multi-device path (parallel/: the mesh, the
+sharded FFT, ShardedWienerPipeline, the (batch, rows) mesh and tiled x
+mesh) with the CLI's --mode sharded|oracle and --devices.
 The host layer (host/: serial oracle, PNG, BMP, PNM and PAM I/O, verify
 tiers, padding, blurred test frames) is the port's own numpy, so the package needs
 nothing of fft_restoration_tpu.
@@ -40,7 +42,7 @@ __all__ = [
     "WienerDeblurPipeline", "BatchedWienerPipeline", "psf_grid_sweep", "deblur_image",
     "make_psf", "motion_blur_kernel", "richardson_lucy_planes", "edge_taper_planes",
     "estimate_motion_psf", "estimate_noise_K", "tiled_restore_image", "load_psf_file",
-    "__version__",
+    "ShardedWienerPipeline", "__version__",
 ]
 
 
@@ -73,6 +75,10 @@ def __getattr__(name):
         from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
 
         return tiled_restore_image
+    if name == "ShardedWienerPipeline":
+        from fft_restoration_tpu_torch.parallel.sharded_pipeline import ShardedWienerPipeline
+
+        return ShardedWienerPipeline
     if name == "load_psf_file":
         from fft_restoration_tpu_torch.host.psf_file import load_psf_file
 

@@ -1,11 +1,11 @@
 """Command-line entry point of the port: restore an image, or a
 directory of images, on the GPU.
 
-Counterpart of fft_restoration_tpu/cli.py in its `--mode jit` form.
-Contract kept: `<img-path> <psf-length> <psf-angle>` positionals,
-verification of the restored planes against the serial oracle at a
-reference tier with the `[Speedup]` line, and the exit codes 1 (read
-error), 2 (bad arguments), 3 (verification failure).
+Counterpart of fft_restoration_tpu/cli.py. Contract kept: `<img-path>
+<psf-length> <psf-angle>` positionals, verification of the restored
+planes against the serial oracle at a reference tier with the
+`[Speedup]` line, and the exit codes 1 (read error), 2 (bad arguments),
+3 (verification failure).
 
     python -m fft_restoration_tpu_torch img.png 50 30 -o out.png
     python -m fft_restoration_tpu_torch frames/ 50 30 -o out_dir/
@@ -59,6 +59,17 @@ span, the fphase_* breakdown and the top kernels from the device's own
 timeline. On --device cpu the trace has no device rows, and the report
 says "not measured".
 
+--mode picks the implementation at run time, as in the JAX CLI: 'jit'
+(default) the single-card pipelines above; 'sharded' the row-sharded
+mesh (parallel/: ShardedWienerPipeline on make_mesh(--devices), default
+one shard a card; a directory's size groups on a (batch, rows) mesh,
+batch 2 when --devices is even and at least 4; --tile on the same 2D
+mesh), verified against the oracle as 'jit' is, its mesh layout printed
+(e.g. "rows=4 over 1 card": a mesh larger than the machine lays several
+shards on one card); 'oracle' the serial numpy restore itself
+(host/oracle.restore_image: wiener, pow2, no device work; a directory
+runs 'jit', as in the JAX CLI).
+
 Options of the JAX CLI that are not ported yet are refused with the
 ROADMAP.md item that will bring them.
 """
@@ -87,11 +98,10 @@ IMAGE_EXTENSIONS = (
 BATCH_CHUNK_BYTES = 8 << 30
 BATCH_FRAME_PLANES = 12
 
+MODES = ("oracle", "jit", "sharded")
 # flags of the JAX CLI that wait for a later slice -> ROADMAP.md item
 NOT_PORTED = {
-    "--mode": "A6 (oracle) and A14 (sharded)",
     "--fft-engine": "A3",
-    "--devices": "A14",
     "--mxu-precision": "A5",
     "--stage-dtype": "A5",
     "--reference": "A6",
@@ -118,6 +128,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("psf_angle", type=float, help="motion blur angle in degrees")
     p.add_argument("-o", "--output", default=None, help="output PNG path")
     p.add_argument("-K", type=float, default=0.01, help="Wiener K (default 0.01)")
+    p.add_argument(
+        "--mode", choices=MODES, default="jit",
+        help="'jit' = the single-card pipelines (default); 'sharded' = the row-sharded "
+        "mesh (--devices shards); 'oracle' = the serial numpy restore",
+    )
+    p.add_argument(
+        "--devices", type=int, default=None, metavar="N",
+        help="--mode sharded: shards of the mesh (default one a card; a mesh larger than "
+        "the machine lays several shards on one card)",
+    )
     p.add_argument(
         "--device", default="cuda",
         help="'cuda' (the kernels, default) or 'cpu' (the plain PyTorch versions)",
@@ -240,21 +260,22 @@ def main(argv=None) -> int:
         print(f"[Error] --wb-stride must be >= 1 (got {args.wb_stride})")
         return 2
 
-    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
+    if args.devices is not None and args.devices < 1:
+        print(f"[Error] --devices must be >= 1, got {args.devices}")
+        return 2
+
+    from fft_restoration_tpu_torch.host.imageio import imread
     from fft_restoration_tpu_torch.host.oracle import normalize_over_frame, restore_frame_channels
-    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.models.pipeline import pad_extents
 
     total_start = time.perf_counter()
     try:
-        pipe = WienerDeblurPipeline(
-            args.device, filter_name=args.filter, pad_mode=args.pad,
-            white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
-            rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
-            psf_type=args.psf_type,
-        )
+        pipe = _make_pipeline(args)
     except (NotImplementedError, RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
         return 2
+    if args.mode == "sharded":
+        print(f"[INFO] sharded mesh: {pipe.mesh.describe()}")
     if os.path.isdir(args.img_path):
         return _run_batch(args, pipe)
 
@@ -277,12 +298,30 @@ def main(argv=None) -> int:
         print(f"[INFO] auto-K: noise sigma {sigma:.4f} -> K {k:g} (was {args.K:g}); "
               "verification runs at the estimated K")
         args.K = k
-    hp, wp, _, _ = pipe.pad(img.shape[0], img.shape[1])
+    if args.pad == "smooth" and args.mode == "oracle":
+        print("[INFO] oracle mode implements the reference's pow2 pad contract; --pad smooth "
+              "is ignored")
+        args.pad = "pow2"
+    hp, wp, _, _ = pad_extents(img.shape[0], img.shape[1], args.pad)
     if args.psf_length > min(hp, wp):
         print(f"[Error] psf-length {args.psf_length} exceeds the padded image ({hp}x{wp})")
         return 2
     if args.tile:
+        if args.mode == "oracle":
+            print("[Error] --tile supports --mode jit or sharded (the oracle is the untiled "
+                  "parity contract)")
+            return 2
         return _run_tiled(args, pipe, img, total_start)
+    if args.mode == "oracle":
+        from fft_restoration_tpu_torch.host.oracle import restore_image
+
+        if args.filter != "wiener":
+            print(f"[INFO] oracle mode implements wiener only; ignoring --filter {args.filter}")
+        t0 = time.perf_counter()
+        out = restore_image(img, args.psf_length, args.psf_angle, args.K, args.edgetaper,
+                            args.psf_type)
+        print(f"Deblurring 3 channels took(oracle): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        return _write(args, out, total_start)
 
     # warm-up run (kernel build, PSF spectrum), then the timed run
     pipe.restore(img, args.psf_length, args.psf_angle, args.K)
@@ -291,8 +330,9 @@ def main(argv=None) -> int:
     out, ours = pipe.restore_with_planes(img, args.psf_length, args.psf_angle, args.K)
     t1 = time.perf_counter()
     mode_ms = (t1 - t0) * 1e3
-    print(f"Deblurring 3 channels took(torch-{pipe.device.type}, {args.fft_backend}): "
-          f"{mode_ms:.2f} ms")
+    where = (f"sharded {pipe.mesh.describe()}" if args.mode == "sharded"
+             else f"torch-{pipe.device.type}")
+    print(f"Deblurring 3 channels took({where}, {args.fft_backend}): {mode_ms:.2f} ms")
     if args.profile:
         _profile(args, pipe, img)
 
@@ -318,12 +358,46 @@ def main(argv=None) -> int:
         print(f"[Speedup] {serial_ms / mode_ms:.2f}x")
         if not report.passed:
             return 3
+    return _write(args, out, total_start)
+
+
+def _write(args, out, total_start) -> int:
+    from fft_restoration_tpu_torch.host.imageio import imwrite
 
     out_path = args.output or args.img_path.rsplit(".", 1)[0] + "_restored_torch.png"
     imwrite(out_path, out)
     print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
     print(f"[INFO] wrote {out_path}")
     return 0
+
+
+def _make_pipeline(args):
+    """The single-frame pipeline of args.mode: ShardedWienerPipeline on
+    make_mesh(--devices) for 'sharded', else WienerDeblurPipeline (a
+    directory in 'oracle' mode runs it, as the JAX CLI does)."""
+    opts = dict(filter_name=args.filter, pad_mode=args.pad,
+                white_balance=not args.no_white_balance, rl_iters=args.iters,
+                edgetaper=args.edgetaper, fft_backend=args.fft_backend, psf_type=args.psf_type)
+    if args.mode == "sharded":
+        from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh
+
+        return ShardedWienerPipeline(mesh=make_mesh(args.devices, device=args.device), **opts)
+    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
+
+    return WienerDeblurPipeline(args.device, wb_stats_stride=args.wb_stride, **opts)
+
+
+def _mesh2d(args, pipe):
+    """--mode sharded's (batch, rows) mesh for a directory's size groups
+    and for tiles: batch 2 when the shard count is even and at least 4
+    (the JAX CLI's rule); None in the other modes."""
+    if args.mode != "sharded":
+        return None
+    from fft_restoration_tpu_torch.parallel import make_mesh2d
+
+    n_dev = pipe.mesh.size
+    n_b = 2 if n_dev % 2 == 0 and n_dev >= 4 else 1
+    return make_mesh2d(n_b, n_dev // n_b, device=args.device)
 
 
 def _apply_psf_estimate(args, img, device) -> int:
@@ -371,17 +445,19 @@ def _apply_psf_estimate(args, img, device) -> int:
     return 0
 
 
-def _tile_kwargs(args, pipe) -> dict:
+def _tile_kwargs(args, pipe, mesh) -> dict:
     return dict(tile=args.tile, overlap=args.tile_overlap, fft_backend=args.fft_backend,
                 filter_name=args.filter, rl_iters=args.iters, psf_type=args.psf_type,
-                white_balance=not args.no_white_balance, device=pipe.device)
+                white_balance=not args.no_white_balance, device=pipe.device, mesh=mesh)
 
 
 def _run_tiled(args, pipe, img, total_start) -> int:
     """--tile on one image: the tiled restore, then (--filter wiener) the
     per-tile oracle anchor: the grid's center tile restored alone with
     the edge taper, held to the tapered oracle at the gpu tier (the
-    tiled frame itself has no oracle). Returns the exit code."""
+    tiled frame itself has no oracle). --mode sharded restores the tiles
+    over the (batch, rows) mesh (models/tiled.py, host stitch). Returns
+    the exit code."""
     from fft_restoration_tpu_torch.host.imageio import imwrite
     from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
     from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
@@ -398,15 +474,17 @@ def _run_tiled(args, pipe, img, total_start) -> int:
                          ("--profile", bool(args.profile))):
         if active:
             print(f"[INFO] {flag} is not supported in tiled mode; ignored")
+    mesh = _mesh2d(args, pipe)
+    where = f"sharded {mesh.describe()}" if mesh is not None else f"torch-{pipe.device.type}"
     t0 = time.perf_counter()
     try:
         overlap, core = validate_tile_params(args.tile, args.tile_overlap, args.psf_length)
         out = tiled_restore_image(img, args.psf_length, args.psf_angle, args.K,
-                                  **_tile_kwargs(args, pipe))
+                                  **_tile_kwargs(args, pipe, mesh))
     except ValueError as e:
         print(f"[Error] {e}")
         return 2
-    print(f"Deblurring 3 channels took(tiled, torch-{pipe.device.type}, {args.fft_backend}): "
+    print(f"Deblurring 3 channels took(tiled, {where}, {args.fft_backend}): "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
     print("[INFO] tiled mode is an overlap-discard approximation of the global restore "
           "(models/tiled.py); whole-frame oracle verification not applicable")
@@ -430,23 +508,31 @@ def _run_tiled(args, pipe, img, total_start) -> int:
         print(report)
         if not report.passed:
             return 3
-    out_path = args.output or args.img_path.rsplit(".", 1)[0] + "_restored_torch.png"
-    imwrite(out_path, out)
-    print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
-    print(f"[INFO] wrote {out_path}")
-    return 0
+    return _write(args, out, total_start)
 
 
 def _profile(args, pipe, img) -> None:
     """--profile: the device timeline of the restore at the options given
-    ('trace'), or profile_phases' six host-timed phases ('phases', the
-    wiener filter only, as in the JAX CLI)."""
+    ('trace'), or the six host-timed phases ('phases', the wiener filter
+    only, as in the JAX CLI: profile_phases, or profile_phases_sharded on
+    the sharded pipeline's mesh)."""
     if args.profile == "trace":
         from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
         x = pipe.to_device(img)
         rep = device_trace(pipe.run, (x, args.psf_length, args.psf_angle, args.K))
         print(rep.report())
+    elif args.filter == "wiener" and args.mode == "sharded":
+        from fft_restoration_tpu_torch.parallel.sharded_pipeline import profile_phases_sharded
+
+        try:
+            _, prof = profile_phases_sharded(img, args.psf_length, args.psf_angle, args.K,
+                                             mesh=pipe.mesh, fft_backend=args.fft_backend,
+                                             psf_type=args.psf_type)
+        except ValueError as e:
+            print(f"[INFO] --profile phases: {e}")
+            return
+        print(prof.report())
     elif args.filter == "wiener":
         from fft_restoration_tpu_torch.models.pipeline import profile_phases
 
@@ -482,6 +568,7 @@ def _run_batch(args, single) -> int:
     """Directory mode: restore every image of args.img_path with the shared
     PSF; returns the exit code (1 when no image could be read)."""
     from fft_restoration_tpu_torch.host.imageio import probe_size
+    from fft_restoration_tpu_torch.models.pipeline import pad_extents
 
     print("[INFO] directory input runs the batched pipeline; frames are not "
           "verified against the serial oracle")
@@ -522,14 +609,7 @@ def _run_batch(args, single) -> int:
     batched = None
     for (h, w), group in groups.items():
         if len(group) > 1 and batched is None:
-            from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
-
-            batched = BatchedWienerPipeline(
-                single.device, filter_name=args.filter, pad_mode=args.pad,
-                white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
-                rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
-                psf_type=args.psf_type,
-            )
+            batched = _stack_restorer(args, single)
         if args.auto_K:
             # one estimate per size group, from its first readable frame
             from fft_restoration_tpu_torch.host.imageio import imread
@@ -542,7 +622,7 @@ def _run_batch(args, single) -> int:
                 skipped += len(group)
                 continue
             print(f"[INFO] auto-K[{w}x{h}]: noise sigma {sigma:.4f} -> K {args.K:g}")
-        hp, wp, _, _ = single.pad(h, w)
+        hp, wp, _, _ = pad_extents(h, w, args.pad)
         chunk = max(2, BATCH_CHUNK_BYTES // (hp * wp * 4 * BATCH_FRAME_PLANES))
         for i in range(0, len(group), chunk):
             done, bad = _restore_group(args, group[i:i + chunk], dst, single, batched)
@@ -564,11 +644,18 @@ def _run_tiled_batch(args, single, paths, dst, out_dir) -> int:
     from fft_restoration_tpu_torch.models.estimate import estimate_noise_K
     from fft_restoration_tpu_torch.models.tiled import tiled_restore_image, validate_tile_params
 
+    if args.mode == "oracle":
+        print("[Error] --tile supports --mode jit or sharded (the oracle is the untiled "
+              "parity contract)")
+        return 2
     try:
         validate_tile_params(args.tile, args.tile_overlap, args.psf_length)
     except ValueError as e:
         print(f"[Error] {e}")
         return 2
+    mesh = _mesh2d(args, single)
+    if mesh is not None:
+        print(f"[INFO] tiles on the mesh: {mesh.describe()}")
     t0 = time.perf_counter()
     n_done = skipped = 0
     for p in paths:
@@ -577,7 +664,7 @@ def _run_tiled_batch(args, single, paths, dst, out_dir) -> int:
             if args.auto_K:
                 _, args.K = estimate_noise_K(frame, device=single.device)
             out = tiled_restore_image(frame, args.psf_length, args.psf_angle, args.K,
-                                      **_tile_kwargs(args, single))
+                                      **_tile_kwargs(args, single, mesh))
             imwrite(dst[p], out)
             n_done += 1
         except (OSError, ValueError) as e:
@@ -589,10 +676,45 @@ def _run_tiled_batch(args, single, paths, dst, out_dir) -> int:
     return 0 if n_done else 1
 
 
+def _stack_restorer(args, single):
+    """The restore of a directory's same-size stacks, (B, H, W, 3) uint8 ->
+    restored uint8: BatchedWienerPipeline, or in --mode sharded
+    sharded_batched_restore_images on the (batch, rows) mesh of _mesh2d
+    (the whole pipeline on the mesh, per-frame white balance). K is read
+    at each call (--auto-K sets it per size group)."""
+    if args.mode != "sharded":
+        from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
+
+        pipe = BatchedWienerPipeline(
+            single.device, filter_name=args.filter, pad_mode=args.pad,
+            white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
+            rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
+            psf_type=args.psf_type,
+        )
+        return lambda stack: pipe.restore(stack, args.psf_length, args.psf_angle, args.K)
+
+    from fft_restoration_tpu_torch.models.pipeline import pad_extents
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.parallel.sharded_pipeline import sharded_batched_restore_images
+
+    mesh = _mesh2d(args, single)
+    print(f"[INFO] size groups on the mesh: {mesh.describe()}")
+    psf = make_psf(args.psf_type, args.psf_length, args.psf_angle, single.device)
+
+    def restore(stack):
+        hp, wp, rad_h, rad_w = pad_extents(stack.shape[1], stack.shape[2], args.pad)
+        return sharded_batched_restore_images(
+            stack, psf, args.K, mesh, fft_backend=args.fft_backend, filter_name=args.filter,
+            pad_hw=(hp, wp), radices_hw=(rad_h, rad_w), edgetaper=args.edgetaper,
+            rl_iters=args.iters, white_balance=not args.no_white_balance)
+
+    return restore
+
+
 def _restore_group(args, group, dst, single, batched) -> tuple:
     """Restore one chunk of same-size frames: two or more through the
-    batched pipeline, one through the single-frame pipeline. Returns
-    (frames written, frames skipped)."""
+    batched restore (_stack_restorer), one through the single-frame
+    pipeline. Returns (frames written, frames skipped)."""
     from fft_restoration_tpu_torch.host.imageio import imread_batch, imwrite
 
     stack, read, failed = imread_batch(group)
@@ -602,7 +724,7 @@ def _restore_group(args, group, dst, single, batched) -> tuple:
         return 0, len(failed)
     try:
         if len(read) > 1:
-            outs = batched.restore(stack, args.psf_length, args.psf_angle, args.K)
+            outs = batched(stack)
         else:
             outs = single.restore(stack[0], args.psf_length, args.psf_angle, args.K)[None]
     except ValueError as e:

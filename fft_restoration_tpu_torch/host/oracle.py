@@ -227,3 +227,18 @@ def restore_frame_channels(img_bgr: np.ndarray, psf_length: int, psf_angle: floa
     psf = make_psf_oracle(psf_type, psf_length, psf_angle)
     return restore_channels(np.moveaxis(imgf, -1, 0), psf, K, edgetaper=edgetaper,
                             pad_to=pad_to)
+
+
+def restore_image(img_bgr: np.ndarray, psf_length: int, psf_angle: float, K: float = 0.01,
+                  edgetaper: bool = False, psf_type="motion") -> np.ndarray:
+    """The serial whole-frame restore (JAX oracle/serial.restore_image):
+    uint8 BGR (H, W, 3) -> restored uint8 BGR: the oracle's planes,
+    merged, white balanced in Lab against the original frame
+    (host/color.py), times 255 clipped and truncated."""
+    from fft_restoration_tpu_torch.host.color import apply_white_balance, bgr_to_lab, lab_to_bgr
+
+    img = np.asarray(img_bgr, np.float32) / np.float32(255.0)
+    merged = np.moveaxis(restore_frame_channels(img_bgr, psf_length, psf_angle, K, edgetaper,
+                                                None, psf_type), 0, -1)
+    bgr = lab_to_bgr(apply_white_balance(bgr_to_lab(merged), bgr_to_lab(img)))
+    return np.clip(bgr * np.float32(255.0), 0, 255).astype(np.uint8)

@@ -36,8 +36,12 @@ Two paths, as in JAX:
   normalized and white-balanced (host/color.py), for frames whose
   resident planes would crowd the card.
 
-The tiled x mesh branch of JAX (`mesh=`) waits for the multi-device port
-(ROADMAP.md A14).
+tiled x mesh (`mesh=`, a parallel.mesh Mesh; implies the host stitch):
+each chunk's tile stack is restored by
+`parallel.sharded_pipeline.sharded_batched_restore_planes` (per-tile
+taper, raw restore: normalize=False) over the mesh, tiles data-parallel
+over its 'batch' axis and each tile's transforms row-sharded over
+'rows'; stitched, normalized and white-balanced on the host as above.
 """
 
 from __future__ import annotations
@@ -154,9 +158,10 @@ def _restore_tiles(tiles, psf, K, H, pad_hw, *, fft_backend, filter_name, rl_ite
 
 
 def _prepare(shape, psf_length, psf_angle, *, tile, overlap, fft_backend, psf_type, device,
-             ops):
+             ops, spectrum=True):
     """Checks and the per-frame constants of a tiled restore: (overlap,
-    core, (th, tw), pad_hw, device, psf, H)."""
+    core, (th, tw), pad_hw, device, psf, H); H is None without
+    `spectrum` (the mesh path makes its own) and off the kernel route."""
     if len(shape) != 3 or shape[-1] != 3:
         raise ValueError(f"expected (H, W, 3) BGR, got {tuple(shape)}")
     overlap, core = validate_tile_params(tile, overlap, psf_length)
@@ -169,7 +174,7 @@ def _prepare(shape, psf_length, psf_angle, *, tile, overlap, fft_backend, psf_ty
     dev = resolve_device(device)
     psf = make_psf(psf_type, int(psf_length), float(psf_angle), dev)
     H = (_psf_spectrum(psf, psf_type, psf_length, psf_angle, *pad_hw, ops)
-         if fft_backend == KERNEL_BACKEND else None)
+         if spectrum and fft_backend == KERNEL_BACKEND else None)
     return overlap, core, (th, tw), pad_hw, dev, psf, H
 
 
@@ -213,7 +218,7 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
                         tile: int = 1024, overlap: int | None = None, chunk: int = 16,
                         fft_backend: str = KERNEL_BACKEND, filter_name: str = "wiener",
                         rl_iters: int = 10, psf_type="motion", white_balance: bool = True,
-                        device_stitch: bool = True, device="cuda", ops=KERNEL_OPS):
+                        device_stitch: bool = True, device="cuda", ops=KERNEL_OPS, mesh=None):
     """(H, W, 3) uint8 BGR of any size -> (H, W, 3) uint8 restored numpy,
     with the transform working set bounded by one tile.
 
@@ -226,9 +231,13 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
     WienerDeblurPipeline. device_stitch: see the module docstring.
     device: 'cuda' (the kernels) or 'cpu' (their plain versions). ops:
     KERNEL_OPS, or PLAIN_OPS for the reference run of the kernel route
-    on the card."""
+    on the card. mesh: restore the tiles over a parallel.mesh Mesh (the
+    host stitch; device is then the mesh's)."""
     img = np.asarray(img_bgr)
     opts = dict(fft_backend=fft_backend, filter_name=filter_name, rl_iters=rl_iters, ops=ops)
+    if mesh is not None:
+        device_stitch = False
+        device = next(iter(mesh.devices.flat))
     if device_stitch:
         frame = frames_to_device(img, resolve_device(device))  # the frame crosses once
         return tiled_run(frame, psf_length, psf_angle, K, tile=tile, overlap=overlap,
@@ -237,7 +246,8 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
 
     overlap, core, (th, tw), pad_hw, dev, psf, H = _prepare(
         img.shape, psf_length, psf_angle, tile=tile, overlap=overlap,
-        fft_backend=fft_backend, psf_type=psf_type, device=device, ops=ops)
+        fft_backend=fft_backend, psf_type=psf_type, device=device, ops=ops,
+        spectrum=mesh is None)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     h, w = img.shape[:2]
@@ -250,8 +260,21 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
     for i in range(0, len(coords), chunk):
         cc = coords[i:i + chunk]
         blk = np.stack([np.moveaxis(img[y0:y0 + th, x0:x0 + tw], -1, 0) for y0, x0, _, _ in cc])
-        out = _restore_tiles(frames_to_device(blk, dev), psf, float(K), H, pad_hw,
-                             **opts).cpu().numpy()
+        if mesh is not None:
+            from fft_restoration_tpu_torch.parallel.sharded_pipeline import (
+                sharded_batched_restore_planes,
+            )
+
+            x = np.zeros(blk.shape[:2] + pad_hw, blk.dtype)
+            x[..., :th, :tw] = blk
+            if x.dtype != np.uint8:  # 0..255 values; uint8 converts on the shards
+                x = x.astype(np.float32) / np.float32(255.0)
+            out = sharded_batched_restore_planes(
+                x, psf, float(K), mesh=mesh, edgetaper=True, normalize=False,
+                live_hw=(th, tw), **opts)
+        else:
+            out = _restore_tiles(frames_to_device(blk, dev), psf, float(K), H, pad_hw,
+                                 **opts).cpu().numpy()
         for j, (y0, x0, (cy0, cy1), (cx0, cx1)) in enumerate(cc):
             planes[:, cy0:cy1, cx0:cx1] = out[j, :, cy0 - y0:cy1 - y0, cx0 - x0:cx1 - x0]
     if filter_name == "rl":

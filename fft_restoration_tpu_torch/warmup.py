@@ -14,6 +14,7 @@ frame is `782x1920`.
 
     python -m fft_restoration_tpu_torch.warmup 2048x2048 782x1920 --psf-length 50
     python -m fft_restoration_tpu_torch.warmup 16x32 --device cpu   # the plain versions
+    python -m fft_restoration_tpu_torch.warmup 2048x2048 --sharded 4   # + the 4-shard mesh
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ def main(argv=None) -> int:
         "--device", default="cuda",
         help="'cuda' (the kernels, default) or 'cpu' (the plain PyTorch versions)",
     )
-    p.add_argument("--sharded", type=int, default=0, metavar="N", help=argparse.SUPPRESS)
+    p.add_argument(
+        "--sharded", type=int, default=0, metavar="N",
+        help="also warm the N-shard sharded pipeline (parallel/: make_mesh(N))",
+    )
     args = p.parse_args(argv)
-    if args.sharded:
-        p.error("--sharded is not ported yet: ROADMAP.md A14")
+    if args.sharded < 0:
+        p.error(f"--sharded must be >= 0, got {args.sharded}")
 
     import numpy as np
 
@@ -57,6 +61,12 @@ def main(argv=None) -> int:
     except (RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
         return 2
+    sharded = None
+    if args.sharded:
+        from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh
+
+        sharded = ShardedWienerPipeline(mesh=make_mesh(args.sharded, device=pipe.device),
+                                        fft_backend=args.backend, filter_name=args.filter)
     if pipe.device.type == "cuda" and args.backend == KERNEL_BACKEND:
         from fft_restoration_tpu_torch.ops.kernels import _build
 
@@ -83,6 +93,11 @@ def main(argv=None) -> int:
             print(f"[Error] {spec}: {e}")
             return 2
         print(f"warmed H={h} W={w} ({args.backend}) in {time.perf_counter() - t0:.1f}s")
+        if sharded is not None:
+            t0 = time.perf_counter()
+            sharded.restore(img, args.psf_length, 30.0)
+            print(f"warmed {h}x{w} sharded x{args.sharded} ({sharded.mesh.describe()}) in "
+                  f"{time.perf_counter() - t0:.1f}s")
     return 0
 
 

@@ -65,9 +65,9 @@ def test_bad_arguments_exit_2(blurred_png, capsys, args):
 
 def test_unported_flag_is_an_argparse_error(blurred_png, capsys):
     with pytest.raises(SystemExit) as e:
-        cli.main([str(blurred_png), "9", "30", "--devices", "4"])
+        cli.main([str(blurred_png), "9", "30", "--reference", "ref.png"])
     assert e.value.code == 2
-    assert "ROADMAP.md A14" in capsys.readouterr().err
+    assert "ROADMAP.md A6" in capsys.readouterr().err
 
 
 def test_iters_and_edgetaper_are_ported():
@@ -531,3 +531,108 @@ def test_tile_directory_with_auto_K(tmp_path, capsys):
         _, k = estimate_noise_K(frame, device="cpu")
         ref = tiled_restore_image(frame, 7, 30.0, k, tile=64, overlap=16, device="cpu")
         assert np.array_equal(imread(str(out / (path.stem + "_restored.png"))), ref)
+
+
+# ---------------------------------------------------------------------------
+# --mode sharded | oracle and --devices
+
+
+def test_modes_and_devices_are_ported():
+    for flag in ("--mode", "--devices"):
+        assert flag not in cli.NOT_PORTED
+    args = cli.build_parser().parse_args(["x.png", "9", "30"])
+    assert (args.mode, args.devices) == ("jit", None)
+
+
+@pytest.mark.parametrize("devices,layout", [("4", "rows=4"), ("3", "rows=3")])
+def test_sharded_one_image_verifies_against_the_oracle(blurred_png, tmp_path, capsys, devices,
+                                                       layout):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "sharded",
+                   "--devices", devices, "--tier", "inf", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert f"[INFO] sharded mesh: {layout} over 1 cpu device" in text
+    assert "[Success] tier=inf" in text and f"took(sharded {layout}" in text
+    ref = WienerDeblurPipeline("cpu").restore(imread(str(blurred_png)), 9, 30.0)
+    assert np.abs(imread(str(out)).astype(int) - ref).max() <= 1
+
+
+def test_sharded_directory_matches_jit(blurred_png, tmp_path, capsys):
+    src = tmp_path / "in"
+    src.mkdir()
+    frame = imread(str(blurred_png))
+    for i in range(3):
+        imwrite(str(src / f"f{i}.png"), np.roll(frame, 7 * i, axis=1))
+    imwrite(str(src / "alone.png"), frame[:64])  # a singleton size group
+    texts = {}
+    for mode in ("sharded", "jit"):
+        rc = cli.main([str(src), "9", "30", "--device", "cpu", "--mode", mode, "--devices", "4",
+                       "-o", str(tmp_path / mode)])
+        texts[mode] = capsys.readouterr().out
+        assert rc == 0 and "Restored 4 frames" in texts[mode], texts[mode]
+    assert "[INFO] size groups on the mesh: batch=2, rows=2 over 1 cpu device" in texts["sharded"]
+    for name in ("f0", "f1", "f2", "alone"):
+        a = imread(str(tmp_path / "sharded" / f"{name}_restored.png"))
+        b = imread(str(tmp_path / "jit" / f"{name}_restored.png"))
+        assert np.abs(a.astype(int) - b).max() <= 1, name
+
+
+def test_sharded_tile_runs_on_the_2d_mesh(blurred_png, tmp_path, capsys):
+    from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
+
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "sharded",
+                   "--devices", "4", "--tile", "64", "--tile-overlap", "16", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert "took(tiled, sharded batch=2, rows=2 over 1 cpu device" in text
+    assert "per-tile oracle anchor" in text and "[Success] tier=gpu" in text
+    ref = tiled_restore_image(imread(str(blurred_png)), 9, 30.0, tile=64, overlap=16,
+                              device="cpu", device_stitch=False)
+    assert np.abs(imread(str(out)).astype(int) - ref).max() <= 1
+
+
+def test_sharded_profile_phases(blurred_png, tmp_path, capsys):
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "sharded",
+                   "--devices", "4", "--profile", "-o", str(tmp_path / "o.png")])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    for phase in ("Pre-process", "FFT Image", "FFT PSF", "Wiener Filter", "IFFT", "Post-process"):
+        assert f"sharded: {phase} total:" in text
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "sharded",
+                   "--devices", "3", "--profile", "-o", str(tmp_path / "o.png")])
+    assert rc == 0 and "[INFO] --profile phases:" in capsys.readouterr().out
+
+
+def test_oracle_mode(blurred_png, tmp_path, capsys):
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "oracle",
+                   "--filter", "rl", "--pad", "smooth", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0, text
+    assert "oracle mode implements wiener only; ignoring --filter rl" in text
+    assert "--pad smooth is ignored" in text and "took(oracle)" in text
+    assert np.array_equal(imread(str(out)), oracle.restore_image(imread(str(blurred_png)), 9, 30.0))
+    src = tmp_path / "d"
+    src.mkdir()
+    imwrite(str(src / "a.png"), imread(str(blurred_png)))
+    for path in (blurred_png, src):
+        assert cli.main([str(path), "9", "30", "--device", "cpu", "--mode", "oracle",
+                         "--tile", "64"]) == 2
+        assert "--tile supports --mode jit or sharded" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("devices", ["0", "-2"])
+def test_bad_device_count_exits_2(blurred_png, capsys, devices):
+    assert cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--mode", "sharded",
+                     "--devices", devices]) == 2
+    assert "--devices must be >= 1" in capsys.readouterr().out
+
+
+def test_sharded_without_a_gpu_exits_2(blurred_png, capsys, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert cli.main([str(blurred_png), "9", "30", "--mode", "sharded", "--devices", "2"]) == 2
+    assert "is_available" in capsys.readouterr().out

@@ -8,7 +8,9 @@ host stitch on the JAX test's frame (its bound, tests/test_tiled.py) and
 within JAX's own gap between them elsewhere, and the tiled
 frame within > 26 dB of the port's global edge-tapered restore after a
 per-channel affine alignment (the JAX test's: the two stretch over
-different extents). Frames: 280x360 at tile 128, overlap 32.
+different extents); tiled x mesh (the tiles on a (2, 2) device='cpu'
+mesh) within 1 count of the host stitch, Wiener and RL tiles. Frames:
+280x360 at tile 128, overlap 32.
 """
 
 import numpy as np
@@ -175,3 +177,17 @@ def test_plain_ops_give_the_kernel_routes_frame(blurred):
     a = tiled.tiled_restore_image(blurred, S, ANGLE, device="cpu", **TILE)
     b = tiled.tiled_restore_image(blurred, S, ANGLE, device="cpu", ops=PLAIN_OPS, **TILE)
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("options", [{}, {"filter_name": "rl", "rl_iters": 3}])
+def test_tiled_mesh_matches_host_stitch(blurred, options):
+    """Tiled x mesh: each chunk's tile stack restored over a (2, 2) mesh
+    (parallel.sharded_pipeline.sharded_batched_restore_planes, taper and
+    raw restore per tile) gives the single-card host stitch."""
+    from fft_restoration_tpu_torch.parallel import make_mesh2d
+
+    kw = dict(device="cpu", **TILE, **options)
+    host = tiled.tiled_restore_image(blurred, S, ANGLE, device_stitch=False, **kw)
+    ours = tiled.tiled_restore_image(blurred, S, ANGLE, mesh=make_mesh2d(2, 2, device="cpu"), **kw)
+    assert ours.shape == blurred.shape
+    assert _u8_max(ours, host) <= 1

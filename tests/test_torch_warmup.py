@@ -32,9 +32,14 @@ def test_warmup_bad_shape():
 
 
 def test_warmup_sharded_refused():
-    r = _run("16x32", "--sharded", "2", "--device", "cpu")
+    """--sharded N warms the N-shard mesh too (the JAX tool's flag); only
+    a negative count is refused."""
+    r = _run("16x32", "--psf-length", "5", "--sharded", "2", "--device", "cpu")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "warmed 16x32 sharded x2 (rows=2 over 1 cpu device)" in r.stdout
+    r = _run("16x32", "--sharded", "-1", "--device", "cpu")
     assert r.returncode == 2
-    assert "--sharded is not ported yet: ROADMAP.md A14" in r.stderr
+    assert "--sharded must be >= 0" in r.stderr
 
 
 def test_warmup_without_gpu_exits_2(monkeypatch, capsys):
