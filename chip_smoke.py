@@ -25,10 +25,14 @@ motion at UHD and at 4096x6144, whose cepstrum is 4096x8192, disk and
 gaussian at 2048^2, the noise K) and the PSF family on the CLI
 (--psf-type gaussian / disk, --psf-file); the HTTP server with its
 dynamic batcher under tools/serve_slo.py's load; the sharded restore on rows
-and (batch, rows) meshes laid on the one card. Phases, each printing its own
-lines; any failure exits non-zero:
+and (batch, rows) meshes laid on the one card; the host codec layer (JPEG,
+16-bit TIFF, PNG, BMP inputs through the CLI and a directory, -o by
+extension). Phases, each printing its own lines; any failure exits
+non-zero:
 
-  1. build   the CUDA kernels with nvcc (and report the seconds), each
+  1. build   the CUDA kernels with nvcc (and report the seconds) and,
+             beside them, the host codec (csrc/host/png_codec.cpp) with
+             g++ (its seconds; a failed build fails the run), each
              instance's registers and spills (ptxas), and how many of
              B2's, B7's and B10's stage-group instances, of the white-balance
              kernels' (csrc/postprocess.cu) and of B11's and B12's
@@ -148,8 +152,9 @@ lines; any failure exits non-zero:
              PNG request twice (bitwise the pipeline's), a burst of 8
              (each within 1 count of the single, co-batched: occupancy >
              1), filter=rl&iters=3, edgetaper=1, auto_k=1, estimate=1
-             and tile=1024 on the 4096x6144 BMP (each bitwise its
-             library call), 400 for a JPEG body, tile=192 and iters=999,
+             and tile=1024 on the 4096x6144 BMP and the 640x330 frame
+             as a JPEG body (each bitwise its library call), 400 for a
+             WebP body, tile=192 and iters=999,
              404, 413; tools/serve_slo.py's three phases (batch, mixed,
              giant: p50/p95/p99, occupancy a phase) and a burst of 8
              under torch.profiler (device busy a served frame, idle
@@ -157,7 +162,11 @@ lines; any failure exits non-zero:
              and B6 natural must have launched ("serve" in each kernel's
              launches_by_path). Beside them: the pow2 bucket's cost (a
              stack of 5 against 8) and the host's decode of each body and
-             PNG encode of each response, without the server;
+             PNG encode of each response, without the server, and the
+             codec lanes' host times (codec_lane_ms: the JPEG decode of
+             the 640x330 body and of a 4096x6144 JPEG, native and plain;
+             the restored frame's PNG encode, Paeth and the old Up
+             filter), with the card's name and power limit and the CPU;
   7. sharded the multi-device path (parallel/) on the one card, every
              shard of a mesh on it (check_sharded): the 2048^2 frame
              through ShardedWienerPipeline on rows meshes of 1, 2, 3, 4
@@ -175,7 +184,19 @@ lines; any failure exits non-zero:
              levels) on 4 shards against the single route, and the tiled
              4096x6144 frame on (2, 2) against phase 3's host stitch;
              the CLI with --mode sharded --devices 4 at 640x330 (the
-             oracle at the inf tier).
+             oracle at the inf tier);
+  8. codecs  the host codec layer (check_codecs): every native entry
+             point against its plain version on this machine's CPU
+             (check_codec_lanes: the PNG unfilter, the Paeth encoder,
+             the batch PNG decode and the JPEG entropy grids bitwise,
+             the JPEG back half within 1 count); a blurred 2048^2x3
+             frame as a JPEG and as a 16-bit TIFF through the CLI with
+             the counters reset (B1-B5 must launch), the oracle at the
+             inf tier and --reference, each output bitwise the
+             pipeline's; -o as .jpg, .bmp, .tif, .ppm, .pfm and .png
+             (magic bytes, lossless read back bitwise, .jpg >= 30 dB);
+             a directory of one size in PNG, JPEG, TIFF and BMP (one
+             batch group, all restored, bitwise BatchedWienerPipeline).
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
@@ -2558,6 +2579,7 @@ def check_serve(torch, np, seed):
 
     from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
     from fft_restoration_tpu_torch.host.imageio import decode_image_bgr, decode_png_bgr
+    from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
     from fft_restoration_tpu_torch.models import estimate as est
     from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
     from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
@@ -2575,6 +2597,9 @@ def check_serve(torch, np, seed):
     t0 = time.perf_counter()
     bodies = serve_slo.make_bodies(seed)
     small, giant = decode_image_bgr(bodies["small"]), decode_image_bgr(bodies["giant"])
+    # the 640x330 frame as a JPEG request (quality 90, the port's encoder)
+    jpeg_body = encode_jpeg(small[..., ::-1])
+    jpeg_frame = decode_image_bgr(jpeg_body)
     # the library call of each checked request, on the decoded frames
     pipes = {}
 
@@ -2594,6 +2619,7 @@ def check_serve(torch, np, seed):
         "/restore?auto_k=1": pipe().restore(small, 50, 30.0, k_auto),
         "/restore?estimate=1": pipe().restore(small, length, angle, 0.01),
     }
+    jpeg_ref = pipe().restore(jpeg_frame, 50, 30.0, 0.01)
     giant_ref = tiled_restore_image(giant, 50, 30.0, 0.01, tile=TILED_TILE, device="cuda")
     bucket = bucket_cost(torch, np, small)
     log(f"serve: bodies and references ({time.perf_counter() - t0:.1f} s): estimate "
@@ -2649,7 +2675,14 @@ def check_serve(torch, np, seed):
             checks[path] = dict(u8_max=d, client_ms=dt)
             if d:
                 fail(f"serve: {path} differs from the library call by {d} counts")
-        opt_paths = [p for p in refs if p != "/restore"] + [f"tile={TILED_TILE}"]
+        status, data, dt = _http(addr, "POST", "/restore", jpeg_body)
+        if status != 200:
+            fail(f"serve: JPEG request status {status}: {data[:200]}")
+        d = u8_max(np, decode_png_bgr(data), jpeg_ref)
+        checks["jpeg"] = dict(u8_max=d, client_ms=dt, body_bytes=len(jpeg_body))
+        if d:
+            fail(f"serve: the 640x330 JPEG response differs from the pipeline's by {d} counts")
+        opt_paths = [p for p in refs if p != "/restore"] + ["jpeg", f"tile={TILED_TILE}"]
         status, data, dt = _http(addr, "POST", f"/restore?tile={TILED_TILE}", bodies["giant"])
         if status != 200:
             fail(f"serve: tile={TILED_TILE} status {status}: {data[:200]}")
@@ -2658,10 +2691,10 @@ def check_serve(torch, np, seed):
         if d:
             fail(f"serve: the tiled 4096x6144 response differs from tiled_restore_image by {d}")
         log(f"serve: single bitwise (first {ms[0]:.2f} ms, second {ms[1]:.2f} ms); "
-            f"rl, edgetaper, auto_k, estimate and tile={TILED_TILE} bitwise "
+            f"rl, edgetaper, auto_k, estimate, the JPEG body and tile={TILED_TILE} bitwise "
             f"(client ms { {p: round(checks[p]['client_ms'], 2) for p in opt_paths} })")
         refusals = (
-            ("JPEG body", "POST", "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF" + bytes(64), None,
+            ("WebP body", "POST", "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(64), None,
              400),
             ("tile=192", "POST", "/restore?tile=192", bodies["small"], None, 400),
             ("iters=999", "POST", "/restore?filter=rl&iters=999", bodies["small"], None, 400),
@@ -2673,7 +2706,7 @@ def check_serve(torch, np, seed):
             status, data, _ = _http(addr, method, path, body, headers)
             if status != want:
                 fail(f"serve: {name} gave {status}, expected {want}: {data[:200]}")
-        checks["refusals"] = "400 JPEG, 400 tile=192, 400 iters=999, 404, 413"
+        checks["refusals"] = "400 WebP, 400 tile=192, 400 iters=999, 404, 413"
         t0 = time.perf_counter()
         load = serve_slo.run(f"http://{addr[0]}:{addr[1]}", seed, bodies)
         log(f"serve: load twin ({time.perf_counter() - t0:.1f} s): "
@@ -2700,16 +2733,109 @@ def check_serve(torch, np, seed):
         f"{trace['top_rows_ms']}")
     codec = load["host_codec_ms"]
     log(f"serve: host codec ms (no server; each body's decode, its response's encode): {codec}")
+    codec_lanes = codec_lane_ms(np, seed, jpeg_body, refs["/restore"])
+    log(f"serve: host codec lanes, ms (no server; {nvidia_smi()}; CPU {cpu_model()}): "
+        f"{json.dumps(codec_lanes)}")
     health = service.health()
     res = dict(warm_s=warm_s, checks=checks, pow2_bucket_5_as_8=bucket, load=load,
                batches_dispatched=health["batches_dispatched"],
                frames_batched=health["frames_batched"],
                batch_occupancy=health["batch_occupancy"],
                giant_ms=load["phases"]["giant"]["giant_ms"], host_codec_ms=codec,
+               host_codec_lanes_ms=codec_lanes,
                burst_trace=trace, launches=counts, device=service.device_str)
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 6 serving: {res['seconds']:.1f} s")
     return res, counts
+
+
+def cpu_model() -> str:
+    """The host CPU, for host times: lscpu's model name, the target g++
+    -march=native picks and the cores this process may use."""
+    import os
+
+    model = arch = "unknown"
+    with contextlib.suppress(OSError, subprocess.SubprocessError):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        model = next((ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                      if ln.startswith("Model name")), model)
+    with contextlib.suppress(OSError, subprocess.SubprocessError):
+        out = subprocess.run(["g++", "-march=native", "-Q", "--help=target"],
+                             capture_output=True, text=True, timeout=30).stdout
+        arch = next((ln.split()[-1] for ln in out.splitlines()
+                     if ln.strip().startswith("-march=")), arch)
+    return f"{model}, g++ -march=native={arch}, {len(os.sched_getaffinity(0))} cores"
+
+
+def png_up_bgr(np, img_bgr):
+    """A BGR frame as PNG bytes the way the port wrote them before its
+    native encoder: row 0 unfiltered, every other row the Up filter (the
+    JAX encoder's plain lane), for the encode timing beside Paeth."""
+    import struct
+    import zlib
+
+    h, w = img_bgr.shape[:2]
+    flat = np.ascontiguousarray(img_bgr[..., ::-1]).reshape(h, w * 3)
+    filt = np.empty((h, w * 3 + 1), np.uint8)
+    filt[:, 0] = 2
+    filt[0, 0] = 0
+    filt[0, 1:] = flat[0]
+    filt[1:, 1:] = flat[1:] - flat[:-1]
+
+    def chunk(ctype, body):
+        return (struct.pack(">I", len(body)) + ctype + body
+                + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(filt.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def best_ms(fn, n: int = 3):
+    """(best host ms of n calls, the last result)."""
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return min(ts), out
+
+
+def codec_lane_ms(np, seed, jpeg_body, restored):
+    """Phase 6's host codec lanes on this machine's CPU (host clock, best
+    of 3; the plain 4096x6144 decode once): the JPEG decode of the 640x330
+    request body and of a 4096x6144 JPEG (blurred_frame, quality 90, the
+    port's encoder), native and plain, the two within 1 count; the
+    restored 640x330 frame's PNG encode with every row Paeth-filtered
+    (the native encoder, the response's bytes) and with the old Up
+    filter (png_up_bgr), both decoding to the frame."""
+    from fft_restoration_tpu_torch.host import jpeg
+    from fft_restoration_tpu_torch.host.imageio import decode_png_bgr, encode_png_bgr
+    from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
+
+    res = {}
+    res["jpeg_640x330_native"], a = best_ms(lambda: jpeg.decode_jpeg(jpeg_body))
+    res["jpeg_640x330_plain"], b = best_ms(lambda: jpeg.decode_jpeg(jpeg_body, native=False))
+    d_small = u8_max(np, a, b)
+    big = blurred_frame(np, *TILED_HW, seed + 990)
+    t0 = time.perf_counter()
+    big_jpeg = encode_jpeg(big[..., ::-1])
+    res["jpeg_4096x6144_encode"] = (time.perf_counter() - t0) * 1e3
+    res["jpeg_4096x6144_bytes"] = len(big_jpeg)
+    res["jpeg_4096x6144_native"], a = best_ms(lambda: jpeg.decode_jpeg(big_jpeg))
+    res["jpeg_4096x6144_plain"], b = best_ms(lambda: jpeg.decode_jpeg(big_jpeg, native=False), 1)
+    d_big = u8_max(np, a, b)
+    res["jpeg_4096x6144_native_mp_per_s"] = TILED_HW[0] * TILED_HW[1] / 1e3 / res[
+        "jpeg_4096x6144_native"]
+    res["png_paeth_640x330"], paeth = best_ms(lambda: encode_png_bgr(restored))
+    res["png_up_640x330"], up = best_ms(lambda: png_up_bgr(np, restored))
+    res["png_bytes_paeth_up"] = [len(paeth), len(up)]
+    res["native_vs_plain_u8_max"] = [d_small, d_big]
+    if max(d_small, d_big) > TOL_U8:
+        fail(f"JPEG native and plain lanes differ by {max(d_small, d_big)} counts (tol {TOL_U8})")
+    if not (np.array_equal(decode_png_bgr(paeth), restored)
+            and np.array_equal(decode_png_bgr(up), restored)):
+        fail("a PNG encode of the restored frame does not decode to it")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2889,6 +3015,204 @@ def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host codec layer (host/imageio.py, host/jpeg.py,
+# host/formats.py on csrc/host/png_codec.cpp) and the CLI's formats
+
+
+def encode_tiff16(np, rgb16):
+    """(H, W, 3) uint16 RGB -> an uncompressed little-endian 16-bit TIFF
+    (one strip): the port writes 8-bit TIFFs only."""
+    import struct
+
+    h, w = rgb16.shape[:2]
+    raster = rgb16.astype("<u2").tobytes()
+    tags = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, 3, 8 + 2 + 12 * 8 + 4),
+            (259, 3, 1, 1), (262, 3, 1, 2), (273, 4, 1, 8 + 2 + 12 * 8 + 4 + 6),
+            (277, 3, 1, 3), (279, 4, 1, len(raster))]
+    ifd = struct.pack("<H", len(tags)) + b"".join(struct.pack("<HHII", *t) for t in tags)
+    return (b"II*\x00" + struct.pack("<I", 8) + ifd + struct.pack("<I", 0)
+            + struct.pack("<3H", 16, 16, 16) + raster)
+
+
+def check_codec_lanes(np, seed, frame, jpeg_blob):
+    """Phase 8 (a): every native entry point against its plain version
+    on this machine's CPU, on inputs made from the seed with the port's
+    own encoders: the PNG unfilter on rows of every filter type at every
+    bytes-a-pixel (bitwise), the Paeth filter and encode_png of the
+    2048^2 frame (bitwise), decode_png_batch_rgb8 on eight 8-bit PNGs
+    of one size against one decode a file on both lanes (bitwise), the
+    JPEG entropy grids (bitwise) and the back half (within TOL_U8) on the
+    2048^2 JPEG and a gray one. Returns the checks."""
+    from fft_restoration_tpu_torch.host import imageio, jpeg
+    from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
+
+    rng = np.random.default_rng(seed + 950)
+    for bpp in (1, 2, 3, 4, 6, 8):
+        rows, stride = 40, 48 * bpp
+        raw = np.concatenate([np.arange(rows, dtype=np.uint8)[:, None] % 5,
+                              rng.integers(0, 256, (rows, stride), dtype=np.uint8)], 1).tobytes()
+        if not np.array_equal(imageio._unfilter(raw, rows, stride, bpp),
+                              imageio._unfilter(raw, rows, stride, bpp, native=False)):
+            fail(f"codecs: the native PNG unfilter differs from the plain one at bpp {bpp}")
+    flat = np.ascontiguousarray(frame[..., ::-1]).reshape(frame.shape[0], -1)
+    if not np.array_equal(imageio._filter_paeth(flat, 3), imageio._filter_paeth(flat, 3, False)):
+        fail("codecs: the native Paeth filter differs from the plain one")
+    png = imageio.encode_png(frame[..., ::-1])
+    if png != imageio.encode_png(frame[..., ::-1], native=False):
+        fail("codecs: encode_png's bytes differ between the lanes")
+    h, w = frame.shape[0] // 4, frame.shape[1] // 3
+    crops = [frame[y:y + h, x:x + w] for y, x in ((0, 0), (h, w // 2), (2 * h, w), (3 * h, 2 * w))]
+    pngs = [imageio.encode_png(c[..., ::-1]) for c in crops]
+    pngs += [imageio.encode_png(crops[0][..., 0]),                         # gray
+             imageio.encode_png(crops[1][..., :2]),                        # gray + alpha
+             imageio.encode_png(np.dstack([crops[2], crops[3][..., :1]])),  # RGBA
+             imageio.encode_png(crops[3][..., ::-1])]
+    stack = imageio._batch_png(pngs)
+    if stack is None:
+        fail("codecs: decode_png_batch_rgb8 refused eight 8-bit PNGs of one size")
+    for lane in (True, False):
+        one = np.stack([imageio.decode_image_bgr(b, lane) for b in pngs])
+        if not np.array_equal(stack, one):
+            fail(f"codecs: the batch PNG decode differs from one decode a file (native={lane})")
+    gray_jpeg = encode_jpeg(frame[:1024, :1536, 1])
+    grids, d_back = [], []
+    orig = jpeg._decode_entropy
+
+    def spy(*a):
+        out = orig(*a)
+        grids.append(out.copy())
+        return out
+
+    jpeg._decode_entropy = spy
+    try:
+        for blob in (jpeg_blob, gray_jpeg):
+            nat = jpeg.decode_jpeg(blob)
+            pla = jpeg.decode_jpeg(blob, native=False)
+            d_back.append(u8_max(np, nat, pla))
+            if not np.array_equal(grids[-2], grids[-1]):
+                fail("codecs: the JPEG entropy grids differ between the lanes")
+    finally:
+        jpeg._decode_entropy = orig
+    if max(d_back) > TOL_U8:
+        fail(f"codecs: the JPEG back halves differ by {max(d_back)} counts (tol {TOL_U8})")
+    return dict(unfilter_bpp=[1, 2, 3, 4, 6, 8], paeth_bitwise=True, encode_png_bitwise=True,
+                batch_png=len(pngs), jpeg_grids_bitwise=2, jpeg_back_half_u8_max=d_back)
+
+
+def check_codecs(torch, np, seed):
+    """Phase 8: the codec layer on the card machine. (a) check_codec_lanes;
+    (b) a blurred 2048^2x3 frame written as JPEG (quality 90) and as a
+    16-bit TIFF, each through the CLI on the kernel route with the
+    counters reset (B1-B5 must launch), verified by the CLI against the
+    serial oracle on its decoded frame at the inf tier, with --reference
+    (a PSNR line) and each output bitwise the pipeline's restore of the
+    decoded frame; then the JPEG's restore written with -o as .jpg, .bmp,
+    .tif, .ppm, .pfm and .png (each file's magic bytes; bitwise back for
+    the lossless ones, PSNR >= 30 dB for .jpg); (c) a directory of one
+    size in PNG, JPEG, TIFF and BMP: one batch group (one B5 launch), all
+    four restored, each bitwise BatchedWienerPipeline's frame. Returns
+    (result, launch counts by path)."""
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
+    from fft_restoration_tpu_torch.host.verify import psnr
+
+    main_kernels = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                    "wb_encode_u8")
+    t_phase = time.perf_counter()
+    frame = blurred_frame(np, SIZE, SIZE, seed + 900)
+    sharp = scene(np, SIZE, SIZE, seed + 900)  # blurred_frame's scene before its blur
+    res, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="codecs_") as tmp:
+        path = {k: os.path.join(tmp, k) for k in ("frame.jpg", "frame16.tif", "sharp.png")}
+        t0 = time.perf_counter()
+        imwrite(path["frame.jpg"], frame)
+        res["jpeg_encode_2048sq_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(seed + 901)
+        rgb16 = frame[..., ::-1].astype(np.uint16) * 257 + rng.integers(0, 128, frame.shape,
+                                                                         dtype=np.uint16)
+        with open(path["frame16.tif"], "wb") as f:
+            f.write(encode_tiff16(np, rgb16))
+        imwrite(path["sharp.png"], sharp)
+        with open(path["frame.jpg"], "rb") as f:
+            jpeg_blob = f.read()
+        t0 = time.perf_counter()
+        res["lanes"] = check_codec_lanes(np, seed, frame, jpeg_blob)
+        log(f"codecs (a) native vs plain ({time.perf_counter() - t0:.1f} s): {res['lanes']}")
+
+        pipe = WienerDeblurPipeline("cuda")
+        restored = {}
+        for name, src, out in (("jpeg", "frame.jpg", "out_jpeg.png"),
+                               ("tiff16", "frame16.tif", "out_tiff16.tif")):
+            decoded = imread(path[src])
+            t0 = time.perf_counter()
+            (rc, text), counts[f"codecs_cli_{name}"] = drive(
+                torch, f"CLI on the 2048x2048x3 {name} input", lambda: cli_run(
+                    [path[src], "50", "30", "-o", os.path.join(tmp, out), "--tier", "inf",
+                     "--reference", path["sharp.png"]]),
+                expect=main_kernels)
+            lines = [ln for ln in text.splitlines() if ln.startswith(("[", "PSNR"))]
+            log(f"codecs (b) CLI {name} --tier inf --reference ({time.perf_counter() - t0:.1f} s): "
+                f"exit {rc}; {lines}")
+            if rc != 0 or "[Success] tier=inf" not in text or "PSNR vs reference: " not in text:
+                fail(f"codecs: the CLI on the {name} input fails the inf tier or prints no PSNR")
+            restored[name] = imread(os.path.join(tmp, out))
+            d = u8_max(np, restored[name], pipe.restore(decoded, 50, 30.0, 0.01))
+            if d:
+                fail(f"codecs: the CLI's {out} differs from the pipeline's restore by {d}")
+            res[f"cli_{name}"] = dict(lines=lines, u8_vs_pipeline=d)
+        magic = {".jpg": b"\xff\xd8", ".bmp": b"BM", ".tif": b"II*\x00", ".ppm": b"P6",
+                 ".pfm": b"PF", ".png": b"\x89PNG"}
+        outs = {}
+        for ext, head in magic.items():
+            out = os.path.join(tmp, f"out{ext}")
+            rc, text = cli_run([path["frame.jpg"], "50", "30", "-o", out, "--no-verify"])
+            with open(out, "rb") as f:
+                blob = f.read()
+            back = imread(out)
+            if rc != 0 or not blob.startswith(head):
+                fail(f"codecs: -o out{ext} exit {rc}, magic {blob[:4]!r}")
+            if ext == ".jpg":
+                outs[ext] = float(psnr(back.astype(float), restored["jpeg"].astype(float), 255.0))
+                if not outs[ext] >= 30.0:
+                    fail(f"codecs: out.jpg at {outs[ext]:.2f} dB against the restore (< 30)")
+            else:
+                outs[ext] = u8_max(np, back, restored["jpeg"])
+                if outs[ext]:
+                    fail(f"codecs: out{ext} does not read back bitwise ({outs[ext]} counts)")
+        res["outputs"] = outs
+        log(f"codecs (b) -o by extension: magic bytes right; read back (uint8 max, .jpg PSNR dB "
+            f"vs the restore): {outs}")
+
+        src_dir, out_dir = os.path.join(tmp, "frames"), os.path.join(tmp, "restored")
+        os.makedirs(src_dir)
+        names = ("a.png", "b.jpg", "c.tif", "d.bmp")
+        for n in names:
+            imwrite(os.path.join(src_dir, n), frame)
+        (rc, text), counts["codecs_directory"] = drive(
+            torch, "CLI on a directory of PNG, JPEG, TIFF and BMP",
+            lambda: cli_run([src_dir, "50", "30", "-o", out_dir]), expect=main_kernels)
+        lines = [ln for ln in text.splitlines() if ln.startswith(("Restored", "["))]
+        log(f"codecs (c) directory: exit {rc}; {lines}")
+        if rc != 0 or "Restored 4 frames" not in text or "skipped" in text:
+            fail("codecs: the directory of four formats was not restored whole")
+        if counts["codecs_directory"]["wb_encode_u8"] != 1:
+            fail("codecs: the directory's four frames did not go into one batch group")
+        stack = np.stack([imread(os.path.join(src_dir, n)) for n in names])
+        want = BatchedWienerPipeline("cuda").restore(stack, 50, 30.0, 0.01)
+        d = max(u8_max(np, imread(os.path.join(out_dir, f"{n[0]}_restored.png")), w)
+                for n, w in zip(names, want))
+        if d:
+            fail(f"codecs: a directory output differs from the batched restore by {d}")
+        res["directory"] = dict(lines=lines, u8_vs_batched=d)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 8 codecs: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2908,9 +3232,30 @@ def main() -> int:
     card = nvidia_smi()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    import threading
+
+    from fft_restoration_tpu_torch.host import native
+
     t0 = time.perf_counter()
+    host_build = {}
+
+    def build_host_codec():  # g++ beside the nvcc builds
+        try:
+            native.load()
+        except (RuntimeError, OSError) as e:
+            host_build["error"] = e
+        host_build["s"] = time.perf_counter() - t0
+
+    build_thread = threading.Thread(target=build_host_codec)
+    build_thread.start()
     _build.load()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
+    build_thread.join()
+    if "error" in host_build:
+        fail(f"the host codec does not build: {host_build['error']}")
+    log(f"phase 1 host codec (csrc/host/png_codec.cpp, g++ {' '.join(native.CXX_FLAGS)}): "
+        f"{'built in %.1f s' % native.build_seconds if native.build_seconds else 'loaded'}, "
+        f"ready at {host_build['s']:.1f} s")
     ptxas = ptxas_report(_build.build_log)
     for line in ptxas:
         log(f"  ptxas: {line}")
@@ -3011,6 +3356,9 @@ def main() -> int:
                                             tiled_host, args.iters)
     counts.update(sharded_counts)
     log(f"phase 7 sharded: {time.perf_counter() - t0:.1f} s")
+
+    codecs, codec_counts = check_codecs(torch, np, args.seed)
+    counts.update(codec_counts)
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -3022,7 +3370,8 @@ def main() -> int:
               "family_640x330": family_oracle, "smooth": smooth, "generic": generic,
               "perf_ab": perf_ab, "measurement_layer": twin, "tiled": tiled,
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
-              "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded}
+              "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
+              "codecs": codecs}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

@@ -27,13 +27,16 @@ and --tile-overlap; serving: the HTTP server with its dynamic batcher
 (serve.py), the warm-up tool (warmup.py) and the load tool
 tools/serve_slo.py; the multi-device path (parallel/: the mesh, the
 sharded FFT, ShardedWienerPipeline, the (batch, rows) mesh and tiled x
-mesh) with the CLI's --mode sharded|oracle and --devices.
-The host layer (host/: serial oracle, PNG, BMP, PNM and PAM I/O, verify
-tiers, padding, blurred test frames) is the port's own numpy, so the package needs
-nothing of fft_restoration_tpu.
+mesh) with the CLI's --mode sharded|oracle and --devices; the image
+codecs (PNG in full, JPEG, TIFF, PFM, HDR, RAS beside BMP/PNM/PAM, write
+by extension) and the CLI's --reference and --show.
+The host layer (host/: serial oracle, the image codecs, verify tiers,
+padding, blurred test frames) is the port's own numpy and C++, so the
+package needs nothing of fft_restoration_tpu.
 
-Importing this package pulls in no JAX and no CUDA build:
-kernels are built at first launch (ops/kernels/_build.py).
+Importing this package pulls in no JAX and builds nothing: the CUDA
+kernels are built at first launch (ops/kernels/_build.py), the host
+codec at first decode (host/native.py).
 """
 
 __version__ = "0.1.0"

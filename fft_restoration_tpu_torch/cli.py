@@ -7,8 +7,17 @@ planes against the serial oracle at a reference tier with the
 `[Speedup]` line, and the exit codes 1 (read error), 2 (bad arguments),
 3 (verification failure).
 
-    python -m fft_restoration_tpu_torch img.png 50 30 -o out.png
+    python -m fft_restoration_tpu_torch img.jpg 50 30 -o out.tif
     python -m fft_restoration_tpu_torch frames/ 50 30 -o out_dir/
+
+Input frames are read by host/imageio.py in any format it decodes (PNG,
+JPEG, BMP, PNM, PAM, TIFF, PFM, HDR, RAS); `-o` writes the format its
+extension names (PNG for an unknown one; .webp, .gif, .jp2 and .exr
+are refused with exit 2 before any work, ROADMAP.md A6b).
+--reference PATH prints the PSNR of the written frame against a sharp
+frame at peak 255 (a read error is printed, not raised); --show renders
+the frame in the terminal (host/termview.py; it waits for Enter only on
+a TTY). A directory ignores both.
 
 A directory is restored frame by frame into `<stem>_restored.png`:
 frames are grouped by size, groups of two or more go through
@@ -39,7 +48,7 @@ The generic route takes every filter, --edgetaper and directories too.
 
 --psf-type picks the PSF family (motion; gaussian, the angle positional
 then being the sigma; disk), verified against the oracle with the same
-kernel; --psf-file loads a kernel (.npy/.txt/.csv, or an 8-bit PNG) in
+kernel; --psf-file loads a kernel (.npy/.txt/.csv, or an image) in
 its place and sets the psf-length to its side. --estimate-psf estimates
 the family's parameters from the frame (models/estimate.py; a directory
 from its first frame) on the --fft-backend given, where the JAX CLI
@@ -85,9 +94,8 @@ from collections import Counter, defaultdict
 from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
-# file names directory mode picks up (the JAX CLI's list; the port reads
-# 8-bit PNG, BMP, PNM and PAM, host/imageio.decode_image_bgr, and reports
-# the rest as unreadable)
+# file names directory mode picks up (the JAX CLI's list; the port
+# reports a .webp file as unreadable, ROADMAP.md A6b)
 IMAGE_EXTENSIONS = (
     ".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".pbm", ".tif",
     ".tiff", ".webp", ".pfm", ".hdr", ".pic", ".sr", ".ras",
@@ -104,8 +112,6 @@ NOT_PORTED = {
     "--fft-engine": "A3",
     "--mxu-precision": "A5",
     "--stage-dtype": "A5",
-    "--reference": "A6",
-    "--show": "A6",
 }
 
 
@@ -123,10 +129,12 @@ def build_parser() -> argparse.ArgumentParser:
         "Richardson-Lucy) with hand-written "
         "CUDA kernels on an NVIDIA GPU.",
     )
-    p.add_argument("img_path", help="input image (PNG, BMP, PNM, PAM) or a directory")
+    p.add_argument("img_path", help="input image (PNG, JPEG, BMP, PNM, PAM, TIFF, PFM, HDR, "
+                   "RAS) or a directory")
     p.add_argument("psf_length", type=int, help="motion blur length in px (>=1)")
     p.add_argument("psf_angle", type=float, help="motion blur angle in degrees")
-    p.add_argument("-o", "--output", default=None, help="output PNG path")
+    p.add_argument("-o", "--output", default=None,
+                   help="output path; its extension picks the format (PNG by default)")
     p.add_argument("-K", type=float, default=0.01, help="Wiener K (default 0.01)")
     p.add_argument(
         "--mode", choices=MODES, default="jit",
@@ -165,7 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--psf-file", default=None, metavar="PATH",
-        help="load the PSF kernel from a .npy/.txt/.csv array or an 8-bit PNG "
+        help="load the PSF kernel from a .npy/.txt/.csv array or an image "
         "instead of synthesizing one (sum-normalized, zero-padded square); "
         "psf-length becomes its side, psf-angle and --psf-type are ignored",
     )
@@ -223,6 +231,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--tier", choices=TIERS, default="gpu",
         help="verification tolerance tier (reference: simd/mpi=l2, openmp=inf, gpu=gpu)",
     )
+    p.add_argument(
+        "--reference", default=None, metavar="PATH",
+        help="sharp ground-truth image; prints the PSNR of the restored frame against it",
+    )
+    p.add_argument(
+        "--show", action="store_true",
+        help="render the restored image in the terminal (ANSI truecolor half-blocks); "
+        "waits for Enter only on a TTY",
+    )
     for flag in NOT_PORTED:
         p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     return p
@@ -263,6 +280,13 @@ def main(argv=None) -> int:
     if args.devices is not None and args.devices < 1:
         print(f"[Error] --devices must be >= 1, got {args.devices}")
         return 2
+    if args.output and not os.path.isdir(args.img_path):
+        from fft_restoration_tpu_torch.host.imageio import UNPORTED_WRITE
+
+        ext = os.path.splitext(args.output)[1].lower()
+        if ext in UNPORTED_WRITE:
+            print(f"[Error] writing {ext} is not ported yet: ROADMAP.md A6b")
+            return 2
 
     from fft_restoration_tpu_torch.host.imageio import imread
     from fft_restoration_tpu_torch.host.oracle import normalize_over_frame, restore_frame_channels
@@ -362,10 +386,25 @@ def main(argv=None) -> int:
 
 
 def _write(args, out, total_start) -> int:
-    from fft_restoration_tpu_torch.host.imageio import imwrite
+    """Write the restored frame in the format of its extension, then
+    --reference's PSNR and --show's render. Returns 0."""
+    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
 
     out_path = args.output or args.img_path.rsplit(".", 1)[0] + "_restored_torch.png"
     imwrite(out_path, out)
+    if args.reference:
+        from fft_restoration_tpu_torch.host.verify import psnr
+
+        try:
+            ref = imread(args.reference)
+            print(f"PSNR vs reference: {psnr(ref.astype(float), out.astype(float), peak=255.0):.2f}"
+                  " dB")
+        except (OSError, ValueError) as e:
+            print(f"[Error] Cannot read reference {args.reference!r}: {e}")
+    if args.show:
+        from fft_restoration_tpu_torch.host.termview import show_image
+
+        show_image(out, title=f"[show] {out_path}")
     print(f"Total program time: {(time.perf_counter() - total_start) * 1e3:.2f} ms")
     print(f"[INFO] wrote {out_path}")
     return 0
@@ -572,6 +611,9 @@ def _run_batch(args, single) -> int:
 
     print("[INFO] directory input runs the batched pipeline; frames are not "
           "verified against the serial oracle")
+    ignored = [flag for flag, on in (("--reference", args.reference), ("--show", args.show)) if on]
+    if ignored:
+        print(f"[INFO] directory mode ignores {' and '.join(ignored)}")
     paths = sorted(
         os.path.join(args.img_path, f) for f in os.listdir(args.img_path)
         if f.lower().endswith(IMAGE_EXTENSIONS) and "_restored" not in f

@@ -4,7 +4,7 @@
   oracle    the serial numpy restore every device run is verified against,
             and its PSF family (the motion PSF with OpenCV
             getRotationMatrix2D + warpAffine semantics, gaussian, disk)
-  psf_file  user PSF kernels from .npy/.txt/.csv arrays and 8-bit PNGs
+  psf_file  user PSF kernels from .npy/.txt/.csv arrays and images
   color     BGR <-> Lab and the white balance in numpy (the tiled
             restore's host stitch)
   taper     the edge-taper window, shared by the device taper and the
@@ -12,10 +12,16 @@
   edgetaper the oracle's edge taper (float64 np.fft circular blur)
   blurgen   blurred test frames (the forward problem the restore inverts)
   verify    the reference's three tolerance tiers (l2, inf, gpu)
-  imageio   image decode (PNG, BMP, PNM, PAM) as BGR uint8, PNG write
-  formats   the BMP, PNM and PAM codecs
+  imageio   image decode as BGR uint8 (PNG, and the formats below by
+            their magic bytes), write by extension, size probe, batch read
+  jpeg      baseline and progressive JPEG decode; jpeg_encode: baseline
+  formats   BMP, PNM, PAM, PBM, TIFF, PFM, Radiance HDR, Sun Raster
+  native    the C++ codec under imageio and jpeg (csrc/host/png_codec.cpp,
+            built with g++ at first use)
+  termview  the terminal preview of --show
 
-Counterparts of fft_restoration_tpu/utils/{padding,blurgen,verify,imageio,taper,formats}.py,
+Counterparts of fft_restoration_tpu/utils/{padding,blurgen,verify,imageio,taper,formats,
+jpeg,jpeg_encode,termview}.py and native/png_codec.cpp,
 fft_restoration_tpu/oracle/{psf,serial,edgetaper,color}.py and ops/psf.py's
 load_psf_file, kept to what the ported
 slice uses, so that the port and its smoke run need nothing of the JAX

@@ -1,9 +1,10 @@
 """User-supplied PSF kernels from files (--psf-file), on the host.
 
 Counterpart of fft_restoration_tpu/ops/psf.py's load_psf_file, bit for
-bit on the formats the port reads: .npy, .txt and .csv arrays, and 8-bit
-PNG images through host/imageio.py (averaged over the channels). Other
-image formats wait for the port's image codecs (ROADMAP.md A6).
+bit on the formats the port reads: .npy, .txt and .csv arrays, and
+images in any format host/imageio.py decodes (averaged over the
+channels). WebP, GIF, JPEG 2000, OpenEXR and AVIF kernels are refused
+until their codecs are ported (ROADMAP.md A6b).
 """
 
 from __future__ import annotations
@@ -11,8 +12,6 @@ from __future__ import annotations
 import os
 
 import numpy as np
-
-ARRAY_EXTENSIONS = (".npy", ".txt", ".csv")
 
 
 def load_psf_file(path: str) -> np.ndarray:
@@ -27,15 +26,12 @@ def load_psf_file(path: str) -> np.ndarray:
         k = np.load(path)
     elif ext in (".txt", ".csv"):
         k = np.loadtxt(path, delimiter="," if ext == ".csv" else None)
-    elif ext == ".png":
+    else:
+        # an image in any format imread decodes, by its magic bytes, as
+        # the JAX loader does; unported ones raise naming A6b
         from fft_restoration_tpu_torch.host.imageio import imread
 
         k = np.asarray(imread(path), np.float64).mean(axis=-1)
-    else:
-        raise ValueError(
-            f"PSF file {path!r}: the port reads {', '.join(ARRAY_EXTENSIONS)} arrays and 8-bit "
-            f"PNG images; {ext or 'this'} images are not ported yet: ROADMAP.md A6"
-        )
     k = np.atleast_2d(np.asarray(k, np.float64))
     if k.ndim != 2 or k.size == 0:
         raise ValueError(f"PSF file {path!r}: need a 2D kernel, got shape {k.shape}")

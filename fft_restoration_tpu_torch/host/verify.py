@@ -33,8 +33,15 @@ class VerifyReport:
                 f"INF={self.inf:.6e} PSNR={self.psnr_db:.2f}dB")
 
 
-def _psnr(mse: float) -> float:
-    return float("inf") if mse == 0.0 else 10.0 * np.log10(1.0 / mse)
+def _psnr(mse: float, peak: float = 1.0) -> float:
+    return float("inf") if mse == 0.0 else 10.0 * np.log10(peak * peak / mse)
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: float = 1.0) -> float:
+    """PSNR in dB of two arrays at `peak` (1.0 for restored planes, 255.0
+    for uint8 frames); inf when they are equal."""
+    return _psnr(float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)),
+                 peak)
 
 
 def channels_equal(ours: np.ndarray, oracle: np.ndarray, tier: str = "gpu") -> VerifyReport:

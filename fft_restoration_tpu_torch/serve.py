@@ -8,8 +8,9 @@ shapes warmed before traffic, uint8 ingest straight to the device.
         --psf-length 50 --psf-angle 30 --warmup 2048x2048 782x1920
 
 API:
-  POST /restore   body = image bytes (PNG, BMP, PNM P1-P6, PAM; other
-                  formats are refused with 400, ROADMAP.md A6). Query
+  POST /restore   body = image bytes (PNG, JPEG, BMP, PNM P1-P6, PAM, TIFF,
+                  PFM, HDR, RAS; WebP, GIF, JPEG 2000, OpenEXR and AVIF
+                  are refused with 400, ROADMAP.md A6b). Query
                   params psf_length, psf_angle, K override the defaults;
                   filter=wiener|inverse|cls|rl (+iters=N for rl, at most
                   --max-rl-iters), edgetaper=1, psf_type=motion|gaussian|
@@ -21,7 +22,8 @@ API:
                   models/tiled.py, for giant frames; it bypasses the
                   batcher and tapers every tile, so edgetaper= is
                   ignored; raise --max-body-mb for giant uploads).
-                  Response: PNG bytes. 400 for a bad request or body, 404
+                  Response: PNG bytes (every row Paeth-filtered, the
+                  JAX server's bytes). 400 for a bad request or body, 404
                   for an unknown path, 413 above --max-body-mb, 503 when
                   the service is shutting down or a kernel failed.
   GET  /healthz   JSON: liveness, device, backend, the frame shapes served

@@ -169,10 +169,17 @@ def test_load_psf_file_refuses_what_jax_refuses(tmp_path, kernel, match):
 
 
 def test_load_psf_file_refuses_unported_images(tmp_path):
+    """A GIF kernel names ROADMAP.md A6b; a truncated JPEG (a ported
+    format) raises ValueError, as the JAX loader does."""
+    path = tmp_path / "k.gif"
+    path.write_bytes(b"GIF89a\x01\x00\x01\x00")
+    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+        load_psf_file(str(path))
     path = tmp_path / "k.jpg"
     path.write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
-        load_psf_file(str(path))
+    for fn in (load_psf_file, j_load_psf_file):
+        with pytest.raises(ValueError):
+            fn(str(path))
     with pytest.raises(OSError):
         load_psf_file(str(tmp_path / "missing.npy"))
 
@@ -301,7 +308,8 @@ def test_port_sources_name_no_jax_module():
     import re
 
     files = [ROOT / "chip_smoke.py", *sorted((ROOT / "fft_restoration_tpu_torch").rglob("*.py")),
-             *sorted((ROOT / "fft_restoration_tpu_torch" / "csrc").iterdir())]
+             *sorted(p for p in (ROOT / "fft_restoration_tpu_torch" / "csrc").rglob("*")
+                     if p.is_file())]
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|fft_restoration_tpu)\b"
                      r"|import_module\(\s*[\"'](jax|fft_restoration_tpu)\b"
                      r"|__import__\(\s*[\"'](jax|fft_restoration_tpu)\b")
@@ -427,22 +435,22 @@ def test_decode_image_bgr_png_matches_jax(layout):
 
 
 def test_decode_image_bgr_refusals(tmp_path):
-    """Formats not ported (JPEG, GIF, TIFF) name ROADMAP.md A6; a
-    truncated or corrupt stream is a ValueError, as in JAX."""
-    for blob in (b"\xff\xd8\xff\xe0\x00\x10JFIF", b"GIF89a\x01\x00", b"II*\x00\x08\x00",
-                 b"not an image"):
-        with pytest.raises(ValueError, match="ROADMAP.md A6"):
+    """Formats not ported (GIF, WebP) name ROADMAP.md A6b; a truncated or
+    corrupt stream (JPEG, TIFF and the rest) is a ValueError, as in JAX."""
+    for blob in (b"GIF89a\x01\x00", b"RIFF\x10\x00\x00\x00WEBPVP8L"):
+        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
             imageio.decode_image_bgr(blob)
     img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), dtype=np.uint8)
     for blob in (formats.encode_bmp(img)[:60], formats.encode_bmp(img)[:40],
                  formats.encode_pnm(img)[:30], formats.encode_pam(img)[:70], b"P7\nWIDTH 4\n",
-                 b"P5\n4 4\n255\n\x00"):
+                 b"P5\n4 4\n255\n\x00", b"\xff\xd8\xff\xe0\x00\x10JFIF", b"II*\x00\x08\x00",
+                 b"not an image"):
         for dec in (imageio.decode_image_bgr, jio.decode_image_bgr):
             with pytest.raises(ValueError):
                 dec(blob)
-    path = tmp_path / "x.jpg"
-    path.write_bytes(b"\xff\xd8\xff\xe0\x00\x10JFIF")
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+    path = tmp_path / "x.gif"
+    path.write_bytes(b"GIF89a\x01\x00")
+    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
         imageio.imread(str(path))
 
 

@@ -21,6 +21,7 @@ teardown.
 import contextlib
 import http.client
 import json
+import struct
 import threading
 import time
 from http.server import ThreadingHTTPServer
@@ -150,7 +151,7 @@ def test_restore_bmp_with_params(server):
 
 def test_restore_pnm_and_pam_roundtrip(server):
     """PNM and PAM flow through the serving surface; GIF is not ported
-    (a 400 naming ROADMAP.md A6), where the JAX test posts one."""
+    (a 400 naming ROADMAP.md A6b), where the JAX test posts one."""
     img = ((_frame(5, 16, 32) // 32) * 32).astype(np.uint8)
     rgb = img[..., ::-1]
     for blob in (formats.encode_pnm(rgb), formats.encode_pam(rgb)):
@@ -158,7 +159,47 @@ def test_restore_pnm_and_pam_roundtrip(server):
         assert status == 200
         np.testing.assert_array_equal(decode_png_bgr(data), _pipe().restore(img, 5, 30.0))
     status, data = _post(server, "/restore", b"GIF89a" + bytes(32))
-    assert status == 400 and b"A6" in data
+    assert status == 400 and b"A6b" in data
+
+
+@pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette"])
+def test_restore_jpeg_tiff_and_palette_bodies(server, fmt):
+    """A JPEG, a 16-bit TIFF and a palette PNG body are served (200): the
+    pipeline's restore of the decoded frame, bit for bit, in the JAX
+    server's PNG bytes (encode_png, every row Paeth-filtered)."""
+    from fft_restoration_tpu_torch.host import imageio
+    from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
+
+    img = blur_image(_frame(8, 24, 40), 5, 30.0)
+    if fmt == "jpeg":
+        blob = encode_jpeg(img[..., ::-1])
+    elif fmt == "tiff16":
+        rgb16 = img[..., ::-1].astype(np.uint16) * 257 + 100
+        blob = formats.encode_tiff(img[..., ::-1])
+        head = blob[:len(blob) - img.size]
+        blob = head.replace(b"\x08\x00\x08\x00\x08\x00", b"\x10\x00\x10\x00\x10\x00") + \
+            rgb16.astype("<u2").tobytes()
+        blob = blob.replace(struct.pack("<HHII", 279, 4, 1, img.size),
+                            struct.pack("<HHII", 279, 4, 1, 2 * img.size))
+        assert formats._tiff_ifd(blob, "<")[258] == [16, 16, 16]
+    else:
+        pal = (np.arange(256)[:, None] * (1, 2, 3) % 256).astype(np.uint8)
+        idx = img[..., 1]
+        blob = j_encode_png(idx)  # an 8-bit gray PNG, relabelled as palette
+        blob = blob[:25] + b"\x03" + blob[26:29] + blob[29:]
+        from zlib import crc32
+
+        ihdr = blob[12:29]
+        blob = (blob[:29] + struct.pack(">I", crc32(ihdr) & 0xFFFFFFFF)
+                + struct.pack(">I", 768) + b"PLTE" + pal.tobytes()
+                + struct.pack(">I", crc32(b"PLTE" + pal.tobytes()) & 0xFFFFFFFF) + blob[33:])
+        assert blob[25] == 3 and b"PLTE" in blob
+    frame = imageio.decode_image_bgr(blob)
+    status, data = _post(server, "/restore", blob)
+    assert status == 200, data[:200]
+    want = _pipe().restore(frame, 5, 30.0)
+    np.testing.assert_array_equal(decode_png_bgr(data), want)
+    assert data == j_encode_png(want[..., ::-1])
 
 
 def test_restore_matches_pipeline_and_jax(server):
@@ -200,8 +241,10 @@ def test_bad_requests(server):
     assert status == 404
     status, _ = _post(server, "/restore", b"")
     assert status == 400
-    status, data = _post(server, "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF")  # JPEG: A6
-    assert status == 400 and b"A6" in data
+    status, data = _post(server, "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L")  # WebP: A6b
+    assert status == 400 and b"A6b" in data
+    status, data = _post(server, "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF")  # truncated
+    assert status == 400 and b"corrupt JPEG" in data
     status, data = _post(server, "/restore?psf_length=99", encode_png_bgr(_frame(4, 16, 16)))
     assert status == 400 and b"PSF length" in data
 
