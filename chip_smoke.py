@@ -27,12 +27,14 @@ gaussian at 2048^2, the noise K) and the PSF family on the CLI
 dynamic batcher under tools/serve_slo.py's load; the sharded restore on rows
 and (batch, rows) meshes laid on the one card; the host codec layer (JPEG,
 16-bit TIFF, PNG, BMP inputs through the CLI and a directory, -o by
-extension). Phases, each printing its own lines; any failure exits
-non-zero:
+extension); WebP, GIF and JPEG 2000 through the CLI and the server.
+Phases, each printing its own lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds) and,
-             beside them, the host codec (csrc/host/png_codec.cpp) with
-             g++ (its seconds; a failed build fails the run), each
+             beside them, the four host codec libraries (csrc/host/
+             png_codec.cpp, webp_codec.cpp, gif_codec.cpp, jp2_t1.cpp)
+             with g++, one thread each (their seconds; a failed build
+             fails the run), each
              instance's registers and spills (ptxas), and how many of
              B2's, B7's and B10's stage-group instances, of the white-balance
              kernels' (csrc/postprocess.cu) and of B11's and B12's
@@ -153,8 +155,8 @@ non-zero:
              (each within 1 count of the single, co-batched: occupancy >
              1), filter=rl&iters=3, edgetaper=1, auto_k=1, estimate=1
              and tile=1024 on the 4096x6144 BMP and the 640x330 frame
-             as a JPEG body (each bitwise its library call), 400 for a
-             WebP body, tile=192 and iters=999,
+             as a JPEG body (each bitwise its library call), 400 for an
+             OpenEXR body, a corrupt WebP body, tile=192 and iters=999,
              404, 413; tools/serve_slo.py's three phases (batch, mixed,
              giant: p50/p95/p99, occupancy a phase) and a burst of 8
              under torch.profiler (device busy a served frame, idle
@@ -196,11 +198,28 @@ non-zero:
              pipeline's; -o as .jpg, .bmp, .tif, .ppm, .pfm and .png
              (magic bytes, lossless read back bitwise, .jpg >= 30 dB);
              a directory of one size in PNG, JPEG, TIFF and BMP (one
-             batch group, all restored, bitwise BatchedWienerPipeline).
+             batch group, all restored, bitwise BatchedWienerPipeline);
+  9. codecs  WebP, GIF and JPEG 2000 (check_codecs_left): the six native
+     left    entry points against their plain lanes on this machine's
+             CPU, bitwise, on the port's own encodes (a 256^2 VP8L, a
+             640x330 GIF, a 640x330 lossless JP2) and the committed
+             fixtures of tests/data/torch_codecs/ (lossy VP8, VP8X +
+             ALPH, VP8L with every transform, the color cache and LZ77,
+             an interlaced transparent GIF, a 9/7 JP2); a blurred
+             2048^2x3 frame as lossless .webp and as .gif and a 640x330
+             one as .jp2 through the CLI with the counters reset (B1-B5
+             must launch), the oracle at the inf tier, -o in the same
+             format read back (.webp and .jp2 bitwise the pipeline's
+             restore, .gif bitwise the port's GIF round trip of it); one
+             WebP and one GIF request to an in-process server, each the
+             pixels of the same frame's PNG request; the host ms of each
+             encode, native decode and plain decode, beside the card's
+             name and power limit and the CPU.
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
-kernel table and the timings), the card's name and power limit
+kernel table and the timings; phase 9's under "codecs_native_left"),
+the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
 fft_restoration_tpu_torch.host.
@@ -2694,8 +2713,9 @@ def check_serve(torch, np, seed):
             f"rl, edgetaper, auto_k, estimate, the JPEG body and tile={TILED_TILE} bitwise "
             f"(client ms { {p: round(checks[p]['client_ms'], 2) for p in opt_paths} })")
         refusals = (
-            ("WebP body", "POST", "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(64), None,
-             400),
+            ("OpenEXR body", "POST", "/restore", b"\x76\x2f\x31\x01" + bytes(64), None, 400),
+            ("corrupt WebP body", "POST", "/restore",
+             b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(64), None, 400),
             ("tile=192", "POST", "/restore?tile=192", bodies["small"], None, 400),
             ("iters=999", "POST", "/restore?filter=rl&iters=999", bodies["small"], None, 400),
             ("unknown path", "POST", "/nope", bodies["small"], None, 404),
@@ -2706,7 +2726,8 @@ def check_serve(torch, np, seed):
             status, data, _ = _http(addr, method, path, body, headers)
             if status != want:
                 fail(f"serve: {name} gave {status}, expected {want}: {data[:200]}")
-        checks["refusals"] = "400 WebP, 400 tile=192, 400 iters=999, 404, 413"
+        checks["refusals"] = ("400 OpenEXR, 400 corrupt WebP, 400 tile=192, 400 iters=999, "
+                              "404, 413")
         t0 = time.perf_counter()
         load = serve_slo.run(f"http://{addr[0]}:{addr[1]}", seed, bodies)
         log(f"serve: load twin ({time.perf_counter() - t0:.1f} s): "
@@ -3213,6 +3234,182 @@ def check_codecs(torch, np, seed):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the codecs with native lanes beside PNG/JPEG (host/webp.py,
+# host/gif.py, host/jp2.py on csrc/host/webp_codec.cpp, gif_codec.cpp and
+# jp2_t1.cpp), through the CLI and the server
+
+
+def codec_fixtures() -> dict:
+    """The committed streams the port's encoders never write (lossy VP8,
+    ALPH, VP8X, VP8L with its transforms, the color cache and LZ77, an
+    interlaced transparent GIF, a 9/7 JPEG 2000): name -> bytes."""
+    import os
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                        "torch_codecs")
+    out = {}
+    for name in sorted(os.listdir(root)):
+        if name.endswith((".webp", ".gif", ".jp2")):
+            with open(os.path.join(root, name), "rb") as f:
+                out[name] = f.read()
+    if len(out) != 7:
+        fail(f"codecs: {len(out)} fixtures under {root}, expected 7")
+    return out
+
+
+def check_codec_lanes_left(np, seed, jp2_blob, times):
+    """Phase 9 (a): each of the six native entry points against its plain
+    lane on this machine's CPU, bitwise, on inputs of 256^2 to 640x330:
+    webp_vp8l_decode on a 256^2 frame of the port's encoder and the three
+    VP8L fixtures; webp_vp8_decode on the lossy fixture and the VP8X one,
+    whose ALPH chunk runs webp_alpha_decode; gif_lzw_encode (encode_gif's
+    bytes) and gif_lzw_decode on a 640x330 frame and the GIF fixture;
+    jp2_decode_block on the port's lossless 640x330 JP2 and the 9/7
+    fixture. The plain decodes' host ms go into `times`: best of 3 for
+    the 256^2 VP8L, the lossy VP8 fixture and the 640x330 GIF, once for
+    the rest (seconds of Python each). Returns the checks."""
+    from fft_restoration_tpu_torch.host import gif, jp2, webp
+    from fft_restoration_tpu_torch.host.webp_encode import encode_webp
+
+    fixtures = codec_fixtures()
+    own_webp = encode_webp(blurred_frame(np, 256, 256, seed + 1010)[..., ::-1])
+    small = blurred_frame(np, *SMALL_HW, seed + 1011)[..., ::-1]
+    own_gif = gif.encode_gif(small)
+    if own_gif != gif.encode_gif(small, native=False):
+        fail("codecs left: encode_gif's bytes differ between the lanes (gif_lzw_encode)")
+    decoders = {".webp": webp.decode_webp, ".gif": gif.decode_gif, ".jp2": jp2.decode_jp2}
+    cases = [("own_vp8l_256sq.webp", own_webp), ("own_640x330.gif", own_gif),
+             ("own_640x330.jp2", jp2_blob)] + list(fixtures.items())
+    checks = {}
+    for name, blob in cases:
+        dec = decoders[name[name.rindex("."):]]
+        n = 3 if name in ("own_vp8l_256sq.webp", "own_640x330.gif", "vp8_q50_256.webp") else 1
+        ms, plain = best_ms(lambda: dec(blob, native=False), n)
+        nat = dec(blob)
+        if nat.shape != plain.shape or not np.array_equal(nat, plain):
+            fail(f"codecs left: {name} decodes differently on the native and plain lanes")
+        checks[name] = list(nat.shape)
+        times[f"plain_decode_{name}"] = ms
+    return dict(bitwise=checks, encode_gif_bytes_equal=True)
+
+
+def check_codecs_left(torch, np, seed):
+    """Phase 9: WebP, GIF and JPEG 2000 on the card machine. (a)
+    check_codec_lanes_left; (b) a blurred 2048^2x3 frame written as
+    lossless .webp and as .gif, and a 640x330x3 frame as .jp2, each
+    through the CLI on the kernel route with the counters reset (B1-B5
+    must launch), verified by the CLI against the serial oracle on the
+    decoded frame at the inf tier, with -o in the same format: .webp and
+    .jp2 read back bitwise the pipeline's restore of the decoded input,
+    .gif bitwise decode_gif(encode_gif(that restore)); (c) one in-process
+    server request with a WebP body and one with a GIF body (640x330),
+    each 200 with the pixels of the same frame's PNG-body request; (d)
+    host ms (host clock on this machine's CPU): the encodes (best of 3;
+    the JP2's once), the native decodes (best of 3) and (a)'s plain ones.
+    Returns (result, launch counts by path)."""
+    import os
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch.host import gif, jp2, webp
+    from fft_restoration_tpu_torch.host.imageio import (
+        decode_image_bgr,
+        decode_png_bgr,
+        encode_png_bgr,
+        imread,
+    )
+    from fft_restoration_tpu_torch.host.jp2_encode import encode_jp2
+    from fft_restoration_tpu_torch.host.webp_encode import encode_webp
+
+    main_kernels = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                    "wb_encode_u8")
+    t_phase = time.perf_counter()
+    frame = blurred_frame(np, SIZE, SIZE, seed + 1000)
+    small = blurred_frame(np, *SMALL_HW, seed + 1001)
+    times, res, counts = {}, {}, {}
+    times["encode_webp_2048sq"], webp_blob = best_ms(lambda: encode_webp(frame[..., ::-1]))
+    times["encode_gif_2048sq"], gif_blob = best_ms(lambda: gif.encode_gif(frame[..., ::-1]))
+    times["encode_jp2_640x330"], jp2_blob = best_ms(lambda: encode_jp2(small[..., ::-1]), 1)
+    for name, dec, blob in (("webp_2048sq", webp.decode_webp, webp_blob),
+                            ("gif_2048sq", gif.decode_gif, gif_blob),
+                            ("jp2_640x330", jp2.decode_jp2, jp2_blob)):
+        times[f"native_decode_{name}"], _ = best_ms(lambda: dec(blob))
+    res["bytes"] = dict(webp_2048sq=len(webp_blob), gif_2048sq=len(gif_blob),
+                        jp2_640x330=len(jp2_blob))
+    t0 = time.perf_counter()
+    res["lanes"] = check_codec_lanes_left(np, seed, jp2_blob, times)
+    log(f"codecs left (a) native vs plain ({time.perf_counter() - t0:.1f} s): {res['lanes']}")
+
+    pipe = WienerDeblurPipeline("cuda")
+    with tempfile.TemporaryDirectory(prefix="codecs_left_") as tmp:
+        for ext, blob in ((".webp", webp_blob), (".gif", gif_blob), (".jp2", jp2_blob)):
+            src, out = os.path.join(tmp, f"in{ext}"), os.path.join(tmp, f"out{ext}")
+            with open(src, "wb") as f:
+                f.write(blob)
+            decoded = imread(src)
+            t0 = time.perf_counter()
+            (rc, text), counts[f"codecs_left_cli{ext.replace('.', '_')}"] = drive(
+                torch, f"CLI on the {decoded.shape[1]}x{decoded.shape[0]}x3 {ext} input",
+                lambda: cli_run([src, "50", "30", "-o", out, "--tier", "inf"]),
+                expect=main_kernels)
+            lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+            cli_s = time.perf_counter() - t0
+            log(f"codecs left (b) CLI {ext} -o out{ext} --tier inf ({cli_s:.1f} s): "
+                f"exit {rc}; {lines}")
+            if rc != 0 or "[Success] tier=inf" not in text:
+                fail(f"codecs left: the CLI on the {ext} input fails the inf tier")
+            restored = pipe.restore(decoded, 50, 30.0, 0.01)
+            want = restored
+            if ext == ".gif":  # median cut: the port's own GIF round trip of the restore
+                want = gif.decode_gif(gif.encode_gif(restored[..., ::-1]))[..., ::-1]
+            d = u8_max(np, imread(out), want)
+            if d:
+                fail(f"codecs left: out{ext} differs from the expected frame by {d}")
+            res[f"cli{ext.replace('.', '_')}"] = dict(lines=lines, u8_vs_expected=d,
+                                                      seconds=cli_s)
+
+    service = serve.RestorationService(serve.build_parser().parse_args([]))
+
+    class Quiet(serve.make_handler(service)):
+        def log_message(self, fmt, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    served = {}
+    try:
+        for kind, body in (("webp", encode_webp(small[..., ::-1])),
+                           ("gif", gif.encode_gif(small[..., ::-1]))):
+            png_body = encode_png_bgr(decode_image_bgr(body))
+            got = {name: _http(srv.server_address, "POST", "/restore", b)
+                   for name, b in ((kind, body), ("png", png_body))}
+            if got[kind][0] != 200 or got["png"][0] != 200:
+                fail(f"codecs left: the {kind} request gave {got[kind][0]}: {got[kind][1][:200]}")
+            d = u8_max(np, decode_png_bgr(got[kind][1]), decode_png_bgr(got["png"][1]))
+            if d:
+                fail(f"codecs left: the {kind} body's response differs from the PNG body's by {d}")
+            served[kind] = dict(status=200, u8_vs_png_body=d, client_ms=got[kind][2],
+                                png_body_client_ms=got["png"][2])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.batcher.shutdown()
+        thread.join(timeout=60)
+    res["serve_640x330"] = served
+    log(f"codecs left (c) server: {served}")
+    res["host_ms"] = times
+    res["host"] = dict(card=nvidia_smi(), cpu=cpu_model())
+    log(f"codecs left (d) host ms ({res['host']['card']}; CPU {res['host']['cpu']}): "
+        f"{json.dumps(times)}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9 codecs left: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3239,23 +3436,29 @@ def main() -> int:
     t0 = time.perf_counter()
     host_build = {}
 
-    def build_host_codec():  # g++ beside the nvcc builds
+    def build_host_codec(name):  # g++ beside the nvcc builds, one library a thread
         try:
-            native.load()
+            native.load(name)
         except (RuntimeError, OSError) as e:
-            host_build["error"] = e
-        host_build["s"] = time.perf_counter() - t0
+            host_build[f"{name} error"] = e
+        host_build[name] = time.perf_counter() - t0
 
-    build_thread = threading.Thread(target=build_host_codec)
-    build_thread.start()
+    build_threads = [threading.Thread(target=build_host_codec, args=(name,))
+                     for name in native.LIBRARIES]
+    for thread in build_threads:
+        thread.start()
     _build.load()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s")
-    build_thread.join()
-    if "error" in host_build:
-        fail(f"the host codec does not build: {host_build['error']}")
-    log(f"phase 1 host codec (csrc/host/png_codec.cpp, g++ {' '.join(native.CXX_FLAGS)}): "
-        f"{'built in %.1f s' % native.build_seconds if native.build_seconds else 'loaded'}, "
-        f"ready at {host_build['s']:.1f} s")
+    for thread in build_threads:
+        thread.join()
+    errors = [f"{k}: {v}" for k, v in host_build.items() if k.endswith(" error")]
+    if errors:
+        fail(f"a host codec library does not build: {'; '.join(errors)}")
+    for name, spec in native.LIBRARIES.items():
+        built = native.build_seconds.get(name)
+        log(f"phase 1 host codec {name} ({spec.source.relative_to(spec.source.parents[2])}, "
+            f"g++ {' '.join(native.CXX_FLAGS + spec.libs)}): "
+            f"{'built in %.1f s' % built if built else 'loaded'}, ready at {host_build[name]:.1f} s")
     ptxas = ptxas_report(_build.build_log)
     for line in ptxas:
         log(f"  ptxas: {line}")
@@ -3359,6 +3562,8 @@ def main() -> int:
 
     codecs, codec_counts = check_codecs(torch, np, args.seed)
     counts.update(codec_counts)
+    codecs_left, codec_left_counts = check_codecs_left(torch, np, args.seed)
+    counts.update(codec_left_counts)
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -3371,7 +3576,8 @@ def main() -> int:
               "perf_ab": perf_ab, "measurement_layer": twin, "tiled": tiled,
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
               "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
-              "codecs": codecs}
+              "codecs": codecs, "codecs_native_left": codecs_left,
+              "host_codec_build_s": native.build_seconds}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:

@@ -29,14 +29,15 @@ tools/serve_slo.py; the multi-device path (parallel/: the mesh, the
 sharded FFT, ShardedWienerPipeline, the (batch, rows) mesh and tiled x
 mesh) with the CLI's --mode sharded|oracle and --devices; the image
 codecs (PNG in full, JPEG, TIFF, PFM, HDR, RAS beside BMP/PNM/PAM, write
-by extension) and the CLI's --reference and --show.
+by extension) and the CLI's --reference and --show; WebP, GIF and JPEG
+2000, read and write, on their native lanes.
 The host layer (host/: serial oracle, the image codecs, verify tiers,
 padding, blurred test frames) is the port's own numpy and C++, so the
 package needs nothing of fft_restoration_tpu.
 
 Importing this package pulls in no JAX and builds nothing: the CUDA
-kernels are built at first launch (ops/kernels/_build.py), the host
-codec at first decode (host/native.py).
+kernels are built at first launch (ops/kernels/_build.py), each host
+codec library at its first decode (host/native.py).
 """
 
 __version__ = "0.1.0"

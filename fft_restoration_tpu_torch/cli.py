@@ -11,9 +11,9 @@ planes against the serial oracle at a reference tier with the
     python -m fft_restoration_tpu_torch frames/ 50 30 -o out_dir/
 
 Input frames are read by host/imageio.py in any format it decodes (PNG,
-JPEG, BMP, PNM, PAM, TIFF, PFM, HDR, RAS); `-o` writes the format its
-extension names (PNG for an unknown one; .webp, .gif, .jp2 and .exr
-are refused with exit 2 before any work, ROADMAP.md A6b).
+JPEG, BMP, PNM, PAM, TIFF, PFM, HDR, RAS, WebP, GIF, JPEG 2000); `-o`
+writes the format its extension names (PNG for an unknown one; .exr is
+refused with exit 2 before any work, ROADMAP.md A6b).
 --reference PATH prints the PSNR of the written frame against a sharp
 frame at peak 255 (a read error is printed, not raised); --show renders
 the frame in the terminal (host/termview.py; it waits for Enter only on
@@ -94,8 +94,7 @@ from collections import Counter, defaultdict
 from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
-# file names directory mode picks up (the JAX CLI's list; the port
-# reports a .webp file as unreadable, ROADMAP.md A6b)
+# file names directory mode picks up (the JAX CLI's list)
 IMAGE_EXTENSIONS = (
     ".png", ".jpg", ".jpeg", ".bmp", ".ppm", ".pgm", ".pnm", ".pbm", ".tif",
     ".tiff", ".webp", ".pfm", ".hdr", ".pic", ".sr", ".ras",

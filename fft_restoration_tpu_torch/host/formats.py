@@ -1,6 +1,7 @@
 """Image codecs in numpy beside PNG and JPEG: the port's copy of the JAX
 package's utils/formats.py on BMP, PNM, PAM, PBM, TIFF, PFM, Radiance
-HDR and Sun Raster.
+HDR and Sun Raster, and the dispatch to WebP (host/webp.py), GIF
+(host/gif.py) and JPEG 2000 (host/jp2.py).
 
 Each decoder returns uint8 gray (H, W) or RGB(A) (H, W, C), the layout
 host/imageio.decode_png returns, before host/imageio.decode_image_bgr
@@ -31,8 +32,8 @@ makes it 3-channel BGR:
 The encoders write 24-bit bottom-up BMP, binary PGM/PPM, PAM, PBM,
 uncompressed little-endian TIFF, little-endian PFM, RLE Radiance HDR
 and type-1 Sun Raster: the JAX package's bytes exactly. `sniff` knows
-the JAX package's every kind; WebP, JPEG 2000, OpenEXR, GIF and AVIF
-are refused with a ValueError naming ROADMAP.md A6b.
+the JAX package's every kind; OpenEXR and AVIF are refused with a
+ValueError naming ROADMAP.md A6b.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from fft_restoration_tpu_torch.host import gif, jp2, webp
 
 # ---------------------------------------------------------------------------
 # BMP
@@ -1180,11 +1183,14 @@ def sniff(data: bytes):
 
 
 # kinds `sniff` names whose JAX decoders are not ported yet
-UNPORTED = {"webp": "WebP", "jp2": "JPEG 2000", "exr": "OpenEXR", "gif": "GIF",
-            "avif": "AVIF"}
+UNPORTED = {"exr": "OpenEXR", "avif": "AVIF"}
 
 DECODERS = {"bmp": decode_bmp, "pnm": decode_pnm, "pam": decode_pam, "tiff": decode_tiff,
-            "pfm": decode_pfm, "hdr": decode_hdr, "ras": decode_ras}
+            "pfm": decode_pfm, "hdr": decode_hdr, "ras": decode_ras,
+            "webp": webp.decode_webp, "gif": gif.decode_gif, "jp2": jp2.decode_jp2}
+# the decoders that take a lane: (data, native)
+_LANED = {"tiff", "webp", "gif", "jp2"}
+_KINDS = "BMP/PNM/PAM/PFM/TIFF/WebP/HDR/RAS/JP2/GIF"
 
 
 def unported(kind: str) -> ValueError:
@@ -1193,14 +1199,15 @@ def unported(kind: str) -> ValueError:
 
 def decode(data: bytes, native: bool = True) -> np.ndarray:
     """Decode any `sniff` kind but PNG and JPEG (host/imageio.py has
-    those); `native` picks the lane of the JPEG inside a TIFF."""
+    those); `native` picks the lane of WebP, GIF, JPEG 2000 and the JPEG
+    inside a TIFF."""
     kind = sniff(data)
     if kind is None:
-        raise ValueError("not a BMP/PNM/PAM/PFM/TIFF/HDR/RAS file")
+        raise ValueError(f"not a {_KINDS} file")
     if kind in UNPORTED:
         raise unported(kind)
-    if kind == "tiff":
-        return decode_tiff(data, native)
+    if kind in _LANED:
+        return DECODERS[kind](data, native)
     return DECODERS[kind](data)
 
 
@@ -1243,10 +1250,16 @@ def probe_size(data: bytes):
             raise ValueError("corrupt RAS: truncated header")
         _, w, h = struct.unpack(">3i", data[:12])
         return h, w
+    if kind == "webp":
+        return webp.probe_webp_size(data)
+    if kind == "jp2":
+        return jp2.probe_jp2_size(data)
+    if kind == "gif":
+        return gif.probe_gif_size(data)
     if kind == "pam":
         m = re.search(rb"WIDTH\s+(\d+)", data[:256])
         m2 = re.search(rb"HEIGHT\s+(\d+)", data[:256])
         if not m or not m2:
             raise ValueError("corrupt PAM: truncated header")
         return int(m2.group(1)), int(m.group(1))
-    raise ValueError("not a BMP/PNM/PAM/PFM/TIFF/HDR/RAS file")
+    raise ValueError(f"not a {_KINDS} file")

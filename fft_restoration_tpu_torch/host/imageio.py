@@ -4,8 +4,9 @@ color semantics): the port's copy of the JAX package's utils/imageio.py.
 `decode_image_bgr` is the decoder of the CLI, the server and the PSF
 loader, dispatched on the magic bytes: PNG here (every bit depth, color
 type and Adam7), JPEG through host/jpeg.py, and BMP, PNM, PAM, TIFF,
-PFM, Radiance HDR and Sun Raster through host/formats.py. WebP, GIF,
-JPEG 2000, OpenEXR and AVIF raise ValueError naming ROADMAP.md A6b.
+PFM, Radiance HDR, Sun Raster, WebP (host/webp.py), GIF (host/gif.py)
+and JPEG 2000 (host/jp2.py) through host/formats.py. OpenEXR and AVIF
+raise ValueError naming ROADMAP.md A6b.
 `imwrite` picks the encoder by the file's extension, as the JAX imwrite
 does; `probe_size` reads a file's size from its headers alone, for
 grouping a directory's frames; `imread_batch` decodes a group, 8-bit
@@ -13,10 +14,12 @@ PNGs on the native thread pool.
 
 Two lanes. The native lane (the default) runs the PNG unfilter, the
 encoder's Paeth filter, the batch PNG decode and the JPEG loops in
-csrc/host/png_codec.cpp (host/native.py, built with g++ at first use);
-`native=False` takes the plain NumPy/Python version of each, which gives
-the same bits (the JPEG back half within 1 count). The plain PNG
-unfilter is a per-byte Python loop on Average and Paeth rows.
+csrc/host/png_codec.cpp, and the WebP, GIF LZW and JPEG 2000 Tier-1
+loops in csrc/host/webp_codec.cpp, gif_codec.cpp and jp2_t1.cpp
+(host/native.py, each built with g++ at first use); `native=False`
+takes the plain NumPy/Python version of each, which gives the same bits
+(the JPEG back half within 1 count). The plain PNG unfilter is a
+per-byte Python loop on Average and Paeth rows.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from fft_restoration_tpu_torch.host.native import load, ptr
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _DECODE_THREADS = 8
 _UNRECOGNISED = ("unrecognised image format (the port reads PNG, JPEG, BMP, PNM, PAM, TIFF, "
-                 "PFM, HDR and RAS)")
+                 "PFM, HDR, RAS, WebP, GIF and JPEG 2000)")
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int, native: bool = True) -> np.ndarray:
@@ -456,7 +459,7 @@ def imread_batch(paths, native: bool = True):
 
 
 # extensions whose JAX encoders are not ported yet (ROADMAP.md A6b)
-UNPORTED_WRITE = (".webp", ".gif", ".jp2", ".j2k", ".exr")
+UNPORTED_WRITE = (".exr",)
 
 
 def imwrite(path: str, img_bgr: np.ndarray) -> None:
@@ -465,8 +468,10 @@ def imwrite(path: str, img_bgr: np.ndarray) -> None:
     extension), `.jpg`/`.jpeg` (baseline, quality 90), `.bmp`/`.dib`,
     `.ppm`/`.pgm`/`.pnm`, `.pam`, `.pbm` (gray only), `.tif`/`.tiff`,
     `.hdr`/`.pic` (img / 255), `.pfm` (raw 0..255 floats, which read back
-    to the same uint8) and `.ras`/`.sr`. `.webp`, `.gif`, `.jp2`/`.j2k`
-    and `.exr` raise ValueError naming ROADMAP.md A6b and write nothing."""
+    to the same uint8), `.ras`/`.sr`, `.webp` (lossless VP8L), `.gif`
+    (an exact palette when <= 256 colors, else median cut) and
+    `.jp2`/`.j2k` (lossless 5/3). `.exr` raises ValueError naming
+    ROADMAP.md A6b and writes nothing."""
     img = np.asarray(img_bgr, dtype=np.uint8)
     if img.ndim == 3:
         img = img[..., ::-1]  # BGR -> RGB
@@ -494,6 +499,18 @@ def imwrite(path: str, img_bgr: np.ndarray) -> None:
         blob = formats.encode_pfm(img.astype(np.float32))
     elif ext in (".ras", ".sr"):
         blob = formats.encode_ras(img)
+    elif ext == ".webp":
+        from fft_restoration_tpu_torch.host.webp_encode import encode_webp
+
+        blob = encode_webp(img)
+    elif ext == ".gif":
+        from fft_restoration_tpu_torch.host.gif import encode_gif
+
+        blob = encode_gif(img)
+    elif ext in (".jp2", ".j2k"):
+        from fft_restoration_tpu_torch.host import jp2_encode
+
+        blob = (jp2_encode.encode_jp2 if ext == ".jp2" else jp2_encode.encode_j2k)(img)
     else:
         blob = encode_png(img)
     Path(path).write_bytes(blob)

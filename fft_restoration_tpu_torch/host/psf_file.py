@@ -3,8 +3,8 @@
 Counterpart of fft_restoration_tpu/ops/psf.py's load_psf_file, bit for
 bit on the formats the port reads: .npy, .txt and .csv arrays, and
 images in any format host/imageio.py decodes (averaged over the
-channels). WebP, GIF, JPEG 2000, OpenEXR and AVIF kernels are refused
-until their codecs are ported (ROADMAP.md A6b).
+channels), WebP, GIF and JPEG 2000 among them. OpenEXR and AVIF kernels
+are refused until their codecs are ported (ROADMAP.md A6b).
 """
 
 from __future__ import annotations

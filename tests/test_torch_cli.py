@@ -369,16 +369,21 @@ def test_psf_file_replaces_the_family(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("content,name", [(b"", "missing.npy"), (b"not a png", "k.png"),
-                                          (b"GIF89a", "k.gif")])
+                                          (b"GIF89a", "k.gif"),
+                                          (b"\x76\x2f\x31\x01" + bytes(40), "k.exr")])
 def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, name):
+    """A missing file, a corrupt PNG, a truncated GIF and an OpenEXR kernel
+    (not ported: it names ROADMAP.md A6b) exit 2."""
     path = tmp_path / name
     if content:
         path.write_bytes(content)
     assert cli.main([str(blurred_png), "1", "0", "--psf-file", str(path), "--device", "cpu"]) == 2
     text = capsys.readouterr().out
     assert "[Error] Cannot load PSF" in text
+    if name.endswith(".exr"):
+        assert "ROADMAP.md A6b" in text
     if name.endswith(".gif"):
-        assert "ROADMAP.md A6" in text
+        assert "corrupt GIF" in text
 
 
 def test_estimate_psf_motion_one_image(tmp_path, capsys):

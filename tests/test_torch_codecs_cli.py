@@ -86,7 +86,8 @@ def test_show_image_does_not_block_without_a_tty(monkeypatch):
     termview.show_image(img)  # stdout under pytest: stdin is not a TTY
 
 
-@pytest.mark.parametrize("ext", [".tif", ".bmp", ".ppm", ".pfm", ".jpg", ".png", ".ras"])
+@pytest.mark.parametrize("ext", [".tif", ".bmp", ".ppm", ".pfm", ".jpg", ".png", ".ras", ".webp",
+                                 ".gif", ".jp2"])
 def test_cli_writes_the_extensions_format(files, tmp_path, capsys, ext):
     """C4 on the CLI: -o out<ext> writes that format, the bytes of JAX's
     imwrite of the same restored frame (the port's pipeline on the
@@ -146,41 +147,53 @@ def test_cli_reference_read_error_is_printed(files, tmp_path, capsys):
 
 @pytest.mark.parametrize("ext", [".webp", ".gif", ".jp2", ".exr"])
 def test_cli_refuses_an_unported_output_before_any_work(files, tmp_path, capsys, ext):
+    """-o out.exr exits 2 naming ROADMAP.md A6b before any work; the
+    extensions A6b listed beside it are written now, JAX's imwrite bytes
+    of the restored frame."""
     out = tmp_path / f"out{ext}"
-    assert cli.main([str(files / "blurred.jpg"), "9", "30", "--device", "cpu",
-                     "-o", str(out)]) == 2
+    src = str(files / "blurred.jpg")
+    rc = cli.main([src, "9", "30", "--device", "cpu", "-o", str(out)])
     text = capsys.readouterr().out
-    assert "ROADMAP.md A6b" in text and "Deblurring" not in text
-    assert not out.exists()
+    if ext == ".exr":
+        assert rc == 2 and "ROADMAP.md A6b" in text and "Deblurring" not in text
+        assert not out.exists()
+        return
+    assert rc == 0 and "A6b" not in text, text
+    jio.imwrite(str(tmp_path / f"jax{ext}"), WienerDeblurPipeline("cpu").restore(
+        imageio.imread(src), 9, 30.0))
+    assert out.read_bytes() == (tmp_path / f"jax{ext}").read_bytes()
 
 
 def test_directory_of_mixed_formats(files, tmp_path, capsys):
-    """PNG, JPEG, TIFF and BMP frames of one size go into one batch
-    group and are all restored; a WebP is skipped naming A6b; the
-    directory ignores --reference and --show."""
+    """PNG, JPEG, TIFF, BMP and WebP frames of one size go into one batch
+    group and are all restored; an OpenEXR stream is skipped naming A6b
+    (under a .tif name: the directory list, JAX's, has no .exr, and the
+    decoder goes by the magic bytes); the directory ignores --reference
+    and --show."""
     from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
 
     src = tmp_path / "frames"
     src.mkdir()
-    frames = [blur_image(_scene(40, 48, s), 9, 30.0) for s in range(4)]
-    for name, f in zip(("a.png", "b.jpg", "c.tif", "d.bmp"), frames):
+    names = ("a.png", "b.jpg", "c.tif", "d.bmp", "f.webp")
+    frames = [blur_image(_scene(40, 48, s), 9, 30.0) for s in range(len(names))]
+    for name, f in zip(names, frames):
         imageio.imwrite(str(src / name), f)
-    (src / "e.webp").write_bytes(b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(16))
+    (src / "e.tif").write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
     out = tmp_path / "out"
     rc = cli.main([str(src), "9", "30", "--device", "cpu", "-o", str(out),
                    "--reference", str(files / "sharp.png"), "--show"])
     text = capsys.readouterr().out
     assert rc == 0, text
     assert "directory mode ignores --reference and --show" in text
-    assert "Restored 4 frames" in text and "[1 skipped]" in text and "A6b" in text
-    names = ("a.png", "b.jpg", "c.tif", "d.bmp")
+    assert "Restored 5 frames" in text and "[1 skipped]" in text and "A6b" in text
     stack = np.stack([imageio.imread(str(src / n)) for n in names])
     want = BatchedWienerPipeline("cpu").restore(stack, 9, 30.0)
     for n, w in zip(names, want):
         np.testing.assert_array_equal(imageio.imread(str(out / f"{n.split('.')[0]}_restored.png")), w)
 
 
-@pytest.mark.parametrize("ext", [".png", ".jpg", ".tif", ".bmp", ".pgm", ".pfm", ".ras", ".hdr"])
+@pytest.mark.parametrize("ext", [".png", ".jpg", ".tif", ".bmp", ".pgm", ".pfm", ".ras", ".hdr",
+                                 ".webp", ".gif", ".jp2"])
 def test_load_psf_file_reads_every_ported_format(tmp_path, ext):
     """A PSF image in any ported format loads bitwise as the JAX loader
     loads it (gray frames repeat to 3 channels, then the mean)."""

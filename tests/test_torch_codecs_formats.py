@@ -1,7 +1,7 @@
 """The port's host/formats.py (TIFF, PFM, Radiance HDR, Sun Raster, PBM
-beside BMP/PNM/PAM), its `sniff`/`probe_size`, and host/imageio.imwrite
-by extension, against the JAX package's utils/formats.py and
-utils/imageio.py on the same bytes.
+beside BMP/PNM/PAM, and its dispatch to WebP, GIF and JPEG 2000), its
+`sniff`/`probe_size`, and host/imageio.imwrite by extension, against the
+JAX package's utils/formats.py and utils/imageio.py on the same bytes.
 
 Inputs: seeded frames, written by hand-built encoders here (TIFF IFDs of
 every layout, PFM, RGBE scanlines, raster rows) or, for the TIFF
@@ -10,7 +10,8 @@ PIL through importorskip, as the JAX tests do. Tolerance: bitwise, for
 decodes (both JPEG lanes inside TIFF against JAX's native lane: a TIFF's
 JPEG strips decode bitwise on the native lane, and within 1 count on
 the plain one), encodes (bytes) and probes; refusals raise the same
-exception type as JAX, and an unported kind names ROADMAP.md A6b.
+exception type as JAX, and an unported kind (OpenEXR, AVIF) names
+ROADMAP.md A6b.
 """
 
 import io
@@ -440,27 +441,49 @@ def test_encode_ras_pbm_pfm_bytes_equal_jax(shape):
 # sniff, probe_size, the unported kinds
 
 
-UNPORTED_BLOBS = {
-    "webp": b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(16),
-    "jp2": b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(16),
-    "j2k": b"\xff\x4f\xff\x51" + bytes(40),
-    "exr": b"\x76\x2f\x31\x01" + bytes(40),
-    "gif": b"GIF89a\x04\x00\x03\x00" + bytes(20),
-    "avif": b"\x00\x00\x00\x1cftypavif" + bytes(20),
-}
+def _a6b_blob(kind):
+    """A header-only blob of each kind ROADMAP.md A6b listed; the kinds
+    ported since (WebP, GIF, JPEG 2000) as a real stream of the JAX
+    encoders."""
+    img = _rng(21).integers(0, 256, (6, 9, 3)).astype(np.uint8)
+    if kind == "webp":
+        from fft_restoration_tpu.utils.webp_encode import encode_webp
+
+        return encode_webp(img)
+    if kind == "gif":
+        from fft_restoration_tpu.utils.gif import encode_gif
+
+        return encode_gif(img)
+    if kind in ("jp2", "j2k"):
+        from fft_restoration_tpu.utils import jp2_encode
+
+        return (jp2_encode.encode_jp2 if kind == "jp2" else jp2_encode.encode_j2k)(img)
+    return {"exr": b"\x76\x2f\x31\x01" + bytes(40),
+            "avif": b"\x00\x00\x00\x1cftypavif" + bytes(20)}[kind]
 
 
-@pytest.mark.parametrize("kind", sorted(UNPORTED_BLOBS))
+@pytest.mark.parametrize("kind", ["avif", "exr", "gif", "j2k", "jp2", "webp"])
 def test_unported_kinds_name_a6b(kind, tmp_path):
-    blob = UNPORTED_BLOBS[kind]
+    """OpenEXR and AVIF name ROADMAP.md A6b everywhere; the kinds A6b
+    listed beside them and that are ported now decode, probe and read
+    from a file bitwise as JAX does."""
+    blob = _a6b_blob(kind)
     assert formats.sniff(blob) == jf.sniff(blob)
-    for fn in (formats.decode, formats.probe_size, imageio.decode_image_bgr):
-        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-            fn(blob)
     path = tmp_path / f"x.{kind}"
     path.write_bytes(blob)
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        imageio.probe_size(str(path))
+    if kind in ("exr", "avif"):
+        for fn in (formats.decode, formats.probe_size, imageio.decode_image_bgr):
+            with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+                fn(blob)
+        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+            imageio.probe_size(str(path))
+        return
+    np.testing.assert_array_equal(formats.decode(blob), jf.decode(blob))
+    np.testing.assert_array_equal(formats.decode(blob, native=False), jf.decode(blob))
+    assert formats.probe_size(blob) == jf.probe_size(blob) == (6, 9)
+    np.testing.assert_array_equal(imageio.decode_image_bgr(blob), jio.decode_image_bgr(blob))
+    assert imageio.probe_size(str(path)) == jio.probe_size(str(path)) == (6, 9)
+    np.testing.assert_array_equal(imageio.imread(str(path)), jio.imread(str(path)))
 
 
 def _every_format(img_rgb):
@@ -471,7 +494,16 @@ def _every_format(img_rgb):
             "pgm": jf.encode_pnm(gray), "pam": jf.encode_pam(img_rgb), "pbm": jf.encode_pbm(gray),
             "tif": jf.encode_tiff(img_rgb), "pfm": jf.encode_pfm(img_rgb.astype(np.float32)),
             "hdr": jf.encode_hdr(img_rgb.astype(np.float32) / 255.0),
-            "ras": jf.encode_ras(img_rgb)}
+            "ras": jf.encode_ras(img_rgb), "webp": _a6b_enc("webp", img_rgb),
+            "gif": _a6b_enc("gif", img_rgb), "jp2": _a6b_enc("jp2", img_rgb),
+            "j2k": _a6b_enc("j2k", img_rgb)}
+
+
+def _a6b_enc(kind, img_rgb):
+    from fft_restoration_tpu.utils import gif, jp2_encode, webp_encode
+
+    return {"webp": webp_encode.encode_webp, "gif": gif.encode_gif,
+            "jp2": jp2_encode.encode_jp2, "j2k": jp2_encode.encode_j2k}[kind](img_rgb)
 
 
 def test_sniff_and_probe_size_match_jax_on_every_format(tmp_path):
@@ -497,12 +529,14 @@ def test_sniff_and_probe_size_match_jax_on_every_format(tmp_path):
 
 
 WRITE_EXTS = [".png", ".jpg", ".jpeg", ".bmp", ".dib", ".ppm", ".pgm", ".pnm", ".pam", ".tif",
-              ".tiff", ".hdr", ".pic", ".pfm", ".ras", ".sr", ".xyz", ""]
+              ".tiff", ".hdr", ".pic", ".pfm", ".ras", ".sr", ".xyz", "", ".webp", ".gif",
+              ".jp2", ".j2k"]
 MAGIC = {".png": b"\x89PNG", ".jpg": b"\xff\xd8", ".jpeg": b"\xff\xd8", ".bmp": b"BM",
          ".dib": b"BM", ".ppm": b"P6", ".pgm": b"P6", ".pnm": b"P6", ".pam": b"P7",
          ".tif": b"II*\x00", ".tiff": b"II*\x00", ".hdr": b"#?RADIANCE", ".pic": b"#?RADIANCE",
          ".pfm": b"PF", ".ras": b"\x59\xa6\x6a\x95", ".sr": b"\x59\xa6\x6a\x95",
-         ".xyz": b"\x89PNG", "": b"\x89PNG"}
+         ".xyz": b"\x89PNG", "": b"\x89PNG", ".webp": b"RIFF", ".gif": b"GIF89a",
+         ".jp2": b"\x00\x00\x00\x0cjP  ", ".j2k": b"\xff\x4f\xff\x51"}
 
 
 @pytest.mark.parametrize("ext", WRITE_EXTS)
@@ -518,7 +552,7 @@ def test_imwrite_bytes_equal_jax(ext, tmp_path):
 
 
 @pytest.mark.parametrize("ext", [".png", ".jpg", ".bmp", ".pgm", ".pam", ".pbm", ".tif",
-                                 ".hdr", ".pfm", ".ras"])
+                                 ".hdr", ".pfm", ".ras", ".webp", ".gif", ".jp2"])
 def test_imwrite_gray_bytes_equal_jax(ext, tmp_path):
     img = _rng(9).integers(0, 256, (6, 11)).astype(np.uint8)
     imageio.imwrite(str(tmp_path / f"a{ext}"), img)
@@ -526,15 +560,24 @@ def test_imwrite_gray_bytes_equal_jax(ext, tmp_path):
     assert (tmp_path / f"a{ext}").read_bytes() == (tmp_path / f"b{ext}").read_bytes()
 
 
-@pytest.mark.parametrize("ext", [".webp", ".gif", ".jp2", ".j2k", ".exr", ".GIF"])
+@pytest.mark.parametrize("ext", [".webp", ".gif", ".jp2", ".j2k", ".exr", ".GIF", ".EXR"])
 def test_imwrite_refuses_unported_and_writes_nothing(ext, tmp_path):
+    """.exr (any case) names ROADMAP.md A6b and writes nothing; the
+    extensions A6b listed beside it write JAX's bytes now."""
     path = tmp_path / f"a{ext}"
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        imageio.imwrite(str(path), np.zeros((4, 4, 3), np.uint8))
-    assert not path.exists()
+    img = _rng(5).integers(0, 256, (4, 4, 3)).astype(np.uint8)
+    if ext.lower() == ".exr":
+        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+            imageio.imwrite(str(path), img)
+        assert not path.exists()
+        return
+    imageio.imwrite(str(path), img)
+    jio.imwrite(str(tmp_path / f"jax{ext}"), img)
+    assert path.read_bytes() == (tmp_path / f"jax{ext}").read_bytes()
 
 
-@pytest.mark.parametrize("ext", [".png", ".bmp", ".ppm", ".pam", ".tif", ".pfm", ".ras"])
+@pytest.mark.parametrize("ext", [".png", ".bmp", ".ppm", ".pam", ".tif", ".pfm", ".ras",
+                                 ".webp", ".gif", ".jp2", ".j2k"])
 def test_lossless_round_trip(ext, tmp_path):
     img = _rng(13).integers(0, 256, (12, 9, 3)).astype(np.uint8)
     imageio.imwrite(str(tmp_path / f"a{ext}"), img)

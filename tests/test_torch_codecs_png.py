@@ -10,6 +10,7 @@ patched off, as its own tests do); and the port's two lanes against each
 other.
 """
 
+import dataclasses
 import struct
 import time
 import zlib
@@ -266,7 +267,7 @@ def test_corrupt_pngs_raise_value_error_as_jax():
 def test_native_build_is_cached_and_named_by_its_inputs():
     lib = native.load()
     assert native.load() is lib
-    built = list(native.BUILD_ROOT.glob(f"*/{native.LIB_NAME}"))
+    built = list(native.BUILD_ROOT.glob(f"*/{native.LIBRARIES['hostcodec'].lib_name}"))
     assert built and all(p.parent.parent == native.BUILD_ROOT for p in built)
     assert native.CXX_FLAGS[:2] == ("-O3", "-march=native")
 
@@ -274,9 +275,10 @@ def test_native_build_is_cached_and_named_by_its_inputs():
 def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     bad = tmp_path / "png_codec.cpp"
     bad.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SOURCE", bad)
+    spec = native.LIBRARIES["hostcodec"]
+    monkeypatch.setitem(native.LIBRARIES, "hostcodec", dataclasses.replace(spec, source=bad))
     monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
-    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_libs", {})
     with pytest.raises(RuntimeError, match="g\\+\\+ failed") as e:
         native.load()
     assert "error" in str(e.value)  # the compiler's own output

@@ -142,8 +142,9 @@ def _write_kernels(tmp_path):
     np.savetxt(tmp_path / "k.csv", k, delimiter=",")
     img = np.zeros((6, 4, 3), np.uint8)
     img[1:5, 1:3] = [[[10, 60, 200]]]
-    imageio.imwrite(str(tmp_path / "k.png"), img)
-    return [tmp_path / f"k.{e}" for e in ("npy", "txt", "csv", "png")]
+    for e in ("png", "webp", "gif", "jp2"):
+        imageio.imwrite(str(tmp_path / f"k.{e}"), img)
+    return [tmp_path / f"k.{e}" for e in ("npy", "txt", "csv", "png", "webp", "gif", "jp2")]
 
 
 def test_load_psf_file_matches(tmp_path):
@@ -169,12 +170,17 @@ def test_load_psf_file_refuses_what_jax_refuses(tmp_path, kernel, match):
 
 
 def test_load_psf_file_refuses_unported_images(tmp_path):
-    """A GIF kernel names ROADMAP.md A6b; a truncated JPEG (a ported
-    format) raises ValueError, as the JAX loader does."""
-    path = tmp_path / "k.gif"
-    path.write_bytes(b"GIF89a\x01\x00\x01\x00")
+    """An OpenEXR kernel names ROADMAP.md A6b; a truncated JPEG or GIF (two
+    ported formats) raises ValueError, as the JAX loader does."""
+    path = tmp_path / "k.exr"
+    path.write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
     with pytest.raises(ValueError, match="ROADMAP.md A6b"):
         load_psf_file(str(path))
+    path = tmp_path / "k.gif"
+    path.write_bytes(b"GIF89a\x01\x00\x01\x00")
+    for fn in (load_psf_file, j_load_psf_file):
+        with pytest.raises(ValueError):
+            fn(str(path))
     path = tmp_path / "k.jpg"
     path.write_bytes(b"\xff\xd8\xff")
     for fn in (load_psf_file, j_load_psf_file):
@@ -435,21 +441,23 @@ def test_decode_image_bgr_png_matches_jax(layout):
 
 
 def test_decode_image_bgr_refusals(tmp_path):
-    """Formats not ported (GIF, WebP) name ROADMAP.md A6b; a truncated or
-    corrupt stream (JPEG, TIFF and the rest) is a ValueError, as in JAX."""
-    for blob in (b"GIF89a\x01\x00", b"RIFF\x10\x00\x00\x00WEBPVP8L"):
+    """Formats not ported (OpenEXR, AVIF) name ROADMAP.md A6b; a truncated
+    or corrupt stream (JPEG, TIFF, GIF, WebP and the rest) is a
+    ValueError, as in JAX."""
+    for blob in (b"\x76\x2f\x31\x01" + bytes(40), b"\x00\x00\x00\x1cftypavif" + bytes(20)):
         with pytest.raises(ValueError, match="ROADMAP.md A6b"):
             imageio.decode_image_bgr(blob)
     img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), dtype=np.uint8)
     for blob in (formats.encode_bmp(img)[:60], formats.encode_bmp(img)[:40],
                  formats.encode_pnm(img)[:30], formats.encode_pam(img)[:70], b"P7\nWIDTH 4\n",
                  b"P5\n4 4\n255\n\x00", b"\xff\xd8\xff\xe0\x00\x10JFIF", b"II*\x00\x08\x00",
-                 b"not an image"):
+                 b"not an image", b"GIF89a\x01\x00", b"RIFF\x10\x00\x00\x00WEBPVP8L",
+                 b"\xff\x4f\xff\x51" + bytes(40)):
         for dec in (imageio.decode_image_bgr, jio.decode_image_bgr):
             with pytest.raises(ValueError):
                 dec(blob)
-    path = tmp_path / "x.gif"
-    path.write_bytes(b"GIF89a\x01\x00")
+    path = tmp_path / "x.exr"
+    path.write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
     with pytest.raises(ValueError, match="ROADMAP.md A6b"):
         imageio.imread(str(path))
 

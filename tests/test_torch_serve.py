@@ -150,29 +150,42 @@ def test_restore_bmp_with_params(server):
 
 
 def test_restore_pnm_and_pam_roundtrip(server):
-    """PNM and PAM flow through the serving surface; GIF is not ported
-    (a 400 naming ROADMAP.md A6b), where the JAX test posts one."""
+    """PNM, PAM and GIF (which the JAX test posts too) flow through the
+    serving surface, each the restore of its decoded frame (PNM and PAM
+    keep the frame exactly, the GIF's median cut does not); OpenEXR is
+    not ported (a 400 naming ROADMAP.md A6b)."""
+    from fft_restoration_tpu_torch.host.gif import decode_gif, encode_gif
+
     img = ((_frame(5, 16, 32) // 32) * 32).astype(np.uint8)
     rgb = img[..., ::-1]
-    for blob in (formats.encode_pnm(rgb), formats.encode_pam(rgb)):
+    gif_blob = encode_gif(rgb)
+    for blob, frame in ((formats.encode_pnm(rgb), img), (formats.encode_pam(rgb), img),
+                        (gif_blob, decode_gif(gif_blob)[..., ::-1].copy())):
         status, data = _post(server, "/restore", blob)
         assert status == 200
-        np.testing.assert_array_equal(decode_png_bgr(data), _pipe().restore(img, 5, 30.0))
-    status, data = _post(server, "/restore", b"GIF89a" + bytes(32))
+        np.testing.assert_array_equal(decode_png_bgr(data), _pipe().restore(frame, 5, 30.0))
+    status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))
     assert status == 400 and b"A6b" in data
 
 
-@pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette"])
+@pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette", "webp", "gif", "jp2"])
 def test_restore_jpeg_tiff_and_palette_bodies(server, fmt):
-    """A JPEG, a 16-bit TIFF and a palette PNG body are served (200): the
-    pipeline's restore of the decoded frame, bit for bit, in the JAX
-    server's PNG bytes (encode_png, every row Paeth-filtered)."""
+    """A JPEG, a 16-bit TIFF, a palette PNG, a lossless WebP, a GIF and a
+    JPEG 2000 body are served (200): the pipeline's restore of the decoded
+    frame, bit for bit, in the JAX server's PNG bytes (encode_png, every
+    row Paeth-filtered)."""
     from fft_restoration_tpu_torch.host import imageio
     from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
 
     img = blur_image(_frame(8, 24, 40), 5, 30.0)
     if fmt == "jpeg":
         blob = encode_jpeg(img[..., ::-1])
+    elif fmt in ("webp", "gif", "jp2"):
+        from fft_restoration_tpu_torch.host import gif, jp2_encode, webp_encode
+
+        enc = {"webp": webp_encode.encode_webp, "gif": gif.encode_gif,
+               "jp2": jp2_encode.encode_jp2}[fmt]
+        blob = enc(img[..., ::-1])
     elif fmt == "tiff16":
         rgb16 = img[..., ::-1].astype(np.uint16) * 257 + 100
         blob = formats.encode_tiff(img[..., ::-1])
@@ -241,7 +254,9 @@ def test_bad_requests(server):
     assert status == 404
     status, _ = _post(server, "/restore", b"")
     assert status == 400
-    status, data = _post(server, "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L")  # WebP: A6b
+    status, data = _post(server, "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L")  # truncated
+    assert status == 400 and b"corrupt WebP" in data
+    status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))  # OpenEXR: A6b
     assert status == 400 and b"A6b" in data
     status, data = _post(server, "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF")  # truncated
     assert status == 400 and b"corrupt JPEG" in data
