@@ -27,7 +27,9 @@ gaussian at 2048^2, the noise K) and the PSF family on the CLI
 dynamic batcher under tools/serve_slo.py's load; the sharded restore on rows
 and (batch, rows) meshes laid on the one card; the host codec layer (JPEG,
 16-bit TIFF, PNG, BMP inputs through the CLI and a directory, -o by
-extension); WebP, GIF and JPEG 2000 through the CLI and the server.
+extension); WebP, GIF and JPEG 2000 through the CLI and the server;
+OpenEXR and CCITT fax TIFF through the CLI and the server, and the
+op-trace probe.
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds) and,
@@ -155,8 +157,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              (each within 1 count of the single, co-batched: occupancy >
              1), filter=rl&iters=3, edgetaper=1, auto_k=1, estimate=1
              and tile=1024 on the 4096x6144 BMP and the 640x330 frame
-             as a JPEG body (each bitwise its library call), 400 for an
-             OpenEXR body, a corrupt WebP body, tile=192 and iters=999,
+             as a JPEG body (each bitwise its library call), 400 for a
+             header-only OpenEXR body, an AVIF body, a corrupt WebP
+             body, tile=192 and iters=999,
              404, 413; tools/serve_slo.py's three phases (batch, mixed,
              giant: p50/p95/p99, occupancy a phase) and a burst of 8
              under torch.profiler (device busy a served frame, idle
@@ -214,11 +217,31 @@ Phases, each printing its own lines; any failure exits non-zero:
              WebP and one GIF request to an in-process server, each the
              pixels of the same frame's PNG request; the host ms of each
              encode, native decode and plain decode, beside the card's
-             name and power limit and the CPU.
+             name and power limit and the CPU;
+ 10. exr/fax OpenEXR, CCITT fax and the probe (check_exr_fax): each
+     probe   decoder against a reference that does not depend on the JAX
+             package (EXR round trips in every lossless compression and
+             pixel type, scanline, tiled, mipmap and ripmap; PXR24 float
+             against float24 rounding; B44/B44A within the JAX tests'
+             bounds; the six DWA fixtures against libOpenEXR's decode in
+             tests/data/dwa_reference.npz; the fax fixtures of
+             tests/data/torch_codecs/ against their pixels); a blurred
+             2048^2x3 frame as .exr (half ZIP), a 640x330 one as a half
+             PIZ .exr and the 640x330 G4 fixture through the CLI with the
+             counters reset (B1-B5 must launch), the oracle at the inf
+             tier, -o in kind (.exr, .tif) read back bitwise the
+             pipeline's restore; one OpenEXR and one G4 request, each the
+             pixels of the same frame's PNG request; the probe at 2048^2
+             (tools/trace_ops_probe.py, counters reset: its op table names
+             B1-B5's kernels, its four fphase_ ranges hold >= 98% of
+             device busy, the unattributed rest printed);
+             the host ms of each EXR encode and decode at 2048^2 (PIZ at
+             256^2), the DWA fixtures' and the fax fixtures' decodes.
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
-kernel table and the timings; phase 9's under "codecs_native_left"),
+kernel table and the timings; phase 9's under "codecs_native_left",
+phase 10's under "exr_fax_probe"),
 the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
@@ -2713,7 +2736,9 @@ def check_serve(torch, np, seed):
             f"rl, edgetaper, auto_k, estimate, the JPEG body and tile={TILED_TILE} bitwise "
             f"(client ms { {p: round(checks[p]['client_ms'], 2) for p in opt_paths} })")
         refusals = (
-            ("OpenEXR body", "POST", "/restore", b"\x76\x2f\x31\x01" + bytes(64), None, 400),
+            ("header-only OpenEXR body", "POST", "/restore", b"\x76\x2f\x31\x01" + bytes(64),
+             None, 400),
+            ("AVIF body", "POST", "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20), None, 400),
             ("corrupt WebP body", "POST", "/restore",
              b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(64), None, 400),
             ("tile=192", "POST", "/restore?tile=192", bodies["small"], None, 400),
@@ -2726,8 +2751,8 @@ def check_serve(torch, np, seed):
             status, data, _ = _http(addr, method, path, body, headers)
             if status != want:
                 fail(f"serve: {name} gave {status}, expected {want}: {data[:200]}")
-        checks["refusals"] = ("400 OpenEXR, 400 corrupt WebP, 400 tile=192, 400 iters=999, "
-                              "404, 413")
+        checks["refusals"] = ("400 header-only OpenEXR, 400 AVIF, 400 corrupt WebP, "
+                              "400 tile=192, 400 iters=999, 404, 413")
         t0 = time.perf_counter()
         load = serve_slo.run(f"http://{addr[0]}:{addr[1]}", seed, bodies)
         log(f"serve: load twin ({time.perf_counter() - t0:.1f} s): "
@@ -3240,14 +3265,19 @@ def check_codecs(torch, np, seed):
 # jp2_t1.cpp), through the CLI and the server
 
 
+def fixture_dir(*parts) -> str:
+    import os
+
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", *parts)
+
+
 def codec_fixtures() -> dict:
     """The committed streams the port's encoders never write (lossy VP8,
     ALPH, VP8X, VP8L with its transforms, the color cache and LZ77, an
     interlaced transparent GIF, a 9/7 JPEG 2000): name -> bytes."""
     import os
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
-                        "torch_codecs")
+    root = fixture_dir("torch_codecs")
     out = {}
     for name in sorted(os.listdir(root)):
         if name.endswith((".webp", ".gif", ".jp2")):
@@ -3410,11 +3440,315 @@ def check_codecs_left(torch, np, seed):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: OpenEXR (host/exr.py and its codecs), CCITT fax in TIFF
+# (host/fax.py) and the op-trace probe (tools/trace_ops_probe.py)
+
+PROBE_PHASES = ("fft_image", "spectral_fused", "ifft", "post_process")  # models/pipeline.py
+MAIN_KERNEL_NAMES = {  # B1-B5 by the names csrc/ gives their kernels
+    "B1": "fft_rows_t_kernel", "B2": "spectral_s_kernel", "B3": "fft_rows_kernel",
+    "B4": "lab_l_partials_kernel", "B5": "wb_encode_kernel"}
+
+
+def fax_fixtures(np) -> dict:
+    """The committed fax TIFFs (tests/data/torch_codecs/, written by PIL's
+    libtiff coder) with their pixels: name -> (bytes, (H, W) uint8)."""
+    import os
+
+    root = fixture_dir("torch_codecs")
+    pixels = {"fax_scene_640x330.npy": None, "fax_sweep_g4_2624.npy": None}
+    for name in pixels:
+        pixels[name] = np.load(os.path.join(root, name))
+    out = {}
+    for name in ("fax_g3_640x330.tif", "fax_g4_640x330.tif", "fax_mh_640x330.tif",
+                 "fax_sweep_g4_2624.tif"):
+        with open(os.path.join(root, name), "rb") as f:
+            blob = f.read()
+        packed = pixels["fax_sweep_g4_2624.npy" if "sweep" in name else "fax_scene_640x330.npy"]
+        w = 2624 if "sweep" in name else SMALL_HW[1]
+        out[name] = (blob, np.unpackbits(packed, axis=1, count=w) * np.uint8(255))
+    return out
+
+
+def exr_files():
+    """tests/data/torch_codecs/exr_files.py (OpenEXR files built by hand
+    from the file layout, shared with the port's EXR tests), loaded by
+    path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "exr_files", fixture_dir("torch_codecs", "exr_files.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_exr_fax_decoders(np, seed):
+    """Phase 10 (a): each decoder against a reference that does not
+    depend on the JAX package, on this machine's CPU. OpenEXR round trips
+    of a 37x61x3 frame: every lossless compression (none, rle, zips, zip,
+    piz; pxr24 on half and uint) in half, float and uint, bitwise the
+    frame cast to the pixel type, scanline and in 16x16 and 5x7 tiles;
+    PXR24 float bitwise the float24 rounding of the frame (computed here);
+    B44/B44A within the JAX tests' bounds (every 4x4 block's anchor pixel
+    exact, < 0.05 on a smooth frame, flat blocks exact); a mipmap (both
+    roundings) and a ripmap file built by hand (exr_files.tiled_levels),
+    level (0, 0) bitwise; the six
+    DWA fixtures against dwa_reference.npz (libOpenEXR 3.1's decode) at
+    tests/test_exr_dwa.py's tolerance; the committed fax TIFFs against
+    their pixels. Returns the checks."""
+    import os
+
+    from fft_restoration_tpu_torch.host import exr, formats
+
+    rng = np.random.default_rng(seed + 1100)
+    img = (rng.random((37, 61, 3)) * 1.6 - 0.2).astype(np.float32)
+    checks = {}
+    for pt in ("half", "float", "uint"):
+        src = np.rint(np.abs(img) * 3000).astype(np.float32) if pt == "uint" else img
+        ref = {"half": src.astype(np.float16).astype(np.float32), "float": src,
+               "uint": src.astype(np.uint32).astype(np.float32)}[pt]
+        comps = ("none", "rle", "zips", "zip", "piz") + (("pxr24",) if pt != "float" else ())
+        for comp in comps:
+            for tiles in (None, (16, 16), (5, 7)):
+                got, names = exr.decode_exr_float(exr.encode_exr(src, pt, comp, tiles=tiles))
+                if names != ["R", "G", "B"] or not np.array_equal(got.view(np.uint32),
+                                                                    ref.view(np.uint32)):
+                    fail(f"exr: {pt} {comp} tiles={tiles} does not round-trip bitwise")
+        checks[f"lossless_{pt}"] = list(comps)
+    u = img.view(np.uint32)
+    f24 = ((u & 0x80000000) | ((((u & 0x7FFFFFFF) + 0x80) >> 8) << 8)).view(np.float32)
+    got, _ = exr.decode_exr_float(exr.encode_exr(img, "float", "pxr24"))
+    if not np.array_equal(got.view(np.uint32), f24.view(np.uint32)):
+        fail("exr: PXR24 float is not the float24 rounding of the frame")
+    checks["pxr24_float"] = "float24 rounding, bitwise"
+    y, x = np.mgrid[0:48, 0:37]
+    smooth = (0.3 + 0.5 * np.sin(x / 17.0) * np.cos(y / 23.0)).astype(np.float32)
+    flat = np.full((32, 32), 0.625, np.float32)
+    half = img[..., 0].astype(np.float16).astype(np.float32)
+    b44 = {}
+    for comp in ("b44", "b44a"):
+        anchors, _ = exr.decode_exr_float(exr.encode_exr(img[..., 0], "half", comp))
+        sm, _ = exr.decode_exr_float(exr.encode_exr(smooth, "half", comp))
+        fl, _ = exr.decode_exr_float(exr.encode_exr(flat, "half", comp))
+        err = float(np.abs(sm - smooth.astype(np.float16).astype(np.float32)).max())
+        if (not np.array_equal(anchors[0::4, 0::4], half[0::4, 0::4]) or not err < 0.05
+                or not np.array_equal(fl, flat)):
+            fail(f"exr: {comp} misses the JAX tests' bounds (smooth max {err})")
+        b44[comp] = dict(smooth_max_abs=err, anchors_exact=True, flat_exact=True)
+    checks["b44"] = b44
+    ef = exr_files()
+    for mode, rounding in ((1, 0), (1, 1), (2, 0), (2, 1)):
+        for h, w in ((4, 5), (7, 3)):
+            blob, vals = ef.tiled_levels(h, w, mode, rounding, seed + h * w)
+            got, _ = exr.decode_exr_float(blob)
+            if not np.array_equal(got, vals):
+                fail(f"exr: level mode {mode} rounding {rounding} at {h}x{w}: level 0 differs")
+    checks["mipmap_ripmap"] = "level (0, 0) bitwise, both roundings"
+    ref = np.load(fixture_dir("dwa_reference.npz"))
+    dwa = {}
+    for name, sel in (("dwaa_rgb_half", "RGB"), ("dwab_rgb_half", "RGB"),
+                      ("dwaa_rgba_half", "RGBA"), ("dwaa_rgb_float", "RGB"),
+                      ("dwaa_gray_half", "R"), ("dwaa_rgbz", "RGB")):
+        with open(fixture_dir(f"{name}.exr"), "rb") as f:
+            got, _ = exr.decode_exr_float(f.read())
+        got = got if got.ndim == 3 else got[..., None]
+        names = [str(c) for c in ref[name + "__names"]]
+        want = ref[name][..., [names.index(c) for c in sel]]
+        diff = np.abs(got - want)
+        ulp = np.maximum(np.abs(want), 1.0) * 2 ** -10
+        if not ((diff <= 4 * ulp + 1e-7).all() and float(diff.mean()) < 1e-4):
+            fail(f"exr: DWA fixture {name} off libOpenEXR's decode (max {float(diff.max())})")
+        dwa[name] = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()))
+    checks["dwa_vs_libopenexr"] = dwa
+    fax_checks = {}
+    for name, (blob, want) in fax_fixtures(np).items():
+        got = formats.decode_tiff(blob)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            fail(f"fax: {name} does not decode to its committed pixels")
+        fax_checks[name] = list(got.shape)
+    checks["fax_fixtures"] = fax_checks
+    return checks
+
+
+def exr_fax_host_ms(np, frame, small):
+    """Phase 10's host ms on this machine's CPU (host clock, best of 3;
+    RLE at 2048^2 once: its coder is a per-byte Python loop): the OpenEXR
+    encode and decode of the 2048^2x3 frame (/ 255, half) per compression
+    (PIZ at 256^2), the six DWA fixtures' decode, and the fax decode of the
+    640x330 G3 / G4 / MH fixtures and of the 2624-wide G4 sweep."""
+    import os
+
+    from fft_restoration_tpu_torch.host import exr, formats
+
+    times = {}
+    img = frame[..., ::-1].astype(np.float32) / 255.0
+    for comp in ("none", "rle", "zips", "zip", "pxr24", "b44", "b44a", "piz"):
+        src = img[:256, :256] if comp == "piz" else img
+        tag = f"{comp}_{'256sq' if comp == 'piz' else '2048sq'}"
+        n = 1 if comp == "rle" else 3
+        times[f"exr_encode_{tag}"], blob = best_ms(lambda: exr.encode_exr(src, "half", comp), n)
+        times[f"exr_decode_{tag}"], _ = best_ms(lambda: exr.decode_exr(blob), n)
+    for name in ("dwaa_rgb_half", "dwab_rgb_half", "dwaa_rgba_half", "dwaa_rgb_float",
+                 "dwaa_gray_half", "dwaa_rgbz"):
+        with open(fixture_dir(f"{name}.exr"), "rb") as f:
+            blob = f.read()
+        times[f"exr_decode_{name}"], _ = best_ms(lambda: exr.decode_exr(blob))
+    for name, (blob, _) in fax_fixtures(np).items():
+        times[f"fax_decode_{os.path.splitext(name)[0]}"], _ = best_ms(
+            lambda: formats.decode_tiff(blob))
+    return times
+
+
+def check_exr_fax(torch, np, seed):
+    """Phase 10: OpenEXR, fax and the probe on the card machine. (a)
+    check_exr_fax_decoders; (b) through the CLI on the kernel route with
+    the counters reset (B1-B5 must launch), each verified by the CLI
+    against the serial oracle at the inf tier, with -o in kind: a blurred
+    2048^2x3 frame written by imwrite as .exr (half ZIP) and -o .exr, a
+    640x330 frame as a half PIZ .exr and -o .exr, the 640x330 G4 fixture
+    and -o .tif; each output read back bitwise the pipeline's restore of
+    the decoded frame; (c) one in-process server request with an OpenEXR
+    body (half ZIP) and one with the G4 fixture's body, each 200 with the
+    pixels of the same frame's PNG-body request; (d) the probe at 2048^2
+    (tools/trace_ops_probe.probe, counters reset): its op table must name
+    B1-B5's kernels and the four fphase_ ranges of PROBE_PHASES must hold
+    >= 98% of device busy (a row outside every range counts as
+    'unattributed', so a missing range or a launch outside them fails); the host
+    ms of exr_fax_host_ms. Returns (result, launch counts by path)."""
+    import os
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch.host import exr
+    from fft_restoration_tpu_torch.host.imageio import (
+        decode_image_bgr,
+        decode_png_bgr,
+        encode_png_bgr,
+        imread,
+        imwrite,
+    )
+    from fft_restoration_tpu_torch.tools import trace_ops_probe
+
+    main_kernels = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                    "wb_encode_u8")
+    t_phase = time.perf_counter()
+    res, counts = {}, {}
+    t0 = time.perf_counter()
+    res["decoders"] = check_exr_fax_decoders(np, seed)
+    log(f"exr/fax (a) decoders vs independent references ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(res['decoders'])}")
+
+    frame = blurred_frame(np, SIZE, SIZE, seed + 1200)
+    small = blurred_frame(np, *SMALL_HW, seed + 1201)
+    g4_blob, _ = fax_fixtures(np)["fax_g4_640x330.tif"]
+    pipe = WienerDeblurPipeline("cuda")
+    with tempfile.TemporaryDirectory(prefix="exr_fax_") as tmp:
+        src = {k: os.path.join(tmp, k) for k in ("in_2048sq.exr", "in_piz_640x330.exr",
+                                                  "in_g4_640x330.tif")}
+        t0 = time.perf_counter()
+        imwrite(src["in_2048sq.exr"], frame)
+        res["write_exr_2048sq_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with open(src["in_piz_640x330.exr"], "wb") as f:
+            f.write(exr.encode_exr(small[..., ::-1].astype(np.float32) / 255.0, "half", "piz"))
+        res["write_exr_piz_640x330_s"] = time.perf_counter() - t0
+        with open(src["in_g4_640x330.tif"], "wb") as f:
+            f.write(g4_blob)
+        for name, out_ext in (("in_2048sq.exr", ".exr"), ("in_piz_640x330.exr", ".exr"),
+                              ("in_g4_640x330.tif", ".tif")):
+            out = os.path.join(tmp, f"out_{name.split('.')[0][3:]}{out_ext}")
+            decoded = imread(src[name])
+            t0 = time.perf_counter()
+            (rc, text), counts[f"exr_fax_cli_{name.split('.')[0][3:]}"] = drive(
+                torch, f"CLI on {name}", lambda: cli_run(
+                    [src[name], "50", "30", "-o", out, "--tier", "inf"]), expect=main_kernels)
+            lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+            cli_s = time.perf_counter() - t0
+            log(f"exr/fax (b) CLI {name} -o {os.path.basename(out)} --tier inf ({cli_s:.1f} s): "
+                f"exit {rc}; {lines}")
+            if rc != 0 or "[Success] tier=inf" not in text:
+                fail(f"exr/fax: the CLI on {name} fails the inf tier")
+            d = u8_max(np, imread(out), pipe.restore(decoded, 50, 30.0, 0.01))
+            if d:
+                fail(f"exr/fax: {os.path.basename(out)} differs from the pipeline's restore by {d}")
+            res[f"cli_{name}"] = dict(lines=lines, u8_vs_pipeline=d, seconds=cli_s,
+                                      frame=list(decoded.shape))
+
+    service = serve.RestorationService(serve.build_parser().parse_args([]))
+
+    class Quiet(serve.make_handler(service)):
+        def log_message(self, fmt, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    served = {}
+    try:
+        for kind, body in (("exr", exr.encode_exr(small[..., ::-1].astype(np.float32) / 255.0)),
+                           ("g4", g4_blob)):
+            png_body = encode_png_bgr(decode_image_bgr(body))
+            got = {k: _http(srv.server_address, "POST", "/restore", b)
+                   for k, b in ((kind, body), ("png", png_body))}
+            if got[kind][0] != 200 or got["png"][0] != 200:
+                fail(f"exr/fax: the {kind} request gave {got[kind][0]}: {got[kind][1][:200]}")
+            d = u8_max(np, decode_png_bgr(got[kind][1]), decode_png_bgr(got["png"][1]))
+            if d:
+                fail(f"exr/fax: the {kind} body's response differs from the PNG body's by {d}")
+            served[kind] = dict(status=200, u8_vs_png_body=d, client_ms=got[kind][2],
+                                png_body_client_ms=got["png"][2], body_bytes=len(body))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.batcher.shutdown()
+        thread.join(timeout=60)
+    res["serve_640x330"] = served
+    log(f"exr/fax (c) server: {served}")
+
+    t0 = time.perf_counter()
+    probe, counts["trace_ops_probe"] = drive(
+        torch, "tools/trace_ops_probe at 2048^2",
+        lambda: trace_ops_probe.probe("cuda", SIZE), expect=main_kernels)
+    for line in trace_ops_probe.format_report(probe).splitlines():
+        log(f"probe: {line}")
+    missing = [b for b, k in MAIN_KERNEL_NAMES.items()
+               if not any(k in op for op in probe["ops_ms"])]
+    if probe["timeline"] != "device" or missing:
+        fail(f"exr/fax: the probe's op table does not name {missing}")
+    busy = probe["device_busy_ms"]
+    named = sum(probe["phases_ms"].get(p, 0.0) for p in PROBE_PHASES)
+    unattributed = probe["phases_ms"].get("unattributed", 0.0)
+    log(f"probe: named phases {named:.4f} of {busy:.4f} ms busy; unattributed "
+        f"{unattributed:.4f} ms ({unattributed / busy:.2%})")
+    if not named >= 0.98 * busy:
+        fail(f"exr/fax: the probe's phases {PROBE_PHASES} hold {named} ms of {busy} ms of busy "
+             f"(unattributed {unattributed} ms; phases {probe['phases_ms']})")
+    res["probe_2048sq"] = dict(device_busy_ms=busy, named_phases_ms=named,
+                               unattributed_ms=unattributed,
+                               unattributed_share=unattributed / busy,
+                               phases_ms=probe["phases_ms"],
+                               kernels={b: sorted(op for op in probe["ops_ms"] if k in op)
+                                        for b, k in MAIN_KERNEL_NAMES.items()},
+                               seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    res["host_ms"] = exr_fax_host_ms(np, frame, small)
+    res["host"] = dict(card=nvidia_smi(), cpu=cpu_model())
+    log(f"exr/fax (d) host ms ({time.perf_counter() - t0:.1f} s; {res['host']['card']}; "
+        f"CPU {res['host']['cpu']}): {json.dumps(res['host_ms'])}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 10 exr/fax/probe: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args()
+    t_smoke = time.perf_counter()
 
     import numpy as np
     import torch
@@ -3564,6 +3898,8 @@ def main() -> int:
     counts.update(codec_counts)
     codecs_left, codec_left_counts = check_codecs_left(torch, np, args.seed)
     counts.update(codec_left_counts)
+    exr_fax, exr_fax_counts = check_exr_fax(torch, np, args.seed)
+    counts.update(exr_fax_counts)
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -3576,12 +3912,14 @@ def main() -> int:
               "perf_ab": perf_ab, "measurement_layer": twin, "tiled": tiled,
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
               "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
-              "codecs": codecs, "codecs_native_left": codecs_left,
+              "codecs": codecs, "codecs_native_left": codecs_left, "exr_fax_probe": exr_fax,
               "host_codec_build_s": native.build_seconds}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])
     for name in family:
         result[name] = dict(family[name], **family_timing.get(name, {}))
+    result["smoke_s"] = time.perf_counter() - t_smoke
+    log(f"smoke total: {result['smoke_s']:.1f} s")
     for line in twin_lines:  # the bench twin's own lines, as it prints them
         print(json.dumps(line))
     print(json.dumps({"serve": serving}))

@@ -30,7 +30,9 @@ sharded FFT, ShardedWienerPipeline, the (batch, rows) mesh and tiled x
 mesh) with the CLI's --mode sharded|oracle and --devices; the image
 codecs (PNG in full, JPEG, TIFF, PFM, HDR, RAS beside BMP/PNM/PAM, write
 by extension) and the CLI's --reference and --show; WebP, GIF and JPEG
-2000, read and write, on their native lanes.
+2000, read and write, on their native lanes; OpenEXR (all ten
+compressions read, eight written) and CCITT fax inside TIFF; the
+op-trace probe (tools/trace_ops_probe.py).
 The host layer (host/: serial oracle, the image codecs, verify tiers,
 padding, blurred test frames) is the port's own numpy and C++, so the
 package needs nothing of fft_restoration_tpu.

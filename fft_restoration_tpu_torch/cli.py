@@ -11,9 +11,9 @@ planes against the serial oracle at a reference tier with the
     python -m fft_restoration_tpu_torch frames/ 50 30 -o out_dir/
 
 Input frames are read by host/imageio.py in any format it decodes (PNG,
-JPEG, BMP, PNM, PAM, TIFF, PFM, HDR, RAS, WebP, GIF, JPEG 2000); `-o`
-writes the format its extension names (PNG for an unknown one; .exr is
-refused with exit 2 before any work, ROADMAP.md A6b).
+JPEG, BMP, PNM, PAM, TIFF with CCITT fax, PFM, HDR, RAS, WebP, GIF, JPEG
+2000, OpenEXR; AVIF exits 1 naming ROADMAP.md A6b); `-o` writes the
+format its extension names (PNG for an unknown one).
 --reference PATH prints the PSNR of the written frame against a sharp
 frame at peak 255 (a read error is printed, not raised); --show renders
 the frame in the terminal (host/termview.py; it waits for Enter only on
@@ -279,14 +279,6 @@ def main(argv=None) -> int:
     if args.devices is not None and args.devices < 1:
         print(f"[Error] --devices must be >= 1, got {args.devices}")
         return 2
-    if args.output and not os.path.isdir(args.img_path):
-        from fft_restoration_tpu_torch.host.imageio import UNPORTED_WRITE
-
-        ext = os.path.splitext(args.output)[1].lower()
-        if ext in UNPORTED_WRITE:
-            print(f"[Error] writing {ext} is not ported yet: ROADMAP.md A6b")
-            return 2
-
     from fft_restoration_tpu_torch.host.imageio import imread
     from fft_restoration_tpu_torch.host.oracle import normalize_over_frame, restore_frame_channels
     from fft_restoration_tpu_torch.models.pipeline import pad_extents

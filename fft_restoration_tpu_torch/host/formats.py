@@ -1,7 +1,7 @@
 """Image codecs in numpy beside PNG and JPEG: the port's copy of the JAX
 package's utils/formats.py on BMP, PNM, PAM, PBM, TIFF, PFM, Radiance
 HDR and Sun Raster, and the dispatch to WebP (host/webp.py), GIF
-(host/gif.py) and JPEG 2000 (host/jp2.py).
+(host/gif.py), JPEG 2000 (host/jp2.py) and OpenEXR (host/exr.py).
 
 Each decoder returns uint8 gray (H, W) or RGB(A) (H, W, C), the layout
 host/imageio.decode_png returns, before host/imageio.decode_image_bgr
@@ -16,12 +16,12 @@ makes it 3-channel BGR:
   is (B, G, R triplets under TUPLTYPE RGB) and cv::imdecode reads them
   back the same way, so depth-3/4 rasters are read as BGR(A) and
   returned reversed.
-- TIFF: none/LZW/deflate/PackBits with Predictor 2, per-strip JPEG
-  (compression 7 and its JPEGTables, on host/jpeg.py), strips and
-  tiles, chunky and planar, 1/4/8/16-bit, gray/WhiteIsZero/RGB(A)/
-  palette, both byte orders, the RGBA unassociated-alpha premultiply;
-  32-bit samples are refused. CCITT fax (compressions 2-4) is not
-  ported yet: ROADMAP.md A6b.
+- TIFF: none/LZW/deflate/PackBits with Predictor 2, CCITT fax MH/G3/G4
+  (compressions 2-4, host/fax.py), per-strip JPEG (compression 7 and
+  its JPEGTables, on host/jpeg.py), strips and tiles, chunky and
+  planar, 1/4/8/16-bit, gray/WhiteIsZero/RGB(A)/palette, both byte
+  orders, the RGBA unassociated-alpha premultiply; 32-bit samples are
+  refused.
 - PFM: 'PF' color and 'Pf' gray, both byte orders (the scale's sign),
   bottom-up rows, value / |scale| saturate-rounded to uint8.
 - Radiance HDR (.hdr/.pic): flat, new-style RLE and old-style repeat
@@ -32,8 +32,8 @@ makes it 3-channel BGR:
 The encoders write 24-bit bottom-up BMP, binary PGM/PPM, PAM, PBM,
 uncompressed little-endian TIFF, little-endian PFM, RLE Radiance HDR
 and type-1 Sun Raster: the JAX package's bytes exactly. `sniff` knows
-the JAX package's every kind; OpenEXR and AVIF are refused with a
-ValueError naming ROADMAP.md A6b.
+the JAX package's every kind; AVIF is refused with a ValueError naming
+ROADMAP.md A6b.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ import zlib
 
 import numpy as np
 
-from fft_restoration_tpu_torch.host import gif, jp2, webp
+from fft_restoration_tpu_torch.host import exr, fax, gif, jp2, webp
 
 # ---------------------------------------------------------------------------
 # BMP
@@ -390,7 +390,8 @@ def _tiff_packbits_decode(src: bytes, expected: int) -> bytes:
     return bytes(out[:expected])
 
 
-def _tiff_decompress(comp: int, seg: bytes, expected: int) -> bytes:
+def _tiff_decompress(comp: int, seg: bytes, expected: int, width: int = 0,
+                     rows: int = 0, t4opts: int = 0) -> bytes:
     if comp == 1:
         if len(seg) < expected:
             raise ValueError("corrupt TIFF: truncated strip")
@@ -407,9 +408,15 @@ def _tiff_decompress(comp: int, seg: bytes, expected: int) -> bytes:
         return raw[:expected]
     if comp == 32773:
         return _tiff_packbits_decode(seg, expected)
+    if comp in (2, 3, 4):  # CCITT fax (host/fax.py): bilevel segments
+        if comp == 4:
+            return fax.decode_g4(seg, width, rows)
+        if comp == 2:
+            return fax.decode_mh(seg, width, rows)
+        return fax.decode_g3(seg, width, rows, bool(t4opts & 1), bool(t4opts & 4))
     raise ValueError(
         f"TIFF compression {comp} not supported "
-        "(none/LZW/deflate/PackBits/JPEG decode)"
+        "(none/LZW/deflate/PackBits/CCITT-G3/G4/JPEG decode)"
     )
 
 
@@ -553,7 +560,8 @@ def decode_tiff(data: bytes, native: bool = True) -> np.ndarray:
 
     The JAX decoder's coverage, the common capture and export surface
     cv::imread (libtiff) reads: compressions none/LZW/deflate/PackBits,
-    per-strip JPEG (TTN2 compression 7 with shared JPEGTables, on
+    CCITT fax MH/G3/G4 (host/fax.py; T4Options bit 0 picks 2D coding,
+    bit 2 fill bits; the G4 uncompressed mode is refused), per-strip JPEG (TTN2 compression 7 with shared JPEGTables, on
     host/jpeg.py's `native` lane), Predictor 2 (horizontal
     differencing), strip AND tile layouts, chunky and planar
     (PlanarConfiguration=2) sample order, bit depths 1 (bilevel ->
@@ -561,8 +569,7 @@ def decode_tiff(data: bytes, native: bool = True) -> np.ndarray:
     color rounded, as cv::imread IMREAD_COLOR does), photometric
     WhiteIsZero/BlackIsZero/RGB/palette, both byte orders.
     Floating-point TIFFs (32-bit samples) are rejected, as cv::imread
-    rejects them. CCITT fax compressions (2, 3, 4) are not ported yet
-    (ROADMAP.md A6b)."""
+    rejects them."""
     if data[:4] == b"II*\x00":
         bo = "<"
     elif data[:4] == b"MM\x00*":
@@ -605,10 +612,14 @@ def decode_tiff(data: bytes, native: bool = True) -> np.ndarray:
             f"TIFF PhotometricInterpretation {photometric} not supported "
             "(gray/RGB/palette/JPEG-YCbCr only)"
         )
-    if compression in (2, 3, 4):
+    if compression in (2, 3, 4) and (bits != 1 or spp != 1):
         raise ValueError(
-            f"TIFF CCITT fax compression ({compression}) is not ported yet: "
-            "ROADMAP.md A6b"
+            "corrupt TIFF: CCITT fax compression requires bilevel data"
+        )
+    t4opts = one(293 if compression == 4 else 292, 0)
+    if compression == 4 and t4opts & 2:
+        raise ValueError(
+            "TIFF G4 uncompressed-mode option not supported (T6Options bit 1)"
         )
     if compression == 7:
         return _tiff_decode_jpeg_compressed(
@@ -674,7 +685,8 @@ def decode_tiff(data: bytes, native: bool = True) -> np.ndarray:
                 if len(seg) < cnt:
                     raise ValueError("corrupt TIFF: truncated tile")
                 raw = undo_pred(_tiff_decompress(compression, seg,
-                                                 tl * row_bytes(tw)), tl, tw)
+                                                 tl * row_bytes(tw),
+                                                 tw, tl, t4opts), tl, tw)
                 dy, dx = divmod(k, tx)
                 rows = min(tl, h - dy * tl)
                 a = np.frombuffer(raw, np.uint8).reshape(tl, row_bytes(tw))
@@ -722,7 +734,8 @@ def decode_tiff(data: bytes, native: bool = True) -> np.ndarray:
                     raise ValueError("corrupt TIFF: truncated strip")
                 rows = min(rows_per_strip, h - s * rows_per_strip)
                 chunks.append(undo_pred(
-                    _tiff_decompress(compression, seg, rows * row_bytes(w)),
+                    _tiff_decompress(compression, seg, rows * row_bytes(w),
+                                     w, rows, t4opts),
                     rows, w))
             raw = b"".join(chunks)
             a = np.frombuffer(raw, np.uint8).reshape(h, row_bytes(w))
@@ -1183,14 +1196,15 @@ def sniff(data: bytes):
 
 
 # kinds `sniff` names whose JAX decoders are not ported yet
-UNPORTED = {"exr": "OpenEXR", "avif": "AVIF"}
+UNPORTED = {"avif": "AVIF"}
 
 DECODERS = {"bmp": decode_bmp, "pnm": decode_pnm, "pam": decode_pam, "tiff": decode_tiff,
             "pfm": decode_pfm, "hdr": decode_hdr, "ras": decode_ras,
-            "webp": webp.decode_webp, "gif": gif.decode_gif, "jp2": jp2.decode_jp2}
+            "webp": webp.decode_webp, "gif": gif.decode_gif, "jp2": jp2.decode_jp2,
+            "exr": exr.decode_exr}
 # the decoders that take a lane: (data, native)
 _LANED = {"tiff", "webp", "gif", "jp2"}
-_KINDS = "BMP/PNM/PAM/PFM/TIFF/WebP/HDR/RAS/JP2/GIF"
+_KINDS = "BMP/PNM/PAM/PFM/TIFF/WebP/HDR/RAS/JP2/EXR/GIF"
 
 
 def unported(kind: str) -> ValueError:
@@ -1252,6 +1266,8 @@ def probe_size(data: bytes):
         return h, w
     if kind == "webp":
         return webp.probe_webp_size(data)
+    if kind == "exr":
+        return exr.probe_exr_size(data)
     if kind == "jp2":
         return jp2.probe_jp2_size(data)
     if kind == "gif":

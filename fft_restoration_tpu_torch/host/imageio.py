@@ -4,9 +4,10 @@ color semantics): the port's copy of the JAX package's utils/imageio.py.
 `decode_image_bgr` is the decoder of the CLI, the server and the PSF
 loader, dispatched on the magic bytes: PNG here (every bit depth, color
 type and Adam7), JPEG through host/jpeg.py, and BMP, PNM, PAM, TIFF,
-PFM, Radiance HDR, Sun Raster, WebP (host/webp.py), GIF (host/gif.py)
-and JPEG 2000 (host/jp2.py) through host/formats.py. OpenEXR and AVIF
-raise ValueError naming ROADMAP.md A6b.
+PFM, Radiance HDR, Sun Raster, WebP (host/webp.py), GIF (host/gif.py),
+JPEG 2000 (host/jp2.py) and OpenEXR (host/exr.py) through
+host/formats.py; CCITT fax TIFFs through host/fax.py. AVIF raises
+ValueError naming ROADMAP.md A6b.
 `imwrite` picks the encoder by the file's extension, as the JAX imwrite
 does; `probe_size` reads a file's size from its headers alone, for
 grouping a directory's frames; `imread_batch` decodes a group, 8-bit
@@ -37,7 +38,7 @@ from fft_restoration_tpu_torch.host.native import load, ptr
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _DECODE_THREADS = 8
 _UNRECOGNISED = ("unrecognised image format (the port reads PNG, JPEG, BMP, PNM, PAM, TIFF, "
-                 "PFM, HDR, RAS, WebP, GIF and JPEG 2000)")
+                 "PFM, HDR, RAS, WebP, GIF, JPEG 2000 and OpenEXR)")
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int, native: bool = True) -> np.ndarray:
@@ -458,10 +459,6 @@ def imread_batch(paths, native: bool = True):
     return (np.stack(frames) if frames else None), read, failed
 
 
-# extensions whose JAX encoders are not ported yet (ROADMAP.md A6b)
-UNPORTED_WRITE = (".exr",)
-
-
 def imwrite(path: str, img_bgr: np.ndarray) -> None:
     """Write a BGR uint8 (H, W, 3) or gray (H, W) image in the format its
     extension names, as the JAX imwrite does: `.png` (and any unknown
@@ -470,14 +467,12 @@ def imwrite(path: str, img_bgr: np.ndarray) -> None:
     `.hdr`/`.pic` (img / 255), `.pfm` (raw 0..255 floats, which read back
     to the same uint8), `.ras`/`.sr`, `.webp` (lossless VP8L), `.gif`
     (an exact palette when <= 256 colors, else median cut) and
-    `.jp2`/`.j2k` (lossless 5/3). `.exr` raises ValueError naming
-    ROADMAP.md A6b and writes nothing."""
+    `.jp2`/`.j2k` (lossless 5/3) and `.exr` (half ZIP of img / 255: every
+    k / 255 rounds back to k, so it reads back bitwise)."""
     img = np.asarray(img_bgr, dtype=np.uint8)
     if img.ndim == 3:
         img = img[..., ::-1]  # BGR -> RGB
     ext = Path(path).suffix.lower()
-    if ext in UNPORTED_WRITE:
-        raise ValueError(f"writing {ext} is not ported yet: ROADMAP.md A6b")
     if ext in (".jpg", ".jpeg"):
         from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
 
@@ -511,6 +506,10 @@ def imwrite(path: str, img_bgr: np.ndarray) -> None:
         from fft_restoration_tpu_torch.host import jp2_encode
 
         blob = (jp2_encode.encode_jp2 if ext == ".jp2" else jp2_encode.encode_j2k)(img)
+    elif ext == ".exr":
+        from fft_restoration_tpu_torch.host.exr import encode_exr
+
+        blob = encode_exr(img.astype(np.float32) / 255.0)
     else:
         blob = encode_png(img)
     Path(path).write_bytes(blob)

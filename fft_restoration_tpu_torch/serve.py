@@ -9,8 +9,8 @@ shapes warmed before traffic, uint8 ingest straight to the device.
 
 API:
   POST /restore   body = image bytes (PNG, JPEG, BMP, PNM P1-P6, PAM, TIFF,
-                  PFM, HDR, RAS, WebP, GIF, JPEG 2000; OpenEXR and AVIF
-                  are refused with 400, ROADMAP.md A6b). Query
+                  PFM, HDR, RAS, WebP, GIF, JPEG 2000, OpenEXR, fax
+                  TIFF; AVIF is refused with 400, ROADMAP.md A6b). Query
                   params psf_length, psf_angle, K override the defaults;
                   filter=wiener|inverse|cls|rl (+iters=N for rl, at most
                   --max-rl-iters), edgetaper=1, psf_type=motion|gaussian|

@@ -1,13 +1,19 @@
 """Writes the codec fixtures beside this file: streams that only libwebp,
-PIL's GIF writer and OpenJPEG produce, which the port's own encoders
-never emit (lossy VP8, ALPH, VP8X, VP8L with transforms, LZ77 and the
-color cache; an interlaced transparent GIF; a 9/7 JPEG 2000). cv2 and
-PIL are needed here, not where the fixtures are read.
+PIL's GIF writer, OpenJPEG and libtiff's fax coder produce, which the
+port's own encoders never emit (lossy VP8, ALPH, VP8X, VP8L with
+transforms, LZ77 and the color cache; an interlaced transparent GIF; a
+9/7 JPEG 2000; CCITT G3, G4 and MH TIFFs). cv2 and PIL are needed here,
+not where the fixtures are read. The fax TIFFs come with their pixels,
+the JAX package's decode, as packed bits (np.packbits(img > 0, axis=1)):
+fax_scene_640x330.npy for the three scene files, fax_sweep_g4_2624.npy
+for the run-table sweep.
 
-    python tests/data/torch_codecs/make_fixtures.py
+    python tests/data/torch_codecs/make_fixtures.py         # every fixture
+    python tests/data/torch_codecs/make_fixtures.py fax     # the fax TIFFs alone
 """
 
 import io
+import sys
 from pathlib import Path
 
 import cv2
@@ -69,5 +75,62 @@ def main():
     (HERE / "jp2_97_256.jp2").write_bytes(buf.getvalue())
 
 
+FAX_SCENE = (("fax_g3_640x330.tif", "group3"), ("fax_g4_640x330.tif", "group4"),
+             ("fax_mh_640x330.tif", "tiff_ccitt"))
+
+
+def fax_scene(h, w, seed):
+    """A bilevel frame for the three fax coders: drifting diagonal bands
+    (vertical modes), a disc (pass modes), a block of noise (horizontal
+    modes, short runs), an all-white and an all-black row."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[:h, :w]
+    drift = np.cumsum(rng.integers(0, 2, (h,)))[:, None]
+    bw = (drift + x + (y // 40) * 5) % 29 < 11
+    bw ^= np.hypot(y - h / 2, x - w / 3) < h / 3
+    bw[h // 6: h // 6 + 40, w - 200: w - 120] = rng.random((40, 80)) < 0.45
+    bw[10] = False
+    bw[11] = True
+    return bw
+
+
+def fax_sweep():
+    """One black run of each length of the T.4 tables a row (every
+    terminating code, every makeup and extended makeup), as the JAX
+    package's tests/test_tiff.py sweeps them, 2624 wide."""
+    runs = list(range(0, 64)) + list(range(64, 1729, 64)) + list(
+        range(1792, 2561, 64)) + [2600, 2623]
+    bw = np.zeros((len(runs), 2624), bool)
+    for y, k in enumerate(runs):
+        bw[y, :k] = True
+    return bw
+
+
+def fax_blob(bw, compression):
+    buf = io.BytesIO()
+    Image.fromarray(bw.astype(np.uint8) * 255).convert("1").save(
+        buf, format="TIFF", compression=compression)
+    return buf.getvalue()
+
+
+def fax():
+    sys.path.insert(0, str(HERE.parents[2]))  # the repo root, for the JAX package
+    from fft_restoration_tpu.utils.formats import decode_tiff
+
+    scene_px = None
+    for name, comp in FAX_SCENE:
+        blob = fax_blob(fax_scene(330, 640, 7), comp)
+        px = decode_tiff(blob)
+        assert scene_px is None or np.array_equal(px, scene_px)
+        scene_px = px
+        (HERE / name).write_bytes(blob)
+    np.save(HERE / "fax_scene_640x330.npy", np.packbits(scene_px > 0, axis=1))
+    blob = fax_blob(fax_sweep(), "group4")
+    (HERE / "fax_sweep_g4_2624.tif").write_bytes(blob)
+    np.save(HERE / "fax_sweep_g4_2624.npy", np.packbits(decode_tiff(blob) > 0, axis=1))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] != ["fax"]:
+        main()
+    fax()

@@ -370,10 +370,12 @@ def test_psf_file_replaces_the_family(tmp_path, capsys):
 
 @pytest.mark.parametrize("content,name", [(b"", "missing.npy"), (b"not a png", "k.png"),
                                           (b"GIF89a", "k.gif"),
-                                          (b"\x76\x2f\x31\x01" + bytes(40), "k.exr")])
+                                          (b"\x76\x2f\x31\x01" + bytes(40), "k.exr"),
+                                          (b"\x00\x00\x00\x1cftypavif" + bytes(20), "k.avif")])
 def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, name):
-    """A missing file, a corrupt PNG, a truncated GIF and an OpenEXR kernel
-    (not ported: it names ROADMAP.md A6b) exit 2."""
+    """A missing file, a corrupt PNG, a truncated GIF, a header-only
+    OpenEXR kernel (JAX's message) and an AVIF kernel (not ported: it
+    names ROADMAP.md A6b) exit 2."""
     path = tmp_path / name
     if content:
         path.write_bytes(content)
@@ -381,6 +383,8 @@ def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, nam
     text = capsys.readouterr().out
     assert "[Error] Cannot load PSF" in text
     if name.endswith(".exr"):
+        assert "EXR version 0 not supported" in text and "A6b" not in text
+    if name.endswith(".avif"):
         assert "ROADMAP.md A6b" in text
     if name.endswith(".gif"):
         assert "corrupt GIF" in text

@@ -1,9 +1,11 @@
 """The codec layer's entry points on the CPU against the JAX package:
 host/verify.psnr, host/termview (render_ansi, show_image) and the CLI's
---reference, --show and -o by extension (C4).
+--reference, --show and -o by extension (C4); OpenEXR and fax TIFF
+frames through the CLI, a directory, --reference and --psf-file.
 
 Frames are blurred from seeds (the port's blurgen), written as JPEG by
-the port's encoder. Tolerances: psnr and render_ansi exactly JAX's; the
+the port's encoder, as OpenEXR by the JAX encoder and as CCITT fax TIFF
+by PIL (importorskip). Tolerances: psnr and render_ansi exactly JAX's; the
 CLI's written file bytes equal to JAX's imwrite of the same restored
 frame; its PSNR line the JAX CLI's line on the same files (both in
 --mode oracle, the serial numpy restore both packages share bit for bit).
@@ -87,7 +89,7 @@ def test_show_image_does_not_block_without_a_tty(monkeypatch):
 
 
 @pytest.mark.parametrize("ext", [".tif", ".bmp", ".ppm", ".pfm", ".jpg", ".png", ".ras", ".webp",
-                                 ".gif", ".jp2"])
+                                 ".gif", ".jp2", ".exr"])
 def test_cli_writes_the_extensions_format(files, tmp_path, capsys, ext):
     """C4 on the CLI: -o out<ext> writes that format, the bytes of JAX's
     imwrite of the same restored frame (the port's pipeline on the
@@ -147,17 +149,13 @@ def test_cli_reference_read_error_is_printed(files, tmp_path, capsys):
 
 @pytest.mark.parametrize("ext", [".webp", ".gif", ".jp2", ".exr"])
 def test_cli_refuses_an_unported_output_before_any_work(files, tmp_path, capsys, ext):
-    """-o out.exr exits 2 naming ROADMAP.md A6b before any work; the
-    extensions A6b listed beside it are written now, JAX's imwrite bytes
-    of the restored frame."""
+    """Every output extension ROADMAP.md A6b listed (.exr the last) is
+    written now: JAX's imwrite bytes of the restored frame, nothing
+    refused."""
     out = tmp_path / f"out{ext}"
     src = str(files / "blurred.jpg")
     rc = cli.main([src, "9", "30", "--device", "cpu", "-o", str(out)])
     text = capsys.readouterr().out
-    if ext == ".exr":
-        assert rc == 2 and "ROADMAP.md A6b" in text and "Deblurring" not in text
-        assert not out.exists()
-        return
     assert rc == 0 and "A6b" not in text, text
     jio.imwrite(str(tmp_path / f"jax{ext}"), WienerDeblurPipeline("cpu").restore(
         imageio.imread(src), 9, 30.0))
@@ -166,8 +164,8 @@ def test_cli_refuses_an_unported_output_before_any_work(files, tmp_path, capsys,
 
 def test_directory_of_mixed_formats(files, tmp_path, capsys):
     """PNG, JPEG, TIFF, BMP and WebP frames of one size go into one batch
-    group and are all restored; an OpenEXR stream is skipped naming A6b
-    (under a .tif name: the directory list, JAX's, has no .exr, and the
+    group and are all restored; an AVIF stream is skipped naming A6b
+    (under a .tif name: the directory list, JAX's, has no .avif, and the
     decoder goes by the magic bytes); the directory ignores --reference
     and --show."""
     from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
@@ -178,7 +176,7 @@ def test_directory_of_mixed_formats(files, tmp_path, capsys):
     frames = [blur_image(_scene(40, 48, s), 9, 30.0) for s in range(len(names))]
     for name, f in zip(names, frames):
         imageio.imwrite(str(src / name), f)
-    (src / "e.tif").write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
+    (src / "e.tif").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
     out = tmp_path / "out"
     rc = cli.main([str(src), "9", "30", "--device", "cpu", "-o", str(out),
                    "--reference", str(files / "sharp.png"), "--show"])
@@ -193,7 +191,7 @@ def test_directory_of_mixed_formats(files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("ext", [".png", ".jpg", ".tif", ".bmp", ".pgm", ".pfm", ".ras", ".hdr",
-                                 ".webp", ".gif", ".jp2"])
+                                 ".webp", ".gif", ".jp2", ".exr"])
 def test_load_psf_file_reads_every_ported_format(tmp_path, ext):
     """A PSF image in any ported format loads bitwise as the JAX loader
     loads it (gray frames repeat to 3 channels, then the mean)."""
@@ -208,3 +206,68 @@ def test_load_psf_file_reads_every_ported_format(tmp_path, ext):
     ours = load_psf_file(path)
     np.testing.assert_array_equal(ours, j_load_psf_file(path))
     assert ours.shape == (9, 9) and abs(float(ours.sum()) - 1.0) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# OpenEXR and fax TIFF frames through the CLI
+
+
+def _exr_and_fax(d):
+    """A blurred 64x48 frame as a half PIZ OpenEXR (JAX's encoder), and a
+    blurred bilevel frame as a G4 TIFF (PIL); each with the frame JAX's
+    decoder returns."""
+    from fft_restoration_tpu.utils.exr import encode_exr
+
+    blurred = blur_image(_scene(48, 64, 5), 9, 30.0)
+    (d / "in.exr").write_bytes(encode_exr(blurred[..., ::-1].astype(np.float32) / 255.0,
+                                          "half", "piz"))
+    pil = pytest.importorskip("PIL.Image")
+    bw = blur_image(_scene(48, 64, 6), 9, 30.0)[..., 0] > 128
+    pil.fromarray(bw.astype(np.uint8) * 255).convert("1").save(
+        str(d / "in_g4.tif"), format="TIFF", compression="group4")
+    return {name: jio.imread(str(d / name)) for name in ("in.exr", "in_g4.tif")}
+
+
+@pytest.mark.parametrize("name", ["in.exr", "in_g4.tif"])
+def test_cli_restores_exr_and_fax_frames(tmp_path, capsys, name):
+    """An OpenEXR and a fax TIFF frame restore through the CLI, verified
+    at the inf tier; -o .exr writes JAX's imwrite bytes of the restore of
+    the frame JAX's decoder returns, and reads back bitwise; --reference
+    reads an OpenEXR and prints JAX's PSNR."""
+    frames = _exr_and_fax(tmp_path)
+    restored = WienerDeblurPipeline("cpu").restore(frames[name], 9, 30.0)
+    sharp = tmp_path / "sharp.exr"
+    jio.imwrite(str(sharp), _scene(48, 64, 5))
+    out = tmp_path / "out.exr"
+    rc = cli.main([str(tmp_path / name), "9", "30", "--device", "cpu", "--tier", "inf",
+                   "-o", str(out), "--reference", str(sharp)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=inf" in text, text
+    jio.imwrite(str(tmp_path / "jax.exr"), restored)
+    assert out.read_bytes() == (tmp_path / "jax.exr").read_bytes()
+    np.testing.assert_array_equal(imageio.imread(str(out)), restored)
+    want = j_psnr(jio.imread(str(sharp)).astype(float), restored.astype(float), peak=255.0)
+    assert f"PSNR vs reference: {want:.2f} dB" in text
+
+
+def test_directory_picks_exr_and_fax_under_listed_names(tmp_path, capsys):
+    """A directory takes an OpenEXR under a listed name (.tif) and a fax
+    TIFF, as the JAX CLI does; an .exr name is not in the list (JAX's)
+    and is not read."""
+    from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
+
+    frames = _exr_and_fax(tmp_path)
+    src = tmp_path / "frames"
+    src.mkdir()
+    (src / "a.tif").write_bytes((tmp_path / "in.exr").read_bytes())
+    (src / "b.tif").write_bytes((tmp_path / "in_g4.tif").read_bytes())
+    (src / "c.exr").write_bytes((tmp_path / "in.exr").read_bytes())
+    out = tmp_path / "out"
+    rc = cli.main([str(src), "9", "30", "--device", "cpu", "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "Restored 2 frames" in text and "skipped" not in text, text
+    assert ".exr" not in cli.IMAGE_EXTENSIONS and not (out / "c_restored.png").exists()
+    want = BatchedWienerPipeline("cpu").restore(
+        np.stack([frames["in.exr"], frames["in_g4.tif"]]), 9, 30.0)
+    for n, w in zip("ab", want):
+        np.testing.assert_array_equal(imageio.imread(str(out / f"{n}_restored.png")), w)

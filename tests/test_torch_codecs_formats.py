@@ -10,8 +10,8 @@ PIL through importorskip, as the JAX tests do. Tolerance: bitwise, for
 decodes (both JPEG lanes inside TIFF against JAX's native lane: a TIFF's
 JPEG strips decode bitwise on the native lane, and within 1 count on
 the plain one), encodes (bytes) and probes; refusals raise the same
-exception type as JAX, and an unported kind (OpenEXR, AVIF) names
-ROADMAP.md A6b.
+exception type as JAX, and the unported kind (AVIF) names ROADMAP.md
+A6b.
 """
 
 import io
@@ -257,12 +257,26 @@ def test_jpeg_in_tiff_rgb_components():
 
 @pytest.mark.parametrize("comp", [2, 3, 4])
 def test_fax_tiff_names_a6b(comp):
+    """CCITT fax (ported since; the name is the test's first subject): an
+    all-zero strip raises JAX's ValueError, a real stream of the
+    compression (PIL's libtiff) decodes to JAX's pixels, the probe reads
+    the size."""
     blob = build_tiff(16, 4, 1, 1, comp, 0, [b"\x00" * 8], (273, 279))
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        formats.decode_tiff(blob)
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        imageio.decode_image_bgr(blob)
+    for dec in (formats.decode_tiff, imageio.decode_image_bgr, jf.decode_tiff,
+                jio.decode_image_bgr):
+        with pytest.raises(ValueError) as e:
+            dec(blob)
+        assert "A6b" not in str(e.value)
     assert formats.probe_size(blob) == jf.probe_size(blob) == (4, 16)
+    pil = pytest.importorskip("PIL.Image")
+    buf = io.BytesIO()
+    bw = _rng(comp).random((9, 37)) < 0.4
+    pil.fromarray(bw.astype(np.uint8) * 255).convert("1").save(
+        buf, format="TIFF", compression={2: "tiff_ccitt", 3: "group3", 4: "group4"}[comp])
+    blob = buf.getvalue()
+    np.testing.assert_array_equal(formats.decode_tiff(blob), jf.decode_tiff(blob))
+    np.testing.assert_array_equal(formats.decode_tiff(blob), bw.astype(np.uint8) * 255)
+    np.testing.assert_array_equal(imageio.decode_image_bgr(blob), jio.decode_image_bgr(blob))
 
 
 def test_tiff_refusals_match_jax():
@@ -442,10 +456,14 @@ def test_encode_ras_pbm_pfm_bytes_equal_jax(shape):
 
 
 def _a6b_blob(kind):
-    """A header-only blob of each kind ROADMAP.md A6b listed; the kinds
-    ported since (WebP, GIF, JPEG 2000) as a real stream of the JAX
-    encoders."""
+    """A header-only blob of the kind ROADMAP.md A6b still lists (AVIF);
+    the kinds ported since (WebP, GIF, JPEG 2000, OpenEXR) as a real
+    stream of the JAX encoders."""
     img = _rng(21).integers(0, 256, (6, 9, 3)).astype(np.uint8)
+    if kind == "exr":
+        from fft_restoration_tpu.utils.exr import encode_exr
+
+        return encode_exr(img.astype(np.float32) / 255.0)
     if kind == "webp":
         from fft_restoration_tpu.utils.webp_encode import encode_webp
 
@@ -458,20 +476,28 @@ def _a6b_blob(kind):
         from fft_restoration_tpu.utils import jp2_encode
 
         return (jp2_encode.encode_jp2 if kind == "jp2" else jp2_encode.encode_j2k)(img)
-    return {"exr": b"\x76\x2f\x31\x01" + bytes(40),
-            "avif": b"\x00\x00\x00\x1cftypavif" + bytes(20)}[kind]
+    return {"avif": b"\x00\x00\x00\x1cftypavif" + bytes(20)}[kind]
 
 
 @pytest.mark.parametrize("kind", ["avif", "exr", "gif", "j2k", "jp2", "webp"])
 def test_unported_kinds_name_a6b(kind, tmp_path):
-    """OpenEXR and AVIF name ROADMAP.md A6b everywhere; the kinds A6b
-    listed beside them and that are ported now decode, probe and read
-    from a file bitwise as JAX does."""
+    """AVIF names ROADMAP.md A6b everywhere; the kinds A6b listed beside
+    it and that are ported now decode, probe and read from a file bitwise
+    as JAX does (a header-only OpenEXR blob raises JAX's ValueError)."""
     blob = _a6b_blob(kind)
     assert formats.sniff(blob) == jf.sniff(blob)
     path = tmp_path / f"x.{kind}"
     path.write_bytes(blob)
-    if kind in ("exr", "avif"):
+    if kind == "exr":
+        stub = b"\x76\x2f\x31\x01" + bytes(40)
+        for fn, jfn in ((formats.decode, jf.decode), (formats.probe_size, jf.probe_size),
+                        (imageio.decode_image_bgr, jio.decode_image_bgr)):
+            with pytest.raises(ValueError) as got:
+                fn(stub)
+            with pytest.raises(ValueError) as want:
+                jfn(stub)
+            assert str(got.value) == str(want.value) and "A6b" not in str(got.value)
+    if kind == "avif":
         for fn in (formats.decode, formats.probe_size, imageio.decode_image_bgr):
             with pytest.raises(ValueError, match="ROADMAP.md A6b"):
                 fn(blob)
@@ -530,13 +556,14 @@ def test_sniff_and_probe_size_match_jax_on_every_format(tmp_path):
 
 WRITE_EXTS = [".png", ".jpg", ".jpeg", ".bmp", ".dib", ".ppm", ".pgm", ".pnm", ".pam", ".tif",
               ".tiff", ".hdr", ".pic", ".pfm", ".ras", ".sr", ".xyz", "", ".webp", ".gif",
-              ".jp2", ".j2k"]
+              ".jp2", ".j2k", ".exr"]
 MAGIC = {".png": b"\x89PNG", ".jpg": b"\xff\xd8", ".jpeg": b"\xff\xd8", ".bmp": b"BM",
          ".dib": b"BM", ".ppm": b"P6", ".pgm": b"P6", ".pnm": b"P6", ".pam": b"P7",
          ".tif": b"II*\x00", ".tiff": b"II*\x00", ".hdr": b"#?RADIANCE", ".pic": b"#?RADIANCE",
          ".pfm": b"PF", ".ras": b"\x59\xa6\x6a\x95", ".sr": b"\x59\xa6\x6a\x95",
          ".xyz": b"\x89PNG", "": b"\x89PNG", ".webp": b"RIFF", ".gif": b"GIF89a",
-         ".jp2": b"\x00\x00\x00\x0cjP  ", ".j2k": b"\xff\x4f\xff\x51"}
+         ".jp2": b"\x00\x00\x00\x0cjP  ", ".j2k": b"\xff\x4f\xff\x51",
+         ".exr": b"\x76\x2f\x31\x01"}
 
 
 @pytest.mark.parametrize("ext", WRITE_EXTS)
@@ -552,7 +579,7 @@ def test_imwrite_bytes_equal_jax(ext, tmp_path):
 
 
 @pytest.mark.parametrize("ext", [".png", ".jpg", ".bmp", ".pgm", ".pam", ".pbm", ".tif",
-                                 ".hdr", ".pfm", ".ras", ".webp", ".gif", ".jp2"])
+                                 ".hdr", ".pfm", ".ras", ".webp", ".gif", ".jp2", ".exr"])
 def test_imwrite_gray_bytes_equal_jax(ext, tmp_path):
     img = _rng(9).integers(0, 256, (6, 11)).astype(np.uint8)
     imageio.imwrite(str(tmp_path / f"a{ext}"), img)
@@ -562,22 +589,17 @@ def test_imwrite_gray_bytes_equal_jax(ext, tmp_path):
 
 @pytest.mark.parametrize("ext", [".webp", ".gif", ".jp2", ".j2k", ".exr", ".GIF", ".EXR"])
 def test_imwrite_refuses_unported_and_writes_nothing(ext, tmp_path):
-    """.exr (any case) names ROADMAP.md A6b and writes nothing; the
-    extensions A6b listed beside it write JAX's bytes now."""
+    """Every extension ROADMAP.md A6b listed (.exr in any case the last)
+    writes JAX's bytes now; nothing is refused."""
     path = tmp_path / f"a{ext}"
     img = _rng(5).integers(0, 256, (4, 4, 3)).astype(np.uint8)
-    if ext.lower() == ".exr":
-        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-            imageio.imwrite(str(path), img)
-        assert not path.exists()
-        return
     imageio.imwrite(str(path), img)
     jio.imwrite(str(tmp_path / f"jax{ext}"), img)
     assert path.read_bytes() == (tmp_path / f"jax{ext}").read_bytes()
 
 
 @pytest.mark.parametrize("ext", [".png", ".bmp", ".ppm", ".pam", ".tif", ".pfm", ".ras",
-                                 ".webp", ".gif", ".jp2", ".j2k"])
+                                 ".webp", ".gif", ".jp2", ".j2k", ".exr"])
 def test_lossless_round_trip(ext, tmp_path):
     img = _rng(13).integers(0, 256, (12, 9, 3)).astype(np.uint8)
     imageio.imwrite(str(tmp_path / f"a{ext}"), img)

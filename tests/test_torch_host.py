@@ -170,12 +170,31 @@ def test_load_psf_file_refuses_what_jax_refuses(tmp_path, kernel, match):
 
 
 def test_load_psf_file_refuses_unported_images(tmp_path):
-    """An OpenEXR kernel names ROADMAP.md A6b; a truncated JPEG or GIF (two
-    ported formats) raises ValueError, as the JAX loader does."""
-    path = tmp_path / "k.exr"
-    path.write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
+    """An AVIF kernel names ROADMAP.md A6b; an OpenEXR and a fax TIFF
+    kernel (ported) load as the JAX loader loads them; a header-only
+    OpenEXR, a truncated JPEG or GIF raises ValueError, as in JAX."""
+    path = tmp_path / "k.avif"
+    path.write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
     with pytest.raises(ValueError, match="ROADMAP.md A6b"):
         load_psf_file(str(path))
+    from fft_restoration_tpu.utils.exr import encode_exr
+
+    k = np.zeros((9, 9), np.float32)
+    k[4, 1:8] = [0.2, 0.5, 0.9, 1.0, 0.9, 0.5, 0.2]
+    for comp in ("zip", "piz"):
+        path = tmp_path / f"k_{comp}.exr"
+        path.write_bytes(encode_exr(np.dstack([k, k, k]), "half", comp))
+        np.testing.assert_array_equal(load_psf_file(str(path)), j_load_psf_file(str(path)))
+    pil = pytest.importorskip("PIL.Image")
+    path = tmp_path / "k.tif"
+    pil.fromarray((k > 0.4).astype(np.uint8) * 255).convert("1").save(
+        str(path), format="TIFF", compression="group4")
+    np.testing.assert_array_equal(load_psf_file(str(path)), j_load_psf_file(str(path)))
+    path = tmp_path / "k.exr"
+    path.write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
+    for fn in (load_psf_file, j_load_psf_file):
+        with pytest.raises(ValueError, match="EXR version 0"):
+            fn(str(path))
     path = tmp_path / "k.gif"
     path.write_bytes(b"GIF89a\x01\x00\x01\x00")
     for fn in (load_psf_file, j_load_psf_file):
@@ -441,25 +460,26 @@ def test_decode_image_bgr_png_matches_jax(layout):
 
 
 def test_decode_image_bgr_refusals(tmp_path):
-    """Formats not ported (OpenEXR, AVIF) name ROADMAP.md A6b; a truncated
-    or corrupt stream (JPEG, TIFF, GIF, WebP and the rest) is a
-    ValueError, as in JAX."""
-    for blob in (b"\x76\x2f\x31\x01" + bytes(40), b"\x00\x00\x00\x1cftypavif" + bytes(20)):
-        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-            imageio.decode_image_bgr(blob)
+    """The format not ported (AVIF) names ROADMAP.md A6b; a truncated or
+    corrupt stream (JPEG, TIFF, GIF, WebP, OpenEXR and the rest) is a
+    ValueError, as in JAX; an OpenEXR file reads as JAX's imread reads it."""
+    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+        imageio.decode_image_bgr(b"\x00\x00\x00\x1cftypavif" + bytes(20))
     img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), dtype=np.uint8)
     for blob in (formats.encode_bmp(img)[:60], formats.encode_bmp(img)[:40],
                  formats.encode_pnm(img)[:30], formats.encode_pam(img)[:70], b"P7\nWIDTH 4\n",
                  b"P5\n4 4\n255\n\x00", b"\xff\xd8\xff\xe0\x00\x10JFIF", b"II*\x00\x08\x00",
                  b"not an image", b"GIF89a\x01\x00", b"RIFF\x10\x00\x00\x00WEBPVP8L",
-                 b"\xff\x4f\xff\x51" + bytes(40)):
+                 b"\xff\x4f\xff\x51" + bytes(40), b"\x76\x2f\x31\x01" + bytes(40),
+                 b"\x76\x2f\x31\x01\x02\x00\x00\x00channels\x00"):
         for dec in (imageio.decode_image_bgr, jio.decode_image_bgr):
             with pytest.raises(ValueError):
                 dec(blob)
+    from fft_restoration_tpu.utils.exr import encode_exr
+
     path = tmp_path / "x.exr"
-    path.write_bytes(b"\x76\x2f\x31\x01" + bytes(40))
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        imageio.imread(str(path))
+    path.write_bytes(encode_exr(img.astype(np.float32) / 255.0, "half", "b44"))
+    np.testing.assert_array_equal(imageio.imread(str(path)), jio.imread(str(path)))
 
 
 def test_imread_and_probe_size_read_the_ported_formats(tmp_path):

@@ -152,8 +152,9 @@ def test_restore_bmp_with_params(server):
 def test_restore_pnm_and_pam_roundtrip(server):
     """PNM, PAM and GIF (which the JAX test posts too) flow through the
     serving surface, each the restore of its decoded frame (PNM and PAM
-    keep the frame exactly, the GIF's median cut does not); OpenEXR is
-    not ported (a 400 naming ROADMAP.md A6b)."""
+    keep the frame exactly, the GIF's median cut does not); a header-only
+    OpenEXR blob is a 400 with JAX's message, an AVIF one a 400 naming
+    ROADMAP.md A6b."""
     from fft_restoration_tpu_torch.host.gif import decode_gif, encode_gif
 
     img = ((_frame(5, 16, 32) // 32) * 32).astype(np.uint8)
@@ -165,15 +166,19 @@ def test_restore_pnm_and_pam_roundtrip(server):
         assert status == 200
         np.testing.assert_array_equal(decode_png_bgr(data), _pipe().restore(frame, 5, 30.0))
     status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))
+    assert status == 400 and b"EXR version 0 not supported" in data and b"A6b" not in data
+    status, data = _post(server, "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20))
     assert status == 400 and b"A6b" in data
 
 
-@pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette", "webp", "gif", "jp2"])
+@pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette", "webp", "gif", "jp2", "exr",
+                                 "g4"])
 def test_restore_jpeg_tiff_and_palette_bodies(server, fmt):
-    """A JPEG, a 16-bit TIFF, a palette PNG, a lossless WebP, a GIF and a
-    JPEG 2000 body are served (200): the pipeline's restore of the decoded
-    frame, bit for bit, in the JAX server's PNG bytes (encode_png, every
-    row Paeth-filtered)."""
+    """A JPEG, a 16-bit TIFF, a palette PNG, a lossless WebP, a GIF, a
+    JPEG 2000, an OpenEXR (half ZIP, JAX's encoder) and a G4 fax TIFF
+    (PIL) body are served (200): the pipeline's restore of the frame JAX's
+    decoder returns, bit for bit, in the JAX server's PNG bytes
+    (encode_png, every row Paeth-filtered)."""
     from fft_restoration_tpu_torch.host import imageio
     from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
 
@@ -186,6 +191,18 @@ def test_restore_jpeg_tiff_and_palette_bodies(server, fmt):
         enc = {"webp": webp_encode.encode_webp, "gif": gif.encode_gif,
                "jp2": jp2_encode.encode_jp2}[fmt]
         blob = enc(img[..., ::-1])
+    elif fmt == "exr":
+        from fft_restoration_tpu.utils.exr import encode_exr
+
+        blob = encode_exr(img[..., ::-1].astype(np.float32) / 255.0, "half", "zip")
+    elif fmt == "g4":
+        import io
+
+        pil = pytest.importorskip("PIL.Image")
+        buf = io.BytesIO()
+        pil.fromarray((img[..., 1] > 128).astype(np.uint8) * 255).convert("1").save(
+            buf, format="TIFF", compression="group4")
+        blob = buf.getvalue()
     elif fmt == "tiff16":
         rgb16 = img[..., ::-1].astype(np.uint16) * 257 + 100
         blob = formats.encode_tiff(img[..., ::-1])
@@ -207,7 +224,10 @@ def test_restore_jpeg_tiff_and_palette_bodies(server, fmt):
                 + struct.pack(">I", 768) + b"PLTE" + pal.tobytes()
                 + struct.pack(">I", crc32(b"PLTE" + pal.tobytes()) & 0xFFFFFFFF) + blob[33:])
         assert blob[25] == 3 and b"PLTE" in blob
+    from fft_restoration_tpu.utils.imageio import decode_image_bgr as j_decode_image_bgr
+
     frame = imageio.decode_image_bgr(blob)
+    np.testing.assert_array_equal(frame, j_decode_image_bgr(blob))
     status, data = _post(server, "/restore", blob)
     assert status == 200, data[:200]
     want = _pipe().restore(frame, 5, 30.0)
@@ -256,7 +276,9 @@ def test_bad_requests(server):
     assert status == 400
     status, data = _post(server, "/restore", b"RIFF\x10\x00\x00\x00WEBPVP8L")  # truncated
     assert status == 400 and b"corrupt WebP" in data
-    status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))  # OpenEXR: A6b
+    status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))  # header-only EXR
+    assert status == 400 and b"EXR version 0 not supported" in data
+    status, data = _post(server, "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20))  # AVIF: A6b
     assert status == 400 and b"A6b" in data
     status, data = _post(server, "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF")  # truncated
     assert status == 400 and b"corrupt JPEG" in data
