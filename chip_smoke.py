@@ -158,7 +158,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              1), filter=rl&iters=3, edgetaper=1, auto_k=1, estimate=1
              and tile=1024 on the 4096x6144 BMP and the 640x330 frame
              as a JPEG body (each bitwise its library call), 400 for a
-             header-only OpenEXR body, an AVIF body, a corrupt WebP
+             header-only OpenEXR body, a header-only AVIF body, a corrupt WebP
              body, tile=192 and iters=999,
              404, 413; tools/serve_slo.py's three phases (batch, mixed,
              giant: p50/p95/p99, occupancy a phase) and a burst of 8
@@ -236,12 +236,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              B1-B5's kernels, its four fphase_ ranges hold >= 98% of
              device busy, the unattributed rest printed);
              the host ms of each EXR encode and decode at 2048^2 (PIZ at
-             256^2), the DWA fixtures' and the fax fixtures' decodes.
+             256^2), the DWA fixtures' and the fax fixtures' decodes (one
+             run each); the G3 fill-bit fixture decodes to its pixels and
+             is a third request;
+ 11. avif    AVIF (check_avif): each committed stream of
+             tests/data/torch_codecs/ decodes to cv2.imdecode's pixels
+             (their SHA-256 in avif_digests.json), the CDEF stream's
+             planes to libdav1d's; the 640x330 AVIF frame through the CLI
+             with the counters reset (B1-B5 must launch, fft_rows 6 /
+             fft_rows_t 3), the oracle at the inf tier, -o out.png read
+             back bitwise the pipeline's restore; one AVIF request, the
+             pixels of the same frame's PNG request; --psf-file with the
+             gray AVIF fixture exits 0; the host ms of each decode, beside
+             the card's name and power limit and the CPU.
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
 kernel table and the timings; phase 9's under "codecs_native_left",
-phase 10's under "exr_fax_probe"),
+phase 10's under "exr_fax_probe", phase 11's under "avif"),
 the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
@@ -2738,7 +2750,8 @@ def check_serve(torch, np, seed):
         refusals = (
             ("header-only OpenEXR body", "POST", "/restore", b"\x76\x2f\x31\x01" + bytes(64),
              None, 400),
-            ("AVIF body", "POST", "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20), None, 400),
+            ("header-only AVIF body", "POST", "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20),
+             None, 400),
             ("corrupt WebP body", "POST", "/restore",
              b"RIFF\x10\x00\x00\x00WEBPVP8L" + bytes(64), None, 400),
             ("tile=192", "POST", "/restore?tile=192", bodies["small"], None, 400),
@@ -2751,7 +2764,7 @@ def check_serve(torch, np, seed):
             status, data, _ = _http(addr, method, path, body, headers)
             if status != want:
                 fail(f"serve: {name} gave {status}, expected {want}: {data[:200]}")
-        checks["refusals"] = ("400 header-only OpenEXR, 400 AVIF, 400 corrupt WebP, "
+        checks["refusals"] = ("400 header-only OpenEXR, 400 header-only AVIF, 400 corrupt WebP, "
                               "400 tile=192, 400 iters=999, 404, 413")
         t0 = time.perf_counter()
         load = serve_slo.run(f"http://{addr[0]}:{addr[1]}", seed, bodies)
@@ -3265,6 +3278,52 @@ def check_codecs(torch, np, seed):
 # jp2_t1.cpp), through the CLI and the server
 
 
+def requests_like_png(np, phase, bodies):
+    """One in-process server (serve.py on the card, default options) on
+    127.0.0.1:0: for each (kind, body) of `bodies`, a request with the
+    body and one with the same decoded frame as a PNG body, both 200 and
+    bitwise the same pixels, else `phase` fails. Returns kind -> the
+    status, counts off, both client ms and the body's bytes."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from fft_restoration_tpu_torch import serve
+    from fft_restoration_tpu_torch.host.imageio import (
+        decode_image_bgr,
+        decode_png_bgr,
+        encode_png_bgr,
+    )
+
+    service = serve.RestorationService(serve.build_parser().parse_args([]))
+
+    class Quiet(serve.make_handler(service)):
+        def log_message(self, fmt, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    served = {}
+    try:
+        for kind, body in bodies:
+            png_body = encode_png_bgr(decode_image_bgr(body))
+            got = {k: _http(srv.server_address, "POST", "/restore", b)
+                   for k, b in ((kind, body), ("png", png_body))}
+            if got[kind][0] != 200 or got["png"][0] != 200:
+                fail(f"{phase}: the {kind} request gave {got[kind][0]}: {got[kind][1][:200]}")
+            d = u8_max(np, decode_png_bgr(got[kind][1]), decode_png_bgr(got["png"][1]))
+            if d:
+                fail(f"{phase}: the {kind} body's response differs from the PNG body's by {d}")
+            served[kind] = dict(status=200, u8_vs_png_body=d, client_ms=got[kind][2],
+                                png_body_client_ms=got["png"][2], body_bytes=len(body))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.batcher.shutdown()
+        thread.join(timeout=60)
+    return served
+
+
 def fixture_dir(*parts) -> str:
     import os
 
@@ -3340,17 +3399,10 @@ def check_codecs_left(torch, np, seed):
     Returns (result, launch counts by path)."""
     import os
     import tempfile
-    import threading
-    from http.server import ThreadingHTTPServer
 
-    from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host import gif, jp2, webp
-    from fft_restoration_tpu_torch.host.imageio import (
-        decode_image_bgr,
-        decode_png_bgr,
-        encode_png_bgr,
-        imread,
-    )
+    from fft_restoration_tpu_torch.host.imageio import imread
     from fft_restoration_tpu_torch.host.jp2_encode import encode_jp2
     from fft_restoration_tpu_torch.host.webp_encode import encode_webp
 
@@ -3401,34 +3453,8 @@ def check_codecs_left(torch, np, seed):
             res[f"cli{ext.replace('.', '_')}"] = dict(lines=lines, u8_vs_expected=d,
                                                       seconds=cli_s)
 
-    service = serve.RestorationService(serve.build_parser().parse_args([]))
-
-    class Quiet(serve.make_handler(service)):
-        def log_message(self, fmt, *a):
-            pass
-
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    served = {}
-    try:
-        for kind, body in (("webp", encode_webp(small[..., ::-1])),
-                           ("gif", gif.encode_gif(small[..., ::-1]))):
-            png_body = encode_png_bgr(decode_image_bgr(body))
-            got = {name: _http(srv.server_address, "POST", "/restore", b)
-                   for name, b in ((kind, body), ("png", png_body))}
-            if got[kind][0] != 200 or got["png"][0] != 200:
-                fail(f"codecs left: the {kind} request gave {got[kind][0]}: {got[kind][1][:200]}")
-            d = u8_max(np, decode_png_bgr(got[kind][1]), decode_png_bgr(got["png"][1]))
-            if d:
-                fail(f"codecs left: the {kind} body's response differs from the PNG body's by {d}")
-            served[kind] = dict(status=200, u8_vs_png_body=d, client_ms=got[kind][2],
-                                png_body_client_ms=got["png"][2])
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        service.batcher.shutdown()
-        thread.join(timeout=60)
+    served = requests_like_png(np, "codecs left", (("webp", encode_webp(small[..., ::-1])),
+                                                   ("gif", gif.encode_gif(small[..., ::-1]))))
     res["serve_640x330"] = served
     log(f"codecs left (c) server: {served}")
     res["host_ms"] = times
@@ -3452,7 +3478,9 @@ MAIN_KERNEL_NAMES = {  # B1-B5 by the names csrc/ gives their kernels
 
 def fax_fixtures(np) -> dict:
     """The committed fax TIFFs (tests/data/torch_codecs/, written by PIL's
-    libtiff coder) with their pixels: name -> (bytes, (H, W) uint8)."""
+    libtiff coder) with their pixels: name -> (bytes, (H, W) uint8). The
+    fill-bit G3 file holds the scene of the other 640x330 files (PIL's
+    decode of it; the JAX package refuses it)."""
     import os
 
     root = fixture_dir("torch_codecs")
@@ -3461,7 +3489,7 @@ def fax_fixtures(np) -> dict:
         pixels[name] = np.load(os.path.join(root, name))
     out = {}
     for name in ("fax_g3_640x330.tif", "fax_g4_640x330.tif", "fax_mh_640x330.tif",
-                 "fax_sweep_g4_2624.tif"):
+                 "fax_g3fill_640x330.tif", "fax_sweep_g4_2624.tif"):
         with open(os.path.join(root, name), "rb") as f:
             blob = f.read()
         packed = pixels["fax_sweep_g4_2624.npy" if "sweep" in name else "fax_scene_640x330.npy"]
@@ -3572,11 +3600,12 @@ def check_exr_fax_decoders(np, seed):
 
 
 def exr_fax_host_ms(np, frame, small):
-    """Phase 10's host ms on this machine's CPU (host clock, best of 3;
-    RLE at 2048^2 once: its coder is a per-byte Python loop): the OpenEXR
+    """Phase 10's host ms on this machine's CPU (host clock, one run each,
+    to keep the smoke within its time with phase 11 added): the OpenEXR
     encode and decode of the 2048^2x3 frame (/ 255, half) per compression
     (PIZ at 256^2), the six DWA fixtures' decode, and the fax decode of the
-    640x330 G3 / G4 / MH fixtures and of the 2624-wide G4 sweep."""
+    640x330 G3 / G4 / MH / G3 fill-bit fixtures and of the 2624-wide G4
+    sweep."""
     import os
 
     from fft_restoration_tpu_torch.host import exr, formats
@@ -3586,17 +3615,16 @@ def exr_fax_host_ms(np, frame, small):
     for comp in ("none", "rle", "zips", "zip", "pxr24", "b44", "b44a", "piz"):
         src = img[:256, :256] if comp == "piz" else img
         tag = f"{comp}_{'256sq' if comp == 'piz' else '2048sq'}"
-        n = 1 if comp == "rle" else 3
-        times[f"exr_encode_{tag}"], blob = best_ms(lambda: exr.encode_exr(src, "half", comp), n)
-        times[f"exr_decode_{tag}"], _ = best_ms(lambda: exr.decode_exr(blob), n)
+        times[f"exr_encode_{tag}"], blob = best_ms(lambda: exr.encode_exr(src, "half", comp), 1)
+        times[f"exr_decode_{tag}"], _ = best_ms(lambda: exr.decode_exr(blob), 1)
     for name in ("dwaa_rgb_half", "dwab_rgb_half", "dwaa_rgba_half", "dwaa_rgb_float",
                  "dwaa_gray_half", "dwaa_rgbz"):
         with open(fixture_dir(f"{name}.exr"), "rb") as f:
             blob = f.read()
-        times[f"exr_decode_{name}"], _ = best_ms(lambda: exr.decode_exr(blob))
+        times[f"exr_decode_{name}"], _ = best_ms(lambda: exr.decode_exr(blob), 1)
     for name, (blob, _) in fax_fixtures(np).items():
         times[f"fax_decode_{os.path.splitext(name)[0]}"], _ = best_ms(
-            lambda: formats.decode_tiff(blob))
+            lambda: formats.decode_tiff(blob), 1)
     return times
 
 
@@ -3609,8 +3637,9 @@ def check_exr_fax(torch, np, seed):
     640x330 frame as a half PIZ .exr and -o .exr, the 640x330 G4 fixture
     and -o .tif; each output read back bitwise the pipeline's restore of
     the decoded frame; (c) one in-process server request with an OpenEXR
-    body (half ZIP) and one with the G4 fixture's body, each 200 with the
-    pixels of the same frame's PNG-body request; (d) the probe at 2048^2
+    body (half ZIP), one with the G4 fixture's body and one with the G3
+    fill-bit fixture's body, each 200 with the pixels of the same frame's
+    PNG-body request; (d) the probe at 2048^2
     (tools/trace_ops_probe.probe, counters reset): its op table must name
     B1-B5's kernels and the four fphase_ ranges of PROBE_PHASES must hold
     >= 98% of device busy (a row outside every range counts as
@@ -3618,18 +3647,10 @@ def check_exr_fax(torch, np, seed):
     ms of exr_fax_host_ms. Returns (result, launch counts by path)."""
     import os
     import tempfile
-    import threading
-    from http.server import ThreadingHTTPServer
 
-    from fft_restoration_tpu_torch import WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host import exr
-    from fft_restoration_tpu_torch.host.imageio import (
-        decode_image_bgr,
-        decode_png_bgr,
-        encode_png_bgr,
-        imread,
-        imwrite,
-    )
+    from fft_restoration_tpu_torch.host.imageio import imread, imwrite
     from fft_restoration_tpu_torch.tools import trace_ops_probe
 
     main_kernels = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
@@ -3644,6 +3665,7 @@ def check_exr_fax(torch, np, seed):
     frame = blurred_frame(np, SIZE, SIZE, seed + 1200)
     small = blurred_frame(np, *SMALL_HW, seed + 1201)
     g4_blob, _ = fax_fixtures(np)["fax_g4_640x330.tif"]
+    g3fill_blob, _ = fax_fixtures(np)["fax_g3fill_640x330.tif"]
     pipe = WienerDeblurPipeline("cuda")
     with tempfile.TemporaryDirectory(prefix="exr_fax_") as tmp:
         src = {k: os.path.join(tmp, k) for k in ("in_2048sq.exr", "in_piz_640x330.exr",
@@ -3677,34 +3699,9 @@ def check_exr_fax(torch, np, seed):
             res[f"cli_{name}"] = dict(lines=lines, u8_vs_pipeline=d, seconds=cli_s,
                                       frame=list(decoded.shape))
 
-    service = serve.RestorationService(serve.build_parser().parse_args([]))
-
-    class Quiet(serve.make_handler(service)):
-        def log_message(self, fmt, *a):
-            pass
-
-    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    served = {}
-    try:
-        for kind, body in (("exr", exr.encode_exr(small[..., ::-1].astype(np.float32) / 255.0)),
-                           ("g4", g4_blob)):
-            png_body = encode_png_bgr(decode_image_bgr(body))
-            got = {k: _http(srv.server_address, "POST", "/restore", b)
-                   for k, b in ((kind, body), ("png", png_body))}
-            if got[kind][0] != 200 or got["png"][0] != 200:
-                fail(f"exr/fax: the {kind} request gave {got[kind][0]}: {got[kind][1][:200]}")
-            d = u8_max(np, decode_png_bgr(got[kind][1]), decode_png_bgr(got["png"][1]))
-            if d:
-                fail(f"exr/fax: the {kind} body's response differs from the PNG body's by {d}")
-            served[kind] = dict(status=200, u8_vs_png_body=d, client_ms=got[kind][2],
-                                png_body_client_ms=got["png"][2], body_bytes=len(body))
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        service.batcher.shutdown()
-        thread.join(timeout=60)
+    served = requests_like_png(np, "exr/fax", (
+        ("exr", exr.encode_exr(small[..., ::-1].astype(np.float32) / 255.0)),
+        ("g4", g4_blob), ("g3fill", g3fill_blob)))
     res["serve_640x330"] = served
     log(f"exr/fax (c) server: {served}")
 
@@ -3740,6 +3737,138 @@ def check_exr_fax(torch, np, seed):
         f"CPU {res['host']['cpu']}): {json.dumps(res['host_ms'])}")
     res["seconds"] = time.perf_counter() - t_phase
     log(f"phase 10 exr/fax/probe: {res['seconds']:.1f} s")
+    return res, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11: AVIF (host/av1.py, the AV1 still decoder in host/av1_decode.py)
+
+AVIF_FRAME = "avif_q50_640x330.avif"
+AVIF_KERNEL = "avif_gray_96x64.avif"
+AVIF_CDEF = "avif_cdef_uv_420_64x64.avif"
+
+
+def avif_fixtures():
+    """The committed AVIF streams (tests/data/torch_codecs/, written by
+    cv2's libavif/libaom; this machine has no AVIF encoder) and
+    avif_digests.json: (name -> bytes, name -> digests)."""
+    with open(fixture_dir("torch_codecs", "avif_digests.json")) as f:
+        digests = json.load(f)
+    blobs = {}
+    for name in sorted(digests):
+        with open(fixture_dir("torch_codecs", name), "rb") as f:
+            blobs[name] = f.read()
+    if len(blobs) != 7 or not {AVIF_FRAME, AVIF_KERNEL, AVIF_CDEF} <= set(blobs):
+        fail(f"avif: {sorted(blobs)} under tests/data/torch_codecs/, expected the 7 fixtures")
+    return blobs, digests
+
+
+def sha_digest(np, arr) -> dict:
+    import hashlib
+
+    arr = np.ascontiguousarray(arr)
+    return {"shape": list(arr.shape), "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def check_avif_decodes(np, blobs, digests):
+    """Phase 11 (a) and (e): each fixture's decode_avif in cv2.imdecode's
+    channel order (IMREAD_UNCHANGED) against its cv2 digest, and the CDEF
+    stream's decode_frame planes against libdav1d's digests; the host ms
+    of each decode, one run each. Returns (checks, host ms)."""
+    from fft_restoration_tpu_torch.host import av1
+    from fft_restoration_tpu_torch.host.av1_decode import decode_frame
+
+    checks, times = {}, {}
+    for name, blob in blobs.items():
+        t0 = time.perf_counter()
+        img = av1.decode_avif(blob)
+        times[f"decode_{name.rsplit('.', 1)[0]}"] = (time.perf_counter() - t0) * 1e3
+        as_cv2 = img if img.ndim == 2 else img[..., [2, 1, 0, 3][:img.shape[2]]]
+        if sha_digest(np, as_cv2) != digests[name]["cv2"]:
+            fail(f"avif: {name} does not decode to cv2.imdecode's pixels")
+        checks[name] = dict(shape=list(img.shape), cv2_digest="equal")
+    item = av1.parse_avif(blobs[AVIF_CDEF])
+    seq = hdr = tile = None
+    for t, payload in av1.split_obus(item.data):
+        if t == 1:
+            seq = av1.parse_sequence_header(payload)
+        elif t == 6:
+            hdr = av1.parse_frame_header(payload, seq)
+            tile = payload[(hdr.header_bitpos + 7) // 8:]
+    planes = decode_frame(seq, hdr, tile)
+    if [sha_digest(np, p) for p in planes] != digests[AVIF_CDEF]["dav1d"]:
+        fail("avif: the CDEF stream's planes are not libdav1d's")
+    checks[AVIF_CDEF]["dav1d_planes"] = f"equal (cdef_uv_pri {hdr.cdef_uv_pri})"
+    return checks, times
+
+
+def check_avif(torch, np):
+    """Phase 11: AVIF on the card machine. (a) check_avif_decodes; (b) the
+    640x330 AVIF fixture through the CLI with the counters reset: B1-B5
+    must launch, fft_rows 6 and fft_rows_t 3 times (the PSF spectrum's and
+    the oracle-verified restore's, as phases 8-10), the oracle passes at
+    the inf tier, and -o out.png reads back bitwise the pipeline's restore
+    of the decoded frame; (c) one AVIF request to an in-process server,
+    200 with the pixels of the same frame's PNG request; (d) --psf-file
+    with the gray AVIF fixture exits 0; (e) the host ms of each decode
+    (one run each), beside the card's name and power limit and the CPU.
+    Returns (result, launch counts by path)."""
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.imageio import imread
+
+    main_kernels = ("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                    "wb_encode_u8")
+    t_phase = time.perf_counter()
+    res, counts = {}, {}
+    blobs, digests = avif_fixtures()
+    res["decoders"], host_ms = check_avif_decodes(np, blobs, digests)
+    log(f"avif (a) decodes vs cv2 / dav1d digests: {json.dumps(res['decoders'])}")
+
+    with tempfile.TemporaryDirectory(prefix="avif_") as tmp:
+        src, kernel = os.path.join(tmp, "in_640x330.avif"), os.path.join(tmp, "k.avif")
+        out = os.path.join(tmp, "out_640x330.png")
+        for path, name in ((src, AVIF_FRAME), (kernel, AVIF_KERNEL)):
+            with open(path, "wb") as f:
+                f.write(blobs[name])
+        decoded = imread(src)
+        t0 = time.perf_counter()
+        (rc, text), counts["avif_cli_640x330"] = drive(
+            torch, "CLI on the 640x330 .avif", lambda: cli_run(
+                [src, "50", "30", "-o", out, "--tier", "inf"]), expect=main_kernels)
+        cli_s = time.perf_counter() - t0
+        lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+        log(f"avif (b) CLI {AVIF_FRAME} -o out.png --tier inf ({cli_s:.1f} s): exit {rc}; {lines}")
+        if rc != 0 or "[Success] tier=inf" not in text:
+            fail("avif: the CLI on the .avif frame fails the inf tier")
+        got = counts["avif_cli_640x330"]
+        if (got["fft_rows"], got["fft_rows_t"]) != (6, 3):
+            fail(f"avif: the CLI launched fft_rows {got['fft_rows']} / fft_rows_t "
+                 f"{got['fft_rows_t']} times, expected 6 / 3")
+        d = u8_max(np, imread(out), WienerDeblurPipeline("cuda").restore(decoded, 50, 30.0, 0.01))
+        if d:
+            fail(f"avif: out.png differs from the pipeline's restore by {d}")
+        res["cli_640x330"] = dict(lines=lines, u8_vs_pipeline=d, seconds=cli_s,
+                                  frame=list(decoded.shape))
+        t0 = time.perf_counter()
+        rc, text = cli_run([src, "1", "0", "--psf-file", kernel])
+        psf_s = time.perf_counter() - t0
+        lines = [ln for ln in text.splitlines() if ln.startswith("[")]
+        log(f"avif (d) CLI --psf-file {AVIF_KERNEL} ({psf_s:.1f} s): exit {rc}; {lines}")
+        if rc != 0:
+            fail(f"avif: --psf-file {AVIF_KERNEL} exits {rc}")
+        res["psf_file_cli"] = dict(exit=rc, lines=lines, seconds=psf_s)
+
+    res["serve_640x330"] = requests_like_png(np, "avif", (("avif", blobs[AVIF_FRAME]),))["avif"]
+    log(f"avif (c) server: {res['serve_640x330']}")
+    res["host_ms"] = host_ms
+    res["host"] = dict(card=nvidia_smi(), cpu=cpu_model())
+    log(f"avif (e) host ms of each decode, one run ({res['host']['card']}; CPU "
+        f"{res['host']['cpu']}): {json.dumps(host_ms)}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 11 avif: {res['seconds']:.1f} s")
     return res, counts
 
 
@@ -3900,6 +4029,8 @@ def main() -> int:
     counts.update(codec_left_counts)
     exr_fax, exr_fax_counts = check_exr_fax(torch, np, args.seed)
     counts.update(exr_fax_counts)
+    avif, avif_counts = check_avif(torch, np)
+    counts.update(avif_counts)
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -3913,6 +4044,7 @@ def main() -> int:
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
               "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
               "codecs": codecs, "codecs_native_left": codecs_left, "exr_fax_probe": exr_fax,
+              "avif": avif,
               "host_codec_build_s": native.build_seconds}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])

@@ -12,7 +12,7 @@ planes against the serial oracle at a reference tier with the
 
 Input frames are read by host/imageio.py in any format it decodes (PNG,
 JPEG, BMP, PNM, PAM, TIFF with CCITT fax, PFM, HDR, RAS, WebP, GIF, JPEG
-2000, OpenEXR; AVIF exits 1 naming ROADMAP.md A6b); `-o` writes the
+2000, OpenEXR, AVIF); `-o` writes the
 format its extension names (PNG for an unknown one).
 --reference PATH prints the PSNR of the written frame against a sharp
 frame at peak 255 (a read error is printed, not raised); --show renders

@@ -17,17 +17,17 @@ Coding conventions:
 - bits are consumed MSB-first (TIFF FillOrder=1);
 - G4 and G3-2D rows code vertical/horizontal/pass modes against the
   previous row's changing elements (all-white imaginary first line);
-- G3 rows are EOL-framed (optionally byte-aligned via T4Options bit 2,
-  tag bit selects 1D/2D when bit 0 is set); MH rows start byte-aligned
-  with no EOLs;
+- G3 rows are EOL-framed (a tag bit after each EOL selects 1D/2D when
+  T4Options bit 0 is set); with T4Options bit 2 (fill bits) zero bits
+  pad before each EOL so that the EOL ends on a byte boundary; MH rows
+  start byte-aligned with no EOLs;
 - uncompressed-mode extensions (T.4 sec. 4.2.1.3.4) are rejected.
 
-A known fault, kept so that the port reads and refuses the files JAX
-does: with T4Options bit 2 (fill bits) decode_g3 aligns to a byte before
-each EOL, but libtiff pads the fill bits so that the EOL ends on a byte
-boundary, so a G3 strip written with fill bits is refused ("G3 strip has
-1 of N rows") although libtiff reads it. ROADMAP.md C records the fault
-and A's open item 5 its repair.
+A change from JAX, repairing its fault: with fill bits JAX's decode_g3
+aligns to a byte *before* each EOL, so it refuses every fill-bit strip
+that libtiff writes and reads ("G3 strip has 1 of N rows"). The port's
+skips the fill with the EOL's zeros and checks that the EOL ends on a
+byte boundary (ROADMAP.md C); on every other stream it is JAX's.
 
 One change from JAX, of speed only: a 2D row's b1 search starts where
 the previous search of the same row ended (less one), not at the row's
@@ -331,16 +331,16 @@ def decode_g3(
     data: bytes, width: int, height: int, two_d: bool, byte_aligned: bool
 ) -> bytes:
     """TIFF compression 3 (T.4): EOL-framed rows; in 2D mode each EOL
-    carries a tag bit (1 = next row 1D, 0 = 2D)."""
+    carries a tag bit (1 = next row 1D, 0 = 2D). `byte_aligned` (fill
+    bits): each EOL, its fill included, ends on a byte boundary."""
     if width <= 0 or height <= 0:
         raise ValueError("corrupt fax data: empty strip geometry")
     bits = _Bits(data)
     rows: list = []
     ref: list = []
     while len(rows) < height and not bits.exhausted():
-        if byte_aligned:
-            bits.align()
-        if not _skip_eol(bits):
+        # _skip_eol takes the fill's zeros with the EOL's eleven
+        if not _skip_eol(bits) or (byte_aligned and bits.pos % 8):
             break
         is_1d = True
         if two_d:

@@ -1,7 +1,8 @@
 """Image codecs in numpy beside PNG and JPEG: the port's copy of the JAX
 package's utils/formats.py on BMP, PNM, PAM, PBM, TIFF, PFM, Radiance
 HDR and Sun Raster, and the dispatch to WebP (host/webp.py), GIF
-(host/gif.py), JPEG 2000 (host/jp2.py) and OpenEXR (host/exr.py).
+(host/gif.py), JPEG 2000 (host/jp2.py), OpenEXR (host/exr.py) and AVIF
+(host/av1.py, the AV1 still decoder in av1_decode.py).
 
 Each decoder returns uint8 gray (H, W) or RGB(A) (H, W, C), the layout
 host/imageio.decode_png returns, before host/imageio.decode_image_bgr
@@ -32,8 +33,8 @@ makes it 3-channel BGR:
 The encoders write 24-bit bottom-up BMP, binary PGM/PPM, PAM, PBM,
 uncompressed little-endian TIFF, little-endian PFM, RLE Radiance HDR
 and type-1 Sun Raster: the JAX package's bytes exactly. `sniff` knows
-the JAX package's every kind; AVIF is refused with a ValueError naming
-ROADMAP.md A6b.
+the JAX package's every kind, and each decodes (AVIF is read, not
+written, as in JAX).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import zlib
 
 import numpy as np
 
-from fft_restoration_tpu_torch.host import exr, fax, gif, jp2, webp
+from fft_restoration_tpu_torch.host import av1, exr, fax, gif, jp2, webp
 
 # ---------------------------------------------------------------------------
 # BMP
@@ -1195,20 +1196,13 @@ def sniff(data: bytes):
     return None
 
 
-# kinds `sniff` names whose JAX decoders are not ported yet
-UNPORTED = {"avif": "AVIF"}
-
 DECODERS = {"bmp": decode_bmp, "pnm": decode_pnm, "pam": decode_pam, "tiff": decode_tiff,
             "pfm": decode_pfm, "hdr": decode_hdr, "ras": decode_ras,
             "webp": webp.decode_webp, "gif": gif.decode_gif, "jp2": jp2.decode_jp2,
-            "exr": exr.decode_exr}
+            "exr": exr.decode_exr, "avif": av1.decode_avif}
 # the decoders that take a lane: (data, native)
 _LANED = {"tiff", "webp", "gif", "jp2"}
-_KINDS = "BMP/PNM/PAM/PFM/TIFF/WebP/HDR/RAS/JP2/EXR/GIF"
-
-
-def unported(kind: str) -> ValueError:
-    return ValueError(f"{UNPORTED[kind]} images are not ported yet: ROADMAP.md A6b")
+_KINDS = "BMP/PNM/PAM/PFM/TIFF/WebP/HDR/RAS/JP2/EXR/GIF/AVIF"
 
 
 def decode(data: bytes, native: bool = True) -> np.ndarray:
@@ -1218,8 +1212,6 @@ def decode(data: bytes, native: bool = True) -> np.ndarray:
     kind = sniff(data)
     if kind is None:
         raise ValueError(f"not a {_KINDS} file")
-    if kind in UNPORTED:
-        raise unported(kind)
     if kind in _LANED:
         return DECODERS[kind](data, native)
     return DECODERS[kind](data)
@@ -1227,10 +1219,8 @@ def decode(data: bytes, native: bool = True) -> np.ndarray:
 
 def probe_size(data: bytes):
     """(height, width) from the headers alone, for batch grouping: the
-    JAX probe on every ported kind; the unported kinds raise."""
+    JAX probe on every kind."""
     kind = sniff(data)
-    if kind in UNPORTED:
-        raise unported(kind)
     if kind == "bmp":
         _, _, w, h, _, _ = _bmp_header(data)
         return abs(h), w
@@ -1278,4 +1268,6 @@ def probe_size(data: bytes):
         if not m or not m2:
             raise ValueError("corrupt PAM: truncated header")
         return int(m2.group(1)), int(m.group(1))
+    if kind == "avif":
+        return av1.probe_avif_size(data)
     raise ValueError(f"not a {_KINDS} file")

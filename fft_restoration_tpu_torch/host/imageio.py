@@ -5,9 +5,8 @@ color semantics): the port's copy of the JAX package's utils/imageio.py.
 loader, dispatched on the magic bytes: PNG here (every bit depth, color
 type and Adam7), JPEG through host/jpeg.py, and BMP, PNM, PAM, TIFF,
 PFM, Radiance HDR, Sun Raster, WebP (host/webp.py), GIF (host/gif.py),
-JPEG 2000 (host/jp2.py) and OpenEXR (host/exr.py) through
-host/formats.py; CCITT fax TIFFs through host/fax.py. AVIF raises
-ValueError naming ROADMAP.md A6b.
+JPEG 2000 (host/jp2.py), OpenEXR (host/exr.py) and AVIF (host/av1.py)
+through host/formats.py; CCITT fax TIFFs through host/fax.py.
 `imwrite` picks the encoder by the file's extension, as the JAX imwrite
 does; `probe_size` reads a file's size from its headers alone, for
 grouping a directory's frames; `imread_batch` decodes a group, 8-bit
@@ -354,8 +353,8 @@ def _probe_bytes(data: bytes) -> tuple:
 def probe_size(path: str) -> tuple:
     """(height, width) of an image file from its headers alone, for any
     format `imread` reads (the JAX probe). Raises ValueError for an
-    unknown or unported format, a truncated header and a JPEG mode the
-    decoder refuses."""
+    unknown format, a truncated header and a JPEG mode the decoder
+    refuses."""
     try:
         return _probe_bytes(Path(path).read_bytes())
     except (struct.error, IndexError) as e:

@@ -3,8 +3,7 @@
 Counterpart of fft_restoration_tpu/ops/psf.py's load_psf_file, bit for
 bit on the formats the port reads: .npy, .txt and .csv arrays, and
 images in any format host/imageio.py decodes (averaged over the
-channels), WebP, GIF, JPEG 2000, OpenEXR and fax TIFF among them. AVIF
-kernels are refused until its codec is ported (ROADMAP.md A6b).
+channels), WebP, GIF, JPEG 2000, OpenEXR, fax TIFF and AVIF among them.
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ def load_psf_file(path: str) -> np.ndarray:
         k = np.loadtxt(path, delimiter="," if ext == ".csv" else None)
     else:
         # an image in any format imread decodes, by its magic bytes, as
-        # the JAX loader does; AVIF raises naming A6b
+        # the JAX loader does
         from fft_restoration_tpu_torch.host.imageio import imread
 
         k = np.asarray(imread(path), np.float64).mean(axis=-1)

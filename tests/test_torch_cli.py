@@ -374,8 +374,8 @@ def test_psf_file_replaces_the_family(tmp_path, capsys):
                                           (b"\x00\x00\x00\x1cftypavif" + bytes(20), "k.avif")])
 def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, name):
     """A missing file, a corrupt PNG, a truncated GIF, a header-only
-    OpenEXR kernel (JAX's message) and an AVIF kernel (not ported: it
-    names ROADMAP.md A6b) exit 2."""
+    OpenEXR kernel and a header-only AVIF kernel (each with JAX's
+    message) exit 2."""
     path = tmp_path / name
     if content:
         path.write_bytes(content)
@@ -385,7 +385,7 @@ def test_psf_file_load_error_exits_2(blurred_png, tmp_path, capsys, content, nam
     if name.endswith(".exr"):
         assert "EXR version 0 not supported" in text and "A6b" not in text
     if name.endswith(".avif"):
-        assert "ROADMAP.md A6b" in text
+        assert "corrupt AVIF: no meta box" in text and "A6b" not in text
     if name.endswith(".gif"):
         assert "corrupt GIF" in text
 

@@ -13,6 +13,7 @@ frame; its PSNR line the JAX CLI's line on the same files (both in
 
 import io
 import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -164,10 +165,11 @@ def test_cli_refuses_an_unported_output_before_any_work(files, tmp_path, capsys,
 
 def test_directory_of_mixed_formats(files, tmp_path, capsys):
     """PNG, JPEG, TIFF, BMP and WebP frames of one size go into one batch
-    group and are all restored; an AVIF stream is skipped naming A6b
-    (under a .tif name: the directory list, JAX's, has no .avif, and the
-    decoder goes by the magic bytes); the directory ignores --reference
-    and --show."""
+    group and are all restored; an AVIF stream of another size is
+    restored alone (under a .tif name: the directory list, JAX's, has no
+    .avif, and the decoder goes by the magic bytes); the directory
+    ignores --reference and --show."""
+    from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
     from fft_restoration_tpu_torch.models.batched import BatchedWienerPipeline
 
     src = tmp_path / "frames"
@@ -176,18 +178,23 @@ def test_directory_of_mixed_formats(files, tmp_path, capsys):
     frames = [blur_image(_scene(40, 48, s), 9, 30.0) for s in range(len(names))]
     for name, f in zip(names, frames):
         imageio.imwrite(str(src / name), f)
-    (src / "e.tif").write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
+    (src / "e.tif").write_bytes(
+        (Path(__file__).parent / "data" / "torch_codecs" / "avif_q50_96x64.avif").read_bytes())
     out = tmp_path / "out"
     rc = cli.main([str(src), "9", "30", "--device", "cpu", "-o", str(out),
                    "--reference", str(files / "sharp.png"), "--show"])
     text = capsys.readouterr().out
     assert rc == 0, text
     assert "directory mode ignores --reference and --show" in text
-    assert "Restored 5 frames" in text and "[1 skipped]" in text and "A6b" in text
+    assert "Restored 6 frames" in text and "skipped" not in text and "A6b" not in text
     stack = np.stack([imageio.imread(str(src / n)) for n in names])
     want = BatchedWienerPipeline("cpu").restore(stack, 9, 30.0)
     for n, w in zip(names, want):
         np.testing.assert_array_equal(imageio.imread(str(out / f"{n.split('.')[0]}_restored.png")), w)
+    avif = imageio.imread(str(src / "e.tif"))
+    assert avif.shape == (64, 96, 3)
+    np.testing.assert_array_equal(imageio.imread(str(out / "e_restored.png")),
+                                  WienerDeblurPipeline("cpu").restore(avif, 9, 30.0))
 
 
 @pytest.mark.parametrize("ext", [".png", ".jpg", ".tif", ".bmp", ".pgm", ".pfm", ".ras", ".hdr",

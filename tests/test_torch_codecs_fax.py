@@ -10,6 +10,8 @@ or corrupted streams. Tolerance: bitwise pixels (decode_tiff,
 formats.decode, decode_image_bgr) and the same exception class where
 JAX raises. The port's G4/G3-2D b1 search resumes where the last one
 ended (a change of speed only): these cases hold it to JAX's output.
+G3 with EOL fill bits (T4Options bit 2) is a deliberate difference: JAX
+refuses such files, the port decodes them to PIL's (libtiff's) pixels.
 """
 
 import io
@@ -137,10 +139,30 @@ def test_min_is_white(compression):
 
 @pytest.mark.parametrize("t4opts", [1, 4, 5])
 def test_g3_options(t4opts):
-    """T4Options bit 0 (2D rows) and bit 2 (EOL fill bits): the port
-    decodes where JAX decodes and raises JAX's class where it raises
-    (the JAX decoder refuses fill-bit files, ROADMAP.md C)."""
-    _check(_fax_blob(_rng(t4opts).random((40, 120)) < 0.3, "group3", tiffinfo={292: t4opts}))
+    """T4Options bit 0 (2D rows) and bit 2 (EOL fill bits). Without fill
+    bits the port is JAX's; with them JAX refuses the file (its fault,
+    ROADMAP.md C) and the port decodes PIL's pixels (the repair)."""
+    bw = _rng(t4opts).random((40, 120)) < 0.3
+    blob = _fax_blob(bw, "group3", tiffinfo={292: t4opts})
+    if not t4opts & 4:
+        np.testing.assert_array_equal(_check(blob), bw.astype(np.uint8) * 255)
+        return
+    pil = pytest.importorskip("PIL.Image")
+    np.testing.assert_array_equal(np.asarray(pil.open(io.BytesIO(blob)).convert("L")),
+                                  bw.astype(np.uint8) * 255)
+    _fill_bits_decode(blob, bw)
+
+
+def _fill_bits_decode(blob, bw):
+    """A fill-bit G3 file: JAX refuses it on every entry point; the port
+    gives `bw` (PIL's pixels) as 0 / 255 on every one."""
+    want = bw.astype(np.uint8) * 255
+    for fn in (jf.decode_tiff, jf.decode, jio.decode_image_bgr):
+        assert _outcome(fn, blob) == "ValueError"
+    np.testing.assert_array_equal(formats.decode_tiff(blob), want)
+    np.testing.assert_array_equal(formats.decode(blob), want)
+    np.testing.assert_array_equal(imageio.decode_image_bgr(blob), np.repeat(want[..., None], 3, -1))
+    assert formats.probe_size(blob) == jf.probe_size(blob) == bw.shape
 
 
 @pytest.mark.parametrize("compression", COMPS)
@@ -178,6 +200,16 @@ def test_committed_fixtures(name, npy):
     packed = np.load(FIXTURES / npy)
     np.testing.assert_array_equal(
         want, np.unpackbits(packed, axis=1, count=want.shape[1]) * np.uint8(255))
+
+
+def test_committed_g3_fill_fixture():
+    """fax_g3fill_640x330.tif (G3 2D rows with EOL fill bits, T4Options 5)
+    holds the scene of the other fax fixtures: PIL read it so when the
+    fixture was written, JAX refuses it, the port decodes it bitwise."""
+    blob = (FIXTURES / "fax_g3fill_640x330.tif").read_bytes()
+    assert _strip(blob)[3] == 5
+    packed = np.load(FIXTURES / "fax_scene_640x330.npy")
+    _fill_bits_decode(blob, np.unpackbits(packed, axis=1, count=640).astype(bool))
 
 
 def test_corrupt_streams_and_refusals():

@@ -10,14 +10,15 @@ PIL through importorskip, as the JAX tests do. Tolerance: bitwise, for
 decodes (both JPEG lanes inside TIFF against JAX's native lane: a TIFF's
 JPEG strips decode bitwise on the native lane, and within 1 count on
 the plain one), encodes (bytes) and probes; refusals raise the same
-exception type as JAX, and the unported kind (AVIF) names ROADMAP.md
-A6b.
+exception type as JAX, and no message names ROADMAP.md A6b, whose
+formats (AVIF the last) are all ported.
 """
 
 import io
 import struct
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -456,9 +457,9 @@ def test_encode_ras_pbm_pfm_bytes_equal_jax(shape):
 
 
 def _a6b_blob(kind):
-    """A header-only blob of the kind ROADMAP.md A6b still lists (AVIF);
-    the kinds ported since (WebP, GIF, JPEG 2000, OpenEXR) as a real
-    stream of the JAX encoders."""
+    """A real stream of each kind ROADMAP.md A6b listed: WebP, GIF, JPEG
+    2000 and OpenEXR from the JAX encoders, AVIF (which JAX does not
+    write) the committed 57x33 fixture."""
     img = _rng(21).integers(0, 256, (6, 9, 3)).astype(np.uint8)
     if kind == "exr":
         from fft_restoration_tpu.utils.exr import encode_exr
@@ -476,20 +477,23 @@ def _a6b_blob(kind):
         from fft_restoration_tpu.utils import jp2_encode
 
         return (jp2_encode.encode_jp2 if kind == "jp2" else jp2_encode.encode_j2k)(img)
-    return {"avif": b"\x00\x00\x00\x1cftypavif" + bytes(20)}[kind]
+    assert kind == "avif"
+    return (Path(__file__).parent / "data" / "torch_codecs" / "avif_odd_57x33.avif").read_bytes()
 
 
 @pytest.mark.parametrize("kind", ["avif", "exr", "gif", "j2k", "jp2", "webp"])
 def test_unported_kinds_name_a6b(kind, tmp_path):
-    """AVIF names ROADMAP.md A6b everywhere; the kinds A6b listed beside
-    it and that are ported now decode, probe and read from a file bitwise
-    as JAX does (a header-only OpenEXR blob raises JAX's ValueError)."""
+    """Every kind A6b listed decodes, probes and reads from a file bitwise
+    as JAX does; a header-only OpenEXR or AVIF blob raises JAX's
+    ValueError and message, none naming A6b. (The name is kept from when
+    these kinds were refused.)"""
     blob = _a6b_blob(kind)
     assert formats.sniff(blob) == jf.sniff(blob)
     path = tmp_path / f"x.{kind}"
     path.write_bytes(blob)
-    if kind == "exr":
-        stub = b"\x76\x2f\x31\x01" + bytes(40)
+    if kind in ("exr", "avif"):
+        stub = {"exr": b"\x76\x2f\x31\x01" + bytes(40),
+                "avif": b"\x00\x00\x00\x1cftypavif" + bytes(20)}[kind]
         for fn, jfn in ((formats.decode, jf.decode), (formats.probe_size, jf.probe_size),
                         (imageio.decode_image_bgr, jio.decode_image_bgr)):
             with pytest.raises(ValueError) as got:
@@ -497,18 +501,12 @@ def test_unported_kinds_name_a6b(kind, tmp_path):
             with pytest.raises(ValueError) as want:
                 jfn(stub)
             assert str(got.value) == str(want.value) and "A6b" not in str(got.value)
-    if kind == "avif":
-        for fn in (formats.decode, formats.probe_size, imageio.decode_image_bgr):
-            with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-                fn(blob)
-        with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-            imageio.probe_size(str(path))
-        return
     np.testing.assert_array_equal(formats.decode(blob), jf.decode(blob))
     np.testing.assert_array_equal(formats.decode(blob, native=False), jf.decode(blob))
-    assert formats.probe_size(blob) == jf.probe_size(blob) == (6, 9)
+    size = (33, 57) if kind == "avif" else (6, 9)
+    assert formats.probe_size(blob) == jf.probe_size(blob) == size
     np.testing.assert_array_equal(imageio.decode_image_bgr(blob), jio.decode_image_bgr(blob))
-    assert imageio.probe_size(str(path)) == jio.probe_size(str(path)) == (6, 9)
+    assert imageio.probe_size(str(path)) == jio.probe_size(str(path)) == size
     np.testing.assert_array_equal(imageio.imread(str(path)), jio.imread(str(path)))
 
 

@@ -12,7 +12,9 @@ decoder) or fills the buffer with exactly the plain lane's result on the
 same payload; and where the native lane refuses, the plain lane raises
 too (a refusal of a stream the plain lane reads would be a fault the
 port's no-fallback contract exposes). Last, two threads decoding at once
-through freshly loaded libraries give one thread's bits.
+through freshly loaded libraries give one thread's bits, and the child
+command of tools/native_asan_fuzz.py (which replays this file on ASAN
+builds) is checked without running it.
 """
 
 import threading
@@ -263,3 +265,33 @@ def test_two_threads_on_freshly_loaded_libraries(monkeypatch):
         for outs in per_thread:
             for got, w in zip(outs, want):
                 np.testing.assert_array_equal(got, w)
+
+
+def test_asan_replay_child_command(tmp_path, monkeypatch):
+    """tools/native_asan_fuzz.py's child, checked without running it: the
+    interpreter preloads libasan then libstdc++, and its code points
+    host/native.py at ASAN flags and a build root under the temporary
+    directory before pytest runs this file (with a stand-in pytest)."""
+    import sys
+    import types
+
+    from fft_restoration_tpu_torch.tools import native_asan_fuzz as tool
+
+    argv, env = tool.child_command(str(tmp_path), "/gcc/libasan.so", "/gcc/libstdc++.so.6")
+    assert argv[:2] == [sys.executable, "-c"] and len(argv) == 3
+    assert env["LD_PRELOAD"] == "/gcc/libasan.so /gcc/libstdc++.so.6"
+    assert "detect_leaks=0" in env["ASAN_OPTIONS"]
+    assert f"log_path={tmp_path / 'asan_report'}" in env["ASAN_OPTIONS"]
+    assert str(tool.REPO) in env["PYTHONPATH"].split(":")
+    assert tool.CORPUS == (tool.REPO / "tests" / "test_torch_codecs_native_fuzz.py",)
+    assert all(p.is_file() for p in tool.CORPUS)
+    calls = []
+    monkeypatch.setitem(sys.modules, "pytest", types.SimpleNamespace(main=lambda a: calls.append(a) or 0))
+    monkeypatch.setattr(native, "CXX_FLAGS", native.CXX_FLAGS)
+    monkeypatch.setattr(native, "BUILD_ROOT", native.BUILD_ROOT)
+    with pytest.raises(SystemExit) as done:
+        exec(argv[2], {"__name__": "__main__"})
+    assert done.value.code == 0
+    assert native.CXX_FLAGS == ("-O1", "-g", "-fPIC", "-shared", "-fsanitize=address")
+    assert native.BUILD_ROOT == tmp_path / "native"
+    assert calls == [[str(tool.CORPUS[0]), "-q", "-p", "no:cacheprovider", "--noconftest"]]

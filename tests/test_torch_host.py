@@ -170,13 +170,19 @@ def test_load_psf_file_refuses_what_jax_refuses(tmp_path, kernel, match):
 
 
 def test_load_psf_file_refuses_unported_images(tmp_path):
-    """An AVIF kernel names ROADMAP.md A6b; an OpenEXR and a fax TIFF
-    kernel (ported) load as the JAX loader loads them; a header-only
-    OpenEXR, a truncated JPEG or GIF raises ValueError, as in JAX."""
+    """An AVIF, an OpenEXR and a fax TIFF kernel load as the JAX loader
+    loads them; a header-only AVIF or OpenEXR, a truncated JPEG or GIF
+    raises ValueError, as in JAX (AVIF with JAX's message, none naming
+    ROADMAP.md A6b: the name is kept from when these were refused)."""
     path = tmp_path / "k.avif"
     path.write_bytes(b"\x00\x00\x00\x1cftypavif" + bytes(20))
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
+    with pytest.raises(ValueError, match="^corrupt AVIF: no meta box$"):
         load_psf_file(str(path))
+    with pytest.raises(ValueError, match="^corrupt AVIF: no meta box$"):
+        j_load_psf_file(str(path))
+    path.write_bytes((Path(__file__).parent / "data" / "torch_codecs"
+                      / "avif_gray_96x64.avif").read_bytes())
+    np.testing.assert_array_equal(load_psf_file(str(path)), j_load_psf_file(str(path)))
     from fft_restoration_tpu.utils.exr import encode_exr
 
     k = np.zeros((9, 9), np.float32)
@@ -460,11 +466,13 @@ def test_decode_image_bgr_png_matches_jax(layout):
 
 
 def test_decode_image_bgr_refusals(tmp_path):
-    """The format not ported (AVIF) names ROADMAP.md A6b; a truncated or
-    corrupt stream (JPEG, TIFF, GIF, WebP, OpenEXR and the rest) is a
-    ValueError, as in JAX; an OpenEXR file reads as JAX's imread reads it."""
-    with pytest.raises(ValueError, match="ROADMAP.md A6b"):
-        imageio.decode_image_bgr(b"\x00\x00\x00\x1cftypavif" + bytes(20))
+    """A header-only AVIF raises JAX's message (no format names ROADMAP.md
+    A6b any more); a truncated or corrupt stream (JPEG, TIFF, GIF, WebP,
+    OpenEXR and the rest) is a ValueError, as in JAX; an OpenEXR file
+    reads as JAX's imread reads it."""
+    for dec in (imageio.decode_image_bgr, jio.decode_image_bgr):
+        with pytest.raises(ValueError, match="^corrupt AVIF: no meta box$"):
+            dec(b"\x00\x00\x00\x1cftypavif" + bytes(20))
     img = np.random.default_rng(2).integers(0, 256, (16, 32, 3), dtype=np.uint8)
     for blob in (formats.encode_bmp(img)[:60], formats.encode_bmp(img)[:40],
                  formats.encode_pnm(img)[:30], formats.encode_pam(img)[:70], b"P7\nWIDTH 4\n",

@@ -150,25 +150,30 @@ def test_restore_bmp_with_params(server):
 
 
 def test_restore_pnm_and_pam_roundtrip(server):
-    """PNM, PAM and GIF (which the JAX test posts too) flow through the
-    serving surface, each the restore of its decoded frame (PNM and PAM
-    keep the frame exactly, the GIF's median cut does not); a header-only
-    OpenEXR blob is a 400 with JAX's message, an AVIF one a 400 naming
-    ROADMAP.md A6b."""
+    """PNM, PAM and GIF (which the JAX test posts too) and an AVIF fixture
+    flow through the serving surface, each the restore of its decoded
+    frame (PNM and PAM keep the frame exactly, the GIF's median cut and
+    the AVIF's q50 do not); a header-only OpenEXR or AVIF blob is a 400
+    with JAX's message."""
+    from pathlib import Path
+
+    from fft_restoration_tpu_torch.host.av1 import decode_avif
     from fft_restoration_tpu_torch.host.gif import decode_gif, encode_gif
 
     img = ((_frame(5, 16, 32) // 32) * 32).astype(np.uint8)
     rgb = img[..., ::-1]
     gif_blob = encode_gif(rgb)
+    avif_blob = (Path(__file__).parent / "data" / "torch_codecs" / "avif_odd_57x33.avif").read_bytes()
     for blob, frame in ((formats.encode_pnm(rgb), img), (formats.encode_pam(rgb), img),
-                        (gif_blob, decode_gif(gif_blob)[..., ::-1].copy())):
+                        (gif_blob, decode_gif(gif_blob)[..., ::-1].copy()),
+                        (avif_blob, decode_avif(avif_blob)[..., ::-1].copy())):
         status, data = _post(server, "/restore", blob)
         assert status == 200
         np.testing.assert_array_equal(decode_png_bgr(data), _pipe().restore(frame, 5, 30.0))
     status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))
     assert status == 400 and b"EXR version 0 not supported" in data and b"A6b" not in data
     status, data = _post(server, "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20))
-    assert status == 400 and b"A6b" in data
+    assert status == 400 and b"corrupt AVIF: no meta box" in data and b"A6b" not in data
 
 
 @pytest.mark.parametrize("fmt", ["jpeg", "tiff16", "png_palette", "webp", "gif", "jp2", "exr",
@@ -278,8 +283,8 @@ def test_bad_requests(server):
     assert status == 400 and b"corrupt WebP" in data
     status, data = _post(server, "/restore", b"\x76\x2f\x31\x01" + bytes(40))  # header-only EXR
     assert status == 400 and b"EXR version 0 not supported" in data
-    status, data = _post(server, "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20))  # AVIF: A6b
-    assert status == 400 and b"A6b" in data
+    status, data = _post(server, "/restore", b"\x00\x00\x00\x1cftypavif" + bytes(20))  # header-only AVIF
+    assert status == 400 and b"corrupt AVIF" in data
     status, data = _post(server, "/restore", b"\xff\xd8\xff\xe0\x00\x10JFIF")  # truncated
     assert status == 400 and b"corrupt JPEG" in data
     status, data = _post(server, "/restore?psf_length=99", encode_png_bgr(_frame(4, 16, 16)))
