@@ -29,7 +29,8 @@ and (batch, rows) meshes laid on the one card; the host codec layer (JPEG,
 16-bit TIFF, PNG, BMP inputs through the CLI and a directory, -o by
 extension); WebP, GIF and JPEG 2000 through the CLI and the server;
 OpenEXR and CCITT fax TIFF through the CLI and the server, and the
-op-trace probe.
+op-trace probe; and every FFT kernel of the restore again on the MXU
+engine (fft_engine="mxu": the tensor-core group DFT) at both precisions.
 Phases, each printing its own lines; any failure exits non-zero:
 
   1. build   the CUDA kernels with nvcc (and report the seconds) and,
@@ -40,7 +41,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              instance's registers and spills (ptxas), and how many of
              B2's, B7's and B10's stage-group instances, of the white-balance
              kernels' (csrc/postprocess.cu) and of B11's and B12's
-             (csrc/fft_cols.cu, csrc/fft_radix4.cu) spill;
+             (csrc/fft_cols.cu, csrc/fft_radix4.cu) spill; each MXU
+             engine instance (csrc/fft_group_dft.cuh inside B1, B3/B6, B2
+             and B7) with its registers, spills and count of HMMA
+             instructions (cuobjdump -sass): none may have 0;
   2. kernels every kernel against its plain PyTorch version on the card,
              at the shapes the paths give it (B2 in its 'wiener', 'conv'
              and 'conv' + conj modes; 'wiener' at the UHD frame's pow2
@@ -249,11 +253,29 @@ Phases, each printing its own lines; any failure exits non-zero:
              pixels of the same frame's PNG request; --psf-file with the
              gray AVIF fixture exits 0; the host ms of each decode, beside
              the card's name and power limit and the CPU.
+ 12. mxu     the MXU engine (fft_engine="mxu"; check_mxu_kernels,
+             check_mxu): each mxu kernel (B1, B6, B3, B2 'wiener' /
+             'conv' / conj, B7) at both precisions against its plain
+             twin at the same precision (TOL_MXU_REL) at the headline
+             shapes, the UHD frame's smooth extents (q = 256) and the
+             (96, 256, 256) stack, timed beside its bound (bytes, float32
+             operations and the group products' tensor operations: bf16
+             at 989, 3xTF32 at 495 TFLOP/s) and torch.fft; with the
+             counters reset, the 2048^2 restore at 'highest' (the
+             oracle's inf tier) and 'default' (the gpu tier), batch64
+             and RL x2 at both, each against its plain path (batch64's
+             plain path on the host too, a reading); the CLI with --fft-engine
+             mxu on a 640x330 frame at the gpu tier and at --tier inf;
+             a server request at --fft-engine mxu (bitwise its
+             pipeline's frame); the headline's device busy at roll, mxu
+             'default' and mxu 'highest' in turns. Its kernel rows join
+             the kernel table.
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
 kernel table and the timings; phase 9's under "codecs_native_left",
-phase 10's under "exr_fax_probe", phase 11's under "avif"),
+phase 10's under "exr_fax_probe", phase 11's under "avif", phase 12's
+under "mxu"),
 the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
@@ -381,6 +403,42 @@ SHARD_B6_WIENER = 6
 SHARD_FORBID = ("fft_rows_t", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
                 "lab_l_sum_partials", "wb_encode_u8", "wiener_spectral_rows")
 SHARD_TRACE_ITERS = 5
+# phase 12, the MXU engine (fft_engine="mxu"): its precisions, the
+# tensor-core peaks of its bound (dense, H100 SXM data sheet), the tensor
+# operations of one 128-point group's three real 128 x 128 products
+MXU_PRECISIONS = ("default", "highest")
+MXU_LOG = 7
+BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
+GROUP_DFT_FLOPS = 3 * 2 * 128 * 128
+# an mxu kernel vs its plain twin at the same precision, at both: at
+# 'default' the bf16 units build with -fmad=false (ops/kernels/_build.py
+# MXU_ENGINES), so a kernel and its twin round the same float32 values
+# to bf16
+TOL_MXU_REL = 1e-4
+# a restore at 'default' against its plain path. Each kernel's output is
+# its twin's but for the tensor cores' float32 sums of the group products
+# (a last bit off the plain product's), and the next kernel rounds those
+# outputs to bf16: a value beside a rounding edge goes to the
+# neighbouring bf16 (2^-8 of itself), and the filter's gain (RL's
+# divisions too) carries that into the planes. Beside it check_mxu reads
+# batch64's plain path on the host against the same path on the card:
+# their products agree (planes 0.0 apart on an H100), so the gap is the
+# tensor cores' sums. Set from this script's readings on an H100 80GB
+# HBM3 at 700 W: 2048^2 8.6e-4 / 1 count, batch64 8.0e-3 / 3, RL x2
+# 1.405e-2 / 4. 'highest' holds TOL_SLICE_PLANES and TOL_U8
+TOL_MXU_DEFAULT_PLANES = 0.015
+TOL_MXU_DEFAULT_U8 = 4
+# kernel-table row stem -> (source, the TPU kernel's pallas_call)
+MXU_ROWS = {
+    "fft_rows_t": ("csrc/fft_rows_t.cu", "fft_kernel.py:699"),
+    "fft_rows": ("csrc/fft_rows.cu", "fft_kernel.py:1107"),
+    "fft_rows_packed_out": ("csrc/fft_rows.cu", "fft_kernel.py:820"),
+    "wiener_spectral_t": ("csrc/wiener_spectral.cu", "wiener_spectral.py:402"),
+    "spectral_conv_t": ("csrc/wiener_spectral.cu", "wiener_spectral.py:402"),
+    "spectral_conv_t_conj": ("csrc/wiener_spectral.cu", "wiener_spectral.py:402"),
+    "fwd_wiener_rows": ("csrc/wiener_spectral.cu", "wiener_spectral.py:189"),
+}
 
 
 def log(msg: str) -> None:
@@ -3872,6 +3930,400 @@ def check_avif(torch, np):
     return res, counts
 
 
+def mxu_instances(build_log: str, lib_path: str) -> list:
+    """The MXU engine's tensor-core kernel instances (csrc/fft_group_dft.cuh
+    inside fft_rows_t.cu, fft_rows.cu and wiener_spectral.cu): per
+    instance its (demangled) name, registers and spills from nvcc's
+    -Xptxas -v output, and its count of HMMA instructions from
+    `cuobjdump -sass` of the built library."""
+    import re
+    import shutil
+
+    regs, name, spill = {}, None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            regs[name] = (int(m.group(1)), spill)
+            name = None
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    hmma = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn, _, body = part.partition("\n")
+        hmma[fn.strip()] = body.count("HMMA")
+    names = sorted(n for n in regs if "_mxu_kernel" in n)
+    shown = names
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            shown = [n.split("(")[0] for n in out.stdout.splitlines()]
+    return [dict(name=d, registers=regs[n][0], spill=regs[n][1], hmma=hmma.get(n, 0))
+            for n, d in zip(names, shown)]
+# ---------------------------------------------------------------------------
+# phase 12: the MXU engine (fft_engine="mxu": csrc/fft_group_dft.cuh inside
+# B1, B3/B6, B2 and B7) at both precisions
+
+
+def mxu_outer_flops(rows: int, n: int, radices=()) -> float:
+    """The float32 operations of an mxu pass beside its group DFTs: the
+    radix-2 butterflies of the outer stages 7 .. log2(q) - 1 and the cross
+    levels (fft_flops' counts)."""
+    q = n
+    for r in radices:
+        q //= r
+    return rows * (5.0 * n * max(0, q.bit_length() - 1 - MXU_LOG)
+                   + sum(n * (8 * (r - 1) + 6) for r in radices))
+
+
+def mxu_bound(nbytes: float, groups: float, f32_flops: float, precision: str) -> dict:
+    """bound() of an mxu kernel: the bytes, the float32 operations of its
+    outer stages and filter, and the group DFTs' tensor-core products
+    (three real 128 x 128 products a group: one bf16 pass at 'default',
+    three TF32 products each at 'highest'), the largest of the three."""
+    tensor = groups * GROUP_DFT_FLOPS
+    t_tensor = (tensor / BF16_FLOPS_PER_S if precision == "default"
+                else 3 * tensor / TF32_FLOPS_PER_S) * 1e3
+    b = bound(nbytes, f32_flops)
+    t_ops = max(b["ops_ms"], t_tensor)
+    b.update(bound_ms=max(b["bytes_ms"], t_ops),
+             bound_by="bytes" if b["bytes_ms"] >= t_ops else "operations",
+             tensor_flops=int(tensor), tensor_ms=t_tensor, ops_ms=t_ops)
+    return b
+
+
+def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
+    """Phase 12, the kernels: each mxu instance (B1, B6, B3, B2 'wiener' /
+    'conv' / conj, B7) at both precisions against its plain twin at the
+    same precision on the twin's own inputs, at the headline shapes (the
+    2048^2 frame's passes; B7 and B1's stack and inverse-T passes at
+    batch64's (96, 256, 256)), at the UHD frame's smooth extents (q = 256:
+    B1 u8 at 3840 wide, B6 and B2 at hp = 2304, B3 at 3840) and B3 on the
+    (96, 256, 256) stack, each within TOL_MXU_REL. Returns the
+    kernel-table rows, one per kernel and precision."""
+    from fft_restoration_tpu_torch.models.pipeline import kernel_ops, pad_extents
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    img = torch.as_tensor(frame, device=dev)[None]
+    s64 = torch.as_tensor(stack64, device=dev)
+    su = torch.as_tensor(uhd, device=dev)[None]
+    hp, wp = frame.shape[:2]
+    side = stack64.shape[1]
+    uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
+    psf = make_psf("motion", 50, 30.0, dev)
+    psf25 = make_psf("motion", 25, 30.0, dev)
+
+    def lib(re, im):
+        x = torch.complex(re, im)
+        return lambda: torch.fft.fft(x, dim=-1)
+
+    rows = []
+    for prec in MXU_PRECISIONS:
+        E = dict(engine="mxu", precision=prec)
+        ops_p = kernel_ops("mxu", prec, plain=True)
+        fwd_p = fk.fft_rows_stack_plain(img, extent=(hp, wp), **E)
+        psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), **E)
+        Hp = psf_spectrum_planes(psf, hp, wp, ops_p)
+        mid = ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01, **E)
+        st_p = fk.fft_rows_stack_plain(s64, extent=(side, side), **E)
+        H64 = psf_spectrum_planes(psf25, side, side, ops_p)
+        f64 = ws.fwd_wiener_rows_plain(*st_p, *H64, 0.01, **E)
+        inv64 = fk.fft_rows_plain(*f64, inverse=True, transposed=True, **E)
+        ufwd = fk.fft_rows_stack_plain(su, extent=(uhp, uwp), radices=urw, **E)
+        upsf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(uhp, uwp),
+                                  radices=urw, **E)
+        uH = psf_spectrum_planes(psf, uhp, uwp, ops_p, (urh, urw))
+        umid = ws.wiener_spectral_t_plain(*ufwd, *uH, 0.01, urh, **E)
+        p64, f2 = st_p[0].shape[0], 2 * hp * wp * 4
+        up = ufwd[0].shape[0]
+        uf2 = 2 * uhp * uwp * 4
+        # name -> mode -> (kernel, plain, bytes, groups, f32 ops, library call)
+        specs = {
+            "fft_rows_t": {
+                "B1_frame_T": (lambda: fk.fft_rows_stack(img, extent=(hp, wp), **E),
+                               lambda: fk.fft_rows_stack_plain(img, extent=(hp, wp), **E),
+                               hp * wp * 3 + 2 * f2, 2 * hp * wp / 128,
+                               mxu_outer_flops(2 * hp, wp), lib(*fwd_p)),
+                "B1_stack_T_96x256x256": (
+                    lambda: fk.fft_rows_stack(s64, extent=(side, side), **E),
+                    lambda: fk.fft_rows_stack_plain(s64, extent=(side, side), **E),
+                    s64.numel() + 2 * p64 * side * side * 4, p64 * side * side / 128,
+                    mxu_outer_flops(p64 * side, side), lib(*st_p)),
+                "B1_inverse_T_96x256x256": (
+                    lambda: fk.fft_rows(*f64, inverse=True, transposed=True, **E),
+                    lambda: fk.fft_rows_plain(*f64, inverse=True, transposed=True, **E),
+                    4 * p64 * side * side * 4, p64 * side * side / 128,
+                    mxu_outer_flops(p64 * side, side), lib(*f64)),
+                "B1_uhd_u8_T_3840": (
+                    lambda: fk.fft_rows_stack(su, extent=(uhp, uwp), radices=urw, **E),
+                    lambda: fk.fft_rows_stack_plain(su, extent=(uhp, uwp), radices=urw, **E),
+                    su.numel() + up * uf2, up * uhp * uwp / 128,
+                    mxu_outer_flops(up * uhp, uwp, urw), None),
+            },
+            "fft_rows": {
+                "B6_psf_natural": (lambda: fk.fft_rows(*psf1, **E),
+                                   lambda: fk.fft_rows_plain(*psf1, **E),
+                                   2 * f2, wp * hp / 128, mxu_outer_flops(wp, hp), lib(*psf1)),
+                "B6_uhd_psf_2304": (lambda: fk.fft_rows(*upsf1, radices=urh, **E),
+                                    lambda: fk.fft_rows_plain(*upsf1, radices=urh, **E),
+                                    2 * uf2, uwp * uhp / 128, mxu_outer_flops(uwp, uhp, urh),
+                                    None),
+            },
+            "fft_rows_packed_out": {
+                "B3_packed_inv": (lambda: fk.fft_rows_packed_out(*mid, **E),
+                                  lambda: fk.fft_rows_packed_out_plain(*mid, **E),
+                                  4 * f2, 2 * hp * wp / 128, mxu_outer_flops(2 * hp, wp),
+                                  lib(*mid)),
+                "B3_packed_inv_96x256x256": (
+                    lambda: fk.fft_rows_packed_out(*inv64, **E),
+                    lambda: fk.fft_rows_packed_out_plain(*inv64, **E),
+                    4 * p64 * side * side * 4, p64 * side * side / 128,
+                    mxu_outer_flops(p64 * side, side), None),
+                "B3_uhd_3840": (lambda: fk.fft_rows_packed_out(*umid, radices=urw, **E),
+                                lambda: fk.fft_rows_packed_out_plain(*umid, radices=urw, **E),
+                                2 * up * uf2, up * uhp * uwp / 128,
+                                mxu_outer_flops(up * uhp, uwp, urw), None),
+            },
+            "wiener_spectral_t": {
+                "B2_wiener_2048sq": (lambda: ws.wiener_spectral_t(*fwd_p, *Hp, 0.01, **E),
+                                     lambda: ws.wiener_spectral_t_plain(*fwd_p, *Hp, 0.01, **E),
+                                     2 * f2 + f2 // 2 + 2 * f2, 2 * 2 * hp * wp / 128,
+                                     2 * mxu_outer_flops(2 * wp, hp) + 2 * hp * wp * 12, None),
+                "B2_wiener_uhd_2304": (
+                    lambda: ws.wiener_spectral_t(*ufwd, *uH, 0.01, urh, **E),
+                    lambda: ws.wiener_spectral_t_plain(*ufwd, *uH, 0.01, urh, **E),
+                    up * uf2 + uf2 // 2 + up * uf2, 2 * up * uhp * uwp / 128,
+                    2 * mxu_outer_flops(up * uwp, uhp, urh) + up * uhp * uwp * 12, None),
+            },
+            "spectral_conv_t": {
+                "B2_conv_2048sq": (lambda: ws.spectral_conv_t(*fwd_p, *Hp, False, **E),
+                                   lambda: ws.spectral_conv_t_plain(*fwd_p, *Hp, False, **E),
+                                   2 * f2 + f2 // 2 + 2 * f2, 2 * 2 * hp * wp / 128,
+                                   2 * mxu_outer_flops(2 * wp, hp) + 2 * hp * wp * 6, None),
+            },
+            "spectral_conv_t_conj": {
+                "B2_conj_2048sq": (lambda: ws.spectral_conv_t(*fwd_p, *Hp, True, **E),
+                                   lambda: ws.spectral_conv_t_plain(*fwd_p, *Hp, True, **E),
+                                   2 * f2 + f2 // 2 + 2 * f2, 2 * 2 * hp * wp / 128,
+                                   2 * mxu_outer_flops(2 * wp, hp) + 2 * hp * wp * 6, None),
+            },
+            "fwd_wiener_rows": {
+                "B7_96x256x256": (lambda: ws.fwd_wiener_rows(*st_p, *H64, 0.01, **E),
+                                  lambda: ws.fwd_wiener_rows_plain(*st_p, *H64, 0.01, **E),
+                                  (4 * p64 + 2) * side * side * 4, p64 * side * side / 128,
+                                  mxu_outer_flops(p64 * side, side) + p64 * side * side * 12,
+                                  None),
+            },
+        }
+        for name, modes in specs.items():
+            res = {}
+            for mode, (kern, plain, nbytes, groups, flops, lib_fn) in modes.items():
+                k, p = kern(), plain()
+                outs = list(zip(k, p))
+                torch.cuda.synchronize()
+                first = not res
+                m = res[mode] = dict(
+                    max_rel_err=max(rel_err(torch, a, b) for a, b in outs),
+                    max_abs_err=max(float((a.float() - b.float()).abs().max()) for a, b in outs),
+                    tol=TOL_MXU_REL, ms=cuda_ms(torch, kern, iters) if first else None,
+                    plain_ms=cuda_ms(torch, plain, 3, 1) if first else None,
+                    library_ms=cuda_ms(torch, lib_fn, iters) if first and lib_fn else None)
+                m.update(mxu_bound(nbytes, groups, flops, prec))
+                lib_ms = "none" if m["library_ms"] is None else "%.4f ms" % m["library_ms"]
+                timed = (f"; {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, library "
+                         f"{lib_ms}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})"
+                         if first else "")
+                log(f"mxu {name} {prec} {mode}: max rel err {m['max_rel_err']:.3e} "
+                    f"(tol {TOL_MXU_REL:.3g})"
+                    + timed)
+                if not m["max_rel_err"] <= TOL_MXU_REL:
+                    fail(f"mxu {name} {prec} {mode} disagrees with its plain twin")
+            main_mode = next(iter(modes))
+            src, tpu = MXU_ROWS[name]
+            rows.append(dict(
+                name=f"{name}_mxu_{prec}", route="cuda", source=SRC + src, replaces=TPU + tpu,
+                also_replaces=[TPU + "fft_kernel.py:343"], precision=prec,
+                max_abs_err=max(m["max_abs_err"] for m in res.values()),
+                max_rel_err=max(m["max_rel_err"] for m in res.values()),
+                **{k: res[main_mode][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_by", "bytes", "flops", "tensor_flops")},
+                main_mode=main_mode, modes=res))
+    return rows
+
+
+def check_mxu(torch, np, frame, stacks, seed, iters):
+    """Phase 12, the paths at fft_engine="mxu", each once with the counters
+    reset: the 2048^2 restore at 'highest' (the oracle's inf tier) and at
+    'default' (the gpu tier), each against its plain path at the same
+    precision; batch64 (B7 and the inverse-T pass) and RL with 2
+    iterations (B2 'conv' and conj) at both precisions against their plain
+    paths; the CLI with --fft-engine mxu on the 640x330 frame at its
+    default gpu tier ('default') and at --tier inf ('highest'); a server
+    request at --fft-engine mxu; then the headline's device busy at roll,
+    mxu 'default' and mxu 'highest' in turns. Returns (results, {path:
+    launch counts})."""
+    import os
+    import tempfile
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline, serve
+    from fft_restoration_tpu_torch.host.imageio import encode_png_bgr, decode_png_bgr, imwrite
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+    from fft_restoration_tpu_torch.models.pipeline import (
+        kernel_ops, normalized_planes, pad_extents, psf_spectrum_planes, restore_raw,
+        restore_stack,
+    )
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    res, counts = {}, {}
+    oracle = restore_frame_channels(frame, 50, 30.0, 0.01)
+
+    def plain_path(stack, psf_length, prec, on=dev, **kw):
+        """The restore through every kernel's plain twin at mxu and `prec`,
+        on the card or, on="cpu", on the host."""
+        ops = kernel_ops("mxu", prec, plain=True)
+        x = torch.as_tensor(stack, device=on)
+        hp, wp, _, _ = pad_extents(*stack.shape[1:3])
+        psf = make_psf("motion", psf_length, 30.0, on)
+        H = psf_spectrum_planes(psf, hp, wp, ops)
+        out, planes = restore_stack(x, H, 0.01, white_balance=True, emit_planes=True,
+                                    wb_stats_stride=1, psf=psf, ops=ops, **kw)
+        return out.cpu().numpy(), planes.cpu().numpy()
+
+    def compare(name, got, want, prec):
+        d = u8_max(np, got[0], want[0])
+        p = float(np.abs(got[1] - want[1]).max())
+        tol_p, tol_u8 = ((TOL_SLICE_PLANES, TOL_U8) if prec == "highest"
+                         else (TOL_MXU_DEFAULT_PLANES, TOL_MXU_DEFAULT_U8))
+        log(f"mxu {name} vs its plain path: planes {p:.3e} (tol {tol_p:.3g}), uint8 {d} "
+            f"(tol {tol_u8})")
+        if p > tol_p or d > tol_u8:
+            fail(f"mxu {name} disagrees with its plain path")
+        return dict(planes_vs_plain=p, uint8_vs_plain=d)
+
+    for prec, tier in (("highest", "inf"), ("default", "gpu")):
+        E = dict(fft_engine="mxu", mxu_precision=prec)
+        name = f"mxu_{prec}_2048sq"
+        pipe = WienerDeblurPipeline("cuda", **E)
+        (out, planes), counts[name] = drive(
+            torch, name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
+            (f"fft_rows_t_mxu_{prec}", f"fft_rows_mxu_{prec}", f"wiener_spectral_t_mxu_{prec}",
+             f"fft_rows_packed_out_mxu_{prec}", "lab_l_sum_partials", "wb_encode_u8"))
+        rep = channels_equal(planes, oracle, tier)
+        log(f"mxu {prec} 2048x2048x3 vs the oracle at the {tier} tier: {rep}")
+        if not rep.passed:
+            fail(f"mxu {prec}: the 2048^2 restore fails the {tier} tier")
+        res[name] = dict(tier=tier, oracle=str(rep),
+                         **compare(name, (out, planes), plain_path(frame[None], 50, prec), prec))
+        stack = stacks["batch64_256sq"]
+        name = f"mxu_{prec}_batch64"
+        bpipe = BatchedWienerPipeline("cuda", **E)
+        (out, planes), counts[name] = drive(
+            torch, name, lambda: bpipe._restore(bpipe.to_device(stack), 25, 30.0, 0.01),
+            (f"fwd_wiener_rows_mxu_{prec}", f"fft_rows_t_mxu_{prec}",
+             f"fft_rows_packed_out_mxu_{prec}"))
+        want = plain_path(stack, 25, prec)
+        res[name] = compare(name, (out.cpu().numpy(), planes.cpu().numpy()), want, prec)
+        # a reading beside TOL_MXU_DEFAULT_PLANES: the plain path on the
+        # host against the same path on the card
+        host = plain_path(stack, 25, prec, on="cpu")
+        res[name].update(plain_host_vs_card_planes=float(np.abs(host[1] - want[1]).max()),
+                         plain_host_vs_card_uint8=u8_max(np, host[0], want[0]))
+        log(f"mxu {prec} batch64: its plain path on the host vs on the card: planes "
+            f"{res[name]['plain_host_vs_card_planes']:.3e}, uint8 "
+            f"{res[name]['plain_host_vs_card_uint8']}")
+        name = f"mxu_{prec}_rl2_2048sq"
+        rpipe = WienerDeblurPipeline("cuda", filter_name="rl", rl_iters=2, **E)
+        (out, planes), counts[name] = drive(
+            torch, name, lambda: rpipe.restore_with_planes(frame, 50, 30.0, 0.01),
+            (f"spectral_conv_t_mxu_{prec}", f"spectral_conv_t_conj_mxu_{prec}"))
+        res[name] = compare(name, (out, planes), plain_path(frame[None], 50, prec,
+                                                            filter_name="rl", rl_iters=2), prec)
+
+    # the CLI and a server request at --fft-engine mxu (the 640x330 frame)
+    small = blurred_frame(np, *SMALL_HW, seed + 1200)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "small.png")
+        imwrite(png, small)
+        for tier, prec in (("gpu", "default"), ("inf", "highest")):
+            name = f"mxu_cli_{tier}"
+            (rc, text), counts[name] = drive(
+                torch, name, lambda: cli_run([png, "50", "30", "--fft-engine", "mxu", "--tier",
+                                              tier, "-o", os.path.join(tmp, "o.png")]),
+                (f"fft_rows_t_mxu_{prec}", f"wiener_spectral_t_mxu_{prec}",
+                 f"fft_rows_packed_out_mxu_{prec}"))
+            ok = rc == 0 and f"[Success] tier={tier}" in text and f"precision {prec}" in text
+            log(f"mxu CLI --tier {tier}: exit {rc}, "
+                f"{[ln for ln in text.splitlines() if 'tier=' in ln or 'engine' in ln]}")
+            if not ok:
+                fail(f"the CLI with --fft-engine mxu --tier {tier} failed:\n{text[-2000:]}")
+            res[name] = dict(exit=rc, precision=prec,
+                             launches={k: v for k, v in counts[name].items() if v})
+    service = serve.RestorationService(serve.build_parser().parse_args(["--fft-engine", "mxu"]))
+
+    class Quiet(serve.make_handler(service)):
+        def log_message(self, fmt, *a):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        want = WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=4,
+                                    fft_engine="mxu").restore(small, 50, 30.0, 0.01)
+        (status, data, ms), counts["mxu_serve"] = drive(
+            torch, "mxu_serve", lambda: _http(srv.server_address, "POST", "/restore",
+                                              encode_png_bgr(small)),
+            ("fft_rows_t_mxu_default", "wiener_spectral_t_mxu_default"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.batcher.shutdown()
+        thread.join(timeout=60)
+    if status != 200 or not np.array_equal(decode_png_bgr(data), want):
+        fail(f"the mxu server's response ({status}) is not its pipeline's frame")
+    res["mxu_serve"] = dict(status=status, client_ms=ms,
+                            launches={k: v for k, v in counts["mxu_serve"].items() if v})
+    log(f"mxu server request: {status} in {ms:.1f} ms, bitwise the pipeline's frame")
+
+    # the headline's busy (bench.py's serving graph, wb stride 4) at each
+    # engine, in turns: roll, default, highest, highest, default, roll
+    busy = {}
+    pipes = {}
+    for key in ("roll", "default", "highest"):
+        kw = {} if key == "roll" else dict(fft_engine="mxu", mxu_precision=key)
+        p = pipes[key] = WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=4, **kw)
+        pipes[key] = (p, p.to_device(frame))
+    for key in ("roll", "default", "highest", "highest", "default", "roll"):
+        p, x = pipes[key]
+        rep = device_trace(p.run, (x, 50, 30.0, 0.01), n_iters=10)
+        ev = cuda_ms(torch, lambda: p.run(x, 50, 30.0, 0.01), iters)
+        busy.setdefault(key, []).append(dict(device_busy_ms=rep.device_total_ms, event_ms=ev))
+    for key, runs in busy.items():
+        dev_ms = " / ".join("%.4f" % r["device_busy_ms"] for r in runs)
+        ev_ms = " / ".join("%.4f" % r["event_ms"] for r in runs)
+        log(f"headline 2048x2048x3 at {key if key == 'roll' else 'mxu ' + key}: device busy "
+            f"{dev_ms} ms/frame, events {ev_ms} ms/frame")
+    res["headline_busy"] = busy
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12 mxu: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3942,6 +4394,18 @@ def main() -> int:
     ops_spilled = [ln for ln in ops if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"phase 1: {len(ops)} fft_cols / fft_radix4 instances, {len(ops_spilled)} with a spill"
         f"{': ' + '; '.join(ops_spilled) if ops_spilled else ''}")
+    # the MXU engine's tensor-core instances (csrc/fft_group_dft.cuh)
+    mxu = mxu_instances(_build.build_log, _build.load()._name)
+    for inst in mxu:
+        log(f"  mxu: {inst['name']}: {inst['registers']} registers; {inst['spill']}; "
+            f"{inst['hmma']} HMMA")
+    no_hmma = [i["name"] for i in mxu if i["hmma"] == 0]
+    mxu_spilled = [i["name"] for i in mxu if " 0 bytes spill stores, 0 bytes spill loads"
+                   not in i["spill"]]
+    log(f"phase 1: {len(mxu)} mxu instances, {len(mxu_spilled)} with a spill, "
+        f"{len(no_hmma)} without HMMA")
+    if not mxu or no_hmma:
+        fail(f"mxu instances without tensor-core instructions: {no_hmma or 'none built'}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)
@@ -4031,6 +4495,12 @@ def main() -> int:
     counts.update(exr_fax_counts)
     avif, avif_counts = check_avif(torch, np)
     counts.update(avif_counts)
+
+    t0 = time.perf_counter()
+    rows += check_mxu_kernels(torch, np, frame, stacks["batch64_256sq"], uhd, args.iters)
+    mxu_paths, mxu_counts = check_mxu(torch, np, frame, stacks, args.seed, args.iters)
+    counts.update(mxu_counts)
+    log(f"phase 12 kernels and paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -4044,7 +4514,7 @@ def main() -> int:
               "estimate": estimates, "psf_family_cli_640x330": psf_family,
               "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
               "codecs": codecs, "codecs_native_left": codecs_left, "exr_fax_probe": exr_fax,
-              "avif": avif,
+              "avif": avif, "mxu": mxu_paths, "mxu_instances": mxu,
               "host_codec_build_s": native.build_seconds}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])

@@ -32,7 +32,10 @@ codecs (PNG in full, JPEG, TIFF, PFM, HDR, RAS beside BMP/PNM/PAM, write
 by extension) and the CLI's --reference and --show; WebP, GIF and JPEG
 2000, read and write, on their native lanes; OpenEXR (all ten
 compressions read, eight written) and CCITT fax inside TIFF; the
-op-trace probe (tools/trace_ops_probe.py).
+op-trace probe (tools/trace_ops_probe.py); the JAX package's default FFT
+engine, fft_engine="mxu" with mxu_precision (the tensor-core group DFT
+of csrc/fft_group_dft.cuh inside every FFT kernel of the restore; the
+port's default engine stays "roll").
 The host layer (host/: serial oracle, the image codecs, verify tiers,
 padding, blurred test frames) is the port's own numpy and C++, so the
 package needs nothing of fft_restoration_tpu.

@@ -59,6 +59,15 @@ global restore); with --filter wiener the grid's center tile, restored
 alone with the edge taper, is verified against the tapered oracle at the
 gpu tier.
 
+--fft-engine picks the kernel route's butterfly engine, the JAX CLI's
+flag: 'roll' (the port's default: the radix-2 stages in register groups)
+or 'mxu' (the JAX default: the outer stages, then each 128-point group's
+DFT as a matrix product on the tensor cores). --mxu-precision sets that
+product's precision: 'default' (one bf16 pass) or 'highest' (3xTF32);
+unset, it follows --tier as in the JAX CLI (l2 and inf take 'highest',
+gpu 'default'). Every mode, size group and tile takes both; the generic
+route ignores them, as the JAX backends other than pallas do.
+
 --profile prints a phase breakdown after the timed run, as the JAX CLI
 does: 'phases' (the default when the flag is bare; --filter wiener) runs
 models.pipeline.profile_phases, six phases each synchronized and timed
@@ -79,8 +88,8 @@ shards on one card); 'oracle' the serial numpy restore itself
 (host/oracle.restore_image: wiener, pow2, no device work; a directory
 runs 'jit', as in the JAX CLI).
 
-Options of the JAX CLI that are not ported yet are refused with the
-ROADMAP.md item that will bring them.
+Options of the JAX CLI that are not ported yet (--stage-dtype) are
+refused with the ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -93,6 +102,7 @@ from collections import Counter, defaultdict
 
 from fft_restoration_tpu_torch.host.verify import TIERS, channels_equal
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
+from fft_restoration_tpu_torch.ops.kernels.fft_kernel import ENGINE_CHOICES, MXU_PRECISIONS
 
 # file names directory mode picks up (the JAX CLI's list)
 IMAGE_EXTENSIONS = (
@@ -108,10 +118,22 @@ BATCH_FRAME_PLANES = 12
 MODES = ("oracle", "jit", "sharded")
 # flags of the JAX CLI that wait for a later slice -> ROADMAP.md item
 NOT_PORTED = {
-    "--fft-engine": "A3",
-    "--mxu-precision": "A5",
-    "--stage-dtype": "A5",
+    "--stage-dtype": "A16",
 }
+
+
+def mxu_precision_for(precision, tier: str) -> str:
+    """--mxu-precision, or unset the JAX CLI's rule (cli.py:697-706): the
+    strict tiers (l2, inf) need float32-accurate group DFTs ('highest'),
+    the gpu tier takes the one bf16 pass ('default')."""
+    if precision:
+        return precision
+    return "highest" if tier in ("l2", "inf") else "default"
+
+
+def engine_kwargs(args) -> dict:
+    """fft_engine and mxu_precision as every pipeline and mode takes them."""
+    return dict(fft_engine=args.fft_engine, mxu_precision=args.mxu_precision)
 
 
 class _NotPorted(argparse.Action):
@@ -154,6 +176,19 @@ def build_parser() -> argparse.ArgumentParser:
         help="FFT compute strategy: 'pallas' (default) = the hand-written CUDA "
         "kernels; radix2/matmul/naive/xla = the generic route (plain torch "
         "radix-2, four-step float32 matmul, DFT matmul, torch.fft)",
+    )
+    p.add_argument(
+        "--fft-engine", choices=ENGINE_CHOICES, default="roll",
+        help="butterfly engine inside the kernels: 'roll' (default) = every radix-2 "
+        "stage in register groups; 'mxu' = the outer stages, then each 128-point "
+        "group's DFT on the tensor cores (the JAX CLI's default). Ignored by the "
+        "generic backends",
+    )
+    p.add_argument(
+        "--mxu-precision", choices=MXU_PRECISIONS, default=None,
+        help="precision of the mxu engine's group DFTs: 'default' (one bf16 pass, "
+        "clears the gpu tier) or 'highest' (3xTF32, float32's accuracy). Unset: "
+        "follows --tier (l2/inf -> highest, gpu -> default)",
     )
     p.add_argument(
         "--filter", choices=("wiener", "inverse", "cls", "rl"), default="wiener",
@@ -253,6 +288,7 @@ def _sync(device) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    args.mxu_precision = mxu_precision_for(args.mxu_precision, args.tier)
     if args.psf_file is not None:
         # the loaded kernel replaces the family and sets the PSF's side
         from fft_restoration_tpu_torch.host.psf_file import load_psf_file
@@ -291,6 +327,8 @@ def main(argv=None) -> int:
         return 2
     if args.mode == "sharded":
         print(f"[INFO] sharded mesh: {pipe.mesh.describe()}")
+    if args.fft_engine == "mxu" and args.fft_backend == "pallas":
+        print(f"[INFO] fft engine mxu, group DFT precision {args.mxu_precision}")
     if os.path.isdir(args.img_path):
         return _run_batch(args, pipe)
 
@@ -407,7 +445,8 @@ def _make_pipeline(args):
     directory in 'oracle' mode runs it, as the JAX CLI does)."""
     opts = dict(filter_name=args.filter, pad_mode=args.pad,
                 white_balance=not args.no_white_balance, rl_iters=args.iters,
-                edgetaper=args.edgetaper, fft_backend=args.fft_backend, psf_type=args.psf_type)
+                edgetaper=args.edgetaper, fft_backend=args.fft_backend, psf_type=args.psf_type,
+                **engine_kwargs(args))
     if args.mode == "sharded":
         from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh
 
@@ -478,7 +517,8 @@ def _apply_psf_estimate(args, img, device) -> int:
 def _tile_kwargs(args, pipe, mesh) -> dict:
     return dict(tile=args.tile, overlap=args.tile_overlap, fft_backend=args.fft_backend,
                 filter_name=args.filter, rl_iters=args.iters, psf_type=args.psf_type,
-                white_balance=not args.no_white_balance, device=pipe.device, mesh=mesh)
+                white_balance=not args.no_white_balance, device=pipe.device, mesh=mesh,
+                **engine_kwargs(args))
 
 
 def _run_tiled(args, pipe, img, total_start) -> int:
@@ -527,7 +567,7 @@ def _run_tiled(args, pipe, img, total_start) -> int:
         tile_u8 = img[y0:y0 + th, x0:x0 + tw]
         anchor = WienerDeblurPipeline(pipe.device, fft_backend=args.fft_backend,
                                       white_balance=not args.no_white_balance, edgetaper=True,
-                                      psf_type=args.psf_type)
+                                      psf_type=args.psf_type, **engine_kwargs(args))
         _, ours = anchor.restore_with_planes(tile_u8, args.psf_length, args.psf_angle, args.K)
         t0 = time.perf_counter()
         oracle = restore_frame_channels(tile_u8, args.psf_length, args.psf_angle, args.K, True,
@@ -545,7 +585,11 @@ def _profile(args, pipe, img) -> None:
     """--profile: the device timeline of the restore at the options given
     ('trace'), or the six host-timed phases ('phases', the wiener filter
     only, as in the JAX CLI: profile_phases, or profile_phases_sharded on
-    the sharded pipeline's mesh)."""
+    the sharded pipeline's mesh; their natural-order transforms run the
+    roll engine whatever --fft-engine is, as the JAX package's do)."""
+    if args.profile == "phases" and args.fft_engine == "mxu":
+        print("[INFO] --profile phases times natural-order transforms, which run the roll "
+              "engine whatever --fft-engine is")
     if args.profile == "trace":
         from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
@@ -722,7 +766,7 @@ def _stack_restorer(args, single):
             single.device, filter_name=args.filter, pad_mode=args.pad,
             white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
             rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
-            psf_type=args.psf_type,
+            psf_type=args.psf_type, **engine_kwargs(args),
         )
         return lambda stack: pipe.restore(stack, args.psf_length, args.psf_angle, args.K)
 
@@ -739,7 +783,8 @@ def _stack_restorer(args, single):
         return sharded_batched_restore_images(
             stack, psf, args.K, mesh, fft_backend=args.fft_backend, filter_name=args.filter,
             pad_hw=(hp, wp), radices_hw=(rad_h, rad_w), edgetaper=args.edgetaper,
-            rl_iters=args.iters, white_balance=not args.no_white_balance)
+            rl_iters=args.iters, white_balance=not args.no_white_balance,
+            **engine_kwargs(args))
 
     return restore
 

@@ -57,7 +57,15 @@
 // design), the UHD frame's 3840-wide smooth rows in 0.32 ms: not bound
 // by its bytes; with one block an SM, most likely by instruction
 // throughput and latency.
-#include "fft_groups.cuh"
+//
+// The MXU engine (engine="mxu", the JAX package's default):
+// fft_rows_t_mxu_kernel<.., ENG> runs the same body with the plan's groups
+// over the outer stages 7 .. logq - 1 and the tensor-core group DFT of
+// fft_group_dft.cuh in place of the inner 7 (forward last, inverse
+// first), the transposed read of the shared rows storing every pass.
+// fft_rows_t_kernel keeps its parameters and its code: the roll instances'
+// machine code is the one before (tools/kernel_ab.py --sass).
+#include "fft_group_dft.cuh"
 
 #define T_THREADS 512
 
@@ -81,18 +89,20 @@ __device__ __forceinline__ void forward_group(const TBlock& tb, const GroupPlan&
 }
 
 // N = R0 * R1 * 2^logq; rows = 2^lr rows a block; rs_smem the padded row
-// stride; block b takes rows m0 = (b % nblk) * rows of pair b / nblk
-template <typename T, bool INV, int R0, int R1>
-__global__ void __launch_bounds__(T_THREADS, 1)
-fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
-                  long long is, long long chs, int channels, int qstep, int qim,
-                  long long rs, long long cs, int re_live, int im_live,
-                  int live_rows, int live_cols, int M, int logq, int lr,
-                  int rs_smem, int nblk, float* __restrict__ out_re,
-                  float* __restrict__ out_im, const float* __restrict__ cosv,
-                  const float* __restrict__ sinv,
-                  const __grid_constant__ GroupPlan gp,
-                  const __grid_constant__ CrossPlan cp) {
+// stride; block b takes rows m0 = (b % nblk) * rows of pair b / nblk.
+// ENG (fft_group_dft.cuh): ENG_ROLL runs the plan's radix-2 groups over
+// all logq stages; a tensor-core engine runs them over the outer stages 7
+// .. logq - 1 and the group DFT (tables dft) in place of the inner 7,
+// forward after the outer groups, inverse before them, with no direct
+// store (the transposed read of the shared rows stores every pass).
+template <typename T, bool INV, int R0, int R1, int ENG>
+__device__ __forceinline__ void fft_rows_t_body(
+    const T* __restrict__ src_re, const T* __restrict__ src_im, long long is, long long chs,
+    int channels, int qstep, int qim, long long rs, long long cs, int re_live, int im_live,
+    int live_rows, int live_cols, int M, int logq, int lr, int rs_smem, int nblk,
+    float* __restrict__ out_re, float* __restrict__ out_im, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, const GroupPlan& gp, const CrossPlan& cp,
+    const void* __restrict__ dft) {
   constexpr int R = R0 * R1;
   extern __shared__ float smem[];
   const int rows = 1 << lr;
@@ -121,6 +131,17 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                        re_live, im_live, live_rows, live_cols, p, m0);
 
   if (!INV) {
+    if constexpr (R == 1 && ENG != ENG_ROLL) {
+      if (gp.groups == 0) {  // q = 128: the group DFT alone, from the shared rows
+        for (int t = threadIdx.x; t < total; t += blockDim.x) {
+          const int r = t >> logq, c = t & (q - 1);
+          const float2 v = ld.get(r, c);
+          tb.sre[r * rs_smem + pad_idx(c)] = v.x;
+          tb.sim[r * rs_smem + pad_idx(c)] = v.y;
+        }
+        __syncthreads();
+      }
+    }
     if (R > 1) {  // load + both cross levels, item (row, b): b fastest
       for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
         const int b = t & (q - 1), r = t >> logq;
@@ -145,7 +166,13 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       forward_group<R>(tb, gp, g, ld);
       __syncthreads();
     }
-    if (gp.direct_store) return;
+    if constexpr (ENG != ENG_ROLL) {
+      group_dft<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, dft,
+                     SmemEpi{tb.sre, tb.sim, rs_smem});
+      __syncthreads();
+    } else if (gp.direct_store) {
+      return;
+    }
   } else {
     // coalesced load: element (b + j*q) of row r, b fastest
     for (int t = threadIdx.x; t < total; t += blockDim.x) {
@@ -157,6 +184,11 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       tb.sim[a] = v.y;
     }
     __syncthreads();
+    if constexpr (ENG != ENG_ROLL) {
+      group_dft<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, dft,
+                     SmemEpi{tb.sre, tb.sim, rs_smem});
+      __syncthreads();
+    }
     float mm[4] = {};  // no min/max in this kernel
     for (int g = gp.groups - 1; g >= 0; --g) {
       run_group<true, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
@@ -200,24 +232,106 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
 }
 
 template <typename T, bool INV, int R0, int R1>
+__global__ void __launch_bounds__(T_THREADS, 1)
+fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                  long long is, long long chs, int channels, int qstep, int qim,
+                  long long rs, long long cs, int re_live, int im_live,
+                  int live_rows, int live_cols, int M, int logq, int lr,
+                  int rs_smem, int nblk, float* __restrict__ out_re,
+                  float* __restrict__ out_im, const float* __restrict__ cosv,
+                  const float* __restrict__ sinv,
+                  const __grid_constant__ GroupPlan gp,
+                  const __grid_constant__ CrossPlan cp) {
+  fft_rows_t_body<T, INV, R0, R1, ENG_ROLL>(src_re, src_im, is, chs, channels, qstep, qim, rs,
+                                            cs, re_live, im_live, live_rows, live_cols, M,
+                                            logq, lr, rs_smem, nblk, out_re, out_im, cosv,
+                                            sinv, gp, cp, nullptr);
+}
+
+// the MXU engine's instances (ENG_BF16 or ENG_TF32X3), dft the fragment
+// tables of the pass's direction
+template <typename T, bool INV, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(T_THREADS, 1)
+fft_rows_t_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                      long long is, long long chs, int channels, int qstep, int qim,
+                      long long rs, long long cs, int re_live, int im_live,
+                      int live_rows, int live_cols, int M, int logq, int lr,
+                      int rs_smem, int nblk, float* __restrict__ out_re,
+                      float* __restrict__ out_im, const float* __restrict__ cosv,
+                      const float* __restrict__ sinv,
+                      const __grid_constant__ GroupPlan gp,
+                      const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
+  fft_rows_t_body<T, INV, R0, R1, ENG>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                                       re_live, im_live, live_rows, live_cols, M, logq, lr,
+                                       rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, dft);
+}
+
+// the arguments of one launch, as the C entry passes them on
+#define FFT_ROWS_T_LAUNCH_PARAMS                                                      \
+  const void *src_re, const void *src_im, long long is, long long chs, int channels, \
+      int qstep, int qim, long long rs, long long cs, int re_live, int im_live,      \
+      int live_rows, int live_cols, int P, int M, int logq, int lr, int rs_smem,     \
+      int threads, void *out_re, void *out_im, const void *cosv, const void *sinv,   \
+      const GroupPlan &gp, const CrossPlan &cp, const void *dft, cudaStream_t stream
+#define FFT_ROWS_T_KERNEL_ARGS                                                           \
+  nblk * P, threads, smem, stream, (const T*)src_re, (const T*)src_im, is, chs, channels, \
+      qstep, qim, rs, cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem,   \
+      nblk, (float*)out_re, (float*)out_im, (const float*)cosv, (const float*)sinv, gp, cp
+
+// The launch of an MXU instance (ENG_BF16 or ENG_TF32X3). Its instances
+// are built in translation units of their own, in parallel with this one:
+// this source compiled again with FFT_MXU_TU set to the engine
+// (ops/kernels/_build.py MXU_UNITS).
+template <typename T, bool INV, int R0, int R1, int ENG>
+int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS);
+
+#ifdef FFT_MXU_TU
+template <typename T, bool INV, int R0, int R1, int ENG>
+int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_kernel(fft_rows_t_mxu_kernel<T, INV, R0, R1, ENG>, FFT_ROWS_T_KERNEL_ARGS, dft);
+}
+
+#define FFT_ROWS_T_MXU(T, INV)                                                          \
+  template int launch_t_mxu<T, INV, 1, 1, FFT_MXU_TU>(FFT_ROWS_T_LAUNCH_PARAMS);       \
+  template int launch_t_mxu<T, INV, 3, 1, FFT_MXU_TU>(FFT_ROWS_T_LAUNCH_PARAMS);       \
+  template int launch_t_mxu<T, INV, 5, 1, FFT_MXU_TU>(FFT_ROWS_T_LAUNCH_PARAMS);       \
+  template int launch_t_mxu<T, INV, 3, 3, FFT_MXU_TU>(FFT_ROWS_T_LAUNCH_PARAMS);       \
+  template int launch_t_mxu<T, INV, 3, 5, FFT_MXU_TU>(FFT_ROWS_T_LAUNCH_PARAMS);
+FFT_ROWS_T_MXU(float, false)
+FFT_ROWS_T_MXU(float, true)
+FFT_ROWS_T_MXU(uint8_t, false)
+FFT_ROWS_T_MXU(uint8_t, true)
+#undef FFT_ROWS_T_MXU
+#else
+
+template <typename T, bool INV, int R0, int R1>
 static int launch_t(const void* src_re, const void* src_im, long long is,
                     long long chs, int channels, int qstep, int qim, long long rs,
                     long long cs, int re_live, int im_live, int live_rows,
                     int live_cols, int P, int M, int logq, int lr, int rs_smem,
                     int threads, void* out_re, void* out_im, const void* cosv,
                     const void* sinv, const GroupPlan& gp, const CrossPlan& cp,
-                    cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  cudaError_t err = allow_smem(fft_rows_t_kernel<T, INV, R0, R1>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = 1 << lr;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fft_rows_t_kernel<T, INV, R0, R1><<<nblk * P, threads, smem, stream>>>(
-      (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs, cs,
-      re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem, nblk,
-      (float*)out_re, (float*)out_im, (const float*)cosv, (const float*)sinv, gp, cp);
-  return (int)cudaGetLastError();
+                    int eng, const void* dft, cudaStream_t stream) {
+#define FFT_ROWS_T_MXU_ARGS                                                            \
+  src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows, \
+      live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft, stream
+  switch (eng) {
+    case ENG_ROLL: {
+      const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+      const int rows = 1 << lr;
+      const int nblk = (M + rows - 1) / rows;
+      if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+      return start_kernel(fft_rows_t_kernel<T, INV, R0, R1>, FFT_ROWS_T_KERNEL_ARGS);
+    }
+    case ENG_BF16: return launch_t_mxu<T, INV, R0, R1, ENG_BF16>(FFT_ROWS_T_MXU_ARGS);
+    case ENG_TF32X3: return launch_t_mxu<T, INV, R0, R1, ENG_TF32X3>(FFT_ROWS_T_MXU_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FFT_ROWS_T_MXU_ARGS
 }
 
 template <typename T, bool INV>
@@ -227,13 +341,13 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
                           int im_live, int live_rows, int live_cols, int P, int M,
                           int logq, int lr, int rs_smem, int threads, void* out_re,
                           void* out_im, const void* cosv, const void* sinv,
-                          const GroupPlan& gp, const CrossPlan& cp,
-                          cudaStream_t stream) {
+                          const GroupPlan& gp, const CrossPlan& cp, int eng,
+                          const void* dft, cudaStream_t stream) {
 #define FFT_ROWS_T_LAUNCH(R0, R1)                                                   \
   launch_t<T, INV, R0, R1>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs, \
                            re_live, im_live, live_rows, live_cols, P, M, logq, lr, \
                            rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp,   \
-                           stream)
+                           eng, dft, stream)
   switch (code) {
     case 0: return FFT_ROWS_T_LAUNCH(1, 1);
     case 1: return FFT_ROWS_T_LAUNCH(3, 1);
@@ -248,7 +362,9 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
 // plan: groups, direct store, then per group s_lo, k, ub_shift,
 // row_shift (the wrapper's t_plan); logq = S; lr = log2(rows); rs_smem the padded row stride;
 // threads a multiple of 32 up to 512; levels .. xsin: the cross levels of
-// this direction (levels 0 for a pow2 N; see make_cross_plan)
+// this direction (levels 0 for a pow2 N; see make_cross_plan); eng: ENG_ROLL,
+// or a tensor-core engine (fft_group_dft.cuh) with the outer-stage plan
+// and dft the direction's fragment tables
 extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_u8,
                                  long long is, long long chs, int channels, int qstep,
                                  int qim, long long rs, long long cs, int re_live,
@@ -257,12 +373,15 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                                  void* out_re, void* out_im, int inverse,
                                  const void* cosv, const void* sinv, const int* plan,
                                  int levels, const int* radix, const float* coef,
-                                 const void* xcos, const void* xsin, void* stream) {
+                                 const void* xcos, const void* xsin, int eng,
+                                 const void* dft, void* stream) {
   GroupPlan gp;
-  if (levels < 0 || levels > MAX_CROSS_LEVELS || !read_group_plan(plan, logq, &gp) ||
-      threads < 32 || threads > T_THREADS || threads % 32)
+  const bool plan_ok = eng == ENG_ROLL ? read_group_plan(plan, logq, &gp)
+                                       : read_mxu_plan(plan, logq, &gp) && dft != nullptr;
+  if (levels < 0 || levels > MAX_CROSS_LEVELS || !plan_ok || threads < 32 ||
+      threads > T_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;
-  gp.direct_store = gp.direct_store && !inverse && gp.groups > 1;
+  gp.direct_store = gp.direct_store && !inverse && gp.groups > 1 && eng == ENG_ROLL;
   // 16 slots a thread: every slot set full (rows * q >= 16)
   if (logq + lr < 4) return (int)cudaErrorInvalidValue;
   const CrossPlan cp = make_cross_plan(levels, radix, coef, xcos, xsin);
@@ -271,7 +390,7 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
 #define FFT_ROWS_T_ARGS                                                              \
   code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live,     \
       live_rows, live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, \
-      sinv, gp, cp, st
+      sinv, gp, cp, eng, dft, st
   if (in_u8)
     return inverse ? launch_radices<uint8_t, true>(FFT_ROWS_T_ARGS)
                    : launch_radices<uint8_t, false>(FFT_ROWS_T_ARGS);
@@ -279,3 +398,4 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                  : launch_radices<float, false>(FFT_ROWS_T_ARGS);
 #undef FFT_ROWS_T_ARGS
 }
+#endif  // FFT_MXU_TU

@@ -85,7 +85,13 @@
 // after the first plane's read (the plane count is not held to
 // gridDim.y's 65535).
 //
-#include "fft_groups.cuh"
+// The MXU engine (engine="mxu"; B2 and B7): spectral_s_mxu_kernel<..,
+// ENG> runs the outer DIF groups (stages 7 .. logq - 1), the forward group
+// DFT of fft_group_dft.cuh with the filter in its epilogue (B7 storing
+// there), then B2's inverse group DFT, outer DIT groups and stores.
+// spectral_s_kernel keeps its parameters and code.
+//
+#include "fft_group_dft.cuh"
 
 #define S_THREADS 512
 
@@ -299,16 +305,51 @@ __device__ __forceinline__ void run_upper(const TBlock& tb, const GroupPlan& gp,
 // group loads device memory and the top DIT group stores the output from
 // registers (B2 transposed, B10 row-major); otherwise both go through the
 // shared rows, with the cross levels cf / ci of a smooth row.
-template <int MODE, int STORE, int R0, int R1>
-__global__ void __launch_bounds__(S_THREADS, 1)
-spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
-                  const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
-                  float* __restrict__ out_re, float* __restrict__ out_im, int P, int M,
-                  int logq, int lr, int rs_smem, const float* __restrict__ cos_f,
-                  const float* __restrict__ sin_f, const float* __restrict__ cos_i,
-                  const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
-                  const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
-                  const __grid_constant__ CrossPlan ci) {
+// The MXU engine's epilogues of the forward group DFT (fft_group_dft.cuh):
+// the filter against H's slot of the result's row and column (zero past
+// the plane's rows, as load_h), then B2's store to the shared rows or B7's
+// natural store of the live rows
+template <int MODE>
+struct FilterEpi {
+  float* sre;
+  float* sim;
+  int rs;
+  const float* __restrict__ h_re;
+  const float* __restrict__ h_im;
+  float* out_re;  // B7: the block's first output row; null for B2
+  float* out_im;
+  int N, M, m0;
+  float k_reg;
+  __device__ __forceinline__ void operator()(int r, int col, float yr, float yi) const {
+    const bool live = m0 + r < M;
+    const size_t o = (size_t)(m0 + r) * N + col;
+    spectral_filter<MODE>(yr, yi, live ? __ldg(h_re + o) : 0.0f, live ? __ldg(h_im + o) : 0.0f,
+                          k_reg);
+    if (out_re == nullptr) {
+      const int a = r * rs + pad_idx(col);
+      sre[a] = yr;
+      sim[a] = yi;
+    } else if (live) {
+      out_re[r * N + col] = yr;
+      out_im[r * N + col] = yi;
+    }
+  }
+};
+
+// ENG (fft_group_dft.cuh): ENG_ROLL runs the plan's radix-2 groups, the
+// bottom one fused with the filter; a tensor-core engine runs the outer
+// DIF groups (stages 7 .. logq - 1), the forward group DFT with the filter
+// in its epilogue (B7 storing there), the inverse group DFT (tables dft_f,
+// dft_i), then the outer DIT groups and the roll instances' stores.
+template <int MODE, int STORE, int R0, int R1, int ENG>
+__device__ __forceinline__ void spectral_s_body(
+    const float* __restrict__ a_re, const float* __restrict__ a_im,
+    const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
+    float* __restrict__ out_re, float* __restrict__ out_im, int P, int M, int logq, int lr,
+    int rs_smem, const float* __restrict__ cos_f, const float* __restrict__ sin_f,
+    const float* __restrict__ cos_i, const float* __restrict__ sin_i, const GroupPlan& gf,
+    const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
+    const void* __restrict__ dft_f, const void* __restrict__ dft_i) {
   constexpr int R = R0 * R1;
   constexpr bool B7 = STORE == S_STORE_NATURAL, ROWS = STORE == S_STORE_ROWS;
   extern __shared__ float smem[];
@@ -346,43 +387,84 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
     }
     __syncthreads();
   }
-  for (int g = 0; g < gf.groups - 1; ++g) {
-    if constexpr (R == 1) {
-      if (g == 0 && direct) {
-        run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
-        __syncthreads();
-        continue;
-      }
-    }
-    run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
-    __syncthreads();
-  }
   // B7, B10: the natural (P, M, N) output from row m0; B2: the transposed
   // (P, N, M) output from column m0
-  const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N : (size_t)p * N * M + m0;
-  if constexpr (B7) {
+  if constexpr (ENG != ENG_ROLL) {
+    const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N
+                                            : (size_t)p * N * M + m0;
+    static_assert(STORE != S_STORE_ROWS, "B10 runs the radix-2 stages only");
+    for (int g = 0; g < gf.groups; ++g) {
+      if (R == 1 && g == 0 && direct)
+        run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
+      else
+        run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
+      __syncthreads();
+    }
+    const int gpr = N >> DFT_LOG;
+    FilterEpi<MODE> epi{tf.sre, tf.sim, rs_smem, h_re, h_im, nullptr, nullptr, N, M, m0, k_reg};
+    if constexpr (B7) {
+      epi.out_re = out_re + obase;
+      epi.out_im = out_im + obase;
+      group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_f, epi);
+      return;
+    }
+    group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_f, epi);
+    __syncthreads();
+    group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_i, SmemEpi{tf.sre, tf.sim, rs_smem});
     tf.out_re = out_re + obase;
     tf.out_im = out_im + obase;
-  }
-  run_bottom<MODE, STORE>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
-  if constexpr (B7) return;
-
-  // B2, B10: the DIT groups above the bottom one, bottom up
-  tf.out_re = out_re + obase;
-  tf.out_im = out_im + obase;
-  __syncthreads();
-  TBlock ti = tf;
-  ti.cosv = cos_i;
-  ti.sinv = sin_i;
-  for (int g = gi.groups - 2; g >= 0; --g) {
-    if constexpr (R == 1) {
-      if (g == 0 && direct) {
-        run_upper<true, LD_SMEM, ROWS ? ST_ROW : ST_T>(ti, gi, g, ld);
-        return;
-      }
-    }
-    run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
     __syncthreads();
+    TBlock ti = tf;
+    ti.cosv = cos_i;
+    ti.sinv = sin_i;
+    for (int g = gi.groups - 1; g >= 0; --g) {
+      if constexpr (R == 1) {
+        if (g == 0 && direct) {
+          run_upper<true, LD_SMEM, ST_T>(ti, gi, g, ld);
+          return;
+        }
+      }
+      run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
+      __syncthreads();
+    }
+  } else {
+    for (int g = 0; g < gf.groups - 1; ++g) {
+      if constexpr (R == 1) {
+        if (g == 0 && direct) {
+          run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
+          __syncthreads();
+          continue;
+        }
+      }
+      run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
+      __syncthreads();
+    }
+    const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N
+                                            : (size_t)p * N * M + m0;
+    if constexpr (B7) {
+      tf.out_re = out_re + obase;
+      tf.out_im = out_im + obase;
+    }
+    run_bottom<MODE, STORE>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
+    if constexpr (B7) return;
+
+    // B2, B10: the DIT groups above the bottom one, bottom up
+    tf.out_re = out_re + obase;
+    tf.out_im = out_im + obase;
+    __syncthreads();
+    TBlock ti = tf;
+    ti.cosv = cos_i;
+    ti.sinv = sin_i;
+    for (int g = gi.groups - 2; g >= 0; --g) {
+      if constexpr (R == 1) {
+        if (g == 0 && direct) {
+          run_upper<true, LD_SMEM, ROWS ? ST_ROW : ST_T>(ti, gi, g, ld);
+          return;
+        }
+      }
+      run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
+      __syncthreads();
+    }
   }
   // (both inverse cross levels, then) the store: B2's transposed one,
   // neighbouring threads on neighbouring rows of one column; B10's
@@ -409,23 +491,107 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
 }
 
 template <int MODE, int STORE, int R0, int R1>
+__global__ void __launch_bounds__(S_THREADS, 1)
+spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                  const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
+                  float* __restrict__ out_re, float* __restrict__ out_im, int P, int M,
+                  int logq, int lr, int rs_smem, const float* __restrict__ cos_f,
+                  const float* __restrict__ sin_f, const float* __restrict__ cos_i,
+                  const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
+                  const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
+                  const __grid_constant__ CrossPlan ci) {
+  spectral_s_body<MODE, STORE, R0, R1, ENG_ROLL>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im,
+                                                 P, M, logq, lr, rs_smem, cos_f, sin_f, cos_i,
+                                                 sin_i, gf, gi, cf, ci, nullptr, nullptr);
+}
+
+// the MXU engine's instances (ENG_BF16 or ENG_TF32X3; B2 and B7), dft_f
+// and dft_i the two directions' fragment tables (B7 reads dft_f only)
+template <int MODE, int STORE, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(S_THREADS, 1)
+spectral_s_mxu_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
+                      const float* __restrict__ h_re, const float* __restrict__ h_im,
+                      float k_reg, float* __restrict__ out_re, float* __restrict__ out_im,
+                      int P, int M, int logq, int lr, int rs_smem,
+                      const float* __restrict__ cos_f, const float* __restrict__ sin_f,
+                      const float* __restrict__ cos_i, const float* __restrict__ sin_i,
+                      const __grid_constant__ GroupPlan gf, const __grid_constant__ GroupPlan gi,
+                      const __grid_constant__ CrossPlan cf, const __grid_constant__ CrossPlan ci,
+                      const void* __restrict__ dft_f, const void* __restrict__ dft_i) {
+  spectral_s_body<MODE, STORE, R0, R1, ENG>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M,
+                                            logq, lr, rs_smem, cos_f, sin_f, cos_i, sin_i, gf, gi,
+                                            cf, ci, dft_f, dft_i);
+}
+
+// the arguments of one launch, as the C entries pass them on
+#define SPECTRAL_LAUNCH_PARAMS                                                              \
+  const void *a_re, const void *a_im, const void *h_re, const void *h_im, float k_reg,     \
+      void *out_re, void *out_im, int P, int M, int logq, int lr, int rs_smem, int threads, \
+      const void *cos_f, const void *sin_f, const void *cos_i, const void *sin_i,          \
+      const GroupPlan &gf, const GroupPlan &gi, const CrossPlan &cf, const CrossPlan &ci,  \
+      const void *dft_f, const void *dft_i, cudaStream_t stream
+#define SPECTRAL_KERNEL_ARGS                                                                 \
+  nblk * P, threads, smem, stream, (const float*)a_re, (const float*)a_im,                  \
+      (const float*)h_re, (const float*)h_im, k_reg, (float*)out_re, (float*)out_im, P, M,  \
+      logq, lr, rs_smem, (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,     \
+      (const float*)sin_i, gf, gi, cf, ci
+
+// The launch of an MXU instance (ENG_BF16 or ENG_TF32X3; B2 and B7),
+// built in translation units of their own as fft_rows_t.cu's
+template <int MODE, int STORE, int R0, int R1, int ENG>
+int launch_s_mxu(SPECTRAL_LAUNCH_PARAMS);
+
+#ifdef FFT_MXU_TU
+template <int MODE, int STORE, int R0, int R1, int ENG>
+int launch_s_mxu(SPECTRAL_LAUNCH_PARAMS) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_kernel(spectral_s_mxu_kernel<MODE, STORE, R0, R1, ENG>, SPECTRAL_KERNEL_ARGS,
+                      dft_f, dft_i);
+}
+
+#define SPECTRAL_MXU(MODE, STORE)                                                     \
+  template int launch_s_mxu<MODE, STORE, 1, 1, FFT_MXU_TU>(SPECTRAL_LAUNCH_PARAMS);   \
+  template int launch_s_mxu<MODE, STORE, 3, 1, FFT_MXU_TU>(SPECTRAL_LAUNCH_PARAMS);   \
+  template int launch_s_mxu<MODE, STORE, 5, 1, FFT_MXU_TU>(SPECTRAL_LAUNCH_PARAMS);   \
+  template int launch_s_mxu<MODE, STORE, 3, 3, FFT_MXU_TU>(SPECTRAL_LAUNCH_PARAMS);   \
+  template int launch_s_mxu<MODE, STORE, 3, 5, FFT_MXU_TU>(SPECTRAL_LAUNCH_PARAMS);
+SPECTRAL_MXU(MODE_WIENER, S_STORE_T)
+SPECTRAL_MXU(MODE_CONV, S_STORE_T)
+SPECTRAL_MXU(MODE_CONV_CONJ, S_STORE_T)
+SPECTRAL_MXU(MODE_WIENER, S_STORE_NATURAL)
+#undef SPECTRAL_MXU
+#else
+
+template <int MODE, int STORE, int R0, int R1>
 static int launch_s(const void* a_re, const void* a_im, const void* h_re, const void* h_im,
                     float k_reg, void* out_re, void* out_im, int P, int M, int logq, int lr,
                     int rs_smem, int threads, const void* cos_f, const void* sin_f,
                     const void* cos_i, const void* sin_i, const GroupPlan& gf,
                     const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
-                    cudaStream_t stream) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  cudaError_t err = allow_smem(spectral_s_kernel<MODE, STORE, R0, R1>, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = 1 << lr;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  spectral_s_kernel<MODE, STORE, R0, R1><<<nblk * P, threads, smem, stream>>>(
-      (const float*)a_re, (const float*)a_im, (const float*)h_re, (const float*)h_im, k_reg,
-      (float*)out_re, (float*)out_im, P, M, logq, lr, rs_smem, (const float*)cos_f,
-      (const float*)sin_f, (const float*)cos_i, (const float*)sin_i, gf, gi, cf, ci);
-  return (int)cudaGetLastError();
+                    int eng, const void* dft_f, const void* dft_i, cudaStream_t stream) {
+#define SPECTRAL_MXU_ARGS                                                                  \
+  a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream
+  if (eng == ENG_ROLL) {
+    const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+    const int rows = 1 << lr;
+    const int nblk = (M + rows - 1) / rows;
+    if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    return start_kernel(spectral_s_kernel<MODE, STORE, R0, R1>, SPECTRAL_KERNEL_ARGS);
+  }
+  if constexpr (STORE == S_STORE_ROWS) {  // B10: roll only
+    return (int)cudaErrorInvalidValue;
+  } else {
+    switch (eng) {
+      case ENG_BF16: return launch_s_mxu<MODE, STORE, R0, R1, ENG_BF16>(SPECTRAL_MXU_ARGS);
+      case ENG_TF32X3: return launch_s_mxu<MODE, STORE, R0, R1, ENG_TF32X3>(SPECTRAL_MXU_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+#undef SPECTRAL_MXU_ARGS
 }
 
 template <int MODE, int STORE>
@@ -434,11 +600,12 @@ static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
                           int M, int logq, int lr, int rs_smem, int threads, const void* cos_f,
                           const void* sin_f, const void* cos_i, const void* sin_i,
                           const GroupPlan& gf, const GroupPlan& gi, const CrossPlan& cf,
-                          const CrossPlan& ci, cudaStream_t stream) {
+                          const CrossPlan& ci, int eng, const void* dft_f, const void* dft_i,
+                          cudaStream_t stream) {
 #define SPECTRAL_LAUNCH(R0, R1)                                                             \
   launch_s<MODE, STORE, R0, R1>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, \
                              rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf, ci,  \
-                             stream)
+                             eng, dft_f, dft_i, stream)
   switch (radix_code(cf)) {
     case 0: return SPECTRAL_LAUNCH(1, 1);
     case 1: return SPECTRAL_LAUNCH(3, 1);
@@ -464,20 +631,23 @@ static bool bad_levels(int levels) {
 
 // The plan arrays of one launch (fft_kernel.TPlan.c_plan; B2's and B10's
 // DIT maps in plan_i, B7 none) and its geometry, checked: false when they do not
-// describe logq stages, the two plans' groups differ, a thread's 16 slots
+// describe logq stages (the outer stages 7 .. logq - 1 for a tensor-core
+// engine, mxu), the two plans' groups differ, a thread's 16 slots
 // are not all live (rows * q >= 16), or the direct maps meet a smooth row
-// or a single group
+// or a single group (no group, mxu)
 static bool read_plans(const int* plan_f, const int* plan_i, int logq, int lr, int threads,
-                       int levels, GroupPlan* gf, GroupPlan* gi) {
-  if (!read_group_plan(plan_f, logq, gf) || logq + lr < 4 || threads < 32 ||
-      threads > S_THREADS || threads % 32)
+                       int levels, GroupPlan* gf, GroupPlan* gi, bool mxu = false) {
+  auto read = [&](const int* plan, GroupPlan* gp) {
+    return mxu ? read_mxu_plan(plan, logq, gp) : read_group_plan(plan, logq, gp);
+  };
+  if (!read(plan_f, gf) || logq + lr < 4 || threads < 32 || threads > S_THREADS || threads % 32)
     return false;
-  if (gf->direct_store && (levels > 0 || gf->groups < 2)) return false;
+  if (gf->direct_store && (levels > 0 || gf->groups < (mxu ? 1 : 2))) return false;
   if (plan_i == nullptr) {
     *gi = *gf;
     return true;
   }
-  if (!read_group_plan(plan_i, logq, gi) || gi->groups != gf->groups) return false;
+  if (!read(plan_i, gi) || gi->groups != gf->groups) return false;
   for (int g = 0; g < gf->groups; ++g)
     if (gi->s_lo[g] != gf->s_lo[g] || gi->k[g] != gf->k[g]) return false;
   return true;
@@ -489,19 +659,23 @@ static int launch_entry(const void* a_re, const void* a_im, const void* h_re, co
                         int rs_smem, int threads, const void* cos_f, const void* sin_f,
                         const void* cos_i, const void* sin_i, const int* plan_f,
                         const int* plan_i, const CrossPlan& cf, const CrossPlan& ci,
-                        void* stream) {
+                        int eng, const void* dft_f, const void* dft_i, void* stream) {
   GroupPlan gf, gi;
-  if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi) ||
-      radix_code(cf) < 0 || radix_code(ci) != radix_code(cf))
+  const bool mxu = eng != ENG_ROLL;
+  if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi, mxu) ||
+      radix_code(cf) < 0 || radix_code(ci) != radix_code(cf) ||
+      (mxu && (dft_f == nullptr || (STORE != S_STORE_NATURAL && dft_i == nullptr))))
     return (int)cudaErrorInvalidValue;
   return launch_radices<MODE, STORE>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
                                   lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf,
-                                  ci, (cudaStream_t)stream);
+                                  ci, eng, dft_f, dft_i, (cudaStream_t)stream);
 }
 
 // B2 'wiener'. logq = S; lr = log2(rows); rs_smem the padded row stride;
 // threads a multiple of 32 up to 512; plan_f / plan_i: the wrapper's
-// s_plan (its DIF and DIT maps); the two directions' cross levels
+// s_plan (its DIF and DIT maps); the two directions' cross levels; eng:
+// ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh) with the
+// outer-stage plans and dft_f / dft_i the two directions' fragment tables
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* h_re, const void* h_im, float K,
                                         void* out_re, void* out_im, int P, int M, int logq,
@@ -509,12 +683,13 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* sin_f, const void* cos_i,
                                         const void* sin_i, const int* plan_f,
                                         const int* plan_i, CROSS_ARGS(f), CROSS_ARGS(i),
+                                        int eng, const void* dft_f, const void* dft_i,
                                         void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   return launch_entry<MODE_WIENER, S_STORE_T>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
                                           logq, lr, rs_smem, threads, cos_f, sin_f, cos_i,
                                           sin_i, plan_f, plan_i, CROSS_PLAN(f), CROSS_PLAN(i),
-                                          stream);
+                                          eng, dft_f, dft_i, stream);
 }
 
 // B2 'conv'; conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
@@ -523,16 +698,18 @@ extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im, const 
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const void* cos_i,
                                       const void* sin_i, const int* plan_f, const int* plan_i,
-                                      CROSS_ARGS(f), CROSS_ARGS(i), void* stream) {
+                                      CROSS_ARGS(f), CROSS_ARGS(i), int eng, const void* dft_f,
+                                      const void* dft_i, void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f), ci = CROSS_PLAN(i);
   if (conj)
     return launch_entry<MODE_CONV_CONJ, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
                                                M, logq, lr, rs_smem, threads, cos_f, sin_f,
-                                               cos_i, sin_i, plan_f, plan_i, cf, ci, stream);
+                                               cos_i, sin_i, plan_f, plan_i, cf, ci, eng, dft_f,
+                                               dft_i, stream);
   return launch_entry<MODE_CONV, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
                                         logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
-                                        plan_f, plan_i, cf, ci, stream);
+                                        plan_f, plan_i, cf, ci, eng, dft_f, dft_i, stream);
 }
 
 // B7: the forward cross levels and tables only (the inverse ones unread)
@@ -540,12 +717,12 @@ extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im, const 
                                       const void* h_im, float K, void* out_re, void* out_im,
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const int* plan_f,
-                                      CROSS_ARGS(f), void* stream) {
+                                      CROSS_ARGS(f), int eng, const void* dft_f, void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f);
   return launch_entry<MODE_WIENER, S_STORE_NATURAL>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
                                          lr, rs_smem, threads, cos_f, sin_f, nullptr, nullptr,
-                                         plan_f, nullptr, cf, cf, stream);
+                                         plan_f, nullptr, cf, cf, eng, dft_f, nullptr, stream);
 }
 
 // B10 (wiener_spectral_rows): the row-major store, pow2 rows only (no
@@ -563,5 +740,6 @@ extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
   const CrossPlan none = make_cross_plan(0, nullptr, nullptr, nullptr, nullptr);
   return launch_s<MODE_WIENER, S_STORE_ROWS, 1, 1>(
       a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, sin_f,
-      cos_i, sin_i, gf, gi, none, none, (cudaStream_t)stream);
+      cos_i, sin_i, gf, gi, none, none, ENG_ROLL, nullptr, nullptr, (cudaStream_t)stream);
 }
+#endif  // FFT_MXU_TU

@@ -22,8 +22,8 @@ import torch
 
 from fft_restoration_tpu_torch.models.pipeline import (
     KERNEL_BACKEND,
-    KERNEL_OPS,
     _CachedPsfPipeline,
+    kernel_ops,
     frames_to_device,
     normalized_planes,
     pad_extents,
@@ -46,7 +46,10 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     planes, its channel pairs straddling images as the restore's do.
     pad_mode: 'pow2' or 'smooth' (models.pipeline.pad_extents); a stack
     of 640x330 frames restores at 384x640, its middle B7 at hp = 384.
-    stage_dtype exists for the JAX signature and is not ported yet.
+    fft_engine, mxu_precision: as in WienerDeblurPipeline ('roll' and
+    'default' by default; 'mxu' runs the tensor-core group DFT).
+    stage_dtype exists for the JAX signature; bf16 staging is not ported
+    yet (ROADMAP.md A16).
     fft_backend: 'pallas' (default, the kernels) or another backend of
     ops/fft.py, the generic route (`restore_stack_generic`: the stack's
     3B planes paired across images, as the JAX batched route's, every
@@ -67,17 +70,20 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         edgetaper: bool = False,
         stage_dtype: str | None = None,
         fft_backend: str = KERNEL_BACKEND,
+        fft_engine: str = "roll",
+        mxu_precision: str = "default",
     ):
         if stage_dtype not in (None, "f32", "float32"):
             raise NotImplementedError(
                 f"stage_dtype {stage_dtype!r} is not ported yet (the port stages "
-                "float32 only): ROADMAP.md A5"
+                "float32 only): ROADMAP.md A16"
             )
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode,
             wb_stats_stride=wb_stats_stride, psf_type=psf_type, rl_iters=rl_iters,
-            edgetaper=edgetaper, fft_backend=fft_backend,
+            edgetaper=edgetaper, fft_backend=fft_backend, fft_engine=fft_engine,
+            mxu_precision=mxu_precision,
         )
 
     def to_device(self, imgs_bgr) -> torch.Tensor:
@@ -109,14 +115,17 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         return planes.cpu().numpy()
 
 
-def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cuda"):
+def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cuda",
+                   fft_engine: str = "roll", mxu_precision: str = "default"):
     """(length, angle) motion-PSF grid sweep on one (H, W, 3) image.
 
     Returns (n_lengths, n_angles, 3, H, W) float32 restored planes (numpy),
     each point as `BatchedWienerPipeline.restore_planes` gives it. The
-    pad is pow2, as in the JAX sweep.
+    pad is pow2, as in the JAX sweep. fft_engine, mxu_precision: as in
+    WienerDeblurPipeline.
     """
     dev = resolve_device(device)
+    ops = kernel_ops(fft_engine, mxu_precision)
     if np.ndim(img_bgr) != 3 or np.shape(img_bgr)[-1] != 3:
         raise ValueError(f"need an (H, W, 3) BGR frame, got shape {np.shape(img_bgr)}")
     stack = frames_to_device(img_bgr, dev)[None]
@@ -126,11 +135,11 @@ def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cu
     bad = [n for n in lengths if not 1 <= n <= min(hp, wp)]
     if bad:
         raise ValueError(f"PSF lengths {bad} outside [1, {min(hp, wp)}] for ({hp}x{wp})")
-    rows = KERNEL_OPS.fft_rows_stack(stack, extent=(hp, wp))
+    rows = ops.fft_rows_stack(stack, extent=(hp, wp))
     out = torch.empty((len(lengths), len(psf_angles), 3, h, w), dtype=torch.float32, device=dev)
     for i, length in enumerate(lengths):
         for j, angle in enumerate(psf_angles):
-            H = psf_spectrum_planes(make_psf("motion", length, float(angle), dev), hp, wp)
-            raw, lo, scale = restore_raw(stack, H, float(K), rows=rows)
+            H = psf_spectrum_planes(make_psf("motion", length, float(angle), dev), hp, wp, ops)
+            raw, lo, scale = restore_raw(stack, H, float(K), ops, rows=rows)
             out[i, j] = normalized_planes(raw, lo, scale, 1, h, w)[0]
     return out.cpu().numpy()

@@ -42,6 +42,7 @@ from fft_restoration_tpu_torch.models.pipeline import (
     KERNEL_BACKEND,
     KERNEL_OPS,
     psf_spectrum_planes,
+    with_engine,
 )
 from fft_restoration_tpu_torch.ops.fft import check_backend, fft2d
 from fft_restoration_tpu_torch.ops.wiener import spectral_product
@@ -67,7 +68,8 @@ def _conv_planes_generic(re, im, s_re, s_im, backend):
 
 
 def circular_conv_builder(psf, hp: int, wp: int, *, fft_backend=KERNEL_BACKEND,
-                          psf_spectrum=None, ops=KERNEL_OPS, radices_hw=((), ())):
+                          psf_spectrum=None, ops=KERNEL_OPS, radices_hw=((), ()),
+                          fft_engine=None, mxu_precision=None):
     """Build conv(re, im, conj=False) circularly convolving planes with the
     corner-anchored PSF. Returns float32 (re, im) of re's shape, scaled.
 
@@ -78,11 +80,14 @@ def circular_conv_builder(psf, hp: int, wp: int, *, fft_backend=KERNEL_BACKEND,
     here once when None; ops: KERNEL_OPS (the kernel wrappers) or
     PLAIN_OPS (their plain versions, the reference run on the card);
     radices_hw: (rad_h, rad_w) of smooth extents
-    (models.pipeline.pad_extents).
+    (models.pipeline.pad_extents); fft_engine, mxu_precision: `ops` at that
+    engine (models.pipeline.with_engine: B1, B2 conv / conj and B6 take
+    it; psf_spectrum must be the same engine's).
     Any other backend (the generic route): the same planes; psf_spectrum
     is the natural-order (hp, wp) fft2d spectrum of the zero-padded PSF,
     made here once when None."""
     check_backend(fft_backend)
+    ops = with_engine(ops, fft_engine, mxu_precision)
     if fft_backend != KERNEL_BACKEND:
         if psf_spectrum is None:
             psf_pad = torch.zeros((hp, wp), dtype=torch.float32, device=psf.device)

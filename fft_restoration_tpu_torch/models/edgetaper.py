@@ -27,7 +27,8 @@ from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
 
 
 def edge_taper_planes(channels, psf, live_hw, *, fft_backend: str = KERNEL_BACKEND,
-                      radices_hw=((), ()), psf_spectrum=None, ops=KERNEL_OPS):
+                      radices_hw=((), ()), psf_spectrum=None, ops=KERNEL_OPS, fft_engine=None,
+                      mxu_precision=None):
     """Taper (..., Hp, Wp) zero-padded float32 (or uint8, converted
     x / 255) planes whose live image is the top-left live_hw = (h, w)
     extent. Returns float32 planes of the same shape, ready for the
@@ -40,7 +41,8 @@ def edge_taper_planes(channels, psf, live_hw, *, fft_backend: str = KERNEL_BACKE
     radices_hw: (rad_h, rad_w) of smooth (Hp, Wp) extents (kernel route).
     psf_spectrum: the cached spectrum of `psf` in the route's layout
     (circular_conv_builder), made here when None. ops: KERNEL_OPS or
-    PLAIN_OPS (kernel route)."""
+    PLAIN_OPS (kernel route); fft_engine, mxu_precision: `ops` at that
+    engine (circular_conv_builder)."""
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
     hp, wp = channels.shape[-2:]
@@ -49,7 +51,8 @@ def edge_taper_planes(channels, psf, live_hw, *, fft_backend: str = KERNEL_BACKE
               for v in taper_windows(h, w, hp, wp, psf.shape[-1]))
     alpha = wy[:, None] * wx[None, :]
     conv = circular_conv_builder(psf, hp, wp, fft_backend=fft_backend,
-                                 psf_spectrum=psf_spectrum, ops=ops, radices_hw=radices_hw)
+                                 psf_spectrum=psf_spectrum, ops=ops, radices_hw=radices_hw,
+                                 fft_engine=fft_engine, mxu_precision=mxu_precision)
     flat = channels.reshape(-1, hp, wp)
     n = flat.shape[0]
     b_re, b_im = conv(flat[0::2], flat[1::2] if n >= 2 else None)

@@ -32,6 +32,16 @@ PSF spectrum: fft_rows (B1, real input, live rows only) then fft_rows
 (B6), in the layout the middles consume: transposed (Wp, Hp),
 bit-reversed.
 
+FFT engine (`fft_engine=`, the JAX package's; `kernel_ops`): 'roll'
+(the port's default: the radix-2 stages, plain bit-reversed spectra) or
+'mxu' (the JAX default: every revorder pass of length >= 128 runs its
+outer stages and a DFT-128 group product on the tensor cores, spectra in
+the "hybrid order"), with `mxu_precision=` 'default' (one bf16 pass) or
+'highest' (3xTF32). The engine and precision ride on the `ops` object,
+so the PSF spectrum and the restore that consumes it always share them;
+the spectrum caches key on both (`spectrum_tag`). The fused middle's
+gate stays hp >= 512 for both engines (JAX takes it with mxu only).
+
 Pad modes (`pad_extents`): 'pow2', the reference's; 'smooth', the
 smallest odd * 2^k extents (odd in 3, 5, 9, 15), e.g. 3840x2160 at
 2304x3840 instead of 4096x4096. Every FFT launch then takes the axis'
@@ -67,6 +77,7 @@ min-max normalize over the padded extent absorbs 1/(MN), then crop.
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -106,27 +117,75 @@ FUSED_MIDDLE_MIN_N = 512
 
 # The operations of the restore: the kernel wrappers (the pipeline's path
 # on every device), and their plain versions, with which a reference run
-# on the card is made (restore_stack(..., ops=PLAIN_OPS)).
-KERNEL_OPS = SimpleNamespace(
-    fft_rows=fft_kernel.fft_rows,
-    fft_rows_stack=fft_kernel.fft_rows_stack,
-    fft_rows_packed_out=fft_kernel.fft_rows_packed_out,
-    wiener_spectral_t=wiener_spectral.wiener_spectral_t,
-    spectral_conv_t=wiener_spectral.spectral_conv_t,
-    fwd_wiener_rows=wiener_spectral.fwd_wiener_rows,
-    lab_l_sum_partials=postprocess.lab_l_sum_partials_batched,
-    wb_encode_u8=postprocess.wb_encode_u8_batched,
-)
-PLAIN_OPS = SimpleNamespace(
-    fft_rows=fft_kernel.fft_rows_plain,
-    fft_rows_stack=fft_kernel.fft_rows_stack_plain,
-    fft_rows_packed_out=fft_kernel.fft_rows_packed_out_plain,
-    wiener_spectral_t=wiener_spectral.wiener_spectral_t_plain,
-    spectral_conv_t=wiener_spectral.spectral_conv_t_plain,
-    fwd_wiener_rows=wiener_spectral.fwd_wiener_rows_plain,
-    lab_l_sum_partials=postprocess.lab_l_sum_partials_batched_plain,
-    wb_encode_u8=postprocess.wb_encode_u8_batched_plain,
-)
+# on the card is made (restore_stack(..., ops=PLAIN_OPS)), at one FFT
+# engine and MXU precision.
+FFT_ENGINES = fft_kernel.ENGINE_CHOICES  # the ops take 'auto' too
+# the operations that take the engine (the FFT kernels and the middles)
+ENGINE_OPS = ("fft_rows", "fft_rows_stack", "fft_rows_packed_out", "wiener_spectral_t",
+              "spectral_conv_t", "fwd_wiener_rows")
+_OPS = {
+    False: dict(
+        fft_rows=fft_kernel.fft_rows,
+        fft_rows_stack=fft_kernel.fft_rows_stack,
+        fft_rows_packed_out=fft_kernel.fft_rows_packed_out,
+        wiener_spectral_t=wiener_spectral.wiener_spectral_t,
+        spectral_conv_t=wiener_spectral.spectral_conv_t,
+        fwd_wiener_rows=wiener_spectral.fwd_wiener_rows,
+        lab_l_sum_partials=postprocess.lab_l_sum_partials_batched,
+        wb_encode_u8=postprocess.wb_encode_u8_batched,
+    ),
+    True: dict(
+        fft_rows=fft_kernel.fft_rows_plain,
+        fft_rows_stack=fft_kernel.fft_rows_stack_plain,
+        fft_rows_packed_out=fft_kernel.fft_rows_packed_out_plain,
+        wiener_spectral_t=wiener_spectral.wiener_spectral_t_plain,
+        spectral_conv_t=wiener_spectral.spectral_conv_t_plain,
+        fwd_wiener_rows=wiener_spectral.fwd_wiener_rows_plain,
+        lab_l_sum_partials=postprocess.lab_l_sum_partials_batched_plain,
+        wb_encode_u8=postprocess.wb_encode_u8_batched_plain,
+    ),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_ops(engine: str = "roll", precision: str = "default", plain: bool = False):
+    """The restore's operations at one FFT engine ('roll', 'mxu' or
+    'auto') and MXU precision ('default' or 'highest'): the kernel
+    wrappers, or with plain=True their plain versions. The FFT kernels
+    and the middles (ENGINE_OPS) take the engine and precision; `.engine`,
+    `.precision` and `.plain` name them. At roll the operations are the
+    wrappers themselves (their defaults are roll)."""
+    fft_kernel.resolve_engine(engine, fft_kernel.MXU_INNER, "revorder")  # raises for a bad name
+    fft_kernel.check_precision(precision)
+    fns = dict(_OPS[bool(plain)])
+    if engine != "roll":
+        for name in ENGINE_OPS:
+            fns[name] = functools.partial(fns[name], engine=engine, precision=precision)
+    return SimpleNamespace(engine=engine, precision=precision, plain=bool(plain), **fns)
+
+
+KERNEL_OPS = kernel_ops()
+PLAIN_OPS = kernel_ops(plain=True)
+
+
+def with_engine(ops, fft_engine=None, mxu_precision=None):
+    """`ops` at another engine and/or precision (None keeps ops' own)."""
+    if fft_engine is None and mxu_precision is None:
+        return ops
+    return kernel_ops(fft_engine or ops.engine, mxu_precision or ops.precision, ops.plain)
+
+
+def spectrum_tag(ops, hp: int, wp: int, radices_hw=((), ())) -> tuple:
+    """What a spectrum of (hp, wp) extents depends on beside its PSF: the
+    engine its row and column passes resolve to and, where one is mxu,
+    the precision; () where both resolve to roll (the keys of a roll
+    pipeline stay as they were). Every spectrum cache keys on it, so a
+    roll spectrum never meets an mxu restore and a 'default' one never a
+    'highest' one."""
+    rad_h, rad_w = radices_hw
+    tag = (fft_kernel.pass_engine(ops.engine, wp, rad_w),
+           fft_kernel.pass_engine(ops.engine, hp, rad_h))
+    return tag + (ops.precision,) if "mxu" in tag else ()
 
 # the kernel route; every other backend of ops/fft.py takes the generic one
 KERNEL_BACKEND = "pallas"
@@ -161,12 +220,16 @@ def pad_extents(h: int, w: int, pad_mode: str = "pow2"):
     return next_power_of_two(h), next_power_of_two(w), (), ()
 
 
-def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ())):
+def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ()), *, fft_engine=None,
+                        mxu_precision=None):
     """2D forward transform of the corner-anchored, zero-padded (hp, wp)
     PSF in the layout wiener_spectral_t consumes: (wp, hp) planes,
     transposed, bit-reversed along both axes (in residue-block order at
-    smooth extents, radices_hw = (rad_h, rad_w)). Only the PSF's own rows
-    are transformed in the first pass (a row FFT of zeros is zero)."""
+    smooth extents, radices_hw = (rad_h, rad_w); in the hybrid order along
+    an axis whose passes resolve to mxu). Only the PSF's own rows are
+    transformed in the first pass (a row FFT of zeros is zero).
+    fft_engine, mxu_precision: `ops` at that engine (with_engine)."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     rad_h, rad_w = radices_hw
     with fphase("fft_psf"):
         re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
@@ -174,9 +237,12 @@ def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ())):
     return h_re[0], h_im[0]
 
 
-def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS, radices_hw=((), ())):
+def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS, radices_hw=((), ()), *, fft_engine=None,
+                       mxu_precision=None):
     """The CLS regularizer's spectrum: the 5-point Laplacian, corner
-    anchored and wrapped, through the PSF's forward path (same layout)."""
+    anchored and wrapped, through the PSF's forward path (same layout,
+    the same engine options)."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     lap = torch.zeros((hp, wp), dtype=torch.float32, device=device)
     lap[0, 0] = 4.0
     for r, c in ((0, 1), (1, 0), (0, -1), (-1, 0)):
@@ -187,10 +253,12 @@ def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS, radices_hw=((), ())):
 def psf_spectrum_from_numpy(h_re, h_im, device):
     """Carry a spectrum computed by the JAX package into the port:
     `fft_restoration_tpu.models.pipeline.psf_spectrum_planes(...,
-    engine="roll")` returns numpy-convertible (wp, hp) planes in the same
-    transposed, bit-reversed layout as `psf_spectrum_planes`. A spectrum from
-    the JAX default engine="mxu" is in the TPU's "hybrid" order — a
-    different layout that must not be loaded."""
+    engine=E)` returns numpy-convertible (wp, hp) planes in the layout
+    `psf_spectrum_planes` gives at the same engine E: plain bit-reversed
+    for "roll", the hybrid order for "mxu" (the JAX package on a CPU
+    computes its mxu spectra in float32: load them into an mxu pipeline at
+    mxu_precision="highest"). A spectrum of one engine must not be loaded
+    into a pipeline of the other."""
     return tuple(
         torch.tensor(np.asarray(p, np.float32), device=device) for p in (h_re, h_im)
     )
@@ -258,7 +326,7 @@ def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", la
 
 def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name="wiener",
                    rl_iters=10, psf_spectrum=None, normalize=True, radices_hw=((), ()),
-                   ops=KERNEL_OPS):
+                   ops=KERNEL_OPS, fft_engine=None, mxu_precision=None):
     """Restore (C, Hp, Wp) or (B, C, Hp, Wp) float32 planes (uint8 planes
     are converted x / 255), or one (Hp, Wp) plane, with the (S, S) PSF at
     the planes' own extents: pow2, or smooth with radices_hw = (rad_h,
@@ -278,7 +346,10 @@ def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name=
     (made here when None); ops: KERNEL_OPS or PLAIN_OPS.
     'rl': `richardson_lucy_planes` (clipped to [0, 1]; normalize does not
     apply, as in JAX). Any other backend: `restore_planes_generic`
-    (psf_spectrum unused: its layout is the kernel route's, as in JAX)."""
+    (psf_spectrum unused: its layout is the kernel route's, as in JAX).
+    fft_engine, mxu_precision: `ops` at that engine (with_engine; kernel
+    route only, as the JAX engine= applies to its kernels only)."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
     hp, wp = channels.shape[-2:]
@@ -350,7 +421,8 @@ def encode_planar(planes, orig, white_balance):
 
 def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
                   filter_name="wiener", psf=None, lap=None, rl_iters=10, edgetaper=False,
-                  encode=True, pad_mode="pow2", ops=KERNEL_OPS):
+                  encode=True, pad_mode="pow2", ops=KERNEL_OPS, fft_engine=None,
+                  mxu_precision=None):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     ((B, h, w, 3) uint8 restored stack, (B, 3, h, w) float32 planes or
     None). Per-image white balance: the gains' means are over the same
@@ -361,7 +433,10 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     planes, the uint8 stack is None. pad_mode: 'pow2' or 'smooth', the
     extents of H too. Phase ranges (fphase) as JAX's _restore_core:
     pre_process (padding, taper), the sections of restore_raw, and
-    post_process; RL's loop is in no range, as in JAX."""
+    post_process; RL's loop is in no range, as in JAX. fft_engine,
+    mxu_precision: `ops` at that engine (with_engine); H and lap must be
+    the spectra the same engine made."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     b, h, w, _ = stack.shape
     hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     rows = None
@@ -544,8 +619,14 @@ class _CachedPsfPipeline:
 
     def __init__(self, device, *, filter_name, white_balance, emit_planes, pad_mode,
                  wb_stats_stride, psf_type="motion", rl_iters=10, edgetaper=False,
-                 fft_backend=KERNEL_BACKEND):
+                 fft_backend=KERNEL_BACKEND, fft_engine="roll", mxu_precision="default"):
         self.device = resolve_device(device)
+        if fft_engine not in FFT_ENGINES:
+            raise ValueError(f"unknown FFT engine {fft_engine!r}; one of {FFT_ENGINES}")
+        # the kernel route's operations at this engine and precision
+        self.ops = kernel_ops(fft_engine, mxu_precision)
+        self.fft_engine = fft_engine
+        self.mxu_precision = mxu_precision
         if filter_name not in FILTERS:
             raise ValueError(f"unknown filter {filter_name!r}; one of {FILTERS}")
         check_backend(fft_backend)
@@ -566,10 +647,11 @@ class _CachedPsfPipeline:
         self.rl_iters = int(rl_iters)
         self.edgetaper = bool(edgetaper)
         # (psf, spectrum) keyed on (hp, wp, rad_h, rad_w, length, angle),
-        # a concrete kernel's bytes and shape after them, oldest evicted
-        # first: a spectrum is 2 * hp * wp float32 (33.5 MB at 2048^2)
+        # the spectrum_tag of the engine and precision, a concrete kernel's
+        # bytes and shape after them, oldest evicted first: a spectrum is
+        # 2 * hp * wp float32 (33.5 MB at 2048^2)
         self._psf_cache = {}
-        # CLS's Laplacian spectrum for the last pad, in a slot of its own
+        # CLS's Laplacian spectrum for the last pad and tag, in a slot of its own
         self._lap = (None, None)
 
     def pad(self, h: int, w: int):
@@ -592,7 +674,8 @@ class _CachedPsfPipeline:
         self._psf_cache[key] = H
 
     def _cache_key(self, pad, psf_length, angle):
-        key = (*pad, int(psf_length), float(angle))
+        key = (*pad, int(psf_length), float(angle)) + spectrum_tag(self.ops, pad[0], pad[1],
+                                                                   pad[2:])
         return key if isinstance(self.psf_type, str) else key + psf_key(self.psf_type)
 
     def _psf_spectrum(self, h: int, w: int, psf_length: int, angle: float):
@@ -601,20 +684,24 @@ class _CachedPsfPipeline:
         key = self._cache_key(pad, psf_length, angle)
         if key not in self._psf_cache:
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-            self._remember(key, (psf, psf_spectrum_planes(psf, *pad[:2], radices_hw=pad[2:])))
+            self._remember(key, (psf, psf_spectrum_planes(psf, *pad[:2], self.ops, pad[2:])))
         return self._psf_cache[key]
 
     def _laplacian_spectrum(self, h: int, w: int):
         pad = self.pad(h, w)
-        if self._lap[0] != pad:
-            self._lap = (pad, laplacian_spectrum(*pad[:2], self.device, radices_hw=pad[2:]))
+        key = (pad, spectrum_tag(self.ops, pad[0], pad[1], pad[2:]))
+        if self._lap[0] != key:
+            self._lap = (key, laplacian_spectrum(*pad[:2], self.device, self.ops, pad[2:]))
         return self._lap[1]
 
     def load_psf_spectrum(self, h, w, psf_length, angle, planes):
         """Put a spectrum computed elsewhere — e.g. the JAX package's
-        psf_spectrum_planes(..., engine="roll") — into the cache for
-        frames of size (h, w) in this pipeline's pad mode (at smooth extents
-        a JAX spectrum with the same radices); see psf_spectrum_from_numpy."""
+        psf_spectrum_planes(..., engine=E) — into the cache for frames of
+        size (h, w) in this pipeline's pad mode (at smooth extents a JAX
+        spectrum with the same radices). It must be in this pipeline's
+        order: E its fft_engine ("roll": plain bit-reversed; "mxu": the
+        hybrid order, at this pipeline's precision); see
+        psf_spectrum_from_numpy."""
         pad = self.pad(h, w)
         hp, wp = pad[:2]
         H = psf_spectrum_from_numpy(planes[0], planes[1], self.device)
@@ -644,7 +731,8 @@ class _CachedPsfPipeline:
         return restore_stack(
             stack, H, float(K), filter_name=self.filter_name, psf=psf,
             lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
-            rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode, **opts,
+            rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode,
+            ops=self.ops, **opts,
         )
 
 
@@ -674,6 +762,12 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     edge taper through the generic conv of models/convolve.py). The JAX
     package's default is 'radix2' here and 'matmul' in its CLI; the
     port's is its kernels.
+    fft_engine: 'roll' (default) or 'mxu', the JAX package's engine= of
+    the kernel route (module docstring; the JAX default is 'mxu', which
+    was the faster one on the TPU); mxu_precision: 'default' (one bf16
+    pass of the group products, the JAX flagship) or 'highest' (3xTF32,
+    float32's accuracy, what the strict l2 / inf tiers need); unused by
+    roll and by the generic route.
     """
 
     def __init__(
@@ -689,11 +783,14 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         edgetaper: bool = False,
         fft_backend: str = KERNEL_BACKEND,
         psf_type="motion",
+        fft_engine: str = "roll",
+        mxu_precision: str = "default",
     ):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
             psf_type=psf_type, rl_iters=rl_iters, edgetaper=edgetaper, fft_backend=fft_backend,
+            fft_engine=fft_engine, mxu_precision=mxu_precision,
         )
 
     def to_device(self, img_bgr) -> torch.Tensor:
@@ -754,7 +851,9 @@ def profile_phases(img_bgr, psf_length: int, psf_angle: float, K: float = 0.01,
     The pipelines queue their phases back to back; this instrumented
     mode synchronizes the device after each one, so each phase's time
     holds its host enqueue and its device time. Pow2 pad. Returns (uint8
-    (H, W, 3) restored image, PhaseProfiler)."""
+    (H, W, 3) restored image, PhaseProfiler). It takes no engine: fft2d's
+    passes are natural-order, which run the roll engine (as every
+    natural-order pass of the JAX package does)."""
     from fft_restoration_tpu_torch.models.filters import apply_filter
     from fft_restoration_tpu_torch.utils.timing import PhaseProfiler, _block
 

@@ -40,7 +40,8 @@ from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
 
 def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-6,
                            fft_backend: str = KERNEL_BACKEND, radices_hw=((), ()),
-                           psf_spectrum=None, ops=KERNEL_OPS):
+                           psf_spectrum=None, ops=KERNEL_OPS, fft_engine=None,
+                           mxu_precision=None):
     """RL-deconvolve (..., Hp, Wp) padded planes (float32 in [0, 1], or
     uint8 converted by exact division x / 255) with the (S, S) PSF.
     Returns float32 planes of the same shape clipped to [0, 1] (not
@@ -55,13 +56,15 @@ def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-
     models/convolve.py). radices_hw: (rad_h, rad_w) of smooth (Hp, Wp)
     extents (kernel route). psf_spectrum: the spectrum in the route's
     layout (circular_conv_builder), made here when None. ops: KERNEL_OPS
-    or PLAIN_OPS (kernel route). JAX's psf_rows is not taken: the port's
+    or PLAIN_OPS (kernel route); fft_engine, mxu_precision: `ops` at that
+    engine (circular_conv_builder). JAX's psf_rows is not taken: the port's
     spectrum transforms the PSF's own S rows already."""
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
     hp, wp = channels.shape[-2:]
     conv = circular_conv_builder(psf, hp, wp, fft_backend=fft_backend,
-                                 psf_spectrum=psf_spectrum, ops=ops, radices_hw=radices_hw)
+                                 psf_spectrum=psf_spectrum, ops=ops, radices_hw=radices_hw,
+                                 fft_engine=fft_engine, mxu_precision=mxu_precision)
     flat = channels.reshape(-1, hp, wp)
     y_re, y_im = pack_pairs(flat)
 

@@ -58,6 +58,8 @@ from fft_restoration_tpu_torch.models.pipeline import (
     minmax_normalize,
     psf_key,
     psf_spectrum_planes,
+    spectrum_tag,
+    with_engine,
     resolve_device,
     restore_planes,
 )
@@ -130,9 +132,10 @@ def clamped_grid(extent: int, tile: int, core: int, overlap: int):
 
 def _psf_spectrum(psf, psf_type, psf_length, psf_angle, pad_h, pad_w, ops):
     """The kernel route's PSF spectrum of the tiles, made once per (pad,
-    PSF, device, ops) and kept in _SPECTRA."""
+    PSF, device, ops: kernels or plain versions, and the engine and
+    precision, spectrum_tag) and kept in _SPECTRA."""
     key = (pad_h, pad_w, int(psf_length), float(psf_angle), psf_key(psf_type), str(psf.device),
-           id(ops))
+           ops.plain, spectrum_tag(ops, pad_h, pad_w))
     if key not in _SPECTRA:
         if len(_SPECTRA) >= SPECTRUM_CACHE_SIZE:
             _SPECTRA.pop(next(iter(_SPECTRA)))
@@ -181,11 +184,12 @@ def _prepare(shape, psf_length, psf_angle, *, tile, overlap, fft_backend, psf_ty
 def tiled_run(frame, psf_length: int, psf_angle: float, K: float = 0.01, *, tile: int = 1024,
               overlap: int | None = None, chunk: int = 16, fft_backend: str = KERNEL_BACKEND,
               filter_name: str = "wiener", rl_iters: int = 10, psf_type="motion",
-              white_balance: bool = True, ops=KERNEL_OPS):
+              white_balance: bool = True, ops=KERNEL_OPS, fft_engine=None, mxu_precision=None):
     """The device stitch on an (H, W, 3) frame already on the device (uint8,
     or float32 in [0, 1]): returns the (H, W, 3) uint8 restored frame on
     the device, queued on the current stream and not synchronized.
     Options as tiled_restore_image's."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     h, w = frame.shape[:2]
     overlap, core, (th, tw), pad_hw, dev, psf, H = _prepare(
         frame.shape, psf_length, psf_angle, tile=tile, overlap=overlap,
@@ -218,7 +222,8 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
                         tile: int = 1024, overlap: int | None = None, chunk: int = 16,
                         fft_backend: str = KERNEL_BACKEND, filter_name: str = "wiener",
                         rl_iters: int = 10, psf_type="motion", white_balance: bool = True,
-                        device_stitch: bool = True, device="cuda", ops=KERNEL_OPS, mesh=None):
+                        device_stitch: bool = True, device="cuda", ops=KERNEL_OPS, mesh=None,
+                        fft_engine=None, mxu_precision=None):
     """(H, W, 3) uint8 BGR of any size -> (H, W, 3) uint8 restored numpy,
     with the transform working set bounded by one tile.
 
@@ -232,7 +237,10 @@ def tiled_restore_image(img_bgr, psf_length: int, psf_angle: float, K: float = 0
     device: 'cuda' (the kernels) or 'cpu' (their plain versions). ops:
     KERNEL_OPS, or PLAIN_OPS for the reference run of the kernel route
     on the card. mesh: restore the tiles over a parallel.mesh Mesh (the
-    host stitch; device is then the mesh's)."""
+    host stitch; device is then the mesh's). fft_engine, mxu_precision:
+    `ops` at that engine ('roll' or 'mxu'; models.pipeline.with_engine),
+    for every tile's taper and restore."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     img = np.asarray(img_bgr)
     opts = dict(fft_backend=fft_backend, filter_name=filter_name, rl_iters=rl_iters, ops=ops)
     if mesh is not None:

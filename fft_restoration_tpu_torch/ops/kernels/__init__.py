@@ -11,7 +11,11 @@ the CUDA kernels' instances with cross-DFT levels (B-mixed, a smooth
 length), "fft_rows_natural" those of fft_rows' natural-order instance
 (B6 natural), and "fft_rows_t" those of the register-resident row FFT
 with the transposed store (B1, csrc/fft_rows_t.cu), each on top of the
-count of the kernel launched ("fft_rows" for B1, B3 and B6).
+count of the kernel launched ("fft_rows" for B1, B3 and B6). A launch
+of a tensor-core (MXU engine) instance is counted under
+"<kernel>_mxu_<precision>" as well (`MXU_COUNTS`: B1 "fft_rows_t", B6
+"fft_rows", B3 "fft_rows_packed_out", B2 "wiener_spectral_t",
+"spectral_conv_t" and "spectral_conv_t_conj", B7 "fwd_wiener_rows").
 
 The public names of the JAX package's `ops.pallas` are here under the
 port's names, imported on first use: `fft_rows` (fft_rows_pallas),
@@ -26,11 +30,14 @@ from collections import Counter
 
 import torch
 
+MXU_KERNELS = ("fft_rows_t", "fft_rows", "fft_rows_packed_out", "wiener_spectral_t",
+               "spectral_conv_t", "spectral_conv_t_conj", "fwd_wiener_rows")
+MXU_COUNTS = tuple(f"{k}_mxu_{p}" for k in MXU_KERNELS for p in ("default", "highest"))
 KERNELS = (
     "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
     "lab_l_sum_partials", "wb_encode_u8", "mixed_radix", "fft_rows_natural",
     "fft_cols", "wiener_elem", "wiener_spectral_rows", "fft_rows_radix4", "fft_rows_t",
-)
+) + MXU_COUNTS
 
 # public name -> module of ops/kernels that defines it
 PUBLIC = {

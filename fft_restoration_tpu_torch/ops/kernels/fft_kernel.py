@@ -21,9 +21,23 @@ The pipeline's ordering is revorder: the forward transform is DIF
 (natural in, bit-reversed out), the inverse DIT (bit-reversed in,
 natural out), unscaled. `ordering="natural"` (B6's and B11's natural
 mode, pow2 lengths) bit-reverses the input and runs the DIT stages with
-the direction's tables: natural in and out. The stages are pure radix-2,
-the JAX package's engine="roll" semantics, so spectra are in plain
-bit-reversed order — not the TPU MXU engine's "hybrid" order.
+the direction's tables: natural in and out.
+
+Two engines, the JAX package's `engine=` (`resolve_engine`):
+  roll  (the port's default) pure radix-2 stages; spectra in plain
+        bit-reversed order.
+  mxu   (the JAX default) on a revorder pass whose pow2 length (or pow2
+        tail q) is >= 128: the outer stages S-1 .. 7 as radix-2 groups,
+        then one natural-order DFT-128 of every contiguous 128-point
+        group (`group_dft_plain`; on the card the tensor cores,
+        csrc/fft_group_dft.cuh); the inverse mirrors it. Spectra land in
+        the "hybrid order" (`hybrid_permutation`). `precision=`
+        'default' rounds the group product's operands to bf16 (one bf16
+        pass, f32 sums), 'highest' keeps float32 (3xTF32 on the card).
+        Shorter or natural-order passes resolve to roll, as in JAX.
+B1, B3 and B6 take `engine=` and `precision=`; B2 and B7
+(wiener_spectral.py) too. A spectrum is only valid with the engine
+(and, for mxu, the precision) that made it.
 
 Mixed radix (`radices`, the --pad smooth extents): a row of n =
 prod(radices) * 2^k points first runs one cross-DFT level per odd radix
@@ -31,8 +45,9 @@ prod(radices) * 2^k points first runs one cross-DFT level per odd radix
 four-step twiddle plane (the JAX _mixed_cross_fwd), then the DIF stages
 over the pow2 tail; the inverse runs the DIT stages, then the levels
 innermost first (_mixed_cross_inv). The spectrum is then in residue-block
-order, bit-reversed inside each block: diff it only against the JAX
-engine="roll" with the same radices.
+order, bit-reversed inside each block (in the hybrid order inside each
+block at mxu): diff it only against the JAX engine of the same name with
+the same radices.
 
 `fft_rows_stack` is B1 over a (B, h, w, C) image stack: the kernel's
 loader maps logical plane q to image q // C, channel q % C, so channel
@@ -150,6 +165,174 @@ def _mixed_q(n: int, radices: tuple) -> int:
             f"non-power-of-two tail {q}"
         )
     return q
+
+
+# ---------------------------------------------------------------------------
+# The MXU engine (JAX fft_kernel.py:279-451): the outer radix-2 stages and
+# one DFT-128 matrix product per contiguous 128-point group.
+
+MXU_INNER = 128
+MXU_LOG = 7
+ENGINES = ("roll", "mxu", "auto")
+ENGINE_CHOICES = ("roll", "mxu")  # the pipelines', CLI's and server's (the JAX CLI's)
+MXU_PRECISIONS = ("default", "highest")
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_planes_np(length: int, inverse: bool) -> tuple:
+    """(length, length) cos/sin planes of the DFT matrix
+    W[l, k] = exp(sign * 2*pi*i * l * k / length), float64-computed
+    (copied from the JAX package)."""
+    sign = 1.0 if inverse else -1.0
+    lk = np.outer(np.arange(length, dtype=np.float64), np.arange(length))
+    ang = sign * 2.0 * math.pi * lk / length
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def resolve_engine(engine: str, n: int, ordering: str, q: int | None = None) -> str:
+    """The JAX _resolve_engine: 'mxu' needs revorder ordering and a pow2
+    (sub-)extent (q, the pow2 tail of a mixed-radix n; n itself when
+    None) >= 128, else it resolves to 'roll'; 'auto' is mxu where
+    eligible."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown FFT engine {engine!r}")
+    if engine == "roll":
+        return "roll"
+    eligible = ordering == "revorder" and (q or n) >= MXU_INNER
+    return "mxu" if eligible else "roll"
+
+
+def check_precision(precision: str) -> str:
+    if precision not in MXU_PRECISIONS:
+        raise ValueError(f"unknown MXU precision {precision!r}; one of {MXU_PRECISIONS}")
+    return precision
+
+
+def pass_engine(engine: str, n: int, radices: tuple = (), ordering: str = "revorder") -> str:
+    """The resolved engine of one length-n pass (radices: its cross levels)."""
+    radices = tuple(radices)
+    return resolve_engine(engine, n, ordering, _mixed_q(n, radices) if radices else None)
+
+
+def engine_code(engine: str, n: int, radices: tuple = (), ordering: str = "revorder",
+                precision: str = "default") -> int:
+    """The C entries' engine of a pass: 0 the radix-2 stages (roll), 1 the
+    group DFT in bf16 ('default'), 2 in 3xTF32 ('highest')
+    (csrc/fft_group_dft.cuh ENG_*)."""
+    check_precision(precision)
+    if pass_engine(engine, n, radices, ordering) == "roll":
+        return 0
+    return 1 if precision == "default" else 2
+
+
+def hybrid_permutation(n: int) -> np.ndarray:
+    """pos such that the mxu forward pass of a pow2 n puts DFT bin k at
+    position pos[k] = rev_b(k mod G) * 128 + k div G, G = n / 128, b =
+    log2 G (the JAX tests' hybrid_permutation)."""
+    g_count = n // MXU_INNER
+    k = np.arange(n)
+    return brev_columns(k % g_count, g_count.bit_length() - 1) * MXU_INNER + k // g_count
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_operands(inverse: bool, precision: str, device: torch.device) -> tuple:
+    """(Wc, Ws, Wc + Ws) float32 on `device` as the group product takes
+    them: Wc + Ws summed in float32, all three rounded to bf16 for
+    'default'."""
+    wc, ws = (torch.from_numpy(a) for a in _dft_planes_np(MXU_INNER, inverse))
+    mats = (wc, ws, wc + ws)
+    if precision == "default":
+        mats = tuple(_bf16(w) for w in mats)
+    return tuple(w.to(device) for w in mats)
+
+
+def group_dft_plain(x_re, x_im, inverse: bool, precision: str = "default"):
+    """Each contiguous 128-point group of the last axis times the DFT-128
+    matrix: the JAX _group_dft_matmul's three real products,
+    m1 = xr Wc, m2 = xi Ws, m3 = (xr + xi)(Wc + Ws), yr = m1 - m2,
+    yi = m3 - m1 - m2. 'highest': float32 products (TF32 off on the
+    card). 'default': xr, xi, xr + xi and the tables rounded to bf16
+    first, then the same float32 products (the one bf16 pass of the
+    card's kernels; the JAX package on a CPU ignores the precision)."""
+    from fft_restoration_tpu_torch.ops.fft import _full_float32
+
+    wc, ws, wcs = _dft_operands(bool(inverse), check_precision(precision), x_re.device)
+    shape = x_re.shape
+    xr = x_re.reshape(-1, MXU_INNER)
+    xi = x_im.reshape(-1, MXU_INNER)
+    xs = xr + xi
+    if precision == "default":
+        xr, xi, xs = _bf16(xr), _bf16(xi), _bf16(xs)
+    with _full_float32(xr):
+        m1, m2, m3 = xr @ wc, xi @ ws, xs @ wcs
+    return (m1 - m2).reshape(shape), (m3 - m1 - m2).reshape(shape)
+
+
+# the fragment layout of csrc/fft_group_dft.cuh: per (bin tile, k step,
+# table, lane) the A operand's elements as (row, column) offsets from
+# (16 mt + lane / 4, k0 + c * (lane % 4)); 'default': m16n8k16 bf16
+# (k0 = 16 kt, c = 2), 'highest': m16n8k8 tf32 (k0 = 8 kt, c = 1)
+_FRAG = {
+    "default": (8, 16, 2, (0, 0, 8, 8, 0, 0, 8, 8), (0, 1, 0, 1, 8, 9, 8, 9)),
+    "highest": (16, 8, 1, (0, 8, 0, 8), (0, 0, 4, 4)),
+}
+
+
+def dft_fragment_index(precision: str) -> tuple:
+    """(row, column) of the A operand (bins x positions) of every fragment
+    element, each of shape (8 bin tiles, k steps, 32 lanes, elements)."""
+    steps, kw, c, ro, co = _FRAG[check_precision(precision)]
+    mt = np.arange(8)[:, None, None, None]
+    kt = np.arange(steps)[None, :, None, None]
+    lane = np.arange(32)[None, None, :, None]
+    row = 16 * mt + (lane >> 2) + np.array(ro)
+    col = kw * kt + c * (lane & 3) + np.array(co)
+    return row, col
+
+
+@functools.lru_cache(maxsize=None)
+def dft_fragments_np(inverse: bool, precision: str) -> np.ndarray:
+    """The group DFT's A fragments in the kernels' order [bin tile][k
+    step][table Wc, Ws, Wc + Ws][lane][element]: bf16 bit patterns
+    (uint16) for 'default', float32 for 'highest' (split into tf32 parts
+    in the kernel). A[bin][pos] = W[pos][bin], the tables of
+    _dft_operands."""
+    row, col = dft_fragment_index(precision)
+    mats = _dft_operands(bool(inverse), precision, torch.device("cpu"))
+    frags = torch.stack([w.T[torch.from_numpy(row), torch.from_numpy(col)] for w in mats], 2)
+    if precision == "default":
+        return frags.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return frags.numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def dft_fragments(inverse: bool, precision: str, device: torch.device) -> torch.Tensor:
+    """dft_fragments_np on `device`, uploaded once."""
+    a = dft_fragments_np(bool(inverse), precision)
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(device)
+
+
+def dft_pointer(code: int, inverse: bool, device) -> int:
+    """The fragment tables' device pointer of an engine code (0: none)."""
+    if not code:
+        return 0
+    return dft_fragments(bool(inverse), MXU_PRECISIONS[code - 1], device).data_ptr()
+
+
+def stage_spec(stages: int, mxu: bool = False) -> tuple:
+    """The radix-2 stage groups of a pass of `stages` stages: all of them
+    (t_stage_groups), or the mxu engine's outer stages 7 .. stages - 1
+    (none at q = 128)."""
+    if not mxu:
+        return t_stage_groups(stages)
+    outer = stages - MXU_LOG
+    if outer < 0:
+        raise ValueError(f"the mxu engine needs q >= {MXU_INNER}, got 2^{stages}")
+    return tuple((s_lo + MXU_LOG, k) for s_lo, k in t_stage_groups(outer)) if outer else ()
 
 
 def check_length(n: int, radices: tuple = ()) -> int:
@@ -387,7 +570,7 @@ def _t_store_conflicts(plan: TPlan) -> int:
 
 @functools.lru_cache(maxsize=None)
 def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
-           blocks_wanted: int = 0) -> TPlan:
+           blocks_wanted: int = 0, mxu: bool = False) -> TPlan:
     """The fft_rows_t plan of a length-n row pass over planes of m rows.
 
     Rows a block: the largest power of two up to the plane height (and
@@ -405,7 +588,9 @@ def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     the forward pow2 pass's first group reads device memory and keeps the
     row map. The row stride is the first past the padded row that keeps
     the shared-memory transposed read conflict-free and the groups'
-    accesses cheapest."""
+    accesses cheapest. mxu: the groups cover the outer stages 7 .. S - 1
+    (stage_spec; the group DFT runs the rest) and every pass stores
+    through shared memory."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
@@ -420,14 +605,14 @@ def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     lr = rows.bit_length() - 1
     ns = rows * n // T_SLOTS
     threads = min(T_THREADS, -(-ns // 32) * 32)
-    direct = not inverse and rows >= 4 and len(t_stage_groups(stages)) > 1
+    spec = stage_spec(stages, mxu)
+    direct = not inverse and not mxu and rows >= 4 and len(spec) > 1
     best = None
     for extra in range(32):
         plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, (), direct)
         if not direct and _t_store_conflicts(plan) > 1:
             continue
         groups, costs = [], []
-        spec = t_stage_groups(stages)
         for g, (s_lo, k) in enumerate(spec):
             along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
             if direct and g == len(spec) - 1:
@@ -439,7 +624,7 @@ def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
             cost = [t_bank_conflicts(plan, c) for c in choice]
             groups.append(choice[int(np.argmin(cost))])
             costs.append(min(cost))
-        key = (max(costs), sum(costs))
+        key = (max(costs, default=1), sum(costs))
         if best is None or key < best[0]:
             best = key, plan._replace(groups=tuple(groups))
         if key == (1, len(spec)):
@@ -463,21 +648,22 @@ R_PLAN_THREADS = 128
 R_SMEM_BUDGET = 32 << 10
 
 
-def r_pinned(groups: int, g: int, mixed: bool) -> bool:
+def r_pinned(groups: int, g: int, mixed: bool, mxu: bool = False) -> bool:
     """Whether group g of a fft_rows plan of `groups` groups reads or
     writes device memory (and so keeps the along map: neighbouring
     threads on neighbouring columns): the bottom group always (the
     forward vector store, the inverse vector load, the natural ordering's
     bit-reversed load); the top group of a pow2 pass (the forward row
     load, the inverse and natural row store; a mixed pass's cross levels
-    take those)."""
-    return g == groups - 1 or (g == 0 and not mixed)
+    take those). mxu: the top group of a pow2 pass only (the group DFT
+    takes the bottom stages)."""
+    return (g == groups - 1 and not mxu) or (g == 0 and not mixed)
 
 
 @functools.lru_cache(maxsize=None)
 def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
            natural: bool = False, rows: int = 0, threads: int = 0,
-           packed: bool = False) -> TPlan:
+           packed: bool = False, mxu: bool = False) -> TPlan:
     """The fft_rows plan (B3, B6) of a length-n row pass over planes of m
     rows.
 
@@ -493,12 +679,15 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     (r_pinned); a middle group takes the map, along or across, that
     t_bank_conflicts finds cheaper. The row stride is the first past the
     padded row that keeps the groups' accesses cheapest (the bit-reversed
-    load's shared stores counted as the kernel makes them)."""
+    load's shared stores counted as the kernel makes them). mxu (revorder
+    only): the groups cover the outer stages 7 .. S - 1 (stage_spec)."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
     if natural:
         check_ordering("natural", radices)
+        if mxu:
+            raise ValueError("the mxu engine takes revorder passes")
     q = 1 << stages
     if not rows:
         fit = rows_per_block(n, m) if packed else max(1, min(16, R_SMEM_BUDGET // (8 * n), m))
@@ -510,7 +699,7 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     threads = threads or min(R_PLAN_THREADS, -(-ns // 32) * 32)
     if threads % 32 or not 32 <= threads <= R_THREADS:
         raise ValueError(f"threads a block must be a multiple of 32 up to {R_THREADS}")
-    spec = t_stage_groups(stages)
+    spec = stage_spec(stages, mxu)
     best = None
     for extra in range(32):
         plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, tuple(
@@ -518,13 +707,13 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
         groups, costs = [], []
         for g, (s_lo, k) in enumerate(spec):
             along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
-            pinned = r_pinned(len(spec), g, bool(radices))
+            pinned = r_pinned(len(spec), g, bool(radices), mxu)
             choice = [along] if pinned or lr == 0 else [along, across]
             brev = natural and g == len(spec) - 1
             cost = [t_bank_conflicts(plan, c, brev) for c in choice]
             groups.append(choice[int(np.argmin(cost))])
             costs.append(min(cost))
-        key = (max(costs), sum(costs))
+        key = (max(costs, default=1), sum(costs))
         if best is None or key < best[0]:
             best = key, plan._replace(groups=tuple(groups))
         if key == (1, len(spec)):
@@ -545,19 +734,19 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
 S_STORES = ("transposed", "natural", "rows")  # B2's store, B7's, B10's
 
 
-def s_pinned(groups: int, g: int, k: int, direct: bool) -> bool:
+def s_pinned(groups: int, g: int, k: int, direct: bool, mxu: bool = False) -> bool:
     """Whether group g (k stages) of an s_plan of `groups` groups keeps the
     along map in its DIF pass: the top group when it loads device memory
     (direct; B10's top DIT group stores the row-major output through the
     same map), and a bottom group of items narrower than a 32-byte segment
     (k < 3), whose vectors of H (and B7's stores) need their neighbours'
-    to fill one."""
-    return (g == 0 and direct) or (g == groups - 1 and k < 3)
+    to fill one; mxu: no bottom group, the group DFT reads H)."""
+    return (g == 0 and direct) or (g == groups - 1 and k < 3 and not mxu)
 
 
 @functools.lru_cache(maxsize=None)
 def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transposed",
-           blocks_wanted: int = 0, rows: int = 0, threads: int = 0) -> TPlan:
+           blocks_wanted: int = 0, rows: int = 0, threads: int = 0, mxu: bool = False) -> TPlan:
     """The plan of a spectral middle over planes of m rows of length n:
     B2 (store="transposed", wiener_spectral_t and spectral_conv_t), B7
     (store="natural", fwd_wiener_rows) or B10 (store="rows",
@@ -586,7 +775,11 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
     across, that t_bank_conflicts finds cheaper, in the DIT pass as in the
     DIF pass. The row stride is the first past the padded row that keeps
     the groups' accesses cheapest (and, without direct_store, B2's
-    transposed read of the shared rows conflict-free)."""
+    transposed read of the shared rows conflict-free).
+
+    mxu (B2, B7): the groups cover the outer stages 7 .. S - 1
+    (stage_spec), the group DFTs and the filter between them; direct_store
+    at a pow2 row with one outer group or more."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
@@ -594,6 +787,8 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
         raise ValueError(f"unknown store {store!r}; one of {S_STORES}")
     if store == "rows" and radices:
         raise ValueError("B10's row store takes power-of-two rows only")
+    if store == "rows" and mxu:
+        raise ValueError("B10 runs the radix-2 stages only")
     transposed = store == "transposed"
     q = 1 << stages
     floor = T_SLOTS // q if q < T_SLOTS else 1
@@ -619,8 +814,8 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
     threads = threads or min(T_THREADS if transposed else R_PLAN_THREADS, -(-ns // 32) * 32)
     if threads % 32 or not 32 <= threads <= T_THREADS:
         raise ValueError(f"threads a block must be a multiple of 32 up to {T_THREADS}")
-    spec = t_stage_groups(stages)
-    direct = not radices and len(spec) > 1
+    spec = stage_spec(stages, mxu)
+    direct = not radices and len(spec) > (0 if mxu else 1)
     best = None
     for extra in range(32):
         plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, (), direct)
@@ -629,7 +824,8 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
         dif, dit, costs = [], [], []
         for g, (s_lo, k) in enumerate(spec):
             along, across = (s_lo, k, 0, stages - k), (s_lo, k, lr, 0)
-            choice = [along] if s_pinned(len(spec), g, k, direct) or lr == 0 else [along, across]
+            pinned = s_pinned(len(spec), g, k, direct, mxu)
+            choice = [along] if pinned or lr == 0 else [along, across]
             cost = [t_bank_conflicts(plan, c) for c in choice]
             dif.append(choice[int(np.argmin(cost))])
             costs.append(min(cost))
@@ -638,7 +834,7 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
                 costs.append(t_bank_conflicts(plan, across))
             elif store != "natural":  # B2's other DIT groups, all of B10's
                 dit.append(dif[-1])
-        key = (max(costs), sum(costs))
+        key = (max(costs, default=1), sum(costs))
         if best is None or key < best[0]:
             best = key, plan._replace(groups=tuple(dif), dit_groups=tuple(dit))
         if key == (1, len(costs)):
@@ -761,27 +957,38 @@ def bit_reverse_last_axis(x: torch.Tensor) -> torch.Tensor:
     return y.permute(axes).reshape(lead + (n,))
 
 
-def run_stages(x_re, x_im, inverse: bool, radices: tuple = (), natural: bool = False):
+def run_stages(x_re, x_im, inverse: bool, radices: tuple = (), natural: bool = False,
+               engine: str = "roll", precision: str = "default"):
     """The transform over the last axis: forward = the cross levels (for
     radices) then the DIF stages over the pow2 tail; inverse = the DIT
     stages then the inverse cross levels (the JAX _run_stages), with the
     tables of the tensors' device. natural: natural order in and out —
     bit-reverse the input, then the DIT stages with this direction's
-    tables (the JAX 'natural' ordering; pow2 only)."""
+    tables (the JAX 'natural' ordering; pow2 only). engine: where it
+    resolves to mxu (resolve_engine), the DIF stages stop at stage 7 and
+    `group_dft_plain` at `precision` runs the inner 7 (forward last,
+    inverse first: the JAX _fft_stages_mxu)."""
     n = x_re.shape[-1]
     radices = tuple(radices)
     stages = check_length(n, radices)
     t = tables(n, bool(inverse), x_re.device, radices)
+    mxu = pass_engine(engine, n, radices, "natural" if natural else "revorder") == "mxu"
+    check_precision(precision)
     if natural:
         check_ordering("natural", radices)
         x_re, x_im = bit_reverse_last_axis(x_re), bit_reverse_last_axis(x_im)
     if radices and not inverse:
         x_re, x_im = _mixed_cross_fwd(x_re, x_im, radices, t.xcos, t.xsin)
     dit = inverse or natural
-    order = range(stages) if dit else range(stages - 1, -1, -1)
+    low = MXU_LOG if mxu else 0
+    order = range(low, stages) if dit else range(stages - 1, low - 1, -1)
     stage = _dit_stage if dit else _dif_stage
+    if mxu and inverse:
+        x_re, x_im = group_dft_plain(x_re, x_im, True, precision)
     for s in order:
         x_re, x_im = stage(x_re, x_im, t.cos[s], t.sin[s], t.mask[s], 1 << s)
+    if mxu and not inverse:
+        x_re, x_im = group_dft_plain(x_re, x_im, False, precision)
     if radices and inverse:
         x_re, x_im = _mixed_cross_inv(x_re, x_im, radices, t.xcos, t.xsin)
     return x_re, x_im
@@ -824,7 +1031,7 @@ def _check_store(ordering, radices, transposed) -> bool:
 
 
 def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
-                   ordering="revorder"):
+                   ordering="revorder", engine="roll", precision="default"):
     """Plain version of `fft_rows` (same signature and layout)."""
     natural = _check_store(ordering, radices, transposed)
     big_m, big_n = _check_planes(re, im, extent, radices)
@@ -833,14 +1040,14 @@ def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None,
     x_im = (
         torch.zeros_like(x_re) if im is None else _logical(im, planes, (big_m, big_n))
     )
-    x_re, x_im = run_stages(x_re, x_im, inverse, radices, natural)
+    x_re, x_im = run_stages(x_re, x_im, inverse, radices, natural, engine, precision)
     if transposed:
         return x_re.transpose(1, 2).contiguous(), x_im.transpose(1, 2).contiguous()
     return x_re, x_im
 
 
 def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
-             ordering="revorder"):
+             ordering="revorder", engine="roll", precision="default"):
     """Row FFT over the last axis of (P, m, n) planes (B1/B6).
 
     re, im: uint8 or float32 planes of any strides (im with re's strides);
@@ -863,12 +1070,18 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     under "fft_rows_t" too); the natural store launches csrc/fft_rows.cu
     (B6). Both run the stages in register groups and write the rows past
     the live ones as zeros themselves.
+    engine / precision: the JAX package's engine= ('roll', 'mxu', 'auto';
+    module docstring) and the mxu group product's precision; a pass
+    that resolves to mxu launches the tensor-core instance (counted under
+    "fft_rows_t_mxu_<precision>" or "fft_rows_mxu_<precision>" too).
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
-                              radices=radices, ordering=ordering)
+                              radices=radices, ordering=ordering, engine=engine,
+                              precision=precision)
     natural = _check_store(ordering, radices, transposed)
     big_m, big_n = _check_planes(re, im, extent, radices)
+    code = engine_code(engine, big_n, radices, ordering, precision)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
     # both kernels write the rows past the live ones (zeros) themselves
@@ -882,10 +1095,10 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     args = (re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes,
             0 if im is None else im.shape[0], min(m, big_m), min(n, big_n), big_m, big_n)
     if transposed:
-        _launch_t(*args, out_re, out_im, inverse, radices)
+        _launch_t(*args, out_re, out_im, inverse, radices, code)
     else:
         _launch(*args, out_re.data_ptr(), out_im.data_ptr(), big_m * big_n, None, inverse,
-                radices, natural)
+                radices, natural, code)
     return out_re, out_im
 
 
@@ -913,14 +1126,15 @@ def stack_pairs_plain(stack):
     return planes[0::2], planes[1::2]
 
 
-def fft_rows_stack_plain(stack, *, extent, radices=()):
+def fft_rows_stack_plain(stack, *, extent, radices=(), engine="roll", precision="default"):
     """Plain version of `fft_rows_stack` (same signature and layout)."""
     big_m, big_n = _check_stack(stack, extent, radices)
     re, im = stack_pairs_plain(stack)
-    return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n), radices=radices)
+    return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n), radices=radices,
+                          engine=engine, precision=precision)
 
 
-def fft_rows_stack(stack, *, extent, radices=()):
+def fft_rows_stack(stack, *, extent, radices=(), engine="roll", precision="default"):
     """Forward row FFT of a (B, h, w, C) uint8/float32 image stack of any
     strides, channel pairs packed across images (B1, stack loader).
 
@@ -930,11 +1144,14 @@ def fft_rows_stack(stack, *, extent, radices=()):
     transform size (rows >= h and columns >= w are zero; only live rows
     are transformed). Returns float32 (re, im) of shape (ceil(B*C/2), N,
     M), transposed, bit-reversed along N, as `fft_rows(...,
-    transposed=True)` gives for the same planes (radices as there).
+    transposed=True)` gives for the same planes (radices, engine and
+    precision as there).
     """
     if not on_cuda(stack):
-        return fft_rows_stack_plain(stack, extent=extent, radices=radices)
+        return fft_rows_stack_plain(stack, extent=extent, radices=radices, engine=engine,
+                                    precision=precision)
     big_m, big_n = _check_stack(stack, extent, radices)
+    code = engine_code(engine, big_n, radices, "revorder", precision)
     b, h, w, c = stack.shape
     n_planes = b * c
     pairs = -(-n_planes // 2)
@@ -942,16 +1159,17 @@ def fft_rows_stack(stack, *, extent, radices=()):
     out_im = torch.empty((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
     bs, rs, cs, chs = stack.stride()
     _launch_t(stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
-              h, w, big_m, big_n, out_re, out_im, False, radices)
+              h, w, big_m, big_n, out_re, out_im, False, radices, code)
     return out_re, out_im
 
 
-def fft_rows_packed_out_plain(re, im, *, inverse=True, radices=()):
+def fft_rows_packed_out_plain(re, im, *, inverse=True, radices=(), engine="roll",
+                              precision="default"):
     """Plain version of `fft_rows_packed_out`."""
     _check_contiguous_pair(re, im, radices)
     planes, big_m, big_n = re.shape
     rows = rows_per_block(big_n, big_m)
-    x_re, x_im = run_stages(re, im, inverse, radices)
+    x_re, x_im = run_stages(re, im, inverse, radices, False, engine, precision)
     out = torch.stack([x_re, x_im], dim=1).reshape(2 * planes, big_m, big_n)
     blk_re = x_re.reshape(planes, big_m // rows, rows * big_n)
     blk_im = x_im.reshape(planes, big_m // rows, rows * big_n)
@@ -974,18 +1192,22 @@ def _check_contiguous_pair(re, im, radices):
         raise ValueError(f"plane height {m} must be a multiple of the row block")
 
 
-def fft_rows_packed_out(re, im, *, inverse=True, radices=()):
+def fft_rows_packed_out(re, im, *, inverse=True, radices=(), engine="roll", precision="default"):
     """Row FFT of contiguous float32 (P, M, N) planes that writes ONE
     (2P, M, N) output, re at plane 2p and im at plane 2p+1 (the channel
     unpack of a packed-pair restore), plus [min_re, max_re, min_im,
     max_im] partials, one per rows_per_block(N, M) rows, of shape
     (P * M / rows_per_block(N, M), 4), row-block-major within each plane
     (B3, csrc/fft_rows.cu: the last stage group stores both planes and
-    folds the min/max from registers). radices as in `fft_rows`.
+    folds the min/max from registers). radices, engine and precision as
+    in `fft_rows` (an mxu pass counted under
+    "fft_rows_packed_out_mxu_<precision>" too).
     """
     if not on_cuda(re, im):
-        return fft_rows_packed_out_plain(re, im, inverse=inverse, radices=radices)
+        return fft_rows_packed_out_plain(re, im, inverse=inverse, radices=radices, engine=engine,
+                                         precision=precision)
     _check_contiguous_pair(re, im, radices)
+    code = engine_code(engine, re.shape[-1], radices, "revorder", precision)
     planes, big_m, big_n = re.shape
     rows = rows_per_block(big_n, big_m)
     out = torch.empty((2 * planes, big_m, big_n), dtype=torch.float32, device=re.device)
@@ -994,7 +1216,7 @@ def fft_rows_packed_out(re, im, *, inverse=True, radices=()):
     plane = big_m * big_n
     _launch(re, im, PlaneMap(ps, 0, 1, 1, 0, rs, cs), planes, planes, big_m, big_n,
             big_m, big_n, out.data_ptr(), out.data_ptr() + 4 * plane, 2 * plane, mm, inverse,
-            radices)
+            radices, False, code)
     return out, mm
 
 
@@ -1013,31 +1235,34 @@ class PlaneMap(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def _r_launch_args(big_n, radices, big_m, inverse, natural, packed, device) -> tuple:
+def _r_launch_args(big_n, radices, big_m, inverse, natural, packed, device, code=0) -> tuple:
     """The arguments of one fft_rows launch that depend on its shape only
-    (the plan, the table and cross-level pointers), worked out once per
-    shape, as _t_launch_args. The plan array stays alive in the cache."""
-    plan = r_plan(big_n, radices, big_m, inverse, natural, packed=packed)
+    (the plan, the table, cross-level and fragment pointers), worked out
+    once per shape and engine code, as _t_launch_args. The plan array
+    stays alive in the cache."""
+    plan = r_plan(big_n, radices, big_m, inverse, natural, packed=packed, mxu=bool(code))
     t = tables(big_n, inverse, device, radices)
     c_plan = plan.c_plan()
     lpg = rows_per_block(big_n, big_m).bit_length() - 1  # rows of a min/max partial
     return ((plan.logq, plan.lr, plan.rs, plan.threads), lpg,
             (int(inverse), int(natural), t.cos.data_ptr(), t.sin.data_ptr(), c_plan.ctypes.data,
-             *cross_args(big_n, radices, inverse, device)), c_plan)
+             *cross_args(big_n, radices, inverse, device), code,
+             dft_pointer(code, inverse, device)), c_plan)
 
 
 def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, out_re,
-            out_im, out_pair, mm, inverse, radices, natural=False):
+            out_im, out_pair, mm, inverse, radices, natural=False, code=0):
     """One fft_rows launch (B3, B6: the row-major stores) over re_live
     pairs (every re plane is live; the first im_live im planes are), with
     r_plan's stage groups: pair p's output planes at the device pointers
     out_re and out_im plus p * out_pair floats; mm: B3's min/max partials
-    (a tensor) or None; natural: the natural-order instance."""
+    (a tensor) or None; natural: the natural-order instance; code: the
+    engine (engine_code)."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     radices = tuple(radices)
     geometry, lpg, consts, _ = _r_launch_args(big_n, radices, big_m, bool(inverse),
-                                              bool(natural), mm is not None, re.device)
+                                              bool(natural), mm is not None, re.device, code)
     err = _build.load().fft_rows_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
         int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
@@ -1052,6 +1277,8 @@ def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, 
         launch_counts["mixed_radix"] += 1
     if natural:
         launch_counts["fft_rows_natural"] += 1
+    if code:
+        count_mxu("fft_rows" if mm is None else "fft_rows_packed_out", code)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1060,28 +1287,36 @@ def _sm_count(device) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _t_launch_args(big_n, radices, big_m, inverse, device, pairs) -> tuple:
+def _t_launch_args(big_n, radices, big_m, inverse, device, pairs, code=0) -> tuple:
     """The arguments of one fft_rows_t launch that depend on its shape
-    only (the plan, the table and cross-level pointers), worked out once
-    per shape: a restore enqueues a handful of launches a frame and is
-    near host-bound. The plan array stays alive in the cache."""
-    plan = t_plan(big_n, radices, big_m, inverse, -(-_sm_count(device) * T_MIN_WAVES // pairs))
+    only (the plan, the table, cross-level and fragment pointers), worked
+    out once per shape and engine code: a restore enqueues a handful of
+    launches a frame and is near host-bound. The plan array stays alive
+    in the cache."""
+    plan = t_plan(big_n, radices, big_m, inverse, -(-_sm_count(device) * T_MIN_WAVES // pairs),
+                  mxu=bool(code))
     t = tables(big_n, inverse, device, radices)
     c_plan = plan.c_plan()
     return ((plan.logq, plan.lr, plan.rs, plan.threads), int(inverse), t.cos.data_ptr(),
             t.sin.data_ptr(), c_plan.ctypes.data, *cross_args(big_n, radices, inverse, device),
-            c_plan)
+            code, dft_pointer(code, inverse, device), c_plan)
+
+
+def count_mxu(name: str, code: int) -> None:
+    """Count a tensor-core launch of kernel `name` under
+    "<name>_mxu_<precision>"."""
+    launch_counts[f"{name}_mxu_{MXU_PRECISIONS[code - 1]}"] += 1
 
 
 def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, out_re,
-              out_im, inverse, radices):
+              out_im, inverse, radices, code=0):
     """One fft_rows_t launch (B1, the transposed store) over re_live
-    pairs, with t_plan's stage groups."""
+    pairs, with t_plan's stage groups; code: the engine (engine_code)."""
     from fft_restoration_tpu_torch.ops.kernels import _build
 
     radices = tuple(radices)
     geometry, *consts, _ = _t_launch_args(big_n, radices, big_m, bool(inverse), re.device,
-                                          re_live)
+                                          re_live, code)
     err = _build.load().fft_rows_t_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
         int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
@@ -1095,6 +1330,8 @@ def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n
     launch_counts["fft_rows_t"] += 1
     if radices:
         launch_counts["mixed_radix"] += 1
+    if code:
+        count_mxu("fft_rows_t", code)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from fft_restoration_tpu_torch.models.pipeline import (
     pack_channel_pairs,
     pad_extents,
     unpack_channel_pairs,
+    with_engine,
 )
 from fft_restoration_tpu_torch.ops.color import (
     bgr_to_lab_planar,
@@ -320,12 +321,16 @@ def gather_rows(blocks, rows: int) -> torch.Tensor:
 
 def sharded_restore_planes(channels, psf, K: float = 0.01, mesh=None,
                            fft_backend: str = KERNEL_BACKEND, filter_name: str = "wiener",
-                           radices_hw=((), ()), ops=KERNEL_OPS) -> np.ndarray:
+                           radices_hw=((), ()), ops=KERNEL_OPS, fft_engine=None,
+                           mxu_precision=None) -> np.ndarray:
     """Restore (C, Hp, Wp) pow2 (or, with radices_hw, smooth) planes with
     an (S, S) PSF on a rows mesh; returns normalized (C, Hp, Wp) numpy
     planes. On a mesh whose size does not divide (Hp, Wp) the layout is
     padded and cropped back; the transforms run at (Hp, Wp). mesh:
-    default make_mesh() (one shard a card)."""
+    default make_mesh() (one shard a card). fft_engine, mxu_precision:
+    `ops` at that engine (models.pipeline.with_engine): each shard's B6
+    passes take it."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     mesh = mesh or make_mesh()
     ch = _to_tensor(channels)
     c, hp, wp = ch.shape
@@ -339,7 +344,8 @@ def sharded_batched_restore_planes(imgs, psf, K: float = 0.01, mesh=None,
                                    fft_backend: str = KERNEL_BACKEND, filter_name: str = "wiener",
                                    radices_hw=((), ()), edgetaper: bool = False,
                                    rl_iters: int = 10, normalize: bool = True, live_hw=None,
-                                   ops=KERNEL_OPS) -> np.ndarray:
+                                   ops=KERNEL_OPS, fft_engine=None,
+                                   mxu_precision=None) -> np.ndarray:
     """Batch-and-row-sharded restore over a 2D (batch, rows) mesh (a rows
     mesh is its n_batch = 1 case). imgs: (B, C, Hp, Wp) float32 planes
     (uint8 converted x / 255), one shared (S, S) PSF. Images are
@@ -350,6 +356,7 @@ def sharded_batched_restore_planes(imgs, psf, K: float = 0.01, mesh=None,
     stitches those); 'rl' clipped to [0, 1]. edgetaper: each frame
     tapered toward its circular blur first, live_hw = (h, w) the live
     image the window is built for (default the whole plane)."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     mesh = mesh or make_mesh()
     x = _to_tensor(imgs)
     b, c, hp, wp = x.shape
@@ -439,13 +446,16 @@ def sharded_batched_restore_images(stack_u8, psf, K: float = 0.01, mesh=None, *,
                                    fft_backend: str = KERNEL_BACKEND, filter_name: str = "wiener",
                                    pad_hw=None, radices_hw=((), ()), edgetaper: bool = False,
                                    rl_iters: int = 10, white_balance: bool = True,
-                                   ops=KERNEL_OPS) -> np.ndarray:
+                                   ops=KERNEL_OPS, fft_engine=None,
+                                   mxu_precision=None) -> np.ndarray:
     """(B, H, W, 3) uint8 -> (B, H, W, 3) uint8 numpy on a 2D (batch,
     rows) mesh, the whole pipeline: pad, (taper,) sharded restore, crop,
     per-frame Lab white balance, uint8 encode. The batch is padded with
     copies of its last frame to a multiple of the batch axis. pad_hw: the
     DFT extents (Hp, Wp), default the pow2 ones; radices_hw their
-    mixed-radix levels at smooth extents."""
+    mixed-radix levels at smooth extents. fft_engine, mxu_precision:
+    `ops` at that engine (models.pipeline.with_engine)."""
+    ops = with_engine(ops, fft_engine, mxu_precision)
     mesh = mesh or make_mesh()
     stack = _to_tensor(np.asarray(stack_u8, np.uint8))
     b, h, w = stack.shape[:3]
@@ -472,7 +482,8 @@ def profile_phases_sharded(img_bgr, psf_length: int, psf_angle: float, K: float 
     exchanges a transform; 'pallas' is B6 natural) on the three unpacked
     channel planes and the PSF, the Wiener filter, the inverse, the
     cross-shard min-max. Pow2 extents, which the rows axis must divide.
-    Returns (restored (3, H, W) numpy planes, PhaseProfiler)."""
+    Returns (restored (3, H, W) numpy planes, PhaseProfiler). It takes no
+    engine: its passes are natural-order, which run the roll engine."""
     from fft_restoration_tpu_torch.utils.timing import PhaseProfiler, _block
 
     mesh = mesh or make_mesh()
@@ -529,13 +540,16 @@ class ShardedWienerPipeline:
     revorder, the kernels; JAX's default is 'matmul') or another backend
     of ops/fft.py. filter_name, white_balance, pad_mode, edgetaper,
     rl_iters and psf_type as in WienerDeblurPipeline. ops: KERNEL_OPS, or
-    PLAIN_OPS for the plain run on the card. There is no fft_engine: the
-    port's spectra are in the roll engine's order."""
+    PLAIN_OPS for the plain run on the card; fft_engine ('roll' or 'mxu')
+    and mxu_precision: `ops` at that engine (each shard's B6 passes; the
+    PSF spectrum is made on every run, as in JAX, with the same ops)."""
 
     def __init__(self, mesh=None, fft_backend: str = KERNEL_BACKEND,
                  filter_name: str = "wiener", white_balance: bool = True,
                  pad_mode: str = "pow2", edgetaper: bool = False, rl_iters: int = 10,
-                 psf_type="motion", device="cuda", ops=KERNEL_OPS):
+                 psf_type="motion", device="cuda", ops=KERNEL_OPS, fft_engine=None,
+                 mxu_precision=None):
+        ops = with_engine(ops, fft_engine, mxu_precision)
         self.mesh = mesh or make_mesh(device=device)
         _check(self.mesh, fft_backend, filter_name)
         pad_extents(1, 1, pad_mode)  # raises for an unknown mode

@@ -37,10 +37,15 @@ within --batch-wait-ms and runs a group as one BatchedWienerPipeline
 stack, padded to a power-of-two count by repeating its last frame; a
 group of one takes the single-frame pipeline.
 
+--fft-engine (roll, mxu) and --mxu-precision (default, highest) are the
+JAX server's: every pipeline the service builds, the tiled route and the
+warm-up take them (the per-option pipelines each keep their spectra).
+
 Differences from the JAX server: --device (default cuda; there is no CPU
-fallback), --fft-engine and --mxu-precision are refused (ROADMAP.md A3,
-A5), and blind estimation runs on --backend as given (JAX sends
-'pallas' to 'matmul', a TPU compile-time choice; ROADMAP.md C).
+fallback), --fft-engine defaults to roll (JAX: mxu, the faster engine on
+the TPU; which is faster on the H100 is a benchmark cell's question,
+ROADMAP.md C), and blind estimation runs on --backend as given (JAX
+sends 'pallas' to 'matmul', a TPU compile-time choice; ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -56,7 +61,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
-from fft_restoration_tpu_torch.cli import _NotPorted
+from fft_restoration_tpu_torch.ops.kernels.fft_kernel import ENGINE_CHOICES, MXU_PRECISIONS
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
 DEFAULT_OPTS = ("wiener", 10, False, "motion")  # (filter, rl_iters, edgetaper, psf_type)
@@ -114,8 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="frame geometries (HEIGHTxWIDTH) to run once at startup, single frame "
         "and batch of 2; 'HxW@tileN' runs the tiled restore of that frame shape",
     )
-    for flag in ("--fft-engine", "--mxu-precision"):  # refused: NOT_PORTED's items
-        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--fft-engine", choices=ENGINE_CHOICES, default="roll",
+        help="butterfly engine inside the kernels: 'roll' (default) or 'mxu' (the "
+        "tensor-core group DFT; the JAX server's default)",
+    )
+    p.add_argument(
+        "--mxu-precision", choices=MXU_PRECISIONS, default="default",
+        help="mxu group-DFT precision: 'default' (one bf16 pass, gpu-tier parity) or "
+        "'highest' (3xTF32, float32's accuracy)",
+    )
     return p
 
 
@@ -331,6 +344,7 @@ class RestorationService:
             from fft_restoration_tpu_torch.ops.kernels import _build
 
             _build.load()
+        self.engine = dict(fft_engine=args.fft_engine, mxu_precision=args.mxu_precision)
         self._pipes = {}
         self._batcheds = {}
         self.pipe = self.pipe_for(DEFAULT_OPTS)
@@ -359,7 +373,8 @@ class RestorationService:
                     white_balance=not self.args.no_white_balance,
                     emit_planes=False,  # the serving graph: uint8 out, no float planes
                     pad_mode=self.args.pad, rl_iters=iters, edgetaper=taper,
-                    wb_stats_stride=self.args.wb_stride, psf_type=ptype)
+                    wb_stats_stride=self.args.wb_stride, psf_type=ptype,
+                    **self.engine)
 
     def _evict(self, cache):
         if len(cache) >= self._MAX_OPT_PIPES:
@@ -433,7 +448,8 @@ class RestorationService:
                     tiled_restore_image(
                         frame, self.args.psf_length, self.args.psf_angle, self.args.K,
                         tile=tile, fft_backend=self.args.backend,
-                        white_balance=not self.args.no_white_balance, device=self.device)
+                        white_balance=not self.args.no_white_balance, device=self.device,
+                        **self.engine)
                     self._note_shape("tiled", (h, w))
                 print(f"[serve] warmed H={h} W={w} tile={tile} in "
                       f"{time.perf_counter() - t0:.1f}s", file=sys.stderr)
@@ -498,7 +514,7 @@ class RestorationService:
                     img, length, angle, K, tile=tile, overlap=tile_overlap,
                     fft_backend=self.args.backend, filter_name=f, rl_iters=iters,
                     psf_type=ptype, white_balance=not self.args.no_white_balance,
-                    device=self.device)
+                    device=self.device, **self.engine)
                 self.n_served += 1
                 self._note_shape("tiled", img.shape)
         else:
@@ -520,6 +536,7 @@ class RestorationService:
         return {
             "status": "ok",
             "backend": self.args.backend,
+            **self.engine,
             "device": self.device_str,
             "compiled_shapes": self.shapes("single"),
             "tiled_shapes": self.shapes("tiled"),

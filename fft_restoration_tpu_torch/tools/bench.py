@@ -1,7 +1,7 @@
 """The port's twin of the root bench.py and bench_extended.py, on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.bench [--config NAME|all] [--backend B]
-        [--seed N] [--no-oracle]
+        [--seed N] [--no-oracle] [--fft-engine roll|mxu] [--mxu-precision default|highest]
 
 Without --config, bench.py's headline: the 2048x2048x3 Wiener restore at
 PSF(50, 30 deg), K = 0.01, serving graph (emit_planes=False) with
@@ -51,7 +51,10 @@ one-run device trace. --config all runs every config, in
 bench_extended.py's order.
 
 --backend takes any of ops/fft.py's backends ('pallas', the kernels, by
-default). Exits non-zero without a GPU: there is no CPU fallback.
+default). --fft-engine and --mxu-precision are the pipelines' (roll and
+default by default; 'mxu' runs the tensor-core group DFT), so a cell can
+time either engine; the output keys do not change. Exits non-zero
+without a GPU: there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -227,7 +230,8 @@ def tiled_record(name: str, *, backend: str, rounds_ms: list, trace, device: dic
 
 
 def run_tiled(torch, np, name: str, *, backend: str = "pallas", seed: int = 0,
-              device: dict | None = None) -> dict:
+              device: dict | None = None, fft_engine: str = "roll",
+              mxu_precision: str = "default") -> dict:
     """The tiled config on the card; returns tiled_record's line."""
     from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
     from fft_restoration_tpu_torch.utils.trace_profile import device_trace
@@ -236,7 +240,8 @@ def run_tiled(torch, np, name: str, *, backend: str = "pallas", seed: int = 0,
     img = noise_frames(np, (h, w, 3), seed)
 
     def fn():
-        return tiled_restore_image(img, length, angle, K, tile=tile, fft_backend=backend)
+        return tiled_restore_image(img, length, angle, K, tile=tile, fft_backend=backend,
+                                   fft_engine=fft_engine, mxu_precision=mxu_precision)
 
     fn()  # warm: the kernels' build, the PSF spectrum
     rounds = []
@@ -262,14 +267,16 @@ def oracle_ms(np, img) -> float:
 
 
 def run_headline(torch, np, *, backend: str = "pallas", seed: int = 0, oracle: bool = True,
-                 device: dict | None = None) -> dict:
+                 device: dict | None = None, fft_engine: str = "roll",
+                 mxu_precision: str = "default") -> dict:
     """bench.py's measurement on the card; returns headline_record's line."""
     from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
     img = noise_frames(np, (H, W, 3), seed)
     pipe = WienerDeblurPipeline("cuda", fft_backend=backend, emit_planes=False,
-                                wb_stats_stride=4)
+                                wb_stats_stride=4, fft_engine=fft_engine,
+                                mxu_precision=mxu_precision)
     x = pipe.to_device(img)
 
     def fn():
@@ -283,21 +290,23 @@ def run_headline(torch, np, *, backend: str = "pallas", seed: int = 0, oracle: b
 
 
 def run_config(torch, np, name: str, *, backend: str = "pallas", seed: int = 0,
-               device: dict | None = None) -> dict:
+               device: dict | None = None, fft_engine: str = "roll",
+               mxu_precision: str = "default") -> dict:
     """One bench_extended.py config on the card; returns config_record's line."""
     from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
     from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
     cfg = CONFIGS[name]
     h, w = cfg.hw
+    eng = dict(fft_engine=fft_engine, mxu_precision=mxu_precision)
     if cfg.frames is None:
         frame = (blurred_frame(np, h, w, seed, cfg.psf, cfg.angle) if cfg.source == "blurred"
                  else noise_frames(np, (h, w, 3), seed))
-        pipe = WienerDeblurPipeline("cuda", fft_backend=backend, pad_mode=cfg.pad)
+        pipe = WienerDeblurPipeline("cuda", fft_backend=backend, pad_mode=cfg.pad, **eng)
         # bench_extended.py's single configs take float32 frames in [0, 1]
         x = torch.from_numpy(frame.astype(np.float32) / np.float32(255.0)).to(pipe.device)
     else:
-        pipe = BatchedWienerPipeline("cuda", fft_backend=backend, pad_mode=cfg.pad)
+        pipe = BatchedWienerPipeline("cuda", fft_backend=backend, pad_mode=cfg.pad, **eng)
         x = pipe.to_device(noise_frames(np, (cfg.frames, h, w, 3), seed))
 
     def fn():
@@ -310,12 +319,15 @@ def run_config(torch, np, name: str, *, backend: str = "pallas", seed: int = 0,
 
 
 def main(argv=None) -> int:
+    from fft_restoration_tpu_torch.ops.kernels.fft_kernel import ENGINE_CHOICES, MXU_PRECISIONS
     from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=ORDER + ("all",), default=None,
                     help="a bench_extended.py config, or all of them (default: the headline)")
     ap.add_argument("--backend", choices=FFT_BACKENDS, default="pallas")
+    ap.add_argument("--fft-engine", choices=ENGINE_CHOICES, default="roll")
+    ap.add_argument("--mxu-precision", choices=MXU_PRECISIONS, default="default")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-oracle", action="store_true",
                     help="skip the serial oracle (vs_baseline then reads 'not measured')")
@@ -329,9 +341,10 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     device = card()
+    eng = dict(fft_engine=args.fft_engine, mxu_precision=args.mxu_precision)
     if args.config is None:
         rec = run_headline(torch, np, backend=args.backend, seed=args.seed,
-                           oracle=not args.no_oracle, device=device)
+                           oracle=not args.no_oracle, device=device, **eng)
         print(f"2048x2048x3 Wiener deblur: {rec['event_ms_per_frame']:.4f} ms/frame (events) "
               f"on {device['name']} ({device['power_limit']}), device busy "
               f"{rec['device_ms_per_frame']} ms/frame", file=sys.stderr)
@@ -340,7 +353,7 @@ def main(argv=None) -> int:
     for name in ORDER if args.config == "all" else (args.config,):
         run = run_tiled if name in TILED else run_config
         print(json.dumps(run(torch, np, name, backend=args.backend, seed=args.seed,
-                             device=device)), flush=True)
+                             device=device, **eng)), flush=True)
     return 0
 
 

@@ -33,7 +33,8 @@ white-balance pair and B11 on (96, 256, 256), launches about as short
 as their wrappers' host time, are also timed in a CUDA graph
 (`<mode>_graph`) and on the host clock (`<mode>_host_us`, one wrapper
 call). --sass: also
-compares the two builds' machine code (cuobjdump -sass) function by function and names the kernel
+compares the two builds' machine code (cuobjdump -sass) function by function (branch labels
+numbered again within each function: the object file numbers them across its functions) and names the kernel
 instances whose code differs; an instance in one build only whose code is that of an instance
 in the other build only (a template argument renamed) is reported as renamed, not as differing. Uses only functions both checkouts have.
 Prints one line per mode and path and a JSON object last; exits non-zero
@@ -243,7 +244,13 @@ def _sass(root: Path) -> dict:
     funcs = {}
     for part in re.split(r"\n\s*Function : ", out)[1:]:
         name, _, body = part.partition("\n")
-        funcs[name.strip()] = body.split("\n\t\t.....")[0]
+        body = body.split("\n\t\t.....")[0]
+        # branch labels (.L_x_N) are numbered across the whole object file,
+        # so a kernel added before another renumbers the other's: number
+        # them again within the function, in order of appearance
+        labels = {}
+        funcs[name.strip()] = re.sub(
+            r"\.L_x_\d+", lambda m: labels.setdefault(m.group(0), f".L_{len(labels)}"), body)
     return funcs
 
 

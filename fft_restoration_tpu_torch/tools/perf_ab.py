@@ -1,9 +1,10 @@
 """Same-process interleaved A/B experiments on one NVIDIA GPU.
 
-    python -m fft_restoration_tpu_torch.tools.perf_ab [radix4] [megakernel] [--iters N] [--seed N]
+    python -m fft_restoration_tpu_torch.tools.perf_ab [radix4] [megakernel] [engine] [megamxu]
+        [precision] [--iters N] [--seed N]
 
-Counterpart of the JAX package's tools/perf_ab.py, for the two of its
-experiments that launch kernels of the port (no argument runs both):
+Counterpart of the JAX package's tools/perf_ab.py, for the five of its
+experiments that launch kernels of the port (no argument runs them all):
 
   radix4      B12 (`fft_rows_radix4_fwd`, radix-4 stages and a radix-2
               tail) against B6's revorder forward pass (`fft_rows`, eleven
@@ -15,6 +16,19 @@ experiments that launch kernels of the port (no argument runs both):
               (`fwd_wiener_rows`) followed by B6's inverse revorder pass,
               on (3, 2048, 2048) planes and a (2048, 2048) spectrum
               (perf_ab.py:468-505).
+  engine      the whole restore at fft_engine="mxu" (group DFTs at
+              'default', the JAX flagship) against "roll" (perf_ab.py:
+              325-334).
+  megamxu     at mxu, the fused middle (B2) against the B7 + inverse-T
+              pair the pipeline takes below its gate, forced at 2048 by
+              raising models.pipeline.FUSED_MIDDLE_MIN_N (perf_ab.py:
+              130-150).
+  precision   at mxu, mxu_precision 'highest' (3xTF32) against 'default'
+              (one bf16 pass) (perf_ab.py:152-190).
+The last three restore bench.py's 2048x2048x3 noise frame from --seed
+through WienerDeblurPipeline.run (the serving graph, wb_stats_stride 4,
+PSF(50, 30 deg), K = 0.01) and print the uint8 max abs difference of
+the two variants, as the JAX experiments do.
 
 Each variant is timed with CUDA events over `--iters` back-to-back
 launches (the median of three such loops), in one process, in turns:
@@ -25,9 +39,10 @@ output permutation for the row passes, B7 + B6 for B10. Prints one line
 per measurement and a JSON object last. Exits non-zero without a GPU.
 
 The JAX harness's other experiments measure TPU or Mosaic choices
-(select, realout, twrite, engine, megamxu, precision, donate) or options
-the port has not ported (stage, smoothpad's TPU alignment, features,
-batchwb); ROADMAP.md A15 lists each with its reason.
+(select, realout, twrite, donate) or options the port has not ported
+(stage, which waits for bf16 staging, ROADMAP.md A16; smoothpad's TPU
+alignment, features, batchwb); ROADMAP.md A15 lists each with its
+reason.
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ import argparse
 import json
 import sys
 
-EXPERIMENTS = ("radix4", "megakernel")
+EXPERIMENTS = ("radix4", "megakernel", "engine", "megamxu", "precision")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 N = 2048
 ROWS = 3 * N                 # radix4: the three channels of a 2048^2 frame as rows
@@ -135,6 +150,72 @@ def megakernel(torch, np, iters: int, seed: int = 0) -> dict:
     return res
 
 
+def _restore_fn(torch, frame, **kw):
+    """A queued restore of `frame` (bench.py's serving graph) with the
+    pipeline options kw; returns the uint8 device frame."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    pipe = WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=4, **kw)
+    x = pipe.to_device(frame)
+    return lambda: pipe.run(x, 50, 30.0, 0.01)[0]
+
+
+def _u8_diff(a, b) -> int:
+    return int((a.int() - b.int()).abs().max())
+
+
+def _frame(np, seed: int):
+    return (np.random.default_rng(seed).random((N, N, 3)) * 255).astype(np.uint8)
+
+
+def _pair(torch, name: str, label_a: str, fa, label_b: str, fb, iters: int) -> dict:
+    """A, B, A turns of two restores and their uint8 parity."""
+    diff = _u8_diff(fa(), fb())
+    t = [time_ms(torch, fn, iters) for fn in (fa, fb, fa)]
+    res = {f"{label_a}_ms": [t[0], t[2]], f"{label_b}_ms": t[1],
+           f"{label_b}_over_{label_a}": t[1] / ((t[0] + t[2]) / 2), "uint8_max_diff": diff}
+    print(f"{name} ({N}x{N}x3 restore): {label_a} {t[0]:.4f} / {t[2]:.4f} ms, {label_b} "
+          f"{t[1]:.4f} ms, {label_b} / {label_a} {res[f'{label_b}_over_{label_a}']:.3f}; "
+          f"uint8 max abs diff {diff}", flush=True)
+    return res
+
+
+def engine(torch, np, iters: int, seed: int = 0) -> dict:
+    """The restore at mxu ('default') against roll."""
+    frame = _frame(np, seed)
+    return _pair(torch, "engine", "roll", _restore_fn(torch, frame),
+                 "mxu", _restore_fn(torch, frame, fft_engine="mxu", mxu_precision="default"),
+                 iters)
+
+
+def megamxu(torch, np, iters: int, seed: int = 0) -> dict:
+    """At mxu ('default'), the fused middle B2 against B7 + the inverse-T pass."""
+    from fft_restoration_tpu_torch.models import pipeline as pl
+
+    frame = _frame(np, seed)
+    fused = _restore_fn(torch, frame, fft_engine="mxu", mxu_precision="default")
+    pair_fn = _restore_fn(torch, frame, fft_engine="mxu", mxu_precision="default")
+    gate = pl.FUSED_MIDDLE_MIN_N
+
+    def pair():
+        pl.FUSED_MIDDLE_MIN_N = 1 << 30  # below the gate: B7, then the inverse-T pass
+        try:
+            return pair_fn()
+        finally:
+            pl.FUSED_MIDDLE_MIN_N = gate
+
+    return _pair(torch, "megamxu", "fused", fused, "pair", pair, iters)
+
+
+def precision(torch, np, iters: int, seed: int = 0) -> dict:
+    """At mxu, 'default' (bf16) against 'highest' (3xTF32)."""
+    frame = _frame(np, seed)
+    return _pair(torch, "precision", "highest",
+                 _restore_fn(torch, frame, fft_engine="mxu", mxu_precision="highest"),
+                 "default", _restore_fn(torch, frame, fft_engine="mxu", mxu_precision="default"),
+                 iters)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("experiments", nargs="*", help=f"any of {', '.join(EXPERIMENTS)} (all)")
@@ -154,7 +235,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
-    fns = {"radix4": radix4, "megakernel": megakernel}
+    fns = {"radix4": radix4, "megakernel": megakernel, "engine": engine, "megamxu": megamxu,
+           "precision": precision}
     out = {name: fns[name](torch, np, args.iters, args.seed) for name in which}
     print(json.dumps(out))
     return 0

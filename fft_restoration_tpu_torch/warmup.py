@@ -15,6 +15,10 @@ frame is `782x1920`.
     python -m fft_restoration_tpu_torch.warmup 2048x2048 782x1920 --psf-length 50
     python -m fft_restoration_tpu_torch.warmup 16x32 --device cpu   # the plain versions
     python -m fft_restoration_tpu_torch.warmup 2048x2048 --sharded 4   # + the 4-shard mesh
+    python -m fft_restoration_tpu_torch.warmup 2048x2048 --fft-engine mxu   # the tensor-core engine
+
+--fft-engine and --mxu-precision are the server's (serve.py), so a
+warm-up restores at the engine the server will run.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import argparse
 import sys
 import time
 
+from fft_restoration_tpu_torch.ops.kernels.fft_kernel import ENGINE_CHOICES, MXU_PRECISIONS
 from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS
 
 
@@ -47,6 +52,10 @@ def main(argv=None) -> int:
         "--sharded", type=int, default=0, metavar="N",
         help="also warm the N-shard sharded pipeline (parallel/: make_mesh(N))",
     )
+    p.add_argument("--fft-engine", choices=ENGINE_CHOICES, default="roll",
+                   help="butterfly engine of the kernels: 'roll' (default) or 'mxu'")
+    p.add_argument("--mxu-precision", choices=MXU_PRECISIONS, default="default",
+                   help="mxu group-DFT precision: 'default' (bf16) or 'highest' (3xTF32)")
     args = p.parse_args(argv)
     if args.sharded < 0:
         p.error(f"--sharded must be >= 0, got {args.sharded}")
@@ -57,7 +66,8 @@ def main(argv=None) -> int:
 
     try:
         pipe = WienerDeblurPipeline(args.device, fft_backend=args.backend,
-                                    filter_name=args.filter)
+                                    filter_name=args.filter, fft_engine=args.fft_engine,
+                                    mxu_precision=args.mxu_precision)
     except (RuntimeError, ValueError) as e:
         print(f"[Error] {e}")
         return 2
@@ -66,7 +76,9 @@ def main(argv=None) -> int:
         from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh
 
         sharded = ShardedWienerPipeline(mesh=make_mesh(args.sharded, device=pipe.device),
-                                        fft_backend=args.backend, filter_name=args.filter)
+                                        fft_backend=args.backend, filter_name=args.filter,
+                                        fft_engine=args.fft_engine,
+                                        mxu_precision=args.mxu_precision)
     if pipe.device.type == "cuda" and args.backend == KERNEL_BACKEND:
         from fft_restoration_tpu_torch.ops.kernels import _build
 

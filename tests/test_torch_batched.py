@@ -203,7 +203,7 @@ def test_batched_options_not_ported_raise():
     smooth = BatchedWienerPipeline("cpu", pad_mode="smooth")  # ported: 64x300 at 64x384
     out = smooth.restore(_stack(2, 64, 300, 2), L, ANGLE, K)
     assert out.shape == (2, 64, 300, 3) and out.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(NotImplementedError, match="A16"):  # bf16 staging, the next slice
         BatchedWienerPipeline("cpu", stage_dtype="bf16")
     with pytest.raises(ValueError):
         BatchedWienerPipeline("cpu").restore(_stack(2, 32, 32, 1)[0], 5, 0.0)

@@ -64,10 +64,13 @@ def test_bad_arguments_exit_2(blurred_png, capsys, args):
 
 
 def test_unported_flag_is_an_argparse_error(blurred_png, capsys):
+    """--stage-dtype (bf16 staging, the next slice) is the one JAX flag
+    left unported; it names its ROADMAP item."""
+    assert list(cli.NOT_PORTED) == ["--stage-dtype"]
     with pytest.raises(SystemExit) as e:
-        cli.main([str(blurred_png), "9", "30", "--fft-engine", "mxu"])
+        cli.main([str(blurred_png), "9", "30", "--stage-dtype", "bf16"])
     assert e.value.code == 2
-    assert "ROADMAP.md A3" in capsys.readouterr().err
+    assert "ROADMAP.md A16" in capsys.readouterr().err
 
 
 def test_iters_and_edgetaper_are_ported():
@@ -206,8 +209,61 @@ def test_fft_backend_restores_and_verifies(blurred_png, tmp_path, capsys, backen
 
 
 def test_fft_backend_is_ported_and_defaults_to_the_kernels():
-    assert "--fft-backend" not in cli.NOT_PORTED and "--fft-engine" in cli.NOT_PORTED
-    assert cli.build_parser().parse_args(["x.png", "9", "30"]).fft_backend == "pallas"
+    """--fft-backend and --fft-engine are ported: the kernels by default,
+    on the roll engine (the JAX CLI defaults to mxu: ROADMAP.md C);
+    --fft-engine takes the JAX CLI's choices."""
+    assert "--fft-backend" not in cli.NOT_PORTED and "--fft-engine" not in cli.NOT_PORTED
+    args = cli.build_parser().parse_args(["x.png", "9", "30"])
+    assert args.fft_backend == "pallas" and args.fft_engine == "roll"
+    assert cli.build_parser().parse_args(["x.png", "9", "30", "--fft-engine", "mxu"]).fft_engine \
+        == "mxu"
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["x.png", "9", "30", "--fft-engine", "auto"])
+
+
+@pytest.mark.parametrize("tier,precision", [("l2", "highest"), ("gpu", "default")])
+def test_fft_engine_mxu_verifies(blurred_png, tmp_path, capsys, tier, precision):
+    """--fft-engine mxu restores through the mxu pipeline at the precision
+    the tier gives and passes that tier against the oracle."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.imageio import imread
+
+    out = tmp_path / "o.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--fft-engine", "mxu",
+                   "--tier", tier, "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and f"[Success] tier={tier}" in text, text
+    assert f"fft engine mxu, group DFT precision {precision}" in text
+    ref = WienerDeblurPipeline("cpu", fft_engine="mxu", mxu_precision=precision).restore(
+        imread(str(blurred_png)), 9, 30.0)
+    assert np.array_equal(imread(str(out)), ref)
+
+
+@pytest.mark.parametrize("tier", ["l2", "inf", "gpu"])
+@pytest.mark.parametrize("pinned", [None, "default", "highest"])
+def test_mxu_precision_follows_tier_as_jax(monkeypatch, tier, pinned):
+    """Unset, --mxu-precision follows --tier as the JAX CLI sets it
+    (cli.py:697-706: l2 and inf take 'highest', gpu 'default'); pinned,
+    it is taken as given. JAX's main runs up to its set_mxu_precision."""
+    from fft_restoration_tpu import cli as jcli
+    from fft_restoration_tpu.ops.pallas import fft_kernel as jfk
+
+    class Stop(Exception):
+        pass
+
+    seen = []
+
+    def record(name):
+        seen.append(name)
+        raise Stop
+
+    monkeypatch.setattr(jcli, "_enable_compile_cache", lambda: None)
+    monkeypatch.setattr(jfk, "set_mxu_precision", record)
+    argv = ["x.png", "9", "30", "--tier", tier] + (["--mxu-precision", pinned] if pinned else [])
+    with pytest.raises(Stop):
+        jcli.main(argv)
+    args = cli.build_parser().parse_args(argv)
+    assert cli.mxu_precision_for(args.mxu_precision, args.tier) == seen[0]
 
 
 @pytest.mark.parametrize("extra,item", [(["--filter", "rl"], "A3"), (["--edgetaper"], "A3")])

@@ -875,3 +875,71 @@ def test_fft_rows_strided_u8_views(dev, gen):
                                                                 inverse=True))):
         for o, r in zip(fk.fft_rows(*args, **kw), fk.fft_rows_plain(*args, **kw)):
             assert _rel(o, r) <= 1e-5
+
+
+# The MXU engine (fft_engine="mxu", csrc/fft_group_dft.cuh): each kernel at
+# both precisions against its plain twin at the same precision. 'highest'
+# (3xTF32) 1e-5 of the output's max. 'default' (one bf16 pass) 1e-5 where
+# the group DFT reads the twin's float32 values (the bf16 units build with
+# -fmad=false, so the forward stages' values are the twin's to the bit).
+# B2's inverse group DFT rounds the forward products to bf16, and those
+# differ from the twin's in the tensor cores' accumulation order: a bin
+# beside a rounding edge takes the neighbouring bf16, which moves every
+# output of its row by 2^-8 of the bin. On these normal spectra a bin near
+# the max moves the output by ~1e-4 of its max at n = 2048 (the card read
+# 1.26e-4); MXU_BF16_REL leaves room for a few such bins.
+MXU_BF16_REL = 1e-3
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("m,n,radices", [(256, 2048, ()), (64, 256, ()), (40, 128, ()),
+                                         (48, 2304, (3, 3)), (16, 640, (5,))])
+def test_mxu_fft_kernels(dev, gen, precision, m, n, radices):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    E = dict(engine="mxu", precision=precision)
+    mid_tol = 1e-5 if precision == "highest" else MXU_BF16_REL
+    a, b, hr, hi = (torch.as_tensor(gen.standard_normal(s).astype(np.float32), device=dev)
+                    for s in ((2, m, n), (2, m, n), (m, n), (m, n)))
+    u8 = torch.as_tensor(gen.integers(0, 256, (m, n, 3), dtype=np.uint8), device=dev)
+    c = u8.permute(2, 0, 1)
+    cases = [
+        (fk.fft_rows(c[0::2], c[1::2], transposed=True, radices=radices, **E),
+         fk.fft_rows_plain(c[0::2], c[1::2], transposed=True, radices=radices, **E), 1e-5),
+        (fk.fft_rows(a, b, radices=radices, **E), fk.fft_rows_plain(a, b, radices=radices, **E),
+         1e-5),
+        (fk.fft_rows(a, b, inverse=True, transposed=True, radices=radices, **E),
+         fk.fft_rows_plain(a, b, inverse=True, transposed=True, radices=radices, **E), 1e-5),
+        (ws.fwd_wiener_rows(a, b, hr, hi, 0.01, radices, **E),
+         ws.fwd_wiener_rows_plain(a, b, hr, hi, 0.01, radices, **E), 1e-5),
+        (ws.wiener_spectral_t(a, b, hr, hi, 0.01, radices, **E),
+         ws.wiener_spectral_t_plain(a, b, hr, hi, 0.01, radices, **E), mid_tol),
+        (ws.spectral_conv_t(a, b, hr, hi, True, radices, **E),
+         ws.spectral_conv_t_plain(a, b, hr, hi, True, radices, **E), mid_tol),
+    ]
+    if m % fk.rows_per_block(n, m) == 0:
+        cases.append((fk.fft_rows_packed_out(a, b, radices=radices, **E),
+                      fk.fft_rows_packed_out_plain(a, b, radices=radices, **E), 1e-5))
+    for ours, ref, tol in cases:
+        for o, r in zip(ours, ref):
+            assert _rel(o, r) <= tol
+
+
+def test_mxu_pipeline_counts_and_tiers(dev):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    img = blur_image(np.random.default_rng(3).integers(0, 256, (330, 640, 3), dtype=np.uint8),
+                     15, 30.0)
+    oracle = restore_frame_channels(img, 15, 30.0, 0.01)
+    for precision, tier in (("highest", "inf"), ("default", "gpu")):
+        reset_launch_counts()
+        _, planes = WienerDeblurPipeline("cuda", fft_engine="mxu", mxu_precision=precision
+                                         ).restore_with_planes(img, 15, 30.0)
+        for k in ("fft_rows_t", "fft_rows", "fft_rows_packed_out", "wiener_spectral_t"):
+            assert launch_counts[f"{k}_mxu_{precision}"] >= 1, k
+        assert channels_equal(planes, oracle, tier).passed

@@ -625,15 +625,36 @@ def test_warmup_tiled_spec():
 
 def test_no_gpu_and_unported_flags_refused(monkeypatch, capsys):
     """Without a GPU the default --device cuda exits 2 naming it (no CPU
-    fallback); --fft-engine and --mxu-precision name their ROADMAP items."""
+    fallback). Named for the refusals it held: --fft-engine and
+    --mxu-precision are now ported with the JAX server's choices (engine
+    default roll, precision default 'default'); a value outside them is an
+    argparse error."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve.main(["--port", "0"]) == 2
     assert "torch.cuda.is_available() is False" in capsys.readouterr().err
-    for flag, item in (("--fft-engine", "A3"), ("--mxu-precision", "A5")):
+    args = build_parser().parse_args([])
+    assert (args.fft_engine, args.mxu_precision) == ("roll", "default")
+    args = build_parser().parse_args(["--fft-engine", "mxu", "--mxu-precision", "highest"])
+    assert (args.fft_engine, args.mxu_precision) == ("mxu", "highest")
+    for flag, value in (("--fft-engine", "auto"), ("--mxu-precision", "high")):
         with pytest.raises(SystemExit) as e:
-            build_parser().parse_args([flag, "roll"])
+            build_parser().parse_args([flag, value])
         assert e.value.code == 2
-        assert f"ROADMAP.md {item}" in capsys.readouterr().err
+
+
+def test_mxu_engine_server_restores_as_its_pipeline():
+    """A server started with --fft-engine mxu --mxu-precision highest
+    answers a request with the mxu pipeline's frame, and /healthz names
+    the engine."""
+    img = blur_image(_frame(21, 96, 160), 5, 30.0)
+    with running(BASE + ["--fft-engine", "mxu", "--mxu-precision", "highest"]) as (addr, svc):
+        status, data = _post(addr, "/restore", encode_png_bgr(img))
+        assert status == 200
+        health = _health(addr)
+    assert (health["fft_engine"], health["mxu_precision"]) == ("mxu", "highest")
+    want = _pipe(fft_engine="mxu", mxu_precision="highest").restore(img, 5, 30.0, 0.01)
+    np.testing.assert_array_equal(decode_png_bgr(data), want)
+    assert _u8_diff(want, _pipe().restore(img, 5, 30.0, 0.01)) <= 1
 
 
 def test_serve_slo_twin_runs_its_phases(server):
