@@ -270,12 +270,32 @@ Phases, each printing its own lines; any failure exits non-zero:
              pipeline's frame); the headline's device busy at roll, mxu
              'default' and mxu 'highest' in turns. Its kernel rows join
              the kernel table.
+ 13. stage   bf16 staging (stage_dtype="bf16"; check_stage_kernels,
+             check_stage): each bfloat16 variant (B1's store: the uint8
+             frame, a float pair, a single plane, the UHD frame's smooth
+             rows; B2 'wiener' with a bfloat16 or float32 H, 'conv' and
+             conj with a bfloat16 H; B6's and B3's loads, also at the UHD
+             frame's smooth extents; B7's with either H, also on the
+             640x330 stack's smooth columns) at roll, mxu 'default' and
+             mxu 'highest' against its plain twin (a bfloat16 output
+             element by element: one bfloat16 step beyond
+             TOL_STAGE_EXCESS), timed beside its bound (the halved planes)
+             and torch.fft; with the counters reset, the 2048^2 restore at
+             roll and at mxu 'default' (the oracle's gpu tier; its plain
+             path, TOL_STAGE_*; its distance from float32 staging, a
+             reading), batch64 (B7's bfloat16 load, a float32 H), one CLS
+             frame (B6's bfloat16 load) and RL x2 (B2 'conv' / conj on the
+             cached bfloat16 H) against their plain paths; the CLI with
+             --stage-dtype bf16 on a 640x330 frame (the gpu tier); the
+             headline's device busy at float32 and bfloat16 staging, roll
+             and mxu 'default', in turns. Its kernel rows (one a kernel,
+             its modes at every engine) join the kernel table.
 
 The bench twin's JSON lines (phase 5) and phase 6's {"serve": ...} line
 come just before the last three lines, which are the results (JSON: the
 kernel table and the timings; phase 9's under "codecs_native_left",
 phase 10's under "exr_fax_probe", phase 11's under "avif", phase 12's
-under "mxu"),
+under "mxu", phase 13's under "stage"),
 the card's name and power limit
 (nvidia-smi), and {"ok": true, "device": {...}}. Imports nothing of JAX and nothing of the JAX package:
 the oracle, the frames and the verify tiers come from
@@ -429,6 +449,23 @@ TOL_MXU_REL = 1e-4
 # 1.405e-2 / 4. 'highest' holds TOL_SLICE_PLANES and TOL_U8
 TOL_MXU_DEFAULT_PLANES = 0.015
 TOL_MXU_DEFAULT_U8 = 4
+# phase 13, bf16 staging: a kernel's bfloat16 output against its twin's,
+# element by element (bf16_excess): one bfloat16 step of the element
+# (the kernel's float32 value and the twin's may round to the two
+# neighbours of a rounding edge) and, beyond it, TOL_STAGE_EXCESS of the
+# plane's max at each engine (how far apart the two float32 values may be
+# before the rounding), about twice this script's readings on an H100
+# 80GB HBM3 at 700 W, roll's at the float32 kernels' own 1e-5: roll
+# 6.7e-8, mxu 'default' 1.83e-5 (B2 with a float32 H; its float32
+# instances read up to 2.03e-5), mxu 'highest' 3.4e-6. A staged restore
+# against its plain path (the same staging): a value beside a bfloat16
+# rounding edge, carried by the filter's gain; set per engine from this
+# script's readings on that card: roll 2.48e-4 / 1 count (2048^2),
+# 9.02e-4 / 1 (batch64), 9.36e-5 / 1 (CLS), 7.2e-7 / 1 (RL x2); mxu
+# 'default' 3.96e-3 / 2 (2048^2), which holds TOL_MXU_DEFAULT_*
+TOL_STAGE_EXCESS = {"roll": 1e-5, "mxu_default": 4e-5, "mxu_highest": 1e-5}
+TOL_STAGE_PLANES = {"roll": 3e-3, "mxu": TOL_MXU_DEFAULT_PLANES}
+TOL_STAGE_U8 = {"roll": 2, "mxu": TOL_MXU_DEFAULT_U8}
 # kernel-table row stem -> (source, the TPU kernel's pallas_call)
 MXU_ROWS = {
     "fft_rows_t": ("csrc/fft_rows_t.cu", "fft_kernel.py:699"),
@@ -522,6 +559,19 @@ def blurred_frame(np, h: int, w: int, seed: int, length: int = 50, angle: float 
 def rel_err(torch, a, b) -> float:
     a, b = a.float(), b.float()
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def bf16_excess(torch, a, b) -> float:
+    """Element by element, the largest |a - b| beyond one bfloat16 step
+    of the larger of the two magnitudes (2^(e - 7) for a value in
+    [2^e, 2^(e+1))), over max |b|: 0 where every element is within one
+    step."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))  # value in [2^(e-1), 2^e)
+    # 2^(e - 8) built from its exponent bits, exactly
+    step = ((e + 119).clamp(1, 254).to(torch.int32) << 23).view(torch.float32)
+    over = ((a - b).abs() - step).clamp_min(0).max()
+    return float(over / b.abs().max().clamp_min(1e-30))
 
 
 def bound(nbytes: float, flops: float, sfu_ops: float = 0.0) -> dict:
@@ -3413,9 +3463,8 @@ def check_codec_lanes_left(np, seed, jp2_blob, times):
     whose ALPH chunk runs webp_alpha_decode; gif_lzw_encode (encode_gif's
     bytes) and gif_lzw_decode on a 640x330 frame and the GIF fixture;
     jp2_decode_block on the port's lossless 640x330 JP2 and the 9/7
-    fixture. The plain decodes' host ms go into `times`: best of 3 for
-    the 256^2 VP8L, the lossy VP8 fixture and the 640x330 GIF, once for
-    the rest (seconds of Python each). Returns the checks."""
+    fixture. The plain decodes' host ms go into `times`, one run each
+    (seconds of Python; the smoke's time). Returns the checks."""
     from fft_restoration_tpu_torch.host import gif, jp2, webp
     from fft_restoration_tpu_torch.host.webp_encode import encode_webp
 
@@ -3431,8 +3480,7 @@ def check_codec_lanes_left(np, seed, jp2_blob, times):
     checks = {}
     for name, blob in cases:
         dec = decoders[name[name.rindex("."):]]
-        n = 3 if name in ("own_vp8l_256sq.webp", "own_640x330.gif", "vp8_q50_256.webp") else 1
-        ms, plain = best_ms(lambda: dec(blob, native=False), n)
+        ms, plain = best_ms(lambda: dec(blob, native=False), 1)
         nat = dec(blob)
         if nat.shape != plain.shape or not np.array_equal(nat, plain):
             fail(f"codecs left: {name} decodes differently on the native and plain lanes")
@@ -3452,8 +3500,9 @@ def check_codecs_left(torch, np, seed):
     .gif bitwise decode_gif(encode_gif(that restore)); (c) one in-process
     server request with a WebP body and one with a GIF body (640x330),
     each 200 with the pixels of the same frame's PNG-body request; (d)
-    host ms (host clock on this machine's CPU): the encodes (best of 3;
-    the JP2's once), the native decodes (best of 3) and (a)'s plain ones.
+    host ms (host clock on this machine's CPU): the encodes (one run each:
+    seconds of Python, the smoke's time), the native decodes (best of 3)
+    and (a)'s plain ones.
     Returns (result, launch counts by path)."""
     import os
     import tempfile
@@ -3470,8 +3519,8 @@ def check_codecs_left(torch, np, seed):
     frame = blurred_frame(np, SIZE, SIZE, seed + 1000)
     small = blurred_frame(np, *SMALL_HW, seed + 1001)
     times, res, counts = {}, {}, {}
-    times["encode_webp_2048sq"], webp_blob = best_ms(lambda: encode_webp(frame[..., ::-1]))
-    times["encode_gif_2048sq"], gif_blob = best_ms(lambda: gif.encode_gif(frame[..., ::-1]))
+    times["encode_webp_2048sq"], webp_blob = best_ms(lambda: encode_webp(frame[..., ::-1]), 1)
+    times["encode_gif_2048sq"], gif_blob = best_ms(lambda: gif.encode_gif(frame[..., ::-1]), 1)
     times["encode_jp2_640x330"], jp2_blob = best_ms(lambda: encode_jp2(small[..., ::-1]), 1)
     for name, dec, blob in (("webp_2048sq", webp.decode_webp, webp_blob),
                             ("gif_2048sq", gif.decode_gif, gif_blob),
@@ -4324,6 +4373,399 @@ def check_mxu(torch, np, frame, stacks, seed, iters):
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: bf16 staging (stage_dtype="bf16": bfloat16 stores in B1 and B2,
+# bfloat16 loads in B6, B3, B2 and B7) at both engines
+
+
+def stage_bytes(planes: float, elems: float, dtype_bytes: float) -> float:
+    """Bytes of `planes` planes of `elems` values at `dtype_bytes` each."""
+    return planes * elems * dtype_bytes
+
+
+def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
+    """Phase 13, the kernels: every bf16-staging variant against its plain
+    twin on the twin's own inputs, at roll, mxu 'default' and mxu
+    'highest': B1's bfloat16 store (the uint8 frame, a float pair, a
+    single plane; the UHD frame's smooth rows), B2 'wiener' (A and out
+    bfloat16, H bfloat16 or float32), 'conv' and conj (H bfloat16), B6's
+    and B3's bfloat16 loads at the headline shapes and at the UHD frame's
+    smooth extents, B7's (H bfloat16 or float32) on batch64's (96, 256,
+    256) stack and the 640x330 stack's smooth columns. A bfloat16 output
+    holds, element by element, one bfloat16 step of the element beyond
+    TOL_STAGE_EXCESS of the plane's max (bf16_excess: the kernel and its
+    twin may round float32 values a last bit apart to the two neighbouring
+    bfloat16 values); a float32 output the float32 kernel's own tolerance. Times (and the library call, bound) of each kernel's
+    first mode at each engine. Returns the kernel-table rows, one per
+    kernel (its modes at every engine)."""
+    from fft_restoration_tpu_torch.models.pipeline import (
+        kernel_ops, pad_extents, padded_planes, psf_spectrum_planes,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    dev = torch.device("cuda", 0)
+    B = torch.bfloat16
+    img = torch.as_tensor(frame, device=dev)[None]
+    s64 = torch.as_tensor(stack64, device=dev)
+    su = torch.as_tensor(uhd, device=dev)[None]
+    ssm = torch.as_tensor(small, device=dev)
+    hp, wp = frame.shape[:2]
+    side = stack64.shape[1]
+    uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
+    shp, swp, srh, srw = pad_extents(*small.shape[1:3], "smooth")
+    psf = make_psf("motion", 50, 30.0, dev)
+    psf25 = make_psf("motion", 25, 30.0, dev)
+    flat = padded_planes(img, hp, wp)  # (3, 2048, 2048) float32
+    n2 = hp * wp
+
+    def lib(re, im):
+        x = torch.complex(re.float(), im.float())
+        return lambda: torch.fft.fft(x, dim=-1)
+
+    rows = {}
+    for eng, E in (("roll", {}), ("mxu_default", dict(engine="mxu", precision="default")),
+                   ("mxu_highest", dict(engine="mxu", precision="highest"))):
+        prec = E.get("precision")
+        ops_p = kernel_ops(E.get("engine", "roll"), prec or "default", plain=True)
+        tol32 = TOL_MXU_REL if prec else TOL_WIENER_REL
+        st = dict(out_dtype=B)
+        fwd_b = fk.fft_rows_stack_plain(img, extent=(hp, wp), **st, **E)
+        fwd_f = fk.fft_rows_stack_plain(img, extent=(hp, wp), **E)
+        Hf = psf_spectrum_planes(psf, hp, wp, ops_p)
+        Hb = tuple(h.to(B) for h in Hf)
+        mid_b = ws.wiener_spectral_t_plain(*fwd_b, *Hb, 0.01, **st, **E)
+        st_b = fk.fft_rows_stack_plain(s64, extent=(side, side), **st, **E)
+        H64 = psf_spectrum_planes(psf25, side, side, ops_p)
+        H64b = tuple(h.to(B) for h in H64)
+        ufwd = fk.fft_rows_stack_plain(su, extent=(uhp, uwp), radices=urw, **st, **E)
+        uH = tuple(h.to(B) for h in psf_spectrum_planes(psf, uhp, uwp, ops_p, (urh, urw)))
+        umid = ws.wiener_spectral_t_plain(*ufwd, *uH, 0.01, urh, **st, **E)
+        sfwd = fk.fft_rows_stack_plain(ssm, extent=(shp, swp), radices=srw, **st, **E)
+        sH = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), shp, swp, ops_p, (srh, srw))
+        p64, up, sp = st_b[0].shape[0], ufwd[0].shape[0], sfwd[0].shape[0]
+        u2 = uhp * uwp
+
+        def flops(rows_, n, radices=(), filt=0, two=False):
+            """The pass's float32 operations (mxu: beside the group DFTs)."""
+            one = (mxu_outer_flops if prec else fft_flops)(rows_, n, radices)
+            return (2 if two else 1) * one + filt
+
+        mid_f = ws.wiener_spectral_t_plain(*fwd_f, *Hf, 0.01, **E)
+        st_f = fk.fft_rows_stack_plain(s64, extent=(side, side), **E)
+        # the float32 instance of each kernel's first mode, on its own
+        # (float32) operands: timed beside the bfloat16 variant
+        f32_twin = {
+            "fft_rows_t_bf16": lambda: fk.fft_rows_stack(img, extent=(hp, wp), **E),
+            "wiener_spectral_t_bf16": lambda: ws.wiener_spectral_t(*fwd_f, *Hf, 0.01, **E),
+            "spectral_conv_t_bf16": lambda: ws.spectral_conv_t(*fwd_f, *Hf, False, **E),
+            "spectral_conv_t_conj_bf16": lambda: ws.spectral_conv_t(*fwd_f, *Hf, True, **E),
+            "fft_rows_bf16": lambda: fk.fft_rows(*fwd_f, **E),
+            "fft_rows_packed_out_bf16": lambda: fk.fft_rows_packed_out(*mid_f, **E),
+            "fwd_wiener_rows_bf16": lambda: ws.fwd_wiener_rows(*st_f, *H64, 0.01, **E),
+        }
+        # kernel -> mode -> (kernel, plain, bytes, groups, f32 ops, library, bf16 out)
+        specs = {
+            "fft_rows_t_bf16": {
+                "B1_frame_u8_T": (
+                    lambda: fk.fft_rows_stack(img, extent=(hp, wp), **st, **E),
+                    lambda: fk.fft_rows_stack_plain(img, extent=(hp, wp), **st, **E),
+                    3 * n2 + stage_bytes(4, n2, 2), 2 * n2 / 128, flops(2 * hp, wp),
+                    lib(*fwd_f), True),
+                "B1_float_pair_T": (
+                    lambda: fk.fft_rows(flat[0::2], flat[1::2], transposed=True, **st, **E),
+                    lambda: fk.fft_rows_plain(flat[0::2], flat[1::2], transposed=True, **st,
+                                              **E),
+                    stage_bytes(3, n2, 4) + stage_bytes(4, n2, 2), 2 * n2 / 128,
+                    flops(2 * hp, wp), None, True),
+                "B1_single_plane_T": (
+                    lambda: fk.fft_rows(flat[:1], None, transposed=True, **st, **E),
+                    lambda: fk.fft_rows_plain(flat[:1], None, transposed=True, **st, **E),
+                    stage_bytes(1, n2, 4) + stage_bytes(2, n2, 2), n2 / 128, flops(hp, wp),
+                    None, True),
+                "B1_uhd_u8_T_3840": (
+                    lambda: fk.fft_rows_stack(su, extent=(uhp, uwp), radices=urw, **st, **E),
+                    lambda: fk.fft_rows_stack_plain(su, extent=(uhp, uwp), radices=urw, **st,
+                                                    **E),
+                    su.numel() + stage_bytes(2 * up, u2, 2), up * u2 / 128,
+                    flops(up * uhp, uwp, urw), None, True),
+            },
+            "wiener_spectral_t_bf16": {
+                "B2_wiener_2048sq_Hbf16": (
+                    lambda: ws.wiener_spectral_t(*fwd_b, *Hb, 0.01, **st, **E),
+                    lambda: ws.wiener_spectral_t_plain(*fwd_b, *Hb, 0.01, **st, **E),
+                    stage_bytes(4, n2, 2) + stage_bytes(2, n2, 2) + stage_bytes(4, n2, 2),
+                    4 * n2 / 128, flops(2 * wp, hp, filt=2 * n2 * 12, two=True), None, True),
+                "B2_wiener_2048sq_Hf32": (
+                    lambda: ws.wiener_spectral_t(*fwd_b, *Hf, 0.01, **st, **E),
+                    lambda: ws.wiener_spectral_t_plain(*fwd_b, *Hf, 0.01, **st, **E),
+                    stage_bytes(4, n2, 2) + stage_bytes(2, n2, 4) + stage_bytes(4, n2, 2),
+                    4 * n2 / 128, flops(2 * wp, hp, filt=2 * n2 * 12, two=True), None, True),
+                "B2_wiener_uhd_2304": (
+                    lambda: ws.wiener_spectral_t(*ufwd, *uH, 0.01, urh, **st, **E),
+                    lambda: ws.wiener_spectral_t_plain(*ufwd, *uH, 0.01, urh, **st, **E),
+                    stage_bytes(4 * up + 2, u2, 2), 2 * up * u2 / 128,
+                    flops(up * uwp, uhp, urh, filt=up * u2 * 12, two=True), None, True),
+            },
+            "spectral_conv_t_bf16": {
+                "B2_conv_2048sq_Hbf16": (
+                    lambda: ws.spectral_conv_t(*fwd_f, *Hb, False, **E),
+                    lambda: ws.spectral_conv_t_plain(*fwd_f, *Hb, False, **E),
+                    stage_bytes(4, n2, 4) + stage_bytes(2, n2, 2) + stage_bytes(4, n2, 4),
+                    4 * n2 / 128, flops(2 * wp, hp, filt=2 * n2 * 6, two=True), None, False),
+            },
+            "spectral_conv_t_conj_bf16": {
+                "B2_conj_2048sq_Hbf16": (
+                    lambda: ws.spectral_conv_t(*fwd_f, *Hb, True, **E),
+                    lambda: ws.spectral_conv_t_plain(*fwd_f, *Hb, True, **E),
+                    stage_bytes(4, n2, 4) + stage_bytes(2, n2, 2) + stage_bytes(4, n2, 4),
+                    4 * n2 / 128, flops(2 * wp, hp, filt=2 * n2 * 6, two=True), None, False),
+            },
+            "fft_rows_bf16": {
+                "B6_fwd_2048sq": (
+                    lambda: fk.fft_rows(*fwd_b, **E),
+                    lambda: fk.fft_rows_plain(*fwd_b, **E),
+                    stage_bytes(4, n2, 2) + stage_bytes(4, n2, 4), 2 * n2 / 128,
+                    flops(2 * wp, hp), lib(*fwd_b), False),
+                "B6_fwd_uhd_2304": (
+                    lambda: fk.fft_rows(*ufwd, radices=urh, **E),
+                    lambda: fk.fft_rows_plain(*ufwd, radices=urh, **E),
+                    stage_bytes(2 * up, u2, 2) + stage_bytes(2 * up, u2, 4), up * u2 / 128,
+                    flops(up * uwp, uhp, urh), None, False),
+            },
+            "fft_rows_packed_out_bf16": {
+                "B3_packed_inv": (
+                    lambda: fk.fft_rows_packed_out(*mid_b, **E),
+                    lambda: fk.fft_rows_packed_out_plain(*mid_b, **E),
+                    stage_bytes(4, n2, 2) + stage_bytes(4, n2, 4), 2 * n2 / 128,
+                    flops(2 * hp, wp), lib(*mid_b), False),
+                "B3_uhd_3840": (
+                    lambda: fk.fft_rows_packed_out(*umid, radices=urw, **E),
+                    lambda: fk.fft_rows_packed_out_plain(*umid, radices=urw, **E),
+                    stage_bytes(2 * up, u2, 2) + stage_bytes(2 * up, u2, 4), up * u2 / 128,
+                    flops(up * uhp, uwp, urw), None, False),
+            },
+            "fwd_wiener_rows_bf16": {
+                "B7_96x256x256_Hbf16": (
+                    lambda: ws.fwd_wiener_rows(*st_b, *H64b, 0.01, **E),
+                    lambda: ws.fwd_wiener_rows_plain(*st_b, *H64b, 0.01, **E),
+                    stage_bytes(2 * p64 + 2, side * side, 2) + stage_bytes(2 * p64, side * side, 4),
+                    p64 * side * side / 128,
+                    flops(p64 * side, side, filt=p64 * side * side * 12), None, False),
+                "B7_96x256x256_Hf32": (
+                    lambda: ws.fwd_wiener_rows(*st_b, *H64, 0.01, **E),
+                    lambda: ws.fwd_wiener_rows_plain(*st_b, *H64, 0.01, **E),
+                    stage_bytes(2 * p64, side * side, 2) + stage_bytes(2, side * side, 4)
+                    + stage_bytes(2 * p64, side * side, 4), p64 * side * side / 128,
+                    flops(p64 * side, side, filt=p64 * side * side * 12), None, False),
+                "B7_smooth_384x640": (
+                    lambda: ws.fwd_wiener_rows(*sfwd, *sH, 0.01, srh, **E),
+                    lambda: ws.fwd_wiener_rows_plain(*sfwd, *sH, 0.01, srh, **E),
+                    stage_bytes(2 * sp, shp * swp, 2) + stage_bytes(2, shp * swp, 4)
+                    + stage_bytes(2 * sp, shp * swp, 4), sp * shp * swp / 128,
+                    flops(sp * swp, shp, srh, filt=sp * shp * swp * 12), None, False),
+            },
+        }
+        for name, modes in specs.items():
+            row = rows.setdefault(name, dict(modes={}))
+            first = True
+            for mode, (kern, plain, nbytes, groups, fl, lib_fn, out16) in modes.items():
+                k, p = kern(), plain()
+                outs = list(zip(k, p))
+                torch.cuda.synchronize()
+                if out16 and any(a.dtype != B for a, _ in outs):
+                    fail(f"stage {name} {eng} {mode}: the output is not bfloat16")
+                tol = TOL_STAGE_EXCESS[eng] if out16 else tol32
+                m = row["modes"][f"{eng}:{mode}"] = dict(
+                    max_rel_err=max(rel_err(torch, a, b) for a, b in outs),
+                    bf16_excess=max(bf16_excess(torch, a, b) for a, b in outs) if out16
+                    else None,
+                    max_abs_err=max(float((a.float() - b.float()).abs().max()) for a, b in outs),
+                    values_off=int(sum(int((a != b).sum()) for a, b in outs)), tol=tol,
+                    ms=cuda_ms(torch, kern, iters) if first else None,
+                    f32_ms=cuda_ms(torch, f32_twin[name], iters) if first else None,
+                    plain_ms=cuda_ms(torch, plain, 3, 1) if first else None,
+                    library_ms=cuda_ms(torch, lib_fn, iters) if first and lib_fn else None)
+                m.update(mxu_bound(nbytes, groups, fl, prec) if prec else bound(nbytes, fl))
+                timed = ""
+                if first:
+                    lib_ms = "none" if m["library_ms"] is None else "%.4f ms" % m["library_ms"]
+                    timed = (f"; {m['ms']:.4f} ms (float32 instance {m['f32_ms']:.4f} ms) vs "
+                             f"plain {m['plain_ms']:.4f} ms, library {lib_ms}, bound "
+                             f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+                held = "bf16_excess" if out16 else "max_rel_err"
+                log(f"stage {name} {eng} {mode}: "
+                    + (f"beyond one bfloat16 step {m['bf16_excess']:.3e} of the max (tol "
+                       f"{tol:.3g}), max rel err {m['max_rel_err']:.3e}" if out16 else
+                       f"max rel err {m['max_rel_err']:.3e} (tol {tol:.3g})")
+                    + f", {m['values_off']} values off" + timed)
+                if not m[held] <= tol:
+                    fail(f"stage {name} {eng} {mode} disagrees with its plain twin")
+                if first:
+                    row[eng] = {k_: m[k_] for k_ in ("ms", "f32_ms", "plain_ms", "library_ms",
+                                                      "bound_ms", "bound_by", "bytes")}
+                    row[eng]["mode"] = mode
+                first = False
+    out = []
+    for name, row in rows.items():
+        stem = name[:-len("_bf16")]
+        src, tpu = MXU_ROWS[stem]
+        main = row["roll"]
+        out.append(dict(
+            name=name, route="cuda", source=SRC + src, replaces=TPU + tpu,
+            max_abs_err=max(m["max_abs_err"] for m in row["modes"].values()),
+            max_rel_err=max(m["max_rel_err"] for m in row["modes"].values()),
+            **{k: main[k] for k in ("ms", "f32_ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "bytes")},
+            main_mode=f"roll:{main['mode']}",
+            engines={e: row[e] for e in ("roll", "mxu_default", "mxu_highest")},
+            modes=row["modes"]))
+    return out
+
+
+def check_stage(torch, np, frame, stacks, seed, iters):
+    """Phase 13, the paths at stage_dtype="bf16", each once with the
+    counters reset: the 2048^2 restore at roll and at mxu 'default'
+    against the oracle at the gpu tier and against its plain path (the
+    same staging), with its distance from the float32-staged kernel path
+    as a reading (the JAX test's > 50 dB bounds its own frames, which
+    tests/test_torch_stage.py holds); batch64 (B1 bfloat16 store, B7's bfloat16 load, a float32 H);
+    one CLS frame (B6's bfloat16 load, the cached bfloat16 H); RL x2 (B2
+    'conv' and conj with the bfloat16 H); the CLI with --stage-dtype bf16
+    on the 640x330 frame; then the headline's device busy (serving graph,
+    wb stride 4) at float32 and bfloat16 staging, roll and mxu 'default',
+    in turns. Returns (results, {path: launch counts})."""
+    import os
+    import tempfile
+
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.imageio import imwrite
+    from fft_restoration_tpu_torch.host.oracle import restore_frame_channels
+    from fft_restoration_tpu_torch.host.verify import channels_equal
+    from fft_restoration_tpu_torch.models.pipeline import (
+        PLAIN_OPS, kernel_ops, laplacian_spectrum, pad_extents, psf_spectrum_planes,
+        restore_stack,
+    )
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.utils.trace_profile import device_trace
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    res, counts = {}, {}
+    oracle = restore_frame_channels(frame, 50, 30.0, 0.01)
+    S = dict(stage_dtype="bf16")
+
+    def plain_path(stack, psf_length, engine, spectrum_bf16, **kw):
+        """The staged restore through every kernel's plain twin on the card."""
+        ops = kernel_ops(engine, "default", plain=True)
+        x = torch.as_tensor(stack, device=dev)
+        hp, wp, _, _ = pad_extents(*stack.shape[1:3])
+        psf = make_psf("motion", psf_length, 30.0, dev)
+        H = psf_spectrum_planes(psf, hp, wp, ops, stage_dtype="bf16" if spectrum_bf16 else None)
+        out, planes = restore_stack(x, H, 0.01, white_balance=True, emit_planes=True,
+                                    wb_stats_stride=1, psf=psf, ops=ops, stage_dtype="bf16", **kw)
+        return out.cpu().numpy(), planes.cpu().numpy()
+
+    def compare(name, got, want, engine="roll"):
+        d = u8_max(np, got[0], want[0])
+        p = float(np.abs(got[1] - want[1]).max())
+        tp, tu = TOL_STAGE_PLANES[engine], TOL_STAGE_U8[engine]
+        log(f"stage {name} vs its plain path: planes {p:.3e} (tol {tp:.3g}), uint8 {d} (tol "
+            f"{tu})")
+        if p > tp or d > tu:
+            fail(f"stage {name} disagrees with its plain path")
+        return dict(planes_vs_plain=p, uint8_vs_plain=d)
+
+    for engine, E in (("roll", {}), ("mxu", dict(fft_engine="mxu", mxu_precision="default"))):
+        tag = "" if engine == "roll" else "_mxu_default"
+        name = f"stage_{engine}_2048sq"
+        pipe = WienerDeblurPipeline("cuda", **S, **E)
+        (out, planes), counts[name] = drive(
+            torch, name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
+            ("fft_rows_t_bf16", "wiener_spectral_t_bf16", "fft_rows_packed_out_bf16",
+             f"fft_rows_t{tag}", f"wiener_spectral_t{tag}", "lab_l_sum_partials",
+             "wb_encode_u8"))
+        rep = channels_equal(planes, oracle, "gpu")
+        log(f"stage {engine} 2048x2048x3 vs the oracle at the gpu tier: {rep}")
+        if not rep.passed:
+            fail(f"stage {engine}: the 2048^2 restore fails the gpu tier")
+        f32 = WienerDeblurPipeline("cuda", **E).restore_with_planes(frame, 50, 30.0, 0.01)
+        mse = float(((f32[1] - planes) ** 2).mean())
+        psnr = 10 * np.log10(1.0 / max(mse, 1e-30))
+        log(f"stage {engine} 2048^2 vs the float32-staged kernel path: {psnr:.2f} dB, planes "
+            f"{np.abs(f32[1] - planes).max():.3e}, uint8 {u8_max(np, out, f32[0])}")
+        res[name] = dict(oracle=str(rep), psnr_vs_f32_db=psnr,
+                         uint8_vs_f32=u8_max(np, out, f32[0]),
+                         **compare(name, (out, planes), plain_path(frame[None], 50, engine, True),
+                                   engine))
+    stack = stacks["batch64_256sq"]
+    name = "stage_roll_batch64"
+    bpipe = BatchedWienerPipeline("cuda", **S)
+    (out, planes), counts[name] = drive(
+        torch, name, lambda: bpipe._restore(bpipe.to_device(stack), 25, 30.0, 0.01),
+        ("fft_rows_t_bf16", "fwd_wiener_rows_bf16", "fwd_wiener_rows", "fft_rows"),
+        ("wiener_spectral_t", "fft_rows_packed_out_bf16"))
+    res[name] = compare(name, (out.cpu().numpy(), planes.cpu().numpy()),
+                        plain_path(stack, 25, "roll", False))
+    name = "stage_roll_cls_2048sq"
+    cpipe = WienerDeblurPipeline("cuda", filter_name="cls", **S)
+    (out, planes), counts[name] = drive(
+        torch, name, lambda: cpipe.restore_with_planes(frame, 50, 30.0, 0.01),
+        ("fft_rows_t_bf16", "fft_rows_bf16"), _NO_WIENER)
+    res[name] = compare(name, (out, planes),
+                        plain_path(frame[None], 50, "roll", True, filter_name="cls",
+                                   lap=laplacian_spectrum(*pad_extents(*frame.shape[:2])[:2],
+                                                          dev, PLAIN_OPS)))
+    name = "stage_roll_rl2_2048sq"
+    rpipe = WienerDeblurPipeline("cuda", filter_name="rl", rl_iters=2, **S)
+    (out, planes), counts[name] = drive(
+        torch, name, lambda: rpipe.restore_with_planes(frame, 50, 30.0, 0.01),
+        ("spectral_conv_t_bf16", "spectral_conv_t_conj_bf16"), ("fft_rows_t_bf16",))
+    res[name] = compare(name, (out, planes),
+                        plain_path(frame[None], 50, "roll", True, filter_name="rl", rl_iters=2))
+
+    small = blurred_frame(np, *SMALL_HW, seed + 1300)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "small.png")
+        imwrite(png, small)
+        name = "stage_cli"
+        (rc, text), counts[name] = drive(
+            torch, name, lambda: cli_run([png, "50", "30", "--stage-dtype", "bf16", "-o",
+                                          os.path.join(tmp, "o.png")]),
+            ("fft_rows_t_bf16", "wiener_spectral_t_bf16", "fft_rows_packed_out_bf16"))
+        log(f"stage CLI --stage-dtype bf16: exit {rc}, "
+            f"{[ln for ln in text.splitlines() if 'tier=' in ln]}")
+        if rc != 0 or "[Success] tier=gpu" not in text:
+            fail(f"the CLI with --stage-dtype bf16 failed:\n{text[-2000:]}")
+        res[name] = dict(exit=rc, launches={k: v for k, v in counts[name].items() if v})
+
+    # the headline's busy (bench.py's serving graph, wb stride 4) at float32
+    # and bfloat16 staging, roll and mxu 'default', in turns
+    busy, pipes = {}, {}
+    for key in ("roll_f32", "roll_bf16", "mxu_f32", "mxu_bf16"):
+        eng, stage = key.split("_")
+        kw = dict(stage_dtype=stage) if eng == "roll" else dict(
+            stage_dtype=stage, fft_engine="mxu", mxu_precision="default")
+        p = WienerDeblurPipeline("cuda", emit_planes=False, wb_stats_stride=4, **kw)
+        pipes[key] = (p, p.to_device(frame))
+    order = ("roll_f32", "roll_bf16", "mxu_f32", "mxu_bf16")
+    for key in order + order[::-1]:
+        p, x = pipes[key]
+        rep = device_trace(p.run, (x, 50, 30.0, 0.01), n_iters=10)
+        ev = cuda_ms(torch, lambda: p.run(x, 50, 30.0, 0.01), iters)
+        busy.setdefault(key, []).append(dict(device_busy_ms=rep.device_total_ms, event_ms=ev,
+                                             phases_ms=rep.phases_ms))
+    for key, runs in busy.items():
+        dev_ms = " / ".join("%.4f" % r["device_busy_ms"] for r in runs)
+        ev_ms = " / ".join("%.4f" % r["event_ms"] for r in runs)
+        log(f"headline 2048x2048x3 {key}: device busy {dev_ms} ms/frame, events {ev_ms} ms/frame")
+    res["headline_busy"] = busy
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 13 stage: {res['seconds']:.1f} s")
+    return res, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4406,6 +4848,11 @@ def main() -> int:
         f"{len(no_hmma)} without HMMA")
     if not mxu or no_hmma:
         fail(f"mxu instances without tensor-core instructions: {no_hmma or 'none built'}")
+    # bf16 staging's instances (their own translation units, one an engine)
+    stage = [ln for ln in ptxas if "bf16_kernel<" in ln or "__nv_bfloat16" in ln.split(":")[0]]
+    stage_spilled = [ln for ln in stage if " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    log(f"phase 1: {len(stage)} bf16-staging instances, {len(stage_spilled)} with a spill"
+        f"{': ' + '; '.join(stage_spilled) if stage_spilled else ''}")
 
     t0 = time.perf_counter()
     frame = blurred_frame(np, SIZE, SIZE, args.seed)
@@ -4501,6 +4948,13 @@ def main() -> int:
     mxu_paths, mxu_counts = check_mxu(torch, np, frame, stacks, args.seed, args.iters)
     counts.update(mxu_counts)
     log(f"phase 12 kernels and paths: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rows += check_stage_kernels(torch, np, frame, stacks["batch64_256sq"], uhd, small,
+                                args.iters)
+    stage_paths, stage_counts = check_stage(torch, np, frame, stacks, args.seed, args.iters)
+    counts.update(stage_counts)
+    log(f"phase 13 kernels and paths: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         by_path = {path: c[row["name"]] for path, c in counts.items()}
         row["launches"] = sum(by_path.values())
@@ -4515,6 +4969,7 @@ def main() -> int:
               "tiled_estimate_timing": tiled_estimate_timing, "sharded": sharded,
               "codecs": codecs, "codecs_native_left": codecs_left, "exr_fax_probe": exr_fax,
               "avif": avif, "mxu": mxu_paths, "mxu_instances": mxu,
+              "stage": stage_paths, "ptxas_stage": stage,
               "host_codec_build_s": native.build_seconds}
     for name in batch_timing:
         result[name] = dict(batched[name], **batch_timing[name])

@@ -88,8 +88,11 @@ shards on one card); 'oracle' the serial numpy restore itself
 (host/oracle.restore_image: wiener, pow2, no device work; a directory
 runs 'jit', as in the JAX CLI).
 
-Options of the JAX CLI that are not ported yet (--stage-dtype) are
-refused with the ROADMAP.md item that will bring them.
+--stage-dtype bf16 stores the kernel route's spectral planes between
+kernels as bfloat16 (models/pipeline.py: bf16 staging; every kernel
+computes in float32), for one image, a directory and --profile trace,
+as in the JAX CLI; tiled mode and --mode sharded ignore it (tiled mode
+says so).
 """
 
 from __future__ import annotations
@@ -116,10 +119,6 @@ BATCH_CHUNK_BYTES = 8 << 30
 BATCH_FRAME_PLANES = 12
 
 MODES = ("oracle", "jit", "sharded")
-# flags of the JAX CLI that wait for a later slice -> ROADMAP.md item
-NOT_PORTED = {
-    "--stage-dtype": "A16",
-}
 
 
 def mxu_precision_for(precision, tier: str) -> str:
@@ -134,13 +133,6 @@ def mxu_precision_for(precision, tier: str) -> str:
 def engine_kwargs(args) -> dict:
     """fft_engine and mxu_precision as every pipeline and mode takes them."""
     return dict(fft_engine=args.fft_engine, mxu_precision=args.mxu_precision)
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(
-            f"{option_string} is not ported yet: ROADMAP.md {NOT_PORTED[option_string]}"
-        )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -189,6 +181,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="precision of the mxu engine's group DFTs: 'default' (one bf16 pass, "
         "clears the gpu tier) or 'highest' (3xTF32, float32's accuracy). Unset: "
         "follows --tier (l2/inf -> highest, gpu -> default)",
+    )
+    p.add_argument(
+        "--stage-dtype", choices=("f32", "bf16"), default="f32",
+        help="storage dtype of the kernel route's spectral planes between kernels: 'bf16' "
+        "halves their bytes (every kernel still computes in float32); 'f32' is the default",
     )
     p.add_argument(
         "--filter", choices=("wiener", "inverse", "cls", "rl"), default="wiener",
@@ -274,8 +271,6 @@ def build_parser() -> argparse.ArgumentParser:
         help="render the restored image in the terminal (ANSI truecolor half-blocks); "
         "waits for Enter only on a TTY",
     )
-    for flag in NOT_PORTED:
-        p.add_argument(flag, nargs="?", action=_NotPorted, help=argparse.SUPPRESS)
     return p
 
 
@@ -453,7 +448,8 @@ def _make_pipeline(args):
         return ShardedWienerPipeline(mesh=make_mesh(args.devices, device=args.device), **opts)
     from fft_restoration_tpu_torch.models.pipeline import WienerDeblurPipeline
 
-    return WienerDeblurPipeline(args.device, wb_stats_stride=args.wb_stride, **opts)
+    return WienerDeblurPipeline(args.device, wb_stats_stride=args.wb_stride,
+                                stage_dtype=args.stage_dtype, **opts)
 
 
 def _mesh2d(args, pipe):
@@ -541,6 +537,7 @@ def _run_tiled(args, pipe, img, total_start) -> int:
         print("[INFO] --tile tapers every tile by construction; --edgetaper is implied")
     for flag, active in (("--pad smooth", args.pad == "smooth"),
                          ("--wb-stride", args.wb_stride != 1),
+                         ("--stage-dtype", args.stage_dtype == "bf16"),
                          ("--profile", bool(args.profile))):
         if active:
             print(f"[INFO] {flag} is not supported in tiled mode; ignored")
@@ -766,7 +763,7 @@ def _stack_restorer(args, single):
             single.device, filter_name=args.filter, pad_mode=args.pad,
             white_balance=not args.no_white_balance, wb_stats_stride=args.wb_stride,
             rl_iters=args.iters, edgetaper=args.edgetaper, fft_backend=args.fft_backend,
-            psf_type=args.psf_type, **engine_kwargs(args),
+            psf_type=args.psf_type, stage_dtype=args.stage_dtype, **engine_kwargs(args),
         )
         return lambda stack: pipe.restore(stack, args.psf_length, args.psf_angle, args.K)
 

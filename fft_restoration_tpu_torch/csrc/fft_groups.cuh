@@ -93,8 +93,11 @@ enum { ST_SMEM = 0, ST_T = 1, ST_ROW = 2, ST_VEC = 3 };
 // padded shared-memory column: one word in every 32 left empty
 __device__ __forceinline__ int pad_idx(int i) { return i + (i >> 5); }
 
-// Shared pieces of a launch for the stage groups
-struct TBlock {
+// Shared pieces of a launch for the stage groups; O the output's element
+// type (float32, or bfloat16 where bf16 staging stores B1's and B2's
+// planes)
+template <typename O>
+struct TBlockOf {
   float* sre;
   float* sim;
   int rs_smem;  // padded row stride, floats
@@ -106,10 +109,24 @@ struct TBlock {
   const float* __restrict__ sinv;
   // the output of the block's rows: ST_T the transposed (N, M) planes
   // from column m0, ST_ROW / ST_VEC the row-major planes from row m0
-  float* __restrict__ out_re;
-  float* __restrict__ out_im;
+  O* __restrict__ out_re;
+  O* __restrict__ out_im;
   int M, m0;
 };
+using TBlock = TBlockOf<float>;
+
+// a value as the output stores it: float32 as it is, bfloat16 rounded to
+// nearest even (as torch's .to(torch.bfloat16) and jnp's astype round);
+// the stores keep their `out[i] = ` form, so the float32 instances' code
+// is what it was
+template <typename O>
+__device__ __forceinline__ O to_out(float v);
+template <>
+__device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // a thread's [min_re, max_re, min_im, max_im] of the values it stored
 __device__ __forceinline__ void fold_minmax(float (&mm)[4], float xr, float xi) {
@@ -141,8 +158,9 @@ __device__ __forceinline__ void store_vec(float* dst, const float* x) {
 // ADDR_AGAIN (ST_SMEM after LD_SMEM or LD_ROW): work each slot's shared
 // address out again for the store instead of holding 16 of them through
 // the butterflies (the spectral kernels, whose kernels keep more live).
-template <int K, bool DIT, int LD, int ST, bool BOTTOM, typename T, bool ADDR_AGAIN = false>
-__device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int ub_shift,
+template <int K, bool DIT, int LD, int ST, bool BOTTOM, typename T, bool ADDR_AGAIN = false,
+          typename O>
+__device__ __forceinline__ void stage_group(const TBlockOf<O>& tb, int s_lo_arg, int ub_shift,
                                             int row_shift, const PairLoad<T>& ld,
                                             bool mm_on, float (&mm)[4]) {
   static_assert(BOTTOM || (LD != LD_VEC && LD != LD_BREV && ST != ST_VEC),
@@ -246,8 +264,8 @@ __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int 
         } else {
 #pragma unroll
           for (int jl = 0; jl < E; ++jl) {
-            tb.out_re[io[jh] + (jl << s_lo)] = xr[jh * E + jl];
-            tb.out_im[io[jh] + (jl << s_lo)] = xi[jh * E + jl];
+            tb.out_re[io[jh] + (jl << s_lo)] = to_out<O>(xr[jh * E + jl]);
+            tb.out_im[io[jh] + (jl << s_lo)] = to_out<O>(xi[jh * E + jl]);
           }
         }
         if (mm_on) {
@@ -277,8 +295,8 @@ __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int 
           tb.sre[a[j]] = xr[j];
           tb.sim[a[j]] = xi[j];
         } else if (a[j] >= 0) {
-          tb.out_re[a[j]] = xr[j];
-          tb.out_im[a[j]] = xi[j];
+          tb.out_re[a[j]] = to_out<O>(xr[j]);
+          tb.out_im[a[j]] = to_out<O>(xi[j]);
         }
       }
     }
@@ -288,8 +306,8 @@ __device__ __forceinline__ void stage_group(const TBlock& tb, int s_lo_arg, int 
 // Group g of the plan, dispatched on its width and on whether it is the
 // bottom group; LD / ST maps that take the bottom group only are never
 // instantiated for the others
-template <bool DIT, int LD, int ST, typename T>
-__device__ __forceinline__ void run_group(const TBlock& tb, const GroupPlan& gp, int g,
+template <bool DIT, int LD, int ST, typename T, typename O>
+__device__ __forceinline__ void run_group(const TBlockOf<O>& tb, const GroupPlan& gp, int g,
                                           const PairLoad<T>& ld, bool mm_on, float (&mm)[4]) {
   const int s_lo = gp.s_lo[g], us = gp.ub_shift[g], rsh = gp.row_shift[g];
   if (s_lo == 0) {

@@ -67,6 +67,15 @@
 // tensor-core group DFT of fft_group_dft.cuh (forward last, the rows then
 // stored from shared memory with B3's min/max; inverse first, the rows
 // loaded to shared memory). fft_rows_kernel keeps its parameters and code.
+//
+// bf16 staging (stage_dtype="bf16": the JAX _load_f32 of bfloat16 planes
+// in fft_rows_pallas and fft_rows_packed_out): both kernels' instances at
+// T = __nv_bfloat16 read bfloat16 planes, widened in the load (the bottom
+// group of an inverse pass reads 8 values a 16-byte vector), at either
+// engine: B6's forward pass of inverse and CLS, B3 after B2. Their outputs
+// stay float32. They build in translation units of their own
+// (FFT_STAGE_TU, one an engine), so every float32 and uint8 instance
+// keeps its machine code.
 #include "fft_group_dft.cuh"
 
 #define R_THREADS 256
@@ -157,8 +166,8 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                      N, cosv, sinv, ore, oim, M, m0};
   const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
                        re_live, im_live, live_rows, live_cols, p, m0);
-  // B3's partials: float32 revorder passes only (the C entry refuses the rest)
-  const bool mm_on = std::is_same<T, float>::value && MODE != MODE_NATURAL && minmax != nullptr;
+  // B3's partials: float32 / bfloat16 revorder passes only (the C entry refuses the rest)
+  const bool mm_on = !std::is_same<T, uint8_t>::value && MODE != MODE_NATURAL && minmax != nullptr;
   float mm[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
 
   if constexpr (MODE == MODE_DIF) {
@@ -287,8 +296,8 @@ fft_rows_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                      N, cosv, sinv, ore, oim, M, m0};
   const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
                        re_live, im_live, live_rows, live_cols, p, m0);
-  // B3's partials: float32 revorder passes only (the C entry refuses the rest)
-  const bool mm_on = std::is_same<T, float>::value && MODE != MODE_NATURAL && minmax != nullptr;
+  // B3's partials: float32 / bfloat16 revorder passes only (the C entry refuses the rest)
+  const bool mm_on = !std::is_same<T, uint8_t>::value && MODE != MODE_NATURAL && minmax != nullptr;
   float mm[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
 
   static_assert(MODE != MODE_NATURAL, "the MXU engine takes revorder passes");
@@ -421,8 +430,35 @@ fft_rows_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
 // MODE_DIT), built in translation units of their own as fft_rows_t.cu's
 template <typename T, int MODE, int R0, int R1, int ENG>
 int launch_r_mxu(FFT_ROWS_LAUNCH_PARAMS);
+// the launch of a bf16-input instance (MODE_DIF or MODE_DIT) at engine ENG,
+// built in the FFT_STAGE_TU units
+template <int MODE, int R0, int R1, int ENG>
+int launch_r_bf16(FFT_ROWS_LAUNCH_PARAMS);
 
-#ifdef FFT_MXU_TU
+#if defined(FFT_STAGE_TU)
+template <int MODE, int R0, int R1, int ENG>
+int launch_r_bf16(FFT_ROWS_LAUNCH_PARAMS) {
+  using T = __nv_bfloat16;
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if constexpr (ENG == ENG_ROLL)
+    return start_kernel(fft_rows_kernel<T, MODE, R0, R1>, FFT_ROWS_KERNEL_ARGS);
+  else
+    return start_kernel(fft_rows_mxu_kernel<T, MODE, R0, R1, ENG>, FFT_ROWS_KERNEL_ARGS, dft);
+}
+
+#define FFT_ROWS_BF16(MODE)                                                             \
+  template int launch_r_bf16<MODE, 1, 1, FFT_STAGE_TU>(FFT_ROWS_LAUNCH_PARAMS);        \
+  template int launch_r_bf16<MODE, 3, 1, FFT_STAGE_TU>(FFT_ROWS_LAUNCH_PARAMS);        \
+  template int launch_r_bf16<MODE, 5, 1, FFT_STAGE_TU>(FFT_ROWS_LAUNCH_PARAMS);        \
+  template int launch_r_bf16<MODE, 3, 3, FFT_STAGE_TU>(FFT_ROWS_LAUNCH_PARAMS);        \
+  template int launch_r_bf16<MODE, 3, 5, FFT_STAGE_TU>(FFT_ROWS_LAUNCH_PARAMS);
+FFT_ROWS_BF16(MODE_DIF)
+FFT_ROWS_BF16(MODE_DIT)
+#undef FFT_ROWS_BF16
+#elif defined(FFT_MXU_TU)
 template <typename T, int MODE, int R0, int R1, int ENG>
 int launch_r_mxu(FFT_ROWS_LAUNCH_PARAMS) {
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
@@ -457,20 +493,33 @@ static int launch_r(const void* src_re, const void* src_im, long long is, long l
   src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,      \
       live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,  \
       cosv, sinv, gp, cp, dft, stream
-  if (eng == ENG_ROLL) {
-    const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-    const int rows = 1 << lr;
-    const int nblk = (M + rows - 1) / rows;
-    if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-    return start_kernel(fft_rows_kernel<T, MODE, R0, R1>, FFT_ROWS_KERNEL_ARGS);
-  }
-  if constexpr (MODE == MODE_NATURAL) {  // roll only
-    return (int)cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // bf16 staging: revorder only
+    if constexpr (MODE == MODE_NATURAL) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      switch (eng) {
+        case ENG_ROLL: return launch_r_bf16<MODE, R0, R1, ENG_ROLL>(FFT_ROWS_MXU_ARGS);
+        case ENG_BF16: return launch_r_bf16<MODE, R0, R1, ENG_BF16>(FFT_ROWS_MXU_ARGS);
+        case ENG_TF32X3: return launch_r_bf16<MODE, R0, R1, ENG_TF32X3>(FFT_ROWS_MXU_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
   } else {
-    switch (eng) {
-      case ENG_BF16: return launch_r_mxu<T, MODE, R0, R1, ENG_BF16>(FFT_ROWS_MXU_ARGS);
-      case ENG_TF32X3: return launch_r_mxu<T, MODE, R0, R1, ENG_TF32X3>(FFT_ROWS_MXU_ARGS);
-      default: return (int)cudaErrorInvalidValue;
+    if (eng == ENG_ROLL) {
+      const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+      const int rows = 1 << lr;
+      const int nblk = (M + rows - 1) / rows;
+      if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+      return start_kernel(fft_rows_kernel<T, MODE, R0, R1>, FFT_ROWS_KERNEL_ARGS);
+    }
+    if constexpr (MODE == MODE_NATURAL) {  // roll only
+      return (int)cudaErrorInvalidValue;
+    } else {
+      switch (eng) {
+        case ENG_BF16: return launch_r_mxu<T, MODE, R0, R1, ENG_BF16>(FFT_ROWS_MXU_ARGS);
+        case ENG_TF32X3: return launch_r_mxu<T, MODE, R0, R1, ENG_TF32X3>(FFT_ROWS_MXU_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+      }
     }
   }
 #undef FFT_ROWS_MXU_ARGS
@@ -524,16 +573,18 @@ static int launch_modes(int mode, int code, const void* src_re, const void* src_
 #undef FFT_ROWS_ARGS
 }
 
-// logq = S; lr = log2(rows); rs_smem the padded row stride; threads a
-// multiple of 32 up to 256; plan: the wrapper's r_plan (fft_groups.cuh
+// in_dtype: the planes' element type (IN_F32, IN_U8, IN_BF16: bf16
+// staging, revorder only); logq = S; lr = log2(rows); rs_smem the padded
+// row stride; threads a multiple of 32 up to 256; plan: the wrapper's r_plan (fft_groups.cuh
 // read_group_plan); out_pair: floats between two pairs' output planes;
-// minmax: null, or the partials of 2^lpg rows each (lpg <= lr; float32
-// revorder only); natural:
+// minmax: null, or the partials of 2^lpg rows each (lpg <= lr; float32 or
+// bfloat16 revorder only); natural:
 // natural ordering (pow2 N, levels 0); levels .. xsin: the cross levels
 // of this direction (levels 0 for a pow2 N; see make_cross_plan); eng:
 // ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh, revorder only)
 // with the outer-stage plan and dft the direction's fragment tables
-extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_u8,
+enum { IN_F32 = 0, IN_U8 = 1, IN_BF16 = 2 };
+extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_dtype,
                                long long is, long long chs, int channels, int qstep, int qim,
                                long long rs, long long cs, int re_live, int im_live,
                                int live_rows, int live_cols, int P, int M, int logq, int lr,
@@ -548,7 +599,8 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_u8
                                        : read_mxu_plan(plan, logq, &gp) && dft != nullptr && !natural;
   if (levels < 0 || levels > MAX_CROSS_LEVELS || !plan_ok ||
       threads < 32 || threads > R_THREADS || threads % 32 || logq + lr < 4 ||
-      (minmax != nullptr && (lpg < 0 || lpg > lr || in_u8 || natural)))
+      in_dtype < IN_F32 || in_dtype > IN_BF16 || (in_dtype == IN_BF16 && natural) ||
+      (minmax != nullptr && (lpg < 0 || lpg > lr || in_dtype == IN_U8 || natural)))
     return (int)cudaErrorInvalidValue;
   const CrossPlan cp = make_cross_plan(levels, radix, coef, xcos, xsin);
   const int code = radix_code(cp);
@@ -559,8 +611,9 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_u8
   mode, code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, \
       live_rows, live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, \
       minmax, lpg, cosv, sinv, gp, cp, eng, dft, st
-  if (in_u8) return launch_modes<uint8_t>(FFT_ROWS_ARGS);
+  if (in_dtype == IN_U8) return launch_modes<uint8_t>(FFT_ROWS_ARGS);
+  if (in_dtype == IN_BF16) return launch_modes<__nv_bfloat16>(FFT_ROWS_ARGS);
   return launch_modes<float>(FFT_ROWS_ARGS);
 #undef FFT_ROWS_ARGS
 }
-#endif  // FFT_MXU_TU
+#endif  // FFT_STAGE_TU, FFT_MXU_TU

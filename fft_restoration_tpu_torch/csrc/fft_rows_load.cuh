@@ -12,8 +12,11 @@
 // of the TPU kernel's _load_f32, computed as a product and one FMA
 // correction step (the same float for each of the 256 values:
 // tests/test_torch_fft_passes.py), not the division's slow path.
+// bfloat16 planes (bf16 staging: the image's spectral planes between
+// kernels) widen exactly to float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -25,6 +28,7 @@ __device__ __forceinline__ float to_f32(uint8_t v) {
   const float q = __fmul_rn(a, r);
   return __fmaf_rn(__fmaf_rn(-255.0f, q, a), r, q);
 }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <typename T>
 struct PairLoad {
@@ -73,7 +77,8 @@ struct PairLoad {
   __device__ __forceinline__ float2 get(int r, int c) const { return at(row(r), c); }
 
   // elements c .. c + W - 1 of a row, zero outside: float32 rows read as
-  // 16-byte vectors (8-byte for W = 2) where they are contiguous, aligned
+  // 16-byte vectors (8-byte for W = 2), bfloat16 rows 8 values a 16-byte
+  // vector (8-, 4-byte for W = 4, 2), where they are contiguous, aligned
   // and live over the W columns, else element by element
   template <int W>
   __device__ __forceinline__ void vec(const Row& w, int c, float* xr, float* xi) const {
@@ -87,6 +92,19 @@ struct PairLoad {
         for (int v = 0; v < W; v += V) {
           load_vec<V>(w.re_ok ? pr + v : nullptr, xr + v);
           load_vec<V>(w.im_ok ? pi + v : nullptr, xi + v);
+        }
+        return;
+      }
+    } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      constexpr int V = W < 8 ? W : 8;
+      const __nv_bfloat16* pr = w.re + c;
+      const __nv_bfloat16* pi = w.im_ok ? w.im + c : nullptr;
+      if (cs == 1 && c + W <= live_cols &&
+          ((reinterpret_cast<uintptr_t>(pr) | reinterpret_cast<uintptr_t>(pi)) & (2 * V - 1)) == 0) {
+#pragma unroll
+        for (int v = 0; v < W; v += V) {
+          load_bf16<V>(w.re_ok ? pr + v : nullptr, xr + v);
+          load_bf16<V>(w.im_ok ? pi + v : nullptr, xi + v);
         }
         return;
       }
@@ -118,6 +136,35 @@ struct PairLoad {
       x[1] = v.y;
     } else {
       x[0] = __ldg(p);
+    }
+  }
+
+  // V bfloat16 values from p (2V-byte aligned) widened, zeros for a null p
+  template <int V>
+  __device__ __forceinline__ static void load_bf16(const __nv_bfloat16* p, float* x) {
+    if (p == nullptr) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) x[e] = 0.0f;
+      return;
+    }
+    uint32_t w[(V + 1) / 2];
+    if constexpr (V == 8) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (V == 4) {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = v.x, w[1] = v.y;
+    } else if constexpr (V == 2) {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      x[0] = __bfloat162float(p[0]);
+      return;
+    }
+    // a bfloat16 is the upper half of its float32
+#pragma unroll
+    for (int e = 0; e < V / 2; ++e) {
+      x[2 * e] = __uint_as_float(w[e] << 16);
+      x[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
     }
   }
 };

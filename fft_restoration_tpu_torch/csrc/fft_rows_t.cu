@@ -65,14 +65,22 @@
 // first), the transposed read of the shared rows storing every pass.
 // fft_rows_t_kernel keeps its parameters and its code: the roll instances'
 // machine code is the one before (tools/kernel_ab.py --sass).
+//
+// bf16 staging (stage_dtype="bf16", the JAX out_dtype=bfloat16 of
+// _fft_rows_transposed): fft_rows_t_bf16_kernel<T, R0, R1, ENG> is the
+// forward pass of the same body at either engine, its transposed store
+// rounding to bfloat16 (round to nearest even): half the bytes written,
+// and half the next kernel's reads. Its instances build in translation
+// units of their own (FFT_STAGE_TU, one an engine: ops/kernels/_build.py
+// STAGE_UNITS), so every float32 instance keeps its machine code.
 #include "fft_group_dft.cuh"
 
 #define T_THREADS 512
 
 // a forward group: LD_ROW for the pow2 pass's first, ST_T for the last
 // when the plan stores from registers (a plan of two groups or more)
-template <int R, typename T>
-__device__ __forceinline__ void forward_group(const TBlock& tb, const GroupPlan& gp, int g,
+template <int R, typename T, typename O>
+__device__ __forceinline__ void forward_group(const TBlockOf<O>& tb, const GroupPlan& gp, int g,
                                               const PairLoad<T>& ld) {
   float mm[4] = {};  // no min/max in this kernel
   const bool store = gp.direct_store && g == gp.groups - 1;  // never g = 0
@@ -95,12 +103,13 @@ __device__ __forceinline__ void forward_group(const TBlock& tb, const GroupPlan&
 // .. logq - 1 and the group DFT (tables dft) in place of the inner 7,
 // forward after the outer groups, inverse before them, with no direct
 // store (the transposed read of the shared rows stores every pass).
-template <typename T, bool INV, int R0, int R1, int ENG>
+// O: the output's element type (float32; bfloat16 for bf16 staging).
+template <typename T, typename O, bool INV, int R0, int R1, int ENG>
 __device__ __forceinline__ void fft_rows_t_body(
     const T* __restrict__ src_re, const T* __restrict__ src_im, long long is, long long chs,
     int channels, int qstep, int qim, long long rs, long long cs, int re_live, int im_live,
     int live_rows, int live_cols, int M, int logq, int lr, int rs_smem, int nblk,
-    float* __restrict__ out_re, float* __restrict__ out_im, const float* __restrict__ cosv,
+    O* __restrict__ out_re, O* __restrict__ out_im, const float* __restrict__ cosv,
     const float* __restrict__ sinv, const GroupPlan& gp, const CrossPlan& cp,
     const void* __restrict__ dft) {
   constexpr int R = R0 * R1;
@@ -118,15 +127,15 @@ __device__ __forceinline__ void fft_rows_t_body(
       const int r = t & (rows - 1), m = m0 + r;
       if (m < M) {
         const size_t o = obase + (size_t)(t >> lr) * M + m;
-        out_re[o] = 0.0f;
-        out_im[o] = 0.0f;
+        out_re[o] = to_out<O>(0.0f);
+        out_im[o] = to_out<O>(0.0f);
       }
     }
     return;
   }
 
-  const TBlock tb = {smem, smem + rows * rs_smem, rs_smem, logq, lr, total >> 4,
-                     N, cosv, sinv, out_re + obase + m0, out_im + obase + m0, M, m0};
+  const TBlockOf<O> tb = {smem, smem + rows * rs_smem, rs_smem, logq, lr, total >> 4,
+                         N, cosv, sinv, out_re + obase + m0, out_im + obase + m0, M, m0};
   const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
                        re_live, im_live, live_rows, live_cols, p, m0);
 
@@ -209,8 +218,8 @@ __device__ __forceinline__ void fft_rows_t_body(
 #pragma unroll
           for (int j = 0; j < R; ++j) {
             const size_t o = obase + (size_t)(b + j * q) * M + m;
-            out_re[o] = xr[j];
-            out_im[o] = xi[j];
+            out_re[o] = to_out<O>(xr[j]);
+            out_im[o] = to_out<O>(xi[j]);
           }
         }
       }
@@ -225,8 +234,8 @@ __device__ __forceinline__ void fft_rows_t_body(
     if (m < M) {
       const int a = r * rs_smem + pad_idx(k);
       const size_t o = obase + (size_t)k * M + m;
-      out_re[o] = tb.sre[a];
-      out_im[o] = tb.sim[a];
+      out_re[o] = to_out<O>(tb.sre[a]);
+      out_im[o] = to_out<O>(tb.sim[a]);
     }
   }
 }
@@ -242,7 +251,7 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                   const float* __restrict__ sinv,
                   const __grid_constant__ GroupPlan gp,
                   const __grid_constant__ CrossPlan cp) {
-  fft_rows_t_body<T, INV, R0, R1, ENG_ROLL>(src_re, src_im, is, chs, channels, qstep, qim, rs,
+  fft_rows_t_body<T, float, INV, R0, R1, ENG_ROLL>(src_re, src_im, is, chs, channels, qstep, qim, rs,
                                             cs, re_live, im_live, live_rows, live_cols, M,
                                             logq, lr, rs_smem, nblk, out_re, out_im, cosv,
                                             sinv, gp, cp, nullptr);
@@ -261,9 +270,27 @@ fft_rows_t_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im
                       const float* __restrict__ sinv,
                       const __grid_constant__ GroupPlan gp,
                       const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
-  fft_rows_t_body<T, INV, R0, R1, ENG>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+  fft_rows_t_body<T, float, INV, R0, R1, ENG>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
                                        re_live, im_live, live_rows, live_cols, M, logq, lr,
                                        rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, dft);
+}
+
+// bf16 staging: the forward pass at engine ENG (ENG_ROLL, ENG_BF16 or
+// ENG_TF32X3; dft null for roll) storing bfloat16 planes
+template <typename T, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(T_THREADS, 1)
+fft_rows_t_bf16_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                       long long is, long long chs, int channels, int qstep, int qim,
+                       long long rs, long long cs, int re_live, int im_live,
+                       int live_rows, int live_cols, int M, int logq, int lr,
+                       int rs_smem, int nblk, __nv_bfloat16* __restrict__ out_re,
+                       __nv_bfloat16* __restrict__ out_im, const float* __restrict__ cosv,
+                       const float* __restrict__ sinv,
+                       const __grid_constant__ GroupPlan gp,
+                       const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
+  fft_rows_t_body<T, __nv_bfloat16, false, R0, R1, ENG>(
+      src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+      live_cols, M, logq, lr, rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, dft);
 }
 
 // the arguments of one launch, as the C entry passes them on
@@ -284,8 +311,34 @@ fft_rows_t_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im
 // (ops/kernels/_build.py MXU_UNITS).
 template <typename T, bool INV, int R0, int R1, int ENG>
 int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS);
+// the launch of a bf16-staging instance, built in the FFT_STAGE_TU units
+template <typename T, int R0, int R1, int ENG>
+int launch_t_bf16(FFT_ROWS_T_LAUNCH_PARAMS);
 
-#ifdef FFT_MXU_TU
+#if defined(FFT_STAGE_TU)
+template <typename T, int R0, int R1, int ENG>
+int launch_t_bf16(FFT_ROWS_T_LAUNCH_PARAMS) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_kernel(fft_rows_t_bf16_kernel<T, R0, R1, ENG>, nblk * P, threads, smem, stream,
+                      (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
+                      cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem, nblk,
+                      (__nv_bfloat16*)out_re, (__nv_bfloat16*)out_im, (const float*)cosv,
+                      (const float*)sinv, gp, cp, dft);
+}
+
+#define FFT_ROWS_T_BF16(T)                                                              \
+  template int launch_t_bf16<T, 1, 1, FFT_STAGE_TU>(FFT_ROWS_T_LAUNCH_PARAMS);         \
+  template int launch_t_bf16<T, 3, 1, FFT_STAGE_TU>(FFT_ROWS_T_LAUNCH_PARAMS);         \
+  template int launch_t_bf16<T, 5, 1, FFT_STAGE_TU>(FFT_ROWS_T_LAUNCH_PARAMS);         \
+  template int launch_t_bf16<T, 3, 3, FFT_STAGE_TU>(FFT_ROWS_T_LAUNCH_PARAMS);         \
+  template int launch_t_bf16<T, 3, 5, FFT_STAGE_TU>(FFT_ROWS_T_LAUNCH_PARAMS);
+FFT_ROWS_T_BF16(float)
+FFT_ROWS_T_BF16(uint8_t)
+#undef FFT_ROWS_T_BF16
+#elif defined(FFT_MXU_TU)
 template <typename T, bool INV, int R0, int R1, int ENG>
 int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS) {
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
@@ -313,12 +366,24 @@ static int launch_t(const void* src_re, const void* src_im, long long is,
                     long long chs, int channels, int qstep, int qim, long long rs,
                     long long cs, int re_live, int im_live, int live_rows,
                     int live_cols, int P, int M, int logq, int lr, int rs_smem,
-                    int threads, void* out_re, void* out_im, const void* cosv,
+                    int threads, void* out_re, void* out_im, int out_bf16, const void* cosv,
                     const void* sinv, const GroupPlan& gp, const CrossPlan& cp,
                     int eng, const void* dft, cudaStream_t stream) {
 #define FFT_ROWS_T_MXU_ARGS                                                            \
   src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows, \
       live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft, stream
+  if (out_bf16) {  // bf16 staging: forward passes only
+    if constexpr (INV) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      switch (eng) {
+        case ENG_ROLL: return launch_t_bf16<T, R0, R1, ENG_ROLL>(FFT_ROWS_T_MXU_ARGS);
+        case ENG_BF16: return launch_t_bf16<T, R0, R1, ENG_BF16>(FFT_ROWS_T_MXU_ARGS);
+        case ENG_TF32X3: return launch_t_bf16<T, R0, R1, ENG_TF32X3>(FFT_ROWS_T_MXU_ARGS);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
   switch (eng) {
     case ENG_ROLL: {
       const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
@@ -340,14 +405,14 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
                           int qim, long long rs, long long cs, int re_live,
                           int im_live, int live_rows, int live_cols, int P, int M,
                           int logq, int lr, int rs_smem, int threads, void* out_re,
-                          void* out_im, const void* cosv, const void* sinv,
+                          void* out_im, int out_bf16, const void* cosv, const void* sinv,
                           const GroupPlan& gp, const CrossPlan& cp, int eng,
                           const void* dft, cudaStream_t stream) {
 #define FFT_ROWS_T_LAUNCH(R0, R1)                                                   \
   launch_t<T, INV, R0, R1>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs, \
                            re_live, im_live, live_rows, live_cols, P, M, logq, lr, \
-                           rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp,   \
-                           eng, dft, stream)
+                           rs_smem, threads, out_re, out_im, out_bf16, cosv, sinv, \
+                           gp, cp, eng, dft, stream)
   switch (code) {
     case 0: return FFT_ROWS_T_LAUNCH(1, 1);
     case 1: return FFT_ROWS_T_LAUNCH(3, 1);
@@ -361,6 +426,7 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
 
 // plan: groups, direct store, then per group s_lo, k, ub_shift,
 // row_shift (the wrapper's t_plan); logq = S; lr = log2(rows); rs_smem the padded row stride;
+// out_bf16: store bfloat16 planes (bf16 staging; forward passes only);
 // threads a multiple of 32 up to 512; levels .. xsin: the cross levels of
 // this direction (levels 0 for a pow2 N; see make_cross_plan); eng: ENG_ROLL,
 // or a tensor-core engine (fft_group_dft.cuh) with the outer-stage plan
@@ -370,7 +436,7 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                                  int qim, long long rs, long long cs, int re_live,
                                  int im_live, int live_rows, int live_cols, int P,
                                  int M, int logq, int lr, int rs_smem, int threads,
-                                 void* out_re, void* out_im, int inverse,
+                                 void* out_re, void* out_im, int out_bf16, int inverse,
                                  const void* cosv, const void* sinv, const int* plan,
                                  int levels, const int* radix, const float* coef,
                                  const void* xcos, const void* xsin, int eng,
@@ -389,8 +455,8 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
   cudaStream_t st = (cudaStream_t)stream;
 #define FFT_ROWS_T_ARGS                                                              \
   code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live,     \
-      live_rows, live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, \
-      sinv, gp, cp, eng, dft, st
+      live_rows, live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_bf16, \
+      cosv, sinv, gp, cp, eng, dft, st
   if (in_u8)
     return inverse ? launch_radices<uint8_t, true>(FFT_ROWS_T_ARGS)
                    : launch_radices<uint8_t, false>(FFT_ROWS_T_ARGS);
@@ -398,4 +464,4 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                  : launch_radices<float, false>(FFT_ROWS_T_ARGS);
 #undef FFT_ROWS_T_ARGS
 }
-#endif  // FFT_MXU_TU
+#endif  // FFT_STAGE_TU, FFT_MXU_TU

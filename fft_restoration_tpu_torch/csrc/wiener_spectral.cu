@@ -91,6 +91,19 @@
 // there), then B2's inverse group DFT, outer DIT groups and stores.
 // spectral_s_kernel keeps its parameters and code.
 //
+// bf16 staging (stage_dtype="bf16": the JAX _load_f32 of bfloat16 A and H
+// and B2's out_dtype): spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, ..,
+// ENG> is the same body at either engine with bfloat16 operands widened
+// as they load (A element by element, as the top group reads float32 A;
+// H 4 values an 8-byte vector in the fused bottom) and, for B2, the
+// output rounded to bfloat16 as it stores. The instances are the
+// combinations the pipelines reach: B2 'wiener' A and out bfloat16, H
+// either (the single-frame pipeline caches a bfloat16 spectrum, the
+// batched one keeps float32); B2 'conv' / conj H bfloat16 (Richardson-Lucy
+// and the taper with the single-frame pipeline's spectrum); B7 A
+// bfloat16, H either, out float32 (as in JAX). They build in translation
+// units of their own (FFT_STAGE_TU, one an engine), so every float32
+// instance keeps its machine code.
 #include "fft_group_dft.cuh"
 
 #define S_THREADS 512
@@ -123,7 +136,38 @@ __device__ __forceinline__ void spectral_filter(float& xr, float& xi, float hr, 
 
 // W consecutive floats of the spectrum's two planes from offset o (16-byte
 // aligned for W = 4, 8-byte for W = 2: the wrapper's H is aligned, and
-// an item's slots start at a multiple of its width), zeros where !live
+// an item's slots start at a multiple of its width), zeros where !live.
+// A bfloat16 spectrum: W values a (2W)-byte vector, widened.
+template <int W>
+__device__ __forceinline__ void load_h(const __nv_bfloat16* __restrict__ h_re,
+                                       const __nv_bfloat16* __restrict__ h_im, size_t o,
+                                       bool live, float* hr, float* hi) {
+  if (!live) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) hr[e] = hi[e] = 0.0f;
+    return;
+  }
+  uint32_t a[(W + 1) / 2], b[(W + 1) / 2];
+  if constexpr (W == 4) {
+    const uint2 va = __ldg(reinterpret_cast<const uint2*>(h_re + o));
+    const uint2 vb = __ldg(reinterpret_cast<const uint2*>(h_im + o));
+    a[0] = va.x, a[1] = va.y, b[0] = vb.x, b[1] = vb.y;
+  } else if constexpr (W == 2) {
+    a[0] = __ldg(reinterpret_cast<const unsigned int*>(h_re + o));
+    b[0] = __ldg(reinterpret_cast<const unsigned int*>(h_im + o));
+  } else {
+    hr[0] = __bfloat162float(h_re[o]);
+    hi[0] = __bfloat162float(h_im[o]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < W / 2; ++e) {  // a bfloat16 is the upper half of its float32
+    hr[2 * e] = __uint_as_float(a[e] << 16);
+    hr[2 * e + 1] = __uint_as_float(a[e] & 0xffff0000u);
+    hi[2 * e] = __uint_as_float(b[e] << 16);
+    hi[2 * e + 1] = __uint_as_float(b[e] & 0xffff0000u);
+  }
+}
 template <int W>
 __device__ __forceinline__ void load_h(const float* __restrict__ h_re,
                                        const float* __restrict__ h_im, size_t o, bool live,
@@ -185,12 +229,12 @@ __device__ __forceinline__ void bottom_stage(float* xr, float* xi, int b,
 // butterflies and their order are stage_group's). Loads from the shared
 // rows; stores to them (B2, B10) or, B7, to the natural output as 16-byte
 // vectors. H is the (M, N) spectrum, row m0 + r serving the block's row r.
-template <int K, int MODE, int STORE>
-__device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int row_shift,
+template <int K, int MODE, int STORE, typename TH, typename O>
+__device__ __forceinline__ void fused_bottom(const TBlockOf<O>& tb, int ub_shift, int row_shift,
                                              const float* __restrict__ cos_i,
                                              const float* __restrict__ sin_i,
-                                             const float* __restrict__ h_re,
-                                             const float* __restrict__ h_im, float k_reg) {
+                                             const TH* __restrict__ h_re,
+                                             const TH* __restrict__ h_im, float k_reg) {
   constexpr int J = T_SLOTS >> K;
   constexpr int E = 1 << K;
   constexpr int W = E < 4 ? E : 4;  // floats a vector
@@ -261,12 +305,12 @@ __device__ __forceinline__ void fused_bottom(const TBlock& tb, int ub_shift, int
   }
 }
 
-template <int MODE, int STORE>
-__device__ __forceinline__ void run_bottom(const TBlock& tb, const GroupPlan& gp,
+template <int MODE, int STORE, typename TH, typename O>
+__device__ __forceinline__ void run_bottom(const TBlockOf<O>& tb, const GroupPlan& gp,
                                            const float* __restrict__ cos_i,
                                            const float* __restrict__ sin_i,
-                                           const float* __restrict__ h_re,
-                                           const float* __restrict__ h_im, float k_reg) {
+                                           const TH* __restrict__ h_re,
+                                           const TH* __restrict__ h_im, float k_reg) {
   const int g = gp.groups - 1, us = gp.ub_shift[g], rsh = gp.row_shift[g];
 #define FUSED_BOTTOM(K) fused_bottom<K, MODE, STORE>(tb, us, rsh, cos_i, sin_i, h_re, h_im, k_reg)
   switch (gp.k[g]) {
@@ -281,13 +325,13 @@ __device__ __forceinline__ void run_bottom(const TBlock& tb, const GroupPlan& gp
 // Group g above the bottom one (s_lo > 0), dispatched on its width: the
 // bottom group runs fused (fused_bottom), so no bottom instance of the
 // stage groups is compiled here
-template <bool DIT, int LD, int ST>
-__device__ __forceinline__ void run_upper(const TBlock& tb, const GroupPlan& gp, int g,
-                                          const PairLoad<float>& ld) {
+template <bool DIT, int LD, int ST, typename TA, typename O>
+__device__ __forceinline__ void run_upper(const TBlockOf<O>& tb, const GroupPlan& gp, int g,
+                                          const PairLoad<TA>& ld) {
   const int s_lo = gp.s_lo[g], us = gp.ub_shift[g], rsh = gp.row_shift[g];
   float mm[4] = {};  // no min/max in this kernel
 #define UPPER_GROUP(K) \
-  stage_group<K, DIT, LD, ST, false, float, ST == ST_SMEM>(tb, s_lo, us, rsh, ld, false, mm)
+  stage_group<K, DIT, LD, ST, false, TA, ST == ST_SMEM>(tb, s_lo, us, rsh, ld, false, mm)
   switch (gp.k[g]) {
     case 1: UPPER_GROUP(1); break;
     case 2: UPPER_GROUP(2); break;
@@ -309,13 +353,13 @@ __device__ __forceinline__ void run_upper(const TBlock& tb, const GroupPlan& gp,
 // the filter against H's slot of the result's row and column (zero past
 // the plane's rows, as load_h), then B2's store to the shared rows or B7's
 // natural store of the live rows
-template <int MODE>
+template <int MODE, typename TH>
 struct FilterEpi {
   float* sre;
   float* sim;
   int rs;
-  const float* __restrict__ h_re;
-  const float* __restrict__ h_im;
+  const TH* __restrict__ h_re;
+  const TH* __restrict__ h_im;
   float* out_re;  // B7: the block's first output row; null for B2
   float* out_im;
   int N, M, m0;
@@ -323,8 +367,8 @@ struct FilterEpi {
   __device__ __forceinline__ void operator()(int r, int col, float yr, float yi) const {
     const bool live = m0 + r < M;
     const size_t o = (size_t)(m0 + r) * N + col;
-    spectral_filter<MODE>(yr, yi, live ? __ldg(h_re + o) : 0.0f, live ? __ldg(h_im + o) : 0.0f,
-                          k_reg);
+    spectral_filter<MODE>(yr, yi, live ? to_f32(__ldg(h_re + o)) : 0.0f,
+                          live ? to_f32(__ldg(h_im + o)) : 0.0f, k_reg);
     if (out_re == nullptr) {
       const int a = r * rs + pad_idx(col);
       sre[a] = yr;
@@ -341,11 +385,13 @@ struct FilterEpi {
 // DIF groups (stages 7 .. logq - 1), the forward group DFT with the filter
 // in its epilogue (B7 storing there), the inverse group DFT (tables dft_f,
 // dft_i), then the outer DIT groups and the roll instances' stores.
-template <int MODE, int STORE, int R0, int R1, int ENG>
+// TA, TH, TO: the element types of A, H and the output (float32; bfloat16
+// for bf16 staging).
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
 __device__ __forceinline__ void spectral_s_body(
-    const float* __restrict__ a_re, const float* __restrict__ a_im,
-    const float* __restrict__ h_re, const float* __restrict__ h_im, float k_reg,
-    float* __restrict__ out_re, float* __restrict__ out_im, int P, int M, int logq, int lr,
+    const TA* __restrict__ a_re, const TA* __restrict__ a_im,
+    const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
+    TO* __restrict__ out_re, TO* __restrict__ out_im, int P, int M, int logq, int lr,
     int rs_smem, const float* __restrict__ cos_f, const float* __restrict__ sin_f,
     const float* __restrict__ cos_i, const float* __restrict__ sin_i, const GroupPlan& gf,
     const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
@@ -360,9 +406,9 @@ __device__ __forceinline__ void spectral_s_body(
   const int p = blockIdx.x - blk * P;
   const int m0 = blk * rows;
   // the output pointers are set where they are needed (fewer live registers)
-  TBlock tf = {smem, smem + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4, N,
-               cos_f, sin_f, nullptr, nullptr, M, m0};
-  const PairLoad<float> ld(a_re, a_im, (long long)M * N, 0, 1, 1, 0, N, 1, 0x7fffffff,
+  TBlockOf<TO> tf = {smem, smem + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4, N,
+                     cos_f, sin_f, nullptr, nullptr, M, m0};
+  const PairLoad<TA> ld(a_re, a_im, (long long)M * N, 0, 1, 1, 0, N, 1, 0x7fffffff,
                            0x7fffffff, M, N, p, m0);
   const bool direct = R == 1 && gf.direct_store;  // the C entry refuses it for R > 1
 
@@ -401,7 +447,8 @@ __device__ __forceinline__ void spectral_s_body(
       __syncthreads();
     }
     const int gpr = N >> DFT_LOG;
-    FilterEpi<MODE> epi{tf.sre, tf.sim, rs_smem, h_re, h_im, nullptr, nullptr, N, M, m0, k_reg};
+    FilterEpi<MODE, TH> epi{tf.sre, tf.sim, rs_smem, h_re, h_im, nullptr, nullptr, N, M, m0,
+                            k_reg};
     if constexpr (B7) {
       epi.out_re = out_re + obase;
       epi.out_im = out_im + obase;
@@ -414,7 +461,7 @@ __device__ __forceinline__ void spectral_s_body(
     tf.out_re = out_re + obase;
     tf.out_im = out_im + obase;
     __syncthreads();
-    TBlock ti = tf;
+    TBlockOf<TO> ti = tf;
     ti.cosv = cos_i;
     ti.sinv = sin_i;
     for (int g = gi.groups - 1; g >= 0; --g) {
@@ -452,7 +499,7 @@ __device__ __forceinline__ void spectral_s_body(
     tf.out_re = out_re + obase;
     tf.out_im = out_im + obase;
     __syncthreads();
-    TBlock ti = tf;
+    TBlockOf<TO> ti = tf;
     ti.cosv = cos_i;
     ti.sinv = sin_i;
     for (int g = gi.groups - 2; g >= 0; --g) {
@@ -483,8 +530,8 @@ __device__ __forceinline__ void spectral_s_body(
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const size_t o = ROWS ? (size_t)r * N + b + j * q : (size_t)(b + j * q) * M + r;
-        tf.out_re[o] = xr[j];
-        tf.out_im[o] = xi[j];
+        tf.out_re[o] = to_out<TO>(xr[j]);
+        tf.out_im[o] = to_out<TO>(xi[j]);
       }
     }
   }
@@ -500,9 +547,9 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
                   const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
                   const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
                   const __grid_constant__ CrossPlan ci) {
-  spectral_s_body<MODE, STORE, R0, R1, ENG_ROLL>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im,
-                                                 P, M, logq, lr, rs_smem, cos_f, sin_f, cos_i,
-                                                 sin_i, gf, gi, cf, ci, nullptr, nullptr);
+  spectral_s_body<float, float, float, MODE, STORE, R0, R1, ENG_ROLL>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
+      cos_i, sin_i, gf, gi, cf, ci, nullptr, nullptr);
 }
 
 // the MXU engine's instances (ENG_BF16 or ENG_TF32X3; B2 and B7), dft_f
@@ -518,9 +565,28 @@ spectral_s_mxu_kernel(const float* __restrict__ a_re, const float* __restrict__ 
                       const __grid_constant__ GroupPlan gf, const __grid_constant__ GroupPlan gi,
                       const __grid_constant__ CrossPlan cf, const __grid_constant__ CrossPlan ci,
                       const void* __restrict__ dft_f, const void* __restrict__ dft_i) {
-  spectral_s_body<MODE, STORE, R0, R1, ENG>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M,
-                                            logq, lr, rs_smem, cos_f, sin_f, cos_i, sin_i, gf, gi,
-                                            cf, ci, dft_f, dft_i);
+  spectral_s_body<float, float, float, MODE, STORE, R0, R1, ENG>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
+      cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i);
+}
+
+// bf16 staging: the body at engine ENG (ENG_ROLL: dft_f, dft_i null) with
+// the element types TA, TH, TO (module notes)
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(S_THREADS, 1)
+spectral_s_bf16_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
+                       const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
+                       TO* __restrict__ out_re, TO* __restrict__ out_im, int P, int M,
+                       int logq, int lr, int rs_smem, const float* __restrict__ cos_f,
+                       const float* __restrict__ sin_f, const float* __restrict__ cos_i,
+                       const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
+                       const __grid_constant__ GroupPlan gi,
+                       const __grid_constant__ CrossPlan cf,
+                       const __grid_constant__ CrossPlan ci, const void* __restrict__ dft_f,
+                       const void* __restrict__ dft_i) {
+  spectral_s_body<TA, TH, TO, MODE, STORE, R0, R1, ENG>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
+      cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i);
 }
 
 // the arguments of one launch, as the C entries pass them on
@@ -540,8 +606,41 @@ spectral_s_mxu_kernel(const float* __restrict__ a_re, const float* __restrict__ 
 // built in translation units of their own as fft_rows_t.cu's
 template <int MODE, int STORE, int R0, int R1, int ENG>
 int launch_s_mxu(SPECTRAL_LAUNCH_PARAMS);
+// the launch of a bf16-staging instance, built in the FFT_STAGE_TU units
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+int launch_s_bf16(SPECTRAL_LAUNCH_PARAMS);
+// the operands' element types of a launch, as the C entries take them
+enum { DT_A_BF16 = 1, DT_H_BF16 = 2, DT_OUT_BF16 = 4 };
 
-#ifdef FFT_MXU_TU
+#if defined(FFT_STAGE_TU)
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+int launch_s_bf16(SPECTRAL_LAUNCH_PARAMS) {
+  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_kernel(spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, R0, R1, ENG>, nblk * P,
+                      threads, smem, stream, (const TA*)a_re, (const TA*)a_im, (const TH*)h_re,
+                      (const TH*)h_im, k_reg, (TO*)out_re, (TO*)out_im, P, M, logq, lr, rs_smem,
+                      (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
+                      (const float*)sin_i, gf, gi, cf, ci, dft_f, dft_i);
+}
+
+using bf16 = __nv_bfloat16;
+#define SPECTRAL_BF16(TA, TH, TO, MODE, STORE)                                                 \
+  template int launch_s_bf16<TA, TH, TO, MODE, STORE, 1, 1, FFT_STAGE_TU>(SPECTRAL_LAUNCH_PARAMS); \
+  template int launch_s_bf16<TA, TH, TO, MODE, STORE, 3, 1, FFT_STAGE_TU>(SPECTRAL_LAUNCH_PARAMS); \
+  template int launch_s_bf16<TA, TH, TO, MODE, STORE, 5, 1, FFT_STAGE_TU>(SPECTRAL_LAUNCH_PARAMS); \
+  template int launch_s_bf16<TA, TH, TO, MODE, STORE, 3, 3, FFT_STAGE_TU>(SPECTRAL_LAUNCH_PARAMS); \
+  template int launch_s_bf16<TA, TH, TO, MODE, STORE, 3, 5, FFT_STAGE_TU>(SPECTRAL_LAUNCH_PARAMS);
+SPECTRAL_BF16(bf16, bf16, bf16, MODE_WIENER, S_STORE_T)
+SPECTRAL_BF16(bf16, float, bf16, MODE_WIENER, S_STORE_T)
+SPECTRAL_BF16(float, bf16, float, MODE_CONV, S_STORE_T)
+SPECTRAL_BF16(float, bf16, float, MODE_CONV_CONJ, S_STORE_T)
+SPECTRAL_BF16(bf16, bf16, float, MODE_WIENER, S_STORE_NATURAL)
+SPECTRAL_BF16(bf16, float, float, MODE_WIENER, S_STORE_NATURAL)
+#undef SPECTRAL_BF16
+#elif defined(FFT_MXU_TU)
 template <int MODE, int STORE, int R0, int R1, int ENG>
 int launch_s_mxu(SPECTRAL_LAUNCH_PARAMS) {
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
@@ -617,6 +716,56 @@ static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
 #undef SPECTRAL_LAUNCH
 }
 
+// a bf16-staging launch at the radices of cf and engine eng
+template <typename TA, typename TH, typename TO, int MODE, int STORE>
+static int launch_stage(SPECTRAL_LAUNCH_PARAMS, int eng) {
+#define SPECTRAL_STAGE_ARGS                                                                \
+  a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream
+#define SPECTRAL_STAGE(R0, R1)                                                                 \
+  switch (eng) {                                                                              \
+    case ENG_ROLL:                                                                            \
+      return launch_s_bf16<TA, TH, TO, MODE, STORE, R0, R1, ENG_ROLL>(SPECTRAL_STAGE_ARGS);   \
+    case ENG_BF16:                                                                            \
+      return launch_s_bf16<TA, TH, TO, MODE, STORE, R0, R1, ENG_BF16>(SPECTRAL_STAGE_ARGS);   \
+    case ENG_TF32X3:                                                                          \
+      return launch_s_bf16<TA, TH, TO, MODE, STORE, R0, R1, ENG_TF32X3>(SPECTRAL_STAGE_ARGS); \
+    default: return (int)cudaErrorInvalidValue;                                               \
+  }
+  switch (radix_code(cf)) {
+    case 0: SPECTRAL_STAGE(1, 1)
+    case 1: SPECTRAL_STAGE(3, 1)
+    case 2: SPECTRAL_STAGE(5, 1)
+    case 3: SPECTRAL_STAGE(3, 3)
+    case 4: SPECTRAL_STAGE(3, 5)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef SPECTRAL_STAGE
+#undef SPECTRAL_STAGE_ARGS
+}
+
+// the bf16-staging instance of (MODE, STORE) for the operand types
+// `dtypes` (DT_*), or cudaErrorInvalidValue where there is none
+template <int MODE, int STORE>
+static int launch_dtypes(int dtypes, SPECTRAL_LAUNCH_PARAMS, int eng) {
+  using bf16 = __nv_bfloat16;
+#define SPECTRAL_DTYPES_ARGS                                                               \
+  a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream, eng
+  constexpr int A = DT_A_BF16, H = DT_H_BF16, O = DT_OUT_BF16;
+  if constexpr (STORE == S_STORE_T && MODE == MODE_WIENER) {
+    if (dtypes == (A | H | O)) return launch_stage<bf16, bf16, bf16, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
+    if (dtypes == (A | O)) return launch_stage<bf16, float, bf16, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
+  } else if constexpr (STORE == S_STORE_T) {  // conv, conj
+    if (dtypes == H) return launch_stage<float, bf16, float, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
+  } else if constexpr (STORE == S_STORE_NATURAL) {
+    if (dtypes == (A | H)) return launch_stage<bf16, bf16, float, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
+    if (dtypes == A) return launch_stage<bf16, float, float, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
+  }
+#undef SPECTRAL_DTYPES_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 // the two directions' cross levels (levels 0 for a pow2 N; see
 // make_cross_plan), as the C entries receive them
 #define CROSS_ARGS(d)                                                    \
@@ -659,13 +808,18 @@ static int launch_entry(const void* a_re, const void* a_im, const void* h_re, co
                         int rs_smem, int threads, const void* cos_f, const void* sin_f,
                         const void* cos_i, const void* sin_i, const int* plan_f,
                         const int* plan_i, const CrossPlan& cf, const CrossPlan& ci,
-                        int eng, const void* dft_f, const void* dft_i, void* stream) {
+                        int eng, const void* dft_f, const void* dft_i, void* stream,
+                        int dtypes) {
   GroupPlan gf, gi;
   const bool mxu = eng != ENG_ROLL;
   if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi, mxu) ||
       radix_code(cf) < 0 || radix_code(ci) != radix_code(cf) ||
       (mxu && (dft_f == nullptr || (STORE != S_STORE_NATURAL && dft_i == nullptr))))
     return (int)cudaErrorInvalidValue;
+  if (dtypes)
+    return launch_dtypes<MODE, STORE>(dtypes, a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P,
+                                      M, logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
+                                      gf, gi, cf, ci, dft_f, dft_i, (cudaStream_t)stream, eng);
   return launch_radices<MODE, STORE>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
                                   lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf,
                                   ci, eng, dft_f, dft_i, (cudaStream_t)stream);
@@ -675,7 +829,9 @@ static int launch_entry(const void* a_re, const void* a_im, const void* h_re, co
 // threads a multiple of 32 up to 512; plan_f / plan_i: the wrapper's
 // s_plan (its DIF and DIT maps); the two directions' cross levels; eng:
 // ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh) with the
-// outer-stage plans and dft_f / dft_i the two directions' fragment tables
+// outer-stage plans and dft_f / dft_i the two directions' fragment tables;
+// dtypes: the bfloat16 operands (DT_*: A and out, H either, for bf16
+// staging; 0 all float32)
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* h_re, const void* h_im, float K,
                                         void* out_re, void* out_im, int P, int M, int logq,
@@ -684,45 +840,49 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* sin_i, const int* plan_f,
                                         const int* plan_i, CROSS_ARGS(f), CROSS_ARGS(i),
                                         int eng, const void* dft_f, const void* dft_i,
-                                        void* stream) {
+                                        int dtypes, void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   return launch_entry<MODE_WIENER, S_STORE_T>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
                                           logq, lr, rs_smem, threads, cos_f, sin_f, cos_i,
                                           sin_i, plan_f, plan_i, CROSS_PLAN(f), CROSS_PLAN(i),
-                                          eng, dft_f, dft_i, stream);
+                                          eng, dft_f, dft_i, stream, dtypes);
 }
 
-// B2 'conv'; conj != 0: F = G * conj(H) (the mirrored PSF's convolution)
+// B2 'conv'; conj != 0: F = G * conj(H) (the mirrored PSF's convolution);
+// dtypes: DT_H_BF16 for a bfloat16 spectrum, else 0
 extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im, const void* h_re,
                                       const void* h_im, int conj, void* out_re, void* out_im,
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const void* cos_i,
                                       const void* sin_i, const int* plan_f, const int* plan_i,
                                       CROSS_ARGS(f), CROSS_ARGS(i), int eng, const void* dft_f,
-                                      const void* dft_i, void* stream) {
+                                      const void* dft_i, int dtypes, void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f), ci = CROSS_PLAN(i);
   if (conj)
     return launch_entry<MODE_CONV_CONJ, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
                                                M, logq, lr, rs_smem, threads, cos_f, sin_f,
                                                cos_i, sin_i, plan_f, plan_i, cf, ci, eng, dft_f,
-                                               dft_i, stream);
+                                               dft_i, stream, dtypes);
   return launch_entry<MODE_CONV, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
                                         logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
-                                        plan_f, plan_i, cf, ci, eng, dft_f, dft_i, stream);
+                                        plan_f, plan_i, cf, ci, eng, dft_f, dft_i, stream, dtypes);
 }
 
-// B7: the forward cross levels and tables only (the inverse ones unread)
+// B7: the forward cross levels and tables only (the inverse ones unread);
+// dtypes: DT_A_BF16, with DT_H_BF16 or not, for bf16 staging, else 0
 extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im, const void* h_re,
                                       const void* h_im, float K, void* out_re, void* out_im,
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const int* plan_f,
-                                      CROSS_ARGS(f), int eng, const void* dft_f, void* stream) {
+                                      CROSS_ARGS(f), int eng, const void* dft_f, int dtypes,
+                                      void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f);
   return launch_entry<MODE_WIENER, S_STORE_NATURAL>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
                                          lr, rs_smem, threads, cos_f, sin_f, nullptr, nullptr,
-                                         plan_f, nullptr, cf, cf, eng, dft_f, nullptr, stream);
+                                         plan_f, nullptr, cf, cf, eng, dft_f, nullptr, stream,
+                                         dtypes);
 }
 
 // B10 (wiener_spectral_rows): the row-major store, pow2 rows only (no
@@ -742,4 +902,4 @@ extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
       a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, sin_f,
       cos_i, sin_i, gf, gi, none, none, ENG_ROLL, nullptr, nullptr, (cudaStream_t)stream);
 }
-#endif  // FFT_MXU_TU
+#endif  // FFT_STAGE_TU, FFT_MXU_TU

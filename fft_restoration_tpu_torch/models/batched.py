@@ -30,6 +30,7 @@ from fft_restoration_tpu_torch.models.pipeline import (
     psf_spectrum_planes,
     resolve_device,
     restore_raw,
+    stage_of,
 )
 from fft_restoration_tpu_torch.ops.psf import make_psf
 
@@ -48,13 +49,16 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
     of 640x330 frames restores at 384x640, its middle B7 at hp = 384.
     fft_engine, mxu_precision: as in WienerDeblurPipeline ('roll' and
     'default' by default; 'mxu' runs the tensor-core group DFT).
-    stage_dtype exists for the JAX signature; bf16 staging is not ported
-    yet (ROADMAP.md A16).
+    stage_dtype: 'f32' (default) or 'bf16', bf16 staging of the image's
+    spectral planes (models/pipeline.py); the PSF spectrum stays float32
+    here, as the JAX batched restore makes it inside its graph.
     fft_backend: 'pallas' (default, the kernels) or another backend of
     ops/fft.py, the generic route (`restore_stack_generic`: the stack's
     3B planes paired across images, as the JAX batched route's, every
     filter and the taper; the JAX batched default is 'matmul').
     """
+
+    STAGE_SPECTRUM = False  # bf16 staging keeps H float32 (class docstring)
 
     def __init__(
         self,
@@ -68,22 +72,17 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
         psf_type="motion",
         rl_iters: int = 10,
         edgetaper: bool = False,
-        stage_dtype: str | None = None,
+        stage_dtype: str | None = "f32",
         fft_backend: str = KERNEL_BACKEND,
         fft_engine: str = "roll",
         mxu_precision: str = "default",
     ):
-        if stage_dtype not in (None, "f32", "float32"):
-            raise NotImplementedError(
-                f"stage_dtype {stage_dtype!r} is not ported yet (the port stages "
-                "float32 only): ROADMAP.md A16"
-            )
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode,
             wb_stats_stride=wb_stats_stride, psf_type=psf_type, rl_iters=rl_iters,
             edgetaper=edgetaper, fft_backend=fft_backend, fft_engine=fft_engine,
-            mxu_precision=mxu_precision,
+            mxu_precision=mxu_precision, stage_dtype=stage_dtype,
         )
 
     def to_device(self, imgs_bgr) -> torch.Tensor:
@@ -116,16 +115,19 @@ class BatchedWienerPipeline(_CachedPsfPipeline):
 
 
 def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cuda",
-                   fft_engine: str = "roll", mxu_precision: str = "default"):
+                   fft_engine: str = "roll", mxu_precision: str = "default",
+                   stage_dtype: str | None = "f32"):
     """(length, angle) motion-PSF grid sweep on one (H, W, 3) image.
 
     Returns (n_lengths, n_angles, 3, H, W) float32 restored planes (numpy),
     each point as `BatchedWienerPipeline.restore_planes` gives it. The
-    pad is pow2, as in the JAX sweep. fft_engine, mxu_precision: as in
-    WienerDeblurPipeline.
+    pad is pow2, as in the JAX sweep. fft_engine, mxu_precision,
+    stage_dtype: as in BatchedWienerPipeline (the frame's forward pass is
+    staged once, each point's spectrum stays float32).
     """
     dev = resolve_device(device)
     ops = kernel_ops(fft_engine, mxu_precision)
+    stage = stage_of(stage_dtype)
     if np.ndim(img_bgr) != 3 or np.shape(img_bgr)[-1] != 3:
         raise ValueError(f"need an (H, W, 3) BGR frame, got shape {np.shape(img_bgr)}")
     stack = frames_to_device(img_bgr, dev)[None]
@@ -135,11 +137,12 @@ def psf_grid_sweep(img_bgr, psf_lengths, psf_angles, K: float = 0.01, device="cu
     bad = [n for n in lengths if not 1 <= n <= min(hp, wp)]
     if bad:
         raise ValueError(f"PSF lengths {bad} outside [1, {min(hp, wp)}] for ({hp}x{wp})")
-    rows = ops.fft_rows_stack(stack, extent=(hp, wp))
+    rows = ops.fft_rows_stack(stack, extent=(hp, wp), out_dtype=stage)
     out = torch.empty((len(lengths), len(psf_angles), 3, h, w), dtype=torch.float32, device=dev)
     for i, length in enumerate(lengths):
         for j, angle in enumerate(psf_angles):
             H = psf_spectrum_planes(make_psf("motion", length, float(angle), dev), hp, wp, ops)
-            raw, lo, scale = restore_raw(stack, H, float(K), ops, rows=rows)
+            raw, lo, scale = restore_raw(stack, H, float(K), ops, rows=rows,
+                                         stage_dtype=stage_dtype)
             out[i, j] = normalized_planes(raw, lo, scale, 1, h, w)[0]
     return out.cpu().numpy()

@@ -70,6 +70,19 @@ C, Hp, Wp) planes already padded (the JAX restore_planes): B1, the
 middle, B3, with normalize=False giving the raw unscaled planes the
 tiled restore (models/tiled.py) stitches.
 
+bf16 staging (`stage_dtype="bf16"`, the JAX package's; default 'f32'):
+the image's spectral planes between kernels are stored as bfloat16 — B1's
+forward pass stores them, B2 stores its output as bfloat16 too, and B7,
+B6 (inverse, CLS) and B3 read them — while every kernel computes in
+float32. `psf_spectrum_planes(..., stage_dtype="bf16")` casts the
+spectrum once; the single-frame pipeline caches it so (every filter then
+reads a bfloat16 H, RL and the taper through B2 'conv'), while the
+batched pipeline, `restore_planes` without a spectrum and the PSF sweep
+keep H float32, as in JAX. Richardson-Lucy's planes are not staged (JAX
+returns before reading the option). At roll and hp >= 512 the port's
+middle is B2 (bfloat16 out) where JAX takes B7 (float32 out), one more
+rounding (ROADMAP.md C).
+
 Semantics of the serial oracle (and of the JAX package): channels are
 pow2-padded before restoration, the inverse stays unscaled and the
 min-max normalize over the padded extent absorbs 1/(MN), then crop.
@@ -105,6 +118,9 @@ from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
 from fft_restoration_tpu_torch.utils.trace_profile import fphase
 
 PAD_MODES = ("pow2", "smooth")
+# stage_dtype values (the JAX package's): float32 staging, bfloat16 staging
+STAGE_F32 = (None, "f32", "float32")
+STAGE_BF16 = ("bf16", "bfloat16")
 FILTERS = ("wiener", "inverse", "cls", "rl")
 PSF_CACHE_SIZE = 8
 # Column length (hp, the transposed row length) from which the Wiener
@@ -191,6 +207,17 @@ def spectrum_tag(ops, hp: int, wp: int, radices_hw=((), ())) -> tuple:
 KERNEL_BACKEND = "pallas"
 
 
+def stage_of(stage_dtype):
+    """The storage dtype of bf16 staging's planes: None for 'f32' (or
+    None, 'float32'), torch.bfloat16 for 'bf16' (or 'bfloat16'); any other
+    value raises, as the JAX restore does."""
+    if stage_dtype in STAGE_F32:
+        return None
+    if stage_dtype in STAGE_BF16:
+        return fft_kernel.STAGE_DTYPE
+    raise ValueError(f"unknown stage_dtype {stage_dtype!r}; one of 'f32', 'bf16'")
+
+
 def resolve_device(device) -> torch.device:
     """torch.device for a pipeline; a CUDA device must exist — there is no
     silent CPU fallback."""
@@ -221,19 +248,24 @@ def pad_extents(h: int, w: int, pad_mode: str = "pow2"):
 
 
 def psf_spectrum_planes(psf, hp, wp, ops=KERNEL_OPS, radices_hw=((), ()), *, fft_engine=None,
-                        mxu_precision=None):
+                        mxu_precision=None, stage_dtype=None):
     """2D forward transform of the corner-anchored, zero-padded (hp, wp)
     PSF in the layout wiener_spectral_t consumes: (wp, hp) planes,
     transposed, bit-reversed along both axes (in residue-block order at
     smooth extents, radices_hw = (rad_h, rad_w); in the hybrid order along
     an axis whose passes resolve to mxu). Only the PSF's own rows are
     transformed in the first pass (a row FFT of zeros is zero).
-    fft_engine, mxu_precision: `ops` at that engine (with_engine)."""
+    fft_engine, mxu_precision: `ops` at that engine (with_engine).
+    stage_dtype='bf16': computed in float32, stored as bfloat16 (cast once
+    here, as the JAX psf_spectrum_planes does)."""
     ops = with_engine(ops, fft_engine, mxu_precision)
+    stage = stage_of(stage_dtype)
     rad_h, rad_w = radices_hw
     with fphase("fft_psf"):
         re, im = ops.fft_rows(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
         h_re, h_im = ops.fft_rows(re, im, radices=rad_h)
+    if stage is not None:
+        return h_re[0].to(stage), h_im[0].to(stage)
     return h_re[0], h_im[0]
 
 
@@ -250,7 +282,7 @@ def laplacian_spectrum(hp, wp, device, ops=KERNEL_OPS, radices_hw=((), ()), *, f
     return psf_spectrum_planes(lap, hp, wp, ops, radices_hw)
 
 
-def psf_spectrum_from_numpy(h_re, h_im, device):
+def psf_spectrum_from_numpy(h_re, h_im, device, dtype=torch.float32):
     """Carry a spectrum computed by the JAX package into the port:
     `fft_restoration_tpu.models.pipeline.psf_spectrum_planes(...,
     engine=E)` returns numpy-convertible (wp, hp) planes in the layout
@@ -258,9 +290,10 @@ def psf_spectrum_from_numpy(h_re, h_im, device):
     for "roll", the hybrid order for "mxu" (the JAX package on a CPU
     computes its mxu spectra in float32: load them into an mxu pipeline at
     mxu_precision="highest"). A spectrum of one engine must not be loaded
-    into a pipeline of the other."""
+    into a pipeline of the other. A bfloat16 spectrum (stage_dtype='bf16')
+    widens exactly; pass `dtype=torch.bfloat16` to store it so again."""
     return tuple(
-        torch.tensor(np.asarray(p, np.float32), device=device) for p in (h_re, h_im)
+        torch.tensor(np.asarray(p, np.float32), device=device).to(dtype) for p in (h_re, h_im)
     )
 
 
@@ -276,7 +309,7 @@ def minmax_norm(mm, n_pairs, c):
 
 
 def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=None,
-                    radices=()):
+                    radices=(), stage_dtype=None):
     """(P, Wp, Hp) row-FFT'd transposed planes -> (P, Hp, Wp) filtered,
     column-inverted planes. Wiener: B2 when Hp >= FUSED_MIDDLE_MIN_N, else
     B7 then the inverse row pass with transposed store. inverse / cls:
@@ -285,11 +318,14 @@ def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=
     radices: those of Hp. Phase ranges (fphase): B2, and B7, under
     spectral_fused as in JAX; the inverse pass under ifft; inverse and
     cls, which JAX leaves in no range, take the forward pass under
-    fft_image and the filter under spectral_fused."""
+    fft_image and the filter under spectral_fused. stage_dtype='bf16':
+    B2 stores bfloat16 planes (the planes A may be bfloat16 whatever it
+    is: the kernels widen them)."""
     if filter_name == "wiener":
         with fphase("spectral_fused"):
             if a_re.shape[-1] >= FUSED_MIDDLE_MIN_N:
-                return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K, radices)
+                return ops.wiener_spectral_t(a_re, a_im, H[0], H[1], K, radices,
+                                             out_dtype=stage_of(stage_dtype))
             f_re, f_im = ops.fwd_wiener_rows(a_re, a_im, H[0], H[1], K, radices)
     elif filter_name in ("inverse", "cls"):
         with fphase("fft_image"):
@@ -304,19 +340,22 @@ def spectral_middle(a_re, a_im, H, K, ops=KERNEL_OPS, filter_name="wiener", lap=
 
 
 def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", lap=None,
-                pad_mode="pow2"):
+                pad_mode="pow2", stage_dtype=None):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     raw unscaled restored planes (2P, Hp, Wp), image i's channels at
     planes 3i..3i+2, and their per-plane normalize (lo, scale), (3B,).
     rows: the stack's forward row pass when the caller already has it
     (a PSF sweep restores one image under many PSFs; the edge taper
-    transforms its tapered planes)."""
+    transforms its tapered planes), staged by the caller. stage_dtype:
+    'bf16' stores B1's and B2's planes as bfloat16 (module docstring)."""
     b, h, w, c = stack.shape
     hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     if rows is None:
         with fphase("fft_image"):
-            rows = ops.fft_rows_stack(stack, extent=(hp, wp), radices=rad_w)
-    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap, rad_h)
+            rows = ops.fft_rows_stack(stack, extent=(hp, wp), radices=rad_w,
+                                      out_dtype=stage_of(stage_dtype))
+    r_re, r_im = spectral_middle(rows[0], rows[1], H, K, ops, filter_name, lap, rad_h,
+                                 stage_dtype)
     with fphase("ifft"):
         raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
     with fphase("post_process"):
@@ -326,7 +365,7 @@ def restore_raw(stack, H, K, ops=KERNEL_OPS, rows=None, filter_name="wiener", la
 
 def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name="wiener",
                    rl_iters=10, psf_spectrum=None, normalize=True, radices_hw=((), ()),
-                   ops=KERNEL_OPS, fft_engine=None, mxu_precision=None):
+                   ops=KERNEL_OPS, fft_engine=None, mxu_precision=None, stage_dtype=None):
     """Restore (C, Hp, Wp) or (B, C, Hp, Wp) float32 planes (uint8 planes
     are converted x / 255), or one (Hp, Wp) plane, with the (S, S) PSF at
     the planes' own extents: pow2, or smooth with radices_hw = (rad_h,
@@ -348,8 +387,13 @@ def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name=
     apply, as in JAX). Any other backend: `restore_planes_generic`
     (psf_spectrum unused: its layout is the kernel route's, as in JAX).
     fft_engine, mxu_precision: `ops` at that engine (with_engine; kernel
-    route only, as the JAX engine= applies to its kernels only)."""
+    route only, as the JAX engine= applies to its kernels only).
+    stage_dtype: 'f32' (default) or 'bf16', bf16 staging on the kernel
+    route (module docstring; raises for another value, also on 'rl' and
+    the generic route, which ignore it as JAX does); the spectrum made
+    here stays float32, as in JAX."""
     ops = with_engine(ops, fft_engine, mxu_precision)
+    stage_of(stage_dtype)  # raises for an unknown value
     if channels.dtype == torch.uint8:
         channels = u8_to_unit(channels)
     hp, wp = channels.shape[-2:]
@@ -374,8 +418,9 @@ def restore_planes(channels, psf, K, *, fft_backend=KERNEL_BACKEND, filter_name=
     n = flat.shape[0]
     with fphase("fft_image"):
         a_re, a_im = ops.fft_rows(flat[0::2], flat[1::2] if n > 1 else None, transposed=True,
-                                  radices=rad_w)
-    r_re, r_im = spectral_middle(a_re, a_im, H, float(K), ops, filter_name, lap, rad_h)
+                                  radices=rad_w, out_dtype=stage_of(stage_dtype))
+    r_re, r_im = spectral_middle(a_re, a_im, H, float(K), ops, filter_name, lap, rad_h,
+                                 stage_dtype)
     with fphase("ifft"):
         raw, mm = ops.fft_rows_packed_out(r_re, r_im, inverse=True, radices=rad_w)
     with fphase("post_process"):
@@ -422,7 +467,7 @@ def encode_planar(planes, orig, white_balance):
 def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
                   filter_name="wiener", psf=None, lap=None, rl_iters=10, edgetaper=False,
                   encode=True, pad_mode="pow2", ops=KERNEL_OPS, fft_engine=None,
-                  mxu_precision=None):
+                  mxu_precision=None, stage_dtype=None):
     """(B, h, w, 3) uint8 (or float32 in [0, 1]) BGR stack on the device ->
     ((B, h, w, 3) uint8 restored stack, (B, 3, h, w) float32 planes or
     None). Per-image white balance: the gains' means are over the same
@@ -435,8 +480,11 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     pre_process (padding, taper), the sections of restore_raw, and
     post_process; RL's loop is in no range, as in JAX. fft_engine,
     mxu_precision: `ops` at that engine (with_engine); H and lap must be
-    the spectra the same engine made."""
+    the spectra the same engine made. stage_dtype: 'bf16' stages the
+    image's planes (module docstring; not RL's, as in JAX); H may be
+    bfloat16 whatever it is."""
     ops = with_engine(ops, fft_engine, mxu_precision)
+    stage_of(stage_dtype)  # raises for an unknown value
     b, h, w, _ = stack.shape
     hp, wp, rad_h, rad_w = pad_extents(h, w, pad_mode)
     rows = None
@@ -460,8 +508,10 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
             return out, (planes if emit_planes else None)
         # every row: the taper fills the pad rows with the blur's wrap tail
         with fphase("fft_image"):
-            rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True, radices=rad_w)
-    raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap, pad_mode)
+            rows = ops.fft_rows(flat[0::2], flat[1::2], transposed=True, radices=rad_w,
+                                out_dtype=stage_of(stage_dtype))
+    raw, lo, scale = restore_raw(stack, H, K, ops, rows, filter_name, lap, pad_mode,
+                                 stage_dtype)
     with fphase("post_process"):
         planes = None
         if emit_planes or not white_balance:
@@ -615,12 +665,22 @@ def frames_to_device(arr, device) -> torch.Tensor:
 
 class _CachedPsfPipeline:
     """Options and the PSF-spectrum cache the single and batched
-    pipelines share."""
+    pipelines share. STAGE_SPECTRUM: whether bf16 staging stores the
+    cached spectrum as bfloat16 too (the single-frame pipeline, as JAX's
+    psf_spectrum_planes(stage_dtype=...) cache) or keeps it float32 (the
+    batched pipeline, whose JAX twin transforms the PSF inside its restore)."""
+
+    STAGE_SPECTRUM = True
 
     def __init__(self, device, *, filter_name, white_balance, emit_planes, pad_mode,
                  wb_stats_stride, psf_type="motion", rl_iters=10, edgetaper=False,
-                 fft_backend=KERNEL_BACKEND, fft_engine="roll", mxu_precision="default"):
+                 fft_backend=KERNEL_BACKEND, fft_engine="roll", mxu_precision="default",
+                 stage_dtype=None):
         self.device = resolve_device(device)
+        # bf16 staging (module docstring), and the cached spectrum's dtype
+        self.stage_dtype = stage_dtype
+        stage = stage_of(stage_dtype)
+        self.spectrum_dtype = stage if stage is not None and self.STAGE_SPECTRUM else torch.float32
         if fft_engine not in FFT_ENGINES:
             raise ValueError(f"unknown FFT engine {fft_engine!r}; one of {FFT_ENGINES}")
         # the kernel route's operations at this engine and precision
@@ -647,9 +707,10 @@ class _CachedPsfPipeline:
         self.rl_iters = int(rl_iters)
         self.edgetaper = bool(edgetaper)
         # (psf, spectrum) keyed on (hp, wp, rad_h, rad_w, length, angle),
-        # the spectrum_tag of the engine and precision, a concrete kernel's
-        # bytes and shape after them, oldest evicted first: a spectrum is
-        # 2 * hp * wp float32 (33.5 MB at 2048^2)
+        # the spectrum_tag of the engine and precision, "bf16" for a
+        # bfloat16 spectrum, a concrete kernel's bytes and shape after them,
+        # oldest evicted first: a spectrum is 2 * hp * wp float32 (33.5 MB
+        # at 2048^2; half that in bfloat16)
         self._psf_cache = {}
         # CLS's Laplacian spectrum for the last pad and tag, in a slot of its own
         self._lap = (None, None)
@@ -676,6 +737,8 @@ class _CachedPsfPipeline:
     def _cache_key(self, pad, psf_length, angle):
         key = (*pad, int(psf_length), float(angle)) + spectrum_tag(self.ops, pad[0], pad[1],
                                                                    pad[2:])
+        if self.spectrum_dtype != torch.float32:  # f32 keys stay as they were
+            key += ("bf16",)
         return key if isinstance(self.psf_type, str) else key + psf_key(self.psf_type)
 
     def _psf_spectrum(self, h: int, w: int, psf_length: int, angle: float):
@@ -684,7 +747,8 @@ class _CachedPsfPipeline:
         key = self._cache_key(pad, psf_length, angle)
         if key not in self._psf_cache:
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
-            self._remember(key, (psf, psf_spectrum_planes(psf, *pad[:2], self.ops, pad[2:])))
+            H = psf_spectrum_planes(psf, *pad[:2], self.ops, pad[2:])
+            self._remember(key, (psf, tuple(x.to(self.spectrum_dtype) for x in H)))
         return self._psf_cache[key]
 
     def _laplacian_spectrum(self, h: int, w: int):
@@ -701,10 +765,12 @@ class _CachedPsfPipeline:
         spectrum with the same radices). It must be in this pipeline's
         order: E its fft_engine ("roll": plain bit-reversed; "mxu": the
         hybrid order, at this pipeline's precision); see
-        psf_spectrum_from_numpy."""
+        psf_spectrum_from_numpy. It is stored in this pipeline's spectrum
+        dtype (bfloat16 for a bf16-staged single-frame pipeline: a JAX
+        bfloat16 spectrum comes back exactly)."""
         pad = self.pad(h, w)
         hp, wp = pad[:2]
-        H = psf_spectrum_from_numpy(planes[0], planes[1], self.device)
+        H = psf_spectrum_from_numpy(planes[0], planes[1], self.device, self.spectrum_dtype)
         if H[0].shape != (wp, hp) or H[1].shape != (wp, hp):
             raise ValueError(f"spectrum planes must be ({wp}, {hp}), got {tuple(H[0].shape)}")
         psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
@@ -732,7 +798,7 @@ class _CachedPsfPipeline:
             stack, H, float(K), filter_name=self.filter_name, psf=psf,
             lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
             rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode,
-            ops=self.ops, **opts,
+            ops=self.ops, stage_dtype=self.stage_dtype, **opts,
         )
 
 
@@ -768,6 +834,11 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
     pass of the group products, the JAX flagship) or 'highest' (3xTF32,
     float32's accuracy, what the strict l2 / inf tiers need); unused by
     roll and by the generic route.
+    stage_dtype: 'f32' (default) or 'bf16', bf16 staging on the kernel
+    route (module docstring): the image's spectral planes between kernels
+    and the cached PSF spectrum stored as bfloat16, so every filter reads
+    a bfloat16 H; the kernels compute in float32. Ignored by the generic
+    route, as in JAX; any other value raises ValueError.
     """
 
     def __init__(
@@ -785,12 +856,13 @@ class WienerDeblurPipeline(_CachedPsfPipeline):
         psf_type="motion",
         fft_engine: str = "roll",
         mxu_precision: str = "default",
+        stage_dtype: str | None = "f32",
     ):
         super().__init__(
             device, filter_name=filter_name, white_balance=white_balance,
             emit_planes=emit_planes, pad_mode=pad_mode, wb_stats_stride=wb_stats_stride,
             psf_type=psf_type, rl_iters=rl_iters, edgetaper=edgetaper, fft_backend=fft_backend,
-            fft_engine=fft_engine, mxu_precision=mxu_precision,
+            fft_engine=fft_engine, mxu_precision=mxu_precision, stage_dtype=stage_dtype,
         )
 
     def to_device(self, img_bgr) -> torch.Tensor:

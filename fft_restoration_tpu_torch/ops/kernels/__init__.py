@@ -16,6 +16,11 @@ of a tensor-core (MXU engine) instance is counted under
 "<kernel>_mxu_<precision>" as well (`MXU_COUNTS`: B1 "fft_rows_t", B6
 "fft_rows", B3 "fft_rows_packed_out", B2 "wiener_spectral_t",
 "spectral_conv_t" and "spectral_conv_t_conj", B7 "fwd_wiener_rows").
+A launch that loads or stores bfloat16 planes (bf16 staging) is counted
+under "<kernel>_bf16" as well (`STAGE_COUNTS`: B1 "fft_rows_t" storing,
+B6 "fft_rows" and B3 "fft_rows_packed_out" loading, B2
+"wiener_spectral_t", "spectral_conv_t" and "spectral_conv_t_conj", B7
+"fwd_wiener_rows").
 
 The public names of the JAX package's `ops.pallas` are here under the
 port's names, imported on first use: `fft_rows` (fft_rows_pallas),
@@ -33,11 +38,12 @@ import torch
 MXU_KERNELS = ("fft_rows_t", "fft_rows", "fft_rows_packed_out", "wiener_spectral_t",
                "spectral_conv_t", "spectral_conv_t_conj", "fwd_wiener_rows")
 MXU_COUNTS = tuple(f"{k}_mxu_{p}" for k in MXU_KERNELS for p in ("default", "highest"))
+STAGE_COUNTS = tuple(f"{k}_bf16" for k in MXU_KERNELS)
 KERNELS = (
     "fft_rows", "wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows",
     "lab_l_sum_partials", "wb_encode_u8", "mixed_radix", "fft_rows_natural",
     "fft_cols", "wiener_elem", "wiener_spectral_rows", "fft_rows_radix4", "fft_rows_t",
-) + MXU_COUNTS
+) + MXU_COUNTS + STAGE_COUNTS
 
 # public name -> module of ops/kernels that defines it
 PUBLIC = {

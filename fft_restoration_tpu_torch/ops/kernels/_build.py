@@ -5,7 +5,8 @@ nvcc builds them in seconds: one nvcc per translation unit, all started
 together, then one link. The MXU engine's instances of the three FFT
 sources (MXU_UNITS) build in units of their own, each source compiled
 again with FFT_MXU_TU set to one engine, so that they build in parallel
-with the rest. The shared library lands in
+with the rest; their bf16-staging instances (STAGE_UNITS) likewise, with
+FFT_STAGE_TU set to one engine, roll included. The shared library lands in
 `build/kernels/<hash of the sources and flags>/` beside the package, so
 an edited source builds anew and an unchanged one is built once. Call
 `load()` from a function that launches a kernel, never at import: the
@@ -35,6 +36,12 @@ HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh", "fft_group_d
 # the bit (a contracted FMA can land them on the neighbouring bf16).
 MXU_UNITS = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu")
 MXU_ENGINES = ((1, "bf16", ("-fmad=false",)), (2, "tf32x3", ()))
+# the sources whose bf16-staging instances (bfloat16 loads and stores:
+# models/pipeline.py stage_dtype) build in units of their own, one an
+# engine, each with that engine's flags: the float32 units keep their
+# machine code, and the instances build in parallel with them
+STAGE_UNITS = MXU_UNITS
+STAGE_ENGINES = ((0, "roll", ()),) + MXU_ENGINES
 
 
 def units() -> list:
@@ -43,6 +50,9 @@ def units() -> list:
     for src in MXU_UNITS:
         out += [(src, f"{Path(src).stem}_mxu_{tag}", (f"-DFFT_MXU_TU={eng}", *flags))
                 for eng, tag, flags in MXU_ENGINES]
+    for src in STAGE_UNITS:
+        out += [(src, f"{Path(src).stem}_bf16_{tag}", (f"-DFFT_STAGE_TU={eng}", *flags))
+                for eng, tag, flags in STAGE_ENGINES]
     return out
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -66,7 +76,8 @@ CROSS = [I, P, P, P, P]
 # (fft_kernel.dft_fragments; null for roll)
 ENG = [I, P]
 SIGNATURES = {
-    # src_re, src_im, in_u8, image stride, channel stride, channels,
+    # src_re, src_im, input dtype (fft_kernel.IN_DTYPES), image stride,
+    # channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
     # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
     # floats between pairs' outputs, minmax, log2 rows a partial, inverse,
@@ -77,24 +88,25 @@ SIGNATURES = {
     # src_re, src_im, in_u8, image stride, channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
     # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
-    # inverse, cos, sin, host int32 plan (fft_kernel.TPlan.c_plan), CROSS,
-    # ENG, stream
+    # out bfloat16 (bf16 staging), inverse, cos, sin, host int32 plan
+    # (fft_kernel.TPlan.c_plan), CROSS, ENG, stream
     "fft_rows_t_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                          I, I, I, I, P, P, I, P, P, P, *CROSS, *ENG, P],
+                          I, I, I, I, P, P, I, I, P, P, P, *CROSS, *ENG, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
     # padded row stride, threads, cos_f, sin_f, cos_i, sin_i, host int32
     # DIF and DIT plans (fft_kernel.s_plan), CROSS fwd, CROSS inv, ENG with
-    # the forward fragments, the inverse fragments, stream
+    # the forward fragments, the inverse fragments, the bfloat16 operands
+    # (wiener_spectral.DT_*), stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I,
-                                 P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, P],
+                                 P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, I, P],
     # the same with the conj flag in place of K
     "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I, I,
-                               P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, P],
+                               P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, I, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
     # padded row stride, threads, cos_f, sin_f, host int32 plan, CROSS fwd,
-    # ENG (the forward fragments), stream
+    # ENG (the forward fragments), the bfloat16 operands, stream
     "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I, P, P, P, *CROSS, *ENG,
-                               P],
+                               I, P],
     # B10: as wiener_spectral_t_launch without the cross levels (pow2 rows)
     "wiener_spectral_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I,
                                     P, P, P, P, P, P, P],

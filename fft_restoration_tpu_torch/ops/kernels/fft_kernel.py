@@ -49,6 +49,15 @@ order, bit-reversed inside each block (in the hybrid order inside each
 block at mxu): diff it only against the JAX engine of the same name with
 the same radices.
 
+bf16 staging (`stage_dtype`, models/pipeline.py; the JAX out_dtype and
+_load_f32): B1's forward pass stores bfloat16 planes with
+`out_dtype=torch.bfloat16` (`fft_rows(..., transposed=True)`,
+`fft_rows_stack`), rounded to nearest even; B6's revorder passes and B3
+read bfloat16 planes, widened as they load. Every kernel computes in
+float32, and so does every plain version (it widens its input and rounds
+its output the same way). Such a launch is counted under
+"<kernel>_bf16" too (`STAGE_COUNTS`).
+
 `fft_rows_stack` is B1 over a (B, h, w, C) image stack: the kernel's
 loader maps logical plane q to image q // C, channel q % C, so channel
 pairs straddle images (the JAX batched graph's (B*3, hp, wp) packing)
@@ -995,7 +1004,7 @@ def run_stages(x_re, x_im, inverse: bool, radices: tuple = (), natural: bool = F
 
 
 def _logical(x, planes, extent):
-    """(p, m, n) u8/f32 planes -> (planes, M, N) float32, zero beyond."""
+    """(p, m, n) u8/f32/bf16 planes -> (planes, M, N) float32, zero beyond."""
     big_m, big_n = extent
     out = torch.zeros((planes, big_m, big_n), dtype=torch.float32, device=x.device)
     p, m, n = x.shape
@@ -1005,11 +1014,41 @@ def _logical(x, planes, extent):
     return out
 
 
+# the planes' element type as the C entries take it (csrc/fft_rows.cu IN_*)
+IN_DTYPES = {torch.float32: 0, torch.uint8: 1, torch.bfloat16: 2}
+# the storage dtype of bf16 staging's planes (out_dtype)
+STAGE_DTYPE = torch.bfloat16
+
+
+def check_out_dtype(out_dtype, transposed=True, inverse=False):
+    """None (float32) or torch.bfloat16: the storage dtype of B1's
+    forward transposed store. As in JAX, bf16 staging stores only through
+    the transposed store; the port stores it on forward passes only (the
+    pipelines' one use)."""
+    if out_dtype is None or out_dtype == torch.float32:
+        return None
+    if out_dtype != STAGE_DTYPE:
+        raise ValueError(f"out_dtype must be None, float32 or bfloat16, got {out_dtype}")
+    if not transposed:
+        raise ValueError("out_dtype (bf16 staging) is only supported with the transposed "
+                         "store (transposed=True)")
+    if inverse:
+        raise ValueError("out_dtype (bf16 staging) stores forward passes only")
+    return STAGE_DTYPE
+
+
+def _stage_out(x_re, x_im, out_dtype):
+    """The plain versions' store: float32 as it is, or rounded to out_dtype."""
+    if out_dtype is None:
+        return x_re, x_im
+    return x_re.to(out_dtype), x_im.to(out_dtype)
+
+
 def _check_planes(re, im, extent, radices):
     if re.ndim != 3:
         raise ValueError(f"need (P, M, N) planes, got shape {tuple(re.shape)}")
-    if re.dtype not in (torch.uint8, torch.float32):
-        raise ValueError(f"planes must be uint8 or float32, got {re.dtype}")
+    if re.dtype not in IN_DTYPES:
+        raise ValueError(f"planes must be uint8, float32 or bfloat16, got {re.dtype}")
     if im is not None:
         if im.dtype != re.dtype or im.shape[1:] != re.shape[1:] or im.shape[0] > re.shape[0]:
             raise ValueError(
@@ -1023,17 +1062,21 @@ def _check_planes(re, im, extent, radices):
     return int(big_m), int(big_n)
 
 
-def _check_store(ordering, radices, transposed) -> bool:
+def _check_store(ordering, radices, transposed, in_dtype=torch.float32) -> bool:
     natural = check_ordering(ordering, radices)
     if natural and transposed:
         raise ValueError("the transposed store takes revorder ordering (B1's order)")
+    if in_dtype == STAGE_DTYPE and (natural or transposed):
+        raise ValueError("bfloat16 planes (bf16 staging) load in revorder passes with the "
+                         "natural store only (B6, as the pipelines read them)")
     return natural
 
 
 def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
-                   ordering="revorder", engine="roll", precision="default"):
+                   ordering="revorder", engine="roll", precision="default", out_dtype=None):
     """Plain version of `fft_rows` (same signature and layout)."""
-    natural = _check_store(ordering, radices, transposed)
+    natural = _check_store(ordering, radices, transposed, re.dtype)
+    out_dtype = check_out_dtype(out_dtype, transposed, inverse)
     big_m, big_n = _check_planes(re, im, extent, radices)
     planes = re.shape[0]
     x_re = _logical(re, planes, (big_m, big_n))
@@ -1042,12 +1085,12 @@ def fft_rows_plain(re, im=None, *, inverse=False, transposed=False, extent=None,
     )
     x_re, x_im = run_stages(x_re, x_im, inverse, radices, natural, engine, precision)
     if transposed:
-        return x_re.transpose(1, 2).contiguous(), x_im.transpose(1, 2).contiguous()
-    return x_re, x_im
+        x_re, x_im = x_re.transpose(1, 2).contiguous(), x_im.transpose(1, 2).contiguous()
+    return _stage_out(x_re, x_im, out_dtype)
 
 
 def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radices=(),
-             ordering="revorder", engine="roll", precision="default"):
+             ordering="revorder", engine="roll", precision="default", out_dtype=None):
     """Row FFT over the last axis of (P, m, n) planes (B1/B6).
 
     re, im: uint8 or float32 planes of any strides (im with re's strides);
@@ -1074,19 +1117,23 @@ def fft_rows(re, im=None, *, inverse=False, transposed=False, extent=None, radic
     module docstring) and the mxu group product's precision; a pass
     that resolves to mxu launches the tensor-core instance (counted under
     "fft_rows_t_mxu_<precision>" or "fft_rows_mxu_<precision>" too).
+    bf16 staging (module docstring): out_dtype=torch.bfloat16 stores a
+    forward transposed pass as bfloat16 ("fft_rows_t_bf16"); bfloat16
+    planes load in a revorder pass with the natural store ("fft_rows_bf16").
     """
     if not on_cuda(*(t for t in (re, im) if t is not None)):
         return fft_rows_plain(re, im, inverse=inverse, transposed=transposed, extent=extent,
                               radices=radices, ordering=ordering, engine=engine,
-                              precision=precision)
-    natural = _check_store(ordering, radices, transposed)
+                              precision=precision, out_dtype=out_dtype)
+    natural = _check_store(ordering, radices, transposed, re.dtype)
+    out_dtype = check_out_dtype(out_dtype, transposed, inverse)
     big_m, big_n = _check_planes(re, im, extent, radices)
     code = engine_code(engine, big_n, radices, ordering, precision)
     planes, m, n = re.shape
     shape = (planes, big_n, big_m) if transposed else (planes, big_m, big_n)
     # both kernels write the rows past the live ones (zeros) themselves
-    out_re = torch.empty(shape, dtype=torch.float32, device=re.device)
-    out_im = torch.empty(shape, dtype=torch.float32, device=re.device)
+    out_re = torch.empty(shape, dtype=out_dtype or torch.float32, device=re.device)
+    out_im = torch.empty_like(out_re)
     ps, rs, cs = re.stride()
     if im is not None and (
         im.stride()[1:] != (rs, cs) or (im.shape[0] > 1 and im.stride(0) != ps)
@@ -1126,15 +1173,17 @@ def stack_pairs_plain(stack):
     return planes[0::2], planes[1::2]
 
 
-def fft_rows_stack_plain(stack, *, extent, radices=(), engine="roll", precision="default"):
+def fft_rows_stack_plain(stack, *, extent, radices=(), engine="roll", precision="default",
+                         out_dtype=None):
     """Plain version of `fft_rows_stack` (same signature and layout)."""
     big_m, big_n = _check_stack(stack, extent, radices)
     re, im = stack_pairs_plain(stack)
     return fft_rows_plain(re, im, transposed=True, extent=(big_m, big_n), radices=radices,
-                          engine=engine, precision=precision)
+                          engine=engine, precision=precision, out_dtype=out_dtype)
 
 
-def fft_rows_stack(stack, *, extent, radices=(), engine="roll", precision="default"):
+def fft_rows_stack(stack, *, extent, radices=(), engine="roll", precision="default",
+                   out_dtype=None):
     """Forward row FFT of a (B, h, w, C) uint8/float32 image stack of any
     strides, channel pairs packed across images (B1, stack loader).
 
@@ -1144,19 +1193,22 @@ def fft_rows_stack(stack, *, extent, radices=(), engine="roll", precision="defau
     transform size (rows >= h and columns >= w are zero; only live rows
     are transformed). Returns float32 (re, im) of shape (ceil(B*C/2), N,
     M), transposed, bit-reversed along N, as `fft_rows(...,
-    transposed=True)` gives for the same planes (radices, engine and
-    precision as there).
+    transposed=True)` gives for the same planes (radices, engine,
+    precision and out_dtype as there: a uint8 stack stores bfloat16 planes
+    straight from its bytes).
     """
     if not on_cuda(stack):
         return fft_rows_stack_plain(stack, extent=extent, radices=radices, engine=engine,
-                                    precision=precision)
+                                    precision=precision, out_dtype=out_dtype)
     big_m, big_n = _check_stack(stack, extent, radices)
+    out_dtype = check_out_dtype(out_dtype)
     code = engine_code(engine, big_n, radices, "revorder", precision)
     b, h, w, c = stack.shape
     n_planes = b * c
     pairs = -(-n_planes // 2)
-    out_re = torch.empty((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
-    out_im = torch.empty((pairs, big_n, big_m), dtype=torch.float32, device=stack.device)
+    out_re = torch.empty((pairs, big_n, big_m), dtype=out_dtype or torch.float32,
+                         device=stack.device)
+    out_im = torch.empty_like(out_re)
     bs, rs, cs, chs = stack.stride()
     _launch_t(stack, stack, PlaneMap(bs, chs, c, 2, 1, rs, cs), pairs, n_planes // 2,
               h, w, big_m, big_n, out_re, out_im, False, radices, code)
@@ -1169,7 +1221,7 @@ def fft_rows_packed_out_plain(re, im, *, inverse=True, radices=(), engine="roll"
     _check_contiguous_pair(re, im, radices)
     planes, big_m, big_n = re.shape
     rows = rows_per_block(big_n, big_m)
-    x_re, x_im = run_stages(re, im, inverse, radices, False, engine, precision)
+    x_re, x_im = run_stages(re.float(), im.float(), inverse, radices, False, engine, precision)
     out = torch.stack([x_re, x_im], dim=1).reshape(2 * planes, big_m, big_n)
     blk_re = x_re.reshape(planes, big_m // rows, rows * big_n)
     blk_im = x_im.reshape(planes, big_m // rows, rows * big_n)
@@ -1182,8 +1234,8 @@ def fft_rows_packed_out_plain(re, im, *, inverse=True, radices=(), engine="roll"
 def _check_contiguous_pair(re, im, radices):
     if re.ndim != 3 or re.shape != im.shape:
         raise ValueError(f"need matching (P, M, N) planes, got {tuple(re.shape)}")
-    if re.dtype != torch.float32 or im.dtype != torch.float32:
-        raise ValueError("planes must be float32")
+    if re.dtype not in (torch.float32, STAGE_DTYPE) or im.dtype != re.dtype:
+        raise ValueError("planes must be float32, or both bfloat16 (bf16 staging)")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("planes must be contiguous")
     check_length(re.shape[-1], radices)
@@ -1201,7 +1253,9 @@ def fft_rows_packed_out(re, im, *, inverse=True, radices=(), engine="roll", prec
     (B3, csrc/fft_rows.cu: the last stage group stores both planes and
     folds the min/max from registers). radices, engine and precision as
     in `fft_rows` (an mxu pass counted under
-    "fft_rows_packed_out_mxu_<precision>" too).
+    "fft_rows_packed_out_mxu_<precision>" too). bfloat16 planes (bf16
+    staging, B2's output) widen as they load ("fft_rows_packed_out_bf16");
+    the output and partials stay float32.
     """
     if not on_cuda(re, im):
         return fft_rows_packed_out_plain(re, im, inverse=inverse, radices=radices, engine=engine,
@@ -1265,7 +1319,7 @@ def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, 
                                               bool(natural), mm is not None, re.device, code)
     err = _build.load().fft_rows_launch(
         re.data_ptr(), None if im is None else im.data_ptr(),
-        int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
+        IN_DTYPES[re.dtype], pmap.image, pmap.channel, pmap.channels,
         pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
         live_rows, live_cols, re_live, big_m, *geometry, out_re, out_im, out_pair,
         None if mm is None else mm.data_ptr(), lpg, *consts,
@@ -1279,6 +1333,8 @@ def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, 
         launch_counts["fft_rows_natural"] += 1
     if code:
         count_mxu("fft_rows" if mm is None else "fft_rows_packed_out", code)
+    if re.dtype == STAGE_DTYPE:
+        launch_counts["fft_rows_bf16" if mm is None else "fft_rows_packed_out_bf16"] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -1322,7 +1378,7 @@ def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n
         int(re.dtype == torch.uint8), pmap.image, pmap.channel, pmap.channels,
         pmap.qstep, pmap.qim, pmap.row, pmap.col, re_live, im_live,
         live_rows, live_cols, re_live, big_m, *geometry,
-        out_re.data_ptr(), out_im.data_ptr(), *consts,
+        out_re.data_ptr(), out_im.data_ptr(), int(out_re.dtype == STAGE_DTYPE), *consts,
         torch.cuda.current_stream(re.device).cuda_stream,
     )
     _build.check(err, "fft_rows_t")
@@ -1332,6 +1388,8 @@ def _launch_t(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n
         launch_counts["mixed_radix"] += 1
     if code:
         count_mxu("fft_rows_t", code)
+    if out_re.dtype == STAGE_DTYPE:
+        launch_counts["fft_rows_t_bf16"] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ layer's B11 (`fft_cols`: both orderings and directions at (3, 2048,
 2048), natural forward on the tall (1, 4096, 2048) and on (96, 256,
 256)), B12 (`fft_rows_radix4_fwd` on (6144, 2048) real and complex
 rows) and B10 (`B10_rows`: `wiener_spectral_rows` on (3, 2048, 2048)
-planes with a (2048, 2048) spectrum). `--modes` times only the modes whose names start with one of its
+planes with a (2048, 2048) spectrum); bf16 staging's B2 'wiener' (2048^2,
+the UHD frame's smooth extents) and B7 (batch64) with a bfloat16 and a
+float32 H, B2 'conv' and B7 on the 640x330 stack, at roll and at mxu
+'default' (`B2_bf16_*`, `B7_bf16_*`). `--modes` times only the modes whose names start with one of its
 prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy, event time and host enqueue (both
@@ -204,6 +207,22 @@ def child(iters: int, seed: int, only: tuple = ()) -> dict:
     modes["B12_real_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re)
     modes["B12_complex_6144x2048"] = lambda: r4.fft_rows_radix4_fwd(x_re, x_im)
     modes["B10_rows"] = lambda: ws.wiener_spectral_rows(c_re, c_im, *H, 0.01)
+    # bf16 staging's B2 and B7 (bfloat16 A; H bfloat16 or float32) at roll
+    # and mxu 'default', on the bfloat16-rounded operands above
+    bf = torch.bfloat16
+    a16, H16, st16, H64_16, ua16, uH16, sa16 = (
+        tuple(x.to(bf) for x in t) for t in (a, H, st, H64, ua, uH, sa))
+    for tag, E in (("", {}), ("_mxu", dict(engine="mxu", precision="default"))):
+        for ht, h2, h64, hu in (("Hbf16", H16, H64_16, uH16), ("Hf32", H, H64, uH)):
+            modes[f"B2_bf16_wiener_{ht}{tag}"] = (
+                lambda h=h2, E=E: ws.wiener_spectral_t(*a16, *h, 0.01, out_dtype=bf, **E))
+            modes[f"B2_bf16_wiener_uhd_smooth_{ht}{tag}"] = (
+                lambda h=hu, E=E: ws.wiener_spectral_t(*ua16, *h, 0.01, rh, out_dtype=bf, **E))
+            modes[f"B7_bf16_batch64_{ht}{tag}"] = (
+                lambda h=h64, E=E: ws.fwd_wiener_rows(*st16, *h, 0.01, **E))
+        modes[f"B2_bf16_conv_Hbf16{tag}"] = lambda E=E: ws.spectral_conv_t(*a, *H16, False, **E)
+        modes[f"B7_bf16_stack330_smooth_Hf32{tag}"] = (
+            lambda E=E: ws.fwd_wiener_rows(*sa16, *sH, 0.01, srh, **E))
     # the white-balance pair on the plain restore's raw planes, also timed
     # in a CUDA graph (`<mode>_graph`): their single-frame launches are
     # shorter than the wrappers' host time

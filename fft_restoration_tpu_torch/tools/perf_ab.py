@@ -1,9 +1,9 @@
 """Same-process interleaved A/B experiments on one NVIDIA GPU.
 
     python -m fft_restoration_tpu_torch.tools.perf_ab [radix4] [megakernel] [engine] [megamxu]
-        [precision] [--iters N] [--seed N]
+        [precision] [stage] [--iters N] [--seed N]
 
-Counterpart of the JAX package's tools/perf_ab.py, for the five of its
+Counterpart of the JAX package's tools/perf_ab.py, for the six of its
 experiments that launch kernels of the port (no argument runs them all):
 
   radix4      B12 (`fft_rows_radix4_fwd`, radix-4 stages and a radix-2
@@ -25,7 +25,13 @@ experiments that launch kernels of the port (no argument runs them all):
               130-150).
   precision   at mxu, mxu_precision 'highest' (3xTF32) against 'default'
               (one bf16 pass) (perf_ab.py:152-190).
-The last three restore bench.py's 2048x2048x3 noise frame from --seed
+  stage       bf16 staging (stage_dtype 'bf16': the spectral planes
+              between kernels stored as bfloat16) against float32 staging,
+              at roll (the port's default) and at mxu 'default' (the JAX
+              experiment's engine) (perf_ab.py:191-215; the PSF spectrum
+              cached by the pipeline on both sides, where JAX transforms
+              it every frame).
+The last four restore bench.py's 2048x2048x3 noise frame from --seed
 through WienerDeblurPipeline.run (the serving graph, wb_stats_stride 4,
 PSF(50, 30 deg), K = 0.01) and print the uint8 max abs difference of
 the two variants, as the JAX experiments do.
@@ -39,9 +45,8 @@ output permutation for the row passes, B7 + B6 for B10. Prints one line
 per measurement and a JSON object last. Exits non-zero without a GPU.
 
 The JAX harness's other experiments measure TPU or Mosaic choices
-(select, realout, twrite, donate) or options the port has not ported
-(stage, which waits for bf16 staging, ROADMAP.md A16; smoothpad's TPU
-alignment, features, batchwb); ROADMAP.md A15 lists each with its
+(select, realout, twrite, donate) or TPU layout choices (smoothpad's
+TPU alignment, features, batchwb); ROADMAP.md A15 lists each with its
 reason.
 """
 
@@ -51,7 +56,7 @@ import argparse
 import json
 import sys
 
-EXPERIMENTS = ("radix4", "megakernel", "engine", "megamxu", "precision")
+EXPERIMENTS = ("radix4", "megakernel", "engine", "megamxu", "precision", "stage")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 N = 2048
 ROWS = 3 * N                 # radix4: the three channels of a 2048^2 frame as rows
@@ -216,6 +221,16 @@ def precision(torch, np, iters: int, seed: int = 0) -> dict:
                  iters)
 
 
+def stage(torch, np, iters: int, seed: int = 0) -> dict:
+    """bf16 staging against float32 staging, at roll and at mxu 'default'."""
+    frame = _frame(np, seed)
+    res = {}
+    for eng, kw in (("roll", {}), ("mxu", dict(fft_engine="mxu", mxu_precision="default"))):
+        res[eng] = _pair(torch, f"stage {eng}", "f32", _restore_fn(torch, frame, **kw),
+                         "bf16", _restore_fn(torch, frame, stage_dtype="bf16", **kw), iters)
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("experiments", nargs="*", help=f"any of {', '.join(EXPERIMENTS)} (all)")
@@ -236,7 +251,7 @@ def main() -> int:
         return 1
     print(f"card: {torch.cuda.get_device_name(0)}", flush=True)
     fns = {"radix4": radix4, "megakernel": megakernel, "engine": engine, "megamxu": megamxu,
-           "precision": precision}
+           "precision": precision, "stage": stage}
     out = {name: fns[name](torch, np, args.iters, args.seed) for name in which}
     print(json.dumps(out))
     return 0

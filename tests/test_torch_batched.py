@@ -203,8 +203,14 @@ def test_batched_options_not_ported_raise():
     smooth = BatchedWienerPipeline("cpu", pad_mode="smooth")  # ported: 64x300 at 64x384
     out = smooth.restore(_stack(2, 64, 300, 2), L, ANGLE, K)
     assert out.shape == (2, 64, 300, 3) and out.dtype == np.uint8
-    with pytest.raises(NotImplementedError, match="A16"):  # bf16 staging, the next slice
-        BatchedWienerPipeline("cpu", stage_dtype="bf16")
+    # bf16 staging is ported: the JAX test's frames and bound (tests/test_batched.py)
+    stack = (np.random.default_rng(0).random((2, 128, 128, 3)) * 255).astype(np.uint8)
+    out_b16 = BatchedWienerPipeline("cpu", stage_dtype="bf16").restore(stack, 9, ANGLE)
+    out_f32 = BatchedWienerPipeline("cpu").restore(stack, 9, ANGLE)
+    assert out_b16.shape == (2, 128, 128, 3)
+    assert _u8_diff(out_b16, out_f32) <= 2
+    with pytest.raises(ValueError, match="stage_dtype"):
+        BatchedWienerPipeline("cpu", stage_dtype="fp8")
     with pytest.raises(ValueError):
         BatchedWienerPipeline("cpu").restore(_stack(2, 32, 32, 1)[0], 5, 0.0)
 

@@ -63,18 +63,32 @@ def test_bad_arguments_exit_2(blurred_png, capsys, args):
     assert "[Error]" in capsys.readouterr().out
 
 
-def test_unported_flag_is_an_argparse_error(blurred_png, capsys):
-    """--stage-dtype (bf16 staging, the next slice) is the one JAX flag
-    left unported; it names its ROADMAP item."""
-    assert list(cli.NOT_PORTED) == ["--stage-dtype"]
+def ported(flag: str) -> bool:
+    """The CLI takes `flag` (the last JAX flag, --stage-dtype, is ported:
+    no flag is refused any more)."""
+    return not hasattr(cli, "NOT_PORTED") and flag in cli.build_parser()._option_string_actions
+
+
+def test_unported_flag_is_an_argparse_error(blurred_png, tmp_path, capsys):
+    """--stage-dtype, the last JAX flag to be ported: 'bf16' restores and
+    verifies at the gpu tier (bf16 staging), 'f32' is the default, and a
+    value outside the JAX CLI's choices is an argparse error."""
+    assert ported("--stage-dtype")
+    assert cli.build_parser().parse_args(["x.png", "9", "30"]).stage_dtype == "f32"
+    out = tmp_path / "out.png"
+    rc = cli.main([str(blurred_png), "9", "30", "--device", "cpu", "--stage-dtype", "bf16",
+                   "-o", str(out)])
+    text = capsys.readouterr().out
+    assert rc == 0 and "[Success] tier=gpu" in text, text
+    assert imread(str(out)).shape == (90, 140, 3)
     with pytest.raises(SystemExit) as e:
-        cli.main([str(blurred_png), "9", "30", "--stage-dtype", "bf16"])
+        cli.main([str(blurred_png), "9", "30", "--stage-dtype", "fp8"])
     assert e.value.code == 2
-    assert "ROADMAP.md A16" in capsys.readouterr().err
+    assert "--stage-dtype" in capsys.readouterr().err
 
 
 def test_iters_and_edgetaper_are_ported():
-    assert "--iters" not in cli.NOT_PORTED and "--edgetaper" not in cli.NOT_PORTED
+    assert ported("--iters") and ported("--edgetaper")
     args = cli.build_parser().parse_args(["x.png", "9", "30"])
     assert args.iters == 10 and not args.edgetaper and args.filter == "wiener"
 
@@ -212,7 +226,7 @@ def test_fft_backend_is_ported_and_defaults_to_the_kernels():
     """--fft-backend and --fft-engine are ported: the kernels by default,
     on the roll engine (the JAX CLI defaults to mxu: ROADMAP.md C);
     --fft-engine takes the JAX CLI's choices."""
-    assert "--fft-backend" not in cli.NOT_PORTED and "--fft-engine" not in cli.NOT_PORTED
+    assert ported("--fft-backend") and ported("--fft-engine")
     args = cli.build_parser().parse_args(["x.png", "9", "30"])
     assert args.fft_backend == "pallas" and args.fft_engine == "roll"
     assert cli.build_parser().parse_args(["x.png", "9", "30", "--fft-engine", "mxu"]).fft_engine \
@@ -361,7 +375,7 @@ def test_profile_on_cpu(blurred_png, tmp_path, capsys, mode):
 
 
 def test_profile_is_ported_and_bare_flag_means_phases(blurred_png, tmp_path, capsys):
-    assert "--profile" not in cli.NOT_PORTED
+    assert ported("--profile")
     args = cli.build_parser().parse_args(["x.png", "9", "30", "--profile"])
     assert args.profile == "phases"
     assert cli.build_parser().parse_args(["x.png", "9", "30"]).profile is None
@@ -388,7 +402,7 @@ def _family_png(tmp_path, name, psf_type, length, param, hw=(90, 140), seed=12):
 def test_new_flags_are_ported():
     for flag in ("--psf-type", "--psf-file", "--estimate-psf", "--auto-K", "--tile",
                  "--tile-overlap"):
-        assert flag not in cli.NOT_PORTED
+        assert ported(flag)
     args = cli.build_parser().parse_args(["x.png", "9", "30"])
     assert (args.psf_type, args.psf_file, args.estimate_psf, args.auto_K, args.tile,
             args.tile_overlap) == ("motion", None, False, False, 0, None)
@@ -604,7 +618,7 @@ def test_tile_directory_with_auto_K(tmp_path, capsys):
 
 def test_modes_and_devices_are_ported():
     for flag in ("--mode", "--devices"):
-        assert flag not in cli.NOT_PORTED
+        assert ported(flag)
     args = cli.build_parser().parse_args(["x.png", "9", "30"])
     assert (args.mode, args.devices) == ("jit", None)
 

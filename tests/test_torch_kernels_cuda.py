@@ -943,3 +943,133 @@ def test_mxu_pipeline_counts_and_tiers(dev):
         for k in ("fft_rows_t", "fft_rows", "fft_rows_packed_out", "wiener_spectral_t"):
             assert launch_counts[f"{k}_mxu_{precision}"] >= 1, k
         assert channels_equal(planes, oracle, tier).passed
+
+
+# --- bf16 staging (stage_dtype="bf16"): every bfloat16 store and load
+# variant against its plain twin at both engines. A float32 output read
+# from bfloat16 planes is held to its float32 instance's tolerance in
+# test_mxu_fft_kernels (1e-5; B2 at mxu 'default' MXU_BF16_REL); a
+# bfloat16 output, element by element, to one bfloat16 step of the
+# element beyond that share of the plane's max (the kernel's and the
+# twin's float32 values may round to the two neighbours of an edge)
+
+STAGE_ENGINES = [{}, dict(engine="mxu", precision="default"),
+                 dict(engine="mxu", precision="highest")]
+
+
+def _bf16_excess(a, b):
+    """The largest |a - b| beyond one bfloat16 step of the larger of the
+    two magnitudes (2^(e - 7) for a value in [2^e, 2^(e+1))), over max |b|."""
+    a, b = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()))  # value in [2^(e-1), 2^e)
+    step = ((e + 119).clamp(1, 254).to(torch.int32) << 23).view(torch.float32)  # 2^(e-8)
+    return float(((a - b).abs() - step).clamp_min(0).max() / b.abs().max().clamp_min(1e-30))
+
+
+def _stage_ok(out, ref, eng, b2=False):
+    f32 = MXU_BF16_REL if b2 and eng.get("precision") == "default" else 1e-5
+    if out.dtype == torch.bfloat16:
+        return _bf16_excess(out, ref) <= f32
+    return _rel(out, ref) <= f32
+
+
+@pytest.mark.parametrize("eng", STAGE_ENGINES)
+@pytest.mark.parametrize("n,rad", [(2048, ()), (3840, (3, 5))])
+def test_stage_b1_store_b6_b3_loads(dev, gen, eng, n, rad):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    b16 = torch.bfloat16
+    m = 256
+    stack = torch.as_tensor(gen.integers(0, 256, (1, m - 9, n - 7, 3), dtype=np.uint8),
+                            device=dev)
+    planes = torch.as_tensor(gen.random((3, m, n), np.float32), device=dev)
+    reset_launch_counts()
+    cases = [
+        (lambda k: k(stack, extent=(m, n), radices=rad, out_dtype=b16, **eng),
+         fk.fft_rows_stack, fk.fft_rows_stack_plain),
+        (lambda k: k(planes[0::2], planes[1::2], transposed=True, radices=rad, out_dtype=b16,
+                     **eng), fk.fft_rows, fk.fft_rows_plain),
+        (lambda k: k(planes[:1], None, transposed=True, radices=rad, out_dtype=b16, **eng),
+         fk.fft_rows, fk.fft_rows_plain),
+    ]
+    for call, kern, plain in cases:
+        for o, r in zip(call(kern), call(plain)):
+            assert o.dtype == b16 and _stage_ok(o, r, eng)
+    assert launch_counts["fft_rows_t_bf16"] == 3
+    a = fk.fft_rows_stack_plain(stack, extent=(m, n), radices=rad, out_dtype=b16, **eng)
+    # B6's forward pass and B3 read the bfloat16 (P, n, m) planes
+    for o, r in zip(fk.fft_rows(*a, **eng), fk.fft_rows_plain(*a, **eng)):
+        assert o.dtype == torch.float32 and _stage_ok(o, r, eng)
+    t = tuple(x.transpose(1, 2).contiguous() for x in a)
+    for o, r in zip(fk.fft_rows_packed_out(*t, radices=rad, **eng),
+                    fk.fft_rows_packed_out_plain(*t, radices=rad, **eng)):
+        assert _stage_ok(o, r, eng)
+    assert launch_counts["fft_rows_bf16"] == 1 and launch_counts["fft_rows_packed_out_bf16"] == 1
+
+
+@pytest.mark.parametrize("eng", STAGE_ENGINES)
+@pytest.mark.parametrize("m,n,rad", [(2048, 2048, ()), (256, 2304, (3, 3)), (37, 2048, ())])
+def test_stage_spectral_middles(dev, gen, eng, m, n, rad):
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    b16 = torch.bfloat16
+    a = [torch.as_tensor(gen.standard_normal((2, m, n), np.float32), device=dev)
+         for _ in range(2)]
+    h = [torch.as_tensor(gen.random((m, n), np.float32), device=dev) for _ in range(2)]
+    ab, hb = [x.to(b16) for x in a], [x.to(b16) for x in h]
+    reset_launch_counts()
+    cases = [
+        (ws.wiener_spectral_t, ws.wiener_spectral_t_plain, (*ab, *hb, 0.01, rad),
+         dict(out_dtype=b16)),
+        (ws.wiener_spectral_t, ws.wiener_spectral_t_plain, (*ab, *h, 0.01, rad),
+         dict(out_dtype=b16)),
+        (ws.spectral_conv_t, ws.spectral_conv_t_plain, (*a, *hb, False, rad), {}),
+        (ws.spectral_conv_t, ws.spectral_conv_t_plain, (*a, *hb, True, rad), {}),
+        (ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain, (*ab, *hb, 0.01, rad), {}),
+        (ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain, (*ab, *h, 0.01, rad), {}),
+    ]
+    for kern, plain, args, kw in cases:
+        b2 = kern is not ws.fwd_wiener_rows
+        for o, r in zip(kern(*args, **kw, **eng), plain(*args, **kw, **eng)):
+            assert o.dtype == r.dtype and _stage_ok(o, r, eng, b2)
+    assert launch_counts["wiener_spectral_t_bf16"] == 2
+    assert launch_counts["spectral_conv_t_bf16"] == 1
+    assert launch_counts["spectral_conv_t_conj_bf16"] == 1
+    assert launch_counts["fwd_wiener_rows_bf16"] == 2
+
+
+@pytest.mark.parametrize("fft_engine", ["roll", "mxu"])
+def test_stage_pipelines_vs_plain_and_launches(dev, gen, fft_engine):
+    """The staged single-frame (B2, bfloat16 H) and batched (B7, float32 H)
+    restores against their plain paths: planes 0.015 and 4 counts (a value
+    beside a bfloat16 rounding edge, carried by the Wiener gain)."""
+    from fft_restoration_tpu_torch import BatchedWienerPipeline, WienerDeblurPipeline
+    from fft_restoration_tpu_torch.models.pipeline import (
+        kernel_ops, pad_extents, psf_spectrum_planes, restore_stack,
+    )
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    E = dict(fft_engine=fft_engine)
+    for stack, cls, spectrum in ((gen.integers(0, 256, (1, 600, 520, 3), dtype=np.uint8),
+                                  WienerDeblurPipeline, "bf16"),
+                                 (gen.integers(0, 256, (4, 200, 256, 3), dtype=np.uint8),
+                                  BatchedWienerPipeline, None)):
+        pipe = cls("cuda", stage_dtype="bf16", **E)
+        reset_launch_counts()
+        out, planes = pipe._restore(pipe.to_device(stack) if cls is BatchedWienerPipeline
+                                    else pipe.to_device(stack[0])[None], 15, 30.0, 0.01)
+        torch.cuda.synchronize()
+        assert launch_counts["fft_rows_t_bf16"] == 1
+        assert launch_counts["wiener_spectral_t_bf16" if spectrum else "fwd_wiener_rows_bf16"]
+        ops = kernel_ops(fft_engine, plain=True)
+        x = torch.as_tensor(stack, device=dev)
+        hp, wp, _, _ = pad_extents(*stack.shape[1:3])
+        psf = make_psf("motion", 15, 30.0, dev)
+        H = psf_spectrum_planes(psf, hp, wp, ops, stage_dtype=spectrum)
+        want, want_p = restore_stack(x, H, 0.01, white_balance=True, emit_planes=True,
+                                     wb_stats_stride=1, psf=psf, ops=ops, stage_dtype="bf16")
+        assert float((planes - want_p).abs().max()) <= 0.015
+        assert int((out.int() - want.int()).abs().max()) <= 4
