@@ -4030,6 +4030,43 @@ def mxu_outer_flops(rows: int, n: int, radices=()) -> float:
                    + sum(n * (8 * (r - 1) + 6) for r in radices))
 
 
+def mxu_table_bytes(torch, kind: str, n: int, radices, m: int, pairs: int, inverse: bool,
+                    precision: str) -> dict:
+    """The group DFT's table bytes from global memory a launch of B1
+    (kind "t"), B3 ("r3") or B6 ("r6") at mxu, counted from the designs
+    (for the log, not measured): the L2 design, group_dft
+    (csrc/fft_group_dft.cuh), which the forward passes at 'default' keep
+    (fft_kernel.resident_route), reads one direction's tables (96 KB at
+    'default', 192 KB at 'highest') for every warp task of 8 groups; the resident design (csrc/fft_group_dft_smem.cuh)
+    copies the chunks of its tables (96 KB / 80 KB) that fit beside the
+    rows (fft_kernel.res_chunks, the count the launch passes) once into
+    each persistent block, one block an SM at the plans' 512 threads (the
+    launch bounds' 128 registers a thread fill an SM's 64 K), and reads the
+    chunks left over (3 KB at 'default' beside 8 rows of 2048) for every
+    task of 8 groups, counting no L1 hit."""
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    code = fk.MXU_PRECISIONS.index(precision) + 1
+    resident = fk.resident_route(code, inverse)
+    if kind == "t":
+        plan = fk.t_plan(n, tuple(radices), m, inverse, -(-sms * fk.T_MIN_WAVES // pairs),
+                         mxu=True, resident=resident)
+    else:
+        plan = fk.r_plan(n, tuple(radices), m, inverse, packed=kind == "r3", mxu=True,
+                         resident=resident)
+    row_blocks = pairs * -(-m // plan.rows)
+    tasks = row_blocks * -(-plan.rows * n // 128 // 8)
+    old = tasks * 8 * 8 * 3 * 32 * 16 * (1 if precision == "default" else 2)
+    chunks = fk.res_chunks(code, plan, inverse)
+    size = fk.DFT_RES_CHUNK_BYTES[precision]
+    blocks = min(row_blocks, sms * max(1, fk.MXU_THREADS // plan.threads))
+    new = (blocks * chunks * size + tasks * (fk.DFT_RES_CHUNKS[precision] - chunks) * size
+           if resident else old)
+    return dict(table_bytes=new, table_bytes_l2=old, blocks=blocks if resident else row_blocks,
+                resident_chunks=chunks, rows_a_block=plan.rows)
+
+
 def mxu_bound(nbytes: float, groups: float, f32_flops: float, precision: str) -> dict:
     """bound() of an mxu kernel: the bytes, the float32 operations of its
     outer stages and filter, and the group DFTs' tensor-core products
@@ -4173,6 +4210,19 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
                                   None),
             },
         }
+        # the redesigned kernels' launches (B1, B3/B6: the resident tables):
+        # mode -> (kind, n, radices, m, pairs, inverse) for mxu_table_bytes
+        res_shapes = {
+            "B1_frame_T": ("t", wp, (), hp, 2, False),
+            "B1_stack_T_96x256x256": ("t", side, (), side, p64, False),
+            "B1_inverse_T_96x256x256": ("t", side, (), side, p64, True),
+            "B1_uhd_u8_T_3840": ("t", uwp, urw, uhp, up, False),
+            "B6_psf_natural": ("r6", hp, (), wp, 1, False),
+            "B6_uhd_psf_2304": ("r6", uhp, urh, uwp, 1, False),
+            "B3_packed_inv": ("r3", wp, (), hp, 2, True),
+            "B3_packed_inv_96x256x256": ("r3", side, (), side, p64, True),
+            "B3_uhd_3840": ("r3", uwp, urw, uhp, up, True),
+        }
         for name, modes in specs.items():
             res = {}
             for mode, (kern, plain, nbytes, groups, flops, lib_fn) in modes.items():
@@ -4187,13 +4237,20 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
                     plain_ms=cuda_ms(torch, plain, 3, 1) if first else None,
                     library_ms=cuda_ms(torch, lib_fn, iters) if first and lib_fn else None)
                 m.update(mxu_bound(nbytes, groups, flops, prec))
+                tables = ""
+                if mode in res_shapes:
+                    t = mxu_table_bytes(torch, *res_shapes[mode], prec)
+                    tables = (f"; table bytes from global memory a launch, counted from the "
+                              f"design: {t['table_bytes'] / 1e6:.1f} MB ({t['blocks']} blocks "
+                              f"of {t['rows_a_block']} rows, {t['resident_chunks']} chunks "
+                              f"resident; the L2 design {t['table_bytes_l2'] / 1e6:.1f} MB)")
                 lib_ms = "none" if m["library_ms"] is None else "%.4f ms" % m["library_ms"]
                 timed = (f"; {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, library "
                          f"{lib_ms}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})"
                          if first else "")
                 log(f"mxu {name} {prec} {mode}: max rel err {m['max_rel_err']:.3e} "
                     f"(tol {TOL_MXU_REL:.3g})"
-                    + timed)
+                    + timed + tables)
                 if not m["max_rel_err"] <= TOL_MXU_REL:
                     fail(f"mxu {name} {prec} {mode} disagrees with its plain twin")
             main_mode = next(iter(modes))
@@ -4567,6 +4624,10 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
                     flops(sp * swp, shp, srh, filt=sp * shp * swp * 12), None, False),
             },
         }
+        # the redesigned MXU row kernels' first modes (mxu_table_bytes)
+        res_shapes = {"B1_frame_u8_T": ("t", wp, (), hp, 2, False),
+                      "B6_fwd_2048sq": ("r6", hp, (), wp, 2, False),
+                      "B3_packed_inv": ("r3", wp, (), hp, 2, True)}
         for name, modes in specs.items():
             row = rows.setdefault(name, dict(modes={}))
             first = True
@@ -4594,6 +4655,11 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
                     timed = (f"; {m['ms']:.4f} ms (float32 instance {m['f32_ms']:.4f} ms) vs "
                              f"plain {m['plain_ms']:.4f} ms, library {lib_ms}, bound "
                              f"{m['bound_ms']:.4f} ms ({m['bound_by']})")
+                if prec and mode in res_shapes:
+                    t = mxu_table_bytes(torch, *res_shapes[mode], prec)
+                    timed += (f"; table bytes from global memory a launch, counted from the "
+                              f"design: {t['table_bytes'] / 1e6:.1f} MB (the L2 design "
+                              f"{t['table_bytes_l2'] / 1e6:.1f} MB)")
                 held = "bf16_excess" if out16 else "max_rel_err"
                 log(f"stage {name} {eng} {mode}: "
                     + (f"beyond one bfloat16 step {m['bf16_excess']:.3e} of the max (tol "
@@ -4604,7 +4670,8 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
                     fail(f"stage {name} {eng} {mode} disagrees with its plain twin")
                 if first:
                     row[eng] = {k_: m[k_] for k_ in ("ms", "f32_ms", "plain_ms", "library_ms",
-                                                      "bound_ms", "bound_by", "bytes")}
+                                                      "bound_ms", "bound_by", "bytes")
+                                if k_ in m}
                     row[eng]["mode"] = mode
                 first = False
     out = []

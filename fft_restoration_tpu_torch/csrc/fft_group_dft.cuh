@@ -8,9 +8,10 @@
 // a matrix product on the TPU's MXU. Forward (DIF): the outer stages, then
 // the group DFT, so the spectrum lands in the "hybrid order" (bin k at
 // rev_b(k mod G) * 128 + k div G, G = q / 128); inverse (DIT): the
-// inverse group DFT first, then the outer stages. B1 (fft_rows_t.cu),
-// B3/B6 (fft_rows.cu) and B2/B7 (wiener_spectral.cu) call it between
-// their stage groups (fft_groups.cuh) and their stores.
+// inverse group DFT first, then the outer stages. B2/B7
+// (wiener_spectral.cu) call it between their stage groups (fft_groups.cuh)
+// and their stores; B1 and B3/B6 run fft_group_dft_smem.cuh's, whose
+// tables stay in shared memory.
 //
 // The product is the JAX package's three real products (Karatsuba):
 //   m1 = xr Wc, m2 = xi Ws, m3 = (xr + xi)(Wc + Ws),

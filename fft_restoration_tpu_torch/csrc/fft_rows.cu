@@ -64,9 +64,22 @@
 //
 // The MXU engine (engine="mxu", revorder only): fft_rows_mxu_kernel<..,
 // ENG> runs the outer stages 7 .. logq - 1 in the plan's groups and the
-// tensor-core group DFT of fft_group_dft.cuh (forward last, the rows then
-// stored from shared memory with B3's min/max; inverse first, the rows
-// loaded to shared memory). fft_rows_kernel keeps its parameters and code.
+// tensor-core group DFT in place of the inner 7 (forward last, the rows
+// then stored from shared memory with B3's min/max; inverse first, the
+// rows loaded to shared memory). Its group DFT is fft_group_dft_smem.cuh's:
+// the tables resident in shared memory (one bulk copy a block), one
+// persistent block of 512 threads an SM walking over the row blocks
+// (r_plan(mxu=True) at n = 2048: B3 4 rows, one min/max partial, beside
+// all the tables; B6 8 rows beside 62 of the 64 'default' chunks), the
+// rows loaded and stored as 16-byte vectors, the zero rows past the live
+// ones stored as 16-byte vectors too. The design before (the L2 design:
+// group_dft reading the tables through L1 and L2 for every 8 groups, 128
+// threads and 4 rows (B3) or 2 (B6) a block at n = 2048) took 0.1817 /
+// 0.4211 ms ('default' / 'highest') for B3 at 2 x 2048^2 and 0.0538 /
+// 0.1729 for B6's PSF pass on an H100 at 700 W, against torch.fft's 0.052
+// / 0.030. The forward passes at 'default' keep that design,
+// fft_rows_l2_kernel, which an H100 runs faster there (B6's PSF pass and
+// its bf16-staged twin). fft_rows_kernel keeps its parameters and code.
 //
 // bf16 staging (stage_dtype="bf16": the JAX _load_f32 of bfloat16 planes
 // in fft_rows_pallas and fft_rows_packed_out): both kernels' instances at
@@ -76,10 +89,11 @@
 // stay float32. They build in translation units of their own
 // (FFT_STAGE_TU, one an engine), so every float32 and uint8 instance
 // keeps its machine code.
-#include "fft_group_dft.cuh"
+#include "fft_group_dft_smem.cuh"
 
 #define R_THREADS 256
 #define R_MIN_BLOCKS 2
+#define R_MXU_THREADS 512  // fft_rows_mxu_kernel: one block an SM
 
 enum { MODE_DIF = 0, MODE_DIT = 1, MODE_NATURAL = 2 };
 
@@ -252,17 +266,22 @@ fft_rows_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
   }
 }
 
-// The MXU engine's instances (fft_group_dft.cuh; ENG_BF16 or ENG_TF32X3,
-// MODE_DIF or MODE_DIT, revorder only): the outer stages 7 .. logq - 1 in
-// the plan's groups and the tensor-core group DFT (tables dft, the pass's
-// direction) in place of the inner 7: forward, the outer groups (the top
-// one loading the row map at pow2), the group DFT, then the rows stored
-// from shared memory (B3's min/max folded as they go); inverse, the rows
-// loaded to shared memory, the inverse group DFT, then the outer groups
-// (the top one storing the row map at pow2) or the cross levels as in
-// fft_rows_kernel, whose code stays its own.
+// The MXU engine's instances (ENG_BF16 or ENG_TF32X3, MODE_DIF or
+// MODE_DIT, revorder only), the parameters as fft_rows_kernel's and
+// blocks = nblk * P row blocks: a persistent block walks over them (block
+// b as fft_rows_kernel's block b), the outer stages 7 .. logq - 1 in the
+// plan's groups and the group DFT (fft_group_dft_smem.cuh; dft the pass
+// direction's tables, their first tab_chunks chunks copied into the front
+// of the block's shared memory as it starts, the rest read from dft) in
+// place of the inner 7: forward, the outer
+// groups (the top one loading the row map at pow2), the group DFT, then
+// the rows stored from shared memory as 16-byte vectors (B3's min/max
+// folded as they go); inverse, the rows loaded to shared memory as
+// vectors, the inverse group DFT, then the outer groups (the top one
+// storing the row map at pow2) or the cross levels as in fft_rows_kernel,
+// whose code stays its own.
 template <typename T, int MODE, int R0, int R1, int ENG>
-__global__ void __launch_bounds__(R_THREADS, R_MIN_BLOCKS)
+__global__ void __launch_bounds__(R_MXU_THREADS, 1)
 fft_rows_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                     long long is, long long chs, int channels, int qstep, int qim,
                     long long rs, long long cs, int re_live, int im_live,
@@ -271,7 +290,197 @@ fft_rows_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                     long long out_pair, float* __restrict__ minmax, int lpg,
                     const float* __restrict__ cosv, const float* __restrict__ sinv,
                     const __grid_constant__ GroupPlan gp,
-                    const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
+                    const __grid_constant__ CrossPlan cp, const void* __restrict__ dft,
+                    int blocks, int tab_chunks) {
+  static_assert(MODE != MODE_NATURAL, "the MXU engine takes revorder passes");
+  constexpr int R = R0 * R1;
+  // the tables' first tab_chunks chunks in front of the shared rows
+  extern __shared__ __align__(16) unsigned char r_smem[];
+  const int tab_bytes = tab_chunks * dft_res_chunk_bytes(ENG);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(r_smem + tab_bytes);
+  float* srows = reinterpret_cast<float*>(r_smem + tab_bytes + DFT_RES_BAR);
+  if (tab_bytes) dft_tables_start(r_smem, dft, tab_bytes, bar);
+  const int rows = 1 << lr;
+  const int q = 1 << logq;
+  const int N = R * q;
+  // B3's partials: float32 / bfloat16 revorder passes only (the C entry refuses the rest)
+  const bool mm_on = !std::is_same<T, uint8_t>::value && minmax != nullptr;
+  for (int rb = blockIdx.x; rb < blocks; rb += gridDim.x) {
+    const int p = rb / nblk;
+    const int blk = rb - p * nblk;
+    const int m0 = blk * rows;
+    float* ore = out_re + p * out_pair + (size_t)m0 * N;
+    float* oim = out_im + p * out_pair + (size_t)m0 * N;
+
+    if (m0 >= live_rows) {  // rows past the live ones: zeros, no transform
+      const int n = min(rows, M - m0) * N;  // contiguous, a multiple of 4
+      if (((reinterpret_cast<uintptr_t>(ore) | reinterpret_cast<uintptr_t>(oim)) & 15) == 0) {
+        for (int t = 4 * threadIdx.x; t < n; t += 4 * blockDim.x) {
+          *reinterpret_cast<float4*>(ore + t) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          *reinterpret_cast<float4*>(oim + t) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      } else {
+        for (int t = 2 * threadIdx.x; t < n; t += 2 * blockDim.x) {
+          *reinterpret_cast<float2*>(ore + t) = make_float2(0.0f, 0.0f);
+          *reinterpret_cast<float2*>(oim + t) = make_float2(0.0f, 0.0f);
+        }
+      }
+      continue;
+    }
+
+    const TBlock tb = {srows, srows + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4,
+                       N, cosv, sinv, ore, oim, M, m0};
+    const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                         re_live, im_live, live_rows, live_cols, p, m0);
+    float mm[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+    const SmemEpi epi{tb.sre, tb.sim, rs_smem};
+    if constexpr (MODE == MODE_DIF) {
+      if constexpr (R > 1) {  // load + both cross levels, item (row, b): b fastest
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int b = t & (q - 1), r = t >> logq;
+          const auto row = ld.row(r);
+          float xr[R], xi[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float2 v = ld.at(row, b + j * q);
+            xr[j] = v.x;
+            xi[j] = v.y;
+          }
+          cross_item<R0, R1, false>(xr, xi, b, q, N, cp);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int a = r * rs_smem + pad_idx(b + j * q);
+            tb.sre[a] = xr[j];
+            tb.sim[a] = xi[j];
+          }
+        }
+        __syncthreads();
+      } else if (gp.groups == 0) {  // q = 128: element by element, as B1's forward pass
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int r = t >> logq, c = t & (q - 1);
+          const float2 v = ld.get(r, c);
+          tb.sre[r * rs_smem + pad_idx(c)] = v.x;
+          tb.sim[r * rs_smem + pad_idx(c)] = v.y;
+        }
+        __syncthreads();
+      }
+      for (int g = 0; g < gp.groups; ++g) {
+        if (R == 1 && g == 0)
+          run_group<false, LD_ROW, ST_SMEM>(tb, gp, g, ld, false, mm);
+        else
+          run_group<false, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
+        __syncthreads();
+      }
+      if (tab_bytes) dft_tables_wait(bar);
+      group_dft_res<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, r_smem, tab_chunks,
+                         dft, epi);
+      __syncthreads();
+      // the rows from shared memory as 16-byte vectors (4 columns a thread:
+      // conflict-free, as rows_to_smem's stores)
+      for (int r = 0; r < rows && m0 + r < M; ++r) {
+        for (int c = 4 * threadIdx.x; c < N; c += 4 * blockDim.x) {
+          float vr[4], vi[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            vr[e] = tb.sre[r * rs_smem + pad_idx(c + e)];
+            vi[e] = tb.sim[r * rs_smem + pad_idx(c + e)];
+            if (mm_on) fold_minmax(mm, vr[e], vi[e]);
+          }
+          store_vec<4>(ore + r * N + c, vr);
+          store_vec<4>(oim + r * N + c, vi);
+        }
+      }
+    } else {
+      rows_to_smem(tb, ld, rows, N);
+      __syncthreads();
+      if (tab_bytes) dft_tables_wait(bar);
+      group_dft_res<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, r_smem, tab_chunks,
+                         dft, epi);
+      __syncthreads();
+      for (int g = gp.groups - 1; g >= 0; --g) {
+        if (R == 1 && g == 0) {
+          run_group<true, LD_SMEM, ST_ROW>(tb, gp, g, ld, mm_on, mm);
+        } else {
+          run_group<true, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
+          __syncthreads();
+        }
+      }
+      if constexpr (R > 1) {  // both inverse cross levels, then the row store
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int b = t & (q - 1), r = t >> logq;
+          if (m0 + r >= M) continue;
+          float xr[R], xi[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int a = r * rs_smem + pad_idx(b + j * q);
+            xr[j] = tb.sre[a];
+            xi[j] = tb.sim[a];
+          }
+          cross_item<R0, R1, true>(xr, xi, b, q, N, cp);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            ore[r * N + b + j * q] = xr[j];
+            oim[r * N + b + j * q] = xi[j];
+            if (mm_on) fold_minmax(mm, xr[j], xi[j]);
+          }
+        }
+      } else if (gp.groups == 0) {  // q = 128: the rows as stored above
+        for (int r = 0; r < rows && m0 + r < M; ++r) {
+          for (int c = 4 * threadIdx.x; c < N; c += 4 * blockDim.x) {
+            float vr[4], vi[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              vr[e] = tb.sre[r * rs_smem + pad_idx(c + e)];
+              vi[e] = tb.sim[r * rs_smem + pad_idx(c + e)];
+              if (mm_on) fold_minmax(mm, vr[e], vi[e]);
+            }
+            store_vec<4>(ore + r * N + c, vr);
+            store_vec<4>(oim + r * N + c, vi);
+          }
+        }
+      }
+    }
+
+    if (mm_on) {
+      if (lpg == lr) {  // one partial a block
+        block_minmax4(mm, minmax + ((size_t)p * nblk + blk) * 4);
+      } else {  // several partials a block: each from the rows this block just stored
+        __syncthreads();
+        const size_t part = (size_t)p * (M >> lpg) + (m0 >> lpg);
+        const int n = N << lpg;
+        for (int u = 0; u < rows >> lpg && m0 + (u << lpg) < M; ++u) {
+          float v[4] = {INFINITY, -INFINITY, INFINITY, -INFINITY};
+          for (int t = threadIdx.x; t < n; t += blockDim.x)
+            fold_minmax(v, ore[u * n + t], oim[u * n + t]);
+          block_minmax4(v, minmax + (part + u) * 4);
+          __syncthreads();
+        }
+      }
+    }
+    __syncthreads();  // the shared rows read before the next row block lands
+  }
+  // no block leaves with the copy in flight: thread 0, which started it,
+  // waits (the others may not have met a barrier since its mbarrier.init)
+  if (tab_bytes && threadIdx.x == 0) dft_tables_wait(bar);
+}
+
+// The forward passes at 'default' (MODE_DIF, ENG_BF16): the L2 design's
+// MXU instance (group_dft reading its tables through L1 and L2, one block of
+// r_plan(mxu=True, resident=False)'s rows a row block, the rows stored
+// element by element), which an H100 runs 5-16% faster than the resident
+// design's forward pass; its code as the L2 design wrote it for both
+// modes and engines, instantiated for that one
+template <typename T, int MODE, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(R_THREADS, R_MIN_BLOCKS)
+fft_rows_l2_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                   long long is, long long chs, int channels, int qstep, int qim,
+                   long long rs, long long cs, int re_live, int im_live,
+                   int live_rows, int live_cols, int M, int logq, int lr, int rs_smem,
+                   int nblk, float* __restrict__ out_re, float* __restrict__ out_im,
+                   long long out_pair, float* __restrict__ minmax, int lpg,
+                   const float* __restrict__ cosv, const float* __restrict__ sinv,
+                   const __grid_constant__ GroupPlan gp,
+                   const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
   constexpr int R = R0 * R1;
   extern __shared__ float smem[];
   const int rows = 1 << lr;
@@ -419,7 +628,7 @@ fft_rows_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
       int live_rows, int live_cols, int P, int M, int logq, int lr, int rs_smem,        \
       int threads, void *out_re, void *out_im, long long out_pair, void *minmax, int lpg, \
       const void *cosv, const void *sinv, const GroupPlan &gp, const CrossPlan &cp,      \
-      const void *dft, cudaStream_t stream
+      const DftRes &dft, cudaStream_t stream
 #define FFT_ROWS_KERNEL_ARGS                                                                \
   nblk * P, threads, smem, stream, (const T*)src_re, (const T*)src_im, is, chs, channels,  \
       qstep, qim, rs, cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem,    \
@@ -435,18 +644,58 @@ int launch_r_mxu(FFT_ROWS_LAUNCH_PARAMS);
 template <int MODE, int R0, int R1, int ENG>
 int launch_r_bf16(FFT_ROWS_LAUNCH_PARAMS);
 
-#if defined(FFT_STAGE_TU)
-template <int MODE, int R0, int R1, int ENG>
-int launch_r_bf16(FFT_ROWS_LAUNCH_PARAMS) {
-  using T = __nv_bfloat16;
+// fft_rows_mxu_kernel's launch: dft.chunks of the tables in front of the
+// rows, at most one persistent block a slot of the card
+template <typename T, int MODE, int R0, int R1, int ENG>
+int launch_r_res(FFT_ROWS_LAUNCH_PARAMS) {
+  const long long smem = dft_res_smem<ENG>(dft, 2 * sizeof(float) * ((size_t)rs_smem << lr));
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_persistent(fft_rows_mxu_kernel<T, MODE, R0, R1, ENG>, nblk * P, threads,
+                          (size_t)smem, stream, (const T*)src_re, (const T*)src_im, is, chs,
+                          channels, qstep, qim, rs, cs, re_live, im_live, live_rows, live_cols,
+                          M, logq, lr, rs_smem, nblk, (float*)out_re, (float*)out_im, out_pair,
+                          (float*)minmax, lpg, (const float*)cosv, (const float*)sinv, gp, cp,
+                          dft.tab, nblk * P, dft.chunks);
+}
+
+// fft_rows_l2_kernel's launch (no table chunks: dft.chunks 0), one block
+// a row block
+template <typename T, int R0, int R1>
+int launch_r_l2(FFT_ROWS_LAUNCH_PARAMS) {
+  if (dft.tab == nullptr || dft.chunks != 0 || threads > R_THREADS)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
   const int rows = 1 << lr;
   const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  if constexpr (ENG == ENG_ROLL)
+  return start_kernel(fft_rows_l2_kernel<T, MODE_DIF, R0, R1, ENG_BF16>, FFT_ROWS_KERNEL_ARGS,
+                      dft.tab);
+}
+
+#if defined(FFT_STAGE_TU)
+template <int MODE, int R0, int R1, int ENG>
+int launch_r_bf16(FFT_ROWS_LAUNCH_PARAMS) {
+  using T = __nv_bfloat16;
+  if constexpr (MODE == MODE_DIF && ENG == ENG_BF16) {
+    return launch_r_l2<T, R0, R1>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,
+        cosv, sinv, gp, cp, dft, stream);
+  } else if constexpr (ENG != ENG_ROLL) {
+    return launch_r_res<T, MODE, R0, R1, ENG>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,
+        cosv, sinv, gp, cp, dft, stream);
+  } else {
+    const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+    const int rows = 1 << lr;
+    const int nblk = (M + rows - 1) / rows;
+    if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
     return start_kernel(fft_rows_kernel<T, MODE, R0, R1>, FFT_ROWS_KERNEL_ARGS);
-  else
-    return start_kernel(fft_rows_mxu_kernel<T, MODE, R0, R1, ENG>, FFT_ROWS_KERNEL_ARGS, dft);
+  }
 }
 
 #define FFT_ROWS_BF16(MODE)                                                             \
@@ -461,11 +710,16 @@ FFT_ROWS_BF16(MODE_DIT)
 #elif defined(FFT_MXU_TU)
 template <typename T, int MODE, int R0, int R1, int ENG>
 int launch_r_mxu(FFT_ROWS_LAUNCH_PARAMS) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  const int rows = 1 << lr;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return start_kernel(fft_rows_mxu_kernel<T, MODE, R0, R1, ENG>, FFT_ROWS_KERNEL_ARGS, dft);
+  if constexpr (MODE == MODE_DIF && ENG == ENG_BF16)
+    return launch_r_l2<T, R0, R1>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,
+        cosv, sinv, gp, cp, dft, stream);
+  else
+    return launch_r_res<T, MODE, R0, R1, ENG>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,
+        cosv, sinv, gp, cp, dft, stream);
 }
 
 #define FFT_ROWS_MXU(T, MODE)                                                           \
@@ -487,7 +741,7 @@ static int launch_r(const void* src_re, const void* src_im, long long is, long l
                     int im_live, int live_rows, int live_cols, int P, int M, int logq, int lr,
                     int rs_smem, int threads, void* out_re, void* out_im, long long out_pair,
                     void* minmax, int lpg, const void* cosv, const void* sinv,
-                    const GroupPlan& gp, const CrossPlan& cp, int eng, const void* dft,
+                    const GroupPlan& gp, const CrossPlan& cp, int eng, const DftRes& dft,
                     cudaStream_t stream) {
 #define FFT_ROWS_MXU_ARGS                                                                   \
   src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,      \
@@ -532,7 +786,7 @@ static int launch_radices(int code, const void* src_re, const void* src_im, long
                           int P, int M, int logq, int lr, int rs_smem, int threads,
                           void* out_re, void* out_im, long long out_pair, void* minmax,
                           int lpg, const void* cosv, const void* sinv, const GroupPlan& gp,
-                          const CrossPlan& cp, int eng, const void* dft, cudaStream_t stream) {
+                          const CrossPlan& cp, int eng, const DftRes& dft, cudaStream_t stream) {
 #define FFT_ROWS_LAUNCH(R0, R1)                                                              \
   launch_r<T, MODE, R0, R1>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, \
                             im_live, live_rows, live_cols, P, M, logq, lr, rs_smem, threads, \
@@ -560,7 +814,7 @@ static int launch_modes(int mode, int code, const void* src_re, const void* src_
                         int live_cols, int P, int M, int logq, int lr, int rs_smem, int threads,
                         void* out_re, void* out_im, long long out_pair, void* minmax, int lpg,
                         const void* cosv, const void* sinv, const GroupPlan& gp,
-                        const CrossPlan& cp, int eng, const void* dft, cudaStream_t stream) {
+                        const CrossPlan& cp, int eng, const DftRes& dft, cudaStream_t stream) {
 #define FFT_ROWS_ARGS                                                                       \
   code, src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows, \
       live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, out_pair, minmax, lpg,   \
@@ -575,14 +829,16 @@ static int launch_modes(int mode, int code, const void* src_re, const void* src_
 
 // in_dtype: the planes' element type (IN_F32, IN_U8, IN_BF16: bf16
 // staging, revorder only); logq = S; lr = log2(rows); rs_smem the padded
-// row stride; threads a multiple of 32 up to 256; plan: the wrapper's r_plan (fft_groups.cuh
-// read_group_plan); out_pair: floats between two pairs' output planes;
+// row stride; threads a multiple of 32 up to 256 (512 for a tensor-core
+// engine); plan: the wrapper's r_plan (fft_groups.cuh read_group_plan);
+// out_pair: floats between two pairs' output planes;
 // minmax: null, or the partials of 2^lpg rows each (lpg <= lr; float32 or
 // bfloat16 revorder only); natural:
 // natural ordering (pow2 N, levels 0); levels .. xsin: the cross levels
 // of this direction (levels 0 for a pow2 N; see make_cross_plan); eng:
 // ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh, revorder only)
-// with the outer-stage plan and dft the direction's fragment tables
+// with the outer-stage plan and dft the direction's tables
+// (fft_group_dft_smem.cuh, fft_kernel.dft_res_tables)
 enum { IN_F32 = 0, IN_U8 = 1, IN_BF16 = 2 };
 extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_dtype,
                                long long is, long long chs, int channels, int qstep, int qim,
@@ -592,13 +848,16 @@ extern "C" int fft_rows_launch(const void* src_re, const void* src_im, int in_dt
                                long long out_pair, void* minmax, int lpg, int inverse,
                                int natural, const void* cosv, const void* sinv, const int* plan,
                                int levels, const int* radix, const float* coef,
-                               const void* xcos, const void* xsin, int eng, const void* dft,
-                               void* stream) {
+                               const void* xcos, const void* xsin, int eng,
+                               const void* dft_tab, int tab_chunks, void* stream) {
   GroupPlan gp;
-  const bool plan_ok = eng == ENG_ROLL ? read_group_plan(plan, logq, &gp)
-                                       : read_mxu_plan(plan, logq, &gp) && dft != nullptr && !natural;
+  const bool plan_ok = eng == ENG_ROLL
+                           ? read_group_plan(plan, logq, &gp)
+                           : read_mxu_plan(plan, logq, &gp) && dft_tab != nullptr && !natural;
+  const DftRes dft{dft_tab, tab_chunks};
   if (levels < 0 || levels > MAX_CROSS_LEVELS || !plan_ok ||
-      threads < 32 || threads > R_THREADS || threads % 32 || logq + lr < 4 ||
+      threads < 32 || threads > (eng == ENG_ROLL ? R_THREADS : R_MXU_THREADS) ||
+      threads % 32 || logq + lr < 4 ||
       in_dtype < IN_F32 || in_dtype > IN_BF16 || (in_dtype == IN_BF16 && natural) ||
       (minmax != nullptr && (lpg < 0 || lpg > lr || in_dtype == IN_U8 || natural)))
     return (int)cudaErrorInvalidValue;

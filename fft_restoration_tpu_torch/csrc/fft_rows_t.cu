@@ -59,21 +59,37 @@
 // throughput and latency.
 //
 // The MXU engine (engine="mxu", the JAX package's default):
-// fft_rows_t_mxu_kernel<.., ENG> runs the same body with the plan's groups
-// over the outer stages 7 .. logq - 1 and the tensor-core group DFT of
-// fft_group_dft.cuh in place of the inner 7 (forward last, inverse
-// first), the transposed read of the shared rows storing every pass.
-// fft_rows_t_kernel keeps its parameters and its code: the roll instances'
-// machine code is the one before (tools/kernel_ab.py --sass).
+// fft_rows_t_mxu_kernel<T, O, INV, R0, R1, ENG> runs the plan's groups
+// over the outer stages 7 .. logq - 1 and the tensor-core group DFT in
+// place of the inner 7 (forward last, inverse first), the transposed read
+// of the shared rows storing every pass. Its group DFT is
+// fft_group_dft_smem.cuh's: the tables resident in shared memory (one
+// bulk copy a block), one persistent block an SM walking over the row
+// blocks (t_plan(mxu=True): 8 rows of 2048 points, so that the
+// transposed store writes 32-byte column segments, beside 62 of the 64
+// 'default' table chunks or all of the 'highest' ones), the rows loaded
+// as 16-byte vectors (inverse passes) and the transposed store writing 4
+// rows of a column a thread (4-row blocks, whose 16-byte segments half
+// fill a sector, took an H100 1.7x as long). The design before (the L2
+// design: group_dft reading the tables through L1 and L2 for every 8 groups, 8
+// rows a block) took 0.1165 ms ('default') / 0.3641 ms ('highest') for
+// those pairs, against torch.fft's 0.053. The forward passes at 'default'
+// keep it, fft_rows_t_l2_kernel (fft_rows_t_body at ENG_BF16), which an
+// H100 runs 6-14% faster than the resident design there: beside 8 rows
+// the tables' L1 hits cost what shared loads do.
+// fft_rows_t_kernel keeps its parameters and its code: the roll
+// instances' machine code is the one before (tools/kernel_ab.py --sass).
 //
 // bf16 staging (stage_dtype="bf16", the JAX out_dtype=bfloat16 of
-// _fft_rows_transposed): fft_rows_t_bf16_kernel<T, R0, R1, ENG> is the
-// forward pass of the same body at either engine, its transposed store
-// rounding to bfloat16 (round to nearest even): half the bytes written,
-// and half the next kernel's reads. Its instances build in translation
-// units of their own (FFT_STAGE_TU, one an engine: ops/kernels/_build.py
-// STAGE_UNITS), so every float32 instance keeps its machine code.
-#include "fft_group_dft.cuh"
+// _fft_rows_transposed): the forward pass at either engine, its transposed
+// store rounding to bfloat16 (round to nearest even): half the bytes
+// written, and half the next kernel's reads: fft_rows_t_bf16_kernel at
+// roll, fft_rows_t_l2_kernel<T, __nv_bfloat16, ..> at mxu 'default',
+// fft_rows_t_mxu_kernel<T, __nv_bfloat16, ..> at 'highest'. Their
+// instances build in translation units of their own (FFT_STAGE_TU, one an
+// engine: ops/kernels/_build.py STAGE_UNITS), so every float32 instance
+// keeps its machine code.
+#include "fft_group_dft_smem.cuh"
 
 #define T_THREADS 512
 
@@ -257,27 +273,8 @@ fft_rows_t_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                                             sinv, gp, cp, nullptr);
 }
 
-// the MXU engine's instances (ENG_BF16 or ENG_TF32X3), dft the fragment
-// tables of the pass's direction
-template <typename T, bool INV, int R0, int R1, int ENG>
-__global__ void __launch_bounds__(T_THREADS, 1)
-fft_rows_t_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
-                      long long is, long long chs, int channels, int qstep, int qim,
-                      long long rs, long long cs, int re_live, int im_live,
-                      int live_rows, int live_cols, int M, int logq, int lr,
-                      int rs_smem, int nblk, float* __restrict__ out_re,
-                      float* __restrict__ out_im, const float* __restrict__ cosv,
-                      const float* __restrict__ sinv,
-                      const __grid_constant__ GroupPlan gp,
-                      const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
-  fft_rows_t_body<T, float, INV, R0, R1, ENG>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
-                                       re_live, im_live, live_rows, live_cols, M, logq, lr,
-                                       rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, dft);
-}
-
-// bf16 staging: the forward pass at engine ENG (ENG_ROLL, ENG_BF16 or
-// ENG_TF32X3; dft null for roll) storing bfloat16 planes
-template <typename T, int R0, int R1, int ENG>
+// bf16 staging at roll: the forward pass storing bfloat16 planes
+template <typename T, int R0, int R1>
 __global__ void __launch_bounds__(T_THREADS, 1)
 fft_rows_t_bf16_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
                        long long is, long long chs, int channels, int qstep, int qim,
@@ -287,10 +284,232 @@ fft_rows_t_bf16_kernel(const T* __restrict__ src_re, const T* __restrict__ src_i
                        __nv_bfloat16* __restrict__ out_im, const float* __restrict__ cosv,
                        const float* __restrict__ sinv,
                        const __grid_constant__ GroupPlan gp,
-                       const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
-  fft_rows_t_body<T, __nv_bfloat16, false, R0, R1, ENG>(
+                       const __grid_constant__ CrossPlan cp) {
+  fft_rows_t_body<T, __nv_bfloat16, false, R0, R1, ENG_ROLL>(
+      src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+      live_cols, M, logq, lr, rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, nullptr);
+}
+
+// The forward passes at 'default': the L2 design's MXU instance,
+// fft_rows_t_body at ENG_BF16 (group_dft reading its tables through L1 and L2, one block
+// of t_plan(mxu=True, resident=False)'s rows a row block), which an H100
+// runs 6-14% faster than the resident design's forward pass (the
+// tables' L1 hits cost what shared loads do, and the resident copy's 93
+// KB leave the L1 28 KB); O float32, or bfloat16 for bf16 staging
+template <typename T, typename O, int R0, int R1>
+__global__ void __launch_bounds__(T_THREADS, 1)
+fft_rows_t_l2_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                     long long is, long long chs, int channels, int qstep, int qim,
+                     long long rs, long long cs, int re_live, int im_live,
+                     int live_rows, int live_cols, int M, int logq, int lr,
+                     int rs_smem, int nblk, O* __restrict__ out_re,
+                     O* __restrict__ out_im, const float* __restrict__ cosv,
+                     const float* __restrict__ sinv,
+                     const __grid_constant__ GroupPlan gp,
+                     const __grid_constant__ CrossPlan cp, const void* __restrict__ dft) {
+  fft_rows_t_body<T, O, false, R0, R1, ENG_BF16>(
       src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
       live_cols, M, logq, lr, rs_smem, nblk, out_re, out_im, cosv, sinv, gp, cp, dft);
+}
+
+// four consecutive outputs from registers: one 16-byte float32 store, or
+// one 8-byte store of four bfloat16 (each rounded to nearest even)
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&b));
+}
+
+// The MXU instances' transposed store of the block's shared rows, (P, M,
+// N) -> (P, N, M): 4 rows of one column a thread, one vector store,
+// neighbouring threads on neighbouring row quads, then columns (the
+// shared reads conflict-free at t_plan's stride), where the rows come in
+// quads and M is a multiple of 4; else a row a thread
+template <typename O>
+__device__ __forceinline__ void store_t_rows(const TBlockOf<O>& tb, O* __restrict__ out_re,
+                                             O* __restrict__ out_im, size_t obase, int N) {
+  const int lr = tb.lr, rows = 1 << lr, rs = tb.rs_smem, M = tb.M, m0 = tb.m0;
+  if (rows >= 4 && (M & 3) == 0) {
+    const int lq = lr - 2;
+    for (int t = threadIdx.x; t < N << lq; t += blockDim.x) {
+      const int r = (t & ((1 << lq) - 1)) << 2, k = t >> lq;
+      if (m0 + r >= M) continue;
+      const int a = r * rs + pad_idx(k);
+      float vr[4], vi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        vr[i] = tb.sre[a + i * rs];
+        vi[i] = tb.sim[a + i * rs];
+      }
+      const size_t o = obase + (size_t)k * M + m0 + r;
+      store4(out_re + o, vr);
+      store4(out_im + o, vi);
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < rows * N; t += blockDim.x) {
+    const int r = t & (rows - 1), k = t >> lr, m = m0 + r;
+    if (m < M) {
+      const int a = r * rs + pad_idx(k);
+      const size_t o = obase + (size_t)k * M + m;
+      out_re[o] = to_out<O>(tb.sre[a]);
+      out_im[o] = to_out<O>(tb.sim[a]);
+    }
+  }
+}
+
+// The MXU engine's pass (ENG_BF16 or ENG_TF32X3; the parameters as
+// fft_rows_t_body's): a persistent block walks over the `blocks` row
+// blocks (block b as fft_rows_t_body's block b), the plan's groups
+// running the outer stages 7 .. logq - 1 and the group DFT
+// (fft_group_dft_smem.cuh; dft the direction's tables, their first
+// tab_chunks chunks copied into the front of the block's shared memory as
+// it starts, the rest read from dft) the inner 7:
+// forward after the outer groups, inverse before them; the transposed
+// read of the shared rows stores every pass
+template <typename T, typename O, bool INV, int R0, int R1, int ENG>
+__device__ __forceinline__ void fft_rows_t_mxu_body(
+    const T* __restrict__ src_re, const T* __restrict__ src_im, long long is, long long chs,
+    int channels, int qstep, int qim, long long rs, long long cs, int re_live, int im_live,
+    int live_rows, int live_cols, int M, int logq, int lr, int rs_smem, int nblk, int blocks,
+    O* __restrict__ out_re, O* __restrict__ out_im, const float* __restrict__ cosv,
+    const float* __restrict__ sinv, const GroupPlan& gp, const CrossPlan& cp,
+    const void* __restrict__ dft, int tab_chunks) {
+  constexpr int R = R0 * R1;
+  // the tables' first tab_chunks chunks in front of the shared rows
+  extern __shared__ __align__(16) unsigned char t_smem[];
+  const int tab_bytes = tab_chunks * dft_res_chunk_bytes(ENG);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(t_smem + tab_bytes);
+  float* srows = reinterpret_cast<float*>(t_smem + tab_bytes + DFT_RES_BAR);
+  if (tab_bytes) dft_tables_start(t_smem, dft, tab_bytes, bar);
+  const int rows = 1 << lr;
+  const int q = 1 << logq;
+  const int N = R * q;
+  const int total = rows * N;
+  for (int blk = blockIdx.x; blk < blocks; blk += gridDim.x) {
+    const int p = blk / nblk;
+    const int m0 = (blk - p * nblk) * rows;
+    const size_t obase = (size_t)p * N * M;
+    if (m0 >= live_rows) {  // rows past the live ones: zeros, no transform
+      for (int t = threadIdx.x; t < total; t += blockDim.x) {
+        const int r = t & (rows - 1), m = m0 + r;
+        if (m < M) {
+          const size_t o = obase + (size_t)(t >> lr) * M + m;
+          out_re[o] = to_out<O>(0.0f);
+          out_im[o] = to_out<O>(0.0f);
+        }
+      }
+      continue;
+    }
+    const TBlockOf<O> tb = {srows, srows + rows * rs_smem, rs_smem, logq, lr, total >> 4,
+                            N, cosv, sinv, out_re + obase + m0, out_im + obase + m0, M, m0};
+    const PairLoad<T> ld(src_re, src_im, is, chs, channels, qstep, qim, rs, cs,
+                         re_live, im_live, live_rows, live_cols, p, m0);
+    const SmemEpi epi{tb.sre, tb.sim, rs_smem};
+    if (!INV) {
+      if (R > 1) {  // load + both cross levels, item (row, b): b fastest
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int b = t & (q - 1), r = t >> logq;
+          float xr[R], xi[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const float2 v = ld.get(r, b + j * q);
+            xr[j] = v.x;
+            xi[j] = v.y;
+          }
+          cross_item<R0, R1, false>(xr, xi, b, q, N, cp);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int a = r * rs_smem + pad_idx(b + j * q);
+            tb.sre[a] = xr[j];
+            tb.sim[a] = xi[j];
+          }
+        }
+        __syncthreads();
+      } else if (gp.groups == 0) {  // q = 128: the group DFT alone
+        // element by element: rows_to_smem's vectors in flight here cost the
+        // forward pass registers it spills everywhere (rows of 128 points)
+        for (int t = threadIdx.x; t < total; t += blockDim.x) {
+          const int r = t >> logq, c = t & (q - 1);
+          const float2 v = ld.get(r, c);
+          tb.sre[r * rs_smem + pad_idx(c)] = v.x;
+          tb.sim[r * rs_smem + pad_idx(c)] = v.y;
+        }
+        __syncthreads();
+      }
+      for (int g = 0; g < gp.groups; ++g) {
+        forward_group<R>(tb, gp, g, ld);
+        __syncthreads();
+      }
+      if (tab_bytes) dft_tables_wait(bar);
+      group_dft_res<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, t_smem, tab_chunks,
+                         dft, epi);
+      __syncthreads();
+      store_t_rows(tb, out_re, out_im, obase, N);
+    } else {
+      rows_to_smem(tb, ld, rows, N);
+      __syncthreads();
+      if (tab_bytes) dft_tables_wait(bar);
+      group_dft_res<ENG>(tb.sre, tb.sim, rs_smem, rows, N >> DFT_LOG, t_smem, tab_chunks,
+                         dft, epi);
+      __syncthreads();
+      float mm[4] = {};  // no min/max in this kernel
+      for (int g = gp.groups - 1; g >= 0; --g) {
+        run_group<true, LD_SMEM, ST_SMEM>(tb, gp, g, ld, false, mm);
+        __syncthreads();
+      }
+      if (R > 1) {  // both inverse cross levels, then the transposed store
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int r = t & (rows - 1), b = t >> lr, m = m0 + r;
+          float xr[R], xi[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int a = r * rs_smem + pad_idx(b + j * q);
+            xr[j] = tb.sre[a];
+            xi[j] = tb.sim[a];
+          }
+          cross_item<R0, R1, true>(xr, xi, b, q, N, cp);
+          if (m < M) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              const size_t o = obase + (size_t)(b + j * q) * M + m;
+              out_re[o] = to_out<O>(xr[j]);
+              out_im[o] = to_out<O>(xi[j]);
+            }
+          }
+        }
+      } else {
+        store_t_rows(tb, out_re, out_im, obase, N);
+      }
+    }
+    __syncthreads();  // the shared rows read before the next row block lands
+  }
+  // no block leaves with the copy in flight: thread 0, which started it,
+  // waits (the others may not have met a barrier since its mbarrier.init)
+  if (tab_bytes && threadIdx.x == 0) dft_tables_wait(bar);
+}
+
+// the MXU engine's instances (ENG_BF16 or ENG_TF32X3): O float32, or
+// bfloat16 for bf16 staging's forward pass; blocks = nblk * P row blocks
+template <typename T, typename O, bool INV, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(T_THREADS, 1)
+fft_rows_t_mxu_kernel(const T* __restrict__ src_re, const T* __restrict__ src_im,
+                      long long is, long long chs, int channels, int qstep, int qim,
+                      long long rs, long long cs, int re_live, int im_live,
+                      int live_rows, int live_cols, int M, int logq, int lr,
+                      int rs_smem, int nblk, int blocks, O* __restrict__ out_re,
+                      O* __restrict__ out_im, const float* __restrict__ cosv,
+                      const float* __restrict__ sinv,
+                      const __grid_constant__ GroupPlan gp,
+                      const __grid_constant__ CrossPlan cp, const void* __restrict__ dft,
+                      int tab_chunks) {
+  fft_rows_t_mxu_body<T, O, INV, R0, R1, ENG>(
+      src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+      live_cols, M, logq, lr, rs_smem, nblk, blocks, out_re, out_im, cosv, sinv, gp, cp, dft,
+      tab_chunks);
 }
 
 // the arguments of one launch, as the C entry passes them on
@@ -299,7 +518,7 @@ fft_rows_t_bf16_kernel(const T* __restrict__ src_re, const T* __restrict__ src_i
       int qstep, int qim, long long rs, long long cs, int re_live, int im_live,      \
       int live_rows, int live_cols, int P, int M, int logq, int lr, int rs_smem,     \
       int threads, void *out_re, void *out_im, const void *cosv, const void *sinv,   \
-      const GroupPlan &gp, const CrossPlan &cp, const void *dft, cudaStream_t stream
+      const GroupPlan &gp, const CrossPlan &cp, const DftRes &dft, cudaStream_t stream
 #define FFT_ROWS_T_KERNEL_ARGS                                                           \
   nblk * P, threads, smem, stream, (const T*)src_re, (const T*)src_im, is, chs, channels, \
       qstep, qim, rs, cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem,   \
@@ -315,18 +534,62 @@ int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS);
 template <typename T, int R0, int R1, int ENG>
 int launch_t_bf16(FFT_ROWS_T_LAUNCH_PARAMS);
 
-#if defined(FFT_STAGE_TU)
-template <typename T, int R0, int R1, int ENG>
-int launch_t_bf16(FFT_ROWS_T_LAUNCH_PARAMS) {
+// fft_rows_t_mxu_kernel's launch: dft.chunks of the tables in front of
+// the rows, at most one persistent block a slot of the card
+template <typename T, typename O, bool INV, int R0, int R1, int ENG>
+int launch_t_res(FFT_ROWS_T_LAUNCH_PARAMS) {
+  const long long smem = dft_res_smem<ENG>(dft, 2 * sizeof(float) * ((size_t)rs_smem << lr));
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const int rows = 1 << lr;
+  const int nblk = (M + rows - 1) / rows;
+  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  return start_persistent(fft_rows_t_mxu_kernel<T, O, INV, R0, R1, ENG>, nblk * P, threads,
+                          (size_t)smem, stream, (const T*)src_re, (const T*)src_im, is, chs,
+                          channels, qstep, qim, rs, cs, re_live, im_live, live_rows, live_cols,
+                          M, logq, lr, rs_smem, nblk, nblk * P, (O*)out_re, (O*)out_im,
+                          (const float*)cosv, (const float*)sinv, gp, cp, dft.tab, dft.chunks);
+}
+
+// fft_rows_t_l2_kernel's launch (no table chunks: dft.chunks 0), one
+// block a row block
+template <typename T, typename O, int R0, int R1>
+int launch_t_l2(FFT_ROWS_T_LAUNCH_PARAMS) {
+  if (dft.tab == nullptr || dft.chunks != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
   const int rows = 1 << lr;
   const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return start_kernel(fft_rows_t_bf16_kernel<T, R0, R1, ENG>, nblk * P, threads, smem, stream,
+  return start_kernel(fft_rows_t_l2_kernel<T, O, R0, R1>, nblk * P, threads, smem, stream,
                       (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
                       cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem, nblk,
-                      (__nv_bfloat16*)out_re, (__nv_bfloat16*)out_im, (const float*)cosv,
-                      (const float*)sinv, gp, cp, dft);
+                      (O*)out_re, (O*)out_im, (const float*)cosv, (const float*)sinv, gp, cp,
+                      dft.tab);
+}
+
+#if defined(FFT_STAGE_TU)
+template <typename T, int R0, int R1, int ENG>
+int launch_t_bf16(FFT_ROWS_T_LAUNCH_PARAMS) {
+  if constexpr (ENG == ENG_BF16) {
+    return launch_t_l2<T, __nv_bfloat16, R0, R1>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft,
+        stream);
+  } else if constexpr (ENG != ENG_ROLL) {
+    return launch_t_res<T, __nv_bfloat16, false, R0, R1, ENG>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft,
+        stream);
+  } else {
+    const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+    const int rows = 1 << lr;
+    const int nblk = (M + rows - 1) / rows;
+    if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    return start_kernel(fft_rows_t_bf16_kernel<T, R0, R1>, nblk * P, threads, smem, stream,
+                        (const T*)src_re, (const T*)src_im, is, chs, channels, qstep, qim, rs,
+                        cs, re_live, im_live, live_rows, live_cols, M, logq, lr, rs_smem, nblk,
+                        (__nv_bfloat16*)out_re, (__nv_bfloat16*)out_im, (const float*)cosv,
+                        (const float*)sinv, gp, cp);
+  }
 }
 
 #define FFT_ROWS_T_BF16(T)                                                              \
@@ -341,11 +604,16 @@ FFT_ROWS_T_BF16(uint8_t)
 #elif defined(FFT_MXU_TU)
 template <typename T, bool INV, int R0, int R1, int ENG>
 int launch_t_mxu(FFT_ROWS_T_LAUNCH_PARAMS) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  const int rows = 1 << lr;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return start_kernel(fft_rows_t_mxu_kernel<T, INV, R0, R1, ENG>, FFT_ROWS_T_KERNEL_ARGS, dft);
+  if constexpr (ENG == ENG_BF16 && !INV)
+    return launch_t_l2<T, float, R0, R1>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft,
+        stream);
+  else
+    return launch_t_res<T, float, INV, R0, R1, ENG>(
+        src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows,
+        live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft,
+        stream);
 }
 
 #define FFT_ROWS_T_MXU(T, INV)                                                          \
@@ -368,7 +636,7 @@ static int launch_t(const void* src_re, const void* src_im, long long is,
                     int live_cols, int P, int M, int logq, int lr, int rs_smem,
                     int threads, void* out_re, void* out_im, int out_bf16, const void* cosv,
                     const void* sinv, const GroupPlan& gp, const CrossPlan& cp,
-                    int eng, const void* dft, cudaStream_t stream) {
+                    int eng, const DftRes& dft, cudaStream_t stream) {
 #define FFT_ROWS_T_MXU_ARGS                                                            \
   src_re, src_im, is, chs, channels, qstep, qim, rs, cs, re_live, im_live, live_rows, \
       live_cols, P, M, logq, lr, rs_smem, threads, out_re, out_im, cosv, sinv, gp, cp, dft, stream
@@ -407,7 +675,7 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
                           int logq, int lr, int rs_smem, int threads, void* out_re,
                           void* out_im, int out_bf16, const void* cosv, const void* sinv,
                           const GroupPlan& gp, const CrossPlan& cp, int eng,
-                          const void* dft, cudaStream_t stream) {
+                          const DftRes& dft, cudaStream_t stream) {
 #define FFT_ROWS_T_LAUNCH(R0, R1)                                                   \
   launch_t<T, INV, R0, R1>(src_re, src_im, is, chs, channels, qstep, qim, rs, cs, \
                            re_live, im_live, live_rows, live_cols, P, M, logq, lr, \
@@ -428,9 +696,10 @@ static int launch_radices(int code, const void* src_re, const void* src_im,
 // row_shift (the wrapper's t_plan); logq = S; lr = log2(rows); rs_smem the padded row stride;
 // out_bf16: store bfloat16 planes (bf16 staging; forward passes only);
 // threads a multiple of 32 up to 512; levels .. xsin: the cross levels of
-// this direction (levels 0 for a pow2 N; see make_cross_plan); eng: ENG_ROLL,
-// or a tensor-core engine (fft_group_dft.cuh) with the outer-stage plan
-// and dft the direction's fragment tables
+// this direction (levels 0 for a pow2 N; see make_cross_plan); eng:
+// ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh) with the
+// outer-stage plan and dft the direction's tables
+// (fft_group_dft_smem.cuh, fft_kernel.dft_res_tables)
 extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_u8,
                                  long long is, long long chs, int channels, int qstep,
                                  int qim, long long rs, long long cs, int re_live,
@@ -440,10 +709,11 @@ extern "C" int fft_rows_t_launch(const void* src_re, const void* src_im, int in_
                                  const void* cosv, const void* sinv, const int* plan,
                                  int levels, const int* radix, const float* coef,
                                  const void* xcos, const void* xsin, int eng,
-                                 const void* dft, void* stream) {
+                                 const void* dft_tab, int tab_chunks, void* stream) {
   GroupPlan gp;
   const bool plan_ok = eng == ENG_ROLL ? read_group_plan(plan, logq, &gp)
-                                       : read_mxu_plan(plan, logq, &gp) && dft != nullptr;
+                                       : read_mxu_plan(plan, logq, &gp) && dft_tab != nullptr;
+  const DftRes dft{dft_tab, tab_chunks};
   if (levels < 0 || levels > MAX_CROSS_LEVELS || !plan_ok || threads < 32 ||
       threads > T_THREADS || threads % 32)
     return (int)cudaErrorInvalidValue;

@@ -27,7 +27,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu",
            "fft_radix4.cu", "postprocess.cu")
-HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh", "fft_group_dft.cuh")
+HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh", "fft_group_dft.cuh",
+           "fft_group_dft_smem.cuh")
 # the sources whose MXU instances build in units of their own, one an
 # engine (csrc/fft_group_dft.cuh ENG_BF16 = 1, ENG_TF32X3 = 2), with the
 # engine's own nvcc flags. The bf16 units build with -fmad=false: a
@@ -82,16 +83,18 @@ SIGNATURES = {
     # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
     # floats between pairs' outputs, minmax, log2 rows a partial, inverse,
     # natural, cos, sin, host int32 plan (fft_kernel.TPlan.c_plan), CROSS,
-    # ENG, stream
+    # ENG with the resident tables (fft_kernel.dft_res_pointer), the chunks
+    # of them a block keeps in shared memory (fft_kernel.res_chunks), stream
     "fft_rows_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                        I, I, I, I, P, P, LL, P, I, I, I, P, P, P, *CROSS, *ENG, P],
+                        I, I, I, I, P, P, LL, P, I, I, I, P, P, P, *CROSS, *ENG, I, P],
     # src_re, src_im, in_u8, image stride, channel stride, channels,
     # qstep, qim, row/col strides, re_live, im_live, live_rows, live_cols,
     # P, M, log2 q, log2 rows, padded row stride, threads, out_re, out_im,
     # out bfloat16 (bf16 staging), inverse, cos, sin, host int32 plan
-    # (fft_kernel.TPlan.c_plan), CROSS, ENG, stream
+    # (fft_kernel.TPlan.c_plan), CROSS, ENG and the chunks as fft_rows_launch,
+    # stream
     "fft_rows_t_launch": [P, P, I, LL, LL, I, I, I, LL, LL, I, I, I, I, I, I,
-                          I, I, I, I, P, P, I, I, P, P, P, *CROSS, *ENG, P],
+                          I, I, I, I, P, P, I, I, P, P, P, *CROSS, *ENG, I, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
     # padded row stride, threads, cos_f, sin_f, cos_i, sin_i, host int32
     # DIF and DIT plans (fft_kernel.s_plan), CROSS fwd, CROSS inv, ENG with

@@ -30,7 +30,9 @@ Two engines, the JAX package's `engine=` (`resolve_engine`):
         tail q) is >= 128: the outer stages S-1 .. 7 as radix-2 groups,
         then one natural-order DFT-128 of every contiguous 128-point
         group (`group_dft_plain`; on the card the tensor cores,
-        csrc/fft_group_dft.cuh); the inverse mirrors it. Spectra land in
+        csrc/fft_group_dft.cuh, and in B1, B3 and B6 with the tables
+        resident in shared memory, csrc/fft_group_dft_smem.cuh); the
+        inverse mirrors it. Spectra land in
         the "hybrid order" (`hybrid_permutation`). `precision=`
         'default' rounds the group product's operands to bf16 (one bf16
         pass, f32 sums), 'highest' keeps float32 (3xTF32 on the card).
@@ -326,10 +328,101 @@ def dft_fragments(inverse: bool, precision: str, device: torch.device) -> torch.
 
 
 def dft_pointer(code: int, inverse: bool, device) -> int:
-    """The fragment tables' device pointer of an engine code (0: none)."""
+    """The fragment tables' device pointer of an engine code (0: none):
+    B2/B7's group_dft (csrc/fft_group_dft.cuh)."""
     if not code:
         return 0
     return dft_fragments(bool(inverse), MXU_PRECISIONS[code - 1], device).data_ptr()
+
+
+# B1's and B3/B6's group DFT (csrc/fft_group_dft_smem.cuh) with its tables
+# resident in shared memory: 'default' the fragment tables above; 'highest'
+# the symmetric form, Wc and Ws over the columns 0 .. 16 * DFT_SYM_TILES - 1
+# (bins 0 .. 64 used, 65 .. 127 their mirror images), m16n8k8 tf32 fragments.
+# Both are laid out in chunks of one bin tile and k step
+DFT_SYM_TILES = 5
+DFT_RES_CHUNKS = {"default": 8 * 8, "highest": DFT_SYM_TILES * 16}
+DFT_RES_CHUNK_BYTES = {"default": 3 * 32 * 16, "highest": 2 * 32 * 16}
+DFT_RES_BYTES = {p: DFT_RES_CHUNKS[p] * DFT_RES_CHUNK_BYTES[p] for p in DFT_RES_CHUNKS}
+DFT_RES_BAR = 16  # the mbarrier's slot after the tables
+DFT_TASK = 8  # groups a warp task (the mma's N)
+
+
+@functools.lru_cache(maxsize=None)
+def dft_sym_fragments_np(inverse: bool) -> np.ndarray:
+    """The symmetric 'highest' tables in the kernel's order [bin tile <
+    DFT_SYM_TILES][k step < 16][table Wc, Ws][lane][element] (float32):
+    A[bin][pos] = W[pos][bin] for bins 0 .. 79, the float64-built
+    _dft_planes_np(128) values as they are (no other rounding)."""
+    row, col = dft_fragment_index("highest")
+    row, col = row[:DFT_SYM_TILES], col[:DFT_SYM_TILES]
+    return np.stack([w.T[row, col] for w in _dft_planes_np(MXU_INNER, bool(inverse))], 2)
+
+
+@functools.lru_cache(maxsize=None)
+def dft_res_tables(inverse: bool, precision: str, device: torch.device) -> torch.Tensor:
+    """One direction's resident tables (DFT_RES_BYTES[precision] bytes) on
+    `device`, uploaded once: dft_fragments at 'default', the symmetric
+    dft_sym_fragments_np at 'highest'."""
+    if check_precision(precision) == "default":
+        return dft_fragments(bool(inverse), precision, device)
+    return torch.from_numpy(dft_sym_fragments_np(bool(inverse))).to(device)
+
+
+def dft_res_chunks(precision: str, smem_bytes: int) -> int:
+    """The table chunks that fit beside a plan's shared rows (1 KB left
+    for static shared memory), the count the launch passes to the kernel
+    (csrc/fft_group_dft_smem.cuh DftRes): all of them but at 'default'
+    beside 8 rows of 2048 points, 4 of 4096 or one of 16384 (62 of 64: the
+    kernels read the last two from global memory)."""
+    room = MAX_BLOCK_SMEM - DFT_RES_BAR - 1024 - smem_bytes
+    return max(0, min(DFT_RES_CHUNKS[check_precision(precision)],
+                      room // DFT_RES_CHUNK_BYTES[precision]))
+
+
+def resident_route(code: int, inverse: bool) -> bool:
+    """Whether a B1, B3 or B6 pass at an engine code runs the group DFT
+    with resident tables: every tensor-core pass but the forward ones at
+    'default', which keep the L2 design's kernels (csrc/fft_rows_t.cu
+    fft_rows_t_l2_kernel, csrc/fft_rows.cu fft_rows_l2_kernel: the tables
+    read through L1 and L2), faster there on an H100."""
+    return bool(code) and not (code == 1 and not inverse)
+
+
+def res_chunks(code: int, plan, inverse: bool) -> int:
+    """The table chunks a pass's launch copies into shared memory at an
+    engine code (0 at roll and off the resident route): the kernels take
+    the count as it is and check it against their tables."""
+    if not resident_route(code, inverse):
+        return 0
+    return dft_res_chunks(MXU_PRECISIONS[code - 1], plan.smem_bytes)
+
+
+def dft_res_pointer(code: int, inverse: bool, device) -> int:
+    """The resident tables' device pointer of an engine code (0: none)."""
+    if not code:
+        return 0
+    return dft_res_tables(bool(inverse), MXU_PRECISIONS[code - 1], device).data_ptr()
+
+
+def group_dft_res_tasks(groups: int, warps: int) -> dict:
+    """The warp tasks of csrc/fft_group_dft_smem.cuh group_dft_res over a
+    block's `groups` groups: {warp: the first group of each of its tasks};
+    warp w takes the 8 groups from 8 w, 8 (w + warps), ... and all their
+    bins."""
+    return {w: list(range(DFT_TASK * w, groups, DFT_TASK * warps)) for w in range(warps)}
+
+
+def group_dft_res_bins(precision: str, tile: int) -> tuple:
+    """The bins a task's bin tile writes of each of its groups: the 16
+    columns 16 * tile .. 16 * tile + 15 ('default'); 'highest' those of
+    them up to 64 and the mirror 128 - k of those in 1 .. 63."""
+    cols = range(16 * tile, 16 * tile + 16)
+    if check_precision(precision) == "default":
+        return tuple(cols)
+    half = MXU_INNER // 2
+    return tuple(k for k in cols if k <= half) + tuple(MXU_INNER - k for k in cols
+                                                        if 0 < k < half)
 
 
 def stage_spec(stages: int, mxu: bool = False) -> tuple:
@@ -442,6 +535,17 @@ T_MIN_ROWS_STORE = 8    # 32-byte column segments of the transposed store (n <= 
 # blocks a launch should have, per SM of the card: fewer rows a block (at
 # least T_MIN_ROWS_STORE) when the rows of all pairs would give fewer
 T_MIN_WAVES = 2
+# the MXU instances' shared rows (csrc/fft_group_dft_smem.cuh): a block's
+# shared memory less 60 of the 64 'default' table chunks (all of the 80 KB
+# at 'highest'), the mbarrier and the static min/max scratch, which the
+# plans' padded-row bound meets with B1's 8 rows at n = 2048 (its
+# transposed store's 32-byte column segments; 62 chunks fit beside them);
+# one persistent block an SM of up to 512 threads
+MXU_ROWS_SMEM = (MAX_BLOCK_SMEM - 60 * DFT_RES_CHUNK_BYTES["default"] - DFT_RES_BAR - 1024)
+MXU_THREADS = 512
+# groups a persistent block should hold at least: one warp task of 8 for
+# each of its 16 warps
+MXU_TASK_GROUPS = 64
 
 
 def t_stage_groups(stages: int) -> tuple:
@@ -579,7 +683,7 @@ def _t_store_conflicts(plan: TPlan) -> int:
 
 @functools.lru_cache(maxsize=None)
 def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
-           blocks_wanted: int = 0, mxu: bool = False) -> TPlan:
+           blocks_wanted: int = 0, mxu: bool = False, resident: bool = True) -> TPlan:
     """The fft_rows_t plan of a length-n row pass over planes of m rows.
 
     Rows a block: the largest power of two up to the plane height (and
@@ -598,18 +702,24 @@ def t_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     row map. The row stride is the first past the padded row that keeps
     the shared-memory transposed read conflict-free and the groups'
     accesses cheapest. mxu: the groups cover the outer stages 7 .. S - 1
-    (stage_spec; the group DFT runs the rest) and every pass stores
-    through shared memory."""
+    (stage_spec; the group DFT runs the rest), every pass stores through
+    shared memory and the rows are those that fit MXU_ROWS_SMEM beside the
+    resident tables (8 at n = 2048, 32 at 256), whatever blocks_wanted
+    asks: the kernel's persistent blocks walk over the row blocks;
+    resident=False (the forward passes at 'default', resident_route):
+    the L2 design's plan, its rows as roll's."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
     q = 1 << stages
     rows = max(1, T_SLOTS // q)
     cap = max(rows, min(T_MAX_ROWS, 1 << max(0, m - 1).bit_length()))
-    while rows * 2 <= cap and 16 * rows * (t_pad(n) + 32) <= T_SMEM_BUDGET:
+    res = mxu and resident
+    budget = MXU_ROWS_SMEM if res else T_SMEM_BUDGET
+    while rows * 2 <= cap and 16 * rows * (t_pad(n) + 32) <= budget:
         rows *= 2
     floor = max(T_MIN_ROWS_STORE, T_SLOTS // q)
-    while rows > floor and -(-m // rows) < blocks_wanted:
+    while not res and rows > floor and -(-m // rows) < blocks_wanted:
         rows //= 2
     lr = rows.bit_length() - 1
     ns = rows * n // T_SLOTS
@@ -672,7 +782,7 @@ def r_pinned(groups: int, g: int, mixed: bool, mxu: bool = False) -> bool:
 @functools.lru_cache(maxsize=None)
 def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
            natural: bool = False, rows: int = 0, threads: int = 0,
-           packed: bool = False, mxu: bool = False) -> TPlan:
+           packed: bool = False, mxu: bool = False, resident: bool = True) -> TPlan:
     """The fft_rows plan (B3, B6) of a length-n row pass over planes of m
     rows.
 
@@ -689,7 +799,16 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
     t_bank_conflicts finds cheaper. The row stride is the first past the
     padded row that keeps the groups' accesses cheapest (the bit-reversed
     load's shared stores counted as the kernel makes them). mxu (revorder
-    only): the groups cover the outer stages 7 .. S - 1 (stage_spec)."""
+    only): the groups cover the outer stages 7 .. S - 1 (stage_spec); one
+    block of up to MXU_THREADS an SM beside the resident tables: a
+    natural-store block takes the rows that fit MXU_ROWS_SMEM (8 at n =
+    2048: 4 beside all of the tables took an H100 10% longer), a
+    packed-store block those of one min/max partial as at roll
+    (4 at n = 2048) or, where those hold fewer than MXU_TASK_GROUPS
+    groups, that many groups' rows (32 at n = 256: two partials a
+    block); resident=False (the forward passes at 'default',
+    resident_route): the L2 design's plan, its rows and threads as
+    roll's."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
@@ -698,16 +817,26 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
         if mxu:
             raise ValueError("the mxu engine takes revorder passes")
     q = 1 << stages
+    res = mxu and resident
     if not rows:
-        fit = rows_per_block(n, m) if packed else max(1, min(16, R_SMEM_BUDGET // (8 * n), m))
+        if packed:
+            fit = rows_per_block(n, m)
+            if res:  # 64 groups a block or more (several min/max partials a block)
+                fit = max(fit, min(MXU_TASK_GROUPS * MXU_INNER // n,
+                                   MXU_ROWS_SMEM // (8 * (t_pad(n) + 32)), m))
+        elif res:
+            fit = max(1, min(T_MAX_ROWS, MXU_ROWS_SMEM // (8 * (t_pad(n) + 32)), m))
+        else:
+            fit = max(1, min(16, R_SMEM_BUDGET // (8 * n), m))
         rows = max(1 << (fit.bit_length() - 1), T_SLOTS // q)
     if rows & (rows - 1) or rows * q < T_SLOTS:
         raise ValueError(f"rows a block must be a power of two >= {T_SLOTS // q}, got {rows}")
     lr = rows.bit_length() - 1
     ns = rows * n // T_SLOTS
-    threads = threads or min(R_PLAN_THREADS, -(-ns // 32) * 32)
-    if threads % 32 or not 32 <= threads <= R_THREADS:
-        raise ValueError(f"threads a block must be a multiple of 32 up to {R_THREADS}")
+    most = MXU_THREADS if res else R_THREADS
+    threads = threads or min(MXU_THREADS if res else R_PLAN_THREADS, -(-ns // 32) * 32)
+    if threads % 32 or not 32 <= threads <= most:
+        raise ValueError(f"threads a block must be a multiple of 32 up to {most}")
     spec = stage_spec(stages, mxu)
     best = None
     for extra in range(32):
@@ -1294,14 +1423,15 @@ def _r_launch_args(big_n, radices, big_m, inverse, natural, packed, device, code
     (the plan, the table, cross-level and fragment pointers), worked out
     once per shape and engine code, as _t_launch_args. The plan array
     stays alive in the cache."""
-    plan = r_plan(big_n, radices, big_m, inverse, natural, packed=packed, mxu=bool(code))
+    plan = r_plan(big_n, radices, big_m, inverse, natural, packed=packed, mxu=bool(code),
+                  resident=resident_route(code, inverse))
     t = tables(big_n, inverse, device, radices)
     c_plan = plan.c_plan()
     lpg = rows_per_block(big_n, big_m).bit_length() - 1  # rows of a min/max partial
     return ((plan.logq, plan.lr, plan.rs, plan.threads), lpg,
             (int(inverse), int(natural), t.cos.data_ptr(), t.sin.data_ptr(), c_plan.ctypes.data,
              *cross_args(big_n, radices, inverse, device), code,
-             dft_pointer(code, inverse, device)), c_plan)
+             dft_res_pointer(code, inverse, device), res_chunks(code, plan, inverse)), c_plan)
 
 
 def _launch(re, im, pmap, re_live, im_live, live_rows, live_cols, big_m, big_n, out_re,
@@ -1350,12 +1480,13 @@ def _t_launch_args(big_n, radices, big_m, inverse, device, pairs, code=0) -> tup
     launches a frame and is near host-bound. The plan array stays alive
     in the cache."""
     plan = t_plan(big_n, radices, big_m, inverse, -(-_sm_count(device) * T_MIN_WAVES // pairs),
-                  mxu=bool(code))
+                  mxu=bool(code), resident=resident_route(code, inverse))
     t = tables(big_n, inverse, device, radices)
     c_plan = plan.c_plan()
     return ((plan.logq, plan.lr, plan.rs, plan.threads), int(inverse), t.cos.data_ptr(),
             t.sin.data_ptr(), c_plan.ctypes.data, *cross_args(big_n, radices, inverse, device),
-            code, dft_pointer(code, inverse, device), c_plan)
+            code, dft_res_pointer(code, inverse, device), res_chunks(code, plan, inverse),
+            c_plan)
 
 
 def count_mxu(name: str, code: int) -> None:

@@ -26,7 +26,12 @@ rows) and B10 (`B10_rows`: `wiener_spectral_rows` on (3, 2048, 2048)
 planes with a (2048, 2048) spectrum); bf16 staging's B2 'wiener' (2048^2,
 the UHD frame's smooth extents) and B7 (batch64) with a bfloat16 and a
 float32 H, B2 'conv' and B7 on the 640x330 stack, at roll and at mxu
-'default' (`B2_bf16_*`, `B7_bf16_*`). `--modes` times only the modes whose names start with one of its
+'default' (`B2_bf16_*`, `B7_bf16_*`); the MXU row kernels at 'default'
+and 'highest' (`B1_mxu_*`, `B3_mxu_*`, `B6_mxu_*`): B1 on the 2048^2
+frame, batch64's stack and inverse-T pass and the UHD frame's smooth
+extents, B6's PSF pass at 2048^2 and at the UHD frame's height, B3 at
+2 x 2048^2, on batch64's planes and at the UHD frame's smooth extents,
+and the bf16-staged B1 store and B6 / B3 loads at 2048^2. `--modes` times only the modes whose names start with one of its
 prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy, event time and host enqueue (both
@@ -223,6 +228,30 @@ def child(iters: int, seed: int, only: tuple = ()) -> dict:
         modes[f"B2_bf16_conv_Hbf16{tag}"] = lambda E=E: ws.spectral_conv_t(*a, *H16, False, **E)
         modes[f"B7_bf16_stack330_smooth_Hf32{tag}"] = (
             lambda E=E: ws.fwd_wiener_rows(*sa16, *sH, 0.01, srh, **E))
+    # the MXU row kernels (fft_engine="mxu") at both precisions, at
+    # chip_smoke.py phase 12's and 13's shapes
+    inv64 = fk.fft_rows_plain(*f64, inverse=True, transposed=True)
+    mid16 = tuple(x.to(bf) for x in mid)
+    at16 = tuple(x.transpose(1, 2).contiguous().to(bf) for x in a)
+    for prec in ("default", "highest"):
+        E = dict(engine="mxu", precision=prec)
+        mxu = {
+            "B1_mxu_frame_T": lambda E=E: fk.fft_rows_stack(frame, extent=(2048, 2048), **E),
+            "B1_mxu_stack_T": lambda E=E: fk.fft_rows_stack(s64, extent=(256, 256), **E),
+            "B1_mxu_inverse_T": lambda E=E: fk.fft_rows(*f64, inverse=True, transposed=True, **E),
+            "B1_mxu_uhd_smooth_T": lambda E=E: fk.fft_rows_stack(uhd, extent=(hp, wp), radices=rw,
+                                                                 **E),
+            "B1_mxu_bf16_frame_T": lambda E=E: fk.fft_rows_stack(frame, extent=(2048, 2048),
+                                                                 out_dtype=bf, **E),
+            "B6_mxu_psf": lambda E=E: fk.fft_rows(*psf1, **E),
+            "B6_mxu_psf_uhd_smooth": lambda E=E: fk.fft_rows(*upsf1, radices=rh, **E),
+            "B6_mxu_bf16_fwd": lambda E=E: fk.fft_rows(*at16, **E),
+            "B3_mxu_packed_inv": lambda E=E: fk.fft_rows_packed_out(*mid, **E),
+            "B3_mxu_packed_inv_96x256x256": lambda E=E: fk.fft_rows_packed_out(*inv64, **E),
+            "B3_mxu_uhd_smooth": lambda E=E: fk.fft_rows_packed_out(*umid, radices=rw, **E),
+            "B3_mxu_bf16": lambda E=E: fk.fft_rows_packed_out(*mid16, **E),
+        }
+        modes.update({f"{k}_{prec}": v for k, v in mxu.items()})
     # the white-balance pair on the plain restore's raw planes, also timed
     # in a CUDA graph (`<mode>_graph`): their single-frame launches are
     # shorter than the wrappers' host time

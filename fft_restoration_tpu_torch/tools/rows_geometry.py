@@ -137,7 +137,8 @@ def run_case(torch, np, rng, case, rows, threads, iters):
         err = lib.fft_rows_launch(
             re.data_ptr(), im.data_ptr(), 0, m * n, 0, 1, 1, 0, n, 1, pairs, pairs, m, n, pairs,
             m, plan.logq, plan.lr, plan.rs, plan.threads, *outs, int(inverse), int(natural),
-            tab.cos.data_ptr(), tab.sin.data_ptr(), c_plan.ctypes.data, *cross, stream)
+            tab.cos.data_ptr(), tab.sin.data_ptr(), c_plan.ctypes.data, *cross, 0, None, 0,
+            stream)
         _build.check(err, "fft_rows")
 
     launch()

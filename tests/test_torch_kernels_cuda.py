@@ -926,6 +926,66 @@ def test_mxu_fft_kernels(dev, gen, precision, m, n, radices):
             assert _rel(o, r) <= tol
 
 
+# B1's and B3/B6's MXU instances run the group DFT with its tables resident
+# in shared memory (csrc/fft_group_dft_smem.cuh): one persistent block an
+# SM, 'highest' in the symmetric four-product form; the forward passes at
+# 'default' keep the L2 design's kernels (fft_kernel.resident_route). Each
+# instance against
+# its plain twin at both precisions and both directions: the uint8 frame
+# with pair packing (ragged live rows and columns) and the stack loader,
+# float pairs, the inverse-T pass, B3 with min/max, B6, bfloat16 loads
+# and stores, pow2 and mixed radices, q = 128, and n = 16384, where the
+# 'default' tables do not fit beside the row and stay in global memory.
+# Float32 outputs 1e-5 of the max (the bf16 units' -fmad=false keeps the
+# 'default' operands the twin's); bfloat16 outputs by _bf16_excess.
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("m,n,radices,live", [(64, 2048, (), (37, 1999)), (48, 128, (), (45, 100)),
+                                              (8, 16384, (), (8, 16001)),
+                                              (40, 3840, (3, 5), (33, 3801)),
+                                              (32, 384, (3,), (29, 384))])
+def test_mxu_rows_resident_tables(dev, gen, precision, m, n, radices, live):
+    from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    E = dict(engine="mxu", precision=precision, radices=radices)
+    b16 = torch.bfloat16
+    h, w = live
+    u8 = torch.as_tensor(gen.integers(0, 256, (h, w, 3), dtype=np.uint8), device=dev)
+    c = u8.permute(2, 0, 1)
+    a, b = (torch.as_tensor(gen.standard_normal((2, m, n), dtype=np.float32), device=dev)
+            for _ in range(2))
+    a16, b16_ = a.to(b16), b.to(b16)
+    ext = dict(extent=(m, n))
+    calls = [
+        lambda k: k(c[0::2], c[1::2], transposed=True, **ext, **E),
+        lambda k: k(a, b, transposed=True, **E),
+        lambda k: k(a, b, inverse=True, transposed=True, **E),
+        lambda k: k(a[:1], None, transposed=True, out_dtype=b16, **E),
+        lambda k: k(a, b, **E),
+        lambda k: k(a, b, inverse=True, **E),
+        lambda k: k(a16, b16_, **E),
+        lambda k: k(a16, b16_, inverse=True, **E),
+    ]
+    reset_launch_counts()
+    pairs = [(call(fk.fft_rows), call(fk.fft_rows_plain)) for call in calls]
+    stack = u8[None]
+    for out_dtype in (None, b16):
+        pairs.append((fk.fft_rows_stack(stack, **ext, out_dtype=out_dtype, **E),
+                      fk.fft_rows_stack_plain(stack, **ext, out_dtype=out_dtype, **E)))
+    if m % fk.rows_per_block(n, m) == 0:
+        for x, y in ((a, b), (a16, b16_)):
+            for inverse in (True, False):
+                pairs.append((fk.fft_rows_packed_out(x, y, inverse=inverse, **E),
+                              fk.fft_rows_packed_out_plain(x, y, inverse=inverse, **E)))
+    for ours, ref in pairs:
+        for o, r in zip(ours, ref):
+            assert o.dtype == r.dtype
+            err = _bf16_excess(o, r) if o.dtype == b16 else _rel(o, r)
+            assert err <= 1e-5, err
+    assert launch_counts[f"fft_rows_t_mxu_{precision}"] == 6
+    assert launch_counts["fft_rows_t_bf16"] == 2
+
+
 def test_mxu_pipeline_counts_and_tiers(dev):
     from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host.blurgen import blur_image
