@@ -4033,38 +4033,49 @@ def mxu_outer_flops(rows: int, n: int, radices=()) -> float:
 def mxu_table_bytes(torch, kind: str, n: int, radices, m: int, pairs: int, inverse: bool,
                     precision: str) -> dict:
     """The group DFT's table bytes from global memory a launch of B1
-    (kind "t"), B3 ("r3") or B6 ("r6") at mxu, counted from the designs
-    (for the log, not measured): the L2 design, group_dft
-    (csrc/fft_group_dft.cuh), which the forward passes at 'default' keep
-    (fft_kernel.resident_route), reads one direction's tables (96 KB at
-    'default', 192 KB at 'highest') for every warp task of 8 groups; the resident design (csrc/fft_group_dft_smem.cuh)
-    copies the chunks of its tables (96 KB / 80 KB) that fit beside the
-    rows (fft_kernel.res_chunks, the count the launch passes) once into
-    each persistent block, one block an SM at the plans' 512 threads (the
+    (kind "t"), B3 ("r3"), B6 ("r6"), B2 ("s2") or B7 ("s7") at mxu,
+    counted from the designs (for the log, not measured): the L2 design,
+    group_dft (csrc/fft_group_dft.cuh), which the forward B1/B6 passes at
+    'default' keep (fft_kernel.resident_route) and B2/B7 ran before,
+    reads one direction's tables (96 KB at 'default', 192 KB at 'highest')
+    for every warp task of 8 groups (B2: both directions; B7 at 'default'
+    keeps it, fft_kernel.spectral_resident); the resident
+    design of B1/B3/B6 (csrc/fft_group_dft_smem.cuh group_dft_res) copies
+    the chunks of its tables (96 KB / 80 KB) that fit beside the rows
+    (fft_kernel.res_chunks, the count the launch passes) once into each
+    persistent block, one block an SM at the plans' 512 threads (the
     launch bounds' 128 registers a thread fill an SM's 64 K), and reads the
     chunks left over (3 KB at 'default' beside 8 rows of 2048) for every
-    task of 8 groups, counting no L1 hit."""
+    task of 8 groups, counting no L1 hit; B2's and B7's (group_dft_sym)
+    copy one 64 KB table for both directions into each persistent block."""
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     code = fk.MXU_PRECISIONS.index(precision) + 1
-    resident = fk.resident_route(code, inverse)
-    if kind == "t":
-        plan = fk.t_plan(n, tuple(radices), m, inverse, -(-sms * fk.T_MIN_WAVES // pairs),
-                         mxu=True, resident=resident)
+    wanted = -(-sms * fk.T_MIN_WAVES // pairs)
+    directions = 2 if kind == "s2" else 1
+    if kind in ("s2", "s7"):
+        store = "transposed" if kind == "s2" else "natural"
+        resident = fk.spectral_resident(store, code)
+        plan = fk.s_plan(n, tuple(radices), m, store, wanted, mxu=True, resident=resident)
+        chunks, size = 1, fk.DFT_HALF_BYTES
     else:
-        plan = fk.r_plan(n, tuple(radices), m, inverse, packed=kind == "r3", mxu=True,
-                         resident=resident)
+        resident = fk.resident_route(code, inverse)
+        if kind == "t":
+            plan = fk.t_plan(n, tuple(radices), m, inverse, wanted, mxu=True, resident=resident)
+        else:
+            plan = fk.r_plan(n, tuple(radices), m, inverse, packed=kind == "r3", mxu=True,
+                             resident=resident)
+        chunks = fk.res_chunks(code, plan, inverse)
+        size = fk.DFT_RES_CHUNK_BYTES[precision]
     row_blocks = pairs * -(-m // plan.rows)
     tasks = row_blocks * -(-plan.rows * n // 128 // 8)
-    old = tasks * 8 * 8 * 3 * 32 * 16 * (1 if precision == "default" else 2)
-    chunks = fk.res_chunks(code, plan, inverse)
-    size = fk.DFT_RES_CHUNK_BYTES[precision]
+    old = directions * tasks * 8 * 8 * 3 * 32 * 16 * (1 if precision == "default" else 2)
     blocks = min(row_blocks, sms * max(1, fk.MXU_THREADS // plan.threads))
-    new = (blocks * chunks * size + tasks * (fk.DFT_RES_CHUNKS[precision] - chunks) * size
-           if resident else old)
+    left = 0 if kind in ("s2", "s7") else fk.DFT_RES_CHUNKS[precision] - chunks
+    new = blocks * chunks * size + tasks * left * size if resident else old
     return dict(table_bytes=new, table_bytes_l2=old, blocks=blocks if resident else row_blocks,
-                resident_chunks=chunks, rows_a_block=plan.rows)
+                resident_kb=chunks * size / 1024 if resident else 0, rows_a_block=plan.rows)
 
 
 def mxu_bound(nbytes: float, groups: float, f32_flops: float, precision: str) -> dict:
@@ -4210,8 +4221,9 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
                                   None),
             },
         }
-        # the redesigned kernels' launches (B1, B3/B6: the resident tables):
-        # mode -> (kind, n, radices, m, pairs, inverse) for mxu_table_bytes
+        # the redesigned kernels' launches (B1, B3/B6, B2, B7: the resident
+        # tables): mode -> (kind, n, radices, m, pairs, inverse) for
+        # mxu_table_bytes
         res_shapes = {
             "B1_frame_T": ("t", wp, (), hp, 2, False),
             "B1_stack_T_96x256x256": ("t", side, (), side, p64, False),
@@ -4222,6 +4234,11 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
             "B3_packed_inv": ("r3", wp, (), hp, 2, True),
             "B3_packed_inv_96x256x256": ("r3", side, (), side, p64, True),
             "B3_uhd_3840": ("r3", uwp, urw, uhp, up, True),
+            "B2_wiener_2048sq": ("s2", hp, (), wp, 2, False),
+            "B2_wiener_uhd_2304": ("s2", uhp, urh, uwp, up, False),
+            "B2_conv_2048sq": ("s2", hp, (), wp, 2, False),
+            "B2_conj_2048sq": ("s2", hp, (), wp, 2, False),
+            "B7_96x256x256": ("s7", side, (), side, p64, False),
         }
         for name, modes in specs.items():
             res = {}
@@ -4242,8 +4259,9 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
                     t = mxu_table_bytes(torch, *res_shapes[mode], prec)
                     tables = (f"; table bytes from global memory a launch, counted from the "
                               f"design: {t['table_bytes'] / 1e6:.1f} MB ({t['blocks']} blocks "
-                              f"of {t['rows_a_block']} rows, {t['resident_chunks']} chunks "
-                              f"resident; the L2 design {t['table_bytes_l2'] / 1e6:.1f} MB)")
+                              f"of {t['rows_a_block']} rows, {t['resident_kb']:g} KB of tables "
+                              f"resident a block; the L2 design "
+                              f"{t['table_bytes_l2'] / 1e6:.1f} MB)")
                 lib_ms = "none" if m["library_ms"] is None else "%.4f ms" % m["library_ms"]
                 timed = (f"; {m['ms']:.4f} ms vs plain {m['plain_ms']:.4f} ms, library "
                          f"{lib_ms}, bound {m['bound_ms']:.4f} ms ({m['bound_by']})"
@@ -4624,10 +4642,14 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
                     flops(sp * swp, shp, srh, filt=sp * shp * swp * 12), None, False),
             },
         }
-        # the redesigned MXU row kernels' first modes (mxu_table_bytes)
+        # the redesigned MXU kernels' first modes (mxu_table_bytes)
         res_shapes = {"B1_frame_u8_T": ("t", wp, (), hp, 2, False),
                       "B6_fwd_2048sq": ("r6", hp, (), wp, 2, False),
-                      "B3_packed_inv": ("r3", wp, (), hp, 2, True)}
+                      "B3_packed_inv": ("r3", wp, (), hp, 2, True),
+                      "B2_wiener_2048sq_Hbf16": ("s2", hp, (), wp, 2, False),
+                      "B2_conv_2048sq_Hbf16": ("s2", hp, (), wp, 2, False),
+                      "B2_conj_2048sq_Hbf16": ("s2", hp, (), wp, 2, False),
+                      "B7_96x256x256_Hbf16": ("s7", side, (), side, p64, False)}
         for name, modes in specs.items():
             row = rows.setdefault(name, dict(modes={}))
             first = True

@@ -8,10 +8,13 @@
 // a matrix product on the TPU's MXU. Forward (DIF): the outer stages, then
 // the group DFT, so the spectrum lands in the "hybrid order" (bin k at
 // rev_b(k mod G) * 128 + k div G, G = q / 128); inverse (DIT): the
-// inverse group DFT first, then the outer stages. B2/B7
-// (wiener_spectral.cu) call it between their stage groups (fft_groups.cuh)
-// and their stores; B1 and B3/B6 run fft_group_dft_smem.cuh's, whose
-// tables stay in shared memory.
+// inverse group DFT first, then the outer stages. The forward B1 and B6
+// passes and B7 at 'default' (fft_rows_t.cu fft_rows_t_l2_kernel, fft_rows.cu
+// fft_rows_l2_kernel, wiener_spectral.cu spectral_s_l2_kernel) call it
+// between their stage groups (fft_groups.cuh) and their stores, reading
+// the tables through L1 and L2 for every task; every other tensor-core
+// instance (B1, B3/B6, B2, B7 at 'highest') runs fft_group_dft_smem.cuh's,
+// whose tables stay in shared memory.
 //
 // The product is the JAX package's three real products (Karatsuba):
 //   m1 = xr Wc, m2 = xi Ws, m3 = (xr + xi)(Wc + Ws),
@@ -39,7 +42,7 @@
 // laid out on the host in fragment order ([bin tile][k step][table][lane],
 // fft_kernel.dft_fragments), one 16-byte read-only load a lane a table
 // and k step. An epilogue functor takes each result (row, column, yr, yi):
-// a shared store, or B2's / B7's filter and store.
+// a shared store, or B7's filter and store.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,9 +1,11 @@
-// The group DFT of B1's and B3/B6's MXU instances (fft_rows_t.cu,
-// fft_rows.cu), redesigned for Hopper: its tables resident in shared
-// memory, copied once a block by the TMA.
+// The group DFT of the MXU instances of B1, B3/B6 (fft_rows_t.cu,
+// fft_rows.cu: group_dft_res) and B2/B7 (wiener_spectral.cu:
+// group_dft_sym, at the end), redesigned for Hopper: its tables resident
+// in shared memory, copied once a block by the TMA.
 //
-// The design before (fft_group_dft.cuh group_dft, which B2/B7 still
-// run): every warp task of 8 groups reads the whole DFT-128 operand with
+// The design before (fft_group_dft.cuh group_dft, which only the forward
+// B1 and B6 passes and B7 at 'default' still run, faster there on an
+// H100): every warp task of 8 groups reads the whole DFT-128 operand with
 // __ldg, 96 KB ('default') or 192 KB ('highest') of tables for 8 KB of
 // data: 805 MB / 1.61 GB for a 2048^2 frame's B1 pass against its 80 MB
 // of planes, through an L1 that holds the 'default' tables only in part
@@ -68,6 +70,10 @@
 #define DFT_SYM_TILES 5    // 'highest' bin tiles: columns 0 .. 79 (0 .. 64 used)
 #define DFT_RES_BAR 16     // the mbarrier's slot after the tables (keeps the rows 16-byte aligned)
 #define DFT_RES_CHUNK 16384  // bytes a bulk copy
+// B2's and B7's table (both directions, both precisions): 4 bin tiles x 8
+// k steps x 4 bf16 tables or x 16 k steps x 2 float32 tables, of 512 bytes
+#define DFT_HALF_TILES 4  // columns 0 .. 63; bin 64 from sums (sym_bin64)
+#define DFT_HALF_BYTES (DFT_HALF_TILES * 16 * 2 * 32 * 16)
 
 // one direction's tables (fft_kernel.DFT_RES_BYTES): [bin tile][k
 // step][table][lane][16 bytes], chunks of one bin tile and k step: 8 x 8
@@ -158,6 +164,108 @@ __device__ __forceinline__ void split_tf32x4(const float4& w, uint32_t (&h)[4], 
   split_tf32(w.w, h[3], l[3]);
 }
 
+// A warp task's groups (group_dft's mapping): the lane's B column, group
+// first + g at shared offset so + pad_idx(pos) (row irow, first column
+// icol), and its two D columns, groups first + 2t + e, e < 2 (row, first
+// column)
+struct DftTask {
+  bool in_ok;
+  int so, irow, icol;
+  int orow[2], ocol[2];
+  bool out_ok[2];
+  __device__ __forceinline__ DftTask(int first, int groups, int gpr, int rs, int g, int t) {
+    const int gin = first + g;
+    in_ok = gin < groups;
+    irow = in_ok ? gin / gpr : 0;
+    const int c = in_ok ? gin - irow * gpr : 0;
+    so = irow * rs + c * (DFT_N + DFT_N / 32);
+    icol = c * DFT_N;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int go = first + 2 * t + e;
+      out_ok[e] = go < groups;
+      orow[e] = out_ok[e] ? go / gpr : 0;
+      ocol[e] = (go - orow[e] * gpr) * DFT_N;
+    }
+  }
+};
+
+// The symmetric form's products of bin tile mt at 'highest' (3xTF32):
+// m1 = xr c, m2 = xi s, m3 = xs (c + s), m4 = xs (c - s), xs = xr + xi,
+// with c, s the tables' tile (A, the lane's first fragment; c + s and c - s
+// summed in float32 as they load), in two passes over the k steps (fewer
+// values live at once)
+__device__ __forceinline__ void sym_products_tf32(const float (&xr)[16][2],
+                                                  const float (&xi)[16][2], const float4* A,
+                                                  int mt, float (&m1)[4], float (&m2)[4],
+                                                  float (&m3)[4], float (&m4)[4]) {
+#pragma unroll
+  for (int kt = 0; kt < 16; ++kt) {
+    uint32_t wh[4], wl[4], bh[2], bl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) split_tf32(xr[kt][h], bh[h], bl[h]);
+    split_tf32x4(A[(mt * 16 + kt) * 2 * 32], wh, wl);
+    mma_3xtf32_split(m1, wh, wl, bh[0], bh[1], bl[0], bl[1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) split_tf32(xi[kt][h], bh[h], bl[h]);
+    split_tf32x4(A[(mt * 16 + kt) * 2 * 32 + 32], wh, wl);
+    mma_3xtf32_split(m2, wh, wl, bh[0], bh[1], bl[0], bl[1]);
+  }
+#pragma unroll
+  for (int kt = 0; kt < 16; ++kt) {
+    const float4 c = A[(mt * 16 + kt) * 2 * 32], sn = A[(mt * 16 + kt) * 2 * 32 + 32];
+    uint32_t wh[4], wl[4], bh[2], bl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) split_tf32(xr[kt][h] + xi[kt][h], bh[h], bl[h]);
+    split_tf32x4(make_float4(c.x + sn.x, c.y + sn.y, c.z + sn.z, c.w + sn.w), wh, wl);
+    mma_3xtf32_split(m3, wh, wl, bh[0], bh[1], bl[0], bl[1]);
+    split_tf32x4(make_float4(c.x - sn.x, c.y - sn.y, c.z - sn.z, c.w - sn.w), wh, wl);
+    mma_3xtf32_split(m4, wh, wl, bh[0], bh[1], bl[0], bl[1]);
+  }
+}
+
+// The symmetric form's results of bin tile mt: d[e] is column k = 16 mt +
+// g + 8 (e >> 1) of group 2t + (e & 1); with the tables' s (the forward
+// direction's) P = (m1 - m2, m3 - m1 - m2) is the three-product form at bin
+// k and Q = (m1 + m2, m4 - m1 + m2) at its mirror 128 - k (c and -s
+// there). The inverse direction's s is -s, so `inv` swaps them: bin k
+// takes Q, 128 - k takes P. Bins k <= 64 and mirrors of 0 < k < 64 (the
+// row kernels' fifth tile, columns 64 .. 79, drops 65 .. 79).
+template <typename Epi>
+__device__ __forceinline__ void sym_results(const float (&m1)[4], const float (&m2)[4],
+                                            const float (&m3)[4], const float (&m4)[4], int mt,
+                                            int g, bool inv, const DftTask& tk, const Epi& epi) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int k = 16 * mt + g + 8 * (e >> 1);
+    if (!tk.out_ok[e & 1]) continue;
+    if (k <= DFT_N / 2)
+      epi(tk.orow[e & 1], tk.ocol[e & 1] + k, inv ? m1[e] + m2[e] : m1[e] - m2[e],
+          inv ? m4[e] - m1[e] + m2[e] : m3[e] - m1[e] - m2[e]);
+    if (k > 0 && k < DFT_N / 2)
+      epi(tk.orow[e & 1], tk.ocol[e & 1] + DFT_N - k, inv ? m1[e] - m2[e] : m1[e] + m2[e],
+          inv ? m3[e] - m1[e] - m2[e] : m4[e] - m1[e] + m2[e]);
+  }
+}
+
+// Bin 64 of the lane's B column's group, where c = cos(pi l) = (-1)^l and s
+// = -sin(pi l) is a float64 zero (|s| < 2e-14; c + s and c - s round to c
+// at either precision): m1 = sum_l (-1)^l xr_l and m3 = sum_l (-1)^l xs_l
+// from the lane's partial sums r1 and r3 of its positions' signed values,
+// summed over the group's 4 lanes (t); (m1, m3 - m1) in either direction,
+// the twin's m2 (~1e-14 of the values) dropped; the lane with t = 0
+// hands it to epi
+template <typename Epi>
+__device__ __forceinline__ void sym_bin64(float r1, float r3, int t, const DftTask& tk,
+                                          const Epi& epi) {
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    r1 += __shfl_xor_sync(0xffffffffu, r1, o);
+    r3 += __shfl_xor_sync(0xffffffffu, r3, o);
+  }
+  if (t == 0 && tk.in_ok) epi(tk.irow, tk.icol + DFT_N / 2, r1, r3 - r1);
+}
+
 // The group DFT of every 128-point group of the block's rows (rows x gpr
 // groups, as group_dft lays them out) with the first `res` chunks of the
 // tables resident at `tab` in shared memory (dft_tables_wait first) and
@@ -176,21 +284,9 @@ __device__ __forceinline__ void group_dft_res(const float* sre, const float* sim
   const int g = lane >> 2, t = lane & 3;
   const int groups = rows * gpr;
   for (int task = threadIdx.x >> 5; task * DFT_TASK < groups; task += blockDim.x >> 5) {
-    // the lane's B column: group task * 8 + g, at shared offset so + pad_idx(pos)
-    const int gin = task * DFT_TASK + g;
-    const bool in_ok = gin < groups;
-    const int rin = in_ok ? gin / gpr : 0;
-    const int so = rin * rs + (in_ok ? gin - rin * gpr : 0) * (DFT_N + DFT_N / 32);
-    // the lane's D columns: groups task * 8 + 2t + e, e < 2 (row, first column)
-    int orow[2], ocol[2];
-    bool out_ok[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int go = task * DFT_TASK + 2 * t + e;
-      out_ok[e] = go < groups;
-      orow[e] = out_ok[e] ? go / gpr : 0;
-      ocol[e] = (go - orow[e] * gpr) * DFT_N;
-    }
+    const DftTask tk(task * DFT_TASK, groups, gpr, rs, g, t);
+    const bool in_ok = tk.in_ok;
+    const int so = tk.so;
     if constexpr (ENG == ENG_BF16) {
       // b0: positions 16 kt + 2t, +1; b1: 16 kt + 2t + 8, +9
       uint32_t br[8][2], bi[8][2], bs[8][2];
@@ -246,8 +342,8 @@ __device__ __forceinline__ void group_dft_res(const float* sre, const float* sim
         // d[e]: bin 16 mt + g + 8 (e >> 1) of group 2t + (e & 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (out_ok[e & 1])
-            epi(orow[e & 1], ocol[e & 1] + 16 * mt + g + 8 * (e >> 1), m1[e] - m2[e],
+          if (tk.out_ok[e & 1])
+            epi(tk.orow[e & 1], tk.ocol[e & 1] + 16 * mt + g + 8 * (e >> 1), m1[e] - m2[e],
                 m3[e] - m1[e] - m2[e]);
       }
     } else {
@@ -266,44 +362,167 @@ __device__ __forceinline__ void group_dft_res(const float* sre, const float* sim
       const float4* A = reinterpret_cast<const float4*>(tab) + lane;
 #pragma unroll 1
       for (int mt = 0; mt < DFT_SYM_TILES; ++mt) {
-        // m1 = xr c, m2 = xi s, m3 = xs (c + s), m4 = xs (c - s), xs = xr + xi,
-        // in two passes over the k steps (fewer values live at once)
         float m1[4] = {}, m2[4] = {}, m3[4] = {}, m4[4] = {};
-#pragma unroll
-        for (int kt = 0; kt < 16; ++kt) {
-          uint32_t wh[4], wl[4], bh[2], bl[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) split_tf32(xr[kt][h], bh[h], bl[h]);
-          split_tf32x4(A[(mt * 16 + kt) * 2 * 32], wh, wl);
-          mma_3xtf32_split(m1, wh, wl, bh[0], bh[1], bl[0], bl[1]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) split_tf32(xi[kt][h], bh[h], bl[h]);
-          split_tf32x4(A[(mt * 16 + kt) * 2 * 32 + 32], wh, wl);
-          mma_3xtf32_split(m2, wh, wl, bh[0], bh[1], bl[0], bl[1]);
-        }
-#pragma unroll
-        for (int kt = 0; kt < 16; ++kt) {
-          const float4 c = A[(mt * 16 + kt) * 2 * 32], sn = A[(mt * 16 + kt) * 2 * 32 + 32];
-          uint32_t wh[4], wl[4], bh[2], bl[2];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) split_tf32(xr[kt][h] + xi[kt][h], bh[h], bl[h]);
-          split_tf32x4(make_float4(c.x + sn.x, c.y + sn.y, c.z + sn.z, c.w + sn.w), wh, wl);
-          mma_3xtf32_split(m3, wh, wl, bh[0], bh[1], bl[0], bl[1]);
-          split_tf32x4(make_float4(c.x - sn.x, c.y - sn.y, c.z - sn.z, c.w - sn.w), wh, wl);
-          mma_3xtf32_split(m4, wh, wl, bh[0], bh[1], bl[0], bl[1]);
-        }
-        // d[e]: column k = 16 mt + g + 8 (e >> 1) of group 2t + (e & 1):
-        // bin k (k <= 64) and its mirror 128 - k (0 < k < 64)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = 16 * mt + g + 8 * (e >> 1);
-          if (!out_ok[e & 1]) continue;
-          if (k <= DFT_N / 2)
-            epi(orow[e & 1], ocol[e & 1] + k, m1[e] - m2[e], m3[e] - m1[e] - m2[e]);
-          if (k > 0 && k < DFT_N / 2)
-            epi(orow[e & 1], ocol[e & 1] + DFT_N - k, m1[e] + m2[e], m4[e] - m1[e] + m2[e]);
-        }
+        sym_products_tf32(xr, xi, A, mt, m1, m2, m3, m4);
+        sym_results(m1, m2, m3, m4, mt, g, false, tk, epi);
       }
+    }
+  }
+}
+
+// B2's and B7's group DFT (wiener_spectral.cu spectral_s_mxu_kernel): one
+// table, resident in shared memory at `tab`, serves both directions
+// (fft_kernel.dft_half_tables, DFT_HALF_BYTES = 64 KB): the forward
+// direction's c, s over columns 0 .. 63 in the symmetric form
+// (sym_results: bins 0 .. 63 and the mirrors 65 .. 127), as [bin tile][k
+// step][table][lane] fragments, and bin 64 from plain sums (sym_bin64).
+// 'highest' (ENG_TF32X3): the float32 c, s of group_dft_res (its first 4
+// tiles), c + s and c - s summed as they load. 'default' (ENG_BF16): four
+// bf16 tables c, s, c + s, c - s (each sum in float32, then rounded, as
+// the plain version's Wc + Ws of either direction), one m16n8k16 product
+// each with the bf16 xr, xi and xr + xi of group_dft: 4 bin tiles x 8 k
+// steps x 4 = 128 products a task and direction (group_dft's 192), the
+// same sums as the twin's at every bin but where the tables' float64
+// zeros differ in their last bits (~1e-14). One warp task: the 8 groups
+// from `first`, the inverse direction where `inv`, each result to epi (a
+// __syncwarp first: an earlier task's results in the groups' slots).
+template <int ENG, typename Epi>
+__device__ __forceinline__ void group_dft_sym_task(const float* sre, const float* sim, int rs,
+                                                   int gpr, int groups, int first, bool inv,
+                                                   const void* tab, const Epi& epi) {
+  static_assert(ENG == ENG_BF16 || ENG == ENG_TF32X3, "a tensor-core engine");
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const DftTask tk(first, groups, gpr, rs, g, t);
+  __syncwarp();
+  if constexpr (ENG == ENG_BF16) {
+    // b0: positions 16 kt + 2t, +1; b1: 16 kt + 2t + 8, +9
+    uint32_t br[8][2], bi[8][2], bs[8][2];
+#pragma unroll
+    for (int kt = 0; kt < 8; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 16 * kt + 2 * t + 8 * h;
+        const float r0 = tk.in_ok ? sre[tk.so + pad_idx(p)] : 0.0f;
+        const float r1 = tk.in_ok ? sre[tk.so + pad_idx(p + 1)] : 0.0f;
+        const float i0 = tk.in_ok ? sim[tk.so + pad_idx(p)] : 0.0f;
+        const float i1 = tk.in_ok ? sim[tk.so + pad_idx(p + 1)] : 0.0f;
+        br[kt][h] = pack_bf16(r0, r1);
+        bi[kt][h] = pack_bf16(i0, i1);
+        bs[kt][h] = pack_bf16(r0 + i0, r1 + i1);
+      }
+    }
+    __syncwarp();
+    // bin 64 first (the group's values are in registers): a bf16 pair holds
+    // positions p (even, +) and p + 1 (odd, -)
+    float r1 = 0.0f, r3 = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 8; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        r1 += __uint_as_float(br[kt][h] << 16) - __uint_as_float(br[kt][h] & 0xffff0000u);
+        r3 += __uint_as_float(bs[kt][h] << 16) - __uint_as_float(bs[kt][h] & 0xffff0000u);
+      }
+    }
+    sym_bin64(r1, r3, t, tk, epi);
+    const uint4* A = reinterpret_cast<const uint4*>(tab) + lane;
+#pragma unroll 1
+    for (int mt = 0; mt < DFT_HALF_TILES; ++mt) {
+      float m1[4] = {}, m2[4] = {}, m3[4] = {}, m4[4] = {};
+#pragma unroll
+      for (int kt = 0; kt < 8; ++kt) {
+        const uint4* a = A + (mt * 8 + kt) * 4 * 32;
+        mma_bf16(m1, a[0], br[kt][0], br[kt][1]);
+        mma_bf16(m2, a[32], bi[kt][0], bi[kt][1]);
+        mma_bf16(m3, a[64], bs[kt][0], bs[kt][1]);
+        mma_bf16(m4, a[96], bs[kt][0], bs[kt][1]);
+      }
+      sym_results(m1, m2, m3, m4, mt, g, inv, tk, epi);
+    }
+  } else {
+    // b0: position 8 kt + t; b1: 8 kt + t + 4
+    float xr[16][2], xi[16][2];
+#pragma unroll
+    for (int kt = 0; kt < 16; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = 8 * kt + t + 4 * h;
+        xr[kt][h] = tk.in_ok ? sre[tk.so + pad_idx(p)] : 0.0f;
+        xi[kt][h] = tk.in_ok ? sim[tk.so + pad_idx(p)] : 0.0f;
+      }
+    }
+    __syncwarp();
+    // bin 64 first: the lane's positions 8 kt + t + 4 h share the parity of t
+    float r1 = 0.0f, r3 = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < 16; ++kt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        r1 += xr[kt][h];
+        r3 += xr[kt][h] + xi[kt][h];
+      }
+    }
+    sym_bin64(t & 1 ? -r1 : r1, t & 1 ? -r3 : r3, t, tk, epi);
+    const float4* A = reinterpret_cast<const float4*>(tab) + lane;
+#pragma unroll 1
+    for (int mt = 0; mt < DFT_HALF_TILES; ++mt) {
+      float m1[4] = {}, m2[4] = {}, m3[4] = {}, m4[4] = {};
+      sym_products_tf32(xr, xi, A, mt, m1, m2, m3, m4);
+      sym_results(m1, m2, m3, m4, mt, g, inv, tk, epi);
+    }
+  }
+}
+
+// B7: the forward group DFT of every group of the block's rows (as
+// group_dft_res lays them out), each result to epi
+template <int ENG, typename Epi>
+__device__ __forceinline__ void group_dft_sym(const float* sre, const float* sim, int rs,
+                                              int rows, int gpr, const void* tab,
+                                              const Epi& epi) {
+  const int groups = rows * gpr;
+  for (int first = (threadIdx.x >> 5) * DFT_TASK; first < groups;
+       first += (blockDim.x >> 5) * DFT_TASK)
+    group_dft_sym_task<ENG>(sre, sim, rs, gpr, groups, first, false, tab, epi);
+}
+
+// B2's epilogue of both directions: the forward one's results to fwd (the
+// filter and a store into the shared rows), the inverse one's stored
+template <typename Epi>
+struct PairEpi {
+  Epi fwd;
+  bool inv;
+  __device__ __forceinline__ void operator()(int r, int col, float yr, float yi) const {
+    if (inv)
+      SmemEpi{fwd.sre, fwd.sim, fwd.rs}(r, col, yr, yi);
+    else
+      fwd(r, col, yr, yi);
+  }
+};
+
+// B2: both directions of each warp task in turn, the forward one with epi
+// (the filter, its results into the groups' own slots), then the inverse
+// one into the same slots: the warp reads only its own groups, so no block
+// barrier between the two. 'default' inlines the two directions; 'highest'
+// runs one body twice (fewer values live across it: an H100 ran B2 at
+// 2 x 2048^2 0.49 ms so against 0.55 ms with two bodies, and the instance
+// builds in about half the time)
+template <int ENG, typename Epi>
+__device__ __forceinline__ void group_dft_sym_pair(const float* sre, const float* sim, int rs,
+                                                   int rows, int gpr, const void* tab,
+                                                   const Epi& epi) {
+  const int groups = rows * gpr;
+  for (int first = (threadIdx.x >> 5) * DFT_TASK; first < groups;
+       first += (blockDim.x >> 5) * DFT_TASK) {
+    if constexpr (ENG == ENG_BF16) {
+      group_dft_sym_task<ENG>(sre, sim, rs, gpr, groups, first, false, tab,
+                              PairEpi<Epi>{epi, false});
+      group_dft_sym_task<ENG>(sre, sim, rs, gpr, groups, first, true, tab,
+                              PairEpi<Epi>{epi, true});
+    } else {
+#pragma unroll 1
+      for (int d = 0; d < 2; ++d)
+        group_dft_sym_task<ENG>(sre, sim, rs, gpr, groups, first, d == 1, tab,
+                                PairEpi<Epi>{epi, d == 1});
     }
   }
 }

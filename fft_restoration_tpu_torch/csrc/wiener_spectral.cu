@@ -85,18 +85,33 @@
 // after the first plane's read (the plane count is not held to
 // gridDim.y's 65535).
 //
-// The MXU engine (engine="mxu"; B2 and B7): spectral_s_mxu_kernel<..,
-// ENG> runs the outer DIF groups (stages 7 .. logq - 1), the forward group
-// DFT of fft_group_dft.cuh with the filter in its epilogue (B7 storing
-// there), then B2's inverse group DFT, outer DIT groups and stores.
-// spectral_s_kernel keeps its parameters and code.
+// The MXU engine (engine="mxu"; B2 and B7): spectral_s_mxu_kernel<TA, TH,
+// TO, .., ENG> runs the outer DIF groups (stages 7 .. logq - 1), the
+// forward group DFT with the filter in its epilogue (B7 storing there),
+// then B2's inverse group DFT, outer DIT groups and stores. Its group DFT
+// is fft_group_dft_smem.cuh's group_dft_sym: one 64 KB table serves both
+// directions (the forward c and s over the bins 0 .. 63; the mirror bins
+// 128 - k and the inverse direction by the DFT matrix's symmetry, bin 64
+// from plain sums), copied once into each persistent block's shared
+// memory by the TMA, one block an SM walking over the row blocks
+// (s_plan(mxu=True): the rows that fit beside the table, 8 of 2048 and
+// 2304 points, 4 of 3840 and 4096, 64 of 256). Each warp task runs its 8
+// groups' forward and inverse DFTs in turn, with no block barrier between
+// them. The design before (the L2 design, group_dft) read a whole
+// direction's fragment tables through L1 and L2 for every task of 8
+// groups: 96 KB ('default') or 192 KB ('highest') for 8 KB of data, 1.61 /
+// 3.22 GB a launch for B2 at 2 x 2048^2 against 168 MB of planes. B7 at 'default' keeps it (spectral_s_l2_kernel: several
+// blocks of 16 rows an SM, which an H100 runs faster there than one
+// persistent block beside the table). spectral_s_kernel keeps its
+// parameters and code.
 //
 // bf16 staging (stage_dtype="bf16": the JAX _load_f32 of bfloat16 A and H
-// and B2's out_dtype): spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, ..,
-// ENG> is the same body at either engine with bfloat16 operands widened
-// as they load (A element by element, as the top group reads float32 A;
-// H 4 values an 8-byte vector in the fused bottom) and, for B2, the
-// output rounded to bfloat16 as it stores. The instances are the
+// and B2's out_dtype): spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, ..>
+// at roll and spectral_s_mxu_kernel<TA, TH, TO, ..> at mxu are the same
+// bodies with bfloat16 operands widened as they load (A element by
+// element, as the top group reads float32 A; H 4 values an 8-byte vector
+// in the fused bottom, one value in the group DFT's epilogue) and, for B2,
+// the output rounded to bfloat16 as it stores. The instances are the
 // combinations the pipelines reach: B2 'wiener' A and out bfloat16, H
 // either (the single-frame pipeline caches a bfloat16 spectrum, the
 // batched one keeps float32); B2 'conv' / conj H bfloat16 (Richardson-Lucy
@@ -104,7 +119,7 @@
 // bfloat16, H either, out float32 (as in JAX). They build in translation
 // units of their own (FFT_STAGE_TU, one an engine), so every float32
 // instance keeps its machine code.
-#include "fft_group_dft.cuh"
+#include "fft_group_dft_smem.cuh"
 
 #define S_THREADS 512
 
@@ -381,12 +396,11 @@ struct FilterEpi {
 };
 
 // ENG (fft_group_dft.cuh): ENG_ROLL runs the plan's radix-2 groups, the
-// bottom one fused with the filter; a tensor-core engine runs the outer
-// DIF groups (stages 7 .. logq - 1), the forward group DFT with the filter
-// in its epilogue (B7 storing there), the inverse group DFT (tables dft_f,
-// dft_i), then the outer DIT groups and the roll instances' stores.
-// TA, TH, TO: the element types of A, H and the output (float32; bfloat16
-// for bf16 staging).
+// bottom one fused with the filter; ENG_BF16 is the L2 design of B7 at
+// 'default' (spectral_s_l2_kernel): the outer DIF groups (stages 7 ..
+// logq - 1), then the forward group DFT (tables dft) with the filter and
+// the natural store in its epilogue. TA, TH, TO: the element types of A,
+// H and the output (float32; bfloat16 for bf16 staging).
 template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
 __device__ __forceinline__ void spectral_s_body(
     const TA* __restrict__ a_re, const TA* __restrict__ a_im,
@@ -395,7 +409,7 @@ __device__ __forceinline__ void spectral_s_body(
     int rs_smem, const float* __restrict__ cos_f, const float* __restrict__ sin_f,
     const float* __restrict__ cos_i, const float* __restrict__ sin_i, const GroupPlan& gf,
     const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
-    const void* __restrict__ dft_f, const void* __restrict__ dft_i) {
+    const void* __restrict__ dft) {
   constexpr int R = R0 * R1;
   constexpr bool B7 = STORE == S_STORE_NATURAL, ROWS = STORE == S_STORE_ROWS;
   extern __shared__ float smem[];
@@ -436,9 +450,8 @@ __device__ __forceinline__ void spectral_s_body(
   // B7, B10: the natural (P, M, N) output from row m0; B2: the transposed
   // (P, N, M) output from column m0
   if constexpr (ENG != ENG_ROLL) {
-    const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N
-                                            : (size_t)p * N * M + m0;
-    static_assert(STORE != S_STORE_ROWS, "B10 runs the radix-2 stages only");
+    static_assert(B7 && ENG == ENG_BF16, "B7 at 'default' alone keeps the L2 design");
+    const size_t obase = ((size_t)p * M + m0) * N;
     for (int g = 0; g < gf.groups; ++g) {
       if (R == 1 && g == 0 && direct)
         run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
@@ -449,69 +462,47 @@ __device__ __forceinline__ void spectral_s_body(
     const int gpr = N >> DFT_LOG;
     FilterEpi<MODE, TH> epi{tf.sre, tf.sim, rs_smem, h_re, h_im, nullptr, nullptr, N, M, m0,
                             k_reg};
-    if constexpr (B7) {
-      epi.out_re = out_re + obase;
-      epi.out_im = out_im + obase;
-      group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_f, epi);
-      return;
+    epi.out_re = out_re + obase;
+    epi.out_im = out_im + obase;
+    group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft, epi);
+    return;
+  }
+  for (int g = 0; g < gf.groups - 1; ++g) {
+    if constexpr (R == 1) {
+      if (g == 0 && direct) {
+        run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
+        __syncthreads();
+        continue;
+      }
     }
-    group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_f, epi);
+    run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
     __syncthreads();
-    group_dft<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, dft_i, SmemEpi{tf.sre, tf.sim, rs_smem});
+  }
+  const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N
+                                          : (size_t)p * N * M + m0;
+  if constexpr (B7) {
     tf.out_re = out_re + obase;
     tf.out_im = out_im + obase;
-    __syncthreads();
-    TBlockOf<TO> ti = tf;
-    ti.cosv = cos_i;
-    ti.sinv = sin_i;
-    for (int g = gi.groups - 1; g >= 0; --g) {
-      if constexpr (R == 1) {
-        if (g == 0 && direct) {
-          run_upper<true, LD_SMEM, ST_T>(ti, gi, g, ld);
-          return;
-        }
-      }
-      run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
-      __syncthreads();
-    }
-  } else {
-    for (int g = 0; g < gf.groups - 1; ++g) {
-      if constexpr (R == 1) {
-        if (g == 0 && direct) {
-          run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
-          __syncthreads();
-          continue;
-        }
-      }
-      run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
-      __syncthreads();
-    }
-    const size_t obase = STORE != S_STORE_T ? ((size_t)p * M + m0) * N
-                                            : (size_t)p * N * M + m0;
-    if constexpr (B7) {
-      tf.out_re = out_re + obase;
-      tf.out_im = out_im + obase;
-    }
-    run_bottom<MODE, STORE>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
-    if constexpr (B7) return;
+  }
+  run_bottom<MODE, STORE>(tf, gf, cos_i, sin_i, h_re, h_im, k_reg);
+  if constexpr (B7) return;
 
-    // B2, B10: the DIT groups above the bottom one, bottom up
-    tf.out_re = out_re + obase;
-    tf.out_im = out_im + obase;
-    __syncthreads();
-    TBlockOf<TO> ti = tf;
-    ti.cosv = cos_i;
-    ti.sinv = sin_i;
-    for (int g = gi.groups - 2; g >= 0; --g) {
-      if constexpr (R == 1) {
-        if (g == 0 && direct) {
-          run_upper<true, LD_SMEM, ROWS ? ST_ROW : ST_T>(ti, gi, g, ld);
-          return;
-        }
+  // B2, B10: the DIT groups above the bottom one, bottom up
+  tf.out_re = out_re + obase;
+  tf.out_im = out_im + obase;
+  __syncthreads();
+  TBlockOf<TO> ti = tf;
+  ti.cosv = cos_i;
+  ti.sinv = sin_i;
+  for (int g = gi.groups - 2; g >= 0; --g) {
+    if constexpr (R == 1) {
+      if (g == 0 && direct) {
+        run_upper<true, LD_SMEM, ROWS ? ST_ROW : ST_T>(ti, gi, g, ld);
+        return;
       }
-      run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
-      __syncthreads();
     }
+    run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
+    __syncthreads();
   }
   // (both inverse cross levels, then) the store: B2's transposed one,
   // neighbouring threads on neighbouring rows of one column; B10's
@@ -537,6 +528,135 @@ __device__ __forceinline__ void spectral_s_body(
   }
 }
 
+// The MXU instances' body, redesigned for Hopper (ENG_BF16 or ENG_TF32X3;
+// B2 and B7; the parameters as spectral_s_body's): one table for both
+// directions of the group DFT (fft_group_dft_smem.cuh group_dft_sym,
+// DFT_HALF_BYTES), copied by the TMA into the front of the block's shared
+// memory as the block starts, so that the copy overlaps the first row
+// block's load and outer DIF groups; a persistent block walks over the
+// `blocks` row blocks (block b as spectral_s_body's block b). Per row
+// block: the load (a smooth row through both forward cross levels), the
+// outer DIF groups, each warp task's forward group DFT with the filter in
+// its epilogue (B7 storing there) and, for B2, its inverse group DFT into
+// the shared rows, the outer DIT groups and the store.
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+__device__ __forceinline__ void spectral_s_res_body(
+    const TA* __restrict__ a_re, const TA* __restrict__ a_im,
+    const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
+    TO* __restrict__ out_re, TO* __restrict__ out_im, int P, int M, int logq, int lr,
+    int rs_smem, int blocks, const float* __restrict__ cos_f, const float* __restrict__ sin_f,
+    const float* __restrict__ cos_i, const float* __restrict__ sin_i, const GroupPlan& gf,
+    const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
+    const void* __restrict__ dft) {
+  constexpr int R = R0 * R1;
+  constexpr bool B7 = STORE == S_STORE_NATURAL;
+  static_assert(STORE != S_STORE_ROWS, "B10 runs the radix-2 stages only");
+  // the table and the mbarrier in front of the shared rows
+  extern __shared__ __align__(16) unsigned char s_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_smem + DFT_HALF_BYTES);
+  float* srows = reinterpret_cast<float*>(s_smem + DFT_HALF_BYTES + DFT_RES_BAR);
+  dft_tables_start(s_smem, dft, DFT_HALF_BYTES, bar);
+  const int rows = 1 << lr;
+  const int q = 1 << logq;
+  const int N = R * q;
+  const int gpr = N >> DFT_LOG;
+  const bool direct = R == 1 && gf.direct_store;
+  bool waited = false;
+  for (int b = blockIdx.x; b < blocks; b += gridDim.x) {
+    const int p = b % P;
+    const int m0 = (b / P) * rows;
+    TBlockOf<TO> tf = {srows, srows + rows * rs_smem, rs_smem, logq, lr, (rows * N) >> 4, N,
+                       cos_f, sin_f, nullptr, nullptr, M, m0};
+    const PairLoad<TA> ld(a_re, a_im, (long long)M * N, 0, 1, 1, 0, N, 1, 0x7fffffff,
+                          0x7fffffff, M, N, p, m0);
+    if (!direct) {  // load (+ both forward cross levels), item (row, b): b fastest
+      for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+        const int c = t & (q - 1), r = t >> logq;
+        const auto row = ld.row(r);
+        float xr[R], xi[R];
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float2 v = ld.at(row, c + j * q);
+          xr[j] = v.x;
+          xi[j] = v.y;
+        }
+        if constexpr (R > 1) cross_item<R0, R1, false>(xr, xi, c, q, N, cf);
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int a = r * rs_smem + pad_idx(c + j * q);
+          tf.sre[a] = xr[j];
+          tf.sim[a] = xi[j];
+        }
+      }
+      __syncthreads();
+    }
+    for (int g = 0; g < gf.groups; ++g) {
+      if (R == 1 && g == 0 && direct)
+        run_upper<false, LD_ROW, ST_SMEM>(tf, gf, g, ld);
+      else
+        run_upper<false, LD_SMEM, ST_SMEM>(tf, gf, g, ld);
+      __syncthreads();
+    }
+    if (!waited) {
+      dft_tables_wait(bar);
+      waited = true;
+    }
+    // B7: the natural (P, M, N) output from row m0; B2: the transposed (P,
+    // N, M) output from column m0
+    const size_t obase = B7 ? ((size_t)p * M + m0) * N : (size_t)p * N * M + m0;
+    FilterEpi<MODE, TH> epi{tf.sre, tf.sim, rs_smem, h_re, h_im, nullptr, nullptr, N, M, m0,
+                            k_reg};
+    if constexpr (B7) {
+      epi.out_re = out_re + obase;
+      epi.out_im = out_im + obase;
+      group_dft_sym<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, s_smem, epi);
+    } else {
+      group_dft_sym_pair<ENG>(tf.sre, tf.sim, rs_smem, rows, gpr, s_smem, epi);
+      tf.out_re = out_re + obase;
+      tf.out_im = out_im + obase;
+      __syncthreads();
+      TBlockOf<TO> ti = tf;
+      ti.cosv = cos_i;
+      ti.sinv = sin_i;
+      bool stored = false;
+      for (int g = gi.groups - 1; g >= 0; --g) {
+        if (R == 1 && g == 0 && direct) {
+          run_upper<true, LD_SMEM, ST_T>(ti, gi, g, ld);
+          stored = true;
+        } else {
+          run_upper<true, LD_SMEM, ST_SMEM>(ti, gi, g, ld);
+          __syncthreads();
+        }
+      }
+      if (!stored) {  // (both inverse cross levels, then) the transposed store
+        for (int t = threadIdx.x; t < rows << logq; t += blockDim.x) {
+          const int r = t & (rows - 1), c = t >> lr;
+          float xr[R], xi[R];
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const int a = r * rs_smem + pad_idx(c + j * q);
+            xr[j] = tf.sre[a];
+            xi[j] = tf.sim[a];
+          }
+          if constexpr (R > 1) cross_item<R0, R1, true>(xr, xi, c, q, N, ci);
+          if (m0 + r < M) {
+#pragma unroll
+            for (int j = 0; j < R; ++j) {
+              const size_t o = (size_t)(c + j * q) * M + r;
+              tf.out_re[o] = to_out<TO>(xr[j]);
+              tf.out_im[o] = to_out<TO>(xi[j]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the shared rows read before the next row block lands
+  }
+  // no block leaves with the copy in flight: thread 0, which started it,
+  // waits (the others may not have met a barrier since its mbarrier.init)
+  if (!waited && threadIdx.x == 0) dft_tables_wait(bar);
+}
+
 template <int MODE, int STORE, int R0, int R1>
 __global__ void __launch_bounds__(S_THREADS, 1)
 spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
@@ -549,30 +669,51 @@ spectral_s_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im
                   const __grid_constant__ CrossPlan ci) {
   spectral_s_body<float, float, float, MODE, STORE, R0, R1, ENG_ROLL>(
       a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
-      cos_i, sin_i, gf, gi, cf, ci, nullptr, nullptr);
+      cos_i, sin_i, gf, gi, cf, ci, nullptr);
 }
 
-// the MXU engine's instances (ENG_BF16 or ENG_TF32X3; B2 and B7), dft_f
-// and dft_i the two directions' fragment tables (B7 reads dft_f only)
-template <int MODE, int STORE, int R0, int R1, int ENG>
+// the MXU engine's instances (ENG_BF16 or ENG_TF32X3; B2 and B7): TA, TH,
+// TO float32, or bfloat16 for bf16 staging; blocks = nblk * P row blocks;
+// dft the group DFT's table (fft_kernel.dft_half_tables), resident
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
 __global__ void __launch_bounds__(S_THREADS, 1)
-spectral_s_mxu_kernel(const float* __restrict__ a_re, const float* __restrict__ a_im,
-                      const float* __restrict__ h_re, const float* __restrict__ h_im,
-                      float k_reg, float* __restrict__ out_re, float* __restrict__ out_im,
-                      int P, int M, int logq, int lr, int rs_smem,
+spectral_s_mxu_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
+                      const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
+                      TO* __restrict__ out_re, TO* __restrict__ out_im, int P, int M,
+                      int logq, int lr, int rs_smem, int blocks,
                       const float* __restrict__ cos_f, const float* __restrict__ sin_f,
                       const float* __restrict__ cos_i, const float* __restrict__ sin_i,
                       const __grid_constant__ GroupPlan gf, const __grid_constant__ GroupPlan gi,
                       const __grid_constant__ CrossPlan cf, const __grid_constant__ CrossPlan ci,
-                      const void* __restrict__ dft_f, const void* __restrict__ dft_i) {
-  spectral_s_body<float, float, float, MODE, STORE, R0, R1, ENG>(
-      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
-      cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i);
+                      const void* __restrict__ dft) {
+  spectral_s_res_body<TA, TH, TO, MODE, STORE, R0, R1, ENG>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, blocks, cos_f,
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft);
 }
 
-// bf16 staging: the body at engine ENG (ENG_ROLL: dft_f, dft_i null) with
-// the element types TA, TH, TO (module notes)
+// B7 at 'default' (ENG_BF16): the L2 design, which an H100 runs faster
+// there than the resident one (one block a row block of s_plan(mxu=True,
+// resident=False)'s 16 rows at n = 256, several blocks an SM; group_dft
+// reading the forward fragment tables, fft_kernel.dft_fragments,
+// through L1 and L2 for every 8 groups)
 template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+__global__ void __launch_bounds__(S_THREADS, 1)
+spectral_s_l2_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
+                     const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
+                     TO* __restrict__ out_re, TO* __restrict__ out_im, int P, int M,
+                     int logq, int lr, int rs_smem, const float* __restrict__ cos_f,
+                     const float* __restrict__ sin_f, const float* __restrict__ cos_i,
+                     const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
+                     const __grid_constant__ GroupPlan gi, const __grid_constant__ CrossPlan cf,
+                     const __grid_constant__ CrossPlan ci, const void* __restrict__ dft) {
+  spectral_s_body<TA, TH, TO, MODE, STORE, R0, R1, ENG>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
+      cos_i, sin_i, gf, gi, cf, ci, dft);
+}
+
+// bf16 staging at roll: the body with the element types TA, TH, TO (module
+// notes)
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1>
 __global__ void __launch_bounds__(S_THREADS, 1)
 spectral_s_bf16_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
                        const TH* __restrict__ h_re, const TH* __restrict__ h_im, float k_reg,
@@ -582,11 +723,10 @@ spectral_s_bf16_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
                        const float* __restrict__ sin_i, const __grid_constant__ GroupPlan gf,
                        const __grid_constant__ GroupPlan gi,
                        const __grid_constant__ CrossPlan cf,
-                       const __grid_constant__ CrossPlan ci, const void* __restrict__ dft_f,
-                       const void* __restrict__ dft_i) {
-  spectral_s_body<TA, TH, TO, MODE, STORE, R0, R1, ENG>(
+                       const __grid_constant__ CrossPlan ci) {
+  spectral_s_body<TA, TH, TO, MODE, STORE, R0, R1, ENG_ROLL>(
       a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, cos_f, sin_f,
-      cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i);
+      cos_i, sin_i, gf, gi, cf, ci, nullptr);
 }
 
 // the arguments of one launch, as the C entries pass them on
@@ -595,7 +735,7 @@ spectral_s_bf16_kernel(const TA* __restrict__ a_re, const TA* __restrict__ a_im,
       void *out_re, void *out_im, int P, int M, int logq, int lr, int rs_smem, int threads, \
       const void *cos_f, const void *sin_f, const void *cos_i, const void *sin_i,          \
       const GroupPlan &gf, const GroupPlan &gi, const CrossPlan &cf, const CrossPlan &ci,  \
-      const void *dft_f, const void *dft_i, cudaStream_t stream
+      const void *dft, cudaStream_t stream
 #define SPECTRAL_KERNEL_ARGS                                                                 \
   nblk * P, threads, smem, stream, (const float*)a_re, (const float*)a_im,                  \
       (const float*)h_re, (const float*)h_im, k_reg, (float*)out_re, (float*)out_im, P, M,  \
@@ -612,18 +752,48 @@ int launch_s_bf16(SPECTRAL_LAUNCH_PARAMS);
 // the operands' element types of a launch, as the C entries take them
 enum { DT_A_BF16 = 1, DT_H_BF16 = 2, DT_OUT_BF16 = 4 };
 
-#if defined(FFT_STAGE_TU)
+// An MXU instance's launch: spectral_s_mxu_kernel, the table in front of
+// the rows and at most one persistent block a slot of the card; B7 at
+// 'default' spectral_s_l2_kernel, one block a row block
 template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
-int launch_s_bf16(SPECTRAL_LAUNCH_PARAMS) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+int launch_s_res(SPECTRAL_LAUNCH_PARAMS) {
+  const size_t rows_bytes = 2 * sizeof(float) * ((size_t)rs_smem << lr);
   const int rows = 1 << lr;
   const int nblk = (M + rows - 1) / rows;
   if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return start_kernel(spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, R0, R1, ENG>, nblk * P,
-                      threads, smem, stream, (const TA*)a_re, (const TA*)a_im, (const TH*)h_re,
-                      (const TH*)h_im, k_reg, (TO*)out_re, (TO*)out_im, P, M, logq, lr, rs_smem,
-                      (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
-                      (const float*)sin_i, gf, gi, cf, ci, dft_f, dft_i);
+  if constexpr (STORE == S_STORE_NATURAL && ENG == ENG_BF16)
+    return start_kernel(spectral_s_l2_kernel<TA, TH, TO, MODE, STORE, R0, R1, ENG>, nblk * P,
+                        threads, rows_bytes, stream, (const TA*)a_re, (const TA*)a_im,
+                        (const TH*)h_re, (const TH*)h_im, k_reg, (TO*)out_re, (TO*)out_im, P,
+                        M, logq, lr, rs_smem, (const float*)cos_f, (const float*)sin_f,
+                        (const float*)cos_i, (const float*)sin_i, gf, gi, cf, ci, dft);
+  else
+    return start_persistent(spectral_s_mxu_kernel<TA, TH, TO, MODE, STORE, R0, R1, ENG>,
+                            nblk * P, threads, DFT_HALF_BYTES + DFT_RES_BAR + rows_bytes, stream,
+                            (const TA*)a_re, (const TA*)a_im, (const TH*)h_re, (const TH*)h_im,
+                            k_reg, (TO*)out_re, (TO*)out_im, P, M, logq, lr, rs_smem, nblk * P,
+                            (const float*)cos_f, (const float*)sin_f, (const float*)cos_i,
+                            (const float*)sin_i, gf, gi, cf, ci, dft);
+}
+
+#if defined(FFT_STAGE_TU)
+template <typename TA, typename TH, typename TO, int MODE, int STORE, int R0, int R1, int ENG>
+int launch_s_bf16(SPECTRAL_LAUNCH_PARAMS) {
+  if constexpr (ENG != ENG_ROLL) {
+    return launch_s_res<TA, TH, TO, MODE, STORE, R0, R1, ENG>(
+        a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f,
+        sin_f, cos_i, sin_i, gf, gi, cf, ci, dft, stream);
+  } else {
+    const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
+    const int rows = 1 << lr;
+    const int nblk = (M + rows - 1) / rows;
+    if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+    return start_kernel(spectral_s_bf16_kernel<TA, TH, TO, MODE, STORE, R0, R1>, nblk * P,
+                        threads, smem, stream, (const TA*)a_re, (const TA*)a_im,
+                        (const TH*)h_re, (const TH*)h_im, k_reg, (TO*)out_re, (TO*)out_im, P,
+                        M, logq, lr, rs_smem, (const float*)cos_f, (const float*)sin_f,
+                        (const float*)cos_i, (const float*)sin_i, gf, gi, cf, ci);
+  }
 }
 
 using bf16 = __nv_bfloat16;
@@ -643,12 +813,9 @@ SPECTRAL_BF16(bf16, float, float, MODE_WIENER, S_STORE_NATURAL)
 #elif defined(FFT_MXU_TU)
 template <int MODE, int STORE, int R0, int R1, int ENG>
 int launch_s_mxu(SPECTRAL_LAUNCH_PARAMS) {
-  const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
-  const int rows = 1 << lr;
-  const int nblk = (M + rows - 1) / rows;
-  if ((long long)nblk * P > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  return start_kernel(spectral_s_mxu_kernel<MODE, STORE, R0, R1, ENG>, SPECTRAL_KERNEL_ARGS,
-                      dft_f, dft_i);
+  return launch_s_res<float, float, float, MODE, STORE, R0, R1, ENG>(
+      a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f,
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft, stream);
 }
 
 #define SPECTRAL_MXU(MODE, STORE)                                                     \
@@ -670,10 +837,10 @@ static int launch_s(const void* a_re, const void* a_im, const void* h_re, const 
                     int rs_smem, int threads, const void* cos_f, const void* sin_f,
                     const void* cos_i, const void* sin_i, const GroupPlan& gf,
                     const GroupPlan& gi, const CrossPlan& cf, const CrossPlan& ci,
-                    int eng, const void* dft_f, const void* dft_i, cudaStream_t stream) {
+                    int eng, const void* dft, cudaStream_t stream) {
 #define SPECTRAL_MXU_ARGS                                                                  \
   a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
-      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft, stream
   if (eng == ENG_ROLL) {
     const size_t smem = 2 * sizeof(float) * ((size_t)rs_smem << lr);
     const int rows = 1 << lr;
@@ -699,12 +866,12 @@ static int launch_radices(const void* a_re, const void* a_im, const void* h_re,
                           int M, int logq, int lr, int rs_smem, int threads, const void* cos_f,
                           const void* sin_f, const void* cos_i, const void* sin_i,
                           const GroupPlan& gf, const GroupPlan& gi, const CrossPlan& cf,
-                          const CrossPlan& ci, int eng, const void* dft_f, const void* dft_i,
+                          const CrossPlan& ci, int eng, const void* dft,
                           cudaStream_t stream) {
 #define SPECTRAL_LAUNCH(R0, R1)                                                             \
   launch_s<MODE, STORE, R0, R1>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, \
                              rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf, ci,  \
-                             eng, dft_f, dft_i, stream)
+                             eng, dft, stream)
   switch (radix_code(cf)) {
     case 0: return SPECTRAL_LAUNCH(1, 1);
     case 1: return SPECTRAL_LAUNCH(3, 1);
@@ -721,7 +888,7 @@ template <typename TA, typename TH, typename TO, int MODE, int STORE>
 static int launch_stage(SPECTRAL_LAUNCH_PARAMS, int eng) {
 #define SPECTRAL_STAGE_ARGS                                                                \
   a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
-      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft, stream
 #define SPECTRAL_STAGE(R0, R1)                                                                 \
   switch (eng) {                                                                              \
     case ENG_ROLL:                                                                            \
@@ -751,7 +918,7 @@ static int launch_dtypes(int dtypes, SPECTRAL_LAUNCH_PARAMS, int eng) {
   using bf16 = __nv_bfloat16;
 #define SPECTRAL_DTYPES_ARGS                                                               \
   a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, \
-      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft_f, dft_i, stream, eng
+      sin_f, cos_i, sin_i, gf, gi, cf, ci, dft, stream, eng
   constexpr int A = DT_A_BF16, H = DT_H_BF16, O = DT_OUT_BF16;
   if constexpr (STORE == S_STORE_T && MODE == MODE_WIENER) {
     if (dtypes == (A | H | O)) return launch_stage<bf16, bf16, bf16, MODE, STORE>(SPECTRAL_DTYPES_ARGS);
@@ -808,28 +975,28 @@ static int launch_entry(const void* a_re, const void* a_im, const void* h_re, co
                         int rs_smem, int threads, const void* cos_f, const void* sin_f,
                         const void* cos_i, const void* sin_i, const int* plan_f,
                         const int* plan_i, const CrossPlan& cf, const CrossPlan& ci,
-                        int eng, const void* dft_f, const void* dft_i, void* stream,
-                        int dtypes) {
+                        int eng, const void* dft, void* stream, int dtypes) {
   GroupPlan gf, gi;
   const bool mxu = eng != ENG_ROLL;
   if (!read_plans(plan_f, plan_i, logq, lr, threads, cf.levels, &gf, &gi, mxu) ||
       radix_code(cf) < 0 || radix_code(ci) != radix_code(cf) ||
-      (mxu && (dft_f == nullptr || (STORE != S_STORE_NATURAL && dft_i == nullptr))))
+      (mxu && dft == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dtypes)
     return launch_dtypes<MODE, STORE>(dtypes, a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P,
                                       M, logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
-                                      gf, gi, cf, ci, dft_f, dft_i, (cudaStream_t)stream, eng);
+                                      gf, gi, cf, ci, dft, (cudaStream_t)stream, eng);
   return launch_radices<MODE, STORE>(a_re, a_im, h_re, h_im, k_reg, out_re, out_im, P, M, logq,
                                   lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i, gf, gi, cf,
-                                  ci, eng, dft_f, dft_i, (cudaStream_t)stream);
+                                  ci, eng, dft, (cudaStream_t)stream);
 }
 
 // B2 'wiener'. logq = S; lr = log2(rows); rs_smem the padded row stride;
 // threads a multiple of 32 up to 512; plan_f / plan_i: the wrapper's
 // s_plan (its DIF and DIT maps); the two directions' cross levels; eng:
 // ENG_ROLL, or a tensor-core engine (fft_group_dft.cuh) with the
-// outer-stage plans and dft_f / dft_i the two directions' fragment tables;
+// outer-stage plans and dft the group DFT's table of both directions
+// (fft_kernel.dft_half_tables);
 // dtypes: the bfloat16 operands (DT_*: A and out, H either, for bf16
 // staging; 0 all float32)
 extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
@@ -839,13 +1006,13 @@ extern "C" int wiener_spectral_t_launch(const void* a_re, const void* a_im,
                                         const void* sin_f, const void* cos_i,
                                         const void* sin_i, const int* plan_f,
                                         const int* plan_i, CROSS_ARGS(f), CROSS_ARGS(i),
-                                        int eng, const void* dft_f, const void* dft_i,
-                                        int dtypes, void* stream) {
+                                        int eng, const void* dft, int dtypes,
+                                        void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   return launch_entry<MODE_WIENER, S_STORE_T>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M,
                                           logq, lr, rs_smem, threads, cos_f, sin_f, cos_i,
                                           sin_i, plan_f, plan_i, CROSS_PLAN(f), CROSS_PLAN(i),
-                                          eng, dft_f, dft_i, stream, dtypes);
+                                          eng, dft, stream, dtypes);
 }
 
 // B2 'conv'; conj != 0: F = G * conj(H) (the mirrored PSF's convolution);
@@ -855,33 +1022,34 @@ extern "C" int spectral_conv_t_launch(const void* a_re, const void* a_im, const 
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const void* cos_i,
                                       const void* sin_i, const int* plan_f, const int* plan_i,
-                                      CROSS_ARGS(f), CROSS_ARGS(i), int eng, const void* dft_f,
-                                      const void* dft_i, int dtypes, void* stream) {
+                                      CROSS_ARGS(f), CROSS_ARGS(i), int eng, const void* dft,
+                                      int dtypes, void* stream) {
   if (bad_levels(levels_f) || bad_levels(levels_i)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f), ci = CROSS_PLAN(i);
   if (conj)
     return launch_entry<MODE_CONV_CONJ, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P,
                                                M, logq, lr, rs_smem, threads, cos_f, sin_f,
-                                               cos_i, sin_i, plan_f, plan_i, cf, ci, eng, dft_f,
-                                               dft_i, stream, dtypes);
+                                               cos_i, sin_i, plan_f, plan_i, cf, ci, eng, dft,
+                                               stream, dtypes);
   return launch_entry<MODE_CONV, S_STORE_T>(a_re, a_im, h_re, h_im, 0.0f, out_re, out_im, P, M,
                                         logq, lr, rs_smem, threads, cos_f, sin_f, cos_i, sin_i,
-                                        plan_f, plan_i, cf, ci, eng, dft_f, dft_i, stream, dtypes);
+                                        plan_f, plan_i, cf, ci, eng, dft, stream, dtypes);
 }
 
-// B7: the forward cross levels and tables only (the inverse ones unread);
+// B7: the forward cross levels only (the inverse ones unread); dft at
+// 'default' the forward fragment tables (spectral_s_l2_kernel);
 // dtypes: DT_A_BF16, with DT_H_BF16 or not, for bf16 staging, else 0
 extern "C" int fwd_wiener_rows_launch(const void* a_re, const void* a_im, const void* h_re,
                                       const void* h_im, float K, void* out_re, void* out_im,
                                       int P, int M, int logq, int lr, int rs_smem, int threads,
                                       const void* cos_f, const void* sin_f, const int* plan_f,
-                                      CROSS_ARGS(f), int eng, const void* dft_f, int dtypes,
+                                      CROSS_ARGS(f), int eng, const void* dft, int dtypes,
                                       void* stream) {
   if (bad_levels(levels_f)) return (int)cudaErrorInvalidValue;
   const CrossPlan cf = CROSS_PLAN(f);
   return launch_entry<MODE_WIENER, S_STORE_NATURAL>(a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq,
                                          lr, rs_smem, threads, cos_f, sin_f, nullptr, nullptr,
-                                         plan_f, nullptr, cf, cf, eng, dft_f, nullptr, stream,
+                                         plan_f, nullptr, cf, cf, eng, dft, stream,
                                          dtypes);
 }
 
@@ -900,6 +1068,6 @@ extern "C" int wiener_spectral_rows_launch(const void* a_re, const void* a_im,
   const CrossPlan none = make_cross_plan(0, nullptr, nullptr, nullptr, nullptr);
   return launch_s<MODE_WIENER, S_STORE_ROWS, 1, 1>(
       a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, logq, lr, rs_smem, threads, cos_f, sin_f,
-      cos_i, sin_i, gf, gi, none, none, ENG_ROLL, nullptr, nullptr, (cudaStream_t)stream);
+      cos_i, sin_i, gf, gi, none, none, ENG_ROLL, nullptr, (cudaStream_t)stream);
 }
 #endif  // FFT_STAGE_TU, FFT_MXU_TU

@@ -73,8 +73,9 @@ F = ctypes.c_float
 # fft_kernel.cross_args
 CROSS = [I, P, P, P, P]
 # the engine (0 roll, 1 mxu bf16, 2 mxu 3xTF32: fft_kernel.engine_code) and
-# the device pointer of a direction's group-DFT fragment tables
-# (fft_kernel.dft_fragments; null for roll)
+# the device pointer of the group DFT's tables (B1, B3/B6: a direction's,
+# fft_kernel.dft_res_pointer; B2, B7: fft_kernel.spectral_table_pointer;
+# null for roll)
 ENG = [I, P]
 SIGNATURES = {
     # src_re, src_im, input dtype (fft_kernel.IN_DTYPES), image stride,
@@ -97,17 +98,16 @@ SIGNATURES = {
                           I, I, I, I, P, P, I, I, P, P, P, *CROSS, *ENG, I, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
     # padded row stride, threads, cos_f, sin_f, cos_i, sin_i, host int32
-    # DIF and DIT plans (fft_kernel.s_plan), CROSS fwd, CROSS inv, ENG with
-    # the forward fragments, the inverse fragments, the bfloat16 operands
-    # (wiener_spectral.DT_*), stream
+    # DIF and DIT plans (fft_kernel.s_plan), CROSS fwd, CROSS inv, ENG, the
+    # bfloat16 operands (wiener_spectral.DT_*), stream
     "wiener_spectral_t_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I,
-                                 P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, I, P],
+                                 P, P, P, P, P, P, *CROSS, *CROSS, *ENG, I, P],
     # the same with the conj flag in place of K
     "spectral_conv_t_launch": [P, P, P, P, I, P, P, I, I, I, I, I, I,
-                               P, P, P, P, P, P, *CROSS, *CROSS, *ENG, P, I, P],
+                               P, P, P, P, P, P, *CROSS, *CROSS, *ENG, I, P],
     # a_re, a_im, h_re, h_im, K, out_re, out_im, P, M, log2 q, log2 rows,
     # padded row stride, threads, cos_f, sin_f, host int32 plan, CROSS fwd,
-    # ENG (the forward fragments), the bfloat16 operands, stream
+    # ENG, the bfloat16 operands, stream
     "fwd_wiener_rows_launch": [P, P, P, P, F, P, P, I, I, I, I, I, I, P, P, P, *CROSS, *ENG,
                                I, P],
     # B10: as wiener_spectral_t_launch without the cross levels (pow2 rows)

@@ -327,14 +327,6 @@ def dft_fragments(inverse: bool, precision: str, device: torch.device) -> torch.
     return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(device)
 
 
-def dft_pointer(code: int, inverse: bool, device) -> int:
-    """The fragment tables' device pointer of an engine code (0: none):
-    B2/B7's group_dft (csrc/fft_group_dft.cuh)."""
-    if not code:
-        return 0
-    return dft_fragments(bool(inverse), MXU_PRECISIONS[code - 1], device).data_ptr()
-
-
 # B1's and B3/B6's group DFT (csrc/fft_group_dft_smem.cuh) with its tables
 # resident in shared memory: 'default' the fragment tables above; 'highest'
 # the symmetric form, Wc and Ws over the columns 0 .. 16 * DFT_SYM_TILES - 1
@@ -403,6 +395,43 @@ def dft_res_pointer(code: int, inverse: bool, device) -> int:
     if not code:
         return 0
     return dft_res_tables(bool(inverse), MXU_PRECISIONS[code - 1], device).data_ptr()
+
+
+# B2's and B7's group DFT (csrc/fft_group_dft_smem.cuh group_dft_sym): one
+# table, resident in shared memory, serves both directions and both
+# halves of the bins: the forward direction's c = Wc and s = Ws over the
+# columns 0 .. 63 (bins 65 .. 127 their mirrors, bin 64 from plain sums) in
+# chunks of one bin tile and k step. 'highest' the float32 c, s of the
+# first DFT_HALF_TILES tiles of dft_sym_fragments_np; 'default' four bf16
+# tables c, s, c + s, c - s (m16n8k16 fragments), each sum taken in float32
+# and then rounded as _dft_operands rounds Wc + Ws: c + s is the forward
+# direction's, c - s the inverse direction's third table.
+DFT_HALF_TILES = 4
+DFT_HALF_BYTES = DFT_HALF_TILES * 16 * 2 * 32 * 16  # 64 KB at both precisions
+
+
+@functools.lru_cache(maxsize=None)
+def dft_half_default_fragments_np() -> np.ndarray:
+    """The 'default' B2/B7 table in the kernels' order [bin tile <
+    DFT_HALF_TILES][k step < 8][table c, s, c + s, c - s][lane][element]:
+    bf16 bit patterns (uint16), A[bin][pos] = W[pos][bin] of the forward
+    direction's planes, the sums in float32 before the rounding."""
+    row, col = dft_fragment_index("default")
+    row, col = row[:DFT_HALF_TILES], col[:DFT_HALF_TILES]
+    wc, ws = (torch.from_numpy(a) for a in _dft_planes_np(MXU_INNER, False))
+    mats = (wc, ws, wc + ws, wc - ws)
+    frags = torch.stack([w.T[torch.from_numpy(row), torch.from_numpy(col)] for w in mats], 2)
+    return frags.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+@functools.lru_cache(maxsize=None)
+def dft_half_tables(precision: str, device: torch.device) -> torch.Tensor:
+    """B2's and B7's table (DFT_HALF_BYTES) on `device`, uploaded once:
+    dft_half_default_fragments_np at 'default', the first DFT_HALF_TILES
+    tiles of the forward dft_sym_fragments_np at 'highest'."""
+    if check_precision(precision) == "default":
+        return torch.from_numpy(dft_half_default_fragments_np().view(np.int16)).to(device)
+    return torch.from_numpy(dft_sym_fragments_np(False)[:DFT_HALF_TILES].copy()).to(device)
 
 
 def group_dft_res_tasks(groups: int, warps: int) -> dict:
@@ -870,6 +899,33 @@ def r_plan(n: int, radices: tuple = (), m: int = 1 << 30, inverse: bool = False,
 # by group.
 
 S_STORES = ("transposed", "natural", "rows")  # B2's store, B7's, B10's
+# the MXU instances' shared rows: a block's shared memory less the table
+# and the mbarrier (the spectral kernels have no static shared memory); a
+# row's stride slack when the plan counts the rows that fit
+S_MXU_ROWS_SMEM = MAX_BLOCK_SMEM - DFT_HALF_BYTES - DFT_RES_BAR
+S_MXU_SLACK = 8
+
+
+def spectral_resident(store: str, code: int) -> bool:
+    """Whether a B2 or B7 launch at an engine code keeps the group DFT's
+    table resident in shared memory (csrc/wiener_spectral.cu
+    spectral_s_mxu_kernel: persistent blocks, s_plan's resident rows):
+    every tensor-core one but B7's at 'default', which keeps the L2 design
+    (spectral_s_l2_kernel: its fragment tables read through L1 and L2),
+    faster there on an H100."""
+    return bool(code) and not (store == "natural" and code == 1)
+
+
+def spectral_table_pointer(store: str, code: int, device) -> int:
+    """The group DFT's table pointer of a B2/B7 launch (0 at roll): the
+    half table of both directions where resident (dft_half_tables), else
+    the L2 design's forward fragment tables (dft_fragments)."""
+    if not code:
+        return 0
+    precision = MXU_PRECISIONS[code - 1]
+    if spectral_resident(store, code):
+        return dft_half_tables(precision, device).data_ptr()
+    return dft_fragments(False, precision, device).data_ptr()
 
 
 def s_pinned(groups: int, g: int, k: int, direct: bool, mxu: bool = False) -> bool:
@@ -884,7 +940,8 @@ def s_pinned(groups: int, g: int, k: int, direct: bool, mxu: bool = False) -> bo
 
 @functools.lru_cache(maxsize=None)
 def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transposed",
-           blocks_wanted: int = 0, rows: int = 0, threads: int = 0, mxu: bool = False) -> TPlan:
+           blocks_wanted: int = 0, rows: int = 0, threads: int = 0, mxu: bool = False,
+           resident: bool = True) -> TPlan:
     """The plan of a spectral middle over planes of m rows of length n:
     B2 (store="transposed", wiener_spectral_t and spectral_conv_t), B7
     (store="natural", fwd_wiener_rows) or B10 (store="rows",
@@ -917,7 +974,15 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
 
     mxu (B2, B7): the groups cover the outer stages 7 .. S - 1
     (stage_spec), the group DFTs and the filter between them; direct_store
-    at a pow2 row with one outer group or more."""
+    at a pow2 row with one outer group or more. The rows are those of one
+    persistent block an SM beside the resident table
+    (csrc/wiener_spectral.cu spectral_s_mxu_kernel), B7's as B2's: the
+    most (up to T_MAX_ROWS and the plane height, whatever blocks_wanted
+    asks) whose padded rows with S_MXU_SLACK words of stride slack fit
+    S_MXU_ROWS_SMEM (8 at n = 2048 and 2304, 4 at 3840 and 4096, 64 at
+    256), the stride within it; T_THREADS threads. resident=False (B7 at
+    'default', spectral_resident): the L2 design's plan, the rows and threads as
+    roll's."""
     radices = tuple(radices)
     stages = check_length(n, radices)
     check_kernel_length(n)
@@ -930,7 +995,14 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
     transposed = store == "transposed"
     q = 1 << stages
     floor = T_SLOTS // q if q < T_SLOTS else 1
+    res = mxu and resident
     if rows:
+        rows = max(rows, floor)
+    elif res:
+        cap = max(floor, min(T_MAX_ROWS, 1 << max(0, m - 1).bit_length()))
+        rows = 1
+        while rows * 2 <= cap and 16 * rows * (t_pad(n) + S_MXU_SLACK) <= S_MXU_ROWS_SMEM:
+            rows *= 2
         rows = max(rows, floor)
     else:
         cap = max(floor, min(T_MAX_ROWS if transposed else 16, 1 << max(0, m - 1).bit_length()))
@@ -949,7 +1021,7 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
         raise ValueError(f"rows a block must be a power of two >= {floor}, got {rows}")
     lr = rows.bit_length() - 1
     ns = rows * n // T_SLOTS
-    threads = threads or min(T_THREADS if transposed else R_PLAN_THREADS, -(-ns // 32) * 32)
+    threads = threads or min(T_THREADS if transposed or res else R_PLAN_THREADS, -(-ns // 32) * 32)
     if threads % 32 or not 32 <= threads <= T_THREADS:
         raise ValueError(f"threads a block must be a multiple of 32 up to {T_THREADS}")
     spec = stage_spec(stages, mxu)
@@ -957,6 +1029,8 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
     best = None
     for extra in range(32):
         plan = TPlan(n, stages, lr, t_pad(n) + extra, threads, (), direct)
+        if res and plan.smem_bytes > S_MXU_ROWS_SMEM:
+            break
         if transposed and not direct and _t_store_conflicts(plan) > 1:
             continue
         dif, dit, costs = [], [], []
@@ -977,10 +1051,9 @@ def s_plan(n: int, radices: tuple = (), m: int = 1 << 30, store: str = "transpos
             best = key, plan._replace(groups=tuple(dif), dit_groups=tuple(dit))
         if key == (1, len(costs)):
             break
-    plan = best[1]
-    if plan.smem_bytes > MAX_BLOCK_SMEM:
+    if best is None or best[1].smem_bytes > MAX_BLOCK_SMEM:
         raise ValueError(f"a row of {n} points does not fit a block's shared memory")
-    return plan
+    return best[1]
 
 
 # ---------------------------------------------------------------------------

@@ -30,10 +30,12 @@ around the DIF and DIT stages).
 
 B2 and B7 take the JAX kernels' `engine=` and `precision=` (fft_kernel's
 module docstring): where the column length resolves to mxu they launch
-the tensor-core instance of the same kernel (csrc/fft_group_dft.cuh), the
-outer DIF groups, the group DFT with the filter in its epilogue, B2's
-inverse group DFT and outer DIT groups; H must then be the spectrum the
-same engine and precision made. B10 takes no engine, as in JAX.
+the tensor-core instance (csrc/wiener_spectral.cu spectral_s_mxu_kernel:
+the outer DIF groups, the group DFT with the filter in its epilogue, B2's
+inverse group DFT and outer DIT groups; one table for both directions
+resident in each persistent block's shared memory, fft_kernel.s_plan's
+rows beside it); H must then be the spectrum the same engine and
+precision made. B10 takes no engine, as in JAX.
 
 bf16 staging (models/pipeline.py stage_dtype; the JAX _load_f32 and
 out_dtype): B2 'wiener' takes bfloat16 A with a bfloat16 or float32 H
@@ -62,10 +64,11 @@ from fft_restoration_tpu_torch.ops.kernels.fft_kernel import (
     check_out_dtype,
     count_mxu,
     cross_args,
-    dft_pointer,
     engine_code,
     run_stages,
     s_plan,
+    spectral_resident,
+    spectral_table_pointer,
     tables,
 )
 from fft_restoration_tpu_torch.ops.wiener import spectral_product, wiener_filter
@@ -123,13 +126,14 @@ def _s_launch_args(n, radices, m, store, device, pairs, rows=0, threads=0, code=
     the cache. B2: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i,
     *cross_f, *cross_i); B7: (geometry, cos_f, sin_f, plan_f, *cross_f);
     B10: (geometry, cos_f, sin_f, cos_i, sin_i, plan_f, plan_i); B2 and
-    B7 end with the engine code and the fragment pointers (B2 both
-    directions', B7 the forward one). rows, threads: s_plan's overrides
+    B7 end with the engine code and the group DFT's table pointer
+    (fft_kernel.spectral_table_pointer). rows, threads: s_plan's overrides
     (tools/rows_geometry.py)."""
     check_kernel_length(n)
     b2, dit = store == "transposed", store != "natural"
     wanted = -(-_sm_count(device) * T_MIN_WAVES // pairs) if b2 else 0
-    plan = s_plan(n, radices, m, store, wanted, rows, threads, mxu=bool(code))
+    plan = s_plan(n, radices, m, store, wanted, rows, threads, mxu=bool(code),
+                  resident=spectral_resident(store, code))
     arrays = (plan.c_plan(), plan.c_plan(dit=True)) if dit else (plan.c_plan(),)
     tf = tables(n, False, device, radices)
     consts = [tf.cos.data_ptr(), tf.sin.data_ptr()]
@@ -142,9 +146,7 @@ def _s_launch_args(n, radices, m, store, device, pairs, rows=0, threads=0, code=
     if b2:
         consts += cross_args(n, radices, True, device)
     if store != "rows":
-        consts += [code, dft_pointer(code, False, device)]
-    if b2:
-        consts.append(dft_pointer(code, True, device))
+        consts += [code, spectral_table_pointer(store, code, device)]
     return (plan.logq, plan.lr, plan.rs, plan.threads), tuple(consts), arrays
 
 

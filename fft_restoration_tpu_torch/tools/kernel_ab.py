@@ -31,7 +31,12 @@ and 'highest' (`B1_mxu_*`, `B3_mxu_*`, `B6_mxu_*`): B1 on the 2048^2
 frame, batch64's stack and inverse-T pass and the UHD frame's smooth
 extents, B6's PSF pass at 2048^2 and at the UHD frame's height, B3 at
 2 x 2048^2, on batch64's planes and at the UHD frame's smooth extents,
-and the bf16-staged B1 store and B6 / B3 loads at 2048^2. `--modes` times only the modes whose names start with one of its
+and the bf16-staged B1 store and B6 / B3 loads at 2048^2; the MXU
+spectral middles at both precisions (`B2_mxu_*`, `B7_mxu_*`): B2 'wiener',
+'conv' and conj at 2 x 2048^2, 'wiener' at the UHD frame's smooth
+extents, the bf16-staged 'wiener' (A, H and out bfloat16) and 'conv' (H
+bfloat16), B7 on batch64 (float32 and bfloat16 A and H) and on the
+640x330 stack at --pad smooth. `--modes` times only the modes whose names start with one of its
 prefixes. Each mode is the median of three CUDA-event loops of `--iters` launches.
 Then, unless --no-paths, `tools/profile_paths.py` in the same turns for
 the restore paths' device busy, event time and host enqueue (both
@@ -250,6 +255,16 @@ def child(iters: int, seed: int, only: tuple = ()) -> dict:
             "B3_mxu_packed_inv_96x256x256": lambda E=E: fk.fft_rows_packed_out(*inv64, **E),
             "B3_mxu_uhd_smooth": lambda E=E: fk.fft_rows_packed_out(*umid, radices=rw, **E),
             "B3_mxu_bf16": lambda E=E: fk.fft_rows_packed_out(*mid16, **E),
+            "B2_mxu_wiener": lambda E=E: ws.wiener_spectral_t(*a, *H, 0.01, **E),
+            "B2_mxu_conv": lambda E=E: ws.spectral_conv_t(*a, *H, False, **E),
+            "B2_mxu_conj": lambda E=E: ws.spectral_conv_t(*a, *H, True, **E),
+            "B2_mxu_wiener_uhd_smooth": lambda E=E: ws.wiener_spectral_t(*ua, *uH, 0.01, rh, **E),
+            "B2_mxu_bf16_wiener": lambda E=E: ws.wiener_spectral_t(*a16, *H16, 0.01, out_dtype=bf,
+                                                                   **E),
+            "B2_mxu_bf16_conv": lambda E=E: ws.spectral_conv_t(*a, *H16, False, **E),
+            "B7_mxu_batch64": lambda E=E: ws.fwd_wiener_rows(*st, *H64, 0.01, **E),
+            "B7_mxu_bf16_batch64": lambda E=E: ws.fwd_wiener_rows(*st16, *H64_16, 0.01, **E),
+            "B7_mxu_stack330_smooth": lambda E=E: ws.fwd_wiener_rows(*sa, *sH, 0.01, srh, **E),
         }
         modes.update({f"{k}_{prec}": v for k, v in mxu.items()})
     # the white-balance pair on the plain restore's raw planes, also timed

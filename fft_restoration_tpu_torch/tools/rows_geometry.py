@@ -165,13 +165,13 @@ def run_s_case(torch, np, rng, case, rows, threads, iters):
                   for _ in range(2))
     args = (a_re, a_im, h_re, h_im, 0.01, radices, store, rows, threads)
     if store == "transposed":
-        launch = lambda: ws._launch_s("wiener_spectral_t_launch", *args)  # noqa: E731
+        launch = lambda: ws._launch_s("wiener_spectral_t_launch", *args, dtypes=0)  # noqa: E731
         ref = ws.wiener_spectral_t_plain(a_re, a_im, h_re, h_im, 0.01, radices)
     elif store == "rows":
         launch = lambda: ws._launch_s("wiener_spectral_rows_launch", *args)  # noqa: E731
         ref = ws.wiener_spectral_rows_plain(a_re, a_im, h_re, h_im, 0.01)
     else:
-        launch = lambda: ws._launch_s("fwd_wiener_rows_launch", *args)  # noqa: E731
+        launch = lambda: ws._launch_s("fwd_wiener_rows_launch", *args, dtypes=0)  # noqa: E731
         ref = ws.fwd_wiener_rows_plain(a_re, a_im, h_re, h_im, 0.01, radices)
     err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
               for a, b in zip(launch(), ref))

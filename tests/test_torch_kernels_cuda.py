@@ -986,6 +986,56 @@ def test_mxu_rows_resident_tables(dev, gen, precision, m, n, radices, live):
     assert launch_counts["fft_rows_t_bf16"] == 2
 
 
+# B2's MXU instances and B7's at 'highest' run the group DFT from one 64 KB
+# table for both directions, resident in each persistent block's shared
+# memory (csrc/fft_group_dft_smem.cuh group_dft_sym; fft_kernel.s_plan's
+# rows beside it: 8 of 2048 and 2304, 4 of 3840 and 4096, 64 of 256, 128 of
+# 128); B7 at 'default' keeps the L2 design (spectral_s_l2_kernel). Each
+# instance against its plain twin at both precisions: ragged plane heights
+# (a last row block part live; fewer row blocks than the card's SMs),
+# q = 128 alone, q = 256 smooth rows with two cross levels, pow2 rows up
+# to 4096 (two outer groups), and every bf16-staging variant; B2 at
+# 'default' within MXU_BF16_REL, the rest within 1e-5 of the max.
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("m,n,radices", [(37, 2048, ()), (5, 128, ()), (130, 256, ()),
+                                         (9, 4096, ()), (19, 2304, (3, 3)), (7, 3840, (3, 5)),
+                                         (33, 384, (3,))])
+def test_mxu_spectral_resident_table(dev, gen, precision, m, n, radices):
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
+
+    E = dict(engine="mxu", precision=precision)
+    b16 = torch.bfloat16
+    b2_tol = 1e-5 if precision == "highest" else MXU_BF16_REL
+    a = [torch.as_tensor(gen.standard_normal((3, m, n), np.float32), device=dev)
+         for _ in range(2)]
+    h = [torch.as_tensor(gen.standard_normal((m, n), np.float32), device=dev) for _ in range(2)]
+    ab, hb = [x.to(b16) for x in a], [x.to(b16) for x in h]
+    cases = [
+        (ws.wiener_spectral_t, ws.wiener_spectral_t_plain, (*a, *h, 0.01, radices), {}, b2_tol),
+        (ws.spectral_conv_t, ws.spectral_conv_t_plain, (*a, *h, False, radices), {}, b2_tol),
+        (ws.spectral_conv_t, ws.spectral_conv_t_plain, (*a, *h, True, radices), {}, b2_tol),
+        (ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain, (*a, *h, 0.01, radices), {}, 1e-5),
+        (ws.wiener_spectral_t, ws.wiener_spectral_t_plain, (*ab, *hb, 0.01, radices),
+         dict(out_dtype=b16), b2_tol),
+        (ws.wiener_spectral_t, ws.wiener_spectral_t_plain, (*ab, *h, 0.01, radices),
+         dict(out_dtype=b16), b2_tol),
+        (ws.spectral_conv_t, ws.spectral_conv_t_plain, (*a, *hb, True, radices), {}, b2_tol),
+        (ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain, (*ab, *hb, 0.01, radices), {}, 1e-5),
+        (ws.fwd_wiener_rows, ws.fwd_wiener_rows_plain, (*ab, *h, 0.01, radices), {}, 1e-5),
+    ]
+    reset_launch_counts()
+    for kern, plain, args, kw, tol in cases:
+        for o, r in zip(kern(*args, **kw, **E), plain(*args, **kw, **E)):
+            assert o.dtype == r.dtype and o.shape == r.shape
+            err = _bf16_excess(o, r) if o.dtype == b16 else _rel(o, r)
+            assert err <= tol, (kern.__name__, kw, err)
+    assert launch_counts[f"wiener_spectral_t_mxu_{precision}"] == 3
+    assert launch_counts[f"spectral_conv_t_mxu_{precision}"] == 1
+    assert launch_counts[f"spectral_conv_t_conj_mxu_{precision}"] == 2
+    assert launch_counts[f"fwd_wiener_rows_mxu_{precision}"] == 3
+
+
 def test_mxu_pipeline_counts_and_tiers(dev):
     from fft_restoration_tpu_torch import WienerDeblurPipeline
     from fft_restoration_tpu_torch.host.blurgen import blur_image
