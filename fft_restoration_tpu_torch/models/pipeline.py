@@ -115,7 +115,7 @@ from fft_restoration_tpu_torch.ops.kernels.postprocess import (
 from fft_restoration_tpu_torch.ops.fft import check_backend, fft2d
 from fft_restoration_tpu_torch.ops.psf import PSF_TYPES, make_psf
 from fft_restoration_tpu_torch.ops.wiener import cls_filter, inverse_filter
-from fft_restoration_tpu_torch.utils.trace_profile import fphase
+from fft_restoration_tpu_torch.utils.trace_profile import count, fphase, frequest
 
 PAD_MODES = ("pow2", "smooth")
 # stage_dtype values (the JAX package's): float32 staging, bfloat16 staging
@@ -732,6 +732,7 @@ class _CachedPsfPipeline:
     def _remember(self, key, H):
         if key not in self._psf_cache and len(self._psf_cache) >= PSF_CACHE_SIZE:
             self._psf_cache.pop(next(iter(self._psf_cache)))
+            count("psf_evictions")
         self._psf_cache[key] = H
 
     def _cache_key(self, pad, psf_length, angle):
@@ -745,7 +746,9 @@ class _CachedPsfPipeline:
         """Cached (psf, (H_re, H_im)) for an (h, w) frame."""
         pad = self.pad(h, w)
         key = self._cache_key(pad, psf_length, angle)
+        count("psf_lookups")
         if key not in self._psf_cache:
+            count("psf_misses")
             psf = make_psf(self.psf_type, int(psf_length), float(angle), self.device)
             H = psf_spectrum_planes(psf, *pad[:2], self.ops, pad[2:])
             self._remember(key, (psf, tuple(x.to(self.spectrum_dtype) for x in H)))
@@ -778,28 +781,30 @@ class _CachedPsfPipeline:
 
     def _restore(self, stack, psf_length, psf_angle, K, **over):
         """restore_stack on a device stack with this pipeline's options
-        (`over` overrides white_balance / emit_planes)."""
-        h, w = stack.shape[1:3]
-        self._check_psf_fits(h, w, int(psf_length))
-        if self.fft_backend != KERNEL_BACKEND:
-            opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes)
+        (`over` overrides white_balance / emit_planes), in the `frequest`
+        range of one request (utils/trace_profile.py)."""
+        with frequest(stack.shape[0]):
+            h, w = stack.shape[1:3]
+            self._check_psf_fits(h, w, int(psf_length))
+            if self.fft_backend != KERNEL_BACKEND:
+                opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes)
+                opts.update(over)
+                with fphase("pre_process"):  # as JAX's _restore_core makes its PSF
+                    psf = make_psf(self.psf_type, int(psf_length), float(psf_angle), self.device)
+                return restore_stack_generic(stack, psf, float(K), fft_backend=self.fft_backend,
+                                             filter_name=self.filter_name, rl_iters=self.rl_iters,
+                                             edgetaper=self.edgetaper, pad_mode=self.pad_mode,
+                                             **opts)
+            psf, H = self._psf_spectrum(h, w, psf_length, psf_angle)
+            opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes,
+                        wb_stats_stride=self.wb_stats_stride)
             opts.update(over)
-            with fphase("pre_process"):  # as JAX's _restore_core makes its PSF
-                psf = make_psf(self.psf_type, int(psf_length), float(psf_angle), self.device)
-            return restore_stack_generic(stack, psf, float(K), fft_backend=self.fft_backend,
-                                         filter_name=self.filter_name, rl_iters=self.rl_iters,
-                                         edgetaper=self.edgetaper, pad_mode=self.pad_mode,
-                                         **opts)
-        psf, H = self._psf_spectrum(h, w, psf_length, psf_angle)
-        opts = dict(white_balance=self.white_balance, emit_planes=self.emit_planes,
-                    wb_stats_stride=self.wb_stats_stride)
-        opts.update(over)
-        return restore_stack(
-            stack, H, float(K), filter_name=self.filter_name, psf=psf,
-            lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
-            rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode,
-            ops=self.ops, stage_dtype=self.stage_dtype, **opts,
-        )
+            return restore_stack(
+                stack, H, float(K), filter_name=self.filter_name, psf=psf,
+                lap=self._laplacian_spectrum(h, w) if self.filter_name == "cls" else None,
+                rl_iters=self.rl_iters, edgetaper=self.edgetaper, pad_mode=self.pad_mode,
+                ops=self.ops, stage_dtype=self.stage_dtype, **opts,
+            )
 
 
 class WienerDeblurPipeline(_CachedPsfPipeline):

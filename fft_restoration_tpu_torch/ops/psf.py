@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from fft_restoration_tpu_torch.utils.trace_profile import fphase
+
 PSF_TYPES = ("motion", "gaussian", "disk")
 
 
@@ -96,18 +98,20 @@ def make_psf(psf_type, size: int, param: float, device) -> torch.Tensor:
     """PSF family dispatcher: 'motion' (param = angle in degrees),
     'gaussian' (param = sigma in px), 'disk' (param ignored) — or a
     concrete (size, size) kernel (an array or tensor; param ignored),
-    returned as float32 on `device`."""
-    if not isinstance(psf_type, str):
-        kernel = torch.as_tensor(psf_type, dtype=torch.float32, device=device)
-        if tuple(kernel.shape) != (size, size):
-            raise ValueError(
-                f"custom PSF kernel shape {tuple(kernel.shape)} != ({size}, {size})"
-            )
-        return kernel
-    if psf_type == "motion":
-        return motion_blur_kernel(size, param, device)
-    if psf_type == "gaussian":
-        return gaussian_kernel(size, param, device)
-    if psf_type == "disk":
-        return disk_kernel(size, device)
-    raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")
+    returned as float32 on `device`. Its small ops run in the
+    `fphase_make_psf` range, whoever calls it."""
+    with fphase("make_psf"):
+        if not isinstance(psf_type, str):
+            kernel = torch.as_tensor(psf_type, dtype=torch.float32, device=device)
+            if tuple(kernel.shape) != (size, size):
+                raise ValueError(
+                    f"custom PSF kernel shape {tuple(kernel.shape)} != ({size}, {size})"
+                )
+            return kernel
+        if psf_type == "motion":
+            return motion_blur_kernel(size, param, device)
+        if psf_type == "gaussian":
+            return gaussian_kernel(size, param, device)
+        if psf_type == "disk":
+            return disk_kernel(size, device)
+        raise ValueError(f"unknown psf type {psf_type!r}; one of {PSF_TYPES}")

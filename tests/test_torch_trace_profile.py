@@ -2,8 +2,10 @@
 of tests/test_trace_profile.py: the device-row filter and the phase
 breakdown on a synthetic trace in torch's chrome-trace format (kernels
 launched inside and outside fphase_ ranges, through each attribution
-route), the report's text, and device_trace of a CPU function, which has
-no device rows and reports "not measured"."""
+route), device busy as the union of overlapping rows, the report's text
+(the spans' host ms and the PSF-cache counts included), and device_trace
+of a CPU function, which has no device rows and reports "not measured",
+and of a pipeline, whose traced runs' spans it reads."""
 
 import json
 from collections import Counter
@@ -138,3 +140,51 @@ def test_profile_paths_reads_device_time_through_device_trace():
     assert isinstance(rep, tp.DeviceTraceReport) and rep.n_iters == 2
     if not torch.cuda.is_available():
         assert rep.device_total_ms == 0.0 and "not measured" in rep.report()
+
+
+def test_device_busy_is_the_union_of_overlapping_rows():
+    """Rows of two streams overlapping on [20, 30], a third inside both,
+    and a gap: busy counts each instant once, 40 us where the rows sum to
+    55."""
+    rows = [_kernel("a", 10, 20, 1), _kernel("b", 20, 20, 2), _kernel("c", 22, 5, 3),
+            _kernel("d", 60, 10, 4)]
+    assert tp.busy_us(rows) == pytest.approx(40.0)
+    assert sum(r["dur"] for r in rows) == 55
+    assert tp.busy_us(tp.device_rows(_trace())) == pytest.approx(
+        sum(r["dur"] for r in tp.device_rows(_trace())))  # one stream, no overlap
+    assert tp.busy_us([]) == 0.0
+
+
+def test_report_prints_spans_and_counters():
+    rep = tp.DeviceTraceReport(n_iters=2, device_total_ms=0.4, device_span_ms=0.7,
+                               ops_ms={"k": 0.8},
+                               spans_ms={"frequest": (1.5, 0.25), "fphase_ifft": (0.5, 0.5)},
+                               counters={"psf_lookups": 2, "psf_misses": 1})
+    lines = rep.report().splitlines()
+    i = next(k for k, ln in enumerate(lines) if ln.startswith("  spans (host ms a run"))
+    assert lines[i + 1].split() == ["1.500", "ms", "0.250", "ms", "frequest"]
+    assert lines[i + 2].split() == ["0.500", "ms", "0.500", "ms", "fphase_ifft"]
+    assert lines[-1] == "  PSF cache: psf_lookups 2, psf_misses 1"
+    cpu = tp.DeviceTraceReport(n_iters=2, device_total_ms=0.0, device_span_ms=0.0,
+                               spans_ms={"frequest": (1.5, 0.25)})
+    text = cpu.report()
+    assert "not measured" in text and "frequest" in text and "ms/iter" not in text
+
+
+def test_device_trace_reads_the_traced_runs_spans(monkeypatch):
+    """device_trace's report holds the in-memory records of its traced
+    runs alone: the warm-up call before the trace (a new PSF) is not
+    recorded, each traced run is one request with a cache hit."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+
+    monkeypatch.setattr(tp, "RECORDER", tp.Recorder())
+    pipe = WienerDeblurPipeline("cpu", emit_planes=False)
+    x = torch.zeros(24, 40, 3, dtype=torch.uint8)
+    rep = tp.device_trace(pipe.run, (x, 5, 30.0, 0.01), n_iters=3)
+    assert rep.counters == {"psf_lookups": 3}
+    assert "fphase_make_psf" not in rep.spans_ms
+    host, own = rep.spans_ms["frequest"]
+    assert 0 < own < host
+    assert set(rep.spans_ms) == {"frequest", "fphase_fft_image", "fphase_spectral_fused",
+                                 "fphase_ifft", "fphase_post_process"}
+    assert "PSF cache: psf_lookups 3" in rep.report()
