@@ -70,6 +70,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              at hp = 2304, B3, B1's stack and inverse-T passes and B7 at
              hp = 384), the mixed-radix row
              adding up the UHD frame's three launches with cross levels;
+             the motion PSF's kernel (csrc/psf.cu) bitwise against its
+             plain version at every PSF length 20-60 and at 4096, each
+             with 16 angles, timed at 50 and 4096 (check_motion_psf);
              then the ops layer's kernels on (3, 2048, 2048) planes and
              (6144, 2048) rows: B6 natural, B11 in both orderings and
              directions (and natural forward at H = 4096 and on (96,
@@ -84,7 +87,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              blurred frames made from --seed: each path once with the
              launch counters reset (each of its kernels must have run;
              every restore path's transposed passes B1's fft_rows_t;
-             batch64 must take the B7 middle, batch8 the B2 middle),
+             batch64 must take the B7 middle, batch8 the B2 middle; the
+             motion PSF's kernel once on a PSF-cache miss, and not at
+             all on the 2048^2 path's second run, a hit),
              then against the port's plain path on the card (the same
              restore with every kernel's plain version); the CLI on the
              2048^2 frame against the oracle at the inf tier; 640x330 and
@@ -109,7 +114,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              Wiener + edgetaper at 640x330 (check_rl_f64's contracts, the
              tapered oracle); the CLI with --pad smooth; the generic
              route with 'matmul' at 2048^2 (counters reset: no kernel
-             launches) against its CPU run and the kernel route, the ops
+             launches but the motion PSF's one) against its CPU run and the kernel route, the ops
              layer restore (B6 natural, B11, B9; counters reset) against
              it, fft2d's launches on 'pallas' (fft_rows' natural instance)
              and 'matmul' (none), each backend at 640x330 against the
@@ -146,7 +151,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              headline and batch64_256sq_shared_psf on the kernels (the
              headline's four fphase_ phases must add up to device busy,
              each non-zero, under 1% unattributed), one config on
-             'matmul' (no kernel launch), their JSON lines printed;
+             'matmul' (no kernel launch but the motion PSF's), their
+             JSON lines printed;
              profile_phases at 2048^2 on 'matmul' against the generic
              pipeline; RL (10 iterations) and Wiener + edgetaper on
              'matmul' against the kernel route at 2048^2, and RL with
@@ -362,6 +368,15 @@ SMALL_FAMILY = (
 # B2 'conv' launches a run of each family path takes
 CONV_LAUNCHES = {"rl_2048sq": 2 * RL_ITERS, "wiener_edgetaper_2048sq": 1}
 SRC = "fft_restoration_tpu_torch/"
+# the motion PSF's kernel (csrc/psf.cu): one launch a new motion PSF on
+# the card, on every route (so its count is not in KERNELS, whose counts
+# tell the routes apart); checked bitwise against its plain version at
+# every length the benchmark's PSF cell draws and at the largest PSF a
+# 4096^2 frame allows, with PSF_ANGLES and PSF_SEEDED angles from --seed
+PSF_KERNEL = "motion_psf"
+PSF_SIZES = (*range(20, 61), 4096)
+PSF_ANGLES = (0.0, 30.0, 45.0, 90.0, 135.0, 179.999, -30.0, 400.0)
+PSF_SEEDED = 8
 TPU = "fft_restoration_tpu/ops/pallas/"
 # --pad smooth: the UHD frame of bench_extended.py:203-210 and 640x330
 # frames, PSF(50, 30); SMOOTH_STACK of the latter in the B7 stack
@@ -663,12 +678,12 @@ def plain_restore(torch, stack, psf_length, stride=1, emit_planes=True, pad_mode
     from fft_restoration_tpu_torch.models.pipeline import (
         PLAIN_OPS, laplacian_spectrum, pad_extents, psf_spectrum_planes, restore_stack,
     )
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     x = torch.as_tensor(stack, device=dev)
     hp, wp, rad_h, rad_w = pad_extents(*stack.shape[1:3], pad_mode)
-    psf = make_psf("motion", psf_length, 30.0, dev)
+    psf = motion_blur_kernel(psf_length, 30.0, dev)
     H = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rad_h, rad_w))
     lap = (laplacian_spectrum(hp, wp, dev, PLAIN_OPS, (rad_h, rad_w))
            if filter_kw.get("filter_name") == "cls" else None)
@@ -698,14 +713,14 @@ def check_fft_rows(torch, np, frame, stack64, iters):
     from fft_restoration_tpu_torch.models.pipeline import PLAIN_OPS, psf_spectrum_planes
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     img = torch.as_tensor(frame, device=dev)[None]
     s64 = torch.as_tensor(stack64, device=dev)
     h, w = frame.shape[:2]
     hp, wp = h, w  # pow2 already
-    psf = make_psf("motion", 50, 30.0, dev)
+    psf = motion_blur_kernel(50, 30.0, dev)
     fwd_k = fk.fft_rows_stack(img, extent=(hp, wp))
     fwd_p = fk.fft_rows_stack_plain(img, extent=(hp, wp))
     psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp))
@@ -719,7 +734,7 @@ def check_fft_rows(torch, np, frame, stack64, iters):
     n64, side = stack64.shape[0], stack64.shape[1]
     st_k = fk.fft_rows_stack(s64, extent=(side, side))
     st_p = fk.fft_rows_stack_plain(s64, extent=(side, side))
-    H64 = psf_spectrum_planes(make_psf("motion", 25, 30.0, dev), side, side, PLAIN_OPS)
+    H64 = psf_spectrum_planes(motion_blur_kernel(25, 30.0, dev), side, side, PLAIN_OPS)
     f64 = ws.fwd_wiener_rows_plain(*st_p, *H64, 0.01)
     inv_k = fk.fft_rows(*f64, inverse=True, transposed=True)
     inv_p = fk.fft_rows_plain(*f64, inverse=True, transposed=True)
@@ -807,11 +822,11 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
     # extents (4096^2: 4 rows a block, 16-byte column segments)
     from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     h, w = frame.shape[:2]
     up = fk.fft_rows_stack_plain(torch.as_tensor(uhd, device=dev)[None], extent=(4096, 4096))
-    uH = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), 4096, 4096, PLAIN_OPS)
+    uH = psf_spectrum_planes(motion_blur_kernel(50, 30.0, dev), 4096, 4096, PLAIN_OPS)
     b2 = {}
     for mode, (a, H, mid_p, side) in (("frame_2x2048x2048", (fwd_p, Hp, mid, h)),
                                       ("uhd_pow2_2x4096x4096", (up, uH, None, 4096))):
@@ -882,7 +897,7 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
     raw8 = restore_raw(s8, H8, 0.01, PLAIN_OPS)
     su = torch.as_tensor(uhd, device=dev)[None]
     uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
-    uHs = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), uhp, uwp, PLAIN_OPS, (urh, urw))
+    uHs = psf_spectrum_planes(motion_blur_kernel(50, 30.0, dev), uhp, uwp, PLAIN_OPS, (urh, urw))
     rawu = restore_raw(su, uHs, 0.01, PLAIN_OPS, pad_mode="smooth")
     cases = {
         # name: (raw, lo, scale, orig (B, 3, h, w), strides)
@@ -955,16 +970,71 @@ def check_kernels(torch, np, frame, stack64, stack8, uhd, iters):
     return rows
 
 
-def drive(torch, name, fn, expect, forbid=()):
+def check_motion_psf(torch, np, seed, iters):
+    """The motion PSF's kernel (csrc/psf.cu) against its plain version,
+    ops/psf.py:motion_blur_kernel run on the same card, to the bit: every
+    size of PSF_SIZES at PSF_ANGLES and at PSF_SEEDED angles in [0, 180)
+    from `seed`; at sizes 50 (the smoke's PSF, in the cell's 20-60) and
+    4096, each timed with CUDA events (a back-to-back launch is
+    host-paced) and in a CUDA graph (the kernel's own time) beside its
+    plain version and its bound (S^2 float32 stores; 45 float32 products,
+    sums and divisions a value). Returns the kernel table's row."""
+    from fft_restoration_tpu_torch.ops.kernels.psf import motion_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
+    from fft_restoration_tpu_torch.tools.kernel_ab import graph_ms
+
+    dev = torch.device("cuda", 0)
+    angles = [*PSF_ANGLES, *np.random.default_rng(seed + 2700).uniform(0.0, 180.0, PSF_SEEDED)]
+    bad, pairs = [], {}
+    for size in PSF_SIZES:
+        for angle in angles:
+            got, want = motion_psf(size, angle, dev), motion_blur_kernel(size, angle, dev)
+            if got.shape != want.shape or not torch.equal(got.view(torch.int32),
+                                                          want.view(torch.int32)):
+                bad.append((size, angle, float((got - want).abs().max())))
+            if angle == 30.0:
+                pairs[size] = (got, want)
+    modes = {}
+    for size in (50, 4096):
+        m = modes[f"psf_{size}"] = measure(
+            torch, [pairs[size]], lambda: motion_psf(size, 30.0, dev),
+            lambda: motion_blur_kernel(size, 30.0, dev), iters, size * size * 4,
+            size * size * 45)
+        m["graph_ms"] = graph_ms(torch, lambda: motion_psf(size, 30.0, dev), iters)
+        log(f"motion_psf {size}x{size}: {m['ms']:.4f} ms (CUDA graph {m['graph_ms']:.4f}) vs "
+            f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.6f} ms ({m['bound_by']})")
+    log(f"motion_psf: {len(PSF_SIZES) * len(angles) - len(bad)} of "
+        f"{len(PSF_SIZES) * len(angles)} (size, angle) pairs bitwise the plain version's")
+    if bad:
+        fail(f"motion_psf differs from its plain version: {bad[:10]}")
+    main = modes["psf_50"]
+    return dict(name=PSF_KERNEL, route="cuda", source=SRC + "csrc/psf.cu",
+                replaces="fft_restoration_tpu/ops/psf.py:motion_blur_kernel (jnp ops)",
+                also_replaces=[], **main, max_rel_err_all=main["max_rel_err"],
+                max_abs_err_all=max(m["max_abs_err"] for m in modes.values()),
+                pairs_checked=len(PSF_SIZES) * len(angles), pairs_off=len(bad),
+                main_mode="psf_50", modes=modes)
+
+
+def path_counts() -> dict:
+    """The launch counts of KERNELS and of the motion PSF's kernel."""
+    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts
+
+    return {k: launch_counts[k] for k in KERNELS + (PSF_KERNEL,)}
+
+
+def drive(torch, name, fn, expect, forbid=(), psf=None):
     """Run one path with the launch counters set to 0 just before and read
     just after; fail unless every kernel in `expect` launched and none in
-    `forbid` did. Returns (fn's result, counts)."""
-    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
+    `forbid` did, and unless the motion PSF's kernel launched `psf` times
+    (1 on a PSF-cache miss, 0 on a hit; None: counted, not checked).
+    Returns (fn's result, counts)."""
+    from fft_restoration_tpu_torch.ops.kernels import reset_launch_counts
 
     reset_launch_counts()
     res = fn()
     torch.cuda.synchronize()
-    counts = {k: launch_counts[k] for k in KERNELS}
+    counts = path_counts()
     log(f"{name} launches: {counts}")
     missing = [k for k in expect if counts[k] == 0]
     if missing:
@@ -972,6 +1042,8 @@ def drive(torch, name, fn, expect, forbid=()):
     extra = [k for k in forbid if counts[k]]
     if extra:
         fail(f"kernels launched off the {name} path's middle: {extra}")
+    if psf is not None and counts[PSF_KERNEL] != psf:
+        fail(f"{name}: {counts[PSF_KERNEL]} motion PSF launches, expected {psf}")
     return res, counts
 
 
@@ -987,11 +1059,14 @@ def check_slice(torch, np, frame, seed):
     from fft_restoration_tpu_torch.host.verify import channels_equal
 
     pipe = WienerDeblurPipeline(device="cuda")
+    main = dict(expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
+                        "wb_encode_u8"),
+                forbid=("fwd_wiener_rows", "mixed_radix"))
     (out, planes), counts = drive(
         torch, "main path 2048x2048x3", lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
-        expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
-                "wb_encode_u8"),
-        forbid=("fwd_wiener_rows", "mixed_radix"))
+        psf=1, **main)
+    drive(torch, "main path 2048x2048x3, its PSF cached",
+          lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01), psf=0, **main)
     if out.shape != frame.shape or out.dtype != np.uint8 or not np.isfinite(planes).all():
         fail(f"bad output: {out.shape} {out.dtype}, finite planes {np.isfinite(planes).all()}")
 
@@ -1070,7 +1145,7 @@ def check_batched(torch, np, stacks, seed):
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         (out, planes), counts = drive(torch, name, lambda: pipe.run(x, psf, 30.0, 0.01),
-                                      expect=common + (middle,), forbid=(other,))
+                                      expect=common + (middle,), forbid=(other,), psf=1)
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         out, planes = out.cpu().numpy(), planes.cpu().numpy()
         if out.shape != stack.shape or not np.isfinite(planes).all():
@@ -1169,7 +1244,8 @@ def check_family(torch, np, frame):
     for name, kw, expect, forbid in FAMILY:
         pipe = WienerDeblurPipeline("cuda", **kw)
         (out, planes), counts = drive(
-            torch, name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01), expect, forbid)
+            torch, name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01), expect, forbid,
+            psf=1)
         if counts["spectral_conv_t"] != CONV_LAUNCHES.get(name, 0):
             fail(f"{name}: {counts['spectral_conv_t']} B2 'conv' launches, expected "
                  f"{CONV_LAUNCHES.get(name, 0)}")
@@ -1193,7 +1269,7 @@ def check_family_small(torch, np, stack8):
         pipe = BatchedWienerPipeline("cuda", **kw)
         x = pipe.to_device(stack8)
         (out, planes), counts = drive(torch, name, lambda: pipe.run(x, 25, 30.0, 0.01),
-                                      expect, forbid)
+                                      expect, forbid, psf=1)
         out_p, planes_p = plain_restore(torch, stack8, 25, **kw)()
         res[name] = dict(launches=counts, vs_plain=compare_paths(
             np, name, planes.cpu().numpy(), planes_p.cpu().numpy(), out.cpu().numpy(),
@@ -1234,7 +1310,7 @@ def check_rl_f64(torch, np, seed, cases=RL_F64_CASES, pad_mode="pow2"):
     from fft_restoration_tpu_torch.models.pipeline import (
         encode_planar, pad_extents, padded_planes,
     )
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
     from fft_restoration_tpu_torch.tools.rl_rim import (
         padded_frame_planes,
         rl_f32_torch_fft,
@@ -1255,7 +1331,7 @@ def check_rl_f64(torch, np, seed, cases=RL_F64_CASES, pad_mode="pow2"):
                 fail(f"{name}: the pipeline's padded planes are not x / 255 on the card")
             if taper:
                 y = edge_taper_planes(torch.as_tensor(y, device=dev),
-                                      make_psf("motion", length, 30.0, dev), (h, w),
+                                      motion_blur_kernel(length, 30.0, dev), (h, w),
                                       radices_hw=(rad_h, rad_w)).cpu().numpy()
             out, planes = WienerDeblurPipeline(
                 "cuda", filter_name="rl", rl_iters=RL_ITERS, edgetaper=taper, pad_mode=pad_mode
@@ -1348,13 +1424,13 @@ def check_kernels_smooth(torch, np, uhd, small, iters):
     )
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     h, w = uhd.shape[:2]
     hp, wp, rad_h, rad_w = pad_extents(h, w, "smooth")
     img = torch.as_tensor(uhd, device=dev)[None]
-    psf = make_psf("motion", 50, 30.0, dev)
+    psf = motion_blur_kernel(50, 30.0, dev)
     fwd_p = fk.fft_rows_stack_plain(img, extent=(hp, wp), radices=rad_w)
     psf1 = fk.fft_rows_plain(psf[None], None, transposed=True, extent=(hp, wp), radices=rad_w)
     Hp = psf_spectrum_planes(psf, hp, wp, PLAIN_OPS, (rad_h, rad_w))
@@ -1642,7 +1718,7 @@ def check_smooth(torch, np, uhd, small, seed):
         lambda: pipe.restore_with_planes(uhd, 50, 30.0, 0.01),
         expect=("fft_rows", "fft_rows_t", "wiener_spectral_t", "lab_l_sum_partials",
                 "wb_encode_u8", "mixed_radix"),
-        forbid=("fwd_wiener_rows", "spectral_conv_t"))
+        forbid=("fwd_wiener_rows", "spectral_conv_t"), psf=1)
     counts["uhd_smooth"] = c
     if c["mixed_radix"] != c["fft_rows"] + c["wiener_spectral_t"]:
         fail(f"UHD smooth: {c['mixed_radix']} launches with cross levels, expected every FFT "
@@ -1683,7 +1759,7 @@ def check_smooth(torch, np, uhd, small, seed):
                       lambda: bp.run(x, 50, 30.0, 0.01),
                       expect=("fft_rows", "fft_rows_t", "fwd_wiener_rows", "lab_l_sum_partials",
                               "wb_encode_u8", "mixed_radix"),
-                      forbid=("wiener_spectral_t", "spectral_conv_t"))
+                      forbid=("wiener_spectral_t", "spectral_conv_t"), psf=1)
     counts["stack330_smooth"] = c
     o_p, p_p = plain_restore(torch, small, 50, pad_mode="smooth")()
     res["stack330_smooth"] = dict(launches=c, vs_plain=compare_paths(
@@ -1745,7 +1821,8 @@ def ops_layer_restore(torch, chans, psf, K):
 def check_generic(torch, np, frame, seed):
     """Phase 3, the ops layer and the generic route: the 2048^2 frame
     through WienerDeblurPipeline(fft_backend='matmul') with the counters
-    reset (no kernel may launch) against the same route on the CPU and
+    reset (no kernel may launch but the motion PSF's, once: the route
+    makes its PSF on every request) against the same route on the CPU and
     the kernel route; the frame through ops_layer_restore (B6 natural,
     B11, B9) against the generic route's planes; fft2d's launches on the
     pallas backend (fft_rows' natural instance, rows then columns) and
@@ -1764,14 +1841,14 @@ def check_generic(torch, np, frame, seed):
     from fft_restoration_tpu_torch.models.pipeline import padded_planes, restore_planes_generic
     from fft_restoration_tpu_torch.ops.fft import FFT_BACKENDS, fft2d
     from fft_restoration_tpu_torch.ops.kernels import KERNELS
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     res, counts = {}, {}
     pipe = WienerDeblurPipeline("cuda", fft_backend="matmul")
     (out, planes), c = drive(torch, "generic route (fft_backend matmul) 2048x2048x3",
                              lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
-                             expect=(), forbid=KERNELS)
+                             expect=(), forbid=KERNELS, psf=1)
     counts["generic_matmul_2048sq"] = c
     if out.shape != frame.shape or not np.isfinite(planes).all():
         fail(f"generic matmul: bad output {out.shape}, finite planes {np.isfinite(planes).all()}")
@@ -1794,13 +1871,13 @@ def check_generic(torch, np, frame, seed):
     res["generic_matmul_2048sq"] = dict(r, launches=c)
 
     chans = padded_planes(torch.as_tensor(frame, device=dev)[None], SIZE, SIZE)
-    psf = make_psf("motion", 50, 30.0, dev)
+    psf = motion_blur_kernel(50, 30.0, dev)
     ops_planes, c = drive(
         torch, "ops layer restore 2048x2048x3 (B6 natural, B11, B9)",
         lambda: ops_layer_restore(torch, chans, psf, 0.01),
         expect=("fft_rows_natural", "fft_cols", "wiener_elem"),
         forbid=("wiener_spectral_t", "spectral_conv_t", "fwd_wiener_rows", "wiener_spectral_rows",
-                "fft_rows_radix4", "mixed_radix", "fft_rows_t"))
+                "fft_rows_radix4", "mixed_radix", "fft_rows_t"), psf=0)
     counts["ops_restore_2048sq"] = c
     ref = restore_planes_generic(chans, psf, 0.01, fft_backend="matmul")
     d = float((ops_planes - ref).abs().max())
@@ -1814,7 +1891,7 @@ def check_generic(torch, np, frame, seed):
     for backend, expect in (("pallas", ("fft_rows_natural",)), ("matmul", ())):
         _, c = drive(torch, f"fft2d, {backend} backend, 2048x2048",
                      lambda b=backend: fft2d(x, y, backend=b), expect=expect,
-                     forbid=tuple(k for k in KERNELS if k not in expect + ("fft_rows",)))
+                     forbid=tuple(k for k in KERNELS if k not in expect + ("fft_rows",)), psf=0)
         if backend == "pallas" and not c["fft_rows_natural"] == c["fft_rows"] == 2:
             fail(f"fft2d pallas: expected 2 natural fft_rows launches, got {c}")
         if backend == "matmul" and any(c.values()):
@@ -1924,7 +2001,7 @@ def middle_ab(torch, np, stacks, iters, seed):
     from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     stacks = dict(stacks, stack16_512sq=np.random.default_rng(seed).integers(
@@ -1933,7 +2010,7 @@ def middle_ab(torch, np, stacks, iters, seed):
     for name, _, side, psf in sorted(BATCHES + (("stack16_512sq", 16, 512, 25),),
                                      key=lambda c: c[2]):
         a = fk.fft_rows_stack(torch.as_tensor(stacks[name], device=dev), extent=(side, side))
-        H = psf_spectrum_planes(make_psf("motion", psf, 30.0, dev), side, side)
+        H = psf_spectrum_planes(motion_blur_kernel(psf, 30.0, dev), side, side)
         b2 = lambda: ws.wiener_spectral_t(*a, *H, 0.01)  # noqa: E731
         pair = lambda: fk.fft_rows(*ws.fwd_wiener_rows(*a, *H, 0.01),  # noqa: E731
                                    inverse=True, transposed=True)
@@ -2149,7 +2226,7 @@ def check_twin(torch, np, frame, stack8, seed):
             torch, f"generic {name} (matmul) 2048x2048x3",
             lambda k=kw: WienerDeblurPipeline("cuda", fft_backend="matmul", **k
                                               ).restore_with_planes(frame, 50, 30.0, 0.01),
-            (), KERNELS)
+            (), KERNELS, psf=1)
         dp = float(np.abs(gen[1] - kern[1]).max())
         diff = np.abs(gen[0].astype(np.int32) - kern[0].astype(np.int32))
         du, dm = int(diff.max()), float(diff.mean())
@@ -2215,7 +2292,7 @@ def tile_batch(torch, np, big):
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     t = TILED_TILE
@@ -2227,7 +2304,7 @@ def tile_batch(torch, np, big):
     flat = u8_to_unit(torch.stack([frame[y:y + t, x:x + t] for y, x in starts])
                       .permute(0, 3, 1, 2).reshape(-1, t, t)).contiguous()
     a_p = fk.fft_rows_plain(flat[0::2], flat[1::2], transposed=True)
-    H = psf_spectrum_planes(make_psf("motion", TILED_PSF, 30.0, dev), t, t, PLAIN_OPS)
+    H = psf_spectrum_planes(motion_blur_kernel(TILED_PSF, 30.0, dev), t, t, PLAIN_OPS)
     conv_p = ws.spectral_conv_t_plain(*a_p, *H, False, ())
     mid_p = ws.wiener_spectral_t_plain(*a_p, *H, 0.01, ())
     return flat, a_p, H, conv_p, mid_p
@@ -2482,7 +2559,7 @@ def check_estimate(torch, np, uhd, seed):
                            "fwd_wiener_rows", "lab_l_sum_partials", "wb_encode_u8"))
     for name, img in (("estimate_motion_uhd", uhd), ("estimate_motion_4096x6144", big)):
         (length, angle, conf), c = drive(torch, name, lambda: est.estimate_motion_psf(img),
-                                         **natural)
+                                         psf=0, **natural)
         pl, pa, pc = est.estimate_motion_psf(img, ops=PLAIN_OPS)
         log(f"{name} {img.shape[:2]}: length {length}, angle {angle:.3f}, confidence {conf:.3f};"
             f" plain run {pl}, {pa:.3f}, {pc:.3f}")
@@ -2495,7 +2572,7 @@ def check_estimate(torch, np, uhd, seed):
         counts[name] = c
         timed[name] = (est.estimate_motion_psf, img)
     (size, conf), c = drive(torch, "estimate_disk_2048sq", lambda: est.estimate_disk_psf(disk),
-                            **natural)
+                            psf=0, **natural)
     ps, pc = est.estimate_disk_psf(disk, ops=PLAIN_OPS)
     log(f"estimate_disk_psf 2048^2, disk {EST_DISK}: size {size}, confidence {conf:.3f}; "
         f"plain run {ps}, {pc:.3f}")
@@ -2507,7 +2584,7 @@ def check_estimate(torch, np, uhd, seed):
     counts["estimate_disk_2048sq"] = c
     timed["estimate_disk_2048sq"] = (est.estimate_disk_psf, disk)
     (sigma, conf), c = drive(torch, "estimate_gaussian_2048sq",
-                             lambda: est.estimate_gaussian_psf(gauss), **natural)
+                             lambda: est.estimate_gaussian_psf(gauss), psf=0, **natural)
     psg, pc = est.estimate_gaussian_psf(gauss, ops=PLAIN_OPS)
     log(f"estimate_gaussian_psf 2048^2, sigma {EST_SIGMA}: sigma {sigma:.4f}, confidence "
         f"{conf:.3f}; plain run {psg:.4f}, {pc:.3f}")
@@ -2744,7 +2821,7 @@ def check_serve(torch, np, seed):
     from fft_restoration_tpu_torch.host.jpeg_encode import encode_jpeg
     from fft_restoration_tpu_torch.models import estimate as est
     from fft_restoration_tpu_torch.models.tiled import tiled_restore_image
-    from fft_restoration_tpu_torch.ops.kernels import KERNELS, launch_counts, reset_launch_counts
+    from fft_restoration_tpu_torch.ops.kernels import reset_launch_counts
     from fft_restoration_tpu_torch.tools import serve_slo
 
     t_phase = time.perf_counter()
@@ -2884,7 +2961,7 @@ def check_serve(torch, np, seed):
             fail("serve: the load twin's batch phase was not co-batched")
         trace = trace_burst(torch, addr, bodies["small"], 8)
         torch.cuda.synchronize()
-        counts = {k: launch_counts[k] for k in KERNELS}
+        counts = path_counts()
     finally:
         srv.shutdown()
         srv.server_close()
@@ -3030,7 +3107,7 @@ def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
     from fft_restoration_tpu_torch.models.tiled import (
         tile_grid, tiled_restore_image, validate_tile_params,
     )
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
     from fft_restoration_tpu_torch.parallel import ShardedWienerPipeline, make_mesh, make_mesh2d
     from fft_restoration_tpu_torch.parallel.sharded_pipeline import (
         profile_phases_sharded, sharded_batched_restore_images, sharded_batched_restore_planes,
@@ -3087,7 +3164,7 @@ def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
         pipe.restore(frame, 50, 30.0, 0.01)  # warm: the allocator's blocks
         out, planes = drive_sharded(
             name, lambda: pipe.restore_with_planes(frame, 50, 30.0, 0.01),
-            dict(fft_rows=SHARD_B6_WIENER * d, fft_rows_natural=0, mixed_radix=0))
+            dict(fft_rows=SHARD_B6_WIENER * d, fft_rows_natural=0, mixed_radix=0, motion_psf=0))
         row = dict(mesh=pipe.mesh.describe(),
                    vs_single=compare(name, planes, out, planes_1, out_1, "the single-card route"))
         out_p, planes_p = ShardedWienerPipeline(mesh=make_mesh(d), ops=PLAIN_OPS
@@ -3114,7 +3191,7 @@ def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
     planes_ph, prof = drive_sharded(
         "sharded_phases_rows4", lambda: profile_phases_sharded(frame, 50, 30.0, 0.01,
                                                                mesh=make_mesh(4)),
-        dict(fft_rows=3 * 2 * 4, fft_rows_natural=3 * 2 * 4))
+        dict(fft_rows=3 * 2 * 4, fft_rows_natural=3 * 2 * 4, motion_psf=1))
     res["sharded_phases_rows4"] = dict(
         phases_ms=dict(prof.accum_ms),
         vs_single=compare("profile_phases_sharded on 4 shards", planes_ph, None, planes_1, None,
@@ -3122,7 +3199,7 @@ def check_sharded(torch, np, frame, stack8, uhd, big, tiled_host, iters):
 
     # batch8 2048^2 on a (2, 4) mesh: 2 rows groups of 4 frames
     mesh = make_mesh2d(2, 4)
-    psf = make_psf("motion", 50, 30.0, "cuda")
+    psf = motion_blur_kernel(50, 30.0, "cuda")
     out_b = drive_sharded("sharded_batch8_2x4", lambda: sharded_batched_restore_images(
         stack8, psf, 0.01, mesh), dict(fft_rows=SHARD_B6_WIENER * mesh.size))
     batched = BatchedWienerPipeline(device="cuda")
@@ -4107,7 +4184,7 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
     from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     img = torch.as_tensor(frame, device=dev)[None]
@@ -4116,8 +4193,8 @@ def check_mxu_kernels(torch, np, frame, stack64, uhd, iters):
     hp, wp = frame.shape[:2]
     side = stack64.shape[1]
     uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
-    psf = make_psf("motion", 50, 30.0, dev)
-    psf25 = make_psf("motion", 25, 30.0, dev)
+    psf = motion_blur_kernel(50, 30.0, dev)
+    psf25 = motion_blur_kernel(25, 30.0, dev)
 
     def lib(re, im):
         x = torch.complex(re, im)
@@ -4308,7 +4385,7 @@ def check_mxu(torch, np, frame, stacks, seed, iters):
         kernel_ops, normalized_planes, pad_extents, psf_spectrum_planes, restore_raw,
         restore_stack,
     )
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
     from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
     t_phase = time.perf_counter()
@@ -4322,7 +4399,7 @@ def check_mxu(torch, np, frame, stacks, seed, iters):
         ops = kernel_ops("mxu", prec, plain=True)
         x = torch.as_tensor(stack, device=on)
         hp, wp, _, _ = pad_extents(*stack.shape[1:3])
-        psf = make_psf("motion", psf_length, 30.0, on)
+        psf = motion_blur_kernel(psf_length, 30.0, on)
         H = psf_spectrum_planes(psf, hp, wp, ops)
         out, planes = restore_stack(x, H, 0.01, white_balance=True, emit_planes=True,
                                     wb_stats_stride=1, psf=psf, ops=ops, **kw)
@@ -4478,7 +4555,7 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
     )
     from fft_restoration_tpu_torch.ops.kernels import fft_kernel as fk
     from fft_restoration_tpu_torch.ops.kernels import wiener_spectral as ws
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
 
     dev = torch.device("cuda", 0)
     B = torch.bfloat16
@@ -4490,8 +4567,8 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
     side = stack64.shape[1]
     uhp, uwp, urh, urw = pad_extents(*uhd.shape[:2], "smooth")
     shp, swp, srh, srw = pad_extents(*small.shape[1:3], "smooth")
-    psf = make_psf("motion", 50, 30.0, dev)
-    psf25 = make_psf("motion", 25, 30.0, dev)
+    psf = motion_blur_kernel(50, 30.0, dev)
+    psf25 = motion_blur_kernel(25, 30.0, dev)
     flat = padded_planes(img, hp, wp)  # (3, 2048, 2048) float32
     n2 = hp * wp
 
@@ -4518,7 +4595,7 @@ def check_stage_kernels(torch, np, frame, stack64, uhd, small, iters):
         uH = tuple(h.to(B) for h in psf_spectrum_planes(psf, uhp, uwp, ops_p, (urh, urw)))
         umid = ws.wiener_spectral_t_plain(*ufwd, *uH, 0.01, urh, **st, **E)
         sfwd = fk.fft_rows_stack_plain(ssm, extent=(shp, swp), radices=srw, **st, **E)
-        sH = psf_spectrum_planes(make_psf("motion", 50, 30.0, dev), shp, swp, ops_p, (srh, srw))
+        sH = psf_spectrum_planes(motion_blur_kernel(50, 30.0, dev), shp, swp, ops_p, (srh, srw))
         p64, up, sp = st_b[0].shape[0], ufwd[0].shape[0], sfwd[0].shape[0]
         u2 = uhp * uwp
 
@@ -4736,7 +4813,7 @@ def check_stage(torch, np, frame, stacks, seed, iters):
         PLAIN_OPS, kernel_ops, laplacian_spectrum, pad_extents, psf_spectrum_planes,
         restore_stack,
     )
-    from fft_restoration_tpu_torch.ops.psf import make_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
     from fft_restoration_tpu_torch.utils.trace_profile import device_trace
 
     t_phase = time.perf_counter()
@@ -4750,7 +4827,7 @@ def check_stage(torch, np, frame, stacks, seed, iters):
         ops = kernel_ops(engine, "default", plain=True)
         x = torch.as_tensor(stack, device=dev)
         hp, wp, _, _ = pad_extents(*stack.shape[1:3])
-        psf = make_psf("motion", psf_length, 30.0, dev)
+        psf = motion_blur_kernel(psf_length, 30.0, dev)
         H = psf_spectrum_planes(psf, hp, wp, ops, stage_dtype="bf16" if spectrum_bf16 else None)
         out, planes = restore_stack(x, H, 0.01, white_balance=True, emit_planes=True,
                                     wb_stats_stride=1, psf=psf, ops=ops, stage_dtype="bf16", **kw)
@@ -4967,6 +5044,7 @@ def main() -> int:
         row["max_abs_err_all"] = max([row["max_abs_err"]]
                                      + [m["max_abs_err"] for m in modes.values()])
     rows.append(mixed_row)
+    rows.append(check_motion_psf(torch, np, args.seed, args.iters))
     rows += check_ops_kernels(torch, np, args.seed, args.iters)
     big = noise_frame(np, (*TILED_HW, 3), args.seed + 800)
     slice_modes = check_kernels_tiled_estimate(torch, np, big, args.iters)

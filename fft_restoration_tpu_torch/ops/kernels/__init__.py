@@ -21,6 +21,9 @@ under "<kernel>_bf16" as well (`STAGE_COUNTS`: B1 "fft_rows_t" storing,
 B6 "fft_rows" and B3 "fft_rows_packed_out" loading, B2
 "wiener_spectral_t", "spectral_conv_t" and "spectral_conv_t_conj", B7
 "fwd_wiener_rows").
+"motion_psf" counts the launches of the motion PSF's kernel
+(csrc/psf.cu), one a new PSF on every route on the card, the generic one
+too; so it is not in KERNELS, whose counts tell the routes apart.
 
 The public names of the JAX package's `ops.pallas` are here under the
 port's names, imported on first use: `fft_rows` (fft_rows_pallas),

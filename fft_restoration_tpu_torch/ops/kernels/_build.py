@@ -26,7 +26,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 SOURCES = ("fft_rows_t.cu", "fft_rows.cu", "wiener_spectral.cu", "fft_cols.cu", "wiener_elem.cu",
-           "fft_radix4.cu", "postprocess.cu")
+           "fft_radix4.cu", "postprocess.cu", "psf.cu")
 HEADERS = ("fft_common.cuh", "fft_rows_load.cuh", "fft_groups.cuh", "fft_group_dft.cuh",
            "fft_group_dft_smem.cuh")
 # the sources whose MXU instances build in units of their own, one an
@@ -65,6 +65,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
 F = ctypes.c_float
+D = ctypes.c_double
 
 # argtypes of each C entry point (csrc/*.cu); every entry returns the
 # cudaError_t of its launch. CROSS: one direction's cross levels (levels,
@@ -131,6 +132,8 @@ SIGNATURES = {
     # raw, gains, lo, scale, out, plane elements, W0, h, w, slab, n_slabs,
     # n_chunks, log2 TX, blocks, vec4, host colors, stream
     "wb_encode_launch": [P, P, P, P, P, LL, I, I, I, I, I, I, I, LL, I, P, P],
+    # out (size, size) float32, size, angle in degrees, stream
+    "motion_psf_launch": [P, I, D, P],
 }
 
 # nvcc's output of the build of the loaded library (ptxas register and

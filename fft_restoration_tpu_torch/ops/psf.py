@@ -7,7 +7,10 @@ inverse-map bilinear sampling (constant-0 border), not re-normalized —
 matching the oracle (fft_restoration_tpu/oracle/psf.py) to float
 rounding; and the gaussian and disk members of the family. A concrete
 (size, size) kernel passes through `make_psf` (--psf-file; the file is
-read on the host by host/psf_file.py).
+read on the host by host/psf_file.py). On a CUDA device the motion PSF
+is one launch of a hand-written kernel (ops/kernels/psf.py motion_psf),
+equal to `motion_blur_kernel` to the bit; the CPU runs this module's
+version.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import math
 
 import torch
 
+from fft_restoration_tpu_torch.ops.kernels.psf import motion_psf
 from fft_restoration_tpu_torch.utils.trace_profile import fphase
 
 PSF_TYPES = ("motion", "gaussian", "disk")
@@ -98,8 +102,9 @@ def make_psf(psf_type, size: int, param: float, device) -> torch.Tensor:
     """PSF family dispatcher: 'motion' (param = angle in degrees),
     'gaussian' (param = sigma in px), 'disk' (param ignored) — or a
     concrete (size, size) kernel (an array or tensor; param ignored),
-    returned as float32 on `device`. Its small ops run in the
-    `fphase_make_psf` range, whoever calls it."""
+    returned as float32 on `device`. Its work (on a CUDA device the
+    motion PSF's one launch) runs in the `fphase_make_psf` range, whoever
+    calls it."""
     with fphase("make_psf"):
         if not isinstance(psf_type, str):
             kernel = torch.as_tensor(psf_type, dtype=torch.float32, device=device)
@@ -109,7 +114,7 @@ def make_psf(psf_type, size: int, param: float, device) -> torch.Tensor:
                 )
             return kernel
         if psf_type == "motion":
-            return motion_blur_kernel(size, param, device)
+            return motion_psf(size, param, device)
         if psf_type == "gaussian":
             return gaussian_kernel(size, param, device)
         if psf_type == "disk":

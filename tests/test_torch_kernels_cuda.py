@@ -20,7 +20,8 @@ levels, 1e-4 planes and 1 count for the smooth restore paths. The ops
 layer (B6 natural, B9 wiener_elem, B10 wiener_spectral_rows, B11
 fft_cols, B12 radix-4): 1e-5 of the output's max magnitude against the
 plain version; the generic route on the card against its CPU run 1e-5
-planes, 1 count.
+planes, 1 count. The motion PSF's kernel: bitwise against the plain
+version on the card, and so the restore on a PSF-cache miss too.
 """
 
 import numpy as np
@@ -1183,3 +1184,79 @@ def test_stage_pipelines_vs_plain_and_launches(dev, gen, fft_engine):
                                      wb_stats_stride=1, psf=psf, ops=ops, stage_dtype="bf16")
         assert float((planes - want_p).abs().max()) <= 0.015
         assert int((out.int() - want.int()).abs().max()) <= 4
+
+
+def _psf_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+def test_motion_psf_bitwise_vs_plain(dev):
+    """The motion PSF's kernel (csrc/psf.cu) against the plain version run
+    on the same card, to the bit, at every size up to 64 and at 255, 1024
+    and 4096, and at fixed, negative, wrapped and seeded angles."""
+    from fft_restoration_tpu_torch.ops.kernels.psf import motion_psf
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
+
+    seeded = np.random.default_rng(27).uniform(0.0, 180.0, 20).tolist()
+    angles = [0.0, 30.0, 45.0, 90.0, 135.0, 179.999, -30.0, 400.0] + seeded
+    bad = []
+    for size in [*range(1, 65), 255, 1024, 4096]:
+        for angle in angles:
+            ours = motion_psf(size, angle, dev)
+            ref = motion_blur_kernel(size, angle, dev)
+            if ours.shape != (size, size) or not torch.equal(_psf_bits(ours), _psf_bits(ref)):
+                bad.append((size, angle, float((ours - ref).abs().max())))
+    assert not bad, bad[:10]
+
+
+def test_make_psf_motion_neither_copies_nor_synchronises(dev):
+    from fft_restoration_tpu_torch.ops.psf import make_psf
+
+    make_psf("motion", 50, 30.0, dev)  # the library's build and load outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for size, angle in ((50, 30.0), (21, 133.7), (1, 0.0)):
+            make_psf("motion", size, angle, dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_motion_psf_launches_once_a_miss(dev, gen):
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.ops.kernels import launch_counts
+
+    img = blur_image(gen.integers(0, 256, (300, 520, 3), dtype=np.uint8), 21, 60.0)
+    pipe = WienerDeblurPipeline("cuda")
+    psfs = [(21, 60.0), (35, 12.5), (20, 179.0), (60, 90.0), (44, 0.0)]
+    for length, angle in psfs:
+        before = launch_counts["motion_psf"]
+        pipe.restore(img, length, angle, 0.01)
+        assert launch_counts["motion_psf"] == before + 1
+    before = launch_counts["motion_psf"]
+    for length, angle in psfs:
+        pipe.restore(img, length, angle, 0.01)
+    assert launch_counts["motion_psf"] == before
+
+
+def test_psf_miss_path_output_unchanged(dev, gen):
+    """The restore on a PSF-cache miss (the kernel's PSF) against the same
+    pipeline fed the plain version's PSF spectrum through the same
+    psf_spectrum_planes: the uint8 frames equal."""
+    from fft_restoration_tpu_torch import WienerDeblurPipeline
+    from fft_restoration_tpu_torch.host.blurgen import blur_image
+    from fft_restoration_tpu_torch.models.pipeline import psf_spectrum_planes
+    from fft_restoration_tpu_torch.ops.psf import motion_blur_kernel
+
+    h, w = 540, 960
+    img = blur_image(gen.integers(0, 256, (h, w, 3), dtype=np.uint8), 40, 20.0)
+    for length, angle in ((40, 20.0), (23, 151.3), (60, 89.9)):
+        pipe, ref = WienerDeblurPipeline("cuda"), WienerDeblurPipeline("cuda")
+        out = pipe.restore(img, length, angle, 0.01)
+        pad = ref.pad(h, w)
+        H = psf_spectrum_planes(motion_blur_kernel(length, angle, dev), *pad[:2], ref.ops,
+                                pad[2:])
+        ref.load_psf_spectrum(h, w, length, angle, tuple(x.cpu().numpy() for x in H))
+        assert np.array_equal(np.asarray(out), np.asarray(ref.restore(img, length, angle, 0.01)))
