@@ -10,8 +10,10 @@ that the harness finds by its name (`spec.py`):
   traffic/<traffic>.json   the mix: loop kind, pools, PSF schedule, sample
   metrics/<metric>.py      read(run) -> value or None, for every metric
   limits/<cell>.json       the limit of each number `correct` compares
+  reference/<name>.py      prepare(...), restore(...): the plain float64
+                           restore a configuration's frames are held to,
+                           named by its "reference" key (default restore.py)
 
-`reference/` is the plain float64 restore the outputs are held against,
 `roofline/` the counts of the restore's work and the card's peaks. The
 benchmark drives the port only, and never imports JAX or the JAX package.
 """

@@ -1,9 +1,13 @@
 """Whether the timed path's frames are right: each sampled frame against
-the float64 reference (reference/restore.py), after the window.
+the float64 reference of the cell's configuration, after the window.
 
-For every frame of the sample the reference restores the same input
-frame with the same (length, angle), its PSF worked out again from them;
-the program's uint8 frame is then compared value by value:
+That reference is the module reference/<name>.py that the configuration
+names with its `"reference"` key, and reference/restore.py, the pow2
+Wiener restore, where it names none (spec.load_cell loads it). For every
+frame of the sample the reference restores the same input frame with the
+same (length, angle), what it prepares for that PSF and shape (for
+restore.py the PSF's spectrum) worked out again from them; the program's
+uint8 frame is then compared value by value:
 
   off_share   the share of the frame's uint8 values that differ from the
               reference's by any count; `worst_off_share` is the largest
@@ -19,8 +23,6 @@ from __future__ import annotations
 
 import torch
 
-from benchmark.reference.restore import next_pow2, psf_spectrum, restore_frame
-
 
 def frame_numbers(out: torch.Tensor, ref: torch.Tensor) -> dict:
     """A frame's numbers, under the names of their worst over the sample."""
@@ -29,11 +31,13 @@ def frame_numbers(out: torch.Tensor, ref: torch.Tensor) -> dict:
             "max_off": int(diff.max().item())}
 
 
-def check(items, pool, K: float, limits: dict) -> dict:
+def check(items, pool, cell) -> dict:
     """items: the sampler's (index, (pool index, length, angle), output);
-    pool: the inputs, frames (n, h, w, 3) or stacks (n, B, h, w, 3).
+    pool: the inputs, frames (n, h, w, 3) or stacks (n, B, h, w, 3); cell:
+    the spec.Cell, whose reference, configuration and limits hold.
     Returns {"frames", "failed", "numbers": {name: value}, "correct"}."""
-    spectra = {}
+    ref, config, limits = cell.reference, cell.config, cell.limits
+    prepared = {}
     worst = {"worst_off_share": 0.0, "max_off": 0}
     frames = failed = 0
     for _, (p, length, angle), out in items:
@@ -42,11 +46,11 @@ def check(items, pool, K: float, limits: dict) -> dict:
             inputs, out = inputs[None], out[None]
         h, w = inputs.shape[1:3]
         key = (length, angle, h, w)
-        if key not in spectra:
-            spectra.clear()
-            spectra[key] = psf_spectrum(length, angle, next_pow2(h), next_pow2(w), inputs.device)
+        if key not in prepared:
+            prepared.clear()
+            prepared[key] = ref.prepare(length, angle, h, w, config, inputs.device)
         for frame, got in zip(inputs, out):
-            nums = frame_numbers(got, restore_frame(frame, length, angle, K, spectra[key]))
+            nums = frame_numbers(got, ref.restore(frame, prepared[key], config))
             frames += 1
             failed += any(nums[k] > v for k, v in limits.items())
             worst = {k: max(v, nums[k]) for k, v in worst.items()}

@@ -9,7 +9,8 @@ checkout by the first run there), the frames and the warm-up, which runs
 every PSF length the traffic uses and holds as many outputs as the window
 will. With trace on, a slice of `trace_requests` requests after the window
 runs under torch.profiler. After that the program's state is freed and the
-sampled outputs are compared with the float64 reference.
+sampled outputs are compared with the float64 reference that the cell's
+configuration names.
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    return run, compare.check(items, pool, K, cell.limits)
+    return run, compare.check(items, pool, cell)
 
 
 def result_line(run: Run, checked: dict, trace: bool) -> dict:

@@ -17,7 +17,9 @@ shares no code with the program:
     then trunc(clip(x * 255, 0, 255)) as uint8.
 
 Every step is float64 on whatever device the frame lies on. Nothing here
-imports the program.
+imports the program. `prepare` and `restore` are this module's side of
+the interface of a reference (reference/__init__.py), with K read from
+the configuration.
 """
 
 from __future__ import annotations
@@ -161,3 +163,15 @@ def restore_frame(frame: torch.Tensor, length: int, angle_deg: float, K: float,
     if H is None:
         H = psf_spectrum(length, angle_deg, next_pow2(h), next_pow2(w), frame.device)
     return encode(restore_planes(frame, H, K), frame)
+
+
+def prepare(length: int, angle_deg: float, h: int, w: int, config: dict, device) -> torch.Tensor:
+    """What every (h, w) frame of the PSF (length, angle) reuses: the PSF's
+    spectrum at the next power of two on each axis."""
+    return psf_spectrum(length, angle_deg, next_pow2(h), next_pow2(w), device)
+
+
+def restore(frame: torch.Tensor, prepared: torch.Tensor, config: dict) -> torch.Tensor:
+    """uint8 (h, w, 3) BGR frame -> the reference's restored uint8 frame,
+    with the configuration's K."""
+    return encode(restore_planes(frame, prepared, float(config["K"])), frame)

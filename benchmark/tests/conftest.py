@@ -37,22 +37,23 @@ TINY_TRAFFIC = {
 }
 
 
-def add_tiny(root: Path) -> list:
-    """Add the small configuration, its traffic, limits and cells under
-    root (a copy of the repository's benchmark); returns the cell names."""
+def add_tiny(root: Path, config: str = TINY, **keys) -> list:
+    """Add the small configuration `config` (with `keys` over its own), its
+    traffic, limits and cells under root (a copy of the repository's
+    benchmark); returns the cell names."""
     bench = root / "benchmark"
     cfg = json.loads((bench / "configs" / "photo_2048x2048_wiener.json").read_text())
-    cfg.update(name=TINY, frame=dict(cfg["frame"], height=80, width=96),
-               psf=dict(cfg["psf"], length=9))
-    (bench / "configs" / f"{TINY}.json").write_text(json.dumps(cfg))
+    cfg.update(name=config, frame=dict(cfg["frame"], height=80, width=96),
+               psf=dict(cfg["psf"], length=9), **keys)
+    (bench / "configs" / f"{config}.json").write_text(json.dumps(cfg))
     spec = json.loads((root / "BENCHMARK.json").read_text())
     real = json.loads((bench / "limits" / "photo_2048x2048_wiener.batch8.json").read_text())
     names = []
     for traffic, (params, like) in TINY_TRAFFIC.items():
         (bench / "traffic" / f"{traffic}.json").write_text(json.dumps(params))
-        name = f"{TINY}.{traffic}"
+        name = f"{config}.{traffic}"
         (bench / "limits" / f"{name}.json").write_text(json.dumps(real))
-        spec["workloads"].append(dict(name=name, config=TINY, traffic=traffic, chips=1,
+        spec["workloads"].append(dict(name=name, config=config, traffic=traffic, chips=1,
                                       why="test"))
         for m in spec["end_to_end"] + spec["per_layer"]:
             if like in m.get("workloads", ()):

@@ -1,6 +1,6 @@
 """Nothing the benchmark runs imports JAX or the JAX package, compared by
 whole top-level names (the port's name begins with the JAX package's),
-and the reference imports nothing of the port."""
+and no reference module imports or loads anything of the port."""
 
 from __future__ import annotations
 
@@ -35,10 +35,44 @@ def test_no_source_imports_jax():
         assert not imported_tops(path) & FORBIDDEN, path
 
 
+def relative_imports(path):
+    """(level, module) of each relative import in the file."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [(node.level, node.module) for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) and node.level > 0]
+
+
 def test_reference_imports_nothing_of_the_port():
-    for path in (ROOT / "benchmark" / "reference").rglob("*.py"):
+    """A reference imports no JAX and nothing of the port or the harness,
+    save its siblings' float64 helpers (`from .restore import ...`)."""
+    ref_dir = ROOT / "benchmark" / "reference"
+    for path in ref_dir.rglob("*.py"):
         tops = imported_tops(path)
         assert PORT not in tops and "benchmark" not in tops, path
+        assert not tops & FORBIDDEN, path
+        for level, module in relative_imports(path):
+            assert level == 1 and module and (ref_dir / f"{module}.py").is_file(), path
+
+
+def test_reference_modules_load_no_jax_nor_the_port():
+    """Every reference module loaded as the check loads it, in a fresh
+    interpreter: no module of JAX, the JAX package or the port comes with it."""
+    code = f"""
+import json, sys
+sys.path.insert(0, {str(ROOT)!r})
+from benchmark import spec
+names = sorted(p.stem for p in (spec.BENCH_DIR / 'reference').glob('*.py')
+               if p.stem != '__init__')
+for name in names:
+    spec.reference(name)
+print(json.dumps([names, sorted({{m.split('.')[0] for m in sys.modules}})]))
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    names, tops = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "restore" in names
+    assert not set(tops) & (FORBIDDEN | {PORT})
 
 
 def test_the_harness_loads_no_jax(tmp_path):
