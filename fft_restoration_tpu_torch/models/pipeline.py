@@ -478,7 +478,9 @@ def restore_stack(stack, H, K, *, white_balance, emit_planes, wb_stats_stride,
     planes, the uint8 stack is None. pad_mode: 'pow2' or 'smooth', the
     extents of H too. Phase ranges (fphase) as JAX's _restore_core:
     pre_process (padding, taper), the sections of restore_raw, and
-    post_process; RL's loop is in no range, as in JAX. fft_engine,
+    post_process; RL's loop in its own ranges (rl_iteration around each
+    iteration, rl_conv around each convolution: models/richardson_lucy.py),
+    where JAX has none. fft_engine,
     mxu_precision: `ops` at that engine (with_engine); H and lap must be
     the spectra the same engine made. stage_dtype: 'bf16' stages the
     image's planes (module docstring; not RL's, as in JAX); H may be

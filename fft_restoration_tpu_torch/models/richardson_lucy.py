@@ -23,6 +23,14 @@ so RL is held to uint8-level or 5e-2 plane INF contracts (as in the JAX
 package), not to the one-shot filters' 1e-5. The JAX operation order is
 kept (scale after the inverse, eps added before the divide) so the drift
 stays at that level.
+
+Ranges and counters (utils/trace_profile.py, kept only while a profiler
+records): each iteration opens `fphase_rl_iteration` and counts
+`rl_iterations`; each of its two convolutions opens `fphase_rl_conv`
+inside it and counts `rl_convs`. A device row belongs to the innermost
+range, so the convolutions' kernels read as rl_conv and the elementwise
+update (divide, multiply, clamp) as rl_iteration: 3 records an
+iteration, 30 a request at 10 iterations.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from fft_restoration_tpu_torch.models.convolve import (
 )
 from fft_restoration_tpu_torch.models.pipeline import KERNEL_BACKEND, KERNEL_OPS
 from fft_restoration_tpu_torch.ops.kernels import u8_to_unit
+from fft_restoration_tpu_torch.utils.trace_profile import count, fphase
 
 
 def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-6,
@@ -68,13 +77,20 @@ def richardson_lucy_planes(channels, psf, n_iters: int = 10, *, eps: float = 1e-
     flat = channels.reshape(-1, hp, wp)
     y_re, y_im = pack_pairs(flat)
 
+    def traced_conv(re, im, conj=False):
+        with fphase("rl_conv"):
+            count("rl_convs")
+            return conv(re, im, conj=conj)
+
     x_re, x_im = y_re, y_im
     for _ in range(n_iters):
-        d_re, d_im = conv(x_re, x_im)
-        r_re = y_re / (d_re + eps)
-        r_im = y_im / (d_im + eps)
-        g_re, g_im = conv(r_re, r_im, conj=True)
-        x_re = torch.clamp_min(x_re * g_re, 0.0)
-        x_im = torch.clamp_min(x_im * g_im, 0.0)
+        with fphase("rl_iteration"):
+            count("rl_iterations")
+            d_re, d_im = traced_conv(x_re, x_im)
+            r_re = y_re / (d_re + eps)
+            r_im = y_im / (d_im + eps)
+            g_re, g_im = traced_conv(r_re, r_im, conj=True)
+            x_re = torch.clamp_min(x_re * g_re, 0.0)
+            x_im = torch.clamp_min(x_im * g_im, 0.0)
     restored = unpack_pairs(x_re, x_im, flat.shape[0])
     return torch.clamp(restored.reshape(channels.shape), 0.0, 1.0)

@@ -260,3 +260,56 @@ def test_recorder_under_many_threads():
             assert s.counters == {"psf_lookups": 2} and s.child_ns <= s.end_ns - s.start_ns
         else:
             assert by_id[s.parent].name == tp.REQUEST and by_id[s.parent].request == s.request
+
+
+RL_ITERS = 3
+
+
+@pytest.mark.parametrize("backend", ["pallas", "matmul"])
+def test_rl_request_records_each_iteration_and_convolution(rec, backend):
+    """An RL request: rl_iters `fphase_rl_iteration` records under its
+    request span, two `fphase_rl_conv` records under each, every one in
+    its parent's interval, and the counts rl_iterations and rl_convs on
+    the request; a Wiener request of the same session records none."""
+    rl = WienerDeblurPipeline("cpu", emit_planes=False, fft_backend=backend, filter_name="rl",
+                              rl_iters=RL_ITERS)
+    wiener = WienerDeblurPipeline("cpu", emit_planes=False, fft_backend=backend)
+    x = _frame()
+    rl.run(x, L, 30.0, K)  # untraced: the PSF is cached
+    wiener.run(x, L, 30.0, K)
+    _traced(lambda: (rl.run(x, L, 30.0, K), rl.run(x, L, 30.0, K), wiener.run(x, L, 30.0, K)))
+    snap = tp.snapshot()
+    by_id = {s.id: s for s in snap.spans}
+    (*rl_ids, wiener_id), = [sorted(_by_request(snap.spans))]
+    for request in rl_ids:
+        mine = _by_request(snap.spans)[request]
+        req, = [s for s in mine if s.name == tp.REQUEST]
+        iterations = [s for s in mine if s.name == "fphase_rl_iteration"]
+        convs = [s for s in mine if s.name == "fphase_rl_conv"]
+        assert len(iterations) == RL_ITERS and len(convs) == 2 * RL_ITERS
+        assert all(by_id[s.parent] is req for s in iterations)
+        assert sorted(by_id[s.parent].id for s in convs) == sorted(
+            2 * [s.id for s in iterations])
+        for s in iterations + convs:
+            parent = by_id[s.parent]
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+        rl_counts = {k: v for k, v in req.counters.items() if k.startswith("rl_")}
+        assert rl_counts == {"rl_iterations": RL_ITERS, "rl_convs": 2 * RL_ITERS}
+    wiener_spans = _by_request(snap.spans)[wiener_id]
+    assert not any(s.name.startswith("fphase_rl_") for s in wiener_spans)
+    req, = [s for s in wiener_spans if s.name == tp.REQUEST]
+    assert not any(k.startswith("rl_") for k in req.counters)
+
+
+def test_hundred_rl_requests_fit_the_ring(rec):
+    """The benchmark's traced slice of the RL stream: 100 requests at 10
+    iterations, 33 records each (request, pre_process, 10 iterations, 20
+    convolutions, post_process), all kept by the ring whole."""
+    pipe = WienerDeblurPipeline("cpu", emit_planes=False, filter_name="rl", rl_iters=10)
+    x = _frame()
+    pipe.run(x, L, 30.0, K)
+    _traced(lambda: [pipe.run(x, L, 30.0, K) for _ in range(100)])
+    snap = tp.snapshot(last_requests=100)
+    assert rec.capacity == tp.RING_SPANS and snap.dropped == 0
+    assert snap.requests == 100 and len(snap.spans) == 100 * 33 <= tp.RING_SPANS
+    assert snap.counters == {"psf_lookups": 100, "rl_iterations": 1000, "rl_convs": 2000}
